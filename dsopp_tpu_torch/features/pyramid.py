@@ -1,0 +1,58 @@
+"""Image pyramids of (intensity, dx, dy) pixel maps (counterpart of
+``dsopp_tpu/features/pyramid.py``) — kernel K1.
+
+Levels halve exactly (an odd trailing row/column is dropped) by 2×2 mean;
+each level's map carries the gradients of :func:`image_gradients`.
+:func:`build_pyramid_maps` runs the CUDA kernel ``csrc/pyramid.cu`` on a
+CUDA image and :func:`build_pyramid_maps_plain` on a CPU one.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from dsopp_tpu_torch import kernels
+from dsopp_tpu_torch.core.interpolate import build_pixel_map
+
+NUM_PYRAMID_LEVELS = 5
+
+
+def downscale(image):
+    """2×2 mean, [..., H, W] → [..., H//2, W//2] (row-major summation)."""
+    h = (image.shape[-2] // 2) * 2
+    w = (image.shape[-1] // 2) * 2
+    im = image[..., :h, :w]
+    return 0.25 * (((im[..., 0::2, 0::2] + im[..., 0::2, 1::2])
+                    + im[..., 1::2, 0::2]) + im[..., 1::2, 1::2])
+
+
+def build_pyramid_maps_plain(image, num_levels: int = NUM_PYRAMID_LEVELS):
+    """[H, W] → tuple of [3, H_l, W_l] maps (plain PyTorch)."""
+    levels = [image]
+    for _ in range(num_levels - 1):
+        levels.append(downscale(levels[-1]))
+    return tuple(build_pixel_map(lvl) for lvl in levels)
+
+
+def build_pyramid_maps_cuda(image, num_levels: int = NUM_PYRAMID_LEVELS):
+    """[H, W] f32 CUDA image → tuple of [3, H_l, W_l] maps (kernel K1)."""
+    h, w = image.shape
+    kernels.check(image, "image", (h, w))
+    maps = []
+    src, src_h, src_w, down = image, h, w, 0
+    for level in range(num_levels):
+        oh, ow = (src_h // 2, src_w // 2) if down else (src_h, src_w)
+        if oh < 2 or ow < 2:
+            raise ValueError(f"pyramid level {level} is {oh}x{ow}: too small")
+        out = torch.empty((3, oh, ow), dtype=image.dtype, device=image.device)
+        kernels.PYRAMID(src, src_h, src_w, out, oh, ow, down)
+        maps.append(out)
+        src, src_h, src_w, down = out[0], oh, ow, 1
+    return tuple(maps)
+
+
+def build_pyramid_maps(image, num_levels: int = NUM_PYRAMID_LEVELS):
+    """[H, W] → tuple of ``num_levels`` maps; kernel on CUDA, plain on CPU."""
+    if image.is_cuda:
+        return build_pyramid_maps_cuda(image, num_levels)
+    return build_pyramid_maps_plain(image, num_levels)

@@ -1,0 +1,137 @@
+"""Build, load and launch the hand-written CUDA kernels of ``csrc/``.
+
+The kernels are compiled at first use with ``nvcc`` for ``sm_90a`` into one
+shared library with a plain C interface, loaded with ``ctypes``.  The
+library name carries a hash of the sources, so an edited source rebuilds and
+an unchanged one is reused.  The build directory is ``build/dsopp_tpu_torch``
+beside the package (listed in ``.gitignore``).
+
+Launch rules shared by every kernel: launch on
+``torch.cuda.current_stream()``, allocate nothing in C (callers pass
+``torch.empty`` outputs), and return ``cudaGetLastError()``, which
+:class:`Kernel` turns into an exception.  Each :class:`Kernel` counts its
+launches in ``launches``; nothing else touches the count.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "dsopp_tpu_torch"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    # keep a*b+c as two roundings, as the plain PyTorch versions compute it
+    "--fmad=false",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+
+_lib = None
+
+
+def _nvcc():
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def build():
+    """Compile ``csrc/*.cu`` (if not already built) → path of the library."""
+    sources = sorted(CSRC.glob("*.cu"))
+    digest = hashlib.sha256()
+    for src in sorted(CSRC.glob("*.cu*")):
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    lib_path = BUILD_DIR / f"libdsopp_kernels_{digest.hexdigest()[:16]}.so"
+    if lib_path.exists():
+        return lib_path
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
+    (BUILD_DIR / "build.log").write_text(
+        " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    os.replace(tmp, lib_path)
+    return lib_path
+
+
+def library():
+    """The loaded kernel library (built on first call)."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        for kernel in ALL:
+            fn = getattr(lib, kernel.symbol)
+            fn.argtypes = kernel.argtypes
+            fn.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def check(t: torch.Tensor, name: str, shape, dtype=torch.float32):
+    """Raise unless ``t`` is a contiguous CUDA tensor of ``dtype``/``shape``."""
+    if not t.is_cuda:
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
+    return t
+
+
+class Kernel:
+    """One C entry point of the library, with its launch count."""
+
+    def __init__(self, name: str, symbol: str, argtypes):
+        self.name = name
+        self.symbol = symbol
+        self.argtypes = [*argtypes, _P]     # the stream comes last
+        self.launches = 0
+
+    def __call__(self, *args):
+        fn = getattr(library(), self.symbol)
+        stream = torch.cuda.current_stream().cuda_stream
+        conv = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+        err = fn(*conv, stream)
+        if err != 0:
+            raise RuntimeError(f"{self.name}: CUDA error {err} at launch")
+        self.launches += 1
+
+
+PYRAMID = Kernel("pyramid_maps", "pyramid_level", [_P, _I, _I, _P, _I, _I, _I])
+ALIGN = Kernel("align_residual_system", "align_residual_system",
+               [_P, _P, _P, _P, _I, _P, _I, _I, _P, _P, _P, _P, _I,
+                _F, _F, _F, _F, _F, _F, _F, _P, _P, _P, _P])
+EPIPOLAR = Kernel("epipolar_sweep", "epipolar_sweep",
+                  [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                   _F, _F, _F, _F, _F, _F, _F, _F, _P, _P, _P, _P, _P, _P])
+ALL = (PYRAMID, ALIGN, EPIPOLAR)
+
+
+def reset_counts():
+    for kernel in ALL:
+        kernel.launches = 0
+
+
+def counts():
+    return {kernel.name: kernel.launches for kernel in ALL}

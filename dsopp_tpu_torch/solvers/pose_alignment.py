@@ -1,0 +1,185 @@
+"""Frontend two-frame direct pose alignment (counterpart of
+``dsopp_tpu/solvers/pose_alignment.py``) — kernel K2 and its LM driver.
+
+Coarse-to-fine LM over a batch of pose hypotheses: each iteration builds
+the 8×8 system (6 pose + 2 affine) of every hypothesis in one call of
+:func:`residual_system` — the CUDA kernel ``csrc/align.cu`` on a CUDA map,
+:func:`residual_system_plain` on a CPU one — and solves the damped systems
+batched.  The relative pose is left-incremented (t ← exp(δ)·t), the target
+affine (a, b) additively; whole-point Huber; affine priors.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from dsopp_tpu_torch import kernels
+from dsopp_tpu_torch.core.interpolate import sample
+from dsopp_tpu_torch.core.lie import SE3
+from dsopp_tpu_torch.core.reproject import reproject_jacobian
+from dsopp_tpu_torch.solvers.linear import solve
+from dsopp_tpu_torch.solvers.measure import huber_energy_weight
+
+# LM iterations between host reads of "every hypothesis done" (each read
+# is a device synchronisation; every iteration would cost more than it saves)
+DONE_CHECK_EVERY = 4
+
+
+class AlignmentOptions(NamedTuple):
+    max_iterations: int = 50
+    initial_regularizer: float = 1e-2
+    function_tolerance: float = 1e-5
+    parameter_tolerance: float = 1e-5
+    huber_sigma: float = 20.0
+    affine_reg_a: float = 1e12
+    affine_reg_b: float = 1e8
+    reg_decrease: float = 2.0
+    reg_increase: float = 10.0
+
+
+class LevelPoints(NamedTuple):
+    """Semi-dense reference points at one pyramid level (N slots)."""
+
+    uv: torch.Tensor         # [N, 2]
+    idepth: torch.Tensor     # [N]
+    intensity: torch.Tensor  # [N]
+    valid: torch.Tensor      # [N] bool
+
+
+class AlignmentResult(NamedTuple):
+    t_t_r: SE3              # [B]
+    affine: torch.Tensor    # [B, 2]
+    energy: torch.Tensor    # [B] (incl. priors)
+    num_valid: torch.Tensor  # [B] int32
+    rmse: torch.Tensor      # [B]
+
+
+def residual_system_plain(pts: LevelPoints, pixel_map, model, t_t_r: SE3,
+                          affine, affine_ref, exposure_ratio, sigma):
+    """H [B,8,8], b [B,8], energy [B] (no priors), num_valid [B] int32 of
+    ``B`` hypotheses ``t_t_r`` (q [B,4], t [B,3]) and ``affine`` [B,2]."""
+    scale = exposure_ratio * torch.exp(affine[:, 0] - affine_ref[0])      # [B]
+    rj = reproject_jacobian(model, model, pts.uv[None], pts.idepth[None],
+                            SE3(t_t_r.q[:, None], t_t_r.t[:, None]))
+    patch, inside = sample(pixel_map, rj.uv)                              # [B,N,3]
+    vals, gx, gy = patch[..., 0], patch[..., 1], patch[..., 2]
+    corrected_ref = scale[:, None] * (pts.intensity[None] - affine_ref[1])
+    r = (vals - affine[:, 1:2]) - corrected_ref
+    ok = pts.valid[None] & rj.valid & inside
+    r2 = torch.where(ok, r * r, torch.zeros_like(r))
+    energies, weights = huber_energy_weight(r2, sigma)
+    energy = torch.sum(torch.where(ok, energies, torch.zeros_like(energies)), dim=-1)
+    weights = torch.where(ok, weights, torch.zeros_like(weights))
+    duv = -rj.d_uv_d_eps_tgt                                              # [B,N,2,6]
+    dr_dpose = gx[..., None] * duv[..., 0, :] + gy[..., None] * duv[..., 1, :]
+    j = torch.cat([dr_dpose, -corrected_ref[..., None],
+                   -torch.ones_like(r)[..., None]], dim=-1)              # [B,N,8]
+    jw = j * weights[..., None]
+    h = torch.einsum("bni,bnj->bij", jw, j)
+    b = torch.einsum("bni,bn->bi", jw, r)
+    return h, b, energy, torch.sum(ok, dim=-1, dtype=torch.int32)
+
+
+def residual_system_cuda(pts: LevelPoints, pixel_map, model, t_t_r: SE3,
+                         affine, affine_ref, exposure_ratio, sigma):
+    """Kernel K2: same outputs as :func:`residual_system_plain`."""
+    n = pts.uv.shape[0]
+    nb = t_t_r.q.shape[0]
+    _, h_px, w_px = pixel_map.shape
+    check = kernels.check
+    check(pts.uv, "uv", (n, 2))
+    check(pts.idepth, "idepth", (n,))
+    check(pts.intensity, "intensity", (n,))
+    check(pts.valid, "valid", (n,), torch.bool)
+    check(pixel_map, "pixel_map", (3, h_px, w_px))
+    check(t_t_r.q, "pose_q", (nb, 4))
+    check(t_t_r.t, "pose_t", (nb, 3))
+    check(affine, "affine", (nb, 2))
+    ref = torch.stack([affine_ref[0], affine_ref[1],
+                       torch.as_tensor(exposure_ratio, dtype=affine.dtype,
+                                       device=affine.device)]).contiguous()
+    check(ref, "ref", (3,))
+    dev, dt = affine.device, affine.dtype
+    h = torch.empty((nb, 8, 8), dtype=dt, device=dev)
+    b = torch.empty((nb, 8), dtype=dt, device=dev)
+    energy = torch.empty((nb,), dtype=dt, device=dev)
+    num_valid = torch.empty((nb,), dtype=torch.int32, device=dev)
+    kernels.ALIGN(pts.uv, pts.idepth, pts.intensity, pts.valid, n, pixel_map,
+                  h_px, w_px, t_t_r.q, t_t_r.t, affine, ref, nb,
+                  model.fx, model.fy, model.cx, model.cy, model.width,
+                  model.height, float(sigma), h, b, energy, num_valid)
+    return h, b, energy, num_valid
+
+
+def residual_system(pts: LevelPoints, pixel_map, model, t_t_r: SE3, affine,
+                    affine_ref, exposure_ratio, opts: AlignmentOptions):
+    """(energy [B], num_valid [B], H [B,8,8], b [B,8]) including the affine
+    priors; the kernel on CUDA tensors, the plain version on CPU ones."""
+    fn = residual_system_cuda if pixel_map.is_cuda else residual_system_plain
+    h, b, energy, num_valid = fn(pts, pixel_map, model, t_t_r, affine,
+                                 affine_ref, exposure_ratio, opts.huber_sigma)
+    ra, rb = opts.affine_reg_a, opts.affine_reg_b
+    a, bb = affine[:, 0], affine[:, 1]
+    energy = energy + 0.5 * (ra * a * a + rb * bb * bb)
+    h = h.clone()
+    h[:, 6, 6] += ra
+    h[:, 7, 7] += rb
+    b = torch.cat([b[:, :6], b[:, 6:7] + ra * affine[:, 0:1], b[:, 7:8] + rb * affine[:, 1:2]],
+                  dim=-1)
+    return energy, num_valid, h, b
+
+
+def align_level(pts: LevelPoints, pixel_map, model, t_init: SE3, affine_init,
+                affine_ref, exposure_ratio,
+                opts: AlignmentOptions = AlignmentOptions()):
+    """LM solve of one level for a batch of hypotheses (q [B,4], t [B,3]).
+
+    The iteration count is fixed at ``opts.max_iterations`` with a per-
+    hypothesis ``done`` mask freezing converged hypotheses (the reference's
+    while-loop semantics); every ``DONE_CHECK_EVERY`` iterations one host
+    read ends the loop early once all hypotheses are done.
+    """
+    dt = affine_init.dtype
+    q, t, affine = t_init.q, t_init.t, affine_init
+    e, n, h, b = residual_system(pts, pixel_map, model, SE3(q, t), affine,
+                                 affine_ref, exposure_ratio, opts)
+    reg = torch.full(e.shape, opts.initial_regularizer, dtype=dt, device=e.device)
+    done = n == 0
+    eye = torch.eye(8, dtype=dt, device=e.device)
+    for it in range(opts.max_iterations):
+        if it % DONE_CHECK_EVERY == 0 and bool(done.all()):
+            break
+        diag = torch.diagonal(h, dim1=-2, dim2=-1)
+        h_d = h + eye * (reg[:, None] * diag + 1e-24)[:, None, :]
+        step = -solve(h_d, b)
+        step = torch.where(torch.isfinite(step), step, torch.zeros_like(step))
+        t_new = SE3.exp(step[:, :6]) @ SE3(q, t)
+        affine_new = affine + step[:, 6:]
+        e_new, n_new, h_new, b_new = residual_system(
+            pts, pixel_map, model, t_new, affine_new, affine_ref,
+            exposure_ratio, opts)
+
+        accept = (e_new < e) & (n_new > 0) & torch.isfinite(e_new)
+        ftol = (torch.abs(e - e_new) / torch.clamp(e, min=1e-30)
+                < opts.function_tolerance)
+        state_sq = torch.sum(affine * affine, dim=-1)
+        ptol = torch.sum(step * step, dim=-1) < opts.parameter_tolerance * (
+            state_sq + opts.parameter_tolerance)
+        converged = (ftol & torch.isfinite(e_new)) | (accept & ptol)
+
+        live = ~done
+        take = live & accept
+        q = torch.where(take[:, None], t_new.q, q)
+        t = torch.where(take[:, None], t_new.t, t)
+        affine = torch.where(take[:, None], affine_new, affine)
+        e = torch.where(take, e_new, e)
+        n = torch.where(take, n_new, n)
+        h = torch.where(take[:, None, None], h_new, h)
+        b = torch.where(take[:, None], b_new, b)
+        reg = torch.where(live, torch.where(accept, reg / opts.reg_decrease,
+                                            reg * opts.reg_increase), reg)
+        done = done | (live & converged)
+    rmse = torch.sqrt(e / torch.clamp(n, min=1).to(dt))
+    return AlignmentResult(SE3(q, t), affine, e, n, rmse)

@@ -1,0 +1,197 @@
+"""Immature-landmark activation (counterpart of
+``dsopp_tpu/tracker/activation.py``).
+
+A ready immature point (traced, interval < 8 px, uniqueness > 3, positive
+idepth) activates when it reprojects validly into the newest keyframe and no
+ACTIVE landmark projects within ``min_distance`` of it; activating points
+get a 3-iteration scalar LM on idepth against every window frame (newest
+host bank first, at most ``REFINE_CAP`` per keyframe) and are then paired
+rank for rank with free landmark slots of their host frame.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from dsopp_tpu_torch.core.interpolate import pad_images, sample_window, window_base
+from dsopp_tpu_torch.core.lie import SE3
+from dsopp_tpu_torch.core.pattern import PATTERN_CENTER, PATTERN_SIZE, shift_pattern
+from dsopp_tpu_torch.core.reproject import reproject, reproject_jacobian
+from dsopp_tpu_torch.solvers.pba import RES_OK, Window, active_lm_mask, newest_slot
+from dsopp_tpu_torch.tracker.depth_estimation import (
+    STATUS_GOOD, STATUS_ILL_CONDITIONED, STATUS_OOB, STATUS_OUTLIER,
+    STATUS_SKIPPED, ImmaturePoints)
+
+MAX_SEARCH_INTERVAL = 8.0
+MIN_UNIQUENESS = 3.0
+P_GAIN = 0.001
+MIN_DISTANCE = 0.0
+MAX_DISTANCE = 10.0
+MAX_ENERGY_FOR_INLIERS = PATTERN_SIZE * 12.0 * 12.0
+REFINE_ITERATIONS = 3
+REFINE_REG0 = 0.1
+REFINE_REG_DEC = 2.0
+REFINE_REG_INC = 5.0
+REFINE_CAP = 512
+
+
+def ready_for_activation(points: ImmaturePoints):
+    s = points.status
+    status_ok = ((s == STATUS_GOOD) | (s == STATUS_SKIPPED)
+                 | (s == STATUS_ILL_CONDITIONED) | (s == STATUS_OOB))
+    return (points.valid & points.traced & status_ok
+            & (points.search_interval < MAX_SEARCH_INTERVAL)
+            & (points.uniqueness > MIN_UNIQUENESS) & (points.idepth > 0))
+
+
+def _to_newest(window: Window):
+    """[K] poses newest ← each frame."""
+    k = window.num_slots
+    newest = newest_slot(window)
+    poses = window.poses()
+    t_n = SE3(poses.q.index_select(0, newest)[0], poses.t.index_select(0, newest)[0]).inverse()
+    return SE3(t_n.q.expand(k, 4), t_n.t.expand(k, 3)).compose(poses), newest
+
+
+def _activation_kernel(window: Window, model, imm: ImmaturePoints, min_distance):
+    """→ (activate [K, M] bool, delete [K, M] bool, n_active)."""
+    k = window.num_slots
+    t_rel, newest = _to_newest(window)
+    t_b = SE3(t_rel.q[:, None], t_rel.t[:, None])
+    act_mask = active_lm_mask(window) & ~window.lm_outlier
+    rp_act = reproject(model, model, window.lm_uv, window.lm_idepth, t_b)
+    act_ok = act_mask & rp_act.valid
+    n_active = torch.sum(act_ok)
+    act_uv = torch.where(act_ok[..., None], rp_act.uv,
+                         torch.full_like(rp_act.uv, float("inf"))).reshape(-1, 2)
+
+    ready = ready_for_activation(imm)
+    ready = ready & ~(torch.arange(k, device=newest.device) == newest)[:, None]
+    rp_imm = reproject(model, model, imm.uv, imm.idepth, t_b)
+    cu = rp_imm.uv.reshape(-1, 2)
+    d2 = (cu[:, None, 0] - act_uv[None, :, 0]) ** 2 + (cu[:, None, 1] - act_uv[None, :, 1]) ** 2
+    min_d = torch.sqrt(torch.min(d2, dim=1).values).reshape(imm.uv.shape[:2])
+    spaced = torch.where(n_active > 0, min_d > min_distance, torch.ones_like(ready))
+    activate = ready & rp_imm.valid & spaced
+    dead_status = (imm.status == STATUS_OUTLIER) | ((imm.status == STATUS_OOB) & ~ready)
+    delete = imm.valid & (dead_status | (ready & ~rp_imm.valid))
+    return activate, delete, n_active
+
+
+def _refine_idepth_kernel(window: Window, model, imm: ImmaturePoints, activate,
+                          huber_sigma: float, cap: int = REFINE_CAP):
+    """Idepth refinement of the activating points → (idepth [K, M],
+    keep [K, M], selected [K, M])."""
+    k, m = imm.uv.shape[:2]
+    dev = imm.uv.device
+    n_flat = k * m
+    flat_act = activate.reshape(-1)
+    flat_idx = torch.arange(n_flat, device=dev)
+    rank = (k - 1 - flat_idx // m) * m + flat_idx % m       # newest bank first
+    order = torch.argsort(torch.where(flat_act, rank, n_flat + flat_idx), stable=True)[:cap]
+    sel = flat_act[order]
+    host = order // m
+    uv = imm.uv.reshape(n_flat, 2)[order]
+    patch0 = imm.patch.reshape(n_flat, -1)[order]
+    idepth = imm.idepth.reshape(n_flat)[order]
+
+    poses = window.poses()
+    t_inv = poses.inverse()
+    t_cj = SE3(t_inv.q[None], t_inv.t[None]).compose(SE3(poses.q[host][:, None], poses.t[host][:, None]))
+    affine = window.affine()
+    ratio = window.exposure[None, :] / torch.clamp(window.exposure[host][:, None], min=1e-12)
+    scale = ratio * torch.exp(affine[None, :, 0] - affine[host][:, None, 0])
+    pair = (window.frame_valid[None, :] & sel[:, None]
+            & (torch.arange(k, device=dev)[None, :] != host[:, None]))
+    pattern = shift_pattern(uv)[:, None]                       # [cap,1,P,2]
+    t_b = SE3(t_cj.q[:, :, None, :], t_cj.t[:, :, None, :])
+    corrected = scale[:, :, None] * (patch0[:, None] - affine[host][:, None, None, 1])
+    h_px, w_px = window.maps.shape[-2:]
+    padded = pad_images(window.maps[:, 0])
+    target = torch.arange(k, device=dev)[None, :, None]
+    zero_k = torch.zeros_like(corrected[..., 0])
+
+    def eval_full(idep):
+        rj = reproject_jacobian(model, model, pattern, idep[:, None, None], t_b)
+        bx, by = window_base(rj.uv[..., PATTERN_CENTER, :], h_px, w_px)
+        vals, gxs, gys, inside = sample_window(padded, rj.uv, bx[..., None], by[..., None],
+                                               h_px, w_px, img_idx=target)
+        ok = torch.all(rj.valid & inside, dim=-1) & pair
+        r = (vals - affine[None, :, None, 1]) - corrected
+        r = torch.where(ok[..., None], r, torch.zeros_like(r))
+        r2 = torch.sum(r * r, dim=-1)
+        rnorm = torch.sqrt(torch.clamp(r2, min=1e-30))
+        w = torch.where(rnorm > huber_sigma, huber_sigma / rnorm, torch.ones_like(rnorm))
+        inlier = ok & (r2 < MAX_ENERGY_FOR_INLIERS)
+        e_term = torch.where(inlier, w * r2,
+                             torch.where(ok, MAX_ENERGY_FOR_INLIERS, zero_k))
+        d = gxs * rj.d_uv_d_idepth[..., 0] + gys * rj.d_uv_d_idepth[..., 1]
+        d = torch.where(ok[..., None], d, torch.zeros_like(d))
+        return (torch.sum(e_term, dim=1), torch.sum(inlier, dim=1),
+                torch.sum(w[..., None] * d * d, dim=(1, 2)),
+                torch.sum(w[..., None] * d * r, dim=(1, 2)))
+
+    e, inliers, h, b = eval_full(idepth)
+    lam = torch.full_like(idepth, REFINE_REG0)
+    for _ in range(REFINE_ITERATIONS):
+        trial = idepth - b / torch.clamp(h * (1.0 + lam), min=1e-20)
+        e_new, inl_new, h_new, b_new = eval_full(trial)
+        accept = (e_new < e) & (h > 0)
+        idepth = torch.where(accept, trial, idepth)
+        e = torch.where(accept, e_new, e)
+        inliers = torch.where(accept, inl_new, inliers)
+        h = torch.where(accept, h_new, h)
+        b = torch.where(accept, b_new, b)
+        lam = torch.where(accept, lam / REFINE_REG_DEC, lam * REFINE_REG_INC)
+
+    min_inliers = torch.clamp(window.frame_valid.sum() - 1, max=1)
+    keep_c = sel & (inliers >= min_inliers) & (idepth > 0)
+    idep_flat = imm.idepth.reshape(n_flat).clone()
+    idep_flat[order] = torch.where(keep_c, idepth, idep_flat[order])
+    keep_flat = torch.zeros(n_flat, dtype=torch.bool, device=dev)
+    keep_flat[order] = keep_c
+    sel_flat = torch.zeros(n_flat, dtype=torch.bool, device=dev)
+    sel_flat[order] = sel
+    return idep_flat.reshape(k, m), keep_flat.reshape(k, m), sel_flat.reshape(k, m)
+
+
+def _activation_scatter(window: Window, imm: ImmaturePoints, activate, delete):
+    """Move accepted immature points into free landmark slots, per slot."""
+    k, n = window.lm_valid.shape
+    m = imm.uv.shape[1]
+    r = min(n, m)
+    dev = imm.uv.device
+    ar_n = torch.arange(n, device=dev)[None, :]
+    ar_m = torch.arange(m, device=dev)[None, :]
+    free_order = torch.argsort(torch.where(~window.lm_valid, ar_n, n + ar_n), dim=1, stable=True)
+    act_order = torch.argsort(torch.where(activate, ar_m, m + ar_m), dim=1, stable=True)
+    take = torch.minimum(torch.sum(~window.lm_valid, dim=1), torch.sum(activate, dim=1))
+    mask = torch.arange(r, device=dev)[None, :] < take[:, None]          # [K, r]
+    dst = torch.where(mask, free_order[:, :r], n)                        # n = dropped
+    src = act_order[:, :r]
+
+    def scatter(dst_buf, values, dim):
+        """Write ``values`` at ``dst`` along ``dim`` of a buffer with one
+        extra (dropped) slot."""
+        ext = torch.cat([dst_buf, torch.zeros_like(dst_buf.narrow(dim, 0, 1))], dim=dim)
+        idx = dst.reshape(dst.shape + (1,) * (ext.dim() - dst.dim()))
+        if dim == 2:
+            idx = dst[:, None, :]
+        idx = idx.expand(values.shape)
+        return ext.scatter(dim, idx, values).narrow(dim, 0, dst_buf.shape[dim])
+
+    def take_src(x):
+        idx = src.reshape(src.shape + (1,) * (x.dim() - 2)).expand((k, r) + tuple(x.shape[2:]))
+        return torch.gather(x, 1, idx)
+
+    lm_uv = scatter(window.lm_uv, take_src(imm.uv), 1)
+    lm_patch = scatter(window.lm_patch, take_src(imm.patch), 1)
+    lm_idepth = scatter(window.lm_idepth, take_src(imm.idepth), 1)
+    lm_valid = scatter(window.lm_valid, torch.ones((k, r), dtype=torch.bool, device=dev), 1)
+    status = scatter(window.res_status,
+                     torch.full((k, k, r), RES_OK, dtype=torch.int32, device=dev), 2)
+    taken = torch.zeros((k, m), dtype=torch.bool, device=dev).scatter(1, src, mask)
+    imm_valid = imm.valid & ~taken & ~delete
+    window = window.replace(lm_uv=lm_uv, lm_patch=lm_patch, lm_idepth=lm_idepth,
+                            lm_valid=lm_valid, res_status=status)
+    return window, imm._replace(valid=imm_valid), torch.sum(take)

@@ -1,0 +1,381 @@
+"""Immature-point depth estimation by epipolar search (counterpart of
+``dsopp_tpu/tracker/depth_estimation.py``) — kernel K4.
+
+Per new frame every active immature point samples its epipolar segment at
+S = 32 uniform positions, takes the SSD of the 8-point pattern against its
+exposure- and affine-corrected reference patch, keeps the argmin and the
+best energy outside a ±2 px uniqueness radius, refines the winner with 4
+Gauss-Newton steps along the epiline (steps clipped to ±0.3 px), and then
+updates its inverse-depth interval and status.
+
+The sweep/uniqueness/refine stage is :func:`epipolar_sweep`: the CUDA kernel
+``csrc/epipolar.cu`` on CUDA tensors, :func:`epipolar_sweep_plain` on CPU
+ones.  The geometry before it and the error model, interval shrink and
+status machine after it are plain PyTorch over all ``[K, N]`` banks at once.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from dsopp_tpu_torch import kernels
+from dsopp_tpu_torch.core.camera import MIN_DEPTH, valid_idepth
+from dsopp_tpu_torch.core.interpolate import (pad_images, sample_window,
+                                              sample_window_values, window_base)
+from dsopp_tpu_torch.core.lie import quat_rotate
+from dsopp_tpu_torch.core.pattern import PATTERN_SIZE, shift_pattern
+
+STATUS_GOOD = 0
+STATUS_OOB = 1
+STATUS_OUTLIER = 2
+STATUS_SKIPPED = 3
+STATUS_ILL_CONDITIONED = 4
+STATUS_UNINITIALIZED = 5
+
+MIN_EPILINE_SIZE = 2.0
+MIN_DEPTH_SCALE = 0.75
+MAX_DEPTH_SCALE = 1.5
+MAX_ERROR = 10.0
+UNIQUENESS_RADIUS_PX = 2.0
+MIN_EPILINE_FOR_UNIQUENESS = 10.0
+MAX_ENERGY_PER_PIXEL = 12.0 * 12.0
+MAX_ENERGY_INLIER = PATTERN_SIZE * MAX_ENERGY_PER_PIXEL
+MAX_PIX_SEARCH_FACTOR = 0.027
+MAX_SUBPIXEL_STEP = 0.3
+INITIAL_IDEPTH_MAX = 1.0 / MIN_DEPTH
+NUM_SAMPLES = 32
+GROUP = 4            # consecutive samples sharing one 10×10 window
+GN_ITERATIONS = 4
+
+
+class ImmaturePoints(NamedTuple):
+    """Immature landmark banks ``[K, N]`` (one bank per window slot)."""
+
+    uv: torch.Tensor            # [..., N, 2]
+    patch: torch.Tensor         # [..., N, P]
+    gradient: torch.Tensor      # [..., N, 2]
+    idepth_min: torch.Tensor    # [..., N]
+    idepth_max: torch.Tensor    # [..., N]
+    status: torch.Tensor        # [..., N] int32
+    traced: torch.Tensor        # [..., N] bool
+    uniqueness: torch.Tensor    # [..., N]
+    search_interval: torch.Tensor  # [..., N]
+    valid: torch.Tensor         # [..., N] bool
+
+    @property
+    def idepth(self):
+        return 0.5 * (self.idepth_min + self.idepth_max)
+
+
+def _triangulate_idepth(pr, t, ray_target):
+    """Reference-frame idepth whose target projection is ``ray_target``."""
+    vx, vy = ray_target[..., 0], ray_target[..., 1]
+    den_x = t[..., 0] - vx * t[..., 2]
+    den_y = t[..., 1] - vy * t[..., 2]
+    num_x = vx * pr[..., 2] - pr[..., 0]
+    num_y = vy * pr[..., 2] - pr[..., 1]
+    use_x = torch.abs(den_x) > torch.abs(den_y)
+    den = torch.where(use_x, den_x, den_y)
+    num = torch.where(use_x, num_x, num_y)
+    den = torch.where(torch.abs(den) < 1e-12, torch.full_like(den, 1e-12), den)
+    return num / den
+
+
+class SweepInputs(NamedTuple):
+    """Per-landmark inputs of the sweep, flattened to ``M = K·N``."""
+
+    active: torch.Tensor      # [M] bool
+    uv_a: torch.Tensor        # [M, 2] epiline start
+    dir: torch.Tensor         # [M, 2] unit direction
+    search_len: torch.Tensor  # [M]
+    pr: torch.Tensor          # [M, 3] R·ray of the point
+    t: torch.Tensor           # [M, 3] target-from-host translation
+    pr_p: torch.Tensor        # [M, P, 3] R·ray of the pattern points
+    corr_ref: torch.Tensor    # [M, P] corrected reference patch
+    b_tgt: torch.Tensor       # [1] target affine b
+    alphas: torch.Tensor      # [S] sample positions along the segment
+    alpha_g: torch.Tensor     # [S / GROUP] group-center positions
+
+
+class SweepResult(NamedTuple):
+    best_idx: torch.Tensor     # [M] int64
+    best_energy: torch.Tensor  # [M] sweep energy at the winner
+    second_best: torch.Tensor  # [M] best energy outside the radius
+    any_sample: torch.Tensor   # [M] bool
+    refined_energy: torch.Tensor  # [M] best GN energy (inf if none valid)
+    best_delta: torch.Tensor   # [M] GN offset of that energy (px)
+
+
+def epipolar_sweep_plain(inp: SweepInputs, image, model, huber_sigma):
+    """Sweep + uniqueness + GN refine in plain PyTorch (see module doc)."""
+    h_px, w_px = image.shape
+    padded = pad_images(image)
+    m, s = inp.uv_a.shape[0], inp.alphas.shape[0]
+    sl = inp.search_len[:, None, None]
+    uv_s = inp.uv_a[:, None, :] + (inp.alphas[None, :, None] * sl) * inp.dir[:, None, :]
+    rho_s = _triangulate_idepth(inp.pr[:, None, :], inp.t[:, None, :],
+                                model.unproject(uv_s))                     # [M,S]
+    q_sp = inp.pr_p[:, None] + rho_s[:, :, None, None] * inp.t[:, None, None, :]
+    uv_sp, valid_sp = model.project(q_sp)                                 # [M,S,P]
+    uv_g = inp.uv_a[:, None, :] + (inp.alpha_g[None, :, None] * sl) * inp.dir[:, None, :]
+    bx, by = window_base(uv_g, h_px, w_px)                                # [M,G]
+    bx = bx.repeat_interleave(GROUP, dim=1)[..., None]
+    by = by.repeat_interleave(GROUP, dim=1)[..., None]
+    vals, inside = sample_window_values(padded, uv_sp, bx, by, h_px, w_px)
+    resid = (vals - inp.b_tgt) - inp.corr_ref[:, None, :]
+    sample_ok = (torch.all(valid_sp & inside, dim=-1)
+                 & (rho_s > -1e-4) & (rho_s < INITIAL_IDEPTH_MAX * 1.01))
+    energy_s = torch.where(sample_ok, torch.sum(resid * resid, dim=-1),
+                           torch.full_like(rho_s, float("inf")))
+    best_idx = torch.argmin(energy_s, dim=-1)
+    best_energy = torch.gather(energy_s, 1, best_idx[:, None])[:, 0]
+    any_sample = torch.any(sample_ok, dim=-1)
+
+    spacing = inp.search_len / (s - 1)
+    radius = torch.ceil(UNIQUENESS_RADIUS_PX / torch.clamp(spacing, min=1e-6)).to(torch.int32)
+    ids = torch.arange(s, device=image.device)[None, :]
+    outside = torch.abs(ids - best_idx[:, None]) > radius[:, None]
+    second_best = torch.min(torch.where(outside, energy_s, torch.full_like(energy_s, float("inf"))),
+                            dim=-1).values
+
+    uv_best = torch.gather(uv_s, 1, best_idx[:, None, None].expand(m, 1, 2))[:, 0]
+    pattern_best = torch.gather(
+        uv_sp, 1, best_idx[:, None, None, None].expand(m, 1, PATTERN_SIZE, 2))[:, 0]
+    rbx, rby = window_base(uv_best, h_px, w_px)
+    dirv = inp.dir
+    delta = torch.zeros_like(inp.search_len)
+    e_best = torch.full_like(delta, float("inf"))
+    best_delta = torch.zeros_like(delta)
+    for _ in range(GN_ITERATIONS):
+        pat = pattern_best - delta[:, None, None] * dirv[:, None, :]
+        it, gx, gy, ok = sample_window(padded, pat, rbx[:, None], rby[:, None], h_px, w_px)
+        r = (it - inp.b_tgt) - inp.corr_ref
+        w = huber_sigma / torch.clamp(torch.abs(r), min=huber_sigma)
+        g_tau = gx * dirv[:, None, 0] + gy * dirv[:, None, 1]
+        hh = torch.sum(w * g_tau * g_tau, dim=-1)
+        bb = torch.sum(w * r * g_tau, dim=-1)
+        step = torch.clamp(bb / torch.clamp(hh, min=1e-9), -MAX_SUBPIXEL_STEP, MAX_SUBPIXEL_STEP)
+        e = torch.sum(torch.clamp(r, -huber_sigma, huber_sigma) * r, dim=-1)
+        e = torch.where(torch.all(ok, dim=-1), e, torch.full_like(e, float("inf")))
+        better = e < e_best
+        e_best = torch.where(better, e, e_best)
+        best_delta = torch.where(better, delta, best_delta)
+        delta = delta + step
+    return SweepResult(best_idx, best_energy, second_best, any_sample, e_best, best_delta)
+
+
+def epipolar_sweep_cuda(inp: SweepInputs, image, model, huber_sigma):
+    """Kernel K4: same outputs as :func:`epipolar_sweep_plain`."""
+    m = inp.uv_a.shape[0]
+    h_px, w_px = image.shape
+    if inp.alphas.shape[0] != NUM_SAMPLES:
+        raise ValueError(f"the epipolar kernel takes {NUM_SAMPLES} samples, "
+                         f"got {inp.alphas.shape[0]}")
+    check = kernels.check
+    check(inp.active, "active", (m,), torch.bool)
+    check(inp.uv_a, "uv_a", (m, 2))
+    check(inp.dir, "dir", (m, 2))
+    check(inp.search_len, "search_len", (m,))
+    check(inp.pr, "pr", (m, 3))
+    check(inp.t, "t", (m, 3))
+    check(inp.pr_p, "pr_p", (m, PATTERN_SIZE, 3))
+    check(inp.corr_ref, "corr_ref", (m, PATTERN_SIZE))
+    check(inp.b_tgt, "b_tgt", (1,))
+    check(inp.alphas, "alphas", (NUM_SAMPLES,))
+    check(inp.alpha_g, "alpha_g", (NUM_SAMPLES // GROUP,))
+    check(image, "image", (h_px, w_px))
+    dev, dt = image.device, image.dtype
+    best = torch.empty((m,), dtype=torch.int32, device=dev)
+    best_e = torch.empty((m,), dtype=dt, device=dev)
+    second = torch.empty((m,), dtype=dt, device=dev)
+    any_s = torch.empty((m,), dtype=torch.bool, device=dev)
+    ref_e = torch.empty((m,), dtype=dt, device=dev)
+    delta = torch.empty((m,), dtype=dt, device=dev)
+    kernels.EPIPOLAR(inp.active, m, inp.uv_a, inp.dir, inp.search_len, inp.pr,
+                     inp.t, inp.pr_p, inp.corr_ref, inp.b_tgt, inp.alphas,
+                     inp.alpha_g, image, h_px, w_px, model.fx, model.fy,
+                     model.cx, model.cy, model.width, model.height,
+                     float(huber_sigma), INITIAL_IDEPTH_MAX * 1.01,
+                     best, best_e, second, any_s, ref_e, delta)
+    return SweepResult(best.long(), best_e, second, any_s, ref_e, delta)
+
+
+def epipolar_sweep(inp: SweepInputs, image, model, huber_sigma):
+    """The kernel on CUDA tensors, the plain version on CPU ones."""
+    fn = epipolar_sweep_cuda if image.is_cuda else epipolar_sweep_plain
+    return fn(inp, image, model, huber_sigma)
+
+
+def sweep_inputs(points: ImmaturePoints, model, t_q, t_t, affine_ref,
+                 affine_tgt, exposure_ratio, num_samples=NUM_SAMPLES):
+    """Per-landmark geometry of the sweep for banks ``[K, N]``.
+
+    ``t_q``/``t_t``: [K] target-from-host poses; ``affine_ref`` [K, 2];
+    ``affine_tgt`` [2]; ``exposure_ratio`` [K].  Returns the flattened
+    :class:`SweepInputs` and the [K, N] tensors the status update needs.
+    """
+    k, n = points.uv.shape[:2]
+    dtype, dev = points.uv.dtype, points.uv.device
+    s = num_samples
+    st = points.status
+    active = points.valid & ((st == STATUS_GOOD) | (st == STATUS_SKIPPED)
+                             | (st == STATUS_ILL_CONDITIONED)
+                             | (st == STATUS_UNINITIALIZED))
+    ray = model.unproject(points.uv)                                  # [K,N,3]
+    pr = quat_rotate(t_q[:, None], ray)
+    t = t_t[:, None].expand(pr.shape)
+
+    rho_min = torch.clamp(points.idepth_min, min=0.0)
+    rho_max = torch.clamp(points.idepth_max, max=INITIAL_IDEPTH_MAX)
+    min_qz = 1e-3
+    tz = t[..., 2]
+    rho_limit = (min_qz - pr[..., 2]) / torch.where(torch.abs(tz) < 1e-12,
+                                                    torch.full_like(tz, 1e-12), tz)
+    decreasing = tz < 0
+    rho_max = torch.where(decreasing & (pr[..., 2] + rho_max * tz < min_qz),
+                          torch.maximum(rho_limit, rho_min), rho_max)
+    uv_a, valid_a = model.project(pr + rho_min[..., None] * t)
+    uv_b, valid_b = model.project(pr + rho_max[..., None] * t)
+    depth_scale = pr[..., 2] + rho_min * tz
+    scale_bad = (points.idepth_min >= 0) & ((depth_scale < MIN_DEPTH_SCALE)
+                                            | (depth_scale > MAX_DEPTH_SCALE))
+    seg = uv_b - uv_a
+    seg_len = torch.sqrt(torch.sum(seg * seg, dim=-1))
+    too_short = seg_len < MIN_EPILINE_SIZE
+    dir_unit = seg / torch.clamp(seg_len, min=1e-12)[..., None]
+    max_search = MAX_PIX_SEARCH_FACTOR * (model.width + model.height)
+    search_len = torch.where(points.traced, seg_len,
+                             torch.clamp(seg_len, max=max_search))
+
+    pr_p = quat_rotate(t_q[:, None, None], model.unproject(shift_pattern(points.uv)))
+    scale = exposure_ratio * torch.exp(affine_tgt[0] - affine_ref[:, 0])      # [K]
+    corr_ref = scale[:, None, None] * (points.patch - affine_ref[:, 1][:, None, None])
+
+    alphas = torch.linspace(0.0, 1.0, s, dtype=dtype, device=dev)
+    groups = s // GROUP
+    alpha_g = ((GROUP * torch.arange(groups, dtype=dtype, device=dev)
+                + 0.5 * (GROUP - 1)) / (s - 1))
+    m = k * n
+    inp = SweepInputs(
+        active=active.reshape(m).contiguous(),
+        uv_a=uv_a.reshape(m, 2).contiguous(),
+        dir=dir_unit.reshape(m, 2).contiguous(),
+        search_len=search_len.reshape(m).contiguous(),
+        pr=pr.reshape(m, 3).contiguous(),
+        t=t.reshape(m, 3).contiguous(),
+        pr_p=pr_p.reshape(m, PATTERN_SIZE, 3).contiguous(),
+        corr_ref=corr_ref.reshape(m, PATTERN_SIZE).contiguous(),
+        b_tgt=affine_tgt[1:2].contiguous(),
+        alphas=alphas, alpha_g=alpha_g)
+    geo = dict(active=active, valid_a=valid_a, valid_b=valid_b,
+               scale_bad=scale_bad, too_short=too_short, search_len=search_len,
+               uv_a=uv_a, dir=dir_unit, pr=pr, t=t, alphas=alphas)
+    return inp, geo
+
+
+def estimate_depths(points: ImmaturePoints, target_map, model, t_q, t_t,
+                    affine_ref, affine_tgt, exposure_ratio,
+                    huber_sigma: float = 20.0,
+                    num_samples: int = NUM_SAMPLES) -> ImmaturePoints:
+    """One epipolar update of every bank ``[K, N]`` against a new frame.
+
+    ``target_map``: [3, H, W] level-0 map of the new frame; ``t_q``/``t_t``
+    [K]: target-from-host-keyframe poses; ``affine_ref`` [K, 2] host
+    affines; ``affine_tgt`` [2]; ``exposure_ratio`` [K].
+    """
+    inp, geo = sweep_inputs(points, model, t_q, t_t, affine_ref, affine_tgt,
+                            exposure_ratio, num_samples)
+    res = epipolar_sweep(inp, target_map[0], model, huber_sigma)
+    return update_from_sweep(points, geo, res, model)
+
+
+def update_from_sweep(points: ImmaturePoints, geo: dict, res: SweepResult,
+                      model) -> ImmaturePoints:
+    """Error model, 11-step interval shrink and status machine from a sweep
+    result (``geo``: the second output of :func:`sweep_inputs`)."""
+    k, n = points.uv.shape[:2]
+
+    def kn(x):
+        return x.reshape((k, n) + tuple(x.shape[1:]))
+
+    best_idx = kn(res.best_idx)
+    search_len, dir_unit = geo["search_len"], geo["dir"]
+    uniqueness = kn(res.second_best) / torch.clamp(kn(res.best_energy), min=1e-12)
+    update_uniqueness = search_len > MIN_EPILINE_FOR_UNIQUENESS
+    alpha_best = geo["alphas"][best_idx]
+    uv_best = geo["uv_a"] + (alpha_best * search_len)[..., None] * dir_unit
+    refined = kn(res.refined_energy)
+    best_energy = torch.where(torch.isfinite(refined), refined, kn(res.best_energy))
+    shift = -kn(res.best_delta)
+
+    # gradient-angle error model (reference calculateError)
+    g = points.gradient
+    a_term = torch.square(dir_unit[..., 0] * g[..., 0] + dir_unit[..., 1] * g[..., 1])
+    b_term = torch.square(dir_unit[..., 1] * g[..., 0] - dir_unit[..., 0] * g[..., 1])
+    error = 0.2 + 0.2 * (a_term + b_term) / torch.clamp(a_term, min=1e-12)
+    ill = (error > search_len / 2.0) & points.traced
+    error = torch.clamp(error, max=MAX_ERROR)
+
+    # interval update: widest valid error radius of an 11-step shrink
+    ks = torch.linspace(1.0, 0.0, 11, dtype=error.dtype, device=error.device)
+    errs = error[..., None] * ks
+    d3 = dir_unit[..., None, :]
+    uv_lo = uv_best[..., None, :] + (shift[..., None] - errs)[..., None] * d3
+    uv_hi = uv_best[..., None, :] + (shift[..., None] + errs)[..., None] * d3
+    pr3, t3 = geo["pr"][..., None, :], geo["t"][..., None, :]
+    rho_lo = _triangulate_idepth(pr3, t3, model.unproject(uv_lo))
+    rho_hi = _triangulate_idepth(pr3, t3, model.unproject(uv_hi))
+    pair_valid = valid_idepth(rho_lo) & valid_idepth(rho_hi)
+    first_valid = torch.argmax(pair_valid.to(torch.uint8), dim=-1, keepdim=True)
+    has_valid = torch.any(pair_valid, dim=-1)
+    rho_lo = torch.gather(rho_lo, -1, first_valid)[..., 0]
+    rho_hi = torch.gather(rho_hi, -1, first_valid)[..., 0]
+    new_min = torch.minimum(rho_lo, rho_hi)
+    new_max = torch.maximum(rho_lo, rho_hi)
+
+    oob = ((~geo["valid_a"] & ~geo["valid_b"]) | ~kn(res.any_sample)
+           | geo["scale_bad"] | ~has_valid)
+    outlier = best_energy > MAX_ENERGY_INLIER
+    too_short = geo["too_short"]
+    status = torch.full_like(points.status, STATUS_GOOD)
+    status = torch.where(ill, STATUS_ILL_CONDITIONED, status)
+    status = torch.where(outlier, STATUS_OUTLIER, status)
+    status = torch.where(too_short, STATUS_SKIPPED, status)
+    status = torch.where(oob, STATUS_OOB, status).to(torch.int32)
+    good = status == STATUS_GOOD
+    zero = torch.zeros_like(search_len)
+    search_interval = torch.where(good, 2.0 * error,
+                                  torch.where(too_short | ill, search_len, zero))
+
+    active = geo["active"]
+
+    def keep(new, old):
+        return torch.where(active, new, old)
+
+    return points._replace(
+        idepth_min=keep(torch.where(good, new_min, points.idepth_min), points.idepth_min),
+        idepth_max=keep(torch.where(good, new_max, points.idepth_max), points.idepth_max),
+        status=keep(status, points.status),
+        traced=keep(points.traced | good, points.traced),
+        uniqueness=keep(torch.where(update_uniqueness & good, uniqueness,
+                                    points.uniqueness), points.uniqueness),
+        search_interval=keep(search_interval, points.search_interval),
+    )
+
+
+def make_immature_points(uv, patch, gradient) -> ImmaturePoints:
+    """Fresh immature bank ``[N]`` from extracted candidates."""
+    dtype, dev = uv.dtype, uv.device
+    n = uv.shape[0]
+    return ImmaturePoints(
+        uv=uv, patch=patch, gradient=gradient,
+        idepth_min=torch.zeros(n, dtype=dtype, device=dev),
+        idepth_max=torch.full((n,), INITIAL_IDEPTH_MAX, dtype=dtype, device=dev),
+        status=torch.full((n,), STATUS_UNINITIALIZED, dtype=torch.int32, device=dev),
+        traced=torch.zeros(n, dtype=torch.bool, device=dev),
+        uniqueness=torch.full((n,), float("inf"), dtype=dtype, device=dev),
+        search_interval=torch.zeros(n, dtype=dtype, device=dev),
+        valid=torch.ones(n, dtype=torch.bool, device=dev),
+    )

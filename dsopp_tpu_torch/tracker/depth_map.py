@@ -1,0 +1,135 @@
+"""Semi-dense reference depth maps for the frontend (counterpart of
+``dsopp_tpu/tracker/depth_map.py``), plus the constants of the optical-flow
+keyframe strategy (``dsopp_tpu/tracker/keyframe_strategy.py``).
+
+Every live landmark of every older keyframe is reprojected into the newest
+keyframe and scatter-added as (idepth, 1) into a level-0 grid; the grids are
+2×2 sum-pooled into the pyramid and empty pixels take their 3×3 neighbours'
+sum.  The scatter-add on CUDA is ``index_add_`` (atomics, unordered): the
+idepth sums then agree with an ordered sum to f32 rounding (weights are
+exact integer counts).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from dsopp_tpu_torch.core.lie import SE3
+from dsopp_tpu_torch.core.reproject import reproject
+from dsopp_tpu_torch.features.extractor import top_k_stable
+from dsopp_tpu_torch.solvers.pba import Window, active_lm_mask, newest_slot
+from dsopp_tpu_torch.solvers.pose_alignment import LevelPoints
+
+# OpticalFlowKeyframeStrategy (mean_square_optical_flow_and_rmse strategy)
+MAX_SHIFT_WEIGHT = 4.5
+MAX_SHIFT_NO_ROT_WEIGHT = 9.0
+MAX_BRIGHTNESS_WEIGHT = 2.0
+KEYFRAME_THRESHOLD = 1.0
+MAX_EXCESS_ENERGY = 4.0
+
+FLOW_CAP = 8192   # slots of the compact flow-statistic point set
+
+
+def _pool2(x):
+    h2, w2 = (x.shape[0] // 2) * 2, (x.shape[1] // 2) * 2
+    x = x[:h2, :w2]
+    return ((x[0::2, 0::2] + x[0::2, 1::2]) + x[1::2, 0::2]) + x[1::2, 1::2]
+
+
+def _box3(x):
+    p = F.pad(x, (1, 1, 1, 1))
+    h, w = x.shape
+    out = torch.zeros_like(x)
+    for dy in range(3):
+        for dx in range(3):
+            out = out + p[dy:dy + h, dx:dx + w]
+    return out
+
+
+def build_depth_maps(window: Window, model, height: int, width: int,
+                     num_levels: int = 5):
+    """(idepth, weight) pyramids of the newest keyframe: two tuples of
+    [H_l, W_l] tensors."""
+    k = window.num_slots
+    newest = newest_slot(window)
+    poses = window.poses()
+    t_n = SE3(poses.q.index_select(0, newest)[0],
+              poses.t.index_select(0, newest)[0]).inverse()
+    t_rel = SE3(t_n.q.expand(k, 4), t_n.t.expand(k, 3)).compose(poses)
+    lm_mask = active_lm_mask(window) & ~window.lm_outlier
+    lm_mask = lm_mask & (torch.arange(k, device=newest.device) != newest)[:, None]
+    rp = reproject(model, model, window.lm_uv, window.lm_idepth,
+                   SE3(t_rel.q[:, None], t_rel.t[:, None]))
+    ok = lm_mask & rp.valid
+    xs = torch.clamp(torch.round(rp.uv[..., 0]).long(), 0, width - 1)
+    ys = torch.clamp(torch.round(rp.uv[..., 1]).long(), 0, height - 1)
+    dtype = window.lm_uv.dtype
+    zero = torch.zeros_like(rp.idepth)
+    w = torch.where(ok, torch.ones_like(zero), zero).reshape(-1)
+    idep_w = (torch.where(ok, rp.idepth, zero) * torch.where(ok, 1.0, zero)).reshape(-1)
+    flat = (ys * width + xs).reshape(-1)
+    idepth0 = torch.zeros(height * width, dtype=dtype, device=flat.device).index_add_(0, flat, idep_w)
+    weight0 = torch.zeros(height * width, dtype=dtype, device=flat.device).index_add_(0, flat, w)
+    idepths = [idepth0.reshape(height, width)]
+    weights = [weight0.reshape(height, width)]
+    for _ in range(1, num_levels):
+        idepths.append(_pool2(idepths[-1]))
+        weights.append(_pool2(weights[-1]))
+    out_i, out_w = [], []
+    for i, w_ in zip(idepths, weights):
+        empty = w_ == 0
+        out_i.append(torch.where(empty, _box3(i), i))
+        out_w.append(torch.where(empty, _box3(w_), w_))
+    return tuple(out_i), tuple(out_w)
+
+
+def depth_map_level_points(idepth_map, weight_map, pixel_map, max_points: int):
+    """One (idepth, weight) level → fixed-slot LevelPoints (top-k by weight)."""
+    h, w = idepth_map.shape
+    flat_w = weight_map.reshape(-1)
+    k = min(max_points, flat_w.shape[0])
+    top_w, idx = top_k_stable(flat_w, k)
+    dtype = idepth_map.dtype
+    uv = torch.stack([(idx % w).to(dtype), (idx // w).to(dtype)], dim=-1)
+    idep = idepth_map.reshape(-1)[idx] / torch.clamp(top_w, min=1e-12)
+    vals = pixel_map[0].reshape(-1)[idx]
+    valid = (top_w > 0) & (idep > 1e-6)
+    pad = max_points - k
+    if pad > 0:
+        dev = idepth_map.device
+        uv = torch.cat([uv, torch.zeros((pad, 2), dtype=dtype, device=dev)])
+        idep = torch.cat([idep, torch.zeros(pad, dtype=dtype, device=dev)])
+        vals = torch.cat([vals, torch.zeros(pad, dtype=dtype, device=dev)])
+        valid = torch.cat([valid, torch.zeros(pad, dtype=torch.bool, device=dev)])
+    return LevelPoints(uv.contiguous(), idep.contiguous(), vals.contiguous(), valid.contiguous())
+
+
+def build_frontend_state(window: Window, model, maps, height: int, width: int,
+                         num_levels: int, max_points: int):
+    """Depth-map pyramids, per-level frontend points and the flow set."""
+    idep, wei = build_depth_maps(window, model, height, width, num_levels)
+    points = tuple(depth_map_level_points(idep[l], wei[l], maps[l], max_points)
+                   for l in range(num_levels))
+    flow_pts = depth_map_level_points(idep[0], wei[0], maps[0], FLOW_CAP)
+    return idep, wei, points, flow_pts
+
+
+def mean_square_flows(pts: LevelPoints, model, t_t_r: SE3, border: int = 4):
+    """(flow, flow_without_rotation): RMS ray-space flow of the flow set."""
+    uv = pts.uv
+    valid = (pts.valid & (pts.idepth > 1e-6)
+             & (uv[..., 0] >= border) & (uv[..., 0] < model.width - border)
+             & (uv[..., 1] >= border) & (uv[..., 1] < model.height - border))
+    ray0 = model.unproject(uv)
+
+    def one(t):
+        rp = reproject(model, model, uv, pts.idepth, t)
+        d2 = torch.sum((ray0 - model.unproject(rp.uv)) ** 2, dim=-1)
+        ok = valid & rp.valid
+        n = torch.clamp(torch.sum(ok), min=1)
+        return torch.sqrt(torch.sum(torch.where(ok, d2, torch.zeros_like(d2))) / n.to(d2.dtype))
+
+    q_id = torch.zeros(4, dtype=uv.dtype, device=uv.device)
+    q_id[0] = 1.0
+    return one(t_t_r), one(SE3(q_id, t_t_r.t))

@@ -1,0 +1,66 @@
+"""Keyframe push (counterpart of
+``dsopp_tpu/tracker/fused_keyframe.py::fused_keyframe_push``): push the
+frame, build its immature bank from fresh candidates, activate, and run the
+windowed LM solve."""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from dsopp_tpu_torch.core.interpolate import sample
+from dsopp_tpu_torch.core.pattern import shift_pattern
+from dsopp_tpu_torch.features.extractor import select_candidates
+from dsopp_tpu_torch.solvers.pba import PBAOptions, Window, _solve_loop_device, push_frame_slot
+from dsopp_tpu_torch.tracker.activation import (_activation_kernel, _activation_scatter,
+                                                _refine_idepth_kernel)
+from dsopp_tpu_torch.tracker.depth_estimation import ImmaturePoints, make_immature_points
+
+
+class FusedKeyframeResult(NamedTuple):
+    window: Window
+    immature: ImmaturePoints
+    batch: dict
+
+
+def immature_bank(pixel_map0, num_points: int, mask=None) -> ImmaturePoints:
+    """A fresh [N] immature bank from the candidates of a level-0 map."""
+    cands = select_candidates(pixel_map0, num_points, mask=mask)
+    patches, _ = sample(pixel_map0, shift_pattern(cands.uv))
+    grads, _ = sample(pixel_map0, cands.uv)
+    bank = make_immature_points(cands.uv, patches[..., 0], grads[..., 1:])
+    return bank._replace(valid=bank.valid & cands.valid)
+
+
+def set_bank(immature: ImmaturePoints, slot: int, bank: ImmaturePoints) -> ImmaturePoints:
+    def put(x, v):
+        x = x.clone()
+        x[slot] = v
+        return x
+    return ImmaturePoints(*(put(x, v) for x, v in zip(immature, bank)))
+
+
+def fused_keyframe_push(window: Window, model, immature: ImmaturePoints, pixel_map0,
+                        pose_q, pose_t, affine, frame_id: int, min_distance,
+                        opts: PBAOptions, refine: bool, huber_sigma: float,
+                        immature_per_frame: int, exposure, mask=None) -> FusedKeyframeResult:
+    slot = int(window.frame_valid.sum())
+    window = push_frame_slot(window, slot, pose_q, pose_t, affine, exposure, False,
+                             frame_id, pixel_map0)
+    immature = set_bank(immature, slot, immature_bank(pixel_map0, immature_per_frame, mask))
+
+    activate, delete, n_active = _activation_kernel(window, model, immature, min_distance)
+    if refine:
+        idepth, activate, selected = _refine_idepth_kernel(window, model, immature,
+                                                           activate, huber_sigma)
+        delete = delete | (selected & ~activate)
+        immature = immature._replace(
+            idepth_min=torch.where(activate, idepth, immature.idepth_min),
+            idepth_max=torch.where(activate, idepth, immature.idepth_max))
+    window, immature, n_activated = _activation_scatter(window, immature, activate, delete)
+    window, energy, num_valid = _solve_loop_device(window, model, opts)
+    batch = dict(energy=energy, num_valid=num_valid, n_active=n_active,
+                 n_activated=n_activated, new_affine=window.affine()[slot],
+                 poses_mat=window.poses().matrix())
+    return FusedKeyframeResult(window, immature, batch)

@@ -1,0 +1,198 @@
+"""Port parity: the keyframe path in plain PyTorch (f64 on the CPU) against
+the JAX package.
+
+* ``select_candidates``: uv and valid exact;
+* activation (``_activation_kernel`` + ``_refine_idepth_kernel`` +
+  ``_activation_scatter``): masks and slot assignment exact, idepths 1e-9;
+* ``_solve_loop_device``: eps and lm_idepth 1e-7 relative; res_status,
+  lm_outlier and lm_inliers exact;
+* ``_marginalize_device``: the ledger over repeated folds 1e-9 relative
+  (the JAX ledger is double-float pairs, the port's plain float64).
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from dsopp_tpu.core.interpolate import build_pixel_map, sample
+from dsopp_tpu.core.pattern import shift_pattern
+from dsopp_tpu.features import extractor as jext
+from dsopp_tpu.solvers import pba as jpba
+from dsopp_tpu.testing import render_sequence
+from dsopp_tpu.testing.fixtures import build_test_window
+from dsopp_tpu.tracker import activation as jact
+from dsopp_tpu.tracker.depth_estimation import STATUS_GOOD, make_immature_points
+from dsopp_tpu_torch import convert
+from dsopp_tpu_torch.features import extractor as text
+from dsopp_tpu_torch.solvers import pba as tpba
+from dsopp_tpu_torch.tracker import activation as tact
+
+from tests._torch_port import assert_close, assert_equal, np_tree, to_torch, window_fields
+
+FRAMES = [0, 2, 4, 6]
+SLOTS = 6
+N_LM = 96
+N_IMM = 64
+
+
+@pytest.fixture(scope="module")
+def seq():
+    return render_sequence(num_frames=8, height=120, width=160)
+
+
+def _cam(seq):
+    c = seq.camera
+    return convert.pinhole(c.fx, c.fy, c.cx, c.cy, c.image_size)
+
+
+def _port_window(window):
+    return convert.window(window_fields(window))
+
+
+@pytest.mark.parametrize("num_points", [150, 600])
+def test_select_candidates_matches(seq, num_points):
+    pm = build_pixel_map(jnp.asarray(seq.images[3]))
+    ref = jext.select_candidates(pm, num_points)
+    out = text.select_candidates(to_torch(pm), num_points)
+    assert_equal(out.uv, ref.uv)
+    assert_equal(out.valid, ref.valid)
+    assert_close(out.grad2, ref.grad2, rtol=1e-12)
+    thr_j = jext._region_threshold(pm[1] ** 2 + pm[2] ** 2, 2.0)
+    thr_t = text._region_threshold(to_torch(pm[1] ** 2 + pm[2] ** 2), 2.0)
+    assert_equal(thr_t, thr_j)
+
+
+def _ready_banks(seq, window):
+    """[K] immature banks: frames 0 and 1 hold ready points with GT idepth
+    ×1.08, the rest are empty."""
+    k = window.num_slots
+    banks = []
+    for pos in range(k):
+        pm = window.maps[pos]
+        cands = jext.select_candidates(pm, N_IMM)
+        patches, _ = sample(pm, shift_pattern(cands.uv))
+        grads, _ = sample(pm, cands.uv)
+        bank = make_immature_points(cands.uv, patches[..., 0], grads[..., 1:], dtype=jnp.float64)
+        if pos < 2:
+            uv = np.asarray(cands.uv).astype(int)
+            gt = jnp.asarray(seq.idepths[FRAMES[pos]][uv[:, 1], uv[:, 0]] * 1.08)
+            bank = bank._replace(idepth_min=gt, idepth_max=gt, traced=jnp.ones(N_IMM, bool),
+                                 status=jnp.full(N_IMM, STATUS_GOOD, jnp.int32),
+                                 uniqueness=jnp.full(N_IMM, 5.0),
+                                 search_interval=jnp.full(N_IMM, 1.0),
+                                 valid=bank.valid & cands.valid)
+        else:
+            bank = bank._replace(valid=jnp.zeros(N_IMM, bool))
+        banks.append(bank)
+    return jax.tree_util.tree_map(lambda *x: jnp.stack(x), *banks)
+
+
+def test_activation_matches(seq):
+    window = build_test_window(seq, FRAMES, num_landmarks=N_LM, slots=SLOTS, seed=1)
+    # thin the active set so some candidates are spaced out
+    window = dataclasses.replace(
+        window, lm_valid=window.lm_valid & (jnp.arange(N_LM) % 3 == 0)[None])
+    imm = _ready_banks(seq, window)
+    cam = seq.camera
+    act_j, del_j, nact_j = jact._activation_kernel(window, cam, imm, 2.0)
+    idep_j, act2_j, sel_j = jact._refine_idepth_kernel(window, cam, imm, act_j, 20.0)
+    del2_j = del_j | (sel_j & ~act2_j)
+    imm2_j = imm._replace(idepth_min=jnp.where(act2_j, idep_j, imm.idepth_min),
+                          idepth_max=jnp.where(act2_j, idep_j, imm.idepth_max))
+    win_j, imm3_j, n_j = jact._activation_scatter(window, imm2_j, act2_j, del2_j)
+
+    tw = _port_window(window)
+    ti = convert.immature_points(np_tree(imm._asdict()))
+    tc = _cam(seq)
+    act_t, del_t, nact_t = tact._activation_kernel(tw, tc, ti, 2.0)
+    assert_equal(act_t, act_j)
+    assert_equal(del_t, del_j)
+    assert int(nact_t) == int(nact_j)
+    assert 0 < int(act_t.sum()) < int(ti.valid.sum())
+    idep_t, act2_t, sel_t = tact._refine_idepth_kernel(tw, tc, ti, act_t, 20.0)
+    assert_equal(act2_t, act2_j)
+    assert_equal(sel_t, sel_j)
+    assert_close(idep_t, idep_j, rtol=1e-9)
+    del2_t = del_t | (sel_t & ~act2_t)
+    ti2 = ti._replace(idepth_min=torch.where(act2_t, idep_t, ti.idepth_min),
+                      idepth_max=torch.where(act2_t, idep_t, ti.idepth_max))
+    win_t, imm3_t, n_t = tact._activation_scatter(tw, ti2, act2_t, del2_t)
+    assert int(n_t) == int(n_j) > 0
+    assert_equal(win_t.lm_valid, win_j.lm_valid)
+    assert_equal(win_t.res_status, win_j.res_status)
+    assert_equal(imm3_t.valid, imm3_j.valid)
+    assert_close(win_t.lm_uv, win_j.lm_uv, atol=0)
+    assert_close(win_t.lm_idepth, win_j.lm_idepth, rtol=1e-9)
+    assert_close(win_t.lm_patch, win_j.lm_patch, atol=0)
+
+
+@pytest.fixture(scope="module")
+def solved(seq):
+    window = build_test_window(seq, FRAMES, num_landmarks=N_LM, slots=SLOTS,
+                               pose_noise=3e-3, idepth_noise=0.05, seed=2)
+    exposure = jnp.asarray([1.0, 1.1, 0.95, 1.02, 1.0, 1.0])
+    window = dataclasses.replace(window, exposure=exposure)
+    out_j, e_j, n_j = jpba._solve_loop_device(window, seq.camera, jpba.PBAOptions())
+    out_t, e_t, n_t = tpba._solve_loop_device(_port_window(window), _cam(seq), tpba.PBAOptions())
+    return window, (out_j, e_j, n_j), (out_t, e_t, n_t)
+
+
+def test_solve_loop_matches(solved):
+    _, (out_j, e_j, n_j), (out_t, e_t, n_t) = solved
+    assert int(n_t) == int(n_j)
+    assert_close(e_t, e_j, rtol=1e-7)
+    # with an empty ledger every accepted step is folded into t_lin
+    assert_close(out_t.eps, out_j.eps, rtol=1e-7, atol=1e-12)
+    assert_close(out_t.affine0, out_j.affine0, rtol=1e-7, atol=1e-12)
+    assert_close(out_t.t_lin_q, out_j.t_lin_q, rtol=1e-7, atol=1e-10)
+    assert_close(out_t.t_lin_t, out_j.t_lin_t, rtol=1e-7, atol=1e-10)
+    assert_close(out_t.lm_idepth, out_j.lm_idepth, rtol=1e-7, atol=1e-12)
+    assert_equal(out_t.res_status, out_j.res_status)
+    assert_equal(out_t.lm_outlier, out_j.lm_outlier)
+    assert_equal(out_t.lm_inliers, out_j.lm_inliers)
+    assert_equal(out_t.lm_opt_count, out_j.lm_opt_count)
+    assert_close(out_t.lm_baseline, out_j.lm_baseline, rtol=1e-7, atol=1e-12)
+
+
+def _ledger(w):
+    if isinstance(w, tpba.Window):
+        return [w.h_marg, w.b_marg, w.energy_marg]
+    return [np.asarray(w.h_marg) + np.asarray(w.h_marg_lo),
+            np.asarray(w.b_marg) + np.asarray(w.b_marg_lo),
+            np.asarray(w.energy_marg) + np.asarray(w.energy_marg_lo)]
+
+
+def test_marginalize_ledger_over_repeated_folds(seq, solved):
+    """Fold landmarks, then a frame, then landmarks of the compacted window."""
+    _, (wj, _, _), (wt, _, _) = solved
+    opts_j, opts_t = jpba.PBAOptions(), tpba.PBAOptions()
+    cam_j, cam_t = seq.camera, _cam(seq)
+    k = wj.num_slots
+    rng = np.random.default_rng(4)
+    for step, frame in enumerate([None, 1, None]):
+        lm = rng.random((k, N_LM)) < 0.25
+        frames = np.zeros(k, bool)
+        if frame is not None:
+            frames[frame] = True
+        wj = dataclasses.replace(wj, lm_marg_flag=jnp.asarray(lm) & wj.lm_valid,
+                                 frame_marg=jnp.asarray(frames))
+        wt = wt.replace(lm_marg_flag=torch.as_tensor(lm) & wt.lm_valid,
+                        frame_marg=torch.as_tensor(frames))
+        fv = np.asarray(wj.frame_valid)
+        kept = np.where(~frames & fv)[0]
+        perm = np.concatenate([kept, [i for i in range(k) if i not in kept]]).astype(np.int32)
+        wj = jpba._marginalize_device(wj, cam_j, jnp.asarray(perm), opts_j, True, True)
+        wt = tpba._marginalize_device(wt, cam_t, torch.as_tensor(perm, dtype=torch.long), opts_t)
+        for name, a, b in zip(("H", "b", "E"), _ledger(wt), _ledger(wj)):
+            scale = float(np.max(np.abs(b)))
+            assert scale > 0, (step, name)
+            assert_close(a, b, rtol=1e-9, atol=1e-9 * scale, err_msg=f"fold {step} {name}")
+        assert_equal(wt.frame_valid, wj.frame_valid)
+        assert_equal(wt.frame_id, wj.frame_id)
+        assert_equal(wt.lm_valid, wj.lm_valid)
+        assert_close(wt.maps, wj.maps, atol=0)
+    assert int(wt.frame_valid.sum()) == len(FRAMES) - 1

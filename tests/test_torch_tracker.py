@@ -1,0 +1,292 @@
+"""Port parity of the whole slice: the known-pose bootstrap, one
+``device_tick`` from the same state, and a full tracked run, against the
+JAX package (both f64 on the CPU) at the size of
+``tests/tracker/test_device_loop.py`` with the perturbation re-track armed.
+
+(a) the bootstrap, frame by frame from the same converted JAX state, and
+    the state after ``initialize``: ints/bools exact, floats 1e-9 relative
+    (1e-7 after a BA solve);
+(b) one ``device_tick`` (a keyframe and a regular frame) from the same
+    converted JAX state: the same TickDiag and state, same tolerances;
+(c) the free-running run: the same keyframe ids, and per-frame translation
+    error against GT within 25 % of the JAX run's.
+
+Zero-parallax immature points are exempt from the bank comparisons: their
+triangulated inverse depth is rounding noise around 0 (±1e-16; the two
+packages round differently), and its sign decides OOB vs SKIPPED and
+activation readiness.  Free-running, one such flip changes the BA by
+~1e-5 and the runs drift apart by up to ~1e-2 m at this size, so (c) holds
+the port to the ground truth rather than to the JAX poses.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from dsopp_tpu.core.lie import SE3 as JSE3
+from dsopp_tpu.testing import render_sequence
+from dsopp_tpu.tracker import device_loop as jdl
+from dsopp_tpu.tracker.monocular import MonocularTracker as JTracker
+from dsopp_tpu.tracker.monocular import TrackerConfig as JConfig
+from dsopp_tpu_torch import convert
+from dsopp_tpu_torch.core.lie import SE3
+from dsopp_tpu_torch.tracker import device_loop as tdl
+from dsopp_tpu_torch.tracker.monocular import MonocularTracker, TrackerConfig
+
+from tests._torch_port import assert_close, assert_equal, state_fields, to_np, window_fields
+
+NUM_FRAMES = 18
+INIT_FRAMES = 6
+H, W = 120, 160
+CFG = dict(num_frame_slots=7, landmarks_per_frame=128, immature_per_frame=256,
+           desired_points=600, frontend_points=800, keyframe_factor=3.0,
+           window_min=3, window_max=5, use_rotation_perturbations=True)
+SNAPSHOT_TICKS = (INIT_FRAMES, INIT_FRAMES + 1)
+RTOL = 1e-9          # no BA solve in between
+RTOL_SOLVE = 1e-7    # across a windowed BA solve
+DEGENERATE_IDEPTH = 1e-10
+
+
+def _copy(fields):
+    """Deep numpy copy: the JAX loop donates its state buffers."""
+    if isinstance(fields, dict):
+        return {k: _copy(v) for k, v in fields.items()}
+    if isinstance(fields, (list, tuple)):
+        return type(fields)(_copy(v) for v in fields)
+    return np.array(fields)
+
+
+def _jax_tracker_fields(jt):
+    """The host JAX tracker's state in ``state_fields`` form."""
+    return _copy(dict(
+        window=window_fields(jt.window), immature=jt.immature._asdict(),
+        depth_idepth=list(jt.depth_maps[0]), depth_weight=list(jt.depth_maps[1]),
+        level_points=[tuple(p) for p in jt.level_points], flow_points=tuple(jt.flow_points),
+        last_q=jt.t_w_last.q, last_t=jt.t_w_last.t, prev_q=jt.t_prev_rel.q,
+        prev_t=jt.t_prev_rel.t, last_affine=jt.last_affine, rmse_last0=jt.rmse_last[0],
+        kf_rmse=jt.keyframe_strategy._rmse,
+        min_distance=jt.activator.min_distance_to_neighbor))
+
+
+def _jax_state(fields):
+    """``state_fields`` numpy dict → a JAX ``DeviceTrackerState``."""
+    from dsopp_tpu.solvers.pba import Window as JWindow
+    from dsopp_tpu.solvers.pose_alignment import LevelPoints as JLevelPoints
+    from dsopp_tpu.tracker.depth_estimation import ImmaturePoints as JImmature
+
+    arr = jnp.asarray
+    return jdl.DeviceTrackerState(
+        window=JWindow(**{k: arr(v) for k, v in fields["window"].items()}),
+        immature=JImmature(**{k: arr(v) for k, v in fields["immature"].items()}),
+        depth_idepth=tuple(arr(x) for x in fields["depth_idepth"]),
+        depth_weight=tuple(arr(x) for x in fields["depth_weight"]),
+        level_points=tuple(JLevelPoints(*map(arr, p)) for p in fields["level_points"]),
+        flow_points=JLevelPoints(*map(arr, fields["flow_points"])),
+        **{k: arr(fields[k]) for k in ("last_q", "last_t", "prev_q", "prev_t", "last_affine",
+                                       "rmse_last0", "kf_rmse", "min_distance")})
+
+
+def _port_tracker_state(tt):
+    d = dict(dtype=tt.dtype)
+    return tdl.DeviceTrackerState(
+        window=tt.window, immature=tt.immature, depth_idepth=tuple(tt.depth_maps[0]),
+        depth_weight=tuple(tt.depth_maps[1]), level_points=tuple(tt.level_points),
+        flow_points=tt.flow_points, last_q=tt.t_w_last.q, last_t=tt.t_w_last.t,
+        prev_q=tt.t_prev_rel.q, prev_t=tt.t_prev_rel.t, last_affine=tt.last_affine,
+        rmse_last0=torch.tensor(tt.rmse_last[0], **d), kf_rmse=torch.tensor(tt.kf_rmse, **d),
+        min_distance=torch.tensor(tt.min_distance, **d))
+
+
+def _force(tt, fields, jt):
+    """Set the port tracker's state to the converted JAX tracker's."""
+    st = convert.device_tracker_state(fields)
+    tt.window, tt.immature = st.window, st.immature
+    tt.depth_maps = (st.depth_idepth, st.depth_weight)
+    tt.level_points, tt.flow_points = list(st.level_points), st.flow_points
+    tt.t_w_last, tt.t_prev_rel = SE3(st.last_q, st.last_t), SE3(st.prev_q, st.prev_t)
+    tt.last_affine = st.last_affine
+    tt.kf_rmse, tt.min_distance = float(st.kf_rmse), float(st.min_distance)
+    tt.num_keyframes, tt.kf_id = jt.num_keyframes, jt._kf_id()
+
+
+@pytest.fixture(scope="module")
+def runs():
+    seq = render_sequence(num_frames=NUM_FRAMES, height=H, width=W)
+    cam = convert.pinhole(seq.camera.fx, seq.camera.fy, seq.camera.cx, seq.camera.cy,
+                          seq.camera.image_size)
+    jposes = [JSE3(jnp.asarray(seq.pose_t_wc(i).q), jnp.asarray(seq.pose_t_wc(i).t))
+              for i in range(INIT_FRAMES)]
+    # (a) bootstrap: JAX frame by frame, the port from the JAX state before each
+    jt = JTracker(seq.camera, JConfig(**CFG), dtype=jnp.float64)
+    forced = MonocularTracker(cam, TrackerConfig(**CFG), dtype=torch.float64)
+    boot = []
+    for i in range(INIT_FRAMES):
+        last = i == INIT_FRAMES - 1
+        if i > 0:
+            _force(forced, _jax_tracker_fields(jt), jt)
+        out = jt.tick(i, 0.0, seq.images[i], known_pose=jposes[i], force_keyframe=last)
+        forced.tick(i, 0.0, seq.images[i], known_pose=convert.se3(jposes[i].q, jposes[i].t),
+                    force_keyframe=last)
+        boot.append((bool(out["keyframe"]), _port_tracker_state(forced),
+                     _jax_tracker_fields(jt), forced.num_keyframes == jt.num_keyframes))
+
+    jpipe = jdl.PipelinedTracker(jt, flush_every=1000)
+    j_init = _copy(state_fields(jpipe.state))
+    snaps, j_diags = {}, []
+    for i in range(INIT_FRAMES, NUM_FRAMES):
+        if i in SNAPSHOT_TICKS:
+            before = _copy(state_fields(jpipe.state))
+            j_base, j_need, _ = jdl._frontend_core(
+                _jax_state(before), jnp.asarray(seq.images[i]), jnp.asarray(False),
+                jpipe.models, jpipe.cfg, jnp.asarray(1.0))
+            j_base = _copy(state_fields(j_base))
+        jpipe.tick(i, float(seq.timestamps[i]), seq.images[i])
+        j_diags.append(_copy(jpipe.pending[-1][2]._asdict()))
+        if i in SNAPSHOT_TICKS:
+            snaps[i] = (before, j_base, bool(j_need), j_diags[-1],
+                        _copy(state_fields(jpipe.state)))
+    jpipe.finalize()
+
+    # (c) the port free-running from its own bootstrap
+    tt = MonocularTracker(cam, TrackerConfig(**CFG), dtype=torch.float64)
+    tt.initialize([(i, float(seq.timestamps[i]), seq.images[i],
+                    convert.se3(jposes[i].q, jposes[i].t)) for i in range(INIT_FRAMES)])
+    tpipe = tdl.PipelinedTracker(tt, flush_every=4)
+    t_init = tpipe.state
+    t_diags = [tpipe.tick(i, float(seq.timestamps[i]), seq.images[i])
+               for i in range(INIT_FRAMES, NUM_FRAMES)]
+    tpipe.finalize()
+    return dict(seq=seq, jt=jt, jpipe=jpipe, boot=boot, j_init=j_init, snaps=snaps,
+                j_diags=j_diags, tt=tt, t_init=t_init, t_diags=t_diags)
+
+
+def _close(a, b, name, rtol, mask=None):
+    a, b = to_np(a), np.asarray(b)
+    if mask is not None:
+        a, b = a[mask], b[mask]
+    if b.dtype == np.bool_ or np.issubdtype(b.dtype, np.integer):
+        assert_equal(a, b, err_msg=name)
+    else:
+        scale = float(np.max(np.abs(b))) if b.size else 0.0
+        assert_close(a, b, rtol=rtol, atol=rtol * max(scale, 1e-12), err_msg=name)
+
+
+def _compare_state(port, ref, rtol):
+    """port: DeviceTrackerState; ref: ``state_fields`` dict of the JAX state."""
+    exp = convert.device_tracker_state(ref)
+    for name in ("t_lin_q", "t_lin_t", "affine0", "eps", "exposure", "frame_valid",
+                 "frame_fixed", "frame_id", "lm_uv", "lm_patch", "lm_idepth", "lm_valid",
+                 "lm_outlier", "lm_inliers", "lm_opt_count", "lm_baseline", "res_status",
+                 "h_marg", "b_marg", "energy_marg", "maps"):
+        _close(getattr(port.window, name), getattr(exp.window, name), f"window.{name}", rtol)
+    # zero-parallax points: idepth within 1e-10 of 0 in either package and
+    # some field differing
+    pi, ei = port.immature, exp.immature
+    near_zero = np.zeros(to_np(ei.valid).shape, bool)
+    differs = np.zeros_like(near_zero)
+    for name in ("idepth_min", "idepth_max"):
+        a, b = to_np(getattr(pi, name)), to_np(getattr(ei, name))
+        near_zero |= (np.abs(a) < DEGENERATE_IDEPTH) | (np.abs(b) < DEGENERATE_IDEPTH)
+        differs |= ~np.isclose(a, b, rtol=rtol, atol=rtol)
+    for name in ("status", "valid", "traced"):
+        differs |= to_np(getattr(pi, name)) != to_np(getattr(ei, name))
+    degenerate = near_zero & differs
+    assert degenerate.sum() <= 0.02 * max(1, int(to_np(ei.valid).sum()))
+    for name in port.immature._fields:
+        _close(getattr(port.immature, name), getattr(exp.immature, name),
+               f"immature.{name}", rtol, mask=~degenerate)
+    for lvl, (a, b) in enumerate(zip(port.level_points, exp.level_points)):
+        for name in a._fields:
+            _close(getattr(a, name), getattr(b, name), f"level_points[{lvl}].{name}", rtol)
+    for name in port.flow_points._fields:
+        _close(getattr(port.flow_points, name), getattr(exp.flow_points, name),
+               f"flow_points.{name}", rtol)
+    for lvl in range(len(port.depth_idepth)):
+        _close(port.depth_idepth[lvl], exp.depth_idepth[lvl], f"depth_idepth[{lvl}]", rtol)
+        _close(port.depth_weight[lvl], exp.depth_weight[lvl], f"depth_weight[{lvl}]", rtol)
+    for name in ("last_q", "last_t", "prev_q", "prev_t", "last_affine", "rmse_last0",
+                 "kf_rmse", "min_distance"):
+        _close(getattr(port, name), getattr(exp, name), name, rtol)
+
+
+@pytest.mark.parametrize("frame", range(INIT_FRAMES))
+def test_bootstrap_frame_matches(runs, frame):
+    is_kf, port_state, ref, same_count = runs["boot"][frame]
+    assert same_count
+    _compare_state(port_state, ref, RTOL_SOLVE if is_kf and frame > 0 else RTOL)
+
+
+def test_bootstrap_state_matches(runs):
+    """The free-running port bootstrap reaches the JAX state (2 keyframes,
+    the same slots, landmarks and frontend points)."""
+    port, exp = runs["t_init"], convert.device_tracker_state(runs["j_init"])
+    assert runs["tt"].num_keyframes >= 2
+    for name in ("frame_valid", "frame_id", "frame_fixed"):
+        _close(getattr(port.window, name), getattr(exp.window, name), name, 0.0)
+    _compare_state(runs["boot"][-1][1], runs["j_init"], RTOL_SOLVE)
+    n_port = int(port.window.lm_valid.sum())
+    n_ref = int(exp.window.lm_valid.sum())
+    assert abs(n_port - n_ref) <= 0.02 * n_ref
+
+
+@pytest.mark.parametrize("tick", SNAPSHOT_TICKS)
+def test_one_device_tick_matches(runs, tick):
+    """Frontend from the JAX state, then the backend from the JAX frontend's
+    state (so the zero-parallax sign noise of this tick's epipolar update
+    cannot change which points the backend activates)."""
+    before, j_base, j_need, j_diag, after = runs["snaps"][tick]
+    seq, tt = runs["seq"], runs["tt"]
+    models, cfg = tuple(tt.models), tt.loop_config()
+    exposure = torch.tensor(1.0, dtype=torch.float64)
+    base, need, front = tdl._frontend_core(convert.device_tracker_state(before),
+                                           torch.as_tensor(seq.images[tick]), False,
+                                           models, cfg, exposure)
+    assert need == j_need == bool(j_diag["is_keyframe"])
+    assert front.escalated == bool(j_diag["escalated"])
+    _compare_state(base, j_base, RTOL)
+    state, diag = tdl._backend_core(convert.device_tracker_state(j_base), front, need, tick,
+                                    models, cfg, exposure)
+    rtol = RTOL_SOLVE if need else RTOL
+    for name in ("pose_q", "pose_t", "affine", "rmse", "flow", "flow_no_rot",
+                 "num_valid_align", "t_kf_frame_mat", "energy", "num_valid_solve",
+                 "n_active", "n_activated", "min_distance", "frame_flags", "kf_frame_id",
+                 "kf_affine", "lm_valid", "lm_outlier"):
+        _close(getattr(diag, name), j_diag[name], f"diag.{name}", rtol)
+    _compare_state(state, after, rtol)
+
+
+def test_run_keyframes_and_accuracy_match(runs):
+    j_kf = [bool(d["is_keyframe"]) for d in runs["j_diags"]]
+    t_kf = [d.is_keyframe for d in runs["t_diags"]]
+    assert t_kf == j_kf
+    assert sum(t_kf) >= 2
+    assert (sorted(runs["tt"].track.keyframe_timestamps)
+            == sorted(runs["jt"].track.keyframe_timestamps))
+    gt = runs["seq"]
+    gt_t = np.stack([np.asarray(gt.pose_t_wc(i).t) for i in range(INIT_FRAMES, NUM_FRAMES)])
+    e_j = np.linalg.norm(np.stack([d["pose_t"] for d in runs["j_diags"]]) - gt_t, axis=1)
+    e_t = np.linalg.norm(np.stack([to_np(d.pose_t) for d in runs["t_diags"]]) - gt_t, axis=1)
+    rmse_j, rmse_t = np.sqrt(np.mean(e_j ** 2)), np.sqrt(np.mean(e_t ** 2))
+    assert rmse_t <= 1.25 * rmse_j, (rmse_t, rmse_j)
+    assert e_t.max() <= 1.25 * e_j.max(), (e_t.max(), e_j.max())
+
+
+def test_escalation_matches(runs):
+    """A frame whose first hypothesis chunk fails the 2.5× gate runs all 22
+    chunks (JAX: one by one; the port: chunks 1..21 batched) and keeps the
+    best per-point energy, the earliest chunk on ties."""
+    before = dict(runs["snaps"][SNAPSHOT_TICKS[1]][0])
+    before["rmse_last0"] = np.asarray(1e-3)           # gate 2.5e-3: chunk 0 fails
+    seq, tt = runs["seq"], runs["tt"]
+    tick = SNAPSHOT_TICKS[1]
+    j_base, _, j_front = jdl._frontend_core(
+        _jax_state(before), jnp.asarray(seq.images[tick]), jnp.asarray(False),
+        runs["jpipe"].models, runs["jpipe"].cfg, jnp.asarray(1.0))
+    _, _, front = tdl._frontend_core(convert.device_tracker_state(before),
+                                     torch.as_tensor(seq.images[tick]), False,
+                                     tuple(tt.models), tt.loop_config(),
+                                     torch.tensor(1.0, dtype=torch.float64))
+    assert bool(j_front.escalated) and front.escalated
+    for name in ("pose_q", "pose_t", "affine", "rmse", "num_valid"):
+        _close(getattr(front, name), np.asarray(getattr(j_front, name)), name, RTOL)
