@@ -10,6 +10,10 @@ keeps its layouts at public function boundaries (maps ``[3, H, W]`` of
 Kernel dispatch rule: a wrapper given CPU tensors runs its plain PyTorch
 version; given CUDA tensors it launches its CUDA kernel or raises.  Kernels
 are compiled from ``csrc/`` at first use (see :mod:`dsopp_tpu_torch.kernels`).
+
+Device rule: an entry point that takes ``device=None`` runs on the CUDA
+card, and raises when there is none; it runs on the CPU only when the
+caller passes ``device="cpu"`` (see :func:`default_device`).
 """
 
 import torch
@@ -20,3 +24,16 @@ import torch
 # f32 already; cuDNN convolutions do not, so both flags are set explicitly.
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
+
+
+def default_device(device=None) -> torch.device:
+    """``device`` as a ``torch.device``; ``None`` means the CUDA card and
+    raises ``RuntimeError`` when there is none (the CPU is never picked
+    quietly: pass ``device="cpu"`` to run there)."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "dsopp_tpu_torch runs on a CUDA device and none is available; "
+            "pass device=\"cpu\" to run on the CPU")
+    return torch.device("cuda")

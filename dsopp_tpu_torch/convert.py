@@ -14,6 +14,9 @@ arrays stay bool, integer arrays become int32.
 * the float64 ledger is the sum of the double-float pairs
   (``h_marg + h_marg_lo``, ``b_marg + b_marg_lo``,
   ``energy_marg + energy_marg_lo``).
+
+``fej_cache`` and ``evaluation`` drop the JAX package's channel axis (the
+port is single-channel, C = 1).
 """
 
 from __future__ import annotations
@@ -23,7 +26,8 @@ import torch
 
 from dsopp_tpu_torch.core.camera import Pinhole
 from dsopp_tpu_torch.core.lie import SE3
-from dsopp_tpu_torch.solvers.pba import LEDGER_DTYPE, Window
+from dsopp_tpu_torch.solvers.pba import (LEDGER_DTYPE, Evaluation, FEJCache, LinearSystem,
+                                         Window)
 from dsopp_tpu_torch.solvers.pose_alignment import LevelPoints
 from dsopp_tpu_torch.tracker.depth_estimation import ImmaturePoints
 from dsopp_tpu_torch.tracker.device_loop import DeviceTrackerState
@@ -67,6 +71,35 @@ def window(fields: dict, dtype=torch.float64, device=None) -> Window:
         else:
             out[name] = tensor(fields[name], dtype, device)
     return Window(**out)
+
+
+def _drop_channel(a):
+    """[K,K,N,C=1,P] → [K,K,N,P]."""
+    a = np.asarray(a)
+    if a.shape[3] != 1:
+        raise ValueError(f"the port is single-channel, got C = {a.shape[3]}")
+    return a[:, :, :, 0]
+
+
+def fej_cache(fields: dict, dtype=torch.float64, device=None) -> FEJCache:
+    """JAX ``FEJCache`` fields → port ``FEJCache``."""
+    out = {k: fields[k] for k in FEJCache._fields}
+    out["corrected_ref"] = _drop_channel(out["corrected_ref"])
+    return FEJCache(**{k: tensor(v, dtype, device) for k, v in out.items()})
+
+
+def evaluation(fields: dict, dtype=torch.float64, device=None) -> Evaluation:
+    """JAX ``Evaluation`` fields → port ``Evaluation``."""
+    out = {k: fields[k] for k in Evaluation._fields}
+    for name in ("residuals", "gx", "gy"):
+        out[name] = _drop_channel(out[name])
+    return Evaluation(**{k: tensor(v, dtype, device) for k, v in out.items()})
+
+
+def linear_system(fields: dict, dtype=torch.float64, device=None) -> LinearSystem:
+    """JAX ``LinearSystem`` fields → port ``LinearSystem``."""
+    return LinearSystem(**{k: tensor(fields[k], dtype, device)
+                           for k in LinearSystem._fields})
 
 
 def device_tracker_state(fields: dict, dtype=torch.float64, device=None) -> DeviceTrackerState:

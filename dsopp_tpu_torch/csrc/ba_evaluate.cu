@@ -1,0 +1,187 @@
+// K7 ba_evaluate: the photometric residuals of the windowed BA at a state
+// (eps, idepth).
+//
+// Replaces dsopp_tpu/solvers/pba.py::_evaluate: for every (anchor i, target
+// j, landmark n, pattern point p) reproject, read the target's intensity
+// image with the 10x10-window rule of core/interpolate.py::sample_window —
+// one window per (i, j, n), based at floor(reprojected pattern center) - 4;
+// a point whose bilinear corners plus the +-1 gradient halo leave that
+// window or the image is invalid; pixels outside the image read as 0;
+// gradients are half central differences of raw intensities — then the
+// residual, the whole-patch Huber energy and weight, the candidate status
+// (out of bounds) and the ok mask.
+//
+// Bound: bytes (about 2.5 MB of outputs and 12 scattered pixel reads per
+// residual at K = 10, N = 250).  Design: one thread per residual (layout of
+// ba_body.cuh); thread 0 of a block computes the pair's relative pose
+// T_j^-1 T_i at the current eps and the brightness terms into shared memory;
+// the window base comes from the center lane by shuffle; the validity AND
+// and the sum of squares over the 8 pattern points are shuffles.
+
+#include "ba_body.cuh"
+
+namespace {
+
+using namespace ba;
+
+constexpr int kResOob = 1;  // solvers/pba.py::RES_OOB
+constexpr int kWinLo = 1;   // corner range inside the 10x10 window that
+constexpr int kWinHi = 7;   // leaves room for the +-1 halo (PATCH_WIN - 3)
+constexpr int kPatchLo = 4;
+
+struct PairTerms {
+  Rigid rel;
+  float scale, b_anchor, b_target;
+  int pair_live;
+};
+
+__global__ void __launch_bounds__(kThreads)
+ba_evaluate_kernel(const float* __restrict__ t_lin_q, const float* __restrict__ t_lin_t,
+                   const float* __restrict__ eps, const float* __restrict__ affine0,
+                   const float* __restrict__ exposure, const float* __restrict__ lm_uv,
+                   const float* __restrict__ idepth, const float* __restrict__ lm_patch,
+                   const unsigned char* __restrict__ lm_mask,
+                   const unsigned char* __restrict__ frame_valid,
+                   const int* __restrict__ res_status, const float* __restrict__ images,
+                   size_t image_stride, int k, int n, int h, int w, Camera cam,
+                   float sigma, float* __restrict__ residuals,
+                   float* __restrict__ energy_patch, float* __restrict__ weight,
+                   int* __restrict__ status_candidate, float* __restrict__ out_gx,
+                   float* __restrict__ out_gy, unsigned char* __restrict__ out_ok) {
+  __shared__ PairTerms terms;
+  const int pair = blockIdx.y;
+  const int i = pair / k, j = pair % k;
+  if (threadIdx.x == 0) {
+    terms.rel = relative_pose(t_lin_q, t_lin_t, eps, i, j);
+    const float a_i = affine0[2 * i] + eps[8 * i + 6];
+    const float a_j = affine0[2 * j] + eps[8 * j + 6];
+    terms.b_anchor = affine0[2 * i + 1] + eps[8 * i + 7];
+    terms.b_target = affine0[2 * j + 1] + eps[8 * j + 7];
+    const float ratio = exposure[j] / fmaxf(exposure[i], 1e-12f);
+    terms.scale = ratio * expf(a_j - a_i);
+    terms.pair_live = frame_valid[i] && frame_valid[j] && i != j;
+  }
+  __syncthreads();
+  const Rigid rel = terms.rel;
+
+  const int idx = blockIdx.x * kThreads + threadIdx.x;
+  const bool active = idx < n * kPattern;
+  const int cl = active ? idx : n * kPattern - 1;  // idle lanes repeat the last residual
+  const int ln = cl / kPattern, p = cl % kPattern;
+  const int lm = i * n + ln;
+
+  // reproject (core/reproject.py::reproject, Pinhole.project)
+  const float d = idepth[lm];
+  const float u = lm_uv[2 * lm] + kPatternX[p];
+  const float v = lm_uv[2 * lm + 1] + kPatternY[p];
+  Vec3 ray;
+  const Vec3 q = scaled_target_point(cam, u, v, d, rel, &ray);
+  const float z_safe = fabsf(q.z) < 1e-12f ? 1e-12f : q.z;
+  const float x = cam.fx * q.x / z_safe + cam.cx;
+  const float y = cam.fy * q.y / z_safe + cam.cy;
+  const bool valid = reprojection_valid(cam, q.z, x, y, d);
+
+  // one window per landmark, based at the reprojected pattern center
+  const int center_lane = (threadIdx.x & 31 & ~(kPattern - 1)) + kCenter;
+  const float xc = __shfl_sync(kFull, x, center_lane);
+  const float yc = __shfl_sync(kFull, y, center_lane);
+  const int bx = min(max((int)floorf(xc), 0), w - 1) - kPatchLo;
+  const int by = min(max((int)floorf(yc), 0), h - 1) - kPatchLo;
+
+  // core/interpolate.py::_window_coords with the halo range [1, 7]
+  const bool inside = x >= 0.0f && y >= 0.0f && x <= (float)(w - 1) && y <= (float)(h - 1);
+  const int ix = min(max((int)floorf(x), 0), w - 2);
+  const int iy = min(max((int)floorf(y), 0), h - 2);
+  const float fx = x - (float)ix, fy = y - (float)iy;
+  const int dxi = ix - bx, dyi = iy - by;
+  const bool in_win = dxi >= kWinLo && dxi <= kWinHi && dyi >= kWinLo && dyi <= kWinHi;
+  const int col = bx + min(max(dxi, kWinLo), kWinHi);
+  const int row = by + min(max(dyi, kWinLo), kWinHi);
+
+  // the 4x4 neighbourhood less its corners; zero outside the image
+  const float* img = images + (size_t)j * image_stride;
+  float px[4][4];
+#pragma unroll
+  for (int dr = 0; dr < 4; ++dr) {
+#pragma unroll
+    for (int dc = 0; dc < 4; ++dc) {
+      if ((dr == 0 || dr == 3) && (dc == 0 || dc == 3)) {
+        px[dr][dc] = 0.0f;
+        continue;
+      }
+      const int rr = row + dr - 1, cc = col + dc - 1;
+      px[dr][dc] = (rr >= 0 && rr < h && cc >= 0 && cc < w) ? __ldg(img + (size_t)rr * w + cc) : 0.0f;
+    }
+  }
+  const float wy0 = 1.0f - fy, wy1 = fy, wx0 = 1.0f - fx, wx1 = fx;
+  // y contracted first for the value and d/dx, x first for d/dy
+  float ty[4], tx[4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    ty[c] = px[1][c] * wy0 + px[2][c] * wy1;
+    tx[c] = px[c][1] * wx0 + px[c][2] * wx1;
+  }
+  const float val = ty[1] * wx0 + ty[2] * wx1;
+  const float gx = ((ty[0] * (-0.5f * wx0) + ty[1] * (-0.5f * wx1)) + ty[2] * (0.5f * wx0)) +
+                   ty[3] * (0.5f * wx1);
+  const float gy = ((tx[0] * (-0.5f * wy0) + tx[1] * (-0.5f * wy1)) + tx[2] * (0.5f * wy0)) +
+                   tx[3] * (0.5f * wy1);
+
+  const float corrected = terms.scale * (lm_patch[(size_t)lm * kPattern + p] - terms.b_anchor);
+  float r = (val - terms.b_target) - corrected;
+
+  const bool geom_ok = all_of_pattern((valid && inside && in_win) ? 1 : 0) != 0;
+  const size_t group = (size_t)pair * n + ln;
+  const int status = res_status[group];
+  const bool live = terms.pair_live && lm_mask[lm];
+  const bool ok = live && geom_ok && status == 0;
+  r = ok ? r : 0.0f;
+  float r2 = r * r;
+  r2 += __shfl_xor_sync(kFull, r2, 1);
+  r2 += __shfl_xor_sync(kFull, r2, 2);
+  r2 += __shfl_xor_sync(kFull, r2, 4);
+
+  if (!active) return;
+  const size_t res = group * kPattern + p;
+  residuals[res] = r;
+  out_gx[res] = gx;
+  out_gy[res] = gy;
+  if (p == 0) {
+    // solvers/measure.py::huber_energy_weight on the whole patch
+    const float sigma_sq = sigma * sigma;
+    const float norm = sqrtf(fmaxf(r2, 1e-30f));
+    const bool linear = r2 > sigma_sq;
+    const float energy = linear ? sigma * norm - 0.5f * sigma_sq : 0.5f * r2;
+    const float wgt = linear ? sigma / norm : 1.0f;
+    energy_patch[group] = ok ? energy : 0.0f;
+    weight[group] = ok ? wgt : 0.0f;
+    status_candidate[group] = (live && !geom_ok) ? kResOob : status;
+    out_ok[group] = ok ? 1 : 0;
+  }
+}
+
+}  // namespace
+
+// Window as ba_fej, plus eps [k,8], idepth [k,n] (the state), lm_mask [k,n]
+// u8, frame_valid [k] u8, res_status [k,k,n] int32 and the frames' intensity
+// images (`images` + f * image_stride is frame f's [h,w] image).  Outputs:
+// residuals, gx, gy [k,k,n,8]; energy_patch, weight [k,k,n];
+// status_candidate [k,k,n] int32; ok [k,k,n] u8.
+extern "C" int ba_evaluate(const float* t_lin_q, const float* t_lin_t, const float* eps,
+                           const float* affine0, const float* exposure,
+                           const float* lm_uv, const float* idepth, const float* lm_patch,
+                           const unsigned char* lm_mask, const unsigned char* frame_valid,
+                           const int* res_status, const float* images, int image_stride,
+                           int k, int n, int h, int w, float fx, float fy, float cx,
+                           float cy, float width, float height, float sigma,
+                           float* residuals, float* energy_patch, float* weight,
+                           int* status_candidate, float* gx, float* gy,
+                           unsigned char* ok, void* stream) {
+  const ba::Camera cam = {fx, fy, cx, cy, width, height};
+  const dim3 grid((n * ba::kPattern + ba::kThreads - 1) / ba::kThreads, k * k);
+  ba_evaluate_kernel<<<grid, ba::kThreads, 0, (cudaStream_t)stream>>>(
+      t_lin_q, t_lin_t, eps, affine0, exposure, lm_uv, idepth, lm_patch, lm_mask,
+      frame_valid, res_status, images, (size_t)image_stride, k, n, h, w, cam, sigma,
+      residuals, energy_patch, weight, status_candidate, gx, gy, ok);
+  return (int)cudaGetLastError();
+}

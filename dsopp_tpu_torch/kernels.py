@@ -30,7 +30,7 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     # keep a*b+c as two roundings, as the plain PyTorch versions compute it
     "--fmad=false",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 _P = ctypes.c_void_p
@@ -51,24 +51,44 @@ def _nvcc():
 
 
 def build():
-    """Compile ``csrc/*.cu`` (if not already built) → path of the library."""
+    """Compile ``csrc/*.cu`` (if not already built) → path of the library.
+
+    One ``nvcc -c`` per source, all started together, then one link."""
     sources = sorted(CSRC.glob("*.cu"))
     digest = hashlib.sha256()
     for src in sorted(CSRC.glob("*.cu*")):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
-    lib_path = BUILD_DIR / f"libdsopp_kernels_{digest.hexdigest()[:16]}.so"
+    tag = digest.hexdigest()[:16]
+    lib_path = BUILD_DIR / f"libdsopp_kernels_{tag}.so"
     if lib_path.exists():
         return lib_path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    stem = f"{tag}.{os.getpid()}"
+    objects = [BUILD_DIR / f"{src.stem}.{stem}.o" for src in sources]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(sources, objects)]
+    log, failed = [], []
+    for src, proc in zip(sources, procs):
+        out = proc.communicate()[0]
+        log.append(f"== {src.name} (rc {proc.returncode})\n{out}")
+        if proc.returncode != 0:
+            failed.append(f"{src.name}:\n{out}")
     tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    (BUILD_DIR / "build.log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    if not failed:
+        link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objects)],
+                              capture_output=True, text=True, check=False)
+        log.append(f"== link (rc {link.returncode})\n{link.stdout}{link.stderr}")
+        if link.returncode != 0:
+            failed.append(f"link:\n{link.stderr}")
+    (BUILD_DIR / "build.log").write_text("\n".join(log))
+    for obj in objects:
+        obj.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     os.replace(tmp, lib_path)
     return lib_path
 
@@ -125,7 +145,17 @@ ALIGN = Kernel("align_residual_system", "align_residual_system",
 EPIPOLAR = Kernel("epipolar_sweep", "epipolar_sweep",
                   [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                    _F, _F, _F, _F, _F, _F, _F, _F, _P, _P, _P, _P, _P, _P])
-ALL = (PYRAMID, ALIGN, EPIPOLAR)
+ALIGN_LEVEL = Kernel("align_level", "align_level",
+                     [_P, _P, _P, _P, _I, _P, _I, _I, _P, _P, _P, _P, _I,
+                      _F, _F, _F, _F, _F, _F, _F, _I, _F, _F, _F, _F, _F, _F, _F,
+                      _P, _P, _P, _P, _P, _P, _P])
+BA_FEJ = Kernel("ba_fej", "ba_fej",
+                [_P] * 7 + [_I, _I] + [_F] * 6 + [_P] * 6)
+BA_EVALUATE = Kernel("ba_evaluate", "ba_evaluate",
+                     [_P] * 12 + [_I] * 5 + [_F] * 7 + [_P] * 7)
+BA_LINEARIZE = Kernel("ba_linearize_schur", "ba_linearize_schur",
+                      [_P] * 12 + [_I, _I, _I, _F, _F, _I, _I] + [_P] * 10)
+ALL = (PYRAMID, ALIGN, ALIGN_LEVEL, EPIPOLAR, BA_FEJ, BA_EVALUATE, BA_LINEARIZE)
 
 
 def reset_counts():

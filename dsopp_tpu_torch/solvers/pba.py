@@ -13,6 +13,12 @@ The window is a fixed-shape bank of K frame slots × N landmark slots × the
 Target values and gradients are read from the frames' intensity images with
 the 10×10-window semantics of :func:`sample_window` (one window per
 (anchor, target, landmark) group, based at the reprojected pattern center).
+
+Three functions have a hand-written CUDA kernel beside their plain PyTorch
+version and dispatch on ``window.maps.is_cuda``: :func:`_fej_cache` (K6,
+``csrc/ba_fej.cu``), :func:`_evaluate` (K7, ``csrc/ba_evaluate.cu``) and
+:func:`_linearize_from_ev` (K8, ``csrc/ba_linearize.cu``).  CUDA tensors go
+to the kernel or raise; the plain versions run on CPU tensors only.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ from typing import NamedTuple
 
 import torch
 
+from dsopp_tpu_torch import default_device, kernels
 from dsopp_tpu_torch.core.interpolate import pad_images, sample_window, window_base
 from dsopp_tpu_torch.core.lie import SE3
 from dsopp_tpu_torch.core.pattern import PATTERN_CENTER, shift_pattern
@@ -107,6 +114,8 @@ class Window:
 
 def empty_window(num_frames: int, num_landmarks: int, map_shape,
                  dtype=torch.float32, device=None) -> Window:
+    """An empty window on ``device`` (``None``: the CUDA card)."""
+    device = default_device(device)
     k, n = num_frames, num_landmarks
     kw = dict(dtype=dtype, device=device)
     qeye = torch.zeros((k, 4), **kw)
@@ -171,7 +180,7 @@ def _brightness_scale(exposure, affine):
     return ratio * torch.exp(affine[None, :, 0] - affine[:, None, 0])
 
 
-def _fej_cache(window: Window, model) -> FEJCache:
+def _fej_cache_plain(window: Window, model) -> FEJCache:
     k = window.num_slots
     zero = torch.zeros((k, 6), dtype=window.t_lin_q.dtype, device=window.t_lin_q.device)
     t_ji = _relative_poses(window.t_lin_q, window.t_lin_t, zero)
@@ -184,6 +193,46 @@ def _fej_cache(window: Window, model) -> FEJCache:
         window.lm_patch[:, None] - window.affine0[:, None, None, None, 1])
     return FEJCache(rj.d_uv_d_eps_ref, rj.d_uv_d_eps_tgt, rj.d_uv_d_idepth,
                     corrected, scale0, torch.all(rj.valid, dim=-1))
+
+
+def _check_window(window: Window):
+    """Validate the window tensors the BA kernels read → (k, n, h, w)."""
+    k, n = window.num_slots, window.num_landmark_slots
+    check = kernels.check
+    check(window.maps, "maps", (k, 3) + tuple(window.maps.shape[-2:]))
+    check(window.t_lin_q, "t_lin_q", (k, 4))
+    check(window.t_lin_t, "t_lin_t", (k, 3))
+    check(window.affine0, "affine0", (k, 2))
+    check(window.exposure, "exposure", (k,))
+    check(window.lm_uv, "lm_uv", (k, n, 2))
+    check(window.lm_idepth, "lm_idepth", (k, n))
+    check(window.lm_patch, "lm_patch", (k, n, 8))
+    h, w = window.maps.shape[-2:]
+    return k, n, h, w
+
+
+def _fej_cache_cuda(window: Window, model) -> FEJCache:
+    """Kernel K6: same outputs as :func:`_fej_cache_plain`."""
+    k, n, _, _ = _check_window(window)
+    kw = dict(dtype=window.eps.dtype, device=window.eps.device)
+    d_ref = torch.empty((k, k, n, 8, 2, 6), **kw)
+    d_tgt = torch.empty((k, k, n, 8, 2, 6), **kw)
+    d_idepth = torch.empty((k, k, n, 8, 2), **kw)
+    corrected = torch.empty((k, k, n, 8), **kw)
+    scale0 = torch.empty((k, k), **kw)
+    geom_valid = torch.empty((k, k, n), dtype=torch.bool, device=window.eps.device)
+    kernels.BA_FEJ(window.t_lin_q, window.t_lin_t, window.affine0, window.exposure,
+                   window.lm_uv, window.lm_idepth, window.lm_patch, k, n,
+                   model.fx, model.fy, model.cx, model.cy, model.width, model.height,
+                   d_ref, d_tgt, d_idepth, corrected, scale0, geom_valid)
+    return FEJCache(d_ref, d_tgt, d_idepth, corrected, scale0, geom_valid)
+
+
+def _fej_cache(window: Window, model) -> FEJCache:
+    """FEJ Jacobians at the linearization point: the kernel K6 on CUDA
+    tensors, the plain version on CPU ones."""
+    fn = _fej_cache_cuda if window.maps.is_cuda else _fej_cache_plain
+    return fn(window, model)
 
 
 class Evaluation(NamedTuple):
@@ -202,7 +251,8 @@ def _pair_mask(window: Window):
     return fv[:, None] & fv[None, :] & ~eye
 
 
-def _evaluate(window: Window, model, eps, idepth, lm_mask, opts: PBAOptions) -> Evaluation:
+def _evaluate_plain(window: Window, model, eps, idepth, lm_mask,
+                    opts: PBAOptions) -> Evaluation:
     """Residuals of every (anchor i, target j, landmark n) at (eps, idepth)."""
     k = window.num_slots
     h, w = window.maps.shape[-2:]
@@ -230,6 +280,42 @@ def _evaluate(window: Window, model, eps, idepth, lm_mask, opts: PBAOptions) -> 
     zero = torch.zeros_like(energy)
     return Evaluation(r, torch.where(ok, energy, zero), torch.where(ok, weight, zero),
                       candidate, gx, gy, ok)
+
+
+def _evaluate_cuda(window: Window, model, eps, idepth, lm_mask,
+                   opts: PBAOptions) -> Evaluation:
+    """Kernel K7: same outputs as :func:`_evaluate_plain`."""
+    k, n, h, w = _check_window(window)
+    check = kernels.check
+    check(eps, "eps", (k, BLOCK))
+    check(idepth, "idepth", (k, n))
+    check(lm_mask, "lm_mask", (k, n), torch.bool)
+    check(window.frame_valid, "frame_valid", (k,), torch.bool)
+    check(window.res_status, "res_status", (k, k, n), torch.int32)
+    dev = eps.device
+    kw = dict(dtype=eps.dtype, device=dev)
+    residuals = torch.empty((k, k, n, 8), **kw)
+    gx = torch.empty((k, k, n, 8), **kw)
+    gy = torch.empty((k, k, n, 8), **kw)
+    energy = torch.empty((k, k, n), **kw)
+    weight = torch.empty((k, k, n), **kw)
+    candidate = torch.empty((k, k, n), dtype=torch.int32, device=dev)
+    ok = torch.empty((k, k, n), dtype=torch.bool, device=dev)
+    # the intensity image of frame f is channel 0 of maps[f]
+    kernels.BA_EVALUATE(window.t_lin_q, window.t_lin_t, eps, window.affine0,
+                        window.exposure, window.lm_uv, idepth, window.lm_patch, lm_mask,
+                        window.frame_valid, window.res_status, window.maps, 3 * h * w,
+                        k, n, h, w, model.fx, model.fy, model.cx, model.cy, model.width,
+                        model.height, float(opts.huber_sigma), residuals, energy, weight,
+                        candidate, gx, gy, ok)
+    return Evaluation(residuals, energy, weight, candidate, gx, gy, ok)
+
+
+def _evaluate(window: Window, model, eps, idepth, lm_mask, opts: PBAOptions) -> Evaluation:
+    """Residuals at (eps, idepth): the kernel K7 on CUDA tensors, the plain
+    version on CPU ones."""
+    fn = _evaluate_cuda if window.maps.is_cuda else _evaluate_plain
+    return fn(window, model, eps, idepth, lm_mask, opts)
 
 
 def _prior_system(window: Window, eps, opts: PBAOptions, marg_pass=False):
@@ -272,8 +358,8 @@ class LinearSystem(NamedTuple):
     b_d: torch.Tensor       # [K,N]
 
 
-def _linearize_from_ev(window: Window, fej: FEJCache, ev: Evaluation, eps,
-                       opts: PBAOptions, marg_pass: bool = False) -> LinearSystem:
+def _linearize_from_ev_plain(window: Window, fej: FEJCache, ev: Evaluation, eps,
+                             opts: PBAOptions, marg_pass: bool = False) -> LinearSystem:
     """GN system with FEJ geometry, current gradients and weights, and the
     landmark Schur complement."""
     k = window.num_slots
@@ -317,6 +403,63 @@ def _linearize_from_ev(window: Window, fej: FEJCache, ev: Evaluation, eps,
     h_schur = torch.einsum("inja,in,inkb->jakb", hpd, inv_hdd, hpd).reshape(k * BLOCK, k * BLOCK)
     b_schur = torch.einsum("inja,in,in->ja", hpd, inv_hdd, b_d).reshape(k * BLOCK)
     return LinearSystem(h + h_pr, b + b_pr, h_schur, b_schur, hpd, inv_hdd, b_d)
+
+
+# landmarks per block of csrc/ba_linearize.cu's pair and landmark kernels
+# (kTileLm, kChunkLm): they size the scratch the caller allocates
+_LINEARIZE_TILE_LM = 64
+_LINEARIZE_CHUNK_LM = 32
+
+
+def _linearize_from_ev_cuda(window: Window, fej: FEJCache, ev: Evaluation, eps,
+                            opts: PBAOptions, marg_pass: bool = False) -> LinearSystem:
+    """Kernel K8: same outputs as :func:`_linearize_from_ev_plain` (the
+    diagonal priors are added here, as there)."""
+    k, n = window.num_slots, window.num_landmark_slots
+    kb = k * BLOCK
+    check = kernels.check
+    check(fej.d_uv_ref, "d_uv_ref", (k, k, n, 8, 2, 6))
+    check(fej.d_uv_tgt, "d_uv_tgt", (k, k, n, 8, 2, 6))
+    check(fej.d_uv_idepth, "d_uv_idepth", (k, k, n, 8, 2))
+    check(fej.corrected_ref, "corrected_ref", (k, k, n, 8))
+    check(fej.scale0, "scale0", (k, k))
+    check(fej.geom_valid, "geom_valid", (k, k, n), torch.bool)
+    check(ev.residuals, "residuals", (k, k, n, 8))
+    check(ev.weight, "weight", (k, k, n))
+    check(ev.gx, "gx", (k, k, n, 8))
+    check(ev.gy, "gy", (k, k, n, 8))
+    check(ev.ok, "ok", (k, k, n), torch.bool)
+    check(window.frame_fixed, "frame_fixed", (k,), torch.bool)
+    dev = eps.device
+    kw = dict(dtype=eps.dtype, device=dev)
+    tiles = -(-n // _LINEARIZE_TILE_LM)
+    lm_blocks = -(-(k * n) // _LINEARIZE_CHUNK_LM)
+    pair_part = torch.empty((k * k * tiles, 16 * 16 + 16), dtype=torch.float64, device=dev)
+    lm_part = torch.empty((k * k * n, 18), **kw)
+    schur_part = torch.empty((lm_blocks, kb * kb + kb), dtype=torch.float64, device=dev)
+    h = torch.empty((kb, kb), **kw)
+    b = torch.empty((kb,), **kw)
+    h_schur = torch.empty((kb, kb), **kw)
+    b_schur = torch.empty((kb,), **kw)
+    hpd = torch.empty((k, n, k, BLOCK), **kw)
+    inv_hdd = torch.empty((k, n), **kw)
+    b_d = torch.empty((k, n), **kw)
+    kernels.BA_LINEARIZE(fej.d_uv_ref, fej.d_uv_tgt, fej.d_uv_idepth, fej.corrected_ref,
+                         fej.scale0, fej.geom_valid, ev.residuals, ev.weight, ev.gx, ev.gy,
+                         ev.ok, window.frame_fixed, k, n, int(bool(marg_pass)),
+                         float(opts.idepth_nullspace_threshold),
+                         float(opts.scale_nullspace_reg), tiles, lm_blocks, pair_part,
+                         lm_part, schur_part, h, b, h_schur, b_schur, hpd, inv_hdd, b_d)
+    h_pr, b_pr = _prior_system(window, eps, opts, marg_pass=marg_pass)
+    return LinearSystem(h + h_pr, b + b_pr, h_schur, b_schur, hpd, inv_hdd, b_d)
+
+
+def _linearize_from_ev(window: Window, fej: FEJCache, ev: Evaluation, eps,
+                       opts: PBAOptions, marg_pass: bool = False) -> LinearSystem:
+    """GN system and landmark Schur complement: the kernel K8 on CUDA
+    tensors, the plain version on CPU ones."""
+    fn = _linearize_from_ev_cuda if window.maps.is_cuda else _linearize_from_ev_plain
+    return fn(window, fej, ev, eps, opts, marg_pass)
 
 
 def _energy_from_ev(window: Window, ev: Evaluation, eps, opts: PBAOptions):

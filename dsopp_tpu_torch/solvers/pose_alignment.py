@@ -1,12 +1,18 @@
 """Frontend two-frame direct pose alignment (counterpart of
-``dsopp_tpu/solvers/pose_alignment.py``) — kernel K2 and its LM driver.
+``dsopp_tpu/solvers/pose_alignment.py``) — kernel K2 and its LM loop K3.
 
-Coarse-to-fine LM over a batch of pose hypotheses: each iteration builds
-the 8×8 system (6 pose + 2 affine) of every hypothesis in one call of
-:func:`residual_system` — the CUDA kernel ``csrc/align.cu`` on a CUDA map,
-:func:`residual_system_plain` on a CPU one — and solves the damped systems
-batched.  The relative pose is left-incremented (t ← exp(δ)·t), the target
-affine (a, b) additively; whole-point Huber; affine priors.
+Coarse-to-fine LM over a batch of pose hypotheses.  The relative pose is
+left-incremented (t ← exp(δ)·t), the target affine (a, b) additively;
+whole-point Huber; affine priors.
+
+:func:`align_level` solves one pyramid level.  On a CUDA map it is one
+launch of ``csrc/align_level.cu`` (K3): the whole LM loop of every
+hypothesis on the device, no host read.  On a CPU map it is
+:func:`align_level_plain`: a Python loop that builds the 8×8 systems
+(6 pose + 2 affine) of all hypotheses with :func:`residual_system` and
+solves the damped systems batched.  :func:`residual_system` in turn is the
+CUDA kernel ``csrc/align.cu`` (K2, the body K3 runs per iteration) on a
+CUDA map and :func:`residual_system_plain` on a CPU one.
 """
 
 from __future__ import annotations
@@ -22,8 +28,9 @@ from dsopp_tpu_torch.core.reproject import reproject_jacobian
 from dsopp_tpu_torch.solvers.linear import solve
 from dsopp_tpu_torch.solvers.measure import huber_energy_weight
 
-# LM iterations between host reads of "every hypothesis done" (each read
-# is a device synchronisation; every iteration would cost more than it saves)
+# plain version only: LM iterations between host reads of "every hypothesis
+# done" (on CUDA tensors each read is a device synchronisation; every
+# iteration would cost more than it saves)
 DONE_CHECK_EVERY = 4
 
 
@@ -54,6 +61,7 @@ class AlignmentResult(NamedTuple):
     energy: torch.Tensor    # [B] (incl. priors)
     num_valid: torch.Tensor  # [B] int32
     rmse: torch.Tensor      # [B]
+    iterations: torch.Tensor  # [B] int32, LM iterations until done
 
 
 def residual_system_plain(pts: LevelPoints, pixel_map, model, t_t_r: SE3,
@@ -82,18 +90,19 @@ def residual_system_plain(pts: LevelPoints, pixel_map, model, t_t_r: SE3,
     return h, b, energy, torch.sum(ok, dim=-1, dtype=torch.int32)
 
 
-def residual_system_cuda(pts: LevelPoints, pixel_map, model, t_t_r: SE3,
-                         affine, affine_ref, exposure_ratio, sigma):
-    """Kernel K2: same outputs as :func:`residual_system_plain`."""
+def _check_problem(pts: LevelPoints, pixel_map, t_t_r: SE3, affine, affine_ref,
+                   exposure_ratio):
+    """Validate the tensors K2 and K3 share → (n, nb, h_px, w_px, ref) with
+    ``ref`` = [a_ref, b_ref, exposure ratio] on the device."""
     n = pts.uv.shape[0]
     nb = t_t_r.q.shape[0]
-    _, h_px, w_px = pixel_map.shape
     check = kernels.check
+    check(pixel_map, "pixel_map", (3,) + tuple(pixel_map.shape[-2:]))
+    _, h_px, w_px = pixel_map.shape
     check(pts.uv, "uv", (n, 2))
     check(pts.idepth, "idepth", (n,))
     check(pts.intensity, "intensity", (n,))
     check(pts.valid, "valid", (n,), torch.bool)
-    check(pixel_map, "pixel_map", (3, h_px, w_px))
     check(t_t_r.q, "pose_q", (nb, 4))
     check(t_t_r.t, "pose_t", (nb, 3))
     check(affine, "affine", (nb, 2))
@@ -101,6 +110,14 @@ def residual_system_cuda(pts: LevelPoints, pixel_map, model, t_t_r: SE3,
                        torch.as_tensor(exposure_ratio, dtype=affine.dtype,
                                        device=affine.device)]).contiguous()
     check(ref, "ref", (3,))
+    return n, nb, h_px, w_px, ref
+
+
+def residual_system_cuda(pts: LevelPoints, pixel_map, model, t_t_r: SE3,
+                         affine, affine_ref, exposure_ratio, sigma):
+    """Kernel K2: same outputs as :func:`residual_system_plain`."""
+    n, nb, h_px, w_px, ref = _check_problem(pts, pixel_map, t_t_r, affine,
+                                            affine_ref, exposure_ratio)
     dev, dt = affine.device, affine.dtype
     h = torch.empty((nb, 8, 8), dtype=dt, device=dev)
     b = torch.empty((nb, 8), dtype=dt, device=dev)
@@ -131,9 +148,9 @@ def residual_system(pts: LevelPoints, pixel_map, model, t_t_r: SE3, affine,
     return energy, num_valid, h, b
 
 
-def align_level(pts: LevelPoints, pixel_map, model, t_init: SE3, affine_init,
-                affine_ref, exposure_ratio,
-                opts: AlignmentOptions = AlignmentOptions()):
+def align_level_plain(pts: LevelPoints, pixel_map, model, t_init: SE3, affine_init,
+                      affine_ref, exposure_ratio,
+                      opts: AlignmentOptions = AlignmentOptions()):
     """LM solve of one level for a batch of hypotheses (q [B,4], t [B,3]).
 
     The iteration count is fixed at ``opts.max_iterations`` with a per-
@@ -147,6 +164,7 @@ def align_level(pts: LevelPoints, pixel_map, model, t_init: SE3, affine_init,
                                  affine_ref, exposure_ratio, opts)
     reg = torch.full(e.shape, opts.initial_regularizer, dtype=dt, device=e.device)
     done = n == 0
+    iterations = torch.zeros(e.shape, dtype=torch.int32, device=e.device)
     eye = torch.eye(8, dtype=dt, device=e.device)
     for it in range(opts.max_iterations):
         if it % DONE_CHECK_EVERY == 0 and bool(done.all()):
@@ -180,6 +198,43 @@ def align_level(pts: LevelPoints, pixel_map, model, t_init: SE3, affine_init,
         b = torch.where(take[:, None], b_new, b)
         reg = torch.where(live, torch.where(accept, reg / opts.reg_decrease,
                                             reg * opts.reg_increase), reg)
+        iterations = iterations + live.to(torch.int32)
         done = done | (live & converged)
     rmse = torch.sqrt(e / torch.clamp(n, min=1).to(dt))
-    return AlignmentResult(SE3(q, t), affine, e, n, rmse)
+    return AlignmentResult(SE3(q, t), affine, e, n, rmse, iterations)
+
+
+def align_level_cuda(pts: LevelPoints, pixel_map, model, t_init: SE3, affine_init,
+                     affine_ref, exposure_ratio,
+                     opts: AlignmentOptions = AlignmentOptions()):
+    """Kernel K3: same result as :func:`align_level_plain`, in one launch
+    (one block per hypothesis) and without a host read."""
+    n, nb, h_px, w_px, ref = _check_problem(pts, pixel_map, t_init, affine_init,
+                                            affine_ref, exposure_ratio)
+    dev, dt = affine_init.device, affine_init.dtype
+    q = torch.empty((nb, 4), dtype=dt, device=dev)
+    t = torch.empty((nb, 3), dtype=dt, device=dev)
+    affine = torch.empty((nb, 2), dtype=dt, device=dev)
+    energy = torch.empty((nb,), dtype=dt, device=dev)
+    num_valid = torch.empty((nb,), dtype=torch.int32, device=dev)
+    rmse = torch.empty((nb,), dtype=dt, device=dev)
+    iterations = torch.empty((nb,), dtype=torch.int32, device=dev)
+    kernels.ALIGN_LEVEL(
+        pts.uv, pts.idepth, pts.intensity, pts.valid, n, pixel_map, h_px, w_px,
+        t_init.q, t_init.t, affine_init, ref, nb, model.fx, model.fy, model.cx,
+        model.cy, model.width, model.height, float(opts.huber_sigma),
+        int(opts.max_iterations), float(opts.initial_regularizer),
+        float(opts.function_tolerance), float(opts.parameter_tolerance),
+        float(opts.affine_reg_a), float(opts.affine_reg_b), float(opts.reg_decrease),
+        float(opts.reg_increase), q, t, affine, energy, num_valid, rmse, iterations)
+    return AlignmentResult(SE3(q, t), affine, energy, num_valid, rmse, iterations)
+
+
+def align_level(pts: LevelPoints, pixel_map, model, t_init: SE3, affine_init,
+                affine_ref, exposure_ratio,
+                opts: AlignmentOptions = AlignmentOptions()):
+    """LM solve of one level for a batch of hypotheses: the kernel K3 on
+    CUDA tensors, the plain loop on CPU ones."""
+    fn = align_level_cuda if pixel_map.is_cuda else align_level_plain
+    return fn(pts, pixel_map, model, t_init, affine_init, affine_ref,
+              exposure_ratio, opts)

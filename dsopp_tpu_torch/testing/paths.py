@@ -1,0 +1,60 @@
+"""The two paths that ``chip_smoke.py`` and ``profile_track`` drive on the
+card, so that both run the same configuration: the corridor of the JAX
+package's bench and its fast-motion corridor, at the bench's standart.yaml
+operating point (VGA), each after a known-pose bootstrap."""
+
+from __future__ import annotations
+
+import subprocess
+
+import torch
+
+from dsopp_tpu_torch.testing.synthetic import render_sequence
+from dsopp_tpu_torch.tracker.monocular import MonocularTracker, TrackerConfig
+
+HEIGHT, WIDTH, FOCAL = 480, 640, 520.0
+INIT_FRAMES = 6
+# arguments of render_sequence; "fast" is the bench's fast-motion corridor
+# (beyond ~frame 107 its camera passes the back wall)
+PATHS = {
+    "standart": dict(num_frames=120, advance=0.08, seed=7),
+    "fast": dict(num_frames=96, advance=0.13, seed=11),
+}
+
+
+def standart_config() -> TrackerConfig:
+    """bench.py::standart_config: standart.yaml at VGA."""
+    return TrackerConfig(
+        num_frame_slots=10, landmarks_per_frame=250, immature_per_frame=800,
+        desired_points=2000, frontend_points=2000, keyframe_factor=1.25,
+        window_min=5, window_max=8, use_rotation_perturbations=True)
+
+
+def render_path(name: str):
+    """The sequence of path ``name``, f32 on the card."""
+    return render_sequence(height=HEIGHT, width=WIDTH, focal=FOCAL, dtype=torch.float32,
+                           device="cuda", **PATHS[name])
+
+
+def bootstrap(seq, cfg: TrackerConfig) -> MonocularTracker:
+    """A tracker on the card, initialized on the first ``INIT_FRAMES`` frames
+    of ``seq`` at their ground-truth poses."""
+    tracker = MonocularTracker(seq.camera, cfg, dtype=torch.float32, device="cuda")
+    tracker.initialize([(i, float(seq.timestamps[i]), seq.images[i],
+                         seq.pose(i, torch.float32, "cuda")) for i in range(INIT_FRAMES)])
+    return tracker
+
+
+def closed_gate(state):
+    """``state`` (a ``DeviceTrackerState``) with the re-track gate closed: the
+    last reliable rmse is tiny, so the base hypotheses of the next frame fail
+    the gate and the perturbed hypotheses (chunks 1..21) run."""
+    return state._replace(rmse_last0=torch.full_like(state.rmse_last0, 1e-3))
+
+
+def card_line() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0].strip()

@@ -15,6 +15,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from dsopp_tpu_torch import default_device
 from dsopp_tpu_torch.core.camera import Pinhole
 from dsopp_tpu_torch.core.lie import SE3, quat_to_matrix
 
@@ -107,6 +108,8 @@ class SyntheticSequence:
     timestamps: np.ndarray   # [F] seconds
 
     def pose(self, i, dtype=torch.float64, device=None) -> SE3:
+        """T_wc of frame ``i`` on ``device`` (``None``: where the images are)."""
+        device = self.images.device if device is None else device
         return SE3(torch.tensor(self.poses_q[i], dtype=dtype, device=device),
                    torch.tensor(self.poses_t[i], dtype=dtype, device=device))
 
@@ -114,7 +117,9 @@ class SyntheticSequence:
 def render_sequence(num_frames: int = 24, height: int = 240, width: int = 320,
                     focal: float = 260.0, seed: int = 7, advance: float = 0.08,
                     dtype=torch.float64, device=None) -> SyntheticSequence:
-    """Render the corridor sequence on ``device`` in ``dtype``."""
+    """Render the corridor sequence on ``device`` (``None``: the CUDA card)
+    in ``dtype``."""
+    device = default_device(device)
     camera = Pinhole.create((float(width), float(height)), (focal, focal),
                             (width / 2.0 - 0.5, height / 2.0 - 0.5))
     kw = dict(dtype=dtype, device=device)

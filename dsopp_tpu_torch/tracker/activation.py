@@ -172,13 +172,14 @@ def _activation_scatter(window: Window, imm: ImmaturePoints, activate, delete):
 
     def scatter(dst_buf, values, dim):
         """Write ``values`` at ``dst`` along ``dim`` of a buffer with one
-        extra (dropped) slot."""
+        extra (dropped) slot; the result is a dense buffer again (the
+        BA kernels take contiguous window tensors)."""
         ext = torch.cat([dst_buf, torch.zeros_like(dst_buf.narrow(dim, 0, 1))], dim=dim)
         idx = dst.reshape(dst.shape + (1,) * (ext.dim() - dst.dim()))
         if dim == 2:
             idx = dst[:, None, :]
         idx = idx.expand(values.shape)
-        return ext.scatter(dim, idx, values).narrow(dim, 0, dst_buf.shape[dim])
+        return ext.scatter(dim, idx, values).narrow(dim, 0, dst_buf.shape[dim]).contiguous()
 
     def take_src(x):
         idx = src.reshape(src.shape + (1,) * (x.dim() - 2)).expand((k, r) + tuple(x.shape[2:]))

@@ -2,8 +2,9 @@
 and of ``tracker/monocular.py::_initialization_hypotheses``).
 
 Pyramid (K1) → coarse-to-fine alignment of a chunk of 5 pose hypotheses
-(K2 inside the LM driver; level 0 only for the chunk's coarse winner) →
-epipolar depth update of every window bank (K4) → flow statistic.  When
+(on the card one K3 launch per level for all hypotheses of the call, 5 or
+105; level 0 only for each chunk's coarse winner) → epipolar depth update
+of every window bank (K4) → flow statistic.  When
 the first chunk fails the 2.5× reliability gate, the 104 rotation-perturbed
 hypotheses run too (chunks 1..21, batched into one align chain); the best
 per-point energy over all chunks wins, the earliest chunk on ties.

@@ -17,6 +17,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from dsopp_tpu_torch import default_device
 from dsopp_tpu_torch.core.lie import SE3
 from dsopp_tpu_torch.features.pyramid import build_pyramid_maps
 from dsopp_tpu_torch.solvers.pba import PBAOptions, empty_window, frame_count, push_frame_slot
@@ -59,7 +60,7 @@ class MonocularTracker:
         self.camera = camera
         self.config = config
         self.dtype = dtype
-        self.device = torch.device("cpu") if device is None else torch.device(device)
+        self.device = default_device(device)
         self.image_shape = (int(camera.height), int(camera.width))
         self.models = [camera.scaled(float(2 ** l)) for l in range(config.pyramid_levels)]
         self.window = empty_window(config.num_frame_slots, config.landmarks_per_frame,

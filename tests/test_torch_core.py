@@ -136,7 +136,7 @@ def test_window_sampling_matches_patch_rows():
 
 def test_render_matches_reference():
     ref = jax_render(num_frames=3, height=30, width=40, focal=50.0, cache=False)
-    seq = render_sequence(num_frames=3, height=30, width=40, focal=50.0)
+    seq = render_sequence(num_frames=3, height=30, width=40, focal=50.0, device="cpu")
     assert_close(seq.images, ref.images, atol=1e-9)
     assert_close(seq.depths, ref.depths, rtol=1e-12)
     for i in range(3):

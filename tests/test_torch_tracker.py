@@ -119,7 +119,7 @@ def runs():
               for i in range(INIT_FRAMES)]
     # (a) bootstrap: JAX frame by frame, the port from the JAX state before each
     jt = JTracker(seq.camera, JConfig(**CFG), dtype=jnp.float64)
-    forced = MonocularTracker(cam, TrackerConfig(**CFG), dtype=torch.float64)
+    forced = MonocularTracker(cam, TrackerConfig(**CFG), dtype=torch.float64, device="cpu")
     boot = []
     for i in range(INIT_FRAMES):
         last = i == INIT_FRAMES - 1
@@ -149,7 +149,7 @@ def runs():
     jpipe.finalize()
 
     # (c) the port free-running from its own bootstrap
-    tt = MonocularTracker(cam, TrackerConfig(**CFG), dtype=torch.float64)
+    tt = MonocularTracker(cam, TrackerConfig(**CFG), dtype=torch.float64, device="cpu")
     tt.initialize([(i, float(seq.timestamps[i]), seq.images[i],
                     convert.se3(jposes[i].q, jposes[i].t)) for i in range(INIT_FRAMES)])
     tpipe = tdl.PipelinedTracker(tt, flush_every=4)
@@ -290,3 +290,48 @@ def test_escalation_matches(runs):
     assert bool(j_front.escalated) and front.escalated
     for name in ("pose_q", "pose_t", "affine", "rmse", "num_valid"):
         _close(getattr(front, name), np.asarray(getattr(j_front, name)), name, RTOL)
+
+
+def test_card_paths_match_the_bench():
+    """``testing/paths.py`` (what chip_smoke.py and profile_track drive on the
+    card) holds the operating point and the two sequences of ``bench.py``,
+    read from its source: importing it would configure JAX."""
+    import ast
+    import dataclasses
+    import pathlib
+
+    from dsopp_tpu_torch.testing import paths
+
+    tree = ast.parse((pathlib.Path(__file__).parents[1] / "bench.py").read_text())
+    consts = {}
+    for node in tree.body:
+        if not isinstance(node, ast.Assign):
+            continue
+        target = node.targets[0]
+        if isinstance(target, ast.Name) and isinstance(node.value, ast.Constant):
+            consts[target.id] = node.value.value
+        elif isinstance(target, ast.Tuple):
+            consts.update(zip((t.id for t in target.elts), ast.literal_eval(node.value)))
+    fn = next(n for n in tree.body
+              if isinstance(n, ast.FunctionDef) and n.name == "standart_config")
+    call = next(n.value for n in ast.walk(fn) if isinstance(n, ast.Return))
+    bench_cfg = {kw.arg: ast.literal_eval(kw.value) for kw in call.keywords}
+    cfg = paths.standart_config()
+    assert {name: getattr(cfg, name) for name in bench_cfg} == bench_cfg
+    assert cfg == dataclasses.replace(TrackerConfig(), **bench_cfg)
+    jax_cfg, port_cfg = dataclasses.asdict(JConfig(**bench_cfg)), dataclasses.asdict(cfg)
+    assert {name: jax_cfg[name] for name in port_cfg} == port_cfg
+
+    renders = [{kw.arg: kw.value for kw in n.keywords} for n in ast.walk(tree)
+               if isinstance(n, ast.Call) and getattr(n.func, "id", "") == "render_sequence"]
+    specs = [{name: ast.literal_eval(kw[name]) for name in ("advance", "seed") if name in kw}
+             for kw in renders]
+    assert {"advance": 0.08} in specs and {"advance": 0.13, "seed": 11} in specs
+    assert {k: v for k, v in paths.PATHS["standart"].items() if k != "num_frames"} == \
+        {"advance": 0.08, "seed": 7}        # 7: render_sequence's default seed
+    assert {k: v for k, v in paths.PATHS["fast"].items() if k != "num_frames"} == \
+        {"advance": 0.13, "seed": 11}
+    assert paths.PATHS["standart"]["num_frames"] == consts["NUM_FRAMES"]
+    assert (paths.HEIGHT, paths.WIDTH, paths.FOCAL) == (
+        consts["HEIGHT"], consts["WIDTH"], consts["FOCAL"])
+    assert paths.INIT_FRAMES == consts["INIT_FRAMES"]
