@@ -27,7 +27,7 @@ import torch
 from dsopp_tpu_torch.core.camera import Pinhole
 from dsopp_tpu_torch.core.lie import SE3
 from dsopp_tpu_torch.solvers.pba import (LEDGER_DTYPE, Evaluation, FEJCache, LinearSystem,
-                                         Window)
+                                         PointStatus, Window)
 from dsopp_tpu_torch.solvers.pose_alignment import LevelPoints
 from dsopp_tpu_torch.tracker.depth_estimation import ImmaturePoints
 from dsopp_tpu_torch.tracker.device_loop import DeviceTrackerState
@@ -100,6 +100,22 @@ def linear_system(fields: dict, dtype=torch.float64, device=None) -> LinearSyste
     """JAX ``LinearSystem`` fields → port ``LinearSystem``."""
     return LinearSystem(**{k: tensor(fields[k], dtype, device)
                            for k in LinearSystem._fields})
+
+
+def solve_step(step, dtype=torch.float64, device=None):
+    """JAX ``_solve_step`` result (eps', idepth', |pose step|², |idepth
+    step|²) → the port's 4-tuple."""
+    return tuple(tensor(x, dtype, device) for x in step)
+
+
+def point_status(status, dtype=torch.float64, device=None) -> PointStatus:
+    """JAX ``_point_status_kernel`` result (status, baseline, inliers,
+    outlier, opt_count) → port ``PointStatus``; the JAX package does not
+    return its threshold, so ``threshold`` is NaN."""
+    new_status, baseline, inliers, outlier, opt_count = (tensor(x, dtype, device)
+                                                         for x in status)
+    return PointStatus(new_status, baseline, inliers, outlier, opt_count,
+                       torch.full((), float("nan"), dtype=dtype, device=device))
 
 
 def device_tracker_state(fields: dict, dtype=torch.float64, device=None) -> DeviceTrackerState:

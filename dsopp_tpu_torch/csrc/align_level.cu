@@ -31,6 +31,9 @@ struct LmOptions {
 };
 
 constexpr float kSmall = 1e-6f;  // core/lie.py::_SMALL
+// a pass's row of the optional trace: energy before, trial energy, lambda
+// before, |step|^2, accept + 2 finished (solvers/pose_alignment.py::TRACE_FIELDS)
+constexpr int kTraceFields = 5;
 
 // exp(xi) * ps on (quaternion, translation): core/lie.py::SE3.exp and compose
 __device__ Pose left_increment(const float* xi, const Pose& ps) {
@@ -125,7 +128,8 @@ align_level_kernel(Problem prob, LmOptions o, const float* __restrict__ pose_q,
                    const float* __restrict__ ref, float* __restrict__ out_q,
                    float* __restrict__ out_t, float* __restrict__ out_affine,
                    float* __restrict__ out_e, int* __restrict__ out_n,
-                   float* __restrict__ out_rmse, int* __restrict__ out_iters) {
+                   float* __restrict__ out_rmse, int* __restrict__ out_iters,
+                   float* __restrict__ trace) {
   __shared__ float part[kWarps][kSys];
   __shared__ float sys_new[kSys];
   __shared__ float sys_cur[kSys];
@@ -160,18 +164,19 @@ align_level_kernel(Problem prob, LmOptions o, const float* __restrict__ pose_q,
       add_priors(sys_new, trial.a, trial.b, o);
       const float e_new = sys_new[kEnergy];
       const int n_new = __float_as_int(sys_new[kCount]);
-      bool finished;
+      bool finished, accept = false;
+      float step_sq = 0.0f;
+      const float reg_before = reg;
+      const float e = it == 0 ? e_new : sys_cur[kEnergy];
       if (it == 0) {
         for (int i = 0; i < kSys; ++i) sys_cur[i] = sys_new[i];
         pose_cur = trial;
         finished = n_new == 0;
       } else {
-        const float e = sys_cur[kEnergy];
         const bool finite = isfinite(e_new);
-        const bool accept = (e_new < e) && (n_new > 0) && finite;
+        accept = (e_new < e) && (n_new > 0) && finite;
         const bool ftol = fabsf(e - e_new) / fmaxf(e, 1e-30f) < o.function_tolerance;
         const float state_sq = pose_cur.a * pose_cur.a + pose_cur.b * pose_cur.b;
-        float step_sq = 0.0f;
         for (int i = 0; i < 8; ++i) step_sq += step[i] * step[i];
         const bool ptol = step_sq < o.parameter_tolerance * (state_sq + o.parameter_tolerance);
         finished = (ftol && finite) || (accept && ptol);
@@ -182,6 +187,14 @@ align_level_kernel(Problem prob, LmOptions o, const float* __restrict__ pose_q,
         } else {
           reg = reg * o.reg_increase;
         }
+      }
+      if (trace != nullptr) {
+        float* row = trace + ((size_t)hyp * (o.max_iterations + 1) + it) * kTraceFields;
+        row[0] = e;
+        row[1] = e_new;
+        row[2] = reg_before;
+        row[3] = step_sq;
+        row[4] = (float)((accept ? 1 : 0) + (finished ? 2 : 0));
       }
       if (!finished && it < o.max_iterations) {
         // damped system from the upper triangle; step = -(H + D)^-1 b
@@ -232,7 +245,9 @@ align_level_kernel(Problem prob, LmOptions o, const float* __restrict__ pose_q,
 // Inputs as align_residual_system (the hypotheses are the initial poses and
 // affines).  Outputs per hypothesis: pose q [.,4], t [.,3], affine [.,2],
 // energy (with the affine priors), num_valid int32, rmse, LM iterations
-// int32.
+// int32.  trace: nullptr, or [num_hyp, max_iterations + 1, 5] for the
+// decision of every pass a hypothesis runs (diagnostics; rows of passes that
+// do not run stay as the caller filled them).
 extern "C" int align_level(
     const float* uv, const float* idepth, const float* intensity,
     const unsigned char* valid, int n, const float* map, int h, int w,
@@ -243,7 +258,7 @@ extern "C" int align_level(
     float parameter_tolerance, float affine_reg_a, float affine_reg_b,
     float reg_decrease, float reg_increase, float* out_q, float* out_t,
     float* out_affine, float* out_e, int* out_n, float* out_rmse,
-    int* out_iters, void* stream) {
+    int* out_iters, float* trace, void* stream) {
   const align::Problem prob = {uv, idepth, intensity, valid, n,  map,   h,
                              w,  fx,     fy,        cx,    cy, width, height,
                              0.0f, 0.0f, 0.0f, sigma};
@@ -252,6 +267,6 @@ extern "C" int align_level(
                        reg_decrease,        reg_increase};
   align_level_kernel<<<num_hyp, align::kThreads, 0, (cudaStream_t)stream>>>(
       prob, o, pose_q, pose_t, affine, ref, out_q, out_t, out_affine, out_e, out_n,
-      out_rmse, out_iters);
+      out_rmse, out_iters, trace);
   return (int)cudaGetLastError();
 }

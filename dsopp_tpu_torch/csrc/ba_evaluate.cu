@@ -16,9 +16,12 @@
 // ba_body.cuh); thread 0 of a block computes the pair's relative pose
 // T_j^-1 T_i at the current eps and the brightness terms into shared memory;
 // the window base comes from the center lane by shuffle; the validity AND
-// and the sum of squares over the 8 pattern points are shuffles.
+// and the sum of squares over the 8 pattern points are shuffles.  Inside the
+// LM loop the kernel takes the loop's state and returns at once when the loop
+// is done.
 
 #include "ba_body.cuh"
+#include "ba_lm_state.cuh"
 
 namespace {
 
@@ -44,10 +47,12 @@ ba_evaluate_kernel(const float* __restrict__ t_lin_q, const float* __restrict__ 
                    const unsigned char* __restrict__ frame_valid,
                    const int* __restrict__ res_status, const float* __restrict__ images,
                    size_t image_stride, int k, int n, int h, int w, Camera cam,
-                   float sigma, float* __restrict__ residuals,
+                   float sigma, const int* __restrict__ lm_state,
+                   float* __restrict__ residuals,
                    float* __restrict__ energy_patch, float* __restrict__ weight,
                    int* __restrict__ status_candidate, float* __restrict__ out_gx,
                    float* __restrict__ out_gy, unsigned char* __restrict__ out_ok) {
+  if (lm_done(lm_state)) return;
   __shared__ PairTerms terms;
   const int pair = blockIdx.y;
   const int i = pair / k, j = pair % k;
@@ -166,7 +171,8 @@ ba_evaluate_kernel(const float* __restrict__ t_lin_q, const float* __restrict__ 
 // u8, frame_valid [k] u8, res_status [k,k,n] int32 and the frames' intensity
 // images (`images` + f * image_stride is frame f's [h,w] image).  Outputs:
 // residuals, gx, gy [k,k,n,8]; energy_patch, weight [k,k,n];
-// status_candidate [k,k,n] int32; ok [k,k,n] u8.
+// status_candidate [k,k,n] int32; ok [k,k,n] u8.  lm_state: the LM loop's
+// state or nullptr.
 extern "C" int ba_evaluate(const float* t_lin_q, const float* t_lin_t, const float* eps,
                            const float* affine0, const float* exposure,
                            const float* lm_uv, const float* idepth, const float* lm_patch,
@@ -174,14 +180,14 @@ extern "C" int ba_evaluate(const float* t_lin_q, const float* t_lin_t, const flo
                            const int* res_status, const float* images, int image_stride,
                            int k, int n, int h, int w, float fx, float fy, float cx,
                            float cy, float width, float height, float sigma,
-                           float* residuals, float* energy_patch, float* weight,
-                           int* status_candidate, float* gx, float* gy,
+                           const int* lm_state, float* residuals, float* energy_patch,
+                           float* weight, int* status_candidate, float* gx, float* gy,
                            unsigned char* ok, void* stream) {
   const ba::Camera cam = {fx, fy, cx, cy, width, height};
   const dim3 grid((n * ba::kPattern + ba::kThreads - 1) / ba::kThreads, k * k);
   ba_evaluate_kernel<<<grid, ba::kThreads, 0, (cudaStream_t)stream>>>(
       t_lin_q, t_lin_t, eps, affine0, exposure, lm_uv, idepth, lm_patch, lm_mask,
       frame_valid, res_status, images, (size_t)image_stride, k, n, h, w, cam, sigma,
-      residuals, energy_patch, weight, status_candidate, gx, gy, ok);
+      lm_state, residuals, energy_patch, weight, status_candidate, gx, gy, ok);
   return (int)cudaGetLastError();
 }

@@ -12,9 +12,12 @@
 // thread per residual (layout of ba_body.cuh); thread 0 of a block computes
 // the pair's relative pose and scale into shared memory; each thread writes
 // its 12 + 12 + 2 + 1 values to consecutive addresses.  All K * K pairs are
-// computed, dead ones included, as the plain version does.
+// computed, dead ones included, as the plain version does.  Inside the LM
+// loop the kernel takes the loop's state and returns at once unless the last
+// step relinearized (the cache depends on the linearization point only).
 
 #include "ba_body.cuh"
+#include "ba_lm_state.cuh"
 
 namespace {
 
@@ -25,9 +28,11 @@ ba_fej_kernel(const float* __restrict__ t_lin_q, const float* __restrict__ t_lin
               const float* __restrict__ affine0, const float* __restrict__ exposure,
               const float* __restrict__ lm_uv, const float* __restrict__ lm_idepth,
               const float* __restrict__ lm_patch, int k, int n, Camera cam,
-              float* __restrict__ d_uv_ref, float* __restrict__ d_uv_tgt,
-              float* __restrict__ d_uv_idepth, float* __restrict__ corrected_ref,
-              float* __restrict__ scale0, unsigned char* __restrict__ geom_valid) {
+              const int* __restrict__ lm_state, float* __restrict__ d_uv_ref,
+              float* __restrict__ d_uv_tgt, float* __restrict__ d_uv_idepth,
+              float* __restrict__ corrected_ref, float* __restrict__ scale0,
+              unsigned char* __restrict__ geom_valid) {
+  if (lm_state != nullptr && (lm_state[kLmDone] != 0 || lm_state[kLmRelin] == 0)) return;
   __shared__ Rigid rel_s;
   __shared__ float scale_s;
   const int pair = blockIdx.y;
@@ -100,17 +105,18 @@ ba_fej_kernel(const float* __restrict__ t_lin_q, const float* __restrict__ t_lin
 // Window: t_lin_q [k,4], t_lin_t [k,3], affine0 [k,2], exposure [k], lm_uv
 // [k,n,2], lm_idepth [k,n], lm_patch [k,n,8].  Outputs: d_uv_ref, d_uv_tgt
 // [k,k,n,8,2,6], d_uv_idepth [k,k,n,8,2], corrected_ref [k,k,n,8], scale0
-// [k,k], geom_valid [k,k,n] u8.
+// [k,k], geom_valid [k,k,n] u8.  lm_state: the LM loop's state or nullptr.
 extern "C" int ba_fej(const float* t_lin_q, const float* t_lin_t, const float* affine0,
                       const float* exposure, const float* lm_uv, const float* lm_idepth,
                       const float* lm_patch, int k, int n, float fx, float fy, float cx,
-                      float cy, float width, float height, float* d_uv_ref,
+                      float cy, float width, float height, const int* lm_state,
+                      float* d_uv_ref,
                       float* d_uv_tgt, float* d_uv_idepth, float* corrected_ref,
                       float* scale0, unsigned char* geom_valid, void* stream) {
   const ba::Camera cam = {fx, fy, cx, cy, width, height};
   const dim3 grid((n * ba::kPattern + ba::kThreads - 1) / ba::kThreads, k * k);
   ba_fej_kernel<<<grid, ba::kThreads, 0, (cudaStream_t)stream>>>(
       t_lin_q, t_lin_t, affine0, exposure, lm_uv, lm_idepth, lm_patch, k, n, cam,
-      d_uv_ref, d_uv_tgt, d_uv_idepth, corrected_ref, scale0, geom_valid);
+      lm_state, d_uv_ref, d_uv_tgt, d_uv_idepth, corrected_ref, scale0, geom_valid);
   return (int)cudaGetLastError();
 }

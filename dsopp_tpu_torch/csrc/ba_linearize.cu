@@ -1,8 +1,7 @@
 // K8 ba_linearize_schur: the Gauss-Newton system of the windowed BA from an
 // evaluation, with the landmark Schur complement.
 //
-// Replaces dsopp_tpu/solvers/pba.py::_linearize_from_ev without its diagonal
-// priors: the Jacobian chain (FEJ geometry x current gradients, frozen
+// Replaces dsopp_tpu/solvers/pba.py::_linearize_from_ev: the Jacobian chain (FEJ geometry x current gradients, frozen
 // affine columns), H_pp [8k, 8k] and b [8k], the per-landmark pose-idepth
 // blocks hpd [k, n, k, 8], h_dd and b_d [k, n], inv_hdd with the nullspace
 // threshold and the marginalization pass's scale regularizer, and
@@ -23,12 +22,22 @@
 //     targets (the anchor term lands on the diagonal block of hpd), applies
 //     the threshold and the regularizer, writes hpd, inv_hdd, b_d, and
 //     accumulates the block's share of H_schur and b_schur.
-//  3. reduce_kernel: sums the per-block partials in index order and places
-//     the 8x8 blocks as the plain version does.
+//  3. reduce_kernel: sums the per-block partials in index order, places the
+//     8x8 blocks as the plain version does and adds _prior_system's diagonal
+//     priors (the fixed frames' gauge prior, the free frames' affine prior)
+//     to the rounded f32 sums, as the plain version adds them.
 // Products are f32 (rounded as the plain version's); the long sums are kept
 // in f64, because H's entries span 1e3..5e10 and b cancels.
+//
+// Frames: landmark_kernel stages 32 rows of 8k + 1 floats in dynamic shared
+// memory, which the 48 KB a block gets without opting in holds up to k = 40
+// (kMaxFrames; the dense operating point runs k = 17).  Inside the LM loop
+// the entry takes the loop's state and all three kernels return at once when
+// the loop is done (ba_lm_state.cuh).
 
 #include <cuda_runtime.h>
+
+#include "ba_lm_state.cuh"
 
 namespace {
 
@@ -39,8 +48,7 @@ constexpr int kTileLm = 64;                   // landmarks per pair_kernel block
 constexpr int kCols = 16;                     // [j_anchor (8) | j_target (8)]
 constexpr int kPairOut = kCols * kCols + kCols;  // block sums of H and b
 constexpr int kLmOut = 18;                    // hpd_anchor 8, hpd_target 8, h_dd, b_d
-constexpr int kMaxFrames = 16;
-constexpr int kMaxKb = kMaxFrames * 8;
+constexpr int kMaxFrames = 40;                // solvers/pba.py::_LINEARIZE_MAX_FRAMES
 
 __global__ void __launch_bounds__(kThreads)
 pair_kernel(const float* __restrict__ d_uv_ref, const float* __restrict__ d_uv_tgt,
@@ -49,7 +57,9 @@ pair_kernel(const float* __restrict__ d_uv_ref, const float* __restrict__ d_uv_t
             const float* __restrict__ residuals, const float* __restrict__ weight,
             const float* __restrict__ gx, const float* __restrict__ gy,
             const unsigned char* __restrict__ ok, int n, int tiles,
-            double* __restrict__ pair_part, float* __restrict__ lm_part) {
+            const int* __restrict__ lm_state, double* __restrict__ pair_part,
+            float* __restrict__ lm_part) {
+  if (ba::lm_done(lm_state)) return;
   __shared__ float jac[kThreads][kCols + 1];
   __shared__ float res_s[kThreads];
   __shared__ float jd_s[kThreads];
@@ -129,12 +139,17 @@ pair_kernel(const float* __restrict__ d_uv_ref, const float* __restrict__ d_uv_t
 __global__ void __launch_bounds__(kThreads)
 landmark_kernel(const float* __restrict__ lm_part, const unsigned char* __restrict__ frame_fixed,
                 int k, int n, int marg_pass, float threshold, float scale_reg,
-                float* __restrict__ hpd, float* __restrict__ inv_hdd,
-                float* __restrict__ b_d, double* __restrict__ schur_part) {
-  __shared__ float hs[kChunkLm][kMaxKb + 1];
-  __shared__ float inv_s[kChunkLm];
-  __shared__ float bd_s[kChunkLm];
+                const int* __restrict__ lm_state, float* __restrict__ hpd,
+                float* __restrict__ inv_hdd, float* __restrict__ b_d,
+                double* __restrict__ schur_part) {
+  if (ba::lm_done(lm_state)) return;
+  // hs [kChunkLm][kb + 1], inv_s [kChunkLm], bd_s [kChunkLm]
+  extern __shared__ float lm_shared[];
   const int kb = k * 8;
+  const int hs_stride = kb + 1;
+  float* hs = lm_shared;
+  float* inv_s = hs + kChunkLm * hs_stride;
+  float* bd_s = inv_s + kChunkLm;
   const int total = k * n;
   const int first = blockIdx.x * kChunkLm;
   const int tid = threadIdx.x;
@@ -156,7 +171,7 @@ landmark_kernel(const float* __restrict__ lm_part, const unsigned char* __restri
       }
       hpd[(size_t)g * kb + c] = v;
     }
-    hs[l][c] = v;
+    hs[l * hs_stride + c] = v;
   }
   if (tid < kChunkLm) {
     const int g = first + tid;
@@ -185,21 +200,54 @@ landmark_kernel(const float* __restrict__ lm_part, const unsigned char* __restri
   for (int e = tid; e < kb * kb; e += kThreads) {
     const int row = e / kb, col = e % kb;
     double acc = 0.0;
-    for (int l = 0; l < kChunkLm; ++l) acc += (double)((hs[l][row] * inv_s[l]) * hs[l][col]);
+    for (int l = 0; l < kChunkLm; ++l) {
+      const float* h_l = hs + l * hs_stride;
+      acc += (double)((h_l[row] * inv_s[l]) * h_l[col]);
+    }
     out[e] = acc;
   }
   for (int c = tid; c < kb; c += kThreads) {
     double acc = 0.0;
-    for (int l = 0; l < kChunkLm; ++l) acc += (double)((hs[l][c] * inv_s[l]) * bd_s[l]);
+    for (int l = 0; l < kChunkLm; ++l)
+      acc += (double)((hs[l * hs_stride + c] * inv_s[l]) * bd_s[l]);
     out[kb * kb + c] = acc;
+  }
+}
+
+// the frames' state and the weights of pba.py::_prior_system
+struct Priors {
+  const float* eps;                  // [k, 8]
+  const float* affine0;              // [k, 2]
+  const unsigned char* frame_valid;  // [k]
+  const unsigned char* frame_fixed;  // [k]
+  const unsigned char* frame_marg;   // [k]
+  int marg_pass;
+  float fixed_reg, affine_reg_a, affine_reg_b;
+};
+
+// entry a of frame f's diagonal prior -> its weight and its gradient
+__device__ void prior_entry(const Priors& pr, int f, int a, float* weight, float* gradient) {
+  *weight = 0.0f;
+  *gradient = 0.0f;
+  const bool marg = pr.frame_marg[f] != 0;
+  if (!pr.frame_valid[f] || marg != (pr.marg_pass != 0)) return;
+  const float e = pr.eps[f * 8 + a];
+  if (pr.frame_fixed[f]) {
+    *weight = pr.fixed_reg;
+    *gradient = pr.fixed_reg * e;
+  } else if (a >= 6) {
+    const float reg = a == 6 ? pr.affine_reg_a : pr.affine_reg_b;
+    *weight = reg;
+    *gradient = reg * (pr.affine0[f * 2 + a - 6] + e);
   }
 }
 
 __global__ void __launch_bounds__(kThreads)
 reduce_kernel(const double* __restrict__ pair_part, const double* __restrict__ schur_part,
-              int k, int tiles, int lm_blocks, float* __restrict__ h_out,
-              float* __restrict__ b_out, float* __restrict__ h_schur,
-              float* __restrict__ b_schur) {
+              int k, int tiles, int lm_blocks, Priors pr, const int* __restrict__ lm_state,
+              float* __restrict__ h_out, float* __restrict__ b_out,
+              float* __restrict__ h_schur, float* __restrict__ b_schur) {
+  if (ba::lm_done(lm_state)) return;
   const int kb = k * 8;
   const int e = blockIdx.x * kThreads + threadIdx.x;
   if (e >= kb * kb + kb) return;
@@ -225,7 +273,9 @@ reduce_kernel(const double* __restrict__ pair_part, const double* __restrict__ s
       sum += pair_part[((size_t)(bi * k + bj) * tiles + t) * kPairOut + a * kCols + 8 + b];
       sum += pair_part[((size_t)(bj * k + bi) * tiles + t) * kPairOut + b * kCols + 8 + a];
     }
-    h_out[e] = (float)sum;
+    float weight = 0.0f, gradient;
+    if (row == col) prior_entry(pr, bi, a, &weight, &gradient);
+    h_out[e] = (float)sum + weight;
     h_schur[e] = (float)schur;
   } else {
     // b[(bi, a)] = b_r[bi][a] + b_t[bi][a]
@@ -236,28 +286,35 @@ reduce_kernel(const double* __restrict__ pair_part, const double* __restrict__ s
         sum += pair_part[((size_t)(bi * k + f) * tiles + t) * kPairOut + kCols * kCols + a];
         sum += pair_part[((size_t)(f * k + bi) * tiles + t) * kPairOut + kCols * kCols + 8 + a];
       }
-    b_out[row] = (float)sum;
+    float weight, gradient;
+    prior_entry(pr, bi, a, &weight, &gradient);
+    b_out[row] = (float)sum + gradient;
     b_schur[row] = (float)schur;
   }
 }
 
 }  // namespace
 
-// FEJ cache and evaluation as ba_fej / ba_evaluate write them; frame_fixed
-// [k] u8.  Scratch from the caller: pair_part [k*k*tiles*272] f64, lm_part
+// FEJ cache and evaluation as ba_fej / ba_evaluate write them; eps [k,8],
+// affine0 [k,2]; frame_valid, frame_fixed, frame_marg [k] u8; the priors'
+// weights.  Scratch from the caller: pair_part [k*k*tiles*272] f64, lm_part
 // [k*k*n*18] f32, schur_part [lm_blocks*(64k^2 + 8k)] f64, with tiles =
 // ceil(n / 64) and lm_blocks = ceil(k*n / 32).  Outputs: h, h_schur
-// [8k,8k]; b, b_schur [8k] (photometric part, no priors); hpd [k,n,k,8];
-// inv_hdd, b_d [k,n].  Returns cudaErrorInvalidValue (1) for k above 16 or
-// a scratch layout that is not the kernels'.
+// [8k,8k]; b, b_schur [8k] (h and b with the diagonal priors); hpd [k,n,k,8];
+// inv_hdd, b_d [k,n].  lm_state: the LM loop's state or nullptr.  Returns
+// cudaErrorInvalidValue (1) for k above kMaxFrames (40) or a scratch layout
+// that is not the kernels'.
 extern "C" int ba_linearize_schur(
     const float* d_uv_ref, const float* d_uv_tgt, const float* d_uv_idepth,
     const float* corrected_ref, const float* scale0, const unsigned char* geom_valid,
     const float* residuals, const float* weight, const float* gx, const float* gy,
-    const unsigned char* ok, const unsigned char* frame_fixed, int k, int n,
-    int marg_pass, float threshold, float scale_reg, int tiles, int lm_blocks,
-    double* pair_part, float* lm_part, double* schur_part, float* h_out, float* b_out, float* h_schur, float* b_schur,
-    float* hpd, float* inv_hdd, float* b_d, void* stream) {
+    const unsigned char* ok, const float* eps, const float* affine0,
+    const unsigned char* frame_valid, const unsigned char* frame_fixed,
+    const unsigned char* frame_marg, int k, int n, int marg_pass, float threshold,
+    float scale_reg, float fixed_reg, float affine_reg_a, float affine_reg_b, int tiles,
+    int lm_blocks, const int* lm_state, double* pair_part, float* lm_part, double* schur_part,
+    float* h_out, float* b_out, float* h_schur, float* b_schur, float* hpd,
+    float* inv_hdd, float* b_d, void* stream) {
   if (k < 1 || k > kMaxFrames || n < 1 || tiles != (n + kTileLm - 1) / kTileLm ||
       lm_blocks != (k * n + kChunkLm - 1) / kChunkLm)
     return (int)cudaErrorInvalidValue;
@@ -265,11 +322,14 @@ extern "C" int ba_linearize_schur(
   const int kb = k * 8;
   pair_kernel<<<dim3(tiles, k * k), kThreads, 0, s>>>(
       d_uv_ref, d_uv_tgt, d_uv_idepth, corrected_ref, scale0, geom_valid, residuals,
-      weight, gx, gy, ok, n, tiles, pair_part, lm_part);
-  landmark_kernel<<<lm_blocks, kThreads, 0, s>>>(lm_part, frame_fixed, k, n, marg_pass,
-                                                  threshold, scale_reg, hpd, inv_hdd, b_d,
-                                                  schur_part);
+      weight, gx, gy, ok, n, tiles, lm_state, pair_part, lm_part);
+  const size_t lm_shared_bytes = (size_t)(kChunkLm * (kb + 1) + 2 * kChunkLm) * sizeof(float);
+  landmark_kernel<<<lm_blocks, kThreads, lm_shared_bytes, s>>>(
+      lm_part, frame_fixed, k, n, marg_pass, threshold, scale_reg, lm_state, hpd, inv_hdd,
+      b_d, schur_part);
+  const Priors pr = {eps,       affine0,   frame_valid,  frame_fixed, frame_marg,
+                     marg_pass, fixed_reg, affine_reg_a, affine_reg_b};
   reduce_kernel<<<(kb * kb + kb + kThreads - 1) / kThreads, kThreads, 0, s>>>(
-      pair_part, schur_part, k, tiles, lm_blocks, h_out, b_out, h_schur, b_schur);
+      pair_part, schur_part, k, tiles, lm_blocks, pr, lm_state, h_out, b_out, h_schur, b_schur);
   return (int)cudaGetLastError();
 }

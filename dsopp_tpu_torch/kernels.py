@@ -148,14 +148,23 @@ EPIPOLAR = Kernel("epipolar_sweep", "epipolar_sweep",
 ALIGN_LEVEL = Kernel("align_level", "align_level",
                      [_P, _P, _P, _P, _I, _P, _I, _I, _P, _P, _P, _P, _I,
                       _F, _F, _F, _F, _F, _F, _F, _I, _F, _F, _F, _F, _F, _F, _F,
-                      _P, _P, _P, _P, _P, _P, _P])
+                      _P, _P, _P, _P, _P, _P, _P, _P])
+FLOW = Kernel("flow_statistic", "flow_statistic",
+              [_P, _P, _P, _I, _P, _P] + [_F] * 7 + [_P])
+# K6-K9 take the LM loop's state (or None) before their outputs
 BA_FEJ = Kernel("ba_fej", "ba_fej",
-                [_P] * 7 + [_I, _I] + [_F] * 6 + [_P] * 6)
+                [_P] * 7 + [_I, _I] + [_F] * 6 + [_P] * 7)
 BA_EVALUATE = Kernel("ba_evaluate", "ba_evaluate",
-                     [_P] * 12 + [_I] * 5 + [_F] * 7 + [_P] * 7)
+                     [_P] * 12 + [_I] * 5 + [_F] * 7 + [_P] * 8)
 BA_LINEARIZE = Kernel("ba_linearize_schur", "ba_linearize_schur",
-                      [_P] * 12 + [_I, _I, _I, _F, _F, _I, _I] + [_P] * 10)
-ALL = (PYRAMID, ALIGN, ALIGN_LEVEL, EPIPOLAR, BA_FEJ, BA_EVALUATE, BA_LINEARIZE)
+                      [_P] * 16 + [_I, _I, _I] + [_F] * 5 + [_I, _I] + [_P] * 11)
+BA_SOLVE = Kernel("ba_solve_step", "ba_solve_step",
+                  [_P] * 12 + [_I, _I, _F, _I] + [_P] * 6)
+BA_LM = Kernel("ba_lm", "ba_lm", [_I] * 6 + [_F] * 7 + [_P] * 30)
+BA_STATUS = Kernel("ba_point_status", "ba_point_status",
+                   [_P] * 11 + [_I, _I, _F, _F, _I] + [_P] * 6)
+ALL = (PYRAMID, ALIGN, ALIGN_LEVEL, EPIPOLAR, FLOW, BA_FEJ, BA_EVALUATE, BA_LINEARIZE,
+       BA_SOLVE, BA_LM, BA_STATUS)
 
 
 def reset_counts():

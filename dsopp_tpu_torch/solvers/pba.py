@@ -14,11 +14,20 @@ Target values and gradients are read from the frames' intensity images with
 the 10×10-window semantics of :func:`sample_window` (one window per
 (anchor, target, landmark) group, based at the reprojected pattern center).
 
-Three functions have a hand-written CUDA kernel beside their plain PyTorch
+Six functions have a hand-written CUDA kernel beside their plain PyTorch
 version and dispatch on ``window.maps.is_cuda``: :func:`_fej_cache` (K6,
-``csrc/ba_fej.cu``), :func:`_evaluate` (K7, ``csrc/ba_evaluate.cu``) and
-:func:`_linearize_from_ev` (K8, ``csrc/ba_linearize.cu``).  CUDA tensors go
-to the kernel or raise; the plain versions run on CPU tensors only.
+``csrc/ba_fej.cu``), :func:`_evaluate` (K7, ``csrc/ba_evaluate.cu``),
+:func:`_linearize_from_ev` (K8, ``csrc/ba_linearize.cu``),
+:func:`_solve_step` (K9, ``csrc/ba_solve.cu``), :func:`_solve_loop_device`
+(K10, ``csrc/ba_lm.cu``) and :func:`_point_status_kernel` (K11,
+``csrc/ba_status.cu``).  CUDA tensors go to the kernel or raise; the plain
+versions run on CPU tensors only.
+
+On the card the LM loop keeps its state — energy, count, regularizer,
+iteration, accept / done / relinearize flags — in eight words of device
+memory (``LM_*`` below, ``csrc/ba_lm_state.cuh``).  The host launches
+``opts.max_iterations`` iterations unconditionally and reads nothing; K6–K9
+take the state and return at once when the loop is done.
 """
 
 from __future__ import annotations
@@ -42,6 +51,17 @@ RES_OUTLIER = 2
 
 BLOCK = 8  # per-frame state: 6 pose + 2 affine
 LEDGER_DTYPE = torch.float64
+
+# words of the LM loop's device state (csrc/ba_lm_state.cuh); energy and
+# regularizer are float bits
+(LM_ENERGY, LM_LAMBDA, LM_COUNT, LM_ITER, LM_ACCEPT, LM_DONE, LM_RELIN,
+ LM_LEDGER_EMPTY) = range(8)
+LM_FIELDS = 8
+# frame slots the kernels take: K8, K10 and K11 stage 8k-wide rows in the 48
+# KB of shared memory a block gets without opting in; K9 holds the 8k x 8k
+# system as f64 in the 227 KB a Hopper block can opt in to
+_LINEARIZE_MAX_FRAMES = 40
+_SOLVE_MAX_FRAMES = 21
 
 
 class PBAOptions(NamedTuple):
@@ -211,21 +231,23 @@ def _check_window(window: Window):
     return k, n, h, w
 
 
-def _fej_cache_cuda(window: Window, model) -> FEJCache:
-    """Kernel K6: same outputs as :func:`_fej_cache_plain`."""
+def _fej_cache_cuda(window: Window, model, lm_state=None, out: FEJCache = None) -> FEJCache:
+    """Kernel K6: same outputs as :func:`_fej_cache_plain`.  Inside the LM
+    loop ``lm_state`` is the loop's state and ``out`` the carried cache,
+    rewritten only when the last step relinearized."""
     k, n, _, _ = _check_window(window)
-    kw = dict(dtype=window.eps.dtype, device=window.eps.device)
-    d_ref = torch.empty((k, k, n, 8, 2, 6), **kw)
-    d_tgt = torch.empty((k, k, n, 8, 2, 6), **kw)
-    d_idepth = torch.empty((k, k, n, 8, 2), **kw)
-    corrected = torch.empty((k, k, n, 8), **kw)
-    scale0 = torch.empty((k, k), **kw)
-    geom_valid = torch.empty((k, k, n), dtype=torch.bool, device=window.eps.device)
+    if out is None:
+        kw = dict(dtype=window.eps.dtype, device=window.eps.device)
+        out = FEJCache(torch.empty((k, k, n, 8, 2, 6), **kw),
+                       torch.empty((k, k, n, 8, 2, 6), **kw),
+                       torch.empty((k, k, n, 8, 2), **kw), torch.empty((k, k, n, 8), **kw),
+                       torch.empty((k, k), **kw),
+                       torch.empty((k, k, n), dtype=torch.bool, device=window.eps.device))
     kernels.BA_FEJ(window.t_lin_q, window.t_lin_t, window.affine0, window.exposure,
                    window.lm_uv, window.lm_idepth, window.lm_patch, k, n,
                    model.fx, model.fy, model.cx, model.cy, model.width, model.height,
-                   d_ref, d_tgt, d_idepth, corrected, scale0, geom_valid)
-    return FEJCache(d_ref, d_tgt, d_idepth, corrected, scale0, geom_valid)
+                   lm_state, *out)
+    return out
 
 
 def _fej_cache(window: Window, model) -> FEJCache:
@@ -282,9 +304,20 @@ def _evaluate_plain(window: Window, model, eps, idepth, lm_mask,
                       candidate, gx, gy, ok)
 
 
+def _evaluation_buffers(k: int, n: int, dtype, device) -> Evaluation:
+    kw = dict(dtype=dtype, device=device)
+    return Evaluation(torch.empty((k, k, n, 8), **kw), torch.empty((k, k, n), **kw),
+                      torch.empty((k, k, n), **kw),
+                      torch.empty((k, k, n), dtype=torch.int32, device=device),
+                      torch.empty((k, k, n, 8), **kw), torch.empty((k, k, n, 8), **kw),
+                      torch.empty((k, k, n), dtype=torch.bool, device=device))
+
+
 def _evaluate_cuda(window: Window, model, eps, idepth, lm_mask,
-                   opts: PBAOptions) -> Evaluation:
-    """Kernel K7: same outputs as :func:`_evaluate_plain`."""
+                   opts: PBAOptions, lm_state=None, out: Evaluation = None) -> Evaluation:
+    """Kernel K7: same outputs as :func:`_evaluate_plain`, into ``out`` where
+    given.  With the LM loop's state the kernel leaves the outputs unwritten
+    once the loop is done."""
     k, n, h, w = _check_window(window)
     check = kernels.check
     check(eps, "eps", (k, BLOCK))
@@ -292,23 +325,15 @@ def _evaluate_cuda(window: Window, model, eps, idepth, lm_mask,
     check(lm_mask, "lm_mask", (k, n), torch.bool)
     check(window.frame_valid, "frame_valid", (k,), torch.bool)
     check(window.res_status, "res_status", (k, k, n), torch.int32)
-    dev = eps.device
-    kw = dict(dtype=eps.dtype, device=dev)
-    residuals = torch.empty((k, k, n, 8), **kw)
-    gx = torch.empty((k, k, n, 8), **kw)
-    gy = torch.empty((k, k, n, 8), **kw)
-    energy = torch.empty((k, k, n), **kw)
-    weight = torch.empty((k, k, n), **kw)
-    candidate = torch.empty((k, k, n), dtype=torch.int32, device=dev)
-    ok = torch.empty((k, k, n), dtype=torch.bool, device=dev)
+    if out is None:
+        out = _evaluation_buffers(k, n, eps.dtype, eps.device)
     # the intensity image of frame f is channel 0 of maps[f]
     kernels.BA_EVALUATE(window.t_lin_q, window.t_lin_t, eps, window.affine0,
                         window.exposure, window.lm_uv, idepth, window.lm_patch, lm_mask,
                         window.frame_valid, window.res_status, window.maps, 3 * h * w,
                         k, n, h, w, model.fx, model.fy, model.cx, model.cy, model.width,
-                        model.height, float(opts.huber_sigma), residuals, energy, weight,
-                        candidate, gx, gy, ok)
-    return Evaluation(residuals, energy, weight, candidate, gx, gy, ok)
+                        model.height, float(opts.huber_sigma), lm_state, *out)
+    return out
 
 
 def _evaluate(window: Window, model, eps, idepth, lm_mask, opts: PBAOptions) -> Evaluation:
@@ -411,12 +436,35 @@ _LINEARIZE_TILE_LM = 64
 _LINEARIZE_CHUNK_LM = 32
 
 
-def _linearize_from_ev_cuda(window: Window, fej: FEJCache, ev: Evaluation, eps,
-                            opts: PBAOptions, marg_pass: bool = False) -> LinearSystem:
-    """Kernel K8: same outputs as :func:`_linearize_from_ev_plain` (the
-    diagonal priors are added here, as there)."""
-    k, n = window.num_slots, window.num_landmark_slots
+def _linearize_buffers(k: int, n: int, dtype, device):
+    """What kernel K8 writes → (its scratch (pair_part, lm_part, schur_part),
+    its outputs)."""
     kb = k * BLOCK
+    kw = dict(dtype=dtype, device=device)
+    tiles = -(-n // _LINEARIZE_TILE_LM)
+    lm_blocks = -(-(k * n) // _LINEARIZE_CHUNK_LM)
+    scratch = (torch.empty((k * k * tiles, 16 * 16 + 16), dtype=torch.float64, device=device),
+               torch.empty((k * k * n, 18), **kw),
+               torch.empty((lm_blocks, kb * kb + kb), dtype=torch.float64, device=device))
+    out = LinearSystem(torch.empty((kb, kb), **kw), torch.empty((kb,), **kw),
+                       torch.empty((kb, kb), **kw), torch.empty((kb,), **kw),
+                       torch.empty((k, n, k, BLOCK), **kw), torch.empty((k, n), **kw),
+                       torch.empty((k, n), **kw))
+    return scratch, out
+
+
+def _linearize_from_ev_cuda(window: Window, fej: FEJCache, ev: Evaluation, eps,
+                            opts: PBAOptions, marg_pass: bool = False,
+                            lm_state=None, buffers=None) -> LinearSystem:
+    """Kernel K8: same outputs as :func:`_linearize_from_ev_plain`, the
+    diagonal priors included, into ``buffers`` (of :func:`_linearize_buffers`)
+    where given.  With the LM loop's state the kernels leave the outputs
+    unwritten once the loop is done."""
+    k, n = window.num_slots, window.num_landmark_slots
+    if k > _LINEARIZE_MAX_FRAMES:
+        raise ValueError(f"ba_linearize_schur: {k} frame slots exceed the kernel's limit of "
+                         f"{_LINEARIZE_MAX_FRAMES} (32 rows of 8k + 1 floats in 48 KB of "
+                         "shared memory)")
     check = kernels.check
     check(fej.d_uv_ref, "d_uv_ref", (k, k, n, 8, 2, 6))
     check(fej.d_uv_tgt, "d_uv_tgt", (k, k, n, 8, 2, 6))
@@ -429,29 +477,22 @@ def _linearize_from_ev_cuda(window: Window, fej: FEJCache, ev: Evaluation, eps,
     check(ev.gx, "gx", (k, k, n, 8))
     check(ev.gy, "gy", (k, k, n, 8))
     check(ev.ok, "ok", (k, k, n), torch.bool)
+    check(eps, "eps", (k, BLOCK))
+    check(window.affine0, "affine0", (k, 2))
+    check(window.frame_valid, "frame_valid", (k,), torch.bool)
     check(window.frame_fixed, "frame_fixed", (k,), torch.bool)
-    dev = eps.device
-    kw = dict(dtype=eps.dtype, device=dev)
-    tiles = -(-n // _LINEARIZE_TILE_LM)
-    lm_blocks = -(-(k * n) // _LINEARIZE_CHUNK_LM)
-    pair_part = torch.empty((k * k * tiles, 16 * 16 + 16), dtype=torch.float64, device=dev)
-    lm_part = torch.empty((k * k * n, 18), **kw)
-    schur_part = torch.empty((lm_blocks, kb * kb + kb), dtype=torch.float64, device=dev)
-    h = torch.empty((kb, kb), **kw)
-    b = torch.empty((kb,), **kw)
-    h_schur = torch.empty((kb, kb), **kw)
-    b_schur = torch.empty((kb,), **kw)
-    hpd = torch.empty((k, n, k, BLOCK), **kw)
-    inv_hdd = torch.empty((k, n), **kw)
-    b_d = torch.empty((k, n), **kw)
+    check(window.frame_marg, "frame_marg", (k,), torch.bool)
+    scratch, out = buffers or _linearize_buffers(k, n, eps.dtype, eps.device)
     kernels.BA_LINEARIZE(fej.d_uv_ref, fej.d_uv_tgt, fej.d_uv_idepth, fej.corrected_ref,
                          fej.scale0, fej.geom_valid, ev.residuals, ev.weight, ev.gx, ev.gy,
-                         ev.ok, window.frame_fixed, k, n, int(bool(marg_pass)),
+                         ev.ok, eps, window.affine0, window.frame_valid, window.frame_fixed,
+                         window.frame_marg, k, n, int(bool(marg_pass)),
                          float(opts.idepth_nullspace_threshold),
-                         float(opts.scale_nullspace_reg), tiles, lm_blocks, pair_part,
-                         lm_part, schur_part, h, b, h_schur, b_schur, hpd, inv_hdd, b_d)
-    h_pr, b_pr = _prior_system(window, eps, opts, marg_pass=marg_pass)
-    return LinearSystem(h + h_pr, b + b_pr, h_schur, b_schur, hpd, inv_hdd, b_d)
+                         float(opts.scale_nullspace_reg), float(opts.fixed_reg),
+                         float(opts.affine_reg_a), float(opts.affine_reg_b),
+                         scratch[0].shape[0] // (k * k), scratch[2].shape[0], lm_state,
+                         *scratch, *out)
+    return out
 
 
 def _linearize_from_ev(window: Window, fej: FEJCache, ev: Evaluation, eps,
@@ -471,8 +512,9 @@ def _energy_from_ev(window: Window, ev: Evaluation, eps, opts: PBAOptions):
     return e_land + _prior_energy(window, eps, opts) + e_marg.to(e_land.dtype), n_valid
 
 
-def _solve_step(window: Window, sys: LinearSystem, eps, idepth, lam, opts: PBAOptions):
-    """LM step → (eps', idepth', |pose step|², |idepth step|²)."""
+def _assemble_step_system(window: Window, sys: LinearSystem, eps, lam):
+    """The damped, Schur-reduced pose system of one LM step → (H, b, live):
+    ledger product in float64, identity rows on dead frame slots."""
     k = window.num_slots
     dtype = eps.dtype
     s = eps.reshape(-1).to(LEDGER_DTYPE)
@@ -483,7 +525,13 @@ def _solve_step(window: Window, sys: LinearSystem, eps, idepth, lam, opts: PBAOp
     live = torch.repeat_interleave(window.frame_valid, BLOCK)
     eye = torch.eye(k * BLOCK, dtype=dtype, device=eps.device)
     h_full = torch.where(live[:, None] & live[None, :], h_full, eye)
-    b_full = torch.where(live, b_full, torch.zeros_like(b_full))
+    return h_full, torch.where(live, b_full, torch.zeros_like(b_full)), live
+
+
+def _solve_step_plain(window: Window, sys: LinearSystem, eps, idepth, lam, opts: PBAOptions):
+    """LM step → (eps', idepth', |pose step|², |idepth step|²)."""
+    k = window.num_slots
+    h_full, b_full, live = _assemble_step_system(window, sys, eps, lam)
     step = -solve(h_full, b_full)
     step = torch.where(torch.isfinite(step) & live, step, torch.zeros_like(step))
     step_pose = step.reshape(k, BLOCK)
@@ -493,13 +541,94 @@ def _solve_step(window: Window, sys: LinearSystem, eps, idepth, lam, opts: PBAOp
             torch.sum(d_step * d_step))
 
 
-def _solve_loop_device(window: Window, model, opts: PBAOptions):
-    """The windowed LM solve → (window', energy, num_valid).
+# landmarks per block of csrc/ba_solve.cu's back-substitution (kBackWarps)
+_BACKSUB_BLOCK_LM = 8
+
+
+def _solve_step_buffers(k: int, n: int, dtype, device):
+    """What kernel K9 writes: its scratch (step, d_part), then eps', idepth'
+    and step_sq [2]."""
+    kw = dict(dtype=dtype, device=device)
+    blocks = -(-(k * n) // _BACKSUB_BLOCK_LM)
+    return (torch.empty((k * BLOCK,), **kw), torch.empty((blocks,), **kw),
+            torch.empty((k, BLOCK), **kw), torch.empty((k, n), **kw), torch.empty((2,), **kw))
+
+
+def _solve_step_launch(window: Window, sys: LinearSystem, eps, idepth, lam, lm_state,
+                       buffers=None):
+    """Kernel K9 → (eps', idepth', step_sq [2]), in ``buffers`` (of
+    :func:`_solve_step_buffers`) where given.  ``lam`` is a host float, or
+    ``None`` with ``lm_state``: the loop state's regularizer."""
+    k, n = window.num_slots, window.num_landmark_slots
+    if k > _SOLVE_MAX_FRAMES:
+        raise ValueError(f"ba_solve_step: {k} frame slots exceed the kernel's limit of "
+                         f"{_SOLVE_MAX_FRAMES} (the 8k x 8k system in the 227 KB of shared "
+                         "memory of one block)")
+    kb = k * BLOCK
+    check = kernels.check
+    check(sys.h_pose, "h_pose", (kb, kb))
+    check(sys.b_pose, "b_pose", (kb,))
+    check(sys.h_schur, "h_schur", (kb, kb))
+    check(sys.b_schur, "b_schur", (kb,))
+    check(sys.hpd, "hpd", (k, n, k, BLOCK))
+    check(sys.inv_hdd, "inv_hdd", (k, n))
+    check(sys.b_d, "b_d", (k, n))
+    check(window.h_marg, "h_marg", (kb, kb), LEDGER_DTYPE)
+    check(window.b_marg, "b_marg", (kb,), LEDGER_DTYPE)
+    check(window.frame_valid, "frame_valid", (k,), torch.bool)
+    check(eps, "eps", (k, BLOCK))
+    check(idepth, "idepth", (k, n))
+    step, d_part, eps_new, idepth_new, step_sq = \
+        buffers or _solve_step_buffers(k, n, eps.dtype, eps.device)
+    kernels.BA_SOLVE(sys.h_pose, sys.b_pose, sys.h_schur, sys.b_schur, window.h_marg,
+                     window.b_marg, eps, idepth, window.frame_valid, sys.hpd, sys.inv_hdd,
+                     sys.b_d, k, n, 0.0 if lam is None else float(lam), d_part.shape[0],
+                     lm_state, step, d_part, eps_new, idepth_new, step_sq)
+    return eps_new, idepth_new, step_sq
+
+
+def _solve_step_cuda(window: Window, sys: LinearSystem, eps, idepth, lam, opts: PBAOptions):
+    """Kernel K9: same outputs as :func:`_solve_step_plain`."""
+    eps_new, idepth_new, step_sq = _solve_step_launch(window, sys, eps, idepth, lam, None)
+    return eps_new, idepth_new, step_sq[0], step_sq[1]
+
+
+def _solve_step(window: Window, sys: LinearSystem, eps, idepth, lam, opts: PBAOptions):
+    """LM step from an assembled system: the kernel K9 on CUDA tensors, the
+    plain version on CPU ones."""
+    fn = _solve_step_cuda if window.maps.is_cuda else _solve_step_plain
+    return fn(window, sys, eps, idepth, lam, opts)
+
+
+def _lm_decide_plain(window: Window, ev_new: Evaluation, eps_new, pose_sq, d_sq, e, it: int,
+                     opts: PBAOptions):
+    """The decision of LM iteration ``it`` on a trial → (accept, done, energy,
+    num_valid of the trial).  Reads the two flags on the host."""
+    e_new, n_new = _energy_from_ev(window, ev_new, eps_new, opts)
+    ftol = torch.abs(e - e_new) / torch.clamp(e, min=1e-30) < opts.function_tolerance
+    ok = (n_new > 0) & torch.isfinite(e_new)
+    forced = opts.force_accept and it < opts.min_iterations
+    accept = ((e_new < e) | forced) & ok
+    ptol = (pose_sq + d_sq) < opts.parameter_tolerance * (
+        torch.sum(eps_new * eps_new) + opts.parameter_tolerance)
+    done = ftol | (accept & ptol)
+    if opts.force_accept:
+        done = done | ~accept
+    accept, done = (bool(v) for v in torch.stack([accept, done]).tolist())
+    return accept, done, e_new, n_new
+
+
+def _solve_loop_plain(window: Window, model, opts: PBAOptions, log: list = None):
+    """The windowed LM solve → (window', energy, num_valid), driven from the
+    host.
 
     Force-accept for the first ``min_iterations``; candidate statuses commit
     on accept; while the ledger is empty every accepted step is folded into
     the linearization point (fresh FEJ next iteration).  The loop reads its
-    accept/done flags on the host (keyframe path only)."""
+    accept/done flags on the host; its parts are the dispatchers (kernels on
+    CUDA tensors).  ``log`` receives the loop state after the initial
+    evaluation and after every iteration, as :func:`lm_log_rows` gives it
+    for the device loop."""
     lm_mask = active_lm_mask(window)
     ledger_empty = bool(torch.max(torch.abs(window.h_marg)) == 0.0)
     ev = _evaluate(window, model, window.eps, window.lm_idepth, lm_mask, opts)
@@ -512,6 +641,13 @@ def _solve_loop_device(window: Window, model, opts: PBAOptions):
     done = bool(n == 0)
     fej_stale = False
     it = 0
+
+    def record(accept):
+        if log is not None:
+            log.append(dict(energy=float(e), lam=float(lam), count=int(n), it=it,
+                            accept=accept, done=done, relin=fej_stale))
+
+    record(False)
     while it < opts.max_iterations and not done:
         win = window.replace(t_lin_q=tq, t_lin_t=tt, affine0=ab0,
                              lm_idepth=lin_idepth, res_status=status)
@@ -520,17 +656,8 @@ def _solve_loop_device(window: Window, model, opts: PBAOptions):
         sys = _linearize_from_ev(win, fej, ev, eps, opts)
         eps_new, idepth_new, pose_sq, d_sq = _solve_step(win, sys, eps, idepth, lam, opts)
         ev_new = _evaluate(win, model, eps_new, idepth_new, lm_mask, opts)
-        e_new, n_new = _energy_from_ev(win, ev_new, eps_new, opts)
-        ftol = torch.abs(e - e_new) / torch.clamp(e, min=1e-30) < opts.function_tolerance
-        ok = (n_new > 0) & torch.isfinite(e_new)
-        forced = opts.force_accept and it < opts.min_iterations
-        accept = ((e_new < e) | forced) & ok
-        ptol = (pose_sq + d_sq) < opts.parameter_tolerance * (
-            torch.sum(eps_new * eps_new) + opts.parameter_tolerance)
-        done_new = ftol | (accept & ptol)
-        if opts.force_accept:
-            done_new = done_new | ~accept
-        accept, done = (bool(v) for v in torch.stack([accept, done_new]).tolist())
+        accept, done, e_new, n_new = _lm_decide_plain(win, ev_new, eps_new, pose_sq, d_sq, e,
+                                                      it, opts)
         if accept:
             eps, idepth, status = eps_new, idepth_new, ev_new.status_candidate
             e, n, ev = e_new, n_new, ev_new
@@ -544,14 +671,113 @@ def _solve_loop_device(window: Window, model, opts: PBAOptions):
             lin_idepth = idepth
             eps = torch.zeros_like(eps)
         it += 1
+        record(accept)
 
     out = window.replace(t_lin_q=tq, t_lin_t=tt, affine0=ab0, eps=eps,
                          lm_idepth=idepth, res_status=status)
     out = _relinearize_last(out)
-    st, baseline, inliers, outlier, opt_count = _point_status_kernel(out, model, opts)
-    out = out.replace(res_status=st, lm_baseline=baseline, lm_inliers=inliers,
-                      lm_outlier=outlier, lm_opt_count=opt_count)
-    return out, e, n
+    return _with_point_status(out, _point_status_kernel(out, model, opts)), e, n
+
+
+def _lm_phase(phase: int, row: int, window: Window, opts: PBAOptions, trial_eps,
+              trial_idepth, step_sq, trial: Evaluation, carried, ev: Evaluation, state,
+              lm_log):
+    """One launch of kernel K10 (``csrc/ba_lm.cu``): phase 0 initialises the
+    loop state from the initial evaluation, 1 decides on a trial and commits
+    it, 2 folds the newest frame's increment.  ``carried`` = (t_lin_q,
+    t_lin_t, affine0, eps, idepth, lin_idepth, res_status), updated in
+    place, as is the carried evaluation ``ev``."""
+    k, n = window.num_slots, window.num_landmark_slots
+    kernels.BA_LM(phase, row, k, n, int(opts.min_iterations), int(bool(opts.force_accept)),
+                  float(opts.initial_regularizer), float(opts.function_tolerance),
+                  float(opts.parameter_tolerance), float(opts.reg_decrease),
+                  float(opts.reg_increase), float(opts.affine_reg_a), float(opts.affine_reg_b),
+                  window.frame_valid, window.h_marg, window.b_marg, window.energy_marg,
+                  trial_eps, trial_idepth, step_sq, *trial, *carried, *ev, state, lm_log)
+
+
+def _carried_state(window: Window):
+    """What the device-resident loop carries and K10 updates in place →
+    ((t_lin_q, t_lin_t, affine0, eps, idepth, lin_idepth, res_status), the
+    window at the carried linearization point, which sees the updates)."""
+    carried = tuple(x.clone() for x in (
+        window.t_lin_q, window.t_lin_t, window.affine0, window.eps, window.lm_idepth,
+        window.lm_idepth, window.res_status))
+    tq, tt, ab0, _, _, lin_idepth, status = carried
+    return carried, window.replace(t_lin_q=tq, t_lin_t=tt, affine0=ab0, lm_idepth=lin_idepth,
+                                   res_status=status)
+
+
+def _solve_loop_cuda(window: Window, model, opts: PBAOptions, log: list = None):
+    """Kernels K6–K11 under K10's control: the same solve as
+    :func:`_solve_loop_plain` without a host read.  ``opts.max_iterations``
+    iterations are launched whatever happens; the loop's state lives on the
+    device and the kernels return at once when it says done.  ``log``
+    (diagnostics only: it reads the device) receives the decoded state log."""
+    k, n, _, _ = _check_window(window)
+    if k > _LINEARIZE_MAX_FRAMES:
+        raise ValueError(f"ba_lm: {k} frame slots exceed the kernel's limit of "
+                         f"{_LINEARIZE_MAX_FRAMES}")
+    check = kernels.check
+    check(window.eps, "eps", (k, BLOCK))
+    check(window.res_status, "res_status", (k, k, n), torch.int32)
+    check(window.energy_marg, "energy_marg", (), LEDGER_DTYPE)
+    dev = window.eps.device
+    lm_mask = active_lm_mask(window)
+    state = torch.zeros(LM_FIELDS, dtype=torch.int32, device=dev)
+    lm_log = torch.zeros((opts.max_iterations + 2, LM_FIELDS), dtype=torch.int32, device=dev)
+    carried, win = _carried_state(window)
+    tq, tt, ab0, eps, idepth, lin_idepth, status = carried
+    ev = _evaluate_cuda(win, model, eps, idepth, lm_mask, opts)
+    fej = _fej_cache_cuda(win, model)
+    _lm_phase(0, 0, win, opts, eps, idepth, None, ev, carried, ev, state, lm_log)
+    # every iteration writes the same system, step and trial evaluation
+    sys_buffers = _linearize_buffers(k, n, eps.dtype, dev)
+    step_buffers = _solve_step_buffers(k, n, eps.dtype, dev)
+    ev_new = _evaluation_buffers(k, n, eps.dtype, dev)
+    for it in range(1, opts.max_iterations + 1):
+        _fej_cache_cuda(win, model, lm_state=state, out=fej)
+        sys = _linearize_from_ev_cuda(win, fej, ev, eps, opts, lm_state=state,
+                                      buffers=sys_buffers)
+        eps_new, idepth_new, step_sq = _solve_step_launch(win, sys, eps, idepth, None, state,
+                                                          buffers=step_buffers)
+        _evaluate_cuda(win, model, eps_new, idepth_new, lm_mask, opts, lm_state=state,
+                       out=ev_new)
+        _lm_phase(1, it, win, opts, eps_new, idepth_new, step_sq, ev_new, carried, ev, state,
+                  lm_log)
+    _lm_phase(2, opts.max_iterations + 1, win, opts, eps, idepth, None, ev, carried, ev, state,
+              lm_log)
+    if log is not None:
+        log.extend(lm_log_rows(lm_log))
+    out = window.replace(t_lin_q=tq, t_lin_t=tt, affine0=ab0, eps=eps, lm_idepth=idepth,
+                         res_status=status)
+    out = _with_point_status(out, _point_status_cuda(out, model, opts))
+    return out, state[LM_ENERGY:LM_ENERGY + 1].view(torch.float32)[0], state[LM_COUNT]
+
+
+def lm_log_rows(lm_log) -> list:
+    """The device loop's state log (int32 [rows, 8]) → one dict for the initial
+    state and one for every iteration that ran, as :func:`_solve_loop_plain`
+    logs them.  Reads the device."""
+    rows, last_it = [], -1
+    for words in lm_log.cpu():
+        it = int(words[LM_ITER])
+        if it == last_it:
+            continue          # written after the loop was done, or by the finish phase
+        last_it = it
+        e, lam = words[[LM_ENERGY, LM_LAMBDA]].view(torch.float32).tolist()
+        rows.append(dict(energy=e, lam=lam, count=int(words[LM_COUNT]), it=it,
+                         accept=bool(words[LM_ACCEPT]), done=bool(words[LM_DONE]),
+                         relin=bool(words[LM_RELIN])))
+    return rows
+
+
+def _solve_loop_device(window: Window, model, opts: PBAOptions):
+    """The windowed LM solve → (window', energy, num_valid): kernels K6–K11
+    without a host read on CUDA tensors, the host-driven plain loop on CPU
+    ones."""
+    fn = _solve_loop_cuda if window.maps.is_cuda else _solve_loop_plain
+    return fn(window, model, opts)
 
 
 def _relinearize_last(window: Window) -> Window:
@@ -566,14 +792,31 @@ def _relinearize_last(window: Window) -> Window:
         eps=torch.where(sel, torch.zeros_like(window.eps), window.eps))
 
 
-def _point_status_kernel(window: Window, model, opts: PBAOptions):
+class PointStatus(NamedTuple):
+    res_status: torch.Tensor    # [K,K,N] int32
+    lm_baseline: torch.Tensor   # [K,N]
+    lm_inliers: torch.Tensor    # [K,N] int32
+    lm_outlier: torch.Tensor    # [K,N] bool
+    lm_opt_count: torch.Tensor  # [K,N] int32
+    threshold: torch.Tensor     # [] the outlier threshold on patch energies
+
+
+OUTLIER_QUANTILE = 0.75
+
+
+def _with_point_status(window: Window, ps: PointStatus) -> Window:
+    return window.replace(res_status=ps.res_status, lm_baseline=ps.lm_baseline,
+                          lm_inliers=ps.lm_inliers, lm_outlier=ps.lm_outlier,
+                          lm_opt_count=ps.lm_opt_count)
+
+
+def _point_status_from_ev_plain(window: Window, ev: Evaluation, lm_mask,
+                                opts: PBAOptions) -> PointStatus:
     """Outlier threshold (75th percentile + σ²/2), statuses, baselines,
-    inlier and optimization counts."""
-    lm_mask = active_lm_mask(window)
-    ev = _evaluate(window, model, window.eps, window.lm_idepth, lm_mask, opts)
+    inlier and optimization counts from an evaluation at the window's state."""
     e, ok = ev.energy_patch, ev.ok
     flat = torch.where(ok, e, torch.full_like(e, float("nan"))).reshape(-1)
-    q75 = torch.nanquantile(flat, 0.75)
+    q75 = torch.nanquantile(flat, OUTLIER_QUANTILE)
     thresh = torch.where(torch.isnan(q75), torch.zeros_like(q75), q75) + 0.5 * opts.huber_sigma ** 2
     new_status = torch.where(ok & (e > thresh), RES_OUTLIER, ev.status_candidate).to(torch.int32)
     still_ok = ok & (e <= thresh)
@@ -585,7 +828,58 @@ def _point_status_kernel(window: Window, model, opts: PBAOptions):
     inliers = torch.sum(still_ok, dim=1, dtype=torch.int32)
     outlier = window.lm_outlier | (lm_mask & (inliers < opts.min_valid_reprojections))
     opt_count = window.lm_opt_count + (inliers > 0).to(torch.int32)
-    return new_status, baseline, inliers, outlier, opt_count
+    return PointStatus(new_status, baseline, inliers, outlier, opt_count, thresh)
+
+
+def _point_status_plain(window: Window, model, opts: PBAOptions) -> PointStatus:
+    lm_mask = active_lm_mask(window)
+    ev = _evaluate_plain(window, model, window.eps, window.lm_idepth, lm_mask, opts)
+    return _point_status_from_ev_plain(window, ev, lm_mask, opts)
+
+
+def _point_status_from_ev_cuda(window: Window, ev: Evaluation, lm_mask,
+                               opts: PBAOptions) -> PointStatus:
+    """Kernel K11: same outputs as :func:`_point_status_from_ev_plain`."""
+    k, n, _, _ = _check_window(window)
+    if k > _LINEARIZE_MAX_FRAMES:
+        raise ValueError(f"ba_point_status: {k} frame slots exceed the kernel's limit of "
+                         f"{_LINEARIZE_MAX_FRAMES}")
+    check = kernels.check
+    check(window.eps, "eps", (k, BLOCK))
+    check(window.lm_baseline, "lm_baseline", (k, n))
+    check(window.lm_outlier, "lm_outlier", (k, n), torch.bool)
+    check(window.lm_opt_count, "lm_opt_count", (k, n), torch.int32)
+    check(ev.energy_patch, "energy_patch", (k, k, n))
+    check(ev.ok, "ok", (k, k, n), torch.bool)
+    check(ev.status_candidate, "status_candidate", (k, k, n), torch.int32)
+    check(lm_mask, "lm_mask", (k, n), torch.bool)
+    dev = window.eps.device
+    thresh = torch.empty((1,), dtype=window.eps.dtype, device=dev)
+    new_status = torch.empty((k, k, n), dtype=torch.int32, device=dev)
+    baseline = torch.empty((k, n), dtype=window.eps.dtype, device=dev)
+    inliers = torch.empty((k, n), dtype=torch.int32, device=dev)
+    outlier = torch.empty((k, n), dtype=torch.bool, device=dev)
+    opt_count = torch.empty((k, n), dtype=torch.int32, device=dev)
+    kernels.BA_STATUS(ev.energy_patch, ev.ok, ev.status_candidate, window.t_lin_q,
+                      window.t_lin_t, window.eps, window.lm_idepth, lm_mask,
+                      window.lm_baseline, window.lm_outlier, window.lm_opt_count, k, n,
+                      OUTLIER_QUANTILE, float(opts.huber_sigma),
+                      int(opts.min_valid_reprojections), thresh, new_status, baseline, inliers,
+                      outlier, opt_count)
+    return PointStatus(new_status, baseline, inliers, outlier, opt_count, thresh[0])
+
+
+def _point_status_cuda(window: Window, model, opts: PBAOptions) -> PointStatus:
+    lm_mask = active_lm_mask(window)
+    ev = _evaluate_cuda(window, model, window.eps, window.lm_idepth, lm_mask, opts)
+    return _point_status_from_ev_cuda(window, ev, lm_mask, opts)
+
+
+def _point_status_kernel(window: Window, model, opts: PBAOptions) -> PointStatus:
+    """Point statuses after a solve: the kernels K7 + K11 on CUDA tensors,
+    the plain version on CPU ones."""
+    fn = _point_status_cuda if window.maps.is_cuda else _point_status_plain
+    return fn(window, model, opts)
 
 
 def _marg_system_kernel(window: Window, model, opts: PBAOptions):

@@ -32,6 +32,10 @@ from dsopp_tpu_torch.solvers.measure import huber_energy_weight
 # done" (on CUDA tensors each read is a device synchronisation; every
 # iteration would cost more than it saves)
 DONE_CHECK_EVERY = 4
+# a row of the optional decision trace of :func:`align_level_plain` and
+# :func:`align_level_cuda` (kTraceFields of csrc/align_level.cu), one per pass
+# and hypothesis: energy before, trial energy, λ before, |step|², accept + 2·done
+TRACE_FIELDS = 5
 
 
 class AlignmentOptions(NamedTuple):
@@ -150,13 +154,15 @@ def residual_system(pts: LevelPoints, pixel_map, model, t_t_r: SE3, affine,
 
 def align_level_plain(pts: LevelPoints, pixel_map, model, t_init: SE3, affine_init,
                       affine_ref, exposure_ratio,
-                      opts: AlignmentOptions = AlignmentOptions()):
+                      opts: AlignmentOptions = AlignmentOptions(), trace: list = None):
     """LM solve of one level for a batch of hypotheses (q [B,4], t [B,3]).
 
     The iteration count is fixed at ``opts.max_iterations`` with a per-
     hypothesis ``done`` mask freezing converged hypotheses (the reference's
     while-loop semantics); every ``DONE_CHECK_EVERY`` iterations one host
-    read ends the loop early once all hypotheses are done.
+    read ends the loop early once all hypotheses are done.  ``trace``
+    (diagnostics) receives one tensor [B, passes, TRACE_FIELDS]: the decision
+    of every pass, NaN where the hypothesis was done before it.
     """
     dt = affine_init.dtype
     q, t, affine = t_init.q, t_init.t, affine_init
@@ -166,6 +172,9 @@ def align_level_plain(pts: LevelPoints, pixel_map, model, t_init: SE3, affine_in
     done = n == 0
     iterations = torch.zeros(e.shape, dtype=torch.int32, device=e.device)
     eye = torch.eye(8, dtype=dt, device=e.device)
+    rows = []
+    if trace is not None:
+        rows.append(torch.stack([e, e, reg, torch.zeros_like(e), 2.0 * done.to(dt)], dim=-1))
     for it in range(opts.max_iterations):
         if it % DONE_CHECK_EVERY == 0 and bool(done.all()):
             break
@@ -189,6 +198,10 @@ def align_level_plain(pts: LevelPoints, pixel_map, model, t_init: SE3, affine_in
 
         live = ~done
         take = live & accept
+        if trace is not None:
+            row = torch.stack([e, e_new, reg, torch.sum(step * step, dim=-1),
+                               accept.to(dt) + 2.0 * converged.to(dt)], dim=-1)
+            rows.append(torch.where(live[:, None], row, torch.full_like(row, float("nan"))))
         q = torch.where(take[:, None], t_new.q, q)
         t = torch.where(take[:, None], t_new.t, t)
         affine = torch.where(take[:, None], affine_new, affine)
@@ -201,14 +214,17 @@ def align_level_plain(pts: LevelPoints, pixel_map, model, t_init: SE3, affine_in
         iterations = iterations + live.to(torch.int32)
         done = done | (live & converged)
     rmse = torch.sqrt(e / torch.clamp(n, min=1).to(dt))
+    if trace is not None:
+        trace.append(torch.stack(rows, dim=1))
     return AlignmentResult(SE3(q, t), affine, e, n, rmse, iterations)
 
 
 def align_level_cuda(pts: LevelPoints, pixel_map, model, t_init: SE3, affine_init,
                      affine_ref, exposure_ratio,
-                     opts: AlignmentOptions = AlignmentOptions()):
+                     opts: AlignmentOptions = AlignmentOptions(), trace: list = None):
     """Kernel K3: same result as :func:`align_level_plain`, in one launch
-    (one block per hypothesis) and without a host read."""
+    (one block per hypothesis) and without a host read.  ``trace`` as there,
+    with ``opts.max_iterations + 1`` passes."""
     n, nb, h_px, w_px, ref = _check_problem(pts, pixel_map, t_init, affine_init,
                                             affine_ref, exposure_ratio)
     dev, dt = affine_init.device, affine_init.dtype
@@ -219,6 +235,11 @@ def align_level_cuda(pts: LevelPoints, pixel_map, model, t_init: SE3, affine_ini
     num_valid = torch.empty((nb,), dtype=torch.int32, device=dev)
     rmse = torch.empty((nb,), dtype=dt, device=dev)
     iterations = torch.empty((nb,), dtype=torch.int32, device=dev)
+    rows = None
+    if trace is not None:
+        rows = torch.full((nb, opts.max_iterations + 1, TRACE_FIELDS), float("nan"),
+                          dtype=dt, device=dev)
+        trace.append(rows)
     kernels.ALIGN_LEVEL(
         pts.uv, pts.idepth, pts.intensity, pts.valid, n, pixel_map, h_px, w_px,
         t_init.q, t_init.t, affine_init, ref, nb, model.fx, model.fy, model.cx,
@@ -226,7 +247,8 @@ def align_level_cuda(pts: LevelPoints, pixel_map, model, t_init: SE3, affine_ini
         int(opts.max_iterations), float(opts.initial_regularizer),
         float(opts.function_tolerance), float(opts.parameter_tolerance),
         float(opts.affine_reg_a), float(opts.affine_reg_b), float(opts.reg_decrease),
-        float(opts.reg_increase), q, t, affine, energy, num_valid, rmse, iterations)
+        float(opts.reg_increase), q, t, affine, energy, num_valid, rmse, iterations,
+        rows)
     return AlignmentResult(SE3(q, t), affine, energy, num_valid, rmse, iterations)
 
 

@@ -5,9 +5,38 @@ so each call reads the device."""
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from dsopp_tpu_torch.core.lie import quat_conjugate, quat_multiply
+
+
+def to_f64(obj):
+    """A window or a tuple of tensors with every float tensor in float64: the
+    same inputs for a plain version run in double arithmetic."""
+    cast = lambda t: t.double() if t.is_floating_point() else t  # noqa: E731
+    if dataclasses.is_dataclass(obj):
+        return obj.replace(**{f.name: cast(getattr(obj, f.name))
+                              for f in dataclasses.fields(obj)})
+    return type(obj)(*(cast(t) for t in obj))
+
+
+def contiguous(tensors):
+    """A tuple of tensors, each dense: a plain version may return permuted
+    views, the kernels' wrappers take dense tensors only."""
+    return type(tensors)(*(t.contiguous() for t in tensors))
+
+
+def scaled_ledger(window, sys, share: float = 0.1):
+    """``window`` with a ledger that is ``share`` of its own Schur-reduced
+    pose system (symmetrised, live frames only): a filled ledger of the
+    window's own scale for a window whose frames were never marginalized."""
+    live = torch.repeat_interleave(window.frame_valid & ~window.frame_fixed, 8)
+    h = (sys.h_pose - sys.h_schur).double()
+    h = share * 0.5 * (h + h.T) * (live[:, None] & live[None, :])
+    return window.replace(h_marg=h.contiguous(), b_marg=torch.zeros_like(window.b_marg),
+                          energy_marg=torch.zeros_like(window.energy_marg))
 
 
 def rel_frobenius(a, b) -> float:
@@ -23,16 +52,63 @@ def rel_max(a, b) -> float:
 
 
 def align_level_errors(res_k, res_p) -> dict:
-    """K3 against the plain version, worst hypothesis of the batch."""
+    """K3 against the plain version: per-hypothesis errors [B] (``rotation``,
+    ``translation``, ``affine``) and the worst relative ``num_valid``,
+    ``energy`` and ``rmse`` of the batch."""
     dq = quat_multiply(res_k.t_t_r.q.double(), quat_conjugate(res_p.t_t_r.q.double()))
     nv_k, nv_p = res_k.num_valid.double(), res_p.num_valid.double()
     return dict(
         num_valid=float(((nv_k - nv_p).abs() / nv_p.clamp(min=1.0)).max()),
         energy=rel_max(res_k.energy, res_p.energy),
         rmse=rel_max(res_k.rmse, res_p.rmse),
-        rotation=float((2.0 * dq[:, 1:].norm(dim=-1)).max()),
-        translation=float((res_k.t_t_r.t.double() - res_p.t_t_r.t.double()).norm(dim=-1).max()),
-        affine=float((res_k.affine.double() - res_p.affine.double()).abs().max()))
+        rotation=2.0 * dq[:, 1:].norm(dim=-1),
+        translation=(res_k.t_t_r.t.double() - res_p.t_t_r.t.double()).norm(dim=-1),
+        affine=(res_k.affine.double() - res_p.affine.double()).abs().amax(dim=-1))
+
+
+# K3's LM loop decides by the relative change of the energy at a trial, against
+# 0 (accept) and against the function tolerance (done).  In f32 a trial energy
+# sits up to 7.3e-6 of itself from the f64 one computed from the same state
+# (``testing/align_trace.py`` on an H100), so two f32 loops whose changes
+# differ by less than this and fall on either side of a limit part at a
+# rounding tie
+ALIGN_TIE = 2e-5
+
+
+def align_level_partings(trace_k, trace_p, function_tolerance: float) -> list:
+    """The hypotheses whose LM loops decide differently in the kernel and in
+    the plain version, from their decision traces ([B, passes, 5]: energy
+    before, trial energy, λ before, |step|², accept + 2·done; NaN where the loop
+    had ended) → one dict each: ``hypothesis``, the first ``pass`` at which the
+    flags differ, both rows of that pass, and ``tie``: both loops stood at the
+    same λ, their relative changes of the energy differ by at most
+    ``ALIGN_TIE``, and they fall on either side of the limit of the decision
+    that flipped (accept: 0; else done: ``function_tolerance``)."""
+    tk, tp = trace_k.double().cpu(), trace_p.double().cpu()
+    passes = max(tk.shape[1], tp.shape[1])
+    pad = lambda t: torch.cat([t, torch.full(  # noqa: E731
+        (t.shape[0], passes - t.shape[1], t.shape[2]), float("nan"), dtype=t.dtype)], dim=1)
+    tk, tp = pad(tk), pad(tp)
+    out = []
+    for hyp in range(tk.shape[0]):
+        fk, fp = tk[hyp, :, 4], tp[hyp, :, 4]
+        differ = ~((fk == fp) | (fk.isnan() & fp.isnan()))
+        if not bool(differ.any()):
+            continue
+        at = int(torch.nonzero(differ)[0])
+        rk, rp = tk[hyp, at], tp[hyp, at]
+        tie = False
+        if not bool(rk.isnan().any() | rp.isnan().any()):
+            change_k, change_p = (float((r[1] - r[0]) / r[0]) for r in (rk, rp))
+            if int(rk[4]) % 2 != int(rp[4]) % 2:
+                sides = (change_k < 0.0) != (change_p < 0.0)
+            else:
+                sides = (abs(change_k) < function_tolerance) != (abs(change_p) < function_tolerance)
+            tie = sides and abs(change_k - change_p) <= ALIGN_TIE \
+                and abs(float(rk[2] - rp[2])) <= 1e-6 * abs(float(rp[2]))
+        out.append({"hypothesis": hyp, "pass": at, "kernel": rk.tolist(),
+                    "plain": rp.tolist(), "tie": tie})
+    return out
 
 
 def fej_errors(fej_k, fej_p) -> dict:
@@ -68,3 +144,81 @@ def linear_system_errors(sys_k, sys_p) -> dict:
     """K8: relative Frobenius error of every output."""
     return {name: rel_frobenius(getattr(sys_k, name), getattr(sys_p, name))
             for name in sys_p._fields}
+
+
+def solve_step_errors(out_k, out_p, eps, idepth) -> dict:
+    """K9: the pose step and the idepth step against the reference's, each
+    relative to the norm of the reference's step, and the two squared norms."""
+    eps, idepth = eps.double(), idepth.double()
+    step_p, d_p = out_p[0].double() - eps, out_p[1].double() - idepth
+    return dict(
+        step=float((out_k[0].double() - out_p[0].double()).norm() / step_p.norm().clamp(min=1e-300)),
+        d_step=float((out_k[1].double() - out_p[1].double()).norm() / d_p.norm().clamp(min=1e-300)),
+        pose_sq=rel_max(out_k[2], out_p[2]), d_sq=rel_max(out_k[3], out_p[3]))
+
+
+def point_status_errors(ps_k, ps_p, ev, rel_band: float = 1e-6) -> dict:
+    """K11 against the plain version on the same evaluation ``ev``: the
+    threshold, and statuses, inlier counts, flags and baselines outside the
+    band ``|e − threshold| ≤ rel_band · threshold`` (a group in the band may
+    fall on either side; a landmark with such a group is left out)."""
+    thr = ps_p.threshold.double()
+    near = ev.ok & ((ev.energy_patch.double() - thr).abs() <= rel_band * thr)
+    lm_clear = ~near.any(dim=1)
+    return dict(
+        threshold=rel_max(ps_k.threshold, ps_p.threshold), in_band=int(near.sum()),
+        status_differ=int(((ps_k.res_status != ps_p.res_status) & ~near).sum()),
+        inliers_differ=int(((ps_k.lm_inliers != ps_p.lm_inliers) & lm_clear).sum()),
+        flags_differ=int((((ps_k.lm_outlier != ps_p.lm_outlier)
+                           | (ps_k.lm_opt_count != ps_p.lm_opt_count)) & lm_clear).sum()),
+        baseline=rel_max(torch.where(lm_clear, ps_k.lm_baseline, ps_p.lm_baseline),
+                         ps_p.lm_baseline))
+
+
+TIE = 1e-5   # an accepted step that changes the energy by less is a rounding tie
+
+
+def same_decisions(log_k, log_p):
+    """Whether two LM state logs take the same (accept, done, relinearize)
+    decisions → (same, row of a rounding tie or None).  The two loops sum the
+    patch energies in different orders, so near convergence ``e_new < e`` can
+    fall either way: where the logs part and the step that one of them
+    accepted changes the energy by less than ``TIE`` of it, the rows before
+    are compared and the tie's row is returned."""
+    flags = lambda r: (r["it"], r["accept"], r["done"], r["relin"])  # noqa: E731
+    for i, (a, b) in enumerate(zip(log_k, log_p)):
+        if flags(a) == flags(b):
+            continue
+        took = a if a["accept"] else b
+        before = (log_k if took is a else log_p)[i - 1]["energy"]
+        tie = i > 0 and took["accept"] and \
+            abs(took["energy"] - before) <= TIE * abs(before)
+        return bool(tie), (i if tie else None)
+    if len(log_k) != len(log_p):
+        # one loop went on after the other had ended: tolerated after a tie only
+        return False, None
+    return True, None
+
+
+def solve_loop_errors(res_k, res_p, log_k, log_p) -> dict:
+    """K10: a whole windowed solve ``(window, energy, num_valid)`` by the
+    device-resident loop against the host-driven one, with their state logs."""
+    win_k, win_p = res_k[0], res_p[0]
+    same, tie_at = same_decisions(log_k, log_p)
+    pk, pp = win_k.poses(), win_p.poses()
+    dq = quat_multiply(pk.q.double(), quat_conjugate(pp.q.double()))
+    live = (win_p.frame_valid[:, None] & win_p.frame_valid[None, :])[:, :, None] \
+        & (win_p.lm_valid & win_p.frame_valid[:, None])[:, None, :]
+    status_same = (win_k.res_status == win_p.res_status) & live
+    energies = [abs(a["energy"] - b["energy"]) / max(abs(b["energy"]), 1e-30)
+                for a, b in zip(log_k, log_p)]
+    return dict(
+        same_flags=same, tie_at=tie_at, iterations=log_p[-1]["it"],
+        accepts=sum(r["accept"] for r in log_p), relins=sum(r["relin"] for r in log_p),
+        log_energy=max(energies, default=0.0),
+        energy=rel_max(res_k[1], res_p[1]), count_differ=abs(int(res_k[2]) - int(res_p[2])),
+        rotation=float((2.0 * dq[:, 1:].norm(dim=-1)).max()),
+        translation=float((pk.t.double() - pp.t.double()).norm(dim=-1).max()),
+        idepth=rel_frobenius(win_k.lm_idepth, win_p.lm_idepth),
+        status_agree=float(status_same.sum()) / max(int(live.sum()), 1),
+        outlier_differ=int((win_k.lm_outlier != win_p.lm_outlier).sum()))

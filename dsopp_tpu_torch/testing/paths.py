@@ -1,7 +1,8 @@
-"""The two paths that ``chip_smoke.py`` and ``profile_track`` drive on the
+"""The three paths that ``chip_smoke.py`` and ``profile_track`` drive on the
 card, so that both run the same configuration: the corridor of the JAX
-package's bench and its fast-motion corridor, at the bench's standart.yaml
-operating point (VGA), each after a known-pose bootstrap."""
+package's bench and its fast-motion corridor at the bench's standart.yaml
+operating point, and the corridor again at its dense.yaml operating point (17
+frame slots × 340 landmarks), all at VGA, each after a known-pose bootstrap."""
 
 from __future__ import annotations
 
@@ -16,7 +17,7 @@ HEIGHT, WIDTH, FOCAL = 480, 640, 520.0
 INIT_FRAMES = 6
 # arguments of render_sequence; "fast" is the bench's fast-motion corridor
 # (beyond ~frame 107 its camera passes the back wall)
-PATHS = {
+SEQUENCES = {
     "standart": dict(num_frames=120, advance=0.08, seed=7),
     "fast": dict(num_frames=96, advance=0.13, seed=11),
 }
@@ -30,10 +31,31 @@ def standart_config() -> TrackerConfig:
         window_min=5, window_max=8, use_rotation_perturbations=True)
 
 
+def dense_config() -> TrackerConfig:
+    """bench.py::dense_config: dense.yaml at VGA (window 5..15 of 17 slots,
+    ~5000 active points)."""
+    return TrackerConfig(
+        num_frame_slots=17, landmarks_per_frame=340, immature_per_frame=1200,
+        desired_points=5000, frontend_points=2000, keyframe_factor=2.0,
+        window_min=5, window_max=15, use_rotation_perturbations=True)
+
+
+# path -> (its sequence, its operating point)
+PATHS = {
+    "standart": ("standart", standart_config),
+    "fast": ("fast", standart_config),
+    "dense": ("standart", dense_config),
+}
+
+
 def render_path(name: str):
     """The sequence of path ``name``, f32 on the card."""
     return render_sequence(height=HEIGHT, width=WIDTH, focal=FOCAL, dtype=torch.float32,
-                           device="cuda", **PATHS[name])
+                           device="cuda", **SEQUENCES[PATHS[name][0]])
+
+
+def path_config(name: str) -> TrackerConfig:
+    return PATHS[name][1]()
 
 
 def bootstrap(seq, cfg: TrackerConfig) -> MonocularTracker:

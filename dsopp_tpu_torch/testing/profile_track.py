@@ -1,16 +1,18 @@
-"""Where a tracked frame's time goes on the card, for the two paths of
+"""Where a tracked frame's time goes on the card, for the paths of
 ``dsopp_tpu_torch.testing.paths`` (the ones ``chip_smoke.py`` drives).
 
-    python -m dsopp_tpu_torch.testing.profile_track [out.json]
+    python -m dsopp_tpu_torch.testing.profile_track [out.json] [path ...]
 
-Per path, after the 6-frame known-pose bootstrap:
+``path`` is ``standart``, ``fast`` or ``dense`` (default: all three).  Per
+path, after the 6-frame known-pose bootstrap:
 
 1. ``REPEATS`` plain runs over all frames: frames/s of each (host clock
    around work that ends in a device synchronisation), keyframes,
    escalations, K3 iterations per launch;
 2. one run with synchronised stage timers around the align chain, the
    epipolar update, the flow statistic, the pyramid, the whole frontend and
-   the keyframe backend with its parts (each timer synchronises the device
+   the keyframe backend with its parts, the BA solve down to its six kernels'
+   calls (each timer synchronises the device
    before and after, so the stages do not overlap and their sum exceeds an
    untimed frame).  The timers are hung on the modules' functions from here,
    so the tracker itself carries no instrumentation;
@@ -41,14 +43,16 @@ import torch
 from dsopp_tpu_torch import kernels
 from dsopp_tpu_torch.solvers import pba, pose_alignment
 from dsopp_tpu_torch.testing.paths import (INIT_FRAMES, PATHS, bootstrap, card_line,
-                                           closed_gate, render_path, standart_config)
+                                           closed_gate, path_config, render_path)
 from dsopp_tpu_torch.tracker import device_loop, fused_keyframe, fused_tick
 
 REPEATS, WINDOW = 3, 10
 # __global__ functions of csrc/ by the names the profiler reports
 KERNEL_NAMES = ("pyramid_level_kernel", "align_level_kernel", "epipolar_kernel",
-                "ba_fej_kernel", "ba_evaluate_kernel", "pair_kernel", "landmark_kernel",
-                "reduce_kernel")
+                "flow_kernel", "ba_fej_kernel", "ba_evaluate_kernel", "pair_kernel",
+                "landmark_kernel", "reduce_kernel", "solve_kernel", "backsub_kernel",
+                "norm_kernel", "decide_kernel", "commit_kernel", "finish_kernel",
+                "quantile_kernel", "status_kernel")
 # (module, function) -> stage name
 STAGES = {
     (device_loop, "_frontend_core"): "frontend",
@@ -60,15 +64,18 @@ STAGES = {
     (fused_keyframe, "_solve_loop_device"): "kf_ba_solve",
     (device_loop, "_marginalize_device"): "kf_marginalize",
     (device_loop, "build_frontend_state"): "kf_depth_maps",
-    (pba, "_fej_cache"): "ba_fej",
-    (pba, "_evaluate"): "ba_evaluate",
-    (pba, "_linearize_from_ev"): "ba_linearize",
-    (pba, "_solve_step"): "ba_solve_step",
+    # the wrappers the device-resident loop and the dispatchers both end in
+    (pba, "_fej_cache_cuda"): "ba_fej",
+    (pba, "_evaluate_cuda"): "ba_evaluate",
+    (pba, "_linearize_from_ev_cuda"): "ba_linearize",
+    (pba, "_solve_step_launch"): "ba_solve_step",
+    (pba, "_lm_phase"): "ba_lm",
+    (pba, "_point_status_from_ev_cuda"): "ba_point_status",
 }
 
 
-def start(seq):
-    return device_loop.PipelinedTracker(bootstrap(seq, standart_config()), flush_every=16)
+def start(seq, name):
+    return device_loop.PipelinedTracker(bootstrap(seq, path_config(name)), flush_every=16)
 
 
 def run_frames(pipe, seq, first, last):
@@ -146,7 +153,7 @@ def profile_path(name):
     last = seq.images.shape[0]
     out = dict(path=name, frames=last - INIT_FRAMES, runs=[])
     for _ in range(REPEATS):
-        pipe = start(seq)
+        pipe = start(seq, name)
         kernels.reset_counts()
         with IterationLog() as log:
             seconds, kf, esc = run_frames(pipe, seq, INIT_FRAMES, last)
@@ -156,7 +163,7 @@ def profile_path(name):
                                 k3_iterations=log.summary()))
     frame_ms = sum(r["ms_per_frame"] for r in out["runs"]) / REPEATS
 
-    pipe = start(seq)
+    pipe = start(seq, name)
     warm = INIT_FRAMES + 10
     run_frames(pipe, seq, INIT_FRAMES, warm)
     split = last - 2 * WINDOW
@@ -195,6 +202,7 @@ def profile_path(name):
     torch.cuda.set_sync_debug_mode("default")
     syncs = sum("synchroniz" in str(w.message) for w in caught)
     out["host_syncs_per_frame"] = syncs / (WINDOW - 1)
+    out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
     out["sync_window"] = dict(frames=WINDOW - 1, keyframes=kf)
 
     def last_frame_ms(state):
@@ -222,13 +230,15 @@ def main(argv):
     card = card_line()
     kernels.library()
     results = []
-    for name in PATHS:
+    out_file = next((a for a in argv[1:] if a not in PATHS), None)
+    for name in [a for a in argv[1:] if a in PATHS] or list(PATHS):
+        torch.cuda.reset_peak_memory_stats()
         res = profile_path(name)
         res["card"] = card
         results.append(res)
         print(json.dumps(res), flush=True)
-    if len(argv) > 1:
-        with open(argv[1], "w") as fh:
+    if out_file:
+        with open(out_file, "w") as fh:
             json.dump(results, fh, indent=1)
     return 0
 

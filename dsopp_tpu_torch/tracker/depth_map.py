@@ -8,6 +8,10 @@ keyframe and scatter-added as (idepth, 1) into a level-0 grid; the grids are
 sum.  The scatter-add on CUDA is ``index_add_`` (atomics, unordered): the
 idepth sums then agree with an ordered sum to f32 rounding (weights are
 exact integer counts).
+
+:func:`mean_square_flows` has a hand-written CUDA kernel (K5,
+``csrc/flow.cu``) beside its plain version and dispatches on the points'
+device: CUDA tensors go to the kernel or raise.
 """
 
 from __future__ import annotations
@@ -15,6 +19,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from dsopp_tpu_torch import kernels
 from dsopp_tpu_torch.core.lie import SE3
 from dsopp_tpu_torch.core.reproject import reproject
 from dsopp_tpu_torch.features.extractor import top_k_stable
@@ -115,7 +120,7 @@ def build_frontend_state(window: Window, model, maps, height: int, width: int,
     return idep, wei, points, flow_pts
 
 
-def mean_square_flows(pts: LevelPoints, model, t_t_r: SE3, border: int = 4):
+def mean_square_flows_plain(pts: LevelPoints, model, t_t_r: SE3, border: int = 4):
     """(flow, flow_without_rotation): RMS ray-space flow of the flow set."""
     uv = pts.uv
     valid = (pts.valid & (pts.idepth > 1e-6)
@@ -133,3 +138,26 @@ def mean_square_flows(pts: LevelPoints, model, t_t_r: SE3, border: int = 4):
     q_id = torch.zeros(4, dtype=uv.dtype, device=uv.device)
     q_id[0] = 1.0
     return one(t_t_r), one(SE3(q_id, t_t_r.t))
+
+
+def mean_square_flows_cuda(pts: LevelPoints, model, t_t_r: SE3, border: int = 4):
+    """Kernel K5: same outputs as :func:`mean_square_flows_plain`, one launch,
+    no host read."""
+    n = pts.uv.shape[0]
+    check = kernels.check
+    check(pts.uv, "uv", (n, 2))
+    check(pts.idepth, "idepth", (n,))
+    check(pts.valid, "valid", (n,), torch.bool)
+    check(t_t_r.q, "pose q", (4,))
+    check(t_t_r.t, "pose t", (3,))
+    out = torch.empty((2,), dtype=pts.uv.dtype, device=pts.uv.device)
+    kernels.FLOW(pts.uv, pts.idepth, pts.valid, n, t_t_r.q, t_t_r.t, model.fx, model.fy,
+                 model.cx, model.cy, model.width, model.height, float(border), out)
+    return out[0], out[1]
+
+
+def mean_square_flows(pts: LevelPoints, model, t_t_r: SE3, border: int = 4):
+    """The flow statistic: the kernel K5 on CUDA tensors, the plain version
+    on CPU ones."""
+    fn = mean_square_flows_cuda if pts.uv.is_cuda else mean_square_flows_plain
+    return fn(pts, model, t_t_r, border)

@@ -26,6 +26,7 @@ from dsopp_tpu_torch.core.camera import Pinhole
 from dsopp_tpu_torch.solvers import pba as tpba
 from dsopp_tpu_torch.solvers import pose_alignment as tpa
 from dsopp_tpu_torch.testing import render_sequence as torch_render
+from dsopp_tpu_torch.tracker import depth_map as tdm
 from dsopp_tpu_torch.tracker.monocular import MonocularTracker, TrackerConfig
 
 from tests._torch_port import assert_close, assert_equal, to_torch, window_fields
@@ -132,13 +133,30 @@ def test_marg_pass_regularizes_fixed_anchor_landmarks(problem):
     assert bool((marg.inv_hdd[fixed][live] < plain.inv_hdd[fixed][live]).all())
 
 
-@pytest.mark.parametrize("name", ["_fej_cache", "_evaluate", "_linearize_from_ev"])
+# dispatcher -> (stem of its _plain / _cuda versions, arguments after the window)
+_DISPATCHERS = {"_fej_cache": ("_fej_cache", 1), "_evaluate": ("_evaluate", 5),
+                "_linearize_from_ev": ("_linearize_from_ev", 5), "_solve_step": ("_solve_step", 5),
+                "_solve_loop_device": ("_solve_loop", 2),
+                "_point_status_kernel": ("_point_status", 2)}
+
+
+@pytest.mark.parametrize("name", list(_DISPATCHERS))
 def test_ba_dispatchers_run_plain_on_cpu(problem, monkeypatch, name):
     calls = []
-    monkeypatch.setattr(tpba, name + "_plain", lambda *a, **k: calls.append("plain"))
-    monkeypatch.setattr(tpba, name + "_cuda", lambda *a, **k: calls.append("cuda"))
-    getattr(tpba, name)(problem["tw"], *([None] * {"_fej_cache": 1, "_evaluate": 5,
-                                                   "_linearize_from_ev": 5}[name]))
+    stem, nargs = _DISPATCHERS[name]
+    monkeypatch.setattr(tpba, stem + "_plain", lambda *a, **k: calls.append("plain"))
+    monkeypatch.setattr(tpba, stem + "_cuda", lambda *a, **k: calls.append("cuda"))
+    getattr(tpba, name)(problem["tw"], *([None] * nargs))
+    assert calls == ["plain"]
+
+
+def test_flow_dispatcher_runs_plain_on_cpu(monkeypatch):
+    calls = []
+    monkeypatch.setattr(tdm, "mean_square_flows_plain", lambda *a, **k: calls.append("plain"))
+    monkeypatch.setattr(tdm, "mean_square_flows_cuda", lambda *a, **k: calls.append("cuda"))
+    pts = tpa.LevelPoints(torch.zeros(8, 2), torch.ones(8), torch.ones(8),
+                          torch.ones(8, dtype=torch.bool))
+    tdm.mean_square_flows(pts, None, None)
     assert calls == ["plain"]
 
 
@@ -158,7 +176,8 @@ def _f32_window(tw):
 
 
 @pytest.mark.parametrize("kernel", ["align_level", "ba_fej", "ba_evaluate",
-                                    "ba_linearize_schur"])
+                                    "ba_linearize_schur", "flow_statistic", "ba_solve_step",
+                                    "ba_lm", "ba_point_status"])
 def test_new_kernel_wrappers_refuse_cpu_tensors(problem, kernel):
     tw = _f32_window(problem["tw"])
     tcam = problem["tcam"]
@@ -176,6 +195,19 @@ def test_new_kernel_wrappers_refuse_cpu_tensors(problem, kernel):
         elif kernel == "ba_evaluate":
             tpba._evaluate_cuda(tw, tcam, tw.eps, tw.lm_idepth, tpba.active_lm_mask(tw),
                                 tpba.PBAOptions())
+        elif kernel == "flow_statistic":
+            pts = tpa.LevelPoints(tw.lm_uv[0], tw.lm_idepth[0], tw.lm_idepth[0], tw.lm_valid[0])
+            tdm.mean_square_flows_cuda(pts, tcam, tpa.SE3(tw.t_lin_q[1], tw.t_lin_t[1]))
+        elif kernel == "ba_solve_step":
+            sys = tpba._linearize_from_ev_plain(
+                tw, f32(convert.fej_cache(_fields(problem["fej"]))),
+                f32(convert.evaluation(_fields(problem["ev"]))), tw.eps, tpba.PBAOptions())
+            tpba._solve_step_cuda(tw, sys, tw.eps, tw.lm_idepth, 1e-5, tpba.PBAOptions())
+        elif kernel == "ba_lm":
+            tpba._solve_loop_cuda(tw, tcam, tpba.PBAOptions())
+        elif kernel == "ba_point_status":
+            tpba._point_status_from_ev_cuda(tw, f32(convert.evaluation(_fields(problem["ev"]))),
+                                            tpba.active_lm_mask(tw), tpba.PBAOptions())
         else:
             tpba._linearize_from_ev_cuda(
                 tw, f32(convert.fej_cache(_fields(problem["fej"]))),

@@ -6,11 +6,21 @@ Tolerances (intensities 0..255): K1 1e-3 abs; K2 num_valid exact, H and b
 ≥ 99.9 % of active landmarks, refined GN energy 1e-4 relative where the
 winners agree; K3 num_valid within 0.5 %, energy and rmse 1e-3 relative,
 rotation 1e-4 rad and translation 1e-4 m of the plain version (the result is
-held, not the iteration trace: one accept/reject can flip by rounding); K6
+held, not the iteration trace: one accept/reject can flip by rounding; a
+hypothesis is left out of the pose gate only where the two decision traces
+show that flip: the same λ, and relative changes of the energy that differ by
+at most ``parity.ALIGN_TIE`` and fall on either side of the decision's limit); K6
 every output 1e-5 relative (Frobenius), geom_valid exact; K7 ok and
 status_candidate equal on ≥ 99.9 % of live groups, the rest 1e-4 relative
 on the agreeing ones; K8 every output 1e-4 relative (Frobenius), also with
-``marg_pass=True``.
+``marg_pass=True``; K5 both flows 1e-5 relative; K9 pose and idepth step 1e-4
+of the step's norm against the plain version in f64 arithmetic on the same
+f32 inputs (the plain f32 solve's own distance from it is reported by
+``chip_smoke.py``); K10 the same accept / done / relinearize sequence as the
+host-driven loop, final energy 1e-4 relative, poses 1e-4 rad and 1e-4 m,
+statuses equal on ≥ 99.9 % of live groups, no host synchronisation inside;
+K11 threshold 1e-6 relative, statuses, counts and flags equal outside the
+1e-6 band around the threshold.
 
 Run on a machine with a card:
 ``python -m pytest --noconftest tests/test_torch_kernels_gpu.py -q``.
@@ -25,11 +35,11 @@ from dsopp_tpu_torch.core.lie import SE3
 from dsopp_tpu_torch.features import pyramid
 from dsopp_tpu_torch.solvers import pba
 from dsopp_tpu_torch.solvers import pose_alignment as pa
-from dsopp_tpu_torch.testing import parity, render_sequence
+from dsopp_tpu_torch.testing import align_trace, parity, render_sequence
 from dsopp_tpu_torch.tracker import depth_estimation as de
+from dsopp_tpu_torch.tracker import depth_map as dm
 from dsopp_tpu_torch.tracker.fused_keyframe import immature_bank
 from dsopp_tpu_torch.tracker.fused_tick import _initialization_hypotheses
-from dsopp_tpu_torch.tracker.monocular import MonocularTracker, TrackerConfig
 
 pytestmark = pytest.mark.gpu
 
@@ -111,37 +121,25 @@ def tracked():
     one a keyframe), and the next frame's pyramid."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    seq = render_sequence(num_frames=8, height=240, width=320, dtype=torch.float32,
-                          device="cuda")
-    cfg = TrackerConfig(num_frame_slots=6, landmarks_per_frame=120, immature_per_frame=300,
-                        desired_points=600, frontend_points=800, window_min=3, window_max=4)
-    tracker = MonocularTracker(seq.camera, cfg, dtype=torch.float32, device="cuda")
-    for i in range(6):
-        tracker.tick(i, float(seq.timestamps[i]), seq.images[i],
-                     known_pose=seq.pose(i, torch.float32), force_keyframe=(i % 2 == 1))
-    maps = pyramid.build_pyramid_maps(seq.images[6].contiguous(), cfg.pyramid_levels)
-    return tracker, maps
+    return align_trace.small_tracker()
 
 
 def test_align_level_kernel_matches_plain(tracked):
     tracker, maps = tracked
-    kf = tracker._kf_pose()
-    hyps = _initialization_hypotheses(tracker.t_w_last, tracker.t_prev_rel, kf, True)
-    nb = hyps.q.shape[0]
-    t = hyps.inverse().compose(SE3(kf.q.expand(nb, 4), kf.t.expand(nb, 3)))
-    aff = tracker.last_affine.expand(nb, 2).contiguous()
-    ratio = torch.tensor(1.0, device="cuda")
     before = kernels.ALIGN_LEVEL.launches
-    for level, count in ((3, 5), (1, nb), (0, 5)):
-        args = (tracker.level_points[level], maps[level], tracker.models[level],
-                SE3(t.q[:count].contiguous(), t.t[:count].contiguous()), aff[:count].contiguous(),
-                tracker.last_affine, ratio, tracker.align_opts)
-        res_k = pa.align_level_cuda(*args)
-        res_p = pa.align_level_plain(*args)
+    for level, args in align_trace.level_cases(*tracked):
+        res_k, res_p, partings = align_trace.compare(args)
         err = parity.align_level_errors(res_k, res_p)
+        # the pose of every hypothesis, but for those whose traces show the
+        # rounding tie at which the two loops parted
+        held = torch.ones_like(res_p.iterations, dtype=torch.bool)
+        held[[p["hypothesis"] for p in partings if p["tie"]]] = False
+        shown = [{k: p[k] for k in ("hypothesis", "pass", "kernel", "plain", "tie")}
+                 for p in partings]
         assert int(res_p.num_valid.min()) > 50, level
         assert err["num_valid"] <= 5e-3 and err["energy"] <= 1e-3 and err["rmse"] <= 1e-3, err
-        assert err["rotation"] <= 1e-4 and err["translation"] <= 1e-4, err
+        assert float(err["rotation"][held].max()) <= 1e-4, (level, shown)
+        assert float(err["translation"][held].max()) <= 1e-4, (level, shown)
         assert int(res_k.iterations.max()) <= tracker.align_opts.max_iterations
         assert int(res_k.iterations.min()) >= 1
     assert kernels.ALIGN_LEVEL.launches == before + 3
@@ -196,3 +194,79 @@ def test_ba_linearize_kernel_matches_plain(tracked, marg_pass):
     err = parity.linear_system_errors(sys_k, sys_p)
     assert float(sys_p.h_schur.abs().max()) > 0
     assert max(err.values()) <= 1e-4, err
+
+
+def test_flow_kernel_matches_plain(tracked):
+    tracker, _ = tracked
+    kf = tracker._kf_pose()
+    hyp = _initialization_hypotheses(tracker.t_w_last, tracker.t_prev_rel, kf, False)
+    t_t_kf = SE3(hyp.q[0], hyp.t[0]).inverse() @ kf
+    t_t_kf = SE3(t_t_kf.q.contiguous(), t_t_kf.t.contiguous())
+    before = kernels.FLOW.launches
+    out_k = dm.mean_square_flows_cuda(tracker.flow_points, tracker.models[0], t_t_kf)
+    out_p = dm.mean_square_flows_plain(tracker.flow_points, tracker.models[0], t_t_kf)
+    assert kernels.FLOW.launches == before + 1
+    assert float(out_p[0]) > 0 and float(out_p[1]) > 0
+    assert parity.rel_max(out_k[0], out_p[0]) <= 1e-5
+    assert parity.rel_max(out_k[1], out_p[1]) <= 1e-5
+
+
+@pytest.mark.parametrize("lam", [1e-5, 1e-2])
+def test_ba_solve_step_kernel_matches_plain(tracked, lam):
+    tracker, _ = tracked
+    win, eps, idepth, lm_mask = _ba_problem(tracker)
+    opts = tracker.pba_opts
+    fej = pba._fej_cache_plain(win, tracker.models[0])
+    ev = pba._evaluate_plain(win, tracker.models[0], eps, idepth, lm_mask, opts)
+    sys = parity.contiguous(pba._linearize_from_ev_plain(win, fej, ev, eps, opts))
+    out_k = pba._solve_step_cuda(win, sys, eps, idepth, lam, opts)
+    out_64 = pba._solve_step_plain(parity.to_f64(win), parity.to_f64(sys), eps.double(),
+                                   idepth.double(), lam, opts)
+    err = parity.solve_step_errors(out_k, out_64, eps, idepth)
+    assert float((out_64[0] - eps.double()).abs().max()) > 0
+    assert err["step"] <= 1e-4 and err["d_step"] <= 1e-4, err
+
+
+@pytest.mark.parametrize("ledger", ["empty", "filled"])
+def test_ba_lm_loop_matches_host_driven_loop(tracked, ledger):
+    tracker, _ = tracked
+    win, eps, idepth, lm_mask = _ba_problem(tracker)
+    opts, model = tracker.pba_opts, tracker.models[0]
+    win = win.replace(eps=eps, lm_idepth=idepth)
+    sys = pba._linearize_from_ev(win, pba._fej_cache(win, model),
+                                 pba._evaluate(win, model, eps, idepth, lm_mask, opts), eps, opts)
+    if ledger == "filled":
+        win = parity.scaled_ledger(win, sys)
+    else:
+        win = win.replace(h_marg=torch.zeros_like(win.h_marg),
+                          b_marg=torch.zeros_like(win.b_marg),
+                          energy_marg=torch.zeros_like(win.energy_marg))
+    log_k, log_p = [], []
+    res_k = pba._solve_loop_cuda(win, model, opts, log=log_k)
+    res_p = pba._solve_loop_plain(win, model, opts, log=log_p)
+    err = parity.solve_loop_errors(res_k, res_p, log_k, log_p)
+    assert err["same_flags"], (log_k, log_p)
+    assert (err["relins"] > 0) == (ledger == "empty")
+    assert err["energy"] <= 1e-4 and err["rotation"] <= 1e-4 and err["translation"] <= 1e-4, err
+    assert err["status_agree"] >= 0.999, err
+    # the device-resident loop reads nothing on the host
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pba._solve_loop_device(win, model, opts)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def test_ba_point_status_kernel_matches_plain(tracked):
+    tracker, _ = tracked
+    win, eps, idepth, lm_mask = _ba_problem(tracker)
+    opts, model = tracker.pba_opts, tracker.models[0]
+    win = win.replace(eps=eps, lm_idepth=idepth)
+    ev = pba._evaluate_cuda(win, model, eps, idepth, lm_mask, opts)
+    ps_k = pba._point_status_from_ev_cuda(win, ev, lm_mask, opts)
+    ps_p = pba._point_status_from_ev_plain(win, ev, lm_mask, opts)
+    err = parity.point_status_errors(ps_k, ps_p, ev)
+    assert int((ps_p.res_status == pba.RES_OUTLIER).sum()) > 0
+    assert err["threshold"] <= 1e-6, err
+    assert err["status_differ"] == err["inliers_differ"] == err["flags_differ"] == 0, err
+    assert err["baseline"] <= 1e-6, err

@@ -4,6 +4,8 @@ the JAX package.
 * ``select_candidates``: uv and valid exact;
 * activation (``_activation_kernel`` + ``_refine_idepth_kernel`` +
   ``_activation_scatter``): masks and slot assignment exact, idepths 1e-9;
+* the refine cap at the dense operating point's 17 slots: the newest host
+  bank is refined first and what exceeds the cap stays immature;
 * ``_solve_loop_device``: eps and lm_idepth 1e-7 relative; res_status,
   lm_outlier and lm_inliers exact;
 * ``_marginalize_device``: the ledger over repeated folds 1e-9 relative
@@ -66,27 +68,27 @@ def test_select_candidates_matches(seq, num_points):
     assert_equal(thr_t, thr_j)
 
 
-def _ready_banks(seq, window):
-    """[K] immature banks: frames 0 and 1 hold ready points with GT idepth
-    ×1.08, the rest are empty."""
+def _ready_banks(seq, window, frames=FRAMES, ready=2, n_imm=N_IMM):
+    """[K] immature banks: the first ``ready`` frames hold ready points with
+    GT idepth ×1.08, the rest are empty."""
     k = window.num_slots
     banks = []
     for pos in range(k):
         pm = window.maps[pos]
-        cands = jext.select_candidates(pm, N_IMM)
+        cands = jext.select_candidates(pm, n_imm)
         patches, _ = sample(pm, shift_pattern(cands.uv))
         grads, _ = sample(pm, cands.uv)
         bank = make_immature_points(cands.uv, patches[..., 0], grads[..., 1:], dtype=jnp.float64)
-        if pos < 2:
+        if pos < ready:
             uv = np.asarray(cands.uv).astype(int)
-            gt = jnp.asarray(seq.idepths[FRAMES[pos]][uv[:, 1], uv[:, 0]] * 1.08)
-            bank = bank._replace(idepth_min=gt, idepth_max=gt, traced=jnp.ones(N_IMM, bool),
-                                 status=jnp.full(N_IMM, STATUS_GOOD, jnp.int32),
-                                 uniqueness=jnp.full(N_IMM, 5.0),
-                                 search_interval=jnp.full(N_IMM, 1.0),
+            gt = jnp.asarray(seq.idepths[frames[pos]][uv[:, 1], uv[:, 0]] * 1.08)
+            bank = bank._replace(idepth_min=gt, idepth_max=gt, traced=jnp.ones(n_imm, bool),
+                                 status=jnp.full(n_imm, STATUS_GOOD, jnp.int32),
+                                 uniqueness=jnp.full(n_imm, 5.0),
+                                 search_interval=jnp.full(n_imm, 1.0),
                                  valid=bank.valid & cands.valid)
         else:
-            bank = bank._replace(valid=jnp.zeros(N_IMM, bool))
+            bank = bank._replace(valid=jnp.zeros(n_imm, bool))
         banks.append(bank)
     return jax.tree_util.tree_map(lambda *x: jnp.stack(x), *banks)
 
@@ -128,6 +130,37 @@ def test_activation_matches(seq):
     assert_close(win_t.lm_uv, win_j.lm_uv, atol=0)
     assert_close(win_t.lm_idepth, win_j.lm_idepth, rtol=1e-9)
     assert_close(win_t.lm_patch, win_j.lm_patch, atol=0)
+
+
+def test_refine_cap_takes_the_newest_bank_first_at_17_slots():
+    """The dense operating point's window (17 slots, 13 frames here) with more
+    activating candidates than the refine cap: the cap goes to the newest
+    host banks, and a candidate beyond it is neither selected nor kept."""
+    frames = list(range(13))
+    n_imm, cap = 16, 40
+    seq13 = render_sequence(num_frames=len(frames), height=120, width=160)
+    window = build_test_window(seq13, frames, num_landmarks=24, slots=17, seed=6)
+    imm = _ready_banks(seq13, window, frames, ready=len(frames), n_imm=n_imm)
+    activate = imm.valid
+    assert int(activate.sum()) > 2 * cap
+    idep_j, keep_j, sel_j = jact._refine_idepth_kernel(window, seq13.camera, imm, activate,
+                                                       20.0, cap=cap)
+    ti = convert.immature_points(np_tree(imm._asdict()))
+    idep_t, keep_t, sel_t = tact._refine_idepth_kernel(_port_window(window), _cam(seq13), ti,
+                                                       to_torch(activate), 20.0, cap=cap)
+    assert_equal(sel_t, sel_j)
+    assert_equal(keep_t, keep_j)
+    assert_close(idep_t, idep_j, rtol=1e-9)
+    per_bank = sel_t.sum(dim=1).tolist()
+    act_bank = np.asarray(activate).sum(axis=1).tolist()
+    assert sum(per_bank) == cap
+    newest = len(frames) - 1
+    assert per_bank[newest] == act_bank[newest] > 0          # the newest bank is whole
+    first = min(b for b in range(17) if per_bank[b])
+    assert all(per_bank[b] == act_bank[b] for b in range(first + 1, 17))
+    assert not any(per_bank[:first]) and per_bank[first] <= act_bank[first]
+    assert not bool((keep_t & ~sel_t).any())
+    assert int(keep_t.sum()) > 0
 
 
 @pytest.fixture(scope="module")

@@ -11,6 +11,11 @@ JAX package (both f64 on the CPU) at the size of
 (c) the free-running run: the same keyframe ids, and per-frame translation
     error against GT within 25 % of the JAX run's.
 
+(d) the fast-motion corridor (advance 0.13, texture seed 11): the port's
+    frontend from the JAX state before every tick — rmse, the re-track
+    ledger ``rmse_last0``, the escalation flag, the keyframe decision and both
+    flow statistics, 1e-9 relative and flags exact.
+
 Zero-parallax immature points are exempt from the bank comparisons: their
 triangulated inverse depth is rounding noise around 0 (±1e-16; the two
 packages round differently), and its sign decides OOB vs SKIPPED and
@@ -292,10 +297,86 @@ def test_escalation_matches(runs):
         _close(getattr(front, name), np.asarray(getattr(j_front, name)), name, RTOL)
 
 
+FAST_FRAMES = 18
+# ticks of the fast corridor that are also run with the re-track gate closed
+FAST_CLOSED_TICKS = (INIT_FRAMES + 1, FAST_FRAMES - 1)
+
+
+@pytest.fixture(scope="module")
+def fast_runs():
+    """The JAX tracker over the fast corridor, and the port's frontend from
+    the JAX state before each tick → (per tick: the JAX diagnostics and the
+    port's frontend; per tick of ``FAST_CLOSED_TICKS``: both frontends from
+    that state with the re-track gate closed, so that both escalate)."""
+    seq = render_sequence(num_frames=FAST_FRAMES, height=H, width=W, advance=0.13, seed=11)
+    cam = convert.pinhole(seq.camera.fx, seq.camera.fy, seq.camera.cx, seq.camera.cy,
+                          seq.camera.image_size)
+    jt = JTracker(seq.camera, JConfig(**CFG), dtype=jnp.float64)
+    jt.initialize([(i, float(seq.timestamps[i]), seq.images[i],
+                    JSE3(jnp.asarray(seq.pose_t_wc(i).q), jnp.asarray(seq.pose_t_wc(i).t)))
+                   for i in range(INIT_FRAMES)])
+    jpipe = jdl.PipelinedTracker(jt, flush_every=1000)
+    port = MonocularTracker(cam, TrackerConfig(**CFG), dtype=torch.float64, device="cpu")
+    models, cfg = tuple(port.models), port.loop_config()
+    exposure = torch.tensor(1.0, dtype=torch.float64)
+    ticks, closed = {}, {}
+    for i in range(INIT_FRAMES, FAST_FRAMES):
+        before = _copy(state_fields(jpipe.state))
+        if i in FAST_CLOSED_TICKS:
+            shut = dict(before, rmse_last0=np.asarray(1e-3))    # gate 2.5e-3: chunk 0 fails
+            _, _, j_front = jdl._frontend_core(
+                _jax_state(shut), jnp.asarray(seq.images[i]), jnp.asarray(False),
+                jpipe.models, jpipe.cfg, jnp.asarray(1.0))
+            _, _, front = tdl._frontend_core(convert.device_tracker_state(shut),
+                                             torch.as_tensor(seq.images[i]), False,
+                                             models, cfg, exposure)
+            closed[i] = ({name: np.array(getattr(j_front, name)) for name in
+                          ("escalated", "pose_q", "pose_t", "affine", "rmse", "num_valid")},
+                         front)
+        jpipe.tick(i, float(seq.timestamps[i]), seq.images[i])
+        j_diag = _copy(jpipe.pending[-1][2]._asdict())
+        j_diag["rmse_last0"] = np.array(jpipe.state.rmse_last0)
+        base, need, front = tdl._frontend_core(convert.device_tracker_state(before),
+                                               torch.as_tensor(seq.images[i]), False,
+                                               models, cfg, exposure)
+        ticks[i] = (j_diag, dict(rmse=front.rmse, rmse_last0=base.rmse_last0,
+                                 escalated=front.escalated, is_keyframe=need,
+                                 flow=front.flow, flow_no_rot=front.flow_no_rot))
+    jpipe.finalize()
+    return ticks, closed
+
+
+@pytest.mark.parametrize("tick", range(INIT_FRAMES, FAST_FRAMES))
+def test_fast_corridor_frontend_matches(fast_runs, tick):
+    """On these ticks, in f64, the port takes the JAX package's escalation and
+    keyframe decisions from the JAX state, with its rmse, gate and flows."""
+    j_diag, port = fast_runs[0][tick]
+    assert port["escalated"] == bool(j_diag["escalated"])
+    assert port["is_keyframe"] == bool(j_diag["is_keyframe"])
+    for name in ("rmse", "rmse_last0", "flow", "flow_no_rot"):
+        _close(port[name], j_diag[name], name, RTOL)
+
+
+def test_fast_corridor_takes_keyframes(fast_runs):
+    keyframes = sum(bool(j["is_keyframe"]) for j, _ in fast_runs[0].values())
+    assert keyframes >= 2
+    assert all(np.isfinite(float(j["rmse"])) for j, _ in fast_runs[0].values())
+
+
+@pytest.mark.parametrize("tick", FAST_CLOSED_TICKS)
+def test_fast_corridor_escalation_matches(fast_runs, tick):
+    """Where the JAX frontend escalates on the fast corridor (the gate
+    closed), the port escalates too and keeps the same hypothesis."""
+    j_front, front = fast_runs[1][tick]
+    assert bool(j_front["escalated"]) and front.escalated
+    for name in ("pose_q", "pose_t", "affine", "rmse", "num_valid"):
+        _close(getattr(front, name), j_front[name], name, RTOL)
+
+
 def test_card_paths_match_the_bench():
     """``testing/paths.py`` (what chip_smoke.py and profile_track drive on the
-    card) holds the operating point and the two sequences of ``bench.py``,
-    read from its source: importing it would configure JAX."""
+    card) holds the two operating points and the two sequences of
+    ``bench.py``, read from its source: importing it would configure JAX."""
     import ast
     import dataclasses
     import pathlib
@@ -312,26 +393,31 @@ def test_card_paths_match_the_bench():
             consts[target.id] = node.value.value
         elif isinstance(target, ast.Tuple):
             consts.update(zip((t.id for t in target.elts), ast.literal_eval(node.value)))
-    fn = next(n for n in tree.body
-              if isinstance(n, ast.FunctionDef) and n.name == "standart_config")
-    call = next(n.value for n in ast.walk(fn) if isinstance(n, ast.Return))
-    bench_cfg = {kw.arg: ast.literal_eval(kw.value) for kw in call.keywords}
-    cfg = paths.standart_config()
-    assert {name: getattr(cfg, name) for name in bench_cfg} == bench_cfg
-    assert cfg == dataclasses.replace(TrackerConfig(), **bench_cfg)
-    jax_cfg, port_cfg = dataclasses.asdict(JConfig(**bench_cfg)), dataclasses.asdict(cfg)
-    assert {name: jax_cfg[name] for name in port_cfg} == port_cfg
+    for name in ("standart_config", "dense_config"):
+        fn = next(n for n in tree.body if isinstance(n, ast.FunctionDef) and n.name == name)
+        call = next(n.value for n in ast.walk(fn) if isinstance(n, ast.Return))
+        bench_cfg = {kw.arg: ast.literal_eval(kw.value) for kw in call.keywords}
+        cfg = getattr(paths, name)()
+        assert {field: getattr(cfg, field) for field in bench_cfg} == bench_cfg
+        assert cfg == dataclasses.replace(TrackerConfig(), **bench_cfg)
+        jax_cfg, port_cfg = dataclasses.asdict(JConfig(**bench_cfg)), dataclasses.asdict(cfg)
+        assert {field: jax_cfg[field] for field in port_cfg} == port_cfg
+    dense = paths.dense_config()
+    assert (dense.num_frame_slots, dense.landmarks_per_frame, dense.window_max) == (17, 340, 15)
+    assert {name: (seq, cfg.__name__) for name, (seq, cfg) in paths.PATHS.items()} == {
+        "standart": ("standart", "standart_config"), "fast": ("fast", "standart_config"),
+        "dense": ("standart", "dense_config")}       # bench.py runs dense on the 0.08 corridor
 
     renders = [{kw.arg: kw.value for kw in n.keywords} for n in ast.walk(tree)
                if isinstance(n, ast.Call) and getattr(n.func, "id", "") == "render_sequence"]
     specs = [{name: ast.literal_eval(kw[name]) for name in ("advance", "seed") if name in kw}
              for kw in renders]
     assert {"advance": 0.08} in specs and {"advance": 0.13, "seed": 11} in specs
-    assert {k: v for k, v in paths.PATHS["standart"].items() if k != "num_frames"} == \
+    assert {k: v for k, v in paths.SEQUENCES["standart"].items() if k != "num_frames"} == \
         {"advance": 0.08, "seed": 7}        # 7: render_sequence's default seed
-    assert {k: v for k, v in paths.PATHS["fast"].items() if k != "num_frames"} == \
+    assert {k: v for k, v in paths.SEQUENCES["fast"].items() if k != "num_frames"} == \
         {"advance": 0.13, "seed": 11}
-    assert paths.PATHS["standart"]["num_frames"] == consts["NUM_FRAMES"]
+    assert paths.SEQUENCES["standart"]["num_frames"] == consts["NUM_FRAMES"]
     assert (paths.HEIGHT, paths.WIDTH, paths.FOCAL) == (
         consts["HEIGHT"], consts["WIDTH"], consts["FOCAL"])
     assert paths.INIT_FRAMES == consts["INIT_FRAMES"]
