@@ -10,7 +10,8 @@ Phases, one line each with its time:
    (into ``build/dsopp_tpu_torch``, ignored by git), one ``nvcc`` per source,
    all started together;
 3. render — the bench's corridor sequence: 120 frames, 480×640, focal 520;
-4. parity — each of the eleven kernels against its plain PyTorch version, f32
+4. parity — each of the sixteen kernel entry points (K1–K14 and K16; K14 has
+   two) against its plain PyTorch version, f32
    on the card, at the shapes the main path gives it (inputs from a
    bootstrapped tracker), with its time, the plain version's time and the
    least time the card could take (bytes over 3.35 TB/s or f32 operations
@@ -19,7 +20,11 @@ Phases, one line each with its time:
    frame slots × 250 landmarks; K6–K8 are timed there) and on a dense.yaml
    window (17 × 340, at least 12 valid frames; K9–K11 are timed there).  K4
    and K5 are held twice as well: on the standart bootstrap (10 banks × 800
-   immature points; timed there) and on that dense window (17 × 1200);
+   immature points; timed there) and on that dense window (17 × 1200).  The
+   keyframe backend's kernels K12–K14 and K16 are held on both windows too,
+   with the next frame pushed as the newest keyframe (timed at standart, the
+   dense times on a line of their own), K12 with and without a CameraMask,
+   and each runs there with host synchronisation an error;
 5. track — the main path: a 6-frame known-pose bootstrap, then
    ``PipelinedTracker`` over frames 6..119 at the bench's standart.yaml
    operating point; every kernel of the path must have launched, ≥3
@@ -39,7 +44,15 @@ Phases, one line each with its time:
    that;
 7. track-dense — the dense path: the corridor of phase 5 at the bench's
    dense.yaml operating point (17 frame slots × 340 landmarks, window 5..15,
-   1200 immature points per keyframe), frames 6..119, with phase 5's gates.
+   1200 immature points per keyframe), frames 6..119, with phase 5's gates;
+8. track-masked — the masked-camera path: the first 66 frames of the corridor
+   at the standart point with a static CameraMask whose rows 360..479 are
+   invalid; phase 5's ATE and scale gates, and at the end no valid immature
+   point and no valid landmark lies in the masked rows.
+
+Each track line is preceded by one line with, per keyframe, the active
+landmarks the activation counted, the points it activated and the spacing
+``min_distance`` after it.
 
 On every path the windowed-BA solve runs under PyTorch's sync debug mode set
 to "error": a host read inside it aborts the run.
@@ -78,10 +91,20 @@ SOURCES = {
     "ba_solve_step": ("dsopp_tpu_torch/csrc/ba_solve.cu", "dsopp_tpu/solvers/pba.py:552"),
     "ba_lm": ("dsopp_tpu_torch/csrc/ba_lm.cu", "dsopp_tpu/solvers/pba.py:647"),
     "ba_point_status": ("dsopp_tpu_torch/csrc/ba_status.cu", "dsopp_tpu/solvers/pba.py:845"),
+    "select_candidates": ("dsopp_tpu_torch/csrc/candidates.cu",
+                          "dsopp_tpu/features/extractor.py:77"),
+    "activation": ("dsopp_tpu_torch/csrc/activation.cu", "dsopp_tpu/tracker/activation.py:71"),
+    "refine_idepth": ("dsopp_tpu_torch/csrc/refine.cu", "dsopp_tpu/tracker/activation.py:153"),
+    "activation_scatter": ("dsopp_tpu_torch/csrc/refine.cu",
+                           "dsopp_tpu/tracker/activation.py:287"),
+    "depth_maps": ("dsopp_tpu_torch/csrc/depth_maps.cu", "dsopp_tpu/tracker/depth_map.py:27"),
 }
 # K2's own entry point is held in the parity phase only: on the main path its
 # body runs inside K3 (align_level)
 PATH_KERNELS = tuple(name for name in SOURCES if name != "align_residual_system")
+# the keyframe backend's kernels around the BA solve: once per keyframe each
+KEYFRAME_KERNELS = ("select_candidates", "activation", "refine_idepth", "activation_scatter",
+                    "depth_maps")
 # f32 operations per unit of work, counted from the kernels' arithmetic
 OPS_ALIGN_POINT = 230       # K2/K3: one valid point of one hypothesis, one pass
 OPS_ALIGN_SOLVE = 600       # K3: damped 8x8 LU solve + exp + compose, one iteration
@@ -91,6 +114,11 @@ OPS_EVALUATE_RESIDUAL = 120  # K7
 OPS_LINEARIZE_RESIDUAL = 910  # K8: 16 Jacobian columns, 272 + 18 multiply-adds
 OPS_FLOW_POINT = 80         # K5: two reprojections and ray differences
 OPS_STATUS_GROUP = 12       # K11: 8 radix passes and the status walk, per group
+OPS_CANDIDATE_PIXEL = 10    # K12: g2, its square root and bin, the threshold compare, the argmax
+OPS_REPROJECT = 60          # K13, K16: one reprojection with its validity
+OPS_ACTIVATION_PAIR = 6     # K13: dx, dy, two squares, their sum, the minimum
+OPS_REFINE_POINT = 180      # K14: reprojection with d uv / d idepth, the sample, the sums
+OPS_DEPTH_CELL = 12         # K16: pool, dilation and the selection's compares per grid cell
 
 
 class SmokeError(RuntimeError):
@@ -174,6 +202,7 @@ def parity(seq, cfg, torch, card):
     # the BA kernels on a standart window (K6-K8 timed) ...
     parity_ba(seq, tracker, torch, rows, "standart", every=2, min_frames=5,
               timed=("ba_fej", "ba_evaluate", "ba_linearize_schur"))
+    parity_keyframe(seq, tracker, INIT_FRAMES + BA_FRAMES, torch, rows, "standart")
     del tracker
     # ... and the dense operating point's shapes: K6-K11 on a dense window,
     # every further frame a keyframe (K9-K11 timed), then K4 on that window's
@@ -185,6 +214,7 @@ def parity(seq, cfg, torch, card):
               min_frames=12, timed=("ba_solve_step", "ba_lm", "ba_point_status"))
     parity_epipolar(seq, tracker, INIT_FRAMES + BA_FRAMES, torch, rows, "dense")
     parity_flow(seq, tracker, INIT_FRAMES + BA_FRAMES, torch, rows, "dense")
+    parity_keyframe(seq, tracker, INIT_FRAMES + BA_FRAMES, torch, rows, "dense")
     for name, row in rows.items():
         log(f"  {name}: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, bound "
             f"{row['bound_ms']:.5f} ms ({row['bound_by']}) | {card}")
@@ -385,7 +415,24 @@ def parity_epipolar(seq, tracker, frame, torch, rows, label):
     require(same_best >= 0.999, f"K4 ({label}) best sample agreement {same_best}")
     require(same_status >= 0.995, f"K4 ({label}) status agreement {same_status}")
     if label == "standart":
-        require(rel4 <= 1e-4, f"K4 ({label}) idepth rel diff {rel4}")
+        # the refinement keeps the Gauss-Newton iterate of least energy: where two
+        # iterates' energies are equal to rounding, the kernel and the plain version
+        # may keep different ones, a last step apart.  Such a point is passed when
+        # the two kept energies agree to 1e-5 of themselves plus 1e-3 (the sum of 8
+        # squared differences of intensities up to 255, whose f32 spacing is
+        # 1.5e-5, carries about 1e-4 of absolute noise at |r| ~ 1), on at most
+        # 0.1 % of the points
+        over = agree & (rel > 1e-4)
+        e_k, e_p = (r.refined_energy.reshape(rel.shape) for r in (res_k, res_p))
+        tie = (e_k - e_p).abs() <= 1e-5 * e_p.abs() + 1e-3
+        n_over = int(over.sum())
+        if n_over:
+            log(f"  K4 ({label}): {n_over} points beyond 1e-4 (worst {rel4:.2e}); kept energies at"
+                f" the worst: kernel {float(e_k.flatten()[worst]):.7e}, plain"
+                f" {float(e_p.flatten()[worst]):.7e}")
+        require(int((over & ~tie).sum()) == 0 and n_over <= 1e-3 * n_act,
+                f"K4 ({label}) idepth rel diff {rel4} on {n_over} points, not all of them ties"
+                " between two iterates of equal energy")
     else:
         # nine times the points: a low-parallax point's bound may sit further
         # than 1e-4 from the plain f32 version's while both are equally far
@@ -450,6 +497,173 @@ def parity_flow(seq, tracker, frame, torch, rows, label):
         plain_ms=cuda_ms(torch, lambda: dm.mean_square_flows_plain(*args)),
         **bound(nbytes(pts.uv, pts.idepth, pts.valid) + 36, OPS_FLOW_POINT * n_valid),
         library_ms=None)
+
+
+def parity_keyframe(seq, tracker, frame, torch, rows, label):
+    """K12–K14 and K16 on the window of ``tracker`` with frame ``frame`` (the
+    next one) pushed as its newest keyframe at its ground-truth pose, each
+    wrapper with host synchronisation an error.  The kernels' rows of ``rows``
+    are the standart ones; the dense times are printed."""
+    from dsopp_tpu_torch.features import extractor
+    from dsopp_tpu_torch.testing import parity as par
+    from dsopp_tpu_torch.testing.paths import path_mask
+    from dsopp_tpu_torch.tracker import activation as act
+    from dsopp_tpu_torch.tracker import depth_map as dm
+
+    def no_host_reads(fn, *args):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return fn(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    def row(name, **fields):
+        fields["library_ms"] = fields.get("library_ms")
+        if label == "standart":
+            rows[name] = fields
+        else:
+            log(f"  {name} ({label}): kernel {fields['ms']:.4f} ms, plain {fields['plain_ms']:.4f}"
+                f" ms, bound {fields['bound_ms']:.5f} ms ({fields['bound_by']})")
+
+    cfg, model = tracker.config, tracker.models[0]
+    win, imm, maps = par.keyframe_case(tracker, seq.images[frame],
+                                       seq.pose(frame, torch.float32, "cuda"), frame)
+    k, n, m = win.num_slots, win.num_landmark_slots, cfg.immature_per_frame
+    h, w = tracker.image_shape
+
+    # K12 — the new keyframe's candidates, without and with the masked path's mask
+    err12 = 0.0
+    for mask in (None, path_mask("masked")):
+        out_k = no_host_reads(extractor.select_candidates_cuda, maps[0], m, mask)
+        out_p = extractor.select_candidates_plain(maps[0], m, mask)
+        err = par.candidates_errors(out_k, out_p)
+        log(f"  K12 select_candidates ({label}, {m} slots, mask {mask is not None}): {err}")
+        require(err["valid"] > m // 4, f"K12 ({label}): only {err['valid']} valid candidates")
+        require(err["uv_differ"] == 0 and err["valid_differ"] == 0 and err["grad2"] == 0.0,
+                f"K12 ({label}): slots differ from the plain version: {err}")
+        err12 = max(err12, err["grad2"])
+    mask = path_mask("masked")
+    row("select_candidates", max_abs_err=err12,
+        ms=cuda_ms(torch, lambda: extractor.select_candidates_cuda(maps[0], m, mask)),
+        plain_ms=cuda_ms(torch, lambda: extractor.select_candidates_plain(maps[0], m, mask)),
+        **bound(2 * nbytes(maps[0]) // 3 + nbytes(mask) + nbytes(*out_k),
+                OPS_CANDIDATE_PIXEL * h * w))
+
+    # K13 — at the spacing the tracker stands at and at the controller's start
+    # (3 px), a device scalar
+    terms = act._activation_terms_plain(win, model, imm)
+    walkers = int((terms[0] & terms[1]).sum())
+    for spacing in (3.0, tracker.min_distance):
+        min_distance = torch.tensor(spacing, device="cuda")
+        res_k = no_host_reads(act._activation_cuda, win, model, imm, min_distance)
+        res_p = act._activation_plain(win, model, imm, min_distance)
+        err = par.activation_errors(res_k, res_p, terms, min_distance, model)
+        log(f"  K13 activation ({label}): {k} x {n} landmarks, {k} x {m} candidates, {walkers}"
+            f" ready and valid, min_distance {spacing:.3f}: {err}")
+        require(err["n_active"] > 100 and err["activate"] > 20,
+                f"K13 ({label}): too little to compare: {err}")
+        require(err["n_active_differ"] == 0, f"K13 ({label}): n_active differs: {err}")
+        require(err["agree"] >= 0.999 and err["unexplained"] == 0,
+                f"K13 ({label}): masks differ beyond rounding ties: {err}")
+    imm_in = (imm.uv, imm.idepth_min, imm.idepth_max, imm.status, imm.traced, imm.uniqueness,
+              imm.search_interval, imm.valid)
+    lib = None
+    if label == "standart":
+        cand = terms[4].reshape(-1, 2).contiguous()
+        lm = torch.rand((err["n_active"], 2), device="cuda") * 600.0
+        lib = cuda_ms(torch, lambda: torch.cdist(cand, lm).min(dim=1))
+        log(f"  K13 yardstick ({label}): torch.cdist + min over {cand.shape[0]} x {lm.shape[0]}"
+            f" points {lib:.4f} ms (the distance part only)")
+    row("activation", max_abs_err=float(err["differ"]),
+        ms=cuda_ms(torch, lambda: act._activation_cuda(win, model, imm, min_distance)),
+        plain_ms=cuda_ms(torch, lambda: act._activation_plain(win, model, imm, min_distance),
+                         reps=5),
+        **bound(nbytes(win.lm_uv, win.lm_idepth, win.lm_valid, *imm_in) + nbytes(*res_k[:2]),
+                OPS_ACTIVATION_PAIR * walkers * err["n_active"] + OPS_REPROJECT * k * (n + m)),
+        library_ms=lib)
+
+    # K14 — the refinement of what the plain version activates ...
+    activate, delete = res_p[0], res_p[1]
+    trace_k, trace_p = [], []
+    ref_k = no_host_reads(act._refine_idepth_cuda, win, model, imm, activate, cfg.huber_sigma,
+                          act.REFINE_CAP, trace_k)
+    ref_p = act._refine_idepth_plain(win, model, imm, activate, cfg.huber_sigma,
+                                     act.REFINE_CAP, trace_p)
+    err = par.refine_errors(ref_k, ref_p, trace_k[0], trace_p[0])
+    log(f"  K14 refine_idepth ({label}): {int(activate.sum())} activating, {err}")
+    require(err["selected_differ"] == 0 and err["selected"] > 20,
+            f"K14 ({label}): the refined set differs or is too small: {err}")
+    require(err["kept_outside_selected"] == 0, f"K14 ({label}): kept outside the cap: {err}")
+    require(err["keep_agree"] >= 0.995, f"K14 ({label}): keep agrees on {err['keep_agree']:.4f}")
+    require(err["idepth"] <= 1e-4, f"K14 ({label}): idepth differs by {err['idepth']:.3g}")
+    require(err["parted_others"] <= 0.005 * err["selected"],
+            f"K14 ({label}): accept sequences part beyond rounding ties: {err}")
+    frames = int(win.frame_valid.sum())
+    points = err["selected"] * (frames - 1) * 8 * 4
+    sampled = min(nbytes(win.maps) // 3, 48 * points)
+    row("refine_idepth", max_abs_err=err["idepth_abs"],
+        ms=cuda_ms(torch, lambda: act._refine_idepth_cuda(win, model, imm, activate,
+                                                          cfg.huber_sigma)),
+        plain_ms=cuda_ms(torch, lambda: act._refine_idepth_plain(win, model, imm, activate,
+                                                                 cfg.huber_sigma), reps=5),
+        **bound(nbytes(activate) + err["selected"] * 48 + sampled + 3 * nbytes(activate)
+                + nbytes(ref_k[0]), OPS_REFINE_POINT * points))
+
+    # ... and the pairing with free landmark slots, on the plain refinement
+    idepth, keep, selected = ref_p
+    delete = delete | (selected & ~keep)
+    imm2 = imm._replace(idepth_min=torch.where(keep, idepth, imm.idepth_min),
+                        idepth_max=torch.where(keep, idepth, imm.idepth_max))
+    sc_k = no_host_reads(act._activation_scatter_cuda, win, imm2, keep, delete)
+    sc_p = act._activation_scatter_plain(win, imm2, keep, delete)
+    err = par.scatter_errors(sc_k, sc_p)
+    log(f"  K14 activation_scatter ({label}): {err}")
+    require(err.pop("n_activated") > 20, f"K14 ({label}): hardly a point was paired")
+    require(not any(err.values()), f"K14 ({label}): the pairing differs: {err}")
+    moved = (win.lm_uv, win.lm_patch, win.lm_idepth, win.lm_valid, win.res_status)
+    row("activation_scatter", max_abs_err=0.0,
+        ms=cuda_ms(torch, lambda: act._activation_scatter_cuda(win, imm2, keep, delete)),
+        plain_ms=cuda_ms(torch, lambda: act._activation_scatter_plain(win, imm2, keep, delete)),
+        **bound(2 * nbytes(*moved) + nbytes(keep, delete, imm2.valid, imm2.valid)
+                + int(sc_p[2]) * 48, 4 * k * (n + m)))
+
+    # K16 — the frontend's state from the window after the pairing; landmarks
+    # whose reprojection sits within 1e-3 px of a pixel boundary or of the image
+    # border are left out of both versions: there the last bit of the
+    # reprojection (the two round differently) decides the pixel
+    win2 = sc_p[0]
+    boundary = par.pixel_boundary_landmarks(win2, model)
+    win2 = win2.replace(lm_valid=win2.lm_valid & ~boundary)
+    args = (win2, model, tuple(maps), h, w, cfg.pyramid_levels, cfg.frontend_points)
+    out_k = no_host_reads(dm.build_frontend_state_cuda, *args)
+    out_p = dm.build_frontend_state_plain(*args)
+    err = par.frontend_errors(out_k, out_p)
+    log(f"  K16 depth_maps ({label}): {int(boundary.sum())} landmarks on a pixel boundary left"
+        f" out, {err}")
+    require(err["positive"][0] > 1000, f"K16 ({label}): {err['positive'][0]} pixels hold weight")
+    require(err["weight_differ"] == 0 and err["uv_differ"] == 0 and err["valid_differ"] == 0,
+            f"K16 ({label}): weights or selected pixels differ: {err}")
+    require(err["idepth_map"] <= 1e-6 and err["idepth"] <= 1e-6 and err["intensity"] == 0.0,
+            f"K16 ({label}): idepth differs by {max(err['idepth_map'], err['idepth']):.3g}")
+    again = dm.build_frontend_state_cuda(*args)
+    require(all(torch.equal(a, b) for a, b in zip(out_k[0], again[0])),
+            f"K16 ({label}): two runs on the same window differ")
+    cells = sum(x.numel() for x in out_k[0])
+    lib = None
+    if label == "standart":
+        flat = out_p[1][0].reshape(-1)
+        lib = cuda_ms(torch, lambda: torch.topk(flat, dm.FLOW_CAP))
+        log(f"  K16 yardstick ({label}): torch.topk of {dm.FLOW_CAP} over level 0's"
+            f" {flat.numel()} weights {lib:.4f} ms (one selection of six, no tie order)")
+    row("depth_maps", max_abs_err=float(max((a - b).abs().max()
+                                            for a, b in zip(out_k[0], out_p[0]))),
+        ms=cuda_ms(torch, lambda: dm.build_frontend_state_cuda(*args)),
+        plain_ms=cuda_ms(torch, lambda: dm.build_frontend_state_plain(*args), reps=10),
+        **bound(nbytes(win2.lm_uv, win2.lm_idepth, win2.lm_valid) + nbytes(*out_k[0], *out_k[1])
+                + sum(nbytes(*pts) + 4 * pts.uv.shape[0] for pts in (*out_k[2], out_k[3])),
+                OPS_REPROJECT * k * n + OPS_DEPTH_CELL * cells),
+        library_ms=lib)
 
 
 def parity_ba(seq, tracker, torch, rows, label, every, min_frames, timed):
@@ -683,20 +897,22 @@ def lm_control(pba, torch, window, model, opts):
     return control, plain_control, 2 * reads + 2 * commit
 
 
-def track(seq, cfg, torch, kernels):
-    """One path: the known-pose bootstrap, then PipelinedTracker over the
+def track(seq, name, torch, kernels):
+    """Path ``name``: the known-pose bootstrap, then PipelinedTracker over the
     frames after it, with the launch counts set to 0 just before those
     frames and read just after (the bootstrap's launches do not count)."""
-    from dsopp_tpu_torch.testing.paths import INIT_FRAMES, bootstrap, closed_gate
+    from dsopp_tpu_torch.testing.paths import (INIT_FRAMES, MASK_FIRST_INVALID_ROW, bootstrap,
+                                               closed_gate, path_config, path_frames,
+                                               path_mask)
     from dsopp_tpu_torch.tracker import fused_keyframe
     from dsopp_tpu_torch.tracker.device_loop import PipelinedTracker, device_tick
 
-    last = seq.images.shape[0]
+    last = path_frames(name)
     torch.cuda.reset_peak_memory_stats()
-    tracker = bootstrap(seq, cfg)
+    tracker = bootstrap(seq, path_config(name), path_mask(name))
     kf_boot = tracker.num_keyframes
     pipe = PipelinedTracker(tracker, flush_every=16)
-    poses, gate_ratios, escalations, solves = [], [], 0, [0]
+    poses, gate_ratios, escalations, solves, keyframes = [], [], 0, [0], []
     solve_loop = fused_keyframe._solve_loop_device
 
     def solve_without_host_reads(window, model, opts):
@@ -720,6 +936,8 @@ def track(seq, cfg, torch, kernels):
             poses.append(diag.pose_t)
             gate_ratios.append(diag.rmse / state_before.rmse_last0)
             escalations += int(diag.escalated)
+            if diag.is_keyframe:
+                keyframes.append((i, diag.n_active, diag.n_activated, diag.min_distance))
         torch.cuda.synchronize()
         elapsed = time.perf_counter() - t0
     finally:
@@ -745,14 +963,24 @@ def track(seq, cfg, torch, kernels):
                  window_frames=int(win.frame_valid.sum()),
                  active_landmarks=int((win.lm_valid & ~win.lm_outlier
                                        & win.frame_valid[:, None]).sum()),
-                 peak_memory_mb=torch.cuda.max_memory_allocated() / 1e6)
+                 peak_memory_mb=torch.cuda.max_memory_allocated() / 1e6,
+                 per_keyframe=[(i, int(a), int(b), round(float(c), 3))
+                               for i, a, b, c in keyframes])
+    if name == "masked":
+        # tests/tracker/test_mask.py: no point is ever born in the masked region
+        imm, lm_valid = tracker.immature, win.lm_valid & win.frame_valid[:, None]
+        stats["masked_points"] = (
+            int(imm.valid.sum()), int(lm_valid.sum()),
+            int((imm.valid & (imm.uv[..., 1] >= MASK_FIRST_INVALID_ROW)).sum()),
+            int((lm_valid & (win.lm_uv[..., 1] >= MASK_FIRST_INVALID_ROW)).sum()))
 
     def force_escalation():
         """The last frame again from the state before it, with the re-track
         gate closed: chunk 0 fails it and chunks 1..21 run.  → distance of
         the escalated pose from the tracked one."""
         before = kernels.ALIGN_LEVEL.launches
-        _, diag = device_tick(closed_gate(state_before), seq.images[last - 1], last - 1, False, pipe.models, pipe.cfg)
+        _, diag = device_tick(closed_gate(state_before), seq.images[last - 1], last - 1, False,
+                              pipe.models, pipe.cfg, mask=pipe.mask)
         require(diag.escalated, "the forced frame did not escalate")
         require(kernels.ALIGN_LEVEL.launches - before == 10,
                 f"an escalated frame launches K3 10 times, got {kernels.ALIGN_LEVEL.launches - before}")
@@ -763,6 +991,8 @@ def track(seq, cfg, torch, kernels):
 
 
 def report(label, st, card, seconds):
+    log(f"[{label}] per keyframe (frame, n_active, n_activated, min_distance after it): "
+        + " ".join(f"({i}, {a}, {b}, {c})" for i, a, b, c in st["per_keyframe"]))
     log(f"[{label}] {st['frames']} frames in {st['seconds']:.2f} s = {st['fps']:.3f} frames/s,"
         f" {st['keyframes']} keyframes, {st['escalations']} escalations (largest rmse ratio"
         f" {st['gate_ratio']:.3f} of the gate's 2.5),"
@@ -775,6 +1005,8 @@ def report(label, st, card, seconds):
         f" ({seconds:.2f} s with bootstrap)")
     missing = [name for name in PATH_KERNELS if st["counts"][name] == 0]
     require(not missing, f"[{label}] kernels of the path never launched: {missing}")
+    rare = [name for name in KEYFRAME_KERNELS if st["counts"][name] < st["keyframes"]]
+    require(not rare, f"[{label}] launched less than once per keyframe: {rare}")
     require(st["keyframes"] >= 3, f"[{label}] only {st['keyframes']} keyframes after bootstrap")
     require(st["ba_solves"] == st["keyframes"],
             f"[{label}] {st['ba_solves']} BA solves for {st['keyframes']} keyframes")
@@ -827,7 +1059,7 @@ def main():
         log(f"[parity] {len(rows)} kernels within tolerance ({time.perf_counter() - t0:.2f} s)")
 
         t0 = time.perf_counter()
-        st, _ = track(seq, cfg, torch, kernels)
+        st, _ = track(seq, "standart", torch, kernels)
         report("track", st, card, time.perf_counter() - t0)
         require(st["marginalized"] >= 1, "no frame was marginalized")
         require(st["ate_rmse"] < RMSE_GATE, f"ATE RMSE {st['ate_rmse']:.5f} m >= {RMSE_GATE}")
@@ -839,7 +1071,7 @@ def main():
         torch.cuda.synchronize()
         log(f"[render-fast] {paths.SEQUENCES['fast']} ({time.perf_counter() - t0:.2f} s)")
         t0 = time.perf_counter()
-        sf, force_escalation = track(fast, cfg, torch, kernels)
+        sf, force_escalation = track(fast, "fast", torch, kernels)
         report("track-fast", sf, card, time.perf_counter() - t0)
         if sf["escalations"] == 0:
             moved = force_escalation()
@@ -855,7 +1087,7 @@ def main():
         require(paths.PATHS["dense"][0] == "standart", "the dense path's sequence changed")
         t0 = time.perf_counter()
         dense_cfg = paths.path_config("dense")
-        sd, _ = track(seq, dense_cfg, torch, kernels)
+        sd, _ = track(seq, "dense", torch, kernels)
         report("track-dense", sd, card, time.perf_counter() - t0)
         require(sd["marginalized"] >= 1,
                 f"the dense window ({dense_cfg.window_max} frames) never overflowed")
@@ -863,15 +1095,33 @@ def main():
                 f"dense ATE RMSE {sd['ate_rmse']:.5f} m >= {RMSE_GATE}")
         require(sd["ate_max"] < MAX_GATE, f"dense ATE max {sd['ate_max']:.5f} m >= {MAX_GATE}")
         require(abs(sd["scale"] - 1.0) < SCALE_GATE, f"dense alignment scale {sd['scale']:.4f}")
+
+        # the masked path runs the first frames of the same sequence
+        require(paths.PATHS["masked"][0] == "standart", "the masked path's sequence changed")
+        t0 = time.perf_counter()
+        sm, _ = track(seq, "masked", torch, kernels)
+        report("track-masked", sm, card, time.perf_counter() - t0)
+        n_imm, n_lm, imm_in_mask, lm_in_mask = sm["masked_points"]
+        log(f"[track-masked] rows >= {paths.MASK_FIRST_INVALID_ROW} masked: {n_imm} valid immature"
+            f" points ({imm_in_mask} in the masked rows), {n_lm} valid landmarks ({lm_in_mask}"
+            " in the masked rows)")
+        require(n_imm > 0 and n_lm > 0, "the masked path ends with no points")
+        require(imm_in_mask == 0 and lm_in_mask == 0,
+                f"{imm_in_mask} immature points and {lm_in_mask} landmarks in the masked rows")
+        require(sm["ate_rmse"] < RMSE_GATE,
+                f"masked ATE RMSE {sm['ate_rmse']:.5f} m >= {RMSE_GATE}")
+        require(sm["ate_max"] < MAX_GATE, f"masked ATE max {sm['ate_max']:.5f} m >= {MAX_GATE}")
+        require(abs(sm["scale"] - 1.0) < SCALE_GATE, f"masked alignment scale {sm['scale']:.4f}")
     except SmokeError as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
 
     result = {"kernels": [
         dict(name=name, route="cuda", source=SOURCES[name][0], replaces=SOURCES[name][1],
-             launches=st["counts"][name] + sf["counts"][name] + sd["counts"][name],
+             launches=sum(run["counts"][name] for run in (st, sf, sd, sm)),
              launches_track=st["counts"][name], launches_track_fast=sf["counts"][name],
-             launches_track_dense=sd["counts"][name], **rows[name]) for name in SOURCES]}
+             launches_track_dense=sd["counts"][name], launches_track_masked=sm["counts"][name],
+             **rows[name]) for name in SOURCES]}
     print(json.dumps(result))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -51,6 +51,12 @@ def pinhole(fx, fy, cx, cy, image_size) -> Pinhole:
     return Pinhole(float(fx), float(fy), float(cx), float(cy), float(w), float(h))
 
 
+def camera_mask(mask, device=None):
+    """A CameraMask given as a numpy [H, W] array (true = valid) → bool tensor
+    on ``device`` (the device of the state it is used with)."""
+    return torch.as_tensor(np.asarray(mask, dtype=np.bool_), device=device)
+
+
 def level_points(uv, idepth, intensity, valid, dtype=torch.float64, device=None) -> LevelPoints:
     return LevelPoints(*(tensor(x, dtype, device) for x in (uv, idepth, intensity, valid)))
 

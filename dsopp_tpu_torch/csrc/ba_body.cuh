@@ -1,7 +1,9 @@
 // Shared device code of the windowed-BA kernels K6 (ba_fej.cu) and K7
-// (ba_evaluate.cu): the residual pattern, rigid transforms on quaternion +
+// (ba_evaluate.cu) and of the kernels that reproject or sample as they do
+// (K5, K13, K14, K16): the residual pattern, rigid transforms on quaternion +
 // translation with the formulas and small-angle branches of core/lie.py,
-// and the relative pose T_j^-1 T_i of an (anchor i, target j) pair.
+// the relative pose T_j^-1 T_i of an (anchor i, target j) pair, and the
+// 10x10-window sampling rule of core/interpolate.py::sample_window.
 //
 // Both kernels use one thread per residual (i, j, n, p): blockIdx.y is the
 // pair i * K + j, and the block's threads run over n * 8 + p, so the 8
@@ -143,6 +145,96 @@ static __device__ __forceinline__ int all_of_pattern(int flag) {
   flag &= __shfl_xor_sync(kFull, flag, 2);
   flag &= __shfl_xor_sync(kFull, flag, 4);
   return flag;
+}
+
+// core/interpolate.py::window_base along one axis: the window of a group of
+// points is based at floor(center) - 4, the center clamped into the image
+static __device__ __forceinline__ int window_base(float center, int size) {
+  return min(max((int)floorf(center), 0), size - 1) - 4;
+}
+
+struct WindowSample {
+  float val, gx, gy;
+  bool ok;  // inside the image and, with the +-1 gradient halo, inside the window
+};
+
+// core/interpolate.py::sample_window at (x, y) of the [h, w] image `img`, for
+// the 10x10 window based at (bx, by): bilinear value and half central
+// differences of raw intensities; a point whose bilinear corners plus the
+// +-1 halo leave the window (corner offsets outside [1, 7]) or the image is
+// not ok; pixels outside the image read as 0
+static __device__ __forceinline__ WindowSample sample_window(const float* __restrict__ img,
+                                                             int h, int w, float x, float y,
+                                                             int bx, int by) {
+  constexpr int kWinLo = 1, kWinHi = 7;  // PATCH_WIN - 3
+  const bool inside = x >= 0.0f && y >= 0.0f && x <= (float)(w - 1) && y <= (float)(h - 1);
+  const int ix = min(max((int)floorf(x), 0), w - 2);
+  const int iy = min(max((int)floorf(y), 0), h - 2);
+  const float fx = x - (float)ix, fy = y - (float)iy;
+  const int dxi = ix - bx, dyi = iy - by;
+  const bool in_win = dxi >= kWinLo && dxi <= kWinHi && dyi >= kWinLo && dyi <= kWinHi;
+  const int col = bx + min(max(dxi, kWinLo), kWinHi);
+  const int row = by + min(max(dyi, kWinLo), kWinHi);
+
+  // the 4x4 neighbourhood less its corners; zero outside the image
+  float px[4][4];
+#pragma unroll
+  for (int dr = 0; dr < 4; ++dr) {
+#pragma unroll
+    for (int dc = 0; dc < 4; ++dc) {
+      if ((dr == 0 || dr == 3) && (dc == 0 || dc == 3)) {
+        px[dr][dc] = 0.0f;
+        continue;
+      }
+      const int rr = row + dr - 1, cc = col + dc - 1;
+      px[dr][dc] = (rr >= 0 && rr < h && cc >= 0 && cc < w) ? __ldg(img + (size_t)rr * w + cc) : 0.0f;
+    }
+  }
+  const float wy0 = 1.0f - fy, wy1 = fy, wx0 = 1.0f - fx, wx1 = fx;
+  // y contracted first for the value and d/dx, x first for d/dy
+  float ty[4], tx[4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    ty[c] = px[1][c] * wy0 + px[2][c] * wy1;
+    tx[c] = px[c][1] * wx0 + px[c][2] * wx1;
+  }
+  WindowSample out;
+  out.val = ty[1] * wx0 + ty[2] * wx1;
+  out.gx = ((ty[0] * (-0.5f * wx0) + ty[1] * (-0.5f * wx1)) + ty[2] * (0.5f * wx0)) +
+           ty[3] * (0.5f * wx1);
+  out.gy = ((tx[0] * (-0.5f * wy0) + tx[1] * (-0.5f * wy1)) + tx[2] * (0.5f * wy0)) +
+           tx[3] * (0.5f * wy1);
+  out.ok = inside && in_win;
+  return out;
+}
+
+// exclusive prefix sum of `v` over the block's threads (kT of them, a
+// multiple of 32); the block total lands in sums[32]
+template <int kT>
+static __device__ int block_exclusive_scan(int v, int* sums) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  __syncthreads();
+  int inc = v;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int up = __shfl_up_sync(kFull, inc, off);
+    if (lane >= off) inc += up;
+  }
+  if (lane == 31) sums[warp] = inc;
+  __syncthreads();
+  if (warp == 0) {
+    const int own = lane < kT / 32 ? sums[lane] : 0;
+    int winc = own;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int up = __shfl_up_sync(kFull, winc, off);
+      if (lane >= off) winc += up;
+    }
+    sums[lane] = winc - own;
+    if (lane == 31) sums[32] = winc;
+  }
+  __syncthreads();
+  return inc - v + sums[warp];
 }
 
 }  // namespace ba

@@ -28,9 +28,6 @@ namespace {
 using namespace ba;
 
 constexpr int kResOob = 1;  // solvers/pba.py::RES_OOB
-constexpr int kWinLo = 1;   // corner range inside the 10x10 window that
-constexpr int kWinHi = 7;   // leaves room for the +-1 halo (PATCH_WIN - 3)
-constexpr int kPatchLo = 4;
 
 struct PairTerms {
   Rigid rel;
@@ -90,52 +87,14 @@ ba_evaluate_kernel(const float* __restrict__ t_lin_q, const float* __restrict__ 
   const int center_lane = (threadIdx.x & 31 & ~(kPattern - 1)) + kCenter;
   const float xc = __shfl_sync(kFull, x, center_lane);
   const float yc = __shfl_sync(kFull, y, center_lane);
-  const int bx = min(max((int)floorf(xc), 0), w - 1) - kPatchLo;
-  const int by = min(max((int)floorf(yc), 0), h - 1) - kPatchLo;
-
-  // core/interpolate.py::_window_coords with the halo range [1, 7]
-  const bool inside = x >= 0.0f && y >= 0.0f && x <= (float)(w - 1) && y <= (float)(h - 1);
-  const int ix = min(max((int)floorf(x), 0), w - 2);
-  const int iy = min(max((int)floorf(y), 0), h - 2);
-  const float fx = x - (float)ix, fy = y - (float)iy;
-  const int dxi = ix - bx, dyi = iy - by;
-  const bool in_win = dxi >= kWinLo && dxi <= kWinHi && dyi >= kWinLo && dyi <= kWinHi;
-  const int col = bx + min(max(dxi, kWinLo), kWinHi);
-  const int row = by + min(max(dyi, kWinLo), kWinHi);
-
-  // the 4x4 neighbourhood less its corners; zero outside the image
-  const float* img = images + (size_t)j * image_stride;
-  float px[4][4];
-#pragma unroll
-  for (int dr = 0; dr < 4; ++dr) {
-#pragma unroll
-    for (int dc = 0; dc < 4; ++dc) {
-      if ((dr == 0 || dr == 3) && (dc == 0 || dc == 3)) {
-        px[dr][dc] = 0.0f;
-        continue;
-      }
-      const int rr = row + dr - 1, cc = col + dc - 1;
-      px[dr][dc] = (rr >= 0 && rr < h && cc >= 0 && cc < w) ? __ldg(img + (size_t)rr * w + cc) : 0.0f;
-    }
-  }
-  const float wy0 = 1.0f - fy, wy1 = fy, wx0 = 1.0f - fx, wx1 = fx;
-  // y contracted first for the value and d/dx, x first for d/dy
-  float ty[4], tx[4];
-#pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    ty[c] = px[1][c] * wy0 + px[2][c] * wy1;
-    tx[c] = px[c][1] * wx0 + px[c][2] * wx1;
-  }
-  const float val = ty[1] * wx0 + ty[2] * wx1;
-  const float gx = ((ty[0] * (-0.5f * wx0) + ty[1] * (-0.5f * wx1)) + ty[2] * (0.5f * wx0)) +
-                   ty[3] * (0.5f * wx1);
-  const float gy = ((tx[0] * (-0.5f * wy0) + tx[1] * (-0.5f * wy1)) + tx[2] * (0.5f * wy0)) +
-                   tx[3] * (0.5f * wy1);
+  const int bx = window_base(xc, w), by = window_base(yc, h);
+  const WindowSample smp = sample_window(images + (size_t)j * image_stride, h, w, x, y, bx, by);
+  const float val = smp.val, gx = smp.gx, gy = smp.gy;
 
   const float corrected = terms.scale * (lm_patch[(size_t)lm * kPattern + p] - terms.b_anchor);
   float r = (val - terms.b_target) - corrected;
 
-  const bool geom_ok = all_of_pattern((valid && inside && in_win) ? 1 : 0) != 0;
+  const bool geom_ok = all_of_pattern((valid && smp.ok) ? 1 : 0) != 0;
   const size_t group = (size_t)pair * n + ln;
   const int status = res_status[group];
   const bool live = terms.pair_live && lm_mask[lm];

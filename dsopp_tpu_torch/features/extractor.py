@@ -5,6 +5,10 @@ g² = dx² + dy² per pixel; a per-32×32-region threshold from the integer-
 binned histogram median of the gradient magnitude (squared, × factor); the
 argmax of each block sized so that #blocks ≈ 2 × the requested count; then
 the ``num_points`` best blocks, ties broken toward the lower block index.
+
+:func:`select_candidates` has a hand-written CUDA kernel (K12,
+``csrc/candidates.cu``) beside its plain version and dispatches on the map's
+device: a CUDA map goes to the kernel or raises.
 """
 
 from __future__ import annotations
@@ -12,6 +16,8 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+
+from dsopp_tpu_torch import kernels
 
 REGION = 32
 MAX_GRADIENT_BIN = 50
@@ -25,7 +31,7 @@ class Candidates(NamedTuple):
 
 def top_k_stable(x, k):
     """Descending top-k with the lower index first among ties (the order of
-    ``jax.lax.top_k``)."""
+    ``jax.lax.top_k``).  The plain versions' helper: a full stable sort."""
     vals, idx = torch.sort(x, descending=True, stable=True)
     return vals[:k], idx[:k]
 
@@ -50,14 +56,17 @@ def _region_threshold(g2, factor):
     return thr[yy[:, None], xx[None, :]]
 
 
-def select_candidates(pixel_map, num_points: int, mask=None, block: int = 0,
-                      border: int = 4, threshold_factor: float = 2.0) -> Candidates:
+def _tile_size(h: int, w: int, num_points: int, block: int) -> int:
+    return block if block else max(2, int((h * w / (2.0 * num_points)) ** 0.5))
+
+
+def select_candidates_plain(pixel_map, num_points: int, mask=None, block: int = 0,
+                            border: int = 4, threshold_factor: float = 2.0) -> Candidates:
     """``num_points`` well-spread high-gradient pixels of a [3, H, W] map."""
     _, h, w = pixel_map.shape
     dev, dtype = pixel_map.device, pixel_map.dtype
     g2 = pixel_map[1] * pixel_map[1] + pixel_map[2] * pixel_map[2]
-    if block == 0:
-        block = max(2, int((h * w / (2.0 * num_points)) ** 0.5))
+    block = _tile_size(h, w, num_points, block)
     yy = torch.arange(h, device=dev)
     xx = torch.arange(w, device=dev)
     allowed = ((yy[:, None] >= border) & (yy[:, None] < h - border)
@@ -87,3 +96,36 @@ def select_candidates(pixel_map, num_points: int, mask=None, block: int = 0,
         top_score = torch.cat([top_score, torch.full((pad,), -1.0, dtype=dtype, device=dev)])
         valid = torch.cat([valid, torch.zeros(pad, dtype=torch.bool, device=dev)])
     return Candidates(uv, torch.clamp(top_score, min=0.0), valid)
+
+
+def select_candidates_cuda(pixel_map, num_points: int, mask=None, block: int = 0,
+                           border: int = 4, threshold_factor: float = 2.0) -> Candidates:
+    """Kernel K12: same outputs as :func:`select_candidates_plain`, slot by
+    slot; no host read.  ``mask`` None passes no mask image to the kernel."""
+    _, h, w = pixel_map.shape
+    kernels.check(pixel_map, "pixel_map", (3, h, w))
+    if mask is not None:
+        kernels.check(mask, "mask", (h, w), torch.bool)
+    block = _tile_size(h, w, num_points, block)
+    tiles = (h // block) * (w // block)
+    if h < REGION or w < REGION or tiles == 0:
+        raise ValueError(f"select_candidates: a {h}x{w} map holds no {REGION}x{REGION} region"
+                         f" or no {block}x{block} tile")
+    dev = pixel_map.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    thr = torch.empty(((h // REGION) * (w // REGION),), **f32)
+    tile_score = torch.empty((tiles,), **f32)
+    tile_pos = torch.empty((tiles, 2), dtype=torch.int32, device=dev)
+    out = Candidates(torch.empty((num_points, 2), **f32), torch.empty((num_points,), **f32),
+                     torch.empty((num_points,), dtype=torch.bool, device=dev))
+    kernels.SELECT_CANDIDATES(pixel_map, mask, h, w, num_points, block, border,
+                              float(threshold_factor), thr, tile_score, tile_pos, *out)
+    return out
+
+
+def select_candidates(pixel_map, num_points: int, mask=None, block: int = 0,
+                      border: int = 4, threshold_factor: float = 2.0) -> Candidates:
+    """Candidate selection: the kernel K12 on a CUDA map, the plain version
+    on a CPU one."""
+    fn = select_candidates_cuda if pixel_map.is_cuda else select_candidates_plain
+    return fn(pixel_map, num_points, mask, block, border, threshold_factor)

@@ -163,8 +163,21 @@ BA_SOLVE = Kernel("ba_solve_step", "ba_solve_step",
 BA_LM = Kernel("ba_lm", "ba_lm", [_I] * 6 + [_F] * 7 + [_P] * 30)
 BA_STATUS = Kernel("ba_point_status", "ba_point_status",
                    [_P] * 11 + [_I, _I, _F, _F, _I] + [_P] * 6)
+# K12-K14 and K16, the keyframe backend around the BA solve; K14 has two entry
+# points (the refinement, and the pairing with free landmark slots)
+SELECT_CANDIDATES = Kernel("select_candidates", "select_candidates",
+                           [_P, _P] + [_I] * 5 + [_F] + [_P] * 6)
+ACTIVATION = Kernel("activation", "activation",
+                    [_P] * 6 + [_I] * 3 + [_F] * 6 + [_P] * 8 + [_F, _F] + [_P] * 5)
+REFINE = Kernel("refine_idepth", "refine_idepth",
+                [_P] * 11 + [_I] * 6 + [_F] * 7 + [_P] * 5)
+ACTIVATION_SCATTER = Kernel("activation_scatter", "activation_scatter",
+                            [_P] * 7 + [_I] * 3 + [_P] * 8)
+DEPTH_MAPS = Kernel("depth_maps", "depth_maps",
+                    [_P] * 5 + [_I, _I] + [_F] * 6 + [_I] * 5 + [_P] * 15)
 ALL = (PYRAMID, ALIGN, ALIGN_LEVEL, EPIPOLAR, FLOW, BA_FEJ, BA_EVALUATE, BA_LINEARIZE,
-       BA_SOLVE, BA_LM, BA_STATUS)
+       BA_SOLVE, BA_LM, BA_STATUS, SELECT_CANDIDATES, ACTIVATION, REFINE, ACTIVATION_SCATTER,
+       DEPTH_MAPS)
 
 
 def reset_counts():

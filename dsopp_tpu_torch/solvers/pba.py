@@ -956,17 +956,28 @@ def _marginalize_device(window: Window, model, perm, opts: PBAOptions) -> Window
     return window.replace(h_marg=h_kk[idx][:, idx], b_marg=b_k[idx], energy_marg=e_m)
 
 
-def push_frame_slot(window: Window, slot: int, pose_q, pose_t, affine, exposure,
-                    fixed: bool, frame_id: int, pixel_map) -> Window:
-    """Insert a keyframe with no landmarks into ``slot`` (pushFrame)."""
-    def put(x, v):
-        x = x.clone()
-        x[slot] = v
-        return x
+def slot_mask(num_slots: int, slot, device):
+    """[K] bool, true at frame slot ``slot``: an int, or a device tensor of
+    one element, which is then never read on the host."""
+    return torch.arange(num_slots, device=device) == slot
 
-    status = window.res_status.clone()
-    status[slot, :, :] = RES_OK
-    status[:, slot, :] = RES_OK
+
+def put_slot(x, onehot, value):
+    """``x`` [K, ...] with ``value`` (a scalar or a [...] tensor) at the slot
+    marked in ``onehot`` [K]; a new dense tensor."""
+    return torch.where(onehot.reshape((-1,) + (1,) * (x.dim() - 1)), value, x)
+
+
+def push_frame_slot(window: Window, slot, pose_q, pose_t, affine, exposure,
+                    fixed: bool, frame_id: int, pixel_map) -> Window:
+    """Insert a keyframe with no landmarks into ``slot`` (pushFrame); ``slot``
+    as :func:`slot_mask` takes it."""
+    at = slot_mask(window.num_slots, slot, window.frame_valid.device)
+
+    def put(x, v):
+        return put_slot(x, at, v)
+
+    status = torch.where(at[:, None, None] | at[None, :, None], RES_OK, window.res_status)
     return window.replace(
         t_lin_q=put(window.t_lin_q, pose_q), t_lin_t=put(window.t_lin_t, pose_t),
         affine0=put(window.affine0, affine), eps=put(window.eps, 0.0),

@@ -9,7 +9,13 @@ import dataclasses
 
 import torch
 
-from dsopp_tpu_torch.core.lie import quat_conjugate, quat_multiply
+from dsopp_tpu_torch.core.lie import SE3, quat_conjugate, quat_multiply
+from dsopp_tpu_torch.core.reproject import reproject
+from dsopp_tpu_torch.features.pyramid import build_pyramid_maps
+from dsopp_tpu_torch.solvers.pba import frame_count, push_frame_slot
+from dsopp_tpu_torch.tracker.depth_estimation import estimate_depths
+from dsopp_tpu_torch.tracker.depth_map import _older_landmarks
+from dsopp_tpu_torch.tracker.fused_keyframe import immature_bank, set_bank
 
 
 def to_f64(obj):
@@ -222,3 +228,166 @@ def solve_loop_errors(res_k, res_p, log_k, log_p) -> dict:
         idepth=rel_frobenius(win_k.lm_idepth, win_p.lm_idepth),
         status_agree=float(status_same.sum()) / max(int(live.sum()), 1),
         outlier_differ=int((win_k.lm_outlier != win_p.lm_outlier).sum()))
+
+
+def keyframe_case(tracker, image, pose, frame_id: int):
+    """The inputs of the keyframe backend's kernels (K12-K14, K16) as
+    ``fused_keyframe_push`` builds them: ``image`` at the known ``pose`` becomes
+    the newest keyframe of the tracker's window (no landmarks yet), after the
+    epipolar update of the immature banks against it, and brings its own bank
+    of fresh candidates → (window, immature banks, the frame's pyramid).  The
+    tracker itself is left as it was."""
+    cfg, win = tracker.config, tracker.window
+    maps = build_pyramid_maps(image.contiguous(), cfg.pyramid_levels)
+    k = win.num_slots
+    t_inv = pose.inverse()
+    t_rel = SE3(t_inv.q.expand(k, 4), t_inv.t.expand(k, 3)).compose(win.poses())
+    exposure = torch.ones((), dtype=image.dtype, device=image.device)
+    imm = estimate_depths(tracker.immature, maps[0], tracker.camera, t_rel.q, t_rel.t,
+                          win.affine(), tracker.last_affine,
+                          exposure / torch.clamp(win.exposure, min=1e-12), cfg.huber_sigma)
+    slot = frame_count(win)
+    win = push_frame_slot(win, slot, pose.q, pose.t, tracker.last_affine, exposure, False,
+                          frame_id, maps[0])
+    imm = set_bank(imm, slot, immature_bank(maps[0], cfg.immature_per_frame, tracker.mask))
+    return win, imm, maps
+
+
+def candidates_errors(out_k, out_p) -> dict:
+    """K12: slots whose position or validity differ, and the largest
+    difference of the squared gradient (the kernel repeats the plain version's
+    arithmetic, so all three are expected to be 0)."""
+    return dict(uv_differ=int((out_k.uv != out_p.uv).any(dim=-1).sum()),
+                valid_differ=int((out_k.valid != out_p.valid).sum()),
+                grad2=float((out_k.grad2 - out_p.grad2).abs().max()),
+                valid=int(out_p.valid.sum()))
+
+
+# px: a least distance this close to min_distance may fall either way (the two
+# reprojections differ in the last bit of a pixel coordinate, 6e-5 at x = 600)
+ACTIVATION_BAND = 2e-4
+BORDER_BAND = 1e-3       # px: a reprojection this close to a pixel or image border
+
+
+def near_border(uv, model, band: float = BORDER_BAND):
+    """Points whose reprojection ``uv`` [..., 2] lies within ``band`` of the
+    border of the valid image region (core/camera.py: [4, size − 5])."""
+    u, v = uv[..., 0], uv[..., 1]
+    out = torch.zeros_like(u, dtype=torch.bool)
+    for x, hi in ((u, model.width - 5.0), (v, model.height - 5.0)):
+        out |= ((x - 4.0).abs() <= band) | ((x - hi).abs() <= band)
+    return out
+
+
+def activation_errors(res_k, res_p, terms, min_distance, model) -> dict:
+    """K13 ``(activate, delete, n_active)`` against the plain version's, with
+    the plain version's ``terms`` (``_activation_terms_plain``): the share of
+    candidates on which both masks agree, and the differences that no rounding
+    tie explains (the least distance within ``ACTIVATION_BAND`` px of
+    ``min_distance``, or the reprojection within ``BORDER_BAND`` of the image
+    border)."""
+    _, _, min_d, _, rp_uv = terms
+    differ = (res_k[0] != res_p[0]) | (res_k[1] != res_p[1])
+    md = float(min_distance)
+    tie = ((min_d - md).abs() <= ACTIVATION_BAND) | near_border(rp_uv, model)
+    return dict(n_active_differ=abs(int(res_k[2]) - int(res_p[2])), n_active=int(res_p[2]),
+                activate=int(res_p[0].sum()), delete=int(res_p[1].sum()),
+                agree=1.0 - float(differ.sum()) / differ.numel(),
+                differ=int(differ.sum()), unexplained=int((differ & ~tie).sum()))
+
+
+REFINE_TIE = 2e-5   # relative change of the energy below which `e_new < e` is a rounding tie
+
+
+def refine_order(selected):
+    """Flat indices of the refined candidates in refinement order (banks from
+    the highest slot down, inside a bank by index)."""
+    k, m = selected.shape
+    flat = torch.nonzero(selected.reshape(-1))[:, 0]
+    return flat[torch.argsort((k - 1 - flat // m) * m + flat % m)]
+
+
+def refine_errors(out_k, out_p, trace_k, trace_p) -> dict:
+    """K14's refinement ``(idepth, keep, selected)`` against the plain
+    version's, with both decision traces ([cap, 3, 4]: energy, trial energy, λ,
+    accept): ``selected`` must be equal; ``keep`` agreement among the selected;
+    the idepth of candidates whose accept sequences are equal; and the
+    candidates whose sequences part, split into rounding ties (at the first
+    parting trial one version's energy changes by less than ``REFINE_TIE`` of
+    itself) and others."""
+    sel = out_p[2]
+    out = dict(selected=int(sel.sum()), selected_differ=int((out_k[2] != out_p[2]).sum()))
+    if out["selected_differ"] or out["selected"] == 0:
+        return out
+    order = refine_order(sel)
+    n = order.shape[0]
+    tk, tp = trace_k[:n].double(), trace_p[:n].double()
+    same_seq = (tk[..., 3] == tp[..., 3]).all(dim=1)
+    keep_k, keep_p = out_k[1].reshape(-1)[order], out_p[1].reshape(-1)[order]
+    idep_k, idep_p = out_k[0].reshape(-1)[order].double(), out_p[0].reshape(-1)[order].double()
+    held = same_seq & keep_k & keep_p
+    rel = ((idep_k - idep_p).abs() / idep_p.abs().clamp(min=1e-12))
+    ties = others = 0
+    for pos in torch.nonzero(~same_seq)[:, 0].tolist():
+        at = int(torch.nonzero(tk[pos, :, 3] != tp[pos, :, 3])[0])
+        change = min(float(((t[pos, at, 1] - t[pos, at, 0]).abs() / t[pos, at, 0].abs().clamp(min=1e-30)))
+                     for t in (tk, tp))
+        if change <= REFINE_TIE:
+            ties += 1
+        else:
+            others += 1
+    out.update(keep=int(keep_p.sum()), keep_agree=float((keep_k == keep_p).double().mean()),
+               kept_outside_selected=int((out_k[1] & ~sel).sum()),
+               idepth=float(rel[held].max()) if bool(held.any()) else 0.0,
+               idepth_abs=float((idep_k - idep_p).abs()[held].max()) if bool(held.any()) else 0.0,
+               parted=int((~same_seq).sum()), parted_ties=ties, parted_others=others,
+               accepts=int(tp[..., 3].sum()))
+    return out
+
+
+def scatter_errors(res_k, res_p) -> dict:
+    """K14's pairing ``(window, immature, n_activated)`` against the plain
+    version's on the same inputs: counts of differing entries (integer work and
+    copies, so every count is expected to be 0)."""
+    wk, wp = res_k[0], res_p[0]
+    out = {name: int((getattr(wk, name) != getattr(wp, name)).sum())
+           for name in ("lm_uv", "lm_patch", "lm_idepth", "lm_valid", "res_status")}
+    out["imm_valid"] = int((res_k[1].valid != res_p[1].valid).sum())
+    out["n_activated_differ"] = abs(int(res_k[2]) - int(res_p[2]))
+    out["n_activated"] = int(res_p[2])
+    return out
+
+
+def pixel_boundary_landmarks(window, model, band: float = BORDER_BAND):
+    """[K, N] mask of the live landmarks whose reprojection into the newest
+    keyframe lies within ``band`` px of a half-integer (where the last bit of
+    the reprojection decides the pixel it falls into) or of the image border
+    (where it decides validity)."""
+    t_rel, lm_mask = _older_landmarks(window)
+    rp = reproject(model, model, window.lm_uv, window.lm_idepth,
+                   SE3(t_rel.q[:, None], t_rel.t[:, None]))
+    frac = rp.uv - torch.floor(rp.uv)
+    return lm_mask & (((frac - 0.5).abs() <= band).any(dim=-1) | near_border(rp.uv, model, band))
+
+
+def frontend_errors(out_k, out_p) -> dict:
+    """K16 ``(idepth maps, weight maps, level points, flow points)`` against
+    the plain version's: pixels whose weight differs (exact counts), the idepth
+    sums relative to the plain version's on pixels that hold weight, and per
+    point set the slots whose pixel or validity differ, the idepth relative and
+    the intensity absolute."""
+    weight_differ = sum(int((a != b).sum()) for a, b in zip(out_k[1], out_p[1]))
+    idep = 0.0
+    for a, b, w in zip(out_k[0], out_p[0], out_p[1]):
+        rel = (a.double() - b.double()).abs() / b.double().abs().clamp(min=1e-30)
+        idep = max(idep, float(torch.where(w > 0, rel, torch.zeros_like(rel)).max()))
+    out = dict(weight_differ=weight_differ, idepth_map=idep,
+               positive=[int((w > 0).sum()) for w in out_p[1]])
+    sets = list(zip(out_k[2], out_p[2])) + [(out_k[3], out_p[3])]
+    out["uv_differ"] = sum(int((a.uv != b.uv).any(dim=-1).sum()) for a, b in sets)
+    out["valid_differ"] = sum(int((a.valid != b.valid).sum()) for a, b in sets)
+    out["valid"] = [int(b.valid.sum()) for _, b in sets]
+    out["idepth"] = max(rel_max(torch.where(b.valid, a.idepth, b.idepth), b.idepth)
+                        for a, b in sets)
+    out["intensity"] = max(float((a.intensity - b.intensity).abs().max()) for a, b in sets)
+    return out

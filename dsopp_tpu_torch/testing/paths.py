@@ -1,8 +1,11 @@
-"""The three paths that ``chip_smoke.py`` and ``profile_track`` drive on the
+"""The four paths that ``chip_smoke.py`` and ``profile_track`` drive on the
 card, so that both run the same configuration: the corridor of the JAX
 package's bench and its fast-motion corridor at the bench's standart.yaml
-operating point, and the corridor again at its dense.yaml operating point (17
-frame slots × 340 landmarks), all at VGA, each after a known-pose bootstrap."""
+operating point, the corridor again at its dense.yaml operating point (17
+frame slots × 340 landmarks), and the first 66 frames of the corridor at the
+standart point under a static CameraMask whose lower quarter is invalid (a
+rig that sees a part of itself, such as a vehicle's bonnet), all at VGA, each
+after a known-pose bootstrap."""
 
 from __future__ import annotations
 
@@ -45,7 +48,10 @@ PATHS = {
     "standart": ("standart", standart_config),
     "fast": ("fast", standart_config),
     "dense": ("standart", dense_config),
+    "masked": ("standart", standart_config),
 }
+MASK_FIRST_INVALID_ROW = 360   # the masked path: rows 360..479 hold no candidate
+MASKED_FRAMES = 66             # ... and it runs the first 66 frames (60 tracked)
 
 
 def render_path(name: str):
@@ -58,10 +64,24 @@ def path_config(name: str) -> TrackerConfig:
     return PATHS[name][1]()
 
 
-def bootstrap(seq, cfg: TrackerConfig) -> MonocularTracker:
+def path_mask(name: str):
+    """The CameraMask of path ``name``: [H, W] bool on the card, or None."""
+    if name != "masked":
+        return None
+    mask = torch.ones((HEIGHT, WIDTH), dtype=torch.bool, device="cuda")
+    mask[MASK_FIRST_INVALID_ROW:] = False
+    return mask
+
+
+def path_frames(name: str) -> int:
+    """Frames of its sequence that path ``name`` runs, the bootstrap's included."""
+    return MASKED_FRAMES if name == "masked" else SEQUENCES[PATHS[name][0]]["num_frames"]
+
+
+def bootstrap(seq, cfg: TrackerConfig, mask=None) -> MonocularTracker:
     """A tracker on the card, initialized on the first ``INIT_FRAMES`` frames
     of ``seq`` at their ground-truth poses."""
-    tracker = MonocularTracker(seq.camera, cfg, dtype=torch.float32, device="cuda")
+    tracker = MonocularTracker(seq.camera, cfg, dtype=torch.float32, device="cuda", mask=mask)
     tracker.initialize([(i, float(seq.timestamps[i]), seq.images[i],
                          seq.pose(i, torch.float32, "cuda")) for i in range(INIT_FRAMES)])
     return tracker

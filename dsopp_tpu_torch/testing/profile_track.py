@@ -3,7 +3,7 @@
 
     python -m dsopp_tpu_torch.testing.profile_track [out.json] [path ...]
 
-``path`` is ``standart``, ``fast`` or ``dense`` (default: all three).  Per
+``path`` is ``standart``, ``fast``, ``dense`` or ``masked`` (default: all four).  Per
 path, after the 6-frame known-pose bootstrap:
 
 1. ``REPEATS`` plain runs over all frames: frames/s of each (host clock
@@ -11,8 +11,10 @@ path, after the 6-frame known-pose bootstrap:
    escalations, K3 iterations per launch;
 2. one run with synchronised stage timers around the align chain, the
    epipolar update, the flow statistic, the pyramid, the whole frontend and
-   the keyframe backend with its parts, the BA solve down to its six kernels'
-   calls (each timer synchronises the device
+   the keyframe backend with its parts (push, the new bank with its candidate
+   selection, activation, refinement, pairing, BA solve down to its six
+   kernels' calls, flags, marginalization, depth maps; each timer synchronises
+   the device
    before and after, so the stages do not overlap and their sum exceeds an
    untimed frame).  The timers are hung on the modules' functions from here,
    so the tracker itself carries no instrumentation;
@@ -43,7 +45,8 @@ import torch
 from dsopp_tpu_torch import kernels
 from dsopp_tpu_torch.solvers import pba, pose_alignment
 from dsopp_tpu_torch.testing.paths import (INIT_FRAMES, PATHS, bootstrap, card_line,
-                                           closed_gate, path_config, render_path)
+                                           closed_gate, path_config, path_frames, path_mask,
+                                           render_path)
 from dsopp_tpu_torch.tracker import device_loop, fused_keyframe, fused_tick
 
 REPEATS, WINDOW = 3, 10
@@ -52,7 +55,12 @@ KERNEL_NAMES = ("pyramid_level_kernel", "align_level_kernel", "epipolar_kernel",
                 "flow_kernel", "ba_fej_kernel", "ba_evaluate_kernel", "pair_kernel",
                 "landmark_kernel", "reduce_kernel", "solve_kernel", "backsub_kernel",
                 "norm_kernel", "decide_kernel", "commit_kernel", "finish_kernel",
-                "quantile_kernel", "status_kernel")
+                "quantile_kernel", "status_kernel", "region_threshold_kernel",
+                "tile_argmax_kernel", "rank_tiles_kernel", "active_projections_kernel",
+                "candidates_kernel", "compact_kernel", "refine_kernel", "pair_slots_kernel",
+                "project_kernel", "depth_scatter_kernel", "pool_kernel", "dilate_kernel",
+                "hist_kernel", "class_threshold_kernel", "tile_count_kernel",
+                "select_write_kernel", "heavy_rank_kernel")
 # (module, function) -> stage name
 STAGES = {
     (device_loop, "_frontend_core"): "frontend",
@@ -61,7 +69,14 @@ STAGES = {
     (fused_tick, "estimate_depths"): "epipolar",
     (fused_tick, "mean_square_flows"): "flow",
     (device_loop, "keyframe_update"): "keyframe_backend",
+    (fused_keyframe, "push_frame_slot"): "kf_push",
+    (fused_keyframe, "immature_bank"): "kf_bank",
+    (fused_keyframe, "select_candidates"): "kf_candidates",
+    (fused_keyframe, "_activation_kernel"): "kf_activation",
+    (fused_keyframe, "_refine_idepth_kernel"): "kf_refine",
+    (fused_keyframe, "_activation_scatter"): "kf_scatter",
     (fused_keyframe, "_solve_loop_device"): "kf_ba_solve",
+    (device_loop, "flags_device"): "kf_flags",
     (device_loop, "_marginalize_device"): "kf_marginalize",
     (device_loop, "build_frontend_state"): "kf_depth_maps",
     # the wrappers the device-resident loop and the dispatchers both end in
@@ -75,7 +90,8 @@ STAGES = {
 
 
 def start(seq, name):
-    return device_loop.PipelinedTracker(bootstrap(seq, path_config(name)), flush_every=16)
+    return device_loop.PipelinedTracker(bootstrap(seq, path_config(name), path_mask(name)),
+                                        flush_every=16)
 
 
 def run_frames(pipe, seq, first, last):
@@ -150,7 +166,7 @@ class IterationLog:
 
 def profile_path(name):
     seq = render_path(name)
-    last = seq.images.shape[0]
+    last = path_frames(name)
     out = dict(path=name, frames=last - INIT_FRAMES, runs=[])
     for _ in range(REPEATS):
         pipe = start(seq, name)
@@ -209,7 +225,7 @@ def profile_path(name):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         _, diag = device_loop.device_tick(state, seq.images[last - 1], last - 1, False,
-                                          pipe.models, pipe.cfg)
+                                          pipe.models, pipe.cfg, mask=pipe.mask)
         torch.cuda.synchronize()
         return 1e3 * (time.perf_counter() - t0), diag
 

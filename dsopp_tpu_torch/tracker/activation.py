@@ -7,17 +7,25 @@ ACTIVE landmark projects within ``min_distance`` of it; activating points
 get a 3-iteration scalar LM on idepth against every window frame (newest
 host bank first, at most ``REFINE_CAP`` per keyframe) and are then paired
 rank for rank with free landmark slots of their host frame.
+
+The three steps have hand-written CUDA kernels beside their plain versions:
+K13 (``csrc/activation.cu``) for :func:`_activation_kernel`, K14
+(``csrc/refine.cu``) for :func:`_refine_idepth_kernel` and
+:func:`_activation_scatter`.  Each dispatches on the window's device: CUDA
+tensors go to the kernel or raise.
 """
 
 from __future__ import annotations
 
 import torch
 
+from dsopp_tpu_torch import kernels
 from dsopp_tpu_torch.core.interpolate import pad_images, sample_window, window_base
 from dsopp_tpu_torch.core.lie import SE3
 from dsopp_tpu_torch.core.pattern import PATTERN_CENTER, PATTERN_SIZE, shift_pattern
 from dsopp_tpu_torch.core.reproject import reproject, reproject_jacobian
-from dsopp_tpu_torch.solvers.pba import RES_OK, Window, active_lm_mask, newest_slot
+from dsopp_tpu_torch.solvers.pba import (RES_OK, Window, _brightness_scale, active_lm_mask,
+                                         newest_slot)
 from dsopp_tpu_torch.tracker.depth_estimation import (
     STATUS_GOOD, STATUS_ILL_CONDITIONED, STATUS_OOB, STATUS_OUTLIER,
     STATUS_SKIPPED, ImmaturePoints)
@@ -33,6 +41,7 @@ REFINE_REG0 = 0.1
 REFINE_REG_DEC = 2.0
 REFINE_REG_INC = 5.0
 REFINE_CAP = 512
+_REFINE_MAX_FRAMES = 40   # frame slots K14's refine kernel sums over in shared memory
 
 
 def ready_for_activation(points: ImmaturePoints):
@@ -53,8 +62,9 @@ def _to_newest(window: Window):
     return SE3(t_n.q.expand(k, 4), t_n.t.expand(k, 3)).compose(poses), newest
 
 
-def _activation_kernel(window: Window, model, imm: ImmaturePoints, min_distance):
-    """→ (activate [K, M] bool, delete [K, M] bool, n_active)."""
+def _activation_terms_plain(window: Window, model, imm: ImmaturePoints):
+    """→ (ready [K, M], reprojection valid [K, M], least distance to an active
+    landmark's projection [K, M], n_active, reprojected uv [K, M, 2])."""
     k = window.num_slots
     t_rel, newest = _to_newest(window)
     t_b = SE3(t_rel.q[:, None], t_rel.t[:, None])
@@ -71,17 +81,77 @@ def _activation_kernel(window: Window, model, imm: ImmaturePoints, min_distance)
     cu = rp_imm.uv.reshape(-1, 2)
     d2 = (cu[:, None, 0] - act_uv[None, :, 0]) ** 2 + (cu[:, None, 1] - act_uv[None, :, 1]) ** 2
     min_d = torch.sqrt(torch.min(d2, dim=1).values).reshape(imm.uv.shape[:2])
+    return ready, rp_imm.valid, min_d, n_active, rp_imm.uv
+
+
+def _activation_plain(window: Window, model, imm: ImmaturePoints, min_distance):
+    """→ (activate [K, M] bool, delete [K, M] bool, n_active)."""
+    ready, rp_valid, min_d, n_active, _ = _activation_terms_plain(window, model, imm)
     spaced = torch.where(n_active > 0, min_d > min_distance, torch.ones_like(ready))
-    activate = ready & rp_imm.valid & spaced
+    activate = ready & rp_valid & spaced
     dead_status = (imm.status == STATUS_OUTLIER) | ((imm.status == STATUS_OOB) & ~ready)
-    delete = imm.valid & (dead_status | (ready & ~rp_imm.valid))
+    delete = imm.valid & (dead_status | (ready & ~rp_valid))
     return activate, delete, n_active
 
 
-def _refine_idepth_kernel(window: Window, model, imm: ImmaturePoints, activate,
-                          huber_sigma: float, cap: int = REFINE_CAP):
+def _check_banks(imm: ImmaturePoints):
+    """Validate the bank tensors the kernels read → (k, m)."""
+    k, m = imm.uv.shape[:2]
+    check = kernels.check
+    check(imm.uv, "immature uv", (k, m, 2))
+    check(imm.patch, "immature patch", (k, m, PATTERN_SIZE))
+    for name in ("idepth_min", "idepth_max", "uniqueness", "search_interval"):
+        check(getattr(imm, name), f"immature {name}", (k, m))
+    check(imm.status, "immature status", (k, m), torch.int32)
+    check(imm.traced, "immature traced", (k, m), torch.bool)
+    check(imm.valid, "immature valid", (k, m), torch.bool)
+    return k, m
+
+
+def _activation_cuda(window: Window, model, imm: ImmaturePoints, min_distance):
+    """Kernel K13: same outputs as :func:`_activation_plain`, with no
+    [K·M, K·N] distance matrix and no host read.  ``min_distance`` may be a
+    device scalar (the density controller's state) or a float."""
+    k, n = window.num_slots, window.num_landmark_slots
+    km, m = _check_banks(imm)
+    check = kernels.check
+    check(window.lm_uv, "lm_uv", (k, n, 2))
+    check(window.lm_idepth, "lm_idepth", (k, n))
+    if km != k:
+        raise ValueError(f"{km} immature banks for {k} frame slots")
+    dev = window.lm_uv.device
+    if isinstance(min_distance, torch.Tensor):
+        min_distance = check(min_distance.reshape(1), "min_distance", (1,))
+    else:
+        min_distance = torch.full((1,), float(min_distance), dtype=torch.float32, device=dev)
+    t_rel, newest = _to_newest(window)
+    act_mask = active_lm_mask(window) & ~window.lm_outlier
+    activate = torch.empty((k, m), dtype=torch.bool, device=dev)
+    delete = torch.empty((k, m), dtype=torch.bool, device=dev)
+    n_active = torch.empty((1,), dtype=torch.int64, device=dev)
+    kernels.ACTIVATION(
+        window.lm_uv, window.lm_idepth, act_mask.contiguous(), t_rel.q.contiguous(),
+        t_rel.t.contiguous(), newest, k, n, m, model.fx, model.fy, model.cx, model.cy,
+        model.width, model.height, imm.uv, imm.idepth_min, imm.idepth_max, imm.status,
+        imm.traced, imm.uniqueness, imm.search_interval, imm.valid, MAX_SEARCH_INTERVAL,
+        MIN_UNIQUENESS, min_distance,
+        torch.empty((k * n, 2), dtype=torch.float32, device=dev), activate, delete, n_active)
+    return activate, delete, n_active[0]
+
+
+def _activation_kernel(window: Window, model, imm: ImmaturePoints, min_distance):
+    """Which immature points activate and which are deleted: the kernel K13
+    on CUDA tensors, the plain version on CPU ones."""
+    fn = _activation_cuda if window.lm_uv.is_cuda else _activation_plain
+    return fn(window, model, imm, min_distance)
+
+
+def _refine_idepth_plain(window: Window, model, imm: ImmaturePoints, activate,
+                         huber_sigma: float, cap: int = REFINE_CAP, trace: list = None):
     """Idepth refinement of the activating points → (idepth [K, M],
-    keep [K, M], selected [K, M])."""
+    keep [K, M], selected [K, M]).  ``trace`` (a list) receives the decisions
+    of the refined candidates in refinement order, [cap, 3, 4]: energy, trial
+    energy, λ and accept per trial."""
     k, m = imm.uv.shape[:2]
     dev = imm.uv.device
     n_flat = k * m
@@ -133,10 +203,12 @@ def _refine_idepth_kernel(window: Window, model, imm: ImmaturePoints, activate,
 
     e, inliers, h, b = eval_full(idepth)
     lam = torch.full_like(idepth, REFINE_REG0)
+    rows = []
     for _ in range(REFINE_ITERATIONS):
         trial = idepth - b / torch.clamp(h * (1.0 + lam), min=1e-20)
         e_new, inl_new, h_new, b_new = eval_full(trial)
         accept = (e_new < e) & (h > 0)
+        rows.append(torch.stack([e, e_new, lam, accept.to(e.dtype)], dim=-1))
         idepth = torch.where(accept, trial, idepth)
         e = torch.where(accept, e_new, e)
         inliers = torch.where(accept, inl_new, inliers)
@@ -152,10 +224,56 @@ def _refine_idepth_kernel(window: Window, model, imm: ImmaturePoints, activate,
     keep_flat[order] = keep_c
     sel_flat = torch.zeros(n_flat, dtype=torch.bool, device=dev)
     sel_flat[order] = sel
+    if trace is not None:
+        trace.append(torch.stack(rows, dim=1))
     return idep_flat.reshape(k, m), keep_flat.reshape(k, m), sel_flat.reshape(k, m)
 
 
-def _activation_scatter(window: Window, imm: ImmaturePoints, activate, delete):
+def _refine_idepth_cuda(window: Window, model, imm: ImmaturePoints, activate,
+                        huber_sigma: float, cap: int = REFINE_CAP, trace: list = None):
+    """Kernel K14 (refine): same outputs as :func:`_refine_idepth_plain`; the
+    maps are read in place and nothing is read on the host."""
+    k, m = _check_banks(imm)
+    check = kernels.check
+    h_px, w_px = window.maps.shape[-2:]
+    check(window.maps, "maps", (k, 3, h_px, w_px))
+    check(activate, "activate", (k, m), torch.bool)
+    check(window.frame_valid, "frame_valid", (k,), torch.bool)
+    if k > _REFINE_MAX_FRAMES:
+        raise ValueError(f"the refine kernel takes at most {_REFINE_MAX_FRAMES} frame slots,"
+                         f" got {k}")
+    dev = imm.uv.device
+    poses = window.poses()
+    t_inv = poses.inverse()
+    t_cj = SE3(t_inv.q[None], t_inv.t[None]).compose(SE3(poses.q[:, None], poses.t[:, None]))
+    affine = window.affine().contiguous()
+    scale = _brightness_scale(window.exposure, affine).contiguous()
+    idepth = imm.idepth.contiguous()
+    keep = torch.zeros((k, m), dtype=torch.bool, device=dev)
+    selected = torch.empty((k, m), dtype=torch.bool, device=dev)
+    rows = None
+    if trace is not None:
+        rows = torch.zeros((cap, REFINE_ITERATIONS, 4), dtype=torch.float32, device=dev)
+        trace.append(rows)
+    # the intensity image of frame f is channel 0 of maps[f]
+    kernels.REFINE(activate, imm.uv, imm.patch, imm.idepth_min, imm.idepth_max,
+                   t_cj.q.contiguous(), t_cj.t.contiguous(), scale, affine, window.frame_valid,
+                   window.maps, 3 * h_px * w_px, k, m, h_px, w_px, cap, model.fx, model.fy,
+                   model.cx, model.cy, model.width, model.height, float(huber_sigma),
+                   torch.empty((cap,), dtype=torch.int32, device=dev), selected, idepth, keep,
+                   rows)
+    return idepth, keep, selected
+
+
+def _refine_idepth_kernel(window: Window, model, imm: ImmaturePoints, activate,
+                          huber_sigma: float, cap: int = REFINE_CAP):
+    """The refinement: the kernel K14 on CUDA tensors, the plain version on
+    CPU ones."""
+    fn = _refine_idepth_cuda if window.maps.is_cuda else _refine_idepth_plain
+    return fn(window, model, imm, activate, huber_sigma, cap)
+
+
+def _activation_scatter_plain(window: Window, imm: ImmaturePoints, activate, delete):
     """Move accepted immature points into free landmark slots, per slot."""
     k, n = window.lm_valid.shape
     m = imm.uv.shape[1]
@@ -196,3 +314,41 @@ def _activation_scatter(window: Window, imm: ImmaturePoints, activate, delete):
     window = window.replace(lm_uv=lm_uv, lm_patch=lm_patch, lm_idepth=lm_idepth,
                             lm_valid=lm_valid, res_status=status)
     return window, imm._replace(valid=imm_valid), torch.sum(take)
+
+
+def _activation_scatter_cuda(window: Window, imm: ImmaturePoints, activate, delete):
+    """Kernel K14 (pairing): same outputs as :func:`_activation_scatter_plain`.
+    The kernel writes clones of the window's tensors, so the caller's window
+    stays as it was; every output is dense."""
+    k, n = window.num_slots, window.num_landmark_slots
+    km, m = _check_banks(imm)
+    check = kernels.check
+    if km != k:
+        raise ValueError(f"{km} immature banks for {k} frame slots")
+    check(activate, "activate", (k, m), torch.bool)
+    check(delete, "delete", (k, m), torch.bool)
+    check(window.lm_uv, "lm_uv", (k, n, 2))
+    check(window.lm_patch, "lm_patch", (k, n, PATTERN_SIZE))
+    check(window.lm_idepth, "lm_idepth", (k, n))
+    check(window.lm_valid, "lm_valid", (k, n), torch.bool)
+    check(window.res_status, "res_status", (k, k, n), torch.int32)
+    dev = imm.uv.device
+    lm_uv, lm_patch, lm_idepth = (window.lm_uv.clone(), window.lm_patch.clone(),
+                                  window.lm_idepth.clone())
+    lm_valid, status = window.lm_valid.clone(), window.res_status.clone()
+    imm_valid = torch.empty((k, m), dtype=torch.bool, device=dev)
+    n_activated = torch.empty((1,), dtype=torch.int64, device=dev)
+    kernels.ACTIVATION_SCATTER(
+        activate, delete, imm.uv, imm.patch, imm.idepth_min, imm.idepth_max, imm.valid,
+        k, n, m, torch.empty((k, n + m), dtype=torch.int32, device=dev), lm_uv, lm_patch,
+        lm_idepth, lm_valid, status, imm_valid, n_activated)
+    window = window.replace(lm_uv=lm_uv, lm_patch=lm_patch, lm_idepth=lm_idepth,
+                            lm_valid=lm_valid, res_status=status)
+    return window, imm._replace(valid=imm_valid), n_activated[0]
+
+
+def _activation_scatter(window: Window, imm: ImmaturePoints, activate, delete):
+    """The move into landmark slots: the kernel K14 on CUDA tensors, the plain
+    version on CPU ones."""
+    fn = _activation_scatter_cuda if window.lm_uv.is_cuda else _activation_scatter_plain
+    return fn(window, imm, activate, delete)

@@ -5,16 +5,19 @@ keyframe strategy (``dsopp_tpu/tracker/keyframe_strategy.py``).
 Every live landmark of every older keyframe is reprojected into the newest
 keyframe and scatter-added as (idepth, 1) into a level-0 grid; the grids are
 2×2 sum-pooled into the pyramid and empty pixels take their 3×3 neighbours'
-sum.  The scatter-add on CUDA is ``index_add_`` (atomics, unordered): the
-idepth sums then agree with an ordered sum to f32 rounding (weights are
-exact integer counts).
+sum.  Per level the heaviest pixels become the frontend's points.
 
-:func:`mean_square_flows` has a hand-written CUDA kernel (K5,
-``csrc/flow.cu``) beside its plain version and dispatches on the points'
-device: CUDA tensors go to the kernel or raise.
+:func:`build_frontend_state` has a hand-written CUDA kernel (K16,
+``csrc/depth_maps.cu``: a fixed-order scatter sum and a counting selection in
+place of ``index_add_`` and the stable sorts of the plain version) and
+:func:`mean_square_flows` has one (K5, ``csrc/flow.cu``), each beside its
+plain version; both dispatch on their tensors' device: CUDA tensors go to the
+kernel or raise.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 import torch.nn.functional as F
@@ -52,10 +55,9 @@ def _box3(x):
     return out
 
 
-def build_depth_maps(window: Window, model, height: int, width: int,
-                     num_levels: int = 5):
-    """(idepth, weight) pyramids of the newest keyframe: two tuples of
-    [H_l, W_l] tensors."""
+def _older_landmarks(window: Window):
+    """→ (T newest ← each frame [K], mask [K, N] of the live landmarks of the
+    keyframes before the newest)."""
     k = window.num_slots
     newest = newest_slot(window)
     poses = window.poses()
@@ -64,6 +66,14 @@ def build_depth_maps(window: Window, model, height: int, width: int,
     t_rel = SE3(t_n.q.expand(k, 4), t_n.t.expand(k, 3)).compose(poses)
     lm_mask = active_lm_mask(window) & ~window.lm_outlier
     lm_mask = lm_mask & (torch.arange(k, device=newest.device) != newest)[:, None]
+    return t_rel, lm_mask
+
+
+def build_depth_maps(window: Window, model, height: int, width: int,
+                     num_levels: int = 5):
+    """(idepth, weight) pyramids of the newest keyframe: two tuples of
+    [H_l, W_l] tensors."""
+    t_rel, lm_mask = _older_landmarks(window)
     rp = reproject(model, model, window.lm_uv, window.lm_idepth,
                    SE3(t_rel.q[:, None], t_rel.t[:, None]))
     ok = lm_mask & rp.valid
@@ -110,14 +120,73 @@ def depth_map_level_points(idepth_map, weight_map, pixel_map, max_points: int):
     return LevelPoints(uv.contiguous(), idep.contiguous(), vals.contiguous(), valid.contiguous())
 
 
-def build_frontend_state(window: Window, model, maps, height: int, width: int,
-                         num_levels: int, max_points: int):
+def build_frontend_state_plain(window: Window, model, maps, height: int, width: int,
+                               num_levels: int, max_points: int):
     """Depth-map pyramids, per-level frontend points and the flow set."""
     idep, wei = build_depth_maps(window, model, height, width, num_levels)
     points = tuple(depth_map_level_points(idep[l], wei[l], maps[l], max_points)
                    for l in range(num_levels))
     flow_pts = depth_map_level_points(idep[0], wei[0], maps[0], FLOW_CAP)
     return idep, wei, points, flow_pts
+
+
+def build_frontend_state_cuda(window: Window, model, maps, height: int, width: int,
+                              num_levels: int, max_points: int):
+    """Kernel K16: same outputs as :func:`build_frontend_state_plain`; one
+    call, no host read.  The idepth sums are taken in landmark order, so two
+    runs on the same window give the same bits."""
+    k, n = window.num_slots, window.num_landmark_slots
+    check = kernels.check
+    check(window.lm_uv, "lm_uv", (k, n, 2))
+    check(window.lm_idepth, "lm_idepth", (k, n))
+    shapes = [(height, width)]
+    for _ in range(1, num_levels):
+        shapes.append((shapes[-1][0] // 2, shapes[-1][1] // 2))
+    for level, shape in enumerate(shapes):
+        check(maps[level], f"maps[{level}]", (3,) + shape)
+    t_rel, lm_mask = _older_landmarks(window)
+    dev = window.lm_uv.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    i32 = dict(dtype=torch.int32, device=dev)
+    sizes = [h * w for h, w in shapes]
+    cells = sum(sizes)
+    slots = num_levels * max_points + FLOW_CAP
+    raw_i, raw_w = torch.empty((cells,), **f32), torch.empty((cells,), **f32)
+    out_i, out_w = torch.empty((cells,), **f32), torch.empty((cells,), **f32)
+    sel_uv, sel_idepth = torch.empty((slots, 2), **f32), torch.empty((slots,), **f32)
+    sel_value = torch.empty((slots,), **f32)
+    sel_valid = torch.empty((slots,), dtype=torch.bool, device=dev)
+    # the intensity image of level l is channel 0 of maps[l]
+    intensity = (ctypes.c_void_p * num_levels)(*(m.data_ptr() for m in maps[:num_levels]))
+    kernels.DEPTH_MAPS(
+        window.lm_uv, window.lm_idepth, lm_mask.contiguous(), t_rel.q.contiguous(),
+        t_rel.t.contiguous(), k, n, model.fx, model.fy, model.cx, model.cy, model.width,
+        model.height, height, width, num_levels, max_points, FLOW_CAP, intensity,
+        torch.empty((k * n,), **i32), torch.empty((k * n,), **f32), raw_i, raw_w,
+        torch.empty((k * n + 1,), **i32), torch.empty((2,), **i32),
+        torch.empty((2 * -(-sizes[0] // 1024),), **i32),
+        torch.empty((2 * max(max_points, FLOW_CAP),), **i32),
+        out_i, out_w, sel_uv, sel_idepth, sel_value, sel_valid)
+    idep, wei, points = [], [], []
+    at = 0
+    for level, (shape, size) in enumerate(zip(shapes, sizes)):
+        idep.append(out_i[at:at + size].view(shape))
+        wei.append(out_w[at:at + size].view(shape))
+        lo = level * max_points
+        points.append(LevelPoints(sel_uv[lo:lo + max_points], sel_idepth[lo:lo + max_points],
+                                  sel_value[lo:lo + max_points], sel_valid[lo:lo + max_points]))
+        at += size
+    lo = num_levels * max_points
+    flow_pts = LevelPoints(sel_uv[lo:], sel_idepth[lo:], sel_value[lo:], sel_valid[lo:])
+    return tuple(idep), tuple(wei), tuple(points), flow_pts
+
+
+def build_frontend_state(window: Window, model, maps, height: int, width: int,
+                         num_levels: int, max_points: int):
+    """The frontend's state after a keyframe: the kernel K16 on CUDA tensors,
+    the plain version on CPU ones."""
+    fn = build_frontend_state_cuda if window.lm_uv.is_cuda else build_frontend_state_plain
+    return fn(window, model, maps, height, width, num_levels, max_points)
 
 
 def mean_square_flows_plain(pts: LevelPoints, model, t_t_r: SE3, border: int = 4):

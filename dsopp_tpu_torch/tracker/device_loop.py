@@ -114,12 +114,13 @@ class KeyframeUpdate(NamedTuple):
 
 def keyframe_update(window: Window, immature: ImmaturePoints, maps, pose_q, pose_t,
                     affine, frame_id: int, min_distance, models,
-                    cfg: DeviceLoopConfig, exposure) -> KeyframeUpdate:
-    """The keyframe backend shared by ``device_tick`` and the bootstrap."""
+                    cfg: DeviceLoopConfig, exposure, mask=None) -> KeyframeUpdate:
+    """The keyframe backend shared by ``device_tick`` and the bootstrap.
+    ``mask``: [H, W] bool candidate-selection mask or None."""
     dtype = window.eps.dtype
     kf = fused_keyframe_push(window, models[0], immature, maps[0], pose_q, pose_t,
                              affine, frame_id, min_distance, cfg.pba_opts, cfg.refine,
-                             cfg.huber_sigma, cfg.immature_per_frame, exposure)
+                             cfg.huber_sigma, cfg.immature_per_frame, exposure, mask=mask)
     win, immature, batch = kf.window, kf.immature, kf.batch
     min_distance = torch.clamp(
         min_distance + (batch["n_active"].to(dtype) - cfg.desired_points) * P_GAIN,
@@ -203,7 +204,7 @@ def _frontend_core(state: DeviceTrackerState, image, force_kf: bool, models,
 
 
 def _backend_core(base: DeviceTrackerState, out, need_kf: bool, frame_id: int,
-                  models, cfg: DeviceLoopConfig, exposure):
+                  models, cfg: DeviceLoopConfig, exposure, mask=None):
     dtype = base.last_affine.dtype
     dev = base.last_affine.device
     front = dict(is_keyframe=need_kf, escalated=out.escalated, pose_q=out.pose_q,
@@ -225,7 +226,8 @@ def _backend_core(base: DeviceTrackerState, out, need_kf: bool, frame_id: int,
         return base, diag
 
     ku = keyframe_update(base.window, base.immature, out.maps, out.pose_q, out.pose_t,
-                         out.affine, frame_id, base.min_distance, models, cfg, exposure)
+                         out.affine, frame_id, base.min_distance, models, cfg, exposure,
+                         mask=mask)
     st = base._replace(window=ku.window, immature=ku.immature,
                        depth_idepth=ku.depth_idepth, depth_weight=ku.depth_weight,
                        level_points=ku.level_points, flow_points=ku.flow_points,
@@ -239,11 +241,13 @@ def _backend_core(base: DeviceTrackerState, out, need_kf: bool, frame_id: int,
 
 
 def device_tick(state: DeviceTrackerState, image, frame_id: int, force_kf: bool,
-                models, cfg: DeviceLoopConfig, exposure=1.0):
-    """One tracked frame → (state', diag)."""
+                models, cfg: DeviceLoopConfig, exposure=1.0, mask=None):
+    """One tracked frame → (state', diag).  ``mask``: [H, W] bool
+    candidate-selection mask (the sensor's CameraMask) or None for all-valid;
+    it reaches the candidate selection of a keyframe and nothing else."""
     exposure = torch.full((), float(exposure), dtype=image.dtype, device=image.device)
     base, need_kf, front = _frontend_core(state, image, force_kf, models, cfg, exposure)
-    return _backend_core(base, front, need_kf, frame_id, models, cfg, exposure)
+    return _backend_core(base, front, need_kf, frame_id, models, cfg, exposure, mask=mask)
 
 
 class PipelinedTracker:
@@ -263,6 +267,7 @@ class PipelinedTracker:
         self.device = tracker.device
         self.models = tuple(tracker.models)
         self.cfg = tracker.loop_config()
+        self.mask = tracker.mask
         d = dict(dtype=self.dtype, device=self.device)
         self.state = DeviceTrackerState(
             window=tracker.window, immature=tracker.immature,
@@ -285,7 +290,7 @@ class PipelinedTracker:
         image = torch.as_tensor(image, dtype=self.dtype, device=self.device)
         self.state, diag = device_tick(self.state, image, int(frame_id),
                                        bool(force_keyframe), self.models, self.cfg,
-                                       exposure=float(exposure))
+                                       exposure=float(exposure), mask=self.mask)
         self.pending.append((frame_id, timestamp, diag))
         if len(self.pending) >= self.flush_every:
             self.drain()
@@ -327,5 +332,6 @@ class PipelinedTracker:
         t.min_distance = float(st.min_distance)
         t.num_keyframes = self.num_keyframes
         t.kf_id = self.cur_kf
+        t.mask = self.mask
         return t
 

@@ -12,7 +12,8 @@ import torch
 from dsopp_tpu_torch.core.interpolate import sample
 from dsopp_tpu_torch.core.pattern import shift_pattern
 from dsopp_tpu_torch.features.extractor import select_candidates
-from dsopp_tpu_torch.solvers.pba import PBAOptions, Window, _solve_loop_device, push_frame_slot
+from dsopp_tpu_torch.solvers.pba import (PBAOptions, Window, _solve_loop_device, push_frame_slot,
+                                         put_slot, slot_mask)
 from dsopp_tpu_torch.tracker.activation import (_activation_kernel, _activation_scatter,
                                                 _refine_idepth_kernel)
 from dsopp_tpu_torch.tracker.depth_estimation import ImmaturePoints, make_immature_points
@@ -33,19 +34,19 @@ def immature_bank(pixel_map0, num_points: int, mask=None) -> ImmaturePoints:
     return bank._replace(valid=bank.valid & cands.valid)
 
 
-def set_bank(immature: ImmaturePoints, slot: int, bank: ImmaturePoints) -> ImmaturePoints:
-    def put(x, v):
-        x = x.clone()
-        x[slot] = v
-        return x
-    return ImmaturePoints(*(put(x, v) for x, v in zip(immature, bank)))
+def set_bank(immature: ImmaturePoints, slot, bank: ImmaturePoints) -> ImmaturePoints:
+    """The banks with ``bank`` at frame slot ``slot`` (an int or a device
+    tensor of one element)."""
+    at = slot_mask(immature.valid.shape[0], slot, immature.valid.device)
+    return ImmaturePoints(*(put_slot(x, at, v) for x, v in zip(immature, bank)))
 
 
 def fused_keyframe_push(window: Window, model, immature: ImmaturePoints, pixel_map0,
                         pose_q, pose_t, affine, frame_id: int, min_distance,
                         opts: PBAOptions, refine: bool, huber_sigma: float,
                         immature_per_frame: int, exposure, mask=None) -> FusedKeyframeResult:
-    slot = int(window.frame_valid.sum())
+    # the first free slot stays on the device: nothing here reads it on the host
+    slot = window.frame_valid.sum().view(1)
     window = push_frame_slot(window, slot, pose_q, pose_t, affine, exposure, False,
                              frame_id, pixel_map0)
     immature = set_bank(immature, slot, immature_bank(pixel_map0, immature_per_frame, mask))
@@ -61,6 +62,6 @@ def fused_keyframe_push(window: Window, model, immature: ImmaturePoints, pixel_m
     window, immature, n_activated = _activation_scatter(window, immature, activate, delete)
     window, energy, num_valid = _solve_loop_device(window, model, opts)
     batch = dict(energy=energy, num_valid=num_valid, n_active=n_active,
-                 n_activated=n_activated, new_affine=window.affine()[slot],
+                 n_activated=n_activated, new_affine=window.affine().index_select(0, slot)[0],
                  poses_mat=window.poses().matrix())
     return FusedKeyframeResult(window, immature, batch)

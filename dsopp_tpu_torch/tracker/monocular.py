@@ -1,9 +1,10 @@
 """Monocular tracker: configuration, state and the known-pose bootstrap
 (counterpart of ``dsopp_tpu/tracker/monocular.py``).
 
-``MonocularTracker(camera, TrackerConfig(...), dtype=..., device=...)`` is
-bootstrapped with ``initialize(frames)`` from frames of known pose: the
-first is pushed as the fixed keyframe, the next run the epipolar update and
+``MonocularTracker(camera, TrackerConfig(...), dtype=..., device=...,
+mask=...)`` (``mask``: the sensor's static CameraMask, [H, W] bool, true where
+a candidate point may be placed; ``None``: everywhere) is bootstrapped with
+``initialize(frames)`` from frames of known pose: the first is pushed as the fixed keyframe, the next run the epipolar update and
 the flow statistic (and become keyframes when the strategy asks), the last
 is forced to be a keyframe.  Tracking then goes through
 :class:`~dsopp_tpu_torch.tracker.device_loop.PipelinedTracker`.
@@ -56,12 +57,22 @@ class MonocularTracker:
     """Direct sparse odometry over one camera stream (C = 1, pinhole)."""
 
     def __init__(self, camera, config: TrackerConfig = TrackerConfig(),
-                 dtype=torch.float32, device=None):
+                 dtype=torch.float32, device=None, mask=None):
         self.camera = camera
         self.config = config
         self.dtype = dtype
         self.device = default_device(device)
         self.image_shape = (int(camera.height), int(camera.width))
+        # candidate-selection validity mask (the reference's CameraMask); None
+        # is all-valid and hands no mask image to the candidate selection
+        self.base_mask = None
+        if mask is not None:
+            self.base_mask = torch.as_tensor(mask, dtype=torch.bool,
+                                             device=self.device).contiguous()
+            if tuple(self.base_mask.shape) != self.image_shape:
+                raise ValueError(f"mask {tuple(self.base_mask.shape)} for a"
+                                 f" {self.image_shape} image")
+        self.mask = self.base_mask
         self.models = [camera.scaled(float(2 ** l)) for l in range(config.pyramid_levels)]
         self.window = empty_window(config.num_frame_slots, config.landmarks_per_frame,
                                    (3,) + self.image_shape, dtype=dtype, device=self.device)
@@ -143,7 +154,7 @@ class MonocularTracker:
             self.kf_id = frame_id
             self.window = push_frame_slot(self.window, 0, pose.q, pose.t,
                                           torch.zeros(2, **d), exp_t, True, frame_id, maps[0])
-            bank = immature_bank(maps[0], cfg.immature_per_frame)
+            bank = immature_bank(maps[0], cfg.immature_per_frame, self.mask)
             self.immature = set_bank(
                 ImmaturePoints(*(torch.zeros((cfg.num_frame_slots,) + tuple(x.shape),
                                              dtype=x.dtype, device=x.device) for x in bank)),
@@ -178,7 +189,7 @@ class MonocularTracker:
         self.kf_id = frame_id
         ku = keyframe_update(self.window, self.immature, maps, pose.q, pose.t,
                              self.last_affine, frame_id, torch.tensor(self.min_distance, **d),
-                             self.models, self.loop_config(), exp_t)
+                             self.models, self.loop_config(), exp_t, mask=self.mask)
         self.window, self.immature = ku.window, ku.immature
         self.depth_maps = (ku.depth_idepth, ku.depth_weight)
         self.level_points = list(ku.level_points)

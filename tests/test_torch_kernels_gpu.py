@@ -20,7 +20,15 @@ f32 inputs (the plain f32 solve's own distance from it is reported by
 host-driven loop, final energy 1e-4 relative, poses 1e-4 rad and 1e-4 m,
 statuses equal on ≥ 99.9 % of live groups, no host synchronisation inside;
 K11 threshold 1e-6 relative, statuses, counts and flags equal outside the
-1e-6 band around the threshold.
+1e-6 band around the threshold; K12 positions, validity and slot order equal
+and grad2 equal to the bit, with and without a mask; K13 n_active equal, masks
+equal on ≥ 99.9 % of candidates and every difference a rounding tie (least
+distance within 2e-4 px of min_distance, or the reprojection within 1e-3 px of
+the image border); K14 selected equal, keep equal on ≥ 99.5 % of the selected,
+idepth 1e-4 relative where the accept sequences are equal, the pairing equal
+entry by entry on the same inputs; K16 (landmarks within 1e-3 px of a pixel
+boundary left out of both) weights and selected pixels equal, idepth 1e-6
+relative.  K12-K14 and K16 run with host synchronisation an error.
 
 Run on a machine with a card:
 ``python -m pytest --noconftest tests/test_torch_kernels_gpu.py -q``.
@@ -32,10 +40,11 @@ import torch
 
 from dsopp_tpu_torch import kernels
 from dsopp_tpu_torch.core.lie import SE3
-from dsopp_tpu_torch.features import pyramid
+from dsopp_tpu_torch.features import extractor, pyramid
 from dsopp_tpu_torch.solvers import pba
 from dsopp_tpu_torch.solvers import pose_alignment as pa
 from dsopp_tpu_torch.testing import align_trace, parity, render_sequence
+from dsopp_tpu_torch.tracker import activation as act
 from dsopp_tpu_torch.tracker import depth_estimation as de
 from dsopp_tpu_torch.tracker import depth_map as dm
 from dsopp_tpu_torch.tracker.fused_keyframe import immature_bank
@@ -270,3 +279,155 @@ def test_ba_point_status_kernel_matches_plain(tracked):
     assert err["threshold"] <= 1e-6, err
     assert err["status_differ"] == err["inliers_differ"] == err["flags_differ"] == 0, err
     assert err["baseline"] <= 1e-6, err
+
+
+def _no_host_reads(fn, *args, **kwargs):
+    """``fn`` with every host synchronisation an error."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn(*args, **kwargs)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+@pytest.mark.parametrize("masked,num_points", [(False, 400), (True, 400), (False, 5000)])
+def test_candidates_kernel_matches_plain(scene, masked, num_points):
+    maps = pyramid.build_pyramid_maps_cuda(scene.images[1].contiguous(), 1)[0]
+    mask = None
+    if masked:
+        mask = torch.ones(maps.shape[1:], dtype=torch.bool, device="cuda")
+        mask[180:] = False
+        mask[:, ::7] = False
+    before = kernels.SELECT_CANDIDATES.launches
+    out_k = _no_host_reads(extractor.select_candidates_cuda, maps, num_points, mask)
+    out_p = extractor.select_candidates_plain(maps, num_points, mask)
+    assert kernels.SELECT_CANDIDATES.launches == before + 1
+    err = parity.candidates_errors(out_k, out_p)
+    assert err["valid"] > 100 and err["uv_differ"] == 0 and err["valid_differ"] == 0, err
+    assert err["grad2"] == 0.0, err
+    if masked:
+        uv = out_k.uv[out_k.valid]
+        assert float(uv[:, 1].max()) < 180 and bool((uv[:, 0].long() % 7 != 0).all())
+
+
+@pytest.mark.parametrize("constant", [False, True])
+def test_candidates_kernel_ragged_size_and_ties(constant):
+    """100×150 (3.125 × 4.69 regions, tile 5) with a random mask; with a
+    constant gradient every allowed pixel scores the same, so the order is
+    that of the tile indices alone."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(5)
+    h, w = 100, 150
+    dx, dy = (np.full((h, w), 0.6), np.full((h, w), -0.5)) if constant else \
+        (rng.normal(0, 20, (h, w)), rng.normal(0, 20, (h, w)))
+    maps = torch.tensor(np.stack([rng.uniform(0, 255, (h, w)), dx, dy]), dtype=torch.float32,
+                        device="cuda")
+    mask = torch.tensor(rng.random((h, w)) < 0.6, device="cuda")
+    for num_points in (300, 5000):          # 5000: more slots than the 50 x 75 tiles of 2 x 2
+        out_k = extractor.select_candidates_cuda(maps, num_points, mask)
+        out_p = extractor.select_candidates_plain(maps, num_points, mask)
+        err = parity.candidates_errors(out_k, out_p)
+        assert err["valid"] > 50 and err["uv_differ"] == 0 and err["valid_differ"] == 0, err
+        assert err["grad2"] == 0.0, err
+
+
+@pytest.fixture(scope="module")
+def keyframe(tracked):
+    """The tracker's window with the next frame pushed as its newest keyframe,
+    and the banks before activation."""
+    tracker, _ = tracked
+    seq = render_sequence(num_frames=8, height=240, width=320, dtype=torch.float32,
+                          device="cuda")
+    return (tracker,) + parity.keyframe_case(tracker, seq.images[6],
+                                             seq.pose(6, torch.float32, "cuda"), 6)
+
+
+def test_activation_kernel_matches_plain(keyframe):
+    tracker, win, imm, _ = keyframe
+    model = tracker.models[0]
+    min_distance = torch.tensor(1.5, device="cuda")
+    before = kernels.ACTIVATION.launches
+    res_k = _no_host_reads(act._activation_cuda, win, model, imm, min_distance)
+    res_p = act._activation_plain(win, model, imm, min_distance)
+    assert kernels.ACTIVATION.launches == before + 1
+    terms = act._activation_terms_plain(win, model, imm)
+    err = parity.activation_errors(res_k, res_p, terms, min_distance, model)
+    assert err["n_active"] > 50 and err["activate"] > 20, err
+    assert err["n_active_differ"] == 0 and err["agree"] >= 0.999 and err["unexplained"] == 0, err
+    # no active landmark: every ready, valid candidate is spaced
+    empty = win.replace(lm_valid=torch.zeros_like(win.lm_valid))
+    res_k, res_p = (fn(empty, model, imm, 1.5) for fn in (act._activation_cuda,
+                                                         act._activation_plain))
+    assert int(res_k[2]) == 0 and int(res_p[0].sum()) > err["activate"]
+    assert int((res_k[0] != res_p[0]).sum()) <= 1e-3 * res_p[0].numel()
+    # an idepth of 0 and a point behind the camera: invalid reprojections
+    odd = imm._replace(idepth_min=imm.idepth_min.clone(), idepth_max=imm.idepth_max.clone())
+    odd.idepth_min[0, :8], odd.idepth_max[0, :8] = 0.0, 0.0
+    odd.idepth_min[0, 8:16], odd.idepth_max[0, 8:16] = 900.0, 1100.0
+    res_k, res_p = (fn(win, model, odd, min_distance) for fn in (act._activation_cuda,
+                                                                 act._activation_plain))
+    assert torch.equal(res_k[0][0, :16], res_p[0][0, :16])
+    assert torch.equal(res_k[1][0, :16], res_p[1][0, :16])
+
+
+@pytest.mark.parametrize("cap", [act.REFINE_CAP, 24])
+def test_refine_and_scatter_kernels_match_plain(keyframe, cap):
+    tracker, win, imm, _ = keyframe
+    model = tracker.models[0]
+    activate, delete, _ = act._activation_plain(win, model, imm, 1.5)
+    trace_k, trace_p = [], []
+    before = kernels.REFINE.launches
+    out_k = _no_host_reads(act._refine_idepth_cuda, win, model, imm, activate, 20.0, cap,
+                           trace_k)
+    out_p = act._refine_idepth_plain(win, model, imm, activate, 20.0, cap, trace_p)
+    assert kernels.REFINE.launches == before + 1
+    err = parity.refine_errors(out_k, out_p, trace_k[0], trace_p[0])
+    assert err["selected"] == min(cap, int(activate.sum())) > 0 and err["selected_differ"] == 0, err
+    assert err["keep"] > 0 and err["accepts"] > 0 and err["kept_outside_selected"] == 0, err
+    assert err["keep_agree"] >= 0.995 and err["idepth"] <= 1e-4, err
+    assert err["parted_others"] <= 0.005 * err["selected"], err
+    # the pairing, on the plain version's refinement
+    idepth, keep, selected = out_p
+    delete = delete | (selected & ~keep)
+    imm2 = imm._replace(idepth_min=torch.where(keep, idepth, imm.idepth_min),
+                        idepth_max=torch.where(keep, idepth, imm.idepth_max))
+    # leave the newest host only a few free slots, so that take = #free there
+    host = int(torch.argmax(keep.sum(dim=1)))
+    lm_valid = win.lm_valid.clone()
+    lm_valid[host, 5:] = True
+    full = win.replace(lm_valid=lm_valid)
+    before = kernels.ACTIVATION_SCATTER.launches
+    for window in (win, full):
+        res_k = _no_host_reads(act._activation_scatter_cuda, window, imm2, keep, delete)
+        res_p = act._activation_scatter_plain(window, imm2, keep, delete)
+        err = parity.scatter_errors(res_k, res_p)
+        assert err.pop("n_activated") > 0
+        assert not any(err.values()), err
+        assert all(getattr(res_k[0], name).is_contiguous()
+                   for name in ("lm_uv", "lm_patch", "lm_idepth", "lm_valid", "res_status"))
+    assert kernels.ACTIVATION_SCATTER.launches == before + 2
+    assert torch.equal(win.lm_valid, keyframe[1].lm_valid)      # the input window is untouched
+
+
+def test_frontend_state_kernel_matches_plain(tracked):
+    tracker, maps = tracked
+    win, model = tracker.window, tracker.models[0]
+    h, w = tracker.image_shape
+    cfg = tracker.config
+    boundary = parity.pixel_boundary_landmarks(win, model)
+    win = win.replace(lm_valid=win.lm_valid & ~boundary)
+    args = (win, model, tuple(maps), h, w, cfg.pyramid_levels, cfg.frontend_points)
+    before = kernels.DEPTH_MAPS.launches
+    out_k = _no_host_reads(dm.build_frontend_state_cuda, *args)
+    out_p = dm.build_frontend_state_plain(*args)
+    assert kernels.DEPTH_MAPS.launches == before + 1
+    err = parity.frontend_errors(out_k, out_p)
+    assert err["positive"][0] > 100 and min(err["valid"]) > 50, err
+    assert err["weight_differ"] == 0 and err["uv_differ"] == 0 and err["valid_differ"] == 0, err
+    assert err["idepth_map"] <= 1e-6 and err["idepth"] <= 1e-6 and err["intensity"] == 0.0, err
+    # level 4 (15 x 20 pixels) pads its 800 slots; two runs give the same bits
+    assert not bool(out_k[2][4].valid[300:].any())
+    again = dm.build_frontend_state_cuda(*args)
+    assert all(torch.equal(a, b) for a, b in zip(out_k[0], again[0]))

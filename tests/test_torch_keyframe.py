@@ -93,12 +93,13 @@ def _ready_banks(seq, window, frames=FRAMES, ready=2, n_imm=N_IMM):
     return jax.tree_util.tree_map(lambda *x: jnp.stack(x), *banks)
 
 
-def test_activation_matches(seq):
-    window = build_test_window(seq, FRAMES, num_landmarks=N_LM, slots=SLOTS, seed=1)
+def _activation_chain_matches(seq, frames, slots, n_lm, n_imm, ready):
+    """Activation, refinement and pairing through both packages on one window."""
+    window = build_test_window(seq, frames, num_landmarks=n_lm, slots=slots, seed=1)
     # thin the active set so some candidates are spaced out
     window = dataclasses.replace(
-        window, lm_valid=window.lm_valid & (jnp.arange(N_LM) % 3 == 0)[None])
-    imm = _ready_banks(seq, window)
+        window, lm_valid=window.lm_valid & (jnp.arange(n_lm) % 3 == 0)[None])
+    imm = _ready_banks(seq, window, frames, ready=ready, n_imm=n_imm)
     cam = seq.camera
     act_j, del_j, nact_j = jact._activation_kernel(window, cam, imm, 2.0)
     idep_j, act2_j, sel_j = jact._refine_idepth_kernel(window, cam, imm, act_j, 20.0)
@@ -130,6 +131,107 @@ def test_activation_matches(seq):
     assert_close(win_t.lm_uv, win_j.lm_uv, atol=0)
     assert_close(win_t.lm_idepth, win_j.lm_idepth, rtol=1e-9)
     assert_close(win_t.lm_patch, win_j.lm_patch, atol=0)
+    for name in ("lm_uv", "lm_patch", "lm_idepth", "lm_valid", "res_status"):
+        assert getattr(win_t, name).is_contiguous(), name       # the BA kernels take no views
+
+
+def test_activation_matches(seq):
+    _activation_chain_matches(seq, FRAMES, SLOTS, N_LM, N_IMM, ready=2)
+
+
+@pytest.mark.parametrize("slots,num_frames", [(5, 4), (17, 13)])
+def test_activation_chain_matches_at_slots(slots, num_frames):
+    """The chain at a small window and at the dense operating point's 17 slots
+    (13 frames, every older bank ready)."""
+    frames = list(range(num_frames))
+    seq_n = render_sequence(num_frames=num_frames, height=120, width=160)
+    _activation_chain_matches(seq_n, frames, slots, n_lm=48, n_imm=32, ready=num_frames - 1)
+
+
+# -- host models of csrc/refine.cu's integer steps ---------------------------
+
+def _newest_first_compaction_model(activate, cap):
+    """One block per bank: the activating candidates of the banks after it
+    (refined before it), then an ordered scan of its own → (order, selected)."""
+    k, m = activate.shape
+    order = np.full(cap, -1)
+    selected = np.zeros((k, m), bool)
+    for bank in range(k):
+        pos = int(activate[bank + 1:].sum())
+        for i in range(m):
+            if activate[bank, i]:
+                if pos < cap:
+                    order[pos] = bank * m + i
+                    selected[bank, i] = True
+                pos += 1
+    return order, selected
+
+
+def _pairing_model(lm_valid, activate):
+    """Per frame slot: the r-th free landmark slot takes the r-th activating
+    candidate, r < min(#free, #activating) → list of (slot, dst, src)."""
+    pairs = []
+    for a in range(lm_valid.shape[0]):
+        free = np.flatnonzero(~lm_valid[a])
+        act = np.flatnonzero(activate[a])
+        pairs += [(a, int(d), int(s)) for d, s in zip(free, act)]
+    return pairs
+
+
+@pytest.mark.parametrize("k,m,cap,share", [(5, 40, 512, 0.3), (17, 64, 100, 0.4),
+                                           (17, 64, 100, 0.02), (3, 7, 4, 1.0)])
+def test_compaction_model_matches_stable_argsort(k, m, cap, share):
+    rng = np.random.default_rng(k * m)
+    activate = rng.random((k, m)) < share
+    order, selected = _newest_first_compaction_model(activate, cap)
+    # the plain version's key: rank of the activating ones, the others behind in index order
+    flat = np.arange(k * m)
+    rank = (k - 1 - flat // m) * m + flat % m
+    key = torch.tensor(np.where(activate.reshape(-1), rank, k * m + flat))
+    want = torch.argsort(key, stable=True)[:cap].numpy()
+    n_sel = min(cap, int(activate.sum()))
+    assert_equal(order[:n_sel], want[:n_sel])
+    assert (order[n_sel:] == -1).all()
+    want_sel = np.zeros(k * m, bool)
+    want_sel[want[:n_sel]] = True
+    assert_equal(selected.reshape(-1), want_sel)
+
+
+@pytest.mark.parametrize("k,n,m,free_share,act_share", [(5, 30, 50, 0.5, 0.2), (17, 34, 120, 0.1, 0.3),
+                                                        (4, 20, 10, 1.0, 1.0), (6, 16, 40, 0.0, 0.5)])
+def test_pairing_model_matches_plain_scatter(k, n, m, free_share, act_share):
+    rng = np.random.default_rng(n + m)
+    lm_valid = rng.random((k, n)) >= free_share
+    activate = rng.random((k, m)) < act_share
+    delete = (rng.random((k, m)) < 0.1) & ~activate
+    window = tpba.empty_window(k, n, (3, 8, 8), dtype=torch.float64, device="cpu")
+    window = window.replace(lm_valid=torch.tensor(lm_valid),
+                            lm_idepth=torch.tensor(rng.random((k, n))),
+                            res_status=torch.tensor(rng.integers(0, 3, (k, k, n)), dtype=torch.int32))
+    f64 = lambda *shape: torch.tensor(rng.random(shape))  # noqa: E731
+    imm = tact.ImmaturePoints(
+        uv=f64(k, m, 2), patch=f64(k, m, 8), gradient=f64(k, m, 2), idepth_min=f64(k, m),
+        idepth_max=f64(k, m), status=torch.zeros((k, m), dtype=torch.int32),
+        traced=torch.ones((k, m), dtype=torch.bool), uniqueness=f64(k, m),
+        search_interval=f64(k, m), valid=torch.tensor(rng.random((k, m)) < 0.9))
+    out, imm_out, n_act = tact._activation_scatter_plain(window, imm, torch.tensor(activate),
+                                                         torch.tensor(delete))
+    pairs = _pairing_model(lm_valid, activate)
+    assert int(n_act) == len(pairs)
+    want_valid, want_status = lm_valid.copy(), window.res_status.numpy().copy()
+    want_imm = imm.valid.numpy() & ~delete
+    want_idepth = window.lm_idepth.numpy().copy()
+    for a, dst, src in pairs:
+        want_valid[a, dst] = True
+        want_status[a, :, dst] = tpba.RES_OK
+        want_imm[a, src] = False
+        want_idepth[a, dst] = float(imm.idepth[a, src])
+        assert_equal(out.lm_uv[a, dst], imm.uv[a, src])
+        assert_equal(out.lm_patch[a, dst], imm.patch[a, src])
+    assert_equal(out.lm_valid, want_valid)
+    assert_equal(out.res_status, want_status)
+    assert_equal(imm_out.valid, want_imm)
+    assert_equal(out.lm_idepth, want_idepth)
 
 
 def test_refine_cap_takes_the_newest_bank_first_at_17_slots():

@@ -406,7 +406,12 @@ def test_card_paths_match_the_bench():
     assert (dense.num_frame_slots, dense.landmarks_per_frame, dense.window_max) == (17, 340, 15)
     assert {name: (seq, cfg.__name__) for name, (seq, cfg) in paths.PATHS.items()} == {
         "standart": ("standart", "standart_config"), "fast": ("fast", "standart_config"),
-        "dense": ("standart", "dense_config")}       # bench.py runs dense on the 0.08 corridor
+        "dense": ("standart", "dense_config"),       # bench.py runs dense on the 0.08 corridor
+        # the masked path: the standart point on the first frames of the same corridor
+        "masked": ("standart", "standart_config")}
+    assert paths.path_frames("standart") == consts["NUM_FRAMES"]
+    assert paths.INIT_FRAMES < paths.path_frames("masked") <= consts["NUM_FRAMES"]
+    assert 0 < paths.MASK_FIRST_INVALID_ROW < paths.HEIGHT
 
     renders = [{kw.arg: kw.value for kw in n.keywords} for n in ast.walk(tree)
                if isinstance(n, ast.Call) and getattr(n.func, "id", "") == "render_sequence"]
