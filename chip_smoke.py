@@ -10,8 +10,9 @@ Phases, one line each with its time:
    (into ``build/dsopp_tpu_torch``, ignored by git), one ``nvcc`` per source,
    all started together;
 3. render — the bench's corridor sequence: 120 frames, 480×640, focal 520;
-4. parity — each of the sixteen kernel entry points (K1–K14 and K16; K14 has
-   two) against its plain PyTorch version, f32
+4. parity — each of the nineteen kernel entry points (K1–K16, K15 as the
+   policy K15p and the ledger fold; K14 has two; and the row gather of the
+   Pallas design probe) against its plain PyTorch version, f32
    on the card, at the shapes the main path gives it (inputs from a
    bootstrapped tracker), with its time, the plain version's time and the
    least time the card could take (bytes over 3.35 TB/s or f32 operations
@@ -24,7 +25,21 @@ Phases, one line each with its time:
    keyframe backend's kernels K12–K14 and K16 are held on both windows too,
    with the next frame pushed as the newest keyframe (timed at standart, the
    dense times on a line of their own), K12 with and without a CameraMask,
-   and each runs there with host synchronisation an error;
+   and each runs there with host synchronisation an error.  K15p and K15 are
+   held on both BA windows, with an empty and a filled ledger: the policy at
+   the configuration's window sizes and with the window one frame too large
+   (flags, outliers and the permutation equal; where the two best eq (20)
+   scores tie within 1e-6, the frame flags may differ on those two slots
+   only, and the rest must be the plain triage of the kernel's frame flags),
+   the fold with no frame, one free frame, two
+   frames, the fixed frame and a dead frame (no live landmark, no residual
+   into it) flagged (H_m, b_m, E_m within 1e-9 of their largest entry, of
+   the plain version's or, where an eigenvalue lies within 1e-6 of the
+   pseudo-inverse's cutoff, of the plain version's with the cutoff at either
+   edge of that band; the Jacobi solver converged; two runs equal to the
+   bit), both with host synchronisation an error.  The row
+   gather at the probe's shapes ([480·640, 12] table, 204800 indices) equal
+   to ``table[idx]`` to the bit in f32 and bf16;
 5. track — the main path: a 6-frame known-pose bootstrap, then
    ``PipelinedTracker`` over frames 6..119 at the bench's standart.yaml
    operating point; every kernel of the path must have launched, ≥3
@@ -48,20 +63,30 @@ Phases, one line each with its time:
 8. track-masked — the masked-camera path: the first 66 frames of the corridor
    at the standart point with a static CameraMask whose rows 360..479 are
    invalid; phase 5's ATE and scale gates, and at the end no valid immature
-   point and no valid landmark lies in the masked rows.
+   point and no valid landmark lies in the masked rows;
+9. track-ledger — the long-horizon ledger path, the configuration of
+   ``tests/tracker/test_ledger_drift_tracker.py`` (150 frames at 120×160,
+   window 3..4 of 7 slots), rendered once in f64: the card's f32 run and the
+   plain versions' f64 run on the CPU over the same frames, each with at least
+   8 marginalized keyframes; the card's per-frame unaligned RMSE below 0.35 m
+   and below the f64 run's + 0.08 m (the f64 run's RMSE is printed: it moves
+   with the host's CPU and BLAS).
 
 Each track line is preceded by one line with, per keyframe, the active
 landmarks the activation counted, the points it activated and the spacing
 ``min_distance`` after it.
 
-On every path the windowed-BA solve runs under PyTorch's sync debug mode set
-to "error": a host read inside it aborts the run.
+On every path the windowed-BA solve, and the span from the marginalization
+policy through the ledger fold, run under PyTorch's sync debug mode set to
+"error": a host read inside them aborts the run.  K15p and K15 must launch
+exactly once per keyframe.
 
 Then a JSON line of per-kernel results, the card line, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero without that
 line; so does a machine without a CUDA card.
 """
 
+import dataclasses
 import json
 import os
 import sys
@@ -73,6 +98,8 @@ BA_FRAMES = 14   # known-pose frames after the bootstrap, before the BA parity w
 RMSE_GATE, MAX_GATE, SCALE_GATE, FAST_RMSE_GATE = 2.2e-2, 3.5e-2, 0.1, 3.0e-2
 # published peaks of one H100 SXM: HBM bytes/s, f32 FLOP/s outside the tensor cores
 PEAK_BYTES, PEAK_FLOPS = 3.35e12, 67e12
+# float64 outside the tensor cores (NVIDIA's H100 SXM data sheet): K15's arithmetic
+PEAK_FLOPS_F64 = 34e12
 # name -> (source, the JAX function it replaces); the order of the JSON line
 SOURCES = {
     "pyramid_maps": ("dsopp_tpu_torch/csrc/pyramid.cu",
@@ -98,13 +125,24 @@ SOURCES = {
     "activation_scatter": ("dsopp_tpu_torch/csrc/refine.cu",
                            "dsopp_tpu/tracker/activation.py:287"),
     "depth_maps": ("dsopp_tpu_torch/csrc/depth_maps.cu", "dsopp_tpu/tracker/depth_map.py:27"),
+    "marg_policy": ("dsopp_tpu_torch/csrc/marg_policy.cu",
+                    "dsopp_tpu/tracker/marginalization.py:33"),
+    "marg_fold": ("dsopp_tpu_torch/csrc/marg_fold.cu", "dsopp_tpu/solvers/pba.py:941"),
+    "row_gather": ("dsopp_tpu_torch/csrc/row_gather.cu", "scripts/gather_probe_pallas.py:66"),
 }
 # K2's own entry point is held in the parity phase only: on the main path its
-# body runs inside K3 (align_level)
-PATH_KERNELS = tuple(name for name in SOURCES if name != "align_residual_system")
+# body runs inside K3 (align_level); the row gather is the Pallas design
+# probe's, on no path
+PATH_KERNELS = tuple(name for name in SOURCES if name not in ("align_residual_system",
+                                                              "row_gather"))
 # the keyframe backend's kernels around the BA solve: once per keyframe each
 KEYFRAME_KERNELS = ("select_candidates", "activation", "refine_idepth", "activation_scatter",
-                    "depth_maps")
+                    "depth_maps", "marg_policy", "marg_fold")
+# ... and of those exactly once: the policy and the ledger fold
+ONCE_PER_KEYFRAME = ("marg_policy", "marg_fold")
+# the ledger path's gates (tests/tracker/test_ledger_drift_tracker.py)
+LEDGER_MIN_FOLDS, LEDGER_RMSE_GATE, LEDGER_MARGIN = 8, 0.35, 0.08
+LEDGER_CPU_THREADS = 8      # the f64 reference run's threads (a one-card machine's cores)
 # f32 operations per unit of work, counted from the kernels' arithmetic
 OPS_ALIGN_POINT = 230       # K2/K3: one valid point of one hypothesis, one pass
 OPS_ALIGN_SOLVE = 600       # K3: damped 8x8 LU solve + exp + compose, one iteration
@@ -119,6 +157,9 @@ OPS_REPROJECT = 60          # K13, K16: one reprojection with its validity
 OPS_ACTIVATION_PAIR = 6     # K13: dx, dy, two squares, their sum, the minimum
 OPS_REFINE_POINT = 180      # K14: reprojection with d uv / d idepth, the sample, the sums
 OPS_DEPTH_CELL = 12         # K16: pool, dilation and the selection's compares per grid cell
+OPS_POLICY_LANDMARK = 8     # K15p: the live count and the triage of one landmark slot
+OPS_POLICY_PAIR = 12        # K15p: one distance and reciprocal of the eq (20) sums
+OPS_EIGEN = 9               # K15: x n^3 for a symmetric eigen-decomposition with vectors
 
 
 class SmokeError(RuntimeError):
@@ -134,28 +175,30 @@ def log(msg):
     print(msg, flush=True)
 
 
-def cuda_ms(torch, fn, reps=50):
-    """Mean device time of ``fn`` per call over ``reps`` calls (CUDA events)."""
-    for _ in range(3):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
+def no_host_reads(torch, fn, *args):
+    """``fn(*args)`` with every host synchronisation an error."""
     torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def cuda_ms(fn, reps=50):
+    """Mean time of ``fn`` per call between CUDA events
+    (``dsopp_tpu_torch/testing/parity.py::cuda_ms``)."""
+    from dsopp_tpu_torch.testing.parity import cuda_ms as timed
+    return timed(fn, reps)
 
 
 def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def bound(num_bytes, num_ops):
+def bound(num_bytes, num_ops, peak_flops=PEAK_FLOPS):
     """Least time of the work on the card → (ms, what bounds it)."""
-    t_bytes, t_ops = num_bytes / PEAK_BYTES, num_ops / PEAK_FLOPS
+    t_bytes, t_ops = num_bytes / PEAK_BYTES, num_ops / peak_flops
     return dict(bound_ms=1e3 * max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
 
@@ -190,8 +233,8 @@ def parity(seq, cfg, torch, card):
     err1 = max(float((a - b).abs().max()) for a, b in zip(maps_k, maps_p))
     require(err1 <= 1e-3, f"K1 max abs diff {err1} > 1e-3")
     rows["pyramid_maps"] = dict(
-        max_abs_err=err1, ms=cuda_ms(torch, lambda: pyramid.build_pyramid_maps_cuda(img, 5)),
-        plain_ms=cuda_ms(torch, lambda: pyramid.build_pyramid_maps_plain(img, 5)),
+        max_abs_err=err1, ms=cuda_ms(lambda: pyramid.build_pyramid_maps_cuda(img, 5)),
+        plain_ms=cuda_ms(lambda: pyramid.build_pyramid_maps_plain(img, 5)),
         **bound(nbytes(img, *maps_k), 12 * sum(m[0].numel() for m in maps_k)),
         library_ms=None)
     log(f"  K1 pyramid_maps: 5 levels of {img.shape[0]}x{img.shape[1]}, max abs diff {err1:.3g}")
@@ -215,6 +258,8 @@ def parity(seq, cfg, torch, card):
     parity_epipolar(seq, tracker, INIT_FRAMES + BA_FRAMES, torch, rows, "dense")
     parity_flow(seq, tracker, INIT_FRAMES + BA_FRAMES, torch, rows, "dense")
     parity_keyframe(seq, tracker, INIT_FRAMES + BA_FRAMES, torch, rows, "dense")
+    del tracker
+    parity_gather(torch, rows)
     for name, row in rows.items():
         log(f"  {name}: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, bound "
             f"{row['bound_ms']:.5f} ms ({row['bound_by']}) | {card}")
@@ -269,8 +314,8 @@ def parity_align(tracker, maps, torch, rows):
     _, _, _, nv0 = pa.residual_system_cuda(*args0)
     sampled = min(nbytes(maps[0]), 48 * int(nv0.max()))
     rows["align_residual_system"] = dict(
-        max_abs_err=err2, ms=cuda_ms(torch, lambda: pa.residual_system_cuda(*args0)),
-        plain_ms=cuda_ms(torch, lambda: pa.residual_system_plain(*args0)),
+        max_abs_err=err2, ms=cuda_ms(lambda: pa.residual_system_cuda(*args0)),
+        plain_ms=cuda_ms(lambda: pa.residual_system_plain(*args0)),
         **bound(nbytes(*lp[0]) + sampled + CHUNK * 74 * 4, OPS_ALIGN_POINT * int(nv0.sum())),
         library_ms=None)
 
@@ -329,14 +374,14 @@ def parity_align(tracker, maps, torch, rows):
     ops = float(((iters + 1) * nv).sum()) * OPS_ALIGN_POINT + float(iters.sum()) * OPS_ALIGN_SOLVE
     sampled = min(nbytes(maps[1]), 48 * int(nv.max()))
     rows["align_level"] = dict(
-        max_abs_err=err3, ms=cuda_ms(torch, lambda: pa.align_level_cuda(*args1)),
-        plain_ms=cuda_ms(torch, lambda: pa.align_level_plain(*args1), reps=5),
+        max_abs_err=err3, ms=cuda_ms(lambda: pa.align_level_cuda(*args1)),
+        plain_ms=cuda_ms(lambda: pa.align_level_plain(*args1), reps=5),
         **bound(nbytes(*lp[1]) + sampled + CHUNK * 13 * 4, ops), library_ms=None)
-    log(f"  K3 level 0, 1 hypothesis: kernel {cuda_ms(torch, lambda: pa.align_level_cuda(*args_l0)):.4f} ms,"
-        f" plain {cuda_ms(torch, lambda: pa.align_level_plain(*args_l0), reps=5):.4f} ms;"
+    log(f"  K3 level 0, 1 hypothesis: kernel {cuda_ms(lambda: pa.align_level_cuda(*args_l0)):.4f} ms,"
+        f" plain {cuda_ms(lambda: pa.align_level_plain(*args_l0), reps=5):.4f} ms;"
         f" level 1, {nb - CHUNK} hypotheses: kernel"
-        f" {cuda_ms(torch, lambda: pa.align_level_cuda(*args105)):.4f} ms,"
-        f" plain {cuda_ms(torch, lambda: pa.align_level_plain(*args105), reps=3):.4f} ms")
+        f" {cuda_ms(lambda: pa.align_level_cuda(*args105)):.4f} ms,"
+        f" plain {cuda_ms(lambda: pa.align_level_plain(*args105), reps=3):.4f} ms")
 
 
 def iter_summary(res):
@@ -458,8 +503,8 @@ def parity_epipolar(seq, tracker, frame, torch, rows, label):
     sampled = min(nbytes(image), n_act * 32 * 8 * 16)
     row = dict(
         max_abs_err=err4,
-        ms=cuda_ms(torch, lambda: de.epipolar_sweep_cuda(inp, image, tracker.models[0], 20.0)),
-        plain_ms=cuda_ms(torch, lambda: de.epipolar_sweep_plain(inp, image, tracker.models[0], 20.0)),
+        ms=cuda_ms(lambda: de.epipolar_sweep_cuda(inp, image, tracker.models[0], 20.0)),
+        plain_ms=cuda_ms(lambda: de.epipolar_sweep_plain(inp, image, tracker.models[0], 20.0)),
         **bound(nbytes(*inp) + sampled + nbytes(*res_k), OPS_EPIPOLAR_POINT * n_act),
         library_ms=None)
     if label == "standart":
@@ -493,8 +538,8 @@ def parity_flow(seq, tracker, frame, torch, rows, label):
         return
     rows["flow_statistic"] = dict(
         max_abs_err=max(float((a - b).abs()) for a, b in zip(out_k, out_p)),
-        ms=cuda_ms(torch, lambda: dm.mean_square_flows_cuda(*args)),
-        plain_ms=cuda_ms(torch, lambda: dm.mean_square_flows_plain(*args)),
+        ms=cuda_ms(lambda: dm.mean_square_flows_cuda(*args)),
+        plain_ms=cuda_ms(lambda: dm.mean_square_flows_plain(*args)),
         **bound(nbytes(pts.uv, pts.idepth, pts.valid) + 36, OPS_FLOW_POINT * n_valid),
         library_ms=None)
 
@@ -509,14 +554,6 @@ def parity_keyframe(seq, tracker, frame, torch, rows, label):
     from dsopp_tpu_torch.testing.paths import path_mask
     from dsopp_tpu_torch.tracker import activation as act
     from dsopp_tpu_torch.tracker import depth_map as dm
-
-    def no_host_reads(fn, *args):
-        torch.cuda.synchronize()
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            return fn(*args)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
 
     def row(name, **fields):
         fields["library_ms"] = fields.get("library_ms")
@@ -535,7 +572,7 @@ def parity_keyframe(seq, tracker, frame, torch, rows, label):
     # K12 — the new keyframe's candidates, without and with the masked path's mask
     err12 = 0.0
     for mask in (None, path_mask("masked")):
-        out_k = no_host_reads(extractor.select_candidates_cuda, maps[0], m, mask)
+        out_k = no_host_reads(torch, extractor.select_candidates_cuda, maps[0], m, mask)
         out_p = extractor.select_candidates_plain(maps[0], m, mask)
         err = par.candidates_errors(out_k, out_p)
         log(f"  K12 select_candidates ({label}, {m} slots, mask {mask is not None}): {err}")
@@ -545,8 +582,8 @@ def parity_keyframe(seq, tracker, frame, torch, rows, label):
         err12 = max(err12, err["grad2"])
     mask = path_mask("masked")
     row("select_candidates", max_abs_err=err12,
-        ms=cuda_ms(torch, lambda: extractor.select_candidates_cuda(maps[0], m, mask)),
-        plain_ms=cuda_ms(torch, lambda: extractor.select_candidates_plain(maps[0], m, mask)),
+        ms=cuda_ms(lambda: extractor.select_candidates_cuda(maps[0], m, mask)),
+        plain_ms=cuda_ms(lambda: extractor.select_candidates_plain(maps[0], m, mask)),
         **bound(2 * nbytes(maps[0]) // 3 + nbytes(mask) + nbytes(*out_k),
                 OPS_CANDIDATE_PIXEL * h * w))
 
@@ -556,7 +593,7 @@ def parity_keyframe(seq, tracker, frame, torch, rows, label):
     walkers = int((terms[0] & terms[1]).sum())
     for spacing in (3.0, tracker.min_distance):
         min_distance = torch.tensor(spacing, device="cuda")
-        res_k = no_host_reads(act._activation_cuda, win, model, imm, min_distance)
+        res_k = no_host_reads(torch, act._activation_cuda, win, model, imm, min_distance)
         res_p = act._activation_plain(win, model, imm, min_distance)
         err = par.activation_errors(res_k, res_p, terms, min_distance, model)
         log(f"  K13 activation ({label}): {k} x {n} landmarks, {k} x {m} candidates, {walkers}"
@@ -572,12 +609,12 @@ def parity_keyframe(seq, tracker, frame, torch, rows, label):
     if label == "standart":
         cand = terms[4].reshape(-1, 2).contiguous()
         lm = torch.rand((err["n_active"], 2), device="cuda") * 600.0
-        lib = cuda_ms(torch, lambda: torch.cdist(cand, lm).min(dim=1))
+        lib = cuda_ms(lambda: torch.cdist(cand, lm).min(dim=1))
         log(f"  K13 yardstick ({label}): torch.cdist + min over {cand.shape[0]} x {lm.shape[0]}"
             f" points {lib:.4f} ms (the distance part only)")
     row("activation", max_abs_err=float(err["differ"]),
-        ms=cuda_ms(torch, lambda: act._activation_cuda(win, model, imm, min_distance)),
-        plain_ms=cuda_ms(torch, lambda: act._activation_plain(win, model, imm, min_distance),
+        ms=cuda_ms(lambda: act._activation_cuda(win, model, imm, min_distance)),
+        plain_ms=cuda_ms(lambda: act._activation_plain(win, model, imm, min_distance),
                          reps=5),
         **bound(nbytes(win.lm_uv, win.lm_idepth, win.lm_valid, *imm_in) + nbytes(*res_k[:2]),
                 OPS_ACTIVATION_PAIR * walkers * err["n_active"] + OPS_REPROJECT * k * (n + m)),
@@ -586,7 +623,7 @@ def parity_keyframe(seq, tracker, frame, torch, rows, label):
     # K14 — the refinement of what the plain version activates ...
     activate, delete = res_p[0], res_p[1]
     trace_k, trace_p = [], []
-    ref_k = no_host_reads(act._refine_idepth_cuda, win, model, imm, activate, cfg.huber_sigma,
+    ref_k = no_host_reads(torch, act._refine_idepth_cuda, win, model, imm, activate, cfg.huber_sigma,
                           act.REFINE_CAP, trace_k)
     ref_p = act._refine_idepth_plain(win, model, imm, activate, cfg.huber_sigma,
                                      act.REFINE_CAP, trace_p)
@@ -603,9 +640,9 @@ def parity_keyframe(seq, tracker, frame, torch, rows, label):
     points = err["selected"] * (frames - 1) * 8 * 4
     sampled = min(nbytes(win.maps) // 3, 48 * points)
     row("refine_idepth", max_abs_err=err["idepth_abs"],
-        ms=cuda_ms(torch, lambda: act._refine_idepth_cuda(win, model, imm, activate,
+        ms=cuda_ms(lambda: act._refine_idepth_cuda(win, model, imm, activate,
                                                           cfg.huber_sigma)),
-        plain_ms=cuda_ms(torch, lambda: act._refine_idepth_plain(win, model, imm, activate,
+        plain_ms=cuda_ms(lambda: act._refine_idepth_plain(win, model, imm, activate,
                                                                  cfg.huber_sigma), reps=5),
         **bound(nbytes(activate) + err["selected"] * 48 + sampled + 3 * nbytes(activate)
                 + nbytes(ref_k[0]), OPS_REFINE_POINT * points))
@@ -615,7 +652,7 @@ def parity_keyframe(seq, tracker, frame, torch, rows, label):
     delete = delete | (selected & ~keep)
     imm2 = imm._replace(idepth_min=torch.where(keep, idepth, imm.idepth_min),
                         idepth_max=torch.where(keep, idepth, imm.idepth_max))
-    sc_k = no_host_reads(act._activation_scatter_cuda, win, imm2, keep, delete)
+    sc_k = no_host_reads(torch, act._activation_scatter_cuda, win, imm2, keep, delete)
     sc_p = act._activation_scatter_plain(win, imm2, keep, delete)
     err = par.scatter_errors(sc_k, sc_p)
     log(f"  K14 activation_scatter ({label}): {err}")
@@ -623,8 +660,8 @@ def parity_keyframe(seq, tracker, frame, torch, rows, label):
     require(not any(err.values()), f"K14 ({label}): the pairing differs: {err}")
     moved = (win.lm_uv, win.lm_patch, win.lm_idepth, win.lm_valid, win.res_status)
     row("activation_scatter", max_abs_err=0.0,
-        ms=cuda_ms(torch, lambda: act._activation_scatter_cuda(win, imm2, keep, delete)),
-        plain_ms=cuda_ms(torch, lambda: act._activation_scatter_plain(win, imm2, keep, delete)),
+        ms=cuda_ms(lambda: act._activation_scatter_cuda(win, imm2, keep, delete)),
+        plain_ms=cuda_ms(lambda: act._activation_scatter_plain(win, imm2, keep, delete)),
         **bound(2 * nbytes(*moved) + nbytes(keep, delete, imm2.valid, imm2.valid)
                 + int(sc_p[2]) * 48, 4 * k * (n + m)))
 
@@ -636,7 +673,7 @@ def parity_keyframe(seq, tracker, frame, torch, rows, label):
     boundary = par.pixel_boundary_landmarks(win2, model)
     win2 = win2.replace(lm_valid=win2.lm_valid & ~boundary)
     args = (win2, model, tuple(maps), h, w, cfg.pyramid_levels, cfg.frontend_points)
-    out_k = no_host_reads(dm.build_frontend_state_cuda, *args)
+    out_k = no_host_reads(torch, dm.build_frontend_state_cuda, *args)
     out_p = dm.build_frontend_state_plain(*args)
     err = par.frontend_errors(out_k, out_p)
     log(f"  K16 depth_maps ({label}): {int(boundary.sum())} landmarks on a pixel boundary left"
@@ -653,13 +690,13 @@ def parity_keyframe(seq, tracker, frame, torch, rows, label):
     lib = None
     if label == "standart":
         flat = out_p[1][0].reshape(-1)
-        lib = cuda_ms(torch, lambda: torch.topk(flat, dm.FLOW_CAP))
+        lib = cuda_ms(lambda: torch.topk(flat, dm.FLOW_CAP))
         log(f"  K16 yardstick ({label}): torch.topk of {dm.FLOW_CAP} over level 0's"
             f" {flat.numel()} weights {lib:.4f} ms (one selection of six, no tie order)")
     row("depth_maps", max_abs_err=float(max((a - b).abs().max()
                                             for a, b in zip(out_k[0], out_p[0]))),
-        ms=cuda_ms(torch, lambda: dm.build_frontend_state_cuda(*args)),
-        plain_ms=cuda_ms(torch, lambda: dm.build_frontend_state_plain(*args), reps=10),
+        ms=cuda_ms(lambda: dm.build_frontend_state_cuda(*args)),
+        plain_ms=cuda_ms(lambda: dm.build_frontend_state_plain(*args), reps=10),
         **bound(nbytes(win2.lm_uv, win2.lm_idepth, win2.lm_valid) + nbytes(*out_k[0], *out_k[1])
                 + sum(nbytes(*pts) + 4 * pts.uv.shape[0] for pts in (*out_k[2], out_k[3])),
                 OPS_REPROJECT * k * n + OPS_DEPTH_CELL * cells),
@@ -711,8 +748,8 @@ def parity_ba(seq, tracker, torch, rows, label, every, min_frames, timed):
     if "ba_fej" in timed:
         row("ba_fej",
             max_abs_err=max(float((a - b).abs().max()) for a, b in zip(fej_k[:5], fej_p[:5])),
-            ms=cuda_ms(torch, lambda: pba._fej_cache_cuda(win, model)),
-            plain_ms=cuda_ms(torch, lambda: pba._fej_cache_plain(win, model)),
+            ms=cuda_ms(lambda: pba._fej_cache_cuda(win, model)),
+            plain_ms=cuda_ms(lambda: pba._fej_cache_plain(win, model)),
             **bound(nbytes(*win_in) + nbytes(*fej_k), OPS_FEJ_RESIDUAL * residuals))
 
     # K7
@@ -732,8 +769,8 @@ def parity_ba(seq, tracker, torch, rows, label, every, min_frames, timed):
         row("ba_evaluate",
             max_abs_err=float(torch.where(both, ev_k.residuals - ev_p.residuals,
                                           torch.zeros_like(ev_p.residuals)).abs().max()),
-            ms=cuda_ms(torch, lambda: pba._evaluate_cuda(*ev_args)),
-            plain_ms=cuda_ms(torch, lambda: pba._evaluate_plain(*ev_args)),
+            ms=cuda_ms(lambda: pba._evaluate_cuda(*ev_args)),
+            plain_ms=cuda_ms(lambda: pba._evaluate_plain(*ev_args)),
             **bound(nbytes(*win_in, eps, idepth, lm_mask, win.frame_valid, win.res_status)
                     + sampled + nbytes(*ev_k), OPS_EVALUATE_RESIDUAL * 8 * int(live.sum())))
 
@@ -753,9 +790,8 @@ def parity_ba(seq, tracker, torch, rows, label, every, min_frames, timed):
         f" {lm_blocks * (kb * kb + kb) * 8 / 1e6:.2f} MB")
     if "ba_linearize_schur" in timed:
         row("ba_linearize_schur", max_abs_err=err8,
-            ms=cuda_ms(torch, lambda: pba._linearize_from_ev_cuda(win, fej_p, ev_p, eps, opts)),
-            plain_ms=cuda_ms(torch,
-                             lambda: pba._linearize_from_ev_plain(win, fej_p, ev_p, eps, opts)),
+            ms=cuda_ms(lambda: pba._linearize_from_ev_cuda(win, fej_p, ev_p, eps, opts)),
+            plain_ms=cuda_ms(lambda: pba._linearize_from_ev_plain(win, fej_p, ev_p, eps, opts)),
             **bound(nbytes(*fej_p, ev_p.residuals, ev_p.weight, ev_p.gx, ev_p.gy, ev_p.ok, eps,
                            win.affine0, win.frame_valid, win.frame_fixed, win.frame_marg)
                     + nbytes(*sys_k),
@@ -797,13 +833,12 @@ def parity_ba(seq, tracker, torch, rows, label, every, min_frames, timed):
             " version in f64 arithmetic")
     if "ba_solve_step" in timed:
         h_full, b_full, _ = pba._assemble_step_system(filled, sys_p, eps, lam0)
-        yard = cuda_ms(torch, lambda: torch.linalg.solve_ex(h_full, b_full[:, None]))
+        yard = cuda_ms(lambda: torch.linalg.solve_ex(h_full, b_full[:, None]))
         log(f"  K9 yardstick ({label}): torch.linalg.solve_ex on the assembled {kb}x{kb}"
             f" system {yard:.4f} ms (the solve only)")
         row("ba_solve_step", max_abs_err=abs9,
-            ms=cuda_ms(torch, lambda: pba._solve_step_cuda(filled, sys_p, eps, idepth, lam0, opts)),
-            plain_ms=cuda_ms(torch,
-                             lambda: pba._solve_step_plain(filled, sys_p, eps, idepth, lam0, opts)),
+            ms=cuda_ms(lambda: pba._solve_step_cuda(filled, sys_p, eps, idepth, lam0, opts)),
+            plain_ms=cuda_ms(lambda: pba._solve_step_plain(filled, sys_p, eps, idepth, lam0, opts)),
             **bound(nbytes(sys_p.h_pose, sys_p.b_pose, sys_p.h_schur, sys_p.b_schur, sys_p.hpd,
                            sys_p.inv_hdd, sys_p.b_d, filled.h_marg, filled.b_marg, eps, idepth,
                            win.frame_valid) + nbytes(eps, idepth) + 8,
@@ -833,12 +868,12 @@ def parity_ba(seq, tracker, torch, rows, label, every, min_frames, timed):
         err10 = max(err10, err["translation"], err["rotation"])
     if "ba_lm" in timed:
         control, plain_control, moved_bytes = lm_control(pba, torch, filled, model, opts)
-        row("ba_lm", max_abs_err=err10, ms=cuda_ms(torch, control),
-            plain_ms=cuda_ms(torch, plain_control), **bound(moved_bytes, 4 * k * k * n))
+        row("ba_lm", max_abs_err=err10, ms=cuda_ms(control),
+            plain_ms=cuda_ms(plain_control), **bound(moved_bytes, 4 * k * k * n))
         log(f"  K10 whole solve ({label}, filled ledger): device-resident loop"
-            f" {cuda_ms(torch, lambda: pba._solve_loop_cuda(filled, model, opts), reps=10):.3f}"
+            f" {cuda_ms(lambda: pba._solve_loop_cuda(filled, model, opts), reps=10):.3f}"
             f" ms, host-driven loop"
-            f" {cuda_ms(torch, lambda: pba._solve_loop_plain(filled, model, opts), reps=10):.3f} ms")
+            f" {cuda_ms(lambda: pba._solve_loop_plain(filled, model, opts), reps=10):.3f} ms")
 
     # K11 — on K7's evaluation of the moved window
     ps_k = pba._point_status_from_ev_cuda(moved, ev_k, lm_mask, opts)
@@ -854,15 +889,142 @@ def parity_ba(seq, tracker, torch, rows, label, every, min_frames, timed):
         flat = torch.where(ev_k.ok, ev_k.energy_patch,
                            torch.full_like(ev_k.energy_patch, float("nan"))).reshape(-1)
         log(f"  K11 yardstick ({label}): torch.nanquantile over {flat.numel()} values"
-            f" {cuda_ms(torch, lambda: torch.nanquantile(flat, 0.75)):.4f} ms (the threshold only)")
+            f" {cuda_ms(lambda: torch.nanquantile(flat, 0.75)):.4f} ms (the threshold only)")
         row("ba_point_status", max_abs_err=float((ps_k.threshold - ps_p.threshold).abs()),
-            ms=cuda_ms(torch, lambda: pba._point_status_from_ev_cuda(moved, ev_k, lm_mask, opts)),
-            plain_ms=cuda_ms(torch,
-                             lambda: pba._point_status_from_ev_plain(moved, ev_k, lm_mask, opts)),
+            ms=cuda_ms(lambda: pba._point_status_from_ev_cuda(moved, ev_k, lm_mask, opts)),
+            plain_ms=cuda_ms(lambda: pba._point_status_from_ev_plain(moved, ev_k, lm_mask, opts)),
             **bound(nbytes(ev_k.energy_patch, ev_k.ok, ev_k.status_candidate, moved.t_lin_q,
                            moved.t_lin_t, moved.eps, moved.lm_idepth, lm_mask, moved.lm_baseline,
                            moved.lm_outlier, moved.lm_opt_count) + nbytes(*ps_k),
                     OPS_STATUS_GROUP * k * k * n))
+
+    parity_marg(tracker, {"empty ledger": empty, "filled ledger": filled}, torch, rows, label)
+
+
+def parity_marg(tracker, windows, torch, rows, label):
+    """K15p on the filled-ledger window of ``windows`` at the tracker's window
+    sizes and with the window one frame too large; K15 on both windows in the
+    flagging cases of ``parity.MARG_CASES``.  The kernels' rows of ``rows``
+    are the standart ones; the dense times are printed."""
+    from dsopp_tpu_torch.solvers import pba
+    from dsopp_tpu_torch.testing import parity as par
+    from dsopp_tpu_torch.tracker import marginalization as marg
+
+    cfg, model, opts = tracker.config, tracker.models[0], tracker.pba_opts
+    win = windows["filled ledger"]
+    k, n = win.num_slots, win.num_landmark_slots
+    kb = k * pba.BLOCK
+    frames = int(win.frame_valid.sum())
+    imm_counts = torch.sum(tracker.immature.valid, dim=1)
+
+    # K15p
+    flagged = 0
+    for lo, hi in ((cfg.window_min, cfg.window_max), (min(cfg.window_min, frames - 2), frames - 1)):
+        args = (win, imm_counts, lo, hi, cfg.max_marginalized_fraction)
+        out_k = no_host_reads(torch, marg.flags_device_cuda, *args)
+        out_p = marg.flags_device_plain(*args)
+        err = par.policy_errors(out_k, out_p, win, lo, hi)
+        log(f"  K15p marg_policy ({label}, window {lo}..{hi}, {frames} of {k} frames): {err}")
+        require(err["explained"],
+                f"K15p ({label}): outputs differ from the plain version beyond a score tie: {err}")
+        flagged += err["frames_flagged"]
+        policy_args, policy_out = args, out_k
+    require(flagged > 0, f"K15p ({label}): no frame was flagged")
+
+    # K15
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    timed_case = None
+    for ledger, start in windows.items():
+        for case, slots in par.marg_cases(start).items():
+            w, perm = par.marg_case(start, case, slots, gen)
+            lm = w.lm_marg_flag
+            h_pts, b_pts, e_land = pba._marg_system_kernel(w, model, opts)
+            fold = (w, h_pts.contiguous(), b_pts.contiguous(), e_land, perm, opts)
+            sweeps = torch.zeros(1, dtype=torch.int32, device="cuda")
+            out_k = no_host_reads(torch, pba._marginalize_cuda, *fold, sweeps)
+            again = pba._marginalize_cuda(*fold)
+            err = par.ledger_check(out_k, fold)
+            win_k = no_host_reads(torch, pba._marginalize_device, w, model, perm, opts)
+            win_p = pba._marginalize_with(pba._marginalize_plain, w, model, perm, opts)
+            same = all(torch.equal(getattr(win_k, f), getattr(win_p, f))
+                       for f in ("frame_valid", "frame_id", "lm_valid"))
+            log(f"  K15 marg_fold ({label}, {ledger}, {case}: slots {slots}, {int(lm.sum())}"
+                f" landmarks): H {err['H']:.2e} b {err['b']:.2e} E {err['E']:.2e} of the largest"
+                f" entry; {err['eigenvalues']} eigenvalues in {int(sweeps)} Jacobi sweeps, cutoff"
+                f" {err['cutoff']:.4g}, {err['dropped']} dropped, {err['ties']} within"
+                f" {par.CUTOFF_TIE} of it")
+            require(err["within"], f"K15 ({label}, {ledger}, {case}): the ledger differs from the"
+                    f" plain version's, with the cutoff at either edge of its tie band: {err}")
+            require(int(sweeps) < pba.MARG_MAX_SWEEPS,
+                    f"K15 ({label}, {ledger}, {case}): the Jacobi solver did not converge")
+            require(all(torch.equal(a, b) for a, b in zip(out_k, again)),
+                    f"K15 ({label}, {ledger}, {case}): two runs differ")
+            require(same, f"K15 ({label}, {ledger}, {case}): frame validity, ids or landmark"
+                    " validity differ")
+            if ledger == "filled ledger" and case == "one free frame":
+                timed_case = (fold, out_k, err["eigenvalues"])
+    def row(name, **fields):
+        if label == "standart":
+            rows[name] = fields
+        else:
+            log(f"  {name} ({label}): kernel {fields['ms']:.4f} ms, plain {fields['plain_ms']:.4f}"
+                f" ms, bound {fields['bound_ms']:.5f} ms ({fields['bound_by']})")
+
+    args = policy_args
+    poses_t = win.poses().t
+    row("marg_policy", **dict(
+        max_abs_err=max(float((a.long() - b.long()).abs().max())
+                        for a, b in zip(policy_out, marg.flags_device_plain(*args))),
+        ms=cuda_ms(lambda: marg.flags_device_cuda(*args)),
+        plain_ms=cuda_ms(lambda: marg.flags_device_plain(*args)),
+        **bound(nbytes(win.lm_valid, win.lm_outlier, win.lm_inliers, win.lm_opt_count,
+                       win.frame_valid, win.frame_id, imm_counts, poses_t) + 4 * k * n
+                + nbytes(*policy_out), OPS_POLICY_LANDMARK * k * n + OPS_POLICY_PAIR * k * k),
+        library_ms=None))
+    fold, out_k, m_rows = timed_case
+    w = fold[0]
+    # the library's pseudo-inverse of the padded block, as the plain version calls it
+    from dsopp_tpu_torch.solvers.linear import pinv_hermitian
+    hm, mrow = par.folded_ledger(w, fold[1], opts)
+    h_ee = torch.where(mrow[:, None] & mrow[None, :], hm,
+                       torch.eye(kb, dtype=hm.dtype, device=hm.device))
+    lib = cuda_ms(lambda: pinv_hermitian(h_ee), reps=10)
+    log(f"  K15 yardstick ({label}): torch.linalg.pinv(hermitian=True) of the padded {kb}x{kb}"
+        f" block {lib:.4f} ms (the pseudo-inverse only)")
+    ops = (6 * kb * kb + OPS_EIGEN * m_rows ** 3 + 6 * m_rows ** 3 + 2 * kb * m_rows ** 2
+           + 4 * kb * kb * m_rows + 2 * kb * m_rows)
+    row("marg_fold", **dict(
+        max_abs_err=max(float((a - b).abs().max()) for a, b in zip(out_k, pba._marginalize_plain(*fold))),
+        ms=cuda_ms(lambda: pba._marginalize_cuda(*fold)),
+        plain_ms=cuda_ms(lambda: pba._marginalize_plain(*fold), reps=10),
+        **bound(nbytes(*fold[1:4], w.eps, w.affine0, w.frame_valid, w.frame_fixed, w.frame_marg,
+                       fold[4], w.h_marg, w.b_marg, w.energy_marg) + nbytes(*out_k), ops,
+              PEAK_FLOPS_F64),
+        library_ms=lib))
+
+
+def parity_gather(torch, rows):
+    """The row gather at the probe's shapes, f32 (its row) and bf16, equal to
+    ``table[idx]`` to the bit; ``torch.index_select`` as the yardstick."""
+    from dsopp_tpu_torch.testing import gather_probe as gp
+
+    table, table_bf, idx = gp.probe_inputs("cuda")
+    for name, tab in (("f32", table), ("bf16", table_bf)):
+        gp.row_gather(tab, idx)       # the range check reads the device once
+        out_k = no_host_reads(torch, gp.row_gather_cuda, tab, idx)
+        out_p = gp.row_gather_plain(tab, idx)
+        require(torch.equal(out_k, out_p), f"row gather ({name}): differs from table[idx]")
+        fields = dict(
+            max_abs_err=float((out_k.float() - out_p.float()).abs().max()), ms=cuda_ms(lambda: gp.row_gather_cuda(tab, idx)),
+            plain_ms=cuda_ms(lambda: gp.row_gather_plain(tab, idx)),
+            bound_ms=gp.bound_ms(tab, idx, PEAK_BYTES), bound_by="bytes",
+            library_ms=cuda_ms(lambda: torch.index_select(tab, 0, idx)))
+        log(f"  row_gather ({name}): {idx.numel()} rows of {tab.shape[1]} from a {tab.shape[0]}-row"
+            f" table, equal to table[idx]; kernel {fields['ms']:.4f} ms, plain"
+            f" {fields['plain_ms']:.4f} ms, torch.index_select {fields['library_ms']:.4f} ms, bound"
+            f" {fields['bound_ms']:.5f} ms")
+        if name == "f32":
+            rows["row_gather"] = fields
 
 
 def lm_control(pba, torch, window, model, opts):
@@ -904,7 +1066,7 @@ def track(seq, name, torch, kernels):
     from dsopp_tpu_torch.testing.paths import (INIT_FRAMES, MASK_FIRST_INVALID_ROW, bootstrap,
                                                closed_gate, path_config, path_frames,
                                                path_mask)
-    from dsopp_tpu_torch.tracker import fused_keyframe
+    from dsopp_tpu_torch.tracker import device_loop, fused_keyframe
     from dsopp_tpu_torch.tracker.device_loop import PipelinedTracker, device_tick
 
     last = path_frames(name)
@@ -913,7 +1075,9 @@ def track(seq, name, torch, kernels):
     kf_boot = tracker.num_keyframes
     pipe = PipelinedTracker(tracker, flush_every=16)
     poses, gate_ratios, escalations, solves, keyframes = [], [], 0, [0], []
+    folds = [0]
     solve_loop = fused_keyframe._solve_loop_device
+    flags, marginalize = device_loop.flags_device, device_loop._marginalize_device
 
     def solve_without_host_reads(window, model, opts):
         """The keyframe's BA solve with every host synchronisation an error."""
@@ -925,9 +1089,25 @@ def track(seq, name, torch, kernels):
         solves[0] += 1
         return out
 
+    def flags_without_host_reads(*args):
+        """The policy opens the span that the ledger fold closes: from the
+        policy through the fold, every host synchronisation is an error."""
+        torch.cuda.set_sync_debug_mode("error")
+        return flags(*args)
+
+    def marginalize_without_host_reads(*args):
+        try:
+            out = marginalize(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        folds[0] += 1
+        return out
+
     torch.cuda.synchronize()
     kernels.reset_counts()
     fused_keyframe._solve_loop_device = solve_without_host_reads
+    device_loop.flags_device = flags_without_host_reads
+    device_loop._marginalize_device = marginalize_without_host_reads
     try:
         t0 = time.perf_counter()
         for i in range(INIT_FRAMES, last):
@@ -941,7 +1121,9 @@ def track(seq, name, torch, kernels):
         torch.cuda.synchronize()
         elapsed = time.perf_counter() - t0
     finally:
+        torch.cuda.set_sync_debug_mode("default")
         fused_keyframe._solve_loop_device = solve_loop
+        device_loop.flags_device, device_loop._marginalize_device = flags, marginalize
     pipe.finalize()
     counts = kernels.counts()
     win = tracker.window
@@ -959,7 +1141,7 @@ def track(seq, name, torch, kernels):
                  # tracked frame has no reliable rmse before it yet
                  gate_ratio=float(torch.stack(gate_ratios[1:]).max()),
                  rmse=float(np.sqrt(np.mean(errs ** 2))), max_err=float(errs.max()),
-                 counts=counts, ba_solves=solves[0],
+                 counts=counts, ba_solves=solves[0], marg_spans=folds[0],
                  window_frames=int(win.frame_valid.sum()),
                  active_landmarks=int((win.lm_valid & ~win.lm_outlier
                                        & win.frame_valid[:, None]).sum()),
@@ -990,6 +1172,36 @@ def track(seq, name, torch, kernels):
     return stats, force_escalation
 
 
+def track_reference(seq, name, torch):
+    """Path ``name`` in float64 on the CPU (the plain versions): the bootstrap,
+    then PipelinedTracker over the frames after it → the per-frame tracked
+    positions' error against ground truth, marginalized keyframes, seconds."""
+    from dsopp_tpu_torch.testing.paths import INIT_FRAMES, bootstrap, path_config, path_frames
+    from dsopp_tpu_torch.tracker.device_loop import PipelinedTracker
+
+    last = path_frames(name)
+    # a fixed thread count: the CPU's reductions split by it, and this run
+    # is chaotic in its last bits (tests/tracker/test_ledger_drift_tracker.py)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(LEDGER_CPU_THREADS)
+    t0 = time.perf_counter()
+    try:
+        tracker = bootstrap(seq, path_config(name), dtype=torch.float64, device="cpu")
+        kf_boot = tracker.num_keyframes
+        pipe = PipelinedTracker(tracker, flush_every=16)
+        poses = [pipe.tick(i, float(seq.timestamps[i]), seq.images[i]).pose_t
+                 for i in range(INIT_FRAMES, last)]
+        pipe.finalize()
+    finally:
+        torch.set_num_threads(threads)
+    est = torch.stack(poses).numpy()
+    require(np.all(np.isfinite(est)), "non-finite tracked poses (f64 on the CPU)")
+    errs = np.linalg.norm(est - seq.poses_t[INIT_FRAMES:last], axis=-1)
+    return dict(rmse=float(np.sqrt(np.mean(errs ** 2))), max_err=float(errs.max()),
+                keyframes=tracker.num_keyframes - kf_boot,
+                marginalized=len(tracker.track.marginalized), seconds=time.perf_counter() - t0)
+
+
 def report(label, st, card, seconds):
     log(f"[{label}] per keyframe (frame, n_active, n_activated, min_distance after it): "
         + " ".join(f"({i}, {a}, {b}, {c})" for i, a, b, c in st["per_keyframe"]))
@@ -998,8 +1210,8 @@ def report(label, st, card, seconds):
         f" {st['gate_ratio']:.3f} of the gate's 2.5),"
         f" {st['marginalized']} marginalized, aligned ATE RMSE {st['ate_rmse']:.5f} m"
         f" max {st['ate_max']:.5f} m (scale {st['scale']:.4f}), unaligned RMSE"
-        f" {st['rmse']:.5f} m max {st['max_err']:.5f} m, {st['ba_solves']} BA solves without a"
-        f" host read, window at the last frame {st['window_frames']} frames and"
+        f" {st['rmse']:.5f} m max {st['max_err']:.5f} m, {st['ba_solves']} BA solves and"
+        f" {st['marg_spans']} policy-to-fold spans without a host read, window at the last frame {st['window_frames']} frames and"
         f" {st['active_landmarks']} active landmarks, peak device memory"
         f" {st['peak_memory_mb']:.1f} MB, launches {st['counts']} | {card}"
         f" ({seconds:.2f} s with bootstrap)")
@@ -1010,6 +1222,11 @@ def report(label, st, card, seconds):
     require(st["keyframes"] >= 3, f"[{label}] only {st['keyframes']} keyframes after bootstrap")
     require(st["ba_solves"] == st["keyframes"],
             f"[{label}] {st['ba_solves']} BA solves for {st['keyframes']} keyframes")
+    once = [name for name in ONCE_PER_KEYFRAME if st["counts"][name] != st["keyframes"]]
+    require(not once, f"[{label}] not launched once per keyframe: {once}")
+    require(st["marg_spans"] == st["keyframes"],
+            f"[{label}] {st['marg_spans']} policy-to-fold spans without a host read for"
+            f" {st['keyframes']} keyframes")
 
 
 def main():
@@ -1112,15 +1329,42 @@ def main():
                 f"masked ATE RMSE {sm['ate_rmse']:.5f} m >= {RMSE_GATE}")
         require(sm["ate_max"] < MAX_GATE, f"masked ATE max {sm['ate_max']:.5f} m >= {MAX_GATE}")
         require(abs(sm["scale"] - 1.0) < SCALE_GATE, f"masked alignment scale {sm['scale']:.4f}")
+
+        # the ledger path: one rendering in f64, the card's f32 run and the
+        # plain versions' f64 run on the CPU on the same frames
+        t0 = time.perf_counter()
+        seq64 = paths.render_path("ledger", torch.float64, "cpu")
+        seq_card = dataclasses.replace(seq64, images=seq64.images.to("cuda", torch.float32))
+        log(f"[render-ledger] {paths.SEQUENCES['ledger']}, {paths.SIZES['ledger']}"
+            f" ({time.perf_counter() - t0:.2f} s)")
+        t0 = time.perf_counter()
+        sl, _ = track(seq_card, "ledger", torch, kernels)
+        report("track-ledger", sl, card, time.perf_counter() - t0)
+        ref = track_reference(seq64, "ledger", torch)
+        log(f"[track-ledger] float64 on the CPU (plain versions, {LEDGER_CPU_THREADS}"
+            f" threads): {ref['keyframes']} keyframes, {ref['marginalized']} marginalized,"
+            f" unaligned RMSE {ref['rmse']:.5f} m max {ref['max_err']:.5f} m in"
+            f" {ref['seconds']:.2f} s; the card in f32: {sl['marginalized']} marginalized,"
+            f" unaligned RMSE {sl['rmse']:.5f} m max {sl['max_err']:.5f} m")
+        for run, st_run in (("card f32", sl), ("CPU f64", ref)):
+            require(st_run["marginalized"] >= LEDGER_MIN_FOLDS,
+                    f"ledger ({run}): only {st_run['marginalized']} marginalized keyframes")
+        # the f64 run's own RMSE is printed, not gated: it moves by ~0.15 m with
+        # the host's CPU and BLAS (PERF.md), with no code of the port changed
+        require(sl["rmse"] < LEDGER_RMSE_GATE,
+                f"ledger (card f32): RMSE {sl['rmse']:.5f} m >= {LEDGER_RMSE_GATE}")
+        require(sl["rmse"] < ref["rmse"] + LEDGER_MARGIN,
+                f"ledger: card RMSE {sl['rmse']:.5f} m >= f64 {ref['rmse']:.5f} + {LEDGER_MARGIN}")
     except SmokeError as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
 
     result = {"kernels": [
         dict(name=name, route="cuda", source=SOURCES[name][0], replaces=SOURCES[name][1],
-             launches=sum(run["counts"][name] for run in (st, sf, sd, sm)),
+             launches=sum(run["counts"][name] for run in (st, sf, sd, sm, sl)),
              launches_track=st["counts"][name], launches_track_fast=sf["counts"][name],
              launches_track_dense=sd["counts"][name], launches_track_masked=sm["counts"][name],
+             launches_track_ledger=sl["counts"][name],
              **rows[name]) for name in SOURCES]}
     print(json.dumps(result))
     print(card)

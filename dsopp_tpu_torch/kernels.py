@@ -36,6 +36,7 @@ NVCC_FLAGS = [
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_D = ctypes.c_double
 
 _lib = None
 
@@ -175,9 +176,16 @@ ACTIVATION_SCATTER = Kernel("activation_scatter", "activation_scatter",
                             [_P] * 7 + [_I] * 3 + [_P] * 8)
 DEPTH_MAPS = Kernel("depth_maps", "depth_maps",
                     [_P] * 5 + [_I, _I] + [_F] * 6 + [_I] * 5 + [_P] * 15)
+# K15: the marginalization policy and the ledger fold, once per keyframe each
+MARG_POLICY = Kernel("marg_policy", "marg_policy",
+                     [_P] * 9 + [_I] * 4 + [_F] + [_P] * 4)
+MARG_FOLD = Kernel("marg_fold", "marg_fold",
+                   [_P] * 12 + [_I, _D, _F, _F, _F] + [_P] * 5)
+# the row gather of the Pallas design probe (off the tracker's paths)
+ROW_GATHER = Kernel("row_gather", "row_gather", [_P, _P, _I, _I, _I, _P])
 ALL = (PYRAMID, ALIGN, ALIGN_LEVEL, EPIPOLAR, FLOW, BA_FEJ, BA_EVALUATE, BA_LINEARIZE,
        BA_SOLVE, BA_LM, BA_STATUS, SELECT_CANDIDATES, ACTIVATION, REFINE, ACTIVATION_SCATTER,
-       DEPTH_MAPS)
+       DEPTH_MAPS, MARG_POLICY, MARG_FOLD, ROW_GATHER)
 
 
 def reset_counts():

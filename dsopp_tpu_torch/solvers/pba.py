@@ -14,14 +14,15 @@ Target values and gradients are read from the frames' intensity images with
 the 10×10-window semantics of :func:`sample_window` (one window per
 (anchor, target, landmark) group, based at the reprojected pattern center).
 
-Six functions have a hand-written CUDA kernel beside their plain PyTorch
+Seven functions have a hand-written CUDA kernel beside their plain PyTorch
 version and dispatch on ``window.maps.is_cuda``: :func:`_fej_cache` (K6,
 ``csrc/ba_fej.cu``), :func:`_evaluate` (K7, ``csrc/ba_evaluate.cu``),
 :func:`_linearize_from_ev` (K8, ``csrc/ba_linearize.cu``),
 :func:`_solve_step` (K9, ``csrc/ba_solve.cu``), :func:`_solve_loop_device`
-(K10, ``csrc/ba_lm.cu``) and :func:`_point_status_kernel` (K11,
-``csrc/ba_status.cu``).  CUDA tensors go to the kernel or raise; the plain
-versions run on CPU tensors only.
+(K10, ``csrc/ba_lm.cu``), :func:`_point_status_kernel` (K11,
+``csrc/ba_status.cu``) and the ledger fold of :func:`_marginalize_device`
+(K15, ``csrc/marg_fold.cu``).  CUDA tensors go to the kernel or raise; the
+plain versions run on CPU tensors only.
 
 On the card the LM loop keeps its state — energy, count, regularizer,
 iteration, accept / done / relinearize flags — in eight words of device
@@ -42,7 +43,7 @@ from dsopp_tpu_torch.core.interpolate import pad_images, sample_window, window_b
 from dsopp_tpu_torch.core.lie import SE3
 from dsopp_tpu_torch.core.pattern import PATTERN_CENTER, shift_pattern
 from dsopp_tpu_torch.core.reproject import reproject, reproject_jacobian
-from dsopp_tpu_torch.solvers.linear import pinv_hermitian, solve
+from dsopp_tpu_torch.solvers.linear import pinv_hermitian, pinv_rtol, solve
 from dsopp_tpu_torch.solvers.measure import huber_energy_weight
 
 RES_OK = 0
@@ -914,24 +915,24 @@ def _permute_window(window: Window, perm, drop_marg) -> Window:
         res_status=window.res_status[perm][:, perm], maps=window.maps[perm])
 
 
-def _marginalize_device(window: Window, model, perm, opts: PBAOptions) -> Window:
-    """Fold flagged landmarks and frames into the float64 ledger, then
-    compact the frame slots by ``perm``.
+def _marginalize_plain(window: Window, h_pts, b_pts, e_land, perm, opts: PBAOptions,
+                       pinv=pinv_hermitian):
+    """The ledger fold of a marginalization → the new (H_m, b_m, E_m), float64.
 
-    Landmarks: H_m += H_pts, b_m += b_pts − H_pts·ε, E_m += E + εᵀH_ptsε −
-    εᵀb_pts (DSO eq 8.15).  Frames: their priors are folded, then their
-    blocks are Schur-eliminated (pseudo-inverse + one Newton step)."""
+    ``h_pts``, ``b_pts``, ``e_land``: the flagged landmarks' system
+    (:func:`_marg_system_kernel`); ``pinv``: the pseudo-inverse of the
+    identity-padded flagged block (the reference's cutoff by default).  Landmarks: H_m += H_pts, b_m += b_pts −
+    H_pts·ε, E_m += E + εᵀH_ptsε − εᵀb_pts (DSO eq 8.15).  Frames: their
+    priors are folded, then their blocks are Schur-eliminated (pseudo-inverse
+    + one Newton step); the kept blocks are permuted by ``perm``."""
     ld = LEDGER_DTYPE
     s = window.eps.reshape(-1).to(ld)
-    h_pts, b_pts, e_land = _marg_system_kernel(window, model, opts)
     h_pts = h_pts.to(ld)
     h_pts = 0.5 * (h_pts + h_pts.T)
     b_pts = b_pts.to(ld)
     e_m = window.energy_marg + ((e_land.to(ld) + s @ (h_pts @ s)) - s @ b_pts)
     h_m = window.h_marg + h_pts
     b_m = window.b_marg + (b_pts - h_pts @ s)
-    window = window.replace(lm_valid=window.lm_valid & ~window.lm_marg_flag,
-                            lm_marg_flag=torch.zeros_like(window.lm_marg_flag))
 
     h_pr, b_pr = _prior_system(window, window.eps, opts, marg_pass=True)
     h_pr, b_pr = h_pr.to(ld), b_pr.to(ld)
@@ -943,7 +944,7 @@ def _marginalize_device(window: Window, model, perm, opts: PBAOptions) -> Window
     eye = torch.eye(kb, dtype=ld, device=h_m.device)
     zero = torch.zeros_like(h_m)
     h_ee = torch.where(marg[:, None] & marg[None, :], h_m, eye)
-    x0 = pinv_hermitian(h_ee)
+    x0 = pinv(h_ee)
     h_ee_inv = x0 + x0 @ (eye - h_ee @ x0)
     h_ke = torch.where(keep[:, None] & marg[None, :], h_m, zero)
     corr = h_ke @ h_ee_inv
@@ -952,8 +953,73 @@ def _marginalize_device(window: Window, model, perm, opts: PBAOptions) -> Window
     b_k = torch.where(keep, b_m, torch.zeros_like(b_m)) - corr @ b_e
     h_kk = 0.5 * (h_kk + h_kk.T)
     idx = (perm[:, None] * BLOCK + torch.arange(BLOCK, device=perm.device)[None, :]).reshape(-1)
+    return h_kk[idx][:, idx], b_k[idx], e_m
+
+
+def _marginalize_cuda(window: Window, h_pts, b_pts, e_land, perm, opts: PBAOptions,
+                      sweeps=None):
+    """Kernel K15: same outputs as :func:`_marginalize_plain`, read nothing
+    on the host (the number of flagged frames stays on the device).
+    ``sweeps``, an int32 [1] CUDA tensor or None, receives the number of
+    Jacobi sweeps that rotated: ``MARG_MAX_SWEEPS`` when the decomposition
+    did not converge."""
+    k = window.num_slots
+    kb = k * BLOCK
+    check = kernels.check
+    check(h_pts, "h_pts", (kb, kb))
+    check(b_pts, "b_pts", (kb,))
+    check(e_land, "e_land", ())
+    check(window.eps, "eps", (k, BLOCK))
+    check(window.affine0, "affine0", (k, 2))
+    for name in ("frame_valid", "frame_fixed", "frame_marg"):
+        check(getattr(window, name), name, (k,), torch.bool)
+    check(perm, "perm", (k,), torch.int64)
+    check(window.h_marg, "h_marg", (kb, kb), LEDGER_DTYPE)
+    check(window.b_marg, "b_marg", (kb,), LEDGER_DTYPE)
+    check(window.energy_marg, "energy_marg", (), LEDGER_DTYPE)
+    kw = dict(dtype=LEDGER_DTYPE, device=window.eps.device)
+    h_out, b_out, e_out = (torch.empty((kb, kb), **kw), torch.empty((kb,), **kw),
+                           torch.empty((), **kw))
+    scratch = torch.empty((_marg_scratch_words(k),), **kw)
+    if sweeps is not None:
+        check(sweeps, "sweeps", (1,), torch.int32)
+    kernels.MARG_FOLD(h_pts, b_pts, e_land, window.eps, window.affine0, window.frame_valid,
+                      window.frame_fixed, window.frame_marg, perm, window.h_marg,
+                      window.b_marg, window.energy_marg, k, pinv_rtol(kb),
+                      float(opts.fixed_reg), float(opts.affine_reg_a),
+                      float(opts.affine_reg_b), scratch, h_out, b_out, e_out, sweeps)
+    return h_out, b_out, e_out
+
+
+MARG_MAX_SWEEPS = 40   # csrc/marg_fold.cu kMaxSweeps
+
+
+def _marg_scratch_words(k: int) -> int:
+    """float64 words of kernel K15's scratch (csrc/marg_fold.cu): H_m [8k, 8k],
+    b_m [8k], five [n, n] matrices (the compact block, its eigenvectors, X0,
+    I − H_ee X0, X) and the correction [8k, n], for n = 8(k − 1) flagged rows
+    at most."""
+    kb, n = k * BLOCK, (k - 1) * BLOCK
+    return kb * kb + kb + 5 * n * n + kb * n
+
+
+def _marginalize_device(window: Window, model, perm, opts: PBAOptions) -> Window:
+    """Fold flagged landmarks and frames into the float64 ledger, then
+    compact the frame slots by ``perm``: the fold is kernel K15 on CUDA
+    tensors, the plain version on CPU ones.  Nothing is read on the host."""
+    fold = _marginalize_cuda if window.maps.is_cuda else _marginalize_plain
+    return _marginalize_with(fold, window, model, perm, opts)
+
+
+def _marginalize_with(fold, window: Window, model, perm, opts: PBAOptions) -> Window:
+    """:func:`_marginalize_device` with the ledger fold ``fold``
+    (:func:`_marginalize_cuda` or :func:`_marginalize_plain`)."""
+    h_pts, b_pts, e_land = _marg_system_kernel(window, model, opts)
+    h_m, b_m, e_m = fold(window, h_pts.contiguous(), b_pts.contiguous(), e_land, perm, opts)
+    window = window.replace(lm_valid=window.lm_valid & ~window.lm_marg_flag,
+                            lm_marg_flag=torch.zeros_like(window.lm_marg_flag))
     window = _permute_window(window, perm, window.frame_marg & window.frame_valid)
-    return window.replace(h_marg=h_kk[idx][:, idx], b_marg=b_k[idx], energy_marg=e_m)
+    return window.replace(h_marg=h_m, b_marg=b_m, energy_marg=e_m)
 
 
 def slot_mask(num_slots: int, slot, device):

@@ -12,10 +12,13 @@ import torch
 from dsopp_tpu_torch.core.lie import SE3, quat_conjugate, quat_multiply
 from dsopp_tpu_torch.core.reproject import reproject
 from dsopp_tpu_torch.features.pyramid import build_pyramid_maps
-from dsopp_tpu_torch.solvers.pba import frame_count, push_frame_slot
+from dsopp_tpu_torch.solvers.linear import pinv_rtol
+from dsopp_tpu_torch.solvers.pba import (BLOCK, RES_OOB, _marginalize_plain, _prior_system,
+                                         frame_count, push_frame_slot)
 from dsopp_tpu_torch.tracker.depth_estimation import estimate_depths
 from dsopp_tpu_torch.tracker.depth_map import _older_landmarks
 from dsopp_tpu_torch.tracker.fused_keyframe import immature_bank, set_bank
+from dsopp_tpu_torch.tracker.marginalization import eq20_scores, kept_first_perm, landmark_triage
 
 
 def to_f64(obj):
@@ -391,3 +394,154 @@ def frontend_errors(out_k, out_p) -> dict:
                         for a, b in sets)
     out["intensity"] = max(float((a.intensity - b.intensity).abs().max()) for a, b in sets)
     return out
+
+
+LEDGER_TOL = 1e-9   # K15: ledger entries relative to the largest one
+CUTOFF_TIE = 1e-6   # K15: an eigenvalue this close (relative) to the cutoff may fall either side
+POLICY_TIE = 1e-6   # K15p: top two eq (20) scores this close (relative) may pick either frame
+
+
+def ledger_errors(out_k, out_p) -> dict:
+    """K15 ``(H_m, b_m, E_m)`` against the plain version's: the largest
+    difference of each relative to the plain version's largest entry."""
+    out = {}
+    for name, a, b in zip(("H", "b", "E"), out_k, out_p):
+        a, b = a.double(), b.double()
+        out[name] = float((a - b).abs().max() / b.abs().max().clamp(min=1e-300))
+    return out
+
+
+def folded_ledger(window, h_pts, opts):
+    """The ledger with the landmark system and the flagged frames' priors
+    folded in, f64 on the window's device, as K15 eliminates it → (H_m, the
+    flagged rows [8K] bool)."""
+    h_pr, _ = _prior_system(window, window.eps, opts, marg_pass=True)
+    h = h_pts.double()
+    hm = window.h_marg + 0.5 * (h + h.T) + h_pr.double()
+    return hm, torch.repeat_interleave(window.frame_valid & window.frame_marg, BLOCK)
+
+
+def cutoff_ties(window, h_pts, opts, band: float = CUTOFF_TIE) -> dict:
+    """The flagged rows' block of :func:`folded_ledger` (f64 on the CPU) → its
+    eigenvalue count, the cutoff of the identity-padded matrix, the
+    eigenvalues it drops and those within ``band`` (relative) of it."""
+    hm, rows = folded_ledger(window, h_pts, opts)
+    hm, rows = hm.cpu(), rows.cpu()
+    lam = torch.linalg.eigvalsh(hm[rows][:, rows]) if bool(rows.any()) else torch.zeros(0)
+    top = max(1.0, float(lam.abs().max())) if lam.numel() else 1.0
+    cutoff = pinv_rtol(hm.shape[0]) * top
+    return dict(eigenvalues=int(lam.numel()), cutoff=cutoff,
+                dropped=int((lam.abs() <= cutoff).sum()),
+                ties=int(((lam.abs() - cutoff).abs() <= band * cutoff).sum()))
+
+
+def pinv_cut(cutoff: float):
+    """The pseudo-inverse of a symmetric matrix that drops |λ| ≤ ``cutoff``
+    (absolute) and inverts the rest with their sign."""
+    def pinv(a):
+        lam, v = torch.linalg.eigh(a)
+        inv = torch.where(lam.abs() > cutoff, 1.0 / torch.where(lam == 0, 1.0, lam),
+                          torch.zeros_like(lam))
+        return (v * inv) @ v.T
+    return pinv
+
+
+def ledger_check(out_k, fold, band: float = CUTOFF_TIE) -> dict:
+    """K15's ``out_k`` against the plain fold of ``fold`` (its arguments) →
+    :func:`ledger_errors`, :func:`cutoff_ties`, and ``within``: every error
+    ≤ ``LEDGER_TOL``, or, where eigenvalues tie the cutoff, every error ≤
+    ``LEDGER_TOL`` against the plain fold with the cutoff moved to either
+    edge of the band, which drops or keeps every tied eigenvalue."""
+    window, h_pts, opts = fold[0], fold[1], fold[5]
+    out = ledger_errors(out_k, _marginalize_plain(*fold))
+    ties = cutoff_ties(window, h_pts, opts, band)
+    within = max(out.values()) <= LEDGER_TOL
+    if not within and ties["ties"]:
+        for cut in (ties["cutoff"] * (1 + band), ties["cutoff"] * (1 - band)):
+            alt = ledger_errors(out_k, _marginalize_plain(*fold, pinv=pinv_cut(cut)))
+            within = within or max(alt.values()) <= LEDGER_TOL
+    out.update(ties, within=within)
+    return out
+
+
+def policy_errors(out_k, out_p, window, minimum_size: int, maximum_size: int,
+                  band: float = POLICY_TIE) -> dict:
+    """K15p ``(frame_flags, lm_flags, new_outliers, perm)`` against the plain
+    version's → entries that differ; ``score_tie``: the two largest eq (20)
+    scores (the plain version's arithmetic) within ``band`` (relative); and
+    ``explained``: nothing differs, or the scores tie, the frame flags differ
+    only on those two slots (as many flagged), and the landmark triage and
+    the permutation are the plain version's for the kernel's frame flags."""
+    top = torch.topk(eq20_scores(window).double(), 2)
+    names = ("frame_flags_differ", "lm_flags_differ", "outliers_differ", "perm_differ")
+    out = {name: int((a != b).sum()) for name, a, b in zip(names, out_k, out_p)}
+    out["frames_flagged"] = int(out_p[0].sum())
+    out["lm_flagged"] = int(out_p[1].sum())
+    hi, lo = (float(v) for v in top.values)
+    out["score_tie"] = bool(hi - lo <= band * abs(hi) and hi > 0)
+    explained = not any(out[name] for name in names)
+    if not explained and out["score_tie"]:
+        moved = out_k[0] != out_p[0]
+        moved[top.indices] = False
+        lm, outliers = landmark_triage(window, out_k[0], minimum_size, maximum_size)
+        explained = (not bool(moved.any()) and int(out_k[0].sum()) == int(out_p[0].sum())
+                     and torch.equal(lm, out_k[1]) and torch.equal(outliers, out_k[2])
+                     and torch.equal(kept_first_perm(window.frame_valid, out_k[0]), out_k[3]))
+    out["explained"] = explained
+    return out
+
+
+def cuda_ms(fn, reps: int = 50) -> float:
+    """Mean time of ``fn`` per call over ``reps`` calls after 3 warm ones,
+    between two CUDA events (the host work of ``fn`` included)."""
+    for _ in range(3):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+# K15's flagging cases: "a dead frame" keeps no live landmark and sees none
+# (its block holds the priors and the ledger only: rank 2 on an empty ledger)
+MARG_CASES = ("no frame", "one free frame", "two frames", "the fixed frame", "a dead frame")
+
+
+def marg_cases(window) -> dict:
+    """{case of ``MARG_CASES``: the slots it flags} on ``window``: free frames
+    older than the newest one, and slot 0 for the fixed frame (made fixed
+    where it is not)."""
+    frames = int(window.frame_valid.sum())
+    is_fixed = (window.frame_fixed & window.frame_valid).tolist()
+    free = [i for i in range(frames - 1) if not is_fixed[i]]
+    fixed = [i for i in range(frames) if is_fixed[i]]
+    return {"no frame": [], "one free frame": free[:1], "two frames": free[:2],
+            "the fixed frame": fixed[:1] or [0], "a dead frame": free[-1:]}
+
+
+def marg_case(window, case: str, slots, gen):
+    """``window`` with the frames ``slots`` of ``case`` flagged, their live
+    landmarks and a random quarter (``gen``) of the others' flagged → (window,
+    the kept-first permutation).  The fixed frame's eps is zero; a dead
+    frame's landmarks are dropped and every residual into it is out of
+    bounds."""
+    k, n = window.num_slots, window.num_landmark_slots
+    dev = window.eps.device
+    marg = torch.zeros(k, dtype=torch.bool, device=dev)
+    marg[list(slots)] = True
+    none = torch.zeros_like(marg)
+    fixed = window.frame_fixed | (marg if case == "the fixed frame" else none)
+    dead = marg if case == "a dead frame" else none
+    lm_valid = window.lm_valid & ~dead[:, None]
+    res_status = torch.where(dead[None, :, None], RES_OOB, window.res_status).to(torch.int32)
+    live = lm_valid & ~window.lm_outlier
+    lm = live & (marg[:, None] | (torch.rand((k, n), generator=gen, device=dev) < 0.25))
+    eps = torch.where(fixed[:, None], torch.zeros_like(window.eps), window.eps)
+    w = window.replace(frame_marg=marg, frame_fixed=fixed, lm_marg_flag=lm, lm_valid=lm_valid,
+                       res_status=res_status, eps=eps.contiguous())
+    return w, kept_first_perm(w.frame_valid, marg)

@@ -1,11 +1,14 @@
-"""The four paths that ``chip_smoke.py`` and ``profile_track`` drive on the
+"""The five paths that ``chip_smoke.py`` and ``profile_track`` drive on the
 card, so that both run the same configuration: the corridor of the JAX
 package's bench and its fast-motion corridor at the bench's standart.yaml
 operating point, the corridor again at its dense.yaml operating point (17
 frame slots × 340 landmarks), and the first 66 frames of the corridor at the
 standart point under a static CameraMask whose lower quarter is invalid (a
-rig that sees a part of itself, such as a vehicle's bonnet), all at VGA, each
-after a known-pose bootstrap."""
+rig that sees a part of itself, such as a vehicle's bonnet), all at VGA,
+and the long-horizon ledger case of
+``tests/tracker/test_ledger_drift_tracker.py`` (150 frames at 120×160, a
+window of 3..4 frames, so the ledger is folded at most keyframes), each after
+a known-pose bootstrap."""
 
 from __future__ import annotations
 
@@ -23,7 +26,11 @@ INIT_FRAMES = 6
 SEQUENCES = {
     "standart": dict(num_frames=120, advance=0.08, seed=7),
     "fast": dict(num_frames=96, advance=0.13, seed=11),
+    "ledger": dict(num_frames=150, advance=0.07, seed=5),
 }
+# (height, width, focal) of a sequence that is not rendered at VGA
+# (tests/tracker/test_ledger_drift_tracker.py: 120x160, render_sequence's focal)
+SIZES = {"ledger": (120, 160, 260.0)}
 
 
 def standart_config() -> TrackerConfig:
@@ -43,21 +50,34 @@ def dense_config() -> TrackerConfig:
         window_min=5, window_max=15, use_rotation_perturbations=True)
 
 
+def ledger_config() -> TrackerConfig:
+    """tests/tracker/test_ledger_drift_tracker.py's CFG: a small window (3..4
+    of 7 slots) at 120x160, so that most keyframes fold a frame into the
+    ledger."""
+    return TrackerConfig(
+        num_frame_slots=7, landmarks_per_frame=96, immature_per_frame=192,
+        desired_points=400, frontend_points=600, keyframe_factor=3.0,
+        window_min=3, window_max=4, use_rotation_perturbations=False)
+
+
 # path -> (its sequence, its operating point)
 PATHS = {
     "standart": ("standart", standart_config),
     "fast": ("fast", standart_config),
     "dense": ("standart", dense_config),
     "masked": ("standart", standart_config),
+    "ledger": ("ledger", ledger_config),
 }
 MASK_FIRST_INVALID_ROW = 360   # the masked path: rows 360..479 hold no candidate
 MASKED_FRAMES = 66             # ... and it runs the first 66 frames (60 tracked)
 
 
-def render_path(name: str):
-    """The sequence of path ``name``, f32 on the card."""
-    return render_sequence(height=HEIGHT, width=WIDTH, focal=FOCAL, dtype=torch.float32,
-                           device="cuda", **SEQUENCES[PATHS[name][0]])
+def render_path(name: str, dtype=torch.float32, device="cuda"):
+    """The sequence of path ``name``, f32 on the card unless asked otherwise."""
+    seq = PATHS[name][0]
+    height, width, focal = SIZES.get(seq, (HEIGHT, WIDTH, FOCAL))
+    return render_sequence(height=height, width=width, focal=focal, dtype=dtype,
+                           device=device, **SEQUENCES[seq])
 
 
 def path_config(name: str) -> TrackerConfig:
@@ -78,12 +98,13 @@ def path_frames(name: str) -> int:
     return MASKED_FRAMES if name == "masked" else SEQUENCES[PATHS[name][0]]["num_frames"]
 
 
-def bootstrap(seq, cfg: TrackerConfig, mask=None) -> MonocularTracker:
-    """A tracker on the card, initialized on the first ``INIT_FRAMES`` frames
-    of ``seq`` at their ground-truth poses."""
-    tracker = MonocularTracker(seq.camera, cfg, dtype=torch.float32, device="cuda", mask=mask)
-    tracker.initialize([(i, float(seq.timestamps[i]), seq.images[i],
-                         seq.pose(i, torch.float32, "cuda")) for i in range(INIT_FRAMES)])
+def bootstrap(seq, cfg: TrackerConfig, mask=None, dtype=torch.float32,
+              device="cuda") -> MonocularTracker:
+    """A tracker (f32 on the card unless asked otherwise), initialized on the
+    first ``INIT_FRAMES`` frames of ``seq`` at their ground-truth poses."""
+    tracker = MonocularTracker(seq.camera, cfg, dtype=dtype, device=device, mask=mask)
+    tracker.initialize([(i, float(seq.timestamps[i]), seq.images[i].to(device, dtype),
+                         seq.pose(i, dtype, device)) for i in range(INIT_FRAMES)])
     return tracker
 
 

@@ -3,7 +3,8 @@
 
     python -m dsopp_tpu_torch.testing.profile_track [out.json] [path ...]
 
-``path`` is ``standart``, ``fast``, ``dense`` or ``masked`` (default: all four).  Per
+``path`` is ``standart``, ``fast``, ``dense``, ``masked`` or ``ledger`` (default:
+all five).  Per
 path, after the 6-frame known-pose bootstrap:
 
 1. ``REPEATS`` plain runs over all frames: frames/s of each (host clock
@@ -13,8 +14,8 @@ path, after the 6-frame known-pose bootstrap:
    epipolar update, the flow statistic, the pyramid, the whole frontend and
    the keyframe backend with its parts (push, the new bank with its candidate
    selection, activation, refinement, pairing, BA solve down to its six
-   kernels' calls, flags, marginalization, depth maps; each timer synchronises
-   the device
+   kernels' calls, the marginalization policy and the ledger fold each with
+   its kernel's call, depth maps; each timer synchronises the device
    before and after, so the stages do not overlap and their sum exceeds an
    untimed frame).  The timers are hung on the modules' functions from here,
    so the tracker itself carries no instrumentation;
@@ -22,7 +23,8 @@ path, after the 6-frame known-pose bootstrap:
    busy time per frame; idle share against the plain runs' frame time;
    device time per launch of each hand-written kernel) and
    PyTorch's sync debug mode over the next ``WINDOW`` frames (host
-   synchronisations per frame);
+   synchronisations per frame, and per keyframe inside the keyframe backend
+   and inside the span from the policy through the ledger fold);
 4. the last frame once more from the state before it, ``REPEATS`` times as
    it is and ``REPEATS`` times with the re-track gate closed
    (``rmse_last0`` tiny, so the 105 further hypotheses run): the cost of an
@@ -47,7 +49,7 @@ from dsopp_tpu_torch.solvers import pba, pose_alignment
 from dsopp_tpu_torch.testing.paths import (INIT_FRAMES, PATHS, bootstrap, card_line,
                                            closed_gate, path_config, path_frames, path_mask,
                                            render_path)
-from dsopp_tpu_torch.tracker import device_loop, fused_keyframe, fused_tick
+from dsopp_tpu_torch.tracker import device_loop, fused_keyframe, fused_tick, marginalization
 
 REPEATS, WINDOW = 3, 10
 # __global__ functions of csrc/ by the names the profiler reports
@@ -60,7 +62,8 @@ KERNEL_NAMES = ("pyramid_level_kernel", "align_level_kernel", "epipolar_kernel",
                 "candidates_kernel", "compact_kernel", "refine_kernel", "pair_slots_kernel",
                 "project_kernel", "depth_scatter_kernel", "pool_kernel", "dilate_kernel",
                 "hist_kernel", "class_threshold_kernel", "tile_count_kernel",
-                "select_write_kernel", "heavy_rank_kernel")
+                "select_write_kernel", "heavy_rank_kernel", "policy_kernel", "fold_kernel",
+                "fold_out_kernel")
 # (module, function) -> stage name
 STAGES = {
     (device_loop, "_frontend_core"): "frontend",
@@ -78,6 +81,8 @@ STAGES = {
     (fused_keyframe, "_solve_loop_device"): "kf_ba_solve",
     (device_loop, "flags_device"): "kf_flags",
     (device_loop, "_marginalize_device"): "kf_marginalize",
+    (marginalization, "flags_device_cuda"): "kf_policy_kernel",   # K15p's call
+    (pba, "_marginalize_cuda"): "kf_fold_kernel",                 # K15's call
     (device_loop, "build_frontend_state"): "kf_depth_maps",
     # the wrappers the device-resident loop and the dispatchers both end in
     (pba, "_fej_cache_cuda"): "ba_fej",
@@ -136,6 +141,45 @@ class StageTimers:
             self.calls[stage] += 1
             return out
         return timed
+
+
+class SyncCounts:
+    """Counts the host synchronisations that sync debug mode reports (into
+    ``caught``) inside the keyframe backend and inside the span from the
+    marginalization policy through the ledger fold."""
+
+    SPANS = ((device_loop, "keyframe_update", "keyframe_backend"),
+             (device_loop, "flags_device", "marginalization"),
+             (device_loop, "_marginalize_device", "marginalization"))
+
+    def __init__(self, caught):
+        self.caught = caught
+        self.syncs = defaultdict(int)
+        self.keyframes = 0
+        self.saved = []
+
+    def __enter__(self):
+        for module, name, span in self.SPANS:
+            fn = getattr(module, name)
+            self.saved.append((module, name, fn))
+            setattr(module, name, self.wrap(fn, span, name == "keyframe_update"))
+        return self
+
+    def __exit__(self, *exc):
+        for module, name, fn in self.saved:
+            setattr(module, name, fn)
+
+    def wrap(self, fn, span, counts_keyframe):
+        def counted(*args, **kwargs):
+            before = self.count()
+            out = fn(*args, **kwargs)
+            self.syncs[span] += self.count() - before
+            self.keyframes += int(counts_keyframe)
+            return out
+        return counted
+
+    def count(self):
+        return sum("synchroniz" in str(w.message) for w in self.caught)
 
 
 class IterationLog:
@@ -214,10 +258,13 @@ def profile_path(name):
     torch.cuda.set_sync_debug_mode("warn")
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
-        _, kf, _ = run_frames(pipe, seq, split + WINDOW, last - 1)
+        with SyncCounts(caught) as spans:
+            _, kf, _ = run_frames(pipe, seq, split + WINDOW, last - 1)
     torch.cuda.set_sync_debug_mode("default")
-    syncs = sum("synchroniz" in str(w.message) for w in caught)
+    syncs = spans.count()
     out["host_syncs_per_frame"] = syncs / (WINDOW - 1)
+    out["host_syncs_per_keyframe"] = ({span: n / spans.keyframes for span, n in spans.syncs.items()}
+                                      if spans.keyframes else None)
     out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
     out["sync_window"] = dict(frames=WINDOW - 1, keyframes=kf)
 

@@ -31,7 +31,7 @@ from dsopp_tpu_torch.tracker.depth_map import (KEYFRAME_THRESHOLD, MAX_EXCESS_EN
                                                build_frontend_state)
 from dsopp_tpu_torch.tracker.fused_keyframe import fused_keyframe_push
 from dsopp_tpu_torch.tracker.fused_tick import ENERGY_RATIO_THRESHOLD, fused_regular_tick
-from dsopp_tpu_torch.tracker.marginalization import flags_device, kept_first_perm
+from dsopp_tpu_torch.tracker.marginalization import flags_device
 
 
 class DeviceLoopConfig(NamedTuple):
@@ -126,7 +126,7 @@ def keyframe_update(window: Window, immature: ImmaturePoints, maps, pose_q, pose
         min_distance + (batch["n_active"].to(dtype) - cfg.desired_points) * P_GAIN,
         MIN_DISTANCE, MAX_DISTANCE)
     imm_counts = torch.sum(immature.valid, dim=1)
-    frame_flags, lm_flags, new_outliers = flags_device(
+    frame_flags, lm_flags, new_outliers, perm = flags_device(
         win, imm_counts, cfg.window_min, cfg.window_max, cfg.max_marg_fraction)
     snap = dict(frame_flags=frame_flags, kf_frame_id=win.frame_id,
                 kf_poses_mat=batch["poses_mat"], kf_affine=win.affine(),
@@ -135,7 +135,6 @@ def keyframe_update(window: Window, immature: ImmaturePoints, maps, pose_q, pose
                 lm_baseline=win.lm_baseline)
     win = win.replace(lm_outlier=win.lm_outlier | new_outliers,
                       frame_marg=frame_flags, lm_marg_flag=lm_flags)
-    perm = kept_first_perm(win.frame_valid, frame_flags)
     win = _marginalize_device(win, models[0], perm, cfg.pba_opts)
     immature = ImmaturePoints(*(x[perm] for x in immature))
     immature = immature._replace(valid=immature.valid & win.frame_valid[:, None])

@@ -8,22 +8,31 @@
 3. triage landmarks: residual to the newest frame not Ok (or anchored in a
    flagged frame) → marginalize if optimized at least once, else outlier;
    long-lived well-observed landmarks also marginalize.
+
+:func:`flags_device` dispatches on the device of its tensors: CPU tensors take
+the plain version, CUDA tensors kernel K15p (``csrc/marg_policy.cu``), which
+reads nothing on the host.  :func:`kept_first_perm` is plain torch: the
+kernel writes the permutation with the flags.
 """
 
 from __future__ import annotations
 
 import torch
 
+from dsopp_tpu_torch import kernels
 from dsopp_tpu_torch.solvers.pba import RES_OK, Window, newest_slot
 
 KEEP_FRAMES_FROM_END = 2
 MIN_FRAME_AGE = 1
 EPS_DIST = 1e-5
+# frame slots kernel K15p holds in shared memory
+_POLICY_MAX_FRAMES = 40
 
 
-def flags_device(window: Window, imm_counts, minimum_size: int, maximum_size: int,
-                 maximum_marginalized_fraction: float):
-    """→ (frame_flags [K] bool, landmark_flags [K, N] bool, new_outliers [K, N] bool)."""
+def flags_device_plain(window: Window, imm_counts, minimum_size: int, maximum_size: int,
+                       maximum_marginalized_fraction: float):
+    """→ (frame_flags [K] bool, landmark_flags [K, N] bool, new_outliers [K, N]
+    bool, perm [K] long: the stable kept-frames-first slot order)."""
     k = window.num_slots
     dev = window.frame_valid.device
     idx = torch.arange(k, device=dev)
@@ -39,23 +48,24 @@ def flags_device(window: Window, imm_counts, minimum_size: int, maximum_size: in
     prior = torch.cumsum(c1, dim=0) - c1
     flag1 = cand1 & ((f - prior) > minimum_size)
 
-    poses_t = window.poses().t
-    ids = window.frame_id
-    newest = newest_slot(window)
-    newest_id = ids.index_select(0, newest)[0]
-    t_new = poses_t.index_select(0, newest)[0]
-    elig_i = elig1 & (ids + MIN_FRAME_AGE <= newest_id)
-    elig_j = elig1 & (ids + MIN_FRAME_AGE <= newest_id + 1)
-    dist = torch.linalg.vector_norm(poses_t[:, None, :] - poses_t[None, :, :], dim=-1)
-    eye = torch.eye(k, dtype=torch.bool, device=dev)
-    inv = torch.where(elig_j[None, :] & ~eye, 1.0 / (EPS_DIST + dist), torch.zeros_like(dist))
-    score = torch.sqrt(torch.linalg.vector_norm(poses_t - t_new[None, :], dim=-1)) * torch.sum(inv, dim=1)
-    score = torch.where(elig_i, score, torch.zeros_like(score))
+    score = eq20_scores(window)
     best_i = torch.argmax(score)
     need2 = f > maximum_size + torch.sum(flag1)
     flag2 = need2 & (torch.max(score) > 0) & (idx == best_i)
     frame_flags = flag1 | flag2
 
+    lm_flags, new_outliers = landmark_triage(window, frame_flags, minimum_size, maximum_size)
+    return frame_flags, lm_flags, new_outliers, kept_first_perm(window.frame_valid, frame_flags)
+
+
+def landmark_triage(window: Window, frame_flags, minimum_size: int, maximum_size: int):
+    """Rule 3 for the frame flags ``frame_flags`` [K] → (landmark_flags [K, N]
+    bool, new_outliers [K, N] bool)."""
+    k = window.num_slots
+    idx = torch.arange(k, device=frame_flags.device)
+    f = window.frame_valid.sum()
+    live = window.lm_valid & ~window.lm_outlier
+    newest = newest_slot(window)
     tri = ((idx < f - 1) & (f > KEEP_FRAMES_FROM_END))[:, None]
     status_newest = torch.gather(
         window.res_status, 1,
@@ -68,10 +78,74 @@ def flags_device(window: Window, imm_counts, minimum_size: int, maximum_size: in
     new_outliers = tri & live & oob & ~sufficient
     lm_flags = tri & live & ~new_outliers & (oob | valid_marg)
     lm_flags = lm_flags | ((idx < f)[:, None] & frame_flags[:, None] & live & ~new_outliers)
-    return frame_flags, lm_flags, new_outliers
+    return lm_flags, new_outliers
+
+
+def eq20_scores(window: Window):
+    """[K] DSO eq (20) score √|t_i − t_newest| · Σ_j 1/(ε + |t_i − t_j|) of
+    every slot, zero where the slot may not be flagged (the plain version's
+    arithmetic)."""
+    k = window.num_slots
+    dev = window.frame_valid.device
+    idx = torch.arange(k, device=dev)
+    elig1 = idx < window.frame_valid.sum() - KEEP_FRAMES_FROM_END
+    poses_t = window.poses().t
+    ids = window.frame_id
+    newest = newest_slot(window)
+    newest_id = ids.index_select(0, newest)[0]
+    t_new = poses_t.index_select(0, newest)[0]
+    elig_i = elig1 & (ids + MIN_FRAME_AGE <= newest_id)
+    elig_j = elig1 & (ids + MIN_FRAME_AGE <= newest_id + 1)
+    dist = torch.linalg.vector_norm(poses_t[:, None, :] - poses_t[None, :, :], dim=-1)
+    eye = torch.eye(k, dtype=torch.bool, device=dev)
+    inv = torch.where(elig_j[None, :] & ~eye, 1.0 / (EPS_DIST + dist), torch.zeros_like(dist))
+    score = torch.sqrt(torch.linalg.vector_norm(poses_t - t_new[None, :], dim=-1)) * torch.sum(inv, dim=1)
+    return torch.where(elig_i, score, torch.zeros_like(score))
+
+
+def flags_device_cuda(window: Window, imm_counts, minimum_size: int, maximum_size: int,
+                      maximum_marginalized_fraction: float):
+    """Kernel K15p: same outputs as :func:`flags_device_plain`.  The frames'
+    positions are computed here by the same torch ops as in the plain
+    version, so that both score the same translations."""
+    k, n = window.num_slots, window.num_landmark_slots
+    if k > _POLICY_MAX_FRAMES:
+        raise ValueError(f"marg_policy: {k} frame slots exceed the kernel's limit of "
+                         f"{_POLICY_MAX_FRAMES}")
+    poses_t = window.poses().t.contiguous()
+    check = kernels.check
+    check(window.frame_valid, "frame_valid", (k,), torch.bool)
+    for name in ("lm_valid", "lm_outlier"):
+        check(getattr(window, name), name, (k, n), torch.bool)
+    for name in ("lm_inliers", "lm_opt_count"):
+        check(getattr(window, name), name, (k, n), torch.int32)
+    check(window.frame_id, "frame_id", (k,), torch.int32)
+    check(window.res_status, "res_status", (k, k, n), torch.int32)
+    check(poses_t, "poses_t", (k, 3))
+    check(imm_counts, "imm_counts", (k,), torch.int64)
+    dev = poses_t.device
+    frame_flags = torch.empty((k,), dtype=torch.bool, device=dev)
+    lm_flags = torch.empty((k, n), dtype=torch.bool, device=dev)
+    new_outliers = torch.empty((k, n), dtype=torch.bool, device=dev)
+    perm = torch.empty((k,), dtype=torch.int64, device=dev)
+    kernels.MARG_POLICY(window.frame_valid, window.lm_valid, window.lm_outlier,
+                        window.lm_inliers, window.lm_opt_count, window.frame_id,
+                        window.res_status, poses_t, imm_counts, k, n, minimum_size, maximum_size,
+                        1.0 - maximum_marginalized_fraction, frame_flags, lm_flags,
+                        new_outliers, perm)
+    return frame_flags, lm_flags, new_outliers, perm
+
+
+def flags_device(window: Window, imm_counts, minimum_size: int, maximum_size: int,
+                 maximum_marginalized_fraction: float):
+    """→ (frame_flags [K] bool, landmark_flags [K, N] bool, new_outliers [K, N]
+    bool, perm [K] long); ``perm`` is :func:`kept_first_perm` of the frame
+    flags.  Kernel K15p on CUDA tensors, the plain version on CPU ones."""
+    fn = flags_device_cuda if window.frame_valid.is_cuda else flags_device_plain
+    return fn(window, imm_counts, minimum_size, maximum_size, maximum_marginalized_fraction)
 
 
 def kept_first_perm(frame_valid, frame_flags):
-    """Stable kept-frames-first slot permutation."""
+    """Stable kept-frames-first slot permutation [K] long."""
     key = torch.where(frame_valid & ~frame_flags, 0, 1)
     return torch.argsort(key, stable=True)

@@ -28,7 +28,17 @@ the image border); K14 selected equal, keep equal on ≥ 99.5 % of the selected,
 idepth 1e-4 relative where the accept sequences are equal, the pairing equal
 entry by entry on the same inputs; K16 (landmarks within 1e-3 px of a pixel
 boundary left out of both) weights and selected pixels equal, idepth 1e-6
-relative.  K12-K14 and K16 run with host synchronisation an error.
+relative; K15 (the ledger fold, on an empty and a filled ledger, with no
+frame, one free frame, two frames, the fixed frame and a dead frame flagged)
+H_m, b_m and E_m within 1e-9 of their largest entry, of the plain version's
+or, where an eigenvalue lies within 1e-6 (relative) of the pseudo-inverse's
+cutoff, of the plain version's with the cutoff at either edge of that band;
+the Jacobi solver converged; two runs equal to the bit, the window it leaves
+equal; K15p (the policy) flags, outliers and the permutation equal, or, where
+the two best eq (20) scores tie within 1e-6, frame flags that differ on those
+two slots only and the plain triage of the kernel's frame flags; the
+row gather equal to ``table[idx]`` to the bit in f32 and bf16.  K12-K16 run
+with host synchronisation an error.
 
 Run on a machine with a card:
 ``python -m pytest --noconftest tests/test_torch_kernels_gpu.py -q``.
@@ -43,10 +53,11 @@ from dsopp_tpu_torch.core.lie import SE3
 from dsopp_tpu_torch.features import extractor, pyramid
 from dsopp_tpu_torch.solvers import pba
 from dsopp_tpu_torch.solvers import pose_alignment as pa
-from dsopp_tpu_torch.testing import align_trace, parity, render_sequence
+from dsopp_tpu_torch.testing import align_trace, gather_probe, parity, render_sequence
 from dsopp_tpu_torch.tracker import activation as act
 from dsopp_tpu_torch.tracker import depth_estimation as de
 from dsopp_tpu_torch.tracker import depth_map as dm
+from dsopp_tpu_torch.tracker import marginalization as marg
 from dsopp_tpu_torch.tracker.fused_keyframe import immature_bank
 from dsopp_tpu_torch.tracker.fused_tick import _initialization_hypotheses
 
@@ -431,3 +442,92 @@ def test_frontend_state_kernel_matches_plain(tracked):
     assert not bool(out_k[2][4].valid[300:].any())
     again = dm.build_frontend_state_cuda(*args)
     assert all(torch.equal(a, b) for a, b in zip(out_k[0], again[0]))
+
+
+@pytest.fixture(scope="module")
+def marg_windows(tracked):
+    """The tracker's window off its linearization point, with an empty and
+    with a filled ledger."""
+    tracker, _ = tracked
+    win, eps, idepth, lm_mask = _ba_problem(tracker)
+    opts, model = tracker.pba_opts, tracker.models[0]
+    win = win.replace(eps=eps, lm_idepth=idepth)
+    sys = pba._linearize_from_ev(win, pba._fej_cache(win, model),
+                                 pba._evaluate(win, model, eps, idepth, lm_mask, opts), eps, opts)
+    empty = win.replace(h_marg=torch.zeros_like(win.h_marg), b_marg=torch.zeros_like(win.b_marg),
+                        energy_marg=torch.zeros_like(win.energy_marg))
+    return {"empty": empty, "filled": parity.scaled_ledger(win, sys)}
+
+
+@pytest.mark.parametrize("case", parity.MARG_CASES)
+@pytest.mark.parametrize("ledger", ["empty", "filled"])
+def test_marg_fold_kernel_matches_plain(tracked, marg_windows, ledger, case):
+    """K15: the new ledger within ``parity.LEDGER_TOL`` of its largest entry
+    (``parity.ledger_check``); the Jacobi solver converged; two runs equal to
+    the bit; the window it leaves as the plain version's; no host read."""
+    tracker, _ = tracked
+    opts, model = tracker.pba_opts, tracker.models[0]
+    start = marg_windows[ledger]
+    slots = parity.marg_cases(start)[case]
+    w, perm = parity.marg_case(start, case, slots, torch.Generator(device="cuda").manual_seed(1))
+    h_pts, b_pts, e_land = pba._marg_system_kernel(w, model, opts)
+    fold = (w, h_pts.contiguous(), b_pts.contiguous(), e_land, perm, opts)
+    before = kernels.MARG_FOLD.launches
+    sweeps = torch.full((1,), -1, dtype=torch.int32, device="cuda")
+    out_k = _no_host_reads(pba._marginalize_cuda, *fold, sweeps)
+    assert kernels.MARG_FOLD.launches == before + 1
+    err = parity.ledger_check(out_k, fold)
+    assert err["eigenvalues"] == 8 * len(slots)
+    if case == "a dead frame" and ledger == "empty":
+        assert err["dropped"] == 6, err         # only the two affine priors are kept
+    assert err["within"], err
+    assert 0 <= int(sweeps) < pba.MARG_MAX_SWEEPS
+    assert slots or int(sweeps) == 0
+    assert all(torch.equal(a, b) for a, b in zip(out_k, pba._marginalize_cuda(*fold)))
+    win_k = _no_host_reads(pba._marginalize_device, w, model, perm, opts)
+    win_p = pba._marginalize_with(pba._marginalize_plain, w, model, perm, opts)
+    for name in ("frame_valid", "frame_id", "lm_valid", "lm_marg_flag"):
+        assert torch.equal(getattr(win_k, name), getattr(win_p, name)), name
+
+
+def test_marg_policy_kernel_matches_plain(tracked, marg_windows):
+    """K15p: flags, outliers and the permutation equal to the plain version's
+    (``parity.policy_errors``) at the tracker's window sizes and with the
+    window one frame too large; no host read."""
+    tracker, _ = tracked
+    cfg = tracker.config
+    win = marg_windows["filled"]
+    frames = int(win.frame_valid.sum())
+    imm_counts = torch.sum(tracker.immature.valid, dim=1)
+    flagged = 0
+    for lo, hi in ((cfg.window_min, cfg.window_max), (min(cfg.window_min, frames - 2), frames - 1)):
+        args = (win, imm_counts, lo, hi, cfg.max_marginalized_fraction)
+        before = kernels.MARG_POLICY.launches
+        out_k = _no_host_reads(marg.flags_device_cuda, *args)
+        assert kernels.MARG_POLICY.launches == before + 1
+        out_p = marg.flags_device_plain(*args)
+        err = parity.policy_errors(out_k, out_p, win, lo, hi)
+        assert err["explained"], err
+        flagged += err["frames_flagged"]
+    assert flagged > 0
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_row_gather_kernel_matches_plain(dtype):
+    """The row gather at the probe's shapes equal to ``table[idx]`` to the
+    bit; an index outside the table: a zero row from the kernel, an error
+    from the checked wrapper."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    table, table_bf, idx = gather_probe.probe_inputs("cuda")
+    tab = table if dtype == "f32" else table_bf
+    before = kernels.ROW_GATHER.launches
+    out_k = _no_host_reads(gather_probe.row_gather_cuda, tab, idx)
+    assert kernels.ROW_GATHER.launches == before + 1
+    assert torch.equal(out_k, gather_probe.row_gather_plain(tab, idx))
+    bad = idx[:64].clone()
+    bad[3], bad[9] = -1, tab.shape[0]
+    out_bad = gather_probe.row_gather_cuda(tab, bad)
+    assert not bool(out_bad[[3, 9]].any()) and torch.equal(out_bad[:3], tab[bad[:3]])
+    with pytest.raises(IndexError):
+        gather_probe.row_gather(tab, bad)

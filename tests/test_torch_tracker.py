@@ -408,7 +408,9 @@ def test_card_paths_match_the_bench():
         "standart": ("standart", "standart_config"), "fast": ("fast", "standart_config"),
         "dense": ("standart", "dense_config"),       # bench.py runs dense on the 0.08 corridor
         # the masked path: the standart point on the first frames of the same corridor
-        "masked": ("standart", "standart_config")}
+        "masked": ("standart", "standart_config"),
+        # the long-horizon ledger case of tests/tracker/test_ledger_drift_tracker.py
+        "ledger": ("ledger", "ledger_config")}
     assert paths.path_frames("standart") == consts["NUM_FRAMES"]
     assert paths.INIT_FRAMES < paths.path_frames("masked") <= consts["NUM_FRAMES"]
     assert 0 < paths.MASK_FIRST_INVALID_ROW < paths.HEIGHT
@@ -426,3 +428,12 @@ def test_card_paths_match_the_bench():
     assert (paths.HEIGHT, paths.WIDTH, paths.FOCAL) == (
         consts["HEIGHT"], consts["WIDTH"], consts["FOCAL"])
     assert paths.INIT_FRAMES == consts["INIT_FRAMES"]
+
+    # the ledger path: the drift test's configuration, sequence and size
+    from tests.tracker import test_ledger_drift_tracker as drift
+
+    jax_cfg, port_cfg = dataclasses.asdict(drift.CFG), dataclasses.asdict(paths.ledger_config())
+    assert {field: jax_cfg[field] for field in port_cfg} == port_cfg
+    assert paths.SEQUENCES["ledger"] == dict(num_frames=drift.NUM_FRAMES, advance=0.07, seed=5)
+    assert paths.SIZES["ledger"] == (drift.H, drift.W, 260.0)   # render_sequence's focal
+    assert paths.INIT_FRAMES == drift.INIT_FRAMES
