@@ -51,6 +51,15 @@ def pinhole(fx, fy, cx, cy, image_size) -> Pinhole:
     return Pinhole(float(fx), float(fy), float(cx), float(cy), float(w), float(h))
 
 
+def camera_model(model_type: str, image_size, intrinsics):
+    """The port's camera model from the JAX package's ``CameraCalibration``
+    fields (numpy)."""
+    from dsopp_tpu_torch.sensors.calibration import CameraCalibration
+
+    size = tuple(float(v) for v in np.asarray(image_size, np.float64).reshape(-1)[:2])
+    return CameraCalibration(model_type, size, np.asarray(intrinsics, np.float64)).camera_model()
+
+
 def camera_mask(mask, device=None):
     """A CameraMask given as a numpy [H, W] array (true = valid) → bool tensor
     on ``device`` (the device of the state it is used with)."""

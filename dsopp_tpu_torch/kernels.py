@@ -183,9 +183,11 @@ MARG_FOLD = Kernel("marg_fold", "marg_fold",
                    [_P] * 12 + [_I, _D, _F, _F, _F] + [_P] * 5)
 # the row gather of the Pallas design probe (off the tracker's paths)
 ROW_GATHER = Kernel("row_gather", "row_gather", [_P, _P, _I, _I, _I, _P])
+# K18: the camera's photometric correction, once per frame the camera reads
+PHOTOMETRIC = Kernel("photometric_correct", "photometric_correct", [_P, _I, _P, _P, _I, _P])
 ALL = (PYRAMID, ALIGN, ALIGN_LEVEL, EPIPOLAR, FLOW, BA_FEJ, BA_EVALUATE, BA_LINEARIZE,
        BA_SOLVE, BA_LM, BA_STATUS, SELECT_CANDIDATES, ACTIVATION, REFINE, ACTIVATION_SCATTER,
-       DEPTH_MAPS, MARG_POLICY, MARG_FOLD, ROW_GATHER)
+       DEPTH_MAPS, MARG_POLICY, MARG_FOLD, ROW_GATHER, PHOTOMETRIC)
 
 
 def reset_counts():

@@ -916,12 +916,14 @@ def _permute_window(window: Window, perm, drop_marg) -> Window:
 
 
 def _marginalize_plain(window: Window, h_pts, b_pts, e_land, perm, opts: PBAOptions,
-                       pinv=pinv_hermitian):
+                       pinv=None):
     """The ledger fold of a marginalization → the new (H_m, b_m, E_m), float64.
 
     ``h_pts``, ``b_pts``, ``e_land``: the flagged landmarks' system
     (:func:`_marg_system_kernel`); ``pinv``: the pseudo-inverse of the
-    identity-padded flagged block (the reference's cutoff by default).  Landmarks: H_m += H_pts, b_m += b_pts −
+    identity-padded flagged block (by default the reference's, whose cutoff
+    follows the window's working precision: it inverts in f32 in an f32
+    run, and drops the eigenvalues below f32's cutoff).  Landmarks: H_m += H_pts, b_m += b_pts −
     H_pts·ε, E_m += E + εᵀH_ptsε − εᵀb_pts (DSO eq 8.15).  Frames: their
     priors are folded, then their blocks are Schur-eliminated (pseudo-inverse
     + one Newton step); the kept blocks are permuted by ``perm``."""
@@ -944,7 +946,7 @@ def _marginalize_plain(window: Window, h_pts, b_pts, e_land, perm, opts: PBAOpti
     eye = torch.eye(kb, dtype=ld, device=h_m.device)
     zero = torch.zeros_like(h_m)
     h_ee = torch.where(marg[:, None] & marg[None, :], h_m, eye)
-    x0 = pinv(h_ee)
+    x0 = pinv(h_ee) if pinv is not None else pinv_hermitian(h_ee, window.eps.dtype)
     h_ee_inv = x0 + x0 @ (eye - h_ee @ x0)
     h_ke = torch.where(keep[:, None] & marg[None, :], h_m, zero)
     corr = h_ke @ h_ee_inv
@@ -985,7 +987,7 @@ def _marginalize_cuda(window: Window, h_pts, b_pts, e_land, perm, opts: PBAOptio
         check(sweeps, "sweeps", (1,), torch.int32)
     kernels.MARG_FOLD(h_pts, b_pts, e_land, window.eps, window.affine0, window.frame_valid,
                       window.frame_fixed, window.frame_marg, perm, window.h_marg,
-                      window.b_marg, window.energy_marg, k, pinv_rtol(kb),
+                      window.b_marg, window.energy_marg, k, pinv_rtol(kb, window.eps.dtype),
                       float(opts.fixed_reg), float(opts.affine_reg_a),
                       float(opts.affine_reg_b), scratch, h_out, b_out, e_out, sweeps)
     return h_out, b_out, e_out

@@ -31,6 +31,20 @@ def to_f64(obj):
     return type(obj)(*(cast(t) for t in obj))
 
 
+def moved(obj, device):
+    """A tracker state (tensors in named tuples, tuples and dataclasses) with
+    every tensor copied to ``device``."""
+    if torch.is_tensor(obj):
+        return obj.to(device)
+    if dataclasses.is_dataclass(obj):
+        return dataclasses.replace(obj, **{f.name: moved(getattr(obj, f.name), device)
+                                           for f in dataclasses.fields(obj)})
+    if isinstance(obj, tuple):
+        items = [moved(x, device) for x in obj]
+        return type(obj)(*items) if hasattr(obj, "_fields") else tuple(items)
+    return obj
+
+
 def contiguous(tensors):
     """A tuple of tensors, each dense: a plain version may return permuted
     views, the kernels' wrappers take dense tensors only."""
@@ -429,7 +443,7 @@ def cutoff_ties(window, h_pts, opts, band: float = CUTOFF_TIE) -> dict:
     hm, rows = hm.cpu(), rows.cpu()
     lam = torch.linalg.eigvalsh(hm[rows][:, rows]) if bool(rows.any()) else torch.zeros(0)
     top = max(1.0, float(lam.abs().max())) if lam.numel() else 1.0
-    cutoff = pinv_rtol(hm.shape[0]) * top
+    cutoff = pinv_rtol(hm.shape[0], window.eps.dtype) * top
     return dict(eigenvalues=int(lam.numel()), cutoff=cutoff,
                 dropped=int((lam.abs() <= cutoff).sum()),
                 ties=int(((lam.abs() - cutoff).abs() <= band * cutoff).sum()))

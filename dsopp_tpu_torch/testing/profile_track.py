@@ -293,8 +293,11 @@ def main(argv):
     card = card_line()
     kernels.library()
     results = []
-    out_file = next((a for a in argv[1:] if a not in PATHS), None)
-    for name in [a for a in argv[1:] if a in PATHS] or list(PATHS):
+    # the sensor path reads its frames from a camera's files (chip_smoke.py
+    # [sensor]); behind the camera it runs the standart path's stages
+    names = [name for name in PATHS if name != "sensor"]
+    out_file = next((a for a in argv[1:] if a not in names), None)
+    for name in [a for a in argv[1:] if a in names] or names:
         torch.cuda.reset_peak_memory_stats()
         res = profile_path(name)
         res["card"] = card

@@ -5,7 +5,7 @@ marginalized keyframes with their final landmark snapshots, and attached
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 
@@ -18,6 +18,8 @@ class AttachedFrame:
     timestamp: float
     keyframe_id: int
     t_keyframe_frame: np.ndarray  # 4x4 keyframe → frame
+    exposure: float = 1.0
+    affine: np.ndarray = field(default_factory=lambda: np.zeros(2))
     flow: float = 0.0
     flow_without_rotation: float = 0.0
     rmse: float = 0.0
@@ -38,6 +40,18 @@ class MarginalizedKeyframe:
     lm_outlier: np.ndarray
     lm_baseline: np.ndarray
     attached: List[AttachedFrame] = field(default_factory=list)
+    # per-landmark class id, sampled from the keyframe's own class-id image
+    # when it is marginalized
+    lm_semantic: Optional[np.ndarray] = None  # [M] int
+
+
+def sample_semantics(semantic_image, uv):
+    """Nearest-pixel class ids at ``uv`` [M, 2] from a [H, W] id image."""
+    sem = np.asarray(semantic_image)
+    h, w = sem.shape
+    u = np.clip(np.rint(np.asarray(uv)[:, 0]).astype(int), 0, w - 1)
+    v = np.clip(np.rint(np.asarray(uv)[:, 1]).astype(int), 0, h - 1)
+    return sem[v, u].astype(np.int64)
 
 
 @dataclass
@@ -55,3 +69,26 @@ class OdometryTrack:
     def on_marginalize(self, kf: MarginalizedKeyframe):
         kf.attached = self.attached.pop(kf.frame_id, [])
         self.marginalized.append(kf)
+
+    def trajectory(self, window=None):
+        """Full-rate (timestamp, T_wc 4x4) list: marginalized + active
+        keyframes (the window's BA-refined poses) with their attached frames,
+        time-ordered."""
+        entries = []
+
+        def add_keyframe(timestamp, t_wc, attached):
+            entries.append((timestamp, t_wc))
+            for a in attached:
+                entries.append((a.timestamp, t_wc @ a.t_keyframe_frame))
+
+        for kf in self.marginalized:
+            add_keyframe(kf.timestamp, kf.t_wc, kf.attached)
+        if window is not None:
+            mats = window.poses().matrix().cpu().numpy().astype(np.float64)
+            ids = window.frame_id.cpu().numpy()
+            for pos in range(int(window.frame_valid.sum())):
+                fid = int(ids[pos])
+                add_keyframe(self.keyframe_timestamps.get(fid, 0.0), mats[pos],
+                             self.attached.get(fid, []))
+        entries.sort(key=lambda e: e[0])
+        return entries

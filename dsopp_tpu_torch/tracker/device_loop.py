@@ -23,7 +23,7 @@ import torch
 from dsopp_tpu_torch.core.lie import SE3
 from dsopp_tpu_torch.solvers.pba import PBAOptions, Window, _marginalize_device, newest_slot
 from dsopp_tpu_torch.solvers.pose_alignment import AlignmentOptions
-from dsopp_tpu_torch.track.state import AttachedFrame, MarginalizedKeyframe
+from dsopp_tpu_torch.track.state import AttachedFrame, MarginalizedKeyframe, sample_semantics
 from dsopp_tpu_torch.tracker.activation import MAX_DISTANCE, MIN_DISTANCE, P_GAIN
 from dsopp_tpu_torch.tracker.depth_estimation import ImmaturePoints
 from dsopp_tpu_torch.tracker.depth_map import (KEYFRAME_THRESHOLD, MAX_EXCESS_ENERGY,
@@ -75,6 +75,7 @@ class TickDiag(NamedTuple):
 
     is_keyframe: bool
     escalated: bool
+    rmse_chunk0: torch.Tensor   # the rmse the re-track gate tested
     pose_q: torch.Tensor
     pose_t: torch.Tensor
     affine: torch.Tensor
@@ -148,22 +149,27 @@ _SNAP_KEYS = ("kf_frame_id", "kf_poses_mat", "kf_affine", "kf_exposure", "lm_uv"
               "lm_idepth", "lm_valid", "lm_outlier", "lm_baseline")
 
 
-def record_marginalized(track, snap: dict, timestamp: float):
+def record_marginalized(track, snap: dict, timestamp: float, kf_semantics=None):
     """Move the keyframes flagged in ``snap["frame_flags"]`` (pre-fold
-    window snapshot, tensors) into the track's history."""
+    window snapshot, tensors) into the track's history.  ``kf_semantics``:
+    keyframe id → its class-id image; a marginalized keyframe's image leaves
+    the dict and labels its landmarks."""
     flags = snap["frame_flags"].cpu().numpy()
     if not flags.any():
         return
     host = {k: snap[k].cpu().numpy() for k in _SNAP_KEYS}
     for pos in np.where(flags)[0]:
         fid = int(host["kf_frame_id"][pos])
+        sem_img = None if kf_semantics is None else kf_semantics.pop(fid, None)
         track.on_marginalize(MarginalizedKeyframe(
             frame_id=fid, timestamp=track.keyframe_timestamps.get(fid, timestamp),
             t_wc=host["kf_poses_mat"][pos].astype(np.float64),
             affine=host["kf_affine"][pos].astype(np.float64),
             exposure=float(host["kf_exposure"][pos]), lm_uv=host["lm_uv"][pos],
             lm_idepth=host["lm_idepth"][pos], lm_valid=host["lm_valid"][pos],
-            lm_outlier=host["lm_outlier"][pos], lm_baseline=host["lm_baseline"][pos]))
+            lm_outlier=host["lm_outlier"][pos], lm_baseline=host["lm_baseline"][pos],
+            lm_semantic=(None if sem_img is None
+                         else sample_semantics(sem_img, host["lm_uv"][pos]))))
 
 
 def _frontend_core(state: DeviceTrackerState, image, force_kf: bool, models,
@@ -206,7 +212,8 @@ def _backend_core(base: DeviceTrackerState, out, need_kf: bool, frame_id: int,
                   models, cfg: DeviceLoopConfig, exposure, mask=None):
     dtype = base.last_affine.dtype
     dev = base.last_affine.device
-    front = dict(is_keyframe=need_kf, escalated=out.escalated, pose_q=out.pose_q,
+    front = dict(is_keyframe=need_kf, escalated=out.escalated,
+                 rmse_chunk0=out.rmse_chunk0, pose_q=out.pose_q,
                  pose_t=out.pose_t, affine=out.affine, rmse=out.rmse, flow=out.flow,
                  flow_no_rot=out.flow_no_rot, num_valid_align=out.num_valid,
                  t_kf_frame_mat=out.t_kf_frame_mat)
@@ -283,9 +290,22 @@ class PipelinedTracker:
         self.num_keyframes = tracker.num_keyframes
         self.flush_every = flush_every
         self.pending = []
+        # semantics bookkeeping on the host: per pending frame until its
+        # keyframe flag is read, then per keyframe until it is marginalized
+        self._sem_pending = {}
+        self._kf_semantics = dict(tracker._kf_semantics)
 
     def tick(self, frame_id: int, timestamp: float, image,
-             force_keyframe: bool = False, exposure: float = 1.0):
+             force_keyframe: bool = False, semantics=None, exposure: float = 1.0):
+        """One tracked frame.  ``semantics``: optional [H, W] class-id image
+        (numpy): the tracker's ``semantic_filter`` classes leave the
+        candidate mask, and the ids label the landmarks of the frame, should
+        it become a keyframe, when it is marginalized.  ``exposure``: the
+        frame's exposure time."""
+        if semantics is not None:
+            self._sem_pending[frame_id] = np.asarray(semantics)
+            if self.tracker.semantic_filter:
+                self.mask = self.tracker.semantic_mask(semantics)
         image = torch.as_tensor(image, dtype=self.dtype, device=self.device)
         self.state, diag = device_tick(self.state, image, int(frame_id),
                                        bool(force_keyframe), self.models, self.cfg,
@@ -303,11 +323,14 @@ class PipelinedTracker:
 
     def _bookkeep(self, fid, ts, d: TickDiag):
         track = self.tracker.track
+        sem = self._sem_pending.pop(fid, None)
         if d.is_keyframe:
             track.on_keyframe(fid, ts)
             self.cur_kf = fid
             self.num_keyframes += 1
-            record_marginalized(track, d._asdict(), ts)
+            if sem is not None:
+                self._kf_semantics[fid] = sem
+            record_marginalized(track, d._asdict(), ts, self._kf_semantics)
         else:
             track.attach_frame(AttachedFrame(
                 fid, ts, self.cur_kf, d.t_kf_frame_mat.cpu().numpy().astype(np.float64),
@@ -332,5 +355,6 @@ class PipelinedTracker:
         t.num_keyframes = self.num_keyframes
         t.kf_id = self.cur_kf
         t.mask = self.mask
+        t._kf_semantics = dict(self._kf_semantics)
         return t
 

@@ -3,7 +3,8 @@ and of ``tracker/monocular.py::_initialization_hypotheses``).
 
 Pyramid (K1) → coarse-to-fine alignment of a chunk of 5 pose hypotheses
 (on the card one K3 launch per level for all hypotheses of the call, 5 or
-105; level 0 only for each chunk's coarse winner) → epipolar depth update
+105; level 0 only for each chunk's coarse winner, or for every hypothesis
+when there is no coarser level) → epipolar depth update
 of every window bank (K4) → flow statistic.  When
 the first chunk fails the 2.5× reliability gate, the 104 rotation-perturbed
 hypotheses run too (chunks 1..21, batched into one align chain); the best
@@ -40,6 +41,7 @@ class FusedTickResult(NamedTuple):
     immature: ImmaturePoints
     t_kf_frame_mat: torch.Tensor
     escalated: bool
+    rmse_chunk0: torch.Tensor   # the rmse the re-track gate tested (chunk 0's)
 
 
 def _initialization_hypotheses(t_w_last: SE3, t_prev_rel: SE3, t_w_kf: SE3,
@@ -82,10 +84,24 @@ def _perturbations(dtype, device):
     return torch.tensor(xis, dtype=dtype, device=device)
 
 
+def _chunk_winners(result, c: int):
+    """Index of each chunk's winner among ``result``'s [C·CHUNK] hypotheses:
+    the least energy per valid point among those keeping at least half the
+    chunk's most valid points (at least 1)."""
+    nv = result.num_valid.reshape(c, CHUNK)
+    energy = result.energy.reshape(c, CHUNK)
+    nv_floor = torch.clamp(torch.max(nv, dim=1).values // 2, min=1)
+    score = torch.where(nv >= nv_floor[:, None], energy / torch.clamp(nv, min=1),
+                        torch.full_like(energy, float("inf")))
+    return torch.arange(c, device=nv.device) * CHUNK + torch.argmin(score, dim=1)
+
+
 def _run_chunks(hyp_q, hyp_t, kf: SE3, maps, level_points, models, last_affine,
                 exp_ratio, opts: AlignmentOptions, num_levels: int):
     """Chunks [C, CHUNK] of T_w_t hypotheses through the coarse-to-fine
-    schedule → per chunk (q, t, affine, rmse, num_valid, score)."""
+    schedule → per chunk (q, t, affine, rmse, num_valid, score).  Level 0
+    refines each chunk's coarse winner; with one level there is no coarse
+    ranking, and level 0 refines every hypothesis and picks the winner."""
     c = hyp_q.shape[0]
     hyps = SE3(hyp_q.reshape(-1, 4), hyp_t.reshape(-1, 3))
     nb = hyps.q.shape[0]
@@ -96,16 +112,18 @@ def _run_chunks(hyp_q, hyp_t, kf: SE3, maps, level_points, models, last_affine,
         result = align_level(level_points[level], maps[level], models[level], t,
                              affine, last_affine, exp_ratio, opts)
         t, affine = result.t_t_r, result.affine
-    nv = result.num_valid.reshape(c, CHUNK)
-    nv_floor = torch.clamp(torch.max(nv, dim=1).values // 2, min=1)
-    score1 = torch.where(nv >= nv_floor[:, None],
-                         result.energy.reshape(c, CHUNK) / torch.clamp(nv, min=1),
-                         torch.full_like(result.energy.reshape(c, CHUNK), float("inf")))
-    best = torch.argmin(score1, dim=1)
-    pick = torch.arange(c, device=best.device) * CHUNK + best
-    res0 = align_level(level_points[0], maps[0], models[0],
-                       SE3(t.q[pick], t.t[pick]), affine[pick], last_affine,
-                       exp_ratio, opts)
+    if result is not None:
+        pick = _chunk_winners(result, c)
+        res0 = align_level(level_points[0], maps[0], models[0],
+                           SE3(t.q[pick], t.t[pick]), affine[pick], last_affine,
+                           exp_ratio, opts)
+    else:
+        res = align_level(level_points[0], maps[0], models[0], t, affine, last_affine,
+                          exp_ratio, opts)
+        pick = _chunk_winners(res, c)
+        res0 = res._replace(t_t_r=SE3(res.t_t_r.q[pick], res.t_t_r.t[pick]),
+                            **{name: getattr(res, name)[pick] for name in
+                               ("affine", "energy", "num_valid", "rmse", "iterations")})
     score0 = torch.where(res0.num_valid > 0,
                          res0.energy / torch.clamp(res0.num_valid, min=1),
                          torch.full_like(res0.energy, float("inf")))
@@ -123,8 +141,6 @@ def fused_regular_tick(image, level_points, flow_points, window_poses_q,
     """One tracked frame's frontend.  ``kf_slot``: [1] long tensor of the
     newest keyframe slot.  Reads one flag on the host when perturbations
     are armed (whether chunk 0 failed the gate)."""
-    if num_levels < 2:
-        raise ValueError("the regular tick needs at least 2 pyramid levels")
     maps = build_pyramid_maps(image, num_levels)
     kf = SE3(window_poses_q.index_select(0, kf_slot)[0],
              window_poses_t.index_select(0, kf_slot)[0])
@@ -137,6 +153,7 @@ def fused_regular_tick(image, level_points, flow_points, window_poses_q,
     if not with_perturbations:
         out = run(hyps.q[None], hyps.t[None])
         bq, bt, b_aff, b_rmse, b_valid = (x[0] for x in out[:5])
+        rmse_chunk0 = b_rmse
     else:
         total = hyps.q.shape[0]
         dev = hyps.q.device
@@ -146,7 +163,8 @@ def fused_regular_tick(image, level_points, flow_points, window_poses_q,
         chunks_t = hyps.t[pad_idx].reshape(-1, CHUNK, 3)
         out = run(chunks_q[:1], chunks_t[:1])
         thr = ENERGY_RATIO_THRESHOLD * rmse_last0
-        escalated = bool((out[4][0] == 0) | (out[3][0] >= thr))
+        rmse_chunk0 = out[3][0]
+        escalated = bool((out[4][0] == 0) | (rmse_chunk0 >= thr))
         if escalated:
             rest = run(chunks_q[1:], chunks_t[1:])
             out = tuple(torch.cat([a, b]) for a, b in zip(out, rest))
@@ -167,4 +185,5 @@ def fused_regular_tick(image, level_points, flow_points, window_poses_q,
     return FusedTickResult(
         maps=maps, pose_q=t_w_t.q, pose_t=t_w_t.t, affine=b_aff, rmse=b_rmse,
         num_valid=b_valid.to(torch.int32), flow=flow, flow_no_rot=flow_nr,
-        immature=immature, t_kf_frame_mat=t_t_kf.inverse().matrix(), escalated=escalated)
+        immature=immature, t_kf_frame_mat=t_t_kf.inverse().matrix(), escalated=escalated,
+        rmse_chunk0=rmse_chunk0)

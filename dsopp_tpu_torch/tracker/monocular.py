@@ -3,7 +3,9 @@
 
 ``MonocularTracker(camera, TrackerConfig(...), dtype=..., device=...,
 mask=...)`` (``mask``: the sensor's static CameraMask, [H, W] bool, true where
-a candidate point may be placed; ``None``: everywhere) is bootstrapped with
+a candidate point may be placed; ``None``: everywhere; ``semantic_filter``:
+class ids whose pixels a frame's class-id image takes out of that mask) is
+bootstrapped with
 ``initialize(frames)`` from frames of known pose: the first is pushed as the fixed keyframe, the next run the epipolar update and
 the flow statistic (and become keyframes when the strategy asks), the last
 is forced to be a keyframe.  Tracking then goes through
@@ -21,6 +23,7 @@ import torch
 from dsopp_tpu_torch import default_device
 from dsopp_tpu_torch.core.lie import SE3
 from dsopp_tpu_torch.features.pyramid import build_pyramid_maps
+from dsopp_tpu_torch.sensors.masks import filter_semantic_objects
 from dsopp_tpu_torch.solvers.pba import PBAOptions, empty_window, frame_count, push_frame_slot
 from dsopp_tpu_torch.solvers.pose_alignment import AlignmentOptions
 from dsopp_tpu_torch.track.state import AttachedFrame, OdometryTrack
@@ -73,6 +76,9 @@ class MonocularTracker:
                 raise ValueError(f"mask {tuple(self.base_mask.shape)} for a"
                                  f" {self.image_shape} image")
         self.mask = self.base_mask
+        self.semantic_filter: tuple = ()   # class ids masked out per frame
+        self._last_semantics = None        # newest frame's class-id image
+        self._kf_semantics = {}            # keyframe id → class-id image
         self.models = [camera.scaled(float(2 ** l)) for l in range(config.pyramid_levels)]
         self.window = empty_window(config.num_frame_slots, config.landmarks_per_frame,
                                    (3,) + self.image_shape, dtype=dtype, device=self.device)
@@ -135,12 +141,26 @@ class MonocularTracker:
         self.level_points = list(points)
         self.flow_points = flow_pts
 
+    def semantic_mask(self, semantics):
+        """The candidate mask of a frame with class-id image ``semantics``:
+        the static mask less the pixels of the ``semantic_filter`` classes."""
+        base = self.base_mask
+        if base is None:
+            base = torch.ones(self.image_shape, dtype=torch.bool, device=self.device)
+        sem = torch.as_tensor(np.asarray(semantics), device=self.device)
+        return filter_semantic_objects(base, sem, self.semantic_filter)
+
     def tick(self, frame_id: int, timestamp: float, image, known_pose: SE3,
-             force_keyframe: bool = False, exposure: float = 1.0):
-        """One bootstrap frame of known pose T_w_c."""
+             force_keyframe: bool = False, semantics=None, exposure: float = 1.0):
+        """One bootstrap frame of known pose T_w_c.  ``semantics``: optional
+        [H, W] class-id image (numpy), as in ``PipelinedTracker.tick``."""
         if known_pose is None:
             raise ValueError("MonocularTracker.tick takes frames of known pose; "
                              "track further frames with PipelinedTracker")
+        if semantics is not None:
+            self._last_semantics = np.asarray(semantics)
+            if self.semantic_filter:
+                self.mask = self.semantic_mask(self._last_semantics)
         d = dict(dtype=self.dtype, device=self.device)
         image = torch.as_tensor(image, **d)
         pose = SE3(torch.as_tensor(known_pose.q, **d), torch.as_tensor(known_pose.t, **d))
@@ -149,6 +169,7 @@ class MonocularTracker:
         cfg = self.config
 
         if frame_count(self.window) == 0:
+            self._on_keyframe(frame_id)
             self.track.on_keyframe(frame_id, timestamp)
             self.num_keyframes += 1
             self.kf_id = frame_id
@@ -184,6 +205,7 @@ class MonocularTracker:
                 flow_without_rotation=flow_no_rot, rmse=0.0))
             return {"keyframe": False, "pose": pose}
 
+        self._on_keyframe(frame_id)
         self.track.on_keyframe(frame_id, timestamp)
         self.num_keyframes += 1
         self.kf_id = frame_id
@@ -196,8 +218,12 @@ class MonocularTracker:
         self.flow_points = ku.flow_points
         self.last_affine = ku.batch["new_affine"]
         self.min_distance = float(ku.min_distance)
-        record_marginalized(self.track, ku.snap, timestamp)
+        record_marginalized(self.track, ku.snap, timestamp, self._kf_semantics)
         return {"keyframe": True, "pose": pose, "energy": float(ku.batch["energy"])}
+
+    def _on_keyframe(self, frame_id):
+        if self._last_semantics is not None:
+            self._kf_semantics[frame_id] = self._last_semantics
 
     def initialize(self, frames):
         """Bootstrap from ``(frame_id, timestamp, image, pose)`` tuples; the

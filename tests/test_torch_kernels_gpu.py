@@ -37,8 +37,10 @@ the Jacobi solver converged; two runs equal to the bit, the window it leaves
 equal; K15p (the policy) flags, outliers and the permutation equal, or, where
 the two best eq (20) scores tie within 1e-6, frame flags that differ on those
 two slots only and the plain triage of the kernel's frame flags; the
-row gather equal to ``table[idx]`` to the bit in f32 and bf16.  K12-K16 run
-with host synchronisation an error.
+row gather equal to ``table[idx]`` to the bit in f32 and bf16; K18 (the
+photometric correction) equal to the bit on u8 and f32 frames, with and
+without a vignette, at VGA and at 479x637.  K12-K16 and K18 run with host
+synchronisation an error.
 
 Run on a machine with a card:
 ``python -m pytest --noconftest tests/test_torch_kernels_gpu.py -q``.
@@ -531,3 +533,44 @@ def test_row_gather_kernel_matches_plain(dtype):
     assert not bool(out_bad[[3, 9]].any()) and torch.equal(out_bad[:3], tab[bad[:3]])
     with pytest.raises(IndexError):
         gather_probe.row_gather(tab, bad)
+
+
+@pytest.mark.parametrize("size", [(480, 640), (479, 637)])
+@pytest.mark.parametrize("raw_dtype", ["u8", "f32"])
+@pytest.mark.parametrize("with_vignette", [False, True])
+def test_photometric_kernel_matches_plain(size, raw_dtype, with_vignette):
+    """K18 equal to its plain version to the bit: u8 and f32 frames (the f32
+    ones reach past both ends of [0, 255]), with and without a vignette (some
+    of it below the 1e-3 floor), at VGA and at a width that is not a multiple
+    of 4; one launch per call, and an unaligned f32 view takes the scalar path
+    to the same result."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from dsopp_tpu_torch.sensors import photometric as ph
+    from dsopp_tpu_torch.testing import paths
+
+    h, w = size
+    gen = torch.Generator(device="cuda").manual_seed(h + w)
+    lut = torch.as_tensor(paths.inverse_response(), device="cuda")
+    if raw_dtype == "u8":
+        raw = torch.randint(0, 256, (h, w), generator=gen, device="cuda", dtype=torch.uint8)
+    else:
+        raw = torch.rand((h, w), generator=gen, device="cuda") * 275.0 - 10.0
+        raw[0, :6] = torch.tensor([0.0, 255.0, 254.5, -0.0, 254.99998, 17.0])
+    vig = None
+    if with_vignette:
+        vig = torch.as_tensor(paths.sensor_vignette(h, w), device="cuda")
+        vig[1, :5] = torch.tensor([0.0, 1e-4, 1e-3, -1.0, 2e-3])
+    before = kernels.PHOTOMETRIC.launches
+    out_k = _no_host_reads(ph.correct_image_cuda, raw, lut, vig)
+    assert kernels.PHOTOMETRIC.launches == before + 1
+    assert out_k.dtype == torch.float32 and tuple(out_k.shape) == (h, w)
+    assert torch.equal(out_k, ph.correct_image_plain(raw, lut, vig))
+    assert torch.equal(ph.correct_image(raw, lut, vig), out_k)
+    if raw_dtype == "f32":
+        flat = torch.empty(h * w + 1, device="cuda")
+        shifted = flat[1:].view(h, w)      # 4 bytes past a 16-byte boundary
+        shifted.copy_(raw)
+        assert torch.equal(ph.correct_image_cuda(shifted, lut, vig), out_k)
+    with pytest.raises(ValueError):
+        ph.correct_image_cuda(raw.double() if raw_dtype == "f32" else raw.t(), lut, vig)

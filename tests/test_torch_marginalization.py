@@ -10,7 +10,8 @@ of the fold kernel's algorithm.
   largest entry of ``jpba._marginalize_device(..., True, True)`` with no
   frame, one frame, two frames, the fixed frame and a frame with no live
   landmark (its block: the two affine priors, rank 2) flagged, at 10 and at
-  17 slots; frame validity, frame ids and landmark validity equal;
+  17 slots; frame validity, frame ids and landmark validity equal; the
+  same cases in f32 within 5e-5, with the cutoff of f32's working precision;
 * the numpy model of ``csrc/marg_fold.cu`` — compaction of the flagged rows,
   parallel-order Jacobi, the cutoff of the identity-padded matrix, the
   Newton step, the permutation — against ``torch.linalg.pinv`` on the padded
@@ -47,6 +48,7 @@ from tests._torch_port import assert_equal, to_np, to_torch, window_fields
 from tests.tracker.test_marg_flags_device import K, _random_window
 
 LEDGER_RTOL = 1e-9
+F32_LEDGER_RTOL = 5e-5   # f32: JAX's eigen-decomposition in f32 against the port's in f64
 N_LM = 24
 DEAD = 4          # the slot whose frame keeps no live landmark and sees none
 # flagged slots of each case (slot 0 is the fixed frame)
@@ -162,6 +164,35 @@ def test_marginalize_matches_jax(seq, filled, name):
     assert int(out_t.frame_valid.sum()) == int(wt.frame_valid.sum()) - len(CASES[name])
 
 
+def _f32(window):
+    return dataclasses.replace(window, **{
+        f.name: getattr(window, f.name).astype(jnp.float32)
+        for f in dataclasses.fields(window) if getattr(window, f.name).dtype == jnp.float64})
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_marginalize_matches_jax_in_f32(seq, filled, name):
+    """The same cases in f32: the reference inverts the flagged block in the
+    working precision, so its cutoff drops every eigenvalue below f32's
+    10·n·eps; the port's fold drops the same ones (a cutoff of f64's keeps
+    3 to 8 of them here and lands 0.26 % to 1.9 % off) and meets JAX's pair-
+    precision ledger within F32_LEDGER_RTOL of its largest entry."""
+    wj, _, perm = _case(filled, name)
+    wj = _f32(wj)
+    wt = convert.window(window_fields(wj), dtype=torch.float32)
+    out_j = jpba._marginalize_device(wj, seq.camera, jnp.asarray(perm), jpba.PBAOptions(),
+                                     True, True)
+    out_t = tpba._marginalize_device(wt, _cam(seq), torch.as_tensor(perm, dtype=torch.int64),
+                                     tpba.PBAOptions())
+    for name_, a, hi, lo in (("H", out_t.h_marg, out_j.h_marg, out_j.h_marg_lo),
+                             ("b", out_t.b_marg, out_j.b_marg, out_j.b_marg_lo)):
+        want = np.asarray(hi, np.float64) + np.asarray(lo, np.float64)
+        err = float(np.max(np.abs(to_np(a) - want))) / float(np.max(np.abs(want)))
+        assert err <= F32_LEDGER_RTOL, f"{name} {name_}: {err:.3g} of the largest entry"
+    assert_equal(out_t.frame_valid, out_j.frame_valid)
+    assert_equal(out_t.lm_valid, out_j.lm_valid)
+
+
 # ---------------------------------------------------------------------------
 # numpy model of csrc/marg_fold.cu
 # ---------------------------------------------------------------------------
@@ -231,7 +262,7 @@ def pinv_model(a, padded_size):
     """X0 of the compact block with the padded matrix's cutoff, then X."""
     lam, v, sweeps = jacobi(a)
     assert sweeps < MAX_SWEEPS
-    cutoff = pinv_rtol(padded_size) * max(1.0, float(np.max(np.abs(lam))))
+    cutoff = pinv_rtol(padded_size, torch.float64) * max(1.0, float(np.max(np.abs(lam))))
     inv = np.where(np.abs(lam) > cutoff, 1.0 / np.where(lam == 0, 1.0, lam), 0.0)
     x0 = (v * inv) @ v.T
     return x0, x0 + x0 @ (np.eye(len(a)) - a @ x0), lam, cutoff
@@ -292,7 +323,7 @@ def test_fold_model_matches_plain(seq, filled, name):
     mask = np.zeros(rows, bool)
     mask[marg_rows] = True
     padded = np.where(mask[:, None] & mask[None, :], hm, np.eye(rows))
-    ref0 = to_np(torch.linalg.pinv(to_torch(padded), rtol=pinv_rtol(rows), hermitian=True))
+    ref0 = to_np(torch.linalg.pinv(to_torch(padded), rtol=pinv_rtol(rows, torch.float64), hermitian=True))
     ref0 = ref0[np.ix_(marg_rows, marg_rows)]
     a = hm[np.ix_(marg_rows, marg_rows)]
     x0, x, lam, cutoff = pinv_model(a, rows)

@@ -16,6 +16,13 @@ JAX package (both f64 on the CPU) at the size of
     ledger ``rmse_last0``, the escalation flag, the keyframe decision and both
     flow statistics, 1e-9 relative and flags exact.
 
+(e) one frontend tick at ``pyramid_levels=1`` (no coarse ranking) from the
+    same converted JAX state, with the re-track gate open and closed, 1e-9.
+
+(f) marked ``slow``: the fast corridor at VGA in f32, the JAX package free
+    on the CPU and the port's frontend from its state before every tick: the
+    same escalation decisions (the re-track gate's record).
+
 Zero-parallax immature points are exempt from the bank comparisons: their
 triangulated inverse depth is rounding noise around 0 (±1e-16; the two
 packages round differently), and its sign decides OOB vs SKIPPED and
@@ -23,6 +30,8 @@ activation readiness.  Free-running, one such flip changes the BA by
 ~1e-5 and the runs drift apart by up to ~1e-2 m at this size, so (c) holds
 the port to the ground truth rather than to the JAX poses.
 """
+
+import dataclasses
 
 import jax.numpy as jnp
 import numpy as np
@@ -37,6 +46,7 @@ from dsopp_tpu.tracker.monocular import TrackerConfig as JConfig
 from dsopp_tpu_torch import convert
 from dsopp_tpu_torch.core.lie import SE3
 from dsopp_tpu_torch.tracker import device_loop as tdl
+from dsopp_tpu_torch.tracker.fused_tick import ENERGY_RATIO_THRESHOLD
 from dsopp_tpu_torch.tracker.monocular import MonocularTracker, TrackerConfig
 
 from tests._torch_port import assert_close, assert_equal, state_fields, to_np, window_fields
@@ -295,6 +305,17 @@ def test_escalation_matches(runs):
     assert bool(j_front.escalated) and front.escalated
     for name in ("pose_q", "pose_t", "affine", "rmse", "num_valid"):
         _close(getattr(front, name), np.asarray(getattr(j_front, name)), name, RTOL)
+    # the gate tested chunk 0's rmse: the JAX frontend's without the re-track
+    _, _, j_chunk0 = jdl._frontend_core(
+        _jax_state(before), jnp.asarray(seq.images[tick]), jnp.asarray(False),
+        runs["jpipe"].models, runs["jpipe"].cfg._replace(with_perturbations=False),
+        jnp.asarray(1.0))
+    _close(front.rmse_chunk0, np.asarray(j_chunk0.rmse), "rmse_chunk0", RTOL)
+    assert float(front.rmse_chunk0) >= 2.5e-3
+    _, diag = tdl._backend_core(convert.device_tracker_state(before), front, False, tick,
+                                tuple(tt.models), tt.loop_config(),
+                                torch.tensor(1.0, dtype=torch.float64))
+    assert diag.rmse_chunk0 is front.rmse_chunk0
 
 
 FAST_FRAMES = 18
@@ -378,7 +399,6 @@ def test_card_paths_match_the_bench():
     card) holds the two operating points and the two sequences of
     ``bench.py``, read from its source: importing it would configure JAX."""
     import ast
-    import dataclasses
     import pathlib
 
     from dsopp_tpu_torch.testing import paths
@@ -410,7 +430,9 @@ def test_card_paths_match_the_bench():
         # the masked path: the standart point on the first frames of the same corridor
         "masked": ("standart", "standart_config"),
         # the long-horizon ledger case of tests/tracker/test_ledger_drift_tracker.py
-        "ledger": ("ledger", "ledger_config")}
+        "ledger": ("ledger", "ledger_config"),
+        # the camera sensor path: the corridor read back from a camera's files
+        "sensor": ("standart", "standart_config")}
     assert paths.path_frames("standart") == consts["NUM_FRAMES"]
     assert paths.INIT_FRAMES < paths.path_frames("masked") <= consts["NUM_FRAMES"]
     assert 0 < paths.MASK_FIRST_INVALID_ROW < paths.HEIGHT
@@ -437,3 +459,97 @@ def test_card_paths_match_the_bench():
     assert paths.SEQUENCES["ledger"] == dict(num_frames=drift.NUM_FRAMES, advance=0.07, seed=5)
     assert paths.SIZES["ledger"] == (drift.H, drift.W, 260.0)   # render_sequence's focal
     assert paths.INIT_FRAMES == drift.INIT_FRAMES
+
+
+@pytest.fixture(scope="module")
+def one_level():
+    """The JAX tracker bootstrapped at ``pyramid_levels=1`` and its state
+    before the first tracked frame."""
+    cfg = dict(CFG, pyramid_levels=1)
+    seq = render_sequence(num_frames=INIT_FRAMES + 1, height=H, width=W)
+    jt = JTracker(seq.camera, JConfig(**cfg), dtype=jnp.float64)
+    jt.initialize([(i, float(seq.timestamps[i]), seq.images[i],
+                    JSE3(jnp.asarray(seq.pose_t_wc(i).q), jnp.asarray(seq.pose_t_wc(i).t)))
+                   for i in range(INIT_FRAMES)])
+    jpipe = jdl.PipelinedTracker(jt, flush_every=1000)
+    cam = convert.pinhole(seq.camera.fx, seq.camera.fy, seq.camera.cx, seq.camera.cy,
+                          seq.camera.image_size)
+    port = MonocularTracker(cam, TrackerConfig(**cfg), dtype=torch.float64, device="cpu")
+    return seq, jpipe, _copy(state_fields(jpipe.state)), port
+
+
+@pytest.mark.parametrize("gate", ["open", "closed"])
+def test_one_level_tick_matches(one_level, gate):
+    """With one pyramid level there is no coarse ranking: level 0 refines
+    every hypothesis of a chunk and keeps the least energy per point among
+    those with at least half the chunk's most valid points, as the JAX tick
+    does.  The frontend from the same converted JAX state, with the re-track
+    gate as the state has it and closed (all 22 chunks run); 1e-9 relative."""
+    seq, jpipe, before, port = one_level
+    if gate == "closed":
+        before = dict(before, rmse_last0=np.asarray(1e-3))
+    tick = INIT_FRAMES
+    j_base, j_need, j_front = jdl._frontend_core(
+        _jax_state(before), jnp.asarray(seq.images[tick]), jnp.asarray(False),
+        jpipe.models, jpipe.cfg, jnp.asarray(1.0))
+    base, need, front = tdl._frontend_core(convert.device_tracker_state(before),
+                                           torch.as_tensor(seq.images[tick]), False,
+                                           tuple(port.models), port.loop_config(),
+                                           torch.tensor(1.0, dtype=torch.float64))
+    assert len(front.maps) == 1
+    assert need == bool(j_need)
+    assert front.escalated == bool(j_front.escalated) == (gate == "closed")
+    for name in ("pose_q", "pose_t", "affine", "rmse", "num_valid", "flow", "flow_no_rot"):
+        _close(getattr(front, name), np.asarray(getattr(j_front, name)), name, RTOL)
+    _compare_state(base, _copy(state_fields(j_base)), RTOL)
+
+
+# the fast corridor at VGA, as bench.py and chip_smoke's fast path run it
+FAST_VGA = dict(num_frames=96, height=480, width=640, focal=520.0, advance=0.13, seed=11)
+GATE_TIE = 1e-3      # a chunk-0 rmse ratio within 0.1 % of the gate's 2.5 is a tie
+
+
+@pytest.mark.slow
+def test_fast_corridor_escalations_match_in_f32():
+    """Which frames of the fast corridor escalate (frames 6..95 at VGA, the
+    standart point, f32): the JAX package runs free on the CPU, and before
+    every tick the port's plain f32 frontend starts from the JAX state.  Both
+    take the same escalation decision on every tick, unless chunk 0's rmse
+    ratio lies within ``GATE_TIE`` of the gate; the JAX run's own escalations
+    are printed (the TPU's record is 13, BENCH_r05.json)."""
+    from dsopp_tpu_torch.testing import paths
+
+    f32 = jnp.float32
+    fields = dataclasses.asdict(paths.standart_config())
+    seq = render_sequence(**FAST_VGA)
+    jt = JTracker(seq.camera, JConfig(**fields), dtype=f32)
+    jt.initialize([(i, float(seq.timestamps[i]), jnp.asarray(seq.images[i], f32),
+                    JSE3(jnp.asarray(seq.pose_t_wc(i).q, f32), jnp.asarray(seq.pose_t_wc(i).t, f32)))
+                   for i in range(paths.INIT_FRAMES)])
+    jpipe = jdl.PipelinedTracker(jt, flush_every=1000)
+    cam = convert.pinhole(seq.camera.fx, seq.camera.fy, seq.camera.cx, seq.camera.cy,
+                          seq.camera.image_size)
+    port = MonocularTracker(cam, TrackerConfig(**fields), dtype=torch.float32, device="cpu")
+    models, cfg = tuple(port.models), port.loop_config()
+    exposure = torch.tensor(1.0, dtype=torch.float32)
+    rows = []
+    for i in range(paths.INIT_FRAMES, FAST_VGA["num_frames"]):
+        before = _copy(state_fields(jpipe.state))
+        image = jnp.asarray(seq.images[i], f32)
+        jpipe.tick(i, float(seq.timestamps[i]), image)
+        j_diag = jpipe.pending[-1][2]
+        _, need, front = tdl._frontend_core(
+            convert.device_tracker_state(before, dtype=torch.float32),
+            torch.from_numpy(np.array(image)), False, models, cfg, exposure)
+        ratio = float(front.rmse_chunk0) / float(before["rmse_last0"])
+        rows.append((i, bool(j_diag.escalated), front.escalated, bool(j_diag.is_keyframe), need,
+                     ratio))
+    jpipe.finalize()
+    j_esc = [i for i, je, *_ in rows if je]
+    t_esc = [i for i, _, te, *_ in rows if te]
+    kf_agree = sum(jk == tk for *_, jk, tk, _ in rows)
+    print(f"fast corridor, f32: JAX escalates on {j_esc}, the port from JAX's state on {t_esc};"
+          f" keyframe decisions agree on {kf_agree} of {len(rows)}; largest chunk-0 ratio"
+          f" {max(r[-1] for r in rows[1:]):.4f}")
+    for i, je, te, _, _, ratio in rows:
+        assert je == te or abs(ratio / ENERGY_RATIO_THRESHOLD - 1.0) <= GATE_TIE, (i, je, te, ratio)
