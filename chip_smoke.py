@@ -20,7 +20,14 @@ Phases, one line each with its time:
    over 67 TFLOP/s, whichever is larger, counted from this run's inputs).
    The windowed-BA kernels are held twice: on a standart.yaml window (10
    frame slots × 250 landmarks; K6–K8 are timed there) and on a dense.yaml
-   window (17 × 340, at least 12 valid frames; K9–K11 are timed there).  K4
+   window (17 × 340, at least 12 valid frames; K9–K11 are timed there).  K9
+   also on systems of K = 10, 17 and 21 slots whose rows need a swap at
+   nearly every column, with a dead slot, against the plain version in f64,
+   and without ledger and Schur term to the bit against the column-by-column
+   LU in f64 (``testing/blocked_lu.py``); every K9 case and K3 at 1, 5 and 105 hypotheses run twice and must be
+   equal to the bit; K9 and ``torch.linalg.solve_ex`` on the same assembled
+   system, and K3 at each of the three, are printed with the profiler's
+   device time.  K4
    and K5 are held twice as well: on the standart bootstrap (10 banks × 800
    immature points; timed there) and on that dense window (17 × 1200).  The
    keyframe backend's kernels K12–K14 and K16 are held on both windows too,
@@ -233,6 +240,25 @@ def cuda_ms(fn, reps=50):
     return timed(fn, reps)
 
 
+def device_us(torch, fn, reps=20):
+    """Device time of ``fn`` per call, µs: the profiler's time of every kernel
+    it launches, summed (not measured: None)."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.time_range.elapsed_us() for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA)
+    return total / reps if total > 0 else None
+
+
+def fmt_us(us):
+    return "not measured" if us is None else f"{us:.2f} device µs"
+
+
 def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -410,6 +436,14 @@ def parity_align(tracker, maps, torch, rows):
     args105 = level_args(1, t, aff) + (opts,)
     res_k, res_p = pa.align_level_cuda(*args105), pa.align_level_plain(*args105)
     err3 = max(err3, check_k3(f"level 1, {nb - CHUNK} hypotheses", res_k, res_p))
+
+    # two runs equal to the bit (the caller takes an argmin over energies)
+    for label, case in (("level 0, 1 hypothesis", args_l0), ("level 1, 5 hypotheses", timed[0]),
+                        (f"level 1, {nb - CHUNK} hypotheses", args105)):
+        require(par.align_level_equal(pa.align_level_cuda(*case), pa.align_level_cuda(*case)),
+                f"K3 {label}: two runs differ")
+        log(f"  K3 {label}: two runs equal to the bit;"
+            f" {fmt_us(device_us(torch, lambda: pa.align_level_cuda(*case)))} a launch")
 
     args1, res1 = timed
     iters, nv = res1.iterations.double(), res1.num_valid.double()
@@ -777,7 +811,7 @@ def parity_ba(seq, tracker, torch, rows, label, every, min_frames, timed):
     require(frames >= min_frames, f"the {label} parity window holds fewer than {min_frames} frames")
 
     def row(name, **fields):
-        rows[name] = dict(library_ms=None, **fields)
+        rows[name] = {"library_ms": None, **fields}
 
     # K6
     fej_k, fej_p = pba._fej_cache_cuda(win, model), pba._fej_cache_plain(win, model)
@@ -871,15 +905,49 @@ def parity_ba(seq, tracker, torch, rows, label, every, min_frames, timed):
             f" {plain['step']:.2e} / {plain['d_step']:.2e}; squared norms {e64['pose_sq']:.2e}"
             f" / {e64['d_sq']:.2e}")
         require(float((out_64[0] - eps.double()).abs().max()) > 0, f"K9 ({label}): zero step")
+        again = pba._solve_step_cuda(filled, sys_p, eps, idepth, lam, opts)
+        require(all(torch.equal(a, b) for a, b in zip(out_k, again)),
+                f"K9 ({label}) lam={lam:.0e}: two runs differ")
     require(err9 <= 1e-4, f"K9 ({label}): step differs by {err9:.3g} of its norm from the plain"
             " version in f64 arithmetic")
+    log(f"  K9 ({label}): two runs equal to the bit at both lam")
     if "ba_solve_step" in timed:
+        # K = 10, 17 and 21 (the kernel's limit) on systems whose rows need a
+        # swap at nearly every column, with a dead slot
+        for k_syn in (10, 17, 21):
+            problem = par.step_problem(k_syn, n, k_syn, "cuda")
+            out_k = pba._solve_step_cuda(*problem, lam0, opts)
+            out_64 = pba._solve_step_plain(*par.step_problem_f64(*problem), lam0, opts)
+            e64 = par.solve_step_errors(out_k, out_64, problem[2], problem[3])
+            same = all(torch.equal(a, b) for a, b in
+                       zip(out_k, pba._solve_step_cuda(*problem, lam0, opts)))
+            # the same system with no ledger and no Schur term, which K9 and
+            # the plain assembly build to the bit: the kernel's step must be
+            # the column-by-column LU's, bit for bit
+            exact = par.exact_step_problem(k_syn, n, k_syn, "cuda")
+            step_u, pivots_u = par.unblocked_step(*exact[:3], lam0)
+            bits = torch.equal(pba._solve_step_cuda(*exact, lam0, opts)[0], step_u)
+            swaps = sum(p != i for i, p in enumerate(pivots_u))
+            log(f"  K9 pivoting system K = {k_syn}: step / idepth step vs plain f64"
+                f" {e64['step']:.2e} / {e64['d_step']:.2e}, two runs equal: {same}; without"
+                f" ledger and Schur term the step equals the column-by-column LU's ({swaps}"
+                f" row swaps in {8 * k_syn} columns) to the bit: {bits}")
+            require(e64["step"] <= 1e-4 and e64["d_step"] <= 1e-4 and same and bits,
+                    f"K9 pivoting system K = {k_syn}: {e64}, two runs equal: {same}, equal to"
+                    f" the column-by-column LU: {bits}")
         h_full, b_full, _ = pba._assemble_step_system(filled, sys_p, eps, lam0)
         yard = cuda_ms(lambda: torch.linalg.solve_ex(h_full, b_full[:, None]))
-        log(f"  K9 yardstick ({label}): torch.linalg.solve_ex on the assembled {kb}x{kb}"
-            f" system {yard:.4f} ms (the solve only)")
-        row("ba_solve_step", max_abs_err=abs9,
-            ms=cuda_ms(lambda: pba._solve_step_cuda(filled, sys_p, eps, idepth, lam0, opts)),
+
+        def step_call():
+            return pba._solve_step_cuda(filled, sys_p, eps, idepth, lam0, opts)
+
+        call = cuda_ms(step_call)
+        k9_us = device_us(torch, step_call)
+        yard_us = device_us(torch, lambda: torch.linalg.solve_ex(h_full, b_full[:, None]))
+        log(f"  K9 against its yardstick ({label}, {kb}x{kb}): call {call:.4f} ms,"
+            f" {fmt_us(k9_us)}; torch.linalg.solve_ex on the assembled system (the solve"
+            f" only) {yard:.4f} ms, {fmt_us(yard_us)}")
+        row("ba_solve_step", max_abs_err=abs9, library_ms=yard, ms=call,
             plain_ms=cuda_ms(lambda: pba._solve_step_plain(filled, sys_p, eps, idepth, lam0, opts)),
             **bound(nbytes(sys_p.h_pose, sys_p.b_pose, sys_p.h_schur, sys_p.b_schur, sys_p.hpd,
                            sys_p.inv_hdd, sys_p.b_d, filled.h_marg, filled.b_marg, eps, idepth,

@@ -1,12 +1,14 @@
-// Shared device code of the frontend pose alignment: the per-hypothesis
-// residual pass of K2 (csrc/align.cu), which the LM loop K3
-// (csrc/align_level.cu) calls once per iteration.
+// Shared device code of the frontend pose alignment: one reference point's
+// residual and its terms of the 8x8 Gauss-Newton system
+// (align::accumulate_point), which the residual pass of K2 (csrc/align.cu)
+// and the LM loop K3 (csrc/align_level.cu) both run, and K2's block pass.
 //
-// One block works on one pose hypothesis: 256 threads stride over the
+// K2's block works on one pose hypothesis: 256 threads stride over the
 // points, each accumulating its 36 upper-triangle H entries, 8 b entries,
 // the energy and the count in registers; then a fixed-order reduction (warp
 // butterfly, then warps in index order) — deterministic, no atomics, because
-// the caller ranks hypotheses by an argmin over energies.
+// the caller ranks hypotheses by an argmin over energies.  K3 spreads a
+// hypothesis over a cluster of blocks and reduces its own way.
 
 #pragma once
 
@@ -61,6 +63,83 @@ static __device__ __forceinline__ Vec3 quat_rotate(float qw, Vec3 u, Vec3 v) {
           v.z + 2.0f * (qw * uv.z + uuv.z)};
 }
 
+// One reference point's terms for hypothesis `ps`: ray = its normalised
+// image coordinates ((u - cx) / fx, (v - cy) / fy), d its inverse depth, ib
+// its intensity minus the reference's affine b, scale = ratio exp(a - a_r).
+// Adds its 36 upper-triangle H entries, 8 b entries and energy to
+// acc[0..kAcc) and returns true, or returns false where the point projects
+// out of the image or fails a depth test.
+static __device__ __forceinline__ bool accumulate_point(const Problem& prob, const Pose& ps,
+                                                        float scale, float rx, float ry,
+                                                        float d, float ib, float* acc) {
+  const float sigma = prob.sigma, sigma_sq = prob.sigma * prob.sigma;
+  const float fx = prob.fx, fy = prob.fy, cx = prob.cx, cy = prob.cy;
+  const int h = prob.h, w = prob.w;
+  const size_t plane = (size_t)h * w;
+  const Vec3 ray = {rx, ry, 1.0f};
+  const Vec3 rot = quat_rotate(ps.qw, ps.qu, ray);
+  const Vec3 q = {rot.x + d * ps.t.x, rot.y + d * ps.t.y, rot.z + d * ps.t.z};
+  const float z_safe = fabsf(q.z) < 1e-12f ? 1e-12f : q.z;
+  const float iz = 1.0f / z_safe;
+  const float iz2 = iz * iz;
+  const float u_t = fx * q.x * iz + cx;
+  const float v_t = fy * q.y * iz + cy;
+  const bool ok_proj = (q.z >= 1e-3f) && u_t >= 4.0f && v_t >= 4.0f &&
+                       u_t <= prob.width - 4.0f - 1.0f && v_t <= prob.height - 4.0f - 1.0f;
+  const bool ok_z = q.z >= 1e-3f * fmaxf(d, 0.0f) + 1e-12f;
+  const bool ok_d = d > -1e-4f && d < 1010.0f;
+  const bool inside = u_t >= 0.0f && v_t >= 0.0f && u_t <= (float)(w - 1) &&
+                      v_t <= (float)(h - 1);
+  if (!(ok_proj && ok_z && ok_d && inside)) return false;
+
+  // bilinear sample of (I, dx, dy): weights against the floor, index clamped
+  const float fxl = floorf(u_t), fyl = floorf(v_t);
+  const float ax = u_t - fxl, ay = v_t - fyl;
+  const int ix = min(max((int)fxl, 0), w - 2);
+  const int iy = min(max((int)fyl, 0), h - 2);
+  const size_t base = (size_t)iy * w + ix;
+  const float w00 = (1.0f - ax) * (1.0f - ay), w01 = ax * (1.0f - ay);
+  const float w10 = (1.0f - ax) * ay, w11 = ax * ay;
+  float s[3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    const float* m = prob.map + c * plane + base;
+    s[c] = ((__ldg(m) * w00 + __ldg(m + 1) * w01) + __ldg(m + w) * w10) +
+           __ldg(m + w + 1) * w11;
+  }
+
+  const float corrected = scale * ib;
+  const float r = (s[0] - ps.b) - corrected;
+  const float r2 = r * r;
+  const float norm = sqrtf(fmaxf(r2, 1e-30f));
+  const bool linear = r2 > sigma_sq;
+  const float energy = linear ? sigma * norm - 0.5f * sigma_sq : 0.5f * r2;
+  const float weight = linear ? sigma / norm : 1.0f;
+
+  // d(uv)/d(left tangent of t_t_r) = [d J | -(J rows x q)]
+  const Vec3 j0 = {fx * iz, 0.0f, -fx * q.x * iz2};
+  const Vec3 j1 = {0.0f, fy * iz, -fy * q.y * iz2};
+  const Vec3 c0 = cross(j0, q), c1 = cross(j1, q);
+  const float du0[6] = {d * j0.x, d * j0.y, d * j0.z, -c0.x, -c0.y, -c0.z};
+  const float du1[6] = {d * j1.x, d * j1.y, d * j1.z, -c1.x, -c1.y, -c1.z};
+  float jac[8];
+#pragma unroll
+  for (int i = 0; i < 6; ++i) jac[i] = s[1] * du0[i] + s[2] * du1[i];
+  jac[6] = -corrected;
+  jac[7] = -1.0f;
+
+  int k = 0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const float wj = jac[i] * weight;
+#pragma unroll
+    for (int j = i; j < 8; ++j) acc[k++] += wj * jac[j];
+    acc[36 + i] += wj * r;
+  }
+  acc[kEnergy] += energy;
+  return true;
+}
+
 // Residuals and the 8x8 Gauss-Newton system of hypothesis `ps`, without the
 // affine priors.  Every thread of the block calls it; `part` is block
 // scratch.  On return (a __syncthreads() has passed) sys[0..35] is H's upper
@@ -69,10 +148,6 @@ static __device__ __forceinline__ Vec3 quat_rotate(float qw, Vec3 u, Vec3 v) {
 static __device__ void residual_system_block(const Problem& prob, const Pose& ps,
                                              float (*part)[kSys], float* sys) {
   const float scale = prob.ratio * expf(ps.a - prob.a_r);
-  const float sigma = prob.sigma, sigma_sq = prob.sigma * prob.sigma;
-  const float fx = prob.fx, fy = prob.fy, cx = prob.cx, cy = prob.cy;
-  const int h = prob.h, w = prob.w;
-  const size_t plane = (size_t)h * w;
 
   float acc[kAcc];
 #pragma unroll
@@ -81,69 +156,11 @@ static __device__ void residual_system_block(const Problem& prob, const Pose& ps
 
   for (int p = threadIdx.x; p < prob.n; p += kThreads) {
     if (!prob.valid[p]) continue;
-    const float d = prob.idepth[p];
-    const Vec3 ray = {(prob.uv[2 * p] - cx) / fx, (prob.uv[2 * p + 1] - cy) / fy, 1.0f};
-    const Vec3 rot = quat_rotate(ps.qw, ps.qu, ray);
-    const Vec3 q = {rot.x + d * ps.t.x, rot.y + d * ps.t.y, rot.z + d * ps.t.z};
-    const float z_safe = fabsf(q.z) < 1e-12f ? 1e-12f : q.z;
-    const float iz = 1.0f / z_safe;
-    const float iz2 = iz * iz;
-    const float u_t = fx * q.x * iz + cx;
-    const float v_t = fy * q.y * iz + cy;
-    const bool ok_proj = (q.z >= 1e-3f) && u_t >= 4.0f && v_t >= 4.0f &&
-                         u_t <= prob.width - 4.0f - 1.0f && v_t <= prob.height - 4.0f - 1.0f;
-    const bool ok_z = q.z >= 1e-3f * fmaxf(d, 0.0f) + 1e-12f;
-    const bool ok_d = d > -1e-4f && d < 1010.0f;
-    const bool inside = u_t >= 0.0f && v_t >= 0.0f && u_t <= (float)(w - 1) &&
-                        v_t <= (float)(h - 1);
-    if (!(ok_proj && ok_z && ok_d && inside)) continue;
-
-    // bilinear sample of (I, dx, dy): weights against the floor, index clamped
-    const float fxl = floorf(u_t), fyl = floorf(v_t);
-    const float ax = u_t - fxl, ay = v_t - fyl;
-    const int ix = min(max((int)fxl, 0), w - 2);
-    const int iy = min(max((int)fyl, 0), h - 2);
-    const size_t base = (size_t)iy * w + ix;
-    const float w00 = (1.0f - ax) * (1.0f - ay), w01 = ax * (1.0f - ay);
-    const float w10 = (1.0f - ax) * ay, w11 = ax * ay;
-    float s[3];
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      const float* m = prob.map + c * plane + base;
-      s[c] = ((__ldg(m) * w00 + __ldg(m + 1) * w01) + __ldg(m + w) * w10) +
-             __ldg(m + w + 1) * w11;
-    }
-
-    const float corrected = scale * (prob.intensity[p] - prob.b_r);
-    const float r = (s[0] - ps.b) - corrected;
-    const float r2 = r * r;
-    const float norm = sqrtf(fmaxf(r2, 1e-30f));
-    const bool linear = r2 > sigma_sq;
-    const float energy = linear ? sigma * norm - 0.5f * sigma_sq : 0.5f * r2;
-    const float weight = linear ? sigma / norm : 1.0f;
-
-    // d(uv)/d(left tangent of t_t_r) = [d J | -(J rows x q)]
-    const Vec3 j0 = {fx * iz, 0.0f, -fx * q.x * iz2};
-    const Vec3 j1 = {0.0f, fy * iz, -fy * q.y * iz2};
-    const Vec3 c0 = cross(j0, q), c1 = cross(j1, q);
-    const float du0[6] = {d * j0.x, d * j0.y, d * j0.z, -c0.x, -c0.y, -c0.z};
-    const float du1[6] = {d * j1.x, d * j1.y, d * j1.z, -c1.x, -c1.y, -c1.z};
-    float jac[8];
-#pragma unroll
-    for (int i = 0; i < 6; ++i) jac[i] = s[1] * du0[i] + s[2] * du1[i];
-    jac[6] = -corrected;
-    jac[7] = -1.0f;
-
-    int k = 0;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const float wj = jac[i] * weight;
-#pragma unroll
-      for (int j = i; j < 8; ++j) acc[k++] += wj * jac[j];
-      acc[36 + i] += wj * r;
-    }
-    acc[kEnergy] += energy;
-    ++count;
+    const float rx = (prob.uv[2 * p] - prob.cx) / prob.fx;
+    const float ry = (prob.uv[2 * p + 1] - prob.cy) / prob.fy;
+    if (accumulate_point(prob, ps, scale, rx, ry, prob.idepth[p], prob.intensity[p] - prob.b_r,
+                         acc))
+      ++count;
   }
 
   // fixed-order reduction: butterfly within warps, then warps in order

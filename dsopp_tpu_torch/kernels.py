@@ -160,7 +160,7 @@ BA_EVALUATE = Kernel("ba_evaluate", "ba_evaluate",
 BA_LINEARIZE = Kernel("ba_linearize_schur", "ba_linearize_schur",
                       [_P] * 16 + [_I, _I, _I] + [_F] * 5 + [_I, _I] + [_P] * 11)
 BA_SOLVE = Kernel("ba_solve_step", "ba_solve_step",
-                  [_P] * 12 + [_I, _I, _F, _I] + [_P] * 6)
+                  [_P] * 12 + [_I, _I, _F, _I] + [_P] * 7)
 BA_LM = Kernel("ba_lm", "ba_lm", [_I] * 6 + [_F] * 7 + [_P] * 30)
 BA_STATUS = Kernel("ba_point_status", "ba_point_status",
                    [_P] * 11 + [_I, _I, _F, _F, _I] + [_P] * 6)

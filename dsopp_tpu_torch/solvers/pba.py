@@ -546,13 +546,27 @@ def _solve_step_plain(window: Window, sys: LinearSystem, eps, idepth, lam, opts:
 _BACKSUB_BLOCK_LM = 8
 
 
-def _solve_step_buffers(k: int, n: int, dtype, device):
-    """What kernel K9 writes: its scratch (step, d_part), then eps', idepth'
-    and step_sq [2]."""
+def _solve_step_scratch(k: int, n: int, dtype, device):
+    """Kernel K9's scratch (step [8k], d_part [blocks], the assembled f64
+    system [8k (8k + 1)])."""
     kw = dict(dtype=dtype, device=device)
     blocks = -(-(k * n) // _BACKSUB_BLOCK_LM)
-    return (torch.empty((k * BLOCK,), **kw), torch.empty((blocks,), **kw),
+    kb = k * BLOCK
+    return (torch.empty((kb,), **kw), torch.empty((blocks,), **kw),
+            torch.empty((kb * (kb + 1),), dtype=torch.float64, device=device))
+
+
+def _solve_step_buffers(k: int, n: int, dtype, device, scratch=None):
+    """What kernel K9 writes: its scratch (step, d_part, system; new unless
+    given), then eps', idepth' and step_sq [2]."""
+    kw = dict(dtype=dtype, device=device)
+    return (*(scratch or _solve_step_scratch(k, n, dtype, device)),
             torch.empty((k, BLOCK), **kw), torch.empty((k, n), **kw), torch.empty((2,), **kw))
+
+
+# K9's scratch by (k, n, dtype, device), reused by every call outside the LM
+# loop: the kernels read it only after writing it, in stream order
+_SOLVE_STEP_SCRATCH = {}
 
 
 def _solve_step_launch(window: Window, sys: LinearSystem, eps, idepth, lam, lm_state,
@@ -579,18 +593,25 @@ def _solve_step_launch(window: Window, sys: LinearSystem, eps, idepth, lam, lm_s
     check(window.frame_valid, "frame_valid", (k,), torch.bool)
     check(eps, "eps", (k, BLOCK))
     check(idepth, "idepth", (k, n))
-    step, d_part, eps_new, idepth_new, step_sq = \
+    step, d_part, system, eps_new, idepth_new, step_sq = \
         buffers or _solve_step_buffers(k, n, eps.dtype, eps.device)
+    check(system, "system", (kb * (kb + 1),), torch.float64)
     kernels.BA_SOLVE(sys.h_pose, sys.b_pose, sys.h_schur, sys.b_schur, window.h_marg,
                      window.b_marg, eps, idepth, window.frame_valid, sys.hpd, sys.inv_hdd,
                      sys.b_d, k, n, 0.0 if lam is None else float(lam), d_part.shape[0],
-                     lm_state, step, d_part, eps_new, idepth_new, step_sq)
+                     lm_state, step, d_part, system, eps_new, idepth_new, step_sq)
     return eps_new, idepth_new, step_sq
 
 
 def _solve_step_cuda(window: Window, sys: LinearSystem, eps, idepth, lam, opts: PBAOptions):
-    """Kernel K9: same outputs as :func:`_solve_step_plain`."""
-    eps_new, idepth_new, step_sq = _solve_step_launch(window, sys, eps, idepth, lam, None)
+    """Kernel K9: same outputs as :func:`_solve_step_plain`, in new tensors
+    (the scratch is kept per shape)."""
+    key = (window.num_slots, window.num_landmark_slots, eps.dtype, eps.device)
+    if key not in _SOLVE_STEP_SCRATCH:
+        _SOLVE_STEP_SCRATCH[key] = _solve_step_scratch(*key)
+    buffers = _solve_step_buffers(*key, scratch=_SOLVE_STEP_SCRATCH[key])
+    eps_new, idepth_new, step_sq = _solve_step_launch(window, sys, eps, idepth, lam, None,
+                                                      buffers)
     return eps_new, idepth_new, step_sq[0], step_sq[1]
 
 

@@ -223,8 +223,8 @@ def align_level_cuda(pts: LevelPoints, pixel_map, model, t_init: SE3, affine_ini
                      affine_ref, exposure_ratio,
                      opts: AlignmentOptions = AlignmentOptions(), trace: list = None):
     """Kernel K3: same result as :func:`align_level_plain`, in one launch
-    (one block per hypothesis) and without a host read.  ``trace`` as there,
-    with ``opts.max_iterations + 1`` passes."""
+    (a cluster of blocks per hypothesis) and without a host read.  ``trace``
+    as there, with ``opts.max_iterations + 1`` passes."""
     n, nb, h_px, w_px, ref = _check_problem(pts, pixel_map, t_init, affine_init,
                                             affine_ref, exposure_ratio)
     dev, dt = affine_init.device, affine_init.dtype

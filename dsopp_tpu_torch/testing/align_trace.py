@@ -49,20 +49,22 @@ def small_tracker():
     return tracker, maps
 
 
-def level_cases(tracker, maps):
-    """The arguments of ``align_level`` for every case of ``CASES``: the next
-    frame's hypotheses (5 base ones, then the perturbations) at that level."""
+def level_cases(tracker, maps, cases=CASES):
+    """The arguments of ``align_level`` for every (level, hypotheses) case of
+    ``cases``: the next frame's hypotheses (5 base ones, then the
+    perturbations) at that level, the first ``hypotheses`` of them (None: all;
+    negative: the last ones)."""
     kf = tracker._kf_pose()
     hyps = _initialization_hypotheses(tracker.t_w_last, tracker.t_prev_rel, kf, True)
     nb = hyps.q.shape[0]
     t = hyps.inverse().compose(SE3(kf.q.expand(nb, 4), kf.t.expand(nb, 3)))
     aff = tracker.last_affine.expand(nb, 2).contiguous()
     ratio = torch.tensor(1.0, device="cuda")
-    for level, count in CASES:
-        count = nb if count is None else count
+    for level, count in cases:
+        take = slice(None) if count is None else (slice(count) if count > 0 else slice(count, None))
         yield level, (tracker.level_points[level], maps[level], tracker.models[level],
-                      SE3(t.q[:count].contiguous(), t.t[:count].contiguous()),
-                      aff[:count].contiguous(), tracker.last_affine, ratio, tracker.align_opts)
+                      SE3(t.q[take].contiguous(), t.t[take].contiguous()),
+                      aff[take].contiguous(), tracker.last_affine, ratio, tracker.align_opts)
 
 
 def in_f64(args):

@@ -6,15 +6,19 @@ so each call reads the device."""
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from dsopp_tpu_torch.core.lie import SE3, quat_conjugate, quat_multiply
 from dsopp_tpu_torch.core.reproject import reproject
 from dsopp_tpu_torch.features.pyramid import build_pyramid_maps
 from dsopp_tpu_torch.solvers.linear import pinv_rtol
-from dsopp_tpu_torch.solvers.pba import (BLOCK, RES_OOB, _marginalize_plain, _prior_system,
-                                         frame_count, push_frame_slot)
+from dsopp_tpu_torch.solvers.pba import (BLOCK, LEDGER_DTYPE, RES_OOB, LinearSystem,
+                                         _assemble_step_system, _marginalize_plain,
+                                         _prior_system, frame_count, push_frame_slot)
+from dsopp_tpu_torch.testing.blocked_lu import unblocked_solve
 from dsopp_tpu_torch.tracker.depth_estimation import estimate_depths
 from dsopp_tpu_torch.tracker.depth_map import _older_landmarks
 from dsopp_tpu_torch.tracker.fused_keyframe import immature_bank, set_bank
@@ -87,6 +91,13 @@ def align_level_errors(res_k, res_p) -> dict:
         rotation=2.0 * dq[:, 1:].norm(dim=-1),
         translation=(res_k.t_t_r.t.double() - res_p.t_t_r.t.double()).norm(dim=-1),
         affine=(res_k.affine.double() - res_p.affine.double()).abs().amax(dim=-1))
+
+
+def align_level_equal(res_a, res_b) -> bool:
+    """Two K3 results equal to the bit, field by field."""
+    fields = lambda r: (r.t_t_r.q, r.t_t_r.t, r.affine, r.energy, r.num_valid,  # noqa: E731
+                        r.rmse, r.iterations)
+    return all(torch.equal(a, b) for a, b in zip(fields(res_a), fields(res_b)))
 
 
 # K3's LM loop decides by the relative change of the energy at a trial, against
@@ -178,6 +189,80 @@ def solve_step_errors(out_k, out_p, eps, idepth) -> dict:
         step=float((out_k[0].double() - out_p[0].double()).norm() / step_p.norm().clamp(min=1e-300)),
         d_step=float((out_k[1].double() - out_p[1].double()).norm() / d_p.norm().clamp(min=1e-300)),
         pose_sq=rel_max(out_k[2], out_p[2]), d_sq=rel_max(out_k[3], out_p[3]))
+
+
+class StepWindow(NamedTuple):
+    """What K9 and its plain version read of a window."""
+
+    h_marg: torch.Tensor       # [8k, 8k] f64
+    b_marg: torch.Tensor       # [8k] f64
+    frame_valid: torch.Tensor  # [k] bool
+    num_slots: int
+    num_landmark_slots: int
+
+
+def step_problem(k: int, n: int, seed: int, device):
+    """A pose system of K9's shapes from numpy's generator → (StepWindow,
+    LinearSystem, eps, idepth), f32 but the f64 ledger.  h_pose is a well
+    conditioned matrix (singular values within 0.8 of 2) with its live rows in a
+    random order, so partial pivoting swaps rows at nearly every column, the first
+    included; the ledger and the Schur term move its singular values by less
+    than 0.3; slot 3 is a dead frame."""
+    rng = np.random.default_rng(seed)
+    kb = k * BLOCK
+    f32 = dict(dtype=torch.float32, device=device)
+    valid = np.ones(k, dtype=bool)
+    valid[3] = False
+    live = np.flatnonzero(np.repeat(valid, BLOCK))
+    h = 0.4 * rng.normal(size=(kb, kb)) / np.sqrt(kb) + 2.0 * np.eye(kb)
+    perm = rng.permutation(live.size)
+    while live[perm[0]] == live[0]:
+        perm = rng.permutation(live.size)
+    h[live] = h[live[perm]]
+    a = rng.normal(size=(kb, kb)) / np.sqrt(kb)
+    h_marg = 0.02 * (a @ a.T)
+    s = rng.normal(size=(kb, kb)) / np.sqrt(kb)
+    win = StepWindow(torch.tensor(h_marg, dtype=LEDGER_DTYPE, device=device),
+                     torch.tensor(rng.normal(size=kb), dtype=LEDGER_DTYPE, device=device),
+                     torch.tensor(valid, device=device), k, n)
+    sys = LinearSystem(torch.tensor(h, **f32), torch.tensor(rng.normal(size=kb), **f32),
+                       torch.tensor(0.04 * (s @ s.T), **f32),
+                       torch.tensor(0.3 * rng.normal(size=kb), **f32),
+                       torch.tensor(0.1 * rng.normal(size=(k, n, k, BLOCK)), **f32),
+                       torch.tensor(rng.uniform(0.5, 2.0, size=(k, n)), **f32),
+                       torch.tensor(rng.normal(size=(k, n)), **f32))
+    eps = torch.tensor(1e-3 * rng.normal(size=(k, BLOCK)) * valid[:, None], **f32)
+    idepth = torch.tensor(rng.uniform(0.2, 2.0, size=(k, n)), **f32)
+    return win, sys, eps, idepth
+
+
+def exact_step_problem(k: int, n: int, seed: int, device):
+    """:func:`step_problem` with no ledger, no Schur term and eps 0: K9 and
+    ``pba._assemble_step_system`` then build the same f32 system to the bit
+    (h_pose with its damped diagonal, b_pose), and the kernel's step is the
+    rounded f64 solution itself."""
+    win, sys, eps, idepth = step_problem(k, n, seed, device)
+    zero = torch.zeros_like
+    return (win._replace(h_marg=zero(win.h_marg), b_marg=zero(win.b_marg)),
+            sys._replace(h_schur=zero(sys.h_schur), b_schur=zero(sys.b_schur)), zero(eps),
+            idepth)
+
+
+def unblocked_step(win: StepWindow, sys: LinearSystem, eps, lam: float):
+    """The pose step of the column-by-column LU with partial pivoting in f64
+    (``testing/blocked_lu.py``, on the CPU) of the system K9 solves, rounded
+    and masked as K9 does → (step [k, 8] on eps's device, pivot rows)."""
+    h, b, live = _assemble_step_system(win, sys, eps, lam)
+    x, pivots = unblocked_solve(h.double().cpu(), b.double().cpu())
+    step = -x.float()
+    step = torch.where(torch.isfinite(step) & live.cpu(), step, torch.zeros_like(step))
+    return step.reshape(eps.shape).to(eps.device), pivots
+
+
+def step_problem_f64(win: StepWindow, sys: LinearSystem, eps, idepth):
+    """The same problem with every float tensor in f64."""
+    return (win._replace(h_marg=win.h_marg.double(), b_marg=win.b_marg.double()),
+            to_f64(sys), eps.double(), idepth.double())
 
 
 def point_status_errors(ps_k, ps_p, ev, rel_band: float = 1e-6) -> dict:

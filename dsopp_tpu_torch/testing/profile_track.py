@@ -21,7 +21,8 @@ path, after the 6-frame known-pose bootstrap:
    so the tracker itself carries no instrumentation;
 3. in that run, ``torch.profiler`` over ``WINDOW`` steady frames (device
    busy time per frame; idle share against the plain runs' frame time;
-   device time per launch of each hand-written kernel) and
+   device time per launch of each hand-written kernel; K3's device time and
+   longest LM iteration count per launch by level and number of hypotheses) and
    PyTorch's sync debug mode over the next ``WINDOW`` frames (host
    synchronisations per frame, and per keyframe inside the keyframe backend
    and inside the span from the policy through the ledger fold);
@@ -37,6 +38,7 @@ writes them to ``out.json`` when given.  Needs a CUDA card.
 from __future__ import annotations
 
 import json
+import math
 import sys
 import time
 import warnings
@@ -55,8 +57,8 @@ REPEATS, WINDOW = 3, 10
 # __global__ functions of csrc/ by the names the profiler reports
 KERNEL_NAMES = ("pyramid_level_kernel", "align_level_kernel", "epipolar_kernel",
                 "flow_kernel", "ba_fej_kernel", "ba_evaluate_kernel", "pair_kernel",
-                "landmark_kernel", "reduce_kernel", "solve_kernel", "backsub_kernel",
-                "norm_kernel", "decide_kernel", "commit_kernel", "finish_kernel",
+                "landmark_kernel", "reduce_kernel", "assemble_kernel", "solve_kernel",
+                "backsub_kernel", "norm_kernel", "decide_kernel", "commit_kernel", "finish_kernel",
                 "quantile_kernel", "status_kernel", "region_threshold_kernel",
                 "tile_argmax_kernel", "rank_tiles_kernel", "active_projections_kernel",
                 "candidates_kernel", "compact_kernel", "refine_kernel", "pair_slots_kernel",
@@ -183,16 +185,19 @@ class SyncCounts:
 
 
 class IterationLog:
-    """Records the iteration counts K3 returns (device tensors, read at the end)."""
+    """Records the iteration counts K3 returns (device tensors, read at the
+    end), with each launch's map width and number of hypotheses."""
 
     def __init__(self):
         self.results = []
+        self.launches = []
         self.fn = pose_alignment.align_level_cuda
 
     def __enter__(self):
-        def logged(*args, **kwargs):
-            res = self.fn(*args, **kwargs)
+        def logged(pts, pixel_map, *args, **kwargs):
+            res = self.fn(pts, pixel_map, *args, **kwargs)
             self.results.append(res.iterations)
+            self.launches.append((int(pixel_map.shape[-1]), int(res.iterations.shape[0])))
             return res
         pose_alignment.align_level_cuda = logged
         return self
@@ -206,6 +211,20 @@ class IterationLog:
         return dict(launches=len(self.results), mean_per_hypothesis=float(its.mean()),
                     mean_longest_per_launch=float(per_launch.mean()),
                     max=int(its.max()))
+
+    def by_level(self, device_us, width):
+        """K3 by (level, hypotheses): launches, the mean device µs of a launch
+        (``device_us``: the kernel's device times in launch order, one per
+        logged call) and the mean longest LM iteration count of a launch;
+        ``width`` is level 0's."""
+        groups = defaultdict(lambda: [0, 0.0, 0.0])
+        for (w, hyps), us, its in zip(self.launches, device_us, self.results):
+            key = f"level {round(math.log2(width / w))}, {hyps} hypotheses"
+            groups[key][0] += 1
+            groups[key][1] += us
+            groups[key][2] += float(its.max())
+        return {key: dict(launches=n, device_us=us / n, mean_longest_iterations=it / n)
+                for key, (n, us, it) in sorted(groups.items())}
 
 
 def profile_path(name):
@@ -238,7 +257,16 @@ def profile_path(name):
 
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                             torch.profiler.ProfilerActivity.CUDA]) as prof:
-        _, kf, _ = run_frames(pipe, seq, split, split + WINDOW)
+        with IterationLog() as log:
+            _, kf, _ = run_frames(pipe, seq, split, split + WINDOW)
+    k3 = sorted((e for e in prof.events() if "align_level_kernel" in e.name
+                 and e.device_type == torch.autograd.DeviceType.CUDA),
+                key=lambda e: e.time_range.start)
+    if len(k3) == len(log.launches):
+        out["k3_by_level"] = log.by_level([e.time_range.elapsed_us() for e in k3],
+                                          int(seq.images.shape[-1]))
+    else:
+        out["k3_by_level"] = f"not measured: {len(k3)} kernel events, {len(log.launches)} calls"
     device_us = sum(getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
                     for e in prof.key_averages())
     busy_ms = device_us / 1e3 / WINDOW

@@ -9,14 +9,19 @@ rotation 1e-4 rad and translation 1e-4 m of the plain version (the result is
 held, not the iteration trace: one accept/reject can flip by rounding; a
 hypothesis is left out of the pose gate only where the two decision traces
 show that flip: the same λ, and relative changes of the energy that differ by
-at most ``parity.ALIGN_TIE`` and fall on either side of the decision's limit); K6
+at most ``parity.ALIGN_TIE`` and fall on either side of the decision's limit), at 1,
+5 and 105 hypotheses with and without a trace, two runs and the traced run
+equal to the bit; K6
 every output 1e-5 relative (Frobenius), geom_valid exact; K7 ok and
 status_candidate equal on ≥ 99.9 % of live groups, the rest 1e-4 relative
 on the agreeing ones; K8 every output 1e-4 relative (Frobenius), also with
 ``marg_pass=True``; K5 both flows 1e-5 relative; K9 pose and idepth step 1e-4
 of the step's norm against the plain version in f64 arithmetic on the same
 f32 inputs (the plain f32 solve's own distance from it is reported by
-``chip_smoke.py``); K10 the same accept / done / relinearize sequence as the
+``chip_smoke.py``), also at K = 10, 17 and 21 on a system whose rows need a
+swap at nearly every column, with a dead slot and in the loop-state mode, two
+runs equal to the bit, and without ledger and Schur term (an exact assembly)
+equal to the bit to the column-by-column LU in f64; K10 the same accept / done / relinearize sequence as the
 host-driven loop, final energy 1e-4 relative, poses 1e-4 rad and 1e-4 m,
 statuses equal on ≥ 99.9 % of live groups, no host synchronisation inside;
 K11 threshold 1e-6 relative, statuses, counts and flags equal outside the
@@ -165,6 +170,84 @@ def test_align_level_kernel_matches_plain(tracked):
         assert int(res_k.iterations.max()) <= tracker.align_opts.max_iterations
         assert int(res_k.iterations.min()) >= 1
     assert kernels.ALIGN_LEVEL.launches == before + 3
+
+
+# (level, hypotheses): the best base hypothesis at level 0, the 5 base ones
+# and the 105 escalation hypotheses (the last of the 109) at level 1
+ALIGN_COUNTS = {1: (0, 1), 5: (1, 5), 105: (1, -105)}
+
+
+@pytest.mark.parametrize("count", sorted(ALIGN_COUNTS))
+def test_align_level_kernel_is_deterministic(tracked, count):
+    tracker, maps = tracked
+    [(level, args)] = align_trace.level_cases(tracker, maps, [ALIGN_COUNTS[count]])
+    assert args[3].q.shape[0] == count
+    res_k, res_p, partings = align_trace.compare(args)     # with the traces
+    err = parity.align_level_errors(res_k, res_p)
+    held = torch.ones_like(res_p.iterations, dtype=torch.bool)
+    held[[p["hypothesis"] for p in partings if p["tie"]]] = False
+    assert err["num_valid"] <= 5e-3 and err["energy"] <= 1e-3 and err["rmse"] <= 1e-3, err
+    if bool(held.any()):
+        assert float(err["rotation"][held].max()) <= 1e-4, (level, partings)
+        assert float(err["translation"][held].max()) <= 1e-4, (level, partings)
+    before = kernels.ALIGN_LEVEL.launches
+    bare = pa.align_level_cuda(*args)
+    again = pa.align_level_cuda(*args)
+    assert kernels.ALIGN_LEVEL.launches == before + 2
+    assert parity.align_level_equal(bare, again)
+    assert parity.align_level_equal(bare, res_k)             # the trace changes nothing
+    trace = []
+    pa.align_level_cuda(*args, trace=trace)
+    trace_again = []
+    pa.align_level_cuda(*args, trace=trace_again)
+    assert torch.equal(trace[0].nan_to_num(-1.0), trace_again[0].nan_to_num(-1.0))
+
+
+@pytest.fixture(scope="module")
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+
+
+@pytest.mark.parametrize("k", [10, 17, 21])
+def test_ba_solve_step_kernel_blocked_lu(card, k):
+    n = 64
+    win, sys, eps, idepth = parity.step_problem(k, n, k, "cuda")
+    problem_64 = parity.step_problem_f64(win, sys, eps, idepth)
+    opts = pba.PBAOptions()
+    dead = ~win.frame_valid
+    for lam in (1e-5, 1e-2):
+        before = kernels.BA_SOLVE.launches
+        out_k = pba._solve_step_cuda(win, sys, eps, idepth, lam, opts)
+        again = pba._solve_step_cuda(win, sys, eps, idepth, lam, opts)
+        assert kernels.BA_SOLVE.launches == before + 2
+        assert all(torch.equal(a, b) for a, b in zip(out_k, again))
+        out_64 = pba._solve_step_plain(*problem_64, lam, opts)
+        err = parity.solve_step_errors(out_k, out_64, eps, idepth)
+        assert float((out_64[0] - eps.double()).abs().max()) > 0
+        assert err["step"] <= 1e-4 and err["d_step"] <= 1e-4, err
+        assert torch.equal(out_k[0][dead], eps[dead])
+        # the loop-state mode: λ from the state; a finished loop writes nothing
+        state = torch.zeros(pba.LM_FIELDS, dtype=torch.int32, device="cuda")
+        state[pba.LM_LAMBDA] = int(torch.tensor([lam]).view(torch.int32)[0])
+        buffers = pba._solve_step_buffers(k, n, torch.float32, "cuda")
+        eps_s, idepth_s, sq_s = pba._solve_step_launch(win, sys, eps, idepth, None, state,
+                                                       buffers=buffers)
+        assert torch.equal(eps_s, out_k[0]) and torch.equal(idepth_s, out_k[1])
+        assert torch.equal(sq_s, torch.stack([out_k[2], out_k[3]]))
+        state[pba.LM_DONE] = 1
+        for b in buffers[2:]:
+            b.fill_(7.0)
+        pba._solve_step_launch(win, sys, eps, idepth, None, state, buffers=buffers)
+        assert all(bool((b == 7.0).all()) for b in buffers[2:])
+    # no ledger and no Schur term: the assembly is exact on both sides, and
+    # the step is the column-by-column LU's (the kernel's pivots and order)
+    exact = parity.exact_step_problem(k, n, k, "cuda")
+    step_u, pivots_u = parity.unblocked_step(*exact[:3], 1e-5)
+    assert sum(p != i for i, p in enumerate(pivots_u)) > 4 * k
+    assert torch.equal(pba._solve_step_cuda(*exact, 1e-5, opts)[0], step_u)
+    with pytest.raises(ValueError):
+        pba._solve_step_cuda(*parity.step_problem(22, 8, 0, "cuda"), 1e-5, opts)
 
 
 def _ba_problem(tracker):
