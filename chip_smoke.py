@@ -270,6 +270,11 @@ def bound(num_bytes, num_ops, peak_flops=PEAK_FLOPS):
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
+def log_bound(name, label, b):
+    """One kernel's bound at one window's shapes (PERF.md's bound columns)."""
+    log(f"  bound {name} ({label}): {b['bound_ms']:.5f} ms ({b['bound_by']})")
+
+
 def sim3_aligned_errors(est, gt):
     """Per-frame errors after the least-squares similarity alignment of
     ``est`` onto ``gt`` (Horn/Umeyama, as dsopp_tpu/output/ate.py) and the
@@ -583,6 +588,7 @@ def parity_epipolar(seq, tracker, frame, torch, rows, label):
         plain_ms=cuda_ms(lambda: de.epipolar_sweep_plain(inp, image, tracker.models[0], 20.0)),
         **bound(nbytes(*inp) + sampled + nbytes(*res_k), OPS_EPIPOLAR_POINT * n_act),
         library_ms=None)
+    log_bound("epipolar_sweep", label, row)
     if label == "standart":
         rows["epipolar_sweep"] = row
     else:
@@ -610,14 +616,14 @@ def parity_flow(seq, tracker, frame, torch, rows, label):
     require(n_valid > 100 and float(out_p[0]) > 0 and float(out_p[1]) > 0,
             f"K5 ({label}): the flow set is empty or does not move")
     require(max(err) <= 1e-5, f"K5 ({label}): relative error {max(err):.3g} above 1e-5")
+    b5 = bound(nbytes(pts.uv, pts.idepth, pts.valid) + 36, OPS_FLOW_POINT * n_valid)
+    log_bound("flow_statistic", label, b5)
     if label != "standart":
         return
     rows["flow_statistic"] = dict(
         max_abs_err=max(float((a - b).abs()) for a, b in zip(out_k, out_p)),
         ms=cuda_ms(lambda: dm.mean_square_flows_cuda(*args)),
-        plain_ms=cuda_ms(lambda: dm.mean_square_flows_plain(*args)),
-        **bound(nbytes(pts.uv, pts.idepth, pts.valid) + 36, OPS_FLOW_POINT * n_valid),
-        library_ms=None)
+        plain_ms=cuda_ms(lambda: dm.mean_square_flows_plain(*args)), **b5, library_ms=None)
 
 
 def parity_keyframe(seq, tracker, frame, torch, rows, label):
@@ -633,6 +639,7 @@ def parity_keyframe(seq, tracker, frame, torch, rows, label):
 
     def row(name, **fields):
         fields["library_ms"] = fields.get("library_ms")
+        log_bound(name, label, fields)
         if label == "standart":
             rows[name] = fields
         else:
@@ -750,18 +757,28 @@ def parity_keyframe(seq, tracker, frame, torch, rows, label):
     win2 = win2.replace(lm_valid=win2.lm_valid & ~boundary)
     args = (win2, model, tuple(maps), h, w, cfg.pyramid_levels, cfg.frontend_points)
     out_k = no_host_reads(torch, dm.build_frontend_state_cuda, *args)
+    device_work = dict(dm.last_call)
     out_p = dm.build_frontend_state_plain(*args)
     err = par.frontend_errors(out_k, out_p)
     log(f"  K16 depth_maps ({label}): {int(boundary.sum())} landmarks on a pixel boundary left"
-        f" out, {err}")
+        f" out, {err}; the call's kernels and memsets: {device_work}")
+    require(device_work["kernels"] <= 16 and device_work["memsets"] == 0,
+            f"K16 ({label}): {device_work} in a call, more than 16 launches or a memset")
     require(err["positive"][0] > 1000, f"K16 ({label}): {err['positive'][0]} pixels hold weight")
     require(err["weight_differ"] == 0 and err["uv_differ"] == 0 and err["valid_differ"] == 0,
             f"K16 ({label}): weights or selected pixels differ: {err}")
     require(err["idepth_map"] <= 1e-6 and err["idepth"] <= 1e-6 and err["intensity"] == 0.0,
             f"K16 ({label}): idepth differs by {max(err['idepth_map'], err['idepth']):.3g}")
     again = dm.build_frontend_state_cuda(*args)
-    require(all(torch.equal(a, b) for a, b in zip(out_k[0], again[0])),
+
+    def tensors(out):
+        return [*out[0], *out[1], *(t for pts in (*out[2], out[3]) for t in pts)]
+
+    require(all(torch.equal(a, b) for a, b in zip(tensors(out_k), tensors(again))),
             f"K16 ({label}): two runs on the same window differ")
+    k16_ms = cuda_ms(lambda: dm.build_frontend_state_cuda(*args))
+    log(f"  K16 ({label}): call {k16_ms:.4f} ms, the wrapper's glue included"
+        f" {fmt_us(device_us(torch, lambda: dm.build_frontend_state_cuda(*args)))}")
     cells = sum(x.numel() for x in out_k[0])
     lib = None
     if label == "standart":
@@ -771,8 +788,7 @@ def parity_keyframe(seq, tracker, frame, torch, rows, label):
             f" {flat.numel()} weights {lib:.4f} ms (one selection of six, no tie order)")
     row("depth_maps", max_abs_err=float(max((a - b).abs().max()
                                             for a, b in zip(out_k[0], out_p[0]))),
-        ms=cuda_ms(lambda: dm.build_frontend_state_cuda(*args)),
-        plain_ms=cuda_ms(lambda: dm.build_frontend_state_plain(*args), reps=10),
+        ms=k16_ms, plain_ms=cuda_ms(lambda: dm.build_frontend_state_plain(*args), reps=10),
         **bound(nbytes(win2.lm_uv, win2.lm_idepth, win2.lm_valid) + nbytes(*out_k[0], *out_k[1])
                 + sum(nbytes(*pts) + 4 * pts.uv.shape[0] for pts in (*out_k[2], out_k[3])),
                 OPS_REPROJECT * k * n + OPS_DEPTH_CELL * cells),
@@ -821,12 +837,13 @@ def parity_ba(seq, tracker, torch, rows, label, every, min_frames, timed):
     require(max(err.values()) <= 1e-5, f"K6 ({label}): relative error above 1e-5: {err}")
     win_in = (win.t_lin_q, win.t_lin_t, win.affine0, win.exposure, win.lm_uv, win.lm_idepth,
               win.lm_patch)
+    b6 = bound(nbytes(*win_in) + nbytes(*fej_k), OPS_FEJ_RESIDUAL * residuals)
+    log_bound("ba_fej", label, b6)
     if "ba_fej" in timed:
         row("ba_fej",
             max_abs_err=max(float((a - b).abs().max()) for a, b in zip(fej_k[:5], fej_p[:5])),
             ms=cuda_ms(lambda: pba._fej_cache_cuda(win, model)),
-            plain_ms=cuda_ms(lambda: pba._fej_cache_plain(win, model)),
-            **bound(nbytes(*win_in) + nbytes(*fej_k), OPS_FEJ_RESIDUAL * residuals))
+            plain_ms=cuda_ms(lambda: pba._fej_cache_plain(win, model)), **b6)
 
     # K7
     ev_args = (win, model, eps, idepth, lm_mask, opts)
@@ -838,41 +855,57 @@ def parity_ba(seq, tracker, torch, rows, label, every, min_frames, timed):
             f"K7 ({label}): ok/status agree on {err['agree']:.5f} of live groups")
     worst = max(err[name] for name in ("residuals", "gx", "gy", "energy_patch", "weight"))
     require(worst <= 1e-4, f"K7 ({label}): relative error {worst:.3g} above 1e-4")
+    # only a live group's 8 residuals need a sample of the target's image
+    sampled = min(nbytes(win.maps) // 3, 48 * 8 * int(live.sum()))
+    b7 = bound(nbytes(*win_in, eps, idepth, lm_mask, win.frame_valid, win.res_status)
+               + sampled + nbytes(*ev_k), OPS_EVALUATE_RESIDUAL * 8 * int(live.sum()))
+    log_bound("ba_evaluate", label, b7)
     if "ba_evaluate" in timed:
         both = (ev_k.ok & ev_p.ok)[..., None]
-        # only a live group's 8 residuals need a sample of the target's image
-        sampled = min(nbytes(win.maps) // 3, 48 * 8 * int(live.sum()))
         row("ba_evaluate",
             max_abs_err=float(torch.where(both, ev_k.residuals - ev_p.residuals,
                                           torch.zeros_like(ev_p.residuals)).abs().max()),
             ms=cuda_ms(lambda: pba._evaluate_cuda(*ev_args)),
-            plain_ms=cuda_ms(lambda: pba._evaluate_plain(*ev_args)),
-            **bound(nbytes(*win_in, eps, idepth, lm_mask, win.frame_valid, win.res_status)
-                    + sampled + nbytes(*ev_k), OPS_EVALUATE_RESIDUAL * 8 * int(live.sum())))
+            plain_ms=cuda_ms(lambda: pba._evaluate_plain(*ev_args)), **b7)
 
-    # K8, on the plain versions' cache and evaluation; also the marginalization pass
+    # K8, on the plain versions' cache and evaluation; also the marginalization
+    # pass; two runs equal to the bit in both
     err8 = 0.0
     for marg_pass in (False, True):
         sys_k = pba._linearize_from_ev_cuda(win, fej_p, ev_p, eps, opts, marg_pass)
         sys_p = pba._linearize_from_ev_plain(win, fej_p, ev_p, eps, opts, marg_pass)
         err = par.linear_system_errors(sys_k, sys_p)
-        log(f"  K8 ba_linearize_schur ({label}) marg_pass={marg_pass}: {err}")
+        again = pba._linearize_from_ev_cuda(win, fej_p, ev_p, eps, opts, marg_pass)
+        same = all(torch.equal(a, b) for a, b in zip(sys_k, again))
+        log(f"  K8 ba_linearize_schur ({label}) marg_pass={marg_pass}: {err}, two runs equal:"
+            f" {same}")
         require(float(sys_p.h_schur.abs().max()) > 0, f"K8 ({label}): empty Schur complement")
         require(max(err.values()) <= 1e-4, f"K8 ({label}): relative error above 1e-4: {err}")
+        require(same, f"K8 ({label}) marg_pass={marg_pass}: two runs differ")
         err8 = max(err8, float((sys_k.h_pose - sys_p.h_pose).abs().max()))
-    tiles, lm_blocks = -(-n // 64), -(-(k * n) // 32)
-    log(f"  K8 scratch ({label}): pair_part {k * k * tiles * 272 * 8 / 1e6:.2f} MB, lm_part"
-        f" {k * k * n * 18 * 4 / 1e6:.2f} MB, schur_part {lm_blocks} x {kb * kb + kb} f64 ="
-        f" {lm_blocks * (kb * kb + kb) * 8 / 1e6:.2f} MB")
+    scratch, _ = pba._linearize_buffers(k, n, eps.dtype, eps.device)
+    log(f"  K8 scratch ({label}): " + ", ".join(
+        f"{name} {nbytes(t) / 1e6:.2f} MB" for name, t in
+        zip(("pair_part", "lm_part", "schur_part"), scratch)) + f", {nbytes(*scratch) / 1e6:.2f} MB")
+    k8_bound = bound(nbytes(*fej_p, ev_p.residuals, ev_p.weight, ev_p.gx, ev_p.gy, ev_p.ok, eps,
+                            win.affine0, win.frame_valid, win.frame_fixed, win.frame_marg)
+                     + nbytes(*sys_k),
+                     OPS_LINEARIZE_RESIDUAL * 8 * int(ev_p.ok.sum())
+                     + 3 * int(lm_mask.sum()) * (kb * kb + kb))
+
+    log_bound("ba_linearize_schur", label, k8_bound)
+
+    def k8_call():
+        return pba._linearize_from_ev_cuda(win, fej_p, ev_p, eps, opts)
+
+    k8_ms = cuda_ms(k8_call)
+    log(f"  K8 ({label}, K = {k}, N = {n}): call {k8_ms:.4f} ms,"
+        f" {fmt_us(device_us(torch, k8_call))}, bound {k8_bound['bound_ms']:.5f} ms"
+        f" ({k8_bound['bound_by']})")
     if "ba_linearize_schur" in timed:
-        row("ba_linearize_schur", max_abs_err=err8,
-            ms=cuda_ms(lambda: pba._linearize_from_ev_cuda(win, fej_p, ev_p, eps, opts)),
+        row("ba_linearize_schur", max_abs_err=err8, ms=k8_ms,
             plain_ms=cuda_ms(lambda: pba._linearize_from_ev_plain(win, fej_p, ev_p, eps, opts)),
-            **bound(nbytes(*fej_p, ev_p.residuals, ev_p.weight, ev_p.gx, ev_p.gy, ev_p.ok, eps,
-                           win.affine0, win.frame_valid, win.frame_fixed, win.frame_marg)
-                    + nbytes(*sys_k),
-                    OPS_LINEARIZE_RESIDUAL * 8 * int(ev_p.ok.sum())
-                    + 3 * int(lm_mask.sum()) * (kb * kb + kb)))
+            **k8_bound)
     sys_p = par.contiguous(pba._linearize_from_ev_plain(win, fej_p, ev_p, eps, opts))
 
     # a filled ledger: the window's own where a frame was marginalized, else a
@@ -911,6 +944,11 @@ def parity_ba(seq, tracker, torch, rows, label, every, min_frames, timed):
     require(err9 <= 1e-4, f"K9 ({label}): step differs by {err9:.3g} of its norm from the plain"
             " version in f64 arithmetic")
     log(f"  K9 ({label}): two runs equal to the bit at both lam")
+    b9 = bound(nbytes(sys_p.h_pose, sys_p.b_pose, sys_p.h_schur, sys_p.b_schur, sys_p.hpd,
+                      sys_p.inv_hdd, sys_p.b_d, filled.h_marg, filled.b_marg, eps, idepth,
+                      win.frame_valid) + nbytes(eps, idepth) + 8,
+               2 * kb ** 3 // 3 + 2 * kb * kb + 2 * k * n * kb)
+    log_bound("ba_solve_step", label, b9)
     if "ba_solve_step" in timed:
         # K = 10, 17 and 21 (the kernel's limit) on systems whose rows need a
         # swap at nearly every column, with a dead slot
@@ -949,10 +987,7 @@ def parity_ba(seq, tracker, torch, rows, label, every, min_frames, timed):
             f" only) {yard:.4f} ms, {fmt_us(yard_us)}")
         row("ba_solve_step", max_abs_err=abs9, library_ms=yard, ms=call,
             plain_ms=cuda_ms(lambda: pba._solve_step_plain(filled, sys_p, eps, idepth, lam0, opts)),
-            **bound(nbytes(sys_p.h_pose, sys_p.b_pose, sys_p.h_schur, sys_p.b_schur, sys_p.hpd,
-                           sys_p.inv_hdd, sys_p.b_d, filled.h_marg, filled.b_marg, eps, idepth,
-                           win.frame_valid) + nbytes(eps, idepth) + 8,
-                    2 * kb ** 3 // 3 + 2 * kb * kb + 2 * k * n * kb))
+            **b9)
 
     # K10 — the device-resident loop against the host-driven one (same parts,
     # kernels K6-K9 and K11 in both), with an empty and with a filled ledger
@@ -976,10 +1011,12 @@ def parity_ba(seq, tracker, torch, rows, label, every, min_frames, timed):
         require(err["status_agree"] >= 0.999,
                 f"K10 ({label}, {case}): statuses agree on {err['status_agree']:.5f}")
         err10 = max(err10, err["translation"], err["rotation"])
+    control, plain_control, moved_bytes = lm_control(pba, torch, filled, model, opts)
+    b10 = bound(moved_bytes, 4 * k * k * n)
+    log_bound("ba_lm", label, b10)
     if "ba_lm" in timed:
-        control, plain_control, moved_bytes = lm_control(pba, torch, filled, model, opts)
-        row("ba_lm", max_abs_err=err10, ms=cuda_ms(control),
-            plain_ms=cuda_ms(plain_control), **bound(moved_bytes, 4 * k * k * n))
+        row("ba_lm", max_abs_err=err10, ms=cuda_ms(control), plain_ms=cuda_ms(plain_control),
+            **b10)
         log(f"  K10 whole solve ({label}, filled ledger): device-resident loop"
             f" {cuda_ms(lambda: pba._solve_loop_cuda(filled, model, opts), reps=10):.3f}"
             f" ms, host-driven loop"
@@ -995,6 +1032,11 @@ def parity_ba(seq, tracker, torch, rows, label, every, min_frames, timed):
     require(err["status_differ"] == 0 and err["inliers_differ"] == 0 and err["flags_differ"] == 0,
             f"K11 ({label}): statuses or counts differ outside the threshold band: {err}")
     require(err["baseline"] <= 1e-6, f"K11 ({label}): baseline differs by {err['baseline']:.3g}")
+    b11 = bound(nbytes(ev_k.energy_patch, ev_k.ok, ev_k.status_candidate, moved.t_lin_q,
+                       moved.t_lin_t, moved.eps, moved.lm_idepth, lm_mask, moved.lm_baseline,
+                       moved.lm_outlier, moved.lm_opt_count) + nbytes(*ps_k),
+                OPS_STATUS_GROUP * k * k * n)
+    log_bound("ba_point_status", label, b11)
     if "ba_point_status" in timed:
         flat = torch.where(ev_k.ok, ev_k.energy_patch,
                            torch.full_like(ev_k.energy_patch, float("nan"))).reshape(-1)
@@ -1003,10 +1045,7 @@ def parity_ba(seq, tracker, torch, rows, label, every, min_frames, timed):
         row("ba_point_status", max_abs_err=float((ps_k.threshold - ps_p.threshold).abs()),
             ms=cuda_ms(lambda: pba._point_status_from_ev_cuda(moved, ev_k, lm_mask, opts)),
             plain_ms=cuda_ms(lambda: pba._point_status_from_ev_plain(moved, ev_k, lm_mask, opts)),
-            **bound(nbytes(ev_k.energy_patch, ev_k.ok, ev_k.status_candidate, moved.t_lin_q,
-                           moved.t_lin_t, moved.eps, moved.lm_idepth, lm_mask, moved.lm_baseline,
-                           moved.lm_outlier, moved.lm_opt_count) + nbytes(*ps_k),
-                    OPS_STATUS_GROUP * k * k * n))
+            **b11)
 
     parity_marg(tracker, {"empty ledger": empty, "filled ledger": filled}, torch, rows, label)
 
@@ -1074,6 +1113,7 @@ def parity_marg(tracker, windows, torch, rows, label):
             if ledger == "filled ledger" and case == "one free frame":
                 timed_case = (fold, out_k, err["eigenvalues"])
     def row(name, **fields):
+        log_bound(name, label, fields)
         if label == "standart":
             rows[name] = fields
         else:

@@ -7,33 +7,46 @@
 // threshold and the marginalization pass's scale regularizer, and
 // H_schur = sum hpd inv_hdd hpd^T, b_schur = sum hpd inv_hdd b_d.
 //
-// Bound: bytes (the FEJ cache and the evaluation, ~24 MB at K = 10,
-// N = 250, are read once; the sums are ~0.2 GFLOP).  Design, three kernels
-// behind one entry point, no float atomics (the LM accept test and the
-// status machine see the same sums on every run):
-//  1. pair_kernel, one block per (pair (i, j), tile of 64 landmarks): in
+// Bound: bytes (the FEJ cache and the evaluation, ~121 B a residual, ~98 MB
+// at the dense point K = 17, N = 340, are read once).  The long sums are f64
+// (H's entries span 1e3..5e10 and b cancels), and they run on Hopper's f64
+// tensor cores (mma.m16n8k16 .f64, the shape that reaches the card's f64
+// rate): each f32 operand is converted as a lane loads its fragment, and the
+// product of two f32 values is exact in f64.  No float atomics, and every sum
+// has one fixed order, so two runs give the same bits (the LM accept test and
+// the status machine read these sums).  Four kernels behind one entry point:
+//  1. pair_kernel, one block per (pair (i, j), tile of 128 landmarks): in
 //     chunks of 32 landmarks each thread forms one residual's 16 Jacobian
-//     columns [j_anchor | j_target] in shared memory; then thread (a, b)
-//     owns entry (a, b) of the pair's 16x16 block sum w J^T J (h_rr, h_rt,
-//     h_tt) and thread (0, b) of sum w J^T r, walking the chunk's residuals
-//     in order; per landmark the 8-point sums that feed hpd, h_dd and b_d
-//     go to scratch.
-//  2. landmark_kernel, one block per 32 landmarks: sums those over the
-//     targets (the anchor term lands on the diagonal block of hpd), applies
-//     the threshold and the regularizer, writes hpd, inv_hdd, b_d, and
-//     accumulates the block's share of H_schur and b_schur.
-//  3. reduce_kernel: sums the per-block partials in index order, places the
-//     8x8 blocks as the plain version does and adds _prior_system's diagonal
-//     priors (the fixed frames' gauge prior, the free frames' affine prior)
-//     to the rounded f32 sums, as the plain version adds them.
-// Products are f32 (rounded as the plain version's); the long sums are kept
-// in f64, because H's entries span 1e3..5e10 and b cancels.
+//     columns [j_anchor | j_target] and r, staged in shared memory as f32
+//     columns; warp w takes residuals 32w..32w+31 of each chunk, 16 a product
+//     (A = (w J)^T with w J rounded in f32, as the plain version's, B = [J |
+//     r]), and sums the pair's [16 x 16] block w J^T J and the 16 entries of
+//     w J^T r in its registers; at the end the 8 warps' partials are added in
+//     warp order.  Per landmark the 8-point f32 sums that feed hpd go out:
+//     the target term straight into hpd[i, l, j], the anchor term, h_dd and
+//     b_d to scratch.
+//  2. landmark_kernel, a thread per (landmark, value): sums the anchor terms,
+//     h_dd and b_d over the targets in frame order (f64), adds the anchor
+//     term to the diagonal block of hpd, applies the threshold and the
+//     regularizer, writes inv_hdd and b_d.
+//  3. schur_kernel, one block per (anchor frame i, 1 or 2 bands of 8 rows of
+//     H_schur), a warp per 16 columns: walks the anchor's landmarks in order,
+//     32 a stage read by consecutive threads into shared memory, 16 a
+//     product, summing its part of the bands of
+//     sum_l (hpd_l inv_l) [hpd_l | b_d_l]; a partial per anchor frame.
+//  4. reduce_kernel, 8 slices per output entry: each slice sums every 8th
+//     anchor frame's Schur partial and every 8th pair partial, then a fixed
+//     tree over the slices; the 8x8 blocks placed as the plain version places them and
+//     _prior_system's diagonal priors (the fixed frames' gauge prior, the
+//     free frames' affine prior) added to the rounded f32 sums, as the plain
+//     version adds them.
+// dsopp_tpu_torch/testing/linearize_order.py mirrors this order of summation
+// on the CPU.
 //
-// Frames: landmark_kernel stages 32 rows of 8k + 1 floats in dynamic shared
-// memory, which the 48 KB a block gets without opting in holds up to k = 40
-// (kMaxFrames; the dense operating point runs k = 17).  Inside the LM loop
-// the entry takes the loop's state and all three kernels return at once when
-// the loop is done (ba_lm_state.cuh).
+// Frames: k up to 40 (kMaxFrames: schur_kernel's 21 warps; the dense
+// operating point runs k = 17).  Inside the LM loop the entry takes the
+// loop's state and every kernel returns at once when the loop is done
+// (ba_lm_state.cuh).
 
 #include <cuda_runtime.h>
 
@@ -42,176 +55,321 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
 constexpr int kPattern = 8;
-constexpr int kChunkLm = 32;                  // landmarks per pass = 256 residuals
-constexpr int kTileLm = 64;                   // landmarks per pair_kernel block
+constexpr int kChunkLm = 32;                  // landmarks per stage = 256 residuals
+constexpr int kTileLm = 128;                  // landmarks per pair_kernel block
 constexpr int kCols = 16;                     // [j_anchor (8) | j_target (8)]
 constexpr int kPairOut = kCols * kCols + kCols;  // block sums of H and b
-constexpr int kLmOut = 18;                    // hpd_anchor 8, hpd_target 8, h_dd, b_d
+constexpr int kLmOut = 10;                    // anchor term 8, h_dd, b_d
 constexpr int kMaxFrames = 40;                // solvers/pba.py::_LINEARIZE_MAX_FRAMES
+// a stage column (J's or r's value of the 256 residuals): 260 floats put an
+// mma operand's 8 columns x 4 residuals on 32 distinct banks
+constexpr int kColStride = kThreads + 4;
+constexpr int kRedStride = 24;                // a warp's partial [16][24]: H | b | pad
+static_assert(2 * kThreads * 3 * sizeof(float4) <= kWarps * kCols * kRedStride * sizeof(double),
+              "the FEJ rows fit the partials' bytes");
+constexpr int kReduceLanes = 8;               // slices per output entry in reduce_kernel
+// schur_kernel's warps: 16 of the 8(k + 1) columns [hpd | b_d] each
+constexpr int kSchurMaxWarps = (kMaxFrames + 2) / 2;
+inline int schur_warps(int k) { return (k + 2) / 2; }
 
-__global__ void __launch_bounds__(kThreads)
+// d (16x8) += a (16x16, row) b (16x8, col) in f64 on the tensor cores (the
+// shape that runs at the card's full f64 rate; m8n8k4 runs at half).  With
+// g = lane / 4, t = lane % 4: a[i] = A[g + 8 (i % 2)][t + 4 (i / 2)],
+// b[i] = B[t + 4 i][g], d[i] = D[g + 8 (i / 2)][2 t + i % 2].
+__device__ __forceinline__ void dmma(double (&d)[4], const double (&a)[8], const double (&b)[4]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f64.f64.f64.f64 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7, %8, %9, %10, %11}, {%12, %13, %14, %15}, {%0, %1, %2, %3};"
+      : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
+      : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(a[4]), "d"(a[5]), "d"(a[6]), "d"(a[7]),
+        "d"(b[0]), "d"(b[1]), "d"(b[2]), "d"(b[3]));
+}
+
+__global__ void __launch_bounds__(kThreads, 3)
 pair_kernel(const float* __restrict__ d_uv_ref, const float* __restrict__ d_uv_tgt,
             const float* __restrict__ d_uv_idepth, const float* __restrict__ corrected_ref,
             const float* __restrict__ scale0, const unsigned char* __restrict__ geom_valid,
             const float* __restrict__ residuals, const float* __restrict__ weight,
             const float* __restrict__ gx, const float* __restrict__ gy,
-            const unsigned char* __restrict__ ok, int n, int tiles,
+            const unsigned char* __restrict__ ok, int k, int n, int tiles,
             const int* __restrict__ lm_state, double* __restrict__ pair_part,
-            float* __restrict__ lm_part) {
+            float* __restrict__ lm_part, float* __restrict__ hpd) {
   if (ba::lm_done(lm_state)) return;
-  __shared__ float jac[kThreads][kCols + 1];
-  __shared__ float res_s[kThreads];
+  // the chunk's FEJ rows d_uv_ref | d_uv_tgt (12 floats a residual each,
+  // loaded by consecutive threads in float4s), and at the end the warps'
+  // [16][24] f64 partials in the same bytes; the stage's columns J | r, a
+  // residual each (f32)
+  __shared__ __align__(16) unsigned char raw[kWarps * kCols * kRedStride * sizeof(double)];
+  __shared__ float cols[kCols + 1][kColStride];
   __shared__ float jd_s[kThreads];
   __shared__ float w_s[kChunkLm];
+  float4* fej_s = reinterpret_cast<float4*>(raw);        // [2][kThreads * 3]
+  double* red = reinterpret_cast<double*>(raw);
 
   const int pair = blockIdx.y, tile = blockIdx.x;
-  const int tid = threadIdx.x;
+  const int anchor = pair / k, target = pair % k;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int ln = tid / kPattern, p = tid % kPattern;
-  const int a = tid / kCols, b = tid % kCols;
   const float s0 = scale0[pair];
-  double acc_h = 0.0, acc_b = 0.0;
+  const int g = lane >> 2, t4 = lane & 3;
+  double acc[3][4];                           // n-tiles J 0..7, J 8..15, [r | 0]
+#pragma unroll
+  for (int t = 0; t < 3; ++t) acc[t][0] = acc[t][1] = acc[t][2] = acc[t][3] = 0.0;
 
   for (int chunk = 0; chunk < kTileLm / kChunkLm; ++chunk) {
-    const int lm = tile * kTileLm + chunk * kChunkLm + ln;
+    const int lm0 = tile * kTileLm + chunk * kChunkLm;
+    if (lm0 >= n) break;
+    const int lm = lm0 + ln;
+    // this residual's own inputs and the chunk's FEJ rows, all loads issued
+    // before the barrier
+    const size_t group = (size_t)pair * n + lm;
+    const size_t res = group * kPattern + p;
+    float wgt = 0.0f, g_x = 0.0f, g_y = 0.0f, corr = 0.0f, r = 0.0f;
+    float2 di = make_float2(0.0f, 0.0f);
+    if (lm < n) {
+      wgt = (ok[group] && geom_valid[group]) ? weight[group] : 0.0f;
+      g_x = gx[res];
+      g_y = gy[res];
+      corr = corrected_ref[res];
+      di = __ldg(reinterpret_cast<const float2*>(d_uv_idepth) + res);
+      r = residuals[res];
+    }
+    {
+      const size_t first = ((size_t)pair * n + lm0) * kPattern * 3;     // in float4s
+      const int vecs = min(kChunkLm, n - lm0) * kPattern * 3;
+      const float4* ref4 = reinterpret_cast<const float4*>(d_uv_ref) + first;
+      const float4* tgt4 = reinterpret_cast<const float4*>(d_uv_tgt) + first;
+#pragma unroll
+      for (int q = 0; q < 3; ++q) {
+        const int e = tid + q * kThreads;
+        if (e < vecs) {
+          fej_s[e] = __ldg(ref4 + e);
+          fej_s[kThreads * 3 + e] = __ldg(tgt4 + e);
+        }
+      }
+    }
+    __syncthreads();
     float row[kCols];
-    float r = 0.0f, jd = 0.0f, wgt = 0.0f;
+    float jd = 0.0f;
 #pragma unroll
     for (int c = 0; c < kCols; ++c) row[c] = 0.0f;
     if (lm < n) {
-      const size_t group = (size_t)pair * n + lm;
-      const size_t res = group * kPattern + p;
-      wgt = (ok[group] && geom_valid[group]) ? weight[group] : 0.0f;
-      const float g_x = gx[res], g_y = gy[res];
-      const float* dr = d_uv_ref + res * 12;
-      const float* dt = d_uv_tgt + res * 12;
+      float ref[12], tgt[12];
+#pragma unroll
+      for (int q = 0; q < 3; ++q) {
+        const float4 a = fej_s[tid * 3 + q], b = fej_s[kThreads * 3 + tid * 3 + q];
+        ref[4 * q] = a.x, ref[4 * q + 1] = a.y, ref[4 * q + 2] = a.z, ref[4 * q + 3] = a.w;
+        tgt[4 * q] = b.x, tgt[4 * q + 1] = b.y, tgt[4 * q + 2] = b.z, tgt[4 * q + 3] = b.w;
+      }
 #pragma unroll
       for (int c = 0; c < 6; ++c) {
-        row[c] = g_x * __ldg(dr + c) + g_y * __ldg(dr + 6 + c);
-        row[8 + c] = g_x * __ldg(dt + c) + g_y * __ldg(dt + 6 + c);
+        row[c] = g_x * ref[c] + g_y * ref[6 + c];
+        row[8 + c] = g_x * tgt[c] + g_y * tgt[6 + c];
       }
-      const float corr = corrected_ref[res];
       row[6] = corr;
       row[7] = s0;
       row[14] = -corr;
       row[15] = -1.0f;
-      jd = g_x * d_uv_idepth[2 * res] + g_y * d_uv_idepth[2 * res + 1];
-      r = residuals[res];
+      jd = g_x * di.x + g_y * di.y;
     }
 #pragma unroll
-    for (int c = 0; c < kCols; ++c) jac[tid][c] = row[c];
-    res_s[tid] = r;
+    for (int c = 0; c < kCols; ++c) cols[c][tid] = row[c];
+    cols[kCols][tid] = r;
     jd_s[tid] = jd;
     if (p == 0) w_s[ln] = wgt;
     __syncthreads();
 
-    // entry (a, b) of sum (w J)^T J, and for a == 0 entry b of sum (w J)^T r
-    for (int t = 0; t < kThreads; ++t) {
-      const float wv = w_s[t / kPattern];
-      acc_h += (double)((wv * jac[t][a]) * jac[t][b]);
-      if (a == 0) acc_b += (double)((wv * jac[t][b]) * res_s[t]);
-    }
-
     // per landmark: sum over its 8 points of (w J)[col] j_d, j_d^2 w, j_d r w
     if (lm < n) {
-      const size_t group = (size_t)pair * n + lm;
       const float wv = w_s[ln];
       float h_ref = 0.0f, h_tgt = 0.0f, extra = 0.0f;
       for (int pp = 0; pp < kPattern; ++pp) {
         const int t = ln * kPattern + pp;
-        h_ref += (wv * jac[t][p]) * jd_s[t];
-        h_tgt += (wv * jac[t][8 + p]) * jd_s[t];
+        h_ref += (wv * cols[p][t]) * jd_s[t];
+        h_tgt += (wv * cols[8 + p][t]) * jd_s[t];
         if (p == 0) extra += (jd_s[t] * jd_s[t]) * wv;
-        if (p == 1) extra += (jd_s[t] * res_s[t]) * wv;
+        if (p == 1) extra += (jd_s[t] * cols[kCols][t]) * wv;
       }
+      hpd[(((size_t)anchor * n + lm) * k + target) * 8 + p] = h_tgt;
       lm_part[group * kLmOut + p] = h_ref;
-      lm_part[group * kLmOut + 8 + p] = h_tgt;
-      if (p < 2) lm_part[group * kLmOut + 16 + p] = extra;
+      if (p < 2) lm_part[group * kLmOut + 8 + p] = extra;
+    }
+
+    // warp w: residuals 32w..32w+31, sixteen a product, in order.  A = (w J)^T
+    // (16 x 16 residuals; w J rounded in f32), B = [J | r] (16 residuals x
+    // 24): lane (g, t) takes columns g and 8 + g of residuals t + 4j
+#pragma unroll
+    for (int step = 0; step < 2; ++step) {
+      double a[8], b[3][4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int t = warp * 32 + step * 16 + t4 + 4 * j;
+        const float x = cols[g][t], y = cols[8 + g][t], wv = w_s[t / kPattern];
+        a[2 * j] = (double)(wv * x);
+        a[2 * j + 1] = (double)(wv * y);
+        b[0][j] = (double)x;
+        b[1][j] = (double)y;
+        b[2][j] = g == 0 ? (double)cols[kCols][t] : 0.0;
+      }
+      dmma(acc[0], a, b[0]);
+      dmma(acc[1], a, b[1]);
+      dmma(acc[2], a, b[2]);
     }
     __syncthreads();
   }
 
+  // the warps' [16][24] partials, summed in warp order: entry (a, b) of
+  // sum (w J)^T J and entry c of sum (w J)^T r
+  double* mine = red + warp * kCols * kRedStride;
+#pragma unroll
+  for (int t = 0; t < 3; ++t)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      mine[(g + 8 * (i / 2)) * kRedStride + t * 8 + 2 * t4 + i % 2] = acc[t][i];
+  __syncthreads();
   double* out = pair_part + ((size_t)pair * tiles + tile) * kPairOut;
-  out[tid] = acc_h;
-  if (a == 0) out[kCols * kCols + b] = acc_b;
+  for (int e = tid; e < kPairOut; e += kThreads) {
+    const int at = e < kCols * kCols ? (e / kCols) * kRedStride + e % kCols
+                                     : (e - kCols * kCols) * kRedStride + kCols;
+    double sum = 0.0;
+    for (int w = 0; w < kWarps; ++w) sum += red[w * kCols * kRedStride + at];
+    out[e] = sum;
+  }
 }
 
+// thread (landmark g = (i, l), value q): q < 8 the anchor term of hpd's
+// diagonal block, q = 8 h_dd -> inv_hdd, q = 9 b_d; sums over the targets in
+// frame order
 __global__ void __launch_bounds__(kThreads)
 landmark_kernel(const float* __restrict__ lm_part, const unsigned char* __restrict__ frame_fixed,
                 int k, int n, int marg_pass, float threshold, float scale_reg,
                 const int* __restrict__ lm_state, float* __restrict__ hpd,
-                float* __restrict__ inv_hdd, float* __restrict__ b_d,
-                double* __restrict__ schur_part) {
+                float* __restrict__ inv_hdd, float* __restrict__ b_d) {
   if (ba::lm_done(lm_state)) return;
-  // hs [kChunkLm][kb + 1], inv_s [kChunkLm], bd_s [kChunkLm]
-  extern __shared__ float lm_shared[];
-  const int kb = k * 8;
-  const int hs_stride = kb + 1;
-  float* hs = lm_shared;
-  float* inv_s = hs + kChunkLm * hs_stride;
-  float* bd_s = inv_s + kChunkLm;
-  const int total = k * n;
-  const int first = blockIdx.x * kChunkLm;
-  const int tid = threadIdx.x;
+  const int e = blockIdx.x * kThreads + threadIdx.x;
+  if (e >= k * n * kLmOut) return;
+  const int g = e / kLmOut, q = e % kLmOut;
+  const int i = g / n, l = g % n;
+  double sum = 0.0;
+  for (int j = 0; j < k; ++j) sum += (double)lm_part[(((size_t)i * k + j) * n + l) * kLmOut + q];
+  if (q < 8) {
+    const size_t at = ((size_t)g * k + i) * 8 + q;
+    hpd[at] = hpd[at] + (float)sum;
+  } else if (q == 8) {
+    float hdd = (float)sum;
+    if (marg_pass && frame_fixed[i] && hdd > threshold) hdd = hdd + scale_reg;
+    inv_hdd[g] = hdd > threshold ? 1.0f / hdd : 0.0f;
+  } else {
+    b_d[g] = (float)sum;
+  }
+}
 
-  // hpd[i, n, j, a] = target term of pair (i, j), plus on j == i the anchor
-  // terms summed over all targets
-  for (int e = tid; e < kChunkLm * kb; e += kThreads) {
-    const int l = e / kb, c = e % kb;
-    const int g = first + l;
-    float v = 0.0f;
-    if (g < total) {
-      const int i = g / n, ln = g % n, j = c / 8, a = c % 8;
-      v = lm_part[(((size_t)i * k + j) * n + ln) * kLmOut + 8 + a];
-      if (j == i) {
-        double anchor = 0.0;
-        for (int jj = 0; jj < k; ++jj)
-          anchor += (double)lm_part[(((size_t)i * k + jj) * n + ln) * kLmOut + a];
-        v = v + (float)anchor;
-      }
-      hpd[(size_t)g * kb + c] = v;
-    }
-    hs[l * hs_stride + c] = v;
-  }
-  if (tid < kChunkLm) {
-    const int g = first + tid;
-    float inv = 0.0f, bd = 0.0f;
-    if (g < total) {
-      const int i = g / n, ln = g % n;
-      double hdd_sum = 0.0, bd_sum = 0.0;
-      for (int j = 0; j < k; ++j) {
-        const float* part = lm_part + (((size_t)i * k + j) * n + ln) * kLmOut;
-        hdd_sum += (double)part[16];
-        bd_sum += (double)part[17];
-      }
-      float hdd = (float)hdd_sum;
-      bd = (float)bd_sum;
-      if (marg_pass && frame_fixed[i] && hdd > threshold) hdd = hdd + scale_reg;
-      inv = hdd > threshold ? 1.0f / hdd : 0.0f;
-      inv_hdd[g] = inv;
-      b_d[g] = bd;
-    }
-    inv_s[tid] = inv;
-    bd_s[tid] = bd;
-  }
-  __syncthreads();
+// block (group of kBands bands, anchor i), a warp per 16 columns of
+// [hpd_l (8k) | b_d_l | 0]: rows 8 band .. 8 band + 7 of each of its bands of
+// sum_l [hpd_l | b_d_l]^T (hpd_l inv_l) over the landmarks l of frame i, 16
+// a product, in order.  The anchor's rows are contiguous in hpd: a stage of
+// kChunkLm rows is read in float4s by consecutive threads (the next stage's
+// while this one's products run) into shared memory as f32, and the
+// fragments are converted as the lanes read them.  Row m of the warp's A' is
+// column 16 w + 2 (m % 8) + m / 8, so a lane's two columns are one float2.
+constexpr int kSchurVecs = 4;                 // float4s of a stage a thread loads, at most
 
-  double* out = schur_part + (size_t)blockIdx.x * (kb * kb + kb);
-  for (int e = tid; e < kb * kb; e += kThreads) {
-    const int row = e / kb, col = e % kb;
-    double acc = 0.0;
-    for (int l = 0; l < kChunkLm; ++l) {
-      const float* h_l = hs + l * hs_stride;
-      acc += (double)((h_l[row] * inv_s[l]) * h_l[col]);
+// floats of a staged row: 16 (k + 2) / 2 columns at least (the warps'
+// columns), 8 mod 32, so a fragment's 4 rows x 8 floats fall on 32 banks
+__host__ __device__ inline int schur_stride(int k) {
+  const int cols = 16 * ((k + 2) / 2);
+  return cols + ((8 - cols % 32) + 32) % 32;
+}
+
+template <int kBands>
+__global__ void __launch_bounds__(kSchurMaxWarps * 32)
+schur_kernel(const float* __restrict__ hpd, const float* __restrict__ inv_hdd,
+             const float* __restrict__ b_d, int k, int n, const int* __restrict__ lm_state,
+             double* __restrict__ schur_part) {
+  if (ba::lm_done(lm_state)) return;
+  extern __shared__ float stage_s[];          // [kChunkLm][stride], then inv [kChunkLm]
+  const int kb = 8 * k, first_band = blockIdx.x * kBands, i = blockIdx.y;
+  const int stride = schur_stride(k), threads = blockDim.x;
+  float* inv_s = stage_s + kChunkLm * stride;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  const size_t g0 = (size_t)i * n;
+  const int col = warp * 16 + 2 * g;          // this lane's columns col, col + 1
+  const int row_vecs = kb / 4;
+  for (int e = tid; e < kChunkLm * stride; e += threads) stage_s[e] = 0.0f;
+  float4 v[kSchurVecs];
+  float bd = 0.0f, inv = 0.0f;
+  auto load = [&](int l0) {
+    const int rows = min(kChunkLm, n - l0);
+    const float4* src = reinterpret_cast<const float4*>(hpd + (g0 + l0) * kb);
+#pragma unroll
+    for (int u = 0; u < kSchurVecs; ++u) {
+      const int e = tid + u * threads;
+      v[u] = e < rows * row_vecs ? __ldg(src + e) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
     }
-    out[e] = acc;
+    bd = tid < rows ? __ldg(b_d + g0 + l0 + tid) : 0.0f;
+    inv = tid < rows ? __ldg(inv_hdd + g0 + l0 + tid) : 0.0f;
+  };
+  double acc[kBands][4] = {};
+  load(0);
+  for (int l0 = 0; l0 < n; l0 += kChunkLm) {
+    const int rows = min(kChunkLm, n - l0);
+    __syncthreads();                          // the previous stage's products are done
+#pragma unroll
+    for (int u = 0; u < kSchurVecs; ++u) {
+      const int e = tid + u * threads;
+      if (e < rows * row_vecs) {
+        const int r = e / row_vecs, c = 4 * (e - r * row_vecs);
+        *reinterpret_cast<float4*>(stage_s + r * stride + c) = v[u];
+      }
+    }
+    if (tid < kChunkLm) {
+      stage_s[tid * stride + kb] = bd;        // rows past the last landmark: inv 0
+      inv_s[tid] = inv;
+    }
+    __syncthreads();
+    if (l0 + kChunkLm < n) load(l0 + kChunkLm);
+#pragma unroll
+    for (int step = 0; step < kChunkLm / 16; ++step) {
+      double a[8];
+      float inv_l[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int l = step * 16 + t4 + 4 * j;
+        const float2 pr = *reinterpret_cast<const float2*>(stage_s + l * stride + col);
+        a[2 * j] = (double)pr.x;
+        a[2 * j + 1] = (double)pr.y;
+        inv_l[j] = inv_s[l];
+      }
+#pragma unroll
+      for (int bb = 0; bb < kBands; ++bb) {
+        const int at = min(first_band + bb, k - 1) * 8 + g;
+        double b[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          b[j] = (double)(stage_s[(step * 16 + t4 + 4 * j) * stride + at] * inv_l[j]);
+        dmma(acc[bb], a, b);
+      }
+    }
   }
-  for (int c = tid; c < kb; c += kThreads) {
-    double acc = 0.0;
-    for (int l = 0; l < kChunkLm; ++l)
-      acc += (double)((hs[l * hs_stride + c] * inv_s[l]) * bd_s[l]);
-    out[kb * kb + c] = acc;
+  // acc[bb][q] = D'[row m = g + 8 (q / 2) of A'][row 8 band + 2 t + q % 2 of H]
+  double* out = schur_part + (size_t)i * (kb * kb + kb);
+#pragma unroll
+  for (int bb = 0; bb < kBands; ++bb) {
+    if (first_band + bb >= k) break;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int c = col + q / 2, row = (first_band + bb) * 8 + 2 * t4 + q % 2;
+      if (c < kb) out[(size_t)row * kb + c] = acc[bb][q];
+      else if (c == kb) out[(size_t)kb * kb + row] = acc[bb][q];
+    }
   }
+}
+
+size_t schur_shared_bytes(int k) {
+  return sizeof(float) * (kChunkLm * schur_stride(k) + kChunkLm);
 }
 
 // the frames' state and the weights of pba.py::_prior_system
@@ -242,68 +400,98 @@ __device__ void prior_entry(const Priors& pr, int f, int a, float* weight, float
   }
 }
 
+// the 8 slices' sums of an entry -> ((s0 + s4) + (s2 + s6)) + ((s1 + s5) + (s3 + s7))
+__device__ __forceinline__ double slice_tree(const double (&s)[kReduceLanes]) {
+  return ((s[0] + s[4]) + (s[2] + s[6])) + ((s[1] + s[5]) + (s[3] + s[7]));
+}
+
+// 32 entries of H | b a block, 8 slices an entry (thread q * 32 + x: entry x,
+// slice q, so neighbouring threads read neighbouring entries): slice q sums
+// the anchor frames q, q + 8, ... of the Schur partials and, of the pair
+// partials, the frames f = q, q + 8, ... of a diagonal block's (bi, f) and
+// (f, bi) pairs, then the tiles q, q + 8, ... of the (bi, bj) and (bj, bi)
+// pairs; slice_tree adds the slices
 __global__ void __launch_bounds__(kThreads)
 reduce_kernel(const double* __restrict__ pair_part, const double* __restrict__ schur_part,
-              int k, int tiles, int lm_blocks, Priors pr, const int* __restrict__ lm_state,
+              int k, int tiles, Priors pr, const int* __restrict__ lm_state,
               float* __restrict__ h_out, float* __restrict__ b_out,
               float* __restrict__ h_schur, float* __restrict__ b_schur) {
   if (ba::lm_done(lm_state)) return;
+  __shared__ double slices[2][kReduceLanes][kThreads / kReduceLanes];
   const int kb = k * 8;
-  const int e = blockIdx.x * kThreads + threadIdx.x;
-  if (e >= kb * kb + kb) return;
+  const int x = threadIdx.x % (kThreads / kReduceLanes), q = threadIdx.x / (kThreads / kReduceLanes);
+  const int e = blockIdx.x * (kThreads / kReduceLanes) + x;
+  const bool live = e < kb * kb + kb;
   const size_t schur_stride = (size_t)kb * kb + kb;
-  double schur = 0.0;
-  for (int blk = 0; blk < lm_blocks; ++blk) schur += schur_part[blk * schur_stride + e];
-
-  double sum = 0.0;
-  if (e < kb * kb) {
-    // H[(bi, a), (bj, b)] = [bi == bj] (h_rr[bi] + h_tt[bi])[a, b]
-    //                       + h_rt[bi, bj][a, b] + h_rt[bj, bi][b, a]
-    const int row = e / kb, col = e % kb;
-    const int bi = row / 8, a = row % 8, bj = col / 8, b = col % 8;
-    if (bi == bj) {
-      for (int f = 0; f < k; ++f)
+  double schur = 0.0, sum = 0.0;
+  if (live) {
+    for (int f = q; f < k; f += kReduceLanes) schur += schur_part[f * schur_stride + e];
+    if (e < kb * kb) {
+      // H[(bi, a), (bj, b)] = [bi == bj] (h_rr[bi] + h_tt[bi])[a, b]
+      //                       + h_rt[bi, bj][a, b] + h_rt[bj, bi][b, a]
+      const int row = e / kb, col = e % kb;
+      const int bi = row / 8, a = row % 8, bj = col / 8, b = col % 8;
+      if (bi == bj) {
+        for (int f = q; f < k; f += kReduceLanes)
+          for (int t = 0; t < tiles; ++t) {
+            sum += pair_part[((size_t)(bi * k + f) * tiles + t) * kPairOut + a * kCols + b];
+            sum += pair_part[((size_t)(f * k + bi) * tiles + t) * kPairOut +
+                             (8 + a) * kCols + 8 + b];
+          }
+      }
+      for (int t = q; t < tiles; t += kReduceLanes) {
+        sum += pair_part[((size_t)(bi * k + bj) * tiles + t) * kPairOut + a * kCols + 8 + b];
+        sum += pair_part[((size_t)(bj * k + bi) * tiles + t) * kPairOut + b * kCols + 8 + a];
+      }
+    } else {
+      // b[(bi, a)] = b_r[bi][a] + b_t[bi][a]
+      const int row = e - kb * kb;
+      const int bi = row / 8, a = row % 8;
+      for (int f = q; f < k; f += kReduceLanes)
         for (int t = 0; t < tiles; ++t) {
-          sum += pair_part[((size_t)(bi * k + f) * tiles + t) * kPairOut + a * kCols + b];
-          sum += pair_part[((size_t)(f * k + bi) * tiles + t) * kPairOut +
-                           (8 + a) * kCols + 8 + b];
+          sum += pair_part[((size_t)(bi * k + f) * tiles + t) * kPairOut + kCols * kCols + a];
+          sum += pair_part[((size_t)(f * k + bi) * tiles + t) * kPairOut + kCols * kCols + 8 + a];
         }
     }
-    for (int t = 0; t < tiles; ++t) {
-      sum += pair_part[((size_t)(bi * k + bj) * tiles + t) * kPairOut + a * kCols + 8 + b];
-      sum += pair_part[((size_t)(bj * k + bi) * tiles + t) * kPairOut + b * kCols + 8 + a];
-    }
+  }
+  slices[0][q][x] = schur;
+  slices[1][q][x] = sum;
+  __syncthreads();
+  if (!live || q != 0) return;
+  double s_schur[kReduceLanes], s_sum[kReduceLanes];
+#pragma unroll
+  for (int r = 0; r < kReduceLanes; ++r) {
+    s_schur[r] = slices[0][r][x];
+    s_sum[r] = slices[1][r][x];
+  }
+  schur = slice_tree(s_schur);
+  sum = slice_tree(s_sum);
+  if (e < kb * kb) {
+    const int row = e / kb, col = e % kb;
     float weight = 0.0f, gradient;
-    if (row == col) prior_entry(pr, bi, a, &weight, &gradient);
+    if (row == col) prior_entry(pr, row / 8, row % 8, &weight, &gradient);
     h_out[e] = (float)sum + weight;
     h_schur[e] = (float)schur;
   } else {
-    // b[(bi, a)] = b_r[bi][a] + b_t[bi][a]
     const int row = e - kb * kb;
-    const int bi = row / 8, a = row % 8;
-    for (int f = 0; f < k; ++f)
-      for (int t = 0; t < tiles; ++t) {
-        sum += pair_part[((size_t)(bi * k + f) * tiles + t) * kPairOut + kCols * kCols + a];
-        sum += pair_part[((size_t)(f * k + bi) * tiles + t) * kPairOut + kCols * kCols + 8 + a];
-      }
     float weight, gradient;
-    prior_entry(pr, bi, a, &weight, &gradient);
+    prior_entry(pr, row / 8, row % 8, &weight, &gradient);
     b_out[row] = (float)sum + gradient;
     b_schur[row] = (float)schur;
   }
 }
+
 
 }  // namespace
 
 // FEJ cache and evaluation as ba_fej / ba_evaluate write them; eps [k,8],
 // affine0 [k,2]; frame_valid, frame_fixed, frame_marg [k] u8; the priors'
 // weights.  Scratch from the caller: pair_part [k*k*tiles*272] f64, lm_part
-// [k*k*n*18] f32, schur_part [lm_blocks*(64k^2 + 8k)] f64, with tiles =
-// ceil(n / 64) and lm_blocks = ceil(k*n / 32).  Outputs: h, h_schur
-// [8k,8k]; b, b_schur [8k] (h and b with the diagonal priors); hpd [k,n,k,8];
-// inv_hdd, b_d [k,n].  lm_state: the LM loop's state or nullptr.  Returns
-// cudaErrorInvalidValue (1) for k above kMaxFrames (40) or a scratch layout
-// that is not the kernels'.
+// [k*k*n*10] f32, schur_part [k*(64k^2 + 8k)] f64, with tiles = ceil(n /
+// 128).  Outputs: h, h_schur [8k,8k]; b, b_schur [8k] (h and b with the
+// diagonal priors); hpd [k,n,k,8]; inv_hdd, b_d [k,n].  lm_state: the LM
+// loop's state or nullptr.  Returns cudaErrorInvalidValue (1) for k above
+// kMaxFrames (40) or a tile count that is not the kernels'.
 extern "C" int ba_linearize_schur(
     const float* d_uv_ref, const float* d_uv_tgt, const float* d_uv_idepth,
     const float* corrected_ref, const float* scale0, const unsigned char* geom_valid,
@@ -312,24 +500,29 @@ extern "C" int ba_linearize_schur(
     const unsigned char* frame_valid, const unsigned char* frame_fixed,
     const unsigned char* frame_marg, int k, int n, int marg_pass, float threshold,
     float scale_reg, float fixed_reg, float affine_reg_a, float affine_reg_b, int tiles,
-    int lm_blocks, const int* lm_state, double* pair_part, float* lm_part, double* schur_part,
+    const int* lm_state, double* pair_part, float* lm_part, double* schur_part,
     float* h_out, float* b_out, float* h_schur, float* b_schur, float* hpd,
     float* inv_hdd, float* b_d, void* stream) {
-  if (k < 1 || k > kMaxFrames || n < 1 || tiles != (n + kTileLm - 1) / kTileLm ||
-      lm_blocks != (k * n + kChunkLm - 1) / kChunkLm)
+  if (k < 1 || k > kMaxFrames || n < 1 || tiles != (n + kTileLm - 1) / kTileLm)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const int kb = k * 8;
   pair_kernel<<<dim3(tiles, k * k), kThreads, 0, s>>>(
       d_uv_ref, d_uv_tgt, d_uv_idepth, corrected_ref, scale0, geom_valid, residuals,
-      weight, gx, gy, ok, n, tiles, lm_state, pair_part, lm_part);
-  const size_t lm_shared_bytes = (size_t)(kChunkLm * (kb + 1) + 2 * kChunkLm) * sizeof(float);
-  landmark_kernel<<<lm_blocks, kThreads, lm_shared_bytes, s>>>(
-      lm_part, frame_fixed, k, n, marg_pass, threshold, scale_reg, lm_state, hpd, inv_hdd,
-      b_d, schur_part);
+      weight, gx, gy, ok, k, n, tiles, lm_state, pair_part, lm_part, hpd);
+  landmark_kernel<<<(k * n * kLmOut + kThreads - 1) / kThreads, kThreads, 0, s>>>(
+      lm_part, frame_fixed, k, n, marg_pass, threshold, scale_reg, lm_state, hpd, inv_hdd, b_d);
+  // bands a Schur block takes: two where that still gives k ceil(k / 2) >= 132
+  // blocks (the card's SMs; dense, K = 17), else one (standart, K = 10); each
+  // band's sum has the same order whatever the grouping
+  const int bands = k * ((k + 1) / 2) >= 132 ? 2 : 1;
+  auto schur = bands == 2 ? schur_kernel<2> : schur_kernel<1>;
+  schur<<<dim3((k + bands - 1) / bands, k), 32 * schur_warps(k), schur_shared_bytes(k), s>>>(
+      hpd, inv_hdd, b_d, k, n, lm_state, schur_part);
   const Priors pr = {eps,       affine0,   frame_valid,  frame_fixed, frame_marg,
                      marg_pass, fixed_reg, affine_reg_a, affine_reg_b};
-  reduce_kernel<<<(kb * kb + kb + kThreads - 1) / kThreads, kThreads, 0, s>>>(
-      pair_part, schur_part, k, tiles, lm_blocks, pr, lm_state, h_out, b_out, h_schur, b_schur);
+  const int entries_per_block = kThreads / kReduceLanes;
+  reduce_kernel<<<(kb * kb + kb + entries_per_block - 1) / entries_per_block, kThreads, 0, s>>>(
+      pair_part, schur_part, k, tiles, pr, lm_state, h_out, b_out, h_schur, b_schur);
   return (int)cudaGetLastError();
 }

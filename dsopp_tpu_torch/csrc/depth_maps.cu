@@ -12,195 +12,239 @@
 // 0 once more with the flow set's slot count.
 //
 // Bound: bytes (the grids of all levels are written once, about 6.5 MB at
-// VGA; the points are a few tens of KB).  Design:
-// * the scatter is a fixed-order sum, so two runs give the same bits: a point
-//   writes its pixel only if no earlier point shares it, and then adds its
-//   later twins in index order (all points staged through shared memory, at
-//   most a few thousand);
-// * the weights are exact integer counts of at most K * N, so the selection
-//   needs no sort: a histogram of the positive weights of a level, the
-//   weight class c* at which the running count from the top crosses the slot
-//   count, then an ordered compaction: pixels of class c* take the slots after
-//   the heavier ones in index order (a block scan per 1024-pixel tile plus the
-//   sum of the tile counts before it), and the fewer-than-slot-count heavier
-//   pixels are ranked among themselves by (class descending, index
-//   ascending).  When fewer pixels are positive than there are slots, c* is 0
-//   and the same compaction fills the rest with the lowest-index empty
-//   pixels, invalid, as the stable sort of the plain version leaves them.
+// VGA; the points are a few tens of KB), and at these sizes the launches.
+// Design, 10 launches and no memset a call, every sum in one fixed order so
+// two runs give the same bits:
+// 1. prepare_kernel: projects the points, and zeroes level 0's grids and the
+//    histograms;
+// 2. twins_kernel, a block per (tile, tile) of 256 points: for each point the
+//    least later point on its pixel (an integer atomicMin, whose result does
+//    not depend on the order) and whether an earlier one exists;
+// 3. chain_kernel: the first point of each pixel walks that chain and sums
+//    ((0 + d_first) + d_2) + ... in point order;
+// 4. pool_kernel, a block per 16x16 tile of level 0: the tile's pixels of
+//    levels 1..4, pooled in shared memory;
+// 5. dilate_hist_kernel, all levels in one grid: the 3x3 fill of the empty
+//    pixels, and per level a histogram of the positive weights (exact integer
+//    counts of at most K * N, so the selection needs no sort of the pixels);
+// 6. class_threshold_kernel, a block per selection round (levels, then level
+//    0 for the flow set): the weight class c* at which the running count from
+//    the top crosses the slot count, and the pixels heavier than it;
+// 7. tile_count_kernel and 8. select_write_kernel, all rounds in one grid
+//    each: an ordered compaction per 1024-pixel tile (a block scan plus the
+//    counts of the tiles before it): pixels of class c* take the slots after
+//    the heavier ones in index order, and the heavier ones (fewer than the
+//    slot count) go to a list in index order;
+// 9. class_rank_kernel and 10. heavy_write_kernel: a stable counting sort of
+//    that list by class, from the top: the histogram gives each class its
+//    first slot, and the entries of its class before it in the list (counted
+//    tile against tile, integer atomics) the rank inside the class.
+// When fewer pixels are positive than there are slots, c* is 0 and the same
+// compaction fills the rest with the lowest-index empty pixels, invalid, as
+// the stable sort of the plain version leaves them.
 
 #include "ba_body.cuh"
+#include "shared_opt_in.cuh"
 
 namespace {
 
-using namespace ba;
-
+constexpr int kThreads = 256;
 constexpr int kTile = 1024;            // pixels per compaction tile
 constexpr int kPerThread = kTile / kThreads;
 constexpr int kLowBins = 64;           // weight classes counted in shared memory
-constexpr int kScanThreads = 1024;
+constexpr int kBlockThreads = 1024;    // the one-block-a-round kernels (threshold, rank)
+constexpr int kMaxLevels = 5;          // a 16x16 level-0 tile holds one level-4 pixel
+constexpr int kPoolTile = 1 << (kMaxLevels - 1);
+constexpr int kMaxRounds = kMaxLevels + 1;
+constexpr int kMaxPoints = 16384;      // heavy_write_kernel's first slots: 64 KB of shared memory
+constexpr int kNone = 0x7fffffff;      // no later point on the pixel
 
-__global__ void __launch_bounds__(kThreads)
-project_kernel(const float* __restrict__ lm_uv, const float* __restrict__ lm_idepth,
-               const unsigned char* __restrict__ lm_mask, const float* __restrict__ rel_q,
-               const float* __restrict__ rel_t, int total, int n, Camera cam, int h, int w,
-               int* __restrict__ pix, float* __restrict__ pidep) {
-  const int p = blockIdx.x * kThreads + threadIdx.x;
-  if (p >= total) return;
-  const int i = p / n;
-  const Rigid rel = {{rel_q[4 * i], rel_q[4 * i + 1], rel_q[4 * i + 2], rel_q[4 * i + 3]},
-                     {rel_t[3 * i], rel_t[3 * i + 1], rel_t[3 * i + 2]}};
-  const float d = lm_idepth[p];
-  Vec3 ray;
-  const Vec3 q = scaled_target_point(cam, lm_uv[2 * p], lm_uv[2 * p + 1], d, rel, &ray);
-  const float z_safe = fabsf(q.z) < 1e-12f ? 1e-12f : q.z;
-  const float u_t = cam.fx * q.x / z_safe + cam.cx;
-  const float v_t = cam.fy * q.y / z_safe + cam.cy;
-  const bool ok = lm_mask[p] != 0 && reprojection_valid(cam, q.z, u_t, v_t, d);
-  const int xs = min(max((int)rintf(u_t), 0), w - 1);
-  const int ys = min(max((int)rintf(v_t), 0), h - 1);
-  pix[p] = ok ? ys * w + xs : -1;
-  pidep[p] = d / z_safe;
+// what every kernel reads of the call: the levels, the selection rounds and
+// where each one's cells, tiles and slots lie
+struct Plan {
+  int levels, rounds, classes, heavy_stride;
+  int h[kMaxLevels], w[kMaxLevels], cell_off[kMaxLevels];
+  int block_off[kMaxLevels + 1];       // dilate_hist_kernel's blocks per level, summed
+  int level[kMaxRounds], slots[kMaxRounds], sel_off[kMaxRounds];
+  int tile_off[kMaxRounds + 1];        // compaction tiles per round, summed
+  const float* intensity[kMaxLevels];  // [h_l, w_l] intensity image of level l
+};
+
+__host__ __device__ inline int blocks_for(int items, int per_block) {
+  return (items + per_block - 1) / per_block;
 }
 
+// the (first) entry of a prefix table `off` that is at most v
+__device__ __forceinline__ int segment_of(const int* off, int count, int v) {
+  int s = 0;
+  while (s + 1 < count && off[s + 1] <= v) ++s;
+  return s;
+}
+
+// block ranges of prepare_kernel: the points, then level 0's cells, then the
+// histograms
 __global__ void __launch_bounds__(kThreads)
-depth_scatter_kernel(const int* __restrict__ pix, const float* __restrict__ pidep, int total,
-               float* __restrict__ grid_i, float* __restrict__ grid_w) {
-  __shared__ int pix_s[kThreads];
-  __shared__ float idep_s[kThreads];
-  const int p = blockIdx.x * kThreads + threadIdx.x;
-  const int mine = p < total ? pix[p] : -1;
-  bool twin_before = false;
-  float sum = 0.0f, count = 0.0f;
-  for (int base = 0; base < total; base += kThreads) {
-    __syncthreads();
-    if (base + threadIdx.x < total) {
-      pix_s[threadIdx.x] = pix[base + threadIdx.x];
-      idep_s[threadIdx.x] = pidep[base + threadIdx.x];
+prepare_kernel(const float* __restrict__ lm_uv, const float* __restrict__ lm_idepth,
+               const unsigned char* __restrict__ lm_mask, const float* __restrict__ rel_q,
+               const float* __restrict__ rel_t, int total, int n, ba::Camera cam, Plan plan,
+               int* __restrict__ pix, float* __restrict__ pidep, int* __restrict__ next,
+               int* __restrict__ has_prev, float* __restrict__ raw_i, float* __restrict__ raw_w,
+               int* __restrict__ hist) {
+  const int point_blocks = blocks_for(total, kThreads);
+  const int cells = plan.h[0] * plan.w[0], cell_blocks = blocks_for(cells, kThreads);
+  const int b = blockIdx.x;
+  if (b < point_blocks) {
+    const int p = b * kThreads + threadIdx.x;
+    if (p >= total) return;
+    const int h = plan.h[0], w = plan.w[0];
+    const int i = p / n;
+    const ba::Rigid rel = {{rel_q[4 * i], rel_q[4 * i + 1], rel_q[4 * i + 2], rel_q[4 * i + 3]},
+                           {rel_t[3 * i], rel_t[3 * i + 1], rel_t[3 * i + 2]}};
+    const float d = lm_idepth[p];
+    ba::Vec3 ray;
+    const ba::Vec3 q = ba::scaled_target_point(cam, lm_uv[2 * p], lm_uv[2 * p + 1], d, rel, &ray);
+    const float z_safe = fabsf(q.z) < 1e-12f ? 1e-12f : q.z;
+    const float u_t = cam.fx * q.x / z_safe + cam.cx;
+    const float v_t = cam.fy * q.y / z_safe + cam.cy;
+    const bool ok = lm_mask[p] != 0 && ba::reprojection_valid(cam, q.z, u_t, v_t, d);
+    const int xs = min(max((int)rintf(u_t), 0), w - 1);
+    const int ys = min(max((int)rintf(v_t), 0), h - 1);
+    pix[p] = ok ? ys * w + xs : -1;
+    pidep[p] = d / z_safe;
+    next[p] = kNone;
+    has_prev[p] = 0;
+  } else if (b < point_blocks + cell_blocks) {
+    const int idx = (b - point_blocks) * kThreads + threadIdx.x;
+    if (idx < cells) {
+      raw_i[idx] = 0.0f;
+      raw_w[idx] = 0.0f;
     }
+  } else {
+    const int e = (b - point_blocks - cell_blocks) * kThreads + threadIdx.x;
+    if (e < plan.levels * plan.classes) hist[e] = 0;
+  }
+}
+
+// block (x, y): the points of tile x against those of tile y (256 each):
+// next[p] = the least later point on p's pixel (an integer minimum, so the
+// order of the atomics does not matter), has_prev[p] = an earlier one exists
+__global__ void __launch_bounds__(kThreads)
+twins_kernel(const int* __restrict__ pix, int total, int* __restrict__ next,
+             int* __restrict__ has_prev) {
+  __shared__ int pix_s[kThreads];
+  const int p = blockIdx.x * kThreads + threadIdx.x;
+  const int base = blockIdx.y * kThreads;
+  pix_s[threadIdx.x] = base + threadIdx.x < total ? pix[base + threadIdx.x] : -1;
+  __syncthreads();
+  const int mine = p < total ? pix[p] : -1;
+  if (mine < 0) return;
+  const int len = min(kThreads, total - base);
+  bool prev = false;
+  int later = kNone;
+#pragma unroll 8
+  for (int j = 0; j < len; ++j) {
+    if (pix_s[j] != mine || base + j == p) continue;
+    if (base + j < p) {
+      prev = true;
+    } else {
+      later = base + j;
+      break;
+    }
+  }
+  if (prev) has_prev[p] = 1;
+  if (later != kNone) atomicMin(&next[p], later);
+}
+
+// the first point of each pixel sums its chain in point order:
+// ((0 + d_first) + d_2) + ..., and the count
+__global__ void __launch_bounds__(kThreads)
+chain_kernel(const int* __restrict__ pix, const float* __restrict__ pidep,
+             const int* __restrict__ next, const int* __restrict__ has_prev, int total,
+             float* __restrict__ raw_i, float* __restrict__ raw_w) {
+  const int p = blockIdx.x * kThreads + threadIdx.x;
+  if (p >= total || pix[p] < 0 || has_prev[p]) return;
+  float sum = 0.0f, count = 0.0f;
+  for (int q = p; q != kNone; q = next[q]) {
+    sum += pidep[q];
+    count += 1.0f;
+  }
+  raw_i[pix[p]] = sum;
+  raw_w[pix[p]] = count;
+}
+
+// block (tile x, tile y): the coarser levels' pixels of one 16x16 tile of
+// level 0, each the pool ((a + b) + c) + d of its four finer ones
+__global__ void __launch_bounds__(kPoolTile * kPoolTile)
+pool_kernel(Plan plan, float* __restrict__ raw_i, float* __restrict__ raw_w) {
+  __shared__ float buf_i[2][kPoolTile][kPoolTile + 1];
+  __shared__ float buf_w[2][kPoolTile][kPoolTile + 1];
+  const int tx = threadIdx.x % kPoolTile, ty = threadIdx.x / kPoolTile;
+  const int x0 = blockIdx.x * kPoolTile, y0 = blockIdx.y * kPoolTile;
+  const bool in = y0 + ty < plan.h[0] && x0 + tx < plan.w[0];
+  const size_t at0 = (size_t)(y0 + ty) * plan.w[0] + x0 + tx;
+  buf_i[0][ty][tx] = in ? raw_i[at0] : 0.0f;
+  buf_w[0][ty][tx] = in ? raw_w[at0] : 0.0f;
+  for (int l = 1; l < plan.levels; ++l) {
     __syncthreads();
-    if (mine < 0) continue;
-    const int len = min(kThreads, total - base);
-    for (int j = 0; j < len; ++j) {
-      if (pix_s[j] != mine) continue;
-      if (base + j < p) {
-        twin_before = true;
-      } else {
-        sum += idep_s[j];
-        count += 1.0f;
+    const int side = kPoolTile >> l;
+    const int src = (l - 1) & 1, dst = l & 1;
+    if (tx < side && ty < side) {
+      const int y = (y0 >> l) + ty, x = (x0 >> l) + tx;
+      const float a = ((buf_i[src][2 * ty][2 * tx] + buf_i[src][2 * ty][2 * tx + 1]) +
+                       buf_i[src][2 * ty + 1][2 * tx]) + buf_i[src][2 * ty + 1][2 * tx + 1];
+      const float b = ((buf_w[src][2 * ty][2 * tx] + buf_w[src][2 * ty][2 * tx + 1]) +
+                       buf_w[src][2 * ty + 1][2 * tx]) + buf_w[src][2 * ty + 1][2 * tx + 1];
+      buf_i[dst][ty][tx] = a;
+      buf_w[dst][ty][tx] = b;
+      if (y < plan.h[l] && x < plan.w[l]) {
+        const size_t at = plan.cell_off[l] + (size_t)y * plan.w[l] + x;
+        raw_i[at] = a;
+        raw_w[at] = b;
       }
     }
   }
-  if (mine >= 0 && !twin_before) {
-    grid_i[mine] = sum;
-    grid_w[mine] = count;
-  }
 }
 
+// every level's 3x3 fill and the histogram hist[level][c] of its pixels of
+// weight class c >= 1
 __global__ void __launch_bounds__(kThreads)
-pool_kernel(const float* __restrict__ src_i, const float* __restrict__ src_w, int sw, int dh,
-            int dw, float* __restrict__ dst_i, float* __restrict__ dst_w) {
-  const int idx = blockIdx.x * kThreads + threadIdx.x;
-  if (idx >= dh * dw) return;
-  const int y = idx / dw, x = idx % dw;
-  const size_t a = (size_t)(2 * y) * sw + 2 * x, c = a + sw;
-  dst_i[idx] = ((src_i[a] + src_i[a + 1]) + src_i[c]) + src_i[c + 1];
-  dst_w[idx] = ((src_w[a] + src_w[a + 1]) + src_w[c]) + src_w[c + 1];
-}
-
-__global__ void __launch_bounds__(kThreads)
-dilate_kernel(const float* __restrict__ src_i, const float* __restrict__ src_w, int h, int w,
-              float* __restrict__ dst_i, float* __restrict__ dst_w) {
-  const int idx = blockIdx.x * kThreads + threadIdx.x;
-  if (idx >= h * w) return;
-  const float own = src_w[idx];
-  if (own != 0.0f) {
-    dst_i[idx] = src_i[idx];
-    dst_w[idx] = own;
-    return;
-  }
-  const int y = idx / w, x = idx % w;
-  float sum_i = 0.0f, sum_w = 0.0f;
-  for (int dy = -1; dy <= 1; ++dy) {
-    for (int dx = -1; dx <= 1; ++dx) {
-      const int yy = y + dy, xx = x + dx;
-      const bool in = yy >= 0 && yy < h && xx >= 0 && xx < w;
-      sum_i = sum_i + (in ? src_i[yy * w + xx] : 0.0f);
-      sum_w = sum_w + (in ? src_w[yy * w + xx] : 0.0f);
-    }
-  }
-  dst_i[idx] = sum_i;
-  dst_w[idx] = sum_w;
-}
-
-// hist[c] = number of pixels of weight class c >= 1
-__global__ void __launch_bounds__(kThreads)
-hist_kernel(const float* __restrict__ weight, int npix, int classes, int* __restrict__ hist) {
+dilate_hist_kernel(const float* __restrict__ raw_i, const float* __restrict__ raw_w, Plan plan,
+                   float* __restrict__ out_i, float* __restrict__ out_w, int* __restrict__ hist) {
   __shared__ int low[kLowBins];
+  const int l = segment_of(plan.block_off, plan.levels, blockIdx.x);
+  const int h = plan.h[l], w = plan.w[l];
+  const float* src_i = raw_i + plan.cell_off[l];
+  const float* src_w = raw_w + plan.cell_off[l];
+  int* level_hist = hist + (size_t)l * plan.classes;
   if (threadIdx.x < kLowBins) low[threadIdx.x] = 0;
   __syncthreads();
-  for (int idx = blockIdx.x * kThreads + threadIdx.x; idx < npix; idx += gridDim.x * kThreads) {
-    const float wv = weight[idx];
-    if (!(wv > 0.0f)) continue;
-    const int c = min((int)wv, classes - 1);
-    atomicAdd(c < kLowBins ? &low[c] : &hist[c], 1);
+  const int idx = (blockIdx.x - plan.block_off[l]) * kThreads + threadIdx.x;
+  if (idx < h * w) {
+    float vi = src_i[idx], vw = src_w[idx];
+    if (vw == 0.0f) {
+      const int y = idx / w, x = idx % w;
+      float sum_i = 0.0f, sum_w = 0.0f;
+      for (int dy = -1; dy <= 1; ++dy) {
+        for (int dx = -1; dx <= 1; ++dx) {
+          const int yy = y + dy, xx = x + dx;
+          const bool in = yy >= 0 && yy < h && xx >= 0 && xx < w;
+          sum_i = sum_i + (in ? src_i[yy * w + xx] : 0.0f);
+          sum_w = sum_w + (in ? src_w[yy * w + xx] : 0.0f);
+        }
+      }
+      vi = sum_i;
+      vw = sum_w;
+    }
+    out_i[plan.cell_off[l] + idx] = vi;
+    out_w[plan.cell_off[l] + idx] = vw;
+    if (vw > 0.0f) {
+      const int c = min((int)vw, plan.classes - 1);
+      atomicAdd(c < kLowBins ? &low[c] : &level_hist[c], 1);
+    }
   }
   __syncthreads();
-  if (threadIdx.x < kLowBins && threadIdx.x < classes && low[threadIdx.x] > 0)
-    atomicAdd(&hist[threadIdx.x], low[threadIdx.x]);
-}
-
-// params[0] = c*, the class at which the count from the top crosses `slots`
-// (0 when fewer pixels are positive); params[1] = pixels heavier than c*.
-// Also pads the slots that no pixel can fill (slots > npix).
-__global__ void __launch_bounds__(kScanThreads)
-class_threshold_kernel(const int* __restrict__ hist, int classes, int slots, int npix,
-                 int* __restrict__ params, float* __restrict__ uv, float* __restrict__ idepth,
-                 float* __restrict__ value, unsigned char* __restrict__ valid) {
-  __shared__ int sums[33];
-  const int chunk = (classes + kScanThreads - 1) / kScanThreads;
-  const int hi = classes - 1 - (int)threadIdx.x * chunk;
-  const int lo = max(hi - chunk + 1, 1);
-  int own = 0;
-  for (int c = hi; c >= lo; --c) own += hist[c];
-  int above = block_exclusive_scan<kScanThreads>(own, sums);
-  for (int c = hi; c >= lo; --c) {
-    const int cnt = hist[c];
-    if (above < slots && above + cnt >= slots) {
-      params[0] = c;
-      params[1] = above;
-    }
-    above += cnt;
-  }
-  if (threadIdx.x == 0 && sums[32] < slots) {
-    params[0] = 0;
-    params[1] = sums[32];
-  }
-  for (int s = npix + threadIdx.x; s < slots; s += kScanThreads) {
-    uv[2 * s] = 0.0f;
-    uv[2 * s + 1] = 0.0f;
-    idepth[s] = 0.0f;
-    value[s] = 0.0f;
-    valid[s] = 0;
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-tile_count_kernel(const float* __restrict__ weight, int npix, const int* __restrict__ params,
-                  int* __restrict__ tile_counts) {
-  __shared__ int sums[33];
-  const float cstar = (float)params[0];
-  int packed = 0;   // heavier pixels in the high half, pixels of class c* in the low
-  const int first = blockIdx.x * kTile + threadIdx.x * kPerThread;
-  for (int j = 0; j < kPerThread; ++j) {
-    if (first + j >= npix) break;
-    const float wv = weight[first + j];
-    packed += (wv > cstar ? 1 << 16 : 0) + (wv == cstar ? 1 : 0);
-  }
-  block_exclusive_scan<kThreads>(packed, sums);
-  if (threadIdx.x == 0) {
-    tile_counts[2 * blockIdx.x] = sums[32] >> 16;
-    tile_counts[2 * blockIdx.x + 1] = sums[32] & 0xffff;
-  }
+  if (threadIdx.x < kLowBins && threadIdx.x < plan.classes && low[threadIdx.x] > 0)
+    atomicAdd(&level_hist[threadIdx.x], low[threadIdx.x]);
 }
 
 struct Selection {
@@ -214,6 +258,14 @@ struct Selection {
   unsigned char* valid;
 };
 
+__device__ Selection round_selection(const Plan& plan, int r, const float* out_i,
+                                     const float* out_w, float* uv, float* idepth, float* value,
+                                     unsigned char* valid) {
+  const int l = plan.level[r], at = plan.sel_off[r];
+  return {out_i + plan.cell_off[l], out_w + plan.cell_off[l], plan.intensity[l], plan.w[l],
+          uv + 2 * at, idepth + at, value + at, valid + at};
+}
+
 __device__ __forceinline__ void write_slot(const Selection& sel, int slot, int idx) {
   const float wv = sel.weight_map[idx];
   const float idep = sel.idepth_map[idx] / fmaxf(wv, 1e-12f);
@@ -224,38 +276,114 @@ __device__ __forceinline__ void write_slot(const Selection& sel, int slot, int i
   sel.valid[slot] = (wv > 0.0f && idep > 1e-6f) ? 1 : 0;
 }
 
-__global__ void __launch_bounds__(kThreads)
-select_write_kernel(Selection sel, int npix, int slots, const int* __restrict__ params,
-                    const int* __restrict__ tile_counts, int* __restrict__ heavy) {
+// block r: params[2r] = c*, the class at which the count from the top
+// crosses the round's slot count (0 when fewer pixels are positive);
+// params[2r + 1] = pixels heavier than c*.  Also pads the slots that no
+// pixel can fill (slots > pixels), and zeroes the round's ranks.
+__global__ void __launch_bounds__(kBlockThreads)
+class_threshold_kernel(const int* __restrict__ hist, Plan plan, int* __restrict__ params,
+                       int* __restrict__ rank, float* __restrict__ uv,
+                       float* __restrict__ idepth, float* __restrict__ value,
+                       unsigned char* __restrict__ valid) {
   __shared__ int sums[33];
-  __shared__ int before[2];
-  const float cstar = (float)params[0];
-  const int above = params[1];
-  // pixels heavier than c* / of class c* in the tiles before this one
-  int hi = 0, eq = 0;
-  for (int t = threadIdx.x; t < (int)blockIdx.x; t += kThreads) {
-    hi += tile_counts[2 * t];
-    eq += tile_counts[2 * t + 1];
+  const int r = blockIdx.x, l = plan.level[r], slots = plan.slots[r];
+  const int npix = plan.h[l] * plan.w[l], classes = plan.classes;
+  const int* level_hist = hist + (size_t)l * classes;
+  const int chunk = (classes + kBlockThreads - 1) / kBlockThreads;
+  const int hi = classes - 1 - (int)threadIdx.x * chunk;
+  const int lo = max(hi - chunk + 1, 1);
+  int own = 0;
+  for (int c = hi; c >= lo; --c) own += level_hist[c];
+  int above = ba::block_exclusive_scan<kBlockThreads>(own, sums);
+  for (int c = hi; c >= lo; --c) {
+    const int cnt = level_hist[c];
+    if (above < slots && above + cnt >= slots) {
+      params[2 * r] = c;
+      params[2 * r + 1] = above;
+    }
+    above += cnt;
   }
-  block_exclusive_scan<kThreads>(hi, sums);
-  if (threadIdx.x == 0) before[0] = sums[32];
-  block_exclusive_scan<kThreads>(eq, sums);
-  if (threadIdx.x == 0) before[1] = sums[32];
+  if (threadIdx.x == 0 && sums[32] < slots) {
+    params[2 * r] = 0;
+    params[2 * r + 1] = sums[32];
+  }
+  for (int i = threadIdx.x; i < plan.heavy_stride; i += kBlockThreads)
+    rank[(size_t)r * plan.heavy_stride + i] = 0;
+  const int at = plan.sel_off[r];
+  for (int s = npix + threadIdx.x; s < slots; s += kBlockThreads) {
+    uv[2 * (at + s)] = 0.0f;
+    uv[2 * (at + s) + 1] = 0.0f;
+    idepth[at + s] = 0.0f;
+    value[at + s] = 0.0f;
+    valid[at + s] = 0;
+  }
+}
 
-  const int first = blockIdx.x * kTile + threadIdx.x * kPerThread;
-  float wv[kPerThread];
+// the tile's pixels heavier than c* (high half) and of class c* (low half)
+__device__ __forceinline__ int tile_packed(const float* weight, int first, int npix, float cstar,
+                                           float* wv) {
   int packed = 0;
+#pragma unroll
   for (int j = 0; j < kPerThread; ++j) {
-    wv[j] = first + j < npix ? sel.weight_map[first + j] : -1.0f;
+    wv[j] = first + j < npix ? weight[first + j] : -1.0f;
     packed += (wv[j] > cstar ? 1 << 16 : 0) + (wv[j] == cstar ? 1 : 0);
   }
-  const int scan = block_exclusive_scan<kThreads>(packed, sums);
+  return packed;
+}
+
+__global__ void __launch_bounds__(kThreads)
+tile_count_kernel(const float* __restrict__ out_w, Plan plan, const int* __restrict__ params,
+                  int* __restrict__ tile_counts) {
+  __shared__ int sums[33];
+  const int r = segment_of(plan.tile_off, plan.rounds, blockIdx.x);
+  const int l = plan.level[r], npix = plan.h[l] * plan.w[l];
+  const int tile = blockIdx.x - plan.tile_off[r];
+  float wv[kPerThread];
+  const int packed = tile_packed(out_w + plan.cell_off[l], tile * kTile + threadIdx.x * kPerThread,
+                                 npix, (float)params[2 * r], wv);
+  ba::block_exclusive_scan<kThreads>(packed, sums);
+  if (threadIdx.x == 0) {
+    tile_counts[2 * blockIdx.x] = sums[32] >> 16;
+    tile_counts[2 * blockIdx.x + 1] = sums[32] & 0xffff;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+select_write_kernel(const float* __restrict__ out_i, const float* __restrict__ out_w, Plan plan,
+                    const int* __restrict__ params, const int* __restrict__ tile_counts,
+                    int* __restrict__ heavy, float* __restrict__ uv, float* __restrict__ idepth,
+                    float* __restrict__ value, unsigned char* __restrict__ valid) {
+  __shared__ int sums[33];
+  __shared__ int before[2];
+  const int r = segment_of(plan.tile_off, plan.rounds, blockIdx.x);
+  const int l = plan.level[r], npix = plan.h[l] * plan.w[l], slots = plan.slots[r];
+  const int tile = blockIdx.x - plan.tile_off[r];
+  const Selection sel = round_selection(plan, r, out_i, out_w, uv, idepth, value, valid);
+  const float cstar = (float)params[2 * r];
+  const int above = params[2 * r + 1];
+  int* list = heavy + (size_t)r * 2 * plan.heavy_stride;
+  // pixels heavier than c* / of class c* in the round's tiles before this one
+  int hi = 0, eq = 0;
+  for (int t = threadIdx.x; t < tile; t += kThreads) {
+    hi += tile_counts[2 * (plan.tile_off[r] + t)];
+    eq += tile_counts[2 * (plan.tile_off[r] + t) + 1];
+  }
+  ba::block_exclusive_scan<kThreads>(hi, sums);
+  if (threadIdx.x == 0) before[0] = sums[32];
+  ba::block_exclusive_scan<kThreads>(eq, sums);
+  if (threadIdx.x == 0) before[1] = sums[32];
+
+  const int first = tile * kTile + threadIdx.x * kPerThread;
+  float wv[kPerThread];
+  const int packed = tile_packed(sel.weight_map, first, npix, cstar, wv);
+  const int scan = ba::block_exclusive_scan<kThreads>(packed, sums);
   int hi_rank = before[0] + (scan >> 16);
   int eq_rank = before[1] + (scan & 0xffff);
+#pragma unroll
   for (int j = 0; j < kPerThread; ++j) {
     if (wv[j] > cstar) {
-      heavy[2 * hi_rank] = first + j;
-      heavy[2 * hi_rank + 1] = (int)wv[j];
+      list[2 * hi_rank] = first + j;
+      list[2 * hi_rank + 1] = (int)wv[j];
       ++hi_rank;
     } else if (wv[j] == cstar) {
       if (above + eq_rank < slots) write_slot(sel, above + eq_rank, first + j);
@@ -264,91 +392,156 @@ select_write_kernel(Selection sel, int npix, int slots, const int* __restrict__ 
   }
 }
 
-// the pixels heavier than c* (fewer than `slots`, listed in index order):
-// slot = heavier ones + equally heavy ones before it
+// block (x, y, round r): entries x of the round's list of pixels heavier
+// than c* (index order) against entries y <= x: rank[i] += the earlier
+// entries of i's class in tile y (integer sums, whose order does not matter)
 __global__ void __launch_bounds__(kThreads)
-heavy_rank_kernel(Selection sel, const int* __restrict__ params,
-                  const int* __restrict__ heavy) {
+class_rank_kernel(const int* __restrict__ params, const int* __restrict__ heavy, Plan plan,
+                  int* __restrict__ rank) {
   __shared__ int cls_s[kThreads];
-  const int count = params[1];
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  if (blockIdx.x * kThreads >= count) return;
-  const int mine = i < count ? heavy[2 * i + 1] : 0;
-  int slot = 0;
-  for (int base = 0; base < count; base += kThreads) {
-    __syncthreads();
-    if (base + threadIdx.x < count) cls_s[threadIdx.x] = heavy[2 * (base + threadIdx.x) + 1];
-    __syncthreads();
-    const int len = min(kThreads, count - base);
-    for (int j = 0; j < len; ++j)
-      slot += (cls_s[j] > mine || (cls_s[j] == mine && base + j < i)) ? 1 : 0;
-  }
-  if (i < count) write_slot(sel, slot, heavy[2 * i]);
+  const int r = blockIdx.z, count = params[2 * r + 1];
+  if ((int)blockIdx.x * kThreads >= count || blockIdx.y > blockIdx.x) return;
+  const int* list = heavy + (size_t)r * 2 * plan.heavy_stride;
+  const int base = blockIdx.y * kThreads, i = blockIdx.x * kThreads + threadIdx.x;
+  cls_s[threadIdx.x] = base + threadIdx.x < count ? list[2 * (base + threadIdx.x) + 1] : -1;
+  __syncthreads();
+  if (i >= count) return;
+  const int mine = list[2 * i + 1];
+  const int len = min(kThreads, i - base);
+  int before = 0;
+  for (int j = 0; j < len; ++j) before += cls_s[j] == mine ? 1 : 0;
+  if (before) atomicAdd(&rank[(size_t)r * plan.heavy_stride + i], before);
 }
 
-inline int blocks_for(int items, int per_block) { return (items + per_block - 1) / per_block; }
+// block r: the slot of entry i of the round's list is a stable counting
+// sort's: the pixels heavier than its class (the level's histogram summed
+// from the top) plus its rank among the list's entries of its class
+__global__ void __launch_bounds__(kBlockThreads)
+heavy_write_kernel(const float* __restrict__ out_i, const float* __restrict__ out_w,
+                   const int* __restrict__ hist, Plan plan, const int* __restrict__ params,
+                   const int* __restrict__ heavy, const int* __restrict__ rank,
+                   float* __restrict__ uv, float* __restrict__ idepth,
+                   float* __restrict__ value, unsigned char* __restrict__ valid) {
+  extern __shared__ int first_slot[];    // [classes]
+  __shared__ int sums[33];
+  const int r = blockIdx.x, classes = plan.classes;
+  const int count = params[2 * r + 1];
+  const int* level_hist = hist + (size_t)plan.level[r] * classes;
+  const int chunk = (classes + kBlockThreads - 1) / kBlockThreads;
+  const int hi = classes - 1 - (int)threadIdx.x * chunk;
+  const int lo = max(hi - chunk + 1, 1);
+  int own = 0;
+  for (int c = hi; c >= lo; --c) own += level_hist[c];
+  int above = ba::block_exclusive_scan<kBlockThreads>(own, sums);
+  for (int c = hi; c >= lo; --c) {
+    first_slot[c] = above;
+    above += level_hist[c];
+  }
+  __syncthreads();
+  const Selection sel = round_selection(plan, r, out_i, out_w, uv, idepth, value, valid);
+  const int* list = heavy + (size_t)r * 2 * plan.heavy_stride;
+  const int* round_rank = rank + (size_t)r * plan.heavy_stride;
+  for (int i = threadIdx.x; i < count; i += kBlockThreads)
+    write_slot(sel, first_slot[list[2 * i + 1]] + round_rank[i], list[2 * i]);
+}
 
 }  // namespace
 
 // Points: lm_uv [k,n,2], lm_idepth [k,n], lm_mask [k,n] u8 (live landmarks of
 // the older keyframes), rel_q [k,4] / rel_t [k,3] (newest <- each frame).
 // `intensity` is a host array of `levels` device pointers: the [h_l, w_l]
-// intensity image of each pyramid level.  Scratch: pix [k*n] int32, pidep
-// [k*n] f32, raw_i / raw_w (all levels, concatenated), hist [k*n+1] int32, params [2] int32, tile_counts [2*ceil(h*w/1024)]
-// int32, heavy [2*max(max_points, flow_points)] int32.  Outputs: out_i / out_w
-// (all levels, concatenated) and the selections, `levels` of max_points slots
-// then one of flow_points slots: uv [.,2], idepth, value f32, valid u8.
+// intensity image of each pyramid level.  Scratch: pix, next, has_prev [k*n]
+// int32, pidep [k*n] f32, raw_i / raw_w (all levels, concatenated), hist
+// [levels*(k*n+1)] int32, params [2*(levels+1)] int32, tile_counts [2*sum of
+// ceil(pixels / 1024) over the rounds] int32, heavy [(levels+1)*2*m] and rank
+// [(levels+1)*m] int32 with m = max(max_points, flow_points).  Outputs: out_i / out_w (all levels,
+// concatenated) and the selections, `levels` of max_points slots then one of
+// flow_points slots: uv [.,2], idepth, value f32, valid u8.  `launches`
+// (host, 2 ints) receives the kernels launched and the memsets issued.
+// Returns cudaErrorInvalidValue (1) for more than 5 levels, more than 16384
+// points, or a level without pixels.
 extern "C" int depth_maps(const float* lm_uv, const float* lm_idepth,
                           const unsigned char* lm_mask, const float* rel_q,
                           const float* rel_t, int k, int n, float fx, float fy, float cx,
                           float cy, float width, float height, int h, int w, int levels,
                           int max_points, int flow_points, const float* const* intensity,
-                          int* pix, float* pidep, float* raw_i, float* raw_w, int* hist,
-                          int* params, int* tile_counts, int* heavy, float* out_i,
-                          float* out_w, float* sel_uv, float* sel_idepth, float* sel_value,
-                          unsigned char* sel_valid, void* stream) {
+                          int* pix, float* pidep, int* next, int* has_prev, float* raw_i,
+                          float* raw_w, int* hist, int* params, int* tile_counts, int* heavy,
+                          int* rank, float* out_i, float* out_w, float* sel_uv, float* sel_idepth,
+                          float* sel_value, unsigned char* sel_valid, int* launches,
+                          void* stream) {
+  const int total = k * n;
+  if (levels < 1 || levels > kMaxLevels || total < 1 || total > kMaxPoints ||
+      (h >> (levels - 1)) < 1 || (w >> (levels - 1)) < 1)
+    return (int)cudaErrorInvalidValue;
+  Plan plan = {};
+  plan.levels = levels;
+  plan.rounds = levels + 1;
+  plan.classes = total + 1;
+  plan.heavy_stride = max(max_points, flow_points);
+  int cells = 0, blocks = 0;
+  for (int l = 0; l < levels; ++l) {
+    plan.h[l] = h >> l;
+    plan.w[l] = w >> l;
+    plan.cell_off[l] = cells;
+    plan.block_off[l] = blocks;
+    plan.intensity[l] = intensity[l];
+    cells += plan.h[l] * plan.w[l];
+    blocks += blocks_for(plan.h[l] * plan.w[l], kThreads);
+  }
+  plan.block_off[levels] = blocks;
+  int tiles = 0;
+  for (int r = 0; r < plan.rounds; ++r) {
+    const bool flow = r == levels;        // level 0 once more, for the flow set
+    plan.level[r] = flow ? 0 : r;
+    plan.slots[r] = flow ? flow_points : max_points;
+    plan.sel_off[r] = r * max_points;
+    plan.tile_off[r] = tiles;
+    tiles += blocks_for(plan.h[plan.level[r]] * plan.w[plan.level[r]], kTile);
+  }
+  plan.tile_off[plan.rounds] = tiles;
+
+  static size_t write_opted[smem::kMaxDevices] = {};
+  const size_t write_bytes = sizeof(int) * plan.classes;
+  const cudaError_t err = smem::fit(heavy_write_kernel, write_bytes, write_opted);
+  if (err != cudaSuccess) return (int)err;
+
   cudaStream_t s = (cudaStream_t)stream;
   const ba::Camera cam = {fx, fy, cx, cy, width, height};
-  const int total = k * n, classes = total + 1;
-  project_kernel<<<blocks_for(total, kThreads), kThreads, 0, s>>>(
-      lm_uv, lm_idepth, lm_mask, rel_q, rel_t, total, n, cam, h, w, pix, pidep);
-  cudaMemsetAsync(raw_i, 0, sizeof(float) * h * w, s);
-  cudaMemsetAsync(raw_w, 0, sizeof(float) * h * w, s);
-  depth_scatter_kernel<<<blocks_for(total, kThreads), kThreads, 0, s>>>(pix, pidep, total, raw_i,
-                                                                 raw_w);
-  size_t off = 0, slot = 0;
-  int lh = h, lw = w;
-  for (int l = 0; l < levels; ++l) {
-    if (l > 0) {
-      const size_t src = off;
-      const int sw = lw;
-      off += (size_t)lh * lw;
-      lh /= 2;
-      lw /= 2;
-      pool_kernel<<<blocks_for(lh * lw, kThreads), kThreads, 0, s>>>(
-          raw_i + src, raw_w + src, sw, lh, lw, raw_i + off, raw_w + off);
-    }
-    const int np = lh * lw;
-    dilate_kernel<<<blocks_for(np, kThreads), kThreads, 0, s>>>(raw_i + off, raw_w + off, lh, lw,
-                                                               out_i + off, out_w + off);
-    cudaMemsetAsync(hist, 0, sizeof(int) * classes, s);
-    const int hist_blocks = blocks_for(np, kThreads);
-    hist_kernel<<<hist_blocks < 256 ? hist_blocks : 256, kThreads, 0, s>>>(out_w + off, np,
-                                                                           classes, hist);
-    const int rounds = l == 0 ? 2 : 1;   // level 0 also feeds the flow set
-    for (int r = 0; r < rounds; ++r) {
-      const int slots = r == 0 ? max_points : flow_points;
-      const size_t at = r == 0 ? slot : (size_t)levels * max_points;
-      const Selection sel = {out_i + off, out_w + off, intensity[l], lw,
-                             sel_uv + 2 * at, sel_idepth + at, sel_value + at, sel_valid + at};
-      const int tiles = blocks_for(np, kTile);
-      class_threshold_kernel<<<1, kScanThreads, 0, s>>>(hist, classes, slots, np, params, sel.uv,
-                                                  sel.idepth, sel.value, sel.valid);
-      tile_count_kernel<<<tiles, kThreads, 0, s>>>(out_w + off, np, params, tile_counts);
-      select_write_kernel<<<tiles, kThreads, 0, s>>>(sel, np, slots, params, tile_counts, heavy);
-      heavy_rank_kernel<<<blocks_for(slots, kThreads), kThreads, 0, s>>>(sel, params, heavy);
-    }
-    slot += max_points;
-  }
+  const int point_blocks = blocks_for(total, kThreads);
+  const int prepare_blocks = point_blocks + blocks_for(plan.h[0] * plan.w[0], kThreads) +
+                             blocks_for(levels * plan.classes, kThreads);
+  int launched = 0;   // kernels; this entry issues no memset
+  prepare_kernel<<<prepare_blocks, kThreads, 0, s>>>(lm_uv, lm_idepth, lm_mask, rel_q, rel_t,
+                                                     total, n, cam, plan, pix, pidep, next,
+                                                     has_prev, raw_i, raw_w, hist);
+  ++launched;
+  twins_kernel<<<dim3(point_blocks, point_blocks), kThreads, 0, s>>>(pix, total, next, has_prev);
+  ++launched;
+  chain_kernel<<<point_blocks, kThreads, 0, s>>>(pix, pidep, next, has_prev, total, raw_i,
+                                                 raw_w);
+  ++launched;
+  pool_kernel<<<dim3(blocks_for(w, kPoolTile), blocks_for(h, kPoolTile)), kPoolTile * kPoolTile,
+                0, s>>>(plan, raw_i, raw_w);
+  ++launched;
+  dilate_hist_kernel<<<blocks, kThreads, 0, s>>>(raw_i, raw_w, plan, out_i, out_w, hist);
+  ++launched;
+  class_threshold_kernel<<<plan.rounds, kBlockThreads, 0, s>>>(
+      hist, plan, params, rank, sel_uv, sel_idepth, sel_value, sel_valid);
+  ++launched;
+  tile_count_kernel<<<tiles, kThreads, 0, s>>>(out_w, plan, params, tile_counts);
+  ++launched;
+  select_write_kernel<<<tiles, kThreads, 0, s>>>(out_i, out_w, plan, params, tile_counts, heavy,
+                                                 sel_uv, sel_idepth, sel_value, sel_valid);
+  ++launched;
+  const int list_tiles = blocks_for(plan.heavy_stride, kThreads);
+  class_rank_kernel<<<dim3(list_tiles, list_tiles, plan.rounds), kThreads, 0, s>>>(params, heavy,
+                                                                                  plan, rank);
+  ++launched;
+  heavy_write_kernel<<<plan.rounds, kBlockThreads, write_bytes, s>>>(
+      out_i, out_w, hist, plan, params, heavy, rank, sel_uv, sel_idepth, sel_value, sel_valid);
+  ++launched;
+  launches[0] = launched;
+  launches[1] = 0;
   return (int)cudaGetLastError();
 }

@@ -158,7 +158,7 @@ BA_FEJ = Kernel("ba_fej", "ba_fej",
 BA_EVALUATE = Kernel("ba_evaluate", "ba_evaluate",
                      [_P] * 12 + [_I] * 5 + [_F] * 7 + [_P] * 8)
 BA_LINEARIZE = Kernel("ba_linearize_schur", "ba_linearize_schur",
-                      [_P] * 16 + [_I, _I, _I] + [_F] * 5 + [_I, _I] + [_P] * 11)
+                      [_P] * 16 + [_I, _I, _I] + [_F] * 5 + [_I] + [_P] * 11)
 BA_SOLVE = Kernel("ba_solve_step", "ba_solve_step",
                   [_P] * 12 + [_I, _I, _F, _I] + [_P] * 7)
 BA_LM = Kernel("ba_lm", "ba_lm", [_I] * 6 + [_F] * 7 + [_P] * 30)
@@ -175,7 +175,7 @@ REFINE = Kernel("refine_idepth", "refine_idepth",
 ACTIVATION_SCATTER = Kernel("activation_scatter", "activation_scatter",
                             [_P] * 7 + [_I] * 3 + [_P] * 8)
 DEPTH_MAPS = Kernel("depth_maps", "depth_maps",
-                    [_P] * 5 + [_I, _I] + [_F] * 6 + [_I] * 5 + [_P] * 15)
+                    [_P] * 5 + [_I, _I] + [_F] * 6 + [_I] * 5 + [_P] * 19)
 # K15: the marginalization policy and the ledger fold, once per keyframe each
 MARG_POLICY = Kernel("marg_policy", "marg_policy",
                      [_P] * 9 + [_I] * 4 + [_F] + [_P] * 4)

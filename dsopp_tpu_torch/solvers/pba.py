@@ -58,9 +58,11 @@ LEDGER_DTYPE = torch.float64
 (LM_ENERGY, LM_LAMBDA, LM_COUNT, LM_ITER, LM_ACCEPT, LM_DONE, LM_RELIN,
  LM_LEDGER_EMPTY) = range(8)
 LM_FIELDS = 8
-# frame slots the kernels take: K8, K10 and K11 stage 8k-wide rows in the 48
-# KB of shared memory a block gets without opting in; K9 holds the 8k x 8k
-# system as f64 in the 227 KB a Hopper block can opt in to
+# frame slots the kernels take: K8, K10 and K11 take up to 40 (K10 and K11
+# stage 8k-wide rows in the 48 KB of shared memory a block gets without
+# opting in, K8's Schur kernel runs a warp per 16 of its 8(k + 1) columns);
+# K9 holds the 8k x 8k system as f64 in the 227 KB a Hopper block can opt in
+# to
 _LINEARIZE_MAX_FRAMES = 40
 _SOLVE_MAX_FRAMES = 21
 
@@ -431,22 +433,21 @@ def _linearize_from_ev_plain(window: Window, fej: FEJCache, ev: Evaluation, eps,
     return LinearSystem(h + h_pr, b + b_pr, h_schur, b_schur, hpd, inv_hdd, b_d)
 
 
-# landmarks per block of csrc/ba_linearize.cu's pair and landmark kernels
-# (kTileLm, kChunkLm): they size the scratch the caller allocates
-_LINEARIZE_TILE_LM = 64
-_LINEARIZE_CHUNK_LM = 32
+# landmarks per pair_kernel block of csrc/ba_linearize.cu (kTileLm): it sizes
+# the scratch the caller allocates
+_LINEARIZE_TILE_LM = 128
+_LINEARIZE_LM_OUT = 10     # kLmOut: a (pair, landmark)'s anchor term, h_dd and b_d
 
 
 def _linearize_buffers(k: int, n: int, dtype, device):
     """What kernel K8 writes → (its scratch (pair_part, lm_part, schur_part),
-    its outputs)."""
+    its outputs).  The scratch is 8.4 MB at K = 17, N = 340."""
     kb = k * BLOCK
     kw = dict(dtype=dtype, device=device)
     tiles = -(-n // _LINEARIZE_TILE_LM)
-    lm_blocks = -(-(k * n) // _LINEARIZE_CHUNK_LM)
     scratch = (torch.empty((k * k * tiles, 16 * 16 + 16), dtype=torch.float64, device=device),
-               torch.empty((k * k * n, 18), **kw),
-               torch.empty((lm_blocks, kb * kb + kb), dtype=torch.float64, device=device))
+               torch.empty((k * k * n, _LINEARIZE_LM_OUT), **kw),
+               torch.empty((k, kb * kb + kb), dtype=torch.float64, device=device))
     out = LinearSystem(torch.empty((kb, kb), **kw), torch.empty((kb,), **kw),
                        torch.empty((kb, kb), **kw), torch.empty((kb,), **kw),
                        torch.empty((k, n, k, BLOCK), **kw), torch.empty((k, n), **kw),
@@ -464,8 +465,7 @@ def _linearize_from_ev_cuda(window: Window, fej: FEJCache, ev: Evaluation, eps,
     k, n = window.num_slots, window.num_landmark_slots
     if k > _LINEARIZE_MAX_FRAMES:
         raise ValueError(f"ba_linearize_schur: {k} frame slots exceed the kernel's limit of "
-                         f"{_LINEARIZE_MAX_FRAMES} (32 rows of 8k + 1 floats in 48 KB of "
-                         "shared memory)")
+                         f"{_LINEARIZE_MAX_FRAMES} (its Schur kernel's warps)")
     check = kernels.check
     check(fej.d_uv_ref, "d_uv_ref", (k, k, n, 8, 2, 6))
     check(fej.d_uv_tgt, "d_uv_tgt", (k, k, n, 8, 2, 6))
@@ -491,7 +491,7 @@ def _linearize_from_ev_cuda(window: Window, fej: FEJCache, ev: Evaluation, eps,
                          float(opts.idepth_nullspace_threshold),
                          float(opts.scale_nullspace_reg), float(opts.fixed_reg),
                          float(opts.affine_reg_a), float(opts.affine_reg_b),
-                         scratch[0].shape[0] // (k * k), scratch[2].shape[0], lm_state,
+                         scratch[0].shape[0] // (k * k), lm_state,
                          *scratch, *out)
     return out
 

@@ -1,0 +1,167 @@
+"""A plain PyTorch mirror of the order of summation of kernel K8
+(``csrc/ba_linearize.cu``), for tests only: no path of the port calls it.
+
+K8 forms each residual's Jacobian row, ``r`` and ``w J`` in the operands'
+type (f32 on the card, ``w J`` rounded there as the plain version rounds it)
+and takes every long sum in float64 on the tensor cores.  The mirror takes
+the same operands, widens them to float64 where the kernel converts them,
+and adds the exact products in the kernel's order:
+
+1. the pair blocks ``w J^T [J | r]``: per (pair, tile of ``TILE_LM``
+   landmarks), warp ``w`` of ``WARPS`` sums residuals ``32 w .. 32 w + 31`` of
+   each chunk of ``CHUNK_LM`` landmarks, chunk after chunk, sixteen residuals
+   a product (modelled as additions in residual order: the tensor core's
+   rounding inside one product is not modelled); then the warps' partials in
+   warp order;
+2. per (pair, landmark) the 8-point sums that feed hpd, in the operands'
+   type, point by point; the anchor term, h_dd and b_d over the targets in
+   frame order (float64);
+3. the Schur sums per anchor frame, landmark by landmark (sixteen a product),
+   of ``(hpd_l inv_l)`` (rounded in the operands' type) times
+   ``[hpd_l | b_d_l]``;
+4. each output entry from ``LANES`` slice sums (slice ``q``: the anchor
+   frames ``q, q + 8, ...`` of the Schur partials; of the pair partials the
+   frames ``q, q + 8, ...`` of a diagonal block's pairs, each over the tiles,
+   then the tiles ``q, q + 8, ...`` of the block's own two pairs), then the
+   tree ``((s0 + s4) + (s2 + s6)) + ((s1 + s5) + (s3 + s7))``; rounded to the
+   operands' type, the diagonal priors added.
+
+With float64 operands the mirror differs from ``_linearize_from_ev_plain``
+only in the order of its float64 sums.  The mirrors work on dense tensors
+with vectorised entries: no ``matmul`` or ``einsum``, whose summation order
+is the library's.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from dsopp_tpu_torch.solvers.pba import (BLOCK, Evaluation, FEJCache, LinearSystem, PBAOptions,
+                                         Window, _prior_system)
+
+TILE_LM = 128     # landmarks per pair block (kTileLm)
+CHUNK_LM = 32     # landmarks per stage (kChunkLm): 256 residuals, a thread each
+WARPS = 8         # warps per pair block; warp w takes 32 residuals of a stage
+LANES = 8         # slices per output entry in the reduction (kReduceLanes)
+PATTERN = 8
+
+
+def _rows(fej: FEJCache, ev: Evaluation):
+    """→ (w, J [K,K,N,P,16], r, j_d) in the operands' type, as pair_kernel
+    forms them."""
+    w = torch.where(ev.ok & fej.geom_valid, ev.weight, torch.zeros_like(ev.weight))
+    gx, gy = ev.gx[..., None], ev.gy[..., None]
+    j_ref = gx * fej.d_uv_ref[..., 0, :] + gy * fej.d_uv_ref[..., 1, :]
+    j_tgt = gx * fej.d_uv_tgt[..., 0, :] + gy * fej.d_uv_tgt[..., 1, :]
+    corr = fej.corrected_ref[..., None]
+    s0 = fej.scale0[:, :, None, None, None].expand_as(corr)
+    j = torch.cat([j_ref, corr, s0, j_tgt, -corr, -torch.ones_like(corr)], dim=-1)
+    j_d = ev.gx * fej.d_uv_idepth[..., 0] + ev.gy * fej.d_uv_idepth[..., 1]
+    return w, j, ev.residuals, j_d
+
+
+def _in_order(terms):
+    """Left-to-right sum of the tensors ``terms``, from 0."""
+    total = None
+    for t in terms:
+        total = t.clone() if total is None else total + t
+    return total
+
+
+def _tree(lanes):
+    """reduce_kernel's tree over the ``LANES`` slice sums."""
+    s = list(lanes)
+    s = [s[q] + s[q + 4] for q in range(4)]
+    s = [s[q] + s[q + 2] for q in range(2)]
+    return s[0] + s[1]
+
+
+def pair_sums(w, j, r):
+    """[K*K, tiles, 16, 17] float64: each (pair, tile)'s sum of
+    ``(w J)^T [J | r]`` in pair_kernel's order."""
+    k, n = w.shape[0], w.shape[2]
+    tiles = -(-n // TILE_LM)
+    wj = (w[..., None, None] * j).double()
+    jr = torch.cat([j, r[..., None]], dim=-1).double()
+    pad = tiles * TILE_LM - n
+
+    def staged(x):       # → [K*K, tiles, chunks, WARPS, 32, cols]
+        x = torch.nn.functional.pad(x.reshape(k * k, n, PATTERN, -1), (0, 0, 0, 0, 0, pad))
+        return x.reshape(k * k, tiles, TILE_LM // CHUNK_LM, WARPS, 32, x.shape[-1])
+
+    wj, jr = staged(wj), staged(jr)
+    acc = torch.zeros((k * k, tiles, WARPS, 16, 17), dtype=torch.float64)
+    for chunk in range(TILE_LM // CHUNK_LM):
+        for t in range(32):          # the warp's residuals in order, sixteen a product
+            a, b = wj[:, :, chunk, :, t], jr[:, :, chunk, :, t]
+            acc = acc + a[..., :, None] * b[..., None, :]
+    return _in_order(acc[:, :, w_] for w_ in range(WARPS))
+
+
+def linearize(window: Window, fej: FEJCache, ev: Evaluation, eps, opts: PBAOptions,
+              marg_pass: bool = False) -> LinearSystem:
+    """K8's outputs in its order of summation, in the operands' type."""
+    k, n = window.num_slots, window.num_landmark_slots
+    kb = k * BLOCK
+    op = ev.residuals.dtype
+    w, j, r, j_d = _rows(fej, ev)
+    tiles = -(-n // TILE_LM)
+    pp = pair_sums(w, j, r).reshape(k, k, tiles, 16, 17)
+
+    # per (pair, landmark): the 8-point sums, point by point
+    wj = w[..., None, None] * j
+    h_ref = _in_order(wj[:, :, :, p, :8] * j_d[:, :, :, p, None] for p in range(PATTERN))
+    h_tgt = _in_order(wj[:, :, :, p, 8:] * j_d[:, :, :, p, None] for p in range(PATTERN))
+    hdd_t = _in_order((j_d[..., p] * j_d[..., p]) * w for p in range(PATTERN))
+    bd_t = _in_order((j_d[..., p] * r[..., p]) * w for p in range(PATTERN))
+    hpd = h_tgt.permute(0, 2, 1, 3).contiguous()                  # [i, l, j, a]
+    anchor = _in_order(h_ref[:, f].double() for f in range(k))    # [i, l, a]
+    eye = torch.arange(k)
+    hpd[eye, :, eye] = hpd[eye, :, eye] + anchor.to(op)
+    h_dd = _in_order(hdd_t[:, f].double() for f in range(k)).to(op)
+    b_d = _in_order(bd_t[:, f].double() for f in range(k)).to(op)
+    thr = opts.idepth_nullspace_threshold
+    if marg_pass:
+        h_dd = torch.where(window.frame_fixed[:, None] & (h_dd > thr),
+                           h_dd + opts.scale_nullspace_reg, h_dd)
+    inv_hdd = torch.where(h_dd > thr, 1.0 / h_dd, torch.zeros_like(h_dd))
+
+    # the Schur partial of each anchor frame, landmark by landmark
+    rows = hpd.reshape(k, n, kb)
+    a_op = (rows * inv_hdd[..., None]).double()
+    b_op = torch.cat([rows, b_d[..., None]], dim=-1).double()
+    part = _in_order(a_op[:, l, :, None] * b_op[:, l, None, :] for l in range(n))
+
+    def lane_sums(fn):
+        return [fn(q) for q in range(LANES)]
+
+    def schur_lane(q):
+        terms = [part[f] for f in range(q, k, LANES)]
+        return _in_order(terms) if terms else torch.zeros_like(part[0])
+
+    schur = _tree(lane_sums(schur_lane))
+
+    def h_lane(q):
+        # a diagonal block's pairs (bi, f) and (f, bi) for f = q, q + 8, ...,
+        # each over the tiles, then the tiles q, q + 8, ... of (bi, bj), (bj, bi)
+        diag = torch.zeros((k, 8, 8), dtype=torch.float64)
+        bvec = torch.zeros((k, 8), dtype=torch.float64)
+        for f in range(q, k, LANES):
+            for t in range(tiles):
+                diag = diag + pp[:, f, t, :8, :8]
+                diag = diag + pp[f, :, t, 8:, 8:16]
+                bvec = bvec + pp[:, f, t, :8, 16]
+                bvec = bvec + pp[f, :, t, 8:, 16]
+        h = torch.zeros((k, 8, k, 8), dtype=torch.float64)
+        h[eye, :, eye, :] = diag
+        for t in range(q, tiles, LANES):
+            h = h + pp[:, :, t, :8, 8:16].permute(0, 2, 1, 3)        # h_rt[bi, bj][a, b]
+            h = h + pp[:, :, t, :8, 8:16].permute(1, 3, 0, 2)        # h_rt[bj, bi][b, a]
+        return h, bvec
+
+    lanes = lane_sums(h_lane)
+    h = _tree(lane[0] for lane in lanes).reshape(kb, kb)
+    b = _tree(lane[1] for lane in lanes).reshape(kb)
+    h_pr, b_pr = _prior_system(window, eps, opts, marg_pass=marg_pass)
+    return LinearSystem(h.to(op) + h_pr, b.to(op) + b_pr, schur[:, :kb].to(op),
+                        schur[:, kb].to(op), hpd, inv_hdd, b_d)

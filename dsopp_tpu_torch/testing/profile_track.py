@@ -54,18 +54,33 @@ from dsopp_tpu_torch.testing.paths import (INIT_FRAMES, PATHS, bootstrap, card_l
 from dsopp_tpu_torch.tracker import device_loop, fused_keyframe, fused_tick, marginalization
 
 REPEATS, WINDOW = 3, 10
-# __global__ functions of csrc/ by the names the profiler reports
+# __global__ functions of csrc/ by the names the profiler reports (an earlier
+# design's names stay, so that a parent tree profiled with this file reads
+# them too)
 KERNEL_NAMES = ("pyramid_level_kernel", "align_level_kernel", "epipolar_kernel",
                 "flow_kernel", "ba_fej_kernel", "ba_evaluate_kernel", "pair_kernel",
-                "landmark_kernel", "reduce_kernel", "assemble_kernel", "solve_kernel",
-                "backsub_kernel", "norm_kernel", "decide_kernel", "commit_kernel", "finish_kernel",
-                "quantile_kernel", "status_kernel", "region_threshold_kernel",
+                "landmark_kernel", "schur_kernel", "reduce_kernel", "assemble_kernel",
+                "solve_kernel", "backsub_kernel", "norm_kernel", "decide_kernel", "commit_kernel",
+                "finish_kernel", "quantile_kernel", "status_kernel", "region_threshold_kernel",
                 "tile_argmax_kernel", "rank_tiles_kernel", "active_projections_kernel",
                 "candidates_kernel", "compact_kernel", "refine_kernel", "pair_slots_kernel",
+                "prepare_kernel", "twins_kernel", "chain_kernel", "dilate_hist_kernel",
+                "class_rank_kernel", "heavy_write_kernel",
                 "project_kernel", "depth_scatter_kernel", "pool_kernel", "dilate_kernel",
                 "hist_kernel", "class_threshold_kernel", "tile_count_kernel",
                 "select_write_kernel", "heavy_rank_kernel", "policy_kernel", "fold_kernel",
                 "fold_out_kernel")
+# entry point -> its kernels (K16's current ones, then an earlier design's,
+# so that a parent tree profiled with this file is read too): device time per
+# call of the entry
+KERNEL_GROUPS = {
+    "ba_linearize_schur": ("pair_kernel", "landmark_kernel", "schur_kernel", "reduce_kernel"),
+    "depth_maps": ("prepare_kernel", "twins_kernel", "chain_kernel", "pool_kernel",
+                   "dilate_hist_kernel", "class_threshold_kernel", "tile_count_kernel",
+                   "select_write_kernel", "class_rank_kernel", "heavy_write_kernel",
+                   "project_kernel", "depth_scatter_kernel", "dilate_kernel", "hist_kernel",
+                   "heavy_rank_kernel"),
+}
 # (module, function) -> stage name
 STAGES = {
     (device_loop, "_frontend_core"): "frontend",
@@ -255,6 +270,7 @@ def profile_path(name):
     out["stage_calls"] = dict(timers.calls)
     out["stage_window"] = dict(frames=frames, keyframes=kf, escalations=esc)
 
+    before = kernels.counts()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                             torch.profiler.ProfilerActivity.CUDA]) as prof:
         with IterationLog() as log:
@@ -273,12 +289,18 @@ def profile_path(name):
     own = defaultdict(lambda: [0, 0.0])
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
-        for name in KERNEL_NAMES:
-            if name in e.key and us > 0 and "at::" not in e.key and "aten::" not in e.key:
-                own[name][0] += e.count
-                own[name][1] += us
+        # the longest name the key holds ("dilate_hist_kernel", not "hist_kernel")
+        name = max((k for k in KERNEL_NAMES if k in e.key), key=len, default=None)
+        if name and us > 0 and "at::" not in e.key and "aten::" not in e.key:
+            own[name][0] += e.count
+            own[name][1] += us
     out["kernel_device_us_per_launch"] = {name: dict(launches=n, us=us / n)
                                           for name, (n, us) in own.items()}
+    calls = {name: n - before[name] for name, n in kernels.counts().items()}
+    out["kernel_device_us_per_call"] = {
+        entry: dict(calls=calls[entry], us=sum(own[k][1] for k in group if k in own)
+                    / max(calls[entry], 1))
+        for entry, group in KERNEL_GROUPS.items()}
     out["device_busy_ms_per_frame"] = busy_ms
     out["device_idle_share"] = 1.0 - busy_ms / frame_ms
     out["profiled_window"] = dict(frames=WINDOW, keyframes=kf)

@@ -8,8 +8,9 @@ keyframe and scatter-added as (idepth, 1) into a level-0 grid; the grids are
 sum.  Per level the heaviest pixels become the frontend's points.
 
 :func:`build_frontend_state` has a hand-written CUDA kernel (K16,
-``csrc/depth_maps.cu``: a fixed-order scatter sum and a counting selection in
-place of ``index_add_`` and the stable sorts of the plain version) and
+``csrc/depth_maps.cu``: each pixel's points chained and summed in point
+order, and a counting selection, in place of ``index_add_`` and the stable
+sorts of the plain version) and
 :func:`mean_square_flows` has one (K5, ``csrc/flow.cu``), each beside its
 plain version; both dispatch on their tensors' device: CUDA tensors go to the
 kernel or raise.
@@ -130,12 +131,23 @@ def build_frontend_state_plain(window: Window, model, maps, height: int, width: 
     return idep, wei, points, flow_pts
 
 
+# the device work of the last call of build_frontend_state_cuda, as
+# csrc/depth_maps.cu counts it: kernels launched and memsets issued
+last_call = {"kernels": 0, "memsets": 0}
+MAX_LEVELS = 5          # csrc/depth_maps.cu: a 16x16 level-0 tile holds one level-4 pixel
+MAX_POINTS = 16384      # points (K * N) it takes: a weight class each in 64 KB of shared memory
+
+
 def build_frontend_state_cuda(window: Window, model, maps, height: int, width: int,
                               num_levels: int, max_points: int):
     """Kernel K16: same outputs as :func:`build_frontend_state_plain`; one
-    call, no host read.  The idepth sums are taken in landmark order, so two
-    runs on the same window give the same bits."""
+    call of 10 launches and no memset, no host read.  The idepth sums are
+    taken in landmark order, so two runs on the same window give the same
+    bits."""
     k, n = window.num_slots, window.num_landmark_slots
+    if num_levels > MAX_LEVELS or k * n > MAX_POINTS:
+        raise ValueError(f"depth_maps: {num_levels} levels and {k * n} points; the kernel takes"
+                         f" up to {MAX_LEVELS} levels and {MAX_POINTS} points")
     check = kernels.check
     check(window.lm_uv, "lm_uv", (k, n, 2))
     check(window.lm_idepth, "lm_idepth", (k, n))
@@ -158,15 +170,20 @@ def build_frontend_state_cuda(window: Window, model, maps, height: int, width: i
     sel_valid = torch.empty((slots,), dtype=torch.bool, device=dev)
     # the intensity image of level l is channel 0 of maps[l]
     intensity = (ctypes.c_void_p * num_levels)(*(m.data_ptr() for m in maps[:num_levels]))
+    rounds = num_levels + 1                  # the levels, then level 0 for the flow set
+    tiles = sum(-(-size // 1024) for size in sizes) + -(-sizes[0] // 1024)
+    launches = (ctypes.c_int * 2)()
     kernels.DEPTH_MAPS(
         window.lm_uv, window.lm_idepth, lm_mask.contiguous(), t_rel.q.contiguous(),
         t_rel.t.contiguous(), k, n, model.fx, model.fy, model.cx, model.cy, model.width,
         model.height, height, width, num_levels, max_points, FLOW_CAP, intensity,
-        torch.empty((k * n,), **i32), torch.empty((k * n,), **f32), raw_i, raw_w,
-        torch.empty((k * n + 1,), **i32), torch.empty((2,), **i32),
-        torch.empty((2 * -(-sizes[0] // 1024),), **i32),
-        torch.empty((2 * max(max_points, FLOW_CAP),), **i32),
-        out_i, out_w, sel_uv, sel_idepth, sel_value, sel_valid)
+        torch.empty((k * n,), **i32), torch.empty((k * n,), **f32), torch.empty((k * n,), **i32),
+        torch.empty((k * n,), **i32), raw_i, raw_w, torch.empty((num_levels * (k * n + 1),), **i32),
+        torch.empty((2 * rounds,), **i32), torch.empty((2 * tiles,), **i32),
+        torch.empty((rounds * 2 * max(max_points, FLOW_CAP),), **i32),
+        torch.empty((rounds * max(max_points, FLOW_CAP),), **i32),
+        out_i, out_w, sel_uv, sel_idepth, sel_value, sel_valid, launches)
+    last_call.update(kernels=launches[0], memsets=launches[1])
     idep, wei, points = [], [], []
     at = 0
     for level, (shape, size) in enumerate(zip(shapes, sizes)):

@@ -6,12 +6,15 @@ host models of the kernel's algorithm (``csrc/depth_maps.cu``).
   slots: weights exact, the selected pixels of every valid slot exact,
   validity exact, idepth 1e-12 relative, intensity exact; level 4 (7×10
   pixels) pads its slots;
-* the weight-class counting selection as a numpy model against
-  ``top_k_stable`` on weight grids with many ties (hypothesis), with
+* the weight-class counting selection as a numpy model (histogram, ordered
+  compaction, a stable counting sort of the heavier pixels by class) against ``top_k_stable`` on weight grids with many ties (hypothesis), with
   ``max_points`` below and above the number of positive pixels and above the
-  grid's size;
-* the fixed-order scatter sum as a numpy model against ``index_add_`` in f64
-  (which adds in index order on the CPU).
+  grid's size, and on named edges: every positive pixel of one class, a
+  heavier count one below the slot count, more slots than pixels;
+* the scatter sum as a numpy model (per point the least later point on its
+  pixel, found tile by tile, and each pixel's chain summed in point order)
+  against ``index_add_`` in f64 (which adds in index order on the CPU), also with up to 200 points on
+  one to three pixels.
 """
 
 import dataclasses
@@ -74,6 +77,8 @@ def test_build_frontend_state_matches(frames, slots, landmarks):
 # -- host models of csrc/depth_maps.cu ---------------------------------------
 
 TILE = 8   # pixels per compaction tile in the model (the kernel's tiles hold 1024)
+POINT_TILE = 16   # points per twins tile in the model (the kernel's tiles hold 256)
+LIST_TILE = 16    # list entries per class_rank_kernel tile in the model (the kernel's: 256)
 
 
 def _counting_select_model(weights, slots, max_class):
@@ -81,8 +86,10 @@ def _counting_select_model(weights, slots, max_class):
     the positive weight classes, the class c* at which the count from the top
     crosses ``slots`` (0 when fewer pixels are positive), an ordered compaction
     of the pixels of class c* behind the heavier ones (per tile: the counts of
-    the tiles before it plus the rank inside it), and the heavier pixels ranked
-    among themselves by (class descending, index ascending)."""
+    the tiles before it plus the rank inside it) that lists the heavier ones
+    in index order, and a stable counting sort of that list: class c starts at
+    the count of the pixels heavier than c, and an entry's rank in its class
+    is the count of its class's earlier entries, tile by tile."""
     npix = weights.shape[0]
     cls = weights.astype(np.int64)
     hist = np.bincount(cls[cls > 0], minlength=max_class + 1)
@@ -109,11 +116,27 @@ def _counting_select_model(weights, slots, max_class):
                 if heavier + eq_rank < slots:
                     out[heavier + eq_rank] = i
                 eq_rank += 1
-    assert [r for r, _ in heavy] == list(range(len(heavy))) and len(heavy) == heavier
-    for rank, i in heavy:
-        slot = sum(1 for r2, j in heavy if cls[j] > cls[i] or (cls[j] == cls[i] and r2 < rank))
+    assert [r for r, _ in heavy] == list(range(len(heavy))) and len(heavy) == heavier < slots
+    # class c starts after the pixels heavier than c; an entry's rank in its
+    # class: its class's earlier entries, counted tile against tile
+    first_slot = {c: int(hist[c + 1:].sum()) for c in range(1, max_class + 1)}
+    entries = [i for _, i in heavy]
+    for x, i in enumerate(entries):
+        rank = 0
+        for base in range(0, x - x % LIST_TILE + 1, LIST_TILE):
+            rank += sum(cls[j] == cls[i] for j in entries[base:min(base + LIST_TILE, x)])
+        slot = first_slot[cls[i]] + rank
+        assert out[slot] == -1
         out[slot] = i
     return out
+
+
+def _check_select(weights, slots, top_class):
+    got = _counting_select_model(weights, slots, max_class=top_class)
+    k = min(slots, weights.shape[0])
+    _, idx = top_k_stable(torch.tensor(weights), k)
+    assert_equal(got[:k], idx)
+    assert (got[k:] == -1).all()
 
 
 @settings(max_examples=60, deadline=None)
@@ -122,36 +145,69 @@ def _counting_select_model(weights, slots, max_class):
 def test_counting_select_matches_stable_top_k(npix, seed, top_class, density, slots):
     rng = np.random.default_rng(seed)
     weights = (rng.integers(1, top_class + 1, npix) * (rng.random(npix) < density)).astype(np.float64)
-    got = _counting_select_model(weights, slots, max_class=top_class)
-    k = min(slots, npix)
-    _, idx = top_k_stable(torch.tensor(weights), k)
-    assert_equal(got[:k], idx)
-    assert (got[k:] == -1).all()
+    _check_select(weights, slots, top_class)
+
+
+def _edge_weights(case, rng, npix, slots):
+    """Weights of ``npix`` pixels for a named edge of the selection."""
+    w = np.zeros(npix)
+    if case == "tied_classes":              # every positive pixel of one class
+        w[rng.random(npix) < 0.7] = 3.0
+    elif case == "heavy_below_slots":       # slots - 1 pixels heavier than c* = 1
+        w[:] = 1.0
+        w[rng.choice(npix, size=slots - 1, replace=False)] = rng.integers(2, 6, slots - 1)
+    elif case == "more_slots_than_pixels":  # slots > npix, some positive
+        w[rng.random(npix) < 0.5] = rng.integers(1, 4)
+    return w
+
+
+@pytest.mark.parametrize("case", ["tied_classes", "heavy_below_slots", "more_slots_than_pixels"])
+@settings(max_examples=25, deadline=None)
+@given(seed=st.integers(0, 2 ** 31 - 1), npix=st.integers(2, 90), slots=st.integers(2, 40))
+def test_counting_select_edge_cases(case, seed, npix, slots):
+    rng = np.random.default_rng(seed)
+    if case == "more_slots_than_pixels":
+        slots = npix + slots
+    elif case == "heavy_below_slots":
+        npix = max(npix, slots + 1)
+    weights = _edge_weights(case, rng, npix, slots)
+    if case == "heavy_below_slots":
+        assert int((weights > 1).sum()) == slots - 1
+    _check_select(weights, slots, top_class=6)
 
 
 def _ordered_scatter_model(pix, values, cells):
-    """A point writes its pixel only if no earlier point shares it, and then
-    adds its later twins in index order."""
-    grid, count = np.zeros(cells), np.zeros(cells)
-    for p, mine in enumerate(pix):
-        if mine < 0 or any(pix[q] == mine for q in range(p)):
+    """Per point, over tiles of points: the least later point on its pixel (the
+    least of the tiles' first ones) and whether an earlier one exists; then
+    each pixel's first point sums the chain in point order."""
+    points = len(pix)
+    later, has_prev = [None] * points, [False] * points
+    for p in range(points):
+        if pix[p] < 0:
             continue
-        total, n = 0.0, 0.0
-        for q in range(p, len(pix)):
-            if pix[q] == mine:
-                total += values[q]
-                n += 1.0
-        grid[mine], count[mine] = total, n
+        for base in range(0, points, POINT_TILE):
+            for q in range(base, min(base + POINT_TILE, points)):
+                if q == p or pix[q] != pix[p]:
+                    continue
+                if q < p:
+                    has_prev[p] = True
+                else:
+                    later[p] = q if later[p] is None else min(later[p], q)
+                    break
+    grid, count = np.zeros(cells), np.zeros(cells)
+    for p in range(points):
+        if pix[p] < 0 or has_prev[p]:
+            continue
+        total, n, q = 0.0, 0.0, p
+        while q is not None:
+            total += values[q]
+            n += 1.0
+            q = later[q]
+        grid[pix[p]], count[pix[p]] = total, n
     return grid, count
 
 
-@pytest.mark.parametrize("seed", [0, 1, 2])
-def test_ordered_scatter_sum_matches_index_add(seed):
-    rng = np.random.default_rng(seed)
-    cells, points = 40, 300                         # many points share a pixel
-    pix = rng.integers(0, cells, points)
-    pix[rng.random(points) < 0.2] = -1              # points that are not ok add nothing
-    values = rng.uniform(1e-3, 3.0, points) * 10.0 ** rng.integers(-3, 4, points)
+def _check_scatter(pix, values, cells):
     grid, count = _ordered_scatter_model(pix, values, cells)
     ok = pix >= 0
     flat = torch.tensor(np.where(ok, pix, 0))
@@ -161,3 +217,25 @@ def test_ordered_scatter_sum_matches_index_add(seed):
         0, flat, torch.tensor(ok.astype(np.float64)))
     assert_equal(grid, want)                        # the same order of additions, bit for bit
     assert_equal(count, want_n)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_ordered_scatter_sum_matches_index_add(seed):
+    rng = np.random.default_rng(seed)
+    cells, points = 40, 300                         # many points share a pixel
+    pix = rng.integers(0, cells, points)
+    pix[rng.random(points) < 0.2] = -1              # points that are not ok add nothing
+    values = rng.uniform(1e-3, 3.0, points) * 10.0 ** rng.integers(-3, 4, points)
+    _check_scatter(pix, values, cells)
+
+
+@settings(max_examples=30, deadline=None)
+@given(seed=st.integers(0, 2 ** 31 - 1), points=st.integers(1, 200), used=st.integers(1, 3))
+def test_ordered_scatter_sum_many_twins(seed, points, used):
+    """Up to 200 points on one to three pixels of 50."""
+    rng = np.random.default_rng(seed)
+    cells = 50
+    pix = rng.choice(cells, size=used, replace=False)[rng.integers(0, used, points)]
+    pix[rng.random(points) < 0.1] = -1
+    values = rng.uniform(1e-3, 3.0, points) * 10.0 ** rng.integers(-3, 4, points)
+    _check_scatter(pix, values, cells)

@@ -15,25 +15,28 @@ equal to the bit; K6
 every output 1e-5 relative (Frobenius), geom_valid exact; K7 ok and
 status_candidate equal on ≥ 99.9 % of live groups, the rest 1e-4 relative
 on the agreeing ones; K8 every output 1e-4 relative (Frobenius), also with
-``marg_pass=True``; K5 both flows 1e-5 relative; K9 pose and idepth step 1e-4
-of the step's norm against the plain version in f64 arithmetic on the same
-f32 inputs (the plain f32 solve's own distance from it is reported by
-``chip_smoke.py``), also at K = 10, 17 and 21 on a system whose rows need a
-swap at nearly every column, with a dead slot and in the loop-state mode, two
-runs equal to the bit, and without ledger and Schur term (an exact assembly)
-equal to the bit to the column-by-column LU in f64; K10 the same accept / done / relinearize sequence as the
-host-driven loop, final energy 1e-4 relative, poses 1e-4 rad and 1e-4 m,
-statuses equal on ≥ 99.9 % of live groups, no host synchronisation inside;
-K11 threshold 1e-6 relative, statuses, counts and flags equal outside the
-1e-6 band around the threshold; K12 positions, validity and slot order equal
-and grad2 equal to the bit, with and without a mask; K13 n_active equal, masks
-equal on ≥ 99.9 % of candidates and every difference a rounding tie (least
-distance within 2e-4 px of min_distance, or the reprojection within 1e-3 px of
-the image border); K14 selected equal, keep equal on ≥ 99.5 % of the selected,
-idepth 1e-4 relative where the accept sequences are equal, the pairing equal
-entry by entry on the same inputs; K16 (landmarks within 1e-3 px of a pixel
-boundary left out of both) weights and selected pixels equal, idepth 1e-6
-relative; K15 (the ledger fold, on an empty and a filled ledger, with no
+``marg_pass=True``, on a small window and on the dense operating point's (17
+slots × 340 landmarks), two runs equal to the bit; K5 both flows 1e-5
+relative; K9 pose and idepth step 1e-4 of the step's norm against the plain
+version in f64 arithmetic on the same f32 inputs (the plain f32 solve's own
+distance from it is reported by ``chip_smoke.py``), also at K = 10, 17 and 21
+on a system whose rows need a swap at nearly every column, with a dead slot
+and in the loop-state mode, two runs equal to the bit, and without ledger and
+Schur term (an exact assembly) equal to the bit to the column-by-column LU in
+f64; K10 the same accept / done / relinearize sequence as the host-driven
+loop, final energy 1e-4 relative, poses 1e-4 rad and 1e-4 m, statuses equal on
+≥ 99.9 % of live groups, no host synchronisation inside; K11 threshold 1e-6
+relative, statuses, counts and flags equal outside the 1e-6 band around the
+threshold; K12 positions, validity and slot order equal and grad2 equal to the
+bit, with and without a mask; K13 n_active equal, masks equal on ≥ 99.9 % of
+candidates and every difference a rounding tie (least distance within 2e-4 px
+of min_distance, or the reprojection within 1e-3 px of the image border); K14
+selected equal, keep equal on ≥ 99.5 % of the selected, idepth 1e-4 relative
+where the accept sequences are equal, the pairing equal entry by entry on the
+same inputs; K16 (landmarks within 1e-3 px of a pixel boundary left out of
+both) weights and selected pixels equal, idepth 1e-6 relative, on a small and
+on the dense window, two runs equal to the bit, at most 16 launches and no
+memset a call; K15 (the ledger fold, on an empty and a filled ledger, with no
 frame, one free frame, two frames, the fixed frame and a dead frame flagged)
 H_m, b_m and E_m within 1e-9 of their largest entry, of the plain version's
 or, where an eigenvalue lies within 1e-6 (relative) of the pseudo-inverse's
@@ -41,10 +44,10 @@ cutoff, of the plain version's with the cutoff at either edge of that band;
 the Jacobi solver converged; two runs equal to the bit, the window it leaves
 equal; K15p (the policy) flags, outliers and the permutation equal, or, where
 the two best eq (20) scores tie within 1e-6, frame flags that differ on those
-two slots only and the plain triage of the kernel's frame flags; the
-row gather equal to ``table[idx]`` to the bit in f32 and bf16; K18 (the
+two slots only and the plain triage of the kernel's frame flags; the row
+gather equal to ``table[idx]`` to the bit in f32 and bf16; K18 (the
 photometric correction) equal to the bit on u8 and f32 frames, with and
-without a vignette, at VGA and at 479x637.  K12-K16 and K18 run with host
+without a vignette, at VGA and at 479x637. K12-K16 and K18 run with host
 synchronisation an error.
 
 Run on a machine with a card:
@@ -288,17 +291,42 @@ def test_ba_evaluate_kernel_matches_plain(tracked):
     assert max(err[name] for name in ("residuals", "gx", "gy", "energy_patch", "weight")) <= 1e-4, err
 
 
+@pytest.fixture(scope="module")
+def dense_tracked():
+    """The dense operating point (dense.yaml: 17 slots × 340 landmarks) on the
+    VGA corridor after 12 known-pose keyframes past the bootstrap, and the
+    next frame's pyramid."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from dsopp_tpu_torch.testing.paths import INIT_FRAMES, bootstrap, path_config, render_path
+    seq = render_path("dense")
+    tracker = bootstrap(seq, path_config("dense"))
+    for i in range(INIT_FRAMES, INIT_FRAMES + 12):
+        tracker.tick(i, float(seq.timestamps[i]), seq.images[i],
+                     known_pose=seq.pose(i, torch.float32), force_keyframe=True)
+    maps = pyramid.build_pyramid_maps(seq.images[INIT_FRAMES + 12].contiguous(),
+                                      tracker.config.pyramid_levels)
+    return tracker, maps
+
+
+WINDOWS = {"small": "tracked", "dense": "dense_tracked"}
+
+
 @pytest.mark.parametrize("marg_pass", [False, True])
-def test_ba_linearize_kernel_matches_plain(tracked, marg_pass):
-    tracker, _ = tracked
+@pytest.mark.parametrize("window", list(WINDOWS))
+def test_ba_linearize_kernel_matches_plain(request, window, marg_pass):
+    tracker, _ = request.getfixturevalue(WINDOWS[window])
     win, eps, idepth, lm_mask = _ba_problem(tracker)
     fej = pba._fej_cache_plain(win, tracker.models[0])
     ev = pba._evaluate_plain(win, tracker.models[0], eps, idepth, lm_mask, tracker.pba_opts)
-    sys_k = pba._linearize_from_ev_cuda(win, fej, ev, eps, tracker.pba_opts, marg_pass)
-    sys_p = pba._linearize_from_ev_plain(win, fej, ev, eps, tracker.pba_opts, marg_pass)
+    args = (win, fej, ev, eps, tracker.pba_opts, marg_pass)
+    sys_k = pba._linearize_from_ev_cuda(*args)
+    sys_p = pba._linearize_from_ev_plain(*args)
     err = parity.linear_system_errors(sys_k, sys_p)
     assert float(sys_p.h_schur.abs().max()) > 0
     assert max(err.values()) <= 1e-4, err
+    again = pba._linearize_from_ev_cuda(*args)          # two runs equal to the bit
+    assert all(torch.equal(a, b) for a, b in zip(sys_k, again))
 
 
 def test_flow_kernel_matches_plain(tracked):
@@ -507,8 +535,9 @@ def test_refine_and_scatter_kernels_match_plain(keyframe, cap):
     assert torch.equal(win.lm_valid, keyframe[1].lm_valid)      # the input window is untouched
 
 
-def test_frontend_state_kernel_matches_plain(tracked):
-    tracker, maps = tracked
+@pytest.mark.parametrize("window", list(WINDOWS))
+def test_frontend_state_kernel_matches_plain(request, window):
+    tracker, maps = request.getfixturevalue(WINDOWS[window])
     win, model = tracker.window, tracker.models[0]
     h, w = tracker.image_shape
     cfg = tracker.config
@@ -517,16 +546,27 @@ def test_frontend_state_kernel_matches_plain(tracked):
     args = (win, model, tuple(maps), h, w, cfg.pyramid_levels, cfg.frontend_points)
     before = kernels.DEPTH_MAPS.launches
     out_k = _no_host_reads(dm.build_frontend_state_cuda, *args)
-    out_p = dm.build_frontend_state_plain(*args)
     assert kernels.DEPTH_MAPS.launches == before + 1
+    # the call's device work as the entry counts it
+    assert dm.last_call["kernels"] <= 16 and dm.last_call["memsets"] == 0, dm.last_call
+    out_p = dm.build_frontend_state_plain(*args)
     err = parity.frontend_errors(out_k, out_p)
     assert err["positive"][0] > 100 and min(err["valid"]) > 50, err
     assert err["weight_differ"] == 0 and err["uv_differ"] == 0 and err["valid_differ"] == 0, err
     assert err["idepth_map"] <= 1e-6 and err["idepth"] <= 1e-6 and err["intensity"] == 0.0, err
-    # level 4 (15 x 20 pixels) pads its 800 slots; two runs give the same bits
-    assert not bool(out_k[2][4].valid[300:].any())
+    # the coarsest level pads the slots it has no pixels for; two runs give
+    # the same bits
+    cells = out_k[1][-1].numel()
+    assert cells < cfg.frontend_points and not bool(out_k[2][-1].valid[cells:].any())
     again = dm.build_frontend_state_cuda(*args)
-    assert all(torch.equal(a, b) for a, b in zip(out_k[0], again[0]))
+    assert all(torch.equal(x, y) for x, y in zip(_frontend_tensors(out_k),
+                                                 _frontend_tensors(again)))
+
+
+def _frontend_tensors(out):
+    """Every tensor of build_frontend_state's result."""
+    idep, wei, points, flow = out
+    return [*idep, *wei, *(t for pts in (*points, flow) for t in pts)]
 
 
 @pytest.fixture(scope="module")
