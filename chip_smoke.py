@@ -33,7 +33,10 @@ Phases, one line each with its time:
    keyframe backend's kernels K12–K14 and K16 are held on both windows too,
    with the next frame pushed as the newest keyframe (timed at standart, the
    dense times on a line of their own), K12 with and without a CameraMask,
-   and each runs there with host synchronisation an error.  K15p and K15 are
+   and each runs there with host synchronisation an error; K13 and K14's
+   refinement also run twice (equal to the bit), their wrappers under the
+   profiler (the aten operators they run, allocations only, and their
+   kernels a call) with the profiler's device time, at both windows.  K15p and K15 are
    held on both BA windows, with an empty and a filled ledger: the policy at
    the configuration's window sizes and with the window one frame too large
    (flags, outliers and the permutation equal; where the two best eq (20)
@@ -195,6 +198,8 @@ OPS_POLICY_LANDMARK = 8     # K15p: the live count and the triage of one landmar
 OPS_POLICY_PAIR = 12        # K15p: one distance and reciprocal of the eq (20) sums
 OPS_EIGEN = 9               # K15: x n^3 for a symmetric eigen-decomposition with vectors
 OPS_PHOTOMETRIC_PIXEL = 10  # K18: clip, convert, frac, 1 - frac, two products, sum, floor, divide
+# K13 and K14's refinement: what their wrappers may run on the host
+ALLOCATION_OPS = ("aten::empty", "aten::empty_strided")
 # tests/tracker/test_monocular_e2e.py's gates: keyframes, active landmarks, the
 # unaligned per-frame error of the plain run, trajectory entries, and the
 # RMSE of the exposure-oscillation run
@@ -253,6 +258,20 @@ def device_us(torch, fn, reps=20):
     total = sum(e.time_range.elapsed_us() for e in prof.events()
                 if e.device_type == torch.autograd.DeviceType.CUDA)
     return total / reps if total > 0 else None
+
+
+def wrapper_work(torch, fn):
+    """One call of ``fn`` under the profiler → (the aten operators it runs on
+    the host, by name; the kernels it runs on the device)."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ops = sorted(e.name for e in prof.events() if e.name.startswith("aten::"))
+    device = sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+    return ops, device
 
 
 def fmt_us(us):
@@ -631,6 +650,7 @@ def parity_keyframe(seq, tracker, frame, torch, rows, label):
     next one) pushed as its newest keyframe at its ground-truth pose, each
     wrapper with host synchronisation an error.  The kernels' rows of ``rows``
     are the standart ones; the dense times are printed."""
+    from dsopp_tpu_torch import kernels
     from dsopp_tpu_torch.features import extractor
     from dsopp_tpu_torch.testing import parity as par
     from dsopp_tpu_torch.testing.paths import path_mask
@@ -645,6 +665,22 @@ def parity_keyframe(seq, tracker, frame, torch, rows, label):
         else:
             log(f"  {name} ({label}): kernel {fields['ms']:.4f} ms, plain {fields['plain_ms']:.4f}"
                 f" ms, bound {fields['bound_ms']:.5f} ms ({fields['bound_by']})")
+
+    def glue(name, short, fn, out):
+        """Two runs of a wrapper equal to the bit, the torch operators it
+        runs (allocations only), its kernels a call and their device µs →
+        the row's extra fields."""
+        again = fn()
+        require(all(torch.equal(a, b) for a, b in zip(out, again)),
+                f"{short} ({label}): two runs on the same window differ")
+        ops, device_kernels = wrapper_work(torch, fn)
+        require(set(ops) <= set(ALLOCATION_OPS),
+                f"{short} ({label}): the wrapper runs torch operators {ops}")
+        us = device_us(torch, fn)
+        log(f"  {short} ({label}): two runs equal to the bit; the wrapper runs {len(ops)} aten"
+            f" ops ({', '.join(sorted(set(ops)))}) and {device_kernels} kernels a call,"
+            f" {fmt_us(us)}; {kernels.counts()[name]} launches counted")
+        return dict(device_us=us, wrapper_aten_ops=len(ops), device_kernels=device_kernels)
 
     cfg, model = tracker.config, tracker.models[0]
     win, imm, maps = par.keyframe_case(tracker, seq.images[frame],
@@ -686,6 +722,8 @@ def parity_keyframe(seq, tracker, frame, torch, rows, label):
         require(err["n_active_differ"] == 0, f"K13 ({label}): n_active differs: {err}")
         require(err["agree"] >= 0.999 and err["unexplained"] == 0,
                 f"K13 ({label}): masks differ beyond rounding ties: {err}")
+    extra13 = glue("activation", "K13",
+                   lambda: act._activation_cuda(win, model, imm, min_distance), res_k)
     imm_in = (imm.uv, imm.idepth_min, imm.idepth_max, imm.status, imm.traced, imm.uniqueness,
               imm.search_interval, imm.valid)
     lib = None
@@ -695,13 +733,22 @@ def parity_keyframe(seq, tracker, frame, torch, rows, label):
         lib = cuda_ms(lambda: torch.cdist(cand, lm).min(dim=1))
         log(f"  K13 yardstick ({label}): torch.cdist + min over {cand.shape[0]} x {lm.shape[0]}"
             f" points {lib:.4f} ms (the distance part only)")
+    # the bound: the bytes, the reprojections and one pair test a walker (the
+    # walk's bands and early exit test far fewer pairs than all of them);
+    # testing every pair is printed beside it
+    k13_bytes = (nbytes(win.lm_uv, win.lm_idepth, win.lm_valid, win.lm_outlier, *imm_in)
+                 + nbytes(*res_k[:2]))
+    all_pairs = bound(k13_bytes, OPS_ACTIVATION_PAIR * walkers * err["n_active"]
+                      + OPS_REPROJECT * k * (n + m))
+    log(f"  K13 ({label}): testing all {walkers} x {err['n_active']} pairs would be bound at"
+        f" {all_pairs['bound_ms']:.5f} ms ({all_pairs['bound_by']}); the row's bound counts"
+        " one pair test a walker")
     row("activation", max_abs_err=float(err["differ"]),
         ms=cuda_ms(lambda: act._activation_cuda(win, model, imm, min_distance)),
         plain_ms=cuda_ms(lambda: act._activation_plain(win, model, imm, min_distance),
                          reps=5),
-        **bound(nbytes(win.lm_uv, win.lm_idepth, win.lm_valid, *imm_in) + nbytes(*res_k[:2]),
-                OPS_ACTIVATION_PAIR * walkers * err["n_active"] + OPS_REPROJECT * k * (n + m)),
-        library_ms=lib)
+        **bound(k13_bytes, OPS_ACTIVATION_PAIR * walkers + OPS_REPROJECT * k * (n + m)),
+        library_ms=lib, all_pairs_bound_ms=all_pairs["bound_ms"], **extra13)
 
     # K14 — the refinement of what the plain version activates ...
     activate, delete = res_p[0], res_p[1]
@@ -719,6 +766,15 @@ def parity_keyframe(seq, tracker, frame, torch, rows, label):
     require(err["idepth"] <= 1e-4, f"K14 ({label}): idepth differs by {err['idepth']:.3g}")
     require(err["parted_others"] <= 0.005 * err["selected"],
             f"K14 ({label}): accept sequences part beyond rounding ties: {err}")
+    require(not bool(trace_k[0][err["selected"]:].any()),
+            f"K14 ({label}): trace rows past the refined candidates are not zero")
+
+    def refine_traced():
+        trace = []
+        return (*act._refine_idepth_cuda(win, model, imm, activate, cfg.huber_sigma,
+                                         act.REFINE_CAP, trace), trace[0])
+
+    extra14 = glue("refine_idepth", "K14 refine", refine_traced, (*ref_k, trace_k[0]))
     frames = int(win.frame_valid.sum())
     points = err["selected"] * (frames - 1) * 8 * 4
     sampled = min(nbytes(win.maps) // 3, 48 * points)
@@ -728,7 +784,7 @@ def parity_keyframe(seq, tracker, frame, torch, rows, label):
         plain_ms=cuda_ms(lambda: act._refine_idepth_plain(win, model, imm, activate,
                                                                  cfg.huber_sigma), reps=5),
         **bound(nbytes(activate) + err["selected"] * 48 + sampled + 3 * nbytes(activate)
-                + nbytes(ref_k[0]), OPS_REFINE_POINT * points))
+                + nbytes(ref_k[0]), OPS_REFINE_POINT * points), **extra14)
 
     # ... and the pairing with free landmark slots, on the plain refinement
     idepth, keep, selected = ref_p

@@ -2,8 +2,9 @@
 // (ba_evaluate.cu) and of the kernels that reproject or sample as they do
 // (K5, K13, K14, K16): the residual pattern, rigid transforms on quaternion +
 // translation with the formulas and small-angle branches of core/lie.py,
-// the relative pose T_j^-1 T_i of an (anchor i, target j) pair, and the
-// 10x10-window sampling rule of core/interpolate.py::sample_window.
+// the relative pose T_j^-1 T_i of an (anchor i, target j) pair, the
+// 10x10-window sampling rule of core/interpolate.py::sample_window, a block
+// scan and the count of valid frames.
 //
 // Both kernels use one thread per residual (i, j, n, p): blockIdx.y is the
 // pair i * K + j, and the block's threads run over n * 8 + p, so the 8
@@ -206,6 +207,18 @@ static __device__ __forceinline__ WindowSample sample_window(const float* __rest
            tx[3] * (0.5f * wy1);
   out.ok = inside && in_win;
   return out;
+}
+
+// the count of valid frames of the window; every lane of the calling warp
+// must reach it (each warp counts by itself)
+static __device__ __forceinline__ int valid_frames(const unsigned char* __restrict__ frame_valid,
+                                                   int k) {
+  int count = 0;
+  for (int base = 0; base < k; base += 32) {
+    const int f = base + (threadIdx.x & 31);
+    count += __popc(__ballot_sync(kFull, f < k && frame_valid[f] != 0));
+  }
+  return count;
 }
 
 // exclusive prefix sum of `v` over the block's threads (kT of them, a

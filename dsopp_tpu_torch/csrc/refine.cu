@@ -15,18 +15,33 @@
 // whole-patch Huber energy (capped for valid non-inliers), the inlier count
 // and the 1x1 normal equation.  A candidate is kept when the refined idepth is
 // positive and has enough inliers.
+// The kernels take the window's raw tensors and derive the poses target <-
+// host (ba_body.cuh's relative_pose, as K6-K8), the affine (affine0 +
+// eps[:, 6:]) and the brightness scale in solvers/pba.py::_brightness_scale's
+// order of operations.
 // Bound: operations (cap x targets x 8 x 4 evaluations of about 150
 // operations; the candidates' inputs are a few tens of KB and each sample
-// reads 12 scattered pixels).  Design: (1) one block per bank counts the
-// activating candidates of the banks after it and scans its own, so the
-// order is the stable sort's without a sort.  (2) one block per compacted
-// candidate, one thread per (target, pattern point): the 8 points of a target
-// are 8 neighbouring lanes, so the validity AND and the per-target sums are
-// shuffles in a fixed order; the per-candidate sums run over the targets in
-// index order in f64 by one thread, which also takes the accept / reject
-// decision.  The sums of the plain version run in another order, so
-// `e_new < e` can part at a rounding tie; the kernel can write its decision
-// trace for such a comparison.
+// reads 12 scattered pixels).  Design, two launches and no memset:
+// (1) compact_kernel: a block per bank orders its candidates (the later
+// banks' activating candidates counted with 16-byte loads, then a span of the
+// bank a warp, 32 entries a step, one block scan of the warps' counts, places
+// by ballot) and writes the order, -1 past the refined ones, and `selected`;
+// ceil(k*k / 256) blocks write the pair table (every (host, target) pose and
+// brightness scale, a pair a thread); the other blocks write
+// every entry's keep = 0 and idepth_out = the bank's idepth.
+// (2) refine_kernel: one block per place of the order, one thread per
+// (target, pattern point): the 8 points of a target are 8 neighbouring lanes,
+// so the validity AND and the per-target sums are shuffles in a fixed order.
+// A block past the refined ones exits after reading its place.  Per
+// evaluation the per-target values go to shared memory (two buffers, by the
+// evaluation's parity) behind one barrier; then every warp sums them over the
+// targets in f64 in one fixed order (a lane two targets, then a butterfly;
+// testing/activation_models.py::target_sums, parity.REFINE_SUM_ULPS) and
+// every thread takes the accept / reject decision itself, so no second
+// barrier broadcasts it.  The sums of the plain version run in another order,
+// so `e_new < e` can part at a rounding tie; the kernel can write its
+// decision trace for such a comparison.
+// testing/activation_models.py mirrors the compaction.
 //
 // activation_scatter.  Per frame slot the r-th free landmark slot takes the
 // r-th activating candidate of the slot's bank, for r < min(#free,
@@ -46,71 +61,182 @@ constexpr float kReg0 = 0.1f, kRegDec = 2.0f, kRegInc = 5.0f;
 constexpr float kMaxEnergy = kPattern * 12.0f * 12.0f;  // MAX_ENERGY_FOR_INLIERS
 constexpr int kMaxTargets = 40;
 
-// order[pos] = flat index of the pos-th activating candidate, newest bank
-// first; selected marks those within the cap
-__global__ void __launch_bounds__(kThreads)
-compact_kernel(const unsigned char* __restrict__ activate, int k, int m, int cap,
-               int* __restrict__ order, unsigned char* __restrict__ selected) {
-  __shared__ int sums[33];
-  const int bank = blockIdx.x;
-  int later = 0;   // activating candidates of the banks refined before this one
-  for (int i = (bank + 1) * m + threadIdx.x; i < k * m; i += kThreads) later += activate[i];
-  block_exclusive_scan<kThreads>(later, sums);
-  int base = sums[32];
-  for (int start = 0; start < m; start += kThreads) {
-    const int i = start + threadIdx.x;
-    const int flag = (i < m && activate[bank * m + i] != 0) ? 1 : 0;
-    const int pos = base + block_exclusive_scan<kThreads>(flag, sums);
-    if (i < m) {
-      const bool taken = flag != 0 && pos < cap;
-      selected[bank * m + i] = taken ? 1 : 0;
-      if (taken) order[pos] = bank * m + i;
-    }
-    base += sums[32];
-  }
-}
+constexpr int kFillPerThread = 4;          // entries a thread of a fill block writes
+constexpr int kBatch = 8;                  // flags a lane loads at a time
 
+// a candidate's LM state; every thread of its block holds the same copy
 struct RefineState {
   float idepth, trial, energy, h, b, lam;
   int inliers;
 };
 
+// activating candidates among the flags [begin, end) (bytes 0 or 1): 16 bytes
+// a load where aligned, the edges byte by byte; summed over the block
+__device__ int block_count(const unsigned char* __restrict__ flags, int begin, int end,
+                           int* sums) {
+  int count = 0;
+  const int body = min(max((begin + 15) & ~15, begin), end);
+  const int tail = max(end & ~15, body);
+  for (int i = begin + (int)threadIdx.x; i < body; i += kThreads) count += flags[i];
+  for (int i = tail + (int)threadIdx.x; i < end; i += kThreads) count += flags[i];
+  const uint4* words = reinterpret_cast<const uint4*>(flags + body);
+#pragma unroll 4
+  for (int i = threadIdx.x; i < (tail - body) / 16; i += kThreads) {
+    const uint4 w = words[i];
+    count += __popc(w.x) + __popc(w.y) + __popc(w.z) + __popc(w.w);
+  }
+  block_exclusive_scan<kThreads>(count, sums);
+  return sums[32];
+}
+
+// Blocks 0..k-1, one per bank: order[pos] = flat index of the pos-th
+// activating candidate, newest bank first and inside a bank by index, for pos
+// < cap, -1 past them (bank 0's block, the last in that order); `selected`
+// marks them.  A bank's block counts the activating candidates of the banks
+// after it (refined before it), then each warp takes a contiguous span of
+// the bank, 32 consecutive entries a step: the warps' counts are scanned
+// once, the places follow by ballot.  The next ceil(k*k / 256) blocks: the
+// pair table, a pair a thread, entry (host i, target j) = T_j^-1 T_i
+// (ba_body.cuh's relative_pose, each block composing the frame poses once
+// per frame) and the brightness scale (pba.py::_brightness_scale's order),
+// then each frame's affine b.  The rest: keep = 0 and idepth_out = the bank's
+// idepth, every entry (refine_kernel then writes the kept ones).
+__global__ void __launch_bounds__(kThreads)
+compact_kernel(const unsigned char* __restrict__ activate,
+               const float* __restrict__ idepth_min, const float* __restrict__ idepth_max,
+               const float* __restrict__ t_lin_q, const float* __restrict__ t_lin_t,
+               const float* __restrict__ eps, const float* __restrict__ affine0,
+               const float* __restrict__ exposure, int k, int m, int cap,
+               int* __restrict__ order, unsigned char* __restrict__ selected,
+               float* __restrict__ table, float* __restrict__ idepth_out,
+               unsigned char* __restrict__ keep) {
+  const int total = k * m;
+  const int tid = threadIdx.x;
+  const int table_blocks = (k * k + kThreads - 1) / kThreads;
+  if ((int)blockIdx.x >= k + table_blocks) {
+    const int base = (blockIdx.x - k - table_blocks) * kThreads * kFillPerThread + tid;
+#pragma unroll
+    for (int q = 0; q < kFillPerThread; ++q) {
+      const int i = base + q * kThreads;
+      if (i < total) {
+        idepth_out[i] = 0.5f * (idepth_min[i] + idepth_max[i]);
+        keep[i] = 0;
+      }
+    }
+    return;
+  }
+  if ((int)blockIdx.x >= k) {
+    // a pair a thread; each table block composes every frame pose itself
+    __shared__ Rigid pose[kMaxTargets];
+    const int t = (blockIdx.x - k) * kThreads + tid;
+    const int i = t < k * k ? t / k : 0, j = t < k * k ? t % k : 0;
+    // the pair's brightness terms, loaded before the barrier
+    const float ratio = exposure[j] / fmaxf(exposure[i], 1e-12f);
+    const float da = (affine0[2 * j] + eps[8 * j + 6]) - (affine0[2 * i] + eps[8 * i + 6]);
+    if (tid < k) {
+      pose[tid] = frame_pose(t_lin_q, t_lin_t, eps, tid);
+      if (blockIdx.x == k) table[8 * k * k + tid] = affine0[2 * tid + 1] + eps[8 * tid + 7];
+    }
+    __syncthreads();
+    if (t >= k * k) return;
+    const Rigid r = compose(inverse(pose[j]), pose[i]);
+    float* out = table + 8 * (size_t)t;
+    out[0] = r.q.w, out[1] = r.q.x, out[2] = r.q.y, out[3] = r.q.z;
+    out[4] = r.t.x, out[5] = r.t.y, out[6] = r.t.z;
+    out[7] = ratio * expf(da);
+    return;
+  }
+  __shared__ int sums[33];
+  const int bank = blockIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  // this warp's span of the bank, 32 entries a step, the flags loaded before
+  // the count of the later banks
+  const int steps = (m + kThreads - 1) / kThreads;
+  const int first = bank * m + warp * 32 * steps + lane;
+  const int end = (bank + 1) * m;
+  unsigned flags = 0;
+  for (int step0 = 0; step0 < steps; step0 += kBatch) {
+    unsigned char flag[kBatch];
+#pragma unroll
+    for (int q = 0; q < kBatch; ++q) {
+      const int i = first + 32 * (step0 + q);
+      flag[q] = step0 + q < steps && i < end ? activate[i] : 0;
+    }
+#pragma unroll
+    for (int q = 0; q < kBatch; ++q)
+      if (flag[q] != 0 && step0 + q < 32) flags |= 1u << (step0 + q);
+  }
+  const int later = block_count(activate, end, total, sums);
+  int count = __popc(flags);
+  for (int step = 32; step < steps; ++step) {   // banks of more than 8192 entries
+    const int i = first + 32 * step;
+    count += i < end && activate[i] != 0 ? 1 : 0;
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) count += __shfl_xor_sync(kFull, count, off);
+  const int before = block_exclusive_scan<kThreads>(lane == 0 ? count : 0, sums);
+  const int bank_count = sums[32];
+  int pos = later + __shfl_sync(kFull, before, 0);
+  for (int step = 0; step < steps; ++step) {
+    const int i = first + 32 * step;
+    const bool in_range = i < end;
+    const bool flag = step < 32 ? ((flags >> step) & 1u) != 0 : in_range && activate[i] != 0;
+    const unsigned bits = __ballot_sync(kFull, flag);
+    const int at = pos + __popc(bits & ((1u << lane) - 1u));
+    if (in_range) {
+      const bool taken = flag && at < cap;
+      selected[i] = taken ? 1 : 0;
+      if (taken) order[at] = i;
+    }
+    pos += __popc(bits);
+  }
+  // bank 0 is ordered last: the places past every activating candidate are empty
+  if (bank == 0)
+    for (int at = later + bank_count + tid; at < cap; at += kThreads) order[at] = -1;
+}
+
 __global__ void
 refine_kernel(const int* __restrict__ order, const float* __restrict__ uv,
               const float* __restrict__ patch, const float* __restrict__ idepth_min,
-              const float* __restrict__ idepth_max, const float* __restrict__ rel_q,
-              const float* __restrict__ rel_t, const float* __restrict__ scale,
-              const float* __restrict__ affine, const unsigned char* __restrict__ frame_valid,
-              const float* __restrict__ images, size_t image_stride, int k, int m, int h, int w,
-              Camera cam, float sigma, float* __restrict__ idepth_out,
-              unsigned char* __restrict__ keep, float* __restrict__ trace) {
-  __shared__ float e_s[kMaxTargets], h_s[kMaxTargets], b_s[kMaxTargets];
-  __shared__ int inl_s[kMaxTargets];
-  __shared__ RefineState st;
-  const int flat = order[blockIdx.x];
-  if (flat < 0) return;
-  const int host = flat / m;
+              const float* __restrict__ idepth_max, const float* __restrict__ table,
+              const unsigned char* __restrict__ frame_valid, const float* __restrict__ images,
+              size_t image_stride, int k, int m, int h, int w, Camera cam, float sigma,
+              float* __restrict__ idepth_out, unsigned char* __restrict__ keep,
+              float* __restrict__ trace) {
+  __shared__ float e_s[2][kMaxTargets], h_s[2][kMaxTargets], b_s[2][kMaxTargets];
+  __shared__ int inl_s[2][kMaxTargets];
   const int idx = threadIdx.x;
+  const int flat = order[blockIdx.x];
+  if (flat < 0) {
+    if (trace != nullptr && idx < (kEvaluations - 1) * 4)
+      trace[(size_t)blockIdx.x * (kEvaluations - 1) * 4 + idx] = 0.0f;
+    return;
+  }
+  const int host = flat / m;
+  // the pair's pose and brightness scale, the affine b of target and host
   const bool in_range = idx < k * kPattern;
   const int j = in_range ? idx / kPattern : k - 1, p = idx % kPattern;
-  const int hj = host * k + j;
-  const Rigid rel = {{rel_q[4 * hj], rel_q[4 * hj + 1], rel_q[4 * hj + 2], rel_q[4 * hj + 3]},
-                     {rel_t[3 * hj], rel_t[3 * hj + 1], rel_t[3 * hj + 2]}};
+  const float* pair_row = table + 8 * ((size_t)host * k + j);
+  const Rigid rel = {{pair_row[0], pair_row[1], pair_row[2], pair_row[3]},
+                     {pair_row[4], pair_row[5], pair_row[6]}};
+  const float scale = pair_row[7];
+  const float b_target = table[8 * k * k + j], b_host = table[8 * k * k + host];
+  const int frames = valid_frames(frame_valid, k);
   const bool pair = frame_valid[j] != 0 && j != host;
   const float u = uv[2 * flat] + kPatternX[p], v = uv[2 * flat + 1] + kPatternY[p];
-  const float b_target = affine[2 * j + 1];
-  const float corrected = scale[hj] * (patch[(size_t)flat * kPattern + p] - affine[2 * host + 1]);
+  const float corrected = scale * (patch[(size_t)flat * kPattern + p] - b_host);
   const float* img = images + (size_t)j * image_stride;
   const int center_lane = (threadIdx.x & 31 & ~(kPattern - 1)) + kCenter;
+  RefineState st;
+  st.idepth = 0.5f * (idepth_min[flat] + idepth_max[flat]);
+  st.trial = st.idepth;
+  st.lam = kReg0;
+  st.energy = st.h = st.b = 0.0f;
+  st.inliers = 0;
 
-  if (idx == 0) {
-    st.idepth = 0.5f * (idepth_min[flat] + idepth_max[flat]);
-    st.trial = st.idepth;
-    st.lam = kReg0;
-  }
-  __syncthreads();
-
+#pragma unroll
   for (int ev = 0; ev < kEvaluations; ++ev) {
+    const int buf = ev & 1;
     const float d = st.trial;
     // core/reproject.py::reproject_jacobian (Pinhole.project_jacobian)
     Vec3 ray;
@@ -148,54 +274,60 @@ refine_kernel(const int* __restrict__ order, const float* __restrict__ uv,
     bp += __shfl_xor_sync(kFull, bp, 4);
     if (in_range && p == 0) {
       const bool inlier = ok && r2 < kMaxEnergy;
-      e_s[j] = inlier ? wgt * r2 : (ok ? kMaxEnergy : 0.0f);
-      inl_s[j] = inlier ? 1 : 0;
-      h_s[j] = hp;
-      b_s[j] = bp;
+      e_s[buf][j] = inlier ? wgt * r2 : (ok ? kMaxEnergy : 0.0f);
+      inl_s[buf][j] = inlier ? 1 : 0;
+      h_s[buf][j] = hp;
+      b_s[buf][j] = bp;
     }
+    // the one barrier of the evaluation: a buffer is written again two
+    // evaluations later, after every thread has passed the next barrier
     __syncthreads();
-    if (idx == 0) {
-      double e_sum = 0.0, h_sum = 0.0, b_sum = 0.0;
-      int inl = 0;
-      for (int t = 0; t < k; ++t) {
-        e_sum += (double)e_s[t];
-        h_sum += (double)h_s[t];
-        b_sum += (double)b_s[t];
-        inl += inl_s[t];
-      }
-      const float e_new = (float)e_sum, h_new = (float)h_sum, b_new = (float)b_sum;
-      bool accept = true;
-      if (ev > 0) {
-        accept = e_new < st.energy && st.h > 0.0f;
-        if (trace != nullptr) {
-          float* row = trace + ((size_t)blockIdx.x * (kEvaluations - 1) + (ev - 1)) * 4;
-          row[0] = st.energy;
-          row[1] = e_new;
-          row[2] = st.lam;
-          row[3] = accept ? 1.0f : 0.0f;
-        }
-        st.lam = accept ? st.lam / kRegDec : st.lam * kRegInc;
-      }
-      if (accept) {
-        st.idepth = d;
-        st.energy = e_new;
-        st.inliers = inl;
-        st.h = h_new;
-        st.b = b_new;
-      }
-      st.trial = st.idepth - st.b / fmaxf(st.h * (1.0f + st.lam), 1e-20f);
+    // every warp sums the targets in f64 in one fixed order (lane l holds
+    // targets l and l + 32, then a butterfly), so all threads take the same
+    // decision with no second barrier
+    const int lane = idx & 31;
+    double e_sum = 0.0, h_sum = 0.0, b_sum = 0.0;
+    int inl = 0;
+    for (int t = lane; t < k; t += 32) {
+      e_sum += (double)e_s[buf][t];
+      h_sum += (double)h_s[buf][t];
+      b_sum += (double)b_s[buf][t];
+      inl += inl_s[buf][t];
     }
-    __syncthreads();
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      e_sum += __shfl_xor_sync(kFull, e_sum, off);
+      h_sum += __shfl_xor_sync(kFull, h_sum, off);
+      b_sum += __shfl_xor_sync(kFull, b_sum, off);
+      inl += __shfl_xor_sync(kFull, inl, off);
+    }
+    const float e_new = (float)e_sum, h_new = (float)h_sum, b_new = (float)b_sum;
+    bool accept = true;
+    if (ev > 0) {
+      accept = e_new < st.energy && st.h > 0.0f;
+      if (trace != nullptr && idx == 0) {
+        float* row = trace + ((size_t)blockIdx.x * (kEvaluations - 1) + (ev - 1)) * 4;
+        row[0] = st.energy;
+        row[1] = e_new;
+        row[2] = st.lam;
+        row[3] = accept ? 1.0f : 0.0f;
+      }
+      st.lam = accept ? st.lam / kRegDec : st.lam * kRegInc;
+    }
+    if (accept) {
+      st.idepth = d;
+      st.energy = e_new;
+      st.inliers = inl;
+      st.h = h_new;
+      st.b = b_new;
+    }
+    st.trial = st.idepth - st.b / fmaxf(st.h * (1.0f + st.lam), 1e-20f);
   }
 
-  if (idx == 0) {
-    int frames = 0;
-    for (int t = 0; t < k; ++t) frames += frame_valid[t] != 0 ? 1 : 0;
-    const int min_inliers = min(frames - 1, 1);
-    if (st.inliers >= min_inliers && st.idepth > 0.0f) {
-      idepth_out[flat] = st.idepth;
-      keep[flat] = 1;
-    }
+  const int min_inliers = min(frames - 1, 1);
+  if (idx == 0 && st.inliers >= min_inliers && st.idepth > 0.0f) {
+    idepth_out[flat] = st.idepth;
+    keep[flat] = 1;
   }
 }
 
@@ -249,32 +381,36 @@ pair_slots_kernel(const unsigned char* __restrict__ activate,
 }  // namespace
 
 // Banks [k,m]: activate u8, uv [.,2], patch [.,8], idepth_min, idepth_max f32.
-// Window: rel_q [k,k,4] / rel_t [k,k,3] (target j <- host i at [i,j]), scale
-// [k,k] (brightness scale of the pair), affine [k,2], frame_valid [k] u8,
-// images + f * image_stride = frame f's [h,w] intensity image.  Scratch: order
-// [cap] int32 (set to -1 here).  Outputs: selected [k,m] u8; idepth_out [k,m]
-// f32 (holds the banks' idepth on entry) and keep [k,m] u8 (zero on entry),
-// written where a candidate is kept; trace [cap,3,4] f32 or nullptr (energy,
-// trial energy, lambda, accept per trial).
+// Window: t_lin_q [k,4], t_lin_t [k,3], eps [k,8], affine0 [k,2], exposure
+// [k] f32, frame_valid [k] u8, images + f * image_stride = frame f's [h,w]
+// intensity image.  Scratch: order [cap] int32, table [8*k*k + k] f32 (the
+// pairs' poses and scales, the frames' b; compact_kernel).  Outputs, every entry
+// written: selected, keep [k,m] u8; idepth_out [k,m] f32 (the refined idepth
+// where a candidate is kept, the bank's elsewhere); trace [cap,3,4] f32 or
+// nullptr (energy, trial energy, lambda, accept per trial; zero rows past the
+// refined count).  k <= kMaxTargets.
 extern "C" int refine_idepth(const unsigned char* activate, const float* uv,
                              const float* patch, const float* idepth_min,
-                             const float* idepth_max, const float* rel_q, const float* rel_t,
-                             const float* scale, const float* affine,
-                             const unsigned char* frame_valid, const float* images,
-                             int image_stride, int k, int m, int h, int w, int cap, float fx,
-                             float fy, float cx, float cy, float width, float height,
-                             float sigma, int* order, unsigned char* selected,
-                             float* idepth_out, unsigned char* keep, float* trace,
-                             void* stream) {
+                             const float* idepth_max, const float* t_lin_q,
+                             const float* t_lin_t, const float* eps, const float* affine0,
+                             const float* exposure, const unsigned char* frame_valid,
+                             const float* images, int image_stride, int k, int m, int h, int w,
+                             int cap, float fx, float fy, float cx, float cy, float width,
+                             float height, float sigma, int* order, float* table,
+                             unsigned char* selected, float* idepth_out, unsigned char* keep,
+                             float* trace, void* stream) {
+  if (k > kMaxTargets) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const ba::Camera cam = {fx, fy, cx, cy, width, height};
-  cudaMemsetAsync(order, 0xff, sizeof(int) * cap, s);
-  compact_kernel<<<k, kThreads, 0, s>>>(activate, k, m, cap, order, selected);
+  const int fill = kThreads * kFillPerThread;
+  const int table_blocks = (k * k + kThreads - 1) / kThreads;
+  compact_kernel<<<k + table_blocks + (k * m + fill - 1) / fill, kThreads, 0, s>>>(
+      activate, idepth_min, idepth_max, t_lin_q, t_lin_t, eps, affine0, exposure, k, m, cap,
+      order, selected, table, idepth_out, keep);
   const int threads = (k * ba::kPattern + 31) / 32 * 32;
-  refine_kernel<<<cap, threads, 0, s>>>(order, uv, patch, idepth_min, idepth_max, rel_q, rel_t,
-                                        scale, affine, frame_valid, images,
-                                        (size_t)image_stride, k, m, h, w, cam, sigma,
-                                        idepth_out, keep, trace);
+  refine_kernel<<<cap, threads, 0, s>>>(order, uv, patch, idepth_min, idepth_max, table,
+                                        frame_valid, images, (size_t)image_stride, k, m, h, w,
+                                        cam, sigma, idepth_out, keep, trace);
   return (int)cudaGetLastError();
 }
 

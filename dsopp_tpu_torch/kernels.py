@@ -169,9 +169,9 @@ BA_STATUS = Kernel("ba_point_status", "ba_point_status",
 SELECT_CANDIDATES = Kernel("select_candidates", "select_candidates",
                            [_P, _P] + [_I] * 5 + [_F] + [_P] * 6)
 ACTIVATION = Kernel("activation", "activation",
-                    [_P] * 6 + [_I] * 3 + [_F] * 6 + [_P] * 8 + [_F, _F] + [_P] * 5)
+                    [_P] * 8 + [_I] * 3 + [_F] * 6 + [_P] * 8 + [_F, _F] + [_P] * 5)
 REFINE = Kernel("refine_idepth", "refine_idepth",
-                [_P] * 11 + [_I] * 6 + [_F] * 7 + [_P] * 5)
+                [_P] * 12 + [_I] * 6 + [_F] * 7 + [_P] * 6)
 ACTIVATION_SCATTER = Kernel("activation_scatter", "activation_scatter",
                             [_P] * 7 + [_I] * 3 + [_P] * 8)
 DEPTH_MAPS = Kernel("depth_maps", "depth_maps",

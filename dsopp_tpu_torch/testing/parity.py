@@ -369,6 +369,13 @@ def candidates_errors(out_k, out_p) -> dict:
 # reprojections differ in the last bit of a pixel coordinate, 6e-5 at x = 600)
 ACTIVATION_BAND = 2e-4
 BORDER_BAND = 1e-3       # px: a reprojection this close to a pixel or image border
+# the poses K13 and K14's refinement compute in the kernel (ba_body.cuh's
+# frame_pose / relative_pose) against window.poses() and the plain versions'
+# relative poses: the largest difference of a component in units of the last
+# place of the pose's largest component (the two sum a quaternion's squares in
+# other orders; tests/test_torch_activation_models.py).  The reprojections
+# this moves stay far inside ACTIVATION_BAND and BORDER_BAND
+KERNEL_POSE_ULPS = 8
 
 
 def near_border(uv, model, band: float = BORDER_BAND):
@@ -399,6 +406,12 @@ def activation_errors(res_k, res_p, terms, min_distance, model) -> dict:
 
 
 REFINE_TIE = 2e-5   # relative change of the energy below which `e_new < e` is a rounding tie
+# K14's refinement sums a candidate's per-target values in f64 in a warp's
+# fixed order (two targets a lane, then a butterfly): cast to f32, a sum of
+# non-negative terms (the energy, the Hessian) lands within this many ulp of
+# the target-index order's (tests/test_torch_activation_models.py), far
+# inside REFINE_TIE
+REFINE_SUM_ULPS = 1
 
 
 def refine_order(selected):

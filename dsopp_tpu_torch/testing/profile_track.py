@@ -62,7 +62,8 @@ KERNEL_NAMES = ("pyramid_level_kernel", "align_level_kernel", "epipolar_kernel",
                 "landmark_kernel", "schur_kernel", "reduce_kernel", "assemble_kernel",
                 "solve_kernel", "backsub_kernel", "norm_kernel", "decide_kernel", "commit_kernel",
                 "finish_kernel", "quantile_kernel", "status_kernel", "region_threshold_kernel",
-                "tile_argmax_kernel", "rank_tiles_kernel", "active_projections_kernel",
+                "tile_argmax_kernel", "rank_tiles_kernel", "activation_landmarks_kernel",
+                "activation_walk_kernel", "active_projections_kernel",
                 "candidates_kernel", "compact_kernel", "refine_kernel", "pair_slots_kernel",
                 "prepare_kernel", "twins_kernel", "chain_kernel", "dilate_hist_kernel",
                 "class_rank_kernel", "heavy_write_kernel",
@@ -70,10 +71,13 @@ KERNEL_NAMES = ("pyramid_level_kernel", "align_level_kernel", "epipolar_kernel",
                 "hist_kernel", "class_threshold_kernel", "tile_count_kernel",
                 "select_write_kernel", "heavy_rank_kernel", "policy_kernel", "fold_kernel",
                 "fold_out_kernel")
-# entry point -> its kernels (K16's current ones, then an earlier design's,
-# so that a parent tree profiled with this file is read too): device time per
-# call of the entry
+# entry point -> its kernels (K13's and K16's current ones, then an earlier
+# design's, so that a parent tree profiled with this file is read too): device
+# time per call of the entry
 KERNEL_GROUPS = {
+    "activation": ("activation_landmarks_kernel", "activation_walk_kernel",
+                   "active_projections_kernel", "candidates_kernel"),
+    "refine_idepth": ("compact_kernel", "refine_kernel"),
     "ba_linearize_schur": ("pair_kernel", "landmark_kernel", "schur_kernel", "reduce_kernel"),
     "depth_maps": ("prepare_kernel", "twins_kernel", "chain_kernel", "pool_kernel",
                    "dilate_hist_kernel", "class_threshold_kernel", "tile_count_kernel",

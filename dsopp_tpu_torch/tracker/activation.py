@@ -24,8 +24,7 @@ from dsopp_tpu_torch.core.interpolate import pad_images, sample_window, window_b
 from dsopp_tpu_torch.core.lie import SE3
 from dsopp_tpu_torch.core.pattern import PATTERN_CENTER, PATTERN_SIZE, shift_pattern
 from dsopp_tpu_torch.core.reproject import reproject, reproject_jacobian
-from dsopp_tpu_torch.solvers.pba import (RES_OK, Window, _brightness_scale, active_lm_mask,
-                                         newest_slot)
+from dsopp_tpu_torch.solvers.pba import RES_OK, Window, active_lm_mask, newest_slot
 from dsopp_tpu_torch.tracker.depth_estimation import (
     STATUS_GOOD, STATUS_ILL_CONDITIONED, STATUS_OOB, STATUS_OUTLIER,
     STATUS_SKIPPED, ImmaturePoints)
@@ -42,6 +41,7 @@ REFINE_REG_DEC = 2.0
 REFINE_REG_INC = 5.0
 REFINE_CAP = 512
 _REFINE_MAX_FRAMES = 40   # frame slots K14's refine kernel sums over in shared memory
+_ACTIVATION_MAX_FRAMES = 64   # frame slots K13's kernels hold poses for in shared memory
 
 
 def ready_for_activation(points: ImmaturePoints):
@@ -60,6 +60,16 @@ def _to_newest(window: Window):
     poses = window.poses()
     t_n = SE3(poses.q.index_select(0, newest)[0], poses.t.index_select(0, newest)[0]).inverse()
     return SE3(t_n.q.expand(k, 4), t_n.t.expand(k, 3)).compose(poses), newest
+
+
+def _check_poses(window: Window):
+    """Validate the window's pose tensors the K13 and K14 kernels read."""
+    k = window.num_slots
+    check = kernels.check
+    check(window.t_lin_q, "t_lin_q", (k, 4))
+    check(window.t_lin_t, "t_lin_t", (k, 3))
+    check(window.eps, "eps", (k, 8))
+    check(window.frame_valid, "frame_valid", (k,), torch.bool)
 
 
 def _activation_terms_plain(window: Window, model, imm: ImmaturePoints):
@@ -111,32 +121,40 @@ def _check_banks(imm: ImmaturePoints):
 def _activation_cuda(window: Window, model, imm: ImmaturePoints, min_distance):
     """Kernel K13: same outputs as :func:`_activation_plain`, with no
     [K·M, K·N] distance matrix and no host read.  ``min_distance`` may be a
-    device scalar (the density controller's state) or a float."""
+    device scalar (the density controller's state) or a float.  The kernels
+    take the window's raw tensors (poses, masks) and write every output."""
     k, n = window.num_slots, window.num_landmark_slots
     km, m = _check_banks(imm)
     check = kernels.check
-    check(window.lm_uv, "lm_uv", (k, n, 2))
-    check(window.lm_idepth, "lm_idepth", (k, n))
     if km != k:
         raise ValueError(f"{km} immature banks for {k} frame slots")
+    if k > _ACTIVATION_MAX_FRAMES:
+        raise ValueError(f"the activation kernels take at most {_ACTIVATION_MAX_FRAMES} frame"
+                         f" slots, got {k}")
+    _check_poses(window)
+    check(window.lm_uv, "lm_uv", (k, n, 2))
+    check(window.lm_idepth, "lm_idepth", (k, n))
+    check(window.lm_valid, "lm_valid", (k, n), torch.bool)
+    check(window.lm_outlier, "lm_outlier", (k, n), torch.bool)
     dev = window.lm_uv.device
     if isinstance(min_distance, torch.Tensor):
-        min_distance = check(min_distance.reshape(1), "min_distance", (1,))
+        check(min_distance, "min_distance", tuple(min_distance.shape))
+        if min_distance.numel() != 1:
+            raise ValueError(f"min_distance: expected one value, got {min_distance.numel()}")
     else:
         min_distance = torch.full((1,), float(min_distance), dtype=torch.float32, device=dev)
-    t_rel, newest = _to_newest(window)
-    act_mask = active_lm_mask(window) & ~window.lm_outlier
     activate = torch.empty((k, m), dtype=torch.bool, device=dev)
     delete = torch.empty((k, m), dtype=torch.bool, device=dev)
-    n_active = torch.empty((1,), dtype=torch.int64, device=dev)
+    n_active = torch.empty((), dtype=torch.int64, device=dev)
     kernels.ACTIVATION(
-        window.lm_uv, window.lm_idepth, act_mask.contiguous(), t_rel.q.contiguous(),
-        t_rel.t.contiguous(), newest, k, n, m, model.fx, model.fy, model.cx, model.cy,
-        model.width, model.height, imm.uv, imm.idepth_min, imm.idepth_max, imm.status,
-        imm.traced, imm.uniqueness, imm.search_interval, imm.valid, MAX_SEARCH_INTERVAL,
-        MIN_UNIQUENESS, min_distance,
-        torch.empty((k * n, 2), dtype=torch.float32, device=dev), activate, delete, n_active)
-    return activate, delete, n_active[0]
+        window.t_lin_q, window.t_lin_t, window.eps, window.frame_valid, window.lm_uv,
+        window.lm_idepth, window.lm_valid, window.lm_outlier, k, n, m, model.fx, model.fy,
+        model.cx, model.cy, model.width, model.height, imm.uv, imm.idepth_min, imm.idepth_max,
+        imm.status, imm.traced, imm.uniqueness, imm.search_interval, imm.valid,
+        MAX_SEARCH_INTERVAL, MIN_UNIQUENESS, min_distance,
+        torch.empty((2 * k * n + 8 * k + 1,), dtype=torch.float32, device=dev), activate, delete,
+        n_active)
+    return activate, delete, n_active
 
 
 def _activation_kernel(window: Window, model, imm: ImmaturePoints, min_distance):
@@ -232,36 +250,36 @@ def _refine_idepth_plain(window: Window, model, imm: ImmaturePoints, activate,
 def _refine_idepth_cuda(window: Window, model, imm: ImmaturePoints, activate,
                         huber_sigma: float, cap: int = REFINE_CAP, trace: list = None):
     """Kernel K14 (refine): same outputs as :func:`_refine_idepth_plain`; the
-    maps are read in place and nothing is read on the host."""
+    maps are read in place, the kernels take the window's raw tensors (poses,
+    affine, exposure) and write every output, and nothing is read on the
+    host."""
     k, m = _check_banks(imm)
     check = kernels.check
     h_px, w_px = window.maps.shape[-2:]
     check(window.maps, "maps", (k, 3, h_px, w_px))
     check(activate, "activate", (k, m), torch.bool)
-    check(window.frame_valid, "frame_valid", (k,), torch.bool)
     if k > _REFINE_MAX_FRAMES:
         raise ValueError(f"the refine kernel takes at most {_REFINE_MAX_FRAMES} frame slots,"
                          f" got {k}")
+    _check_poses(window)
+    check(window.affine0, "affine0", (k, 2))
+    check(window.exposure, "exposure", (k,))
     dev = imm.uv.device
-    poses = window.poses()
-    t_inv = poses.inverse()
-    t_cj = SE3(t_inv.q[None], t_inv.t[None]).compose(SE3(poses.q[:, None], poses.t[:, None]))
-    affine = window.affine().contiguous()
-    scale = _brightness_scale(window.exposure, affine).contiguous()
-    idepth = imm.idepth.contiguous()
-    keep = torch.zeros((k, m), dtype=torch.bool, device=dev)
+    idepth = torch.empty((k, m), dtype=torch.float32, device=dev)
+    keep = torch.empty((k, m), dtype=torch.bool, device=dev)
     selected = torch.empty((k, m), dtype=torch.bool, device=dev)
     rows = None
     if trace is not None:
-        rows = torch.zeros((cap, REFINE_ITERATIONS, 4), dtype=torch.float32, device=dev)
+        rows = torch.empty((cap, REFINE_ITERATIONS, 4), dtype=torch.float32, device=dev)
         trace.append(rows)
     # the intensity image of frame f is channel 0 of maps[f]
     kernels.REFINE(activate, imm.uv, imm.patch, imm.idepth_min, imm.idepth_max,
-                   t_cj.q.contiguous(), t_cj.t.contiguous(), scale, affine, window.frame_valid,
-                   window.maps, 3 * h_px * w_px, k, m, h_px, w_px, cap, model.fx, model.fy,
-                   model.cx, model.cy, model.width, model.height, float(huber_sigma),
-                   torch.empty((cap,), dtype=torch.int32, device=dev), selected, idepth, keep,
-                   rows)
+                   window.t_lin_q, window.t_lin_t, window.eps, window.affine0, window.exposure,
+                   window.frame_valid, window.maps, 3 * h_px * w_px, k, m, h_px, w_px, cap,
+                   model.fx, model.fy, model.cx, model.cy, model.width, model.height,
+                   float(huber_sigma), torch.empty((cap,), dtype=torch.int32, device=dev),
+                   torch.empty((8 * k * k + k,), dtype=torch.float32, device=dev), selected,
+                   idepth, keep, rows)
     return idepth, keep, selected
 
 

@@ -33,7 +33,8 @@ candidates and every difference a rounding tie (least distance within 2e-4 px
 of min_distance, or the reprojection within 1e-3 px of the image border); K14
 selected equal, keep equal on ≥ 99.5 % of the selected, idepth 1e-4 relative
 where the accept sequences are equal, the pairing equal entry by entry on the
-same inputs; K16 (landmarks within 1e-3 px of a pixel boundary left out of
+same inputs; K13 and K14's refinement also on the dense window, two runs equal
+to the bit, and their wrappers run no torch operator but allocations; K16 (landmarks within 1e-3 px of a pixel boundary left out of
 both) weights and selected pixels equal, idepth 1e-6 relative, on a small and
 on the dense window, two runs equal to the bit, at most 16 launches and no
 memset a call; K15 (the ledger fold, on an empty and a filled ledger, with no
@@ -291,20 +292,30 @@ def test_ba_evaluate_kernel_matches_plain(tracked):
     assert max(err[name] for name in ("residuals", "gx", "gy", "energy_patch", "weight")) <= 1e-4, err
 
 
+DENSE_KEYFRAMES = 12      # known-pose keyframes past the bootstrap on the dense window
+
+
 @pytest.fixture(scope="module")
-def dense_tracked():
+def dense_sequence():
+    """The VGA corridor of the dense path."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from dsopp_tpu_torch.testing.paths import render_path
+    return render_path("dense")
+
+
+@pytest.fixture(scope="module")
+def dense_tracked(dense_sequence):
     """The dense operating point (dense.yaml: 17 slots × 340 landmarks) on the
     VGA corridor after 12 known-pose keyframes past the bootstrap, and the
     next frame's pyramid."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
-    from dsopp_tpu_torch.testing.paths import INIT_FRAMES, bootstrap, path_config, render_path
-    seq = render_path("dense")
+    from dsopp_tpu_torch.testing.paths import INIT_FRAMES, bootstrap, path_config
+    seq = dense_sequence
     tracker = bootstrap(seq, path_config("dense"))
-    for i in range(INIT_FRAMES, INIT_FRAMES + 12):
+    for i in range(INIT_FRAMES, INIT_FRAMES + DENSE_KEYFRAMES):
         tracker.tick(i, float(seq.timestamps[i]), seq.images[i],
                      known_pose=seq.pose(i, torch.float32), force_keyframe=True)
-    maps = pyramid.build_pyramid_maps(seq.images[INIT_FRAMES + 12].contiguous(),
+    maps = pyramid.build_pyramid_maps(seq.images[INIT_FRAMES + DENSE_KEYFRAMES].contiguous(),
                                       tracker.config.pyramid_levels)
     return tracker, maps
 
@@ -468,8 +479,33 @@ def keyframe(tracked):
                                              seq.pose(6, torch.float32, "cuda"), 6)
 
 
-def test_activation_kernel_matches_plain(keyframe):
-    tracker, win, imm, _ = keyframe
+@pytest.fixture(scope="module")
+def dense_keyframe(dense_tracked, dense_sequence):
+    """The dense window with the next frame pushed as its newest keyframe, and
+    the banks before activation."""
+    from dsopp_tpu_torch.testing.paths import INIT_FRAMES
+    tracker, _ = dense_tracked
+    frame = INIT_FRAMES + DENSE_KEYFRAMES
+    return (tracker,) + parity.keyframe_case(tracker, dense_sequence.images[frame],
+                                             dense_sequence.pose(frame, torch.float32, "cuda"),
+                                             frame)
+
+
+KEYFRAMES = {"small": "keyframe", "dense": "dense_keyframe"}
+ALLOCATION_OPS = {"aten::empty", "aten::empty_strided"}
+
+
+def _aten_ops(fn, *args):
+    """The aten operators ``fn(*args)`` runs on the host."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        fn(*args)
+    torch.cuda.synchronize()
+    return {e.name for e in prof.events() if e.name.startswith("aten::")}
+
+
+@pytest.mark.parametrize("window", list(KEYFRAMES))
+def test_activation_kernel_matches_plain(request, window):
+    tracker, win, imm, _ = request.getfixturevalue(KEYFRAMES[window])
     model = tracker.models[0]
     min_distance = torch.tensor(1.5, device="cuda")
     before = kernels.ACTIVATION.launches
@@ -480,6 +516,10 @@ def test_activation_kernel_matches_plain(keyframe):
     err = parity.activation_errors(res_k, res_p, terms, min_distance, model)
     assert err["n_active"] > 50 and err["activate"] > 20, err
     assert err["n_active_differ"] == 0 and err["agree"] >= 0.999 and err["unexplained"] == 0, err
+    # two runs equal to the bit; the wrapper runs no torch operator but allocations
+    again = act._activation_cuda(win, model, imm, min_distance)
+    assert all(torch.equal(a, b) for a, b in zip(res_k, again))
+    assert _aten_ops(act._activation_cuda, win, model, imm, min_distance) <= ALLOCATION_OPS
     # no active landmark: every ready, valid candidate is spaced
     empty = win.replace(lm_valid=torch.zeros_like(win.lm_valid))
     res_k, res_p = (fn(empty, model, imm, 1.5) for fn in (act._activation_cuda,
@@ -497,7 +537,9 @@ def test_activation_kernel_matches_plain(keyframe):
 
 
 @pytest.mark.parametrize("cap", [act.REFINE_CAP, 24])
-def test_refine_and_scatter_kernels_match_plain(keyframe, cap):
+@pytest.mark.parametrize("window", list(KEYFRAMES))
+def test_refine_and_scatter_kernels_match_plain(request, window, cap):
+    keyframe = request.getfixturevalue(KEYFRAMES[window])
     tracker, win, imm, _ = keyframe
     model = tracker.models[0]
     activate, delete, _ = act._activation_plain(win, model, imm, 1.5)
@@ -512,6 +554,14 @@ def test_refine_and_scatter_kernels_match_plain(keyframe, cap):
     assert err["keep"] > 0 and err["accepts"] > 0 and err["kept_outside_selected"] == 0, err
     assert err["keep_agree"] >= 0.995 and err["idepth"] <= 1e-4, err
     assert err["parted_others"] <= 0.005 * err["selected"], err
+    # two runs equal to the bit (the trace too, zero rows past the refined
+    # ones); the wrapper runs no torch operator but allocations
+    trace_again = []
+    again = act._refine_idepth_cuda(win, model, imm, activate, 20.0, cap, trace_again)
+    assert all(torch.equal(a, b) for a, b in zip(out_k, again))
+    assert torch.equal(trace_k[0], trace_again[0])
+    assert not bool(trace_k[0][err["selected"]:].any())
+    assert _aten_ops(act._refine_idepth_cuda, win, model, imm, activate, 20.0, cap) <= ALLOCATION_OPS
     # the pairing, on the plain version's refinement
     idepth, keep, selected = out_p
     delete = delete | (selected & ~keep)

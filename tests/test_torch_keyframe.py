@@ -31,6 +31,7 @@ from dsopp_tpu.tracker.depth_estimation import STATUS_GOOD, make_immature_points
 from dsopp_tpu_torch import convert
 from dsopp_tpu_torch.features import extractor as text
 from dsopp_tpu_torch.solvers import pba as tpba
+from dsopp_tpu_torch.testing.activation_models import compaction as compaction_model
 from dsopp_tpu_torch.tracker import activation as tact
 
 from tests._torch_port import assert_close, assert_equal, np_tree, to_torch, window_fields
@@ -150,23 +151,6 @@ def test_activation_chain_matches_at_slots(slots, num_frames):
 
 # -- host models of csrc/refine.cu's integer steps ---------------------------
 
-def _newest_first_compaction_model(activate, cap):
-    """One block per bank: the activating candidates of the banks after it
-    (refined before it), then an ordered scan of its own → (order, selected)."""
-    k, m = activate.shape
-    order = np.full(cap, -1)
-    selected = np.zeros((k, m), bool)
-    for bank in range(k):
-        pos = int(activate[bank + 1:].sum())
-        for i in range(m):
-            if activate[bank, i]:
-                if pos < cap:
-                    order[pos] = bank * m + i
-                    selected[bank, i] = True
-                pos += 1
-    return order, selected
-
-
 def _pairing_model(lm_valid, activate):
     """Per frame slot: the r-th free landmark slot takes the r-th activating
     candidate, r < min(#free, #activating) → list of (slot, dst, src)."""
@@ -183,13 +167,13 @@ def _pairing_model(lm_valid, activate):
 def test_compaction_model_matches_stable_argsort(k, m, cap, share):
     rng = np.random.default_rng(k * m)
     activate = rng.random((k, m)) < share
-    order, selected = _newest_first_compaction_model(activate, cap)
+    order, n_sel, selected = compaction_model(activate, cap)
     # the plain version's key: rank of the activating ones, the others behind in index order
     flat = np.arange(k * m)
     rank = (k - 1 - flat // m) * m + flat % m
     key = torch.tensor(np.where(activate.reshape(-1), rank, k * m + flat))
     want = torch.argsort(key, stable=True)[:cap].numpy()
-    n_sel = min(cap, int(activate.sum()))
+    assert n_sel == min(cap, int(activate.sum()))
     assert_equal(order[:n_sel], want[:n_sel])
     assert (order[n_sel:] == -1).all()
     want_sel = np.zeros(k * m, bool)
