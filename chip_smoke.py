@@ -10,17 +10,19 @@ Phases, one line each with its time:
    (into ``build/dsopp_tpu_torch``, ignored by git), one ``nvcc`` per source,
    all started together;
 3. render — the bench's corridor sequence: 120 frames, 480×640, focal 520;
-4. parity — each of the twenty kernel entry points (K1–K16, K15 as the
-   policy K15p and the ledger fold; K14 has two; K18, the camera's
-   photometric correction; and the row gather of the Pallas design probe)
-   against its plain PyTorch version, f32
+4. parity — each of the nineteen kernel entry points (K1–K16 but K6, whose
+   FEJ Jacobians K8 forms itself; K15 as the policy K15p and the ledger fold;
+   K14 has two; K18, the camera's photometric correction; and the row gather
+   of the Pallas design probe) against its plain PyTorch version, f32
    on the card, at the shapes the main path gives it (inputs from a
    bootstrapped tracker), with its time, the plain version's time and the
    least time the card could take (bytes over 3.35 TB/s or f32 operations
    over 67 TFLOP/s, whichever is larger, counted from this run's inputs).
    The windowed-BA kernels are held twice: on a standart.yaml window (10
-   frame slots × 250 landmarks; K6–K8 are timed there) and on a dense.yaml
-   window (17 × 340, at least 12 valid frames; K9–K11 are timed there).  K9
+   frame slots × 250 landmarks; K7 and K8 are timed there) and on a
+   dense.yaml window (17 × 340, at least 12 valid frames; K9–K11 are timed
+   there); K8 against the plain version on the plain FEJ cache, with and
+   without the marginalization pass, two runs equal to the bit.  K9
    also on systems of K = 10, 17 and 21 slots whose rows need a swap at
    nearly every column, with a dead slot, against the plain version in f64,
    and without ledger and Schur term to the bit against the column-by-column
@@ -40,8 +42,10 @@ Phases, one line each with its time:
    held on both BA windows, with an empty and a filled ledger: the policy at
    the configuration's window sizes and with the window one frame too large
    (flags, outliers and the permutation equal; where the two best eq (20)
-   scores tie within 1e-6, the frame flags may differ on those two slots
-   only, and the rest must be the plain triage of the kernel's frame flags),
+   scores tie within their bounds, ``parity.eq20_score_bounds``, the frame
+   flags may differ on those two slots only, and the rest must be the plain
+   triage of the kernel's frame flags; two runs equal to the bit, its wrapper
+   under the profiler allocations only and one kernel a call),
    the fold with no frame, one free frame, two
    frames, the fixed frame and a dead frame (no live landmark, no residual
    into it) flagged (H_m, b_m, E_m within 1e-9 of their largest entry, of
@@ -115,7 +119,8 @@ policy through the ledger fold, run under PyTorch's sync debug mode set to
 "error": a host read inside them aborts the run.  K15p and K15 must launch
 exactly once per keyframe.
 
-Then a JSON line of per-kernel results, the card line, and as the last line
+Then a JSON line of per-kernel results (K6's entry, "computed_in"
+ba_linearize_schur, with no launch of its own), the card line, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero without that
 line; so does a machine without a CUDA card.
 """
@@ -145,7 +150,8 @@ SOURCES = {
     "epipolar_sweep": ("dsopp_tpu_torch/csrc/epipolar.cu",
                        "dsopp_tpu/tracker/depth_estimation.py:107"),
     "flow_statistic": ("dsopp_tpu_torch/csrc/flow.cu", "dsopp_tpu/tracker/depth_map.py:134"),
-    "ba_fej": ("dsopp_tpu_torch/csrc/ba_fej.cu", "dsopp_tpu/solvers/pba.py:257"),
+    # K6's FEJ Jacobians: formed inside K8's pair kernel (ba_body.cuh::fej_point)
+    "ba_fej": ("dsopp_tpu_torch/csrc/ba_body.cuh", "dsopp_tpu/solvers/pba.py:257"),
     "ba_evaluate": ("dsopp_tpu_torch/csrc/ba_evaluate.cu", "dsopp_tpu/solvers/pba.py:315"),
     "ba_linearize_schur": ("dsopp_tpu_torch/csrc/ba_linearize.cu",
                            "dsopp_tpu/solvers/pba.py:431"),
@@ -167,11 +173,15 @@ SOURCES = {
                             "dsopp_tpu/sensors/photometric.py:15"),
 }
 # K2's own entry point is held in the parity phase only: on the main path its
-# body runs inside K3 (align_level); the row gather is the Pallas design
-# probe's, on no path; K18 runs on the camera's frames, on the sensor path only
+# body runs inside K3 (align_level); K6's Jacobians are formed inside K8
+# (ba_linearize_schur), with no launch of their own; the row gather is the
+# Pallas design probe's, on no path; K18 runs on the camera's frames, on the
+# sensor path only
+COMPUTED_IN = {"ba_fej": "ba_linearize_schur"}
 PATH_KERNELS = tuple(name for name in SOURCES if name not in ("align_residual_system",
                                                               "row_gather",
-                                                              "photometric_correct"))
+                                                              "photometric_correct",
+                                                              *COMPUTED_IN))
 # the keyframe backend's kernels around the BA solve: once per keyframe each
 KEYFRAME_KERNELS = ("select_candidates", "activation", "refine_idepth", "activation_scatter",
                     "depth_maps", "marg_policy", "marg_fold")
@@ -184,7 +194,8 @@ LEDGER_CPU_THREADS = 8      # the f64 reference run's threads (a one-card machin
 OPS_ALIGN_POINT = 230       # K2/K3: one valid point of one hypothesis, one pass
 OPS_ALIGN_SOLVE = 600       # K3: damped 8x8 LU solve + exp + compose, one iteration
 OPS_EPIPOLAR_POINT = 6500   # K4: 32 samples x 8 pattern points + 4 GN steps
-OPS_FEJ_RESIDUAL = 150      # K6
+OPS_FEJ_RESIDUAL = 150      # K6's Jacobians of one residual, formed in K8
+OPS_POLICY_FRAME = 200      # K15p: one frame's pose T_lin exp(eps), its trig and compose
 OPS_EVALUATE_RESIDUAL = 120  # K7
 OPS_LINEARIZE_RESIDUAL = 910  # K8: 16 Jacobian columns, 272 + 18 multiply-adds
 OPS_FLOW_POINT = 80         # K5: two reprojections and ray differences
@@ -333,12 +344,12 @@ def parity(seq, cfg, torch, card):
     parity_align(tracker, maps_k, torch, rows)
     parity_epipolar(seq, tracker, INIT_FRAMES, torch, rows, "standart")
     parity_flow(seq, tracker, INIT_FRAMES, torch, rows, "standart")
-    # the BA kernels on a standart window (K6-K8 timed) ...
+    # the BA kernels on a standart window (K7 and K8, K6's Jacobians inside, timed) ...
     parity_ba(seq, tracker, torch, rows, "standart", every=2, min_frames=5,
               timed=("ba_fej", "ba_evaluate", "ba_linearize_schur"))
     parity_keyframe(seq, tracker, INIT_FRAMES + BA_FRAMES, torch, rows, "standart")
     del tracker
-    # ... and the dense operating point's shapes: K6-K11 on a dense window,
+    # ... and the dense operating point's shapes: K7-K11 on a dense window,
     # every further frame a keyframe (K9-K11 timed), then K4 on that window's
     # 17 banks of 1200 immature points and K5 on its flow set (both timed
     # above, at standart)
@@ -852,7 +863,7 @@ def parity_keyframe(seq, tracker, frame, torch, rows, label):
 
 
 def parity_ba(seq, tracker, torch, rows, label, every, min_frames, timed):
-    """K6–K11 on the window of ``tracker`` after ``BA_FRAMES`` further
+    """K7–K11 on the window of ``tracker`` after ``BA_FRAMES`` further
     known-pose frames (every ``every``-th one a keyframe), moved off its
     linearization point.
     The kernels named in ``timed`` get their row of ``rows`` here."""
@@ -885,21 +896,10 @@ def parity_ba(seq, tracker, torch, rows, label, every, min_frames, timed):
     def row(name, **fields):
         rows[name] = {"library_ms": None, **fields}
 
-    # K6
-    fej_k, fej_p = pba._fej_cache_cuda(win, model), pba._fej_cache_plain(win, model)
-    err = par.fej_errors(fej_k, fej_p)
-    log(f"  K6 ba_fej ({label}): {err}")
-    require(err.pop("geom_valid_differ") == 0, f"K6 ({label}): geom_valid differs")
-    require(max(err.values()) <= 1e-5, f"K6 ({label}): relative error above 1e-5: {err}")
+    # the plain FEJ cache, which K8 forms inside itself on the card
+    fej_p = pba._fej_cache_plain(win, model)
     win_in = (win.t_lin_q, win.t_lin_t, win.affine0, win.exposure, win.lm_uv, win.lm_idepth,
               win.lm_patch)
-    b6 = bound(nbytes(*win_in) + nbytes(*fej_k), OPS_FEJ_RESIDUAL * residuals)
-    log_bound("ba_fej", label, b6)
-    if "ba_fej" in timed:
-        row("ba_fej",
-            max_abs_err=max(float((a - b).abs().max()) for a, b in zip(fej_k[:5], fej_p[:5])),
-            ms=cuda_ms(lambda: pba._fej_cache_cuda(win, model)),
-            plain_ms=cuda_ms(lambda: pba._fej_cache_plain(win, model)), **b6)
 
     # K7
     ev_args = (win, model, eps, idepth, lm_mask, opts)
@@ -924,14 +924,15 @@ def parity_ba(seq, tracker, torch, rows, label, every, min_frames, timed):
             ms=cuda_ms(lambda: pba._evaluate_cuda(*ev_args)),
             plain_ms=cuda_ms(lambda: pba._evaluate_plain(*ev_args)), **b7)
 
-    # K8, on the plain versions' cache and evaluation; also the marginalization
-    # pass; two runs equal to the bit in both
+    # K8 (its FEJ formed inside from the window) on the plain version's
+    # evaluation, against the plain version on the plain FEJ cache; also the
+    # marginalization pass; two runs equal to the bit in both
     err8 = 0.0
     for marg_pass in (False, True):
-        sys_k = pba._linearize_from_ev_cuda(win, fej_p, ev_p, eps, opts, marg_pass)
+        sys_k = pba._linearize_from_ev_cuda(win, model, ev_p, eps, opts, marg_pass)
         sys_p = pba._linearize_from_ev_plain(win, fej_p, ev_p, eps, opts, marg_pass)
         err = par.linear_system_errors(sys_k, sys_p)
-        again = pba._linearize_from_ev_cuda(win, fej_p, ev_p, eps, opts, marg_pass)
+        again = pba._linearize_from_ev_cuda(win, model, ev_p, eps, opts, marg_pass)
         same = all(torch.equal(a, b) for a, b in zip(sys_k, again))
         log(f"  K8 ba_linearize_schur ({label}) marg_pass={marg_pass}: {err}, two runs equal:"
             f" {same}")
@@ -943,25 +944,36 @@ def parity_ba(seq, tracker, torch, rows, label, every, min_frames, timed):
     log(f"  K8 scratch ({label}): " + ", ".join(
         f"{name} {nbytes(t) / 1e6:.2f} MB" for name, t in
         zip(("pair_part", "lm_part", "schur_part"), scratch)) + f", {nbytes(*scratch) / 1e6:.2f} MB")
-    k8_bound = bound(nbytes(*fej_p, ev_p.residuals, ev_p.weight, ev_p.gx, ev_p.gy, ev_p.ok, eps,
-                            win.affine0, win.frame_valid, win.frame_fixed, win.frame_marg)
+    # the evaluation, the window's fields at the linearization point and the
+    # outputs, each once; the FEJ of every residual, the Jacobian chain of the
+    # ok ones and the Schur products
+    k8_bound = bound(nbytes(*win_in, ev_p.residuals, ev_p.weight, ev_p.gx, ev_p.gy, ev_p.ok, eps,
+                            win.frame_valid, win.frame_fixed, win.frame_marg)
                      + nbytes(*sys_k),
-                     OPS_LINEARIZE_RESIDUAL * 8 * int(ev_p.ok.sum())
+                     OPS_FEJ_RESIDUAL * residuals
+                     + OPS_LINEARIZE_RESIDUAL * 8 * int(ev_p.ok.sum())
                      + 3 * int(lm_mask.sum()) * (kb * kb + kb))
 
     log_bound("ba_linearize_schur", label, k8_bound)
 
     def k8_call():
-        return pba._linearize_from_ev_cuda(win, fej_p, ev_p, eps, opts)
+        return pba._linearize_from_ev_cuda(win, model, ev_p, eps, opts)
 
     k8_ms = cuda_ms(k8_call)
     log(f"  K8 ({label}, K = {k}, N = {n}): call {k8_ms:.4f} ms,"
         f" {fmt_us(device_us(torch, k8_call))}, bound {k8_bound['bound_ms']:.5f} ms"
         f" ({k8_bound['bound_by']})")
+    # K6's Jacobians alone: the window's fields read once, no cache written
+    b6 = bound(nbytes(*win_in), OPS_FEJ_RESIDUAL * residuals)
+    log_bound("ba_fej", label, b6)
     if "ba_linearize_schur" in timed:
         row("ba_linearize_schur", max_abs_err=err8, ms=k8_ms,
             plain_ms=cuda_ms(lambda: pba._linearize_from_ev_plain(win, fej_p, ev_p, eps, opts)),
             **k8_bound)
+    if "ba_fej" in timed:
+        # computed inside K8: its call, K8's error; the plain cache's own time
+        row("ba_fej", computed_in=COMPUTED_IN["ba_fej"], max_abs_err=err8, ms=k8_ms,
+            plain_ms=cuda_ms(lambda: pba._fej_cache_plain(win, model)), **b6)
     sys_p = par.contiguous(pba._linearize_from_ev_plain(win, fej_p, ev_p, eps, opts))
 
     # a filled ledger: the window's own where a frame was marginalized, else a
@@ -1046,7 +1058,7 @@ def parity_ba(seq, tracker, torch, rows, label, every, min_frames, timed):
             **b9)
 
     # K10 — the device-resident loop against the host-driven one (same parts,
-    # kernels K6-K9 and K11 in both), with an empty and with a filled ledger
+    # kernels K7-K9 and K11 in both), with an empty and with a filled ledger
     err10 = 0.0
     for case, start in (("empty ledger", empty), ("filled ledger", filled)):
         log_k, log_p = [], []
@@ -1120,21 +1132,33 @@ def parity_marg(tracker, windows, torch, rows, label):
     k, n = win.num_slots, win.num_landmark_slots
     kb = k * pba.BLOCK
     frames = int(win.frame_valid.sum())
-    imm_counts = torch.sum(tracker.immature.valid, dim=1)
+    imm_valid = tracker.immature.valid
 
-    # K15p
+    # K15p: twice each, with host synchronisation an error
     flagged = 0
     for lo, hi in ((cfg.window_min, cfg.window_max), (min(cfg.window_min, frames - 2), frames - 1)):
-        args = (win, imm_counts, lo, hi, cfg.max_marginalized_fraction)
+        args = (win, imm_valid, lo, hi, cfg.max_marginalized_fraction)
         out_k = no_host_reads(torch, marg.flags_device_cuda, *args)
+        again = no_host_reads(torch, marg.flags_device_cuda, *args)
         out_p = marg.flags_device_plain(*args)
         err = par.policy_errors(out_k, out_p, win, lo, hi)
         log(f"  K15p marg_policy ({label}, window {lo}..{hi}, {frames} of {k} frames): {err}")
         require(err["explained"],
                 f"K15p ({label}): outputs differ from the plain version beyond a score tie: {err}")
+        require(all(torch.equal(a, b) for a, b in zip(out_k, again)),
+                f"K15p ({label}): two runs differ")
         flagged += err["frames_flagged"]
         policy_args, policy_out = args, out_k
     require(flagged > 0, f"K15p ({label}): no frame was flagged")
+    policy_ops, device_kernels = wrapper_work(torch,
+                                              lambda: marg.flags_device_cuda(*policy_args))
+    require(set(policy_ops) <= set(ALLOCATION_OPS) and device_kernels == 1,
+            f"K15p ({label}): the wrapper runs torch operators {policy_ops} and {device_kernels}"
+            " kernels")
+    policy_us = device_us(torch, lambda: marg.flags_device_cuda(*policy_args))
+    log(f"  K15p ({label}): two runs equal to the bit; the wrapper runs {len(policy_ops)} aten"
+        f" ops ({', '.join(sorted(set(policy_ops)))}) and {device_kernels} kernel a call,"
+        f" {fmt_us(policy_us)}")
 
     # K15
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -1177,15 +1201,16 @@ def parity_marg(tracker, windows, torch, rows, label):
                 f" ms, bound {fields['bound_ms']:.5f} ms ({fields['bound_by']})")
 
     args = policy_args
-    poses_t = win.poses().t
     row("marg_policy", **dict(
         max_abs_err=max(float((a.long() - b.long()).abs().max())
                         for a, b in zip(policy_out, marg.flags_device_plain(*args))),
         ms=cuda_ms(lambda: marg.flags_device_cuda(*args)),
         plain_ms=cuda_ms(lambda: marg.flags_device_plain(*args)),
         **bound(nbytes(win.lm_valid, win.lm_outlier, win.lm_inliers, win.lm_opt_count,
-                       win.frame_valid, win.frame_id, imm_counts, poses_t) + 4 * k * n
-                + nbytes(*policy_out), OPS_POLICY_LANDMARK * k * n + OPS_POLICY_PAIR * k * k),
+                       win.frame_valid, win.frame_id, win.t_lin_q, win.t_lin_t, win.eps,
+                       imm_valid) + 4 * k * n + nbytes(*policy_out),
+                OPS_POLICY_LANDMARK * k * n + OPS_POLICY_PAIR * k * k + OPS_POLICY_FRAME * k),
+        device_us=policy_us, wrapper_aten_ops=len(policy_ops), device_kernels=device_kernels,
         library_ms=None))
     fold, out_k, m_rows = timed_case
     w = fold[0]
@@ -1288,8 +1313,7 @@ def lm_control(pba, torch, window, model, opts):
     carried, win = pba._carried_state(window)
     eps, idepth, status = carried[3], carried[4], carried[6]
     ev = pba._evaluate_cuda(win, model, eps, idepth, lm_mask, opts)
-    fej = pba._fej_cache_cuda(win, model)
-    sys = pba._linearize_from_ev_cuda(win, fej, ev, eps, opts)
+    sys = pba._linearize_from_ev_cuda(win, model, ev, eps, opts)
     eps_new, idepth_new, step_sq = pba._solve_step_launch(win, sys, eps, idepth,
                                                           opts.initial_regularizer, None)
     ev_new = pba._evaluate_cuda(win, model, eps_new, idepth_new, lm_mask, opts)
@@ -1859,12 +1883,13 @@ def main():
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
 
+    # a kernel folded into another (COMPUTED_IN) has no launch of its own
+    runs = dict(track=st, track_fast=sf, track_dense=sd, track_masked=sm, track_ledger=sl,
+                track_sensor=ss)
     result = {"kernels": [
         dict(name=name, route="cuda", source=SOURCES[name][0], replaces=SOURCES[name][1],
-             launches=sum(run["counts"][name] for run in (st, sf, sd, sm, sl, ss)),
-             launches_track=st["counts"][name], launches_track_fast=sf["counts"][name],
-             launches_track_dense=sd["counts"][name], launches_track_masked=sm["counts"][name],
-             launches_track_ledger=sl["counts"][name], launches_track_sensor=ss["counts"][name],
+             launches=sum(run["counts"].get(name, 0) for run in runs.values()),
+             **{f"launches_{label}": run["counts"].get(name, 0) for label, run in runs.items()},
              **rows[name]) for name in SOURCES]}
     print(json.dumps(result))
     print(card)

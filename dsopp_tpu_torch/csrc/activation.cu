@@ -9,7 +9,7 @@
 //
 // The kernels take the window's raw tensors and derive the rest themselves:
 // the newest slot (the count of valid frames less one), the poses newest <-
-// each frame (ba_body.cuh's frame_pose / relative_pose, as K6-K8), the active
+// each frame (ba_body.cuh's frame_pose / relative_pose, as K7 and K8), the active
 // mask (live landmark of a valid frame, not an outlier) and the start idepth
 // 0.5 (idepth_min + idepth_max).  Every output entry is written here.
 //

@@ -1,15 +1,16 @@
-// Shared device code of the windowed-BA kernels K6 (ba_fej.cu) and K7
-// (ba_evaluate.cu) and of the kernels that reproject or sample as they do
-// (K5, K13, K14, K16): the residual pattern, rigid transforms on quaternion +
-// translation with the formulas and small-angle branches of core/lie.py,
-// the relative pose T_j^-1 T_i of an (anchor i, target j) pair, the
-// 10x10-window sampling rule of core/interpolate.py::sample_window, a block
-// scan and the count of valid frames.
+// Shared device code of the windowed-BA kernels K7 (ba_evaluate.cu) and K8
+// (ba_linearize.cu) and of the kernels that reproject or sample as they do
+// (K5, K10, K11, K13, K14, K15p, K16): the residual pattern, rigid transforms
+// on quaternion + translation with the formulas and small-angle branches of
+// core/lie.py, the relative pose T_j^-1 T_i of an (anchor i, target j) pair,
+// the first-estimate Jacobians of a residual (fej_point), the 10x10-window
+// sampling rule of core/interpolate.py::sample_window, a block scan and the
+// count of valid frames.
 //
-// Both kernels use one thread per residual (i, j, n, p): blockIdx.y is the
-// pair i * K + j, and the block's threads run over n * 8 + p, so the 8
-// pattern points of a landmark are 8 neighbouring lanes of one warp and
-// per-landmark reductions are shuffles over those lanes.
+// K7 and K8 use one thread per residual (i, j, n, p) of a pair's block, the
+// block's threads running over n * 8 + p, so the 8 pattern points of a
+// landmark are 8 neighbouring lanes of one warp and per-landmark reductions
+// are shuffles over those lanes.
 
 #pragma once
 
@@ -138,6 +139,65 @@ static __device__ __forceinline__ bool reprojection_valid(const Camera& cam, flo
   const bool ok_z = z >= 1e-3f * fmaxf(d, 0.0f) + 1e-12f;
   const bool ok_d = d > -1e-4f && d < 1010.0f;
   return proj && ok_z && ok_d;
+}
+
+// The first-estimate Jacobians of one residual (dsopp_tpu/solvers/pba.py::
+// _fej_cache, pba.py::_fej_cache_plain here): pattern point (u, v) of a
+// landmark with inverse depth d, reprojected by the pair's relative pose at
+// the linearization point.  K8 forms them where it reads them; they were
+// once kernel K6's cache.  valid is the point's own reprojection test (the
+// landmark's is the AND over its pattern, all_of_pattern); corrected is the
+// reference intensity `patch` corrected into the target's brightness.
+struct Fej {
+  float ref[12];     // d uv / d eps_anchor, rows u then v: [d A | -(A x ray)], A = J R
+  float tgt[12];     // d uv / d eps_target, rows u then v: [-d J | J x q]
+  float idepth[2];   // d uv / d idepth: J t
+  float corrected;   // scale (patch - b_anchor)
+  bool valid;
+};
+
+static __device__ __forceinline__ Fej fej_point(const Camera& cam, const Rigid& rel, float u,
+                                                float v, float d, float scale, float patch,
+                                                float b_anchor) {
+  Vec3 ray;
+  const Vec3 q = scaled_target_point(cam, u, v, d, rel, &ray);
+  const float z_safe = fabsf(q.z) < 1e-12f ? 1e-12f : q.z;
+  const float iz = 1.0f / z_safe;
+  const float iz2 = iz * iz;
+  const float u_t = cam.fx * q.x * iz + cam.cx;
+  const float v_t = cam.fy * q.y * iz + cam.cy;
+  Fej f;
+  f.valid = reprojection_valid(cam, q.z, u_t, v_t, d);
+
+  // J = d(uv)/d(point) rows; A = J R
+  const Vec3 j0 = {cam.fx * iz, 0.0f, -cam.fx * q.x * iz2};
+  const Vec3 j1 = {0.0f, cam.fy * iz, -cam.fy * q.y * iz2};
+  const float qw = rel.q.w, qx = rel.q.x, qy = rel.q.y, qz = rel.q.z;
+  const float xx = qx * qx, yy = qy * qy, zz = qz * qz;
+  const float wx = qw * qx, wy = qw * qy, wz = qw * qz;
+  const float xy = qx * qy, xz = qx * qz, yz = qy * qz;
+  const Vec3 r0 = {1 - 2 * (yy + zz), 2 * (xy - wz), 2 * (xz + wy)};
+  const Vec3 r1 = {2 * (xy + wz), 1 - 2 * (xx + zz), 2 * (yz - wx)};
+  const Vec3 r2 = {2 * (xz - wy), 2 * (yz + wx), 1 - 2 * (xx + yy)};
+  const Vec3 a0 = {j0.x * r0.x + j0.z * r2.x, j0.x * r0.y + j0.z * r2.y,
+                   j0.x * r0.z + j0.z * r2.z};
+  const Vec3 a1 = {j1.y * r1.x + j1.z * r2.x, j1.y * r1.y + j1.z * r2.y,
+                   j1.y * r1.z + j1.z * r2.z};
+  const Vec3 ar0 = cross(a0, ray), ar1 = cross(a1, ray);
+  const Vec3 jq0 = cross(j0, q), jq1 = cross(j1, q);
+
+  f.ref[0] = d * a0.x;  f.ref[1] = d * a0.y;  f.ref[2] = d * a0.z;
+  f.ref[3] = -ar0.x;    f.ref[4] = -ar0.y;    f.ref[5] = -ar0.z;
+  f.ref[6] = d * a1.x;  f.ref[7] = d * a1.y;  f.ref[8] = d * a1.z;
+  f.ref[9] = -ar1.x;    f.ref[10] = -ar1.y;   f.ref[11] = -ar1.z;
+  f.tgt[0] = -d * j0.x; f.tgt[1] = -d * j0.y; f.tgt[2] = -d * j0.z;
+  f.tgt[3] = jq0.x;     f.tgt[4] = jq0.y;     f.tgt[5] = jq0.z;
+  f.tgt[6] = -d * j1.x; f.tgt[7] = -d * j1.y; f.tgt[8] = -d * j1.z;
+  f.tgt[9] = jq1.x;     f.tgt[10] = jq1.y;    f.tgt[11] = jq1.z;
+  f.idepth[0] = (j0.x * rel.t.x + j0.y * rel.t.y) + j0.z * rel.t.z;
+  f.idepth[1] = (j1.x * rel.t.x + j1.y * rel.t.y) + j1.z * rel.t.z;
+  f.corrected = scale * (patch - b_anchor);
+  return f;
 }
 
 // AND of a flag over the 8 lanes of a landmark's pattern

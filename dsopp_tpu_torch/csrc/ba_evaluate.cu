@@ -126,7 +126,8 @@ ba_evaluate_kernel(const float* __restrict__ t_lin_q, const float* __restrict__ 
 
 }  // namespace
 
-// Window as ba_fej, plus eps [k,8], idepth [k,n] (the state), lm_mask [k,n]
+// Window: t_lin_q [k,4], t_lin_t [k,3], affine0 [k,2], exposure [k], lm_uv
+// [k,n,2], lm_patch [k,n,8]; eps [k,8], idepth [k,n] (the state), lm_mask [k,n]
 // u8, frame_valid [k] u8, res_status [k,k,n] int32 and the frames' intensity
 // images (`images` + f * image_stride is frame f's [h,w] image).  Outputs:
 // residuals, gx, gy [k,k,n,8]; energy_patch, weight [k,k,n];

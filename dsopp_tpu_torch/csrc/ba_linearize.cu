@@ -1,30 +1,40 @@
 // K8 ba_linearize_schur: the Gauss-Newton system of the windowed BA from an
 // evaluation, with the landmark Schur complement.
 //
-// Replaces dsopp_tpu/solvers/pba.py::_linearize_from_ev: the Jacobian chain (FEJ geometry x current gradients, frozen
+// Replaces dsopp_tpu/solvers/pba.py::_linearize_from_ev and, inside it, the
+// first-estimate Jacobians (FEJ) of pba.py::_fej_cache (once kernel K6, a
+// cache of 27 floats a residual written once and read back every
+// iteration): the Jacobian chain (FEJ geometry x current gradients, frozen
 // affine columns), H_pp [8k, 8k] and b [8k], the per-landmark pose-idepth
 // blocks hpd [k, n, k, 8], h_dd and b_d [k, n], inv_hdd with the nullspace
 // threshold and the marginalization pass's scale regularizer, and
 // H_schur = sum hpd inv_hdd hpd^T, b_schur = sum hpd inv_hdd b_d.
 //
-// Bound: bytes (the FEJ cache and the evaluation, ~121 B a residual, ~98 MB
-// at the dense point K = 17, N = 340, are read once).  The long sums are f64
-// (H's entries span 1e3..5e10 and b cancels), and they run on Hopper's f64
-// tensor cores (mma.m16n8k16 .f64, the shape that reaches the card's f64
-// rate): each f32 operand is converted as a lane loads its fragment, and the
-// product of two f32 values is exact in f64.  No float atomics, and every sum
-// has one fixed order, so two runs give the same bits (the LM accept test and
-// the status machine read these sums).  Four kernels behind one entry point:
-//  1. pair_kernel, one block per (pair (i, j), tile of 128 landmarks): in
-//     chunks of 32 landmarks each thread forms one residual's 16 Jacobian
-//     columns [j_anchor | j_target] and r, staged in shared memory as f32
-//     columns; warp w takes residuals 32w..32w+31 of each chunk, 16 a product
-//     (A = (w J)^T with w J rounded in f32, as the plain version's, B = [J |
-//     r]), and sums the pair's [16 x 16] block w J^T J and the 16 entries of
-//     w J^T r in its registers; at the end the 8 warps' partials are added in
-//     warp order.  Per landmark the 8-point f32 sums that feed hpd go out:
-//     the target term straight into hpd[i, l, j], the anchor term, h_dd and
-//     b_d to scratch.
+// Bound: bytes (the evaluation, ~14 B a residual, ~11 MB at the dense point
+// K = 17, N = 340, and the window's landmark fields, read once).  The FEJ
+// depend on the linearization point only, and forming a residual's 27 values
+// takes ~150 f32 operations against the 108 B that a cache of them moves out
+// and back, so the pair kernel forms them where it reads them
+// (ba_body.cuh::fej_point, the arithmetic of the cache it replaces, so the
+// values are the same bits).  The long sums are f64 (H's entries span
+// 1e3..5e10 and b cancels), and they run on Hopper's f64 tensor cores
+// (mma.m16n8k16 .f64, the shape that reaches the card's f64 rate): each f32
+// operand is converted as a lane loads its fragment, and the product of two
+// f32 values is exact in f64.  No float atomics, and every sum has one fixed
+// order, so two runs give the same bits (the LM accept test and the status
+// machine read these sums).  Four kernels behind one entry point:
+//  1. pair_kernel, one block per (pair (i, j), tile of 128 landmarks): thread
+//     0 forms the pair's relative pose at the linearization point and its
+//     brightness scale once (the block's first loads already in flight); in
+//     chunks of 32 landmarks each thread forms one residual's FEJ and from
+//     them its 16 Jacobian columns [j_anchor | j_target] and r, staged in
+//     shared memory as f32 columns; warp w takes residuals 32w..32w+31 of
+//     each chunk, 16 a product (A = (w J)^T with w J rounded in f32, as the
+//     plain version's, B = [J | r]), and sums the pair's [16 x 16] block
+//     w J^T J and the 16 entries of w J^T r in its registers; at the end the
+//     8 warps' partials are added in warp order.  Per landmark the 8-point
+//     f32 sums that feed hpd go out: the target term straight into
+//     hpd[i, l, j], the anchor term, h_dd and b_d to scratch.
 //  2. landmark_kernel, a thread per (landmark, value): sums the anchor terms,
 //     h_dd and b_d over the targets in frame order (f64), adds the anchor
 //     term to the diagonal block of hpd, applies the threshold and the
@@ -41,15 +51,17 @@
 //     free frames' affine prior) added to the rounded f32 sums, as the plain
 //     version adds them.
 // dsopp_tpu_torch/testing/linearize_order.py mirrors this order of summation
-// on the CPU.
+// and the FEJ arithmetic on the CPU.
 //
 // Frames: k up to 40 (kMaxFrames: schur_kernel's 21 warps; the dense
 // operating point runs k = 17).  Inside the LM loop the entry takes the
 // loop's state and every kernel returns at once when the loop is done
-// (ba_lm_state.cuh).
+// (ba_lm_state.cuh); the linearization point it reads is the loop's carried
+// one, which K10 moves when a step relinearizes.
 
 #include <cuda_runtime.h>
 
+#include "ba_body.cuh"
 #include "ba_lm_state.cuh"
 
 namespace {
@@ -67,8 +79,6 @@ constexpr int kMaxFrames = 40;                // solvers/pba.py::_LINEARIZE_MAX_
 // mma operand's 8 columns x 4 residuals on 32 distinct banks
 constexpr int kColStride = kThreads + 4;
 constexpr int kRedStride = 24;                // a warp's partial [16][24]: H | b | pad
-static_assert(2 * kThreads * 3 * sizeof(float4) <= kWarps * kCols * kRedStride * sizeof(double),
-              "the FEJ rows fit the partials' bytes");
 constexpr int kReduceLanes = 8;               // slices per output entry in reduce_kernel
 // schur_kernel's warps: 16 of the 8(k + 1) columns [hpd | b_d] each
 constexpr int kSchurMaxWarps = (kMaxFrames + 2) / 2;
@@ -88,32 +98,31 @@ __device__ __forceinline__ void dmma(double (&d)[4], const double (&a)[8], const
 }
 
 __global__ void __launch_bounds__(kThreads, 3)
-pair_kernel(const float* __restrict__ d_uv_ref, const float* __restrict__ d_uv_tgt,
-            const float* __restrict__ d_uv_idepth, const float* __restrict__ corrected_ref,
-            const float* __restrict__ scale0, const unsigned char* __restrict__ geom_valid,
+pair_kernel(const float* __restrict__ t_lin_q, const float* __restrict__ t_lin_t,
+            const float* __restrict__ affine0, const float* __restrict__ exposure,
+            const float* __restrict__ lm_uv, const float* __restrict__ lin_idepth,
+            const float* __restrict__ lm_patch, ba::Camera cam,
             const float* __restrict__ residuals, const float* __restrict__ weight,
             const float* __restrict__ gx, const float* __restrict__ gy,
             const unsigned char* __restrict__ ok, int k, int n, int tiles,
             const int* __restrict__ lm_state, double* __restrict__ pair_part,
             float* __restrict__ lm_part, float* __restrict__ hpd) {
   if (ba::lm_done(lm_state)) return;
-  // the chunk's FEJ rows d_uv_ref | d_uv_tgt (12 floats a residual each,
-  // loaded by consecutive threads in float4s), and at the end the warps'
-  // [16][24] f64 partials in the same bytes; the stage's columns J | r, a
-  // residual each (f32)
-  __shared__ __align__(16) unsigned char raw[kWarps * kCols * kRedStride * sizeof(double)];
+  // the warps' [16][24] f64 partials at the end; the stage's columns J | r, a
+  // residual each (f32); the pair's pose and brightness scale
+  __shared__ double red[kWarps * kCols * kRedStride];
   __shared__ float cols[kCols + 1][kColStride];
   __shared__ float jd_s[kThreads];
   __shared__ float w_s[kChunkLm];
-  float4* fej_s = reinterpret_cast<float4*>(raw);        // [2][kThreads * 3]
-  double* red = reinterpret_cast<double*>(raw);
+  __shared__ ba::Rigid rel_s;
+  __shared__ float scale_s;
 
   const int pair = blockIdx.y, tile = blockIdx.x;
   const int anchor = pair / k, target = pair % k;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int ln = tid / kPattern, p = tid % kPattern;
-  const float s0 = scale0[pair];
   const int g = lane >> 2, t4 = lane & 3;
+  const float b_anchor = affine0[2 * anchor + 1];
   double acc[3][4];                           // n-tiles J 0..7, J 8..15, [r | 0]
 #pragma unroll
   for (int t = 0; t < 3; ++t) acc[t][0] = acc[t][1] = acc[t][2] = acc[t][3] = 0.0;
@@ -122,57 +131,53 @@ pair_kernel(const float* __restrict__ d_uv_ref, const float* __restrict__ d_uv_t
     const int lm0 = tile * kTileLm + chunk * kChunkLm;
     if (lm0 >= n) break;
     const int lm = lm0 + ln;
-    // this residual's own inputs and the chunk's FEJ rows, all loads issued
-    // before the barrier
+    // this residual's inputs, all loads issued before the first chunk's
+    // barrier; lanes past the last landmark read the last one's geometry, so
+    // that every lane takes part in the pattern's shuffle
+    const bool live = lm < n;
+    const size_t at = (size_t)anchor * n + (live ? lm : n - 1);   // the anchor's landmark
     const size_t group = (size_t)pair * n + lm;
     const size_t res = group * kPattern + p;
-    float wgt = 0.0f, g_x = 0.0f, g_y = 0.0f, corr = 0.0f, r = 0.0f;
-    float2 di = make_float2(0.0f, 0.0f);
-    if (lm < n) {
-      wgt = (ok[group] && geom_valid[group]) ? weight[group] : 0.0f;
+    float wgt = 0.0f, g_x = 0.0f, g_y = 0.0f, r = 0.0f;
+    bool ok_g = false;
+    if (live) {
+      ok_g = ok[group] != 0;
+      wgt = weight[group];
       g_x = gx[res];
       g_y = gy[res];
-      corr = corrected_ref[res];
-      di = __ldg(reinterpret_cast<const float2*>(d_uv_idepth) + res);
       r = residuals[res];
     }
-    {
-      const size_t first = ((size_t)pair * n + lm0) * kPattern * 3;     // in float4s
-      const int vecs = min(kChunkLm, n - lm0) * kPattern * 3;
-      const float4* ref4 = reinterpret_cast<const float4*>(d_uv_ref) + first;
-      const float4* tgt4 = reinterpret_cast<const float4*>(d_uv_tgt) + first;
-#pragma unroll
-      for (int q = 0; q < 3; ++q) {
-        const int e = tid + q * kThreads;
-        if (e < vecs) {
-          fej_s[e] = __ldg(ref4 + e);
-          fej_s[kThreads * 3 + e] = __ldg(tgt4 + e);
-        }
+    const float u = lm_uv[2 * at] + ba::kPatternX[p];
+    const float v = lm_uv[2 * at + 1] + ba::kPatternY[p];
+    const float d = lin_idepth[at];
+    const float patch = lm_patch[at * kPattern + p];
+    if (chunk == 0) {
+      if (tid == 0) {
+        rel_s = ba::relative_pose(t_lin_q, t_lin_t, nullptr, anchor, target);
+        const float ratio = exposure[target] / fmaxf(exposure[anchor], 1e-12f);
+        scale_s = ratio * expf(affine0[2 * target] - affine0[2 * anchor]);
       }
+      __syncthreads();
     }
-    __syncthreads();
+    const float s0 = scale_s;
+    const ba::Fej f = ba::fej_point(cam, rel_s, u, v, d, s0, patch, b_anchor);
+    const bool geom_valid = ba::all_of_pattern(f.valid ? 1 : 0) != 0;
     float row[kCols];
     float jd = 0.0f;
 #pragma unroll
     for (int c = 0; c < kCols; ++c) row[c] = 0.0f;
-    if (lm < n) {
-      float ref[12], tgt[12];
-#pragma unroll
-      for (int q = 0; q < 3; ++q) {
-        const float4 a = fej_s[tid * 3 + q], b = fej_s[kThreads * 3 + tid * 3 + q];
-        ref[4 * q] = a.x, ref[4 * q + 1] = a.y, ref[4 * q + 2] = a.z, ref[4 * q + 3] = a.w;
-        tgt[4 * q] = b.x, tgt[4 * q + 1] = b.y, tgt[4 * q + 2] = b.z, tgt[4 * q + 3] = b.w;
-      }
+    if (live) {
+      if (!(ok_g && geom_valid)) wgt = 0.0f;
 #pragma unroll
       for (int c = 0; c < 6; ++c) {
-        row[c] = g_x * ref[c] + g_y * ref[6 + c];
-        row[8 + c] = g_x * tgt[c] + g_y * tgt[6 + c];
+        row[c] = g_x * f.ref[c] + g_y * f.ref[6 + c];
+        row[8 + c] = g_x * f.tgt[c] + g_y * f.tgt[6 + c];
       }
-      row[6] = corr;
+      row[6] = f.corrected;
       row[7] = s0;
-      row[14] = -corr;
+      row[14] = -f.corrected;
       row[15] = -1.0f;
-      jd = g_x * di.x + g_y * di.y;
+      jd = g_x * f.idepth[0] + g_y * f.idepth[1];
     }
 #pragma unroll
     for (int c = 0; c < kCols; ++c) cols[c][tid] = row[c];
@@ -484,20 +489,23 @@ reduce_kernel(const double* __restrict__ pair_part, const double* __restrict__ s
 
 }  // namespace
 
-// FEJ cache and evaluation as ba_fej / ba_evaluate write them; eps [k,8],
-// affine0 [k,2]; frame_valid, frame_fixed, frame_marg [k] u8; the priors'
-// weights.  Scratch from the caller: pair_part [k*k*tiles*272] f64, lm_part
-// [k*k*n*10] f32, schur_part [k*(64k^2 + 8k)] f64, with tiles = ceil(n /
-// 128).  Outputs: h, h_schur [8k,8k]; b, b_schur [8k] (h and b with the
-// diagonal priors); hpd [k,n,k,8]; inv_hdd, b_d [k,n].  lm_state: the LM
-// loop's state or nullptr.  Returns cudaErrorInvalidValue (1) for k above
-// kMaxFrames (40) or a tile count that is not the kernels'.
+// The window at the linearization point: t_lin_q [k,4], t_lin_t [k,3],
+// affine0 [k,2], exposure [k], lm_uv [k,n,2], lin_idepth [k,n] (the
+// landmarks' idepth there), lm_patch [k,n,8]; the camera; the evaluation as
+// ba_evaluate writes it; eps [k,8]; frame_valid, frame_fixed, frame_marg [k]
+// u8; the priors' weights.  Scratch from the caller: pair_part
+// [k*k*tiles*272] f64, lm_part [k*k*n*10] f32, schur_part [k*(64k^2 + 8k)]
+// f64, with tiles = ceil(n / 128).  Outputs: h, h_schur [8k,8k]; b, b_schur
+// [8k] (h and b with the diagonal priors); hpd [k,n,k,8]; inv_hdd, b_d
+// [k,n].  lm_state: the LM loop's state or nullptr.  Returns
+// cudaErrorInvalidValue (1) for k above kMaxFrames (40) or a tile count that
+// is not the kernels'.
 extern "C" int ba_linearize_schur(
-    const float* d_uv_ref, const float* d_uv_tgt, const float* d_uv_idepth,
-    const float* corrected_ref, const float* scale0, const unsigned char* geom_valid,
-    const float* residuals, const float* weight, const float* gx, const float* gy,
-    const unsigned char* ok, const float* eps, const float* affine0,
-    const unsigned char* frame_valid, const unsigned char* frame_fixed,
+    const float* t_lin_q, const float* t_lin_t, const float* affine0, const float* exposure,
+    const float* lm_uv, const float* lin_idepth, const float* lm_patch, float fx, float fy,
+    float cx, float cy, float width, float height, const float* residuals,
+    const float* weight, const float* gx, const float* gy, const unsigned char* ok,
+    const float* eps, const unsigned char* frame_valid, const unsigned char* frame_fixed,
     const unsigned char* frame_marg, int k, int n, int marg_pass, float threshold,
     float scale_reg, float fixed_reg, float affine_reg_a, float affine_reg_b, int tiles,
     const int* lm_state, double* pair_part, float* lm_part, double* schur_part,
@@ -507,8 +515,9 @@ extern "C" int ba_linearize_schur(
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const int kb = k * 8;
+  const ba::Camera cam = {fx, fy, cx, cy, width, height};
   pair_kernel<<<dim3(tiles, k * k), kThreads, 0, s>>>(
-      d_uv_ref, d_uv_tgt, d_uv_idepth, corrected_ref, scale0, geom_valid, residuals,
+      t_lin_q, t_lin_t, affine0, exposure, lm_uv, lin_idepth, lm_patch, cam, residuals,
       weight, gx, gy, ok, k, n, tiles, lm_state, pair_part, lm_part, hpd);
   landmark_kernel<<<(k * n * kLmOut + kThreads - 1) / kThreads, kThreads, 0, s>>>(
       lm_part, frame_fixed, k, n, marg_pass, threshold, scale_reg, lm_state, hpd, inv_hdd, b_d);

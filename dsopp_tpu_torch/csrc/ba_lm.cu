@@ -10,8 +10,9 @@
 // and its evaluation, the fold of eps into the linearization point while the
 // ledger is empty, and after the loop the fold of the newest frame.
 //
-// The host launches the same sequence opts.max_iterations times: K6 (FEJ),
-// K8 (linearize), K9 (solve step), K7 (evaluate the trial), then this entry.
+// The host launches the same sequence opts.max_iterations times: K8
+// (linearize, the FEJ formed inside), K9 (solve step), K7 (evaluate the
+// trial), then this entry.
 // The loop's state is eight words in device memory (ba_lm_state.cuh); the
 // other kernels read it and return at once when the loop is done.
 //

@@ -1,8 +1,8 @@
 // The device-resident state of the windowed-BA LM loop (K10, ba_lm.cu): eight
 // 32-bit words that the loop's kernels read and only ba_lm writes.  The host
-// launches a fixed number of iterations and never reads a flag: K6, K7, K8
-// and K9 take the state's pointer and return at once when the loop is done
-// (K6 also when the last step did not relinearize).  solvers/pba.py mirrors
+// launches a fixed number of iterations and never reads a flag: K7, K8 and
+// K9 take the state's pointer and return at once when the loop is done.
+// solvers/pba.py mirrors
 // the layout (LM_ENERGY ... LM_LEDGER_EMPTY).
 
 #pragma once

@@ -1,7 +1,7 @@
 // K15 marg_fold: the marginalization fold into the float64 prior ledger.
 //
 // Replaces dsopp_tpu/solvers/pba.py::_marginalize_device after its landmark
-// system (_marg_system_kernel, which runs on K6-K8): the XLA program that
+// system (_marg_system_kernel, which runs on K7 and K8): the XLA program that
 // folds, eliminates and permutes the ledger (the port's plain version is
 // solvers/pba.py::_marginalize_plain).  With s = eps, K frame slots, the 8K
 // state rows and the m flagged frames' 8m rows:

@@ -16,7 +16,7 @@
 // and the 1x1 normal equation.  A candidate is kept when the refined idepth is
 // positive and has enough inliers.
 // The kernels take the window's raw tensors and derive the poses target <-
-// host (ba_body.cuh's relative_pose, as K6-K8), the affine (affine0 +
+// host (ba_body.cuh's relative_pose, as K7 and K8), the affine (affine0 +
 // eps[:, 6:]) and the brightness scale in solvers/pba.py::_brightness_scale's
 // order of operations.
 // Bound: operations (cap x targets x 8 x 4 evaluations of about 150

@@ -152,13 +152,13 @@ ALIGN_LEVEL = Kernel("align_level", "align_level",
                       _P, _P, _P, _P, _P, _P, _P, _P])
 FLOW = Kernel("flow_statistic", "flow_statistic",
               [_P, _P, _P, _I, _P, _P] + [_F] * 7 + [_P])
-# K6-K9 take the LM loop's state (or None) before their outputs
-BA_FEJ = Kernel("ba_fej", "ba_fej",
-                [_P] * 7 + [_I, _I] + [_F] * 6 + [_P] * 7)
+# K7-K9 take the LM loop's state (or None) before their outputs; K8 forms the
+# first-estimate Jacobians itself (once kernel K6's cache)
 BA_EVALUATE = Kernel("ba_evaluate", "ba_evaluate",
                      [_P] * 12 + [_I] * 5 + [_F] * 7 + [_P] * 8)
 BA_LINEARIZE = Kernel("ba_linearize_schur", "ba_linearize_schur",
-                      [_P] * 16 + [_I, _I, _I] + [_F] * 5 + [_I] + [_P] * 11)
+                      [_P] * 7 + [_F] * 6 + [_P] * 9 + [_I, _I, _I] + [_F] * 5 + [_I]
+                      + [_P] * 11)
 BA_SOLVE = Kernel("ba_solve_step", "ba_solve_step",
                   [_P] * 12 + [_I, _I, _F, _I] + [_P] * 7)
 BA_LM = Kernel("ba_lm", "ba_lm", [_I] * 6 + [_F] * 7 + [_P] * 30)
@@ -178,14 +178,14 @@ DEPTH_MAPS = Kernel("depth_maps", "depth_maps",
                     [_P] * 5 + [_I, _I] + [_F] * 6 + [_I] * 5 + [_P] * 19)
 # K15: the marginalization policy and the ledger fold, once per keyframe each
 MARG_POLICY = Kernel("marg_policy", "marg_policy",
-                     [_P] * 9 + [_I] * 4 + [_F] + [_P] * 4)
+                     [_P] * 11 + [_I] * 5 + [_F] + [_P] * 4)
 MARG_FOLD = Kernel("marg_fold", "marg_fold",
                    [_P] * 12 + [_I, _D, _F, _F, _F] + [_P] * 5)
 # the row gather of the Pallas design probe (off the tracker's paths)
 ROW_GATHER = Kernel("row_gather", "row_gather", [_P, _P, _I, _I, _I, _P])
 # K18: the camera's photometric correction, once per frame the camera reads
 PHOTOMETRIC = Kernel("photometric_correct", "photometric_correct", [_P, _I, _P, _P, _I, _P])
-ALL = (PYRAMID, ALIGN, ALIGN_LEVEL, EPIPOLAR, FLOW, BA_FEJ, BA_EVALUATE, BA_LINEARIZE,
+ALL = (PYRAMID, ALIGN, ALIGN_LEVEL, EPIPOLAR, FLOW, BA_EVALUATE, BA_LINEARIZE,
        BA_SOLVE, BA_LM, BA_STATUS, SELECT_CANDIDATES, ACTIVATION, REFINE, ACTIVATION_SCATTER,
        DEPTH_MAPS, MARG_POLICY, MARG_FOLD, ROW_GATHER, PHOTOMETRIC)
 

@@ -14,20 +14,22 @@ Target values and gradients are read from the frames' intensity images with
 the 10×10-window semantics of :func:`sample_window` (one window per
 (anchor, target, landmark) group, based at the reprojected pattern center).
 
-Seven functions have a hand-written CUDA kernel beside their plain PyTorch
-version and dispatch on ``window.maps.is_cuda``: :func:`_fej_cache` (K6,
-``csrc/ba_fej.cu``), :func:`_evaluate` (K7, ``csrc/ba_evaluate.cu``),
-:func:`_linearize_from_ev` (K8, ``csrc/ba_linearize.cu``),
-:func:`_solve_step` (K9, ``csrc/ba_solve.cu``), :func:`_solve_loop_device`
-(K10, ``csrc/ba_lm.cu``), :func:`_point_status_kernel` (K11,
-``csrc/ba_status.cu``) and the ledger fold of :func:`_marginalize_device`
-(K15, ``csrc/marg_fold.cu``).  CUDA tensors go to the kernel or raise; the
-plain versions run on CPU tensors only.
+Six functions have a hand-written CUDA kernel beside their plain PyTorch
+version and dispatch on ``window.maps.is_cuda``: :func:`_evaluate` (K7,
+``csrc/ba_evaluate.cu``), :func:`_linearize_from_ev` (K8,
+``csrc/ba_linearize.cu``), :func:`_solve_step` (K9, ``csrc/ba_solve.cu``),
+:func:`_solve_loop_device` (K10, ``csrc/ba_lm.cu``),
+:func:`_point_status_kernel` (K11, ``csrc/ba_status.cu``) and the ledger fold
+of :func:`_marginalize_device` (K15, ``csrc/marg_fold.cu``).  CUDA tensors go
+to the kernel or raise; the plain versions run on CPU tensors only.  The FEJ
+Jacobians (:func:`_fej_cache`, once kernel K6's cache) have no kernel of their
+own: K8 forms them from the window where it reads them, and the plain
+linearization takes them from :func:`_fej_cache_plain`.
 
 On the card the LM loop keeps its state — energy, count, regularizer,
 iteration, accept / done / relinearize flags — in eight words of device
 memory (``LM_*`` below, ``csrc/ba_lm_state.cuh``).  The host launches
-``opts.max_iterations`` iterations unconditionally and reads nothing; K6–K9
+``opts.max_iterations`` iterations unconditionally and reads nothing; K7–K9
 take the state and return at once when the loop is done.
 """
 
@@ -234,30 +236,14 @@ def _check_window(window: Window):
     return k, n, h, w
 
 
-def _fej_cache_cuda(window: Window, model, lm_state=None, out: FEJCache = None) -> FEJCache:
-    """Kernel K6: same outputs as :func:`_fej_cache_plain`.  Inside the LM
-    loop ``lm_state`` is the loop's state and ``out`` the carried cache,
-    rewritten only when the last step relinearized."""
-    k, n, _, _ = _check_window(window)
-    if out is None:
-        kw = dict(dtype=window.eps.dtype, device=window.eps.device)
-        out = FEJCache(torch.empty((k, k, n, 8, 2, 6), **kw),
-                       torch.empty((k, k, n, 8, 2, 6), **kw),
-                       torch.empty((k, k, n, 8, 2), **kw), torch.empty((k, k, n, 8), **kw),
-                       torch.empty((k, k), **kw),
-                       torch.empty((k, k, n), dtype=torch.bool, device=window.eps.device))
-    kernels.BA_FEJ(window.t_lin_q, window.t_lin_t, window.affine0, window.exposure,
-                   window.lm_uv, window.lm_idepth, window.lm_patch, k, n,
-                   model.fx, model.fy, model.cx, model.cy, model.width, model.height,
-                   lm_state, *out)
-    return out
-
-
 def _fej_cache(window: Window, model) -> FEJCache:
-    """FEJ Jacobians at the linearization point: the kernel K6 on CUDA
-    tensors, the plain version on CPU ones."""
-    fn = _fej_cache_cuda if window.maps.is_cuda else _fej_cache_plain
-    return fn(window, model)
+    """FEJ Jacobians at the linearization point, on CPU tensors.  On the card
+    no cache exists: kernel K8 forms them where it reads them, so a CUDA
+    window raises."""
+    if window.maps.is_cuda:
+        raise ValueError("_fej_cache: the card keeps no FEJ cache; kernel K8 "
+                         "(_linearize_from_ev_cuda) forms the Jacobians itself")
+    return _fej_cache_plain(window, model)
 
 
 class Evaluation(NamedTuple):
@@ -455,39 +441,36 @@ def _linearize_buffers(k: int, n: int, dtype, device):
     return scratch, out
 
 
-def _linearize_from_ev_cuda(window: Window, fej: FEJCache, ev: Evaluation, eps,
+def _linearize_from_ev_cuda(window: Window, model, ev: Evaluation, eps,
                             opts: PBAOptions, marg_pass: bool = False,
                             lm_state=None, buffers=None) -> LinearSystem:
-    """Kernel K8: same outputs as :func:`_linearize_from_ev_plain`, the
-    diagonal priors included, into ``buffers`` (of :func:`_linearize_buffers`)
-    where given.  With the LM loop's state the kernels leave the outputs
-    unwritten once the loop is done."""
-    k, n = window.num_slots, window.num_landmark_slots
+    """Kernel K8: the outputs of :func:`_linearize_from_ev_plain` with the FEJ
+    of :func:`_fej_cache_plain`, formed in the kernel from the window at its
+    linearization point (``t_lin``, ``affine0``, ``exposure``, ``lm_uv``,
+    ``lm_idepth``, ``lm_patch``) and the camera ``model``; the diagonal
+    priors included, into ``buffers`` (of :func:`_linearize_buffers`) where
+    given.  With the LM loop's state the kernels leave the outputs unwritten
+    once the loop is done."""
+    k, n, _, _ = _check_window(window)
     if k > _LINEARIZE_MAX_FRAMES:
         raise ValueError(f"ba_linearize_schur: {k} frame slots exceed the kernel's limit of "
                          f"{_LINEARIZE_MAX_FRAMES} (its Schur kernel's warps)")
     check = kernels.check
-    check(fej.d_uv_ref, "d_uv_ref", (k, k, n, 8, 2, 6))
-    check(fej.d_uv_tgt, "d_uv_tgt", (k, k, n, 8, 2, 6))
-    check(fej.d_uv_idepth, "d_uv_idepth", (k, k, n, 8, 2))
-    check(fej.corrected_ref, "corrected_ref", (k, k, n, 8))
-    check(fej.scale0, "scale0", (k, k))
-    check(fej.geom_valid, "geom_valid", (k, k, n), torch.bool)
     check(ev.residuals, "residuals", (k, k, n, 8))
     check(ev.weight, "weight", (k, k, n))
     check(ev.gx, "gx", (k, k, n, 8))
     check(ev.gy, "gy", (k, k, n, 8))
     check(ev.ok, "ok", (k, k, n), torch.bool)
     check(eps, "eps", (k, BLOCK))
-    check(window.affine0, "affine0", (k, 2))
     check(window.frame_valid, "frame_valid", (k,), torch.bool)
     check(window.frame_fixed, "frame_fixed", (k,), torch.bool)
     check(window.frame_marg, "frame_marg", (k,), torch.bool)
     scratch, out = buffers or _linearize_buffers(k, n, eps.dtype, eps.device)
-    kernels.BA_LINEARIZE(fej.d_uv_ref, fej.d_uv_tgt, fej.d_uv_idepth, fej.corrected_ref,
-                         fej.scale0, fej.geom_valid, ev.residuals, ev.weight, ev.gx, ev.gy,
-                         ev.ok, eps, window.affine0, window.frame_valid, window.frame_fixed,
-                         window.frame_marg, k, n, int(bool(marg_pass)),
+    kernels.BA_LINEARIZE(window.t_lin_q, window.t_lin_t, window.affine0, window.exposure,
+                         window.lm_uv, window.lm_idepth, window.lm_patch,
+                         model.fx, model.fy, model.cx, model.cy, model.width, model.height,
+                         ev.residuals, ev.weight, ev.gx, ev.gy, ev.ok, eps, window.frame_valid,
+                         window.frame_fixed, window.frame_marg, k, n, int(bool(marg_pass)),
                          float(opts.idepth_nullspace_threshold),
                          float(opts.scale_nullspace_reg), float(opts.fixed_reg),
                          float(opts.affine_reg_a), float(opts.affine_reg_b),
@@ -496,12 +479,15 @@ def _linearize_from_ev_cuda(window: Window, fej: FEJCache, ev: Evaluation, eps,
     return out
 
 
-def _linearize_from_ev(window: Window, fej: FEJCache, ev: Evaluation, eps,
+def _linearize_from_ev(window: Window, model, ev: Evaluation, eps,
                        opts: PBAOptions, marg_pass: bool = False) -> LinearSystem:
-    """GN system and landmark Schur complement: the kernel K8 on CUDA
-    tensors, the plain version on CPU ones."""
-    fn = _linearize_from_ev_cuda if window.maps.is_cuda else _linearize_from_ev_plain
-    return fn(window, fej, ev, eps, opts, marg_pass)
+    """GN system and landmark Schur complement with the FEJ of the window's
+    linearization point: the kernel K8 on CUDA tensors, the plain version on
+    the plain FEJ on CPU ones."""
+    if window.maps.is_cuda:
+        return _linearize_from_ev_cuda(window, model, ev, eps, opts, marg_pass)
+    return _linearize_from_ev_plain(window, _fej_cache_plain(window, model), ev, eps, opts,
+                                    marg_pass)
 
 
 def _energy_from_ev(window: Window, ev: Evaluation, eps, opts: PBAOptions):
@@ -655,27 +641,24 @@ def _solve_loop_plain(window: Window, model, opts: PBAOptions, log: list = None)
     ledger_empty = bool(torch.max(torch.abs(window.h_marg)) == 0.0)
     ev = _evaluate(window, model, window.eps, window.lm_idepth, lm_mask, opts)
     e, n = _energy_from_ev(window, ev, window.eps, opts)
-    fej = _fej_cache(window, model)
     tq, tt, ab0 = window.t_lin_q, window.t_lin_t, window.affine0
     eps, idepth, lin_idepth = window.eps, window.lm_idepth, window.lm_idepth
     status = window.res_status
     lam = opts.initial_regularizer
     done = bool(n == 0)
-    fej_stale = False
+    relin = False
     it = 0
 
     def record(accept):
         if log is not None:
             log.append(dict(energy=float(e), lam=float(lam), count=int(n), it=it,
-                            accept=accept, done=done, relin=fej_stale))
+                            accept=accept, done=done, relin=relin))
 
     record(False)
     while it < opts.max_iterations and not done:
         win = window.replace(t_lin_q=tq, t_lin_t=tt, affine0=ab0,
                              lm_idepth=lin_idepth, res_status=status)
-        if fej_stale:
-            fej = _fej_cache(win, model)
-        sys = _linearize_from_ev(win, fej, ev, eps, opts)
+        sys = _linearize_from_ev(win, model, ev, eps, opts)
         eps_new, idepth_new, pose_sq, d_sq = _solve_step(win, sys, eps, idepth, lam, opts)
         ev_new = _evaluate(win, model, eps_new, idepth_new, lm_mask, opts)
         accept, done, e_new, n_new = _lm_decide_plain(win, ev_new, eps_new, pose_sq, d_sq, e,
@@ -686,8 +669,8 @@ def _solve_loop_plain(window: Window, model, opts: PBAOptions, log: list = None)
             lam = lam / opts.reg_decrease
         else:
             lam = lam * opts.reg_increase
-        fej_stale = accept and ledger_empty and not done
-        if fej_stale:
+        relin = accept and ledger_empty and not done
+        if relin:
             t_new = SE3(tq, tt) @ SE3.exp(eps[:, :6])
             tq, tt, ab0 = t_new.q, t_new.t, ab0 + eps[:, 6:]
             lin_idepth = idepth
@@ -731,7 +714,7 @@ def _carried_state(window: Window):
 
 
 def _solve_loop_cuda(window: Window, model, opts: PBAOptions, log: list = None):
-    """Kernels K6–K11 under K10's control: the same solve as
+    """Kernels K7–K11 under K10's control: the same solve as
     :func:`_solve_loop_plain` without a host read.  ``opts.max_iterations``
     iterations are launched whatever happens; the loop's state lives on the
     device and the kernels return at once when it says done.  ``log``
@@ -751,15 +734,13 @@ def _solve_loop_cuda(window: Window, model, opts: PBAOptions, log: list = None):
     carried, win = _carried_state(window)
     tq, tt, ab0, eps, idepth, lin_idepth, status = carried
     ev = _evaluate_cuda(win, model, eps, idepth, lm_mask, opts)
-    fej = _fej_cache_cuda(win, model)
     _lm_phase(0, 0, win, opts, eps, idepth, None, ev, carried, ev, state, lm_log)
     # every iteration writes the same system, step and trial evaluation
     sys_buffers = _linearize_buffers(k, n, eps.dtype, dev)
     step_buffers = _solve_step_buffers(k, n, eps.dtype, dev)
     ev_new = _evaluation_buffers(k, n, eps.dtype, dev)
     for it in range(1, opts.max_iterations + 1):
-        _fej_cache_cuda(win, model, lm_state=state, out=fej)
-        sys = _linearize_from_ev_cuda(win, fej, ev, eps, opts, lm_state=state,
+        sys = _linearize_from_ev_cuda(win, model, ev, eps, opts, lm_state=state,
                                       buffers=sys_buffers)
         eps_new, idepth_new, step_sq = _solve_step_launch(win, sys, eps, idepth, None, state,
                                                           buffers=step_buffers)
@@ -795,7 +776,7 @@ def lm_log_rows(lm_log) -> list:
 
 
 def _solve_loop_device(window: Window, model, opts: PBAOptions):
-    """The windowed LM solve → (window', energy, num_valid): kernels K6–K11
+    """The windowed LM solve → (window', energy, num_valid): kernels K7–K11
     without a host read on CUDA tensors, the host-driven plain loop on CPU
     ones."""
     fn = _solve_loop_cuda if window.maps.is_cuda else _solve_loop_plain
@@ -907,10 +888,9 @@ def _point_status_kernel(window: Window, model, opts: PBAOptions) -> PointStatus
 def _marg_system_kernel(window: Window, model, opts: PBAOptions):
     """H/b/E of the flagged landmarks at the current state (FEJ Jacobians),
     minus their Schur complement and without the priors."""
-    fej = _fej_cache(window, model)
     lm_mask = window.lm_marg_flag & window.lm_valid & window.frame_valid[:, None]
     ev = _evaluate(window, model, window.eps, window.lm_idepth, lm_mask, opts)
-    sys = _linearize_from_ev(window, fej, ev, window.eps, opts, marg_pass=True)
+    sys = _linearize_from_ev(window, model, ev, window.eps, opts, marg_pass=True)
     h_pr, b_pr = _prior_system(window, window.eps, opts, marg_pass=True)
     return (sys.h_pose - h_pr - sys.h_schur, sys.b_pose - b_pr - sys.b_schur,
             torch.sum(ev.energy_patch))

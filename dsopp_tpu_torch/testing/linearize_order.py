@@ -1,11 +1,16 @@
-"""A plain PyTorch mirror of the order of summation of kernel K8
-(``csrc/ba_linearize.cu``), for tests only: no path of the port calls it.
+"""A plain PyTorch mirror of kernel K8 (``csrc/ba_linearize.cu``): its FEJ
+arithmetic and its order of summation, for tests only: no path of the port
+calls it.
 
-K8 forms each residual's Jacobian row, ``r`` and ``w J`` in the operands'
-type (f32 on the card, ``w J`` rounded there as the plain version rounds it)
-and takes every long sum in float64 on the tensor cores.  The mirror takes
-the same operands, widens them to float64 where the kernel converts them,
-and adds the exact products in the kernel's order:
+K8 forms each residual's first-estimate Jacobians from the window at its
+linearization point (``ba_body.cuh::fej_point``, once kernel K6's cache:
+:func:`fej_cache` repeats it operation by operation, with the pair's pose from
+``testing/activation_models.py``'s mirror of ``relative_pose``), then its
+Jacobian row, ``r`` and ``w J`` in the operands' type (f32 on the card, ``w
+J`` rounded there as the plain version rounds it) and takes every long sum in
+float64 on the tensor cores.  The mirror takes the same operands, widens them
+to float64 where the kernel converts them, and adds the exact products in the
+kernel's order:
 
 1. the pair blocks ``w J^T [J | r]``: per (pair, tile of ``TILE_LM``
    landmarks), warp ``w`` of ``WARPS`` sums residuals ``32 w .. 32 w + 31`` of
@@ -27,23 +32,82 @@ and adds the exact products in the kernel's order:
    operands' type, the diagonal priors added.
 
 With float64 operands the mirror differs from ``_linearize_from_ev_plain``
-only in the order of its float64 sums.  The mirrors work on dense tensors
-with vectorised entries: no ``matmul`` or ``einsum``, whose summation order
-is the library's.
+only in the order of its float64 sums and of the FEJ's products.  The mirrors
+work on dense tensors with vectorised entries: no ``matmul`` or ``einsum``,
+whose summation order is the library's.
 """
 
 from __future__ import annotations
 
 import torch
 
+from dsopp_tpu_torch.core.pattern import shift_pattern
 from dsopp_tpu_torch.solvers.pba import (BLOCK, Evaluation, FEJCache, LinearSystem, PBAOptions,
                                          Window, _prior_system)
+from dsopp_tpu_torch.testing.activation_models import _cross, _rotate, relative_poses
 
 TILE_LM = 128     # landmarks per pair block (kTileLm)
 CHUNK_LM = 32     # landmarks per stage (kChunkLm): 256 residuals, a thread each
 WARPS = 8         # warps per pair block; warp w takes 32 residuals of a stage
 LANES = 8         # slices per output entry in the reduction (kReduceLanes)
 PATTERN = 8
+
+
+def fej_cache(window: Window, model) -> FEJCache:
+    """``ba_body.cuh::fej_point`` for every (anchor i, target j, landmark,
+    pattern point), operation by operation in the kernel's order, in the
+    window's type; the pair's pose ``relative_pose(i, j)`` at the
+    linearization point and its brightness scale as the pair kernel's thread
+    0 forms them."""
+    k, n = window.num_slots, window.num_landmark_slots
+    zero = torch.zeros((k, 8), dtype=window.t_lin_q.dtype, device=window.t_lin_q.device)
+    rel = [relative_poses(window.t_lin_q, window.t_lin_t, zero, j) for j in range(k)]
+    rq = torch.stack([q for q, _ in rel], dim=1)               # [i, j, 4]: T_j^-1 T_i
+    rt = torch.stack([t for _, t in rel], dim=1)               # [i, j, 3]
+    bc = (slice(None), slice(None), None, None)                # [i, j] -> [i, j, n, p]
+    q_rel = tuple(rq[..., c][bc] for c in range(4))
+    t_rel = tuple(rt[..., c][bc] for c in range(3))
+    uv = shift_pattern(window.lm_uv)[:, None]                  # [i, 1, n, p, 2]
+    d = window.lm_idepth[:, None, :, None]
+    ray = ((uv[..., 0] - model.cx) / model.fx, (uv[..., 1] - model.cy) / model.fy,
+           torch.ones_like(uv[..., 0]))
+    rot = _rotate(q_rel, ray)
+    q = tuple(rot[c] + d * t_rel[c] for c in range(3))
+    z_safe = torch.where(q[2].abs() < 1e-12, torch.full_like(q[2], 1e-12), q[2])
+    iz = 1.0 / z_safe
+    iz2 = iz * iz
+    u_t = model.fx * q[0] * iz + model.cx
+    v_t = model.fy * q[1] * iz + model.cy
+    z = q[2]
+    proj = ((z >= 1e-3) & (u_t >= 4.0) & (v_t >= 4.0) & (u_t <= model.width - 4.0 - 1.0)
+            & (v_t <= model.height - 4.0 - 1.0))
+    valid = (proj & (z >= 1e-3 * torch.clamp(d, min=0.0) + 1e-12) & (d > -1e-4) & (d < 1010.0))
+
+    zeros = torch.zeros_like(iz)
+    j0 = (model.fx * iz, zeros, -model.fx * q[0] * iz2)
+    j1 = (zeros, model.fy * iz, -model.fy * q[1] * iz2)
+    qw, qx, qy, qz = q_rel
+    xx, yy, zz = qx * qx, qy * qy, qz * qz
+    wx, wy, wz = qw * qx, qw * qy, qw * qz
+    xy, xz, yz = qx * qy, qx * qz, qy * qz
+    r0 = (1 - 2 * (yy + zz), 2 * (xy - wz), 2 * (xz + wy))
+    r1 = (2 * (xy + wz), 1 - 2 * (xx + zz), 2 * (yz - wx))
+    r2 = (2 * (xz - wy), 2 * (yz + wx), 1 - 2 * (xx + yy))
+    a0 = tuple(j0[0] * r0[c] + j0[2] * r2[c] for c in range(3))
+    a1 = tuple(j1[1] * r1[c] + j1[2] * r2[c] for c in range(3))
+    ar0, ar1 = _cross(a0, ray), _cross(a1, ray)
+    jq0, jq1 = _cross(j0, q), _cross(j1, q)
+    ref = torch.stack([torch.stack([d * a[0], d * a[1], d * a[2], -ar[0], -ar[1], -ar[2]], -1)
+                       for a, ar in ((a0, ar0), (a1, ar1))], dim=-2)
+    tgt = torch.stack([torch.stack([-d * jr[0], -d * jr[1], -d * jr[2], jq[0], jq[1], jq[2]], -1)
+                       for jr, jq in ((j0, jq0), (j1, jq1))], dim=-2)
+    d_idepth = torch.stack([(jr[0] * t_rel[0] + jr[1] * t_rel[1]) + jr[2] * t_rel[2]
+                            for jr in (j0, j1)], dim=-1)
+    e, a = window.exposure, window.affine0
+    ratio = e[None, :] / torch.clamp(e[:, None], min=1e-12)
+    scale0 = ratio * torch.exp(a[None, :, 0] - a[:, None, 0])
+    corrected = scale0[bc] * (window.lm_patch[:, None] - a[:, 1][:, None, None, None])
+    return FEJCache(ref, tgt, d_idepth, corrected, scale0, torch.all(valid, dim=-1))
 
 
 def _rows(fej: FEJCache, ev: Evaluation):
@@ -98,9 +162,17 @@ def pair_sums(w, j, r):
     return _in_order(acc[:, :, w_] for w_ in range(WARPS))
 
 
-def linearize(window: Window, fej: FEJCache, ev: Evaluation, eps, opts: PBAOptions,
+def linearize(window: Window, model, ev: Evaluation, eps, opts: PBAOptions,
               marg_pass: bool = False) -> LinearSystem:
-    """K8's outputs in its order of summation, in the operands' type."""
+    """K8's outputs, its FEJ formed from the window (:func:`fej_cache`), in
+    its order of summation, in the operands' type."""
+    return linearize_from_fej(window, fej_cache(window, model), ev, eps, opts, marg_pass)
+
+
+def linearize_from_fej(window: Window, fej: FEJCache, ev: Evaluation, eps, opts: PBAOptions,
+                       marg_pass: bool = False) -> LinearSystem:
+    """K8's outputs in its order of summation on the FEJ ``fej``, in the
+    operands' type."""
     k, n = window.num_slots, window.num_landmark_slots
     kb = k * BLOCK
     op = ev.residuals.dtype

@@ -17,12 +17,15 @@ from dsopp_tpu_torch.features.pyramid import build_pyramid_maps
 from dsopp_tpu_torch.solvers.linear import pinv_rtol
 from dsopp_tpu_torch.solvers.pba import (BLOCK, LEDGER_DTYPE, RES_OOB, LinearSystem,
                                          _assemble_step_system, _marginalize_plain,
-                                         _prior_system, frame_count, push_frame_slot)
+                                         _prior_system, frame_count, newest_slot,
+                                         push_frame_slot)
 from dsopp_tpu_torch.testing.blocked_lu import unblocked_solve
 from dsopp_tpu_torch.tracker.depth_estimation import estimate_depths
 from dsopp_tpu_torch.tracker.depth_map import _older_landmarks
 from dsopp_tpu_torch.tracker.fused_keyframe import immature_bank, set_bank
-from dsopp_tpu_torch.tracker.marginalization import eq20_scores, kept_first_perm, landmark_triage
+from dsopp_tpu_torch.tracker.marginalization import (EPS_DIST, KEEP_FRAMES_FROM_END,
+                                                     MIN_FRAME_AGE, eq20_scores,
+                                                     kept_first_perm, landmark_triage)
 
 
 def to_f64(obj):
@@ -142,15 +145,6 @@ def align_level_partings(trace_k, trace_p, function_tolerance: float) -> list:
                 and abs(float(rk[2] - rp[2])) <= 1e-6 * abs(float(rp[2]))
         out.append({"hypothesis": hyp, "pass": at, "kernel": rk.tolist(),
                     "plain": rp.tolist(), "tie": tie})
-    return out
-
-
-def fej_errors(fej_k, fej_p) -> dict:
-    """K6: relative Frobenius error of every float output; ``geom_valid``
-    as the count of differing entries."""
-    out = {name: rel_frobenius(getattr(fej_k, name), getattr(fej_p, name))
-           for name in ("d_uv_ref", "d_uv_tgt", "d_uv_idepth", "corrected_ref", "scale0")}
-    out["geom_valid_differ"] = int((fej_k.geom_valid != fej_p.geom_valid).sum())
     return out
 
 
@@ -510,7 +504,50 @@ def frontend_errors(out_k, out_p) -> dict:
 
 LEDGER_TOL = 1e-9   # K15: ledger entries relative to the largest one
 CUTOFF_TIE = 1e-6   # K15: an eigenvalue this close (relative) to the cutoff may fall either side
-POLICY_TIE = 1e-6   # K15p: top two eq (20) scores this close (relative) may pick either frame
+# K15p: top two eq (20) scores this close (relative) may pick either frame, on
+# top of the scores' bounds of eq20_score_bounds
+POLICY_TIE = 1e-6
+
+
+def eq20_score_bounds(window) -> torch.Tensor:
+    """[K] float64: how far K15p's eq (20) score of each slot may lie from the
+    plain version's (``eq20_scores``).
+
+    The kernel composes the frames' positions itself, each component within
+    ``KERNEL_POSE_ULPS`` f32 ulps of the pose's largest translation component
+    of ``window.poses()`` (e_f of frame f, per component), so a distance
+    D_ij = |t_i - t_j| moves by at most √3 (e_i + e_j).  To first order the
+    score s_i = √D_in · S_i, S_i = Σ_j 1 / (ε + D_ij) over the eligible j,
+    then moves by at most
+        s_i (√3 (e_i + e_n) / (2 D_in) + Σ_j √3 (e_i + e_j) / (ε + D_ij)² / S_i),
+    and the two versions round their f32 sums of k terms, the norms, the
+    square roots and the product in other orders: (k + 8) ulps relative more.
+    At the corridor's scale (positions up to ~10 m, keyframes ~0.5 m apart)
+    the first term alone is ~1e-5 to 1e-4 of the score, so ``POLICY_TIE`` by
+    itself does not cover the spread."""
+    k = window.num_slots
+    dev = window.frame_valid.device
+    t = window.poses().t.double()
+    largest = t.abs().amax(dim=-1).cpu().numpy().astype(np.float32)
+    e = torch.as_tensor(KERNEL_POSE_ULPS * np.spacing(largest), dtype=torch.float64, device=dev)
+    idx = torch.arange(k, device=dev)
+    f = window.frame_valid.sum()
+    ids = window.frame_id
+    newest = newest_slot(window)
+    newest_id = ids.index_select(0, newest)[0]
+    elig_j = (idx < f - KEEP_FRAMES_FROM_END) & (ids + MIN_FRAME_AGE <= newest_id + 1)
+    dist = torch.linalg.vector_norm(t[:, None, :] - t[None, :, :], dim=-1)
+    live = elig_j[None, :] & ~torch.eye(k, dtype=torch.bool, device=dev)
+    inv = torch.where(live, 1.0 / (EPS_DIST + dist), torch.zeros_like(dist))
+    s_sum = inv.sum(dim=1)
+    moved = torch.where(live, 3 ** 0.5 * (e[:, None] + e[None, :]) * inv * inv,
+                        torch.zeros_like(dist)).sum(dim=1)
+    d_new = dist.index_select(1, newest)[:, 0]
+    e_new = e.index_select(0, newest)
+    rel = (3 ** 0.5 * (e + e_new) / (2 * d_new.clamp(min=1e-300))
+           + moved / s_sum.clamp(min=1e-300) + (k + 8) * 2.0 ** -24)
+    score = eq20_scores(window).double()
+    return torch.where(score > 0, score * rel, torch.zeros_like(score))
 
 
 def ledger_errors(out_k, out_p) -> dict:
@@ -580,7 +617,8 @@ def policy_errors(out_k, out_p, window, minimum_size: int, maximum_size: int,
                   band: float = POLICY_TIE) -> dict:
     """K15p ``(frame_flags, lm_flags, new_outliers, perm)`` against the plain
     version's → entries that differ; ``score_tie``: the two largest eq (20)
-    scores (the plain version's arithmetic) within ``band`` (relative); and
+    scores (the plain version's arithmetic) closer than the sum of their
+    bounds (``eq20_score_bounds``) and ``band`` of the larger; and
     ``explained``: nothing differs, or the scores tie, the frame flags differ
     only on those two slots (as many flagged), and the landmark triage and
     the permutation are the plain version's for the kernel's frame flags."""
@@ -590,7 +628,10 @@ def policy_errors(out_k, out_p, window, minimum_size: int, maximum_size: int,
     out["frames_flagged"] = int(out_p[0].sum())
     out["lm_flagged"] = int(out_p[1].sum())
     hi, lo = (float(v) for v in top.values)
-    out["score_tie"] = bool(hi - lo <= band * abs(hi) and hi > 0)
+    reach = float(eq20_score_bounds(window)[top.indices].sum())
+    out["score_gap"] = (hi - lo) / hi if hi > 0 else 0.0
+    out["tie_band"] = (reach + band * abs(hi)) / hi if hi > 0 else 0.0
+    out["score_tie"] = bool(hi - lo <= band * abs(hi) + reach and hi > 0)
     explained = not any(out[name] for name in names)
     if not explained and out["score_tie"]:
         moved = out_k[0] != out_p[0]

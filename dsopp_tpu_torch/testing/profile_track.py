@@ -13,7 +13,7 @@ path, after the 6-frame known-pose bootstrap:
 2. one run with synchronised stage timers around the align chain, the
    epipolar update, the flow statistic, the pyramid, the whole frontend and
    the keyframe backend with its parts (push, the new bank with its candidate
-   selection, activation, refinement, pairing, BA solve down to its six
+   selection, activation, refinement, pairing, BA solve down to its five
    kernels' calls, the marginalization policy and the ledger fold each with
    its kernel's call, depth maps; each timer synchronises the device
    before and after, so the stages do not overlap and their sum exceeds an
@@ -29,7 +29,11 @@ path, after the 6-frame known-pose bootstrap:
 4. the last frame once more from the state before it, ``REPEATS`` times as
    it is and ``REPEATS`` times with the re-track gate closed
    (``rmse_last0`` tiny, so the 105 further hypotheses run): the cost of an
-   escalated frame.
+   escalated frame;
+5. one more run over all frames, untimed, with the stages of 2 reading the
+   device memory's peak after each call (each read builds the allocator's
+   whole statistics on the host, which is why the timed run makes none): the
+   innermost stage in which the run's peak was reached.
 
 Prints one JSON object per path, with the card's name and power limit, and
 writes them to ``out.json`` when given.  Needs a CUDA card.
@@ -58,7 +62,7 @@ REPEATS, WINDOW = 3, 10
 # design's names stay, so that a parent tree profiled with this file reads
 # them too)
 KERNEL_NAMES = ("pyramid_level_kernel", "align_level_kernel", "epipolar_kernel",
-                "flow_kernel", "ba_fej_kernel", "ba_evaluate_kernel", "pair_kernel",
+                "flow_kernel", "ba_evaluate_kernel", "pair_kernel",
                 "landmark_kernel", "schur_kernel", "reduce_kernel", "assemble_kernel",
                 "solve_kernel", "backsub_kernel", "norm_kernel", "decide_kernel", "commit_kernel",
                 "finish_kernel", "quantile_kernel", "status_kernel", "region_threshold_kernel",
@@ -106,7 +110,6 @@ STAGES = {
     (pba, "_marginalize_cuda"): "kf_fold_kernel",                 # K15's call
     (device_loop, "build_frontend_state"): "kf_depth_maps",
     # the wrappers the device-resident loop and the dispatchers both end in
-    (pba, "_fej_cache_cuda"): "ba_fej",
     (pba, "_evaluate_cuda"): "ba_evaluate",
     (pba, "_linearize_from_ev_cuda"): "ba_linearize",
     (pba, "_solve_step_launch"): "ba_solve_step",
@@ -134,12 +137,15 @@ def run_frames(pipe, seq, first, last):
 
 
 class StageTimers:
-    """Wraps the functions of ``STAGES`` with synchronised timers."""
+    """Wraps the functions of ``STAGES`` with synchronised timers; with
+    ``peak``, each call also reads the device memory's peak so far."""
 
-    def __init__(self):
+    def __init__(self, peak=False):
         self.ms = defaultdict(float)
         self.calls = defaultdict(int)
         self.saved = []
+        self.track_peak = peak
+        self.peak = (None, 0)     # (the innermost stage that reached the run's peak, bytes)
 
     def __enter__(self):
         for (module, name), stage in STAGES.items():
@@ -160,6 +166,10 @@ class StageTimers:
             torch.cuda.synchronize()
             self.ms[stage] += 1e3 * (time.perf_counter() - t0)
             self.calls[stage] += 1
+            if self.track_peak:
+                peak = torch.cuda.max_memory_allocated()
+                if peak > self.peak[1]:
+                    self.peak = (stage, peak)
             return out
         return timed
 
@@ -337,6 +347,12 @@ def profile_path(name):
         regular_is_keyframe=bool(regular[0][1].is_keyframe),
         escalated=[bool(d.escalated) for _, d in escalated],
         pose_distance_m=float((escalated[0][1].pose_t - regular[0][1].pose_t).norm()))
+
+    del pipe, regular, escalated
+    torch.cuda.reset_peak_memory_stats()
+    with StageTimers(peak=True) as peaks:
+        run_frames(start(seq, out["path"]), seq, INIT_FRAMES, last)
+    out["peak_memory_stage"] = dict(stage=peaks.peak[0], bytes=peaks.peak[1])
     return out
 
 

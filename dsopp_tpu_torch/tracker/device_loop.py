@@ -126,9 +126,8 @@ def keyframe_update(window: Window, immature: ImmaturePoints, maps, pose_q, pose
     min_distance = torch.clamp(
         min_distance + (batch["n_active"].to(dtype) - cfg.desired_points) * P_GAIN,
         MIN_DISTANCE, MAX_DISTANCE)
-    imm_counts = torch.sum(immature.valid, dim=1)
     frame_flags, lm_flags, new_outliers, perm = flags_device(
-        win, imm_counts, cfg.window_min, cfg.window_max, cfg.max_marg_fraction)
+        win, immature.valid, cfg.window_min, cfg.window_max, cfg.max_marg_fraction)
     snap = dict(frame_flags=frame_flags, kf_frame_id=win.frame_id,
                 kf_poses_mat=batch["poses_mat"], kf_affine=win.affine(),
                 kf_exposure=win.exposure, lm_uv=win.lm_uv, lm_idepth=win.lm_idepth,

@@ -9,10 +9,13 @@
    flagged frame) → marginalize if optimized at least once, else outlier;
    long-lived well-observed landmarks also marginalize.
 
-:func:`flags_device` dispatches on the device of its tensors: CPU tensors take
-the plain version, CUDA tensors kernel K15p (``csrc/marg_policy.cu``), which
-reads nothing on the host.  :func:`kept_first_perm` is plain torch: the
-kernel writes the permutation with the flags.
+:func:`flags_device` takes the immature banks' valid mask [K, M] (the JAX
+function takes its row sums) and dispatches on the device of its tensors: CPU
+tensors take the plain version, CUDA tensors kernel K15p
+(``csrc/marg_policy.cu``), which counts the valid immature points and
+composes the frames' positions itself and reads nothing on the host.
+:func:`kept_first_perm` is plain torch: the kernel writes the permutation with
+the flags.
 """
 
 from __future__ import annotations
@@ -29,16 +32,17 @@ EPS_DIST = 1e-5
 _POLICY_MAX_FRAMES = 40
 
 
-def flags_device_plain(window: Window, imm_counts, minimum_size: int, maximum_size: int,
+def flags_device_plain(window: Window, immature_valid, minimum_size: int, maximum_size: int,
                        maximum_marginalized_fraction: float):
-    """→ (frame_flags [K] bool, landmark_flags [K, N] bool, new_outliers [K, N]
+    """``immature_valid`` [K, M] bool: the immature banks' valid points →
+    (frame_flags [K] bool, landmark_flags [K, N] bool, new_outliers [K, N]
     bool, perm [K] long: the stable kept-frames-first slot order)."""
     k = window.num_slots
     dev = window.frame_valid.device
     idx = torch.arange(k, device=dev)
     f = window.frame_valid.sum()
     live = window.lm_valid & ~window.lm_outlier
-    active_counts = torch.sum(live, dim=1) + imm_counts
+    active_counts = torch.sum(live, dim=1) + torch.sum(immature_valid, dim=1)
     total_counts = active_counts
 
     elig1 = idx < f - KEEP_FRAMES_FROM_END
@@ -103,16 +107,17 @@ def eq20_scores(window: Window):
     return torch.where(elig_i, score, torch.zeros_like(score))
 
 
-def flags_device_cuda(window: Window, imm_counts, minimum_size: int, maximum_size: int,
+def flags_device_cuda(window: Window, immature_valid, minimum_size: int, maximum_size: int,
                       maximum_marginalized_fraction: float):
-    """Kernel K15p: same outputs as :func:`flags_device_plain`.  The frames'
-    positions are computed here by the same torch ops as in the plain
-    version, so that both score the same translations."""
+    """Kernel K15p: same outputs as :func:`flags_device_plain`, from the
+    window's raw tensors and ``immature_valid`` in one C call (checks, the
+    outputs' ``torch.empty`` and the launch: no other torch operator).  The
+    kernel composes the frames' positions T_lin·exp(ε) itself, within
+    ``testing/parity.py::KERNEL_POSE_ULPS`` of ``window.poses()``."""
     k, n = window.num_slots, window.num_landmark_slots
     if k > _POLICY_MAX_FRAMES:
         raise ValueError(f"marg_policy: {k} frame slots exceed the kernel's limit of "
                          f"{_POLICY_MAX_FRAMES}")
-    poses_t = window.poses().t.contiguous()
     check = kernels.check
     check(window.frame_valid, "frame_valid", (k,), torch.bool)
     for name in ("lm_valid", "lm_outlier"):
@@ -121,28 +126,34 @@ def flags_device_cuda(window: Window, imm_counts, minimum_size: int, maximum_siz
         check(getattr(window, name), name, (k, n), torch.int32)
     check(window.frame_id, "frame_id", (k,), torch.int32)
     check(window.res_status, "res_status", (k, k, n), torch.int32)
-    check(poses_t, "poses_t", (k, 3))
-    check(imm_counts, "imm_counts", (k,), torch.int64)
-    dev = poses_t.device
+    check(window.t_lin_q, "t_lin_q", (k, 4))
+    check(window.t_lin_t, "t_lin_t", (k, 3))
+    check(window.eps, "eps", (k, 8))
+    m = immature_valid.shape[-1]
+    check(immature_valid, "immature_valid", (k, m), torch.bool)
+    dev = window.eps.device
     frame_flags = torch.empty((k,), dtype=torch.bool, device=dev)
     lm_flags = torch.empty((k, n), dtype=torch.bool, device=dev)
     new_outliers = torch.empty((k, n), dtype=torch.bool, device=dev)
     perm = torch.empty((k,), dtype=torch.int64, device=dev)
     kernels.MARG_POLICY(window.frame_valid, window.lm_valid, window.lm_outlier,
                         window.lm_inliers, window.lm_opt_count, window.frame_id,
-                        window.res_status, poses_t, imm_counts, k, n, minimum_size, maximum_size,
+                        window.res_status, window.t_lin_q, window.t_lin_t, window.eps,
+                        immature_valid, k, n, m, minimum_size, maximum_size,
                         1.0 - maximum_marginalized_fraction, frame_flags, lm_flags,
                         new_outliers, perm)
     return frame_flags, lm_flags, new_outliers, perm
 
 
-def flags_device(window: Window, imm_counts, minimum_size: int, maximum_size: int,
+def flags_device(window: Window, immature_valid, minimum_size: int, maximum_size: int,
                  maximum_marginalized_fraction: float):
-    """→ (frame_flags [K] bool, landmark_flags [K, N] bool, new_outliers [K, N]
-    bool, perm [K] long); ``perm`` is :func:`kept_first_perm` of the frame
-    flags.  Kernel K15p on CUDA tensors, the plain version on CPU ones."""
+    """``immature_valid`` [K, M] bool → (frame_flags [K] bool, landmark_flags
+    [K, N] bool, new_outliers [K, N] bool, perm [K] long); ``perm`` is
+    :func:`kept_first_perm` of the frame flags.  Kernel K15p on CUDA tensors,
+    the plain version on CPU ones."""
     fn = flags_device_cuda if window.frame_valid.is_cuda else flags_device_plain
-    return fn(window, imm_counts, minimum_size, maximum_size, maximum_marginalized_fraction)
+    return fn(window, immature_valid, minimum_size, maximum_size,
+              maximum_marginalized_fraction)
 
 
 def kept_first_perm(frame_valid, frame_flags):

@@ -1,16 +1,20 @@
-"""Port parity: the windowed-BA functions that hold the kernels K6, K7 and
-K8, in plain PyTorch (f64 on the CPU) against the JAX package, each on the
-same inputs (K = 4 frames, N = 40 landmarks, 120×160):
+"""Port parity: the windowed-BA functions that hold the kernels K7 and K8
+(K8 with the FEJ Jacobians, once kernel K6's cache, formed inside), in plain
+PyTorch (f64 on the CPU) against the JAX package, each on the same inputs
+(K = 4 frames, N = 40 landmarks, 120×160):
 
-* ``_fej_cache``, ``_evaluate``, ``_linearize_from_ev`` (also with
+* ``_fej_cache``, ``_evaluate``, ``_linearize_from_ev`` (the port's FEJ of
+  the window against JAX's ``_linearize_from_ev`` on JAX's cache; also with
   ``marg_pass=True``): floats 1e-9 relative to the array's largest entry,
   statuses and masks exact;
-* the dispatchers run the plain versions on CPU tensors, and every
-  ``*_cuda`` wrapper refuses CPU tensors without launching;
+* the dispatchers run the plain versions on CPU tensors, every ``*_cuda``
+  wrapper refuses CPU tensors without launching, and ``_fej_cache`` refuses a
+  window on the card (no FEJ cache exists there);
 * the default-device rule: no entry point picks the CPU quietly.
 """
 
 import dataclasses
+import types
 
 import jax.numpy as jnp
 import numpy as np
@@ -27,6 +31,7 @@ from dsopp_tpu_torch.solvers import pba as tpba
 from dsopp_tpu_torch.solvers import pose_alignment as tpa
 from dsopp_tpu_torch.testing import render_sequence as torch_render
 from dsopp_tpu_torch.tracker import depth_map as tdm
+from dsopp_tpu_torch.tracker import marginalization as tmarg
 from dsopp_tpu_torch.tracker.monocular import MonocularTracker, TrackerConfig
 
 from tests._torch_port import assert_close, assert_equal, to_torch, window_fields
@@ -108,9 +113,8 @@ def test_linearize_from_ev_matches(problem, marg_pass):
     ref = jpba._linearize_from_ev(window, problem["fej"], problem["ev"], window.eps,
                                   jpba.PBAOptions(), marg_pass=marg_pass)
     tw = problem["tw"]
-    out = tpba._linearize_from_ev(tw, convert.fej_cache(_fields(problem["fej"])),
-                                  convert.evaluation(_fields(problem["ev"])), tw.eps,
-                                  tpba.PBAOptions(), marg_pass=marg_pass)
+    out = tpba._linearize_from_ev(tw, problem["tcam"], convert.evaluation(_fields(problem["ev"])),
+                                  tw.eps, tpba.PBAOptions(), marg_pass=marg_pass)
     ref = convert.linear_system(_fields(ref))
     assert float(ref.h_schur.abs().max()) > 0
     for name in tpba.LinearSystem._fields:
@@ -120,11 +124,10 @@ def test_linearize_from_ev_matches(problem, marg_pass):
 
 def test_marg_pass_regularizes_fixed_anchor_landmarks(problem):
     """The scale-nullspace regularizer reaches only landmarks of fixed frames."""
-    tw = problem["tw"]
-    fej, ev = (convert.fej_cache(_fields(problem["fej"])),
-               convert.evaluation(_fields(problem["ev"])))
-    plain = tpba._linearize_from_ev(tw, fej, ev, tw.eps, tpba.PBAOptions())
-    marg = tpba._linearize_from_ev(tw, fej, ev, tw.eps, tpba.PBAOptions(), marg_pass=True)
+    tw, cam = problem["tw"], problem["tcam"]
+    ev = convert.evaluation(_fields(problem["ev"]))
+    plain = tpba._linearize_from_ev(tw, cam, ev, tw.eps, tpba.PBAOptions())
+    marg = tpba._linearize_from_ev(tw, cam, ev, tw.eps, tpba.PBAOptions(), marg_pass=True)
     fixed = tw.frame_fixed
     assert bool(fixed.any()) and not bool(fixed.all())
     assert_equal(marg.inv_hdd[~fixed], plain.inv_hdd[~fixed])
@@ -142,12 +145,29 @@ _DISPATCHERS = {"_fej_cache": ("_fej_cache", 1), "_evaluate": ("_evaluate", 5),
 
 @pytest.mark.parametrize("name", list(_DISPATCHERS))
 def test_ba_dispatchers_run_plain_on_cpu(problem, monkeypatch, name):
+    """``_fej_cache`` has no CUDA version left (K8 forms the FEJ itself); on
+    CPU tensors it runs the plain one as the others do, and the plain
+    linearization takes the plain FEJ."""
     calls = []
     stem, nargs = _DISPATCHERS[name]
+    if name == "_linearize_from_ev":
+        monkeypatch.setattr(tpba, "_fej_cache_plain", lambda *a, **k: None)
     monkeypatch.setattr(tpba, stem + "_plain", lambda *a, **k: calls.append("plain"))
-    monkeypatch.setattr(tpba, stem + "_cuda", lambda *a, **k: calls.append("cuda"))
+    if name != "_fej_cache":
+        monkeypatch.setattr(tpba, stem + "_cuda", lambda *a, **k: calls.append("cuda"))
     getattr(tpba, name)(problem["tw"], *([None] * nargs))
     assert calls == ["plain"]
+
+
+def test_fej_cache_refuses_a_card_window(problem, monkeypatch):
+    """A window whose maps lie on the card gets no FEJ cache: ``_fej_cache``
+    raises before anything runs (K8 forms the Jacobians from the window)."""
+    calls = []
+    monkeypatch.setattr(tpba, "_fej_cache_plain", lambda *a, **k: calls.append("plain"))
+    on_card = problem["tw"].replace(maps=types.SimpleNamespace(is_cuda=True))
+    with pytest.raises(ValueError, match="K8"):
+        tpba._fej_cache(on_card, problem["tcam"])
+    assert calls == []
 
 
 def test_flow_dispatcher_runs_plain_on_cpu(monkeypatch):
@@ -175,7 +195,7 @@ def _f32_window(tw):
                          and f.name not in ("h_marg", "b_marg", "energy_marg")})
 
 
-@pytest.mark.parametrize("kernel", ["align_level", "ba_fej", "ba_evaluate",
+@pytest.mark.parametrize("kernel", ["align_level", "marg_policy", "ba_evaluate",
                                     "ba_linearize_schur", "flow_statistic", "ba_solve_step",
                                     "ba_lm", "ba_point_status"])
 def test_new_kernel_wrappers_refuse_cpu_tensors(problem, kernel):
@@ -190,8 +210,9 @@ def test_new_kernel_wrappers_refuse_cpu_tensors(problem, kernel):
             tpa.align_level_cuda(pts, tw.maps[0], tcam,
                                  tpa.SE3(tw.t_lin_q[:1], tw.t_lin_t[:1]), tw.affine0[:1],
                                  tw.affine0[0], 1.0)
-        elif kernel == "ba_fej":
-            tpba._fej_cache_cuda(tw, tcam)
+        elif kernel == "marg_policy":
+            tmarg.flags_device_cuda(tw, torch.ones((tw.num_slots, 16), dtype=torch.bool),
+                                    2, 3, 0.95)
         elif kernel == "ba_evaluate":
             tpba._evaluate_cuda(tw, tcam, tw.eps, tw.lm_idepth, tpba.active_lm_mask(tw),
                                 tpba.PBAOptions())
@@ -209,9 +230,8 @@ def test_new_kernel_wrappers_refuse_cpu_tensors(problem, kernel):
             tpba._point_status_from_ev_cuda(tw, f32(convert.evaluation(_fields(problem["ev"]))),
                                             tpba.active_lm_mask(tw), tpba.PBAOptions())
         else:
-            tpba._linearize_from_ev_cuda(
-                tw, f32(convert.fej_cache(_fields(problem["fej"]))),
-                f32(convert.evaluation(_fields(problem["ev"]))), tw.eps, tpba.PBAOptions())
+            tpba._linearize_from_ev_cuda(tw, tcam, f32(convert.evaluation(_fields(problem["ev"]))),
+                                         tw.eps, tpba.PBAOptions())
     assert kernels.counts() == before
     assert kernel in before
 

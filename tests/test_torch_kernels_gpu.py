@@ -11,12 +11,14 @@ hypothesis is left out of the pose gate only where the two decision traces
 show that flip: the same λ, and relative changes of the energy that differ by
 at most ``parity.ALIGN_TIE`` and fall on either side of the decision's limit), at 1,
 5 and 105 hypotheses with and without a trace, two runs and the traced run
-equal to the bit; K6
-every output 1e-5 relative (Frobenius), geom_valid exact; K7 ok and
+equal to the bit; K7 ok and
 status_candidate equal on ≥ 99.9 % of live groups, the rest 1e-4 relative
-on the agreeing ones; K8 every output 1e-4 relative (Frobenius), also with
-``marg_pass=True``, on a small window and on the dense operating point's (17
-slots × 340 landmarks), two runs equal to the bit; K5 both flows 1e-5
+on the agreeing ones; K8 (its FEJ Jacobians, once kernel K6's cache, formed
+inside from the window) every output 1e-4 relative (Frobenius) of the plain
+version on ``_fej_cache_plain``, also with ``marg_pass=True``, on a small
+window and on the dense operating point's (17 slots × 340 landmarks), two
+runs equal to the bit, one launch of its own a call and ``_fej_cache``
+refusing the card's window; K5 both flows 1e-5
 relative; K9 pose and idepth step 1e-4 of the step's norm against the plain
 version in f64 arithmetic on the same f32 inputs (the plain f32 solve's own
 distance from it is reported by ``chip_smoke.py``), also at K = 10, 17 and 21
@@ -44,8 +46,11 @@ or, where an eigenvalue lies within 1e-6 (relative) of the pseudo-inverse's
 cutoff, of the plain version's with the cutoff at either edge of that band;
 the Jacobi solver converged; two runs equal to the bit, the window it leaves
 equal; K15p (the policy) flags, outliers and the permutation equal, or, where
-the two best eq (20) scores tie within 1e-6, frame flags that differ on those
-two slots only and the plain triage of the kernel's frame flags; the row
+the two best eq (20) scores tie within their bounds
+(``parity.eq20_score_bounds``: the kernel composes the positions itself),
+frame flags that differ on those two slots only and the plain triage of the
+kernel's frame flags, two runs equal to the bit, its wrapper running no torch
+operator but allocations and one kernel a call; the row
 gather equal to ``table[idx]`` to the bit in f32 and bf16; K18 (the
 photometric correction) equal to the bit on u8 and f32 frames, with and
 without a vignette, at VGA and at 479x637. K12-K16 and K18 run with host
@@ -267,19 +272,6 @@ def _ba_problem(tracker):
     return win, eps.contiguous(), idepth.contiguous(), pba.active_lm_mask(win)
 
 
-def test_ba_fej_kernel_matches_plain(tracked):
-    tracker, _ = tracked
-    win = tracker.window
-    before = kernels.BA_FEJ.launches
-    fej_k = pba._fej_cache_cuda(win, tracker.models[0])
-    fej_p = pba._fej_cache_plain(win, tracker.models[0])
-    assert kernels.BA_FEJ.launches == before + 1
-    err = parity.fej_errors(fej_k, fej_p)
-    assert err.pop("geom_valid_differ") == 0
-    assert int(fej_p.geom_valid.sum()) > 100
-    assert max(err.values()) <= 1e-5, err
-
-
 def test_ba_evaluate_kernel_matches_plain(tracked):
     tracker, _ = tracked
     win, eps, idepth, lm_mask = _ba_problem(tracker)
@@ -326,18 +318,33 @@ WINDOWS = {"small": "tracked", "dense": "dense_tracked"}
 @pytest.mark.parametrize("marg_pass", [False, True])
 @pytest.mark.parametrize("window", list(WINDOWS))
 def test_ba_linearize_kernel_matches_plain(request, window, marg_pass):
+    """K8 with its FEJ formed inside from the window, against the plain
+    version on ``_fej_cache_plain``; one launch of K8's entry, no cache."""
     tracker, _ = request.getfixturevalue(WINDOWS[window])
     win, eps, idepth, lm_mask = _ba_problem(tracker)
-    fej = pba._fej_cache_plain(win, tracker.models[0])
-    ev = pba._evaluate_plain(win, tracker.models[0], eps, idepth, lm_mask, tracker.pba_opts)
-    args = (win, fej, ev, eps, tracker.pba_opts, marg_pass)
-    sys_k = pba._linearize_from_ev_cuda(*args)
-    sys_p = pba._linearize_from_ev_plain(*args)
+    model, opts = tracker.models[0], tracker.pba_opts
+    fej = pba._fej_cache_plain(win, model)
+    assert int(fej.geom_valid.sum()) > 100
+    ev = pba._evaluate_plain(win, model, eps, idepth, lm_mask, opts)
+    before = kernels.counts()
+    sys_k = pba._linearize_from_ev_cuda(win, model, ev, eps, opts, marg_pass)
+    launched = {name: n - before[name] for name, n in kernels.counts().items() if n != before[name]}
+    assert launched == {"ba_linearize_schur": 1}
+    sys_p = pba._linearize_from_ev_plain(win, fej, ev, eps, opts, marg_pass)
     err = parity.linear_system_errors(sys_k, sys_p)
     assert float(sys_p.h_schur.abs().max()) > 0
     assert max(err.values()) <= 1e-4, err
-    again = pba._linearize_from_ev_cuda(*args)          # two runs equal to the bit
-    assert all(torch.equal(a, b) for a, b in zip(sys_k, again))
+    again = pba._linearize_from_ev_cuda(win, model, ev, eps, opts, marg_pass)
+    assert all(torch.equal(a, b) for a, b in zip(sys_k, again))     # two runs, the same bits
+    assert all(torch.equal(a, b) for a, b in
+               zip(sys_k, pba._linearize_from_ev(win, model, ev, eps, opts, marg_pass)))
+
+
+def test_fej_cache_refuses_the_card(tracked):
+    """The card keeps no FEJ cache: ``_fej_cache`` raises on a CUDA window."""
+    tracker, _ = tracked
+    with pytest.raises(ValueError, match="K8"):
+        pba._fej_cache(tracker.window, tracker.models[0])
 
 
 def test_flow_kernel_matches_plain(tracked):
@@ -377,8 +384,8 @@ def test_ba_lm_loop_matches_host_driven_loop(tracked, ledger):
     win, eps, idepth, lm_mask = _ba_problem(tracker)
     opts, model = tracker.pba_opts, tracker.models[0]
     win = win.replace(eps=eps, lm_idepth=idepth)
-    sys = pba._linearize_from_ev(win, pba._fej_cache(win, model),
-                                 pba._evaluate(win, model, eps, idepth, lm_mask, opts), eps, opts)
+    sys = pba._linearize_from_ev(win, model, pba._evaluate(win, model, eps, idepth, lm_mask, opts),
+                                 eps, opts)
     if ledger == "filled":
         win = parity.scaled_ledger(win, sys)
     else:
@@ -627,8 +634,8 @@ def marg_windows(tracked):
     win, eps, idepth, lm_mask = _ba_problem(tracker)
     opts, model = tracker.pba_opts, tracker.models[0]
     win = win.replace(eps=eps, lm_idepth=idepth)
-    sys = pba._linearize_from_ev(win, pba._fej_cache(win, model),
-                                 pba._evaluate(win, model, eps, idepth, lm_mask, opts), eps, opts)
+    sys = pba._linearize_from_ev(win, model, pba._evaluate(win, model, eps, idepth, lm_mask, opts),
+                                 eps, opts)
     empty = win.replace(h_marg=torch.zeros_like(win.h_marg), b_marg=torch.zeros_like(win.b_marg),
                         energy_marg=torch.zeros_like(win.energy_marg))
     return {"empty": empty, "filled": parity.scaled_ledger(win, sys)}
@@ -673,10 +680,9 @@ def test_marg_policy_kernel_matches_plain(tracked, marg_windows):
     cfg = tracker.config
     win = marg_windows["filled"]
     frames = int(win.frame_valid.sum())
-    imm_counts = torch.sum(tracker.immature.valid, dim=1)
     flagged = 0
     for lo, hi in ((cfg.window_min, cfg.window_max), (min(cfg.window_min, frames - 2), frames - 1)):
-        args = (win, imm_counts, lo, hi, cfg.max_marginalized_fraction)
+        args = (win, tracker.immature.valid, lo, hi, cfg.max_marginalized_fraction)
         before = kernels.MARG_POLICY.launches
         out_k = _no_host_reads(marg.flags_device_cuda, *args)
         assert kernels.MARG_POLICY.launches == before + 1
@@ -684,7 +690,27 @@ def test_marg_policy_kernel_matches_plain(tracked, marg_windows):
         err = parity.policy_errors(out_k, out_p, win, lo, hi)
         assert err["explained"], err
         flagged += err["frames_flagged"]
+        assert all(torch.equal(a, b) for a, b in zip(out_k, marg.flags_device_cuda(*args)))
     assert flagged > 0
+
+
+def test_marg_policy_wrapper_is_one_call(tracked, marg_windows):
+    """K15p's wrapper: no torch operator but the outputs' allocations, and
+    one kernel a call on the device."""
+    tracker, _ = tracked
+    cfg = tracker.config
+    args = (marg_windows["filled"], tracker.immature.valid, cfg.window_min, cfg.window_max,
+            cfg.max_marginalized_fraction)
+    assert _aten_ops(marg.flags_device_cuda, *args) <= ALLOCATION_OPS
+    marg.flags_device_cuda(*args)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        marg.flags_device_cuda(*args)
+        torch.cuda.synchronize()
+    kernels_run = [e.name for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(kernels_run) == 1 and "policy_kernel" in kernels_run[0], kernels_run
 
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])

@@ -4,7 +4,8 @@ of the fold kernel's algorithm.
 
 * ``flags_device`` and ``kept_first_perm``: equal to the JAX functions bit
   for bit on the 40 randomized windows of
-  ``tests/tracker/test_marg_flags_device.py`` (K = 8, N = 32, 2..8 frames);
+  ``tests/tracker/test_marg_flags_device.py`` (K = 8, N = 32, 2..8 frames;
+  the port takes the immature banks' valid mask, JAX its row sums);
 * ``_marginalize_device`` (``_marginalize_plain`` for the fold): after a
   landmark fold that fills the ledger, H_m, b_m and E_m within 1e-9 of their
   largest entry of ``jpba._marginalize_device(..., True, True)`` with no
@@ -66,8 +67,11 @@ def test_flags_device_matches_jax():
         imm[f:] = 0
         ref = jmarg.flags_device(w, jnp.asarray(imm), 3, 5, 0.95)
         perm_ref = jmarg.kept_first_perm(w.frame_valid, ref[0])
-        out = tmarg.flags_device(convert.window(window_fields(w)),
-                                 torch.as_tensor(imm, dtype=torch.int64), 3, 5, 0.95)
+        # the banks' valid mask with imm[i] valid points in bank i, scattered
+        valid = np.random.default_rng(trial).permuted(np.arange(64)[None, :] < imm[:, None],
+                                                      axis=1)
+        out = tmarg.flags_device(convert.window(window_fields(w)), torch.as_tensor(valid),
+                                 3, 5, 0.95)
         for name, a, b in zip(("frame flags", "lm flags", "outliers", "perm"), out,
                               (*ref, perm_ref)):
             assert_equal(a, b, err_msg=f"{name}, trial {trial}")
@@ -344,7 +348,7 @@ def test_kernel_wrappers_refuse_cpu_tensors(wrapper):
     before = kernels.counts()
     with pytest.raises(ValueError, match="CUDA"):
         if wrapper == "marg_policy":
-            tmarg.flags_device_cuda(w, torch.zeros(3, dtype=torch.int64), 1, 2, 0.95)
+            tmarg.flags_device_cuda(w, torch.zeros((3, 8), dtype=torch.bool), 1, 2, 0.95)
         else:
             tpba._marginalize_cuda(w, torch.zeros(24, 24), torch.zeros(24), torch.zeros(()),
                                    torch.arange(3), tpba.PBAOptions())
@@ -386,7 +390,7 @@ def test_policy_errors_excuse_only_score_ties(filled):
     flags do not explain."""
     w = convert.window(window_fields(filled))
     frames = int(w.frame_valid.sum())
-    imm = torch.zeros(w.num_slots, dtype=torch.int64)
+    imm = torch.zeros((w.num_slots, 8), dtype=torch.bool)
     lo, hi = 2, frames - 1
     out_p = tmarg.flags_device_plain(w, imm, lo, hi, 0.95)
     top = torch.topk(tmarg.eq20_scores(w), 2).indices
