@@ -56,7 +56,14 @@ Phases, one line each with its time:
    gather at the probe's shapes ([480·640, 12] table, 204800 indices) equal
    to ``table[idx]`` to the bit in f32 and bf16.  K18 equal to its plain
    version to the bit on u8 and f32 frames, with and without a vignette, at
-   VGA and at 479×637;
+   VGA and at 479×637.  Then the frame-embedder path's kernels at C = 3
+   channels (a tracker bootstrapped at the embedder point): K1's channel map
+   (1e-3), K2 and K3 on two embedded frames' maps with the frontend's 2000
+   points (K3's gates above, two runs equal), and on the BA parity window
+   K7, K8 (both passes, two runs equal), K10, K11, K15p and K15 and, with the
+   next frame pushed, K12–K14 (the pairing sampling the C-channel patches,
+   equal entry by entry) and K16, each with its C = 3 time, device µs and
+   bound under ``"c3"`` in its row of the JSON line;
 5. track — the main path: a 6-frame known-pose bootstrap, then
    ``PipelinedTracker`` over frames 6..119 at the bench's standart.yaml
    operating point; every kernel of the path must have launched, ≥3
@@ -67,6 +74,12 @@ Phases, one line each with its time:
    alignment's scale within 10 % of 1 (the known-pose bootstrap anchors
    it).  The error without alignment is printed beside it: monocular scale
    drifts by a few percent over the run, in the JAX package as in the port;
+5b. track-embedder — the frame-embedder path: phase 5 at the same point with
+   ``embedder="filter_bank"`` (C = 3 channels in the windowed BA, the frontend
+   C = 1): phase 5's gates, and the JAX package's C > 1 gate against phase
+   5's run, per-frame RMSE below max(1.5 × C = 1's, C = 1's + 0.01 m)
+   (``tests/tracker/test_embedder_tracker.py``); K1 once more per keyframe
+   (the channel map);
 6. track-fast — the fast-motion path: the bench's fast corridor (96 frames,
    advance 0.13, texture seed 11) at the same operating point, frames 6..95;
    the perturbation re-track (105 pose hypotheses through the align chain)
@@ -106,7 +119,10 @@ Phases, one line each with its time:
    (240×320, 40 frames, 8-frame bootstrap) in f32 with that test's gates;
    each tick of the exposure run is also replayed from the card's state
    before it by the plain versions on the CPU (same keyframe decisions,
-   poses within ``E2E_REPLAY_POSE_TOL``).
+   poses within ``E2E_REPLAY_POSE_TOL``);
+13. c1-bits — the single-channel outputs of K1, K3, K7, K8, K10 and K11 on
+   ``testing/c1_bits.py``'s inputs equal, digest by digest, those of the tree
+   before the channel axis.
 
 Each track line is preceded by one line with, per keyframe, the active
 landmarks the activation counted, the points it activated and the spacing
@@ -187,6 +203,8 @@ KEYFRAME_KERNELS = ("select_candidates", "activation", "refine_idepth", "activat
                     "depth_maps", "marg_policy", "marg_fold")
 # ... and of those exactly once: the policy and the ledger fold
 ONCE_PER_KEYFRAME = ("marg_policy", "marg_fold")
+# tests/tracker/test_embedder_tracker.py's gate on the C = 3 run against C = 1's
+EMBEDDER_RATIO, EMBEDDER_MARGIN = 1.5, 1e-2
 # the ledger path's gates (tests/tracker/test_ledger_drift_tracker.py)
 LEDGER_MIN_FOLDS, LEDGER_RMSE_GATE, LEDGER_MARGIN = 8, 0.35, 0.08
 LEDGER_CPU_THREADS = 8      # the f64 reference run's threads (a one-card machine's cores)
@@ -204,6 +222,7 @@ OPS_CANDIDATE_PIXEL = 10    # K12: g2, its square root and bin, the threshold co
 OPS_REPROJECT = 60          # K13, K16: one reprojection with its validity
 OPS_ACTIVATION_PAIR = 6     # K13: dx, dy, two squares, their sum, the minimum
 OPS_REFINE_POINT = 180      # K14: reprojection with d uv / d idepth, the sample, the sums
+OPS_WINDOW_SAMPLE = 12      # K14's pairing at C > 1: one bilinear value under the window rule
 OPS_DEPTH_CELL = 12         # K16: pool, dilation and the selection's compares per grid cell
 OPS_POLICY_LANDMARK = 8     # K15p: the live count and the triage of one landmark slot
 OPS_POLICY_PAIR = 12        # K15p: one distance and reciprocal of the eq (20) sums
@@ -361,12 +380,125 @@ def parity(seq, cfg, torch, card):
     parity_flow(seq, tracker, INIT_FRAMES + BA_FRAMES, torch, rows, "dense")
     parity_keyframe(seq, tracker, INIT_FRAMES + BA_FRAMES, torch, rows, "dense")
     del tracker
+    # ... and the frame-embedder path's window, C = 3 channels: each kernel
+    # whose channel axis the path runs, its row under "c3"
+    for name, row in parity_channels(seq, torch).items():
+        rows[name]["c3"] = row
     parity_gather(torch, rows)
     parity_photometric(torch, rows, card)
     for name, row in rows.items():
         log(f"  {name}: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, bound "
             f"{row['bound_ms']:.5f} ms ({row['bound_by']}) | {card}")
     return rows
+
+
+def parity_channels(seq, torch):
+    """The kernels of the embedder path at C = 3 channels, on a tracker
+    bootstrapped at the embedder point → their rows (C = 3 times, device µs
+    and bounds): K1's channel map, K2 and K3 on two embedded frames' maps,
+    K7-K11 and K15p/K15 on the BA parity window, K12-K14 and K16 with the
+    next frame pushed."""
+    from dsopp_tpu_torch.core.interpolate import build_pixel_map
+    from dsopp_tpu_torch.features import pyramid
+    from dsopp_tpu_torch.testing.paths import INIT_FRAMES, bootstrap, path_config
+
+    tracker = bootstrap(seq, path_config("embedder"))
+    c = tracker.window.num_channels
+    require(c == 3, f"the embedder path's window has {c} channels")
+    rows = {}
+    chans = tracker.embedder(seq.images[INIT_FRAMES].contiguous())
+    cm_k = pyramid.build_channel_map_cuda(chans)
+    cm_p = build_pixel_map(chans)
+    err1 = float((cm_k - cm_p).abs().max())
+    require(err1 <= 1e-3, f"K1 channel map: max abs diff {err1} > 1e-3")
+    rows["pyramid_maps"] = dict(
+        max_abs_err=err1, ms=cuda_ms(lambda: pyramid.build_channel_map_cuda(chans)),
+        plain_ms=cuda_ms(lambda: build_pixel_map(chans)),
+        device_us=device_us(torch, lambda: pyramid.build_channel_map_cuda(chans)),
+        **bound(nbytes(chans, cm_k), 12 * chans.numel()), library_ms=None)
+    log(f"  K1 channel map (embedder): {tuple(chans.shape)} -> {tuple(cm_k.shape)}, max abs"
+        f" diff {err1:.3g}, {fmt_us(rows['pyramid_maps']['device_us'])}")
+    parity_align_channels(seq, tracker, torch, rows)
+    parity_ba(seq, tracker, torch, rows, "embedder", every=2, min_frames=5,
+              timed=("ba_fej", "ba_evaluate", "ba_linearize_schur", "ba_lm", "ba_point_status"))
+    parity_keyframe(seq, tracker, INIT_FRAMES + BA_FRAMES, torch, rows, "embedder")
+    for name, row in rows.items():
+        log(f"  {name} (C = {c}): kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms,"
+            f" bound {row['bound_ms']:.5f} ms ({row['bound_by']})")
+    return rows
+
+
+def parity_align_channels(seq, tracker, torch, rows):
+    """K2 and K3 at C channels: the frontend points of the tracker's newest
+    keyframe with their C embedded intensities, against the next frame's
+    embedded map, 5 hypotheses around the ground-truth relative pose."""
+    from dsopp_tpu_torch.core.interpolate import sample
+    from dsopp_tpu_torch.core.lie import SE3
+    from dsopp_tpu_torch.features.pyramid import build_channel_map_cuda
+    from dsopp_tpu_torch.solvers import pose_alignment as pa
+    from dsopp_tpu_torch.testing import parity as par
+    from dsopp_tpu_torch.testing.paths import INIT_FRAMES
+
+    emb, model, opts = tracker.embedder, tracker.models[0], tracker.align_opts
+    c = emb.channels
+    ref_map = build_channel_map_cuda(emb(seq.images[INIT_FRAMES - 1].contiguous()))
+    tgt_map = build_channel_map_cuda(emb(seq.images[INIT_FRAMES].contiguous()))
+    lp = tracker.level_points[0]
+    vals, _ = sample(ref_map[:c], lp.uv)
+    pts = pa.LevelPoints(lp.uv, lp.idepth, vals.contiguous(), lp.valid)
+    t_rel = (seq.pose(INIT_FRAMES, torch.float32, "cuda").inverse()
+             @ seq.pose(INIT_FRAMES - 1, torch.float32, "cuda"))
+    xi = torch.tensor([[0.0] * 6, [2e-3, 0, 0, 0, 1e-3, 0], [0, -2e-3, 0, 1e-3, 0, 0],
+                       [0, 0, 3e-3, 0, 0, -1e-3], [-1e-3, 1e-3, -1e-3, 5e-4, 5e-4, 5e-4]],
+                      device="cuda")
+    hyps = SE3.exp(xi) @ SE3(t_rel.q.expand(5, 4), t_rel.t.expand(5, 3))
+    hyps = SE3(hyps.q.contiguous(), hyps.t.contiguous())
+    aff = torch.zeros((5, 2), device="cuda")
+    aff_ref = torch.zeros(2, device="cuda")
+    ratio = torch.tensor(1.0, device="cuda")
+    args2 = (pts, tgt_map, model, hyps, aff, aff_ref, ratio, pa.huber_sigma(tgt_map, opts))
+    hk, bk, ek, nk = pa.residual_system_cuda(*args2)
+    hp, bp, ep, np_ = pa.residual_system_plain(*args2)
+    require(torch.equal(nk, np_), f"K2 (C = {c}): num_valid {nk.tolist()} vs {np_.tolist()}")
+    rel_h = float(((hk - hp).norm(dim=(1, 2)) / hp.norm(dim=(1, 2)).clamp(min=1e-30)).max())
+    rel_b = float(((bk - bp).norm(dim=1) / bp.norm(dim=1).clamp(min=1e-30)).max())
+    rel_e = float(((ek - ep).abs() / ep.abs().clamp(min=1e-30)).max())
+    log(f"  K2 (C = {c}): {int(nk.max())} valid of {lp.uv.shape[0]}, rel H {rel_h:.2e}"
+        f" b {rel_b:.2e} energy {rel_e:.2e}")
+    require(rel_h <= 1e-4 and rel_b <= 1e-4 and rel_e <= 1e-5,
+            f"K2 (C = {c}): rel H {rel_h:.3g} b {rel_b:.3g} energy {rel_e:.3g}")
+    sampled = min(nbytes(tgt_map), 48 * c * int(nk.max()))
+    rows["align_residual_system"] = dict(
+        max_abs_err=float((hk - hp).abs().max()), ms=cuda_ms(lambda: pa.residual_system_cuda(*args2)),
+        plain_ms=cuda_ms(lambda: pa.residual_system_plain(*args2)),
+        device_us=device_us(torch, lambda: pa.residual_system_cuda(*args2)),
+        **bound(nbytes(*pts) + sampled + 5 * 74 * 4, OPS_ALIGN_POINT * c * int(nk.sum())),
+        library_ms=None)
+
+    args3 = (pts, tgt_map, model, hyps, aff, aff_ref, ratio, opts)
+    res_k, res_p = pa.align_level_cuda(*args3), pa.align_level_plain(*args3)
+    err = par.align_level_errors(res_k, res_p)
+    for name in ("rotation", "translation", "affine"):
+        err[name] = float(err[name].max())
+    log(f"  K3 (C = {c}, 5 hypotheses, level 0): iterations kernel {iter_summary(res_k)} plain"
+        f" {iter_summary(res_p)}, valid {int(res_p.num_valid.min())}..{int(res_p.num_valid.max())},"
+        f" d(energy) {err['energy']:.2e} rot {err['rotation']:.2e} rad trans"
+        f" {err['translation']:.2e} m")
+    require(err["num_valid"] <= 5e-3 and err["energy"] <= 1e-3 and err["rmse"] <= 1e-3,
+            f"K3 (C = {c}): {err}")
+    require(err["rotation"] <= 1e-4 and err["translation"] <= 1e-4, f"K3 (C = {c}): {err}")
+    require(par.align_level_equal(res_k, pa.align_level_cuda(*args3)),
+            f"K3 (C = {c}): two runs differ")
+    iters, nv = res_k.iterations.double(), res_k.num_valid.double()
+    ops = (float(((iters + 1) * nv).sum()) * OPS_ALIGN_POINT * c
+           + float(iters.sum()) * OPS_ALIGN_SOLVE)
+    rows["align_level"] = dict(
+        max_abs_err=max(err["translation"], err["rotation"], err["affine"]),
+        ms=cuda_ms(lambda: pa.align_level_cuda(*args3)),
+        plain_ms=cuda_ms(lambda: pa.align_level_plain(*args3), reps=3),
+        device_us=device_us(torch, lambda: pa.align_level_cuda(*args3)),
+        **bound(nbytes(*pts) + min(nbytes(tgt_map), 48 * c * int(nv.max())) + 5 * 13 * 4, ops),
+        library_ms=None)
 
 
 def parity_align(tracker, maps, torch, rows):
@@ -659,8 +791,10 @@ def parity_flow(seq, tracker, frame, torch, rows, label):
 def parity_keyframe(seq, tracker, frame, torch, rows, label):
     """K12–K14 and K16 on the window of ``tracker`` with frame ``frame`` (the
     next one) pushed as its newest keyframe at its ground-truth pose, each
-    wrapper with host synchronisation an error.  The kernels' rows of ``rows``
-    are the standart ones; the dense times are printed."""
+    wrapper with host synchronisation an error.  The kernels' rows go to
+    ``rows`` (the standart and the embedder window's); the dense times are
+    printed.  On a window of C > 1 channels the pairing samples each moved
+    point's C-channel patch."""
     from dsopp_tpu_torch import kernels
     from dsopp_tpu_torch.features import extractor
     from dsopp_tpu_torch.testing import parity as par
@@ -671,7 +805,7 @@ def parity_keyframe(seq, tracker, frame, torch, rows, label):
     def row(name, **fields):
         fields["library_ms"] = fields.get("library_ms")
         log_bound(name, label, fields)
-        if label == "standart":
+        if label != "dense":
             rows[name] = fields
         else:
             log(f"  {name} ({label}): kernel {fields['ms']:.4f} ms, plain {fields['plain_ms']:.4f}"
@@ -809,11 +943,16 @@ def parity_keyframe(seq, tracker, frame, torch, rows, label):
     require(err.pop("n_activated") > 20, f"K14 ({label}): hardly a point was paired")
     require(not any(err.values()), f"K14 ({label}): the pairing differs: {err}")
     moved = (win.lm_uv, win.lm_patch, win.lm_idepth, win.lm_valid, win.res_status)
+    # at C > 1 each paired point samples its C channels at the 8 pattern points
+    c = win.num_channels
+    samples = 0 if c == 1 else int(sc_p[2]) * 8 * c
     row("activation_scatter", max_abs_err=0.0,
         ms=cuda_ms(lambda: act._activation_scatter_cuda(win, imm2, keep, delete)),
         plain_ms=cuda_ms(lambda: act._activation_scatter_plain(win, imm2, keep, delete)),
+        device_us=device_us(torch, lambda: act._activation_scatter_cuda(win, imm2, keep, delete)),
         **bound(2 * nbytes(*moved) + nbytes(keep, delete, imm2.valid, imm2.valid)
-                + int(sc_p[2]) * 48, 4 * k * (n + m)))
+                + int(sc_p[2]) * 48 + min(nbytes(win.channel_bank) // 3, 48 * samples),
+                4 * k * (n + m) + OPS_WINDOW_SAMPLE * samples))
 
     # K16 — the frontend's state from the window after the pairing; landmarks
     # whose reprojection sits within 1e-3 px of a pixel boundary or of the image
@@ -875,9 +1014,9 @@ def parity_ba(seq, tracker, torch, rows, label, every, min_frames, timed):
         tracker.tick(i, float(seq.timestamps[i]), seq.images[i],
                      known_pose=seq.pose(i, torch.float32), force_keyframe=(i % every == every - 1))
     win, model, opts = tracker.window, tracker.models[0], tracker.pba_opts
-    k, n = win.num_slots, win.num_landmark_slots
+    k, n, c = win.num_slots, win.num_landmark_slots, win.num_channels
     kb = 8 * k
-    residuals = k * k * n * 8
+    residuals = k * k * n * 8          # pattern points: the FEJ geometry is per point
     gen = torch.Generator(device="cuda").manual_seed(0)
     step = torch.tensor([1e-3] * 6 + [5e-3, 0.3], device="cuda")
     eps = torch.randn((k, 8), generator=gen, device="cuda") * step
@@ -888,7 +1027,7 @@ def parity_ba(seq, tracker, torch, rows, label, every, min_frames, timed):
     lm_mask = pba.active_lm_mask(win)
     live = pba._pair_mask(win)[:, :, None] & lm_mask[:, None, :]
     frames = int(win.frame_valid.sum())
-    log(f"  BA window ({label}): {frames} of {k} frames, {int(lm_mask.sum())} of {k * n}"
+    log(f"  BA window ({label}): C = {c}, {frames} of {k} frames, {int(lm_mask.sum())} of {k * n}"
         f" landmarks, {int(live.sum())} live (anchor, target, landmark) groups of"
         f" {k * k * n}, ledger max |H_m| {float(win.h_marg.abs().max()):.3g}")
     require(frames >= min_frames, f"the {label} parity window holds fewer than {min_frames} frames")
@@ -911,18 +1050,19 @@ def parity_ba(seq, tracker, torch, rows, label, every, min_frames, timed):
             f"K7 ({label}): ok/status agree on {err['agree']:.5f} of live groups")
     worst = max(err[name] for name in ("residuals", "gx", "gy", "energy_patch", "weight"))
     require(worst <= 1e-4, f"K7 ({label}): relative error {worst:.3g} above 1e-4")
-    # only a live group's 8 residuals need a sample of the target's image
-    sampled = min(nbytes(win.maps) // 3, 48 * 8 * int(live.sum()))
+    # only a live group's 8 C residuals need a sample of the target's planes
+    sampled = min(nbytes(win.channel_bank) // 3, 48 * 8 * c * int(live.sum()))
     b7 = bound(nbytes(*win_in, eps, idepth, lm_mask, win.frame_valid, win.res_status)
-               + sampled + nbytes(*ev_k), OPS_EVALUATE_RESIDUAL * 8 * int(live.sum()))
+               + sampled + nbytes(*ev_k), OPS_EVALUATE_RESIDUAL * 8 * c * int(live.sum()))
     log_bound("ba_evaluate", label, b7)
     if "ba_evaluate" in timed:
-        both = (ev_k.ok & ev_p.ok)[..., None]
+        both = (ev_k.ok & ev_p.ok)[..., None, None]
         row("ba_evaluate",
             max_abs_err=float(torch.where(both, ev_k.residuals - ev_p.residuals,
                                           torch.zeros_like(ev_p.residuals)).abs().max()),
             ms=cuda_ms(lambda: pba._evaluate_cuda(*ev_args)),
-            plain_ms=cuda_ms(lambda: pba._evaluate_plain(*ev_args)), **b7)
+            plain_ms=cuda_ms(lambda: pba._evaluate_plain(*ev_args)),
+            device_us=device_us(torch, lambda: pba._evaluate_cuda(*ev_args)), **b7)
 
     # K8 (its FEJ formed inside from the window) on the plain version's
     # evaluation, against the plain version on the plain FEJ cache; also the
@@ -951,7 +1091,7 @@ def parity_ba(seq, tracker, torch, rows, label, every, min_frames, timed):
                             win.frame_valid, win.frame_fixed, win.frame_marg)
                      + nbytes(*sys_k),
                      OPS_FEJ_RESIDUAL * residuals
-                     + OPS_LINEARIZE_RESIDUAL * 8 * int(ev_p.ok.sum())
+                     + OPS_LINEARIZE_RESIDUAL * 8 * c * int(ev_p.ok.sum())
                      + 3 * int(lm_mask.sum()) * (kb * kb + kb))
 
     log_bound("ba_linearize_schur", label, k8_bound)
@@ -960,14 +1100,15 @@ def parity_ba(seq, tracker, torch, rows, label, every, min_frames, timed):
         return pba._linearize_from_ev_cuda(win, model, ev_p, eps, opts)
 
     k8_ms = cuda_ms(k8_call)
-    log(f"  K8 ({label}, K = {k}, N = {n}): call {k8_ms:.4f} ms,"
-        f" {fmt_us(device_us(torch, k8_call))}, bound {k8_bound['bound_ms']:.5f} ms"
+    k8_us = device_us(torch, k8_call)
+    log(f"  K8 ({label}, K = {k}, N = {n}, C = {c}): call {k8_ms:.4f} ms,"
+        f" {fmt_us(k8_us)}, bound {k8_bound['bound_ms']:.5f} ms"
         f" ({k8_bound['bound_by']})")
     # K6's Jacobians alone: the window's fields read once, no cache written
     b6 = bound(nbytes(*win_in), OPS_FEJ_RESIDUAL * residuals)
     log_bound("ba_fej", label, b6)
     if "ba_linearize_schur" in timed:
-        row("ba_linearize_schur", max_abs_err=err8, ms=k8_ms,
+        row("ba_linearize_schur", max_abs_err=err8, ms=k8_ms, device_us=k8_us,
             plain_ms=cuda_ms(lambda: pba._linearize_from_ev_plain(win, fej_p, ev_p, eps, opts)),
             **k8_bound)
     if "ba_fej" in timed:
@@ -1084,7 +1225,7 @@ def parity_ba(seq, tracker, torch, rows, label, every, min_frames, timed):
     log_bound("ba_lm", label, b10)
     if "ba_lm" in timed:
         row("ba_lm", max_abs_err=err10, ms=cuda_ms(control), plain_ms=cuda_ms(plain_control),
-            **b10)
+            device_us=device_us(torch, control), **b10)
         log(f"  K10 whole solve ({label}, filled ledger): device-resident loop"
             f" {cuda_ms(lambda: pba._solve_loop_cuda(filled, model, opts), reps=10):.3f}"
             f" ms, host-driven loop"
@@ -1112,6 +1253,8 @@ def parity_ba(seq, tracker, torch, rows, label, every, min_frames, timed):
             f" {cuda_ms(lambda: torch.nanquantile(flat, 0.75)):.4f} ms (the threshold only)")
         row("ba_point_status", max_abs_err=float((ps_k.threshold - ps_p.threshold).abs()),
             ms=cuda_ms(lambda: pba._point_status_from_ev_cuda(moved, ev_k, lm_mask, opts)),
+            device_us=device_us(torch, lambda: pba._point_status_from_ev_cuda(moved, ev_k,
+                                                                            lm_mask, opts)),
             plain_ms=cuda_ms(lambda: pba._point_status_from_ev_plain(moved, ev_k, lm_mask, opts)),
             **b11)
 
@@ -1121,8 +1264,9 @@ def parity_ba(seq, tracker, torch, rows, label, every, min_frames, timed):
 def parity_marg(tracker, windows, torch, rows, label):
     """K15p on the filled-ledger window of ``windows`` at the tracker's window
     sizes and with the window one frame too large; K15 on both windows in the
-    flagging cases of ``parity.MARG_CASES``.  The kernels' rows of ``rows``
-    are the standart ones; the dense times are printed."""
+    flagging cases of ``parity.MARG_CASES``.  The kernels' rows go to
+    ``rows`` (the standart and the embedder window's); the dense times are
+    printed."""
     from dsopp_tpu_torch.solvers import pba
     from dsopp_tpu_torch.testing import parity as par
     from dsopp_tpu_torch.tracker import marginalization as marg
@@ -1194,7 +1338,7 @@ def parity_marg(tracker, windows, torch, rows, label):
                 timed_case = (fold, out_k, err["eigenvalues"])
     def row(name, **fields):
         log_bound(name, label, fields)
-        if label == "standart":
+        if label != "dense":
             rows[name] = fields
         else:
             log(f"  {name} ({label}): kernel {fields['ms']:.4f} ms, plain {fields['plain_ms']:.4f}"
@@ -1703,6 +1847,22 @@ def undistort(seq, torch, card):
     require(err_img <= REMAP_TOL, f"[undistort] remap {err_img} > {REMAP_TOL}")
 
 
+def c1_bits(card):
+    """The single-channel outputs of the kernels that carry the channel axis
+    (K1, K3, K7, K8, K10, K11, on windows shaped by the whole keyframe
+    backend), digest by digest, against the tree before the channel axis
+    (``testing/c1_bits.py::PARENT_DIGESTS``)."""
+    from dsopp_tpu_torch.testing import c1_bits as bits
+
+    t0 = time.perf_counter()
+    got = bits.digests(bits.kernel_outputs())
+    differ = sorted(key for key in got if got[key] != bits.PARENT_DIGESTS.get(key))
+    log(f"[c1-bits] {len(got)} C = 1 kernel outputs, {len(got) - len(differ)} equal to the bit"
+        f" to the parent's, differing: {differ} ({time.perf_counter() - t0:.2f} s) | {card}")
+    require(set(got) == set(bits.PARENT_DIGESTS) and not differ,
+            f"C = 1 outputs differ from the parent's: {differ}")
+
+
 def report(label, st, card, seconds):
     log(f"[{label}] per keyframe (frame, n_active, n_activated, min_distance after it): "
         + " ".join(f"({i}, {a}, {b}, {c})" for i, a, b, c in st["per_keyframe"]))
@@ -1787,6 +1947,30 @@ def main():
         require(st["ate_max"] < MAX_GATE, f"ATE max {st['ate_max']:.5f} m >= {MAX_GATE}")
         require(abs(st["scale"] - 1.0) < SCALE_GATE, f"alignment scale {st['scale']:.4f}")
 
+        # the frame-embedder path runs the sequence of phase 5 at C = 3 channels
+        require(paths.PATHS["embedder"][0] == "standart", "the embedder path's sequence changed")
+        t0 = time.perf_counter()
+        # (its escalation closure is dropped at once: held, its state would
+        # count in the next paths' peak memory)
+        se = track(seq, "embedder", torch, kernels)[0]
+        report("track-embedder", se, card, time.perf_counter() - t0)
+        require(se["marginalized"] >= 1, "the embedder path marginalized no frame")
+        require(se["ate_rmse"] < RMSE_GATE,
+                f"embedder ATE RMSE {se['ate_rmse']:.5f} m >= {RMSE_GATE}")
+        require(se["ate_max"] < MAX_GATE, f"embedder ATE max {se['ate_max']:.5f} m >= {MAX_GATE}")
+        require(abs(se["scale"] - 1.0) < SCALE_GATE, f"embedder alignment scale {se['scale']:.4f}")
+        # tests/tracker/test_embedder_tracker.py's gate: C = 3 against C = 1 on
+        # the same frames, per-frame translation RMSE
+        gate = max(EMBEDDER_RATIO * st["rmse"], st["rmse"] + EMBEDDER_MARGIN)
+        log(f"[track-embedder] per-frame RMSE C = 3 {se['rmse']:.5f} m, C = 1 (track)"
+            f" {st['rmse']:.5f} m, gate {gate:.5f} m; K1 launches {se['counts']['pyramid_maps']}"
+            f" = 5 a frame + {se['counts']['pyramid_maps'] - 5 * se['frames']} channel maps for"
+            f" {se['keyframes']} keyframes (the track: {st['counts']['pyramid_maps']})")
+        require(se["rmse"] < gate, f"embedder per-frame RMSE {se['rmse']:.5f} m >= {gate:.5f}")
+        require(se["counts"]["pyramid_maps"] == 5 * se["frames"] + se["keyframes"],
+                f"embedder: K1 launched {se['counts']['pyramid_maps']} times for {se['frames']}"
+                f" frames and {se['keyframes']} keyframes")
+
         t0 = time.perf_counter()
         fast = paths.render_path("fast")
         torch.cuda.synchronize()
@@ -1867,8 +2051,8 @@ def main():
         require(sl["trajectory_rmse"] < ref["trajectory_rmse"] + LEDGER_MARGIN,
                 f"ledger: card trajectory RMSE {sl['trajectory_rmse']:.5f} m >= f64"
                 f" {ref['trajectory_rmse']:.5f} + {LEDGER_MARGIN}")
-        for label, st_run in (("track", st), ("track-fast", sf), ("track-dense", sd),
-                              ("track-masked", sm), ("track-ledger", sl)):
+        for label, st_run in (("track", st), ("track-embedder", se), ("track-fast", sf),
+                              ("track-dense", sd), ("track-masked", sm), ("track-ledger", sl)):
             require(st_run["counts"]["photometric_correct"] == 0,
                     f"[{label}] K18 launched on a path with no camera")
 
@@ -1879,13 +2063,14 @@ def main():
         undistort(seq, torch, card)
         e2e(torch, card, exposure=False)
         e2e(torch, card, exposure=True)
+        c1_bits(card)
     except SmokeError as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
 
     # a kernel folded into another (COMPUTED_IN) has no launch of its own
-    runs = dict(track=st, track_fast=sf, track_dense=sd, track_masked=sm, track_ledger=sl,
-                track_sensor=ss)
+    runs = dict(track=st, track_embedder=se, track_fast=sf, track_dense=sd, track_masked=sm,
+                track_ledger=sl, track_sensor=ss)
     result = {"kernels": [
         dict(name=name, route="cuda", source=SOURCES[name][0], replaces=SOURCES[name][1],
              launches=sum(run["counts"].get(name, 0) for run in runs.values()),

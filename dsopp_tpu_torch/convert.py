@@ -5,18 +5,22 @@ field names), so the port never imports jax: a caller flattens the JAX
 pytrees to numpy first.  Float arrays take the requested ``dtype``, bool
 arrays stay bool, integer arrays become int32.
 
-``window`` applies the three layout rules between the two packages:
+``window`` applies the four layout rules between the two packages:
 
 * ``patch`` / ``patch_map`` (the TPU's per-pixel patch-table bank and its
-  slot indirection) are dropped — the port samples ``maps`` directly;
+  slot indirection) are dropped — the port samples maps directly;
+* a window of C > 1 embedder channels carries them only in that bank: slot
+  j's channels are lane ``PATCH_LO·10 + PATCH_LO`` = 44 (the pixel itself)
+  of the rows ``patch_map[j]·C·H·W + c·H·W + p`` (the bank is
+  slot-indirect), and the port's ``channel_maps[j]`` is their
+  ``build_pixel_map``; at C = 1 the port has no channel bank but ``maps``;
 * ``maps`` needs no un-permuting: the JAX marginalizer permutes the map
   bank physically (``_permute_window``), only the patch bank is indirect;
 * the float64 ledger is the sum of the double-float pairs
   (``h_marg + h_marg_lo``, ``b_marg + b_marg_lo``,
   ``energy_marg + energy_marg_lo``).
 
-``fej_cache`` and ``evaluation`` drop the JAX package's channel axis (the
-port is single-channel, C = 1).
+``fej_cache`` and ``evaluation`` keep the channel axis, [K, K, N, C, P].
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ import numpy as np
 import torch
 
 from dsopp_tpu_torch.core.camera import Pinhole
+from dsopp_tpu_torch.core.interpolate import PATCH_LO, PATCH_WIN, build_pixel_map
 from dsopp_tpu_torch.core.lie import SE3
 from dsopp_tpu_torch.solvers.pba import (LEDGER_DTYPE, Evaluation, FEJCache, LinearSystem,
                                          PointStatus, Window)
@@ -75,11 +80,27 @@ def immature_points(fields: dict, dtype=torch.float64, device=None) -> ImmatureP
                              for k in ImmaturePoints._fields})
 
 
+def embedded_channels(patch, patch_map, height: int, width: int) -> np.ndarray:
+    """A JAX window's patch bank [K, C·H·W, 128] and ``patch_map`` [K] → each
+    frame slot's [C, H, W] channels (the centre lane of each pixel's row)."""
+    patch = np.asarray(patch)
+    k = patch.shape[0]
+    c = patch.shape[1] // (height * width)
+    centre = PATCH_LO * PATCH_WIN + PATCH_LO
+    bank = patch[np.asarray(patch_map).astype(np.int64), :, centre]      # [K, C·H·W]
+    return bank.reshape(k, c, height, width)
+
+
 def window(fields: dict, dtype=torch.float64, device=None) -> Window:
     """JAX ``Window`` fields → port ``Window`` (see the module rules)."""
     out = {}
+    h, w = np.asarray(fields["maps"]).shape[-2:]
     for name in Window.__dataclass_fields__:
-        if name in ("h_marg", "b_marg", "energy_marg"):
+        if name == "channel_maps":
+            chans = embedded_channels(fields["patch"], fields["patch_map"], h, w)
+            out[name] = (None if chans.shape[1] == 1 else
+                         torch.stack([build_pixel_map(tensor(x, dtype, device)) for x in chans]))
+        elif name in ("h_marg", "b_marg", "energy_marg"):
             ledger = (np.asarray(fields[name], np.float64)
                       + np.asarray(fields[name + "_lo"], np.float64))
             out[name] = torch.as_tensor(ledger, dtype=LEDGER_DTYPE, device=device)
@@ -88,27 +109,14 @@ def window(fields: dict, dtype=torch.float64, device=None) -> Window:
     return Window(**out)
 
 
-def _drop_channel(a):
-    """[K,K,N,C=1,P] → [K,K,N,P]."""
-    a = np.asarray(a)
-    if a.shape[3] != 1:
-        raise ValueError(f"the port is single-channel, got C = {a.shape[3]}")
-    return a[:, :, :, 0]
-
-
 def fej_cache(fields: dict, dtype=torch.float64, device=None) -> FEJCache:
     """JAX ``FEJCache`` fields → port ``FEJCache``."""
-    out = {k: fields[k] for k in FEJCache._fields}
-    out["corrected_ref"] = _drop_channel(out["corrected_ref"])
-    return FEJCache(**{k: tensor(v, dtype, device) for k, v in out.items()})
+    return FEJCache(**{k: tensor(fields[k], dtype, device) for k in FEJCache._fields})
 
 
 def evaluation(fields: dict, dtype=torch.float64, device=None) -> Evaluation:
     """JAX ``Evaluation`` fields → port ``Evaluation``."""
-    out = {k: fields[k] for k in Evaluation._fields}
-    for name in ("residuals", "gx", "gy"):
-        out[name] = _drop_channel(out[name])
-    return Evaluation(**{k: tensor(v, dtype, device) for k, v in out.items()})
+    return Evaluation(**{k: tensor(fields[k], dtype, device) for k in Evaluation._fields})
 
 
 def linear_system(fields: dict, dtype=torch.float64, device=None) -> LinearSystem:

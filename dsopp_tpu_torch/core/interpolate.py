@@ -3,7 +3,9 @@
 ``dsopp_tpu/ops/patch.py``).
 
 A pixel map is ``[3, H, W]`` of (intensity, d/dx, d/dy), gradients being
-½·central differences inside the image and one-sided at the border.
+½·central differences inside the image and one-sided at the border; a
+C-channel map (a frame embedder's) is ``[3C, H, W]`` in the JAX package's
+group layout ``[values C | d/dx C | d/dy C]``.
 
 Two samplers:
 
@@ -41,9 +43,12 @@ def image_gradients(image):
 
 
 def build_pixel_map(image):
-    """[H, W] intensity → [3, H, W] (intensity, dx, dy)."""
+    """[H, W] intensity → [3, H, W] (intensity, dx, dy); [C, H, W] channels →
+    [3C, H, W] (values C | dx C | dy C)."""
+    if image.dim() == 2:
+        image = image[None]
     dx, dy = image_gradients(image)
-    return torch.stack([image, dx, dy], dim=0)
+    return torch.cat([image, dx, dy], dim=0)
 
 
 def bilinear_weights(uv, height, width):

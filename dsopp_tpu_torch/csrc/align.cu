@@ -19,6 +19,7 @@ namespace {
 
 using namespace align;
 
+template <bool kMulti>
 __global__ void __launch_bounds__(kThreads)
 align_residual_kernel(Problem prob, const float* __restrict__ pose_q,
                       const float* __restrict__ pose_t,
@@ -36,7 +37,7 @@ align_residual_kernel(Problem prob, const float* __restrict__ pose_q,
                    {pose_q[4 * hyp + 1], pose_q[4 * hyp + 2], pose_q[4 * hyp + 3]},
                    {pose_t[3 * hyp + 0], pose_t[3 * hyp + 1], pose_t[3 * hyp + 2]},
                    affine[2 * hyp + 0], affine[2 * hyp + 1]};
-  residual_system_block(prob, ps, part, sys);
+  residual_system_block<kMulti>(prob, ps, part, sys);
 
   const int i = threadIdx.x;
   if (i < 36) {
@@ -60,21 +61,24 @@ align_residual_kernel(Problem prob, const float* __restrict__ pose_q,
 
 }  // namespace
 
-// Points [n] (uv [n,2], idepth, intensity f32; valid u8), map [3,h,w] f32,
+// Points [n] (uv [n,2], idepth f32, intensity [n] or [n,C] f32; valid u8),
+// map [3C,h,w] f32 of C channels,
 // hypotheses [num_hyp] (pose_q [.,4], pose_t [.,3], affine [.,2]), ref [3] =
 // (a_ref, b_ref, exposure ratio).  Outputs: H [num_hyp,8,8], b [num_hyp,8],
 // energy [num_hyp] (no priors), num_valid [num_hyp] int32.
 extern "C" int align_residual_system(
     const float* uv, const float* idepth, const float* intensity,
-    const unsigned char* valid, int n, const float* map, int h, int w,
+    const unsigned char* valid, int n, const float* map, int h, int w, int channels,
     const float* pose_q, const float* pose_t, const float* affine,
     const float* ref, int num_hyp, float fx, float fy, float cx, float cy,
     float width, float height, float sigma, float* out_h, float* out_b,
     float* out_e, int* out_n, void* stream) {
+  if (channels < 1) return (int)cudaErrorInvalidValue;
   const align::Problem prob = {uv, idepth, intensity, valid, n,  map,   h,
-                             w,  fx,     fy,        cx,    cy, width, height,
+                             w,  channels, fx,     fy,        cx,    cy, width, height,
                              0.0f, 0.0f, 0.0f, sigma};
-  align_residual_kernel<<<num_hyp, align::kThreads, 0, (cudaStream_t)stream>>>(
+  auto kernel = channels == 1 ? align_residual_kernel<false> : align_residual_kernel<true>;
+  kernel<<<num_hyp, align::kThreads, 0, (cudaStream_t)stream>>>(
       prob, pose_q, pose_t, affine, ref, out_h, out_b, out_e, out_n);
   return (int)cudaGetLastError();
 }

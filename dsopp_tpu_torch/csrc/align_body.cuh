@@ -3,6 +3,14 @@
 // (align::accumulate_point), which the residual pass of K2 (csrc/align.cu)
 // and the LM loop K3 (csrc/align_level.cu) both run, and K2's block pass.
 //
+// A map of C channels ([3C, h, w]: values C | dx C | dy C; a frame
+// embedder's, dsopp_tpu/solvers/pose_alignment.py:101-161) gives a point C
+// residuals: accumulate_channels sums their squares for the whole-point
+// Huber (sigma sqrt(C), given by the caller) and adds one Jacobian row a
+// channel.  C = 1 runs accumulate_point, the single-channel code; the kernels
+// that call them are templates on kMulti, so that the C = 1 instance is the
+// single-channel kernel's code and registers.
+//
 // K2's block works on one pose hypothesis: 256 threads stride over the
 // points, each accumulating its 36 upper-triangle H entries, 8 b entries,
 // the energy and the count in registers; then a fixed-order reduction (warp
@@ -28,8 +36,9 @@ struct Vec3 {
   float x, y, z;
 };
 
-// Reference points of one pyramid level, the target's [3, h, w] map, the
-// camera of that level and the reference frame's brightness.
+// Reference points of one pyramid level (intensity [n] at C = 1, [n, C]
+// else), the target's [3C, h, w] map, the camera of that level and the
+// reference frame's brightness.
 struct Problem {
   const float* uv;
   const float* idepth;
@@ -37,7 +46,7 @@ struct Problem {
   const unsigned char* valid;
   int n;
   const float* map;
-  int h, w;
+  int h, w, channels;
   float fx, fy, cx, cy, width, height;
   float a_r, b_r, ratio;
   float sigma;
@@ -140,11 +149,88 @@ static __device__ __forceinline__ bool accumulate_point(const Problem& prob, con
   return true;
 }
 
+// accumulate_point for a map of C > 1 channels: point `p`'s intensities are
+// intensity[p * C + c]; its C residuals' squares are summed for one Huber
+// weight, then each channel adds the H and b terms of its Jacobian row.
+static __device__ bool accumulate_channels(const Problem& prob, const Pose& ps, float scale,
+                                           float rx, float ry, float d, int p, float* acc) {
+  const float sigma = prob.sigma, sigma_sq = prob.sigma * prob.sigma;
+  const float fx = prob.fx, fy = prob.fy, cx = prob.cx, cy = prob.cy;
+  const int h = prob.h, w = prob.w, nc = prob.channels;
+  const size_t plane = (size_t)h * w;
+  const Vec3 ray = {rx, ry, 1.0f};
+  const Vec3 rot = quat_rotate(ps.qw, ps.qu, ray);
+  const Vec3 q = {rot.x + d * ps.t.x, rot.y + d * ps.t.y, rot.z + d * ps.t.z};
+  const float z_safe = fabsf(q.z) < 1e-12f ? 1e-12f : q.z;
+  const float iz = 1.0f / z_safe;
+  const float iz2 = iz * iz;
+  const float u_t = fx * q.x * iz + cx;
+  const float v_t = fy * q.y * iz + cy;
+  const bool ok_proj = (q.z >= 1e-3f) && u_t >= 4.0f && v_t >= 4.0f &&
+                       u_t <= prob.width - 4.0f - 1.0f && v_t <= prob.height - 4.0f - 1.0f;
+  const bool ok_z = q.z >= 1e-3f * fmaxf(d, 0.0f) + 1e-12f;
+  const bool ok_d = d > -1e-4f && d < 1010.0f;
+  const bool inside = u_t >= 0.0f && v_t >= 0.0f && u_t <= (float)(w - 1) &&
+                      v_t <= (float)(h - 1);
+  if (!(ok_proj && ok_z && ok_d && inside)) return false;
+
+  const float fxl = floorf(u_t), fyl = floorf(v_t);
+  const float ax = u_t - fxl, ay = v_t - fyl;
+  const int ix = min(max((int)fxl, 0), w - 2);
+  const int iy = min(max((int)fyl, 0), h - 2);
+  const size_t base = (size_t)iy * w + ix;
+  const float w00 = (1.0f - ax) * (1.0f - ay), w01 = ax * (1.0f - ay);
+  const float w10 = (1.0f - ax) * ay, w11 = ax * ay;
+  auto bilinear = [&](int plane_index) {
+    const float* m = prob.map + plane_index * plane + base;
+    return ((__ldg(m) * w00 + __ldg(m + 1) * w01) + __ldg(m + w) * w10) + __ldg(m + w + 1) * w11;
+  };
+  const float* ref = prob.intensity + (size_t)p * nc;
+
+  // the point's C residuals, squared and summed in channel order
+  float r2 = 0.0f;
+  for (int c = 0; c < nc; ++c) {
+    const float r = (bilinear(c) - ps.b) - scale * (ref[c] - prob.b_r);
+    r2 += r * r;
+  }
+  const float norm = sqrtf(fmaxf(r2, 1e-30f));
+  const bool linear = r2 > sigma_sq;
+  const float energy = linear ? sigma * norm - 0.5f * sigma_sq : 0.5f * r2;
+  const float weight = linear ? sigma / norm : 1.0f;
+
+  const Vec3 j0 = {fx * iz, 0.0f, -fx * q.x * iz2};
+  const Vec3 j1 = {0.0f, fy * iz, -fy * q.y * iz2};
+  const Vec3 c0 = cross(j0, q), c1 = cross(j1, q);
+  const float du0[6] = {d * j0.x, d * j0.y, d * j0.z, -c0.x, -c0.y, -c0.z};
+  const float du1[6] = {d * j1.x, d * j1.y, d * j1.z, -c1.x, -c1.y, -c1.z};
+  for (int c = 0; c < nc; ++c) {
+    const float corrected = scale * (ref[c] - prob.b_r);
+    const float r = (bilinear(c) - ps.b) - corrected;
+    const float gx = bilinear(nc + c), gy = bilinear(2 * nc + c);
+    float jac[8];
+#pragma unroll
+    for (int i = 0; i < 6; ++i) jac[i] = gx * du0[i] + gy * du1[i];
+    jac[6] = -corrected;
+    jac[7] = -1.0f;
+    int k = 0;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float wj = jac[i] * weight;
+#pragma unroll
+      for (int j = i; j < 8; ++j) acc[k++] += wj * jac[j];
+      acc[36 + i] += wj * r;
+    }
+  }
+  acc[kEnergy] += energy;
+  return true;
+}
+
 // Residuals and the 8x8 Gauss-Newton system of hypothesis `ps`, without the
 // affine priors.  Every thread of the block calls it; `part` is block
 // scratch.  On return (a __syncthreads() has passed) sys[0..35] is H's upper
 // triangle by rows, sys[36..43] b, sys[kEnergy] the energy and sys[kCount]
 // the number of valid points as int bits.
+template <bool kMulti>
 static __device__ void residual_system_block(const Problem& prob, const Pose& ps,
                                              float (*part)[kSys], float* sys) {
   const float scale = prob.ratio * expf(ps.a - prob.a_r);
@@ -158,9 +244,11 @@ static __device__ void residual_system_block(const Problem& prob, const Pose& ps
     if (!prob.valid[p]) continue;
     const float rx = (prob.uv[2 * p] - prob.cx) / prob.fx;
     const float ry = (prob.uv[2 * p + 1] - prob.cy) / prob.fy;
-    if (accumulate_point(prob, ps, scale, rx, ry, prob.idepth[p], prob.intensity[p] - prob.b_r,
-                         acc))
-      ++count;
+    const bool ok = kMulti
+                        ? accumulate_channels(prob, ps, scale, rx, ry, prob.idepth[p], p, acc)
+                        : accumulate_point(prob, ps, scale, rx, ry, prob.idepth[p],
+                                           prob.intensity[p] - prob.b_r, acc);
+    if (ok) ++count;
   }
 
   // fixed-order reduction: butterfly within warps, then warps in order

@@ -15,7 +15,9 @@
 //  - Each block owns a contiguous slice of the level's points (the partition
 //    depends on n and C only) and stages it once per launch into shared
 //    memory as (ray x, ray y, idepth, intensity - b_r); the level's map stays
-//    in L2.
+//    in L2.  Against a map of several embedder channels (a [3 Ch, h, w] map,
+//    intensities [n, Ch]) the fourth word is the point's index and
+//    align::accumulate_channels reads its Ch intensities from global memory.
 //  - A pass: 256 threads over the slice (align::accumulate_point, K2's
 //    per-point body); one reduce-scatter butterfly per warp (62 shuffles for
 //    the 46 sums, padded to 64, against 230 for 46 butterflies); the warps'
@@ -195,6 +197,7 @@ __host__ __device__ __forceinline__ int cluster_blocks(int num_hyp) {
   return num_hyp <= 16 ? 8 : (num_hyp <= 33 ? 4 : 2);
 }
 
+template <bool kMulti>
 __global__ void __launch_bounds__(kThreads, 2)
 align_level_kernel(Problem prob, LmOptions o, const float* __restrict__ pose_q,
                    const float* __restrict__ pose_t, const float* __restrict__ affine,
@@ -232,7 +235,7 @@ align_level_kernel(Problem prob, LmOptions o, const float* __restrict__ pose_q,
     v.x = prob.valid[p] ? (prob.uv[2 * p] - prob.cx) / prob.fx : __int_as_float(0x7fc00000);
     v.y = (prob.uv[2 * p + 1] - prob.cy) / prob.fy;
     v.z = prob.idepth[p];
-    v.w = prob.intensity[p] - prob.b_r;
+    v.w = kMulti ? __int_as_float(p) : prob.intensity[p] - prob.b_r;
     pts[i] = v;
   }
   if (threadIdx.x == 0) {
@@ -259,7 +262,10 @@ align_level_kernel(Problem prob, LmOptions o, const float* __restrict__ pose_q,
     for (int i = threadIdx.x; i < count_pts; i += kThreads) {
       const float4 v = pts[i];
       if (isnan(v.x)) continue;
-      if (accumulate_point(prob, trial, scale, v.x, v.y, v.z, v.w, acc)) ++valid;
+      const bool ok = kMulti ? accumulate_channels(prob, trial, scale, v.x, v.y, v.z,
+                                                   __float_as_int(v.w), acc)
+                             : accumulate_point(prob, trial, scale, v.x, v.y, v.z, v.w, acc);
+      if (ok) ++valid;
     }
     acc[kCount] = (float)valid;  // exact: a count below 2^24
     float v0, v1;
@@ -393,7 +399,7 @@ align_level_kernel(Problem prob, LmOptions o, const float* __restrict__ pose_q,
 // memory, is refused, never run another way.
 extern "C" int align_level(
     const float* uv, const float* idepth, const float* intensity,
-    const unsigned char* valid, int n, const float* map, int h, int w,
+    const unsigned char* valid, int n, const float* map, int h, int w, int channels,
     const float* pose_q, const float* pose_t, const float* affine,
     const float* ref, int num_hyp, float fx, float fy, float cx, float cy,
     float width, float height, float sigma, int max_iterations,
@@ -402,17 +408,21 @@ extern "C" int align_level(
     float reg_decrease, float reg_increase, float* out_q, float* out_t,
     float* out_affine, float* out_e, int* out_n, float* out_rmse,
     int* out_iters, float* trace, void* stream) {
-  if (num_hyp < 1 || n < 0) return (int)cudaErrorInvalidValue;
+  if (num_hyp < 1 || n < 0 || channels < 1) return (int)cudaErrorInvalidValue;
   const align::Problem prob = {uv, idepth, intensity, valid, n,  map,   h,
-                             w,  fx,     fy,        cx,    cy, width, height,
+                             w,  channels, fx,     fy,        cx,    cy, width, height,
                              0.0f, 0.0f, 0.0f, sigma};
   const LmOptions o = {max_iterations,      initial_regularizer, function_tolerance,
                        parameter_tolerance, affine_reg_a,        affine_reg_b,
                        reg_decrease,        reg_increase};
   const int csize = cluster_blocks(num_hyp);
   const size_t bytes = (size_t)((n + csize - 1) / csize) * sizeof(float4);
-  static size_t opted[smem::kMaxDevices] = {};
-  cudaError_t err = smem::fit(align_level_kernel, bytes, opted);
+  // the single-channel instance, or the one for a map of several channels;
+  // each opts in to the shared memory once per device
+  static size_t opted[2][smem::kMaxDevices] = {};
+  const bool multi = channels > 1;
+  auto kernel = multi ? align_level_kernel<true> : align_level_kernel<false>;
+  cudaError_t err = smem::fit(kernel, bytes, opted[multi]);
   if (err != cudaSuccess) return (int)err;
 
   cudaLaunchConfig_t config = {};
@@ -427,7 +437,7 @@ extern "C" int align_level(
   attribute[0].val.clusterDim.z = 1;
   config.attrs = attribute;
   config.numAttrs = 1;
-  err = cudaLaunchKernelEx(&config, align_level_kernel, prob, o, pose_q, pose_t, affine, ref,
+  err = cudaLaunchKernelEx(&config, kernel, prob, o, pose_q, pose_t, affine, ref,
                            out_q, out_t, out_affine, out_e, out_n, out_rmse, out_iters, trace);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();

@@ -3,7 +3,7 @@
 // (K5, K10, K11, K13, K14, K15p, K16): the residual pattern, rigid transforms
 // on quaternion + translation with the formulas and small-angle branches of
 // core/lie.py, the relative pose T_j^-1 T_i of an (anchor i, target j) pair,
-// the first-estimate Jacobians of a residual (fej_point), the 10x10-window
+// the first-estimate Jacobians of a pattern point (fej_point), the 10x10-window
 // sampling rule of core/interpolate.py::sample_window, a block scan and the
 // count of valid frames.
 //
@@ -141,24 +141,29 @@ static __device__ __forceinline__ bool reprojection_valid(const Camera& cam, flo
   return proj && ok_z && ok_d;
 }
 
-// The first-estimate Jacobians of one residual (dsopp_tpu/solvers/pba.py::
-// _fej_cache, pba.py::_fej_cache_plain here): pattern point (u, v) of a
-// landmark with inverse depth d, reprojected by the pair's relative pose at
-// the linearization point.  K8 forms them where it reads them; they were
-// once kernel K6's cache.  valid is the point's own reprojection test (the
-// landmark's is the AND over its pattern, all_of_pattern); corrected is the
-// reference intensity `patch` corrected into the target's brightness.
+// The first-estimate Jacobians of one pattern point (dsopp_tpu/solvers/
+// pba.py::_fej_cache, pba.py::_fej_cache_plain here): pattern point (u, v)
+// of a landmark with inverse depth d, reprojected by the pair's relative
+// pose at the linearization point.  K8 forms them where it reads them; they
+// were once kernel K6's cache.  The geometry is the point's, shared by its C
+// residuals (one a channel); valid is the point's own reprojection test (the
+// landmark's is the AND over its pattern, all_of_pattern).  Each channel's
+// residual adds its frozen affine column, fej_corrected.
 struct Fej {
   float ref[12];     // d uv / d eps_anchor, rows u then v: [d A | -(A x ray)], A = J R
   float tgt[12];     // d uv / d eps_target, rows u then v: [-d J | J x q]
   float idepth[2];   // d uv / d idepth: J t
-  float corrected;   // scale (patch - b_anchor)
   bool valid;
 };
 
+// a channel's reference intensity `patch` corrected into the target's
+// brightness: scale (patch - b_anchor)
+static __device__ __forceinline__ float fej_corrected(float scale, float patch, float b_anchor) {
+  return scale * (patch - b_anchor);
+}
+
 static __device__ __forceinline__ Fej fej_point(const Camera& cam, const Rigid& rel, float u,
-                                                float v, float d, float scale, float patch,
-                                                float b_anchor) {
+                                                float v, float d) {
   Vec3 ray;
   const Vec3 q = scaled_target_point(cam, u, v, d, rel, &ray);
   const float z_safe = fabsf(q.z) < 1e-12f ? 1e-12f : q.z;
@@ -196,7 +201,6 @@ static __device__ __forceinline__ Fej fej_point(const Camera& cam, const Rigid& 
   f.tgt[9] = jq1.x;     f.tgt[10] = jq1.y;    f.tgt[11] = jq1.z;
   f.idepth[0] = (j0.x * rel.t.x + j0.y * rel.t.y) + j0.z * rel.t.z;
   f.idepth[1] = (j1.x * rel.t.x + j1.y * rel.t.y) + j1.z * rel.t.z;
-  f.corrected = scale * (patch - b_anchor);
   return f;
 }
 

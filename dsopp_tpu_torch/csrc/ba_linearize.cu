@@ -53,6 +53,16 @@
 // dsopp_tpu_torch/testing/linearize_order.py mirrors this order of summation
 // and the FEJ arithmetic on the CPU.
 //
+// C channels (a frame embedder's; pba.py:444-471): a pattern point has C
+// residual rows, one a channel, which share its FEJ geometry and differ in
+// their gradients, residual and frozen affine column scale (patch_c -
+// b_anchor).  pair_kernel forms a point's geometry once and then stages its
+// chunk C times, channel by channel, each stage the same 256 rows of 32
+// landmarks as at C = 1 (shared memory and the MMA shape unchanged); the
+// per-landmark sums run over the C * 8 rows channel-major, as the plain
+// version's rows.  C = 1 is its own instance of the kernel (pair_kernel<false>,
+// the single-channel code); C > 1 runs pair_kernel<true> with C at run time.
+//
 // Frames: k up to 40 (kMaxFrames: schur_kernel's 21 warps; the dense
 // operating point runs k = 17).  Inside the LM loop the entry takes the
 // loop's state and every kernel returns at once when the loop is done
@@ -97,14 +107,32 @@ __device__ __forceinline__ void dmma(double (&d)[4], const double (&a)[8], const
         "d"(b[0]), "d"(b[1]), "d"(b[2]), "d"(b[3]));
 }
 
-__global__ void __launch_bounds__(kThreads, 3)
+// a landmark's sums over its rows: the target term straight into hpd[i, l, j],
+// the anchor term, h_dd and b_d to scratch (at C = 1 before the chunk's
+// products, as the single-channel kernel wrote them; at C > 1 after the last
+// channel's stage)
+__device__ __forceinline__ void write_landmark_sums(float* __restrict__ hpd,
+                                                    float* __restrict__ lm_part, int anchor,
+                                                    int target, int k, int n, int lm,
+                                                    size_t group, int p, float h_ref,
+                                                    float h_tgt, float extra) {
+  hpd[(((size_t)anchor * n + lm) * k + target) * 8 + p] = h_tgt;
+  lm_part[group * kLmOut + p] = h_ref;
+  if (p < 2) lm_part[group * kLmOut + 8 + p] = extra;
+}
+
+// kMulti: the instance for C > 1 channels, with two blocks an SM (128
+// registers a thread: the C loop holds the point's FEJ geometry and the
+// landmark sums across the stages); the C = 1 instance keeps three
+template <bool kMulti>
+__global__ void __launch_bounds__(kThreads, kMulti ? 2 : 3)
 pair_kernel(const float* __restrict__ t_lin_q, const float* __restrict__ t_lin_t,
             const float* __restrict__ affine0, const float* __restrict__ exposure,
             const float* __restrict__ lm_uv, const float* __restrict__ lin_idepth,
             const float* __restrict__ lm_patch, ba::Camera cam,
             const float* __restrict__ residuals, const float* __restrict__ weight,
             const float* __restrict__ gx, const float* __restrict__ gy,
-            const unsigned char* __restrict__ ok, int k, int n, int tiles,
+            const unsigned char* __restrict__ ok, int k, int n, int channels_in, int tiles,
             const int* __restrict__ lm_state, double* __restrict__ pair_part,
             float* __restrict__ lm_part, float* __restrict__ hpd) {
   if (ba::lm_done(lm_state)) return;
@@ -117,6 +145,7 @@ pair_kernel(const float* __restrict__ t_lin_q, const float* __restrict__ t_lin_t
   __shared__ ba::Rigid rel_s;
   __shared__ float scale_s;
 
+  const int channels = kMulti ? channels_in : 1;
   const int pair = blockIdx.y, tile = blockIdx.x;
   const int anchor = pair / k, target = pair % k;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -131,13 +160,13 @@ pair_kernel(const float* __restrict__ t_lin_q, const float* __restrict__ t_lin_t
     const int lm0 = tile * kTileLm + chunk * kChunkLm;
     if (lm0 >= n) break;
     const int lm = lm0 + ln;
-    // this residual's inputs, all loads issued before the first chunk's
-    // barrier; lanes past the last landmark read the last one's geometry, so
-    // that every lane takes part in the pattern's shuffle
+    // this residual's inputs (channel 0's), all loads issued before the first
+    // chunk's barrier; lanes past the last landmark read the last one's
+    // geometry, so that every lane takes part in the pattern's shuffle
     const bool live = lm < n;
     const size_t at = (size_t)anchor * n + (live ? lm : n - 1);   // the anchor's landmark
     const size_t group = (size_t)pair * n + lm;
-    const size_t res = group * kPattern + p;
+    const size_t res = group * channels * kPattern + p;
     float wgt = 0.0f, g_x = 0.0f, g_y = 0.0f, r = 0.0f;
     bool ok_g = false;
     if (live) {
@@ -150,7 +179,7 @@ pair_kernel(const float* __restrict__ t_lin_q, const float* __restrict__ t_lin_t
     const float u = lm_uv[2 * at] + ba::kPatternX[p];
     const float v = lm_uv[2 * at + 1] + ba::kPatternY[p];
     const float d = lin_idepth[at];
-    const float patch = lm_patch[at * kPattern + p];
+    float patch = lm_patch[at * channels * kPattern + p];
     if (chunk == 0) {
       if (tid == 0) {
         rel_s = ba::relative_pose(t_lin_q, t_lin_t, nullptr, anchor, target);
@@ -160,69 +189,93 @@ pair_kernel(const float* __restrict__ t_lin_q, const float* __restrict__ t_lin_t
       __syncthreads();
     }
     const float s0 = scale_s;
-    const ba::Fej f = ba::fej_point(cam, rel_s, u, v, d, s0, patch, b_anchor);
+    // the point's geometry, once; its C residual rows (one a channel) follow
+    const ba::Fej f = ba::fej_point(cam, rel_s, u, v, d);
+    float corrected = ba::fej_corrected(s0, patch, b_anchor);
     const bool geom_valid = ba::all_of_pattern(f.valid ? 1 : 0) != 0;
-    float row[kCols];
-    float jd = 0.0f;
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) row[c] = 0.0f;
-    if (live) {
-      if (!(ok_g && geom_valid)) wgt = 0.0f;
-#pragma unroll
-      for (int c = 0; c < 6; ++c) {
-        row[c] = g_x * f.ref[c] + g_y * f.ref[6 + c];
-        row[8 + c] = g_x * f.tgt[c] + g_y * f.tgt[6 + c];
+    // the per-landmark sums over its C * 8 rows, channel by channel (C > 1)
+    float h_ref = 0.0f, h_tgt = 0.0f, extra = 0.0f;
+    for (int c = 0; c < channels; ++c) {
+      if (c > 0) {
+        if (live) {
+          const size_t res_c = res + (size_t)c * kPattern;
+          g_x = gx[res_c];
+          g_y = gy[res_c];
+          r = residuals[res_c];
+        }
+        patch = lm_patch[(at * channels + c) * kPattern + p];
+        corrected = ba::fej_corrected(s0, patch, b_anchor);
       }
-      row[6] = f.corrected;
-      row[7] = s0;
-      row[14] = -f.corrected;
-      row[15] = -1.0f;
-      jd = g_x * f.idepth[0] + g_y * f.idepth[1];
-    }
+      float row[kCols];
+      float jd = 0.0f;
 #pragma unroll
-    for (int c = 0; c < kCols; ++c) cols[c][tid] = row[c];
-    cols[kCols][tid] = r;
-    jd_s[tid] = jd;
-    if (p == 0) w_s[ln] = wgt;
-    __syncthreads();
+      for (int col = 0; col < kCols; ++col) row[col] = 0.0f;
+      if (live) {
+        if (!(ok_g && geom_valid)) wgt = 0.0f;
+#pragma unroll
+        for (int col = 0; col < 6; ++col) {
+          row[col] = g_x * f.ref[col] + g_y * f.ref[6 + col];
+          row[8 + col] = g_x * f.tgt[col] + g_y * f.tgt[6 + col];
+        }
+        row[6] = corrected;
+        row[7] = s0;
+        row[14] = -corrected;
+        row[15] = -1.0f;
+        jd = g_x * f.idepth[0] + g_y * f.idepth[1];
+      }
+#pragma unroll
+      for (int col = 0; col < kCols; ++col) cols[col][tid] = row[col];
+      cols[kCols][tid] = r;
+      jd_s[tid] = jd;
+      if (p == 0) w_s[ln] = wgt;
+      __syncthreads();
 
-    // per landmark: sum over its 8 points of (w J)[col] j_d, j_d^2 w, j_d r w
-    if (lm < n) {
-      const float wv = w_s[ln];
-      float h_ref = 0.0f, h_tgt = 0.0f, extra = 0.0f;
-      for (int pp = 0; pp < kPattern; ++pp) {
-        const int t = ln * kPattern + pp;
-        h_ref += (wv * cols[p][t]) * jd_s[t];
-        h_tgt += (wv * cols[8 + p][t]) * jd_s[t];
-        if (p == 0) extra += (jd_s[t] * jd_s[t]) * wv;
-        if (p == 1) extra += (jd_s[t] * cols[kCols][t]) * wv;
+      // per landmark: sum over its 8 points of (w J)[col] j_d, j_d^2 w, j_d r w
+      if (lm < n) {
+        const float wv = w_s[ln];
+        float s_ref = kMulti ? h_ref : 0.0f, s_tgt = kMulti ? h_tgt : 0.0f;
+        float s_extra = kMulti ? extra : 0.0f;
+        for (int pp = 0; pp < kPattern; ++pp) {
+          const int t = ln * kPattern + pp;
+          s_ref += (wv * cols[p][t]) * jd_s[t];
+          s_tgt += (wv * cols[8 + p][t]) * jd_s[t];
+          if (p == 0) s_extra += (jd_s[t] * jd_s[t]) * wv;
+          if (p == 1) s_extra += (jd_s[t] * cols[kCols][t]) * wv;
+        }
+        if (kMulti) {
+          h_ref = s_ref;
+          h_tgt = s_tgt;
+          extra = s_extra;
+        } else {
+          write_landmark_sums(hpd, lm_part, anchor, target, k, n, lm, group, p, s_ref, s_tgt,
+                              s_extra);
+        }
       }
-      hpd[(((size_t)anchor * n + lm) * k + target) * 8 + p] = h_tgt;
-      lm_part[group * kLmOut + p] = h_ref;
-      if (p < 2) lm_part[group * kLmOut + 8 + p] = extra;
-    }
 
-    // warp w: residuals 32w..32w+31, sixteen a product, in order.  A = (w J)^T
-    // (16 x 16 residuals; w J rounded in f32), B = [J | r] (16 residuals x
-    // 24): lane (g, t) takes columns g and 8 + g of residuals t + 4j
+      // warp w: residuals 32w..32w+31, sixteen a product, in order.  A = (w J)^T
+      // (16 x 16 residuals; w J rounded in f32), B = [J | r] (16 residuals x
+      // 24): lane (g, t) takes columns g and 8 + g of residuals t + 4j
 #pragma unroll
-    for (int step = 0; step < 2; ++step) {
-      double a[8], b[3][4];
+      for (int step = 0; step < 2; ++step) {
+        double a[8], b[3][4];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int t = warp * 32 + step * 16 + t4 + 4 * j;
-        const float x = cols[g][t], y = cols[8 + g][t], wv = w_s[t / kPattern];
-        a[2 * j] = (double)(wv * x);
-        a[2 * j + 1] = (double)(wv * y);
-        b[0][j] = (double)x;
-        b[1][j] = (double)y;
-        b[2][j] = g == 0 ? (double)cols[kCols][t] : 0.0;
+        for (int j = 0; j < 4; ++j) {
+          const int t = warp * 32 + step * 16 + t4 + 4 * j;
+          const float x = cols[g][t], y = cols[8 + g][t], wv = w_s[t / kPattern];
+          a[2 * j] = (double)(wv * x);
+          a[2 * j + 1] = (double)(wv * y);
+          b[0][j] = (double)x;
+          b[1][j] = (double)y;
+          b[2][j] = g == 0 ? (double)cols[kCols][t] : 0.0;
+        }
+        dmma(acc[0], a, b[0]);
+        dmma(acc[1], a, b[1]);
+        dmma(acc[2], a, b[2]);
       }
-      dmma(acc[0], a, b[0]);
-      dmma(acc[1], a, b[1]);
-      dmma(acc[2], a, b[2]);
+      __syncthreads();
     }
-    __syncthreads();
+    if (kMulti && lm < n)
+      write_landmark_sums(hpd, lm_part, anchor, target, k, n, lm, group, p, h_ref, h_tgt, extra);
   }
 
   // the warps' [16][24] partials, summed in warp order: entry (a, b) of
@@ -491,8 +544,8 @@ reduce_kernel(const double* __restrict__ pair_part, const double* __restrict__ s
 
 // The window at the linearization point: t_lin_q [k,4], t_lin_t [k,3],
 // affine0 [k,2], exposure [k], lm_uv [k,n,2], lin_idepth [k,n] (the
-// landmarks' idepth there), lm_patch [k,n,8]; the camera; the evaluation as
-// ba_evaluate writes it; eps [k,8]; frame_valid, frame_fixed, frame_marg [k]
+// landmarks' idepth there), lm_patch [k,n,C*8]; the camera; the evaluation
+// of C channels as ba_evaluate writes it; eps [k,8]; frame_valid, frame_fixed, frame_marg [k]
 // u8; the priors' weights.  Scratch from the caller: pair_part
 // [k*k*tiles*272] f64, lm_part [k*k*n*10] f32, schur_part [k*(64k^2 + 8k)]
 // f64, with tiles = ceil(n / 128).  Outputs: h, h_schur [8k,8k]; b, b_schur
@@ -506,19 +559,21 @@ extern "C" int ba_linearize_schur(
     float cx, float cy, float width, float height, const float* residuals,
     const float* weight, const float* gx, const float* gy, const unsigned char* ok,
     const float* eps, const unsigned char* frame_valid, const unsigned char* frame_fixed,
-    const unsigned char* frame_marg, int k, int n, int marg_pass, float threshold,
+    const unsigned char* frame_marg, int k, int n, int channels, int marg_pass, float threshold,
     float scale_reg, float fixed_reg, float affine_reg_a, float affine_reg_b, int tiles,
     const int* lm_state, double* pair_part, float* lm_part, double* schur_part,
     float* h_out, float* b_out, float* h_schur, float* b_schur, float* hpd,
     float* inv_hdd, float* b_d, void* stream) {
-  if (k < 1 || k > kMaxFrames || n < 1 || tiles != (n + kTileLm - 1) / kTileLm)
+  if (k < 1 || k > kMaxFrames || n < 1 || channels < 1 ||
+      tiles != (n + kTileLm - 1) / kTileLm)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const int kb = k * 8;
   const ba::Camera cam = {fx, fy, cx, cy, width, height};
-  pair_kernel<<<dim3(tiles, k * k), kThreads, 0, s>>>(
+  auto pair = channels == 1 ? pair_kernel<false> : pair_kernel<true>;
+  pair<<<dim3(tiles, k * k), kThreads, 0, s>>>(
       t_lin_q, t_lin_t, affine0, exposure, lm_uv, lin_idepth, lm_patch, cam, residuals,
-      weight, gx, gy, ok, k, n, tiles, lm_state, pair_part, lm_part, hpd);
+      weight, gx, gy, ok, k, n, channels, tiles, lm_state, pair_part, lm_part, hpd);
   landmark_kernel<<<(k * n * kLmOut + kThreads - 1) / kThreads, kThreads, 0, s>>>(
       lm_part, frame_fixed, k, n, marg_pass, threshold, scale_reg, lm_state, hpd, inv_hdd, b_d);
   // bands a Schur block takes: two where that still gives k ceil(k / 2) >= 132

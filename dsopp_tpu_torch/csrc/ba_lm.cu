@@ -17,7 +17,8 @@
 // other kernels read it and return at once when the loop is done.
 //
 // Bound: latency (a reduction over K*K*N patch energies, 98 260 at K = 17,
-// N = 340, and a copy of the evaluation, 11 MB).  Design, one entry with
+// N = 340, and a copy of the evaluation, 11 MB at C = 1; its residuals and
+// gradients carry C channels, K*K*N*C*8 values each).  Design, one entry with
 // three phases:
 //   phase 0 (init)   decide_kernel on the initial evaluation: e, n, lambda,
 //                    done = (n == 0), ledger_empty = (max |h_marg| == 0);
@@ -206,7 +207,7 @@ decide_kernel(int phase, int iter, int k, int n, LmOptions o,
   if (relin_s && tid < k) fold_frame(t_lin_q, t_lin_t, affine0, trial_eps, tid);
 }
 
-__global__ void commit_kernel(int k, int n, const int* __restrict__ state,
+__global__ void commit_kernel(int k, int n, int channels, const int* __restrict__ state,
                               const float* __restrict__ trial_eps,
                               const float* __restrict__ trial_idepth, EvPtrs trial,
                               float* __restrict__ eps, float* __restrict__ idepth,
@@ -216,7 +217,8 @@ __global__ void commit_kernel(int k, int n, const int* __restrict__ state,
   const bool relin = state[kLmRelin] != 0;
   const int groups = k * k * n;
   const int stride = gridDim.x * blockDim.x;
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < groups * kPattern; i += stride) {
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < groups * channels * kPattern;
+       i += stride) {
     ev.residuals[i] = trial.residuals[i];
     ev.gx[i] = trial.gx[i];
     ev.gy[i] = trial.gy[i];
@@ -255,10 +257,11 @@ __global__ void finish_kernel(int iter, int k, const unsigned char* __restrict__
 // [1] f64.  Trial: eps [k,8], idepth [k,n], step_sq [2] (ba_solve_step) and
 // an evaluation as ba_evaluate writes it.  Carried, updated in place: t_lin_q
 // [k,4], t_lin_t [k,3], affine0 [k,2], eps [k,8], idepth and lin_idepth
-// [k,n], res_status [k,k,n] int32 and the carried evaluation.  state: int32
+// [k,n], res_status [k,k,n] int32 and the carried evaluation (C channels).  state: int32
 // [8] (ba_lm_state.cuh); log: int32 [rows, 8], row `iter` is written.
 // Returns cudaErrorInvalidValue (1) for k above 40.
-extern "C" int ba_lm(int phase, int iter, int k, int n, int min_iterations, int force_accept,
+extern "C" int ba_lm(int phase, int iter, int k, int n, int channels, int min_iterations,
+                     int force_accept,
                      float initial_regularizer, float function_tolerance,
                      float parameter_tolerance, float reg_decrease, float reg_increase,
                      float affine_reg_a, float affine_reg_b,
@@ -272,7 +275,7 @@ extern "C" int ba_lm(int phase, int iter, int k, int n, int min_iterations, int 
                      float* residuals, float* energy_patch, float* weight,
                      int* status_candidate, float* gx, float* gy, unsigned char* ok,
                      int* state, int* log, void* stream) {
-  if (k < 1 || k * 8 > kMaxKb || n < 1 || phase < 0 || phase > 2)
+  if (k < 1 || k * 8 > kMaxKb || n < 1 || channels < 1 || phase < 0 || phase > 2)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (phase == 2) {
@@ -290,9 +293,9 @@ extern "C" int ba_lm(int phase, int iter, int k, int n, int min_iterations, int 
     const EvPtrs trial = {trial_residuals, trial_energy, trial_weight, trial_candidate,
                           trial_gx,        trial_gy,     trial_ok};
     const EvPtrs ev = {residuals, energy_patch, weight, status_candidate, gx, gy, ok};
-    const int total = k * k * n * ba::kPattern;
+    const int total = k * k * n * channels * ba::kPattern;
     const int blocks = min((total + 255) / 256, 1024);
-    commit_kernel<<<blocks, 256, 0, s>>>(k, n, state, trial_eps, trial_idepth, trial, eps,
+    commit_kernel<<<blocks, 256, 0, s>>>(k, n, channels, state, trial_eps, trial_idepth, trial, eps,
                                          idepth, lin_idepth, res_status, ev);
   }
   return (int)cudaGetLastError();

@@ -43,12 +43,21 @@
 // decision trace for such a comparison.
 // testing/activation_models.py mirrors the compaction.
 //
+// refine_idepth samples channel 0 of the window's channel bank (the
+// intensity at C = 1; the first embedder plane of a C > 1 window, as the JAX
+// package's refinement reads its patch tables).
+//
 // activation_scatter.  Per frame slot the r-th free landmark slot takes the
 // r-th activating candidate of the slot's bank, for r < min(#free,
 // #activating); integer work, exact.  Bound: bytes (the copied points).
 // Design: one block per frame slot, two ordered compactions by block scan
 // into a scratch list, then the copies.  The window tensors it writes are
-// clones made by the caller.
+// clones made by the caller.  In a window of C > 1 embedder channels the
+// reference patch a landmark takes is not the immature point's intensity
+// patch but its C-channel one (activation.py::embedded_patches): each copy
+// samples the host slot's C channel planes at the 8 pattern points under the
+// 10x10-window rule (ba_body.cuh::sample_window, shared with K7; the window
+// based at floor(uv) - 4, values only).
 
 #include "ba_body.cuh"
 
@@ -338,6 +347,7 @@ pair_slots_kernel(const unsigned char* __restrict__ activate,
                const unsigned char* __restrict__ drop, const float* __restrict__ uv,
                const float* __restrict__ patch, const float* __restrict__ idepth_min,
                const float* __restrict__ idepth_max, const unsigned char* __restrict__ imm_valid,
+               const float* __restrict__ bank, int channels, int h, int w,
                int k, int n, int m, int* __restrict__ lists, float* __restrict__ lm_uv,
                float* __restrict__ lm_patch, float* __restrict__ lm_idepth,
                unsigned char* __restrict__ lm_valid, int* __restrict__ res_status,
@@ -369,7 +379,19 @@ pair_slots_kernel(const unsigned char* __restrict__ activate,
     const int dst = a * n + free_list[r], src = a * m + act_list[r];
     lm_uv[2 * dst] = uv[2 * src];
     lm_uv[2 * dst + 1] = uv[2 * src + 1];
-    for (int p = 0; p < kPattern; ++p) lm_patch[(size_t)dst * kPattern + p] = patch[(size_t)src * kPattern + p];
+    if (channels == 1) {
+      for (int p = 0; p < kPattern; ++p) lm_patch[(size_t)dst * kPattern + p] = patch[(size_t)src * kPattern + p];
+    } else {
+      // the C-channel patch from the host slot a's planes, channel-major
+      const float x0 = uv[2 * src], y0 = uv[2 * src + 1];
+      const int bx = window_base(x0, w), by = window_base(y0, h);
+      const float* host = bank + (size_t)a * 3 * channels * h * w;
+      for (int c = 0; c < channels; ++c)
+        for (int p = 0; p < kPattern; ++p)
+          lm_patch[((size_t)dst * channels + c) * kPattern + p] =
+              sample_window(host + (size_t)c * h * w, h, w, x0 + kPatternX[p],
+                            y0 + kPatternY[p], bx, by).val;
+    }
     lm_idepth[dst] = 0.5f * (idepth_min[src] + idepth_max[src]);
     lm_valid[dst] = 1;
     for (int j = 0; j < k; ++j) res_status[((size_t)a * k + j) * n + free_list[r]] = 0;  // RES_OK
@@ -383,7 +405,7 @@ pair_slots_kernel(const unsigned char* __restrict__ activate,
 // Banks [k,m]: activate u8, uv [.,2], patch [.,8], idepth_min, idepth_max f32.
 // Window: t_lin_q [k,4], t_lin_t [k,3], eps [k,8], affine0 [k,2], exposure
 // [k] f32, frame_valid [k] u8, images + f * image_stride = frame f's [h,w]
-// intensity image.  Scratch: order [cap] int32, table [8*k*k + k] f32 (the
+// intensity image (plane 0 of its channel bank, image_stride = 3 C h w).  Scratch: order [cap] int32, table [8*k*k + k] f32 (the
 // pairs' poses and scales, the frames' b; compact_kernel).  Outputs, every entry
 // written: selected, keep [k,m] u8; idepth_out [k,m] f32 (the refined idepth
 // where a candidate is kept, the bank's elsewhere); trace [cap,3,4] f32 or
@@ -414,22 +436,27 @@ extern "C" int refine_idepth(const unsigned char* activate, const float* uv,
   return (int)cudaGetLastError();
 }
 
-// Banks [k,m] as above plus drop, imm_valid u8.  lm_uv [k,n,2], lm_patch
-// [k,n,8], lm_idepth [k,n], lm_valid [k,n] u8 and res_status [k,k,n] int32 are
-// the caller's clones, written in place.  Scratch: lists [k, n+m] int32.
+// Banks [k,m] as above plus drop, imm_valid u8.  The window's channel bank
+// (bank + f * 3 C h w + c * h * w is channel c of frame slot f, [h,w]; read
+// at C > 1 only).  lm_uv [k,n,2], lm_patch [k,n,C*8], lm_idepth [k,n],
+// lm_valid [k,n] u8 and res_status [k,k,n] int32 are the caller's clones,
+// written in place.  Scratch: lists [k, n+m] int32.
 // Outputs: imm_valid_out [k,m] u8, n_activated [1] int64 (zeroed here).
 extern "C" int activation_scatter(const unsigned char* activate, const unsigned char* drop,
                                   const float* uv, const float* patch,
                                   const float* idepth_min, const float* idepth_max,
-                                  const unsigned char* imm_valid, int k, int n, int m,
+                                  const unsigned char* imm_valid, const float* bank,
+                                  int channels, int h, int w, int k, int n, int m,
                                   int* lists, float* lm_uv, float* lm_patch, float* lm_idepth,
                                   unsigned char* lm_valid, int* res_status,
                                   unsigned char* imm_valid_out,
                                   unsigned long long* n_activated, void* stream) {
+  if (channels < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   cudaMemsetAsync(n_activated, 0, sizeof(unsigned long long), s);
   pair_slots_kernel<<<k, kThreads, 0, s>>>(activate, drop, uv, patch, idepth_min, idepth_max,
-                                        imm_valid, k, n, m, lists, lm_uv, lm_patch, lm_idepth,
+                                        imm_valid, bank, channels, h, w, k, n, m, lists, lm_uv,
+                                        lm_patch, lm_idepth,
                                         lm_valid, res_status, imm_valid_out, n_activated);
   return (int)cudaGetLastError();
 }

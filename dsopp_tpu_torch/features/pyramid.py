@@ -4,7 +4,9 @@
 Levels halve exactly (an odd trailing row/column is dropped) by 2×2 mean;
 each level's map carries the gradients of :func:`image_gradients`.
 :func:`build_pyramid_maps` runs the CUDA kernel ``csrc/pyramid.cu`` on a
-CUDA image and :func:`build_pyramid_maps_plain` on a CPU one.
+CUDA image and :func:`build_pyramid_maps_plain` on a CPU one;
+:func:`build_channel_map` builds a frame embedder's ``[3C, H, W]`` map with
+K1's level-0 arithmetic, one launch over the C planes.
 """
 
 from __future__ import annotations
@@ -45,7 +47,7 @@ def build_pyramid_maps_cuda(image, num_levels: int = NUM_PYRAMID_LEVELS):
         if oh < 2 or ow < 2:
             raise ValueError(f"pyramid level {level} is {oh}x{ow}: too small")
         out = torch.empty((3, oh, ow), dtype=image.dtype, device=image.device)
-        kernels.PYRAMID(src, src_h, src_w, out, oh, ow, down)
+        kernels.PYRAMID(src, src_h, src_w, out, oh, ow, down, 1)
         maps.append(out)
         src, src_h, src_w, down = out[0], oh, ow, 1
     return tuple(maps)
@@ -56,3 +58,23 @@ def build_pyramid_maps(image, num_levels: int = NUM_PYRAMID_LEVELS):
     if image.is_cuda:
         return build_pyramid_maps_cuda(image, num_levels)
     return build_pyramid_maps_plain(image, num_levels)
+
+
+def build_channel_map_cuda(channels):
+    """[C, H, W] f32 CUDA channels → [3C, H, W] map (values C | dx C | dy C),
+    kernel K1 at level 0, one launch."""
+    c, h, w = channels.shape
+    kernels.check(channels, "channels", (c, h, w))
+    if h < 2 or w < 2:
+        raise ValueError(f"a channel map of {h}x{w}: too small")
+    out = torch.empty((3 * c, h, w), dtype=channels.dtype, device=channels.device)
+    kernels.PYRAMID(channels, h, w, out, h, w, 0, c)
+    return out
+
+
+def build_channel_map(channels):
+    """[C, H, W] → [3C, H, W] pixel map of a frame embedder's channels; kernel
+    on CUDA, :func:`build_pixel_map` on CPU."""
+    if channels.is_cuda:
+        return build_channel_map_cuda(channels)
+    return build_pixel_map(channels)

@@ -139,15 +139,16 @@ class Kernel:
         self.launches += 1
 
 
-PYRAMID = Kernel("pyramid_maps", "pyramid_level", [_P, _I, _I, _P, _I, _I, _I])
+# K1 builds the pyramid levels and, at C > 1, a frame embedder's channel map
+PYRAMID = Kernel("pyramid_maps", "pyramid_level", [_P, _I, _I, _P, _I, _I, _I, _I])
 ALIGN = Kernel("align_residual_system", "align_residual_system",
-               [_P, _P, _P, _P, _I, _P, _I, _I, _P, _P, _P, _P, _I,
+               [_P, _P, _P, _P, _I, _P, _I, _I, _I, _P, _P, _P, _P, _I,
                 _F, _F, _F, _F, _F, _F, _F, _P, _P, _P, _P])
 EPIPOLAR = Kernel("epipolar_sweep", "epipolar_sweep",
                   [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                    _F, _F, _F, _F, _F, _F, _F, _F, _P, _P, _P, _P, _P, _P])
 ALIGN_LEVEL = Kernel("align_level", "align_level",
-                     [_P, _P, _P, _P, _I, _P, _I, _I, _P, _P, _P, _P, _I,
+                     [_P, _P, _P, _P, _I, _P, _I, _I, _I, _P, _P, _P, _P, _I,
                       _F, _F, _F, _F, _F, _F, _F, _I, _F, _F, _F, _F, _F, _F, _F,
                       _P, _P, _P, _P, _P, _P, _P, _P])
 FLOW = Kernel("flow_statistic", "flow_statistic",
@@ -155,13 +156,13 @@ FLOW = Kernel("flow_statistic", "flow_statistic",
 # K7-K9 take the LM loop's state (or None) before their outputs; K8 forms the
 # first-estimate Jacobians itself (once kernel K6's cache)
 BA_EVALUATE = Kernel("ba_evaluate", "ba_evaluate",
-                     [_P] * 12 + [_I] * 5 + [_F] * 7 + [_P] * 8)
+                     [_P] * 12 + [_I] * 6 + [_F] * 7 + [_P] * 8)
 BA_LINEARIZE = Kernel("ba_linearize_schur", "ba_linearize_schur",
-                      [_P] * 7 + [_F] * 6 + [_P] * 9 + [_I, _I, _I] + [_F] * 5 + [_I]
+                      [_P] * 7 + [_F] * 6 + [_P] * 9 + [_I] * 4 + [_F] * 5 + [_I]
                       + [_P] * 11)
 BA_SOLVE = Kernel("ba_solve_step", "ba_solve_step",
                   [_P] * 12 + [_I, _I, _F, _I] + [_P] * 7)
-BA_LM = Kernel("ba_lm", "ba_lm", [_I] * 6 + [_F] * 7 + [_P] * 30)
+BA_LM = Kernel("ba_lm", "ba_lm", [_I] * 7 + [_F] * 7 + [_P] * 30)
 BA_STATUS = Kernel("ba_point_status", "ba_point_status",
                    [_P] * 11 + [_I, _I, _F, _F, _I] + [_P] * 6)
 # K12-K14 and K16, the keyframe backend around the BA solve; K14 has two entry
@@ -173,7 +174,7 @@ ACTIVATION = Kernel("activation", "activation",
 REFINE = Kernel("refine_idepth", "refine_idepth",
                 [_P] * 12 + [_I] * 6 + [_F] * 7 + [_P] * 6)
 ACTIVATION_SCATTER = Kernel("activation_scatter", "activation_scatter",
-                            [_P] * 7 + [_I] * 3 + [_P] * 8)
+                            [_P] * 8 + [_I] * 6 + [_P] * 8)
 DEPTH_MAPS = Kernel("depth_maps", "depth_maps",
                     [_P] * 5 + [_I, _I] + [_F] * 6 + [_I] * 5 + [_P] * 19)
 # K15: the marginalization policy and the ledger fold, once per keyframe each

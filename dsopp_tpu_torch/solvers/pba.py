@@ -8,9 +8,16 @@ first iterations and a constant regularizer; affine and fixed-frame priors;
 a marginalization ledger (H_m, b_m, E_m) kept in float64 (the reference
 keeps it in double); frames Schur-eliminated on marginalization.
 
-The window is a fixed-shape bank of K frame slots × N landmark slots × the
-8-point pattern, residuals a dense [K_anchor, K_target, N, P] tensor.
-Target values and gradients are read from the frames' intensity images with
+The window is a fixed-shape bank of K frame slots × N landmark slots × C
+channels × the 8-point pattern, residuals a dense [K_anchor, K_target, N, C,
+P] tensor.  C is 1 (intensity) unless a frame embedder gives more channels:
+then each keyframe's ``[3C, H, W]`` map of the embedded channels is kept in
+the window's channel bank (``channel_maps``; at C = 1 the bank is ``maps``
+itself), reference patches are ``[N, C·P]`` channel-major, the FEJ geometry
+is per pattern point and shared by its C residuals, and the whole-patch
+Huber runs on all C·P residuals at σ·√C (the JAX package's
+``pba.py:257-471``).
+Target values and gradients are read from the frames' channel planes with
 the 10×10-window semantics of :func:`sample_window` (one window per
 (anchor, target, landmark) group, based at the reprojected pattern center).
 
@@ -36,14 +43,14 @@ take the state and return at once when the loop is done.
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
 from dsopp_tpu_torch import default_device, kernels
 from dsopp_tpu_torch.core.interpolate import pad_images, sample_window, window_base
 from dsopp_tpu_torch.core.lie import SE3
-from dsopp_tpu_torch.core.pattern import PATTERN_CENTER, shift_pattern
+from dsopp_tpu_torch.core.pattern import PATTERN_CENTER, PATTERN_SIZE, shift_pattern
 from dsopp_tpu_torch.core.reproject import reproject, reproject_jacobian
 from dsopp_tpu_torch.solvers.linear import pinv_hermitian, pinv_rtol, solve
 from dsopp_tpu_torch.solvers.measure import huber_energy_weight
@@ -101,7 +108,7 @@ class Window:
     frame_marg: torch.Tensor   # [K] bool
     frame_id: torch.Tensor     # [K] int32 (-1 = empty)
     lm_uv: torch.Tensor        # [K, N, 2]
-    lm_patch: torch.Tensor     # [K, N, P]
+    lm_patch: torch.Tensor     # [K, N, C·P] channel-major
     lm_idepth: torch.Tensor    # [K, N]
     lm_valid: torch.Tensor     # [K, N] bool
     lm_marg_flag: torch.Tensor  # [K, N] bool
@@ -114,6 +121,18 @@ class Window:
     b_marg: torch.Tensor       # [K*8] float64
     energy_marg: torch.Tensor  # [] float64
     maps: torch.Tensor         # [K, 3, H, W] level-0 pixel maps
+    # [K, 3C, H, W] level-0 maps of the embedded channels (values C | dx C |
+    # dy C), stored per slot; None at C = 1, where the bank is ``maps``
+    channel_maps: Optional[torch.Tensor] = None
+
+    @property
+    def channel_bank(self):
+        """[K, 3C, H, W]: the maps the BA residuals sample."""
+        return self.maps if self.channel_maps is None else self.channel_maps
+
+    @property
+    def num_channels(self):
+        return self.channel_bank.shape[1] // 3
 
     @property
     def num_slots(self):
@@ -138,8 +157,9 @@ class Window:
 
 
 def empty_window(num_frames: int, num_landmarks: int, map_shape,
-                 dtype=torch.float32, device=None) -> Window:
-    """An empty window on ``device`` (``None``: the CUDA card)."""
+                 dtype=torch.float32, device=None, channels: int = 1) -> Window:
+    """An empty window of ``channels`` embedder channels on ``device``
+    (``None``: the CUDA card)."""
     device = default_device(device)
     k, n = num_frames, num_landmarks
     kw = dict(dtype=dtype, device=device)
@@ -154,7 +174,7 @@ def empty_window(num_frames: int, num_landmarks: int, map_shape,
         frame_marg=torch.zeros((k,), dtype=torch.bool, device=device),
         frame_id=torch.full((k,), -1, dtype=torch.int32, device=device),
         lm_uv=torch.zeros((k, n, 2), **kw),
-        lm_patch=torch.zeros((k, n, 8), **kw),
+        lm_patch=torch.zeros((k, n, 8 * channels), **kw),
         lm_idepth=torch.zeros((k, n), **kw),
         lm_valid=torch.zeros((k, n), dtype=torch.bool, device=device),
         lm_marg_flag=torch.zeros((k, n), dtype=torch.bool, device=device),
@@ -167,6 +187,8 @@ def empty_window(num_frames: int, num_landmarks: int, map_shape,
         b_marg=torch.zeros((k * BLOCK,), dtype=LEDGER_DTYPE, device=device),
         energy_marg=torch.zeros((), dtype=LEDGER_DTYPE, device=device),
         maps=torch.zeros((k,) + tuple(map_shape), **kw),
+        channel_maps=(None if channels == 1 else
+                      torch.zeros((k, 3 * channels) + tuple(map_shape[-2:]), **kw)),
     )
 
 
@@ -195,7 +217,7 @@ class FEJCache(NamedTuple):
     d_uv_ref: torch.Tensor      # [K,K,N,P,2,6]
     d_uv_tgt: torch.Tensor      # [K,K,N,P,2,6]
     d_uv_idepth: torch.Tensor   # [K,K,N,P,2]
-    corrected_ref: torch.Tensor  # [K,K,N,P]
+    corrected_ref: torch.Tensor  # [K,K,N,C,P]
     scale0: torch.Tensor        # [K,K]
     geom_valid: torch.Tensor    # [K,K,N]
 
@@ -214,24 +236,32 @@ def _fej_cache_plain(window: Window, model) -> FEJCache:
     t_b = SE3(t_ji.q[:, :, None, None, :], t_ji.t[:, :, None, None, :])
     rj = reproject_jacobian(model, model, uv, idepth, t_b)
     scale0 = _brightness_scale(window.exposure, window.affine0)
-    corrected = scale0[:, :, None, None] * (
-        window.lm_patch[:, None] - window.affine0[:, None, None, None, 1])
+    corrected = scale0[:, :, None, None, None] * (
+        _patch_ref(window)[:, None] - window.affine0[:, None, None, None, None, 1])
     return FEJCache(rj.d_uv_d_eps_ref, rj.d_uv_d_eps_tgt, rj.d_uv_d_idepth,
                     corrected, scale0, torch.all(rj.valid, dim=-1))
+
+
+def _patch_ref(window: Window):
+    """[K, N, C, P] reference patches."""
+    k, n = window.num_slots, window.num_landmark_slots
+    return window.lm_patch.reshape(k, n, window.num_channels, PATTERN_SIZE)
 
 
 def _check_window(window: Window):
     """Validate the window tensors the BA kernels read → (k, n, h, w)."""
     k, n = window.num_slots, window.num_landmark_slots
+    c = window.num_channels
     check = kernels.check
     check(window.maps, "maps", (k, 3) + tuple(window.maps.shape[-2:]))
+    check(window.channel_bank, "channel bank", (k, 3 * c) + tuple(window.maps.shape[-2:]))
     check(window.t_lin_q, "t_lin_q", (k, 4))
     check(window.t_lin_t, "t_lin_t", (k, 3))
     check(window.affine0, "affine0", (k, 2))
     check(window.exposure, "exposure", (k,))
     check(window.lm_uv, "lm_uv", (k, n, 2))
     check(window.lm_idepth, "lm_idepth", (k, n))
-    check(window.lm_patch, "lm_patch", (k, n, 8))
+    check(window.lm_patch, "lm_patch", (k, n, 8 * c))
     h, w = window.maps.shape[-2:]
     return k, n, h, w
 
@@ -247,12 +277,12 @@ def _fej_cache(window: Window, model) -> FEJCache:
 
 
 class Evaluation(NamedTuple):
-    residuals: torch.Tensor     # [K,K,N,P]
+    residuals: torch.Tensor     # [K,K,N,C,P]
     energy_patch: torch.Tensor  # [K,K,N]
     weight: torch.Tensor        # [K,K,N]
     status_candidate: torch.Tensor  # [K,K,N] int32
-    gx: torch.Tensor            # [K,K,N,P]
-    gy: torch.Tensor            # [K,K,N,P]
+    gx: torch.Tensor            # [K,K,N,C,P]
+    gy: torch.Tensor            # [K,K,N,C,P]
     ok: torch.Tensor            # [K,K,N]
 
 
@@ -264,8 +294,9 @@ def _pair_mask(window: Window):
 
 def _evaluate_plain(window: Window, model, eps, idepth, lm_mask,
                     opts: PBAOptions) -> Evaluation:
-    """Residuals of every (anchor i, target j, landmark n) at (eps, idepth)."""
-    k = window.num_slots
+    """Residuals of every (anchor i, target j, landmark n, channel c) at
+    (eps, idepth): whole-patch Huber over the C·P residuals at σ·√C."""
+    k, c = window.num_slots, window.num_channels
     h, w = window.maps.shape[-2:]
     t_ji = _relative_poses(window.t_lin_q, window.t_lin_t, eps[:, :6])
     affine = window.affine0 + eps[:, 6:]
@@ -275,30 +306,39 @@ def _evaluate_plain(window: Window, model, eps, idepth, lm_mask,
     t_b = SE3(t_ji.q[:, :, None, None, :], t_ji.t[:, :, None, None, :])
     rp = reproject(model, model, uv, d, t_b)                        # [K,K,N,P]
     bx, by = window_base(rp.uv[..., PATTERN_CENTER, :], h, w)       # [K,K,N]
-    target = torch.arange(k, device=eps.device)[None, :, None, None]
+    # channel plane ch of target j: image j * C + ch of the padded stack
+    plane = (torch.arange(k, device=eps.device)[None, :, None, None, None] * c
+             + torch.arange(c, device=eps.device)[:, None])             # [1,K,1,C,1]
     vals, gx, gy, inside = sample_window(
-        pad_images(window.maps[:, 0]), rp.uv, bx[..., None], by[..., None],
-        h, w, img_idx=target)
-    corrected_ref = scale[:, :, None, None] * (
-        window.lm_patch[:, None] - affine[:, None, None, None, 1])
-    r = (vals - affine[None, :, None, None, 1]) - corrected_ref
+        pad_images(window.channel_bank[:, :c]), rp.uv[..., None, :, :],
+        bx[..., None, None], by[..., None, None], h, w, img_idx=plane)  # [K,K,N,C,P]
+    inside = inside[..., 0, :]                                      # per point
+    corrected_ref = scale[:, :, None, None, None] * (
+        _patch_ref(window)[:, None] - affine[:, None, None, None, None, 1])
+    r = (vals - affine[None, :, None, None, None, 1]) - corrected_ref
     geom_ok = torch.all(rp.valid & inside, dim=-1)
     live = _pair_mask(window)[:, :, None] & lm_mask[:, None, :]
     candidate = torch.where(live & ~geom_ok, RES_OOB, window.res_status).to(torch.int32)
     ok = live & geom_ok & (window.res_status == RES_OK)
-    r = torch.where(ok[..., None], r, torch.zeros_like(r))
-    energy, weight = huber_energy_weight(torch.sum(r * r, dim=-1), opts.huber_sigma)
+    r = torch.where(ok[..., None, None], r, torch.zeros_like(r))
+    energy, weight = huber_energy_weight(torch.sum(r * r, dim=(-2, -1)), _huber_sigma(c, opts))
     zero = torch.zeros_like(energy)
     return Evaluation(r, torch.where(ok, energy, zero), torch.where(ok, weight, zero),
                       candidate, gx, gy, ok)
 
 
-def _evaluation_buffers(k: int, n: int, dtype, device) -> Evaluation:
+def _huber_sigma(channels: int, opts: PBAOptions) -> float:
+    """The whole-patch Huber sigma of C channels, σ·√C (a host float, as the
+    JAX package's)."""
+    return opts.huber_sigma * float(channels) ** 0.5
+
+
+def _evaluation_buffers(k: int, n: int, c: int, dtype, device) -> Evaluation:
     kw = dict(dtype=dtype, device=device)
-    return Evaluation(torch.empty((k, k, n, 8), **kw), torch.empty((k, k, n), **kw),
+    return Evaluation(torch.empty((k, k, n, c, 8), **kw), torch.empty((k, k, n), **kw),
                       torch.empty((k, k, n), **kw),
                       torch.empty((k, k, n), dtype=torch.int32, device=device),
-                      torch.empty((k, k, n, 8), **kw), torch.empty((k, k, n, 8), **kw),
+                      torch.empty((k, k, n, c, 8), **kw), torch.empty((k, k, n, c, 8), **kw),
                       torch.empty((k, k, n), dtype=torch.bool, device=device))
 
 
@@ -308,6 +348,7 @@ def _evaluate_cuda(window: Window, model, eps, idepth, lm_mask,
     given.  With the LM loop's state the kernel leaves the outputs unwritten
     once the loop is done."""
     k, n, h, w = _check_window(window)
+    c = window.num_channels
     check = kernels.check
     check(eps, "eps", (k, BLOCK))
     check(idepth, "idepth", (k, n))
@@ -315,13 +356,13 @@ def _evaluate_cuda(window: Window, model, eps, idepth, lm_mask,
     check(window.frame_valid, "frame_valid", (k,), torch.bool)
     check(window.res_status, "res_status", (k, k, n), torch.int32)
     if out is None:
-        out = _evaluation_buffers(k, n, eps.dtype, eps.device)
-    # the intensity image of frame f is channel 0 of maps[f]
+        out = _evaluation_buffers(k, n, c, eps.dtype, eps.device)
+    # channel plane ch of frame f is plane ch of channel_bank[f]
     kernels.BA_EVALUATE(window.t_lin_q, window.t_lin_t, eps, window.affine0,
                         window.exposure, window.lm_uv, idepth, window.lm_patch, lm_mask,
-                        window.frame_valid, window.res_status, window.maps, 3 * h * w,
-                        k, n, h, w, model.fx, model.fy, model.cx, model.cy, model.width,
-                        model.height, float(opts.huber_sigma), lm_state, *out)
+                        window.frame_valid, window.res_status, window.channel_bank,
+                        3 * c * h * w, k, n, h, w, c, model.fx, model.fy, model.cx, model.cy,
+                        model.width, model.height, _huber_sigma(c, opts), lm_state, *out)
     return out
 
 
@@ -375,19 +416,26 @@ class LinearSystem(NamedTuple):
 def _linearize_from_ev_plain(window: Window, fej: FEJCache, ev: Evaluation, eps,
                              opts: PBAOptions, marg_pass: bool = False) -> LinearSystem:
     """GN system with FEJ geometry, current gradients and weights, and the
-    landmark Schur complement."""
-    k = window.num_slots
+    landmark Schur complement.  The FEJ geometry is per pattern point, shared
+    by its C residual rows; the channel axis folds into the residual axis,
+    C·P rows of 8 columns, channel-major."""
+    k, n = window.num_slots, window.num_landmark_slots
     w = torch.where(ev.ok & fej.geom_valid, ev.weight, torch.zeros_like(ev.weight))
-    gx, gy = ev.gx, ev.gy
-    d_ref, d_tgt = fej.d_uv_ref, fej.d_uv_tgt
+    gx, gy = ev.gx, ev.gy                                           # [K,K,N,C,P]
+    d_ref, d_tgt = fej.d_uv_ref[:, :, :, None], fej.d_uv_tgt[:, :, :, None]
     j_ref_pose = gx[..., None] * d_ref[..., 0, :] + gy[..., None] * d_ref[..., 1, :]
     j_tgt_pose = gx[..., None] * d_tgt[..., 0, :] + gy[..., None] * d_tgt[..., 1, :]
     ones = torch.ones_like(fej.corrected_ref)
     j_ref = torch.cat([j_ref_pose, fej.corrected_ref[..., None],
-                       (fej.scale0[:, :, None, None] * ones)[..., None]], dim=-1)
+                       (fej.scale0[:, :, None, None, None] * ones)[..., None]], dim=-1)
     j_tgt = torch.cat([j_tgt_pose, -fej.corrected_ref[..., None], -ones[..., None]], dim=-1)
-    j_d = gx * fej.d_uv_idepth[..., 0] + gy * fej.d_uv_idepth[..., 1]
-    r = ev.residuals
+    j_d = (gx * fej.d_uv_idepth[:, :, :, None, :, 0]
+           + gy * fej.d_uv_idepth[:, :, :, None, :, 1])
+    cp = gx.shape[-2] * gx.shape[-1]
+    j_ref = j_ref.reshape(k, k, n, cp, BLOCK)
+    j_tgt = j_tgt.reshape(k, k, n, cp, BLOCK)
+    j_d = j_d.reshape(k, k, n, cp)
+    r = ev.residuals.reshape(k, k, n, cp)
     wj_ref = w[..., None, None] * j_ref
     wj_tgt = w[..., None, None] * j_tgt
 
@@ -452,14 +500,15 @@ def _linearize_from_ev_cuda(window: Window, model, ev: Evaluation, eps,
     given.  With the LM loop's state the kernels leave the outputs unwritten
     once the loop is done."""
     k, n, _, _ = _check_window(window)
+    c = window.num_channels
     if k > _LINEARIZE_MAX_FRAMES:
         raise ValueError(f"ba_linearize_schur: {k} frame slots exceed the kernel's limit of "
                          f"{_LINEARIZE_MAX_FRAMES} (its Schur kernel's warps)")
     check = kernels.check
-    check(ev.residuals, "residuals", (k, k, n, 8))
+    check(ev.residuals, "residuals", (k, k, n, c, 8))
     check(ev.weight, "weight", (k, k, n))
-    check(ev.gx, "gx", (k, k, n, 8))
-    check(ev.gy, "gy", (k, k, n, 8))
+    check(ev.gx, "gx", (k, k, n, c, 8))
+    check(ev.gy, "gy", (k, k, n, c, 8))
     check(ev.ok, "ok", (k, k, n), torch.bool)
     check(eps, "eps", (k, BLOCK))
     check(window.frame_valid, "frame_valid", (k,), torch.bool)
@@ -470,7 +519,7 @@ def _linearize_from_ev_cuda(window: Window, model, ev: Evaluation, eps,
                          window.lm_uv, window.lm_idepth, window.lm_patch,
                          model.fx, model.fy, model.cx, model.cy, model.width, model.height,
                          ev.residuals, ev.weight, ev.gx, ev.gy, ev.ok, eps, window.frame_valid,
-                         window.frame_fixed, window.frame_marg, k, n, int(bool(marg_pass)),
+                         window.frame_fixed, window.frame_marg, k, n, c, int(bool(marg_pass)),
                          float(opts.idepth_nullspace_threshold),
                          float(opts.scale_nullspace_reg), float(opts.fixed_reg),
                          float(opts.affine_reg_a), float(opts.affine_reg_b),
@@ -693,7 +742,8 @@ def _lm_phase(phase: int, row: int, window: Window, opts: PBAOptions, trial_eps,
     t_lin_t, affine0, eps, idepth, lin_idepth, res_status), updated in
     place, as is the carried evaluation ``ev``."""
     k, n = window.num_slots, window.num_landmark_slots
-    kernels.BA_LM(phase, row, k, n, int(opts.min_iterations), int(bool(opts.force_accept)),
+    kernels.BA_LM(phase, row, k, n, window.num_channels, int(opts.min_iterations),
+                  int(bool(opts.force_accept)),
                   float(opts.initial_regularizer), float(opts.function_tolerance),
                   float(opts.parameter_tolerance), float(opts.reg_decrease),
                   float(opts.reg_increase), float(opts.affine_reg_a), float(opts.affine_reg_b),
@@ -738,7 +788,7 @@ def _solve_loop_cuda(window: Window, model, opts: PBAOptions, log: list = None):
     # every iteration writes the same system, step and trial evaluation
     sys_buffers = _linearize_buffers(k, n, eps.dtype, dev)
     step_buffers = _solve_step_buffers(k, n, eps.dtype, dev)
-    ev_new = _evaluation_buffers(k, n, eps.dtype, dev)
+    ev_new = _evaluation_buffers(k, n, window.num_channels, eps.dtype, dev)
     for it in range(1, opts.max_iterations + 1):
         sys = _linearize_from_ev_cuda(win, model, ev, eps, opts, lm_state=state,
                                       buffers=sys_buffers)
@@ -913,7 +963,8 @@ def _permute_window(window: Window, perm, drop_marg) -> Window:
         lm_marg_flag=torch.zeros_like(window.lm_marg_flag),
         lm_outlier=window.lm_outlier[perm], lm_inliers=window.lm_inliers[perm],
         lm_opt_count=window.lm_opt_count[perm], lm_baseline=window.lm_baseline[perm],
-        res_status=window.res_status[perm][:, perm], maps=window.maps[perm])
+        res_status=window.res_status[perm][:, perm], maps=window.maps[perm],
+        channel_maps=None if window.channel_maps is None else window.channel_maps[perm])
 
 
 def _marginalize_plain(window: Window, h_pts, b_pts, e_land, perm, opts: PBAOptions,
@@ -1038,9 +1089,15 @@ def put_slot(x, onehot, value):
 
 
 def push_frame_slot(window: Window, slot, pose_q, pose_t, affine, exposure,
-                    fixed: bool, frame_id: int, pixel_map) -> Window:
+                    fixed: bool, frame_id: int, pixel_map, channel_map=None) -> Window:
     """Insert a keyframe with no landmarks into ``slot`` (pushFrame); ``slot``
-    as :func:`slot_mask` takes it."""
+    as :func:`slot_mask` takes it.  ``channel_map``: the [3C, H, W] map of the
+    keyframe's embedded channels, which a window of C > 1 channels needs and
+    a window of one refuses."""
+    if (channel_map is None) != (window.channel_maps is None):
+        raise ValueError(f"a {window.num_channels}-channel window takes "
+                         + ("no channel map" if channel_map is not None
+                            else "the keyframe's channel map"))
     at = slot_mask(window.num_slots, slot, window.frame_valid.device)
 
     def put(x, v):
@@ -1059,4 +1116,5 @@ def push_frame_slot(window: Window, slot, pose_q, pose_t, affine, exposure,
         lm_outlier=put(window.lm_outlier, False), lm_inliers=put(window.lm_inliers, 0),
         lm_opt_count=put(window.lm_opt_count, 0),
         lm_baseline=put(window.lm_baseline, 0.0), res_status=status,
-        maps=put(window.maps, pixel_map))
+        maps=put(window.maps, pixel_map),
+        channel_maps=None if channel_map is None else put(window.channel_maps, channel_map))

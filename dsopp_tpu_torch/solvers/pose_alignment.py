@@ -13,6 +13,13 @@ hypothesis on the device, no host read.  On a CPU map it is
 solves the damped systems batched.  :func:`residual_system` in turn is the
 CUDA kernel ``csrc/align.cu`` (K2, the body K3 runs per iteration) on a
 CUDA map and :func:`residual_system_plain` on a CPU one.
+
+Every function takes a map of C channels, ``[3C, H, W]`` (values C | dx C |
+dy C), with reference intensities ``[N]`` at C = 1 or ``[N, C]``: a point
+has C residuals, the whole-point Huber runs on their summed squares at
+σ·√C, and each channel adds a Jacobian row (the JAX package's
+``pose_alignment.py:101-161``).  C = 1 keeps the scalar form.  The tracker's
+frontend runs C = 1.
 """
 
 from __future__ import annotations
@@ -55,7 +62,7 @@ class LevelPoints(NamedTuple):
 
     uv: torch.Tensor         # [N, 2]
     idepth: torch.Tensor     # [N]
-    intensity: torch.Tensor  # [N]
+    intensity: torch.Tensor  # [N], or [N, C] against a map of C channels
     valid: torch.Tensor      # [N] bool
 
 
@@ -68,14 +75,24 @@ class AlignmentResult(NamedTuple):
     iterations: torch.Tensor  # [B] int32, LM iterations until done
 
 
+def huber_sigma(pixel_map, opts: "AlignmentOptions") -> float:
+    """The whole-point Huber sigma against a map of C channels: σ·√C."""
+    return opts.huber_sigma * float(pixel_map.shape[0] // 3) ** 0.5
+
+
 def residual_system_plain(pts: LevelPoints, pixel_map, model, t_t_r: SE3,
                           affine, affine_ref, exposure_ratio, sigma):
     """H [B,8,8], b [B,8], energy [B] (no priors), num_valid [B] int32 of
-    ``B`` hypotheses ``t_t_r`` (q [B,4], t [B,3]) and ``affine`` [B,2]."""
+    ``B`` hypotheses ``t_t_r`` (q [B,4], t [B,3]) and ``affine`` [B,2];
+    ``sigma`` is the whole-point Huber sigma (:func:`huber_sigma`)."""
     scale = exposure_ratio * torch.exp(affine[:, 0] - affine_ref[0])      # [B]
     rj = reproject_jacobian(model, model, pts.uv[None], pts.idepth[None],
                             SE3(t_t_r.q[:, None], t_t_r.t[:, None]))
-    patch, inside = sample(pixel_map, rj.uv)                              # [B,N,3]
+    patch, inside = sample(pixel_map, rj.uv)                              # [B,N,3C]
+    c = pixel_map.shape[0] // 3
+    if c > 1:
+        return _residual_system_channels(pts, patch, inside, rj, scale, affine, affine_ref,
+                                         sigma, c)
     vals, gx, gy = patch[..., 0], patch[..., 1], patch[..., 2]
     corrected_ref = scale[:, None] * (pts.intensity[None] - affine_ref[1])
     r = (vals - affine[:, 1:2]) - corrected_ref
@@ -94,18 +111,43 @@ def residual_system_plain(pts: LevelPoints, pixel_map, model, t_t_r: SE3,
     return h, b, energy, torch.sum(ok, dim=-1, dtype=torch.int32)
 
 
+def _residual_system_channels(pts: LevelPoints, patch, inside, rj, scale, affine,
+                              affine_ref, sigma, c: int):
+    """:func:`residual_system_plain` at C > 1 channels: C residuals and
+    Jacobian rows a point, Huber on their summed squares."""
+    vals, gx, gy = patch[..., :c], patch[..., c:2 * c], patch[..., 2 * c:]  # [B,N,C]
+    ref = pts.intensity.reshape(pts.intensity.shape[0], c)
+    corrected_ref = scale[:, None, None] * (ref[None] - affine_ref[1])    # [B,N,C]
+    r = (vals - affine[:, None, 1:2]) - corrected_ref
+    ok = pts.valid[None] & rj.valid & inside
+    r2 = torch.where(ok, torch.sum(r * r, dim=-1), torch.zeros_like(r[..., 0]))
+    energies, weights = huber_energy_weight(r2, sigma)
+    energy = torch.sum(torch.where(ok, energies, torch.zeros_like(energies)), dim=-1)
+    weights = torch.where(ok, weights, torch.zeros_like(weights))
+    duv = -rj.d_uv_d_eps_tgt                                              # [B,N,2,6]
+    dr_dpose = (gx[..., None] * duv[..., None, 0, :]
+                + gy[..., None] * duv[..., None, 1, :])                  # [B,N,C,6]
+    j = torch.cat([dr_dpose, -corrected_ref[..., None],
+                   -torch.ones_like(r)[..., None]], dim=-1)              # [B,N,C,8]
+    jw = j * weights[..., None, None]
+    h = torch.einsum("bnci,bncj->bij", jw, j)
+    b = torch.einsum("bnci,bnc->bi", jw, r)
+    return h, b, energy, torch.sum(ok, dim=-1, dtype=torch.int32)
+
+
 def _check_problem(pts: LevelPoints, pixel_map, t_t_r: SE3, affine, affine_ref,
                    exposure_ratio):
-    """Validate the tensors K2 and K3 share → (n, nb, h_px, w_px, ref) with
-    ``ref`` = [a_ref, b_ref, exposure ratio] on the device."""
+    """Validate the tensors K2 and K3 share → (n, nb, h_px, w_px, c, ref)
+    with ``ref`` = [a_ref, b_ref, exposure ratio] on the device."""
     n = pts.uv.shape[0]
     nb = t_t_r.q.shape[0]
     check = kernels.check
-    check(pixel_map, "pixel_map", (3,) + tuple(pixel_map.shape[-2:]))
+    c = pixel_map.shape[0] // 3
+    check(pixel_map, "pixel_map", (3 * c,) + tuple(pixel_map.shape[-2:]))
     _, h_px, w_px = pixel_map.shape
     check(pts.uv, "uv", (n, 2))
     check(pts.idepth, "idepth", (n,))
-    check(pts.intensity, "intensity", (n,))
+    check(pts.intensity, "intensity", (n,) if c == 1 else (n, c))
     check(pts.valid, "valid", (n,), torch.bool)
     check(t_t_r.q, "pose_q", (nb, 4))
     check(t_t_r.t, "pose_t", (nb, 3))
@@ -114,21 +156,21 @@ def _check_problem(pts: LevelPoints, pixel_map, t_t_r: SE3, affine, affine_ref,
                        torch.as_tensor(exposure_ratio, dtype=affine.dtype,
                                        device=affine.device)]).contiguous()
     check(ref, "ref", (3,))
-    return n, nb, h_px, w_px, ref
+    return n, nb, h_px, w_px, c, ref
 
 
 def residual_system_cuda(pts: LevelPoints, pixel_map, model, t_t_r: SE3,
                          affine, affine_ref, exposure_ratio, sigma):
     """Kernel K2: same outputs as :func:`residual_system_plain`."""
-    n, nb, h_px, w_px, ref = _check_problem(pts, pixel_map, t_t_r, affine,
-                                            affine_ref, exposure_ratio)
+    n, nb, h_px, w_px, c, ref = _check_problem(pts, pixel_map, t_t_r, affine,
+                                               affine_ref, exposure_ratio)
     dev, dt = affine.device, affine.dtype
     h = torch.empty((nb, 8, 8), dtype=dt, device=dev)
     b = torch.empty((nb, 8), dtype=dt, device=dev)
     energy = torch.empty((nb,), dtype=dt, device=dev)
     num_valid = torch.empty((nb,), dtype=torch.int32, device=dev)
     kernels.ALIGN(pts.uv, pts.idepth, pts.intensity, pts.valid, n, pixel_map,
-                  h_px, w_px, t_t_r.q, t_t_r.t, affine, ref, nb,
+                  h_px, w_px, c, t_t_r.q, t_t_r.t, affine, ref, nb,
                   model.fx, model.fy, model.cx, model.cy, model.width,
                   model.height, float(sigma), h, b, energy, num_valid)
     return h, b, energy, num_valid
@@ -140,7 +182,7 @@ def residual_system(pts: LevelPoints, pixel_map, model, t_t_r: SE3, affine,
     priors; the kernel on CUDA tensors, the plain version on CPU ones."""
     fn = residual_system_cuda if pixel_map.is_cuda else residual_system_plain
     h, b, energy, num_valid = fn(pts, pixel_map, model, t_t_r, affine,
-                                 affine_ref, exposure_ratio, opts.huber_sigma)
+                                 affine_ref, exposure_ratio, huber_sigma(pixel_map, opts))
     ra, rb = opts.affine_reg_a, opts.affine_reg_b
     a, bb = affine[:, 0], affine[:, 1]
     energy = energy + 0.5 * (ra * a * a + rb * bb * bb)
@@ -225,8 +267,8 @@ def align_level_cuda(pts: LevelPoints, pixel_map, model, t_init: SE3, affine_ini
     """Kernel K3: same result as :func:`align_level_plain`, in one launch
     (a cluster of blocks per hypothesis) and without a host read.  ``trace``
     as there, with ``opts.max_iterations + 1`` passes."""
-    n, nb, h_px, w_px, ref = _check_problem(pts, pixel_map, t_init, affine_init,
-                                            affine_ref, exposure_ratio)
+    n, nb, h_px, w_px, c, ref = _check_problem(pts, pixel_map, t_init, affine_init,
+                                               affine_ref, exposure_ratio)
     dev, dt = affine_init.device, affine_init.dtype
     q = torch.empty((nb, 4), dtype=dt, device=dev)
     t = torch.empty((nb, 3), dtype=dt, device=dev)
@@ -241,9 +283,9 @@ def align_level_cuda(pts: LevelPoints, pixel_map, model, t_init: SE3, affine_ini
                           dtype=dt, device=dev)
         trace.append(rows)
     kernels.ALIGN_LEVEL(
-        pts.uv, pts.idepth, pts.intensity, pts.valid, n, pixel_map, h_px, w_px,
+        pts.uv, pts.idepth, pts.intensity, pts.valid, n, pixel_map, h_px, w_px, c,
         t_init.q, t_init.t, affine_init, ref, nb, model.fx, model.fy, model.cx,
-        model.cy, model.width, model.height, float(opts.huber_sigma),
+        model.cy, model.width, model.height, float(huber_sigma(pixel_map, opts)),
         int(opts.max_iterations), float(opts.initial_regularizer),
         float(opts.function_tolerance), float(opts.parameter_tolerance),
         float(opts.affine_reg_a), float(opts.affine_reg_b), float(opts.reg_decrease),

@@ -34,13 +34,15 @@ from dsopp_tpu_torch.tracker.monocular import MonocularTracker, TrackerConfig
 CASES = ((3, 5), (1, None), (0, 5))
 
 
-def small_tracker():
+def small_tracker(embedder: str = "identity"):
     """A tracker bootstrapped on 6 known-pose frames at 240×320 (every second
-    one a keyframe) → (tracker, the next frame's pyramid)."""
+    one a keyframe), with the frame embedder ``embedder`` → (tracker, the next
+    frame's pyramid)."""
     seq = render_sequence(num_frames=8, height=240, width=320, dtype=torch.float32,
                           device="cuda")
     cfg = TrackerConfig(num_frame_slots=6, landmarks_per_frame=120, immature_per_frame=300,
-                        desired_points=600, frontend_points=800, window_min=3, window_max=4)
+                        desired_points=600, frontend_points=800, window_min=3, window_max=4,
+                        embedder=embedder)
     tracker = MonocularTracker(seq.camera, cfg, dtype=torch.float32, device="cuda")
     for i in range(6):
         tracker.tick(i, float(seq.timestamps[i]), seq.images[i],

@@ -34,7 +34,7 @@ WINDOWS = {"standart": 2, "dense": 1}   # path -> every how many frames a keyfra
 
 
 def make_inputs() -> dict:
-    """{window: its fields, the camera, eps, K7's evaluation}, as
+    """{window: its fields, the camera, eps, idepth, K7's evaluation}, as
     ``chip_smoke.py::parity_ba`` builds them."""
     from dsopp_tpu_torch.testing.paths import (INIT_FRAMES, bootstrap, path_config,
                                                render_path)
@@ -57,7 +57,7 @@ def make_inputs() -> dict:
                   * (1.0 + 0.01 * torch.randn((k, n), generator=gen, device="cuda"))).contiguous()
         ev = pba._evaluate_cuda(win, model, eps, idepth, pba.active_lm_mask(win), opts)
         out[name] = dict(window={f.name: getattr(win, f.name) for f in dataclasses.fields(win)},
-                         model=model._asdict(), eps=eps, ev=ev._asdict(),
+                         model=model._asdict(), eps=eps, idepth=idepth, ev=ev._asdict(),
                          opts=opts._asdict())
     return out
 

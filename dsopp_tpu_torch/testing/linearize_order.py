@@ -31,6 +31,11 @@ kernel's order:
    tree ``((s0 + s4) + (s2 + s6)) + ((s1 + s5) + (s3 + s7))``; rounded to the
    operands' type, the diagonal priors added.
 
+At C channels a landmark has C·8 rows, channel-major, sharing each point's
+FEJ geometry: a chunk is staged C times, channel by channel (each stage the
+same 256 rows of 32 landmarks), and the per-landmark sums run over the C·8
+rows in that order.
+
 With float64 operands the mirror differs from ``_linearize_from_ev_plain``
 only in the order of its float64 sums and of the FEJ's products.  The mirrors
 work on dense tensors with vectorised entries: no ``matmul`` or ``einsum``,
@@ -43,7 +48,7 @@ import torch
 
 from dsopp_tpu_torch.core.pattern import shift_pattern
 from dsopp_tpu_torch.solvers.pba import (BLOCK, Evaluation, FEJCache, LinearSystem, PBAOptions,
-                                         Window, _prior_system)
+                                         Window, _patch_ref, _prior_system)
 from dsopp_tpu_torch.testing.activation_models import _cross, _rotate, relative_poses
 
 TILE_LM = 128     # landmarks per pair block (kTileLm)
@@ -106,22 +111,28 @@ def fej_cache(window: Window, model) -> FEJCache:
     e, a = window.exposure, window.affine0
     ratio = e[None, :] / torch.clamp(e[:, None], min=1e-12)
     scale0 = ratio * torch.exp(a[None, :, 0] - a[:, None, 0])
-    corrected = scale0[bc] * (window.lm_patch[:, None] - a[:, 1][:, None, None, None])
+    corrected = (scale0[bc][:, :, :, None]
+                 * (_patch_ref(window)[:, None] - a[:, 1][:, None, None, None, None]))
     return FEJCache(ref, tgt, d_idepth, corrected, scale0, torch.all(valid, dim=-1))
 
 
 def _rows(fej: FEJCache, ev: Evaluation):
-    """→ (w, J [K,K,N,P,16], r, j_d) in the operands' type, as pair_kernel
-    forms them."""
+    """→ (w, J [K,K,N,C·P,16], r, j_d [K,K,N,C·P]) in the operands' type, as
+    pair_kernel forms them, rows channel-major."""
+    k, n, c = ev.residuals.shape[0], ev.residuals.shape[2], ev.residuals.shape[3]
     w = torch.where(ev.ok & fej.geom_valid, ev.weight, torch.zeros_like(ev.weight))
-    gx, gy = ev.gx[..., None], ev.gy[..., None]
-    j_ref = gx * fej.d_uv_ref[..., 0, :] + gy * fej.d_uv_ref[..., 1, :]
-    j_tgt = gx * fej.d_uv_tgt[..., 0, :] + gy * fej.d_uv_tgt[..., 1, :]
+    gx, gy = ev.gx[..., None], ev.gy[..., None]                     # [K,K,N,C,P,1]
+    d_ref, d_tgt = fej.d_uv_ref[:, :, :, None], fej.d_uv_tgt[:, :, :, None]
+    j_ref = gx * d_ref[..., 0, :] + gy * d_ref[..., 1, :]
+    j_tgt = gx * d_tgt[..., 0, :] + gy * d_tgt[..., 1, :]
     corr = fej.corrected_ref[..., None]
-    s0 = fej.scale0[:, :, None, None, None].expand_as(corr)
+    s0 = fej.scale0[:, :, None, None, None, None].expand_as(corr)
     j = torch.cat([j_ref, corr, s0, j_tgt, -corr, -torch.ones_like(corr)], dim=-1)
-    j_d = ev.gx * fej.d_uv_idepth[..., 0] + ev.gy * fej.d_uv_idepth[..., 1]
-    return w, j, ev.residuals, j_d
+    j_d = (ev.gx * fej.d_uv_idepth[:, :, :, None, :, 0]
+           + ev.gy * fej.d_uv_idepth[:, :, :, None, :, 1])
+    cp = c * PATTERN
+    return (w, j.reshape(k, k, n, cp, 16), ev.residuals.reshape(k, k, n, cp),
+            j_d.reshape(k, k, n, cp))
 
 
 def _in_order(terms):
@@ -143,22 +154,27 @@ def _tree(lanes):
 def pair_sums(w, j, r):
     """[K*K, tiles, 16, 17] float64: each (pair, tile)'s sum of
     ``(w J)^T [J | r]`` in pair_kernel's order."""
-    k, n = w.shape[0], w.shape[2]
+    k, n, cp = w.shape[0], w.shape[2], j.shape[3]
+    c = cp // PATTERN
     tiles = -(-n // TILE_LM)
+    chunks = TILE_LM // CHUNK_LM
     wj = (w[..., None, None] * j).double()
     jr = torch.cat([j, r[..., None]], dim=-1).double()
     pad = tiles * TILE_LM - n
 
-    def staged(x):       # → [K*K, tiles, chunks, WARPS, 32, cols]
-        x = torch.nn.functional.pad(x.reshape(k * k, n, PATTERN, -1), (0, 0, 0, 0, 0, pad))
-        return x.reshape(k * k, tiles, TILE_LM // CHUNK_LM, WARPS, 32, x.shape[-1])
+    def staged(x):       # → [K*K, tiles, chunks, C, WARPS, 32, cols]: a stage a channel
+        x = torch.nn.functional.pad(x.reshape(k * k, n, cp, -1), (0, 0, 0, 0, 0, pad))
+        x = x.reshape(k * k, tiles, chunks, CHUNK_LM, c, PATTERN, x.shape[-1])
+        return x.permute(0, 1, 2, 4, 3, 5, 6).reshape(k * k, tiles, chunks, c, WARPS, 32,
+                                                      x.shape[-1])
 
     wj, jr = staged(wj), staged(jr)
     acc = torch.zeros((k * k, tiles, WARPS, 16, 17), dtype=torch.float64)
-    for chunk in range(TILE_LM // CHUNK_LM):
-        for t in range(32):          # the warp's residuals in order, sixteen a product
-            a, b = wj[:, :, chunk, :, t], jr[:, :, chunk, :, t]
-            acc = acc + a[..., :, None] * b[..., None, :]
+    for chunk in range(chunks):
+        for ch in range(c):
+            for t in range(32):      # the warp's residuals in order, sixteen a product
+                a, b = wj[:, :, chunk, ch, :, t], jr[:, :, chunk, ch, :, t]
+                acc = acc + a[..., :, None] * b[..., None, :]
     return _in_order(acc[:, :, w_] for w_ in range(WARPS))
 
 
@@ -180,12 +196,13 @@ def linearize_from_fej(window: Window, fej: FEJCache, ev: Evaluation, eps, opts:
     tiles = -(-n // TILE_LM)
     pp = pair_sums(w, j, r).reshape(k, k, tiles, 16, 17)
 
-    # per (pair, landmark): the 8-point sums, point by point
+    # per (pair, landmark): the sums over its C·8 rows, row by row
     wj = w[..., None, None] * j
-    h_ref = _in_order(wj[:, :, :, p, :8] * j_d[:, :, :, p, None] for p in range(PATTERN))
-    h_tgt = _in_order(wj[:, :, :, p, 8:] * j_d[:, :, :, p, None] for p in range(PATTERN))
-    hdd_t = _in_order((j_d[..., p] * j_d[..., p]) * w for p in range(PATTERN))
-    bd_t = _in_order((j_d[..., p] * r[..., p]) * w for p in range(PATTERN))
+    rows_lm = range(j.shape[3])
+    h_ref = _in_order(wj[:, :, :, p, :8] * j_d[:, :, :, p, None] for p in rows_lm)
+    h_tgt = _in_order(wj[:, :, :, p, 8:] * j_d[:, :, :, p, None] for p in rows_lm)
+    hdd_t = _in_order((j_d[..., p] * j_d[..., p]) * w for p in rows_lm)
+    bd_t = _in_order((j_d[..., p] * r[..., p]) * w for p in rows_lm)
     hpd = h_tgt.permute(0, 2, 1, 3).contiguous()                  # [i, l, j, a]
     anchor = _in_order(h_ref[:, f].double() for f in range(k))    # [i, l, a]
     eye = torch.arange(k)

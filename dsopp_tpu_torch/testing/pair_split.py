@@ -28,7 +28,7 @@ from dsopp_tpu_torch.solvers import pba
 from dsopp_tpu_torch.testing import linearize_bits
 from dsopp_tpu_torch.testing.paths import card_line
 
-FEJ_CALL = "    const ba::Fej f = ba::fej_point(cam, rel_s, u, v, d, s0, patch, b_anchor);\n"
+FEJ_CALL = "    const ba::Fej f = ba::fej_point(cam, rel_s, u, v, d);\n"
 FEJ_STAND_IN = """    ba::Fej f;
 #pragma unroll
     for (int c = 0; c < 12; ++c) {
@@ -37,11 +37,10 @@ FEJ_STAND_IN = """    ba::Fej f;
     }
     f.idepth[0] = d;
     f.idepth[1] = patch;
-    f.corrected = patch - b_anchor;
     f.valid = d > 0.0f;
 """
-PRODUCTS_FIRST = "#pragma unroll\n    for (int step = 0; step < 2; ++step) {\n"
-PRODUCTS_LAST = "      dmma(acc[2], a, b[2]);\n    }\n"
+PRODUCTS_FIRST = "#pragma unroll\n      for (int step = 0; step < 2; ++step) {\n"
+PRODUCTS_LAST = "        dmma(acc[2], a, b[2]);\n      }\n"
 K8_KERNELS = ("pair_kernel", "landmark_kernel", "schur_kernel", "reduce_kernel")
 
 

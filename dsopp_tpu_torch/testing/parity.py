@@ -13,7 +13,7 @@ import torch
 
 from dsopp_tpu_torch.core.lie import SE3, quat_conjugate, quat_multiply
 from dsopp_tpu_torch.core.reproject import reproject
-from dsopp_tpu_torch.features.pyramid import build_pyramid_maps
+from dsopp_tpu_torch.features.pyramid import build_channel_map, build_pyramid_maps
 from dsopp_tpu_torch.solvers.linear import pinv_rtol
 from dsopp_tpu_torch.solvers.pba import (BLOCK, LEDGER_DTYPE, RES_OOB, LinearSystem,
                                          _assemble_step_system, _marginalize_plain,
@@ -31,7 +31,7 @@ from dsopp_tpu_torch.tracker.marginalization import (EPS_DIST, KEEP_FRAMES_FROM_
 def to_f64(obj):
     """A window or a tuple of tensors with every float tensor in float64: the
     same inputs for a plain version run in double arithmetic."""
-    cast = lambda t: t.double() if t.is_floating_point() else t  # noqa: E731
+    cast = lambda t: t.double() if t is not None and t.is_floating_point() else t  # noqa: E731
     if dataclasses.is_dataclass(obj):
         return obj.replace(**{f.name: cast(getattr(obj, f.name))
                               for f in dataclasses.fields(obj)})
@@ -155,7 +155,7 @@ def evaluation_errors(ev_k, ev_p, live) -> dict:
     agree = (ev_k.ok == ev_p.ok) & (ev_k.status_candidate == ev_p.status_candidate)
     n_live = int(live.sum())
     both = agree & ev_k.ok & ev_p.ok
-    m = both[..., None]
+    m = both[..., None, None]
     zero = torch.zeros((), dtype=ev_k.residuals.dtype, device=ev_k.residuals.device)
     out = dict(agree=float((agree & live).sum()) / max(n_live, 1), live=n_live,
                ok=int(ev_p.ok.sum()))
@@ -331,7 +331,8 @@ def keyframe_case(tracker, image, pose, frame_id: int):
     ``fused_keyframe_push`` builds them: ``image`` at the known ``pose`` becomes
     the newest keyframe of the tracker's window (no landmarks yet), after the
     epipolar update of the immature banks against it, and brings its own bank
-    of fresh candidates → (window, immature banks, the frame's pyramid).  The
+    of fresh candidates → (window, immature banks, the frame's pyramid); a
+    window of C > 1 channels takes the frame's embedded channel map.  The
     tracker itself is left as it was."""
     cfg, win = tracker.config, tracker.window
     maps = build_pyramid_maps(image.contiguous(), cfg.pyramid_levels)
@@ -343,8 +344,10 @@ def keyframe_case(tracker, image, pose, frame_id: int):
                           win.affine(), tracker.last_affine,
                           exposure / torch.clamp(win.exposure, min=1e-12), cfg.huber_sigma)
     slot = frame_count(win)
+    channel_map = (None if win.num_channels == 1
+                   else build_channel_map(tracker.embedder(maps[0][0])))
     win = push_frame_slot(win, slot, pose.q, pose.t, tracker.last_affine, exposure, False,
-                          frame_id, maps[0])
+                          frame_id, maps[0], channel_map)
     imm = set_bank(imm, slot, immature_bank(maps[0], cfg.immature_per_frame, tracker.mask))
     return win, imm, maps
 

@@ -11,7 +11,9 @@ window of 3..4 frames, so the ledger is folded at most keyframes), each after
 a known-pose bootstrap; and the camera sensor path: the corridor written to a
 folder as a camera would store it (raw u8 frames through a gamma response, a
 radial vignette and an oscillating exposure, with class-id images), read back
-through the provider and the camera at the standart point.
+through the provider and the camera at the standart point; and the
+frame-embedder path: the corridor at the standart point with
+``embedder="filter_bank"`` (C = 3 channels in the windowed BA).
 
 Beside them, the runs of ``tests/tracker/test_monocular_e2e.py`` (240×320, 40
 frames, an 8-frame known-pose bootstrap), plain and under an exposure
@@ -19,6 +21,7 @@ oscillation, which the CPU tests and ``chip_smoke.py`` both gate."""
 
 from __future__ import annotations
 
+import dataclasses
 import math
 import os
 import subprocess
@@ -60,6 +63,13 @@ def dense_config() -> TrackerConfig:
         window_min=5, window_max=15, use_rotation_perturbations=True)
 
 
+def embedder_config() -> TrackerConfig:
+    """The standart point with the JAX package's filter-bank embedder (C = 3),
+    the C > 1 configuration a user asks for with ``frame_embedder: {type:
+    filter_bank}``."""
+    return dataclasses.replace(standart_config(), embedder="filter_bank")
+
+
 def ledger_config() -> TrackerConfig:
     """tests/tracker/test_ledger_drift_tracker.py's CFG: a small window (3..4
     of 7 slots) at 120x160, so that most keyframes fold a frame into the
@@ -78,6 +88,7 @@ PATHS = {
     "masked": ("standart", standart_config),
     "ledger": ("ledger", ledger_config),
     "sensor": ("standart", standart_config),
+    "embedder": ("standart", embedder_config),
 }
 MASK_FIRST_INVALID_ROW = 360   # the masked path: rows 360..479 hold no candidate
 MASKED_FRAMES = 66             # ... and it runs the first 66 frames (60 tracked)

@@ -3,8 +3,8 @@
 
     python -m dsopp_tpu_torch.testing.profile_track [out.json] [path ...]
 
-``path`` is ``standart``, ``fast``, ``dense``, ``masked`` or ``ledger`` (default:
-all five).  Per
+``path`` is ``standart``, ``fast``, ``dense``, ``masked``, ``ledger`` or
+``embedder`` (default: all six).  Per
 path, after the 6-frame known-pose bootstrap:
 
 1. ``REPEATS`` plain runs over all frames: frames/s of each (host clock

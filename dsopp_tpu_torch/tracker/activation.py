@@ -8,6 +8,12 @@ get a 3-iteration scalar LM on idepth against every window frame (newest
 host bank first, at most ``REFINE_CAP`` per keyframe) and are then paired
 rank for rank with free landmark slots of their host frame.
 
+Immature points carry intensity patches (the epipolar tracer is C = 1, as
+the reference's), and the refinement samples channel 0 of the window's
+channel bank, as the JAX package does.  In a window of C > 1 embedder
+channels a landmark's reference patch is its C-channel one, sampled from
+its host keyframe's bank when it activates (:func:`embedded_patches`).
+
 The three steps have hand-written CUDA kernels beside their plain versions:
 K13 (``csrc/activation.cu``) for :func:`_activation_kernel`, K14
 (``csrc/refine.cu``) for :func:`_refine_idepth_kernel` and
@@ -195,7 +201,7 @@ def _refine_idepth_plain(window: Window, model, imm: ImmaturePoints, activate,
     t_b = SE3(t_cj.q[:, :, None, :], t_cj.t[:, :, None, :])
     corrected = scale[:, :, None] * (patch0[:, None] - affine[host][:, None, None, 1])
     h_px, w_px = window.maps.shape[-2:]
-    padded = pad_images(window.maps[:, 0])
+    padded = pad_images(window.channel_bank[:, 0])   # channel 0 of the bank
     target = torch.arange(k, device=dev)[None, :, None]
     zero_k = torch.zeros_like(corrected[..., 0])
 
@@ -256,7 +262,8 @@ def _refine_idepth_cuda(window: Window, model, imm: ImmaturePoints, activate,
     k, m = _check_banks(imm)
     check = kernels.check
     h_px, w_px = window.maps.shape[-2:]
-    check(window.maps, "maps", (k, 3, h_px, w_px))
+    c = window.num_channels
+    check(window.channel_bank, "channel bank", (k, 3 * c, h_px, w_px))
     check(activate, "activate", (k, m), torch.bool)
     if k > _REFINE_MAX_FRAMES:
         raise ValueError(f"the refine kernel takes at most {_REFINE_MAX_FRAMES} frame slots,"
@@ -272,10 +279,11 @@ def _refine_idepth_cuda(window: Window, model, imm: ImmaturePoints, activate,
     if trace is not None:
         rows = torch.empty((cap, REFINE_ITERATIONS, 4), dtype=torch.float32, device=dev)
         trace.append(rows)
-    # the intensity image of frame f is channel 0 of maps[f]
+    # the refinement samples plane 0 of channel_bank[f] (at C = 1, the intensity)
     kernels.REFINE(activate, imm.uv, imm.patch, imm.idepth_min, imm.idepth_max,
                    window.t_lin_q, window.t_lin_t, window.eps, window.affine0, window.exposure,
-                   window.frame_valid, window.maps, 3 * h_px * w_px, k, m, h_px, w_px, cap,
+                   window.frame_valid, window.channel_bank, 3 * c * h_px * w_px, k, m, h_px,
+                   w_px, cap,
                    model.fx, model.fy, model.cx, model.cy, model.width, model.height,
                    float(huber_sigma), torch.empty((cap,), dtype=torch.int32, device=dev),
                    torch.empty((8 * k * k + k,), dtype=torch.float32, device=dev), selected,
@@ -291,8 +299,28 @@ def _refine_idepth_kernel(window: Window, model, imm: ImmaturePoints, activate,
     return fn(window, model, imm, activate, huber_sigma, cap)
 
 
+def embedded_patches(window: Window, uv):
+    """[K, M, C·P] channel-major reference patches of points ``uv`` [K, M, 2]
+    of each host slot, sampled from that slot's channel bank under the
+    10×10-window rule (:func:`sample_window`, window based at ``floor(uv) −
+    4``; values only, a point outside the window reads its clamped corners,
+    pixels outside the image read 0), as the JAX package's
+    ``embedded_patches`` reads its patch tables."""
+    k, m = uv.shape[:2]
+    c = window.num_channels
+    h, w = window.maps.shape[-2:]
+    bx, by = window_base(uv, h, w)                                     # [K, M]
+    plane = (torch.arange(k, device=uv.device)[:, None, None, None] * c
+             + torch.arange(c, device=uv.device)[:, None])              # [K, 1, C, 1]
+    vals, _, _, _ = sample_window(pad_images(window.channel_bank[:, :c]),
+                                  shift_pattern(uv)[:, :, None], bx[..., None, None],
+                                  by[..., None, None], h, w, img_idx=plane)  # [K, M, C, P]
+    return vals.reshape(k, m, c * PATTERN_SIZE)
+
+
 def _activation_scatter_plain(window: Window, imm: ImmaturePoints, activate, delete):
-    """Move accepted immature points into free landmark slots, per slot."""
+    """Move accepted immature points into free landmark slots, per slot; in a
+    window of C > 1 channels their patches are :func:`embedded_patches`."""
     k, n = window.lm_valid.shape
     m = imm.uv.shape[1]
     r = min(n, m)
@@ -322,7 +350,8 @@ def _activation_scatter_plain(window: Window, imm: ImmaturePoints, activate, del
         return torch.gather(x, 1, idx)
 
     lm_uv = scatter(window.lm_uv, take_src(imm.uv), 1)
-    lm_patch = scatter(window.lm_patch, take_src(imm.patch), 1)
+    patch = imm.patch if window.num_channels == 1 else embedded_patches(window, imm.uv)
+    lm_patch = scatter(window.lm_patch, take_src(patch), 1)
     lm_idepth = scatter(window.lm_idepth, take_src(imm.idepth), 1)
     lm_valid = scatter(window.lm_valid, torch.ones((k, r), dtype=torch.bool, device=dev), 1)
     status = scatter(window.res_status,
@@ -337,8 +366,10 @@ def _activation_scatter_plain(window: Window, imm: ImmaturePoints, activate, del
 def _activation_scatter_cuda(window: Window, imm: ImmaturePoints, activate, delete):
     """Kernel K14 (pairing): same outputs as :func:`_activation_scatter_plain`.
     The kernel writes clones of the window's tensors, so the caller's window
-    stays as it was; every output is dense."""
+    stays as it was; every output is dense.  At C > 1 it samples the moved
+    points' C-channel patches from their host slots' channel bank."""
     k, n = window.num_slots, window.num_landmark_slots
+    c = window.num_channels
     km, m = _check_banks(imm)
     check = kernels.check
     if km != k:
@@ -346,7 +377,9 @@ def _activation_scatter_cuda(window: Window, imm: ImmaturePoints, activate, dele
     check(activate, "activate", (k, m), torch.bool)
     check(delete, "delete", (k, m), torch.bool)
     check(window.lm_uv, "lm_uv", (k, n, 2))
-    check(window.lm_patch, "lm_patch", (k, n, PATTERN_SIZE))
+    check(window.lm_patch, "lm_patch", (k, n, c * PATTERN_SIZE))
+    h_px, w_px = window.maps.shape[-2:]
+    check(window.channel_bank, "channel bank", (k, 3 * c, h_px, w_px))
     check(window.lm_idepth, "lm_idepth", (k, n))
     check(window.lm_valid, "lm_valid", (k, n), torch.bool)
     check(window.res_status, "res_status", (k, k, n), torch.int32)
@@ -358,6 +391,7 @@ def _activation_scatter_cuda(window: Window, imm: ImmaturePoints, activate, dele
     n_activated = torch.empty((1,), dtype=torch.int64, device=dev)
     kernels.ACTIVATION_SCATTER(
         activate, delete, imm.uv, imm.patch, imm.idepth_min, imm.idepth_max, imm.valid,
+        window.channel_bank, c, h_px, w_px,
         k, n, m, torch.empty((k, n + m), dtype=torch.int32, device=dev), lm_uv, lm_patch,
         lm_idepth, lm_valid, status, imm_valid, n_activated)
     window = window.replace(lm_uv=lm_uv, lm_patch=lm_patch, lm_idepth=lm_idepth,

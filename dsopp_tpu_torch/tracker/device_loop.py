@@ -15,12 +15,14 @@ into the host track every ``flush_every`` frames.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from dsopp_tpu_torch.core.lie import SE3
+from dsopp_tpu_torch.features.embedder import make_embedder
 from dsopp_tpu_torch.solvers.pba import PBAOptions, Window, _marginalize_device, newest_slot
 from dsopp_tpu_torch.solvers.pose_alignment import AlignmentOptions
 from dsopp_tpu_torch.track.state import AttachedFrame, MarginalizedKeyframe, sample_semantics
@@ -50,6 +52,13 @@ class DeviceLoopConfig(NamedTuple):
     max_marg_fraction: float
     height: int
     width: int
+    embedder: str = "identity"   # frame-embedder kind ("identity" = C = 1)
+
+
+@functools.lru_cache(maxsize=None)
+def _embedder(name: str):
+    """One embedder per kind: its filter bank moves to the card once."""
+    return make_embedder(name)
 
 
 class DeviceTrackerState(NamedTuple):
@@ -117,11 +126,15 @@ def keyframe_update(window: Window, immature: ImmaturePoints, maps, pose_q, pose
                     affine, frame_id: int, min_distance, models,
                     cfg: DeviceLoopConfig, exposure, mask=None) -> KeyframeUpdate:
     """The keyframe backend shared by ``device_tick`` and the bootstrap.
-    ``mask``: [H, W] bool candidate-selection mask or None."""
+    ``mask``: [H, W] bool candidate-selection mask or None.  A frame embedder
+    other than the identity embeds the keyframe's intensity for the window's
+    channel bank; the frontend and the epipolar tracer stay C = 1."""
     dtype = window.eps.dtype
+    embed = None if cfg.embedder == "identity" else _embedder(cfg.embedder)(maps[0][0])
     kf = fused_keyframe_push(window, models[0], immature, maps[0], pose_q, pose_t,
                              affine, frame_id, min_distance, cfg.pba_opts, cfg.refine,
-                             cfg.huber_sigma, cfg.immature_per_frame, exposure, mask=mask)
+                             cfg.huber_sigma, cfg.immature_per_frame, exposure, mask=mask,
+                             embed=embed)
     win, immature, batch = kf.window, kf.immature, kf.batch
     min_distance = torch.clamp(
         min_distance + (batch["n_active"].to(dtype) - cfg.desired_points) * P_GAIN,

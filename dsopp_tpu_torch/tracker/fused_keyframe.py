@@ -1,7 +1,9 @@
 """Keyframe push (counterpart of
 ``dsopp_tpu/tracker/fused_keyframe.py::fused_keyframe_push``): push the
 frame, build its immature bank from fresh candidates, activate, and run the
-windowed LM solve."""
+windowed LM solve.  ``embed``: the keyframe's [C, H, W] frame-embedder
+channels for a window of C > 1 channels, whose map (kernel K1) goes into the
+window's channel bank."""
 
 from __future__ import annotations
 
@@ -12,6 +14,7 @@ import torch
 from dsopp_tpu_torch.core.interpolate import sample
 from dsopp_tpu_torch.core.pattern import shift_pattern
 from dsopp_tpu_torch.features.extractor import select_candidates
+from dsopp_tpu_torch.features.pyramid import build_channel_map
 from dsopp_tpu_torch.solvers.pba import (PBAOptions, Window, _solve_loop_device, push_frame_slot,
                                          put_slot, slot_mask)
 from dsopp_tpu_torch.tracker.activation import (_activation_kernel, _activation_scatter,
@@ -44,11 +47,17 @@ def set_bank(immature: ImmaturePoints, slot, bank: ImmaturePoints) -> ImmaturePo
 def fused_keyframe_push(window: Window, model, immature: ImmaturePoints, pixel_map0,
                         pose_q, pose_t, affine, frame_id: int, min_distance,
                         opts: PBAOptions, refine: bool, huber_sigma: float,
-                        immature_per_frame: int, exposure, mask=None) -> FusedKeyframeResult:
+                        immature_per_frame: int, exposure, mask=None,
+                        embed=None) -> FusedKeyframeResult:
+    channels = 1 if embed is None else embed.shape[0]
+    if channels != window.num_channels:
+        raise ValueError(f"embedder produced {channels} channels for a "
+                         f"{window.num_channels}-channel window")
+    channel_map = None if embed is None else build_channel_map(embed)
     # the first free slot stays on the device: nothing here reads it on the host
     slot = window.frame_valid.sum().view(1)
     window = push_frame_slot(window, slot, pose_q, pose_t, affine, exposure, False,
-                             frame_id, pixel_map0)
+                             frame_id, pixel_map0, channel_map)
     immature = set_bank(immature, slot, immature_bank(pixel_map0, immature_per_frame, mask))
 
     activate, delete, n_active = _activation_kernel(window, model, immature, min_distance)

@@ -10,6 +10,11 @@ bootstrapped with
 the flow statistic (and become keyframes when the strategy asks), the last
 is forced to be a keyframe.  Tracking then goes through
 :class:`~dsopp_tpu_torch.tracker.device_loop.PipelinedTracker`.
+
+``TrackerConfig.embedder`` picks the frame embedder (``"identity"``, C = 1,
+or ``"filter_bank"``, C = 3): its channels feed the windowed BA, whose
+affine priors are scaled by C as the JAX package scales them; the frontend
+alignment and the epipolar tracer stay C = 1.
 """
 
 from __future__ import annotations
@@ -22,7 +27,8 @@ import torch
 
 from dsopp_tpu_torch import default_device
 from dsopp_tpu_torch.core.lie import SE3
-from dsopp_tpu_torch.features.pyramid import build_pyramid_maps
+from dsopp_tpu_torch.features.embedder import make_embedder
+from dsopp_tpu_torch.features.pyramid import build_channel_map, build_pyramid_maps
 from dsopp_tpu_torch.sensors.masks import filter_semantic_objects
 from dsopp_tpu_torch.solvers.pba import PBAOptions, empty_window, frame_count, push_frame_slot
 from dsopp_tpu_torch.solvers.pose_alignment import AlignmentOptions
@@ -51,13 +57,14 @@ class TrackerConfig:
     huber_sigma: float = 20.0
     use_rotation_perturbations: bool = True
     refine_activation: bool = True
+    embedder: str = "identity"       # frame embedder: "identity" (C = 1) or "filter_bank"
     pba_max_iterations: int = 7
     pba_affine_reg: tuple = (1e12, 1e8)
     align_affine_reg: tuple = (1e12, 1e8)
 
 
 class MonocularTracker:
-    """Direct sparse odometry over one camera stream (C = 1, pinhole)."""
+    """Direct sparse odometry over one camera stream."""
 
     def __init__(self, camera, config: TrackerConfig = TrackerConfig(),
                  dtype=torch.float32, device=None, mask=None):
@@ -80,14 +87,17 @@ class MonocularTracker:
         self._last_semantics = None        # newest frame's class-id image
         self._kf_semantics = {}            # keyframe id → class-id image
         self.models = [camera.scaled(float(2 ** l)) for l in range(config.pyramid_levels)]
+        self.embedder = make_embedder(config.embedder)
+        c = self.embedder.channels
         self.window = empty_window(config.num_frame_slots, config.landmarks_per_frame,
-                                   (3,) + self.image_shape, dtype=dtype, device=self.device)
+                                   (3,) + self.image_shape, dtype=dtype, device=self.device,
+                                   channels=c)
         self.immature: Optional[ImmaturePoints] = None
         self.track = OdometryTrack()
         self.pba_opts = PBAOptions(huber_sigma=config.huber_sigma,
                                    max_iterations=config.pba_max_iterations,
-                                   affine_reg_a=float(config.pba_affine_reg[0]),
-                                   affine_reg_b=float(config.pba_affine_reg[1]))
+                                   affine_reg_a=float(config.pba_affine_reg[0]) * c,
+                                   affine_reg_b=float(config.pba_affine_reg[1]) * c)
         self.align_opts = AlignmentOptions(huber_sigma=config.huber_sigma,
                                            affine_reg_a=float(config.align_affine_reg[0]),
                                            affine_reg_b=float(config.align_affine_reg[1]))
@@ -113,7 +123,7 @@ class MonocularTracker:
             desired_points=float(c.desired_points), keyframe_factor=c.keyframe_factor,
             window_min=c.window_min, window_max=c.window_max,
             max_marg_fraction=c.max_marginalized_fraction,
-            height=self.image_shape[0], width=self.image_shape[1])
+            height=self.image_shape[0], width=self.image_shape[1], embedder=c.embedder)
 
     def _kf_pose(self) -> SE3:
         pos = frame_count(self.window) - 1
@@ -173,8 +183,11 @@ class MonocularTracker:
             self.track.on_keyframe(frame_id, timestamp)
             self.num_keyframes += 1
             self.kf_id = frame_id
+            channel_map = (None if self.embedder.channels == 1
+                           else build_channel_map(self.embedder(maps[0][0])))
             self.window = push_frame_slot(self.window, 0, pose.q, pose.t,
-                                          torch.zeros(2, **d), exp_t, True, frame_id, maps[0])
+                                          torch.zeros(2, **d), exp_t, True, frame_id, maps[0],
+                                          channel_map)
             bank = immature_bank(maps[0], cfg.immature_per_frame, self.mask)
             self.immature = set_bank(
                 ImmaturePoints(*(torch.zeros((cfg.num_frame_slots,) + tuple(x.shape),

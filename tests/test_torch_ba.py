@@ -1,7 +1,10 @@
 """Port parity: the windowed-BA functions that hold the kernels K7 and K8
 (K8 with the FEJ Jacobians, once kernel K6's cache, formed inside), in plain
 PyTorch (f64 on the CPU) against the JAX package, each on the same inputs
-(K = 4 frames, N = 40 landmarks, 120×160):
+(K = 4 frames, N = 40 landmarks, 120×160), with C = 1 channel (intensity) and
+with C = 2 and 3 frame-embedder channels (the JAX package's filter bank and
+its first two filters; the JAX window's channels converted from its patch
+tables):
 
 * ``_fej_cache``, ``_evaluate``, ``_linearize_from_ev`` (the port's FEJ of
   the window against JAX's ``_linearize_from_ev`` on JAX's cache; also with
@@ -22,6 +25,7 @@ import pytest
 import torch
 
 import dsopp_tpu_torch
+from dsopp_tpu.features.embedder import FilterBankEmbedder
 from dsopp_tpu.solvers import pba as jpba
 from dsopp_tpu.testing import render_sequence
 from dsopp_tpu.testing.fixtures import build_test_window
@@ -40,13 +44,22 @@ FRAMES = [0, 2, 4, 6]
 N_LM = 40
 
 
-@pytest.fixture(scope="module")
-def problem():
-    """A perturbed window with non-zero eps, mixed statuses, exposures, one
-    fixed and one flagged frame; the JAX results on it."""
+def embedder(channels: int):
+    """The JAX embedder of ``channels`` channels (None: the intensity)."""
+    if channels == 1:
+        return None
+    return FilterBankEmbedder(np.asarray(FilterBankEmbedder().filters)[:channels])
+
+
+@pytest.fixture(scope="module", params=[1, 2, 3], ids=lambda c: f"C{c}")
+def problem(request):
+    """A perturbed window of C channels with non-zero eps, mixed statuses,
+    exposures, one fixed and one flagged frame; the JAX results on it."""
     seq = render_sequence(num_frames=8, height=120, width=160)
     window = build_test_window(seq, FRAMES, num_landmarks=N_LM, slots=len(FRAMES),
-                               pose_noise=3e-3, idepth_noise=0.05, seed=3)
+                               pose_noise=3e-3, idepth_noise=0.05, seed=3,
+                               embedder=embedder(request.param))
+    assert window.num_channels == request.param
     rng = np.random.default_rng(8)
     k = window.num_slots
     eps = rng.normal(size=(k, 8)) * np.array([2e-3] * 6 + [1e-2, 0.5])
@@ -66,8 +79,10 @@ def problem():
     fej = jpba._fej_cache(window, cam)
     ev = jpba._evaluate(window, cam, window.eps, idepth, lm_mask, opts)
     tcam = convert.pinhole(cam.fx, cam.fy, cam.cx, cam.cy, cam.image_size)
+    tw = convert.window(window_fields(window))
+    assert tw.num_channels == request.param
     return dict(window=window, cam=cam, idepth=idepth, lm_mask=lm_mask, fej=fej, ev=ev,
-                tw=convert.window(window_fields(window)), tcam=tcam)
+                tw=tw, tcam=tcam)
 
 
 def _fields(nt):
@@ -101,7 +116,7 @@ def test_evaluate_matches(problem):
     for name in ("residuals", "energy_patch", "weight"):
         _close(getattr(out, name), getattr(ref, name), name)
     # gradients are defined on every live group; compare where the patch is ok
-    m = ref.ok[..., None]
+    m = ref.ok[..., None, None]
     for name in ("gx", "gy"):
         _close(torch.where(m, getattr(out, name), 0.0), torch.where(m, getattr(ref, name), 0.0),
                name)
@@ -191,7 +206,8 @@ def test_align_level_dispatcher_runs_plain_on_cpu(monkeypatch):
 def _f32_window(tw):
     return tw.replace(**{f.name: getattr(tw, f.name).float()
                          for f in dataclasses.fields(tw)
-                         if getattr(tw, f.name).dtype == torch.float64
+                         if getattr(tw, f.name) is not None
+                         and getattr(tw, f.name).dtype == torch.float64
                          and f.name not in ("h_marg", "b_marg", "energy_marg")})
 
 

@@ -56,6 +56,14 @@ photometric correction) equal to the bit on u8 and f32 frames, with and
 without a vignette, at VGA and at 479x637. K12-K16 and K18 run with host
 synchronisation an error.
 
+At C = 2 and 3 frame-embedder channels (a tracker with the filter-bank
+embedder, and its window's first two channels): K1's channel map 1e-3 abs;
+K7, K8 (both passes, two runs equal), K10 and K11 (C = 3), K2 and K3 with
+the tolerances above; K14's pairing, which samples the moved points'
+C-channel patches, equal entry by entry.  At C = 1 the outputs of K1, K3,
+K7, K8, K10 and K11 on ``testing/c1_bits.py``'s inputs equal the tree's
+before the channel axis, digest by digest.
+
 Run on a machine with a card:
 ``python -m pytest --noconftest tests/test_torch_kernels_gpu.py -q``.
 """
@@ -773,3 +781,163 @@ def test_photometric_kernel_matches_plain(size, raw_dtype, with_vignette):
         assert torch.equal(ph.correct_image_cuda(shifted, lut, vig), out_k)
     with pytest.raises(ValueError):
         ph.correct_image_cuda(raw.double() if raw_dtype == "f32" else raw.t(), lut, vig)
+
+
+# ---------------------------------------------------------------------------
+# C > 1 frame-embedder channels (the embedder path's window, C = 3, and its
+# first two channels as a window of C = 2)
+
+@pytest.fixture(scope="module")
+def embedded():
+    """``tracked``'s tracker with the filter-bank embedder (C = 3)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return align_trace.small_tracker("filter_bank")
+
+
+def _first_channels(win, c):
+    """``win`` (C channels) as a window of its first ``c`` channels."""
+    cc, (k, n) = win.num_channels, win.lm_valid.shape
+    planes = [g * cc + i for g in range(3) for i in range(c)]
+    patch = win.lm_patch.reshape(k, n, cc, 8)[:, :, :c].reshape(k, n, 8 * c)
+    return win.replace(channel_maps=win.channel_maps[:, planes].contiguous(),
+                       lm_patch=patch.contiguous())
+
+
+def test_channel_map_kernel_matches_plain(embedded):
+    tracker, maps = embedded
+    chans = tracker.embedder(maps[0][0].contiguous())
+    before = kernels.PYRAMID.launches
+    for c in (2, 3):
+        out = pyramid.build_channel_map(chans[:c].contiguous())
+        assert out.shape == (3 * c,) + tuple(chans.shape[1:])
+        assert float((out - pyramid.build_pixel_map(chans[:c])).abs().max()) <= 1e-3
+    assert kernels.PYRAMID.launches == before + 2
+
+
+@pytest.mark.parametrize("channels", [2, 3])
+def test_ba_evaluate_kernel_matches_plain_at_c(embedded, channels):
+    tracker, _ = embedded
+    win, eps, idepth, lm_mask = _ba_problem(tracker)
+    win = _first_channels(win, channels)
+    args = (win, tracker.models[0], eps, idepth, lm_mask, tracker.pba_opts)
+    ev_k = pba._evaluate_cuda(*args)
+    ev_p = pba._evaluate_plain(*args)
+    assert ev_k.residuals.shape == (win.num_slots, win.num_slots, win.num_landmark_slots,
+                                    channels, 8)
+    live = pba._pair_mask(win)[:, :, None] & lm_mask[:, None, :]
+    err = parity.evaluation_errors(ev_k, ev_p, live)
+    assert err["ok"] > 100 and err["agree"] >= 0.999, err
+    assert max(err[name] for name in ("residuals", "gx", "gy", "energy_patch", "weight")) <= 1e-4, err
+
+
+@pytest.mark.parametrize("marg_pass", [False, True])
+@pytest.mark.parametrize("channels", [2, 3])
+def test_ba_linearize_kernel_matches_plain_at_c(embedded, channels, marg_pass):
+    tracker, _ = embedded
+    win, eps, idepth, lm_mask = _ba_problem(tracker)
+    win = _first_channels(win, channels)
+    model, opts = tracker.models[0], tracker.pba_opts
+    ev = pba._evaluate_plain(win, model, eps, idepth, lm_mask, opts)
+    sys_k = pba._linearize_from_ev_cuda(win, model, ev, eps, opts, marg_pass)
+    sys_p = pba._linearize_from_ev_plain(win, pba._fej_cache_plain(win, model), ev, eps, opts,
+                                         marg_pass)
+    err = parity.linear_system_errors(sys_k, sys_p)
+    assert float(sys_p.h_schur.abs().max()) > 0
+    assert max(err.values()) <= 1e-4, err
+    again = pba._linearize_from_ev_cuda(win, model, ev, eps, opts, marg_pass)
+    assert all(torch.equal(a, b) for a, b in zip(sys_k, again))     # two runs, the same bits
+
+
+@pytest.mark.parametrize("ledger", ["empty", "filled"])
+def test_ba_lm_loop_and_status_at_c3(embedded, ledger):
+    tracker, _ = embedded
+    win, eps, idepth, lm_mask = _ba_problem(tracker)
+    opts, model = tracker.pba_opts, tracker.models[0]
+    win = win.replace(eps=eps, lm_idepth=idepth)
+    sys = pba._linearize_from_ev(win, model, pba._evaluate(win, model, eps, idepth, lm_mask, opts),
+                                 eps, opts)
+    if ledger == "filled":
+        win = parity.scaled_ledger(win, sys)
+    else:
+        win = win.replace(h_marg=torch.zeros_like(win.h_marg),
+                          b_marg=torch.zeros_like(win.b_marg),
+                          energy_marg=torch.zeros_like(win.energy_marg))
+    log_k, log_p = [], []
+    res_k = pba._solve_loop_cuda(win, model, opts, log=log_k)
+    res_p = pba._solve_loop_plain(win, model, opts, log=log_p)
+    err = parity.solve_loop_errors(res_k, res_p, log_k, log_p)
+    assert err["same_flags"], (log_k, log_p)
+    assert (err["relins"] > 0) == (ledger == "empty")
+    assert err["energy"] <= 1e-4 and err["rotation"] <= 1e-4 and err["translation"] <= 1e-4, err
+    assert err["status_agree"] >= 0.999, err
+    ev = pba._evaluate_cuda(win, model, eps, idepth, lm_mask, opts)
+    ps_k = pba._point_status_from_ev_cuda(win, ev, lm_mask, opts)
+    ps_p = pba._point_status_from_ev_plain(win, ev, lm_mask, opts)
+    err = parity.point_status_errors(ps_k, ps_p, ev)
+    assert err["status_differ"] == err["inliers_differ"] == err["flags_differ"] == 0, err
+
+
+@pytest.mark.parametrize("channels", [2, 3])
+def test_scatter_kernel_matches_plain_at_c(embedded, channels):
+    """K14's pairing samples each moved point's C-channel patch from its host
+    slot's bank: equal to the plain version entry by entry."""
+    tracker, _ = embedded
+    seq = render_sequence(num_frames=8, height=240, width=320, dtype=torch.float32,
+                          device="cuda")
+    win, imm, _ = parity.keyframe_case(tracker, seq.images[6], seq.pose(6, torch.float32, "cuda"),
+                                       6)
+    win = _first_channels(win, channels)
+    model = tracker.models[0]
+    activate, delete, _ = act._activation_plain(win, model, imm, 1.5)
+    idepth, keep, selected = act._refine_idepth_plain(win, model, imm, activate, 20.0)
+    imm2 = imm._replace(idepth_min=torch.where(keep, idepth, imm.idepth_min),
+                        idepth_max=torch.where(keep, idepth, imm.idepth_max))
+    delete = delete | (selected & ~keep)
+    res_k = _no_host_reads(act._activation_scatter_cuda, win, imm2, keep, delete)
+    res_p = act._activation_scatter_plain(win, imm2, keep, delete)
+    assert res_k[0].lm_patch.shape[-1] == 8 * channels
+    err = parity.scatter_errors(res_k, res_p)
+    assert err.pop("n_activated") > 0
+    assert not any(err.values()), err
+
+
+@pytest.mark.parametrize("channels", [2, 3])
+def test_align_kernels_match_plain_at_c(embedded, channels):
+    """K2 and K3 against a map of C embedded channels, intensities [N, C]."""
+    tracker, maps = embedded
+    emb = tracker.embedder
+    newest = int(tracker.window.frame_valid.sum()) - 1      # the frontend points' keyframe
+    ref_map = pyramid.build_channel_map(emb(tracker.window.maps[newest][0].contiguous())
+                                        [:channels].contiguous())
+    tgt_map = pyramid.build_channel_map(emb(maps[0][0].contiguous())[:channels].contiguous())
+    lp = tracker.level_points[0]
+    from dsopp_tpu_torch.core.interpolate import sample
+    vals, _ = sample(ref_map[:channels], lp.uv)
+    pts = pa.LevelPoints(lp.uv, lp.idepth, vals.contiguous(), lp.valid)
+    _, args = next(align_trace.level_cases(tracker, maps, [(0, 5)]))
+    hyps, aff, aff_ref, ratio = args[3:7]
+    opts = tracker.align_opts
+    k2 = (pts, tgt_map, tracker.models[0], hyps, aff, aff_ref, ratio,
+          pa.huber_sigma(tgt_map, opts))
+    hk, bk, ek, nk = pa.residual_system_cuda(*k2)
+    hp, bp, ep, np_ = pa.residual_system_plain(*k2)
+    assert torch.equal(nk, np_) and int(nk.max()) > 100
+    assert float(((hk - hp).norm(dim=(1, 2)) / hp.norm(dim=(1, 2))).max()) <= 1e-4
+    assert float(((ek - ep).abs() / ep.abs()).max()) <= 1e-5
+    k3 = (pts, tgt_map, tracker.models[0], hyps, aff, aff_ref, ratio, opts)
+    res_k, res_p = pa.align_level_cuda(*k3), pa.align_level_plain(*k3)
+    err = parity.align_level_errors(res_k, res_p)
+    assert err["num_valid"] <= 5e-3 and err["energy"] <= 1e-3, err
+    assert float(err["rotation"].max()) <= 1e-4 and float(err["translation"].max()) <= 1e-4, err
+    assert parity.align_level_equal(res_k, pa.align_level_cuda(*k3))
+
+
+def test_c1_outputs_match_the_parent():
+    """The C = 1 outputs of K1, K3, K7, K8, K10 and K11 (``testing/c1_bits.py``)
+    equal, digest by digest, the tree's before the channel axis."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from dsopp_tpu_torch.testing import c1_bits
+    got = c1_bits.digests(c1_bits.kernel_outputs())
+    assert got == c1_bits.PARENT_DIGESTS

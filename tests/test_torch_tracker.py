@@ -432,7 +432,11 @@ def test_card_paths_match_the_bench():
         # the long-horizon ledger case of tests/tracker/test_ledger_drift_tracker.py
         "ledger": ("ledger", "ledger_config"),
         # the camera sensor path: the corridor read back from a camera's files
-        "sensor": ("standart", "standart_config")}
+        "sensor": ("standart", "standart_config"),
+        # the frame-embedder path: the standart point with C = 3 channels
+        "embedder": ("standart", "embedder_config")}
+    assert paths.embedder_config() == dataclasses.replace(paths.standart_config(),
+                                                          embedder="filter_bank")
     assert paths.path_frames("standart") == consts["NUM_FRAMES"]
     assert paths.INIT_FRAMES < paths.path_frames("masked") <= consts["NUM_FRAMES"]
     assert 0 < paths.MASK_FIRST_INVALID_ROW < paths.HEIGHT
