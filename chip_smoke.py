@@ -29,9 +29,16 @@ Phases, one line each with its time:
    LU in f64 (``testing/blocked_lu.py``); every K9 case and K3 at 1, 5 and 105 hypotheses run twice and must be
    equal to the bit; K9 and ``torch.linalg.solve_ex`` on the same assembled
    system, and K3 at each of the three, are printed with the profiler's
-   device time.  K4
+   device time.  K1 in one launch a pyramid, equal to the plain version to
+   the bit at 5 and 4 levels of a VGA and a 479×637 frame, refusing a
+   30×30 frame at 5 levels.  K4 (the whole epipolar update, one C call)
    and K5 are held twice as well: on the standart bootstrap (10 banks × 800
-   immature points; timed there) and on that dense window (17 × 1200).  The
+   immature points; timed there) and on that dense window (17 × 1200); K4's
+   sweep through its debug output with the gates of the sweep it
+   replaced, its outputs equal to the bit to the plain geometry and update
+   on its own relative poses and sweep, those poses within
+   ``parity.KERNEL_POSE_ULPS`` of torch's composition, two runs equal to the
+   bit, its wrapper allocations and one kernel with host reads an error.  The
    keyframe backend's kernels K12–K14 and K16 are held on both windows too,
    with the next frame pushed as the newest keyframe (timed at standart, the
    dense times on a line of their own), K12 with and without a CameraMask,
@@ -66,7 +73,8 @@ Phases, one line each with its time:
    bound under ``"c3"`` in its row of the JSON line;
 5. track — the main path: a 6-frame known-pose bootstrap, then
    ``PipelinedTracker`` over frames 6..119 at the bench's standart.yaml
-   operating point; every kernel of the path must have launched, ≥3
+   operating point; every kernel of the path must have launched (K1 and K4
+   once a frame), ≥3
    keyframes and ≥1 marginalization must happen, and the per-frame
    translation error against ground truth after a similarity alignment (the
    monocular ATE of ``dsopp_tpu/output/ate.py``) must stay within the JAX
@@ -78,8 +86,8 @@ Phases, one line each with its time:
    ``embedder="filter_bank"`` (C = 3 channels in the windowed BA, the frontend
    C = 1): phase 5's gates, and the JAX package's C > 1 gate against phase
    5's run, per-frame RMSE below max(1.5 × C = 1's, C = 1's + 0.01 m)
-   (``tests/tracker/test_embedder_tracker.py``); K1 once more per keyframe
-   (the channel map);
+   (``tests/tracker/test_embedder_tracker.py``); K1 once a frame and once
+   more per keyframe (the channel map);
 6. track-fast — the fast-motion path: the bench's fast corridor (96 frames,
    advance 0.13, texture seed 11) at the same operating point, frames 6..95;
    the perturbation re-track (105 pose hypotheses through the align chain)
@@ -122,7 +130,12 @@ Phases, one line each with its time:
    poses within ``E2E_REPLAY_POSE_TOL``);
 13. c1-bits — the single-channel outputs of K1, K3, K7, K8, K10 and K11 on
    ``testing/c1_bits.py``'s inputs equal, digest by digest, those of the tree
-   before the channel axis.
+   before the channel axis;
+14. k4-bits — K4's outputs on ``testing/epipolar_bits.py``'s inputs (the BA
+   parity windows' banks against the next frame) equal, digest by digest,
+   those of the chain it replaced (torch's relative poses and geometry, the
+   sweep kernel, torch's update), or that chain's on this kernel's relative
+   poses (a pose tie, named).
 
 Each track line is preceded by one line with, per keyframe, the active
 landmarks the activation counted, the points it activated and the spacing
@@ -163,8 +176,8 @@ SOURCES = {
                               "dsopp_tpu/solvers/pose_alignment.py:88"),
     "align_level": ("dsopp_tpu_torch/csrc/align_level.cu",
                     "dsopp_tpu/solvers/pose_alignment.py:178"),
-    "epipolar_sweep": ("dsopp_tpu_torch/csrc/epipolar.cu",
-                       "dsopp_tpu/tracker/depth_estimation.py:107"),
+    "epipolar_update": ("dsopp_tpu_torch/csrc/epipolar.cu",
+                        "dsopp_tpu/tracker/depth_estimation.py:107"),
     "flow_statistic": ("dsopp_tpu_torch/csrc/flow.cu", "dsopp_tpu/tracker/depth_map.py:134"),
     # K6's FEJ Jacobians: formed inside K8's pair kernel (ba_body.cuh::fej_point)
     "ba_fej": ("dsopp_tpu_torch/csrc/ba_body.cuh", "dsopp_tpu/solvers/pba.py:257"),
@@ -211,7 +224,10 @@ LEDGER_CPU_THREADS = 8      # the f64 reference run's threads (a one-card machin
 # f32 operations per unit of work, counted from the kernels' arithmetic
 OPS_ALIGN_POINT = 230       # K2/K3: one valid point of one hypothesis, one pass
 OPS_ALIGN_SOLVE = 600       # K3: damped 8x8 LU solve + exp + compose, one iteration
-OPS_EPIPOLAR_POINT = 6500   # K4: 32 samples x 8 pattern points + 4 GN steps
+# K4: 32 samples x 8 pattern points + 4 GN steps (6500), the geometry (9 rotated
+# rays, 2 projections, the segment, 8 corrected references: ~450) and the
+# shrink (11 radii x 2 triangulations, the error model: ~350)
+OPS_EPIPOLAR_POINT = 7300
 OPS_FEJ_RESIDUAL = 150      # K6's Jacobians of one residual, formed in K8
 OPS_POLICY_FRAME = 200      # K15p: one frame's pose T_lin exp(eps), its trig and compose
 OPS_EVALUATE_RESIDUAL = 120  # K7
@@ -341,6 +357,7 @@ def sim3_aligned_errors(est, gt):
 
 def parity(seq, cfg, torch, card):
     """Each kernel against its plain version on main-path inputs."""
+    from dsopp_tpu_torch import kernels
     from dsopp_tpu_torch.features import pyramid
     from dsopp_tpu_torch.testing.paths import INIT_FRAMES, bootstrap
 
@@ -348,17 +365,36 @@ def parity(seq, cfg, torch, card):
     img = seq.images[INIT_FRAMES].contiguous()
     rows = {}
 
-    # K1 — pyramid of one VGA frame, 5 levels
+    # K1 — pyramid of one VGA frame, 5 levels, in one launch; and at 4 and 5
+    # levels of an odd-sized frame: equal to the plain version to the bit
+    before = kernels.PYRAMID.launches
     maps_k = pyramid.build_pyramid_maps_cuda(img, 5)
+    launches1 = kernels.PYRAMID.launches - before
     maps_p = pyramid.build_pyramid_maps_plain(img, 5)
     err1 = max(float((a - b).abs().max()) for a, b in zip(maps_k, maps_p))
-    require(err1 <= 1e-3, f"K1 max abs diff {err1} > 1e-3")
+    odd = (torch.rand((479, 637), generator=torch.Generator(device="cuda").manual_seed(1),
+                      device="cuda") * 255).contiguous()
+    equal = [all(torch.equal(a, b) for a, b in zip(pyramid.build_pyramid_maps_cuda(x, levels),
+                                                    pyramid.build_pyramid_maps_plain(x, levels)))
+             for x, levels in ((img, 5), (img, 4), (odd, 5), (odd, 4))]
+    require(launches1 == 1, f"K1: {launches1} launches for one pyramid")
+    require(all(equal), f"K1 differs from the plain version: {equal} (VGA 5, 4; 479x637 5, 4"
+            f" levels), max abs diff {err1}")
+    try:
+        pyramid.build_pyramid_maps_cuda(img[:30, :30].contiguous(), 5)
+        raise SmokeError("K1 took a 30x30 frame to 5 levels")
+    except ValueError as exc:
+        require("too small" in str(exc), f"K1 refused a 30x30 frame with {exc}")
+    us1 = device_us(torch, lambda: pyramid.build_pyramid_maps_cuda(img, 5))
     rows["pyramid_maps"] = dict(
         max_abs_err=err1, ms=cuda_ms(lambda: pyramid.build_pyramid_maps_cuda(img, 5)),
-        plain_ms=cuda_ms(lambda: pyramid.build_pyramid_maps_plain(img, 5)),
+        plain_ms=cuda_ms(lambda: pyramid.build_pyramid_maps_plain(img, 5)), device_us=us1,
+        launches_a_call=launches1,
         **bound(nbytes(img, *maps_k), 12 * sum(m[0].numel() for m in maps_k)),
         library_ms=None)
-    log(f"  K1 pyramid_maps: 5 levels of {img.shape[0]}x{img.shape[1]}, max abs diff {err1:.3g}")
+    log(f"  K1 pyramid_maps: 5 levels of {img.shape[0]}x{img.shape[1]} in {launches1} launch,"
+        f" equal to the plain version to the bit (also 4 levels, and 479x637 at 5 and 4),"
+        f" {fmt_us(us1)}; a 30x30 frame refused at 5 levels")
 
     parity_align(tracker, maps_k, torch, rows)
     parity_epipolar(seq, tracker, INIT_FRAMES, torch, rows, "standart")
@@ -635,31 +671,28 @@ def iter_summary(res):
 
 
 def parity_epipolar(seq, tracker, frame, torch, rows, label):
-    """K4 — every bank of ``tracker`` against frame ``frame`` (the next one)
-    at its ground-truth pose.  The kernel's row of ``rows`` is the standart
-    one."""
-    from dsopp_tpu_torch.core.lie import SE3
+    """K4 — the whole epipolar update of every bank of ``tracker`` against
+    frame ``frame`` (the next one) at its ground-truth pose: the kernel's
+    sweep (its debug output) and outputs against the plain version's on the
+    same inputs; its outputs against the plain geometry and update on its
+    own relative poses and sweep, to the bit; two runs equal to the bit; its
+    wrapper allocations and one kernel, with host reads an error.  The
+    kernel's row of ``rows`` is the standart one."""
     from dsopp_tpu_torch.features import pyramid
+    from dsopp_tpu_torch.testing import parity as par
     from dsopp_tpu_torch.tracker import depth_estimation as de
 
     maps = pyramid.build_pyramid_maps_cuda(seq.images[frame].contiguous(), 1)
-    pose = seq.pose(frame, torch.float32, "cuda")
-    win = tracker.window
-    k = win.num_slots
-    t_inv = pose.inverse()
-    t_rel = SE3(t_inv.q.expand(k, 4), t_inv.t.expand(k, 3)).compose(win.poses())
-    ratios = torch.ones(k, device="cuda")
-    inp, geo = de.sweep_inputs(tracker.immature, tracker.models[0], t_rel.q, t_rel.t,
-                               win.affine(), tracker.last_affine, ratios)
+    args = par.epipolar_args(tracker, maps[0], seq.pose(frame, torch.float32, "cuda"))
+    run = par.epipolar_run(args)
+    inp, geo, res_k, res_p, up_k, up_p = (run.inp, run.geo, run.sweep, run.res_p, run.kernel,
+                                          run.plain)
     image = maps[0][0]
-    res_k = de.epipolar_sweep_cuda(inp, image, tracker.models[0], 20.0)
-    res_p = de.epipolar_sweep_plain(inp, image, tracker.models[0], 20.0)
+    k = tracker.window.num_slots
     act = inp.active
     n_act = int(act.sum())
     require(n_act > 0, "K4: no active immature points")
     same_best = float((res_k.best_idx == res_p.best_idx)[act].float().mean())
-    up_k = de.update_from_sweep(tracker.immature, geo, res_k, tracker.models[0])
-    up_p = de.update_from_sweep(tracker.immature, geo, res_p, tracker.models[0])
     act2 = act.reshape(up_k.status.shape)
     agree = (up_k.status == up_p.status) & act2
     same_status = float(agree.sum()) / n_act
@@ -694,7 +727,7 @@ def parity_epipolar(seq, tracker, frame, torch, rows, label):
             ("idepth_min", (up_k.idepth_min, up_p.idepth_min, up_64.idepth_min)),
             ("idepth_max", (up_k.idepth_max, up_p.idepth_max, up_64.idepth_max)),
             ("GN offset, px", (res_k.best_delta, res_p.best_delta, res64.best_delta)))))
-    log(f"  K4 epipolar_sweep ({label}): {k} banks x {tracker.immature.uv.shape[1]} immature"
+    log(f"  K4 epipolar_update ({label}): {k} banks x {tracker.immature.uv.shape[1]} immature"
         f" points, {n_act} active; best sample equal on {same_best:.5f}"
         f" ({int((res_k.best_idx != res_p.best_idx)[act].sum())} differ), status equal on"
         f" {same_status:.5f} ({n_act - int(agree.sum())} differ), idepth rel {rel4:.2e}"
@@ -743,19 +776,49 @@ def parity_epipolar(seq, tracker, frame, torch, rows, label):
         require(n_over <= 1e-3 * n_act and worst_ratio <= 2.0,
                 f"K4 ({label}) {n_over} points beyond 1e-4, up to {worst_ratio:.3f} x as far from"
                 " the f64 sweep as the plain f32 version")
+    # the kernel's geometry, error model, shrink and status machine against the
+    # torch operations they replace, on its own relative poses and sweep
+    chain = par.epipolar_chain_differ(args, run)
+    log(f"  K4 ({label}): outputs against the plain geometry and update on the kernel's poses"
+        f" and sweep: {', '.join(f'{n} {chain[n]}' for n in par.EPIPOLAR_OUTPUTS)} entries"
+        f" differ; its relative poses {chain['pose_ulps']:.1f} f32 ulps from torch's")
+    require(all(chain[n] == 0 for n in par.EPIPOLAR_OUTPUTS),
+            f"K4 ({label}): outputs differ from the plain geometry and update: {chain}")
+    require(chain["pose_ulps"] <= par.KERNEL_POSE_ULPS,
+            f"K4 ({label}): relative poses {chain['pose_ulps']} ulps from torch's composition")
+
+    def call():
+        return de.estimate_depths_cuda(*args)
+
+    again = call()
+    require(all(torch.equal(getattr(again, n), getattr(up_k, n)) for n in par.EPIPOLAR_OUTPUTS),
+            f"K4 ({label}): two runs differ")
+    no_host_reads(torch, call)
+    ops, device_kernels = wrapper_work(torch, call)
+    require(set(ops) <= set(ALLOCATION_OPS) and device_kernels == 1,
+            f"K4 ({label}): the wrapper runs torch operators {ops} and {device_kernels} kernels")
+    us = device_us(torch, call)
+    log(f"  K4 ({label}): two runs equal to the bit; the wrapper runs {len(ops)} aten ops"
+        f" ({', '.join(sorted(set(ops)))}) and {device_kernels} kernel a call, with host reads"
+        f" an error; {fmt_us(us)}")
+    points = tracker.immature
     sampled = min(nbytes(image), n_act * 32 * 8 * 16)
+    frame_bytes = nbytes(*args[3:11])
     row = dict(
-        max_abs_err=err4,
-        ms=cuda_ms(lambda: de.epipolar_sweep_cuda(inp, image, tracker.models[0], 20.0)),
-        plain_ms=cuda_ms(lambda: de.epipolar_sweep_plain(inp, image, tracker.models[0], 20.0)),
-        **bound(nbytes(*inp) + sampled + nbytes(*res_k), OPS_EPIPOLAR_POINT * n_act),
+        max_abs_err=err4, ms=cuda_ms(call),
+        plain_ms=cuda_ms(lambda: de.estimate_depths_plain(*args)), device_us=us,
+        wrapper_aten_ops=len(ops), device_kernels=device_kernels,
+        **bound(nbytes(*points) + frame_bytes + sampled
+                + nbytes(*(getattr(up_k, n) for n in par.EPIPOLAR_OUTPUTS)),
+                OPS_EPIPOLAR_POINT * n_act),
         library_ms=None)
-    log_bound("epipolar_sweep", label, row)
+    log_bound("epipolar_update", label, row)
     if label == "standart":
-        rows["epipolar_sweep"] = row
+        rows["epipolar_update"] = row
     else:
-        log(f"  K4 epipolar_sweep ({label}): kernel {row['ms']:.4f} ms, plain"
-            f" {row['plain_ms']:.4f} ms, bound {row['bound_ms']:.5f} ms ({row['bound_by']})")
+        log(f"  K4 epipolar_update ({label}): kernel {row['ms']:.4f} ms, plain"
+            f" {row['plain_ms']:.4f} ms, bound {row['bound_ms']:.5f} ms ({row['bound_by']}),"
+            f" {fmt_us(us)}")
 
 
 def parity_flow(seq, tracker, frame, torch, rows, label):
@@ -1863,6 +1926,24 @@ def c1_bits(card):
             f"C = 1 outputs differ from the parent's: {differ}")
 
 
+def epipolar_bits(card):
+    """K4's outputs on ``testing/epipolar_bits.py``'s inputs (the BA parity
+    windows' immature banks and the next frame), digest by digest, against
+    the parent's chain (the relative poses and the geometry in torch, the
+    sweep kernel, the update in torch): equal, or equal to that chain on this
+    kernel's relative poses (a pose tie)."""
+    from dsopp_tpu_torch.testing import epipolar_bits as bits
+
+    t0 = time.perf_counter()
+    try:
+        verdict = bits.check_against_parent(bits.run(bits.make_inputs()))
+    except AssertionError as exc:
+        raise SmokeError(str(exc)) from exc
+    ties = sorted(key for key, v in verdict.items() if v != "equal")
+    log(f"[k4-bits] {len(verdict)} K4 outputs, {len(verdict) - len(ties)} equal to the bit to"
+        f" the parent chain's, pose ties: {ties} ({time.perf_counter() - t0:.2f} s) | {card}")
+
+
 def report(label, st, card, seconds):
     log(f"[{label}] per keyframe (frame, n_active, n_activated, min_distance after it): "
         + " ".join(f"({i}, {a}, {b}, {c})" for i, a, b, c in st["per_keyframe"]))
@@ -1884,6 +1965,8 @@ def report(label, st, card, seconds):
     rare = [name for name in KEYFRAME_KERNELS if st["counts"][name] < st["keyframes"]]
     require(not rare, f"[{label}] launched less than once per keyframe: {rare}")
     require(st["keyframes"] >= 3, f"[{label}] only {st['keyframes']} keyframes after bootstrap")
+    require(st["counts"]["epipolar_update"] == st["frames"],
+            f"[{label}] K4 launched {st['counts']['epipolar_update']} times for {st['frames']} frames")
     require(st["ba_solves"] == st["keyframes"],
             f"[{label}] {st['ba_solves']} BA solves for {st['keyframes']} keyframes")
     once = [name for name in ONCE_PER_KEYFRAME if st["counts"][name] != st["keyframes"]]
@@ -1946,6 +2029,8 @@ def main():
         require(st["ate_rmse"] < RMSE_GATE, f"ATE RMSE {st['ate_rmse']:.5f} m >= {RMSE_GATE}")
         require(st["ate_max"] < MAX_GATE, f"ATE max {st['ate_max']:.5f} m >= {MAX_GATE}")
         require(abs(st["scale"] - 1.0) < SCALE_GATE, f"alignment scale {st['scale']:.4f}")
+        require(st["counts"]["pyramid_maps"] == st["frames"],
+                f"K1 launched {st['counts']['pyramid_maps']} times for {st['frames']} frames")
 
         # the frame-embedder path runs the sequence of phase 5 at C = 3 channels
         require(paths.PATHS["embedder"][0] == "standart", "the embedder path's sequence changed")
@@ -1964,10 +2049,10 @@ def main():
         gate = max(EMBEDDER_RATIO * st["rmse"], st["rmse"] + EMBEDDER_MARGIN)
         log(f"[track-embedder] per-frame RMSE C = 3 {se['rmse']:.5f} m, C = 1 (track)"
             f" {st['rmse']:.5f} m, gate {gate:.5f} m; K1 launches {se['counts']['pyramid_maps']}"
-            f" = 5 a frame + {se['counts']['pyramid_maps'] - 5 * se['frames']} channel maps for"
+            f" = 1 a frame + {se['counts']['pyramid_maps'] - se['frames']} channel maps for"
             f" {se['keyframes']} keyframes (the track: {st['counts']['pyramid_maps']})")
         require(se["rmse"] < gate, f"embedder per-frame RMSE {se['rmse']:.5f} m >= {gate:.5f}")
-        require(se["counts"]["pyramid_maps"] == 5 * se["frames"] + se["keyframes"],
+        require(se["counts"]["pyramid_maps"] == se["frames"] + se["keyframes"],
                 f"embedder: K1 launched {se['counts']['pyramid_maps']} times for {se['frames']}"
                 f" frames and {se['keyframes']} keyframes")
 
@@ -2064,6 +2149,7 @@ def main():
         e2e(torch, card, exposure=False)
         e2e(torch, card, exposure=True)
         c1_bits(card)
+        epipolar_bits(card)
     except SmokeError as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1

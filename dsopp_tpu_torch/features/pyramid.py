@@ -4,12 +4,15 @@
 Levels halve exactly (an odd trailing row/column is dropped) by 2×2 mean;
 each level's map carries the gradients of :func:`image_gradients`.
 :func:`build_pyramid_maps` runs the CUDA kernel ``csrc/pyramid.cu`` on a
-CUDA image and :func:`build_pyramid_maps_plain` on a CPU one;
-:func:`build_channel_map` builds a frame embedder's ``[3C, H, W]`` map with
-K1's level-0 arithmetic, one launch over the C planes.
+CUDA image (every level in one launch, the maps views of one buffer) and
+:func:`build_pyramid_maps_plain` on a CPU one; :func:`build_channel_map`
+builds a frame embedder's ``[3C, H, W]`` map with K1's level-0 arithmetic,
+one launch over the C planes.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -17,6 +20,7 @@ from dsopp_tpu_torch import kernels
 from dsopp_tpu_torch.core.interpolate import build_pixel_map
 
 NUM_PYRAMID_LEVELS = 5
+MAX_CUDA_LEVELS = 6    # csrc/pyramid.cu: the coarsest level's tile is one pixel
 
 
 def downscale(image):
@@ -36,21 +40,42 @@ def build_pyramid_maps_plain(image, num_levels: int = NUM_PYRAMID_LEVELS):
     return tuple(build_pixel_map(lvl) for lvl in levels)
 
 
+def level_shapes(h: int, w: int, num_levels: int):
+    """[(h_l, w_l)] of the pyramid's levels: each halves the one before,
+    dropping an odd trailing row or column; raises when one is below 2×2."""
+    shapes = []
+    for level in range(num_levels):
+        if level:
+            h, w = h // 2, w // 2
+        if h < 2 or w < 2:
+            raise ValueError(f"pyramid level {level} is {h}x{w}: too small")
+        shapes.append((h, w))
+    return shapes
+
+
+@functools.lru_cache(maxsize=None)
+def _flat_layout(h: int, w: int, num_levels: int):
+    """(floats of all the levels' maps, each map's (size, stride, offset) in
+    that buffer), level after level as ``csrc/pyramid.cu`` writes them."""
+    views, offset = [], 0
+    for hl, wl in level_shapes(h, w, num_levels):
+        views.append(((3, hl, wl), (hl * wl, wl, 1), offset))
+        offset += 3 * hl * wl
+    return offset, tuple(views)
+
+
 def build_pyramid_maps_cuda(image, num_levels: int = NUM_PYRAMID_LEVELS):
-    """[H, W] f32 CUDA image → tuple of [3, H_l, W_l] maps (kernel K1)."""
+    """[H, W] f32 CUDA image → tuple of [3, H_l, W_l] maps (kernel K1, one
+    launch): contiguous views of one buffer, level after level."""
     h, w = image.shape
     kernels.check(image, "image", (h, w))
-    maps = []
-    src, src_h, src_w, down = image, h, w, 0
-    for level in range(num_levels):
-        oh, ow = (src_h // 2, src_w // 2) if down else (src_h, src_w)
-        if oh < 2 or ow < 2:
-            raise ValueError(f"pyramid level {level} is {oh}x{ow}: too small")
-        out = torch.empty((3, oh, ow), dtype=image.dtype, device=image.device)
-        kernels.PYRAMID(src, src_h, src_w, out, oh, ow, down, 1)
-        maps.append(out)
-        src, src_h, src_w, down = out[0], oh, ow, 1
-    return tuple(maps)
+    if num_levels > MAX_CUDA_LEVELS:
+        raise ValueError(f"the pyramid kernel builds at most {MAX_CUDA_LEVELS} levels,"
+                         f" not {num_levels}")
+    total, views = _flat_layout(h, w, num_levels)
+    flat = torch.empty((total,), dtype=image.dtype, device=image.device)
+    kernels.PYRAMID(image, h, w, 1, num_levels, flat)
+    return tuple(flat.as_strided(*view) for view in views)
 
 
 def build_pyramid_maps(image, num_levels: int = NUM_PYRAMID_LEVELS):
@@ -68,7 +93,7 @@ def build_channel_map_cuda(channels):
     if h < 2 or w < 2:
         raise ValueError(f"a channel map of {h}x{w}: too small")
     out = torch.empty((3 * c, h, w), dtype=channels.dtype, device=channels.device)
-    kernels.PYRAMID(channels, h, w, out, h, w, 0, c)
+    kernels.PYRAMID(channels, h, w, c, 1, out)
     return out
 
 

@@ -128,10 +128,15 @@ class Kernel:
         self.symbol = symbol
         self.argtypes = [*argtypes, _P]     # the stream comes last
         self.launches = 0
+        self._fn = None
 
     def __call__(self, *args):
-        fn = getattr(library(), self.symbol)
-        stream = torch.cuda.current_stream().cuda_stream
+        fn = self._fn
+        if fn is None:
+            fn = self._fn = getattr(library(), self.symbol)
+        # the handle torch.cuda.current_stream().cuda_stream gives, without
+        # building a Stream object at every launch
+        stream = torch._C._cuda_getCurrentRawStream(torch.cuda.current_device())
         conv = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
         err = fn(*conv, stream)
         if err != 0:
@@ -139,14 +144,15 @@ class Kernel:
         self.launches += 1
 
 
-# K1 builds the pyramid levels and, at C > 1, a frame embedder's channel map
-PYRAMID = Kernel("pyramid_maps", "pyramid_level", [_P, _I, _I, _P, _I, _I, _I, _I])
+# K1 builds every pyramid level in one launch and, at C > 1, a frame
+# embedder's channel map
+PYRAMID = Kernel("pyramid_maps", "pyramid_maps", [_P, _I, _I, _I, _I, _P])
 ALIGN = Kernel("align_residual_system", "align_residual_system",
                [_P, _P, _P, _P, _I, _P, _I, _I, _I, _P, _P, _P, _P, _I,
                 _F, _F, _F, _F, _F, _F, _F, _P, _P, _P, _P])
-EPIPOLAR = Kernel("epipolar_sweep", "epipolar_sweep",
-                  [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                   _F, _F, _F, _F, _F, _F, _F, _F, _P, _P, _P, _P, _P, _P])
+# K4: the whole epipolar update, its sweep's intermediates optional (null)
+EPIPOLAR = Kernel("epipolar_update", "epipolar_update",
+                  [_P] * 10 + [_I, _I, _P, _I, _I] + [_P] * 8 + [_F] * 10 + [_P] * 13)
 ALIGN_LEVEL = Kernel("align_level", "align_level",
                      [_P, _P, _P, _P, _I, _P, _I, _I, _I, _P, _P, _P, _P, _I,
                       _F, _F, _F, _F, _F, _F, _F, _I, _F, _F, _F, _F, _F, _F, _F,

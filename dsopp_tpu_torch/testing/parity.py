@@ -20,6 +20,7 @@ from dsopp_tpu_torch.solvers.pba import (BLOCK, LEDGER_DTYPE, RES_OOB, LinearSys
                                          _prior_system, frame_count, newest_slot,
                                          push_frame_slot)
 from dsopp_tpu_torch.testing.blocked_lu import unblocked_solve
+from dsopp_tpu_torch.tracker import depth_estimation as de
 from dsopp_tpu_torch.tracker.depth_estimation import estimate_depths
 from dsopp_tpu_torch.tracker.depth_map import _older_landmarks
 from dsopp_tpu_torch.tracker.fused_keyframe import immature_bank, set_bank
@@ -336,13 +337,11 @@ def keyframe_case(tracker, image, pose, frame_id: int):
     tracker itself is left as it was."""
     cfg, win = tracker.config, tracker.window
     maps = build_pyramid_maps(image.contiguous(), cfg.pyramid_levels)
-    k = win.num_slots
-    t_inv = pose.inverse()
-    t_rel = SE3(t_inv.q.expand(k, 4), t_inv.t.expand(k, 3)).compose(win.poses())
+    poses = win.poses()
     exposure = torch.ones((), dtype=image.dtype, device=image.device)
-    imm = estimate_depths(tracker.immature, maps[0], tracker.camera, t_rel.q, t_rel.t,
-                          win.affine(), tracker.last_affine,
-                          exposure / torch.clamp(win.exposure, min=1e-12), cfg.huber_sigma)
+    imm = estimate_depths(tracker.immature, maps[0], tracker.camera, pose.q.contiguous(),
+                          pose.t.contiguous(), poses.q, poses.t, win.affine(),
+                          tracker.last_affine, exposure, win.exposure, cfg.huber_sigma)
     slot = frame_count(win)
     channel_map = (None if win.num_channels == 1
                    else build_channel_map(tracker.embedder(maps[0][0])))
@@ -350,6 +349,72 @@ def keyframe_case(tracker, image, pose, frame_id: int):
                           frame_id, maps[0], channel_map)
     imm = set_bank(imm, slot, immature_bank(maps[0], cfg.immature_per_frame, tracker.mask))
     return win, imm, maps
+
+
+def epipolar_args(tracker, target_map, pose, huber_sigma: float = 20.0):
+    """K4's arguments: every bank of ``tracker`` against a frame of level-0
+    map ``target_map`` at pose ``pose`` (T_w_t), exposure 1."""
+    win = tracker.window
+    poses = win.poses()
+    return (tracker.immature, target_map, tracker.models[0], pose.q.contiguous(),
+            pose.t.contiguous(), poses.q, poses.t, win.affine(), tracker.last_affine,
+            torch.ones((), dtype=target_map.dtype, device=target_map.device), win.exposure,
+            huber_sigma)
+
+
+class EpipolarRun(NamedTuple):
+    kernel: de.ImmaturePoints     # K4's outputs
+    debug: de.EpipolarDebug       # its sweep and relative poses
+    sweep: de.SweepResult         # the debug sweep, flat as the plain version's
+    inp: de.SweepInputs           # the plain version's parts on the same inputs
+    geo: dict
+    res_p: de.SweepResult
+    plain: de.ImmaturePoints
+
+
+def epipolar_run(args) -> EpipolarRun:
+    """K4 with its debug output, and the plain version's parts, on ``args``."""
+    points, target_map, model = args[:3]
+    k, n = points.valid.shape
+    dbg = de.debug_buffers(k, n, target_map.device)
+    out_k = de.estimate_depths_cuda(*args, debug=dbg)
+    t_rel = de.relative_poses(*args[3:7])
+    inp, geo = de.sweep_inputs(points, model, t_rel.q, t_rel.t, args[7], args[8],
+                               args[9] / torch.clamp(args[10], min=1e-12))
+    res_p = de.epipolar_sweep_plain(inp, target_map[0], model, args[11])
+    sweep = de.SweepResult(*(x.reshape(-1).long() if name == "best_idx" else x.reshape(-1)
+                             for name, x in zip(de.SweepResult._fields, dbg)))
+    return EpipolarRun(out_k, dbg, sweep, inp, geo, res_p,
+                       de.update_from_sweep(points, geo, res_p, model))
+
+
+EPIPOLAR_OUTPUTS = ("idepth_min", "idepth_max", "status", "traced", "uniqueness",
+                    "search_interval")
+
+
+def epipolar_chain_differ(args, run: EpipolarRun) -> dict:
+    """{output: entries of K4's outputs that differ from the plain geometry
+    and update (torch's operations) on the kernel's own relative poses and its
+    own sweep}: the in-kernel geometry, error model, shrink and status machine
+    against the PyTorch code they replace; every count 0 when they keep its
+    bits.  Also ``pose_ulps``: the kernel's relative poses against torch's
+    composition, in f32 ulps of each pose's largest component (at least 1 for
+    the rotation)."""
+    points, _, model = args[:3]
+    rel = run.debug.rel_pose
+    inp, geo = de.sweep_inputs(points, model, rel[:, :4].contiguous(), rel[:, 4:].contiguous(),
+                               args[7], args[8], args[9] / torch.clamp(args[10], min=1e-12))
+    own = de.update_from_sweep(points, geo, run.sweep, model)
+    out = {name: int((getattr(run.kernel, name) != getattr(own, name)).sum())
+           for name in EPIPOLAR_OUTPUTS}
+    ref = de.relative_poses(*args[3:7])
+    ulps = 0.0
+    for a, b, floor in ((rel[:, :4], ref.q, 1.0), (rel[:, 4:], ref.t, 0.0)):
+        scale = torch.maximum(a.abs(), b.abs()).amax(dim=-1, keepdim=True).clamp(min=floor)
+        ulp = torch.as_tensor(np.spacing(scale.cpu().numpy().astype(np.float32)), device=a.device)
+        ulps = max(ulps, float(((a - b).abs() / ulp).max()))
+    out["pose_ulps"] = ulps
+    return out
 
 
 def candidates_errors(out_k, out_p) -> dict:

@@ -61,7 +61,8 @@ REPEATS, WINDOW = 3, 10
 # __global__ functions of csrc/ by the names the profiler reports (an earlier
 # design's names stay, so that a parent tree profiled with this file reads
 # them too)
-KERNEL_NAMES = ("pyramid_level_kernel", "align_level_kernel", "epipolar_kernel",
+KERNEL_NAMES = ("pyramid_kernel", "pyramid_level_kernel", "align_level_kernel",
+                "epipolar_update_kernel", "epipolar_kernel",
                 "flow_kernel", "ba_evaluate_kernel", "pair_kernel",
                 "landmark_kernel", "schur_kernel", "reduce_kernel", "assemble_kernel",
                 "solve_kernel", "backsub_kernel", "norm_kernel", "decide_kernel", "commit_kernel",

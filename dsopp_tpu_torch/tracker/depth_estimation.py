@@ -8,23 +8,29 @@ best energy outside a ±2 px uniqueness radius, refines the winner with 4
 Gauss-Newton steps along the epiline (steps clipped to ±0.3 px), and then
 updates its inverse-depth interval and status.
 
-The sweep/uniqueness/refine stage is :func:`epipolar_sweep`: the CUDA kernel
-``csrc/epipolar.cu`` on CUDA tensors, :func:`epipolar_sweep_plain` on CPU
-ones.  The geometry before it and the error model, interval shrink and
-status machine after it are plain PyTorch over all ``[K, N]`` banks at once.
+:func:`estimate_depths` takes the new frame's pose T_w_t and the window's
+poses, as the JAX package's regular tick composes them.  On CUDA tensors it
+is :func:`estimate_depths_cuda`, one launch of ``csrc/epipolar.cu`` that
+composes the relative poses and runs the geometry, the sweep, the error
+model, the interval shrink and the status machine; on CPU tensors
+:func:`estimate_depths_plain`, plain PyTorch in three parts:
+:func:`sweep_inputs` (the geometry), :func:`epipolar_sweep_plain` (sweep,
+uniqueness, refine) and :func:`update_from_sweep` (error model, shrink,
+status).
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from dsopp_tpu_torch import kernels
 from dsopp_tpu_torch.core.camera import MIN_DEPTH, valid_idepth
 from dsopp_tpu_torch.core.interpolate import (pad_images, sample_window,
                                               sample_window_values, window_base)
-from dsopp_tpu_torch.core.lie import quat_rotate
+from dsopp_tpu_torch.core.lie import SE3, quat_rotate
 from dsopp_tpu_torch.core.pattern import PATTERN_SIZE, shift_pattern
 
 STATUS_GOOD = 0
@@ -166,48 +172,6 @@ def epipolar_sweep_plain(inp: SweepInputs, image, model, huber_sigma):
     return SweepResult(best_idx, best_energy, second_best, any_sample, e_best, best_delta)
 
 
-def epipolar_sweep_cuda(inp: SweepInputs, image, model, huber_sigma):
-    """Kernel K4: same outputs as :func:`epipolar_sweep_plain`."""
-    m = inp.uv_a.shape[0]
-    h_px, w_px = image.shape
-    if inp.alphas.shape[0] != NUM_SAMPLES:
-        raise ValueError(f"the epipolar kernel takes {NUM_SAMPLES} samples, "
-                         f"got {inp.alphas.shape[0]}")
-    check = kernels.check
-    check(inp.active, "active", (m,), torch.bool)
-    check(inp.uv_a, "uv_a", (m, 2))
-    check(inp.dir, "dir", (m, 2))
-    check(inp.search_len, "search_len", (m,))
-    check(inp.pr, "pr", (m, 3))
-    check(inp.t, "t", (m, 3))
-    check(inp.pr_p, "pr_p", (m, PATTERN_SIZE, 3))
-    check(inp.corr_ref, "corr_ref", (m, PATTERN_SIZE))
-    check(inp.b_tgt, "b_tgt", (1,))
-    check(inp.alphas, "alphas", (NUM_SAMPLES,))
-    check(inp.alpha_g, "alpha_g", (NUM_SAMPLES // GROUP,))
-    check(image, "image", (h_px, w_px))
-    dev, dt = image.device, image.dtype
-    best = torch.empty((m,), dtype=torch.int32, device=dev)
-    best_e = torch.empty((m,), dtype=dt, device=dev)
-    second = torch.empty((m,), dtype=dt, device=dev)
-    any_s = torch.empty((m,), dtype=torch.bool, device=dev)
-    ref_e = torch.empty((m,), dtype=dt, device=dev)
-    delta = torch.empty((m,), dtype=dt, device=dev)
-    kernels.EPIPOLAR(inp.active, m, inp.uv_a, inp.dir, inp.search_len, inp.pr,
-                     inp.t, inp.pr_p, inp.corr_ref, inp.b_tgt, inp.alphas,
-                     inp.alpha_g, image, h_px, w_px, model.fx, model.fy,
-                     model.cx, model.cy, model.width, model.height,
-                     float(huber_sigma), INITIAL_IDEPTH_MAX * 1.01,
-                     best, best_e, second, any_s, ref_e, delta)
-    return SweepResult(best.long(), best_e, second, any_s, ref_e, delta)
-
-
-def epipolar_sweep(inp: SweepInputs, image, model, huber_sigma):
-    """The kernel on CUDA tensors, the plain version on CPU ones."""
-    fn = epipolar_sweep_cuda if image.is_cuda else epipolar_sweep_plain
-    return fn(inp, image, model, huber_sigma)
-
-
 def sweep_inputs(points: ImmaturePoints, model, t_q, t_t, affine_ref,
                  affine_tgt, exposure_ratio, num_samples=NUM_SAMPLES):
     """Per-landmark geometry of the sweep for banks ``[K, N]``.
@@ -275,20 +239,124 @@ def sweep_inputs(points: ImmaturePoints, model, t_q, t_t, affine_ref,
     return inp, geo
 
 
-def estimate_depths(points: ImmaturePoints, target_map, model, t_q, t_t,
-                    affine_ref, affine_tgt, exposure_ratio,
-                    huber_sigma: float = 20.0,
-                    num_samples: int = NUM_SAMPLES) -> ImmaturePoints:
+def relative_poses(pose_q, pose_t, window_poses_q, window_poses_t):
+    """[K] target-from-host poses inverse(T_w_t) · T_w_k (the JAX package's
+    ``fused_tick.py:204-208``)."""
+    k = window_poses_q.shape[0]
+    t_inv = SE3(pose_q, pose_t).inverse()
+    return SE3(t_inv.q.expand(k, 4), t_inv.t.expand(k, 3)).compose(
+        SE3(window_poses_q, window_poses_t))
+
+
+def estimate_depths_plain(points: ImmaturePoints, target_map, model, pose_q, pose_t,
+                          window_poses_q, window_poses_t, window_affines, affine_tgt,
+                          exposure, window_exposures, huber_sigma: float = 20.0,
+                          num_samples: int = NUM_SAMPLES) -> ImmaturePoints:
+    """:func:`estimate_depths` in plain PyTorch."""
+    t_rel = relative_poses(pose_q, pose_t, window_poses_q, window_poses_t)
+    ratio = exposure / torch.clamp(window_exposures, min=1e-12)
+    inp, geo = sweep_inputs(points, model, t_rel.q, t_rel.t, window_affines, affine_tgt,
+                            ratio, num_samples)
+    res = epipolar_sweep_plain(inp, target_map[0], model, huber_sigma)
+    return update_from_sweep(points, geo, res, model)
+
+
+class EpipolarDebug(NamedTuple):
+    """The kernel's optional record of its sweep ([K, N] each, as
+    :class:`SweepResult` with an int32 ``best_idx``) and of the relative
+    poses it composed (``rel_pose`` [K, 7]: q, t)."""
+
+    best_idx: torch.Tensor
+    best_energy: torch.Tensor
+    second_best: torch.Tensor
+    any_sample: torch.Tensor
+    refined_energy: torch.Tensor
+    best_delta: torch.Tensor
+    rel_pose: torch.Tensor
+
+
+_DEBUG_DTYPES = {"best_idx": torch.int32, "any_sample": torch.bool}
+
+
+def debug_buffers(k: int, n: int, device) -> EpipolarDebug:
+    """Empty :class:`EpipolarDebug` for banks ``[k, n]``."""
+    return EpipolarDebug(*(
+        torch.empty((k, 7) if name == "rel_pose" else (k, n),
+                    dtype=_DEBUG_DTYPES.get(name, torch.float32), device=device)
+        for name in EpipolarDebug._fields))
+
+
+def estimate_depths_cuda(points: ImmaturePoints, target_map, model, pose_q, pose_t,
+                         window_poses_q, window_poses_t, window_affines, affine_tgt,
+                         exposure, window_exposures, huber_sigma: float = 20.0,
+                         debug: EpipolarDebug | None = None) -> ImmaturePoints:
+    """Kernel K4: :func:`estimate_depths` in one launch.  ``debug``: optional
+    :func:`debug_buffers` the kernel fills too."""
+    k, n = points.uv.shape[:2]
+    _, h, w = target_map.shape
+    check = kernels.check
+    for name in ("uv", "gradient"):
+        check(getattr(points, name), name, (k, n, 2))
+    check(points.patch, "patch", (k, n, PATTERN_SIZE))
+    for name in ("idepth_min", "idepth_max", "uniqueness", "search_interval"):
+        check(getattr(points, name), name, (k, n))
+    check(points.status, "status", (k, n), torch.int32)
+    check(points.traced, "traced", (k, n), torch.bool)
+    check(points.valid, "valid", (k, n), torch.bool)
+    check(target_map, "target_map", (target_map.shape[0], h, w))
+    check(pose_q, "pose_q", (4,))
+    check(pose_t, "pose_t", (3,))
+    check(window_poses_q, "window_poses_q", (k, 4))
+    check(window_poses_t, "window_poses_t", (k, 3))
+    check(window_affines, "window_affines", (k, 2))
+    check(affine_tgt, "affine_tgt", (2,))
+    if exposure.numel() != 1:
+        raise ValueError(f"exposure: expected one value, got shape {tuple(exposure.shape)}")
+    check(exposure, "exposure", tuple(exposure.shape))
+    check(window_exposures, "window_exposures", (k,))
+    if debug is not None:
+        for name, x in debug._asdict().items():
+            check(x, f"debug.{name}", (k, 7) if name == "rel_pose" else (k, n),
+                  _DEBUG_DTYPES.get(name, torch.float32))
+    dev, dt = target_map.device, target_map.dtype
+
+    def empty(dtype=dt):
+        return torch.empty((k, n), dtype=dtype, device=dev)
+
+    out = points._replace(idepth_min=empty(), idepth_max=empty(),
+                          status=empty(torch.int32), traced=empty(torch.bool),
+                          uniqueness=empty(), search_interval=empty())
+    dbg = (None,) * 7 if debug is None else tuple(debug)
+    f32 = np.float32
+    kernels.EPIPOLAR(points.uv, points.patch, points.gradient, points.idepth_min,
+                     points.idepth_max, points.status, points.traced, points.uniqueness,
+                     points.search_interval, points.valid, k, n, target_map, h, w,
+                     pose_q, pose_t, window_poses_q, window_poses_t, window_affines,
+                     affine_tgt, exposure, window_exposures, model.fx, model.fy,
+                     model.cx, model.cy, float(f32(1.0) / f32(model.fx)),
+                     float(f32(1.0) / f32(model.fy)), model.width, model.height,
+                     float(huber_sigma), MAX_PIX_SEARCH_FACTOR * (model.width + model.height),
+                     out.idepth_min, out.idepth_max, out.status, out.traced, out.uniqueness,
+                     out.search_interval, *dbg)
+    return out
+
+
+def estimate_depths(points: ImmaturePoints, target_map, model, pose_q, pose_t,
+                    window_poses_q, window_poses_t, window_affines, affine_tgt,
+                    exposure, window_exposures,
+                    huber_sigma: float = 20.0) -> ImmaturePoints:
     """One epipolar update of every bank ``[K, N]`` against a new frame.
 
-    ``target_map``: [3, H, W] level-0 map of the new frame; ``t_q``/``t_t``
-    [K]: target-from-host-keyframe poses; ``affine_ref`` [K, 2] host
-    affines; ``affine_tgt`` [2]; ``exposure_ratio`` [K].
+    ``target_map``: [3, H, W] level-0 map of the new frame; ``pose_q`` /
+    ``pose_t``: its pose T_w_t; ``window_poses_q`` [K, 4] / ``window_poses_t``
+    [K, 3]: the host keyframes' poses T_w_k; ``window_affines`` [K, 2];
+    ``affine_tgt`` [2]; ``exposure``: the frame's exposure (one value);
+    ``window_exposures`` [K].  The kernel on CUDA tensors, the plain version
+    on CPU ones.
     """
-    inp, geo = sweep_inputs(points, model, t_q, t_t, affine_ref, affine_tgt,
-                            exposure_ratio, num_samples)
-    res = epipolar_sweep(inp, target_map[0], model, huber_sigma)
-    return update_from_sweep(points, geo, res, model)
+    fn = estimate_depths_cuda if target_map.is_cuda else estimate_depths_plain
+    return fn(points, target_map, model, pose_q, pose_t, window_poses_q, window_poses_t,
+              window_affines, affine_tgt, exposure, window_exposures, huber_sigma)
 
 
 def update_from_sweep(points: ImmaturePoints, geo: dict, res: SweepResult,
@@ -366,11 +434,12 @@ def update_from_sweep(points: ImmaturePoints, geo: dict, res: SweepResult,
 
 
 def make_immature_points(uv, patch, gradient) -> ImmaturePoints:
-    """Fresh immature bank ``[N]`` from extracted candidates."""
+    """Fresh immature bank ``[N]`` from extracted candidates (dense, so that
+    the banks written from it stay dense for kernel K4)."""
     dtype, dev = uv.dtype, uv.device
     n = uv.shape[0]
     return ImmaturePoints(
-        uv=uv, patch=patch, gradient=gradient,
+        uv=uv.contiguous(), patch=patch.contiguous(), gradient=gradient.contiguous(),
         idepth_min=torch.zeros(n, dtype=dtype, device=dev),
         idepth_max=torch.full((n,), INITIAL_IDEPTH_MAX, dtype=dtype, device=dev),
         status=torch.full((n,), STATUS_UNINITIALIZED, dtype=torch.int32, device=dev),

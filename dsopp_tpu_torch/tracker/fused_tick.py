@@ -173,14 +173,9 @@ def fused_regular_tick(image, level_points, flow_points, window_poses_q,
 
     t_t_kf = SE3(bq, bt)
     t_w_t = kf @ t_t_kf.inverse()
-    k = window_poses_q.shape[0]
-    t_inv = t_w_t.inverse()
-    t_rel = SE3(t_inv.q.expand(k, 4), t_inv.t.expand(k, 3)).compose(
-        SE3(window_poses_q, window_poses_t))
-    immature = estimate_depths(immature, maps[0], models[0], t_rel.q, t_rel.t,
-                               window_affines, b_aff,
-                               exposure / torch.clamp(window_exposures, min=1e-12),
-                               huber_sigma)
+    immature = estimate_depths(immature, maps[0], models[0], t_w_t.q, t_w_t.t,
+                               window_poses_q, window_poses_t, window_affines, b_aff,
+                               exposure, window_exposures, huber_sigma)
     flow, flow_nr = mean_square_flows(flow_points, models[0], t_t_kf)
     return FusedTickResult(
         maps=maps, pose_q=t_w_t.q, pose_t=t_w_t.t, affine=b_aff, rmse=b_rmse,

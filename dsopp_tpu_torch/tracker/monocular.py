@@ -199,13 +199,10 @@ class MonocularTracker:
 
         t_w_kf = self._kf_pose()
         t_t_kf = pose.inverse() @ t_w_kf
-        k = self.window.num_slots
         poses = self.window.poses()
-        t_inv = pose.inverse()
-        t_rel = SE3(t_inv.q.expand(k, 4), t_inv.t.expand(k, 3)).compose(poses)
         self.immature = estimate_depths(
-            self.immature, maps[0], self.camera, t_rel.q, t_rel.t, self.window.affine(),
-            self.last_affine, exp_t / torch.clamp(self.window.exposure, min=1e-12),
+            self.immature, maps[0], self.camera, pose.q, pose.t, poses.q, poses.t,
+            self.window.affine(), self.last_affine, exp_t, self.window.exposure,
             cfg.huber_sigma)
         flow, flow_no_rot = (float(v) for v in mean_square_flows(self.flow_points, self.camera, t_t_kf))
         need_kf = force_keyframe or self._need_keyframe(flow, flow_no_rot, 0.0)

@@ -1,8 +1,10 @@
-"""Port parity: the epipolar update (K4's plain version and the status
-machine around it) vs ``estimate_depths`` on banks built by
-``make_immature_points`` from a rendered frame, against a frame a few steps
-on.  status and traced exact; idepth_min/max, uniqueness and
-search_interval 1e-9 relative (f64)."""
+"""Port parity: the epipolar update (K4's plain version, from the new frame's
+pose T_w_t and the window's poses) vs the JAX package's vmapped
+``estimate_depths`` on the relative poses its regular tick composes
+(``dsopp_tpu/tracker/fused_tick.py:204-213``), on two banks built by
+``make_immature_points`` from a rendered frame, with different exposures
+and affines, against a frame a few steps on.  status and traced exact;
+idepth_min/max, uniqueness and search_interval 1e-9 relative (f64)."""
 
 import jax
 import jax.numpy as jnp
@@ -26,7 +28,8 @@ from tests._torch_port import assert_close, assert_equal, np_tree, to_torch
 N = 160
 AFFINES = np.array([[0.02, 1.0], [-0.01, -2.0]])
 AFF_TGT = np.array([0.01, 0.5])
-RATIOS = np.array([1.05, 0.97])
+EXPOSURE = 1.05
+WIN_EXPOSURES = np.array([1.0, 1.0825])
 
 
 def _banks(seq):
@@ -52,25 +55,41 @@ def setup():
     return seq, _banks(seq)
 
 
+def _poses(seq, roll):
+    """T_w_t of frame 4 (its camera rolled in-plane by ``roll`` rad) and the
+    two banks' host poses (frame 0's), as JAX arrays."""
+    t_rel = seq.t_target_ref(4, 0)
+    if roll:
+        t_rel = JSE3.exp(jnp.asarray([0, 0, 0, 0, 0, roll], jnp.float64)) @ t_rel
+    t_w0 = seq.poses[0]
+    t_w_t = t_w0 @ t_rel.inverse()
+    return t_w_t, JSE3(jnp.stack([t_w0.q, t_w0.q]), jnp.stack([t_w0.t, t_w0.t]))
+
+
+def _port_args(seq, banks, roll, dtype=torch.float64):
+    t_w_t, win = _poses(seq, roll)
+    cam = convert.pinhole(seq.camera.fx, seq.camera.fy, seq.camera.cx, seq.camera.cy,
+                          seq.camera.image_size)
+    pts = convert.immature_points(np_tree(banks._asdict()), dtype=dtype)
+    return pts, cam, tuple(to_torch(x, dtype) for x in (
+        t_w_t.q, t_w_t.t, win.q, win.t, AFFINES, AFF_TGT, EXPOSURE, WIN_EXPOSURES))
+
+
 @pytest.mark.parametrize("roll", [0.0, 0.5])
 def test_estimate_depths_matches(setup, roll):
     seq, banks = setup
-    t_rel = seq.t_target_ref(4, 0)
-    if roll:
-        # large in-plane rotation of the target camera
-        t_rel = JSE3.exp(jnp.asarray([0, 0, 0, 0, 0, roll], jnp.float64)) @ t_rel
+    t_w_t, win = _poses(seq, roll)
     target = build_pixel_map(jnp.asarray(seq.images[4]))
-    q = jnp.stack([t_rel.q, t_rel.q])
-    t = jnp.stack([t_rel.t, t_rel.t])
+    # the JAX package's regular tick: t_rel = inverse(T_w_t) . T_w_k per bank
+    t_inv = t_w_t.inverse()
+    t_rel = JSE3(jnp.broadcast_to(t_inv.q, (2, 4)), jnp.broadcast_to(t_inv.t, (2, 3))).compose(win)
+    ratios = EXPOSURE / jnp.maximum(jnp.asarray(WIN_EXPOSURES), 1e-12)
     ref = jax.vmap(jax_estimate, in_axes=(0, None, None, 0, 0, None, 0, None, None))(
-        banks, target, seq.camera, JSE3(q, t), jnp.asarray(AFFINES),
-        jnp.asarray(AFF_TGT), jnp.asarray(RATIOS), 20.0, 32)
+        banks, target, seq.camera, t_rel, jnp.asarray(AFFINES),
+        jnp.asarray(AFF_TGT), ratios, 20.0, 32)
 
-    cam = convert.pinhole(seq.camera.fx, seq.camera.fy, seq.camera.cx, seq.camera.cy,
-                          seq.camera.image_size)
-    pts = convert.immature_points(np_tree(banks._asdict()))
-    out = tde.estimate_depths(pts, to_torch(target), cam, to_torch(q), to_torch(t),
-                              to_torch(AFFINES), to_torch(AFF_TGT), to_torch(RATIOS))
+    pts, cam, args = _port_args(seq, banks, roll)
+    out = tde.estimate_depths_plain(pts, to_torch(target), cam, *args)
     assert_equal(out.status, ref.status)
     assert_equal(out.traced, ref.traced)
     for name in ("idepth_min", "idepth_max", "uniqueness", "search_interval"):
@@ -81,8 +100,9 @@ def test_estimate_depths_matches(setup, roll):
 
     # the group-window rule is exercised: some in-image, in-ROI pattern
     # points of valid samples fall outside their group's 10×10 window
-    inp, _ = tde.sweep_inputs(pts, cam, to_torch(q), to_torch(t), to_torch(AFFINES),
-                              to_torch(AFF_TGT), to_torch(RATIOS))
+    rel = tde.relative_poses(*args[:4])
+    inp, _ = tde.sweep_inputs(pts, cam, rel.q, rel.t, to_torch(AFFINES), to_torch(AFF_TGT),
+                              to_torch(EXPOSURE / WIN_EXPOSURES))
     sl = inp.search_len[:, None, None]
     uv_s = inp.uv_a[:, None] + (inp.alphas[None, :, None] * sl) * inp.dir[:, None]
     rho = tde._triangulate_idepth(inp.pr[:, None], inp.t[:, None], cam.unproject(uv_s))
@@ -97,35 +117,24 @@ def test_estimate_depths_matches(setup, roll):
 
 
 def test_sweep_plain_is_the_cpu_dispatch(setup):
+    """On CPU tensors ``estimate_depths`` is the plain version."""
     seq, banks = setup
-    cam = convert.pinhole(seq.camera.fx, seq.camera.fy, seq.camera.cx, seq.camera.cy,
-                          seq.camera.image_size)
-    pts = convert.immature_points(np_tree(banks._asdict()))
-    t_rel = seq.t_target_ref(2, 0)
-    q = to_torch(np.stack([np.asarray(t_rel.q)] * 2))
-    t = to_torch(np.stack([np.asarray(t_rel.t)] * 2))
-    inp, _ = tde.sweep_inputs(pts, cam, q, t, to_torch(AFFINES), to_torch(AFF_TGT),
-                              to_torch(RATIOS))
-    img = to_torch(seq.images[2])
-    a = tde.epipolar_sweep(inp, img, cam, 20.0)
-    b = tde.epipolar_sweep_plain(inp, img, cam, 20.0)
+    pts, cam, args = _port_args(seq, banks, 0.0)
+    target = to_torch(build_pixel_map(jnp.asarray(seq.images[2])))
+    a = tde.estimate_depths(pts, target, cam, *args)
+    b = tde.estimate_depths_plain(pts, target, cam, *args)
     for x, y in zip(a, b):
         assert torch.equal(x, y)
 
 
 def test_kernel_wrapper_refuses_cpu_tensors(setup):
+    """K4's wrapper raises on CPU tensors and counts no launch."""
     from dsopp_tpu_torch import kernels
 
     seq, banks = setup
-    cam = convert.pinhole(seq.camera.fx, seq.camera.fy, seq.camera.cx, seq.camera.cy,
-                          seq.camera.image_size)
-    pts = convert.immature_points(np_tree(banks._asdict()), dtype=torch.float32)
-    t_rel = seq.t_target_ref(2, 0)
-    q = to_torch(np.stack([np.asarray(t_rel.q)] * 2)).float()
-    t = to_torch(np.stack([np.asarray(t_rel.t)] * 2)).float()
-    inp, _ = tde.sweep_inputs(pts, cam, q, t, to_torch(AFFINES).float(),
-                              to_torch(AFF_TGT).float(), to_torch(RATIOS).float())
+    pts, cam, args = _port_args(seq, banks, 0.0, torch.float32)
+    target = to_torch(build_pixel_map(jnp.asarray(seq.images[2])), torch.float32)
     before = kernels.EPIPOLAR.launches
     with pytest.raises(ValueError, match="CUDA"):
-        tde.epipolar_sweep_cuda(inp, to_torch(seq.images[2]).float(), cam, 20.0)
+        tde.estimate_depths_cuda(pts, target, cam, *args)
     assert kernels.EPIPOLAR.launches == before
