@@ -135,7 +135,21 @@ Phases, one line each with its time:
    parity windows' banks against the next frame) equal, digest by digest,
    those of the chain it replaced (torch's relative poses and geometry, the
    sweep kernel, torch's update), or that chain's on this kernel's relative
-   poses (a pose tie, named).
+   poses (a pose tie, named);
+15. solve-bits — the windowed BA's whole solve, one C call
+   (``csrc/ba_lm.cu::ba_solve_loop``), on ``testing/solve_bits.py``'s inputs
+   (the standart, dense and embedder parity windows, each with an empty and
+   a filled ledger): every field of the window it returns, its energy, count
+   and decoded log, and the inputs, equal digest by digest to those of the
+   tree whose loop was launched from Python.
+
+The windowed-BA solve is one C call on every path: the wrapper checks the
+window, allocates its buffers with ``torch.empty`` and calls
+``ba_solve_loop``, which issues K7, K10's init, the iterations' K8, K9, K7
+and K10, K10's finish, K7 and K11 from C and adds their launches to their
+counts.  The parity phase's K10 row times K10's control alone (its init and
+step phases, one C call each); the "K10 whole solve" line times the one-call
+solve against the host-driven plain loop.
 
 Each track line is preceded by one line with, per keyframe, the active
 landmarks the activation counted, the points it activated and the spacing
@@ -293,11 +307,15 @@ def cuda_ms(fn, reps=50):
 
 def device_us(torch, fn, reps=20):
     """Device time of ``fn`` per call, µs: the profiler's time of every kernel
-    it launches, summed (not measured: None)."""
+    it launches, summed (not measured: None).  Every session here opens with
+    ``testing/profiling.py``'s pause, without which the profiler can drop the
+    records of a session's first kernels."""
+    from dsopp_tpu_torch.testing.profiling import profiled
+
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    with profiled(acts) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
@@ -309,10 +327,12 @@ def device_us(torch, fn, reps=20):
 def wrapper_work(torch, fn):
     """One call of ``fn`` under the profiler → (the aten operators it runs on
     the host, by name; the kernels it runs on the device)."""
+    from dsopp_tpu_torch.testing.profiling import profiled
+
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    with profiled(acts) as prof:
         fn()
         torch.cuda.synchronize()
     ops = sorted(e.name for e in prof.events() if e.name.startswith("aten::"))
@@ -1283,6 +1303,26 @@ def parity_ba(seq, tracker, torch, rows, label, every, min_frames, timed):
         require(err["status_agree"] >= 0.999,
                 f"K10 ({label}, {case}): statuses agree on {err['status_agree']:.5f}")
         err10 = max(err10, err["translation"], err["rotation"])
+    # the one-call solve: no host read, its wrapper allocations and one C
+    # call, the fixed sequence's launches added to K7-K11's counts
+    from dsopp_tpu_torch import kernels
+
+    def solve_call():
+        return pba._solve_loop_cuda(filled, model, opts)
+
+    before = kernels.counts()
+    no_host_reads(torch, solve_call)
+    launched = {name: n - before[name] for name, n in kernels.counts().items()
+                if n != before[name]}
+    expected = {**pba.solve_loop_launches(opts.max_iterations), "ba_solve_loop": 1}
+    ops, solve_kernels = wrapper_work(torch, solve_call)
+    ops = sorted(set(ops))
+    log(f"  K10 one-call solve ({label}): launches {launched} (counted in C), wrapper aten"
+        f" operators {ops}, {solve_kernels} device kernels a call, no host read")
+    require(launched == expected, f"K10 ({label}): the one-call solve launched {launched},"
+            f" not {expected}")
+    require(set(ops) <= set(ALLOCATION_OPS),
+            f"K10 ({label}): the one-call solve's wrapper runs {ops}")
     control, plain_control, moved_bytes = lm_control(pba, torch, filled, model, opts)
     b10 = bound(moved_bytes, 4 * k * k * n)
     log_bound("ba_lm", label, b10)
@@ -1290,8 +1330,8 @@ def parity_ba(seq, tracker, torch, rows, label, every, min_frames, timed):
         row("ba_lm", max_abs_err=err10, ms=cuda_ms(control), plain_ms=cuda_ms(plain_control),
             device_us=device_us(torch, control), **b10)
         log(f"  K10 whole solve ({label}, filled ledger): device-resident loop"
-            f" {cuda_ms(lambda: pba._solve_loop_cuda(filled, model, opts), reps=10):.3f}"
-            f" ms, host-driven loop"
+            f" {cuda_ms(solve_call, reps=10):.3f} ms ({fmt_us(device_us(torch, solve_call))}),"
+            f" host-driven loop"
             f" {cuda_ms(lambda: pba._solve_loop_plain(filled, model, opts), reps=10):.3f} ms")
 
     # K11 — on K7's evaluation of the moved window
@@ -1511,34 +1551,37 @@ def parity_photometric(torch, rows, card):
 
 
 def lm_control(pba, torch, window, model, opts):
-    """K10's control alone, on the first iteration's trial as the device loop
-    prepares it → (the kernel's init + step phases, the host-driven loop's
-    energy + decision on the same trial, the bytes the two phases must move)."""
+    """K10's control alone, on the first iteration's trial as the one-call
+    solve prepares it → (the kernel's init + step phases, the host-driven
+    loop's energy + decision on the same trial, the bytes the two phases must
+    move)."""
     lm_mask = pba.active_lm_mask(window)
-    state = torch.zeros(pba.LM_FIELDS, dtype=torch.int32, device="cuda")
-    lm_log = torch.zeros((2, pba.LM_FIELDS), dtype=torch.int32, device="cuda")
-    carried, win = pba._carried_state(window)
-    eps, idepth, status = carried[3], carried[4], carried[6]
-    ev = pba._evaluate_cuda(win, model, eps, idepth, lm_mask, opts)
-    sys = pba._linearize_from_ev_cuda(win, model, ev, eps, opts)
-    eps_new, idepth_new, step_sq = pba._solve_step_launch(win, sys, eps, idepth,
+    state = torch.empty(pba.LM_FIELDS, dtype=torch.int32, device="cuda")
+    lm_log = torch.empty((2, pba.LM_FIELDS), dtype=torch.int32, device="cuda")
+    carried = pba._carried_state(window)
+    eps, idepth = window.eps, window.lm_idepth
+    ev = pba._evaluate_cuda(window, model, eps, idepth, lm_mask, opts)
+    sys = pba._linearize_from_ev_cuda(window, model, ev, eps, opts)
+    eps_new, idepth_new, step_sq = pba._solve_step_launch(window, sys, eps, idepth,
                                                           opts.initial_regularizer, None)
-    ev_new = pba._evaluate_cuda(win, model, eps_new, idepth_new, lm_mask, opts)
+    ev_new = pba._evaluate_cuda(window, model, eps_new, idepth_new, lm_mask, opts)
 
     def control():
-        pba._lm_phase(0, 0, win, opts, eps, idepth, None, ev, carried, ev, state, lm_log)
-        pba._lm_phase(1, 1, win, opts, eps_new, idepth_new, step_sq, ev_new, carried, ev, state,
-                      lm_log)
+        # the initial evaluation in buffer 0, the trial in buffer 1
+        pba._lm_phase(0, 0, window, opts, eps, idepth, None, ev, ev_new, carried, state, lm_log)
+        pba._lm_phase(1, 1, window, opts, eps_new, idepth_new, step_sq, ev, ev_new, carried,
+                      state, lm_log)
 
     def plain_control():
-        e, _ = pba._energy_from_ev(win, ev, eps, opts)
-        pba._lm_decide_plain(win, ev_new, eps_new, step_sq[0], step_sq[1], e, 0, opts)
+        e, _ = pba._energy_from_ev(window, ev, eps, opts)
+        pba._lm_decide_plain(window, ev_new, eps_new, step_sq[0], step_sq[1], e, 0, opts)
 
-    # both phases read the patch energies, the ledger and eps; an accepted
-    # step copies the trial (evaluation, statuses, eps, idepth) over the carried
+    # both phases read the patch energies, the ledger and eps; the small state
+    # (eps, idepth, lin_idepth, the statuses) is written once.  No evaluation
+    # is copied: an accepted step flips the carried-buffer word
     reads = nbytes(ev.energy_patch, window.h_marg, window.b_marg, eps)
-    commit = nbytes(*ev_new, status, eps_new, idepth_new)
-    return control, plain_control, 2 * reads + 2 * commit
+    small = nbytes(eps, idepth, idepth, window.res_status)
+    return control, plain_control, 2 * reads + small
 
 
 def trajectory_rmse(tracker, seq):
@@ -1944,6 +1987,21 @@ def epipolar_bits(card):
         f" the parent chain's, pose ties: {ties} ({time.perf_counter() - t0:.2f} s) | {card}")
 
 
+def solve_bits(card):
+    """The whole BA solve on ``testing/solve_bits.py``'s inputs, digest by
+    digest, against the tree whose loop was launched from Python."""
+    from dsopp_tpu_torch.testing import solve_bits as bits
+
+    t0 = time.perf_counter()
+    out = bits.run(bits.make_inputs())
+    differ = bits.check_against_parent(out)
+    cases = sorted({key.rsplit("/", 1)[0] for key in out if "/inputs/" not in key})
+    log(f"[solve-bits] {len(out)} digests of {len(cases)} solves ({', '.join(cases)}),"
+        f" {len(out) - len(differ)} equal to the bit to the parent's, differing: {differ}"
+        f" ({time.perf_counter() - t0:.2f} s) | {card}")
+    require(not differ, f"the solve's outputs differ from the parent's: {differ}")
+
+
 def report(label, st, card, seconds):
     log(f"[{label}] per keyframe (frame, n_active, n_activated, min_distance after it): "
         + " ".join(f"({i}, {a}, {b}, {c})" for i, a, b, c in st["per_keyframe"]))
@@ -2150,6 +2208,7 @@ def main():
         e2e(torch, card, exposure=True)
         c1_bits(card)
         epipolar_bits(card)
+        solve_bits(card)
     except SmokeError as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1

@@ -67,11 +67,15 @@
 // operating point runs k = 17).  Inside the LM loop the entry takes the
 // loop's state and every kernel returns at once when the loop is done
 // (ba_lm_state.cuh); the linearization point it reads is the loop's carried
-// one, which K10 moves when a step relinearizes.
+// one, which K10 moves when a step relinearizes, and the evaluation it reads
+// is the one of the loop's two evaluation buffers that the state names
+// carried (pair_kernel picks the pointers at its top; buffer 0 outside the
+// loop).
 
 #include <cuda_runtime.h>
 
 #include "ba_body.cuh"
+#include "ba_entries.cuh"
 #include "ba_lm_state.cuh"
 
 namespace {
@@ -107,6 +111,15 @@ __device__ __forceinline__ void dmma(double (&d)[4], const double (&a)[8], const
         "d"(b[0]), "d"(b[1]), "d"(b[2]), "d"(b[3]));
 }
 
+// one of the loop's two evaluation buffers, as K8 reads it
+struct EvalIn {
+  const float* residuals;
+  const float* weight;
+  const float* gx;
+  const float* gy;
+  const unsigned char* ok;
+};
+
 // a landmark's sums over its rows: the target term straight into hpd[i, l, j],
 // the anchor term, h_dd and b_d to scratch (at C = 1 before the chunk's
 // products, as the single-channel kernel wrote them; at C > 1 after the last
@@ -130,12 +143,17 @@ pair_kernel(const float* __restrict__ t_lin_q, const float* __restrict__ t_lin_t
             const float* __restrict__ affine0, const float* __restrict__ exposure,
             const float* __restrict__ lm_uv, const float* __restrict__ lin_idepth,
             const float* __restrict__ lm_patch, ba::Camera cam,
-            const float* __restrict__ residuals, const float* __restrict__ weight,
-            const float* __restrict__ gx, const float* __restrict__ gy,
-            const unsigned char* __restrict__ ok, int k, int n, int channels_in, int tiles,
+            EvalIn ev0, EvalIn ev1, int k, int n, int channels_in, int tiles,
             const int* __restrict__ lm_state, double* __restrict__ pair_part,
             float* __restrict__ lm_part, float* __restrict__ hpd) {
   if (ba::lm_done(lm_state)) return;
+  // the carried evaluation of the loop (buffer 0 outside it)
+  const EvalIn ev = ba::carried_buffer(lm_state) ? ev1 : ev0;
+  const float* __restrict__ residuals = ev.residuals;
+  const float* __restrict__ weight = ev.weight;
+  const float* __restrict__ gx = ev.gx;
+  const float* __restrict__ gy = ev.gy;
+  const unsigned char* __restrict__ ok = ev.ok;
   // the warps' [16][24] f64 partials at the end; the stage's columns J | r, a
   // residual each (f32); the pair's pose and brightness scale
   __shared__ double red[kWarps * kCols * kRedStride];
@@ -550,7 +568,9 @@ reduce_kernel(const double* __restrict__ pair_part, const double* __restrict__ s
 // [k*k*tiles*272] f64, lm_part [k*k*n*10] f32, schur_part [k*(64k^2 + 8k)]
 // f64, with tiles = ceil(n / 128).  Outputs: h, h_schur [8k,8k]; b, b_schur
 // [8k] (h and b with the diagonal priors); hpd [k,n,k,8]; inv_hdd, b_d
-// [k,n].  lm_state: the LM loop's state or nullptr.  Returns
+// [k,n].  lm_state: the LM loop's state or nullptr; the evaluation is read
+// from the second buffer (residuals1 ... ok1) when the state names it
+// carried, else from the first (the second may then be null).  Returns
 // cudaErrorInvalidValue (1) for k above kMaxFrames (40) or a tile count that
 // is not the kernels'.
 extern "C" int ba_linearize_schur(
@@ -558,6 +578,8 @@ extern "C" int ba_linearize_schur(
     const float* lm_uv, const float* lin_idepth, const float* lm_patch, float fx, float fy,
     float cx, float cy, float width, float height, const float* residuals,
     const float* weight, const float* gx, const float* gy, const unsigned char* ok,
+    const float* residuals1, const float* weight1, const float* gx1, const float* gy1,
+    const unsigned char* ok1,
     const float* eps, const unsigned char* frame_valid, const unsigned char* frame_fixed,
     const unsigned char* frame_marg, int k, int n, int channels, int marg_pass, float threshold,
     float scale_reg, float fixed_reg, float affine_reg_a, float affine_reg_b, int tiles,
@@ -570,10 +592,12 @@ extern "C" int ba_linearize_schur(
   cudaStream_t s = (cudaStream_t)stream;
   const int kb = k * 8;
   const ba::Camera cam = {fx, fy, cx, cy, width, height};
+  const EvalIn ev0 = {residuals, weight, gx, gy, ok};
+  const EvalIn ev1 = {residuals1, weight1, gx1, gy1, ok1};
   auto pair = channels == 1 ? pair_kernel<false> : pair_kernel<true>;
   pair<<<dim3(tiles, k * k), kThreads, 0, s>>>(
-      t_lin_q, t_lin_t, affine0, exposure, lm_uv, lin_idepth, lm_patch, cam, residuals,
-      weight, gx, gy, ok, k, n, channels, tiles, lm_state, pair_part, lm_part, hpd);
+      t_lin_q, t_lin_t, affine0, exposure, lm_uv, lin_idepth, lm_patch, cam, ev0, ev1, k, n,
+      channels, tiles, lm_state, pair_part, lm_part, hpd);
   landmark_kernel<<<(k * n * kLmOut + kThreads - 1) / kThreads, kThreads, 0, s>>>(
       lm_part, frame_fixed, k, n, marg_pass, threshold, scale_reg, lm_state, hpd, inv_hdd, b_d);
   // bands a Schur block takes: two where that still gives k ceil(k / 2) >= 132

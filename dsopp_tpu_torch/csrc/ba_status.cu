@@ -20,6 +20,7 @@
 //     the frames' positions t of T_lin exp(eps) are computed once per block.
 
 #include "ba_body.cuh"
+#include "ba_entries.cuh"
 
 namespace {
 

@@ -10,7 +10,10 @@ Launch rules shared by every kernel: launch on
 ``torch.cuda.current_stream()``, allocate nothing in C (callers pass
 ``torch.empty`` outputs), and return ``cudaGetLastError()``, which
 :class:`Kernel` turns into an exception.  Each :class:`Kernel` counts its
-launches in ``launches``; nothing else touches the count.
+launches in ``launches``; nothing else touches the count, but for the one
+entry that calls other entries from C (``BA_SOLVE_LOOP``, the windowed BA's
+whole solve): it counts their successful calls into a host array, and its
+wrapper adds those to their counts.
 """
 
 from __future__ import annotations
@@ -121,12 +124,15 @@ def check(t: torch.Tensor, name: str, shape, dtype=torch.float32):
 
 
 class Kernel:
-    """One C entry point of the library, with its launch count."""
+    """One C entry point of the library, with its launch count.  An entry
+    that runs ``steps`` returns ``(step << 16) | the CUDA error`` when one
+    fails, and the exception names the step."""
 
-    def __init__(self, name: str, symbol: str, argtypes):
+    def __init__(self, name: str, symbol: str, argtypes, steps=()):
         self.name = name
         self.symbol = symbol
         self.argtypes = [*argtypes, _P]     # the stream comes last
+        self.steps = steps
         self.launches = 0
         self._fn = None
 
@@ -140,7 +146,8 @@ class Kernel:
         conv = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
         err = fn(*conv, stream)
         if err != 0:
-            raise RuntimeError(f"{self.name}: CUDA error {err} at launch")
+            where = f" in {self.steps[err >> 16]}" if self.steps else ""
+            raise RuntimeError(f"{self.name}: CUDA error {err & 0xFFFF}{where} at launch")
         self.launches += 1
 
 
@@ -159,18 +166,30 @@ ALIGN_LEVEL = Kernel("align_level", "align_level",
                       _P, _P, _P, _P, _P, _P, _P, _P])
 FLOW = Kernel("flow_statistic", "flow_statistic",
               [_P, _P, _P, _I, _P, _P] + [_F] * 7 + [_P])
-# K7-K9 take the LM loop's state (or None) before their outputs; K8 forms the
-# first-estimate Jacobians itself (once kernel K6's cache)
+# K7-K9 take the LM loop's state (or None) before their outputs; K7 writes and
+# K8 reads one of the loop's two evaluation buffers (buffer 0 without a
+# state); K8 forms the first-estimate Jacobians itself (once kernel K6's cache)
 BA_EVALUATE = Kernel("ba_evaluate", "ba_evaluate",
-                     [_P] * 12 + [_I] * 6 + [_F] * 7 + [_P] * 8)
+                     [_P] * 12 + [_I] * 6 + [_F] * 7 + [_P] * 16)
 BA_LINEARIZE = Kernel("ba_linearize_schur", "ba_linearize_schur",
-                      [_P] * 7 + [_F] * 6 + [_P] * 9 + [_I] * 4 + [_F] * 5 + [_I]
+                      [_P] * 7 + [_F] * 6 + [_P] * 14 + [_I] * 4 + [_F] * 5 + [_I]
                       + [_P] * 11)
 BA_SOLVE = Kernel("ba_solve_step", "ba_solve_step",
                   [_P] * 12 + [_I, _I, _F, _I] + [_P] * 7)
-BA_LM = Kernel("ba_lm", "ba_lm", [_I] * 7 + [_F] * 7 + [_P] * 30)
+BA_LM = Kernel("ba_lm", "ba_lm", [_I] * 6 + [_F] * 7 + [_P] * 28)
 BA_STATUS = Kernel("ba_point_status", "ba_point_status",
                    [_P] * 11 + [_I, _I, _F, _F, _I] + [_P] * 6)
+# the whole windowed-BA solve in one C call (csrc/ba_lm.cu): K7, K10's init,
+# the iterations' K8, K9, K7 and K10, K10's finish, K7 and K11, in the order of
+# csrc/ba_lm.cu::SolveStep; its last argument is a host array of the calls it
+# made to each entry (csrc/ba_lm.cu::SolveCount)
+BA_SOLVE_LOOP = Kernel("ba_solve_loop", "ba_solve_loop",
+                       [_P] * 17 + [_I] + [_P] * 3 + [_I] * 5 + [_F] * 6 + [_I] * 3
+                       + [_F] * 13 + [_I] + [_P] * 22 + [_I] + [_P] * 10 + [_I] + [_P] * 17,
+                       steps=("its arguments", "ba_evaluate (initial)", "ba_lm (init)",
+                              "ba_linearize_schur", "ba_solve_step", "ba_evaluate (trial)",
+                              "ba_lm (step)", "ba_lm (finish)", "ba_evaluate (final)",
+                              "ba_point_status"))
 # K12-K14 and K16, the keyframe backend around the BA solve; K14 has two entry
 # points (the refinement, and the pairing with free landmark slots)
 SELECT_CANDIDATES = Kernel("select_candidates", "select_candidates",
@@ -193,8 +212,8 @@ ROW_GATHER = Kernel("row_gather", "row_gather", [_P, _P, _I, _I, _I, _P])
 # K18: the camera's photometric correction, once per frame the camera reads
 PHOTOMETRIC = Kernel("photometric_correct", "photometric_correct", [_P, _I, _P, _P, _I, _P])
 ALL = (PYRAMID, ALIGN, ALIGN_LEVEL, EPIPOLAR, FLOW, BA_EVALUATE, BA_LINEARIZE,
-       BA_SOLVE, BA_LM, BA_STATUS, SELECT_CANDIDATES, ACTIVATION, REFINE, ACTIVATION_SCATTER,
-       DEPTH_MAPS, MARG_POLICY, MARG_FOLD, ROW_GATHER, PHOTOMETRIC)
+       BA_SOLVE, BA_LM, BA_STATUS, BA_SOLVE_LOOP, SELECT_CANDIDATES, ACTIVATION, REFINE,
+       ACTIVATION_SCATTER, DEPTH_MAPS, MARG_POLICY, MARG_FOLD, ROW_GATHER, PHOTOMETRIC)
 
 
 def reset_counts():

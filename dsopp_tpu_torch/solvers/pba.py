@@ -25,7 +25,7 @@ Six functions have a hand-written CUDA kernel beside their plain PyTorch
 version and dispatch on ``window.maps.is_cuda``: :func:`_evaluate` (K7,
 ``csrc/ba_evaluate.cu``), :func:`_linearize_from_ev` (K8,
 ``csrc/ba_linearize.cu``), :func:`_solve_step` (K9, ``csrc/ba_solve.cu``),
-:func:`_solve_loop_device` (K10, ``csrc/ba_lm.cu``),
+:func:`_solve_loop_device` (K7–K11 under K10's control, ``csrc/ba_lm.cu``),
 :func:`_point_status_kernel` (K11, ``csrc/ba_status.cu``) and the ledger fold
 of :func:`_marginalize_device` (K15, ``csrc/marg_fold.cu``).  CUDA tensors go
 to the kernel or raise; the plain versions run on CPU tensors only.  The FEJ
@@ -33,15 +33,21 @@ Jacobians (:func:`_fej_cache`, once kernel K6's cache) have no kernel of their
 own: K8 forms them from the window where it reads them, and the plain
 linearization takes them from :func:`_fej_cache_plain`.
 
-On the card the LM loop keeps its state — energy, count, regularizer,
-iteration, accept / done / relinearize flags — in eight words of device
-memory (``LM_*`` below, ``csrc/ba_lm_state.cuh``).  The host launches
-``opts.max_iterations`` iterations unconditionally and reads nothing; K7–K9
-take the state and return at once when the loop is done.
+On the card the whole solve is one C call (``csrc/ba_lm.cu::ba_solve_loop``,
+:func:`_solve_loop_cuda`): it issues the fixed sequence of the JAX package's
+one device program — K7, K10's init, ``opts.max_iterations`` × (K8, K9, K7,
+K10), K10's finish, K7 and K11 — and reads nothing on the host.  The LM loop
+keeps its state — energy, count, regularizer, iteration, accept / done /
+relinearize flags, and which of its two evaluation buffers holds the carried
+evaluation — in nine words of device memory (``LM_*`` below,
+``csrc/ba_lm_state.cuh``); K7–K9 take the state and return at once when the
+loop is done, K7 writes each trial into the buffer that does not hold the
+carried evaluation, and an accepted step flips the word instead of copying.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 from typing import NamedTuple, Optional
 
@@ -63,10 +69,11 @@ BLOCK = 8  # per-frame state: 6 pose + 2 affine
 LEDGER_DTYPE = torch.float64
 
 # words of the LM loop's device state (csrc/ba_lm_state.cuh); energy and
-# regularizer are float bits
+# regularizer are float bits; LM_CARRIED is the evaluation buffer (0 or 1)
+# that holds the carried evaluation
 (LM_ENERGY, LM_LAMBDA, LM_COUNT, LM_ITER, LM_ACCEPT, LM_DONE, LM_RELIN,
- LM_LEDGER_EMPTY) = range(8)
-LM_FIELDS = 8
+ LM_LEDGER_EMPTY, LM_CARRIED) = range(9)
+LM_FIELDS = 9
 # frame slots the kernels take: K8, K10 and K11 take up to 40 (K10 and K11
 # stage 8k-wide rows in the 48 KB of shared memory a block gets without
 # opting in, K8's Schur kernel runs a warp per 16 of its 8(k + 1) columns);
@@ -343,10 +350,10 @@ def _evaluation_buffers(k: int, n: int, c: int, dtype, device) -> Evaluation:
 
 
 def _evaluate_cuda(window: Window, model, eps, idepth, lm_mask,
-                   opts: PBAOptions, lm_state=None, out: Evaluation = None) -> Evaluation:
-    """Kernel K7: same outputs as :func:`_evaluate_plain`, into ``out`` where
-    given.  With the LM loop's state the kernel leaves the outputs unwritten
-    once the loop is done."""
+                   opts: PBAOptions) -> Evaluation:
+    """Kernel K7: same outputs as :func:`_evaluate_plain`, in new tensors
+    (the kernel's buffer 0; inside the LM loop :func:`_solve_loop_cuda`'s C
+    call launches it on two)."""
     k, n, h, w = _check_window(window)
     c = window.num_channels
     check = kernels.check
@@ -355,14 +362,14 @@ def _evaluate_cuda(window: Window, model, eps, idepth, lm_mask,
     check(lm_mask, "lm_mask", (k, n), torch.bool)
     check(window.frame_valid, "frame_valid", (k,), torch.bool)
     check(window.res_status, "res_status", (k, k, n), torch.int32)
-    if out is None:
-        out = _evaluation_buffers(k, n, c, eps.dtype, eps.device)
+    out = _evaluation_buffers(k, n, c, eps.dtype, eps.device)
     # channel plane ch of frame f is plane ch of channel_bank[f]
     kernels.BA_EVALUATE(window.t_lin_q, window.t_lin_t, eps, window.affine0,
                         window.exposure, window.lm_uv, idepth, window.lm_patch, lm_mask,
                         window.frame_valid, window.res_status, window.channel_bank,
                         3 * c * h * w, k, n, h, w, c, model.fx, model.fy, model.cx, model.cy,
-                        model.width, model.height, _huber_sigma(c, opts), lm_state, *out)
+                        model.width, model.height, _huber_sigma(c, opts), None, *out,
+                        *(None,) * len(out), None)
     return out
 
 
@@ -490,15 +497,14 @@ def _linearize_buffers(k: int, n: int, dtype, device):
 
 
 def _linearize_from_ev_cuda(window: Window, model, ev: Evaluation, eps,
-                            opts: PBAOptions, marg_pass: bool = False,
-                            lm_state=None, buffers=None) -> LinearSystem:
+                            opts: PBAOptions, marg_pass: bool = False) -> LinearSystem:
     """Kernel K8: the outputs of :func:`_linearize_from_ev_plain` with the FEJ
     of :func:`_fej_cache_plain`, formed in the kernel from the window at its
     linearization point (``t_lin``, ``affine0``, ``exposure``, ``lm_uv``,
     ``lm_idepth``, ``lm_patch``) and the camera ``model``; the diagonal
-    priors included, into ``buffers`` (of :func:`_linearize_buffers`) where
-    given.  With the LM loop's state the kernels leave the outputs unwritten
-    once the loop is done."""
+    priors included, in new tensors (the evaluation as the kernel's buffer 0;
+    inside the LM loop :func:`_solve_loop_cuda`'s C call launches it on the
+    carried one of two)."""
     k, n, _, _ = _check_window(window)
     c = window.num_channels
     if k > _LINEARIZE_MAX_FRAMES:
@@ -514,17 +520,16 @@ def _linearize_from_ev_cuda(window: Window, model, ev: Evaluation, eps,
     check(window.frame_valid, "frame_valid", (k,), torch.bool)
     check(window.frame_fixed, "frame_fixed", (k,), torch.bool)
     check(window.frame_marg, "frame_marg", (k,), torch.bool)
-    scratch, out = buffers or _linearize_buffers(k, n, eps.dtype, eps.device)
+    scratch, out = _linearize_buffers(k, n, eps.dtype, eps.device)
     kernels.BA_LINEARIZE(window.t_lin_q, window.t_lin_t, window.affine0, window.exposure,
                          window.lm_uv, window.lm_idepth, window.lm_patch,
                          model.fx, model.fy, model.cx, model.cy, model.width, model.height,
-                         ev.residuals, ev.weight, ev.gx, ev.gy, ev.ok, eps, window.frame_valid,
-                         window.frame_fixed, window.frame_marg, k, n, c, int(bool(marg_pass)),
-                         float(opts.idepth_nullspace_threshold),
+                         ev.residuals, ev.weight, ev.gx, ev.gy, ev.ok, *(None,) * 5, eps,
+                         window.frame_valid, window.frame_fixed, window.frame_marg, k, n, c,
+                         int(bool(marg_pass)), float(opts.idepth_nullspace_threshold),
                          float(opts.scale_nullspace_reg), float(opts.fixed_reg),
                          float(opts.affine_reg_a), float(opts.affine_reg_b),
-                         scratch[0].shape[0] // (k * k), lm_state,
-                         *scratch, *out)
+                         scratch[0].shape[0] // (k * k), None, *scratch, *out)
     return out
 
 
@@ -608,7 +613,10 @@ def _solve_step_launch(window: Window, sys: LinearSystem, eps, idepth, lam, lm_s
                        buffers=None):
     """Kernel K9 → (eps', idepth', step_sq [2]), in ``buffers`` (of
     :func:`_solve_step_buffers`) where given.  ``lam`` is a host float, or
-    ``None`` with ``lm_state``: the loop state's regularizer."""
+    ``None`` with ``lm_state``: the loop state's regularizer.  The solve
+    runs K9 from C (``ba_solve_loop``); the ``lm_state`` mode is kept here
+    only as the tests' entry into K9's loop-state behaviour (λ from the
+    state, nothing written once the loop is done)."""
     k, n = window.num_slots, window.num_landmark_slots
     if k > _SOLVE_MAX_FRAMES:
         raise ValueError(f"ba_solve_step: {k} frame slots exceed the kernel's limit of "
@@ -734,82 +742,176 @@ def _solve_loop_plain(window: Window, model, opts: PBAOptions, log: list = None)
 
 
 def _lm_phase(phase: int, row: int, window: Window, opts: PBAOptions, trial_eps,
-              trial_idepth, step_sq, trial: Evaluation, carried, ev: Evaluation, state,
-              lm_log):
-    """One launch of kernel K10 (``csrc/ba_lm.cu``): phase 0 initialises the
-    loop state from the initial evaluation, 1 decides on a trial and commits
-    it, 2 folds the newest frame's increment.  ``carried`` = (t_lin_q,
-    t_lin_t, affine0, eps, idepth, lin_idepth, res_status), updated in
-    place, as is the carried evaluation ``ev``."""
+              trial_idepth, step_sq, ev0: Evaluation, ev1: Evaluation, carried, state, lm_log):
+    """One launch of kernel K10 (``csrc/ba_lm.cu::ba_lm``), outside the one-call
+    solve (chip_smoke times K10's control with it, the GPU tests hold it):
+    phase 0 copies the window's fields into ``carried`` (of
+    :func:`_carried_state`) and initialises the loop state from ``ev0``, the
+    initial evaluation; 1 decides on the trial (the buffer of ``ev0`` and
+    ``ev1`` that the state does not name carried) and commits it; 2 folds the
+    newest frame's increment.  ``carried`` = (t_lin_q, t_lin_t, affine0, eps,
+    idepth, lin_idepth, res_status), updated in place."""
     k, n = window.num_slots, window.num_landmark_slots
-    kernels.BA_LM(phase, row, k, n, window.num_channels, int(opts.min_iterations),
-                  int(bool(opts.force_accept)),
+    start = (window.t_lin_q, window.t_lin_t, window.affine0, window.eps, window.lm_idepth,
+             window.res_status) if phase == 0 else (None,) * 6
+    kernels.BA_LM(phase, row, k, n, int(opts.min_iterations), int(bool(opts.force_accept)),
                   float(opts.initial_regularizer), float(opts.function_tolerance),
                   float(opts.parameter_tolerance), float(opts.reg_decrease),
                   float(opts.reg_increase), float(opts.affine_reg_a), float(opts.affine_reg_b),
                   window.frame_valid, window.h_marg, window.b_marg, window.energy_marg,
-                  trial_eps, trial_idepth, step_sq, *trial, *carried, *ev, state, lm_log)
+                  trial_eps, trial_idepth, step_sq, ev0.energy_patch, ev0.status_candidate,
+                  ev1.energy_patch, ev1.status_candidate, *start, *carried, state, lm_log,
+                  None, None)
 
 
 def _carried_state(window: Window):
-    """What the device-resident loop carries and K10 updates in place →
-    ((t_lin_q, t_lin_t, affine0, eps, idepth, lin_idepth, res_status), the
-    window at the carried linearization point, which sees the updates)."""
-    carried = tuple(x.clone() for x in (
+    """Buffers for what K10 carries, which its phase 0 writes from the window:
+    (t_lin_q, t_lin_t, affine0, eps, idepth, lin_idepth, res_status)."""
+    return tuple(torch.empty(x.shape, dtype=x.dtype, device=x.device) for x in (
         window.t_lin_q, window.t_lin_t, window.affine0, window.eps, window.lm_idepth,
         window.lm_idepth, window.res_status))
-    tq, tt, ab0, _, _, lin_idepth, status = carried
-    return carried, window.replace(t_lin_q=tq, t_lin_t=tt, affine0=ab0, lm_idepth=lin_idepth,
-                                   res_status=status)
+
+
+# the entries ``ba_solve_loop`` counts into its host array, in the order of
+# csrc/ba_lm.cu::SolveCount
+_SOLVE_LOOP_COUNTED = (kernels.BA_EVALUATE, kernels.BA_LINEARIZE, kernels.BA_SOLVE,
+                       kernels.BA_LM, kernels.BA_STATUS)
+
+
+def solve_loop_launches(max_iterations: int) -> dict:
+    """Kernel name → its launches in :func:`_solve_loop_cuda`'s fixed
+    sequence, as expected (the wrapper adds what the C call counted): K7 on
+    the initial state, in every iteration and at the solved state; K8 and K9
+    once an iteration; K10's init, steps and finish; K11 once."""
+    m = int(max_iterations)
+    return {kernels.BA_EVALUATE.name: m + 2, kernels.BA_LINEARIZE.name: m,
+            kernels.BA_SOLVE.name: m, kernels.BA_LM.name: m + 2, kernels.BA_STATUS.name: 1}
+
+
+# the one-call solve's internal buffers, carved from one workspace a call (256-byte
+# aligned): (k, n, C, iterations, dtype) -> their byte offsets
+_SOLVE_LOOP_LAYOUT = {}
+_WORKSPACE_ALIGN = 256
+
+
+def _solve_loop_layout(k: int, n: int, c: int, iterations: int, dtype):
+    """Where :func:`_solve_loop_cuda`'s internal buffers lie in its workspace
+    → ({group: byte offsets of its buffers, in ``ba_solve_loop``'s order},
+    workspace bytes, K8's tiles, K9's back-substitution blocks).  The shapes
+    are those of :func:`_evaluation_buffers`, :func:`_linearize_buffers` and
+    :func:`_solve_step_buffers`; worked out once a shape."""
+    key = (k, n, c, iterations, dtype)
+    if key not in _SOLVE_LOOP_LAYOUT:
+        meta = "meta"
+        scratch, system = _linearize_buffers(k, n, dtype, meta)
+        step = _solve_step_buffers(k, n, dtype, meta)
+        groups = dict(
+            carried=(torch.empty((k, n), dtype=dtype, device=meta),            # lin_idepth
+                     torch.empty((k, k, n), dtype=torch.int32, device=meta)),  # res_status
+            ev0=_evaluation_buffers(k, n, c, dtype, meta),
+            ev1=_evaluation_buffers(k, n, c, dtype, meta),
+            mask=(torch.empty((k, n), dtype=torch.bool, device=meta),),
+            linearize=(*scratch, *system),
+            step=step,
+            loop=(torch.empty((LM_FIELDS,), dtype=torch.int32, device=meta),  # state
+                  torch.empty((iterations + 2, LM_FIELDS), dtype=torch.int32, device=meta),
+                  torch.empty((1,), dtype=dtype, device=meta)))                # K11's threshold
+        offsets, total = {}, 0
+        for name, tensors in groups.items():
+            offsets[name] = []
+            for t in tensors:
+                offsets[name].append(total)
+                size = t.numel() * t.element_size()
+                total += -(-size // _WORKSPACE_ALIGN) * _WORKSPACE_ALIGN
+        _SOLVE_LOOP_LAYOUT[key] = (offsets, total, scratch[0].shape[0] // (k * k),
+                                   step[1].shape[0])
+    return _SOLVE_LOOP_LAYOUT[key]
 
 
 def _solve_loop_cuda(window: Window, model, opts: PBAOptions, log: list = None):
-    """Kernels K7–K11 under K10's control: the same solve as
+    """Kernels K7–K11 under K10's control in one C call
+    (``csrc/ba_lm.cu::ba_solve_loop``): the same solve as
     :func:`_solve_loop_plain` without a host read.  ``opts.max_iterations``
-    iterations are launched whatever happens; the loop's state lives on the
-    device and the kernels return at once when it says done.  ``log``
-    (diagnostics only: it reads the device) receives the decoded state log."""
-    k, n, _, _ = _check_window(window)
-    if k > _LINEARIZE_MAX_FRAMES:
-        raise ValueError(f"ba_lm: {k} frame slots exceed the kernel's limit of "
+    iterations are issued whatever happens; the loop's state lives on the
+    device and the kernels return at once when it says done.  The wrapper
+    checks the window, allocates the outputs and one workspace for every
+    internal buffer (:func:`_solve_loop_layout`) with ``torch.empty`` and
+    makes the one call; ``log`` (diagnostics only: it reads the device)
+    receives the decoded state log."""
+    k, n, h, w = _check_window(window)
+    c = window.num_channels
+    if k > _SOLVE_MAX_FRAMES:
+        raise ValueError(f"ba_solve_loop: {k} frame slots exceed the limit of its solve step, "
+                         f"{_SOLVE_MAX_FRAMES} (the 8k x 8k system in the 227 KB of shared "
+                         "memory of one block); K8, K10 and K11 take "
                          f"{_LINEARIZE_MAX_FRAMES}")
     check = kernels.check
     check(window.eps, "eps", (k, BLOCK))
+    check(window.lm_valid, "lm_valid", (k, n), torch.bool)
+    check(window.frame_valid, "frame_valid", (k,), torch.bool)
+    check(window.frame_fixed, "frame_fixed", (k,), torch.bool)
+    check(window.frame_marg, "frame_marg", (k,), torch.bool)
     check(window.res_status, "res_status", (k, k, n), torch.int32)
+    check(window.h_marg, "h_marg", (k * BLOCK, k * BLOCK), LEDGER_DTYPE)
+    check(window.b_marg, "b_marg", (k * BLOCK,), LEDGER_DTYPE)
     check(window.energy_marg, "energy_marg", (), LEDGER_DTYPE)
-    dev = window.eps.device
-    lm_mask = active_lm_mask(window)
-    state = torch.zeros(LM_FIELDS, dtype=torch.int32, device=dev)
-    lm_log = torch.zeros((opts.max_iterations + 2, LM_FIELDS), dtype=torch.int32, device=dev)
-    carried, win = _carried_state(window)
-    tq, tt, ab0, eps, idepth, lin_idepth, status = carried
-    ev = _evaluate_cuda(win, model, eps, idepth, lm_mask, opts)
-    _lm_phase(0, 0, win, opts, eps, idepth, None, ev, carried, ev, state, lm_log)
-    # every iteration writes the same system, step and trial evaluation
-    sys_buffers = _linearize_buffers(k, n, eps.dtype, dev)
-    step_buffers = _solve_step_buffers(k, n, eps.dtype, dev)
-    ev_new = _evaluation_buffers(k, n, window.num_channels, eps.dtype, dev)
-    for it in range(1, opts.max_iterations + 1):
-        sys = _linearize_from_ev_cuda(win, model, ev, eps, opts, lm_state=state,
-                                      buffers=sys_buffers)
-        eps_new, idepth_new, step_sq = _solve_step_launch(win, sys, eps, idepth, None, state,
-                                                          buffers=step_buffers)
-        _evaluate_cuda(win, model, eps_new, idepth_new, lm_mask, opts, lm_state=state,
-                       out=ev_new)
-        _lm_phase(1, it, win, opts, eps_new, idepth_new, step_sq, ev_new, carried, ev, state,
-                  lm_log)
-    _lm_phase(2, opts.max_iterations + 1, win, opts, eps, idepth, None, ev, carried, ev, state,
-              lm_log)
+    check(window.lm_baseline, "lm_baseline", (k, n))
+    check(window.lm_outlier, "lm_outlier", (k, n), torch.bool)
+    check(window.lm_opt_count, "lm_opt_count", (k, n), torch.int32)
+    dtype, dev = window.eps.dtype, window.eps.device
+    offsets, total, tiles, blocks = _solve_loop_layout(k, n, c, opts.max_iterations, dtype)
+    workspace = torch.empty((total,), dtype=torch.uint8, device=dev)
+    base = workspace.data_ptr()
+    at = {name: [base + offset for offset in group] for name, group in offsets.items()}
+    # what the solved window keeps: the carried state and K11's outputs (its
+    # threshold stays in the workspace)
+    tq, tt, ab0, eps, idepth = (torch.empty(x.shape, dtype=x.dtype, device=dev) for x in (
+        window.t_lin_q, window.t_lin_t, window.affine0, window.eps, window.lm_idepth))
+    res_status = torch.empty((k, k, n), dtype=torch.int32, device=dev)
+    baseline = torch.empty((k, n), dtype=dtype, device=dev)
+    inliers = torch.empty((k, n), dtype=torch.int32, device=dev)
+    outlier = torch.empty((k, n), dtype=torch.bool, device=dev)
+    opt_count = torch.empty((k, n), dtype=torch.int32, device=dev)
+    energy = torch.empty((), dtype=torch.float32, device=dev)
+    count = torch.empty((), dtype=torch.int32, device=dev)
+    state, lm_log, thresh = at["loop"]
+    launched = (ctypes.c_int * len(_SOLVE_LOOP_COUNTED))()
+    try:
+        kernels.BA_SOLVE_LOOP(
+            window.t_lin_q, window.t_lin_t, window.affine0, window.eps, window.exposure,
+            window.lm_uv, window.lm_idepth, window.lm_patch, window.lm_valid, window.frame_valid,
+            window.frame_fixed, window.frame_marg, window.res_status, window.h_marg, window.b_marg,
+            window.energy_marg, window.channel_bank, 3 * c * h * w, window.lm_baseline,
+            window.lm_outlier, window.lm_opt_count, k, n, h, w, c, model.fx, model.fy, model.cx,
+            model.cy, model.width, model.height, int(opts.max_iterations),
+            int(opts.min_iterations), int(bool(opts.force_accept)),
+            float(opts.initial_regularizer), float(opts.function_tolerance),
+            float(opts.parameter_tolerance), float(opts.reg_decrease), float(opts.reg_increase),
+            float(opts.affine_reg_a), float(opts.affine_reg_b), float(opts.fixed_reg),
+            float(opts.idepth_nullspace_threshold), float(opts.scale_nullspace_reg),
+            _huber_sigma(c, opts), float(opts.huber_sigma), OUTLIER_QUANTILE,
+            int(opts.min_valid_reprojections), tq, tt, ab0, eps, idepth, *at["carried"],
+            *at["ev0"], *at["ev1"], *at["mask"], tiles, *at["linearize"], blocks, *at["step"],
+            state, lm_log, energy, count, thresh, res_status, baseline, inliers, outlier,
+            opt_count, ctypes.addressof(launched))
+    finally:
+        # the calls the C loop made to each entry, counted there, also up to a
+        # step that failed
+        for kernel, n_calls in zip(_SOLVE_LOOP_COUNTED, launched):
+            kernel.launches += n_calls
     if log is not None:
-        log.extend(lm_log_rows(lm_log))
+        start = offsets["loop"][1]
+        rows = opts.max_iterations + 2
+        log.extend(lm_log_rows(workspace[start:start + rows * LM_FIELDS * 4]
+                               .view(torch.int32).view(rows, LM_FIELDS)))
     out = window.replace(t_lin_q=tq, t_lin_t=tt, affine0=ab0, eps=eps, lm_idepth=idepth,
-                         res_status=status)
-    out = _with_point_status(out, _point_status_cuda(out, model, opts))
-    return out, state[LM_ENERGY:LM_ENERGY + 1].view(torch.float32)[0], state[LM_COUNT]
+                         res_status=res_status, lm_baseline=baseline, lm_inliers=inliers,
+                         lm_outlier=outlier, lm_opt_count=opt_count)
+    return out, energy, count
 
 
 def lm_log_rows(lm_log) -> list:
-    """The device loop's state log (int32 [rows, 8]) → one dict for the initial
+    """The device loop's state log (int32 [rows, 9]) → one dict for the initial
     state and one for every iteration that ran, as :func:`_solve_loop_plain`
     logs them.  Reads the device."""
     rows, last_it = [], -1

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from dsopp_tpu_torch import kernels
+from dsopp_tpu_torch.testing.profiling import profiled
 
 # scripts/gather_probe_pallas.py:35-38
 H, W = 480, 640
@@ -99,13 +100,13 @@ def device_us(fn, reps: int = 20, cold: bool = False) -> float:
     flush = torch.empty(L2_FLUSH_BYTES // 4, device="cuda") if cold else None
     skip = set()
     if cold:
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        with profiled([torch.profiler.ProfilerActivity.CUDA]) as prof:
             flush.fill_(1.0)
             torch.cuda.synchronize()
         skip = {e.key for e in prof.key_averages()}
     fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+    with profiled([torch.profiler.ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             if cold:
                 flush.fill_(1.0)

@@ -27,6 +27,7 @@ from dsopp_tpu_torch.core.camera import Pinhole
 from dsopp_tpu_torch.solvers import pba
 from dsopp_tpu_torch.testing import linearize_bits
 from dsopp_tpu_torch.testing.paths import card_line
+from dsopp_tpu_torch.testing.profiling import profiled
 
 FEJ_CALL = "    const ba::Fej f = ba::fej_point(cam, rel_s, u, v, d);\n"
 FEJ_STAND_IN = """    ba::Fej f;
@@ -77,7 +78,7 @@ def device_us(call, reps: int = 20) -> dict:
     for _ in range(3):
         call()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+    with profiled([torch.profiler.ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             call()
         torch.cuda.synchronize()

@@ -1,10 +1,13 @@
 """Where a tracked frame's time goes on the card, for the paths of
 ``dsopp_tpu_torch.testing.paths`` (the ones ``chip_smoke.py`` drives).
 
-    python -m dsopp_tpu_torch.testing.profile_track [out.json] [path ...]
+    python -m dsopp_tpu_torch.testing.profile_track [--parent-tree] [out.json] [path ...]
 
 ``path`` is ``standart``, ``fast``, ``dense``, ``masked``, ``ledger`` or
-``embedder`` (default: all six).  Per
+``embedder`` (default: all six).  ``--parent-tree``: the package imported is
+another tree's (this file run with that tree first on ``PYTHONPATH``); a
+stage whose function that tree lacks is not timed and is listed under
+``untimed_stages``.  Without it a missing function is an error.  Per
 path, after the 6-frame known-pose bootstrap:
 
 1. ``REPEATS`` plain runs over all frames: frames/s of each (host clock
@@ -13,9 +16,10 @@ path, after the 6-frame known-pose bootstrap:
 2. one run with synchronised stage timers around the align chain, the
    epipolar update, the flow statistic, the pyramid, the whole frontend and
    the keyframe backend with its parts (push, the new bank with its candidate
-   selection, activation, refinement, pairing, BA solve down to its five
-   kernels' calls, the marginalization policy and the ledger fold each with
-   its kernel's call, depth maps; each timer synchronises the device
+   selection, activation, refinement, pairing, BA solve down to its one C
+   call (``ba_solve_loop``: K7–K11, the iterations issued from C), the
+   marginalization policy and the ledger fold each with its kernel's call,
+   depth maps; each timer synchronises the device
    before and after, so the stages do not overlap and their sum exceeds an
    untimed frame).  The timers are hung on the modules' functions from here,
    so the tracker itself carries no instrumentation;
@@ -55,6 +59,7 @@ from dsopp_tpu_torch.solvers import pba, pose_alignment
 from dsopp_tpu_torch.testing.paths import (INIT_FRAMES, PATHS, bootstrap, card_line,
                                            closed_gate, path_config, path_frames, path_mask,
                                            render_path)
+from dsopp_tpu_torch.testing.profiling import profiled
 from dsopp_tpu_torch.tracker import device_loop, fused_keyframe, fused_tick, marginalization
 
 REPEATS, WINDOW = 3, 10
@@ -65,8 +70,9 @@ KERNEL_NAMES = ("pyramid_kernel", "pyramid_level_kernel", "align_level_kernel",
                 "epipolar_update_kernel", "epipolar_kernel",
                 "flow_kernel", "ba_evaluate_kernel", "pair_kernel",
                 "landmark_kernel", "schur_kernel", "reduce_kernel", "assemble_kernel",
-                "solve_kernel", "backsub_kernel", "norm_kernel", "decide_kernel", "commit_kernel",
-                "finish_kernel", "quantile_kernel", "status_kernel", "region_threshold_kernel",
+                "solve_kernel", "backsub_kernel", "norm_kernel", "carry_kernel", "decide_kernel",
+                "commit_kernel", "finish_kernel", "quantile_kernel", "status_kernel",
+                "region_threshold_kernel",
                 "tile_argmax_kernel", "rank_tiles_kernel", "activation_landmarks_kernel",
                 "activation_walk_kernel", "active_projections_kernel",
                 "candidates_kernel", "compact_kernel", "refine_kernel", "pair_slots_kernel",
@@ -110,12 +116,8 @@ STAGES = {
     (marginalization, "flags_device_cuda"): "kf_policy_kernel",   # K15p's call
     (pba, "_marginalize_cuda"): "kf_fold_kernel",                 # K15's call
     (device_loop, "build_frontend_state"): "kf_depth_maps",
-    # the wrappers the device-resident loop and the dispatchers both end in
-    (pba, "_evaluate_cuda"): "ba_evaluate",
-    (pba, "_linearize_from_ev_cuda"): "ba_linearize",
-    (pba, "_solve_step_launch"): "ba_solve_step",
-    (pba, "_lm_phase"): "ba_lm",
-    (pba, "_point_status_from_ev_cuda"): "ba_point_status",
+    # the BA solve's one C call (K7-K11 issued from C)
+    (kernels, "BA_SOLVE_LOOP"): "ba_solve_loop",
 }
 
 
@@ -139,18 +141,28 @@ def run_frames(pipe, seq, first, last):
 
 class StageTimers:
     """Wraps the functions of ``STAGES`` with synchronised timers; with
-    ``peak``, each call also reads the device memory's peak so far."""
+    ``peak``, each call also reads the device memory's peak so far.  A stage
+    whose function the package lacks raises, or, with ``missing_ok`` (a
+    parent tree), is left untimed and named in ``untimed``."""
 
-    def __init__(self, peak=False):
+    def __init__(self, peak=False, missing_ok=False):
         self.ms = defaultdict(float)
         self.calls = defaultdict(int)
         self.saved = []
+        self.untimed = []
         self.track_peak = peak
+        self.missing_ok = missing_ok
         self.peak = (None, 0)     # (the innermost stage that reached the run's peak, bytes)
 
     def __enter__(self):
         for (module, name), stage in STAGES.items():
-            fn = getattr(module, name)
+            fn = getattr(module, name, None)
+            if fn is None:
+                if not self.missing_ok:
+                    self.__exit__()
+                    raise AttributeError(f"stage {stage}: {module.__name__} has no {name}")
+                self.untimed.append(stage)
+                continue
             self.saved.append((module, name, fn))
             setattr(module, name, self.wrap(fn, stage))
         return self
@@ -257,7 +269,7 @@ class IterationLog:
                 for key, (n, us, it) in sorted(groups.items())}
 
 
-def profile_path(name):
+def profile_path(name, parent_tree=False):
     seq = render_path(name)
     last = path_frames(name)
     out = dict(path=name, frames=last - INIT_FRAMES, runs=[])
@@ -276,18 +288,19 @@ def profile_path(name):
     warm = INIT_FRAMES + 10
     run_frames(pipe, seq, INIT_FRAMES, warm)
     split = last - 2 * WINDOW
-    with StageTimers() as timers:
+    with StageTimers(missing_ok=parent_tree) as timers:
         _, kf, esc = run_frames(pipe, seq, warm, split)
     frames = split - warm
     per_frame = ("frontend", "pyramid", "align_chain", "epipolar", "flow")
     out["stages_ms"] = {stage: timers.ms[stage] / (frames if stage in per_frame else max(kf, 1))
-                        for stage in STAGES.values()}
+                        for stage in STAGES.values() if stage not in timers.untimed}
+    out["untimed_stages"] = timers.untimed
     out["stage_calls"] = dict(timers.calls)
     out["stage_window"] = dict(frames=frames, keyframes=kf, escalations=esc)
 
     before = kernels.counts()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+    with profiled([torch.profiler.ProfilerActivity.CPU,
+                   torch.profiler.ProfilerActivity.CUDA]) as prof:
         with IterationLog() as log:
             _, kf, _ = run_frames(pipe, seq, split, split + WINDOW)
     k3 = sorted((e for e in prof.events() if "align_level_kernel" in e.name
@@ -351,7 +364,7 @@ def profile_path(name):
 
     del pipe, regular, escalated
     torch.cuda.reset_peak_memory_stats()
-    with StageTimers(peak=True) as peaks:
+    with StageTimers(peak=True, missing_ok=parent_tree) as peaks:
         run_frames(start(seq, out["path"]), seq, INIT_FRAMES, last)
     out["peak_memory_stage"] = dict(stage=peaks.peak[0], bytes=peaks.peak[1])
     return out
@@ -367,10 +380,11 @@ def main(argv):
     # the sensor path reads its frames from a camera's files (chip_smoke.py
     # [sensor]); behind the camera it runs the standart path's stages
     names = [name for name in PATHS if name != "sensor"]
-    out_file = next((a for a in argv[1:] if a not in names), None)
-    for name in [a for a in argv[1:] if a in names] or names:
+    args = [a for a in argv[1:] if a != "--parent-tree"]
+    out_file = next((a for a in args if a not in names), None)
+    for name in [a for a in args if a in names] or names:
         torch.cuda.reset_peak_memory_stats()
-        res = profile_path(name)
+        res = profile_path(name, parent_tree="--parent-tree" in argv[1:])
         res["card"] = card
         results.append(res)
         print(json.dumps(res), flush=True)

@@ -12,9 +12,13 @@ point's 17 slots (13 frames, 24 landmarks), 120×160:
 * ``_point_status_kernel`` and ``mean_square_flows`` (1e-12);
 * the staged algorithms of two kernels, modelled on the host before their
   first build: K10's predicated loop (a fixed number of iterations, every part
-  skipped once done, select-commit of the trial) against the host-driven
+  skipped once done, the trial written into the evaluation buffer that does
+  not hold the carried evaluation, an accept flipping the carried-buffer word
+  and committing the small state by selection) against the host-driven
   ``_solve_loop_plain``, state by state; K11's radix select on float bits
-  against sorted order statistics and ``np.nanquantile``.
+  against sorted order statistics and ``np.nanquantile``;
+* the launch counts of the one-call solve's fixed sequence
+  (``solve_loop_launches``) at several ``max_iterations``.
 """
 
 import dataclasses
@@ -149,7 +153,12 @@ def test_solve_loop_matches(solved):
 def _predicated_loop(window, model, opts):
     """K10's staged algorithm on the host: ``opts.max_iterations`` iterations
     whatever happens, every part skipped once done (the FEJ cache also unless
-    the last step relinearized), the trial committed by selection."""
+    the last step relinearized).  Two evaluation buffers and the carried-buffer
+    word (``LM_CARRIED``): the trial goes into the buffer the word does not
+    name, K8's input is read through the word, and an accept flips it; the
+    small state (eps, idepth, lin_idepth, statuses) is committed by selection.
+    At every iteration the carried buffer must equal the evaluation that a
+    select-commit of the whole trial (the design before the word) carries."""
     lm_mask = tpba.active_lm_mask(window)
     ledger_empty = bool(torch.max(torch.abs(window.h_marg)) == 0.0)
     tq, tt, ab0 = window.t_lin_q.clone(), window.t_lin_t.clone(), window.affine0.clone()
@@ -161,6 +170,7 @@ def _predicated_loop(window, model, opts):
                               res_status=status)
 
     ev = tpba._evaluate_plain(win(), model, eps, idepth, lm_mask, opts)
+    buffers, carried = [ev, None], 0        # the initial evaluation is buffer 0's
     fej = tpba._fej_cache_plain(win(), model)
     e, n = tpba._energy_from_ev(win(), ev, eps, opts)
     st = dict(energy=e, lam=opts.initial_regularizer, count=n, it=0, accept=False,
@@ -172,10 +182,11 @@ def _predicated_loop(window, model, opts):
             continue
         if st["relin"]:
             fej = tpba._fej_cache_plain(win(), model)
-        sys = tpba._linearize_from_ev_plain(win(), fej, ev, eps, opts)
+        sys = tpba._linearize_from_ev_plain(win(), fej, buffers[carried], eps, opts)
         eps_new, idepth_new, pose_sq, d_sq = tpba._solve_step_plain(
             win(), sys, eps, idepth, st["lam"], opts)
         ev_new = tpba._evaluate_plain(win(), model, eps_new, idepth_new, lm_mask, opts)
+        buffers[1 - carried] = ev_new
         e_new, n_new = tpba._energy_from_ev(win(), ev_new, eps_new, opts)
         ftol = bool(torch.abs(st["energy"] - e_new) / torch.clamp(st["energy"], min=1e-30)
                     < opts.function_tolerance)
@@ -197,12 +208,17 @@ def _predicated_loop(window, model, opts):
         if relin:
             t_new = SE3(tq, tt) @ SE3.exp(eps_new[:, :6])
             tq, tt, ab0 = t_new.q, t_new.t, ab0 + eps_new[:, 6:]
-        # commit: select the trial over the carried state
+        if accept:
+            carried = 1 - carried
+        # commit: select the trial's small state over the carried one; the
+        # statuses are the candidates of the buffer the word now names
         eps = torch.where(acc, torch.zeros_like(eps) if relin else eps_new, eps)
         idepth = torch.where(acc, idepth_new, idepth)
         lin_idepth = torch.where(torch.tensor(relin), idepth_new, lin_idepth)
-        status = torch.where(acc, ev_new.status_candidate, status)
+        status = torch.where(acc, buffers[carried].status_candidate, status)
         ev = tpba.Evaluation(*(torch.where(acc, new, old) for new, old in zip(ev_new, ev)))
+        for name, a, b in zip(tpba.Evaluation._fields, buffers[carried], ev):
+            assert torch.equal(a, b), name
         log.append(dict(st, energy=float(st["energy"]), count=int(st["count"])))
     out = window.replace(t_lin_q=tq, t_lin_t=tt, affine0=ab0, eps=eps, lm_idepth=idepth,
                          res_status=status)
@@ -226,6 +242,24 @@ def test_predicated_loop_matches_the_host_driven_loop(problem, solved):
         assert any(row["relin"] for row in log_p)
     else:
         assert not any(row["relin"] for row in log_p)
+
+
+@pytest.mark.parametrize("max_iterations", [0, 1, 3, 7, 12])
+def test_solve_loop_launch_counts(max_iterations):
+    """The one-call solve's fixed sequence: K7 on the initial state, once an
+    iteration and at the solved state; K8 and K9 once an iteration; K10's
+    init, steps and finish; K11 once.  The tracker's marginalization pass
+    adds one K7 and one K8 a keyframe outside the call: at the standart path
+    (12 keyframes, 7 iterations) 120, 96, 84, 108 and 12."""
+    m = max_iterations
+    got = tpba.solve_loop_launches(m)
+    assert got == {"ba_evaluate": m + 2, "ba_linearize_schur": m, "ba_solve_step": m,
+                   "ba_lm": m + 2, "ba_point_status": 1}
+    if m == tpba.PBAOptions().max_iterations:
+        marg = {"ba_evaluate": 1, "ba_linearize_schur": 1}
+        path = {name: 12 * (n + marg.get(name, 0)) for name, n in got.items()}
+        assert path == {"ba_evaluate": 120, "ba_linearize_schur": 96, "ba_solve_step": 84,
+                        "ba_lm": 108, "ba_point_status": 12}
 
 
 def test_forced_reject_ends_the_loop(problem):

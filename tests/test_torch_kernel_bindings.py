@@ -1,0 +1,86 @@
+"""The ctypes bindings of ``dsopp_tpu_torch/kernels.py`` against the C entry
+points of ``dsopp_tpu_torch/csrc``: each :class:`kernels.Kernel`'s argument
+types, one by one, must be those of its ``extern "C"`` definition (a pointer
+for every ``T*``, ``c_int`` for ``int``, ``c_float`` for ``float``,
+``c_double`` for ``double``).  The sources are read as text: nothing is
+compiled, so a binding that would pass a float where the entry takes a
+pointer fails here before a card runs it.  (The entries ``ba_solve_loop``
+calls from C are declared in ``csrc/ba_entries.cuh``, which their defining
+sources include, so the compiler holds those declarations to their
+definitions.)  Also the step names of ``ba_solve_loop``'s error code against
+``csrc/ba_lm.cu::SolveStep``, and the order of its host array of launch
+counts (``pba._SOLVE_LOOP_COUNTED``) against the calls it counts.
+"""
+
+import ctypes
+import re
+
+import pytest
+
+from dsopp_tpu_torch import kernels
+from dsopp_tpu_torch.solvers import pba
+
+KINDS = {"int": ctypes.c_int, "float": ctypes.c_float, "double": ctypes.c_double}
+
+
+def _types(params):
+    """A C parameter list → its argument types."""
+    types = []
+    for param in params.split(","):
+        decl = re.sub(r"\b(const|unsigned|__restrict__)\b", " ", param).strip()
+        if "*" in decl:
+            types.append(ctypes.c_void_p)
+        else:
+            types.append(KINDS[decl.split()[0]])
+    return types
+
+
+def _definitions():
+    """[(symbol, parameter list)] of every extern "C" definition of csrc/*.cu."""
+    pattern = re.compile(r'extern "C" int (\w+)\(([^)]*)\)\s*\{', re.S)
+    return [m.groups() for src in sorted(kernels.CSRC.glob("*.cu"))
+            for m in pattern.finditer(src.read_text())]
+
+
+def _definition(symbol):
+    """The argument types of ``symbol``'s extern "C" definition."""
+    found = [params for name, params in _definitions() if name == symbol]
+    assert len(found) == 1, f"{symbol}: {len(found)} definitions"
+    return _types(found[0])
+
+
+@pytest.mark.parametrize("kernel", kernels.ALL, ids=lambda kernel: kernel.symbol)
+def test_binding_matches_the_c_entry(kernel):
+    assert kernel.argtypes == _definition(kernel.symbol)
+
+
+def _enum(src, name, prefix):
+    """{member: value} of the C enum ``name`` in ``src``."""
+    body = src[src.index(f"enum {name} {{"):]
+    body = body[:body.index("};")]
+    return {m: int(v) for m, v in re.findall(rf"({prefix}\w+) = (\d+),", body)}
+
+
+def test_solve_loop_steps_match_the_source():
+    src = (kernels.CSRC / "ba_lm.cu").read_text()
+    values = list(_enum(src, "SolveStep", "kStep").values())
+    assert values == list(range(len(kernels.BA_SOLVE_LOOP.steps)))
+
+
+def test_solve_loop_counts_follow_the_calls_they_count():
+    """In ``ba_solve_loop`` every entry call is followed by the increment of
+    one count, each count belongs to one entry, and that entry's place in
+    ``pba._SOLVE_LOOP_COUNTED`` is the count's index."""
+    src = (kernels.CSRC / "ba_lm.cu").read_text()
+    counts = _enum(src, "SolveCount", "kCount")
+    body = src[src.index('extern "C" int ba_solve_loop('):]
+    calls = re.findall(r"err = (\w+)\(", body)
+    pairs = re.findall(r"err = (\w+)\([^;]*;\s*if \(err\) return failed\(\w+, err\);"
+                       r"\s*\+\+launched\[(\w+)\];", body)
+    # one call site a step past the argument check, each counted at once
+    assert len(pairs) == len(calls) == len(kernels.BA_SOLVE_LOOP.steps) - 1, (calls, pairs)
+    order = [kernel.symbol for kernel in pba._SOLVE_LOOP_COUNTED]
+    for symbol, count in pairs:
+        assert counts[count] == order.index(symbol), (symbol, count)
+    assert {count for _, count in pairs} == set(counts)
+    assert sorted(counts.values()) == list(range(len(pba._SOLVE_LOOP_COUNTED)))

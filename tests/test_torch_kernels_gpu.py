@@ -34,7 +34,12 @@ and in the loop-state mode, two runs equal to the bit, and without ledger and
 Schur term (an exact assembly) equal to the bit to the column-by-column LU in
 f64; K10 the same accept / done / relinearize sequence as the host-driven
 loop, final energy 1e-4 relative, poses 1e-4 rad and 1e-4 m, statuses equal on
-≥ 99.9 % of live groups, no host synchronisation inside; K11 threshold 1e-6
+≥ 99.9 % of live groups, no host synchronisation inside; the whole solve in
+one C call (``ba_solve_loop``) under those gates on the small and the dense
+window with an empty and a filled ledger, its launches added to K7-K11's
+counts, two calls equal to the bit, its wrapper allocations and one C call,
+and its outputs on ``testing/solve_bits.py``'s inputs equal to the tree's
+whose loop was launched from Python, digest by digest; K11 threshold 1e-6
 relative, statuses, counts and flags equal outside the 1e-6 band around the
 threshold; K12 positions, validity and slot order equal and grad2 equal to the
 bit, with and without a mask; K13 n_active equal, masks equal on ≥ 99.9 % of
@@ -85,6 +90,7 @@ from dsopp_tpu_torch.features import extractor, pyramid
 from dsopp_tpu_torch.solvers import pba
 from dsopp_tpu_torch.solvers import pose_alignment as pa
 from dsopp_tpu_torch.testing import align_trace, gather_probe, parity, render_sequence
+from dsopp_tpu_torch.testing.profiling import profiled
 from dsopp_tpu_torch.tracker import activation as act
 from dsopp_tpu_torch.tracker import depth_estimation as de
 from dsopp_tpu_torch.tracker import depth_map as dm
@@ -504,6 +510,87 @@ def test_ba_point_status_kernel_matches_plain(tracked):
     assert err["baseline"] <= 1e-6, err
 
 
+def _ledger_case(win, model, opts, eps, idepth, lm_mask, ledger):
+    """``win`` with an empty ledger, or a filled one of its own scale."""
+    if ledger == "filled":
+        ev = pba._evaluate(win, model, eps, idepth, lm_mask, opts)
+        return parity.scaled_ledger(win, pba._linearize_from_ev(win, model, ev, eps, opts))
+    return win.replace(h_marg=torch.zeros_like(win.h_marg), b_marg=torch.zeros_like(win.b_marg),
+                       energy_marg=torch.zeros_like(win.energy_marg))
+
+
+@pytest.mark.parametrize("ledger", ["empty", "filled"])
+@pytest.mark.parametrize("window", list(WINDOWS))
+def test_one_call_solve_matches_plain_loop(request, window, ledger):
+    """The whole solve in one C call (``ba_solve_loop``) against the
+    host-driven plain loop under K10's gates; the fixed sequence's launches
+    added to K7-K11's counts; two calls equal to the bit."""
+    tracker, _ = request.getfixturevalue(WINDOWS[window])
+    win, eps, idepth, lm_mask = _ba_problem(tracker)
+    opts, model = tracker.pba_opts, tracker.models[0]
+    win = _ledger_case(win.replace(eps=eps, lm_idepth=idepth), model, opts, eps, idepth,
+                       lm_mask, ledger)
+    before = kernels.counts()
+    log_k, log_p = [], []
+    res_k = pba._solve_loop_cuda(win, model, opts, log=log_k)
+    launched = {name: n - before[name] for name, n in kernels.counts().items()
+                if n != before[name]}
+    assert launched == {**pba.solve_loop_launches(opts.max_iterations), "ba_solve_loop": 1}
+    res_p = pba._solve_loop_plain(win, model, opts, log=log_p)
+    err = parity.solve_loop_errors(res_k, res_p, log_k, log_p)
+    assert err["same_flags"], (log_k, log_p)
+    assert err["accepts"] >= 1 and (err["relins"] > 0) == (ledger == "empty"), err
+    assert err["energy"] <= 1e-4 and err["log_energy"] <= 1e-4, err
+    assert err["rotation"] <= 1e-4 and err["translation"] <= 1e-4, err
+    assert err["status_agree"] >= 0.999, err
+    again = pba._solve_loop_cuda(win, model, opts)
+    for name in ("t_lin_q", "t_lin_t", "affine0", "eps", "lm_idepth", "res_status",
+                 "lm_baseline", "lm_inliers", "lm_outlier", "lm_opt_count"):
+        assert torch.equal(getattr(res_k[0], name), getattr(again[0], name)), name
+    assert torch.equal(res_k[1], again[1]) and torch.equal(res_k[2], again[2])
+
+
+def test_one_call_solve_wrapper_allocates_and_calls_once(tracked, monkeypatch):
+    """Under the profiler the wrapper runs no torch operator but
+    allocations, and it makes one C call (``ba_solve_loop``): no other
+    kernel entry is called from Python."""
+    tracker, _ = tracked
+    win, eps, idepth, _ = _ba_problem(tracker)
+    win, model, opts = win.replace(eps=eps, lm_idepth=idepth), tracker.models[0], tracker.pba_opts
+    pba._solve_loop_cuda(win, model, opts)
+    assert _aten_ops(pba._solve_loop_cuda, win, model, opts) <= ALLOCATION_OPS
+    calls, call = [], kernels.Kernel.__call__
+
+    def recorded(self, *args):
+        calls.append(self.name)
+        return call(self, *args)
+
+    monkeypatch.setattr(kernels.Kernel, "__call__", recorded)
+    pba._solve_loop_cuda(win, model, opts)
+    assert calls == ["ba_solve_loop"]
+
+
+def test_one_call_solve_reads_nothing_on_the_host(dense_tracked):
+    """The one-call solve with every host synchronisation an error, at the
+    dense operating point, with the window's own ledger."""
+    tracker, _ = dense_tracked
+    win, eps, idepth, _ = _ba_problem(tracker)
+    win, model, opts = win.replace(eps=eps, lm_idepth=idepth), tracker.models[0], tracker.pba_opts
+    res, energy, count = _no_host_reads(pba._solve_loop_cuda, win, model, opts)
+    assert int(count) > 0 and bool(torch.isfinite(energy))
+    assert bool(torch.isfinite(res.eps).all())
+
+
+def test_solve_matches_parent_digests():
+    """The whole solve on ``testing/solve_bits.py``'s inputs (standart, dense
+    and embedder windows, each with an empty and a filled ledger), digest by
+    digest, against the tree whose loop was launched from Python."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from dsopp_tpu_torch.testing import solve_bits
+    assert solve_bits.check_against_parent(solve_bits.run(solve_bits.make_inputs())) == []
+
+
 def _no_host_reads(fn, *args, **kwargs):
     """``fn`` with every host synchronisation an error."""
     torch.cuda.synchronize()
@@ -786,7 +873,7 @@ def test_marg_policy_wrapper_is_one_call(tracked, marg_windows):
     marg.flags_device_cuda(*args)
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    with profiled(acts) as prof:
         marg.flags_device_cuda(*args)
         torch.cuda.synchronize()
     kernels_run = [e.name for e in prof.events()
@@ -1032,9 +1119,7 @@ def test_epipolar_outputs_match_the_parent_chain():
 def test_epipolar_kernel_is_deterministic_and_one_call(scene):
     """Two runs equal to the bit; the wrapper runs allocations only on the
     host and one launch, and reads nothing on the host (chip_smoke counts
-    its device kernels under the profiler).  Last in the file: run before
-    the K15p one-call test, it left that test's profiler session without
-    device events on the card."""
+    its device kernels under the profiler)."""
     args = _epipolar_case(scene)
     a = de.estimate_depths_cuda(*args)
     before = kernels.EPIPOLAR.launches
