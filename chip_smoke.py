@@ -38,14 +38,22 @@ Phases, one line each with its time:
    replaced, its outputs equal to the bit to the plain geometry and update
    on its own relative poses and sweep, those poses within
    ``parity.KERNEL_POSE_ULPS`` of torch's composition, two runs equal to the
-   bit, its wrapper allocations and one kernel with host reads an error.  The
+   bit, its wrapper allocations and one kernel with host reads an error.
+   K5 in both of its modes: the flows alone (1e-5 relative), and with the
+   reliability gate and the keyframe decision on a grid of their inputs
+   (the gate, the state's next values and the decision equal to the bit to
+   the plain decision on the kernel's flows, host reads an error, the
+   wrapper allocations only and one kernel a call).  The
    keyframe backend's kernels K12–K14 and K16 are held on both windows too,
    with the next frame pushed as the newest keyframe (timed at standart, the
    dense times on a line of their own), K12 with and without a CameraMask,
-   and each runs there with host synchronisation an error; K13 and K14's
-   refinement also run twice (equal to the bit), their wrappers under the
-   profiler (the aten operators they run, allocations only, and their
-   kernels a call) with the profiler's device time, at both windows.  K15p and K15 are
+   and each runs there with host synchronisation an error; K14's pairing
+   with the refinement's glue inside and without a refinement, equal entry
+   by entry to the plain version, the caller's window and banks untouched;
+   K13, K14's refinement and its pairing also run twice (equal to the bit),
+   their wrappers under the profiler (the aten operators they run,
+   allocations only, and their kernels a call: the pairing one kernel, no
+   copy, no memset) with the profiler's device time, at both windows.  K15p and K15 are
    held on both BA windows, with an empty and a filled ledger: the policy at
    the configuration's window sizes and with the window one frame too large
    (flags, outliers and the permutation equal; where the two best eq (20)
@@ -128,20 +136,20 @@ Phases, one line each with its time:
    each tick of the exposure run is also replayed from the card's state
    before it by the plain versions on the CPU (same keyframe decisions,
    poses within ``E2E_REPLAY_POSE_TOL``);
-13. c1-bits — the single-channel outputs of K1, K3, K7, K8, K10 and K11 on
-   ``testing/c1_bits.py``'s inputs equal, digest by digest, those of the tree
-   before the channel axis;
-14. k4-bits — K4's outputs on ``testing/epipolar_bits.py``'s inputs (the BA
-   parity windows' banks against the next frame) equal, digest by digest,
-   those of the chain it replaced (torch's relative poses and geometry, the
-   sweep kernel, torch's update), or that chain's on this kernel's relative
-   poses (a pose tie, named);
-15. solve-bits — the windowed BA's whole solve, one C call
-   (``csrc/ba_lm.cu::ba_solve_loop``), on ``testing/solve_bits.py``'s inputs
-   (the standart, dense and embedder parity windows, each with an empty and
-   a filled ledger): every field of the window it returns, its energy, count
-   and decoded log, and the inputs, equal digest by digest to those of the
-   tree whose loop was launched from Python.
+13. bits — each case of ``testing/bits.py`` (one line each, ``[<case>-bits]``)
+   equal, digest by digest, to the tree before its redesign: ``c1``, the
+   single-channel outputs of K1, K3, K7, K8, K10 and K11 (the tree before the
+   channel axis); ``k4``, K4's outputs on the BA parity windows' banks against
+   the next frame (the chain it replaced: torch's relative poses and
+   geometry, the sweep kernel, torch's update), or that chain's on this
+   kernel's relative poses (a pose tie, named); ``solve``, the windowed BA's
+   whole solve, one C call (``csrc/ba_lm.cu::ba_solve_loop``), on the
+   standart, dense and embedder parity windows, each with an empty and a
+   filled ledger (the tree whose loop was launched from Python); ``frame``,
+   K5 with the keyframe decision (a grid of the decision's inputs on four
+   flow sets) and K14's pairing with the refinement's glue, with and without
+   the refinement (the flows kernel and the decision in torch; the glue in
+   torch, the window's clones and the pairing kernel).
 
 The windowed-BA solve is one C call on every path: the wrapper checks the
 window, allocates its buffers with ``torch.empty`` and calls
@@ -151,11 +159,14 @@ counts.  The parity phase's K10 row times K10's control alone (its init and
 step phases, one C call each); the "K10 whole solve" line times the one-call
 solve against the host-driven plain loop.
 
-Each track line is preceded by one line with, per keyframe, the active
-landmarks the activation counted, the points it activated and the spacing
-``min_distance`` after it; it prints the largest ratio of chunk 0's rmse to
-the last reliable one (the re-track gate's quantity), or "gate off" on a
-path without the re-track.
+Each track line gives the path's host synchronisations a frame, its ticks'
+and its bookkeeping's (counted by PyTorch's sync debug mode "warn" outside
+the spans below, where they are errors; the line after it names the lines
+of code that made them), and is preceded by one line with, per keyframe,
+the active landmarks the activation counted, the points it activated and
+the spacing ``min_distance`` after it; it prints the largest ratio of chunk
+0's rmse to the last reliable one (the re-track gate's quantity), or "gate
+off" on a path without the re-track.
 
 On every path the windowed-BA solve, and the span from the marginalization
 policy through the ledger fold, run under PyTorch's sync debug mode set to
@@ -168,11 +179,13 @@ ba_linearize_schur, with no launch of its own), the card line, and as the last l
 line; so does a machine without a CUDA card.
 """
 
+import collections
 import dataclasses
 import json
 import os
 import sys
 import time
+import warnings
 
 import numpy as np
 
@@ -258,8 +271,15 @@ OPS_POLICY_LANDMARK = 8     # K15p: the live count and the triage of one landmar
 OPS_POLICY_PAIR = 12        # K15p: one distance and reciprocal of the eq (20) sums
 OPS_EIGEN = 9               # K15: x n^3 for a symmetric eigen-decomposition with vectors
 OPS_PHOTOMETRIC_PIXEL = 10  # K18: clip, convert, frac, 1 - frac, two products, sum, floor, divide
-# K13 and K14's refinement: what their wrappers may run on the host
+# K5, K13 and K14: what their wrappers may run on the host
 ALLOCATION_OPS = ("aten::empty", "aten::empty_strided")
+# K5's decision cases (rmse, rmse_last0, kf_rmse, num_valid, force): reliable or
+# not, the strategy memory unset or on either side of MAX_EXCESS_ENERGY, no
+# valid point, forced
+DECISION_CASES = ((1.0, 1.0, 0.5, 50, False), (1.0, 1.0, 0.2, 50, False),
+                  (1.0, 1.0, 0.25, 50, False), (1.0, 1.0, -1.0, 50, False),
+                  (3.0, 1.0, 0.2, 50, False), (1.0, 1.0, 0.2, 0, False),
+                  (1.0, 1.0, 0.5, 50, True), (2.5, 1.0, 0.5, 50, False))
 # tests/tracker/test_monocular_e2e.py's gates: keyframes, active landmarks, the
 # unaligned per-frame error of the plain run, trajectory entries, and the
 # RMSE of the exposure-oscillation run
@@ -338,6 +358,28 @@ def wrapper_work(torch, fn):
     ops = sorted(e.name for e in prof.events() if e.name.startswith("aten::"))
     device = sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
     return ops, device
+
+
+def only_kernel(torch, fn, kernel, reps=10):
+    """``reps`` calls of ``fn`` under the profiler → (device records, calls),
+    each record checked to be ``kernel``'s (no copy, no memset, no torch
+    kernel), at most one a call.  The profiler can drop the first records of a
+    session (``testing/profiling.py``), so the calls after them carry the
+    proof, and records over calls can read below 1."""
+    from dsopp_tpu_torch.testing.profiling import profiled
+
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with profiled(acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    require(0 < len(names) <= reps and all(kernel in name for name in names),
+            f"{kernel}: {len(names)} device records in {reps} calls, other than the kernel:"
+            f" {sorted({name for name in names if kernel not in name})}")
+    return len(names), reps
 
 
 def fmt_us(us):
@@ -843,14 +885,25 @@ def parity_epipolar(seq, tracker, frame, torch, rows, label):
 
 def parity_flow(seq, tracker, frame, torch, rows, label):
     """K5 — the flow set of ``tracker`` at the pose of frame ``frame`` (the
-    next one).  The kernel's row of ``rows`` is the standart one."""
+    next one), in both of the kernel's modes: the flows alone (the
+    bootstrap's) within 1e-5 relative of the plain version; and with the
+    reliability gate and the keyframe decision (the regular tick's), on
+    ``DECISION_CASES`` at the paths' strategy factors and at the one that
+    puts the flow term on the threshold, with host synchronisation an error:
+    the flows equal to the bit to the flows-alone mode's, the gate, the
+    state's next rmse_last0 and kf_rmse and the decision equal to the bit to
+    the plain decision (torch on the card) on the kernel's flows, the rmse and
+    the frame's matrix copied; the wrapper under the profiler allocations
+    only, one kernel and no copy a call, two runs equal to the bit.  The
+    kernel's row of ``rows`` is the standart one, the decision's mode."""
     from dsopp_tpu_torch.core.lie import SE3
     from dsopp_tpu_torch.testing import parity as par
     from dsopp_tpu_torch.tracker import depth_map as dm
 
     t_t_kf = seq.pose(frame, torch.float32, "cuda").inverse() @ tracker._kf_pose()
-    args = (tracker.flow_points, tracker.models[0],
-            SE3(t_t_kf.q.contiguous(), t_t_kf.t.contiguous()))
+    t_t_kf = SE3(t_t_kf.q.contiguous(), t_t_kf.t.contiguous())
+    model = tracker.models[0]
+    args = (tracker.flow_points, model, t_t_kf)
     out_k, out_p = dm.mean_square_flows_cuda(*args), dm.mean_square_flows_plain(*args)
     pts = tracker.flow_points
     n_valid = int((pts.valid & (pts.idepth > 1e-6)).sum())
@@ -861,14 +914,54 @@ def parity_flow(seq, tracker, frame, torch, rows, label):
     require(n_valid > 100 and float(out_p[0]) > 0 and float(out_p[1]) > 0,
             f"K5 ({label}): the flow set is empty or does not move")
     require(max(err) <= 1e-5, f"K5 ({label}): relative error {max(err):.3g} above 1e-5")
-    b5 = bound(nbytes(pts.uv, pts.idepth, pts.valid) + 36, OPS_FLOW_POINT * n_valid)
+
+    mat = t_t_kf.inverse().matrix().contiguous()
+    f32 = dict(dtype=torch.float32, device="cuda")
+    edge = 1.0 / (dm.MAX_SHIFT_WEIGHT * float(out_k[0])
+                  + dm.MAX_SHIFT_NO_ROT_WEIGHT * float(out_k[1]))
+    flows = torch.stack(out_k)
+    decided = needs = 0
+    for rmse, rmse_last0, kf_rmse, num_valid, force in DECISION_CASES:
+        for factor in (1.25, 2.0, 3.0, edge):
+            dargs = (*args, mat, torch.tensor(rmse, **f32),
+                     torch.tensor(num_valid, dtype=torch.int32, device="cuda"),
+                     torch.tensor(rmse_last0, **f32), torch.tensor(kf_rmse, **f32), factor, force)
+            stats = no_host_reads(torch, dm.frame_statistics_cuda, *dargs)
+            want = dm.keyframe_decision_plain(stats[0], stats[1], *dargs[4:])
+            got = (stats[dm.STAT_RELIABLE] != 0, stats[dm.STAT_RMSE_LAST0],
+                   stats[dm.STAT_KF_RMSE], stats[dm.STAT_NEED] != 0)
+            require(torch.equal(stats[:2], flows),
+                    f"K5 ({label}): the flows differ between the kernel's two modes")
+            require(all(torch.equal(a, b.reshape(())) for a, b in zip(got, want)),
+                    f"K5 ({label}): the decision differs from the plain one at {rmse},"
+                    f" {rmse_last0}, {kf_rmse}, {num_valid}, {factor}, {force}: {got} {want}")
+            require(torch.equal(stats[dm.STAT_MATRIX:], mat.reshape(16))
+                    and float(stats[dm.STAT_RMSE]) == rmse,
+                    f"K5 ({label}): the rmse or the frame's matrix was not copied")
+            decided += 1
+            needs += int(stats[dm.STAT_NEED] != 0)
+    again = dm.frame_statistics_cuda(*dargs)
+    require(torch.equal(stats, again), f"K5 ({label}): two runs differ")
+    ops, _ = wrapper_work(torch, lambda: dm.frame_statistics_cuda(*dargs))
+    require(set(ops) <= set(ALLOCATION_OPS), f"K5 ({label}): the wrapper runs {ops}")
+    records, calls = only_kernel(torch, lambda: dm.frame_statistics_cuda(*dargs), "flow_kernel")
+    us = device_us(torch, lambda: dm.frame_statistics_cuda(*dargs))
+    log(f"  K5 with the decision ({label}): {decided} cases equal to the plain decision on the"
+        f" kernel's flows ({needs} keyframes), the flows equal to the flows-alone mode's;"
+        f" wrapper {len(ops)} aten ops ({', '.join(sorted(set(ops)))}), the kernel alone on the"
+        f" device ({records} records in {calls} calls), {fmt_us(us)}")
+    # the points, the decision's five inputs, the frame's matrix in; 23 values out
+    b5 = bound(nbytes(pts.uv, pts.idepth, pts.valid) + 28 + 20 + 64 + 4 * dm.STATS,
+               OPS_FLOW_POINT * n_valid)
     log_bound("flow_statistic", label, b5)
     if label != "standart":
         return
     rows["flow_statistic"] = dict(
         max_abs_err=max(float((a - b).abs()) for a, b in zip(out_k, out_p)),
-        ms=cuda_ms(lambda: dm.mean_square_flows_cuda(*args)),
-        plain_ms=cuda_ms(lambda: dm.mean_square_flows_plain(*args)), **b5, library_ms=None)
+        ms=cuda_ms(lambda: dm.frame_statistics_cuda(*dargs)),
+        plain_ms=cuda_ms(lambda: dm.frame_statistics_plain(*dargs)), **b5, library_ms=None,
+        device_us=us, wrapper_aten_ops=len(ops), device_kernels=records / calls,
+        flows_alone_ms=cuda_ms(lambda: dm.mean_square_flows_cuda(*args)))
 
 
 def parity_keyframe(seq, tracker, frame, torch, rows, label):
@@ -1014,28 +1107,56 @@ def parity_keyframe(seq, tracker, frame, torch, rows, label):
         **bound(nbytes(activate) + err["selected"] * 48 + sampled + 3 * nbytes(activate)
                 + nbytes(ref_k[0]), OPS_REFINE_POINT * points), **extra14)
 
-    # ... and the pairing with free landmark slots, on the plain refinement
+    # ... and the pairing with free landmark slots, the refinement's glue inside:
+    # on the plain refinement, and without a refinement on the plain activation
     idepth, keep, selected = ref_p
-    delete = delete | (selected & ~keep)
-    imm2 = imm._replace(idepth_min=torch.where(keep, idepth, imm.idepth_min),
-                        idepth_max=torch.where(keep, idepth, imm.idepth_max))
-    sc_k = no_host_reads(torch, act._activation_scatter_cuda, win, imm2, keep, delete)
-    sc_p = act._activation_scatter_plain(win, imm2, keep, delete)
-    err = par.scatter_errors(sc_k, sc_p)
-    log(f"  K14 activation_scatter ({label}): {err}")
-    require(err.pop("n_activated") > 20, f"K14 ({label}): hardly a point was paired")
-    require(not any(err.values()), f"K14 ({label}): the pairing differs: {err}")
+    cases = {"refined": (win, imm, keep, delete, idepth, selected),
+             "unrefined": (win, imm, activate, delete)}
+    kept = [x.clone() for x in (win.lm_uv, win.lm_patch, win.lm_idepth, win.lm_valid,
+                                win.res_status, imm.valid, imm.idepth_min, imm.idepth_max)]
+    for case, args in cases.items():
+        sc_k = no_host_reads(torch, act._activation_scatter_cuda, *args)
+        sc_p = act._activation_scatter_plain(*args)
+        err = par.scatter_errors(sc_k, sc_p)
+        err["bounds"] = int((sc_k[1].idepth_min != sc_p[1].idepth_min).sum()
+                            + (sc_k[1].idepth_max != sc_p[1].idepth_max).sum())
+        log(f"  K14 activation_scatter ({label}, {case}): {err}")
+        require(err.pop("n_activated") > 20, f"K14 ({label}, {case}): hardly a point was paired")
+        require(not any(err.values()), f"K14 ({label}, {case}): the pairing differs: {err}")
+        require(sc_k[2].shape == () and sc_k[2].dtype == torch.int64,
+                f"K14 ({label}, {case}): n_activated is not one int64")
+    require(all(torch.equal(a, b) for a, b in
+                zip(kept, (win.lm_uv, win.lm_patch, win.lm_idepth, win.lm_valid, win.res_status,
+                           imm.valid, imm.idepth_min, imm.idepth_max))),
+            f"K14 ({label}): the pairing changed the caller's window or banks")
+    refined = cases["refined"]
+
+    def pairing_tensors():
+        res = act._activation_scatter_cuda(*refined)
+        return (*(getattr(res[0], f) for f in ("lm_uv", "lm_patch", "lm_idepth", "lm_valid",
+                                               "res_status")),
+                res[1].valid, res[1].idepth_min, res[1].idepth_max, res[2])
+
+    sc_p = act._activation_scatter_plain(*refined)
+    extra_sc = glue("activation_scatter", "K14 pairing", pairing_tensors, pairing_tensors())
+    records, calls = only_kernel(torch, pairing_tensors, "pair_slots_kernel")
+    log(f"  K14 pairing ({label}): the kernel alone on the device, no copy, no memset ({records}"
+        f" records in {calls} calls)")
+    extra_sc["device_kernels"] = records / calls
     moved = (win.lm_uv, win.lm_patch, win.lm_idepth, win.lm_valid, win.res_status)
     # at C > 1 each paired point samples its C channels at the 8 pattern points
     c = win.num_channels
     samples = 0 if c == 1 else int(sc_p[2]) * 8 * c
     row("activation_scatter", max_abs_err=0.0,
-        ms=cuda_ms(lambda: act._activation_scatter_cuda(win, imm2, keep, delete)),
-        plain_ms=cuda_ms(lambda: act._activation_scatter_plain(win, imm2, keep, delete)),
-        device_us=device_us(torch, lambda: act._activation_scatter_cuda(win, imm2, keep, delete)),
-        **bound(2 * nbytes(*moved) + nbytes(keep, delete, imm2.valid, imm2.valid)
+        ms=cuda_ms(lambda: act._activation_scatter_cuda(*refined)),
+        plain_ms=cuda_ms(lambda: act._activation_scatter_plain(*refined)),
+        unrefined_ms=cuda_ms(lambda: act._activation_scatter_cuda(*cases["unrefined"])),
+        # the window's five tensors and the banks' valid mask read and written, the
+        # masks, the refined idepth and the bounds read, the bounds written
+        **bound(2 * nbytes(*moved, imm.valid) + nbytes(keep, delete, selected, idepth)
+                + 3 * nbytes(imm.idepth_min, imm.idepth_max)
                 + int(sc_p[2]) * 48 + min(nbytes(win.channel_bank) // 3, 48 * samples),
-                4 * k * (n + m) + OPS_WINDOW_SAMPLE * samples))
+                4 * k * (n + m) + OPS_WINDOW_SAMPLE * samples), **extra_sc)
 
     # K16 — the frontend's state from the window after the pairing; landmarks
     # whose reprojection sits within 1e-3 px of a pixel boundary or of the image
@@ -1654,7 +1775,7 @@ def track(seq, name, torch, kernels, camera=None):
         try:
             out = solve_loop(window, model, opts)
         finally:
-            torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.set_sync_debug_mode("warn")
         solves[0] += 1
         return out
 
@@ -1668,7 +1789,7 @@ def track(seq, name, torch, kernels, camera=None):
         try:
             out = marginalize(*args)
         finally:
-            torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.set_sync_debug_mode("warn")
         folds[0] += 1
         return out
 
@@ -1677,31 +1798,41 @@ def track(seq, name, torch, kernels, camera=None):
     fused_keyframe._solve_loop_device = solve_without_host_reads
     device_loop.flags_device = flags_without_host_reads
     device_loop._marginalize_device = marginalize_without_host_reads
-    try:
-        t0 = time.perf_counter()
-        for i in range(INIT_FRAMES, last):
-            state_before = pipe.state
-            if camera is None:
-                diag = pipe.tick(i, float(seq.timestamps[i]), seq.images[i])
-            else:
-                frame = camera.next_frame()
-                require(frame is not None and frame.frame_id == i,
-                        f"the camera gave {frame and frame.frame_id} for frame {i}")
-                diag = pipe.tick(i, frame.timestamp, frame.image, semantics=frame.semantics,
-                                 exposure=frame.exposure)
-            poses.append(diag.pose_t)
-            # the re-track gate tests chunk 0's rmse against 2.5 x the last
-            # reliable one
-            gate_ratios.append(diag.rmse_chunk0 / state_before.rmse_last0)
-            escalations += int(diag.escalated)
-            if diag.is_keyframe:
-                keyframes.append((i, diag.n_active, diag.n_activated, diag.min_distance))
-        torch.cuda.synchronize()
-        elapsed = time.perf_counter() - t0
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
-        fused_keyframe._solve_loop_device = solve_loop
-        device_loop.flags_device, device_loop._marginalize_device = flags, marginalize
+    # outside those spans every host synchronisation is counted (sync debug
+    # "warn"): the path's host syncs a frame
+    with warnings.catch_warnings(record=True) as syncs:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            t0 = time.perf_counter()
+            for i in range(INIT_FRAMES, last):
+                state_before = pipe.state
+                if camera is None:
+                    diag = pipe.tick(i, float(seq.timestamps[i]), seq.images[i])
+                else:
+                    frame = camera.next_frame()
+                    require(frame is not None and frame.frame_id == i,
+                            f"the camera gave {frame and frame.frame_id} for frame {i}")
+                    diag = pipe.tick(i, frame.timestamp, frame.image, semantics=frame.semantics,
+                                     exposure=frame.exposure)
+                poses.append(diag.pose_t)
+                # the re-track gate tests chunk 0's rmse against 2.5 x the last
+                # reliable one
+                gate_ratios.append(diag.rmse_chunk0 / state_before.rmse_last0)
+                escalations += int(diag.escalated)
+                if diag.is_keyframe:
+                    keyframes.append((i, diag.n_active, diag.n_activated, diag.min_distance))
+            pipe.drain()    # the last frames' bookkeeping, counted with the rest
+            sites = collections.Counter(
+                f"{os.path.relpath(w.filename, os.path.dirname(os.path.abspath(__file__)))}"
+                f":{w.lineno}" for w in syncs if "synchroniz" in str(w.message))
+            host_syncs = sum(sites.values())
+            torch.cuda.synchronize()
+            elapsed = time.perf_counter() - t0
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+            fused_keyframe._solve_loop_device = solve_loop
+            device_loop.flags_device, device_loop._marginalize_device = flags, marginalize
     pipe.finalize()
     counts = kernels.counts()
     win = tracker.window
@@ -1722,6 +1853,8 @@ def track(seq, name, torch, kernels, camera=None):
                              if cfg.use_rotation_perturbations else None),
                  rmse=float(np.sqrt(np.mean(errs ** 2))), max_err=float(errs.max()),
                  counts=counts, ba_solves=solves[0], marg_spans=folds[0],
+                 host_syncs_per_frame=host_syncs / (last - INIT_FRAMES),
+                 host_sync_sites=dict(sites.most_common(8)),
                  window_frames=int(win.frame_valid.sum()),
                  active_landmarks=int((win.lm_valid & ~win.lm_outlier
                                        & win.frame_valid[:, None]).sum()),
@@ -1953,53 +2086,19 @@ def undistort(seq, torch, card):
     require(err_img <= REMAP_TOL, f"[undistort] remap {err_img} > {REMAP_TOL}")
 
 
-def c1_bits(card):
-    """The single-channel outputs of the kernels that carry the channel axis
-    (K1, K3, K7, K8, K10, K11, on windows shaped by the whole keyframe
-    backend), digest by digest, against the tree before the channel axis
-    (``testing/c1_bits.py::PARENT_DIGESTS``)."""
-    from dsopp_tpu_torch.testing import c1_bits as bits
+def parent_bits(card):
+    """Each case of ``testing/bits.py``, digest by digest, against the tree
+    before its redesign; pose ties (``k4`` only: equal to the parent's chain
+    on this kernel's relative poses) are named."""
+    from dsopp_tpu_torch.testing import bits
 
-    t0 = time.perf_counter()
-    got = bits.digests(bits.kernel_outputs())
-    differ = sorted(key for key in got if got[key] != bits.PARENT_DIGESTS.get(key))
-    log(f"[c1-bits] {len(got)} C = 1 kernel outputs, {len(got) - len(differ)} equal to the bit"
-        f" to the parent's, differing: {differ} ({time.perf_counter() - t0:.2f} s) | {card}")
-    require(set(got) == set(bits.PARENT_DIGESTS) and not differ,
-            f"C = 1 outputs differ from the parent's: {differ}")
-
-
-def epipolar_bits(card):
-    """K4's outputs on ``testing/epipolar_bits.py``'s inputs (the BA parity
-    windows' immature banks and the next frame), digest by digest, against
-    the parent's chain (the relative poses and the geometry in torch, the
-    sweep kernel, the update in torch): equal, or equal to that chain on this
-    kernel's relative poses (a pose tie)."""
-    from dsopp_tpu_torch.testing import epipolar_bits as bits
-
-    t0 = time.perf_counter()
-    try:
-        verdict = bits.check_against_parent(bits.run(bits.make_inputs()))
-    except AssertionError as exc:
-        raise SmokeError(str(exc)) from exc
-    ties = sorted(key for key, v in verdict.items() if v != "equal")
-    log(f"[k4-bits] {len(verdict)} K4 outputs, {len(verdict) - len(ties)} equal to the bit to"
-        f" the parent chain's, pose ties: {ties} ({time.perf_counter() - t0:.2f} s) | {card}")
-
-
-def solve_bits(card):
-    """The whole BA solve on ``testing/solve_bits.py``'s inputs, digest by
-    digest, against the tree whose loop was launched from Python."""
-    from dsopp_tpu_torch.testing import solve_bits as bits
-
-    t0 = time.perf_counter()
-    out = bits.run(bits.make_inputs())
-    differ = bits.check_against_parent(out)
-    cases = sorted({key.rsplit("/", 1)[0] for key in out if "/inputs/" not in key})
-    log(f"[solve-bits] {len(out)} digests of {len(cases)} solves ({', '.join(cases)}),"
-        f" {len(out) - len(differ)} equal to the bit to the parent's, differing: {differ}"
-        f" ({time.perf_counter() - t0:.2f} s) | {card}")
-    require(not differ, f"the solve's outputs differ from the parent's: {differ}")
+    for case in bits.CASES:
+        t0 = time.perf_counter()
+        equal, ties, differ = bits.check(case, bits.run(case))
+        log(f"[{case}-bits] {len(equal) + len(ties) + len(differ)} digests,"
+            f" {len(equal)} equal to the bit to the parent's, pose ties: {ties}, differing:"
+            f" {differ} ({time.perf_counter() - t0:.2f} s) | {card}")
+        require(not differ, f"[{case}-bits] outputs differ from the parent's: {differ}")
 
 
 def report(label, st, card, seconds):
@@ -2013,11 +2112,13 @@ def report(label, st, card, seconds):
         f" max {st['ate_max']:.5f} m (scale {st['scale']:.4f}), unaligned RMSE"
         f" {st['rmse']:.5f} m max {st['max_err']:.5f} m, trajectory RMSE"
         f" {st['trajectory_rmse']:.5f} m over {st['trajectory_entries']} entries,"
-        f" {st['ba_solves']} BA solves and"
+        f" {st['host_syncs_per_frame']:.3f} host syncs a frame, {st['ba_solves']} BA solves and"
         f" {st['marg_spans']} policy-to-fold spans without a host read, window at the last frame {st['window_frames']} frames and"
         f" {st['active_landmarks']} active landmarks, peak device memory"
         f" {st['peak_memory_mb']:.1f} MB, launches {st['counts']} | {card}"
         f" ({seconds:.2f} s with bootstrap)")
+    log(f"[{label}] host syncs by the line that made them (the ticks' and the bookkeeping's):"
+        f" {st['host_sync_sites']}")
     missing = [name for name in PATH_KERNELS if st["counts"][name] == 0]
     require(not missing, f"[{label}] kernels of the path never launched: {missing}")
     rare = [name for name in KEYFRAME_KERNELS if st["counts"][name] < st["keyframes"]]
@@ -2206,9 +2307,7 @@ def main():
         undistort(seq, torch, card)
         e2e(torch, card, exposure=False)
         e2e(torch, card, exposure=True)
-        c1_bits(card)
-        epipolar_bits(card)
-        solve_bits(card)
+        parent_bits(card)
     except SmokeError as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1

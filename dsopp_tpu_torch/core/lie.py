@@ -171,5 +171,7 @@ class SE3(NamedTuple):
         top = torch.cat([r, self.t[..., None]], dim=-1)
         last = torch.zeros(top.shape[:-2] + (1, 4), dtype=self.q.dtype,
                            device=self.q.device)
-        last[..., 0, 3] = 1.0
+        # fill_ takes the scalar as a kernel argument; an indexed assignment
+        # of a Python number copies it from the host and waits for the device
+        last[..., 0, 3].fill_(1.0)
         return torch.cat([top, last], dim=-2)

@@ -1,22 +1,43 @@
 // K5 flow_statistic: the RMS ray-space flow of the frontend's flow set under
 // the tracked pose T and under T without its rotation (the keyframe
-// strategy's two statistics).
+// strategy's two statistics), and, in the same call, the frontend's
+// reliability gate and the keyframe decision that read them.
 //
-// Replaces dsopp_tpu/tracker/depth_map.py::mean_square_flows: for each of
+// Replaces dsopp_tpu/tracker/depth_map.py::mean_square_flows and the gate and
+// decision of dsopp_tpu/tracker/device_loop.py::_frontend_core: for each of
 // <= 8192 points (uv, idepth) of the newest keyframe, reproject into the
 // current frame, unproject the reprojected pixel and take the squared
 // distance to the source ray; mean over the points that are valid at the
 // source (inside the image less the border, idepth > 1e-6) and after
 // core/reproject.py::reproject; square root.  Both poses share the
-// unprojected source ray.
+// unprojected source ray.  Then, from the tick's rmse and valid count and the
+// state's rmse_last0 and kf_rmse:
+//   reliable    = rmse < 2.5 rmse_last0 and num_valid > 0
+//   rmse_last0' = reliable ? rmse : 2.5 rmse_last0
+//   kf_rmse_eff = kf_rmse < 0 ? rmse : kf_rmse
+//   need        = (factor (4.5 flow + 9 flow_no_rot) > 1
+//                  or rmse / max(kf_rmse_eff, 1e-12) > 4) and reliable
+//   kf_rmse'    = force ? kf_rmse : (need ? -1 : kf_rmse_eff)
+// in f32 with torch's roundings (a Python scalar times an f32 tensor is an
+// f32 product, clamp is a max that keeps a NaN, the division is IEEE, the
+// comparisons strict), so the decision has the bits of the torch code it
+// replaced.
 //
-// Bound: bytes (16 bytes of input per point, two floats out) — at 8192
-// points the launch itself is the cost.  Design: one block, one launch, no
-// host read; each thread strides over the points with f64 partial sums and
-// integer counts, then a fixed-order reduction (warp butterfly, warps in
-// index order), so the statistic that decides a keyframe is the same on every
-// run.  The projection is Pinhole.project's division form (fx * x / z + cx),
-// as the plain version rounds.
+// Bound: bytes (16 bytes of input per point, a few floats out); at 8192
+// points the launch itself is the cost.  Design: one launch, no memset, no
+// host read.  A thread per point (a block of 256 threads per 256 points, at
+// most kMaxBlocks blocks, striding beyond): each thread's f64 partial sums and
+// integer counts, a warp butterfly, the warps in index order; each block
+// writes its partials to its own place, then takes a ticket (__threadfence,
+// atomicAdd).  The block holding the last ticket loads the partials at once,
+// sums them in block index order (a thread a pose), resets the ticket for
+// the next launch, and writes the flows and the decision.  So the sums have one order whatever the order in which
+// the blocks finish (testing/frontend_models.py::flow_block_sums), and the
+// statistic that decides a keyframe is the same on every run.  The ticket and
+// the partials live in the caller's workspace (kernels.py::workspace: one per
+// stream, zero when made, left zero by every launch), so launches in stream
+// order share it and launches on two streams never do.  The projection is Pinhole.project's
+// division form (fx * x / z + cx), as the plain version rounds.
 
 #include "ba_body.cuh"
 
@@ -24,23 +45,66 @@ namespace {
 
 using namespace ba;
 
-constexpr int kFlowThreads = 1024;
+constexpr int kFlowThreads = 256;
 constexpr int kFlowWarps = kFlowThreads / 32;
+constexpr int kMaxBlocks = 64;
+// the decision's constants (depth_map.py's ENERGY_RATIO_THRESHOLD,
+// strategy weights and thresholds)
+constexpr float kEnergyRatio = 2.5f;
+constexpr float kShiftWeight = 4.5f, kShiftNoRotWeight = 9.0f;
+constexpr float kThreshold = 1.0f, kMaxExcessEnergy = 4.0f;
+// the packed output (depth_map.py's STAT_* indices)
+enum Stat {
+  kStatFlow = 0, kStatFlowNoRot = 1, kStatReliable = 2, kStatRmseLast0 = 3, kStatKfRmse = 4,
+  kStatNeed = 5, kStatRmse = 6, kStatMatrix = 7,
+};
+
+// the blocks' partials and the ticket; the ticket is zero between launches
+struct FlowWorkspace {
+  double sum[kMaxBlocks][2];
+  int count[kMaxBlocks][2];
+  unsigned int ticket;
+};
+
+struct Decision {
+  const float* t_kf_frame_mat;   // [4,4]
+  const float* rmse;
+  const int* num_valid;
+  const float* rmse_last0;
+  const float* kf_rmse;
+  float factor;
+  int force;
+};
 
 __global__ void __launch_bounds__(kFlowThreads)
 flow_kernel(const float* __restrict__ uv, const float* __restrict__ idepth,
             const unsigned char* __restrict__ valid, int n, const float* __restrict__ pose_q,
-            const float* __restrict__ pose_t, Camera cam, float border,
-            float* __restrict__ out) {
+            const float* __restrict__ pose_t, Camera cam, float border, Decision dec,
+            FlowWorkspace* __restrict__ ws, float* __restrict__ out) {
   __shared__ double sum_s[2][kFlowWarps];
   __shared__ int cnt_s[2][kFlowWarps];
+  __shared__ double part_sum[2][kMaxBlocks];
+  __shared__ int part_cnt[2][kMaxBlocks];
+  __shared__ float flow_s[2];
+  __shared__ bool last;
   const Rigid pose[2] = {
       {{pose_q[0], pose_q[1], pose_q[2], pose_q[3]}, {pose_t[0], pose_t[1], pose_t[2]}},
       {{1.0f, 0.0f, 0.0f, 0.0f}, {pose_t[0], pose_t[1], pose_t[2]}}};
+  const bool decide = dec.rmse != nullptr;
+  // the decision's inputs, loaded while the points are summed (used by the
+  // last block's thread 0 only)
+  float rmse = 0.0f, rmse_last0 = 0.0f, kf_rmse = 0.0f;
+  int num_valid = 0;
+  if (decide && threadIdx.x == 0) {
+    rmse = *dec.rmse;
+    rmse_last0 = *dec.rmse_last0;
+    kf_rmse = *dec.kf_rmse;
+    num_valid = *dec.num_valid;
+  }
   double sum[2] = {0.0, 0.0};
   int cnt[2] = {0, 0};
 
-  for (int p = threadIdx.x; p < n; p += kFlowThreads) {
+  for (int p = blockIdx.x * kFlowThreads + threadIdx.x; p < n; p += gridDim.x * kFlowThreads) {
     const float u = uv[2 * p], v = uv[2 * p + 1], d = idepth[p];
     const bool src_ok = valid[p] && d > 1e-6f && u >= border && u < cam.width - border &&
                         v >= border && v < cam.height - border;
@@ -60,6 +124,12 @@ flow_kernel(const float* __restrict__ uv, const float* __restrict__ idepth,
     }
   }
 
+  // the frame's matrix and rmse go into the packed output unchanged
+  if (decide && blockIdx.x == 0) {
+    if (threadIdx.x < 16) out[kStatMatrix + threadIdx.x] = dec.t_kf_frame_mat[threadIdx.x];
+    if (threadIdx.x == 16) out[kStatRmse] = *dec.rmse;
+  }
+
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 #pragma unroll
   for (int s = 0; s < 2; ++s) {
@@ -76,28 +146,90 @@ flow_kernel(const float* __restrict__ uv, const float* __restrict__ idepth,
     }
   }
   __syncthreads();
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      double a = 0.0;
+      int c = 0;
+      for (int w = 0; w < kFlowWarps; ++w) {
+        a += sum_s[s][w];
+        c += cnt_s[s][w];
+      }
+      ws->sum[blockIdx.x][s] = a;
+      ws->count[blockIdx.x][s] = c;
+    }
+    __threadfence();
+    last = atomicAdd(&ws->ticket, 1u) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+
+  // the last block: every partial is visible past the other blocks' fences;
+  // its threads load them at once, two threads add them in block index order
+  __threadfence();
+  if (threadIdx.x == 0) ws->ticket = 0;
+  for (int i = threadIdx.x; i < 2 * (int)gridDim.x; i += kFlowThreads) {
+    const int b = i >> 1, s = i & 1;
+    part_sum[s][b] = __ldcg(&ws->sum[b][s]);
+    part_cnt[s][b] = __ldcg(&ws->count[b][s]);
+  }
+  __syncthreads();
   if (threadIdx.x < 2) {
+    const int s = threadIdx.x;
     double a = 0.0;
     int c = 0;
-    for (int w = 0; w < kFlowWarps; ++w) {
-      a += sum_s[threadIdx.x][w];
-      c += cnt_s[threadIdx.x][w];
+    for (int b = 0; b < (int)gridDim.x; ++b) {
+      a += part_sum[s][b];
+      c += part_cnt[s][b];
     }
-    out[threadIdx.x] = sqrtf((float)a / (float)max(c, 1));
+    flow_s[s] = sqrtf((float)a / (float)max(c, 1));
+    out[s] = flow_s[s];
   }
+  if (!decide) return;
+  __syncthreads();
+  if (threadIdx.x != 0) return;
+  const bool reliable = rmse < kEnergyRatio * rmse_last0 && num_valid > 0;
+  const float kf_rmse_eff = kf_rmse < 0.0f ? rmse : kf_rmse;
+  const float clamped = isnan(kf_rmse_eff) ? kf_rmse_eff : fmaxf(kf_rmse_eff, 1e-12f);
+  const float shift = dec.factor * (kShiftWeight * flow_s[0] + kShiftNoRotWeight * flow_s[1]);
+  const bool need = (shift > kThreshold || rmse / clamped > kMaxExcessEnergy) && reliable;
+  out[kStatReliable] = reliable ? 1.0f : 0.0f;
+  out[kStatRmseLast0] = reliable ? rmse : rmse_last0 * kEnergyRatio;
+  out[kStatKfRmse] = dec.force ? kf_rmse : (need ? -1.0f : kf_rmse_eff);
+  out[kStatNeed] = need ? 1.0f : 0.0f;
 }
 
 }  // namespace
 
 // Points: uv [n,2], idepth [n], valid [n] u8; pose_q [4], pose_t [3] (target
-// <- reference).  Output: out [2] = (flow, flow without rotation).
+// <- reference).  The decision's inputs, all null for the flows alone:
+// t_kf_frame_mat [4,4] f32, rmse f32, num_valid int32, rmse_last0 f32,
+// kf_rmse f32 (each one value), factor = keyframe_factor, force = force_kf.
+// Output: out [2] = (flow, flow without rotation), or with the decision out
+// [23] in depth_map.py's STAT_* order: flow, flow without rotation,
+// reliable, rmse_last0', kf_rmse', need (booleans as 0 / 1), rmse and the 16
+// entries of t_kf_frame_mat.  workspace: workspace_bytes >=
+// sizeof(FlowWorkspace) of device memory, zero before the first launch on the
+// stream that owns it; every launch leaves it zero again.
 extern "C" int flow_statistic(const float* uv, const float* idepth,
                               const unsigned char* valid, int n, const float* pose_q,
                               const float* pose_t, float fx, float fy, float cx, float cy,
-                              float width, float height, float border, float* out,
+                              float width, float height, float border,
+                              const float* t_kf_frame_mat, const float* rmse,
+                              const int* num_valid, const float* rmse_last0,
+                              const float* kf_rmse, float factor, int force,
+                              void* workspace, int workspace_bytes, float* out,
                               void* stream) {
+  const bool decide = rmse != nullptr;
+  if (n < 1 || workspace == nullptr || workspace_bytes < (int)sizeof(FlowWorkspace) ||
+      decide != (t_kf_frame_mat != nullptr && num_valid != nullptr &&
+                 rmse_last0 != nullptr && kf_rmse != nullptr))
+    return (int)cudaErrorInvalidValue;
   const ba::Camera cam = {fx, fy, cx, cy, width, height};
-  flow_kernel<<<1, kFlowThreads, 0, (cudaStream_t)stream>>>(uv, idepth, valid, n, pose_q,
-                                                           pose_t, cam, border, out);
+  const Decision dec = {t_kf_frame_mat, rmse, num_valid, rmse_last0, kf_rmse, factor, force};
+  const int blocks = min((n + kFlowThreads - 1) / kFlowThreads, kMaxBlocks);
+  flow_kernel<<<blocks, kFlowThreads, 0, (cudaStream_t)stream>>>(uv, idepth, valid, n, pose_q,
+                                                                pose_t, cam, border, dec,
+                                                                (FlowWorkspace*)workspace, out);
   return (int)cudaGetLastError();
 }

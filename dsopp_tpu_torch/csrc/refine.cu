@@ -2,7 +2,8 @@
 // activating immature points, and their move into free landmark slots.
 //
 // Replaces dsopp_tpu/tracker/activation.py::_refine_idepth_kernel and
-// ::_activation_scatter.
+// ::_activation_scatter, with the glue between them of
+// dsopp_tpu/tracker/fused_keyframe.py::fused_keyframe_push.
 //
 // refine_idepth.  The activating candidates are compacted in order, banks from
 // the highest slot (the newest host) to the lowest and inside a bank by
@@ -47,15 +48,20 @@
 // intensity at C = 1; the first embedder plane of a C > 1 window, as the JAX
 // package's refinement reads its patch tables).
 //
-// activation_scatter.  Per frame slot the r-th free landmark slot takes the
-// r-th activating candidate of the slot's bank, for r < min(#free,
-// #activating); integer work, exact.  Bound: bytes (the copied points).
-// Design: one block per frame slot, two ordered compactions by block scan
-// into a scratch list, then the copies.  The window tensors it writes are
-// clones made by the caller.  In a window of C > 1 embedder channels the
-// reference patch a landmark takes is not the immature point's intensity
-// patch but its C-channel one (activation.py::embedded_patches): each copy
-// samples the host slot's C channel planes at the 8 pattern points under the
+// activation_scatter (the pairing).  Per frame slot the r-th free landmark
+// slot takes the r-th activating candidate of the slot's bank, for r <
+// min(#free, #activating); integer work and copies, exact.  After a
+// refinement the same call applies its glue: the kept candidates activate,
+// their idepth bounds become the refined idepth, the refined ones not kept
+// are dropped.  Bound: bytes (the window's five tensors and the banks' masks
+// read and written once).  Design: one launch, no memset, no clone: a block
+// per (tile of 64 landmark slots, frame slot) recounts its slot's free slots
+// and candidates (one block scan) and writes its tile of every output, the
+// untouched entries copied from the caller's window, which stays as it was
+// (pair_slots_kernel).  In a window of C > 1 embedder channels the reference
+// patch a landmark takes is not the immature point's intensity patch but its
+// C-channel one (activation.py::embedded_patches): each value samples one of
+// the host slot's C channel planes at one of the 8 pattern points under the
 // 10x10-window rule (ba_body.cuh::sample_window, shared with K7; the window
 // based at floor(uv) - 4, values only).
 
@@ -340,64 +346,172 @@ refine_kernel(const int* __restrict__ order, const float* __restrict__ uv,
   }
 }
 
-// free[a, r]: the r-th free landmark slot of frame slot a; act[a, r]: the
-// r-th activating candidate of its bank; both lists live in `lists`
+// The pairing.  Per frame slot a, the r-th free landmark slot (lm_valid 0, in
+// index order) takes the r-th activating candidate of bank a (in index order)
+// for r < take = min(#free, #activating).  A block per (landmark tile t, slot
+// a): it counts slot a's free slots and activating candidates over contiguous
+// runs a thread, one block scan of both counts packed in one int, and keeps
+// in shared memory the activating candidates in order (act_list) and each
+// free slot's rank (free_rank); then it writes tile t's share of every
+// output, each entry once: the landmark slots [t L, (t + 1) L) of slot a (uv,
+// the C*8 patch values, idepth, valid and the k residual statuses of each:
+// the moved candidate's values where a slot is paired, the window's
+// otherwise) and the bank entries [t Lm, (t + 1) Lm) (valid and, after a
+// refinement, the idepth bounds).  Where a refinement ran (`refined` and
+// `selected` not null) `act` is its keep mask, the bounds of a kept candidate
+// become its refined idepth and a refined candidate it did not keep is
+// dropped, as fused_keyframe.py's glue did before the pairing.  The blocks of
+// tile 0 write each slot's take and take a ticket; the last sums the takes in
+// slot order into n_activated and resets the ticket for the next launch.  The
+// takes and the ticket live in the caller's workspace (kernels.py::workspace:
+// one per stream, zero when made, left zero by every launch).
+constexpr int kPairTile = 64;              // landmark slots a block writes at most
+constexpr int kMaxPairSlots = 64;
+
+// each slot's take and the ticket; the ticket is zero between launches
+struct PairWorkspace {
+  int takes[kMaxPairSlots];
+  unsigned int ticket;
+};
+
+struct PairBank {
+  const unsigned char* act;     // [k,m]
+  const unsigned char* drop;    // [k,m]
+  const unsigned char* selected;  // [k,m] or null
+  const float* refined;         // [k,m] or null
+  const float* uv;              // [k,m,2]
+  const float* patch;           // [k,m,8]
+  const float* idepth_min;
+  const float* idepth_max;
+  const unsigned char* valid;
+};
+
+struct PairWindow {
+  const float* lm_uv;
+  const float* lm_patch;
+  const float* lm_idepth;
+  const unsigned char* lm_valid;
+  const int* res_status;
+};
+
+struct PairOut {
+  float* lm_uv;
+  float* lm_patch;
+  float* lm_idepth;
+  unsigned char* lm_valid;
+  int* res_status;
+  unsigned char* valid;
+  float* idepth_min;            // null without a refinement
+  float* idepth_max;
+  long long* n_activated;
+};
+
+// a bank entry's idepth bound after the refinement's glue
+static __device__ __forceinline__ float pair_bound(const PairBank& in, const float* bound,
+                                                   int e) {
+  return in.refined != nullptr && in.act[e] != 0 ? in.refined[e] : bound[e];
+}
+
 __global__ void __launch_bounds__(kThreads)
-pair_slots_kernel(const unsigned char* __restrict__ activate,
-               const unsigned char* __restrict__ drop, const float* __restrict__ uv,
-               const float* __restrict__ patch, const float* __restrict__ idepth_min,
-               const float* __restrict__ idepth_max, const unsigned char* __restrict__ imm_valid,
-               const float* __restrict__ bank, int channels, int h, int w,
-               int k, int n, int m, int* __restrict__ lists, float* __restrict__ lm_uv,
-               float* __restrict__ lm_patch, float* __restrict__ lm_idepth,
-               unsigned char* __restrict__ lm_valid, int* __restrict__ res_status,
-               unsigned char* __restrict__ imm_valid_out,
-               unsigned long long* __restrict__ n_activated) {
+pair_slots_kernel(PairBank in, PairWindow win, PairOut out, const float* __restrict__ bank,
+                  int channels, int h, int w, int k, int n, int m,
+                  PairWorkspace* __restrict__ ws) {
+  extern __shared__ int pair_lists[];
   __shared__ int sums[33];
-  const int a = blockIdx.x;
-  int* free_list = lists + (size_t)a * (n + m);
-  int* act_list = free_list + n;
+  int* act_list = pair_lists;       // [m]
+  int* free_rank = pair_lists + m;  // [n], -1 where the slot is live
+  const int t = blockIdx.x, a = blockIdx.y, tid = threadIdx.x;
+  const int run_n = (n + kThreads - 1) / kThreads, run_m = (m + kThreads - 1) / kThreads;
+  const int n0 = min(tid * run_n, n), n1 = min(n0 + run_n, n);
+  const int m0 = min(tid * run_m, m), m1 = min(m0 + run_m, m);
+  const unsigned char* lm_valid = win.lm_valid + (size_t)a * n;
+  const unsigned char* act = in.act + (size_t)a * m;
   int n_free = 0, n_act = 0;
-  for (int start = 0; start < n; start += kThreads) {
-    const int i = start + threadIdx.x;
-    const int flag = (i < n && lm_valid[a * n + i] == 0) ? 1 : 0;
-    const int pos = n_free + block_exclusive_scan<kThreads>(flag, sums);
-    if (flag) free_list[pos] = i;
-    n_free += sums[32];
-  }
-  for (int start = 0; start < m; start += kThreads) {
-    const int i = start + threadIdx.x;
-    const int flag = (i < m && activate[a * m + i] != 0) ? 1 : 0;
-    const int pos = n_act + block_exclusive_scan<kThreads>(flag, sums);
-    if (flag) act_list[pos] = i;
-    n_act += sums[32];
-    if (i < m) imm_valid_out[a * m + i] = (imm_valid[a * m + i] != 0 && drop[a * m + i] == 0) ? 1 : 0;
+  for (int i = n0; i < n1; ++i) n_free += lm_valid[i] == 0;
+  for (int s = m0; s < m1; ++s) n_act += act[s] != 0;
+  // both counts in one scan: free slots in the high half, candidates in the low
+  const int pre = block_exclusive_scan<kThreads>((n_free << 16) | n_act, sums);
+  const int total_free = sums[32] >> 16, total_act = sums[32] & 0xffff;
+  int rank = pre >> 16;
+  for (int i = n0; i < n1; ++i) free_rank[i] = lm_valid[i] == 0 ? rank++ : -1;
+  rank = pre & 0xffff;
+  for (int s = m0; s < m1; ++s)
+    if (act[s] != 0) act_list[rank++] = s;
+  const int take = min(total_free, total_act);
+  if (t == 0 && tid == 0) {
+    ws->takes[a] = take;
+    __threadfence();
+    if (atomicAdd(&ws->ticket, 1u) == (unsigned)k - 1) {
+      __threadfence();
+      long long sum = 0;
+      for (int b = 0; b < k; ++b) sum += __ldcg(&ws->takes[b]);
+      *out.n_activated = sum;
+      ws->ticket = 0;
+    }
   }
   __syncthreads();
-  const int take = min(n_free, n_act);
-  for (int r = threadIdx.x; r < take; r += kThreads) {
-    const int dst = a * n + free_list[r], src = a * m + act_list[r];
-    lm_uv[2 * dst] = uv[2 * src];
-    lm_uv[2 * dst + 1] = uv[2 * src + 1];
-    if (channels == 1) {
-      for (int p = 0; p < kPattern; ++p) lm_patch[(size_t)dst * kPattern + p] = patch[(size_t)src * kPattern + p];
-    } else {
-      // the C-channel patch from the host slot a's planes, channel-major
-      const float x0 = uv[2 * src], y0 = uv[2 * src + 1];
-      const int bx = window_base(x0, w), by = window_base(y0, h);
-      const float* host = bank + (size_t)a * 3 * channels * h * w;
-      for (int c = 0; c < channels; ++c)
-        for (int p = 0; p < kPattern; ++p)
-          lm_patch[((size_t)dst * channels + c) * kPattern + p] =
-              sample_window(host + (size_t)c * h * w, h, w, x0 + kPatternX[p],
-                            y0 + kPatternY[p], bx, by).val;
-    }
-    lm_idepth[dst] = 0.5f * (idepth_min[src] + idepth_max[src]);
-    lm_valid[dst] = 1;
-    for (int j = 0; j < k; ++j) res_status[((size_t)a * k + j) * n + free_list[r]] = 0;  // RES_OK
-    imm_valid_out[src] = 0;
+
+  // tile t of slot a's landmark slots
+  const int tiles = gridDim.x;
+  const int span = (n + tiles - 1) / tiles, i0 = t * span, len = max(min(span, n - i0), 0);
+  // the bank entry that landmark slot i0 + e takes, or -1
+  auto source = [&](int e) {
+    const int r = free_rank[i0 + e];
+    return r >= 0 && r < take ? a * m + act_list[r] : -1;
+  };
+  for (int e = tid; e < len; e += kThreads) {
+    const int dst = a * n + i0 + e, src = source(e);
+    out.lm_idepth[dst] = src >= 0 ? 0.5f * (pair_bound(in, in.idepth_min, src) +
+                                            pair_bound(in, in.idepth_max, src))
+                                  : win.lm_idepth[dst];
+    out.lm_valid[dst] = src >= 0 ? 1 : win.lm_valid[dst];
   }
-  if (threadIdx.x == 0 && take > 0) atomicAdd(n_activated, (unsigned long long)take);
+  for (int e = tid; e < 2 * len; e += kThreads) {
+    const size_t dst = 2 * ((size_t)a * n + i0) + e;
+    const int src = source(e >> 1);
+    out.lm_uv[dst] = src >= 0 ? in.uv[2 * src + (e & 1)] : win.lm_uv[dst];
+  }
+  const int values = channels * kPattern;
+  const float* host = bank + (size_t)a * 3 * channels * h * w;
+  for (int e = tid; e < values * len; e += kThreads) {
+    const size_t dst = ((size_t)a * n + i0) * values + e;
+    const int src = source(e / values), q = e % values;
+    float v;
+    if (src < 0) {
+      v = win.lm_patch[dst];
+    } else if (channels == 1) {
+      v = in.patch[(size_t)src * kPattern + q];
+    } else {
+      // channel q / 8 of the host slot a's planes at pattern point q % 8
+      const float x0 = in.uv[2 * src], y0 = in.uv[2 * src + 1];
+      const int c = q / kPattern, p = q % kPattern;
+      v = sample_window(host + (size_t)c * h * w, h, w, x0 + kPatternX[p], y0 + kPatternY[p],
+                        window_base(x0, w), window_base(y0, h)).val;
+    }
+    out.lm_patch[dst] = v;
+  }
+  for (int e = tid; e < k * len; e += kThreads) {
+    const int j = e / len, i = e % len;
+    const size_t idx = ((size_t)a * k + j) * n + i0 + i;
+    out.res_status[idx] = source(i) >= 0 ? 0 : win.res_status[idx];   // RES_OK
+  }
+
+  // tile t of bank a
+  const int span_m = (m + tiles - 1) / tiles, s0 = t * span_m;
+  const int len_m = max(min(span_m, m - s0), 0);
+  const int last_taken = take > 0 ? act_list[take - 1] : -1;
+  for (int e = tid; e < len_m; e += kThreads) {
+    const int s = s0 + e, idx = a * m + s;
+    const bool active = act[s] != 0;
+    const bool drop = in.drop[idx] != 0 || (in.selected != nullptr && in.selected[idx] != 0 &&
+                                            !active);
+    const bool taken = active && s <= last_taken;
+    out.valid[idx] = in.valid[idx] != 0 && !drop && !taken ? 1 : 0;
+    if (out.idepth_min != nullptr) {
+      out.idepth_min[idx] = pair_bound(in, in.idepth_min, idx);
+      out.idepth_max[idx] = pair_bound(in, in.idepth_max, idx);
+    }
+  }
 }
 
 }  // namespace
@@ -436,27 +550,46 @@ extern "C" int refine_idepth(const unsigned char* activate, const float* uv,
   return (int)cudaGetLastError();
 }
 
-// Banks [k,m] as above plus drop, imm_valid u8.  The window's channel bank
-// (bank + f * 3 C h w + c * h * w is channel c of frame slot f, [h,w]; read
-// at C > 1 only).  lm_uv [k,n,2], lm_patch [k,n,C*8], lm_idepth [k,n],
-// lm_valid [k,n] u8 and res_status [k,k,n] int32 are the caller's clones,
-// written in place.  Scratch: lists [k, n+m] int32.
-// Outputs: imm_valid_out [k,m] u8, n_activated [1] int64 (zeroed here).
+// Banks [k,m]: activate (the refinement's keep mask where one ran), drop,
+// imm_valid u8; selected u8 and refined f32 (the refinement's, or both null);
+// uv [.,2], patch [.,8], idepth_min, idepth_max f32.  The window's channel
+// bank (bank + f * 3 C h w + c * h * w is channel c of frame slot f, [h,w];
+// read at C > 1 only), lm_uv [k,n,2], lm_patch [k,n,C*8], lm_idepth [k,n],
+// lm_valid [k,n] u8 and res_status [k,k,n] int32, read only.  Outputs, every
+// entry written once: the window's five tensors after the pairing (*_out),
+// imm_valid_out [k,m] u8, idepth_min_out and idepth_max_out [k,m] f32 (null
+// without a refinement: the bounds are unchanged), n_activated one int64.
+// workspace: workspace_bytes >= sizeof(PairWorkspace) of device memory, zero
+// before the first launch on the stream that owns it; every launch leaves it
+// zero again.
 extern "C" int activation_scatter(const unsigned char* activate, const unsigned char* drop,
+                                  const unsigned char* selected, const float* refined,
                                   const float* uv, const float* patch,
                                   const float* idepth_min, const float* idepth_max,
                                   const unsigned char* imm_valid, const float* bank,
                                   int channels, int h, int w, int k, int n, int m,
-                                  int* lists, float* lm_uv, float* lm_patch, float* lm_idepth,
-                                  unsigned char* lm_valid, int* res_status,
-                                  unsigned char* imm_valid_out,
-                                  unsigned long long* n_activated, void* stream) {
-  if (channels < 1) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  cudaMemsetAsync(n_activated, 0, sizeof(unsigned long long), s);
-  pair_slots_kernel<<<k, kThreads, 0, s>>>(activate, drop, uv, patch, idepth_min, idepth_max,
-                                        imm_valid, bank, channels, h, w, k, n, m, lists, lm_uv,
-                                        lm_patch, lm_idepth,
-                                        lm_valid, res_status, imm_valid_out, n_activated);
+                                  const float* lm_uv, const float* lm_patch,
+                                  const float* lm_idepth, const unsigned char* lm_valid,
+                                  const int* res_status, float* lm_uv_out,
+                                  float* lm_patch_out, float* lm_idepth_out,
+                                  unsigned char* lm_valid_out, int* res_status_out,
+                                  unsigned char* imm_valid_out, float* idepth_min_out,
+                                  float* idepth_max_out, long long* n_activated,
+                                  void* workspace, int workspace_bytes, void* stream) {
+  const bool refine = refined != nullptr;
+  const size_t shared = (size_t)(n + m) * sizeof(int);
+  if (channels < 1 || k < 1 || k > kMaxPairSlots || n < 1 || m < 1 || n >= 32768 ||
+      m >= 32768 || shared > 48 * 1024 || (selected != nullptr) != refine ||
+      (idepth_min_out != nullptr) != refine || (idepth_max_out != nullptr) != refine ||
+      workspace == nullptr || workspace_bytes < (int)sizeof(PairWorkspace))
+    return (int)cudaErrorInvalidValue;
+  const PairBank in = {activate, drop, selected, refined, uv, patch, idepth_min, idepth_max,
+                       imm_valid};
+  const PairWindow win = {lm_uv, lm_patch, lm_idepth, lm_valid, res_status};
+  const PairOut out = {lm_uv_out, lm_patch_out, lm_idepth_out, lm_valid_out, res_status_out,
+                       imm_valid_out, idepth_min_out, idepth_max_out, n_activated};
+  const dim3 grid((n + kPairTile - 1) / kPairTile, k);
+  pair_slots_kernel<<<grid, kThreads, shared, (cudaStream_t)stream>>>(
+      in, win, out, bank, channels, h, w, k, n, m, (PairWorkspace*)workspace);
   return (int)cudaGetLastError();
 }

@@ -13,7 +13,8 @@ Launch rules shared by every kernel: launch on
 launches in ``launches``; nothing else touches the count, but for the one
 entry that calls other entries from C (``BA_SOLVE_LOOP``, the windowed BA's
 whole solve): it counts their successful calls into a host array, and its
-wrapper adds those to their counts.
+wrapper adds those to their counts.  Two entries (K5 and K14's pairing) find
+their last block with a ticket in a small :func:`workspace` of their stream.
 """
 
 from __future__ import annotations
@@ -42,6 +43,7 @@ _F = ctypes.c_float
 _D = ctypes.c_double
 
 _lib = None
+_workspaces: dict = {}
 
 
 def _nvcc():
@@ -123,6 +125,18 @@ def check(t: torch.Tensor, name: str, shape, dtype=torch.float32):
     return t
 
 
+def workspace(kernel: "Kernel", nbytes: int, device: torch.device) -> torch.Tensor:
+    """``kernel``'s block-counting buffer on the current stream of ``device``:
+    ``nbytes`` zero bytes, made at its first launch on that stream and kept.
+    Each launch leaves it zero again, so the launches of one stream share it
+    in stream order and launches on two streams never meet in it."""
+    key = (kernel.name, device.index, torch._C._cuda_getCurrentRawStream(device.index))
+    buf = _workspaces.get(key)
+    if buf is None:
+        buf = _workspaces[key] = torch.zeros((nbytes,), dtype=torch.uint8, device=device)
+    return buf
+
+
 class Kernel:
     """One C entry point of the library, with its launch count.  An entry
     that runs ``steps`` returns ``(step << 16) | the CUDA error`` when one
@@ -164,8 +178,11 @@ ALIGN_LEVEL = Kernel("align_level", "align_level",
                      [_P, _P, _P, _P, _I, _P, _I, _I, _I, _P, _P, _P, _P, _I,
                       _F, _F, _F, _F, _F, _F, _F, _I, _F, _F, _F, _F, _F, _F, _F,
                       _P, _P, _P, _P, _P, _P, _P, _P])
+# K5: the flows and, unless its decision inputs are null, the reliability
+# gate and the keyframe decision; its workspace before its output
 FLOW = Kernel("flow_statistic", "flow_statistic",
-              [_P, _P, _P, _I, _P, _P] + [_F] * 7 + [_P])
+              [_P, _P, _P, _I, _P, _P] + [_F] * 7 + [_P] * 5 + [_F, _I, _P, _I, _P])
+FLOW_WORKSPACE_BYTES = 2048      # >= sizeof(FlowWorkspace) in csrc/flow.cu
 # K7-K9 take the LM loop's state (or None) before their outputs; K7 writes and
 # K8 reads one of the loop's two evaluation buffers (buffer 0 without a
 # state); K8 forms the first-estimate Jacobians itself (once kernel K6's cache)
@@ -198,8 +215,11 @@ ACTIVATION = Kernel("activation", "activation",
                     [_P] * 8 + [_I] * 3 + [_F] * 6 + [_P] * 8 + [_F, _F] + [_P] * 5)
 REFINE = Kernel("refine_idepth", "refine_idepth",
                 [_P] * 12 + [_I] * 6 + [_F] * 7 + [_P] * 6)
+# K14's pairing takes the refinement's outputs (or nulls) and writes new
+# window tensors and banks
 ACTIVATION_SCATTER = Kernel("activation_scatter", "activation_scatter",
-                            [_P] * 8 + [_I] * 6 + [_P] * 8)
+                            [_P] * 10 + [_I] * 6 + [_P] * 15 + [_I])
+PAIR_WORKSPACE_BYTES = 512       # >= sizeof(PairWorkspace) in csrc/refine.cu
 DEPTH_MAPS = Kernel("depth_maps", "depth_maps",
                     [_P] * 5 + [_I, _I] + [_F] * 6 + [_I] * 5 + [_P] * 19)
 # K15: the marginalization policy and the ledger fold, once per keyframe each

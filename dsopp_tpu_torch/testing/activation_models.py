@@ -10,6 +10,10 @@ pose path, for the CPU tests (``tests/test_torch_activation_models.py``).
   warp step, the warps' counts scanned, the places by ballot;
 * :func:`target_sums` — ``refine_kernel``'s f64 sums over the targets in a
   warp's fixed order;
+* :func:`tiled_pairing` — ``csrc/refine.cu::pair_slots_kernel``'s partition:
+  a block per (tile of landmark slots, frame slot), each recounting its
+  slot's free slots and candidates over contiguous runs a thread and writing
+  its tile of the window's outputs and of the bank's;
 * :func:`frame_poses`, :func:`relative_poses` — ``frame_pose`` /
   ``relative_pose`` in torch f32, operation by operation in the kernels'
   order (the plain versions' ``SE3`` sums its components with ``torch.sum``).
@@ -24,6 +28,7 @@ BANDS = 1024                   # csrc/activation.cu::kBands
 CHUNK = 8192                   # csrc/activation.cu::kChunk
 REACH_PX = np.float32(1e-3)    # csrc/activation.cu::kReachPx
 COMPACT_THREADS = 256          # csrc/refine.cu: compact_kernel's threads (ba_body.cuh::kThreads)
+PAIR_TILE = 64                 # csrc/refine.cu::kPairTile
 
 _F32 = np.float32
 
@@ -148,6 +153,56 @@ def target_sums(values):
 
 
 # -- ba_body.cuh's pose path, component by component -----------------------
+
+def tiled_pairing(lm_valid, activate, threads=COMPACT_THREADS, tile=PAIR_TILE):
+    """``pair_slots_kernel`` over its grid → (src [K, N]: the bank entry a
+    landmark slot takes, -1 where it keeps its own values; taken [K, M]; the
+    number of writes of each landmark slot's values [K, N] and of each bank
+    entry's [K, M], every block's tile counted)."""
+    k, n = lm_valid.shape
+    m = activate.shape[1]
+    tiles = -(-n // tile)
+    src = np.full((k, n), -1)
+    taken = np.zeros((k, m), bool)
+    writes_n = np.zeros((k, n), int)
+    writes_m = np.zeros((k, m), int)
+    run_n, run_m = -(-n // threads), -(-m // threads)
+    for a in range(k):
+        for t in range(tiles):
+            # the counts of each thread's contiguous run, one exclusive scan
+            free = [int((~lm_valid[a, min(i * run_n, n):min(i * run_n + run_n, n)]).sum())
+                    for i in range(threads)]
+            act = [int(activate[a, min(i * run_m, m):min(i * run_m + run_m, m)].sum())
+                   for i in range(threads)]
+            packed = np.array([(f << 16) | c for f, c in zip(free, act)])
+            pre = np.concatenate([[0], np.cumsum(packed)[:-1]])
+            total = int(packed.sum())
+            free_rank = np.full(n, -1)
+            act_list = np.zeros(m, int)
+            for i in range(threads):
+                rank = int(pre[i]) >> 16
+                for j in range(min(i * run_n, n), min(i * run_n + run_n, n)):
+                    if not lm_valid[a, j]:
+                        free_rank[j] = rank
+                        rank += 1
+                rank = int(pre[i]) & 0xFFFF
+                for j in range(min(i * run_m, m), min(i * run_m + run_m, m)):
+                    if activate[a, j]:
+                        act_list[rank] = j
+                        rank += 1
+            take = min(total >> 16, total & 0xFFFF)
+            span = -(-n // tiles)
+            for i in range(t * span, min(t * span + span, n)):
+                r = free_rank[i]
+                src[a, i] = act_list[r] if 0 <= r < take else -1
+                writes_n[a, i] += 1
+            span_m = -(-m // tiles)
+            last = act_list[take - 1] if take > 0 else -1
+            for s in range(t * span_m, min(t * span_m + span_m, m)):
+                taken[a, s] = bool(activate[a, s]) and s <= last
+                writes_m[a, s] += 1
+    return src, taken, writes_n, writes_m
+
 
 def _cross(a, b):
     return (a[1] * b[2] - a[2] * b[1], a[2] * b[0] - a[0] * b[2], a[0] * b[1] - a[1] * b[0])

@@ -1,6 +1,6 @@
-"""Host models of what the frontend's kernels K1 (``csrc/pyramid.cu``) and K4
-(``csrc/epipolar.cu``) compute in their own order, in numpy float32, for
-the CPU tests (``tests/test_torch_frontend_models.py``).
+"""Host models of what the frontend's kernels K1 (``csrc/pyramid.cu``), K4
+(``csrc/epipolar.cu``) and K5 (``csrc/flow.cu``) compute in their own order,
+in numpy, for the CPU tests (``tests/test_torch_frontend_models.py``).
 
 * :func:`linspace` and :func:`alpha_group`: the sample positions K4 forms
   itself (torch.linspace's two-sided formula; the group centres from an
@@ -10,7 +10,10 @@ the CPU tests (``tests/test_torch_frontend_models.py``).
   card's order of the quaternion's 4-term sum;
 * :func:`pyramid`: K1's one launch, block by block: each 32×32 tile of
   level 0 read with its halo, the coarser levels' tiles built in the
-  block's buffers, each level's values and gradients written from them.
+  block's buffers, each level's values and gradients written from them;
+* :func:`flow_block_sums`: K5's f64 sums, a thread per point over a grid of
+  blocks, each block's partial in a fixed order and the last block to finish
+  adding the partials in block index order.
 """
 
 from __future__ import annotations
@@ -19,6 +22,8 @@ import numpy as np
 
 F32 = np.float32
 TILE = 32   # csrc/pyramid.cu::kTile
+FLOW_THREADS = 256   # csrc/flow.cu::kFlowThreads
+FLOW_MAX_BLOCKS = 64   # csrc/flow.cu::kMaxBlocks
 
 
 def linspace(start: float, end: float, steps: int) -> np.ndarray:
@@ -128,3 +133,54 @@ def pyramid(image: np.ndarray, levels: int):
                 for plane, val in enumerate((v, dx, dy)):
                     out[lvl][plane][np.ix_(ys, xs)] = val
     return out
+
+
+def flow_blocks(n: int) -> int:
+    """K5's grid for ``n`` points: a block per 256, at most 64."""
+    return min(-(-n // FLOW_THREADS), FLOW_MAX_BLOCKS)
+
+
+def flow_block_sums(terms: np.ndarray, ok: np.ndarray, blocks: int, finish=None,
+                    threads: int = FLOW_THREADS):
+    """K5's sum and count of one pose's squared ray distances ``terms`` [n]
+    (f32) over the points where ``ok``, in the kernel's order: each thread's
+    points (p = block · 256 + thread, striding by the grid) added in f64 in
+    turn, a warp butterfly (xor 16, 8, 4, 2, 1), the warps in index order;
+    each block's partial stored in its own place, then, by the block that
+    finishes last (``finish``: the blocks' order of finishing, any
+    permutation), the partials added in block index order → (f64 sum, count).
+    ``threads``: a block's threads (the kernel before this design: one block
+    of 1024).
+    """
+    n = terms.shape[0]
+    stride = blocks * threads
+    per_thread = np.zeros(stride)
+    count = np.zeros(stride, np.int64)
+    for start in range(0, n, stride):
+        chunk = np.where(ok[start:start + stride], terms[start:start + stride].astype(np.float64),
+                         0.0)
+        per_thread[:chunk.shape[0]] += chunk
+        count[:chunk.shape[0]] += ok[start:start + stride]
+    lanes = per_thread.reshape(blocks, threads // 32, 32)
+    idx = np.arange(32)
+    for off in (16, 8, 4, 2, 1):
+        lanes = lanes + lanes[..., idx ^ off]
+    partial_sum = np.zeros(blocks)
+    for w in range(threads // 32):
+        partial_sum = partial_sum + lanes[:, w, 0]
+    partial_count = count.reshape(blocks, -1).sum(axis=1)
+    # the partials land in their places in finishing order; the last block
+    # reads them all, in index order
+    stored = np.full(blocks, np.nan)
+    order = range(blocks) if finish is None else finish
+    for b in order:
+        stored[b] = partial_sum[b]
+    total = 0.0
+    for b in range(blocks):
+        total += stored[b]
+    return total, int(partial_count.sum())
+
+
+def flow_from_sums(total: float, count: int) -> np.float32:
+    """``sqrtf((float)sum / (float)max(count, 1))``."""
+    return np.sqrt(F32(total) / F32(max(count, 1)))

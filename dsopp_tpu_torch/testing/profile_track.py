@@ -26,10 +26,7 @@ path, after the 6-frame known-pose bootstrap:
 3. in that run, ``torch.profiler`` over ``WINDOW`` steady frames (device
    busy time per frame; idle share against the plain runs' frame time;
    device time per launch of each hand-written kernel; K3's device time and
-   longest LM iteration count per launch by level and number of hypotheses) and
-   PyTorch's sync debug mode over the next ``WINDOW`` frames (host
-   synchronisations per frame, and per keyframe inside the keyframe backend
-   and inside the span from the policy through the ledger fold);
+   longest LM iteration count per launch by level and number of hypotheses);
 4. the last frame once more from the state before it, ``REPEATS`` times as
    it is and ``REPEATS`` times with the re-track gate closed
    (``rmse_last0`` tiny, so the 105 further hypotheses run): the cost of an
@@ -37,7 +34,12 @@ path, after the 6-frame known-pose bootstrap:
 5. one more run over all frames, untimed, with the stages of 2 reading the
    device memory's peak after each call (each read builds the allocator's
    whole statistics on the host, which is why the timed run makes none): the
-   innermost stage in which the run's peak was reached.
+   innermost stage in which the run's peak was reached;
+6. one more run over all frames, untimed, under PyTorch's sync debug mode
+   "warn", the last frames' bookkeeping drained at its end: host
+   synchronisations per frame (every tick and every frame's bookkeeping), and
+   per keyframe inside the keyframe backend and inside the span from the
+   policy through the ledger fold.
 
 Prints one JSON object per path, with the card's name and power limit, and
 writes them to ``out.json`` when given.  Needs a CUDA card.
@@ -89,6 +91,8 @@ KERNEL_GROUPS = {
     "activation": ("activation_landmarks_kernel", "activation_walk_kernel",
                    "active_projections_kernel", "candidates_kernel"),
     "refine_idepth": ("compact_kernel", "refine_kernel"),
+    "flow_statistic": ("flow_kernel",),
+    "activation_scatter": ("pair_slots_kernel",),
     "ba_linearize_schur": ("pair_kernel", "landmark_kernel", "schur_kernel", "reduce_kernel"),
     "depth_maps": ("prepare_kernel", "twins_kernel", "chain_kernel", "pool_kernel",
                    "dilate_hist_kernel", "class_threshold_kernel", "tile_count_kernel",
@@ -96,13 +100,16 @@ KERNEL_GROUPS = {
                    "project_kernel", "depth_scatter_kernel", "dilate_kernel", "hist_kernel",
                    "heavy_rank_kernel"),
 }
+# a stage's function -> its name in an earlier design, timed in its place in a
+# parent tree that lacks it (K5 was the flows alone, the decision in torch)
+EARLIER_NAMES = {"frame_statistics": "mean_square_flows"}
 # (module, function) -> stage name
 STAGES = {
     (device_loop, "_frontend_core"): "frontend",
     (fused_tick, "build_pyramid_maps"): "pyramid",
     (fused_tick, "_run_chunks"): "align_chain",
     (fused_tick, "estimate_depths"): "epipolar",
-    (fused_tick, "mean_square_flows"): "flow",
+    (fused_tick, "frame_statistics"): "flow",     # K5 with the keyframe decision
     (device_loop, "keyframe_update"): "keyframe_backend",
     (fused_keyframe, "push_frame_slot"): "kf_push",
     (fused_keyframe, "immature_bank"): "kf_bank",
@@ -157,6 +164,9 @@ class StageTimers:
     def __enter__(self):
         for (module, name), stage in STAGES.items():
             fn = getattr(module, name, None)
+            if fn is None and self.missing_ok and name in EARLIER_NAMES:
+                name = EARLIER_NAMES[name]
+                fn = getattr(module, name, None)
             if fn is None:
                 if not self.missing_ok:
                     self.__exit__()
@@ -333,18 +343,8 @@ def profile_path(name, parent_tree=False):
     out["device_idle_share"] = 1.0 - busy_ms / frame_ms
     out["profiled_window"] = dict(frames=WINDOW, keyframes=kf)
 
-    torch.cuda.set_sync_debug_mode("warn")
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        with SyncCounts(caught) as spans:
-            _, kf, _ = run_frames(pipe, seq, split + WINDOW, last - 1)
-    torch.cuda.set_sync_debug_mode("default")
-    syncs = spans.count()
-    out["host_syncs_per_frame"] = syncs / (WINDOW - 1)
-    out["host_syncs_per_keyframe"] = ({span: n / spans.keyframes for span, n in spans.syncs.items()}
-                                      if spans.keyframes else None)
+    run_frames(pipe, seq, split + WINDOW, last - 1)
     out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
-    out["sync_window"] = dict(frames=WINDOW - 1, keyframes=kf)
 
     def last_frame_ms(state):
         torch.cuda.synchronize()
@@ -367,6 +367,21 @@ def profile_path(name, parent_tree=False):
     with StageTimers(peak=True, missing_ok=parent_tree) as peaks:
         run_frames(start(seq, out["path"]), seq, INIT_FRAMES, last)
     out["peak_memory_stage"] = dict(stage=peaks.peak[0], bytes=peaks.peak[1])
+
+    # every host synchronisation of a whole run, the bookkeeping of every frame
+    # included (the last frames' drained at the end)
+    pipe = start(seq, out["path"])
+    torch.cuda.set_sync_debug_mode("warn")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        with SyncCounts(caught) as spans:
+            _, kf, _ = run_frames(pipe, seq, INIT_FRAMES, last)
+            pipe.drain()
+    torch.cuda.set_sync_debug_mode("default")
+    out["host_syncs_per_frame"] = spans.count() / (last - INIT_FRAMES)
+    out["host_syncs_per_keyframe"] = ({span: n / spans.keyframes for span, n in spans.syncs.items()}
+                                      if spans.keyframes else None)
+    out["sync_window"] = dict(frames=last - INIT_FRAMES, keyframes=kf)
     return out
 
 

@@ -6,8 +6,8 @@ without :mod:`testing.profiling`'s pause at its start.
 Two kinds of session, each ``SESSIONS`` times with no pause and with
 ``profiling.LEAD_S``: one launch of the row gather (``gather``: a session is
 lossy when it holds no device record), and ``SOLVES`` one-call BA solves on
-the dense parity window of ``testing/solve_bits.py`` (``solve``: lossy when
-it holds fewer device records than the largest session of its kind; for
+the dense parity window of ``testing/bits.py``'s ``solve`` case (``solve``:
+lossy when it holds fewer device records than the largest session of its kind; for
 each lossy one, whether what it kept is the head or the tail of that
 session's kernel sequence).  Prints one JSON object with the card's name
 and power limit, and writes it to ``out.json`` when given.  Needs a CUDA
@@ -56,11 +56,11 @@ def main(argv):
         print("profiler_loss: no CUDA device", file=sys.stderr)
         return 2
     from dsopp_tpu_torch.solvers import pba
-    from dsopp_tpu_torch.testing import gather_probe, solve_bits
+    from dsopp_tpu_torch.testing import bits, gather_probe
     from dsopp_tpu_torch.testing.paths import card_line
 
     table, _, idx = gather_probe.probe_inputs("cuda")
-    window, model, opts = solve_bits.make_inputs()["dense/own"]
+    window, model, opts = bits.solve_inputs()["dense/own"]
     cases = {"gather": (lambda: gather_probe.row_gather_cuda(table, idx), 1),
              "solve": (lambda: pba._solve_loop_cuda(window, model, opts), SOLVES)}
     out = dict(card=card_line(), lead_s=profiling.LEAD_S)

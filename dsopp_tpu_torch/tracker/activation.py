@@ -6,7 +6,9 @@ idepth) activates when it reprojects validly into the newest keyframe and no
 ACTIVE landmark projects within ``min_distance`` of it; activating points
 get a 3-iteration scalar LM on idepth against every window frame (newest
 host bank first, at most ``REFINE_CAP`` per keyframe) and are then paired
-rank for rank with free landmark slots of their host frame.
+rank for rank with free landmark slots of their host frame (the pairing
+also applies the refinement's outcome to the banks: kept points take the
+refined idepth, refined points not kept are deleted).
 
 Immature points carry intensity patches (the epipolar tracer is C = 1, as
 the reference's), and the refinement samples channel 0 of the window's
@@ -318,9 +320,18 @@ def embedded_patches(window: Window, uv):
     return vals.reshape(k, m, c * PATTERN_SIZE)
 
 
-def _activation_scatter_plain(window: Window, imm: ImmaturePoints, activate, delete):
+def _activation_scatter_plain(window: Window, imm: ImmaturePoints, activate, delete,
+                              idepth=None, selected=None):
     """Move accepted immature points into free landmark slots, per slot; in a
-    window of C > 1 channels their patches are :func:`embedded_patches`."""
+    window of C > 1 channels their patches are :func:`embedded_patches`.
+    ``idepth``, ``selected``: the refinement's outputs, or None where none ran;
+    then ``activate`` is its keep mask, and first the kept points' idepth
+    bounds become the refined idepth and the refined points not kept are
+    deleted (``fused_keyframe_push``'s glue in the JAX package)."""
+    if idepth is not None:
+        delete = delete | (selected & ~activate)
+        imm = imm._replace(idepth_min=torch.where(activate, idepth, imm.idepth_min),
+                           idepth_max=torch.where(activate, idepth, imm.idepth_max))
     k, n = window.lm_valid.shape
     m = imm.uv.shape[1]
     r = min(n, m)
@@ -363,11 +374,14 @@ def _activation_scatter_plain(window: Window, imm: ImmaturePoints, activate, del
     return window, imm._replace(valid=imm_valid), torch.sum(take)
 
 
-def _activation_scatter_cuda(window: Window, imm: ImmaturePoints, activate, delete):
-    """Kernel K14 (pairing): same outputs as :func:`_activation_scatter_plain`.
-    The kernel writes clones of the window's tensors, so the caller's window
-    stays as it was; every output is dense.  At C > 1 it samples the moved
-    points' C-channel patches from their host slots' channel bank."""
+def _activation_scatter_cuda(window: Window, imm: ImmaturePoints, activate, delete,
+                             idepth=None, selected=None):
+    """Kernel K14 (pairing): same outputs as :func:`_activation_scatter_plain`,
+    the refinement's glue included, in one C call with no host read.  The
+    kernel writes every entry of new window tensors and banks once (the
+    untouched ones copied), so the caller's window and banks stay as they
+    were; every output is dense.  At C > 1 it samples the moved points'
+    C-channel patches from their host slots' channel bank."""
     k, n = window.num_slots, window.num_landmark_slots
     c = window.num_channels
     km, m = _check_banks(imm)
@@ -376,6 +390,11 @@ def _activation_scatter_cuda(window: Window, imm: ImmaturePoints, activate, dele
         raise ValueError(f"{km} immature banks for {k} frame slots")
     check(activate, "activate", (k, m), torch.bool)
     check(delete, "delete", (k, m), torch.bool)
+    if (idepth is None) != (selected is None):
+        raise ValueError("the refinement's idepth and selected come together")
+    if idepth is not None:
+        check(idepth, "refined idepth", (k, m))
+        check(selected, "selected", (k, m), torch.bool)
     check(window.lm_uv, "lm_uv", (k, n, 2))
     check(window.lm_patch, "lm_patch", (k, n, c * PATTERN_SIZE))
     h_px, w_px = window.maps.shape[-2:]
@@ -384,23 +403,33 @@ def _activation_scatter_cuda(window: Window, imm: ImmaturePoints, activate, dele
     check(window.lm_valid, "lm_valid", (k, n), torch.bool)
     check(window.res_status, "res_status", (k, k, n), torch.int32)
     dev = imm.uv.device
-    lm_uv, lm_patch, lm_idepth = (window.lm_uv.clone(), window.lm_patch.clone(),
-                                  window.lm_idepth.clone())
-    lm_valid, status = window.lm_valid.clone(), window.res_status.clone()
-    imm_valid = torch.empty((k, m), dtype=torch.bool, device=dev)
-    n_activated = torch.empty((1,), dtype=torch.int64, device=dev)
+    f32, u8 = dict(dtype=torch.float32, device=dev), dict(dtype=torch.bool, device=dev)
+    lm_uv, lm_patch = torch.empty((k, n, 2), **f32), torch.empty((k, n, c * PATTERN_SIZE), **f32)
+    lm_idepth, lm_valid = torch.empty((k, n), **f32), torch.empty((k, n), **u8)
+    status = torch.empty((k, k, n), dtype=torch.int32, device=dev)
+    imm_valid = torch.empty((k, m), **u8)
+    idepth_min = idepth_max = None
+    if idepth is not None:
+        idepth_min, idepth_max = torch.empty((k, m), **f32), torch.empty((k, m), **f32)
+    n_activated = torch.empty((), dtype=torch.int64, device=dev)
+    ws = kernels.workspace(kernels.ACTIVATION_SCATTER, kernels.PAIR_WORKSPACE_BYTES, dev)
     kernels.ACTIVATION_SCATTER(
-        activate, delete, imm.uv, imm.patch, imm.idepth_min, imm.idepth_max, imm.valid,
-        window.channel_bank, c, h_px, w_px,
-        k, n, m, torch.empty((k, n + m), dtype=torch.int32, device=dev), lm_uv, lm_patch,
-        lm_idepth, lm_valid, status, imm_valid, n_activated)
+        activate, delete, selected, idepth, imm.uv, imm.patch, imm.idepth_min, imm.idepth_max,
+        imm.valid, window.channel_bank, c, h_px, w_px, k, n, m, window.lm_uv, window.lm_patch,
+        window.lm_idepth, window.lm_valid, window.res_status, lm_uv, lm_patch, lm_idepth,
+        lm_valid, status, imm_valid, idepth_min, idepth_max, n_activated, ws, ws.numel())
     window = window.replace(lm_uv=lm_uv, lm_patch=lm_patch, lm_idepth=lm_idepth,
                             lm_valid=lm_valid, res_status=status)
-    return window, imm._replace(valid=imm_valid), n_activated[0]
+    if idepth is None:
+        return window, imm._replace(valid=imm_valid), n_activated
+    return (window, imm._replace(valid=imm_valid, idepth_min=idepth_min, idepth_max=idepth_max),
+            n_activated)
 
 
-def _activation_scatter(window: Window, imm: ImmaturePoints, activate, delete):
-    """The move into landmark slots: the kernel K14 on CUDA tensors, the plain
-    version on CPU ones."""
+def _activation_scatter(window: Window, imm: ImmaturePoints, activate, delete, idepth=None,
+                        selected=None):
+    """The move into landmark slots, after the refinement's glue where
+    ``idepth`` and ``selected`` (its outputs) are given: the kernel K14 on
+    CUDA tensors, the plain version on CPU ones."""
     fn = _activation_scatter_cuda if window.lm_uv.is_cuda else _activation_scatter_plain
-    return fn(window, imm, activate, delete)
+    return fn(window, imm, activate, delete, idepth, selected)

@@ -11,9 +11,12 @@ sum.  Per level the heaviest pixels become the frontend's points.
 ``csrc/depth_maps.cu``: each pixel's points chained and summed in point
 order, and a counting selection, in place of ``index_add_`` and the stable
 sorts of the plain version) and
-:func:`mean_square_flows` has one (K5, ``csrc/flow.cu``), each beside its
-plain version; both dispatch on their tensors' device: CUDA tensors go to the
-kernel or raise.
+:func:`frame_statistics` has one (K5, ``csrc/flow.cu``: the flow statistic,
+the frontend's reliability gate and the keyframe decision of a frame in one
+launch, packed into one buffer that the tracker copies to the host once a
+frame; :func:`mean_square_flows`, the flows alone, is the same kernel), each
+beside its plain version; all dispatch on their tensors' device: CUDA
+tensors go to the kernel or raise.
 """
 
 from __future__ import annotations
@@ -36,6 +39,16 @@ MAX_SHIFT_NO_ROT_WEIGHT = 9.0
 MAX_BRIGHTNESS_WEIGHT = 2.0
 KEYFRAME_THRESHOLD = 1.0
 MAX_EXCESS_ENERGY = 4.0
+# the frontend's reliability gate: a frame is reliable at rmse < 2.5 x the last
+# reliable rmse (monocular_tracker.cpp:185)
+ENERGY_RATIO_THRESHOLD = 2.5
+
+# frame_statistics' packed output, one host copy a frame: the two flows, the
+# gate, the state's next rmse_last0 and kf_rmse, the strategy's decision, the
+# tick's rmse and the 16 entries of T_kf_frame (row-major)
+(STAT_FLOW, STAT_FLOW_NO_ROT, STAT_RELIABLE, STAT_RMSE_LAST0, STAT_KF_RMSE, STAT_NEED,
+ STAT_RMSE, STAT_MATRIX) = range(8)
+STATS = STAT_MATRIX + 16
 
 FLOW_CAP = 8192   # slots of the compact flow-statistic point set
 
@@ -226,9 +239,8 @@ def mean_square_flows_plain(pts: LevelPoints, model, t_t_r: SE3, border: int = 4
     return one(t_t_r), one(SE3(q_id, t_t_r.t))
 
 
-def mean_square_flows_cuda(pts: LevelPoints, model, t_t_r: SE3, border: int = 4):
-    """Kernel K5: same outputs as :func:`mean_square_flows_plain`, one launch,
-    no host read."""
+def _flow_args(pts: LevelPoints, t_t_r: SE3):
+    """Check K5's point and pose tensors → the point count."""
     n = pts.uv.shape[0]
     check = kernels.check
     check(pts.uv, "uv", (n, 2))
@@ -236,9 +248,18 @@ def mean_square_flows_cuda(pts: LevelPoints, model, t_t_r: SE3, border: int = 4)
     check(pts.valid, "valid", (n,), torch.bool)
     check(t_t_r.q, "pose q", (4,))
     check(t_t_r.t, "pose t", (3,))
+    return n
+
+
+def mean_square_flows_cuda(pts: LevelPoints, model, t_t_r: SE3, border: int = 4):
+    """Kernel K5 without the decision: same outputs as
+    :func:`mean_square_flows_plain`, one launch, no host read."""
+    n = _flow_args(pts, t_t_r)
     out = torch.empty((2,), dtype=pts.uv.dtype, device=pts.uv.device)
+    ws = kernels.workspace(kernels.FLOW, kernels.FLOW_WORKSPACE_BYTES, out.device)
     kernels.FLOW(pts.uv, pts.idepth, pts.valid, n, t_t_r.q, t_t_r.t, model.fx, model.fy,
-                 model.cx, model.cy, model.width, model.height, float(border), out)
+                 model.cx, model.cy, model.width, model.height, float(border), None, None,
+                 None, None, None, 0.0, 0, ws, ws.numel(), out)
     return out[0], out[1]
 
 
@@ -247,3 +268,70 @@ def mean_square_flows(pts: LevelPoints, model, t_t_r: SE3, border: int = 4):
     on CPU ones."""
     fn = mean_square_flows_cuda if pts.uv.is_cuda else mean_square_flows_plain
     return fn(pts, model, t_t_r, border)
+
+
+def keyframe_decision_plain(flow, flow_no_rot, rmse, num_valid, rmse_last0, kf_rmse,
+                            keyframe_factor: float, force_kf: bool):
+    """The frontend's reliability gate and the keyframe strategy's decision
+    (``dsopp_tpu/tracker/device_loop.py::_frontend_core``) → (reliable, the
+    state's next rmse_last0, its next kf_rmse, the strategy's decision)."""
+    reliable = (rmse < ENERGY_RATIO_THRESHOLD * rmse_last0) & (num_valid > 0)
+    rmse_last0_new = torch.where(reliable, rmse, rmse_last0 * ENERGY_RATIO_THRESHOLD)
+    kf_rmse_eff = torch.where(kf_rmse < 0, rmse, kf_rmse)
+    need = (
+        (keyframe_factor * (MAX_SHIFT_WEIGHT * flow + MAX_SHIFT_NO_ROT_WEIGHT * flow_no_rot)
+         > KEYFRAME_THRESHOLD)
+        | (rmse / torch.clamp(kf_rmse_eff, min=1e-12) > MAX_EXCESS_ENERGY)
+    ) & reliable
+    if force_kf:
+        kf_rmse_new = kf_rmse
+    else:
+        kf_rmse_new = torch.where(need, torch.full_like(kf_rmse_eff, -1.0), kf_rmse_eff)
+    return reliable, rmse_last0_new, kf_rmse_new, need
+
+
+def frame_statistics_plain(pts: LevelPoints, model, t_t_kf: SE3, t_kf_frame_mat, rmse,
+                           num_valid, rmse_last0, kf_rmse, keyframe_factor: float,
+                           force_kf: bool, border: int = 4):
+    """The flow statistic, the frontend's reliability gate and the keyframe
+    decision of one frame → the packed [STATS] statistics (``STAT_*``;
+    booleans as 0 / 1)."""
+    flow, flow_no_rot = mean_square_flows_plain(pts, model, t_t_kf, border)
+    reliable, rmse_last0_new, kf_rmse_new, need = keyframe_decision_plain(
+        flow, flow_no_rot, rmse, num_valid, rmse_last0, kf_rmse, keyframe_factor, force_kf)
+    dtype = rmse.dtype
+    head = torch.stack([flow, flow_no_rot, reliable.to(dtype), rmse_last0_new, kf_rmse_new,
+                        need.to(dtype), rmse])
+    return torch.cat([head, t_kf_frame_mat.reshape(16)])
+
+
+def frame_statistics_cuda(pts: LevelPoints, model, t_t_kf: SE3, t_kf_frame_mat, rmse,
+                          num_valid, rmse_last0, kf_rmse, keyframe_factor: float,
+                          force_kf: bool, border: int = 4):
+    """Kernel K5 with the decision: same outputs as
+    :func:`frame_statistics_plain`, one launch into a new buffer, no host
+    read, the caller's tensors untouched."""
+    n = _flow_args(pts, t_t_kf)
+    check = kernels.check
+    check(t_kf_frame_mat, "t_kf_frame_mat", (4, 4))
+    check(rmse, "rmse", ())
+    check(num_valid, "num_valid", (), torch.int32)
+    check(rmse_last0, "rmse_last0", ())
+    check(kf_rmse, "kf_rmse", ())
+    out = torch.empty((STATS,), dtype=torch.float32, device=pts.uv.device)
+    ws = kernels.workspace(kernels.FLOW, kernels.FLOW_WORKSPACE_BYTES, out.device)
+    kernels.FLOW(pts.uv, pts.idepth, pts.valid, n, t_t_kf.q, t_t_kf.t, model.fx, model.fy,
+                 model.cx, model.cy, model.width, model.height, float(border), t_kf_frame_mat,
+                 rmse, num_valid, rmse_last0, kf_rmse, float(keyframe_factor), int(force_kf),
+                 ws, ws.numel(), out)
+    return out
+
+
+def frame_statistics(pts: LevelPoints, model, t_t_kf: SE3, t_kf_frame_mat, rmse, num_valid,
+                     rmse_last0, kf_rmse, keyframe_factor: float, force_kf: bool,
+                     border: int = 4):
+    """A frame's flows, gate and keyframe decision, packed for one host copy:
+    the kernel K5 on CUDA tensors, the plain version on CPU ones."""
+    fn = frame_statistics_cuda if pts.uv.is_cuda else frame_statistics_plain
+    return fn(pts, model, t_t_kf, t_kf_frame_mat, rmse, num_valid, rmse_last0, kf_rmse,
+              keyframe_factor, force_kf, border)

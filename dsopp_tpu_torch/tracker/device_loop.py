@@ -7,8 +7,10 @@ activation, windowed BA, marginalization policy and ledger fold, and the
 rebuild of the frontend depth maps.
 
 The keyframe decision is read on the host once per frame (a Python ``if``
-in place of the reference's ``lax.cond``), as is the escalation flag of the
-perturbation re-track; every other per-frame value stays on the device.
+in place of the reference's ``lax.cond``): one copy of K5's packed
+statistics, which also carries what the host's bookkeeping of a regular
+frame reads.  The escalation flag of the perturbation re-track is read too;
+every other per-frame value stays on the device.
 :class:`PipelinedTracker` queues the per-frame diagnostics and folds them
 into the host track every ``flush_every`` frames.
 """
@@ -28,11 +30,11 @@ from dsopp_tpu_torch.solvers.pose_alignment import AlignmentOptions
 from dsopp_tpu_torch.track.state import AttachedFrame, MarginalizedKeyframe, sample_semantics
 from dsopp_tpu_torch.tracker.activation import MAX_DISTANCE, MIN_DISTANCE, P_GAIN
 from dsopp_tpu_torch.tracker.depth_estimation import ImmaturePoints
-from dsopp_tpu_torch.tracker.depth_map import (KEYFRAME_THRESHOLD, MAX_EXCESS_ENERGY,
-                                               MAX_SHIFT_NO_ROT_WEIGHT, MAX_SHIFT_WEIGHT,
-                                               build_frontend_state)
+from dsopp_tpu_torch.tracker.depth_map import (STAT_FLOW, STAT_FLOW_NO_ROT, STAT_KF_RMSE,
+                                               STAT_MATRIX, STAT_NEED, STAT_RMSE,
+                                               STAT_RMSE_LAST0, build_frontend_state)
 from dsopp_tpu_torch.tracker.fused_keyframe import fused_keyframe_push
-from dsopp_tpu_torch.tracker.fused_tick import ENERGY_RATIO_THRESHOLD, fused_regular_tick
+from dsopp_tpu_torch.tracker.fused_tick import fused_regular_tick
 from dsopp_tpu_torch.tracker.marginalization import flags_device
 
 
@@ -108,6 +110,8 @@ class TickDiag(NamedTuple):
     lm_valid: torch.Tensor      # [K, N]
     lm_outlier: torch.Tensor    # [K, N]
     lm_baseline: torch.Tensor   # [K, N]
+    host_stats: object = None   # the frame's K5 statistics on the host (numpy, STAT_*),
+    #                             None on a forced keyframe
 
 
 class KeyframeUpdate(NamedTuple):
@@ -186,6 +190,12 @@ def record_marginalized(track, snap: dict, timestamp: float, kf_semantics=None):
 
 def _frontend_core(state: DeviceTrackerState, image, force_kf: bool, models,
                    cfg: DeviceLoopConfig, exposure):
+    """The regular tick with the reliability gate and the keyframe decision
+    (K5, inside :func:`fused_regular_tick`) → (the state after the frame, the
+    keyframe flag, the tick's result).  Without ``force_kf`` the flag comes
+    from the frame's one host copy of K5's packed statistics, which the
+    result carries (``host_stats``) for the host's bookkeeping; with it
+    nothing is read."""
     window = state.window
     poses = window.poses()
     out = fused_regular_tick(
@@ -193,30 +203,21 @@ def _frontend_core(state: DeviceTrackerState, image, force_kf: bool, models,
         window.affine(), window.exposure, exposure, newest_slot(window),
         state.immature, state.last_q, state.last_t, state.prev_q, state.prev_t,
         state.last_affine, models, cfg.align_opts, cfg.with_perturbations,
-        cfg.num_levels, cfg.huber_sigma, state.rmse_last0)
-
-    rmse = out.rmse
-    reliable = (rmse < ENERGY_RATIO_THRESHOLD * state.rmse_last0) & (out.num_valid > 0)
-    rmse_last0 = torch.where(reliable, rmse, state.rmse_last0 * ENERGY_RATIO_THRESHOLD)
-    kf_rmse_eff = torch.where(state.kf_rmse < 0, rmse, state.kf_rmse)
-    need_strategy = (
-        (cfg.keyframe_factor * (MAX_SHIFT_WEIGHT * out.flow
-                                + MAX_SHIFT_NO_ROT_WEIGHT * out.flow_no_rot)
-         > KEYFRAME_THRESHOLD)
-        | (rmse / torch.clamp(kf_rmse_eff, min=1e-12) > MAX_EXCESS_ENERGY)
-    ) & reliable
+        cfg.num_levels, cfg.huber_sigma, state.rmse_last0, state.kf_rmse,
+        cfg.keyframe_factor, force_kf)
     if force_kf:
-        kf_rmse, need_kf = state.kf_rmse, True
+        need_kf = True
     else:
-        kf_rmse = torch.where(need_strategy, torch.full_like(kf_rmse_eff, -1.0), kf_rmse_eff)
-        need_kf = bool(need_strategy)
+        host = out.stats.cpu().numpy()      # the frame's one device read
+        need_kf = bool(host[STAT_NEED])
+        out = out._replace(host_stats=host)
 
     t_w_t = SE3(out.pose_q, out.pose_t)
     t_prev_rel = SE3(state.last_q, state.last_t).inverse() @ t_w_t
     base = state._replace(immature=out.immature, last_q=t_w_t.q, last_t=t_w_t.t,
                           prev_q=t_prev_rel.q, prev_t=t_prev_rel.t,
-                          last_affine=out.affine, rmse_last0=rmse_last0,
-                          kf_rmse=kf_rmse)
+                          last_affine=out.affine, rmse_last0=out.stats[STAT_RMSE_LAST0],
+                          kf_rmse=out.stats[STAT_KF_RMSE])
     return base, need_kf, out
 
 
@@ -228,7 +229,7 @@ def _backend_core(base: DeviceTrackerState, out, need_kf: bool, frame_id: int,
                  rmse_chunk0=out.rmse_chunk0, pose_q=out.pose_q,
                  pose_t=out.pose_t, affine=out.affine, rmse=out.rmse, flow=out.flow,
                  flow_no_rot=out.flow_no_rot, num_valid_align=out.num_valid,
-                 t_kf_frame_mat=out.t_kf_frame_mat)
+                 t_kf_frame_mat=out.t_kf_frame_mat, host_stats=out.host_stats)
     if not need_kf:
         win = base.window
         k, n = win.num_slots, win.num_landmark_slots
@@ -344,10 +345,13 @@ class PipelinedTracker:
                 self._kf_semantics[fid] = sem
             record_marginalized(track, d._asdict(), ts, self._kf_semantics)
         else:
+            # a regular frame's values come from the frame's one host copy
+            host = d.host_stats
             track.attach_frame(AttachedFrame(
-                fid, ts, self.cur_kf, d.t_kf_frame_mat.cpu().numpy().astype(np.float64),
-                flow=float(d.flow), flow_without_rotation=float(d.flow_no_rot),
-                rmse=float(d.rmse)))
+                fid, ts, self.cur_kf,
+                host[STAT_MATRIX:STAT_MATRIX + 16].reshape(4, 4).astype(np.float64),
+                flow=float(host[STAT_FLOW]), flow_without_rotation=float(host[STAT_FLOW_NO_ROT]),
+                rmse=float(host[STAT_RMSE])))
 
     def finalize(self):
         """Flush the bookkeeping and write the state back into the tracker."""

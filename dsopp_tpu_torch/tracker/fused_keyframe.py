@@ -9,8 +9,6 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
-import torch
-
 from dsopp_tpu_torch.core.interpolate import sample
 from dsopp_tpu_torch.core.pattern import shift_pattern
 from dsopp_tpu_torch.features.extractor import select_candidates
@@ -61,14 +59,14 @@ def fused_keyframe_push(window: Window, model, immature: ImmaturePoints, pixel_m
     immature = set_bank(immature, slot, immature_bank(pixel_map0, immature_per_frame, mask))
 
     activate, delete, n_active = _activation_kernel(window, model, immature, min_distance)
+    idepth = selected = None
     if refine:
+        # the pairing applies the refinement's outcome (keep → activate, the
+        # refined idepth into the bounds, refined but not kept → deleted)
         idepth, activate, selected = _refine_idepth_kernel(window, model, immature,
                                                            activate, huber_sigma)
-        delete = delete | (selected & ~activate)
-        immature = immature._replace(
-            idepth_min=torch.where(activate, idepth, immature.idepth_min),
-            idepth_max=torch.where(activate, idepth, immature.idepth_max))
-    window, immature, n_activated = _activation_scatter(window, immature, activate, delete)
+    window, immature, n_activated = _activation_scatter(window, immature, activate, delete,
+                                                        idepth, selected)
     window, energy, num_valid = _solve_loop_device(window, model, opts)
     batch = dict(energy=energy, num_valid=num_valid, n_active=n_active,
                  n_activated=n_activated, new_affine=window.affine().index_select(0, slot)[0],

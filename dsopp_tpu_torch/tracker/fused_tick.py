@@ -5,7 +5,8 @@ Pyramid (K1) → coarse-to-fine alignment of a chunk of 5 pose hypotheses
 (on the card one K3 launch per level for all hypotheses of the call, 5 or
 105; level 0 only for each chunk's coarse winner, or for every hypothesis
 when there is no coarser level) → epipolar depth update
-of every window bank (K4) → flow statistic.  When
+of every window bank (K4) → flow statistic, reliability gate and keyframe
+decision (K5, packed into one buffer for the caller's one host copy).  When
 the first chunk fails the 2.5× reliability gate, the 104 rotation-perturbed
 hypotheses run too (chunks 1..21, batched into one align chain); the best
 per-point energy over all chunks wins, the earliest chunk on ties.
@@ -23,9 +24,9 @@ from dsopp_tpu_torch.core.lie import SE3
 from dsopp_tpu_torch.features.pyramid import build_pyramid_maps
 from dsopp_tpu_torch.solvers.pose_alignment import AlignmentOptions, align_level
 from dsopp_tpu_torch.tracker.depth_estimation import ImmaturePoints, estimate_depths
-from dsopp_tpu_torch.tracker.depth_map import mean_square_flows
+from dsopp_tpu_torch.tracker.depth_map import (ENERGY_RATIO_THRESHOLD, STAT_FLOW,
+                                               STAT_FLOW_NO_ROT, frame_statistics)
 
-ENERGY_RATIO_THRESHOLD = 2.5
 CHUNK = 5
 
 
@@ -42,6 +43,9 @@ class FusedTickResult(NamedTuple):
     t_kf_frame_mat: torch.Tensor
     escalated: bool
     rmse_chunk0: torch.Tensor   # the rmse the re-track gate tested (chunk 0's)
+    stats: torch.Tensor         # [STATS] K5's packed statistics (depth_map.STAT_*)
+    host_stats: object = None   # ``stats`` on the host (numpy), set by the caller that
+    #                             reads it (device_loop._frontend_core)
 
 
 def _initialization_hypotheses(t_w_last: SE3, t_prev_rel: SE3, t_w_kf: SE3,
@@ -137,10 +141,14 @@ def fused_regular_tick(image, level_points, flow_points, window_poses_q,
                        prev_q, prev_t, last_affine, models,
                        align_opts: AlignmentOptions, with_perturbations: bool,
                        num_levels: int, huber_sigma: float,
-                       rmse_last0) -> FusedTickResult:
+                       rmse_last0, kf_rmse, keyframe_factor: float,
+                       force_kf: bool) -> FusedTickResult:
     """One tracked frame's frontend.  ``kf_slot``: [1] long tensor of the
-    newest keyframe slot.  Reads one flag on the host when perturbations
-    are armed (whether chunk 0 failed the gate)."""
+    newest keyframe slot.  ``rmse_last0``, ``kf_rmse``: the state's gate and
+    strategy memories, which the statistics' gate and decision read
+    (``keyframe_factor``, ``force_kf``: the strategy's factor and a forced
+    keyframe).  Reads one flag on the host when perturbations are armed
+    (whether chunk 0 failed the gate)."""
     maps = build_pyramid_maps(image, num_levels)
     kf = SE3(window_poses_q.index_select(0, kf_slot)[0],
              window_poses_t.index_select(0, kf_slot)[0])
@@ -176,9 +184,13 @@ def fused_regular_tick(image, level_points, flow_points, window_poses_q,
     immature = estimate_depths(immature, maps[0], models[0], t_w_t.q, t_w_t.t,
                                window_poses_q, window_poses_t, window_affines, b_aff,
                                exposure, window_exposures, huber_sigma)
-    flow, flow_nr = mean_square_flows(flow_points, models[0], t_t_kf)
+    t_kf_frame_mat = t_t_kf.inverse().matrix()
+    num_valid = b_valid.to(torch.int32)
+    stats = frame_statistics(flow_points, models[0], t_t_kf, t_kf_frame_mat, b_rmse, num_valid,
+                             rmse_last0, kf_rmse, keyframe_factor, force_kf)
+    flow, flow_nr = stats[STAT_FLOW], stats[STAT_FLOW_NO_ROT]
     return FusedTickResult(
         maps=maps, pose_q=t_w_t.q, pose_t=t_w_t.t, affine=b_aff, rmse=b_rmse,
-        num_valid=b_valid.to(torch.int32), flow=flow, flow_no_rot=flow_nr,
-        immature=immature, t_kf_frame_mat=t_t_kf.inverse().matrix(), escalated=escalated,
-        rmse_chunk0=rmse_chunk0)
+        num_valid=num_valid, flow=flow, flow_no_rot=flow_nr,
+        immature=immature, t_kf_frame_mat=t_kf_frame_mat, escalated=escalated,
+        rmse_chunk0=rmse_chunk0, stats=stats)

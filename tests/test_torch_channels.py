@@ -24,7 +24,9 @@ patch bank is permuted (``patch_map`` not the identity):
 * ``embedded_patches`` at points near the image border (a window that leaves
   the image, corners clamped into the window) and the whole activation chain
   (activation, refinement, pairing): patches 1e-12 absolute (intensities
-  0..255), masks exact, idepths 1e-9;
+  0..255), masks exact, idepths 1e-9; the pairing's one entry (the
+  refinement's glue inside) against JAX's glue and pairing, with and without
+  a refinement;
 * the refinement on a bank whose channel 0 is a Scharr filter, not the
   intensity: the port samples channel 0 of the bank as JAX does (the same
   decisions, idepths 1e-9), and keeps nothing where the default bank keeps;
@@ -56,7 +58,7 @@ from dsopp_tpu_torch.solvers import pose_alignment as tpa
 from dsopp_tpu_torch.tracker import activation as tact
 
 from tests._torch_port import assert_close, assert_equal, np_tree, to_np, to_torch, window_fields
-from tests.test_torch_keyframe import _ready_banks
+from tests.test_torch_keyframe import _pairing_entry_matches, _ready_banks
 
 FRAMES = [0, 2, 4, 6, 8]
 SLOTS = 6
@@ -268,6 +270,16 @@ def test_activation_chain_matches_at_c3(seq):
     window = _channel_window(seq, FilterBankEmbedder())
     imm = _ready_banks(seq, window, FRAMES[:4], ready=2, n_imm=N_IMM)
     _, _, win_t = _activation_chain(seq, window, imm)
+    assert win_t.lm_patch.shape[-1] == 3 * 8
+
+
+@pytest.mark.parametrize("refine", [False, True])
+def test_pairing_entry_matches_jax_glue_and_scatter_at_c3(seq, refine):
+    """The pairing's one entry samples the moved points' C-channel patches,
+    with and without the refinement's glue inside."""
+    window = _channel_window(seq, FilterBankEmbedder())
+    imm = _ready_banks(seq, window, FRAMES[:4], ready=2, n_imm=N_IMM)
+    win_t = _pairing_entry_matches(seq, window, imm, refine)
     assert win_t.lm_patch.shape[-1] == 3 * 8
 
 

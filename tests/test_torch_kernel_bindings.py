@@ -9,7 +9,9 @@ calls from C are declared in ``csrc/ba_entries.cuh``, which their defining
 sources include, so the compiler holds those declarations to their
 definitions.)  Also the step names of ``ba_solve_loop``'s error code against
 ``csrc/ba_lm.cu::SolveStep``, and the order of its host array of launch
-counts (``pba._SOLVE_LOOP_COUNTED``) against the calls it counts.
+counts (``pba._SOLVE_LOOP_COUNTED``) against the calls it counts; and the
+bytes of the two workspaces the wrappers hand their kernels against the C
+structs they hold.
 """
 
 import ctypes
@@ -84,3 +86,32 @@ def test_solve_loop_counts_follow_the_calls_they_count():
         assert counts[count] == order.index(symbol), (symbol, count)
     assert {count for _, count in pairs} == set(counts)
     assert sorted(counts.values()) == list(range(len(pba._SOLVE_LOOP_COUNTED)))
+
+
+SIZES = {"double": 8, "int": 4, "unsigned int": 4}
+
+
+def _struct_bytes(src, name):
+    """sizeof the C struct ``name`` of ``src`` (members ``T x[A][B];`` of
+    the scalar types in SIZES, each array bound a number or an ``int``
+    constant of the source), with C's alignment."""
+    consts = {c: int(v) for c, v in re.findall(r"constexpr int (\w+) = (\d+);", src)}
+    body = src[src.index(f"struct {name} {{"):]
+    body = body[body.index("{") + 1:body.index("};")]
+    size = align = 0
+    for ctype, dims in re.findall(r"^\s*((?:unsigned )?\w+) \w+((?:\[\w+\])*);", body, re.M):
+        width = SIZES[ctype]
+        count = 1
+        for dim in re.findall(r"\[(\w+)\]", dims):
+            count *= int(dim) if dim.isdigit() else consts[dim]
+        size = -(-size // width) * width + width * count
+        align = max(align, width)
+    return -(-size // align) * align
+
+
+@pytest.mark.parametrize("source,struct,nbytes", [
+    ("flow.cu", "FlowWorkspace", kernels.FLOW_WORKSPACE_BYTES),
+    ("refine.cu", "PairWorkspace", kernels.PAIR_WORKSPACE_BYTES)])
+def test_workspace_holds_its_struct(source, struct, nbytes):
+    size = _struct_bytes((kernels.CSRC / source).read_text(), struct)
+    assert 0 < size <= nbytes, (struct, size, nbytes)

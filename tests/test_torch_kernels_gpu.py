@@ -10,7 +10,7 @@ refined GN energy 1e-4 relative where the winners agree, its outputs equal
 to the bit to the plain geometry and update on its own relative poses and
 sweep, its poses within ``parity.KERNEL_POSE_ULPS`` of torch's composition,
 two runs equal to the bit, its wrapper allocations and one kernel with no
-host read, and its outputs on ``testing/epipolar_bits.py``'s inputs equal
+host read, and its outputs on the inputs of ``testing/bits.py``'s ``k4`` case equal
 to the chain it replaced, digest by digest; K3 num_valid within 0.5 %, energy and rmse 1e-3 relative,
 rotation 1e-4 rad and translation 1e-4 m of the plain version (the result is
 held, not the iteration trace: one accept/reject can flip by rounding; a
@@ -26,7 +26,11 @@ version on ``_fej_cache_plain``, also with ``marg_pass=True``, on a small
 window and on the dense operating point's (17 slots × 340 landmarks), two
 runs equal to the bit, one launch of its own a call and ``_fej_cache``
 refusing the card's window; K5 both flows 1e-5
-relative; K9 pose and idepth step 1e-4 of the step's norm against the plain
+relative, alone and with the gate and the keyframe decision (those equal
+to the bit to the torch decision on the kernel's flows, one launch with no
+host read), and with K14's pairing equal, digest by digest, to the chains
+they replaced on the inputs of ``testing/bits.py``'s ``frame`` case, and,
+launched on two side streams in turn, equal to the default stream's; K9 pose and idepth step 1e-4 of the step's norm against the plain
 version in f64 arithmetic on the same f32 inputs (the plain f32 solve's own
 distance from it is reported by ``chip_smoke.py``), also at K = 10, 17 and 21
 on a system whose rows need a swap at nearly every column, with a dead slot
@@ -38,7 +42,7 @@ loop, final energy 1e-4 relative, poses 1e-4 rad and 1e-4 m, statuses equal on
 one C call (``ba_solve_loop``) under those gates on the small and the dense
 window with an empty and a filled ledger, its launches added to K7-K11's
 counts, two calls equal to the bit, its wrapper allocations and one C call,
-and its outputs on ``testing/solve_bits.py``'s inputs equal to the tree's
+and its outputs on the inputs of ``testing/bits.py``'s ``solve`` case equal to the tree's
 whose loop was launched from Python, digest by digest; K11 threshold 1e-6
 relative, statuses, counts and flags equal outside the 1e-6 band around the
 threshold; K12 positions, validity and slot order equal and grad2 equal to the
@@ -47,8 +51,11 @@ candidates and every difference a rounding tie (least distance within 2e-4 px
 of min_distance, or the reprojection within 1e-3 px of the image border); K14
 selected equal, keep equal on ≥ 99.5 % of the selected, idepth 1e-4 relative
 where the accept sequences are equal, the pairing equal entry by entry on the
-same inputs; K13 and K14's refinement also on the dense window, two runs equal
-to the bit, and their wrappers run no torch operator but allocations; K16 (landmarks within 1e-3 px of a pixel boundary left out of
+same inputs, with the refinement's glue inside (its bounds equal too) and
+without a refinement, in one launch with no clone and no memset, the
+caller's window and banks untouched; K13 and K14's refinement also on the
+dense window, two runs equal to the bit, and their wrappers run no torch
+operator but allocations; K16 (landmarks within 1e-3 px of a pixel boundary left out of
 both) weights and selected pixels equal, idepth 1e-6 relative, on a small and
 on the dense window, two runs equal to the bit, at most 16 launches and no
 memset a call; K15 (the ledger fold, on an empty and a filled ledger, with no
@@ -73,7 +80,7 @@ embedder, and its window's first two channels): K1's channel map 1e-3 abs;
 K7, K8 (both passes, two runs equal), K10 and K11 (C = 3), K2 and K3 with
 the tolerances above; K14's pairing, which samples the moved points'
 C-channel patches, equal entry by entry.  At C = 1 the outputs of K1, K3,
-K7, K8, K10 and K11 on ``testing/c1_bits.py``'s inputs equal the tree's
+K7, K8, K10 and K11 on the inputs of ``testing/bits.py``'s ``c1`` case equal the tree's
 before the channel axis, digest by digest.
 
 Run on a machine with a card:
@@ -435,6 +442,9 @@ def test_fej_cache_refuses_the_card(tracked):
 
 
 def test_flow_kernel_matches_plain(tracked):
+    """K5's flows alone (the bootstrap's mode, its decision inputs null) and
+    with the decision: one launch each, the flows 1e-5 relative of the plain
+    version's and equal to the bit in both modes."""
     tracker, _ = tracked
     kf = tracker._kf_pose()
     hyp = _initialization_hypotheses(tracker.t_w_last, tracker.t_prev_rel, kf, False)
@@ -447,6 +457,64 @@ def test_flow_kernel_matches_plain(tracked):
     assert float(out_p[0]) > 0 and float(out_p[1]) > 0
     assert parity.rel_max(out_k[0], out_p[0]) <= 1e-5
     assert parity.rel_max(out_k[1], out_p[1]) <= 1e-5
+    args = _statistics_args(tracker, t_t_kf, 1.0, 1.0, 0.5, 50, 1.25, False)
+    stats = _no_host_reads(dm.frame_statistics_cuda, *args)
+    assert kernels.FLOW.launches == before + 2
+    assert torch.equal(stats[:2], torch.stack(out_k))
+
+
+def _statistics_args(tracker, t_t_kf, rmse, rmse_last0, kf_rmse, num_valid, factor, force):
+    f32 = dict(dtype=torch.float32, device="cuda")
+    return (tracker.flow_points, tracker.models[0], t_t_kf,
+            t_t_kf.inverse().matrix().contiguous(), torch.tensor(rmse, **f32),
+            torch.tensor(num_valid, dtype=torch.int32, device="cuda"),
+            torch.tensor(rmse_last0, **f32), torch.tensor(kf_rmse, **f32), factor, force)
+
+
+# (rmse, rmse_last0, kf_rmse, num_valid, force): reliable or not, the strategy
+# memory unset or set on either side of MAX_EXCESS_ENERGY, no valid point, forced
+DECISION_CASES = [(1.0, 1.0, 0.5, 50, False), (1.0, 1.0, 0.2, 50, False),
+                  (1.0, 1.0, 0.25, 50, False), (1.0, 1.0, -1.0, 50, False),
+                  (3.0, 1.0, 0.2, 50, False), (1.0, 1.0, 0.2, 0, False),
+                  (1.0, 1.0, 0.5, 50, True), (2.5, 1.0, 0.5, 50, False)]
+
+
+@pytest.mark.parametrize("case", range(len(DECISION_CASES)))
+def test_flow_decision_kernel_matches_plain(tracked, case):
+    """K5 with the gate and the decision: the flows 1e-5 relative of the plain
+    version's; the gate, the state's next rmse_last0 and kf_rmse, the
+    decision, the rmse and the frame's matrix equal to the bit to the torch
+    decision on the kernel's flows (``keyframe_decision_plain`` on the card),
+    at the paths' factors and at the one that puts the flow term on the
+    threshold; one launch with no host read, the caller's tensors untouched,
+    two runs equal to the bit."""
+    tracker, _ = tracked
+    kf = tracker._kf_pose()
+    t_t_kf = SE3(tracker.t_w_last.q, tracker.t_w_last.t).inverse() @ kf
+    t_t_kf = SE3(t_t_kf.q.contiguous(), t_t_kf.t.contiguous())
+    rmse, rmse_last0, kf_rmse, num_valid, force = DECISION_CASES[case]
+    flows = dm.mean_square_flows_cuda(tracker.flow_points, tracker.models[0], t_t_kf)
+    edge = 1.0 / (dm.MAX_SHIFT_WEIGHT * float(flows[0])
+                  + dm.MAX_SHIFT_NO_ROT_WEIGHT * float(flows[1]))
+    for factor in (1.25, 2.0, 3.0, edge):
+        args = _statistics_args(tracker, t_t_kf, rmse, rmse_last0, kf_rmse, num_valid, factor,
+                                force)
+        kept = [x.clone() for x in args[3:8]]
+        before = kernels.FLOW.launches
+        stats = _no_host_reads(dm.frame_statistics_cuda, *args)
+        assert kernels.FLOW.launches == before + 1
+        assert stats.shape == (dm.STATS,) and stats.dtype == torch.float32
+        assert all(torch.equal(a, b) for a, b in zip(args[3:8], kept))
+        plain = dm.frame_statistics_plain(*args)
+        assert parity.rel_max(stats[0], plain[0]) <= 1e-5
+        assert parity.rel_max(stats[1], plain[1]) <= 1e-5
+        want = dm.keyframe_decision_plain(stats[0], stats[1], *args[4:])
+        got = (stats[dm.STAT_RELIABLE] != 0, stats[dm.STAT_RMSE_LAST0], stats[dm.STAT_KF_RMSE],
+               stats[dm.STAT_NEED] != 0)
+        assert all(torch.equal(a, b.reshape(())) for a, b in zip(got, want)), (factor, got, want)
+        assert torch.equal(stats[dm.STAT_MATRIX:], args[3].reshape(16))
+        assert float(stats[dm.STAT_RMSE]) == rmse
+        assert torch.equal(stats, dm.frame_statistics_cuda(*args))
 
 
 @pytest.mark.parametrize("lam", [1e-5, 1e-2])
@@ -579,16 +647,6 @@ def test_one_call_solve_reads_nothing_on_the_host(dense_tracked):
     res, energy, count = _no_host_reads(pba._solve_loop_cuda, win, model, opts)
     assert int(count) > 0 and bool(torch.isfinite(energy))
     assert bool(torch.isfinite(res.eps).all())
-
-
-def test_solve_matches_parent_digests():
-    """The whole solve on ``testing/solve_bits.py``'s inputs (standart, dense
-    and embedder windows, each with an empty and a filled ledger), digest by
-    digest, against the tree whose loop was launched from Python."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
-    from dsopp_tpu_torch.testing import solve_bits
-    assert solve_bits.check_against_parent(solve_bits.run(solve_bits.make_inputs())) == []
 
 
 def _no_host_reads(fn, *args, **kwargs):
@@ -737,27 +795,35 @@ def test_refine_and_scatter_kernels_match_plain(request, window, cap):
     assert torch.equal(trace_k[0], trace_again[0])
     assert not bool(trace_k[0][err["selected"]:].any())
     assert _aten_ops(act._refine_idepth_cuda, win, model, imm, activate, 20.0, cap) <= ALLOCATION_OPS
-    # the pairing, on the plain version's refinement
+    # the pairing with the refinement's glue inside, on the plain version's
+    # refinement, against the plain entry; and without a refinement
     idepth, keep, selected = out_p
-    delete = delete | (selected & ~keep)
-    imm2 = imm._replace(idepth_min=torch.where(keep, idepth, imm.idepth_min),
-                        idepth_max=torch.where(keep, idepth, imm.idepth_max))
     # leave the newest host only a few free slots, so that take = #free there
     host = int(torch.argmax(keep.sum(dim=1)))
     lm_valid = win.lm_valid.clone()
     lm_valid[host, 5:] = True
     full = win.replace(lm_valid=lm_valid)
+    kept = [x.clone() for x in (win.lm_uv, win.lm_patch, win.lm_idepth, win.lm_valid,
+                                win.res_status, imm.valid, imm.idepth_min, imm.idepth_max)]
     before = kernels.ACTIVATION_SCATTER.launches
     for window in (win, full):
-        res_k = _no_host_reads(act._activation_scatter_cuda, window, imm2, keep, delete)
-        res_p = act._activation_scatter_plain(window, imm2, keep, delete)
-        err = parity.scatter_errors(res_k, res_p)
-        assert err.pop("n_activated") > 0
-        assert not any(err.values()), err
-        assert all(getattr(res_k[0], name).is_contiguous()
-                   for name in ("lm_uv", "lm_patch", "lm_idepth", "lm_valid", "res_status"))
-    assert kernels.ACTIVATION_SCATTER.launches == before + 2
-    assert torch.equal(win.lm_valid, keyframe[1].lm_valid)      # the input window is untouched
+        for args in ((window, imm, keep, delete, idepth, selected),
+                     (window, imm, activate, delete)):
+            res_k = _no_host_reads(act._activation_scatter_cuda, *args)
+            res_p = act._activation_scatter_plain(*args)
+            err = parity.scatter_errors(res_k, res_p)
+            assert err.pop("n_activated") > 0
+            assert not any(err.values()), err
+            assert torch.equal(res_k[1].idepth_min, res_p[1].idepth_min)
+            assert torch.equal(res_k[1].idepth_max, res_p[1].idepth_max)
+            assert res_k[2].shape == () and res_k[2].dtype == torch.int64
+            assert all(getattr(res_k[0], name).is_contiguous()
+                       for name in ("lm_uv", "lm_patch", "lm_idepth", "lm_valid", "res_status"))
+    assert kernels.ACTIVATION_SCATTER.launches == before + 4
+    # the caller's window and banks are untouched
+    assert all(torch.equal(a, b) for a, b in
+               zip(kept, (win.lm_uv, win.lm_patch, win.lm_idepth, win.lm_valid, win.res_status,
+                          imm.valid, imm.idepth_min, imm.idepth_max)))
 
 
 @pytest.mark.parametrize("window", list(WINDOWS))
@@ -1051,15 +1117,14 @@ def test_scatter_kernel_matches_plain_at_c(embedded, channels):
     model = tracker.models[0]
     activate, delete, _ = act._activation_plain(win, model, imm, 1.5)
     idepth, keep, selected = act._refine_idepth_plain(win, model, imm, activate, 20.0)
-    imm2 = imm._replace(idepth_min=torch.where(keep, idepth, imm.idepth_min),
-                        idepth_max=torch.where(keep, idepth, imm.idepth_max))
-    delete = delete | (selected & ~keep)
-    res_k = _no_host_reads(act._activation_scatter_cuda, win, imm2, keep, delete)
-    res_p = act._activation_scatter_plain(win, imm2, keep, delete)
-    assert res_k[0].lm_patch.shape[-1] == 8 * channels
-    err = parity.scatter_errors(res_k, res_p)
-    assert err.pop("n_activated") > 0
-    assert not any(err.values()), err
+    for args in ((win, imm, keep, delete, idepth, selected), (win, imm, activate, delete)):
+        res_k = _no_host_reads(act._activation_scatter_cuda, *args)
+        res_p = act._activation_scatter_plain(*args)
+        assert res_k[0].lm_patch.shape[-1] == 8 * channels
+        err = parity.scatter_errors(res_k, res_p)
+        assert err.pop("n_activated") > 0
+        assert not any(err.values()), err
+        assert torch.equal(res_k[1].idepth_min, res_p[1].idepth_min)
 
 
 @pytest.mark.parametrize("channels", [2, 3])
@@ -1093,27 +1158,23 @@ def test_align_kernels_match_plain_at_c(embedded, channels):
     assert parity.align_level_equal(res_k, pa.align_level_cuda(*k3))
 
 
-def test_c1_outputs_match_the_parent():
-    """The C = 1 outputs of K1, K3, K7, K8, K10 and K11 (``testing/c1_bits.py``)
-    equal, digest by digest, the tree's before the channel axis."""
+@pytest.mark.parametrize("case", ["c1", "k4", "solve", "frame"])
+def test_outputs_match_the_parent(case):
+    """Each case of ``testing/bits.py`` equal, digest by digest, to the tree
+    before its redesign (no pose tie either): ``c1`` the C = 1 outputs of K1,
+    K3, K7, K8, K10 and K11 (the tree before the channel axis); ``k4`` K4's
+    on the BA parity windows' banks (the chain it replaced: the relative
+    poses and the geometry in torch, the sweep kernel, the update in torch);
+    ``solve`` the whole solve on the standart, dense and embedder windows,
+    each with an empty and a filled ledger (the loop launched from Python);
+    ``frame`` K5 with the decision and K14's pairing with the refinement's
+    glue (the flows kernel and the torch decision; the torch glue, the
+    clones and the pairing kernel)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    from dsopp_tpu_torch.testing import c1_bits
-    got = c1_bits.digests(c1_bits.kernel_outputs())
-    assert got == c1_bits.PARENT_DIGESTS
-
-
-def test_epipolar_outputs_match_the_parent_chain():
-    """K4's outputs on ``testing/epipolar_bits.py``'s inputs (the BA parity
-    windows' banks against the next frame) equal, digest by digest, those of
-    the chain it replaced: the relative poses and the geometry in torch, the
-    sweep kernel, the update in torch."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
-    from dsopp_tpu_torch.testing import epipolar_bits
-    verdict = epipolar_bits.check_against_parent(epipolar_bits.run(epipolar_bits.make_inputs()))
-    assert len(verdict) == len(epipolar_bits.WINDOWS) * len(epipolar_bits.OUTPUTS)
-    assert set(verdict.values()) == {"equal"}
+    from dsopp_tpu_torch.testing import bits
+    equal, ties, differ = bits.check(case, bits.run(case))
+    assert equal and not ties and not differ, (ties, differ)
 
 
 def test_epipolar_kernel_is_deterministic_and_one_call(scene):
@@ -1128,3 +1189,101 @@ def test_epipolar_kernel_is_deterministic_and_one_call(scene):
     for name in parity.EPIPOLAR_OUTPUTS:
         assert torch.equal(getattr(a, name), getattr(b, name)), name
     assert _aten_ops(de.estimate_depths_cuda, *args) <= ALLOCATION_OPS
+
+
+# The tests below open CUDA profiler sessions of many calls.  They come after
+# test_marg_policy_wrapper_is_one_call, whose session of one call is the
+# process's first: after such sessions a later one-launch session held no
+# device record on the card (the K4 test above moved last for the same
+# reason).
+
+
+def test_flow_decision_wrapper_is_one_kernel(tracked):
+    """K5 with the decision: one C call a call, and under the profiler no
+    torch operator but the output's allocation on the host and the kernel
+    alone on the device (of 20 calls' records, the ones the profiler keeps,
+    which can lack a session's first)."""
+    tracker, _ = tracked
+    t_t_kf = SE3(tracker.t_w_last.q, tracker.t_w_last.t).inverse() @ tracker._kf_pose()
+    t_t_kf = SE3(t_t_kf.q.contiguous(), t_t_kf.t.contiguous())
+    args = _statistics_args(tracker, t_t_kf, 1.0, 1.0, 0.5, 50, 1.25, False)
+    dm.frame_statistics_cuda(*args)
+    torch.cuda.synchronize()
+    before = kernels.FLOW.launches
+    with profiled([torch.profiler.ProfilerActivity.CPU,
+                   torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(20):
+            dm.frame_statistics_cuda(*args)
+        torch.cuda.synchronize()
+    assert kernels.FLOW.launches == before + 20
+    assert {e.name for e in prof.events() if e.name.startswith("aten::")} <= ALLOCATION_OPS
+    device = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert 0 < len(device) <= 20 and all("flow_kernel" in name for name in device), device
+
+
+def test_pairing_wrapper_is_one_kernel_without_copies(keyframe):
+    """The pairing with the refinement's glue inside: one C call a call, and
+    under the profiler no torch operator but allocations on the host and the
+    kernel alone on the device (no copy, no memset: of 20 calls' records, the
+    ones the profiler keeps, which can lack a session's first); two runs
+    equal to the bit."""
+    tracker, win, imm, _ = keyframe
+    model = tracker.models[0]
+    activate, delete, _ = act._activation_plain(win, model, imm, 1.5)
+    idepth, keep, selected = act._refine_idepth_plain(win, model, imm, activate, 20.0)
+    args = (win, imm, keep, delete, idepth, selected)
+    first = act._activation_scatter_cuda(*args)
+    torch.cuda.synchronize()
+    before = kernels.ACTIVATION_SCATTER.launches
+    with profiled([torch.profiler.ProfilerActivity.CPU,
+                   torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(20):
+            again = act._activation_scatter_cuda(*args)
+        torch.cuda.synchronize()
+    assert kernels.ACTIVATION_SCATTER.launches == before + 20
+    device = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert 0 < len(device) <= 20 and all("pair_slots_kernel" in name for name in device), device
+    assert {e.name for e in prof.events() if e.name.startswith("aten::")} <= ALLOCATION_OPS
+    tensors = lambda res: [*(getattr(res[0], f) for f in ("lm_uv", "lm_patch", "lm_idepth",  # noqa: E731
+                                                        "lm_valid", "res_status")),
+                           res[1].valid, res[1].idepth_min, res[1].idepth_max, res[2]]
+    assert all(torch.equal(a, b) for a, b in zip(tensors(first), tensors(again)))
+
+
+def test_flow_and_pairing_on_two_streams(tracked, keyframe):
+    """K5 with the decision and the pairing launched on two side streams in
+    turn, with no wait between them: each stream has its own workspace (the
+    blocks' partials, the slots' takes, the tickets), and every launch's
+    outputs equal the default stream's to the bit."""
+    tracker, _ = tracked
+    t_t_kf = SE3(tracker.t_w_last.q, tracker.t_w_last.t).inverse() @ tracker._kf_pose()
+    t_t_kf = SE3(t_t_kf.q.contiguous(), t_t_kf.t.contiguous())
+    args = _statistics_args(tracker, t_t_kf, 1.0, 1.0, 0.5, 50, 1.25, False)
+    _, win, imm, _ = keyframe
+    model = tracker.models[0]
+    activate, delete, _ = act._activation_plain(win, model, imm, 1.5)
+    idepth, keep, selected = act._refine_idepth_plain(win, model, imm, activate, 20.0)
+    pair_args = (win, imm, keep, delete, idepth, selected)
+
+    def outputs(res):
+        return [*(getattr(res[0], f) for f in ("lm_uv", "lm_patch", "lm_idepth", "lm_valid",
+                                               "res_status")),
+                res[1].valid, res[1].idepth_min, res[1].idepth_max, res[2]]
+
+    want_stats = dm.frame_statistics_cuda(*args)
+    want_pair = outputs(act._activation_scatter_cuda(*pair_args))
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream() for _ in range(2)]
+    runs = []
+    for _ in range(10):
+        for stream in streams:
+            with torch.cuda.stream(stream):
+                runs.append((dm.frame_statistics_cuda(*args),
+                             outputs(act._activation_scatter_cuda(*pair_args))))
+    torch.cuda.synchronize()
+    for kernel in (kernels.FLOW, kernels.ACTIVATION_SCATTER):
+        owners = {key[2] for key in kernels._workspaces if key[0] == kernel.name}
+        assert {stream.cuda_stream for stream in streams} <= owners, kernel.name
+    for stats, pair in runs:
+        assert torch.equal(stats, want_stats)
+        assert all(torch.equal(a, b) for a, b in zip(pair, want_pair))

@@ -4,6 +4,11 @@ the JAX package.
 * ``select_candidates``: uv and valid exact;
 * activation (``_activation_kernel`` + ``_refine_idepth_kernel`` +
   ``_activation_scatter``): masks and slot assignment exact, idepths 1e-9;
+* the pairing's one entry (``_activation_scatter`` with the refinement's
+  outputs, its glue inside) against JAX's glue and ``_activation_scatter``,
+  with and without a refinement: slots, masks and bounds exact, idepths
+  1e-9; the kernel's tiled pairing (``activation_models.tiled_pairing``)
+  writes each entry once and pairs as the plain version;
 * the refine cap at the dense operating point's 17 slots: the newest host
   bank is refined first and what exceeds the cap stays immature;
 * ``_solve_loop_device``: eps and lm_idepth 1e-7 relative; res_status,
@@ -32,6 +37,7 @@ from dsopp_tpu_torch import convert
 from dsopp_tpu_torch.features import extractor as text
 from dsopp_tpu_torch.solvers import pba as tpba
 from dsopp_tpu_torch.testing.activation_models import compaction as compaction_model
+from dsopp_tpu_torch.testing.activation_models import tiled_pairing
 from dsopp_tpu_torch.tracker import activation as tact
 
 from tests._torch_port import assert_close, assert_equal, np_tree, to_torch, window_fields
@@ -138,6 +144,70 @@ def _activation_chain_matches(seq, frames, slots, n_lm, n_imm, ready):
 
 def test_activation_matches(seq):
     _activation_chain_matches(seq, FRAMES, SLOTS, N_LM, N_IMM, ready=2)
+
+
+def _pairing_entry_matches(seq, window, imm, refine):
+    """The pairing's one entry on the port's activation (and refinement)
+    against JAX's glue and ``_activation_scatter`` → the port's window."""
+    cam = seq.camera
+    tw = _port_window(window)
+    ti = convert.immature_points(np_tree(imm._asdict()))
+    tc = _cam(seq)
+    act_j, del_j, _ = jact._activation_kernel(window, cam, imm, 2.0)
+    act_t, del_t, _ = tact._activation_kernel(tw, tc, ti, 2.0)
+    idep_t = sel_t = None
+    if refine:
+        idep_j, act_j, sel_j = jact._refine_idepth_kernel(window, cam, imm, act_j, 20.0)
+        del_j = del_j | (sel_j & ~act_j)
+        imm = imm._replace(idepth_min=jnp.where(act_j, idep_j, imm.idepth_min),
+                           idepth_max=jnp.where(act_j, idep_j, imm.idepth_max))
+        idep_t, act_t, sel_t = tact._refine_idepth_kernel(tw, tc, ti, act_t, 20.0)
+        assert_equal(act_t, act_j)
+    valid_before = ti.valid.clone()
+    win_j, imm_j, n_j = jact._activation_scatter(window, imm, act_j, del_j)
+    win_t, imm_t, n_t = tact._activation_scatter(tw, ti, act_t, del_t, idep_t, sel_t)
+    assert int(n_t) == int(n_j) > 0
+    assert torch.equal(ti.valid, valid_before)          # the caller's banks stay
+    assert_equal(win_t.lm_valid, win_j.lm_valid)
+    assert_equal(win_t.res_status, win_j.res_status)
+    assert_equal(imm_t.valid, imm_j.valid)
+    assert_close(imm_t.idepth_min, imm_j.idepth_min, rtol=1e-9)
+    assert_close(imm_t.idepth_max, imm_j.idepth_max, rtol=1e-9)
+    assert_close(win_t.lm_uv, win_j.lm_uv, atol=0)
+    assert_close(win_t.lm_idepth, win_j.lm_idepth, rtol=1e-9)
+    assert_close(win_t.lm_patch, win_j.lm_patch, atol=1e-12)
+    return win_t
+
+
+@pytest.mark.parametrize("refine", [False, True])
+def test_pairing_entry_matches_jax_glue_and_scatter(seq, refine):
+    window = build_test_window(seq, FRAMES, num_landmarks=N_LM, slots=SLOTS, seed=1)
+    window = dataclasses.replace(
+        window, lm_valid=window.lm_valid & (jnp.arange(N_LM) % 3 == 0)[None])
+    imm = _ready_banks(seq, window, FRAMES, ready=2, n_imm=N_IMM)
+    _pairing_entry_matches(seq, window, imm, refine)
+
+
+@pytest.mark.parametrize("k,n,m,free,active", [(10, 250, 800, 0.5, 0.1),
+                                               (17, 340, 1200, 0.3, 0.05),
+                                               (7, 96, 192, 0.9, 0.5), (3, 5, 700, 1.0, 1.0),
+                                               (4, 130, 40, 0.02, 0.6)])
+def test_tiled_pairing_model_matches_the_plain_pairing(k, n, m, free, active):
+    """``pair_slots_kernel``'s grid (tiles of 64 landmark slots, each block
+    recounting its slot): every landmark slot and bank entry written once,
+    the same pairs as the rank-for-rank pairing, the same taken points."""
+    rng = np.random.default_rng(k * n + m)
+    lm_valid = rng.random((k, n)) >= free
+    activate = rng.random((k, m)) < active
+    src, taken, writes_n, writes_m = tiled_pairing(lm_valid, activate)
+    assert (writes_n == 1).all() and (writes_m == 1).all()
+    want_src = np.full((k, n), -1)
+    want_taken = np.zeros((k, m), bool)
+    for a, dst, s in _pairing_model(lm_valid, activate):
+        want_src[a, dst] = s
+        want_taken[a, s] = True
+    assert np.array_equal(src, want_src) and np.array_equal(taken, want_taken)
+    assert int(want_taken.sum()) > 0
 
 
 @pytest.mark.parametrize("slots,num_frames", [(5, 4), (17, 13)])

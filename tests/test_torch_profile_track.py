@@ -58,3 +58,21 @@ def test_profiled_waits_then_records():
         torch.ones(3) + 1
     assert waited >= 0.01
     assert "aten::add" in {e.name for e in prof.events()}
+
+
+def test_earlier_name_is_timed_in_a_parent_tree(monkeypatch):
+    """A parent tree without a stage's function, with its earlier design's
+    (``EARLIER_NAMES``), has that one timed in its place; this tree must have
+    the function itself."""
+    module = types.ModuleType("parent_fused_tick")
+    earlier = lambda *args: None  # noqa: E731
+    module.mean_square_flows = earlier
+    stages = {key: stage for key, stage in pt.STAGES.items() if stage != "flow"}
+    stages[(module, "frame_statistics")] = "flow"
+    monkeypatch.setattr(pt, "STAGES", stages)
+    with pt.StageTimers(missing_ok=True) as timers:
+        assert module.mean_square_flows is not earlier
+    assert timers.untimed == [] and module.mean_square_flows is earlier
+    with pytest.raises(AttributeError, match="flow"):
+        with pt.StageTimers():
+            pass
