@@ -61,13 +61,16 @@ Phases, one line each with its time:
    flags may differ on those two slots only, and the rest must be the plain
    triage of the kernel's frame flags; two runs equal to the bit, its wrapper
    under the profiler allocations only and one kernel a call),
-   the fold with no frame, one free frame, two
-   frames, the fixed frame and a dead frame (no live landmark, no residual
-   into it) flagged (H_m, b_m, E_m within 1e-9 of their largest entry, of
-   the plain version's or, where an eigenvalue lies within 1e-6 of the
-   pseudo-inverse's cutoff, of the plain version's with the cutoff at either
-   edge of that band; the Jacobi solver converged; two runs equal to the
-   bit), both with host synchronisation an error.  The row
+   the fold, from K8's raw marginalization-pass system, with no frame, one
+   free frame, two frames, the fixed frame, a dead frame (no live landmark,
+   no residual into it) and five frames (the solver's block path) flagged
+   (H_m, b_m, E_m within 1e-9 of their largest entry, of the plain version's
+   or, where an eigenvalue lies within 1e-6 of the pseudo-inverse's cutoff,
+   of the plain version's with the cutoff at either edge of that band; the
+   Jacobi solver converged; two runs equal to the bit), both with host
+   synchronisation an error; K11's and K15's device µs by kernel and their
+   kernels a call, and the marginalization's aten operators (none of
+   ``_prior_system``'s).  The row
    gather at the probe's shapes ([480·640, 12] table, 204800 indices) equal
    to ``table[idx]`` to the bit in f32 and bf16.  K18 equal to its plain
    version to the bit on u8 and f32 frames, with and without a vignette, at
@@ -149,7 +152,11 @@ Phases, one line each with its time:
    K5 with the keyframe decision (a grid of the decision's inputs on four
    flow sets) and K14's pairing with the refinement's glue, with and without
    the refinement (the flows kernel and the decision in torch; the glue in
-   torch, the window's clones and the pairing kernel).
+   torch, the window's clones and the pairing kernel); ``marg``, the
+   marginalization on the card (the marginalization pass's K7 and K8, K15
+   from their raw system, the permuted window) in every flagging case of
+   ``parity.marg_cases`` on the ``solve`` case's windows (K15 after the
+   priors and subtractions in torch, its rounds behind 1024-thread barriers).
 
 The windowed-BA solve is one C call on every path: the wrapper checks the
 window, allocates its buffers with ``torch.empty`` and calls
@@ -260,7 +267,7 @@ OPS_POLICY_FRAME = 200      # K15p: one frame's pose T_lin exp(eps), its trig an
 OPS_EVALUATE_RESIDUAL = 120  # K7
 OPS_LINEARIZE_RESIDUAL = 910  # K8: 16 Jacobian columns, 272 + 18 multiply-adds
 OPS_FLOW_POINT = 80         # K5: two reprojections and ray differences
-OPS_STATUS_GROUP = 12       # K11: 8 radix passes and the status walk, per group
+OPS_STATUS_GROUP = 12       # K11: the select sweeps and the status walk, per group
 OPS_CANDIDATE_PIXEL = 10    # K12: g2, its square root and bin, the threshold compare, the argmax
 OPS_REPROJECT = 60          # K13, K16: one reprojection with its validity
 OPS_ACTIVATION_PAIR = 6     # K13: dx, dy, two squares, their sum, the minimum
@@ -273,6 +280,9 @@ OPS_EIGEN = 9               # K15: x n^3 for a symmetric eigen-decomposition wit
 OPS_PHOTOMETRIC_PIXEL = 10  # K18: clip, convert, frac, 1 - frac, two products, sum, floor, divide
 # K5, K13 and K14: what their wrappers may run on the host
 ALLOCATION_OPS = ("aten::empty", "aten::empty_strided")
+# the operators of solvers/pba.py::_prior_system (the priors as a diagonal
+# matrix), which K15 now forms inside the kernel
+PRIOR_GLUE_OPS = ("aten::diag", "aten::diag_embed", "aten::cat", "aten::stack", "aten::full")
 # K5's decision cases (rmse, rmse_last0, kf_rmse, num_valid, force): reliable or
 # not, the strategy memory unset or on either side of MAX_EXCESS_ENERGY, no
 # valid point, forced
@@ -358,6 +368,35 @@ def wrapper_work(torch, fn):
     ops = sorted(e.name for e in prof.events() if e.name.startswith("aten::"))
     device = sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
     return ops, device
+
+
+def kernel_split(torch, fn, reps=20):
+    """The profiler's device µs a call of each kernel ``fn`` launches (by its
+    function's name) and the device kernels a call."""
+    import re
+
+    from dsopp_tpu_torch.testing.profiling import profiled
+
+    fn()
+    torch.cuda.synchronize()
+    with profiled([torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    split, launches = {}, 0
+    for e in prof.key_averages():
+        if e.self_device_time_total <= 0:
+            continue
+        found = re.search(r"(\w+)(?:<[^>]*>)?\(", e.key)
+        name = found.group(1) if found else e.key
+        split[name] = split.get(name, 0.0) + e.self_device_time_total / reps
+        launches += e.count
+    return split, launches / reps
+
+
+def fmt_split(split, per_call):
+    return (", ".join(f"{name} {us:.2f}" for name, us in sorted(split.items()))
+            + f" device µs; {per_call:.2f} device kernels a call")
 
 
 def only_kernel(torch, fn, kernel, reps=10):
@@ -1470,6 +1509,9 @@ def parity_ba(seq, tracker, torch, rows, label, every, min_frames, timed):
                        moved.lm_outlier, moved.lm_opt_count) + nbytes(*ps_k),
                 OPS_STATUS_GROUP * k * k * n)
     log_bound("ba_point_status", label, b11)
+    split, per_call = kernel_split(
+        torch, lambda: pba._point_status_from_ev_cuda(moved, ev_k, lm_mask, opts))
+    log(f"  K11 ({label}): {fmt_split(split, per_call)}")
     if "ba_point_status" in timed:
         flat = torch.where(ev_k.ok, ev_k.energy_patch,
                            torch.full_like(ev_k.energy_patch, float("nan"))).reshape(-1)
@@ -1535,14 +1577,18 @@ def parity_marg(tracker, windows, torch, rows, label):
         for case, slots in par.marg_cases(start).items():
             w, perm = par.marg_case(start, case, slots, gen)
             lm = w.lm_marg_flag
-            h_pts, b_pts, e_land = pba._marg_system_kernel(w, model, opts)
-            fold = (w, h_pts.contiguous(), b_pts.contiguous(), e_land, perm, opts)
+            # K8's marginalization-pass system, as K15 takes it, and the
+            # flagged landmarks' system, as the plain fold takes it
+            sys_m, e_land = pba._marg_pass(w, model, opts)
+            raw = (w, sys_m.h_pose, sys_m.b_pose, sys_m.h_schur, sys_m.b_schur, e_land, perm,
+                   opts)
+            fold = (w, *pba._points_system(*raw[:5], opts), e_land, perm, opts)
             sweeps = torch.zeros(1, dtype=torch.int32, device="cuda")
-            out_k = no_host_reads(torch, pba._marginalize_cuda, *fold, sweeps)
-            again = pba._marginalize_cuda(*fold)
+            out_k = no_host_reads(torch, pba._marginalize_cuda, *raw, sweeps)
+            again = pba._marginalize_cuda(*raw)
             err = par.ledger_check(out_k, fold)
             win_k = no_host_reads(torch, pba._marginalize_device, w, model, perm, opts)
-            win_p = pba._marginalize_with(pba._marginalize_plain, w, model, perm, opts)
+            win_p = pba._marginalize_with(pba._marginalize_system_plain, w, model, perm, opts)
             same = all(torch.equal(getattr(win_k, f), getattr(win_p, f))
                        for f in ("frame_valid", "frame_id", "lm_valid"))
             log(f"  K15 marg_fold ({label}, {ledger}, {case}: slots {slots}, {int(lm.sum())}"
@@ -1559,7 +1605,7 @@ def parity_marg(tracker, windows, torch, rows, label):
             require(same, f"K15 ({label}, {ledger}, {case}): frame validity, ids or landmark"
                     " validity differ")
             if ledger == "filled ledger" and case == "one free frame":
-                timed_case = (fold, out_k, err["eigenvalues"])
+                timed_case = (raw, fold, out_k, err["eigenvalues"])
     def row(name, **fields):
         log_bound(name, label, fields)
         if label != "dense":
@@ -1580,8 +1626,18 @@ def parity_marg(tracker, windows, torch, rows, label):
                 OPS_POLICY_LANDMARK * k * n + OPS_POLICY_PAIR * k * k + OPS_POLICY_FRAME * k),
         device_us=policy_us, wrapper_aten_ops=len(policy_ops), device_kernels=device_kernels,
         library_ms=None))
-    fold, out_k, m_rows = timed_case
-    w = fold[0]
+    raw, fold, out_k, m_rows = timed_case
+    w, perm = fold[0], fold[4]
+    # the marginalization on the card: no host read, K15's kernels a call,
+    # and no operator of the priors' glue (_prior_system) left in torch
+    span_ops, span_kernels = wrapper_work(
+        torch, lambda: no_host_reads(torch, pba._marginalize_device, w, model, perm, opts))
+    glue = sorted({op for op in span_ops if op in PRIOR_GLUE_OPS})
+    split, per_call = kernel_split(torch, lambda: pba._marginalize_cuda(*raw))
+    log(f"  K15 ({label}): {fmt_split(split, per_call)}; the marginalization runs"
+        f" {len(span_ops)} aten operators and {span_kernels} device kernels, no host read,"
+        f" priors' glue operators {glue}")
+    require(not glue, f"K15 ({label}): the marginalization still runs the priors' glue {glue}")
     # the library's pseudo-inverse of the padded block, as the plain version calls it
     from dsopp_tpu_torch.solvers.linear import pinv_hermitian
     hm, mrow = par.folded_ledger(w, fold[1], opts)
@@ -1594,10 +1650,10 @@ def parity_marg(tracker, windows, torch, rows, label):
            + 4 * kb * kb * m_rows + 2 * kb * m_rows)
     row("marg_fold", **dict(
         max_abs_err=max(float((a - b).abs().max()) for a, b in zip(out_k, pba._marginalize_plain(*fold))),
-        ms=cuda_ms(lambda: pba._marginalize_cuda(*fold)),
-        plain_ms=cuda_ms(lambda: pba._marginalize_plain(*fold), reps=10),
-        **bound(nbytes(*fold[1:4], w.eps, w.affine0, w.frame_valid, w.frame_fixed, w.frame_marg,
-                       fold[4], w.h_marg, w.b_marg, w.energy_marg) + nbytes(*out_k), ops,
+        ms=cuda_ms(lambda: pba._marginalize_cuda(*raw)),
+        plain_ms=cuda_ms(lambda: pba._marginalize_system_plain(*raw), reps=10),
+        **bound(nbytes(*raw[1:6], w.eps, w.affine0, w.frame_valid, w.frame_fixed, w.frame_marg,
+                       perm, w.h_marg, w.b_marg, w.energy_marg) + nbytes(*out_k), ops,
               PEAK_FLOPS_F64),
         library_ms=lib))
 

@@ -44,5 +44,6 @@ extern "C" int ba_point_status(const float* energy, const unsigned char* ok,
                                const unsigned char* lm_mask, const float* old_baseline,
                                const unsigned char* old_outlier, const int* old_opt_count,
                                int k, int n, float quantile, float sigma, int min_valid,
-                               float* thresh, int* new_status, float* baseline, int* inliers,
+                               void* workspace, int workspace_bytes, float* thresh,
+                               int* new_status, float* baseline, int* inliers,
                                unsigned char* outlier, int* opt_count, void* stream);

@@ -393,8 +393,8 @@ constexpr int kSolveCounts = 5;
 // loop's), the two evaluation buffers (ev0_*, ev1_*: K7's outputs), mask
 // [k,n] u8 (lm_valid & frame_valid), K8's scratch and outputs, K9's scratch
 // and outputs, the loop state [9] and log [max_iterations + 2, 9] int32, the
-// loop's energy [1] f32 and count [1] int32 (the state's words), and K11's
-// outputs (the solved window's statuses, baselines, inlier counts,
+// loop's energy [1] f32 and count [1] int32 (the state's words), K11's
+// workspace (as ba_point_status takes it), and K11's outputs (the solved window's statuses, baselines, inlier counts,
 // outlier flags and optimization counts).  Every output is written before it
 // is read: the caller passes torch.empty buffers.  launched [5] int32, host
 // memory: set to 0, then each entry's successful calls (SolveCount's order),
@@ -420,8 +420,9 @@ extern "C" int ba_solve_loop(
     double* schur_part, float* h_pose, float* b_pose, float* h_schur, float* b_schur,
     float* hpd, float* inv_hdd, float* b_d, int blocks, float* step, float* d_part, double* system,
     float* eps_new, float* idepth_new, float* step_sq, int* state, int* log, float* energy,
-    int* count, float* thresh, int* new_status, float* baseline, int* inliers,
-    unsigned char* outlier, int* opt_count, int* launched, void* stream) {
+    int* count, void* status_workspace, int status_workspace_bytes, float* thresh,
+    int* new_status, float* baseline, int* inliers, unsigned char* outlier, int* opt_count,
+    int* launched, void* stream) {
   auto failed = [](int step, int err) { return (step << 16) | err; };
   if (launched == nullptr) return failed(kStepArguments, (int)cudaErrorInvalidValue);
   for (int i = 0; i < kSolveCounts; ++i) launched[i] = 0;
@@ -492,8 +493,8 @@ extern "C" int ba_solve_loop(
   ++launched[kCountEvaluate];
   err = ba_point_status(ev0_energy, ev0_ok, ev0_candidate, c_t_lin_q, c_t_lin_t, c_eps,
                         c_idepth, mask, lm_baseline, lm_outlier, lm_opt_count, k, n, quantile,
-                        status_sigma, min_valid, thresh, new_status, baseline, inliers, outlier,
-                        opt_count, stream);
+                        status_sigma, min_valid, status_workspace, status_workspace_bytes, thresh,
+                        new_status, baseline, inliers, outlier, opt_count, stream);
   if (err) return failed(kStepPointStatus, err);
   ++launched[kCountStatus];
 #undef EV0

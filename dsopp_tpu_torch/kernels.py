@@ -13,8 +13,9 @@ Launch rules shared by every kernel: launch on
 launches in ``launches``; nothing else touches the count, but for the one
 entry that calls other entries from C (``BA_SOLVE_LOOP``, the windowed BA's
 whole solve): it counts their successful calls into a host array, and its
-wrapper adds those to their counts.  Two entries (K5 and K14's pairing) find
-their last block with a ticket in a small :func:`workspace` of their stream.
+wrapper adds those to their counts.  Three entries (K5, K11 and K14's
+pairing) find their last block with a ticket in a small :func:`workspace` of
+their stream.
 """
 
 from __future__ import annotations
@@ -127,12 +128,13 @@ def check(t: torch.Tensor, name: str, shape, dtype=torch.float32):
 
 def workspace(kernel: "Kernel", nbytes: int, device: torch.device) -> torch.Tensor:
     """``kernel``'s block-counting buffer on the current stream of ``device``:
-    ``nbytes`` zero bytes, made at its first launch on that stream and kept.
-    Each launch leaves it zero again, so the launches of one stream share it
-    in stream order and launches on two streams never meet in it."""
+    at least ``nbytes`` zero bytes, made at its first launch on that stream
+    (or anew, zero, when a launch needs more) and kept.  Each launch leaves
+    it zero again, so the launches of one stream share it in stream order and
+    launches on two streams never meet in it."""
     key = (kernel.name, device.index, torch._C._cuda_getCurrentRawStream(device.index))
     buf = _workspaces.get(key)
-    if buf is None:
+    if buf is None or buf.numel() < nbytes:
         buf = _workspaces[key] = torch.zeros((nbytes,), dtype=torch.uint8, device=device)
     return buf
 
@@ -194,15 +196,21 @@ BA_LINEARIZE = Kernel("ba_linearize_schur", "ba_linearize_schur",
 BA_SOLVE = Kernel("ba_solve_step", "ba_solve_step",
                   [_P] * 12 + [_I, _I, _F, _I] + [_P] * 7)
 BA_LM = Kernel("ba_lm", "ba_lm", [_I] * 6 + [_F] * 7 + [_P] * 28)
+# K11: its workspace (ticket, counts, histogram, selection, then the
+# candidates) before its outputs
 BA_STATUS = Kernel("ba_point_status", "ba_point_status",
-                   [_P] * 11 + [_I, _I, _F, _F, _I] + [_P] * 6)
+                   [_P] * 11 + [_I, _I, _F, _F, _I] + [_P, _I] + [_P] * 6)
+# the header of K11's workspace: csrc/ba_status.cu kWorkspaceHeader (>= its
+# StatusWorkspace); 4 bytes a (anchor, target, landmark) group follow it
+STATUS_WORKSPACE_BYTES = 32768
 # the whole windowed-BA solve in one C call (csrc/ba_lm.cu): K7, K10's init,
 # the iterations' K8, K9, K7 and K10, K10's finish, K7 and K11, in the order of
 # csrc/ba_lm.cu::SolveStep; its last argument is a host array of the calls it
 # made to each entry (csrc/ba_lm.cu::SolveCount)
 BA_SOLVE_LOOP = Kernel("ba_solve_loop", "ba_solve_loop",
                        [_P] * 17 + [_I] + [_P] * 3 + [_I] * 5 + [_F] * 6 + [_I] * 3
-                       + [_F] * 13 + [_I] + [_P] * 22 + [_I] + [_P] * 10 + [_I] + [_P] * 17,
+                       + [_F] * 13 + [_I] + [_P] * 22 + [_I] + [_P] * 10 + [_I] + [_P] * 11
+                       + [_I] + [_P] * 7,
                        steps=("its arguments", "ba_evaluate (initial)", "ba_lm (init)",
                               "ba_linearize_schur", "ba_solve_step", "ba_evaluate (trial)",
                               "ba_lm (step)", "ba_lm (finish)", "ba_evaluate (final)",
@@ -225,8 +233,9 @@ DEPTH_MAPS = Kernel("depth_maps", "depth_maps",
 # K15: the marginalization policy and the ledger fold, once per keyframe each
 MARG_POLICY = Kernel("marg_policy", "marg_policy",
                      [_P] * 11 + [_I] * 5 + [_F] + [_P] * 4)
+# K15 takes K8's marginalization-pass system raw (the priors subtracted inside)
 MARG_FOLD = Kernel("marg_fold", "marg_fold",
-                   [_P] * 12 + [_I, _D, _F, _F, _F] + [_P] * 5)
+                   [_P] * 14 + [_I, _D, _F, _F, _F] + [_P] * 5)
 # the row gather of the Pallas design probe (off the tracker's paths)
 ROW_GATHER = Kernel("row_gather", "row_gather", [_P, _P, _I, _I, _I, _P])
 # K18: the camera's photometric correction, once per frame the camera reads

@@ -892,8 +892,8 @@ def _solve_loop_cuda(window: Window, model, opts: PBAOptions, log: list = None):
             _huber_sigma(c, opts), float(opts.huber_sigma), OUTLIER_QUANTILE,
             int(opts.min_valid_reprojections), tq, tt, ab0, eps, idepth, *at["carried"],
             *at["ev0"], *at["ev1"], *at["mask"], tiles, *at["linearize"], blocks, *at["step"],
-            state, lm_log, energy, count, thresh, res_status, baseline, inliers, outlier,
-            opt_count, ctypes.addressof(launched))
+            state, lm_log, energy, count, *_status_workspace(k, n, dev), thresh, res_status,
+            baseline, inliers, outlier, opt_count, ctypes.addressof(launched))
     finally:
         # the calls the C loop made to each entry, counted there, also up to a
         # step that failed
@@ -992,6 +992,14 @@ def _point_status_plain(window: Window, model, opts: PBAOptions) -> PointStatus:
     return _point_status_from_ev_plain(window, ev, lm_mask, opts)
 
 
+def _status_workspace(k: int, n: int, device):
+    """Kernel K11's workspace on the current stream (``kernels.workspace``):
+    its header, then room for the candidates of k·k·n groups → (the buffer,
+    its bytes)."""
+    nbytes = kernels.STATUS_WORKSPACE_BYTES + 4 * k * k * n
+    return kernels.workspace(kernels.BA_STATUS, nbytes, device), nbytes
+
+
 def _point_status_from_ev_cuda(window: Window, ev: Evaluation, lm_mask,
                                opts: PBAOptions) -> PointStatus:
     """Kernel K11: same outputs as :func:`_point_status_from_ev_plain`."""
@@ -1019,8 +1027,8 @@ def _point_status_from_ev_cuda(window: Window, ev: Evaluation, lm_mask,
                       window.t_lin_t, window.eps, window.lm_idepth, lm_mask,
                       window.lm_baseline, window.lm_outlier, window.lm_opt_count, k, n,
                       OUTLIER_QUANTILE, float(opts.huber_sigma),
-                      int(opts.min_valid_reprojections), thresh, new_status, baseline, inliers,
-                      outlier, opt_count)
+                      int(opts.min_valid_reprojections), *_status_workspace(k, n, dev), thresh,
+                      new_status, baseline, inliers, outlier, opt_count)
     return PointStatus(new_status, baseline, inliers, outlier, opt_count, thresh[0])
 
 
@@ -1037,15 +1045,29 @@ def _point_status_kernel(window: Window, model, opts: PBAOptions) -> PointStatus
     return fn(window, model, opts)
 
 
-def _marg_system_kernel(window: Window, model, opts: PBAOptions):
-    """H/b/E of the flagged landmarks at the current state (FEJ Jacobians),
-    minus their Schur complement and without the priors."""
+def _marg_pass(window: Window, model, opts: PBAOptions):
+    """The marginalization pass at the current state (FEJ Jacobians): K7's
+    evaluation and K8's system of the flagged landmarks, with the flagged
+    frames' priors in its pose part → (the system, their energy)."""
     lm_mask = window.lm_marg_flag & window.lm_valid & window.frame_valid[:, None]
     ev = _evaluate(window, model, window.eps, window.lm_idepth, lm_mask, opts)
     sys = _linearize_from_ev(window, model, ev, window.eps, opts, marg_pass=True)
+    return sys, torch.sum(ev.energy_patch)
+
+
+def _points_system(window: Window, h_pose, b_pose, h_schur, b_schur, opts: PBAOptions):
+    """The flagged landmarks' system from the marginalization pass's: less
+    the flagged frames' priors and the Schur complement."""
     h_pr, b_pr = _prior_system(window, window.eps, opts, marg_pass=True)
-    return (sys.h_pose - h_pr - sys.h_schur, sys.b_pose - b_pr - sys.b_schur,
-            torch.sum(ev.energy_patch))
+    return h_pose - h_pr - h_schur, b_pose - b_pr - b_schur
+
+
+def _marg_system_kernel(window: Window, model, opts: PBAOptions):
+    """H/b/E of the flagged landmarks at the current state (FEJ Jacobians),
+    minus their Schur complement and without the priors."""
+    sys, e_land = _marg_pass(window, model, opts)
+    return (*_points_system(window, sys.h_pose, sys.b_pose, sys.h_schur, sys.b_schur, opts),
+            e_land)
 
 
 def _permute_window(window: Window, perm, drop_marg) -> Window:
@@ -1112,18 +1134,30 @@ def _marginalize_plain(window: Window, h_pts, b_pts, e_land, perm, opts: PBAOpti
     return h_kk[idx][:, idx], b_k[idx], e_m
 
 
-def _marginalize_cuda(window: Window, h_pts, b_pts, e_land, perm, opts: PBAOptions,
-                      sweeps=None):
-    """Kernel K15: same outputs as :func:`_marginalize_plain`, read nothing
-    on the host (the number of flagged frames stays on the device).
-    ``sweeps``, an int32 [1] CUDA tensor or None, receives the number of
-    Jacobi sweeps that rotated: ``MARG_MAX_SWEEPS`` when the decomposition
-    did not converge."""
+def _marginalize_system_plain(window: Window, h_pose, b_pose, h_schur, b_schur, e_land, perm,
+                              opts: PBAOptions):
+    """:func:`_marginalize_plain` from the marginalization pass's system
+    (:func:`_marg_pass`): the plain counterpart of :func:`_marginalize_cuda`."""
+    h_pts, b_pts = _points_system(window, h_pose, b_pose, h_schur, b_schur, opts)
+    return _marginalize_plain(window, h_pts, b_pts, e_land, perm, opts)
+
+
+def _marginalize_cuda(window: Window, h_pose, b_pose, h_schur, b_schur, e_land, perm,
+                      opts: PBAOptions, sweeps=None):
+    """Kernel K15 from the marginalization pass's system (K8's outputs and
+    K7's energy, :func:`_marg_pass`): the outputs of
+    :func:`_marginalize_system_plain`, the flagged landmarks' system formed
+    in the kernel; reads nothing on the host (the number of flagged frames
+    stays on the device).  ``sweeps``, an int32 [1] CUDA tensor or None,
+    receives the number of Jacobi sweeps that rotated: ``MARG_MAX_SWEEPS``
+    when the decomposition did not converge."""
     k = window.num_slots
     kb = k * BLOCK
     check = kernels.check
-    check(h_pts, "h_pts", (kb, kb))
-    check(b_pts, "b_pts", (kb,))
+    check(h_pose, "h_pose", (kb, kb))
+    check(b_pose, "b_pose", (kb,))
+    check(h_schur, "h_schur", (kb, kb))
+    check(b_schur, "b_schur", (kb,))
     check(e_land, "e_land", ())
     check(window.eps, "eps", (k, BLOCK))
     check(window.affine0, "affine0", (k, 2))
@@ -1139,7 +1173,8 @@ def _marginalize_cuda(window: Window, h_pts, b_pts, e_land, perm, opts: PBAOptio
     scratch = torch.empty((_marg_scratch_words(k),), **kw)
     if sweeps is not None:
         check(sweeps, "sweeps", (1,), torch.int32)
-    kernels.MARG_FOLD(h_pts, b_pts, e_land, window.eps, window.affine0, window.frame_valid,
+    kernels.MARG_FOLD(h_pose, b_pose, h_schur, b_schur, e_land, window.eps, window.affine0,
+                      window.frame_valid,
                       window.frame_fixed, window.frame_marg, perm, window.h_marg,
                       window.b_marg, window.energy_marg, k, pinv_rtol(kb, window.eps.dtype),
                       float(opts.fixed_reg), float(opts.affine_reg_a),
@@ -1152,26 +1187,28 @@ MARG_MAX_SWEEPS = 40   # csrc/marg_fold.cu kMaxSweeps
 
 def _marg_scratch_words(k: int) -> int:
     """float64 words of kernel K15's scratch (csrc/marg_fold.cu): H_m [8k, 8k],
-    b_m [8k], five [n, n] matrices (the compact block, its eigenvectors, X0,
-    I − H_ee X0, X) and the correction [8k, n], for n = 8(k − 1) flagged rows
-    at most."""
+    b_m, hs and b_pts [8k], five [n, n] matrices (the compact block, its
+    eigenvectors, X0, I − H_ee X0, X) and the correction [8k, n], for n =
+    8(k − 1) flagged rows at most."""
     kb, n = k * BLOCK, (k - 1) * BLOCK
-    return kb * kb + kb + 5 * n * n + kb * n
+    return kb * kb + 3 * kb + 5 * n * n + kb * n
 
 
 def _marginalize_device(window: Window, model, perm, opts: PBAOptions) -> Window:
     """Fold flagged landmarks and frames into the float64 ledger, then
     compact the frame slots by ``perm``: the fold is kernel K15 on CUDA
     tensors, the plain version on CPU ones.  Nothing is read on the host."""
-    fold = _marginalize_cuda if window.maps.is_cuda else _marginalize_plain
+    fold = _marginalize_cuda if window.maps.is_cuda else _marginalize_system_plain
     return _marginalize_with(fold, window, model, perm, opts)
 
 
 def _marginalize_with(fold, window: Window, model, perm, opts: PBAOptions) -> Window:
     """:func:`_marginalize_device` with the ledger fold ``fold``
-    (:func:`_marginalize_cuda` or :func:`_marginalize_plain`)."""
-    h_pts, b_pts, e_land = _marg_system_kernel(window, model, opts)
-    h_m, b_m, e_m = fold(window, h_pts.contiguous(), b_pts.contiguous(), e_land, perm, opts)
+    (:func:`_marginalize_cuda` or :func:`_marginalize_system_plain`), which
+    takes the marginalization pass's system."""
+    sys, e_land = _marg_pass(window, model, opts)
+    h_m, b_m, e_m = fold(window, sys.h_pose, sys.b_pose, sys.h_schur, sys.b_schur, e_land,
+                         perm, opts)
     window = window.replace(lm_valid=window.lm_valid & ~window.lm_marg_flag,
                             lm_marg_flag=torch.zeros_like(window.lm_marg_flag))
     window = _permute_window(window, perm, window.frame_marg & window.frame_valid)

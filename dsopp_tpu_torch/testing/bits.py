@@ -2,7 +2,7 @@
 each redesign (its parent), and every card path's tracks, to compare two
 trees of the port bit for bit on one card.
 
-    python -m dsopp_tpu_torch.testing.bits out.pt [--cases c1,k4,solve,frame]
+    python -m dsopp_tpu_torch.testing.bits out.pt [--cases c1,k4,solve,frame,marg]
                                                   [--k4-inputs in.pt] [--paths]
     python -m dsopp_tpu_torch.testing.bits --compare a.pt b.pt
 
@@ -40,6 +40,12 @@ this tree's calls on them → {key: tensor}:
   whose chain ran the flows kernel, then the decision in torch; the glue in
   torch, clones of the window's tensors, then the pairing kernel.  A tree
   without the one-call entries runs that chain (:func:`one_call_tree`).
+* ``marg``: the marginalization on the card (``pba._marginalize_device``:
+  the marginalization pass's K7 and K8, K15, the permuted window) in every
+  flagging case of ``parity.marg_cases`` on the ``solve`` case's windows,
+  and K15's Jacobi sweeps.  Parent: ed94bb7, whose K15 took the flagged
+  landmarks' system after ``_prior_system`` and four subtractions in torch,
+  and solved in one block of 1024 threads.
 
 ``parent_digests.json`` holds ``case/key`` → sha256 of every case's parent
 run, each made on an NVIDIA H100 80GB HBM3; :func:`check` holds a case's
@@ -463,9 +469,80 @@ def frame_outputs() -> dict:
     return out
 
 
+# -- marg --------------------------------------------------------------------
+
+# fields of the marginalized window that are not digested: the permuted copies
+# of the frames' maps (plain indexing, and tens of MB each)
+MARG_SKIPPED = ("maps", "channel_maps")
+
+
+@functools.lru_cache(maxsize=None)
+def raw_system_tree() -> bool:
+    """Whether this tree's K15 entry takes K8's marginalization-pass system
+    raw (the priors and the subtractions inside the kernel)."""
+    from dsopp_tpu_torch.solvers import pba
+    return "h_schur" in pba._marginalize_cuda.__code__.co_varnames
+
+
+def marg_fold(window, model, perm, opts, glue: bool = False):
+    """K15 alone on the marginalization of ``window``, its marginalization
+    pass (K7 and K8) run once → fn(sweeps=None) → the new (H_m, b_m, E_m);
+    ``sweeps``, an int32 [1] CUDA tensor, receives the Jacobi sweeps.  In a
+    tree before the raw-system entry, fn takes the flagged landmarks' system
+    formed once, or, with ``glue``, forms it at every call (the priors and
+    the subtractions in torch, as that tree's marginalization did)."""
+    from dsopp_tpu_torch.solvers import pba
+    lm_mask = window.lm_marg_flag & window.lm_valid & window.frame_valid[:, None]
+    ev = pba._evaluate(window, model, window.eps, window.lm_idepth, lm_mask, opts)
+    sys_m = pba._linearize_from_ev(window, model, ev, window.eps, opts, marg_pass=True)
+    e_land = torch.sum(ev.energy_patch)
+    if raw_system_tree():
+        args = (window, sys_m.h_pose, sys_m.b_pose, sys_m.h_schur, sys_m.b_schur, e_land)
+        return lambda sweeps=None: pba._marginalize_cuda(*args, perm, opts, sweeps)
+
+    def points():
+        h_pr, b_pr = pba._prior_system(window, window.eps, opts, marg_pass=True)
+        return ((sys_m.h_pose - h_pr - sys_m.h_schur).contiguous(),
+                (sys_m.b_pose - b_pr - sys_m.b_schur).contiguous())
+
+    formed = None if glue else points()
+    return lambda sweeps=None: pba._marginalize_cuda(window, *(formed or points()), e_land, perm,
+                                                      opts, sweeps)
+
+
+def marg_outputs() -> dict:
+    """{window/ledger/case/inputs/..., .../<field>, .../sweeps}: on the
+    ``solve`` case's windows (each with an empty and a filled ledger), every
+    flagging case of ``parity.marg_cases``: the flags and the permutation,
+    the window ``pba._marginalize_device`` returns on the card (the
+    marginalization pass's K7 and K8, K15, the permuted window; but
+    :data:`MARG_SKIPPED`) and K15's sweeps."""
+    from dsopp_tpu_torch.solvers import pba
+    from dsopp_tpu_torch.testing import parity
+
+    out = {}
+    for key, (start, model, opts) in solve_inputs().items():
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        for case, slots in parity.marg_cases(start).items():
+            w, perm = parity.marg_case(start, case, slots, gen)
+            at = f"{key}/{case}"
+            out[f"{at}/inputs/frame_marg"] = w.frame_marg
+            out[f"{at}/inputs/lm_marg_flag"] = w.lm_marg_flag
+            out[f"{at}/inputs/perm"] = perm
+            res = pba._marginalize_device(w, model, perm, opts)
+            for field, v in _fields(res).items():
+                if field not in MARG_SKIPPED:
+                    out[f"{at}/{field}"] = v
+            sweeps = torch.zeros(1, dtype=torch.int32, device="cuda")
+            marg_fold(w, model, perm, opts)(sweeps)
+            out[f"{at}/sweeps"] = sweeps
+    return out
+
+
 # -- the cases and the paths -------------------------------------------------
 
-CASES = {"c1": c1_outputs, "k4": k4_outputs, "solve": solve_outputs, "frame": frame_outputs}
+CASES = {"c1": c1_outputs, "k4": k4_outputs, "solve": solve_outputs, "frame": frame_outputs,
+         "marg": marg_outputs}
 
 
 def run(case: str, **kwargs) -> dict:

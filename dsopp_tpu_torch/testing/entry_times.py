@@ -1,11 +1,12 @@
 """The calls of K5 (the flow statistic with the keyframe decision) and of
 K14's pairing (with the refinement's glue) on the inputs of
-``testing/bits.py``'s ``frame`` case, timed on the card, in this tree or in a
-tree before their one-call entries (copy this file and ``bits.py`` into that
-tree's ``dsopp_tpu_torch/testing`` and run it there), so that the two can be
-compared inside one card call.
+``testing/bits.py``'s ``frame`` case, and of K11 (the point status) and K15
+(the ledger fold) on the windows of its ``solve`` case, timed on the card, in
+this tree or in a tree before their redesigns (copy this file, ``bits.py``
+and ``parity.py`` into that tree's ``dsopp_tpu_torch/testing`` and run it
+there), so that the two can be compared inside one card call.
 
-    python -m dsopp_tpu_torch.testing.entry_times [out.json]
+    python -m dsopp_tpu_torch.testing.entry_times [out.json] [--cases frame,status,marg]
 
 Per tracker of ``bits.FRAME_TRACKERS`` (the pairing on the three with a
 pushed keyframe, with and without the refinement), each the mean of
@@ -21,7 +22,18 @@ one call (``profiling.profiled``):
   operators);
 * ``pairing``: the pairing after the activation and the refinement (this
   tree: one call; before: the glue's five operators and the wrapper, its
-  five clones, memset, kernel and indexing).
+  five clones, memset, kernel and indexing);
+* ``status`` (per window of the ``solve`` case, its own or scaled ledger):
+  K11's wrapper on K7's evaluation of the window, and the library's
+  yardstick, ``torch.nanquantile`` of the ok energies (NaN elsewhere);
+* ``marg`` (per window and flagging case of ``parity.marg_cases`` that
+  flags one to five frames): K15 from the marginalization pass's system
+  (``bits.marg_fold`` with the glue: a tree before the raw-system entry
+  forms the flagged landmarks' system in torch at every call), the whole
+  marginalization (``pba._marginalize_device``: the pass's K7 and K8, K15,
+  the permuted window), and the library's yardsticks at the same shapes:
+  ``torch.linalg.eigh`` of the compact flagged block and
+  ``solvers.linear.pinv_hermitian`` of the identity-padded one.
 
 Prints one JSON object with the card's name and power limit.  Needs a CUDA
 card.
@@ -43,8 +55,8 @@ REPS = 200
 
 
 def device_work(fn, reps: int = 20) -> dict:
-    """The profiler's device µs of one call of ``fn`` and the names of the
-    device kernels (and copies, memsets) it runs."""
+    """The profiler's device µs of one call of ``fn``, in all and by the
+    name of each device kernel (or copy, memset) it runs."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -53,15 +65,78 @@ def device_work(fn, reps: int = 20) -> dict:
             fn()
         torch.cuda.synchronize()
     events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    names = sorted({e.name for e in events})
-    return dict(device_us=sum(e.time_range.elapsed_us() for e in events) / reps,
-                device_events_per_call=len(events) / reps, device_names=names)
+    by_name: dict = {}
+    for e in events:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / reps
+    return dict(device_us=sum(by_name.values()), device_events_per_call=len(events) / reps,
+                device_names=sorted(by_name), device_us_by_name=by_name)
 
 
-def main(argv) -> int:
-    if not torch.cuda.is_available():
-        print("entry_times: no CUDA device", file=sys.stderr)
-        return 2
+STATUS_WINDOWS = ("standart", "dense")
+MARG_CASES = ("one free frame", "two frames", "five frames")
+
+
+def status_rows() -> dict:
+    """{window: K11's call and the library's quantile}."""
+    from dsopp_tpu_torch.solvers import pba
+    out = {}
+    for key, (win, model, opts) in bits.solve_inputs().items():
+        name, ledger = key.split("/")
+        if name not in STATUS_WINDOWS or ledger == "empty":
+            continue
+        lm_mask = pba.active_lm_mask(win)
+        ev = pba._evaluate_cuda(win, model, win.eps, win.lm_idepth, lm_mask, opts)
+        flat = torch.where(ev.ok, ev.energy_patch,
+                           torch.full_like(ev.energy_patch, float("nan"))).reshape(-1)
+
+        def call():
+            return pba._point_status_from_ev_cuda(win, ev, lm_mask, opts)
+
+        out[name] = dict(groups=flat.numel(), ok=int(ev.ok.sum()),
+                         call_ms=cuda_ms(call, REPS), call=device_work(call),
+                         nanquantile_ms=cuda_ms(lambda: torch.nanquantile(flat, 0.75), REPS),
+                         nanquantile=device_work(lambda: torch.nanquantile(flat, 0.75)))
+    return out
+
+
+def marg_rows() -> dict:
+    """{window/case: K15's call from the pass's system, the whole
+    marginalization, and the library's eigen-solvers}."""
+    from dsopp_tpu_torch.solvers import pba
+    from dsopp_tpu_torch.solvers.linear import pinv_hermitian
+    from dsopp_tpu_torch.testing import parity
+    out = {}
+    for key, (start, model, opts) in bits.solve_inputs().items():
+        name, ledger = key.split("/")
+        if name not in STATUS_WINDOWS or ledger == "empty":
+            continue
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        for case, slots in parity.marg_cases(start).items():
+            w, perm = parity.marg_case(start, case, slots, gen)
+            if case not in MARG_CASES:
+                continue
+            fold = bits.marg_fold(w, model, perm, opts, glue=True)
+            h_pts = pba._marg_system_kernel(w, model, opts)[0]
+            hm, rows = parity.folded_ledger(w, h_pts, opts)
+            block = hm[rows][:, rows].contiguous()
+            kb = hm.shape[0]
+            padded = torch.where(rows[:, None] & rows[None, :], hm,
+                                 torch.eye(kb, dtype=hm.dtype, device=hm.device))
+
+            def whole():
+                return pba._marginalize_device(w, model, perm, opts)
+
+            out[f"{name}/{case}"] = dict(
+                k=w.num_slots, flagged_rows=int(rows.sum()),
+                fold_ms=cuda_ms(fold, REPS), fold=device_work(fold),
+                marginalize_ms=cuda_ms(whole, REPS), marginalize=device_work(whole),
+                eigh_ms=cuda_ms(lambda: torch.linalg.eigh(block), REPS),
+                pinv_ms=cuda_ms(lambda: pinv_hermitian(padded, w.eps.dtype), REPS))
+    return out
+
+
+def frame_rows() -> dict:
+    """{tracker: K5's call and chain, and the pairing's calls}."""
     from dsopp_tpu_torch.tracker import depth_map as dm
     one_call = bits.one_call_tree()
     f32 = dict(dtype=torch.float32, device="cuda")
@@ -76,7 +151,7 @@ def main(argv) -> int:
     def k5_chain(pts, model, t, mat):
         return bits.statistics(pts, model, t, mat, *decision)
 
-    out = dict(tree="one call" if one_call else "before", card=card_line(), trackers={})
+    out = {}
     for name, case in bits.frame_inputs().items():
         args = case["flow"]
         row = dict(k5_call_ms=cuda_ms(lambda: k5_call(*args), REPS),
@@ -92,10 +167,25 @@ def main(argv) -> int:
                     lambda: bits.pairing_call(win, imm, *inputs), REPS)
                 row[f"pairing_{label}"] = device_work(
                     lambda: bits.pairing_call(win, imm, *inputs))
-        out["trackers"][name] = row
+        out[name] = row
+    return out
+
+
+CASES = {"frame": frame_rows, "status": status_rows, "marg": marg_rows}
+
+
+def main(argv) -> int:
+    if not torch.cuda.is_available():
+        print("entry_times: no CUDA device", file=sys.stderr)
+        return 2
+    cases = (argv[argv.index("--cases") + 1] if "--cases" in argv else ",".join(CASES)).split(",")
+    out = dict(tree=dict(one_call=bits.one_call_tree(), raw_system=bits.raw_system_tree()),
+               card=card_line())
+    out.update({case: CASES[case]() for case in cases})
     print(json.dumps(out), flush=True)
-    if len(argv) > 1:
-        with open(argv[1], "w") as f:
+    paths = [a for a in argv[1:] if a.endswith(".json")]
+    if paths:
+        with open(paths[0], "w") as f:
             json.dump(out, f, indent=1)
     return 0
 

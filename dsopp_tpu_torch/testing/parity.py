@@ -729,20 +729,23 @@ def cuda_ms(fn, reps: int = 50) -> float:
 
 
 # K15's flagging cases: "a dead frame" keeps no live landmark and sees none
-# (its block holds the priors and the ledger only: rank 2 on an empty ledger)
-MARG_CASES = ("no frame", "one free frame", "two frames", "the fixed frame", "a dead frame")
+# (its block holds the priors and the ledger only: rank 2 on an empty ledger);
+# "five frames" flags 40 rows, more than K15's one-warp solver takes
+MARG_CASES = ("no frame", "one free frame", "two frames", "the fixed frame", "a dead frame",
+              "five frames")
 
 
 def marg_cases(window) -> dict:
     """{case of ``MARG_CASES``: the slots it flags} on ``window``: free frames
-    older than the newest one, and slot 0 for the fixed frame (made fixed
-    where it is not)."""
+    older than the newest one (as many as there are, up to five), and slot 0
+    for the fixed frame (made fixed where it is not)."""
     frames = int(window.frame_valid.sum())
     is_fixed = (window.frame_fixed & window.frame_valid).tolist()
     free = [i for i in range(frames - 1) if not is_fixed[i]]
     fixed = [i for i in range(frames) if is_fixed[i]]
     return {"no frame": [], "one free frame": free[:1], "two frames": free[:2],
-            "the fixed frame": fixed[:1] or [0], "a dead frame": free[-1:]}
+            "the fixed frame": fixed[:1] or [0], "a dead frame": free[-1:],
+            "five frames": free[:5]}
 
 
 def marg_case(window, case: str, slots, gen):

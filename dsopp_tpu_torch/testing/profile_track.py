@@ -73,7 +73,8 @@ KERNEL_NAMES = ("pyramid_kernel", "pyramid_level_kernel", "align_level_kernel",
                 "flow_kernel", "ba_evaluate_kernel", "pair_kernel",
                 "landmark_kernel", "schur_kernel", "reduce_kernel", "assemble_kernel",
                 "solve_kernel", "backsub_kernel", "norm_kernel", "carry_kernel", "decide_kernel",
-                "commit_kernel", "finish_kernel", "quantile_kernel", "status_kernel",
+                "commit_kernel", "finish_kernel", "quantile_kernel", "count_kernel",
+                "collect_kernel", "status_kernel",
                 "region_threshold_kernel",
                 "tile_argmax_kernel", "rank_tiles_kernel", "activation_landmarks_kernel",
                 "activation_walk_kernel", "active_projections_kernel",
@@ -83,7 +84,7 @@ KERNEL_NAMES = ("pyramid_kernel", "pyramid_level_kernel", "align_level_kernel",
                 "project_kernel", "depth_scatter_kernel", "pool_kernel", "dilate_kernel",
                 "hist_kernel", "class_threshold_kernel", "tile_count_kernel",
                 "select_write_kernel", "heavy_rank_kernel", "policy_kernel", "fold_kernel",
-                "fold_out_kernel")
+                "marg_solve_kernel", "fold_out_kernel")
 # entry point -> its kernels (K13's and K16's current ones, then an earlier
 # design's, so that a parent tree profiled with this file is read too): device
 # time per call of the entry
@@ -92,6 +93,8 @@ KERNEL_GROUPS = {
                    "active_projections_kernel", "candidates_kernel"),
     "refine_idepth": ("compact_kernel", "refine_kernel"),
     "flow_statistic": ("flow_kernel",),
+    "ba_point_status": ("quantile_kernel", "count_kernel", "collect_kernel", "status_kernel"),
+    "marg_fold": ("fold_kernel", "marg_solve_kernel", "fold_out_kernel"),
     "activation_scatter": ("pair_slots_kernel",),
     "ba_linearize_schur": ("pair_kernel", "landmark_kernel", "schur_kernel", "reduce_kernel"),
     "depth_maps": ("prepare_kernel", "twins_kernel", "chain_kernel", "pool_kernel",

@@ -10,7 +10,7 @@ sources include, so the compiler holds those declarations to their
 definitions.)  Also the step names of ``ba_solve_loop``'s error code against
 ``csrc/ba_lm.cu::SolveStep``, and the order of its host array of launch
 counts (``pba._SOLVE_LOOP_COUNTED``) against the calls it counts; and the
-bytes of the two workspaces the wrappers hand their kernels against the C
+bytes of the three workspaces the wrappers hand their kernels against the C
 structs they hold.
 """
 
@@ -88,7 +88,7 @@ def test_solve_loop_counts_follow_the_calls_they_count():
     assert sorted(counts.values()) == list(range(len(pba._SOLVE_LOOP_COUNTED)))
 
 
-SIZES = {"double": 8, "int": 4, "unsigned int": 4}
+SIZES = {"double": 8, "float": 4, "int": 4, "unsigned int": 4}
 
 
 def _struct_bytes(src, name):
@@ -109,9 +109,17 @@ def _struct_bytes(src, name):
     return -(-size // align) * align
 
 
+def test_status_workspace_header_is_the_kernels():
+    """K11's candidates start where the C source says its header ends."""
+    src = (kernels.CSRC / "ba_status.cu").read_text()
+    found = re.search(r"constexpr int kWorkspaceHeader = (\d+);", src)
+    assert found and int(found.group(1)) == kernels.STATUS_WORKSPACE_BYTES
+
+
 @pytest.mark.parametrize("source,struct,nbytes", [
     ("flow.cu", "FlowWorkspace", kernels.FLOW_WORKSPACE_BYTES),
-    ("refine.cu", "PairWorkspace", kernels.PAIR_WORKSPACE_BYTES)])
+    ("refine.cu", "PairWorkspace", kernels.PAIR_WORKSPACE_BYTES),
+    ("ba_status.cu", "StatusWorkspace", kernels.STATUS_WORKSPACE_BYTES)])
 def test_workspace_holds_its_struct(source, struct, nbytes):
     size = _struct_bytes((kernels.CSRC / source).read_text(), struct)
     assert 0 < size <= nbytes, (struct, size, nbytes)

@@ -58,13 +58,16 @@ dense window, two runs equal to the bit, and their wrappers run no torch
 operator but allocations; K16 (landmarks within 1e-3 px of a pixel boundary left out of
 both) weights and selected pixels equal, idepth 1e-6 relative, on a small and
 on the dense window, two runs equal to the bit, at most 16 launches and no
-memset a call; K15 (the ledger fold, on an empty and a filled ledger, with no
-frame, one free frame, two frames, the fixed frame and a dead frame flagged)
+memset a call; K15 (the ledger fold from K8's marginalization-pass system
+raw, on an empty and a filled ledger, with no frame, one free frame, two
+frames, the fixed frame, a dead frame and five frames flagged)
 H_m, b_m and E_m within 1e-9 of their largest entry, of the plain version's
 or, where an eigenvalue lies within 1e-6 (relative) of the pseudo-inverse's
 cutoff, of the plain version's with the cutoff at either edge of that band;
 the Jacobi solver converged; two runs equal to the bit, the window it leaves
-equal; K15p (the policy) flags, outliers and the permutation equal, or, where
+equal; its wrapper running no torch operator but allocations, with no host
+read; K11 and K15 launched on two side streams in turn equal to the default
+stream's; K15p (the policy) flags, outliers and the permutation equal, or, where
 the two best eq (20) scores tie within their bounds
 (``parity.eq20_score_bounds``: the kernel composes the positions itself),
 frame flags that differ on those two slots only and the plain triage of the
@@ -886,11 +889,11 @@ def test_marg_fold_kernel_matches_plain(tracked, marg_windows, ledger, case):
     start = marg_windows[ledger]
     slots = parity.marg_cases(start)[case]
     w, perm = parity.marg_case(start, case, slots, torch.Generator(device="cuda").manual_seed(1))
-    h_pts, b_pts, e_land = pba._marg_system_kernel(w, model, opts)
-    fold = (w, h_pts.contiguous(), b_pts.contiguous(), e_land, perm, opts)
+    raw = _marg_raw(w, model, perm, opts)
+    fold = (w, *pba._points_system(*raw[:5], opts), raw[5], perm, opts)
     before = kernels.MARG_FOLD.launches
     sweeps = torch.full((1,), -1, dtype=torch.int32, device="cuda")
-    out_k = _no_host_reads(pba._marginalize_cuda, *fold, sweeps)
+    out_k = _no_host_reads(pba._marginalize_cuda, *raw, sweeps)
     assert kernels.MARG_FOLD.launches == before + 1
     err = parity.ledger_check(out_k, fold)
     assert err["eigenvalues"] == 8 * len(slots)
@@ -899,11 +902,17 @@ def test_marg_fold_kernel_matches_plain(tracked, marg_windows, ledger, case):
     assert err["within"], err
     assert 0 <= int(sweeps) < pba.MARG_MAX_SWEEPS
     assert slots or int(sweeps) == 0
-    assert all(torch.equal(a, b) for a, b in zip(out_k, pba._marginalize_cuda(*fold)))
+    assert all(torch.equal(a, b) for a, b in zip(out_k, pba._marginalize_cuda(*raw)))
     win_k = _no_host_reads(pba._marginalize_device, w, model, perm, opts)
-    win_p = pba._marginalize_with(pba._marginalize_plain, w, model, perm, opts)
+    win_p = pba._marginalize_with(pba._marginalize_system_plain, w, model, perm, opts)
     for name in ("frame_valid", "frame_id", "lm_valid", "lm_marg_flag"):
         assert torch.equal(getattr(win_k, name), getattr(win_p, name)), name
+
+
+def _marg_raw(w, model, perm, opts):
+    """K15's arguments: K8's marginalization-pass system of ``w`` raw."""
+    sys_m, e_land = pba._marg_pass(w, model, opts)
+    return (w, sys_m.h_pose, sys_m.b_pose, sys_m.h_schur, sys_m.b_schur, e_land, perm, opts)
 
 
 def test_marg_policy_kernel_matches_plain(tracked, marg_windows):
@@ -1158,7 +1167,7 @@ def test_align_kernels_match_plain_at_c(embedded, channels):
     assert parity.align_level_equal(res_k, pa.align_level_cuda(*k3))
 
 
-@pytest.mark.parametrize("case", ["c1", "k4", "solve", "frame"])
+@pytest.mark.parametrize("case", ["c1", "k4", "solve", "frame", "marg"])
 def test_outputs_match_the_parent(case):
     """Each case of ``testing/bits.py`` equal, digest by digest, to the tree
     before its redesign (no pose tie either): ``c1`` the C = 1 outputs of K1,
@@ -1169,7 +1178,9 @@ def test_outputs_match_the_parent(case):
     each with an empty and a filled ledger (the loop launched from Python);
     ``frame`` K5 with the decision and K14's pairing with the refinement's
     glue (the flows kernel and the torch decision; the torch glue, the
-    clones and the pairing kernel)."""
+    clones and the pairing kernel); ``marg`` the marginalization on the
+    solve case's windows in every flagging case (K15 after the priors and
+    subtractions in torch, its rounds behind barriers of 1024 threads)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from dsopp_tpu_torch.testing import bits
@@ -1287,3 +1298,61 @@ def test_flow_and_pairing_on_two_streams(tracked, keyframe):
     for stats, pair in runs:
         assert torch.equal(stats, want_stats)
         assert all(torch.equal(a, b) for a, b in zip(pair, want_pair))
+
+
+def test_marg_fold_forms_the_system_and_reads_nothing(tracked, marg_windows):
+    """K15 from K8's raw system: no host read, no torch operator but its
+    allocations (no ``diag`` of the priors, no subtraction), and three
+    device kernels a call."""
+    tracker, _ = tracked
+    opts, model = tracker.pba_opts, tracker.models[0]
+    start = marg_windows["filled"]
+    slots = parity.marg_cases(start)["one free frame"]
+    w, perm = parity.marg_case(start, "one free frame", slots,
+                               torch.Generator(device="cuda").manual_seed(1))
+    raw = _marg_raw(w, model, perm, opts)
+    _no_host_reads(pba._marginalize_cuda, *raw)
+    assert _aten_ops(pba._marginalize_cuda, *raw) <= ALLOCATION_OPS
+    torch.cuda.synchronize()
+    with profiled([torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            pba._marginalize_cuda(*raw)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert 0 < len(names) <= 15 and all("_kernel" in name for name in names), names
+
+
+def test_status_and_fold_on_two_streams(tracked, marg_windows):
+    """K11 (its workspace: histograms, ticket, selection) and K15 launched on
+    two side streams in turn, with no wait between them: each stream has its
+    own K11 workspace, and every launch's outputs equal the default stream's
+    to the bit, as do two runs on one stream."""
+    tracker, _ = tracked
+    win, eps, idepth, lm_mask = _ba_problem(tracker)
+    opts, model = tracker.pba_opts, tracker.models[0]
+    win = win.replace(eps=eps, lm_idepth=idepth)
+    ev = pba._evaluate_cuda(win, model, eps, idepth, lm_mask, opts)
+    start = marg_windows["filled"]
+    slots = parity.marg_cases(start)["two frames"]
+    w, perm = parity.marg_case(start, "two frames", slots,
+                               torch.Generator(device="cuda").manual_seed(1))
+    raw = _marg_raw(w, model, perm, opts)
+
+    def outputs():
+        return [*pba._point_status_from_ev_cuda(win, ev, lm_mask, opts),
+                *pba._marginalize_cuda(*raw)]
+
+    want = outputs()
+    assert all(torch.equal(a, b) for a, b in zip(outputs(), want))
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream() for _ in range(2)]
+    runs = []
+    for _ in range(10):
+        for stream in streams:
+            with torch.cuda.stream(stream):
+                runs.append(outputs())
+    torch.cuda.synchronize()
+    owners = {key[2] for key in kernels._workspaces if key[0] == kernels.BA_STATUS.name}
+    assert {stream.cuda_stream for stream in streams} <= owners
+    for run in runs:
+        assert all(torch.equal(a, b) for a, b in zip(run, want))

@@ -106,7 +106,11 @@ def _kept_first(frame_valid, flags):
 def filled(request, seq):
     """A JAX window whose ledger holds a landmark fold, with a dead frame in
     slot ``DEAD`` (no landmark of its own; every residual into it OOB)."""
-    slots = request.param
+    return filled_window(seq, request.param)
+
+
+def filled_window(seq, slots):
+    """:func:`filled`'s window of ``slots`` frame slots."""
     frames = list(range(8 if slots == 10 else 13))
     w = build_test_window(seq, frames, num_landmarks=N_LM, slots=slots, pose_noise=2e-3,
                           idepth_noise=0.03, seed=3)
@@ -350,8 +354,9 @@ def test_kernel_wrappers_refuse_cpu_tensors(wrapper):
         if wrapper == "marg_policy":
             tmarg.flags_device_cuda(w, torch.zeros((3, 8), dtype=torch.bool), 1, 2, 0.95)
         else:
-            tpba._marginalize_cuda(w, torch.zeros(24, 24), torch.zeros(24), torch.zeros(()),
-                                   torch.arange(3), tpba.PBAOptions())
+            tpba._marginalize_cuda(w, torch.zeros(24, 24), torch.zeros(24), torch.zeros(24, 24),
+                                   torch.zeros(24), torch.zeros(()), torch.arange(3),
+                                   tpba.PBAOptions())
     assert kernels.counts() == before
 
 
