@@ -50,10 +50,12 @@ Phases, one line each with its time:
    and each runs there with host synchronisation an error; K14's pairing
    with the refinement's glue inside and without a refinement, equal entry
    by entry to the plain version, the caller's window and banks untouched;
-   K13, K14's refinement and its pairing also run twice (equal to the bit),
-   their wrappers under the profiler (the aten operators they run,
-   allocations only, and their kernels a call: the pairing one kernel, no
-   copy, no memset) with the profiler's device time, at both windows.  K15p and K15 are
+   K12, K13, K14's refinement, its pairing and K16 also run twice (equal to
+   the bit), their wrappers under the profiler (the aten operators they run,
+   allocations only, K16's also their views, and their kernels a call: the
+   pairing one kernel, K16 only its own, no copy, no memset, no torch kernel)
+   with the profiler's device time, at both windows; K16's poses, composed
+   in the kernel, within ``parity.KERNEL_POSE_ULPS`` of torch's.  K15p and K15 are
    held on both BA windows, with an empty and a filled ledger: the policy at
    the configuration's window sizes and with the window one frame too large
    (flags, outliers and the permutation equal; where the two best eq (20)
@@ -156,7 +158,11 @@ Phases, one line each with its time:
    marginalization on the card (the marginalization pass's K7 and K8, K15
    from their raw system, the permuted window) in every flagging case of
    ``parity.marg_cases`` on the ``solve`` case's windows (K15 after the
-   priors and subtractions in torch, its rounds behind 1024-thread barriers).
+   priors and subtractions in torch, its rounds behind 1024-thread barriers);
+   ``kf``, K12's candidates and K16's frontend state on a keyframe's window,
+   as it is and moved, on five trackers (K16's poses and mask composed in
+   torch around its call; K12's rank a thread a tile), or K16's of that tree
+   on this kernel's composed poses (a pose tie, named).
 
 The windowed-BA solve is one C call on every path: the wrapper checks the
 window, allocates its buffers with ``torch.empty`` and calls
@@ -399,12 +405,13 @@ def fmt_split(split, per_call):
             + f" device µs; {per_call:.2f} device kernels a call")
 
 
-def only_kernel(torch, fn, kernel, reps=10):
+def only_kernel(torch, fn, kernel, reps=10, per_call=1):
     """``reps`` calls of ``fn`` under the profiler → (device records, calls),
-    each record checked to be ``kernel``'s (no copy, no memset, no torch
-    kernel), at most one a call.  The profiler can drop the first records of a
+    each record checked to be ``kernel``'s (a name, or a tuple of the names of
+    one entry's kernels; no copy, no memset, no torch kernel), at most
+    ``per_call`` a call.  The profiler can drop the first records of a
     session (``testing/profiling.py``), so the calls after them carry the
-    proof, and records over calls can read below 1."""
+    proof, and records over calls can read below ``per_call``."""
     from dsopp_tpu_torch.testing.profiling import profiled
 
     fn()
@@ -415,9 +422,11 @@ def only_kernel(torch, fn, kernel, reps=10):
             fn()
         torch.cuda.synchronize()
     names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    require(0 < len(names) <= reps and all(kernel in name for name in names),
-            f"{kernel}: {len(names)} device records in {reps} calls, other than the kernel:"
-            f" {sorted({name for name in names if kernel not in name})}")
+    kernels = (kernel,) if isinstance(kernel, str) else kernel
+    others = sorted({name for name in names if not any(k in name for k in kernels)})
+    require(0 < len(names) <= per_call * reps and not others,
+            f"{kernel}: {len(names)} device records in {reps} calls, other than its kernels:"
+            f" {others}")
     return len(names), reps
 
 
@@ -1026,15 +1035,15 @@ def parity_keyframe(seq, tracker, frame, torch, rows, label):
             log(f"  {name} ({label}): kernel {fields['ms']:.4f} ms, plain {fields['plain_ms']:.4f}"
                 f" ms, bound {fields['bound_ms']:.5f} ms ({fields['bound_by']})")
 
-    def glue(name, short, fn, out):
+    def glue(name, short, fn, out, allowed=ALLOCATION_OPS):
         """Two runs of a wrapper equal to the bit, the torch operators it
-        runs (allocations only), its kernels a call and their device µs →
-        the row's extra fields."""
+        runs (``allowed``: allocations only, or their views too), its kernels a
+        call and their device µs → the row's extra fields."""
         again = fn()
         require(all(torch.equal(a, b) for a, b in zip(out, again)),
                 f"{short} ({label}): two runs on the same window differ")
         ops, device_kernels = wrapper_work(torch, fn)
-        require(set(ops) <= set(ALLOCATION_OPS),
+        require(set(ops) <= set(allowed),
                 f"{short} ({label}): the wrapper runs torch operators {ops}")
         us = device_us(torch, fn)
         log(f"  {short} ({label}): two runs equal to the bit; the wrapper runs {len(ops)} aten"
@@ -1060,11 +1069,16 @@ def parity_keyframe(seq, tracker, frame, torch, rows, label):
                 f"K12 ({label}): slots differ from the plain version: {err}")
         err12 = max(err12, err["grad2"])
     mask = path_mask("masked")
-    row("select_candidates", max_abs_err=err12,
-        ms=cuda_ms(lambda: extractor.select_candidates_cuda(maps[0], m, mask)),
+
+    def k12():
+        return tuple(extractor.select_candidates_cuda(maps[0], m, mask))
+
+    extra12 = glue("select_candidates", "K12", k12, tuple(out_k))
+    log(f"  K12 ({label}): {fmt_split(*kernel_split(torch, k12))}")
+    row("select_candidates", max_abs_err=err12, ms=cuda_ms(k12),
         plain_ms=cuda_ms(lambda: extractor.select_candidates_plain(maps[0], m, mask)),
         **bound(2 * nbytes(maps[0]) // 3 + nbytes(mask) + nbytes(*out_k),
-                OPS_CANDIDATE_PIXEL * h * w))
+                OPS_CANDIDATE_PIXEL * h * w), **extra12)
 
     # K13 — at the spacing the tracker stands at and at the controller's start
     # (3 px), a device scalar
@@ -1218,16 +1232,26 @@ def parity_keyframe(seq, tracker, frame, torch, rows, label):
             f"K16 ({label}): weights or selected pixels differ: {err}")
     require(err["idepth_map"] <= 1e-6 and err["idepth"] <= 1e-6 and err["intensity"] == 0.0,
             f"K16 ({label}): idepth differs by {max(err['idepth_map'], err['idepth']):.3g}")
-    again = dm.build_frontend_state_cuda(*args)
+    # the poses the kernel composes against torch's composition
+    rel_pose = torch.empty((k, dm.POSE_WIDTH), device="cuda")
+    dm.build_frontend_state_cuda(*args, poses_out=rel_pose)
+    err = par.frontend_pose_errors(win2, rel_pose)
+    log(f"  K16 ({label}): the kernel's poses T_newest^-1 T_f {err['pose_ulps']:.1f} ulps from"
+        f" torch's, {err['equal']} of {err['entries']} entries equal to the bit")
+    require(err["pose_ulps"] <= par.KERNEL_POSE_ULPS,
+            f"K16 ({label}): poses {err['pose_ulps']} ulps from torch's composition")
 
     def tensors(out):
         return [*out[0], *out[1], *(t for pts in (*out[2], out[3]) for t in pts)]
 
-    require(all(torch.equal(a, b) for a, b in zip(tensors(out_k), tensors(again))),
-            f"K16 ({label}): two runs on the same window differ")
+    extra16 = glue("depth_maps", "K16", lambda: tensors(dm.build_frontend_state_cuda(*args)),
+                   tensors(out_k), ALLOCATION_OPS + par.VIEW_OPS)
+    records, calls = only_kernel(torch, lambda: dm.build_frontend_state_cuda(*args),
+                                 par.DEPTH_MAPS_KERNELS, per_call=device_work["kernels"])
+    log(f"  K16 ({label}): its {device_work['kernels']} kernels alone on the device, no copy,"
+        f" no memset, no torch kernel ({records} records in {calls} calls)")
     k16_ms = cuda_ms(lambda: dm.build_frontend_state_cuda(*args))
-    log(f"  K16 ({label}): call {k16_ms:.4f} ms, the wrapper's glue included"
-        f" {fmt_us(device_us(torch, lambda: dm.build_frontend_state_cuda(*args)))}")
+    log(f"  K16 ({label}): call {k16_ms:.4f} ms, {fmt_us(extra16['device_us'])}")
     cells = sum(x.numel() for x in out_k[0])
     lib = None
     if label == "standart":
@@ -1238,10 +1262,12 @@ def parity_keyframe(seq, tracker, frame, torch, rows, label):
     row("depth_maps", max_abs_err=float(max((a - b).abs().max()
                                             for a, b in zip(out_k[0], out_p[0]))),
         ms=k16_ms, plain_ms=cuda_ms(lambda: dm.build_frontend_state_plain(*args), reps=10),
-        **bound(nbytes(win2.lm_uv, win2.lm_idepth, win2.lm_valid) + nbytes(*out_k[0], *out_k[1])
+        **bound(nbytes(win2.lm_uv, win2.lm_idepth, win2.lm_valid, win2.lm_outlier, win2.t_lin_q,
+                       win2.t_lin_t, win2.eps, win2.frame_valid)
+                + nbytes(*out_k[0], *out_k[1])
                 + sum(nbytes(*pts) + 4 * pts.uv.shape[0] for pts in (*out_k[2], out_k[3])),
                 OPS_REPROJECT * k * n + OPS_DEPTH_CELL * cells),
-        library_ms=lib)
+        library_ms=lib, **extra16)
 
 
 def parity_ba(seq, tracker, torch, rows, label, every, min_frames, timed):

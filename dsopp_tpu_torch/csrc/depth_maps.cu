@@ -14,9 +14,14 @@
 // Bound: bytes (the grids of all levels are written once, about 6.5 MB at
 // VGA; the points are a few tens of KB), and at these sizes the launches.
 // Design, 10 launches and no memset a call, every sum in one fixed order so
-// two runs give the same bits:
-// 1. prepare_kernel: projects the points, and zeroes level 0's grids and the
-//    histograms;
+// two runs give the same bits; the entry takes the window's raw tensors:
+// 1. prepare_kernel: each point block counts the valid frames (the newest
+//    slot is the count less one, as pba.newest_slot), composes T_newest^-1 *
+//    T_f of every frame into shared memory (T_f = T_lin,f * exp(eps_f) as
+//    Window.poses gives it, in torch's order of operations, torch_lie.cuh)
+//    and masks the live landmarks of the older keyframes (lm_valid &
+//    frame_valid & ~lm_outlier, not the newest frame); then it projects the
+//    points; the other blocks zero level 0's grids and the histograms;
 // 2. twins_kernel, a block per (tile, tile) of 256 points: for each point the
 //    least later point on its pixel (an integer atomicMin, whose result does
 //    not depend on the order) and whether an earlier one exists;
@@ -45,6 +50,7 @@
 
 #include "ba_body.cuh"
 #include "shared_opt_in.cuh"
+#include "torch_lie.cuh"
 
 namespace {
 
@@ -57,6 +63,7 @@ constexpr int kMaxLevels = 5;          // a 16x16 level-0 tile holds one level-4
 constexpr int kPoolTile = 1 << (kMaxLevels - 1);
 constexpr int kMaxRounds = kMaxLevels + 1;
 constexpr int kMaxPoints = 16384;      // heavy_write_kernel's first slots: 64 KB of shared memory
+constexpr int kMaxFrames = 64;         // window slots: prepare_kernel's poses in shared memory
 constexpr int kNone = 0x7fffffff;      // no later point on the pixel
 
 // what every kernel reads of the call: the levels, the selection rounds and
@@ -82,31 +89,54 @@ __device__ __forceinline__ int segment_of(const int* off, int count, int v) {
 }
 
 // block ranges of prepare_kernel: the points, then level 0's cells, then the
-// histograms
+// histograms.  A point block first composes the frames' poses relative to the
+// newest (the first block also writes them to rel_out unless it is null).
 __global__ void __launch_bounds__(kThreads)
 prepare_kernel(const float* __restrict__ lm_uv, const float* __restrict__ lm_idepth,
-               const unsigned char* __restrict__ lm_mask, const float* __restrict__ rel_q,
-               const float* __restrict__ rel_t, int total, int n, ba::Camera cam, Plan plan,
-               int* __restrict__ pix, float* __restrict__ pidep, int* __restrict__ next,
-               int* __restrict__ has_prev, float* __restrict__ raw_i, float* __restrict__ raw_w,
-               int* __restrict__ hist) {
+               const unsigned char* __restrict__ lm_valid,
+               const unsigned char* __restrict__ lm_outlier,
+               const unsigned char* __restrict__ frame_valid, const float* __restrict__ t_lin_q,
+               const float* __restrict__ t_lin_t, const float* __restrict__ eps, int k,
+               int total, int n, ba::Camera cam, Plan plan, int* __restrict__ pix,
+               float* __restrict__ pidep, int* __restrict__ next, int* __restrict__ has_prev,
+               float* __restrict__ raw_i, float* __restrict__ raw_w, int* __restrict__ hist,
+               float* __restrict__ rel_out) {
+  __shared__ torch_lie::Pose abs_s[kMaxFrames], rel_s[kMaxFrames];
   const int point_blocks = blocks_for(total, kThreads);
   const int cells = plan.h[0] * plan.w[0], cell_blocks = blocks_for(cells, kThreads);
   const int b = blockIdx.x;
   if (b < point_blocks) {
     const int p = b * kThreads + threadIdx.x;
-    if (p >= total) return;
+    const bool in = p < total;
+    const int i = in ? p / n : 0;
+    // the point's loads go out before the poses' arithmetic
+    const float u = in ? lm_uv[2 * p] : 0.0f, v = in ? lm_uv[2 * p + 1] : 0.0f;
+    const float d = in ? lm_idepth[p] : 0.0f;
+    const bool live = in && lm_valid[p] != 0 && lm_outlier[p] == 0 && frame_valid[i] != 0;
+    const int newest = ba::valid_frames(frame_valid, k) - 1;
+    const int f = threadIdx.x;
+    if (f < k) abs_s[f] = torch_lie::window_pose(t_lin_q, t_lin_t, eps, f);
+    __syncthreads();
+    if (f < k) {
+      const torch_lie::Pose rel =
+          torch_lie::compose(torch_lie::inverse(abs_s[max(newest, 0)]), abs_s[f]);
+      rel_s[f] = rel;
+      if (b == 0 && rel_out != nullptr) {
+        const float out[7] = {rel.q.w, rel.q.x, rel.q.y, rel.q.z, rel.t.x, rel.t.y, rel.t.z};
+        for (int c = 0; c < 7; ++c) rel_out[7 * f + c] = out[c];
+      }
+    }
+    __syncthreads();
+    if (!in) return;
     const int h = plan.h[0], w = plan.w[0];
-    const int i = p / n;
-    const ba::Rigid rel = {{rel_q[4 * i], rel_q[4 * i + 1], rel_q[4 * i + 2], rel_q[4 * i + 3]},
-                           {rel_t[3 * i], rel_t[3 * i + 1], rel_t[3 * i + 2]}};
-    const float d = lm_idepth[p];
+    const torch_lie::Pose r = rel_s[i];
+    const ba::Rigid rel = {{r.q.w, r.q.x, r.q.y, r.q.z}, {r.t.x, r.t.y, r.t.z}};
     ba::Vec3 ray;
-    const ba::Vec3 q = ba::scaled_target_point(cam, lm_uv[2 * p], lm_uv[2 * p + 1], d, rel, &ray);
+    const ba::Vec3 q = ba::scaled_target_point(cam, u, v, d, rel, &ray);
     const float z_safe = fabsf(q.z) < 1e-12f ? 1e-12f : q.z;
     const float u_t = cam.fx * q.x / z_safe + cam.cx;
     const float v_t = cam.fy * q.y / z_safe + cam.cy;
-    const bool ok = lm_mask[p] != 0 && ba::reprojection_valid(cam, q.z, u_t, v_t, d);
+    const bool ok = live && i != newest && ba::reprojection_valid(cam, q.z, u_t, v_t, d);
     const int xs = min(max((int)rintf(u_t), 0), w - 1);
     const int ys = min(max((int)rintf(v_t), 0), h - 1);
     pix[p] = ok ? ys * w + xs : -1;
@@ -447,31 +477,35 @@ heavy_write_kernel(const float* __restrict__ out_i, const float* __restrict__ ou
 
 }  // namespace
 
-// Points: lm_uv [k,n,2], lm_idepth [k,n], lm_mask [k,n] u8 (live landmarks of
-// the older keyframes), rel_q [k,4] / rel_t [k,3] (newest <- each frame).
-// `intensity` is a host array of `levels` device pointers: the [h_l, w_l]
-// intensity image of each pyramid level.  Scratch: pix, next, has_prev [k*n]
-// int32, pidep [k*n] f32, raw_i / raw_w (all levels, concatenated), hist
+// Window: lm_uv [k,n,2], lm_idepth [k,n] f32; lm_valid, lm_outlier [k,n] and
+// frame_valid [k] u8 (bool); t_lin_q [k,4], t_lin_t [k,3], eps [k,8] f32 (the
+// pose part is the first 6).  `intensity` is a host array of `levels` device
+// pointers: the [h_l, w_l] intensity image of each pyramid level.  Scratch,
+// no contents expected and none left: pix, next, has_prev [k*n] int32, pidep
+// [k*n] f32, raw_i / raw_w (all levels, concatenated), hist
 // [levels*(k*n+1)] int32, params [2*(levels+1)] int32, tile_counts [2*sum of
 // ceil(pixels / 1024) over the rounds] int32, heavy [(levels+1)*2*m] and rank
-// [(levels+1)*m] int32 with m = max(max_points, flow_points).  Outputs: out_i / out_w (all levels,
-// concatenated) and the selections, `levels` of max_points slots then one of
-// flow_points slots: uv [.,2], idepth, value f32, valid u8.  `launches`
-// (host, 2 ints) receives the kernels launched and the memsets issued.
-// Returns cudaErrorInvalidValue (1) for more than 5 levels, more than 16384
-// points, or a level without pixels.
+// [(levels+1)*m] int32 with m = max(max_points, flow_points).  Outputs:
+// out_i / out_w (all levels, concatenated) and the selections, `levels` of
+// max_points slots then one of flow_points slots: uv [.,2], idepth, value
+// f32, valid u8; rel_out [k,7] f32 (q, t of T_newest^-1 * T_f) or null.
+// `launches` (host, 2 ints) receives the kernels launched and the memsets
+// issued.  Returns cudaErrorInvalidValue (1) for more than 5 levels, more than
+// 16384 points, more than 64 frames, or a level without pixels.
 extern "C" int depth_maps(const float* lm_uv, const float* lm_idepth,
-                          const unsigned char* lm_mask, const float* rel_q,
-                          const float* rel_t, int k, int n, float fx, float fy, float cx,
-                          float cy, float width, float height, int h, int w, int levels,
-                          int max_points, int flow_points, const float* const* intensity,
-                          int* pix, float* pidep, int* next, int* has_prev, float* raw_i,
-                          float* raw_w, int* hist, int* params, int* tile_counts, int* heavy,
-                          int* rank, float* out_i, float* out_w, float* sel_uv, float* sel_idepth,
-                          float* sel_value, unsigned char* sel_valid, int* launches,
+                          const unsigned char* lm_valid, const unsigned char* lm_outlier,
+                          const unsigned char* frame_valid, const float* t_lin_q,
+                          const float* t_lin_t, const float* eps, int k, int n, float fx,
+                          float fy, float cx, float cy, float width, float height, int h, int w,
+                          int levels, int max_points, int flow_points,
+                          const float* const* intensity, int* pix, float* pidep, int* next,
+                          int* has_prev, float* raw_i, float* raw_w, int* hist, int* params,
+                          int* tile_counts, int* heavy, int* rank, float* out_i, float* out_w,
+                          float* sel_uv, float* sel_idepth, float* sel_value,
+                          unsigned char* sel_valid, float* rel_out, int* launches,
                           void* stream) {
   const int total = k * n;
-  if (levels < 1 || levels > kMaxLevels || total < 1 || total > kMaxPoints ||
+  if (levels < 1 || levels > kMaxLevels || total < 1 || total > kMaxPoints || k > kMaxFrames ||
       (h >> (levels - 1)) < 1 || (w >> (levels - 1)) < 1)
     return (int)cudaErrorInvalidValue;
   Plan plan = {};
@@ -512,9 +546,9 @@ extern "C" int depth_maps(const float* lm_uv, const float* lm_idepth,
   const int prepare_blocks = point_blocks + blocks_for(plan.h[0] * plan.w[0], kThreads) +
                              blocks_for(levels * plan.classes, kThreads);
   int launched = 0;   // kernels; this entry issues no memset
-  prepare_kernel<<<prepare_blocks, kThreads, 0, s>>>(lm_uv, lm_idepth, lm_mask, rel_q, rel_t,
-                                                     total, n, cam, plan, pix, pidep, next,
-                                                     has_prev, raw_i, raw_w, hist);
+  prepare_kernel<<<prepare_blocks, kThreads, 0, s>>>(
+      lm_uv, lm_idepth, lm_valid, lm_outlier, frame_valid, t_lin_q, t_lin_t, eps, k, total, n,
+      cam, plan, pix, pidep, next, has_prev, raw_i, raw_w, hist, rel_out);
   ++launched;
   twins_kernel<<<dim3(point_blocks, point_blocks), kThreads, 0, s>>>(pix, total, next, has_prev);
   ++launched;

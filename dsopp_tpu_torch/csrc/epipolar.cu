@@ -26,14 +26,14 @@
 //
 // Bits.  The geometry, the error model and the shrink repeat the operations
 // of tracker/depth_estimation.py's plain version as PyTorch runs them on the
-// card, so that they give its bits on the same inputs: the library is built
-// with --fmad=false, torch.linalg.cross forms a_i b_j - a_j b_i as one fma
-// (fma(a_i, b_j, -(a_j b_i))), a sum over 4 quaternion components adds
-// (q0^2 + q2^2) + (q1^2 + q3^2), and a division by a Python scalar (the
-// camera's unproject, (u - cx) / fx) multiplies by the scalar's f32
-// reciprocal.  The sweep and the refine keep the arithmetic of the kernel
-// that ran them alone before (its rays divide by fx).  linspace is the
-// two-sided formula of torch.linspace.  Everything is f32.
+// card, so that they give its bits on the same inputs (the pose helpers of
+// torch_lie.cuh): the library is built with --fmad=false, torch.linalg.cross
+// forms a_i b_j - a_j b_i as one fma (fma(a_i, b_j, -(a_j b_i))), a sum over
+// 4 quaternion components adds (q0^2 + q2^2) + (q1^2 + q3^2), and a division
+// by a Python scalar (the camera's unproject, (u - cx) / fx) multiplies by
+// the scalar's f32 reciprocal.  The sweep and the refine keep the arithmetic
+// of the kernel that ran them alone before (its rays divide by fx).  linspace
+// is the two-sided formula of torch.linspace.  Everything is f32.
 //
 // Validity rules kept from the TPU path exactly: samples 4s..4s+3 share one
 // 10x10 window based at floor(group-mean center) - 4; a pattern point whose
@@ -45,7 +45,16 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "torch_lie.cuh"
+
 namespace {
+
+using torch_lie::cross;
+using torch_lie::Q4;
+using torch_lie::quat_multiply;
+using torch_lie::quat_normalize;
+using torch_lie::quat_rotate;
+using torch_lie::V3;
 
 constexpr int kS = 32;       // epiline samples = lanes
 constexpr int kP = 8;        // pattern points
@@ -72,43 +81,6 @@ __constant__ float kPatternY[kP] = {2.f, 1.f, 1.f, 0.f, 0.f, 0.f, -1.f, -2.f};
 struct Cam {
   float fx, fy, cx, cy, inv_fx, inv_fy, width, height;
 };
-
-struct V3 {
-  float x, y, z;
-};
-
-struct Q4 {
-  float w, x, y, z;
-};
-
-// torch.linalg.cross as the card computes it
-__device__ __forceinline__ V3 cross(V3 a, V3 b) {
-  return {__fmaf_rn(a.y, b.z, -(a.z * b.y)), __fmaf_rn(a.z, b.x, -(a.x * b.z)),
-          __fmaf_rn(a.x, b.y, -(a.y * b.x))};
-}
-
-// core/lie.py::quat_rotate: v + 2 (w (u x v) + u x (u x v))
-__device__ __forceinline__ V3 quat_rotate(Q4 q, V3 v) {
-  const V3 u = {q.x, q.y, q.z};
-  const V3 uv = cross(u, v);
-  const V3 uuv = cross(u, uv);
-  return {v.x + 2.0f * (q.w * uv.x + uuv.x), v.y + 2.0f * (q.w * uv.y + uuv.y),
-          v.z + 2.0f * (q.w * uv.z + uuv.z)};
-}
-
-__device__ __forceinline__ Q4 quat_multiply(Q4 a, Q4 b) {
-  return {a.w * b.w - a.x * b.x - a.y * b.y - a.z * b.z,
-          a.w * b.x + a.x * b.w + a.y * b.z - a.z * b.y,
-          a.w * b.y - a.x * b.z + a.y * b.w + a.z * b.x,
-          a.w * b.z + a.x * b.y - a.y * b.x + a.z * b.w};
-}
-
-// core/lie.py::quat_normalize, the card's order of the 4-term sum
-__device__ __forceinline__ Q4 quat_normalize(Q4 q) {
-  const float n2 = (q.w * q.w + q.y * q.y) + (q.x * q.x + q.z * q.z);
-  const float n = sqrtf(fmaxf(n2, 1e-30f));
-  return {q.w / n, q.x / n, q.y / n, q.z / n};
-}
 
 // torch.linspace(start, end, steps)[i]: the lower half from start, the upper from end
 __device__ __forceinline__ float linspace_at(float start, float end, int steps, int i) {

@@ -13,6 +13,7 @@ device: a CUDA map goes to the kernel or raises.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -98,10 +99,25 @@ def select_candidates_plain(pixel_map, num_points: int, mask=None, block: int = 
     return Candidates(uv, torch.clamp(top_score, min=0.0), valid)
 
 
+@functools.lru_cache(maxsize=None)
+def candidates_layout(h: int, w: int, tiles: int):
+    """K12's scratch for an h×w map of ``tiles`` tiles → (byte offsets of the
+    regions' thresholds (f32), the tiles' scores (f32) and the tiles' best
+    positions (2 int32 a tile), the scratch's bytes); each array starts on a
+    256-byte boundary."""
+    offsets, at = [], 0
+    for nbytes in (4 * (h // REGION) * (w // REGION), 4 * tiles, 8 * tiles):
+        offsets.append(at)
+        at += -(-nbytes // 256) * 256
+    return offsets, at
+
+
 def select_candidates_cuda(pixel_map, num_points: int, mask=None, block: int = 0,
                            border: int = 4, threshold_factor: float = 2.0) -> Candidates:
     """Kernel K12: same outputs as :func:`select_candidates_plain`, slot by
-    slot; no host read.  ``mask`` None passes no mask image to the kernel."""
+    slot: checks, the stream's scratch buffer (:func:`candidates_layout`),
+    three output allocations and one C call of three launches; no host read.
+    ``mask`` None passes no mask image to the kernel."""
     _, h, w = pixel_map.shape
     kernels.check(pixel_map, "pixel_map", (3, h, w))
     if mask is not None:
@@ -113,13 +129,12 @@ def select_candidates_cuda(pixel_map, num_points: int, mask=None, block: int = 0
                          f" or no {block}x{block} tile")
     dev = pixel_map.device
     f32 = dict(dtype=torch.float32, device=dev)
-    thr = torch.empty(((h // REGION) * (w // REGION),), **f32)
-    tile_score = torch.empty((tiles,), **f32)
-    tile_pos = torch.empty((tiles, 2), dtype=torch.int32, device=dev)
+    scratch, nbytes = candidates_layout(h, w, tiles)
+    base = kernels.scratch(kernels.SELECT_CANDIDATES, nbytes, dev).data_ptr()
     out = Candidates(torch.empty((num_points, 2), **f32), torch.empty((num_points,), **f32),
                      torch.empty((num_points,), dtype=torch.bool, device=dev))
     kernels.SELECT_CANDIDATES(pixel_map, mask, h, w, num_points, block, border,
-                              float(threshold_factor), thr, tile_score, tile_pos, *out)
+                              float(threshold_factor), *(base + at for at in scratch), *out)
     return out
 
 

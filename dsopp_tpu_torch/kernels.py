@@ -15,7 +15,8 @@ entry that calls other entries from C (``BA_SOLVE_LOOP``, the windowed BA's
 whole solve): it counts their successful calls into a host array, and its
 wrapper adds those to their counts.  Three entries (K5, K11 and K14's
 pairing) find their last block with a ticket in a small :func:`workspace` of
-their stream.
+their stream; K12 and K16 keep their internal buffers in a :func:`scratch`
+buffer of their stream.
 """
 
 from __future__ import annotations
@@ -45,6 +46,7 @@ _D = ctypes.c_double
 
 _lib = None
 _workspaces: dict = {}
+_scratches: dict = {}
 
 
 def _nvcc():
@@ -139,6 +141,20 @@ def workspace(kernel: "Kernel", nbytes: int, device: torch.device) -> torch.Tens
     return buf
 
 
+def scratch(kernel: "Kernel", nbytes: int, device: torch.device) -> torch.Tensor:
+    """``kernel``'s scratch buffer on the current stream of ``device``: at
+    least ``nbytes`` bytes, made at its first launch on that stream (or anew
+    when a launch needs more) and kept, keyed as :func:`workspace`.  Nothing
+    is promised about its contents: a launch writes every entry it reads
+    first, and leaves it as it likes.  Launches of one stream share it in
+    stream order; launches on two streams never meet in it."""
+    key = (kernel.name, device.index, torch._C._cuda_getCurrentRawStream(device.index))
+    buf = _scratches.get(key)
+    if buf is None or buf.numel() < nbytes:
+        buf = _scratches[key] = torch.empty((nbytes,), dtype=torch.uint8, device=device)
+    return buf
+
+
 class Kernel:
     """One C entry point of the library, with its launch count.  An entry
     that runs ``steps`` returns ``(step << 16) | the CUDA error`` when one
@@ -228,8 +244,10 @@ REFINE = Kernel("refine_idepth", "refine_idepth",
 ACTIVATION_SCATTER = Kernel("activation_scatter", "activation_scatter",
                             [_P] * 10 + [_I] * 6 + [_P] * 15 + [_I])
 PAIR_WORKSPACE_BYTES = 512       # >= sizeof(PairWorkspace) in csrc/refine.cu
+# K16 takes the window's raw tensors (the poses and the landmark mask formed
+# inside) and its internal buffers in its scratch
 DEPTH_MAPS = Kernel("depth_maps", "depth_maps",
-                    [_P] * 5 + [_I, _I] + [_F] * 6 + [_I] * 5 + [_P] * 19)
+                    [_P] * 8 + [_I, _I] + [_F] * 6 + [_I] * 5 + [_P] * 20)
 # K15: the marginalization policy and the ledger fold, once per keyframe each
 MARG_POLICY = Kernel("marg_policy", "marg_policy",
                      [_P] * 11 + [_I] * 5 + [_F] + [_P] * 4)

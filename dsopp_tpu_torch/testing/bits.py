@@ -2,8 +2,9 @@
 each redesign (its parent), and every card path's tracks, to compare two
 trees of the port bit for bit on one card.
 
-    python -m dsopp_tpu_torch.testing.bits out.pt [--cases c1,k4,solve,frame,marg]
-                                                  [--k4-inputs in.pt] [--paths]
+    python -m dsopp_tpu_torch.testing.bits out.pt [--cases c1,k4,solve,frame,marg,kf]
+                                                  [--k4-inputs in.pt] [--kf-inputs in.pt]
+                                                  [--paths]
     python -m dsopp_tpu_torch.testing.bits --compare a.pt b.pt
 
 The cases (:data:`CASES`), each a function that makes its inputs and runs
@@ -46,6 +47,17 @@ this tree's calls on them → {key: tensor}:
   and K15's Jacobi sweeps.  Parent: ed94bb7, whose K15 took the flagged
   landmarks' system after ``_prior_system`` and four subtractions in torch,
   and solved in one block of 1024 threads.
+* ``kf``: the keyframe's candidates (K12, without and with the masked path's
+  mask) and the frontend's state (K16) on the window with the next frame
+  pushed as its newest keyframe, as it is and with its poses moved off their
+  linearization point, on the standart, dense, masked and embedder trackers
+  after 14 known-pose frames and on the standart one right after the
+  bootstrap.  Parent: c8d285f, whose K16 wrapper composed the relative poses
+  and the landmark mask in torch; K12 ranked a tile per thread.  As in
+  ``k4``, ``--kf-inputs`` shares the inputs between two trees: a tree whose
+  kernel composes the poses adds them (``rel_pose``), a tree before runs its
+  K16 on them as well (``<tracker>/<window>/kernel_poses/<output>``: a pose
+  tie).
 
 ``parent_digests.json`` holds ``case/key`` → sha256 of every case's parent
 run, each made on an NVIDIA H100 80GB HBM3; :func:`check` holds a case's
@@ -121,8 +133,8 @@ def _tracker(seq, path: str, every: int):
     """The bootstrapped tracker of ``path`` after ``BA_FRAMES`` known-pose
     frames, every ``every``-th a forced keyframe (0: the bootstrap alone) →
     (tracker, the next frame's index)."""
-    from dsopp_tpu_torch.testing.paths import INIT_FRAMES, bootstrap, path_config
-    tracker = bootstrap(seq, path_config(path))
+    from dsopp_tpu_torch.testing.paths import INIT_FRAMES, bootstrap, path_config, path_mask
+    tracker = bootstrap(seq, path_config(path), path_mask(path))
     frame = INIT_FRAMES + (BA_FRAMES if every else 0)
     for i in range(INIT_FRAMES, frame):
         tracker.tick(i, float(seq.timestamps[i]), seq.images[i],
@@ -539,10 +551,126 @@ def marg_outputs() -> dict:
     return out
 
 
+# -- kf ----------------------------------------------------------------------
+
+# tracker -> (path, every how many frames a keyframe; 0: the bootstrap alone)
+KF_TRACKERS = {"bootstrap": ("standart", 0), "standart": ("standart", 2),
+               "dense": ("dense", 1), "masked": ("masked", 2), "embedder": ("embedder", 2)}
+# K16's fields of the window (the frames' maps it does not read are not kept)
+KF_WINDOW = ("t_lin_q", "t_lin_t", "eps", "frame_valid", "lm_uv", "lm_idepth", "lm_valid",
+             "lm_outlier")
+# the step of the poses' move (the pose part of the solve case's): rotations
+# on both sides of core/lie.py's _SMALL
+KF_STEP = (1e-3,) * 6 + (0.0, 0.0)
+
+
+def kf_inputs() -> dict:
+    """{tracker: the window with the next frame pushed as its newest keyframe
+    (:data:`KF_WINDOW`, all fields as ``parity.keyframe_case`` gives them),
+    its eps moved, the frame's pyramid, the camera and the sizes}."""
+    from dsopp_tpu_torch.testing import parity
+    from dsopp_tpu_torch.testing.paths import render_path
+    seq = render_path("standart")
+    out = {}
+    for name, (path, every) in KF_TRACKERS.items():
+        tracker, frame = _tracker(seq, path, every)
+        win, _, maps = parity.keyframe_case(tracker, seq.images[frame],
+                                            seq.pose(frame, torch.float32, "cuda"), frame)
+        cfg, k = tracker.config, win.num_slots
+        gen = torch.Generator(device="cuda").manual_seed(2)
+        step = torch.tensor(KF_STEP, device="cuda")
+        moved = win.eps + torch.randn((k, 8), generator=gen, device="cuda") * step
+        out[name] = dict(
+            window={field: getattr(win, field) for field in KF_WINDOW},
+            moved_eps=torch.where(win.frame_valid[:, None], moved, win.eps).contiguous(),
+            maps=list(maps), model=tracker.models[0]._asdict(), shape=tracker.image_shape,
+            levels=cfg.pyramid_levels, frontend_points=cfg.frontend_points,
+            num_points=cfg.immature_per_frame)
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def poses_tree() -> bool:
+    """Whether this tree's K16 composes the poses in the kernel."""
+    from dsopp_tpu_torch.tracker import depth_map as dm
+    return "poses_out" in dm.build_frontend_state_cuda.__code__.co_varnames
+
+
+def _frontend_fields(res) -> dict:
+    idep, wei, points, flow = res
+    out = {f"idepth{lvl}": x for lvl, x in enumerate(idep)}
+    out.update({f"weight{lvl}": x for lvl, x in enumerate(wei)})
+    for label, pts in [(f"points{lvl}", p) for lvl, p in enumerate(points)] + [("flow", flow)]:
+        out.update({f"{label}_{field}": v for field, v in pts._asdict().items()})
+    return out
+
+
+def _k16_on_poses(args, rel_pose):
+    """A tree before: its K16 with the relative poses ``rel_pose`` [K, 7] in
+    place of those its wrapper composes."""
+    from dsopp_tpu_torch.core.lie import SE3
+    from dsopp_tpu_torch.tracker import depth_map as dm
+    own = dm._older_landmarks
+    dm._older_landmarks = lambda window: (SE3(rel_pose[:, :4].contiguous(),
+                                              rel_pose[:, 4:].contiguous()), own(window)[1])
+    try:
+        return dm.build_frontend_state_cuda(*args)
+    finally:
+        dm._older_landmarks = own
+
+
+def kf_outputs(inputs: dict | None = None) -> dict:
+    """{tracker/inputs/..., tracker/k12/<mask>/<field>, tracker/<window>/<field>}:
+    per tracker K12's candidates and K16's state on the window as it is
+    (``k16``) and moved (``k16_moved``), and the inputs; with ``inputs`` from a
+    tree before and the kernel's poses in them, also that tree's K16 on them
+    (:data:`TIE`).  A tree whose kernel composes the poses puts them into
+    ``inputs`` (``rel_pose``)."""
+    from dsopp_tpu_torch.core.camera import Pinhole
+    from dsopp_tpu_torch.features import extractor
+    from dsopp_tpu_torch.solvers import pba
+    from dsopp_tpu_torch.testing.paths import path_mask
+    from dsopp_tpu_torch.tracker import depth_map as dm
+
+    inputs = kf_inputs() if inputs is None else inputs
+    out = {}
+    for name, case in inputs.items():
+        fields, maps = case["window"], tuple(case["maps"])
+        model = Pinhole(**case["model"])
+        for field, v in fields.items():
+            out[f"{name}/inputs/{field}"] = v
+        out[f"{name}/inputs/moved_eps"] = case["moved_eps"]
+        out[f"{name}/inputs/map0"] = maps[0]
+        for label, mask in (("unmasked", None), ("masked", path_mask("masked"))):
+            cands = extractor.select_candidates_cuda(maps[0], case["num_points"], mask)
+            out.update({f"{name}/k12/{label}/{field}": v for field, v in cands._asdict().items()})
+        k, n = fields["lm_idepth"].shape
+        base = pba.empty_window(k, n, (3, 1, 1)).replace(**fields)
+        h, w = case["shape"]
+        for variant, eps in (("k16", fields["eps"]), ("k16_moved", case["moved_eps"])):
+            args = (base.replace(eps=eps), model, maps, h, w, case["levels"],
+                    case["frontend_points"])
+            if poses_tree():
+                rel_pose = torch.empty((k, dm.POSE_WIDTH), device="cuda")
+                res = dm.build_frontend_state_cuda(*args, poses_out=rel_pose)
+                case.setdefault("rel_pose", {})[variant] = rel_pose.clone()
+            else:
+                res = dm.build_frontend_state_cuda(*args)
+                if variant in case.get("rel_pose", {}):
+                    tied = _k16_on_poses(args, case["rel_pose"][variant])
+                    out.update({f"{name}/{variant}/{TIE}/{field}": v
+                                for field, v in _frontend_fields(tied).items()})
+            out.update({f"{name}/{variant}/{field}": v
+                        for field, v in _frontend_fields(res).items()})
+    return out
+
+
 # -- the cases and the paths -------------------------------------------------
 
 CASES = {"c1": c1_outputs, "k4": k4_outputs, "solve": solve_outputs, "frame": frame_outputs,
-         "marg": marg_outputs}
+         "marg": marg_outputs, "kf": kf_outputs}
+# the cases whose inputs two trees can share through a file (--<case>-inputs)
+SHARED_INPUTS = {"k4": k4_inputs, "kf": kf_inputs}
 
 
 def run(case: str, **kwargs) -> dict:
@@ -640,17 +768,17 @@ def main(argv) -> int:
         print("bits: no CUDA device", file=sys.stderr)
         return 2
     cases = (_option(argv, "--cases") or ",".join(CASES)).split(",")
-    k4_path = _option(argv, "--k4-inputs")
     out = {}
     for case in cases:
         kwargs = {}
-        if case == "k4" and k4_path is not None:
-            if not os.path.exists(k4_path):
-                torch.save(k4_inputs(), k4_path)
-            kwargs["inputs"] = torch.load(k4_path)
+        shared = _option(argv, f"--{case}-inputs")
+        if shared is not None:
+            if not os.path.exists(shared):
+                torch.save(SHARED_INPUTS[case](), shared)
+            kwargs["inputs"] = torch.load(shared)
         out.update({f"{case}/{key}": v for key, v in run(case, **kwargs).items()})
         if "inputs" in kwargs:
-            torch.save(kwargs["inputs"], k4_path)
+            torch.save(kwargs["inputs"], shared)
     os.makedirs(os.path.dirname(os.path.abspath(argv[1])), exist_ok=True)
     with open(os.path.splitext(argv[1])[0] + ".digests.json", "w") as f:
         json.dump(digests(out), f, indent=1)

@@ -1,12 +1,14 @@
 """The calls of K5 (the flow statistic with the keyframe decision) and of
 K14's pairing (with the refinement's glue) on the inputs of
-``testing/bits.py``'s ``frame`` case, and of K11 (the point status) and K15
-(the ledger fold) on the windows of its ``solve`` case, timed on the card, in
-this tree or in a tree before their redesigns (copy this file, ``bits.py``
-and ``parity.py`` into that tree's ``dsopp_tpu_torch/testing`` and run it
-there), so that the two can be compared inside one card call.
+``testing/bits.py``'s ``frame`` case, of K11 (the point status) and K15
+(the ledger fold) on the windows of its ``solve`` case, and of K12 (the
+candidates) and K16 (the frontend's state) on the inputs of its ``kf`` case,
+timed on the card, in this tree or in a tree before their redesigns (copy
+this file, ``bits.py`` and ``parity.py`` into that tree's
+``dsopp_tpu_torch/testing`` and run it there), so that the two can be
+compared inside one card call.
 
-    python -m dsopp_tpu_torch.testing.entry_times [out.json] [--cases frame,status,marg]
+    python -m dsopp_tpu_torch.testing.entry_times [out.json] [--cases frame,status,marg,kf]
 
 Per tracker of ``bits.FRAME_TRACKERS`` (the pairing on the three with a
 pushed keyframe, with and without the refinement), each the mean of
@@ -33,7 +35,11 @@ one call (``profiling.profiled``):
   marginalization (``pba._marginalize_device``: the pass's K7 and K8, K15,
   the permuted window), and the library's yardsticks at the same shapes:
   ``torch.linalg.eigh`` of the compact flagged block and
-  ``solvers.linear.pinv_hermitian`` of the identity-padded one.
+  ``solvers.linear.pinv_hermitian`` of the identity-padded one;
+* ``kf`` (per tracker of ``bits.KF_TRACKERS``): K12's wrapper on the new
+  keyframe's map without and with the masked path's mask, and K16's wrapper
+  on the window as it is (this tree: checks, the scratch buffer and one C
+  call; before: the poses and the mask composed in torch around the call).
 
 Prints one JSON object with the card's name and power limit.  Needs a CUDA
 card.
@@ -171,7 +177,34 @@ def frame_rows() -> dict:
     return out
 
 
-CASES = {"frame": frame_rows, "status": status_rows, "marg": marg_rows}
+def kf_rows() -> dict:
+    """{tracker: K12's and K16's calls}."""
+    from dsopp_tpu_torch.core.camera import Pinhole
+    from dsopp_tpu_torch.features import extractor
+    from dsopp_tpu_torch.solvers import pba
+    from dsopp_tpu_torch.testing.paths import path_mask
+    from dsopp_tpu_torch.tracker import depth_map as dm
+    out = {}
+    for name, case in bits.kf_inputs().items():
+        row = dict(k=case["window"]["t_lin_q"].shape[0],
+                   n=case["window"]["lm_uv"].shape[1])
+        map0 = case["maps"][0]
+        for label, mask in (("k12", None), ("k12_masked", path_mask("masked"))):
+            def k12():
+                return extractor.select_candidates_cuda(map0, case["num_points"], mask)
+            row[f"{label}_ms"] = cuda_ms(k12, REPS)
+            row[label] = device_work(k12)
+        win = pba.empty_window(row["k"], row["n"], (3, 1, 1)).replace(**case["window"])
+        h, w = case["shape"]
+        args = (win, Pinhole(**case["model"]), tuple(case["maps"]), h, w, case["levels"],
+                case["frontend_points"])
+        row["k16_ms"] = cuda_ms(lambda: dm.build_frontend_state_cuda(*args), REPS)
+        row["k16"] = device_work(lambda: dm.build_frontend_state_cuda(*args))
+        out[name] = row
+    return out
+
+
+CASES = {"frame": frame_rows, "status": status_rows, "marg": marg_rows, "kf": kf_rows}
 
 
 def main(argv) -> int:
@@ -179,7 +212,8 @@ def main(argv) -> int:
         print("entry_times: no CUDA device", file=sys.stderr)
         return 2
     cases = (argv[argv.index("--cases") + 1] if "--cases" in argv else ",".join(CASES)).split(",")
-    out = dict(tree=dict(one_call=bits.one_call_tree(), raw_system=bits.raw_system_tree()),
+    out = dict(tree=dict(one_call=bits.one_call_tree(), raw_system=bits.raw_system_tree(),
+                         poses=bits.poses_tree()),
                card=card_line())
     out.update({case: CASES[case]() for case in cases})
     print(json.dumps(out), flush=True)

@@ -8,6 +8,11 @@ in numpy, for the CPU tests (``tests/test_torch_frontend_models.py``).
 * :func:`relative_poses`: K4's pose path, inverse(T_w_t) · T_w_k with
   torch.linalg.cross as the card computes it (one fma a component) and the
   card's order of the quaternion's 4-term sum;
+* :func:`older_landmarks`: K16's glue (``csrc/depth_maps.cu::prepare_kernel``):
+  the newest slot, T_newest⁻¹ · T_f with ``SE3.exp`` in the card's order
+  (:func:`se3_exp`: the 3-term sum (x0 + x2) + x1, a division by a Python
+  scalar as a product with its f32 reciprocal) and the older keyframes'
+  landmark mask, from the window's raw tensors;
 * :func:`pyramid`: K1's one launch, block by block: each 32×32 tile of
   level 0 read with its halo, the coarser levels' tiles built in the
   block's buffers, each level's values and gradients written from them;
@@ -84,6 +89,50 @@ def relative_poses(pose_q, pose_t, window_q, window_t):
     ti = -quat_rotate(qi, pose_t)
     q = quat_normalize(quat_multiply(np.broadcast_to(qi, window_q.shape), window_q))
     return q, quat_rotate(np.broadcast_to(qi, window_q.shape), window_t) + ti
+
+
+SMALL = F32(1e-6)   # core/lie.py::_SMALL, compared in f32
+
+
+def se3_exp(xi):
+    """``SE3.exp`` of tangents ``xi`` [..., 6] (f32) as torch runs it on the
+    card → (q [..., 4], t [..., 3])."""
+    xi = np.asarray(xi, F32)
+    ups, om = xi[..., :3], xi[..., 3:]
+    sq = om * om
+    theta_sq = (sq[..., 0] + sq[..., 2]) + sq[..., 1]
+    theta = np.sqrt(np.maximum(theta_sq, F32(1e-30)))
+    small = theta_sq < SMALL
+    with np.errstate(divide="ignore", invalid="ignore"):
+        k = np.where(small, F32(0.5) - theta_sq * (F32(1) / F32(48)),
+                     np.sin(F32(0.5) * theta) / theta)
+        w = np.where(small, F32(1) - theta_sq * (F32(1) / F32(8)), np.cos(F32(0.5) * theta))
+        a = np.where(small, F32(0.5) - theta_sq * (F32(1) / F32(24)),
+                     (F32(1) - np.cos(theta)) / np.maximum(theta_sq, F32(1e-30)))
+        b = np.where(small, F32(1.0 / 6.0) - theta_sq * (F32(1) / F32(120)),
+                     (theta - np.sin(theta)) / np.maximum(theta_sq * theta, F32(1e-30)))
+    q = quat_normalize(np.concatenate([w[..., None], k[..., None] * om], -1).astype(F32))
+    c1 = cross(om, ups)
+    c2 = cross(om, c1)
+    return q, (ups + a[..., None] * c1) + b[..., None] * c2
+
+
+def older_landmarks(t_lin_q, t_lin_t, eps, frame_valid, lm_valid, lm_outlier):
+    """K16's poses and mask from the window's raw tensors → (newest slot,
+    T_newest⁻¹ · T_f as (q [K, 4], t [K, 3]), the mask [K, N] of the live
+    landmarks of the keyframes before the newest).  The newest slot is the
+    count of valid frames less one; T_f = T_lin,f · exp(eps_f[:6])."""
+    t_lin_q, t_lin_t, eps = (np.asarray(x, F32) for x in (t_lin_q, t_lin_t, eps))
+    frame_valid = np.asarray(frame_valid, bool)
+    newest = int(frame_valid.sum()) - 1
+    eq, et = se3_exp(eps[:, :6])
+    pose_q = quat_normalize(quat_multiply(t_lin_q, eq))
+    pose_t = quat_rotate(t_lin_q, et) + t_lin_t
+    at = max(newest, 0)
+    q, t = relative_poses(pose_q[at], pose_t[at], pose_q, pose_t)
+    mask = (np.asarray(lm_valid, bool) & frame_valid[:, None] & ~np.asarray(lm_outlier, bool)
+            & (np.arange(frame_valid.shape[0]) != newest)[:, None])
+    return newest, q, t, mask
 
 
 def level_shapes(h: int, w: int, levels: int):

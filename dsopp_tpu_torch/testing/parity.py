@@ -408,13 +408,39 @@ def epipolar_chain_differ(args, run: EpipolarRun) -> dict:
     out = {name: int((getattr(run.kernel, name) != getattr(own, name)).sum())
            for name in EPIPOLAR_OUTPUTS}
     ref = de.relative_poses(*args[3:7])
+    out["pose_ulps"] = pose_ulps(rel, ref)
+    return out
+
+
+def pose_ulps(rel, ref: SE3) -> float:
+    """Poses ``rel`` [K, 7] (q, t) a kernel composed against torch's ``ref``:
+    the largest difference in f32 ulps of each pose's largest component (at
+    least 1 for the rotation)."""
     ulps = 0.0
     for a, b, floor in ((rel[:, :4], ref.q, 1.0), (rel[:, 4:], ref.t, 0.0)):
         scale = torch.maximum(a.abs(), b.abs()).amax(dim=-1, keepdim=True).clamp(min=floor)
         ulp = torch.as_tensor(np.spacing(scale.cpu().numpy().astype(np.float32)), device=a.device)
         ulps = max(ulps, float(((a - b).abs() / ulp).max()))
-    out["pose_ulps"] = ulps
-    return out
+    return ulps
+
+
+# K16: the __global__ functions of csrc/depth_maps.cu, the only device work of
+# its call; and the host-side view operators its wrapper may run besides its
+# allocations (its outputs are views of two allocations)
+DEPTH_MAPS_KERNELS = ("prepare_kernel", "twins_kernel", "chain_kernel", "pool_kernel",
+                      "dilate_hist_kernel", "class_threshold_kernel", "tile_count_kernel",
+                      "select_write_kernel", "class_rank_kernel", "heavy_write_kernel")
+VIEW_OPS = ("aten::split", "aten::split_with_sizes", "aten::narrow", "aten::slice",
+            "aten::as_strided", "aten::view")
+
+
+def frontend_pose_errors(window, rel_pose) -> dict:
+    """K16's poses T_newest⁻¹ · T_f (``rel_pose`` [K, 7], the kernel's
+    ``poses_out``) against torch's ``_older_landmarks``: their ulps and the
+    entries equal to the bit."""
+    ref = _older_landmarks(window)[0]
+    same = (rel_pose == torch.cat([ref.q, ref.t], dim=-1))
+    return dict(pose_ulps=pose_ulps(rel_pose, ref), equal=int(same.sum()), entries=same.numel())
 
 
 def candidates_errors(out_k, out_p) -> dict:

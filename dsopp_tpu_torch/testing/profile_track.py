@@ -89,6 +89,7 @@ KERNEL_NAMES = ("pyramid_kernel", "pyramid_level_kernel", "align_level_kernel",
 # design's, so that a parent tree profiled with this file is read too): device
 # time per call of the entry
 KERNEL_GROUPS = {
+    "select_candidates": ("region_threshold_kernel", "tile_argmax_kernel", "rank_tiles_kernel"),
     "activation": ("activation_landmarks_kernel", "activation_walk_kernel",
                    "active_projections_kernel", "candidates_kernel"),
     "refine_idepth": ("compact_kernel", "refine_kernel"),

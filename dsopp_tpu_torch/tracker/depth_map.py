@@ -8,9 +8,10 @@ keyframe and scatter-added as (idepth, 1) into a level-0 grid; the grids are
 sum.  Per level the heaviest pixels become the frontend's points.
 
 :func:`build_frontend_state` has a hand-written CUDA kernel (K16,
-``csrc/depth_maps.cu``: each pixel's points chained and summed in point
-order, and a counting selection, in place of ``index_add_`` and the stable
-sorts of the plain version) and
+``csrc/depth_maps.cu``: the older keyframes' poses and landmark mask composed
+from the window's raw tensors, each pixel's points chained and summed in
+point order, and a counting selection, in place of ``_older_landmarks``,
+``index_add_`` and the stable sorts of the plain version) and
 :func:`frame_statistics` has one (K5, ``csrc/flow.cu``: the flow statistic,
 the frontend's reliability gate and the keyframe decision of a frame in one
 launch, packed into one buffer that the tracker copies to the host once a
@@ -22,6 +23,8 @@ tensors go to the kernel or raise.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -30,7 +33,7 @@ from dsopp_tpu_torch import kernels
 from dsopp_tpu_torch.core.lie import SE3
 from dsopp_tpu_torch.core.reproject import reproject
 from dsopp_tpu_torch.features.extractor import top_k_stable
-from dsopp_tpu_torch.solvers.pba import Window, active_lm_mask, newest_slot
+from dsopp_tpu_torch.solvers.pba import BLOCK, Window, active_lm_mask, newest_slot
 from dsopp_tpu_torch.solvers.pose_alignment import LevelPoints
 
 # OpticalFlowKeyframeStrategy (mean_square_optical_flow_and_rmse strategy)
@@ -149,66 +152,116 @@ def build_frontend_state_plain(window: Window, model, maps, height: int, width: 
 last_call = {"kernels": 0, "memsets": 0}
 MAX_LEVELS = 5          # csrc/depth_maps.cu: a 16x16 level-0 tile holds one level-4 pixel
 MAX_POINTS = 16384      # points (K * N) it takes: a weight class each in 64 KB of shared memory
+MAX_FRAMES = 64         # window slots it takes: their poses in shared memory
+SCRATCH_ALIGN = 64      # words: each scratch array starts on a 256-byte boundary
+POSE_WIDTH = 7          # a relative pose in the kernel's optional output: q (4), t (3)
+
+
+class FrontendLayout(NamedTuple):
+    """K16's buffers at one size (:func:`frontend_layout`)."""
+    shapes: tuple         # the levels' (h, w)
+    scratch: dict         # name -> (offset, count) in 4-byte words, the C entry's order
+    scratch_bytes: int
+    pointers: tuple       # the scratch arrays' byte offsets, in that order
+    words: int            # f32 outputs: the dilated grids, then the selections
+    slots: int            # selection slots: the levels', then the flow set's
+    out_split: tuple      # the f32 outputs' pieces: each level of out_i, of out_w, uv, each
+                          # round of idepth, of value
+    slot_split: tuple     # the selections' rounds
+
+
+@functools.lru_cache(maxsize=None)
+def frontend_layout(points: int, height: int, width: int, levels: int,
+                    max_points: int) -> FrontendLayout:
+    """K16's scratch and outputs for ``points`` = K × N landmark slots and a
+    ``levels``-level pyramid of a height × width frame.  Every scratch array
+    holds 4-byte words: the points' pixel, idepth, next twin and has-earlier
+    flag (K × N each), the raw grids of all levels (twice the cells), the
+    weight-class histograms (levels × (K × N + 1)), the rounds' thresholds (2
+    a round: the levels, then level 0 once more for the flow set), the
+    compaction tiles' counts (2 a tile of 1024 pixels of a round), and each
+    round's list of heavier pixels (2 words an entry) and their ranks (m = the
+    larger slot count); each starts on a 256-byte boundary.  The outputs: the
+    dilated grids (twice the cells) and the selections (uv, idepth, value: 4
+    words a slot) in one f32 allocation, their validity in one bool
+    allocation."""
+    shapes = [(height, width)]
+    for _ in range(1, levels):
+        shapes.append((shapes[-1][0] // 2, shapes[-1][1] // 2))
+    sizes = tuple(h * w for h, w in shapes)
+    cells, rounds = sum(sizes), levels + 1
+    tiles = sum(-(-size // 1024) for size in sizes) + -(-sizes[0] // 1024)
+    m = max(max_points, FLOW_CAP)
+    words = {"pix": points, "pidep": points, "next": points, "has_prev": points,
+             "raw_i": cells, "raw_w": cells, "hist": levels * (points + 1),
+             "params": 2 * rounds, "tile_counts": 2 * tiles, "heavy": rounds * 2 * m,
+             "rank": rounds * m}
+    scratch, at = {}, 0
+    for name, count in words.items():
+        scratch[name] = (at, count)
+        at += -(-count // SCRATCH_ALIGN) * SCRATCH_ALIGN
+    slots = levels * max_points + FLOW_CAP
+    cut = (max_points,) * levels + (FLOW_CAP,)
+    return FrontendLayout(tuple(shapes), scratch, 4 * at,
+                          tuple(4 * off for off, _ in scratch.values()), 2 * cells + 4 * slots,
+                          slots, sizes + sizes + (2 * slots,) + cut + cut, cut)
 
 
 def build_frontend_state_cuda(window: Window, model, maps, height: int, width: int,
-                              num_levels: int, max_points: int):
-    """Kernel K16: same outputs as :func:`build_frontend_state_plain`; one
-    call of 10 launches and no memset, no host read.  The idepth sums are
-    taken in landmark order, so two runs on the same window give the same
-    bits."""
+                              num_levels: int, max_points: int, poses_out=None):
+    """Kernel K16: same outputs as :func:`build_frontend_state_plain`; checks,
+    the stream's scratch buffer (:func:`frontend_layout`), two output
+    allocations (the outputs are their views) and one C call of 10 launches
+    and no memset, no host read.  The kernel composes the frames' poses
+    relative to the newest and the older keyframes' landmark mask from the
+    window's raw tensors.  The idepth sums are taken in landmark order, so two
+    runs on the same window give the same bits.  ``poses_out``, a [K, 7] f32
+    CUDA tensor, receives the poses T_newest⁻¹ · T_f the kernel composed (q,
+    t)."""
     k, n = window.num_slots, window.num_landmark_slots
-    if num_levels > MAX_LEVELS or k * n > MAX_POINTS:
-        raise ValueError(f"depth_maps: {num_levels} levels and {k * n} points; the kernel takes"
-                         f" up to {MAX_LEVELS} levels and {MAX_POINTS} points")
+    if num_levels > MAX_LEVELS or k * n > MAX_POINTS or k > MAX_FRAMES:
+        raise ValueError(f"depth_maps: {num_levels} levels, {k} frames and {k * n} points; the"
+                         f" kernel takes up to {MAX_LEVELS} levels, {MAX_FRAMES} frames and"
+                         f" {MAX_POINTS} points")
+    lay = frontend_layout(k * n, height, width, num_levels, max_points)
     check = kernels.check
     check(window.lm_uv, "lm_uv", (k, n, 2))
     check(window.lm_idepth, "lm_idepth", (k, n))
-    shapes = [(height, width)]
-    for _ in range(1, num_levels):
-        shapes.append((shapes[-1][0] // 2, shapes[-1][1] // 2))
-    for level, shape in enumerate(shapes):
-        check(maps[level], f"maps[{level}]", (3,) + shape)
-    t_rel, lm_mask = _older_landmarks(window)
+    check(window.lm_valid, "lm_valid", (k, n), torch.bool)
+    check(window.lm_outlier, "lm_outlier", (k, n), torch.bool)
+    check(window.frame_valid, "frame_valid", (k,), torch.bool)
+    check(window.t_lin_q, "t_lin_q", (k, 4))
+    check(window.t_lin_t, "t_lin_t", (k, 3))
+    check(window.eps, "eps", (k, BLOCK))
+    if poses_out is not None:
+        check(poses_out, "poses_out", (k, POSE_WIDTH))
+    for level, (h, w) in enumerate(lay.shapes):
+        check(maps[level], f"maps[{level}]", (3, h, w))
     dev = window.lm_uv.device
-    f32 = dict(dtype=torch.float32, device=dev)
-    i32 = dict(dtype=torch.int32, device=dev)
-    sizes = [h * w for h, w in shapes]
-    cells = sum(sizes)
-    slots = num_levels * max_points + FLOW_CAP
-    raw_i, raw_w = torch.empty((cells,), **f32), torch.empty((cells,), **f32)
-    out_i, out_w = torch.empty((cells,), **f32), torch.empty((cells,), **f32)
-    sel_uv, sel_idepth = torch.empty((slots, 2), **f32), torch.empty((slots,), **f32)
-    sel_value = torch.empty((slots,), **f32)
-    sel_valid = torch.empty((slots,), dtype=torch.bool, device=dev)
+    base = kernels.scratch(kernels.DEPTH_MAPS, lay.scratch_bytes, dev).data_ptr()
+    out = torch.empty((lay.words,), dtype=torch.float32, device=dev)
+    sel_valid = torch.empty((lay.slots,), dtype=torch.bool, device=dev)
+    # the outputs are views of the two allocations, made in one split each
+    # (a view costs the host about as much as a kernel launch)
+    pieces = out.split_with_sizes(lay.out_split)
+    levels, rounds = num_levels, num_levels + 1
+    grids, sel_uv = pieces[:2 * levels], pieces[2 * levels]
+    sel_idepth, sel_value = pieces[2 * levels + 1:2 * levels + 1 + rounds], pieces[-rounds:]
     # the intensity image of level l is channel 0 of maps[l]
     intensity = (ctypes.c_void_p * num_levels)(*(m.data_ptr() for m in maps[:num_levels]))
-    rounds = num_levels + 1                  # the levels, then level 0 for the flow set
-    tiles = sum(-(-size // 1024) for size in sizes) + -(-sizes[0] // 1024)
     launches = (ctypes.c_int * 2)()
     kernels.DEPTH_MAPS(
-        window.lm_uv, window.lm_idepth, lm_mask.contiguous(), t_rel.q.contiguous(),
-        t_rel.t.contiguous(), k, n, model.fx, model.fy, model.cx, model.cy, model.width,
-        model.height, height, width, num_levels, max_points, FLOW_CAP, intensity,
-        torch.empty((k * n,), **i32), torch.empty((k * n,), **f32), torch.empty((k * n,), **i32),
-        torch.empty((k * n,), **i32), raw_i, raw_w, torch.empty((num_levels * (k * n + 1),), **i32),
-        torch.empty((2 * rounds,), **i32), torch.empty((2 * tiles,), **i32),
-        torch.empty((rounds * 2 * max(max_points, FLOW_CAP),), **i32),
-        torch.empty((rounds * max(max_points, FLOW_CAP),), **i32),
-        out_i, out_w, sel_uv, sel_idepth, sel_value, sel_valid, launches)
+        window.lm_uv, window.lm_idepth, window.lm_valid, window.lm_outlier, window.frame_valid,
+        window.t_lin_q, window.t_lin_t, window.eps, k, n, model.fx, model.fy, model.cx,
+        model.cy, model.width, model.height, height, width, num_levels, max_points, FLOW_CAP,
+        intensity, *(base + at for at in lay.pointers), grids[0], grids[levels], sel_uv,
+        sel_idepth[0], sel_value[0], sel_valid, poses_out, launches)
     last_call.update(kernels=launches[0], memsets=launches[1])
-    idep, wei, points = [], [], []
-    at = 0
-    for level, (shape, size) in enumerate(zip(shapes, sizes)):
-        idep.append(out_i[at:at + size].view(shape))
-        wei.append(out_w[at:at + size].view(shape))
-        lo = level * max_points
-        points.append(LevelPoints(sel_uv[lo:lo + max_points], sel_idepth[lo:lo + max_points],
-                                  sel_value[lo:lo + max_points], sel_valid[lo:lo + max_points]))
-        at += size
-    lo = num_levels * max_points
-    flow_pts = LevelPoints(sel_uv[lo:], sel_idepth[lo:], sel_value[lo:], sel_valid[lo:])
-    return tuple(idep), tuple(wei), tuple(points), flow_pts
+    maps2d = [x.view(shape) for x, shape in zip(grids, lay.shapes + lay.shapes)]
+    sets = [LevelPoints(*fields) for fields in zip(
+        sel_uv.view(lay.slots, 2).split_with_sizes(lay.slot_split), sel_idepth, sel_value,
+        sel_valid.split_with_sizes(lay.slot_split))]
+    return tuple(maps2d[:levels]), tuple(maps2d[levels:]), tuple(sets[:-1]), sets[-1]
 
 
 def build_frontend_state(window: Window, model, maps, height: int, width: int,

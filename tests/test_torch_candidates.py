@@ -9,7 +9,9 @@ host models of the kernel's algorithm (``csrc/candidates.cu``).
   constant gradient (every score a tie);
 * the kernel's three steps as numpy models against the plain version: the
   50-bin histogram median against ``_region_threshold``; the per-tile first
-  argmax; the rank-by-counting slot order against ``top_k_stable``.
+  argmax; the rank-by-counting slot order (a warp a tile, per-lane counts over
+  the staged scores, then a warp sum) against ``top_k_stable``, also where
+  every score ties and with masks.
 """
 
 import jax.numpy as jnp
@@ -136,12 +138,19 @@ def _tile_argmax_model(score, block):
 
 
 def _rank_model(scores, num_points):
-    """Slot of a tile = tiles with a larger score, or an equal score and a
-    lower index → (tile of each slot or −1, ...)."""
+    """A warp a tile: lane l counts the tiles l, l + 32, ... (the kernel
+    stages the scores 4096 at a time, a multiple of 32, so a tile's lane is
+    its index mod 32) that have a larger score or an equal score and a lower
+    index; a warp sum of the 32 counts is the rank, and the slot of a tile
+    is its rank → (tile of each slot or −1, ...)."""
     t = scores.shape[0]
     idx = np.arange(t)
-    rank = ((scores[None, :] > scores[:, None])
-            | ((scores[None, :] == scores[:, None]) & (idx[None, :] < idx[:, None]))).sum(axis=1)
+    before = ((scores[None, :] > scores[:, None])
+              | ((scores[None, :] == scores[:, None]) & (idx[None, :] < idx[:, None])))
+    lanes = np.zeros((t, -(-t // 32) * 32), np.int64)
+    lanes[:, :t] = before
+    lanes = lanes.reshape(t, -1, 32).sum(axis=1)       # [tiles, 32]: each lane's count
+    rank = lanes.sum(axis=1)
     slots = np.full(num_points, -1)
     keep = rank < num_points
     slots[rank[keep]] = idx[keep]

@@ -14,7 +14,14 @@ host models of the kernel's algorithm (``csrc/depth_maps.cu``).
 * the scatter sum as a numpy model (per point the least later point on its
   pixel, found tile by tile, and each pixel's chain summed in point order)
   against ``index_add_`` in f64 (which adds in index order on the CPU), also with up to 200 points on
-  one to three pixels.
+  one to three pixels;
+* the kernel's glue as a numpy model (``testing/frontend_models.py::
+  older_landmarks``: the newest slot, T_newest⁻¹ · T_f with ``SE3.exp`` in the
+  card's order, the older keyframes' landmark mask) against
+  ``_older_landmarks`` in f32 on the CPU: the slot and the mask exact, the
+  poses within ``parity.KERNEL_POSE_ULPS``, with one valid frame, the dense
+  point's 17 slots full, outliers, and rotations on both sides of
+  ``core/lie.py``'s ``_SMALL``.
 """
 
 import dataclasses
@@ -31,7 +38,11 @@ from dsopp_tpu.testing import render_sequence
 from dsopp_tpu.testing.fixtures import build_test_window
 from dsopp_tpu.tracker import depth_map as jdm
 from dsopp_tpu_torch import convert
+from dsopp_tpu_torch.core.lie import SE3
 from dsopp_tpu_torch.features.extractor import top_k_stable
+from dsopp_tpu_torch.solvers import pba
+from dsopp_tpu_torch.testing import frontend_models as fm
+from dsopp_tpu_torch.testing import parity
 from dsopp_tpu_torch.tracker import depth_map as tdm
 
 from tests._torch_port import assert_close, assert_equal, to_np, to_torch, window_fields
@@ -239,3 +250,58 @@ def test_ordered_scatter_sum_many_twins(seed, points, used):
     pix[rng.random(points) < 0.1] = -1
     values = rng.uniform(1e-3, 3.0, points) * 10.0 ** rng.integers(-3, 4, points)
     _check_scatter(pix, values, cells)
+
+
+# -- the kernel's glue: poses and mask from the window's raw tensors ---------
+
+# case -> (slots, valid frames, outlier share, rotation scales of the frames)
+GLUE_CASES = {
+    "one_frame": (10, 1, 0.0, (1e-2,)),
+    "dense_full": (17, 17, 0.05, (1e-2,)),
+    "outliers": (10, 7, 0.3, (1e-2,)),
+    # |omega|^2 just below and above 1e-6, and far on either side
+    "small_angles": (10, 8, 0.05, (9.99e-4, 1.001e-3, 1e-5, 3e-2)),
+}
+
+
+def _glue_window(case):
+    k, valid, outliers, scales = GLUE_CASES[case]
+    n = 24
+    rng = np.random.default_rng(len(case))
+    lin = SE3.exp(torch.tensor(np.concatenate([rng.normal(size=(k, 3)) * 2.0,
+                                               rng.normal(size=(k, 3))], -1),
+                               dtype=torch.float32))
+    omega = rng.normal(size=(k, 3))
+    omega *= (np.resize(scales, k) / np.linalg.norm(omega, axis=-1))[:, None]
+    eps = np.concatenate([rng.normal(size=(k, 3)) * 1e-2, omega, rng.normal(size=(k, 2))], -1)
+    win = pba.empty_window(k, n, (3, 4, 4), device="cpu")
+    return win.replace(
+        t_lin_q=lin.q.contiguous(), t_lin_t=lin.t.contiguous(),
+        eps=torch.tensor(eps, dtype=torch.float32),
+        frame_valid=torch.arange(k) < valid,
+        lm_valid=torch.tensor(rng.random((k, n)) < 0.8),
+        lm_outlier=torch.tensor(rng.random((k, n)) < outliers))
+
+
+def _ulps(a, b):
+    """Largest |a - b| in f32 ulps of the larger of |a|, |b| over each pose
+    component (at least that of 1 for quaternions: their scale)."""
+    scale = np.maximum(np.abs(a), np.abs(b)).max(axis=-1, keepdims=True)
+    return float((np.abs(a - b) / np.spacing(scale.astype(np.float32))).max())
+
+
+@pytest.mark.parametrize("case", list(GLUE_CASES))
+def test_kernel_glue_model_matches_older_landmarks(case):
+    win = _glue_window(case)
+    if case == "small_angles":
+        theta_sq = (win.eps[:, 3:6] ** 2).sum(-1)
+        assert bool((theta_sq < 1e-6).any()) and bool((theta_sq >= 1e-6).any())
+    t_rel, mask = tdm._older_landmarks(win)
+    newest, q, t, mask_m = fm.older_landmarks(
+        *(to_np(x) for x in (win.t_lin_q, win.t_lin_t, win.eps, win.frame_valid, win.lm_valid,
+                             win.lm_outlier)))
+    assert newest == int(pba.newest_slot(win))
+    assert_equal(mask_m, mask)
+    assert _ulps(q, to_np(t_rel.q)) <= parity.KERNEL_POSE_ULPS
+    assert _ulps(t, to_np(t_rel.t)) <= parity.KERNEL_POSE_ULPS
+    assert int(mask.sum()) > 0 or case == "one_frame"

@@ -9,18 +9,24 @@ calls from C are declared in ``csrc/ba_entries.cuh``, which their defining
 sources include, so the compiler holds those declarations to their
 definitions.)  Also the step names of ``ba_solve_loop``'s error code against
 ``csrc/ba_lm.cu::SolveStep``, and the order of its host array of launch
-counts (``pba._SOLVE_LOOP_COUNTED``) against the calls it counts; and the
+counts (``pba._SOLVE_LOOP_COUNTED``) against the calls it counts; the
 bytes of the three workspaces the wrappers hand their kernels against the C
-structs they hold.
+structs they hold; K16's and K12's scratch arrays against their entries'
+parameters (order, sizes, 256-byte starts, no overlap); and
+``kernels.scratch``'s keying and growth, with the stream handle faked on the
+CPU.
 """
 
 import ctypes
 import re
 
 import pytest
+import torch
 
 from dsopp_tpu_torch import kernels
+from dsopp_tpu_torch.features import extractor
 from dsopp_tpu_torch.solvers import pba
+from dsopp_tpu_torch.tracker import depth_map as dm
 
 KINDS = {"int": ctypes.c_int, "float": ctypes.c_float, "double": ctypes.c_double}
 
@@ -123,3 +129,80 @@ def test_status_workspace_header_is_the_kernels():
 def test_workspace_holds_its_struct(source, struct, nbytes):
     size = _struct_bytes((kernels.CSRC / source).read_text(), struct)
     assert 0 < size <= nbytes, (struct, size, nbytes)
+
+
+def _params(symbol):
+    """The parameter names of ``symbol``'s extern "C" definition."""
+    found = [params for name, params in _definitions() if name == symbol]
+    assert len(found) == 1
+    return [re.findall(r"(\w+)\s*$", p.strip())[0] for p in found[0].split(",")]
+
+
+def _disjoint_and_aligned(spans):
+    """[(start byte, bytes)] → each start on 256 bytes, none overlapping."""
+    spans = sorted(spans)
+    assert all(start % 256 == 0 for start, _ in spans)
+    assert all(a + na <= b for (a, na), (b, _) in zip(spans, spans[1:]))
+
+
+# (K × N, VGA levels, frontend points): the standart and the dense windows
+@pytest.mark.parametrize("points,levels,max_points", [(2500, 5, 2000), (5780, 5, 5000),
+                                                      (40, 2, 300)])
+def test_depth_maps_scratch_is_the_entry_s(points, levels, max_points):
+    shapes = [(480 >> lvl, 640 >> lvl) for lvl in range(levels)]
+    lay = dm.frontend_layout(points, 480, 640, levels, max_points)
+    layout, nbytes, words, slots = lay.scratch, lay.scratch_bytes, lay.words, lay.slots
+    assert list(lay.shapes) == shapes
+    assert lay.pointers == tuple(4 * at for at, _ in layout.values())
+    params = _params("depth_maps")
+    # the scratch arrays in the entry's order, between the intensity images
+    # and the outputs
+    first = params.index("intensity") + 1
+    assert list(layout) == params[first:first + len(layout)]
+    assert params[first + len(layout)] == "out_i"
+    sizes = [h * w for h, w in shapes]
+    cells, rounds = sum(sizes), levels + 1
+    tiles = sum(-(-size // 1024) for size in sizes) + -(-sizes[0] // 1024)
+    m = max(max_points, dm.FLOW_CAP)
+    want = dict(pix=points, pidep=points, next=points, has_prev=points, raw_i=cells,
+                raw_w=cells, hist=levels * (points + 1), params=2 * rounds,
+                tile_counts=2 * tiles, heavy=rounds * 2 * m, rank=rounds * m)
+    assert {name: count for name, (_, count) in layout.items()} == want
+    spans = [(4 * at, 4 * count) for at, count in layout.values()]
+    _disjoint_and_aligned(spans)
+    assert max(a + n for a, n in spans) <= nbytes
+    assert slots == levels * max_points + dm.FLOW_CAP and words == 2 * cells + 4 * slots
+
+
+@pytest.mark.parametrize("h,w,block", [(480, 640, 13), (480, 640, 11), (100, 150, 5)])
+def test_candidates_scratch_is_the_entry_s(h, w, block):
+    tiles = (h // block) * (w // block)
+    offsets, nbytes = extractor.candidates_layout(h, w, tiles)
+    params = _params("select_candidates")
+    first = params.index("factor") + 1
+    assert params[first:first + 3] == ["thr", "tile_score", "tile_pos"]
+    sizes = [4 * (h // 32) * (w // 32), 4 * tiles, 8 * tiles]
+    _disjoint_and_aligned(list(zip(offsets, sizes)))
+    assert offsets[-1] + sizes[-1] <= nbytes
+
+
+def test_scratch_is_kept_per_kernel_and_stream_and_grows(monkeypatch):
+    """Keyed as the workspaces: (kernel, device, stream); a bigger request
+    makes a bigger buffer, a smaller one reuses it."""
+    stream = [7]
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream", lambda index: stream[0],
+                        raising=False)
+    monkeypatch.setattr(kernels, "_scratches", {})
+    cpu = torch.device("cpu")
+    a = kernels.scratch(kernels.DEPTH_MAPS, 100, cpu)
+    assert a.dtype == torch.uint8 and a.numel() >= 100
+    assert kernels.scratch(kernels.DEPTH_MAPS, 60, cpu) is a
+    b = kernels.scratch(kernels.DEPTH_MAPS, 300, cpu)
+    assert b is not a and b.numel() >= 300
+    assert kernels.scratch(kernels.DEPTH_MAPS, 100, cpu) is b
+    assert kernels.scratch(kernels.SELECT_CANDIDATES, 100, cpu) is not b
+    stream[0] = 8
+    c = kernels.scratch(kernels.DEPTH_MAPS, 100, cpu)
+    assert c is not b
+    stream[0] = 7
+    assert kernels.scratch(kernels.DEPTH_MAPS, 100, cpu) is b
