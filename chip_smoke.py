@@ -74,9 +74,13 @@ Phases, one line each with its time:
    kernels a call, and the marginalization's aten operators (none of
    ``_prior_system``'s).  The row
    gather at the probe's shapes ([480·640, 12] table, 204800 indices) equal
-   to ``table[idx]`` to the bit in f32 and bf16.  K18 equal to its plain
+   to ``table[idx]`` to the bit in f32 and bf16, its device µs with the L2
+   warm and cold beside ``torch.index_select``'s.  K18 equal to its plain
    version to the bit on u8 and f32 frames, with and without a vignette, at
-   VGA and at 479×637.  Then the frame-embedder path's kernels at C = 3
+   VGA and at 479×637: as the camera's one-call intake from a pinned buffer
+   (the upload, without and with SimpleRadial tables, the crop to a multiple
+   of 16) against the plain chain on the CPU, and on frames on the card, a
+   crop's view among them.  Then the frame-embedder path's kernels at C = 3
    channels (a tracker bootstrapped at the embedder point): K1's channel map
    (1e-3), K2 and K3 on two embedded frames' maps with the frontend's 2000
    points (K3's gates above, two runs equal), and on the BA parity window
@@ -128,14 +132,19 @@ Phases, one line each with its time:
    gamma response, a radial vignette and the oscillating exposure of the JAX
    exposure test; ``times.txt``, ``pcalib.txt``, a pinhole ``calib.txt``,
    class-id images with class 7 on rows ≥ 400, filtered), read through
-   ``NpyFolderProvider`` → ``Camera`` (upload, K18) into the known-pose
+   ``NpyFolderProvider`` → ``Camera`` (K18's one-call intake from pinned
+   memory) into the known-pose
    bootstrap and ``PipelinedTracker`` with the exposures and class ids: phase
    5's ATE and scale gates, K18 once per frame read, no point on the filtered
-   rows, every marginalized landmark labelled with its keyframe's class; then
-   the file read, the upload and K18 timed per frame;
+   rows, every marginalized landmark labelled with its keyframe's class; the
+   host syncs a frame beside phase 5's; then the file read and
+   ``next_frame`` timed per frame, ``next_frame`` with every host
+   synchronisation an error, and the pinned ring's waits;
 11. undistort — the remap tables of a SimpleRadial VGA calibration built on
    the card in f64 within 1e-9 px of the CPU's, one frame remapped within
-   1e-4 of the CPU's remap;
+   1e-4 of the CPU's remap; K18's intake through those tables equal to the
+   bit to the chain it replaced (the remap's torch ops, then K18 on the
+   remapped frame) and to the plain chain on the CPU, with both times;
 12. e2e, e2e-exposure — ``tests/tracker/test_monocular_e2e.py``'s two runs
    (240×320, 40 frames, 8-frame bootstrap) in f32 with that test's gates;
    each tick of the exposure run is also replayed from the card's state
@@ -284,6 +293,7 @@ OPS_POLICY_LANDMARK = 8     # K15p: the live count and the triage of one landmar
 OPS_POLICY_PAIR = 12        # K15p: one distance and reciprocal of the eq (20) sums
 OPS_EIGEN = 9               # K15: x n^3 for a symmetric eigen-decomposition with vectors
 OPS_PHOTOMETRIC_PIXEL = 10  # K18: clip, convert, frac, 1 - frac, two products, sum, floor, divide
+OPS_REMAP_PIXEL = 20        # K18's remap: 2 floors, 2 fractions, 3 complements, 6 products, 3 sums
 # K5, K13 and K14: what their wrappers may run on the host
 ALLOCATION_OPS = ("aten::empty", "aten::empty_strided")
 # the operators of solvers/pba.py::_prior_system (the priors as a diagonal
@@ -1685,71 +1695,160 @@ def parity_marg(tracker, windows, torch, rows, label):
 
 
 def parity_gather(torch, rows):
-    """The row gather at the probe's shapes, f32 (its row) and bf16, equal to
-    ``table[idx]`` to the bit; ``torch.index_select`` as the yardstick."""
+    """The row gather at the probe's shapes, f32 (its row) and bf16 (under
+    ``bf16`` in it), equal to ``table[idx]`` to the bit; ``torch.index_select``
+    as the yardstick, its call and its device µs with the L2 warm and cold
+    (``gather_probe.device_us``) beside the kernel's."""
     from dsopp_tpu_torch.testing import gather_probe as gp
 
     table, table_bf, idx = gp.probe_inputs("cuda")
+    long_idx = idx.long()
     for name, tab in (("f32", table), ("bf16", table_bf)):
         gp.row_gather(tab, idx)       # the range check reads the device once
         out_k = no_host_reads(torch, gp.row_gather_cuda, tab, idx)
         out_p = gp.row_gather_plain(tab, idx)
         require(torch.equal(out_k, out_p), f"row gather ({name}): differs from table[idx]")
+        kernel = lambda: gp.row_gather_cuda(tab, idx)            # noqa: E731
+        library = lambda: torch.index_select(tab, 0, long_idx)   # noqa: E731
         fields = dict(
-            max_abs_err=float((out_k.float() - out_p.float()).abs().max()), ms=cuda_ms(lambda: gp.row_gather_cuda(tab, idx)),
+            max_abs_err=float((out_k.float() - out_p.float()).abs().max()), ms=cuda_ms(kernel),
             plain_ms=cuda_ms(lambda: gp.row_gather_plain(tab, idx)),
             bound_ms=gp.bound_ms(tab, idx, PEAK_BYTES), bound_by="bytes",
-            library_ms=cuda_ms(lambda: torch.index_select(tab, 0, idx)))
+            library_ms=cuda_ms(library), device_us=gp.device_us(kernel),
+            cold_device_us=gp.device_us(kernel, cold=True),
+            library_device_us=gp.device_us(library),
+            cold_library_device_us=gp.device_us(library, cold=True),
+            table_sectors=gp.sectors(tab, idx))
         log(f"  row_gather ({name}): {idx.numel()} rows of {tab.shape[1]} from a {tab.shape[0]}-row"
-            f" table, equal to table[idx]; kernel {fields['ms']:.4f} ms, plain"
-            f" {fields['plain_ms']:.4f} ms, torch.index_select {fields['library_ms']:.4f} ms, bound"
-            f" {fields['bound_ms']:.5f} ms")
+            f" table, equal to table[idx]; kernel {fields['ms']:.4f} ms a call, device"
+            f" {fields['device_us']:.2f} µs warm, {fields['cold_device_us']:.2f} µs cold;"
+            f" torch.index_select {fields['library_ms']:.4f} ms, {fields['library_device_us']:.2f}"
+            f" / {fields['cold_library_device_us']:.2f} µs; plain {fields['plain_ms']:.4f} ms;"
+            f" bound {fields['bound_ms']:.5f} ms; {fields['table_sectors']} table sectors of 32 B")
         if name == "f32":
             rows["row_gather"] = fields
+        else:
+            rows["row_gather"]["bf16"] = fields
+
+
+def pinned_copy(torch, tensor):
+    """``tensor`` copied into pinned host memory (a camera's frame buffer) →
+    (that buffer, the event its intake records after each copy from it)."""
+    out = torch.empty(tensor.shape, dtype=tensor.dtype, pin_memory=True)
+    out.copy_(tensor.cpu())
+    copied = torch.cuda.Event()
+    copied.record()
+    return out, copied
+
+
+def simple_radial_remaps(torch, h, w):
+    """The undistorter of ``[undistort]``'s SimpleRadial calibration at h x w,
+    its tables built on the card."""
+    from dsopp_tpu_torch.core.camera import SimpleRadial
+    from dsopp_tpu_torch.sensors.undistorter import build_remaps
+
+    source = SimpleRadial.create((float(w), float(h)), 500.0, ((w - 1) / 2.0, (h - 1) / 2.0),
+                                 -0.12, 0.02)
+    return build_remaps(source, "cuda")
 
 
 def parity_photometric(torch, rows, card):
     """K18 against its plain version, equal to the bit, on u8 and f32 frames
     (the f32 ones reach past both ends of [0, 255]), with and without the
-    sensor path's vignette, at VGA and at 479x637 (a width that is not a
-    multiple of 4); timed on a VGA u8 frame with the vignette, the sensor
-    path's call.  No PyTorch call computes this function: no library time."""
+    sensor path's vignette, at VGA and at 479x637: as the camera's intake
+    (``intake_cuda`` from a pinned buffer: the upload, the remap through
+    SimpleRadial tables or none, the crop to a multiple of 16) against the
+    plain chain on the CPU (``intake_plain``), and on frames on the card
+    (``correct_image_cuda``, whole, at a width that is not a multiple of 4,
+    and as a crop's view) against ``correct_image_plain``; every call with
+    host synchronisation an error.  Timed as the sensor path calls it, a VGA
+    u8 frame with the vignette through the intake (the copy's device time
+    apart), and with the tables.  No PyTorch call computes this function: no
+    library time."""
     from dsopp_tpu_torch.sensors import photometric as ph
     from dsopp_tpu_torch.testing import paths
-    from dsopp_tpu_torch.testing.gather_probe import device_us
 
     gen = torch.Generator(device="cuda").manual_seed(18)
     lut = torch.as_tensor(paths.inverse_response(), device="cuda")
-    err, cases = 0.0, 0
+    lut_cpu = lut.cpu()
+    cases = 0
+
+    def cpu(t):
+        return None if t is None else t.cpu()
+
+    def same(label, out_k, out_p):
+        nonlocal cases
+        require(out_k.dtype == torch.float32 and out_k.shape == out_p.shape,
+                f"K18 ({label}): output {out_k.dtype} {tuple(out_k.shape)}")
+        out_k = out_k.cpu()
+        require(torch.equal(out_k, out_p),
+                f"K18 ({label}): differs from the plain version by"
+                f" {float((out_k - out_p).abs().max())}")
+        cases += 1
+
     for h, w in ((paths.HEIGHT, paths.WIDTH), (479, 637)):
+        ch, cw = h // 16 * 16, w // 16 * 16
         vignette = torch.as_tensor(paths.sensor_vignette(h, w), device="cuda")
+        crop_vignette = torch.as_tensor(paths.sensor_vignette(ch, cw), device="cuda")
+        maps = simple_radial_remaps(torch, h, w).maps32()
+        maps_cpu = tuple(m.cpu() for m in maps)
         raw_u8 = torch.randint(0, 256, (h, w), generator=gen, device="cuda", dtype=torch.uint8)
         raw_f32 = torch.rand((h, w), generator=gen, device="cuda") * 275.0 - 10.0
         for raw in (raw_u8, raw_f32):
-            for vig in (None, vignette):
-                out_k = no_host_reads(torch, ph.correct_image_cuda, raw, lut, vig)
-                out_p = ph.correct_image_plain(raw, lut, vig)
-                require(out_k.dtype == torch.float32 and out_k.shape == (h, w),
-                        f"K18: output {out_k.dtype} {tuple(out_k.shape)}")
-                require(torch.equal(out_k, out_p),
-                        f"K18 ({h}x{w}, {raw.dtype}, vignette {vig is not None}): differs from"
-                        f" the plain version by {float((out_k - out_p).abs().max())}")
-                err = max(err, float((out_k - out_p).abs().max()))
-                cases += 1
+            pinned, copied = pinned_copy(torch, raw)
+            for vig, cvig in ((None, None), (vignette, crop_vignette)):
+                label = f"{h}x{w} {raw.dtype}, vignette {vig is not None}"
+                same(label, no_host_reads(torch, ph.correct_image_cuda, raw, lut, vig),
+                     ph.correct_image_plain(raw.cpu(), lut_cpu, cpu(vig)))
+                same(label + ", a crop's view",
+                     no_host_reads(torch, ph.correct_image_cuda, raw[:ch, :cw], lut, cvig),
+                     ph.correct_image_plain(raw.cpu()[:ch, :cw], lut_cpu, cpu(cvig)))
+                for tables, tables_cpu in ((None, None), (maps, maps_cpu)):
+                    same(f"{label}, intake, tables {tables is not None}",
+                         no_host_reads(torch, ph.intake_cuda, pinned, copied, lut, cvig,
+                                       tables, (ch, cw)),
+                         ph.intake_plain(pinned, lut_cpu, cpu(cvig), tables_cpu, (ch, cw)))
     raw = torch.randint(0, 256, (paths.HEIGHT, paths.WIDTH), generator=gen, device="cuda",
                         dtype=torch.uint8)
+    pinned, copied = pinned_copy(torch, raw)
     vignette = torch.as_tensor(paths.sensor_vignette(paths.HEIGHT, paths.WIDTH), device="cuda")
-    out = ph.correct_image_cuda(raw, lut, vignette)
+    maps = simple_radial_remaps(torch, paths.HEIGHT, paths.WIDTH).maps32()
+    out = ph.intake_cuda(pinned, copied, lut, vignette)
+    call = lambda: ph.intake_cuda(pinned, copied, lut, vignette)               # noqa: E731
+    call_tables = lambda: ph.intake_cuda(pinned, copied, lut, vignette, maps)  # noqa: E731
+    on_card = lambda: ph.correct_image_cuda(raw, lut, vignette)              # noqa: E731
+    split, _ = kernel_split(torch, call, reps=200)
+    split_tables, _ = kernel_split(torch, call_tables, reps=200)
+    split_card, _ = kernel_split(torch, on_card, reps=200)
+    n = raw.numel()
+
+    def kernel_us(split):
+        """K18's own device µs in a ``kernel_split`` (the copy apart)."""
+        us = [v for k, v in split.items() if "Memcpy" not in k]
+        return sum(us) if us else None
+
+    with_tables = bound(nbytes(raw, *maps, lut, vignette, out),
+                        (OPS_PHOTOMETRIC_PIXEL + OPS_REMAP_PIXEL) * n)
     fields = dict(
-        max_abs_err=err, ms=cuda_ms(lambda: ph.correct_image_cuda(raw, lut, vignette)),
-        plain_ms=cuda_ms(lambda: ph.correct_image_plain(raw, lut, vignette)),
-        **bound(nbytes(raw, lut, vignette, out), OPS_PHOTOMETRIC_PIXEL * raw.numel()),
-        library_ms=None,
-        device_us=device_us(lambda: ph.correct_image_cuda(raw, lut, vignette), reps=200))
+        max_abs_err=0.0, ms=cuda_ms(call),
+        plain_ms=cuda_ms(lambda: ph.intake_plain(raw, lut, vignette)),
+        **bound(nbytes(raw, lut, vignette, out), OPS_PHOTOMETRIC_PIXEL * n),
+        library_ms=None, device_us=kernel_us(split),
+        copy_device_us=sum(us for k, us in split.items() if "Memcpy" in k),
+        tables_ms=cuda_ms(call_tables), tables_device_us=kernel_us(split_tables),
+        tables_plain_ms=cuda_ms(lambda: ph.intake_plain(raw, lut, vignette, maps)),
+        tables_bound_ms=with_tables["bound_ms"], on_card_ms=cuda_ms(on_card),
+        on_card_device_us=kernel_us(split_card), cases=cases)
     log(f"  K18 photometric_correct: {cases} cases equal to the plain version to the bit;"
-        f" VGA u8 with the vignette: kernel {fields['ms']:.4f} ms a wrapper call,"
-        f" {fields['device_us']:.3f} device us, plain {fields['plain_ms']:.4f} ms, bound"
-        f" {1e3 * fields['bound_ms']:.3f} us ({fields['bound_by']}), no library call | {card}")
+        f" the sensor path's intake (VGA u8 from pinned memory, the vignette): kernel"
+        f" {fields['ms']:.4f} ms a wrapper call, {fmt_us(fields['device_us'])} and the copy"
+        f" {fields['copy_device_us']:.2f} device µs, plain {fields['plain_ms']:.4f} ms, bound"
+        f" {1e3 * fields['bound_ms']:.3f} µs ({fields['bound_by']}); with SimpleRadial tables"
+        f" {fields['tables_ms']:.4f} ms, {fmt_us(fields['tables_device_us'])}, plain"
+        f" {fields['tables_plain_ms']:.4f} ms, bound {1e3 * fields['tables_bound_ms']:.3f} µs;"
+        f" a frame on the card {fields['on_card_ms']:.4f} ms,"
+        f" {fmt_us(fields['on_card_device_us'])};"
+        f" no library call | {card}")
     rows["photometric_correct"] = fields
 
 
@@ -2069,15 +2168,16 @@ def e2e(torch, card, exposure):
             f"[{label}] the window was never marginalized")
 
 
-def sensor(seq, torch, kernels, card):
+def sensor(seq, torch, kernels, card, standart_syncs):
     """The camera sensor path: the corridor written as a camera's files (raw
     u8 frames, times with exposures, G^-1, a pinhole calibration, class-id
-    images), read through NpyFolderProvider -> Camera (upload, K18) into the
-    known-pose bootstrap and PipelinedTracker at the standart point; then
-    the file read, the upload and K18 timed per frame."""
+    images), read through NpyFolderProvider -> Camera (K18's one-call intake
+    from pinned memory) into the known-pose bootstrap and PipelinedTracker at
+    the standart point; its host syncs a frame beside the standart path's
+    (``standart_syncs``); then the file read and ``next_frame`` timed per
+    frame, ``next_frame`` with every host synchronisation an error."""
     import tempfile
 
-    from dsopp_tpu_torch.sensors.photometric import correct_image_cuda
     from dsopp_tpu_torch.sensors.providers import NpyFolderProvider
     from dsopp_tpu_torch.testing import paths
 
@@ -2111,38 +2211,54 @@ def sensor(seq, torch, kernels, card):
                 f"[sensor] {in_window} points in the window and {on_rows} marginalized"
                 " landmarks on the filtered rows")
         require(wrong == 0, f"[sensor] {wrong} landmarks labelled with another class")
-        # per frame: the file read, the upload and K18, each on its own
+        st["ring_waits"] = camera.ring_waits
+        # per frame: the file read alone, then next_frame (the read and K18's
+        # intake) with every host synchronisation an error
         provider = NpyFolderProvider(os.path.join(folder, "images"))
-        lut = torch.as_tensor(paths.inverse_response(), device="cuda")
-        vignette = torch.as_tensor(paths.sensor_vignette(paths.HEIGHT, paths.WIDTH), device="cuda")
-        read_s, upload_s, k18_ms = [], [], []
+        read_s, next_s = [], []
         while True:
             t0 = time.perf_counter()
             frame = provider.next_frame()
             if frame is None:
                 break
             read_s.append(time.perf_counter() - t0)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            raw = torch.as_tensor(frame.image).to("cuda")
-            torch.cuda.synchronize()
-            upload_s.append(time.perf_counter() - t0)
-            if len(k18_ms) < 10:
-                k18_ms.append(cuda_ms(lambda: correct_image_cuda(raw, lut, vignette), reps=20))
+        camera = paths.sensor_camera(folder, params)
+        before = kernels.PHOTOMETRIC.launches
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            while True:
+                t0 = time.perf_counter()
+                frame = camera.next_frame()
+                if frame is None:
+                    break
+                next_s.append(time.perf_counter() - t0)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        require(kernels.PHOTOMETRIC.launches - before == len(next_s),
+                f"[sensor] K18 launched {kernels.PHOTOMETRIC.launches - before} times for"
+                f" {len(next_s)} frames read")
     st["read_ms"] = 1e3 * float(np.mean(read_s))
-    st["upload_ms"] = 1e3 * float(np.mean(upload_s))
-    st["k18_ms"] = float(np.mean(k18_ms))
-    log(f"[sensor] {st['fps']:.3f} frames/s; per frame: file read {st['read_ms']:.4f} ms,"
-        f" upload {st['upload_ms']:.4f} ms ({raw.numel()} B), K18 {st['k18_ms']:.4f} ms a"
-        f" wrapper call | {card}")
+    st["next_frame_ms"] = 1e3 * float(np.mean(next_s[1:]))
+    st["idle_ring_waits"] = camera.ring_waits
+    log(f"[sensor] {st['fps']:.3f} frames/s; {st['host_syncs_per_frame']:.3f} host syncs a"
+        f" frame (the standart path's {standart_syncs:.3f}); per frame: file read"
+        f" {st['read_ms']:.4f} ms, next_frame {st['next_frame_ms']:.4f} ms of host time (the"
+        f" read, the class ids and K18's one-call intake; {len(next_s)} frames with every host"
+        f" synchronisation an error); the pinned ring's waits {st['ring_waits']} over the"
+        f" tracked frames, {st['idle_ring_waits']} over the read-only frames | {card}")
     return st
 
 
 def undistort(seq, torch, card):
     """The remap tables of a SimpleRadial VGA calibration built on the card
     in f64 against the CPU's, and one frame remapped on the card against the
-    CPU's remap."""
+    CPU's remap; then K18's intake of that frame (raw u8, from pinned memory)
+    through the tables against the chain it replaced on the card (the remap's
+    torch ops, then K18 on the remapped frame) and against the plain chain on
+    the CPU, to the bit, with both times."""
     from dsopp_tpu_torch.core.camera import SimpleRadial
+    from dsopp_tpu_torch.sensors import photometric as ph
     from dsopp_tpu_torch.sensors.undistorter import build_remaps
     from dsopp_tpu_torch.testing import paths
 
@@ -2166,6 +2282,29 @@ def undistort(seq, torch, card):
     require(on_card.map_x.dtype == torch.float64, "[undistort] tables not f64")
     require(err_tab <= REMAP_TABLE_TOL, f"[undistort] tables {err_tab} px > {REMAP_TABLE_TOL}")
     require(err_img <= REMAP_TOL, f"[undistort] remap {err_img} > {REMAP_TOL}")
+    # K18's intake through the tables against the chain it replaced
+    raw = frame.clamp(0.0, 255.0).round().to(torch.uint8)
+    pinned, copied = pinned_copy(torch, raw)
+    lut = torch.as_tensor(paths.inverse_response(), device="cuda")
+    vignette = torch.as_tensor(paths.sensor_vignette(paths.HEIGHT, paths.WIDTH), device="cuda")
+    maps = on_card.maps32()
+    fused = no_host_reads(torch, ph.intake_cuda, pinned, copied, lut, vignette, maps)
+    chain = lambda: ph.correct_image_cuda(on_card.undistort(raw), lut, vignette)  # noqa: E731
+    plain = ph.intake_plain(pinned, lut.cpu(), vignette.cpu(), tuple(m.cpu() for m in maps))
+    require(torch.equal(fused, chain()),
+            "[undistort] K18's intake differs from the replaced chain")
+    require(torch.equal(fused.cpu(), plain),
+            "[undistort] K18's intake differs from the plain chain")
+    fused_split, fused_kernels = kernel_split(
+        torch, lambda: ph.intake_cuda(pinned, copied, lut, vignette, maps), reps=200)
+    chain_split, chain_kernels = kernel_split(torch, chain, reps=200)
+    log(f"[undistort] K18's intake through the tables equal to the bit to the replaced chain"
+        f" (remap_bilinear on the card, then K18) and to the plain chain on the CPU; intake"
+        f" {cuda_ms(lambda: ph.intake_cuda(pinned, copied, lut, vignette, maps)):.4f} ms a"
+        f" call"
+        f" ({fmt_split(fused_split, fused_kernels)}, the copy included), the replaced chain from"
+        f" the frame on the card {cuda_ms(chain):.4f} ms ({sum(chain_split.values()):.2f} device µs in"
+        f" {chain_kernels:.1f} kernels) | {card}")
 
 
 def parent_bits(card):
@@ -2382,7 +2521,7 @@ def main():
             require(st_run["counts"]["photometric_correct"] == 0,
                     f"[{label}] K18 launched on a path with no camera")
 
-        ss = sensor(seq, torch, kernels, card)
+        ss = sensor(seq, torch, kernels, card, st["host_syncs_per_frame"])
         require(ss["ate_rmse"] < RMSE_GATE, f"sensor ATE RMSE {ss['ate_rmse']:.5f} m >= {RMSE_GATE}")
         require(ss["ate_max"] < MAX_GATE, f"sensor ATE max {ss['ate_max']:.5f} m >= {MAX_GATE}")
         require(abs(ss["scale"] - 1.0) < SCALE_GATE, f"sensor alignment scale {ss['scale']:.4f}")

@@ -173,10 +173,10 @@ class Kernel:
         if fn is None:
             fn = self._fn = getattr(library(), self.symbol)
         # the handle torch.cuda.current_stream().cuda_stream gives, without
-        # building a Stream object at every launch
-        stream = torch._C._cuda_getCurrentRawStream(torch.cuda.current_device())
-        conv = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
-        err = fn(*conv, stream)
+        # building a Stream object at every launch (or torch.cuda.current_device's
+        # lazy-init check: a tensor on the card has initialised CUDA)
+        stream = torch._C._cuda_getCurrentRawStream(torch._C._cuda_getDevice())
+        err = fn(*[a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args], stream)
         if err != 0:
             where = f" in {self.steps[err >> 16]}" if self.steps else ""
             raise RuntimeError(f"{self.name}: CUDA error {err & 0xFFFF}{where} at launch")
@@ -256,8 +256,10 @@ MARG_FOLD = Kernel("marg_fold", "marg_fold",
                    [_P] * 14 + [_I, _D, _F, _F, _F] + [_P] * 5)
 # the row gather of the Pallas design probe (off the tracker's paths)
 ROW_GATHER = Kernel("row_gather", "row_gather", [_P, _P, _I, _I, _I, _P])
-# K18: the camera's photometric correction, once per frame the camera reads
-PHOTOMETRIC = Kernel("photometric_correct", "photometric_correct", [_P, _I, _P, _P, _I, _P])
+# K18: the camera's frame intake (the upload from pinned memory, the remap,
+# the crop and the photometric correction), once per frame the camera reads
+PHOTOMETRIC = Kernel("photometric_correct", "photometric_correct",
+                     [_P, _P, _P] + [_I] * 4 + [_P, _P, _I, _P, _P, _I, _I, _P])
 ALL = (PYRAMID, ALIGN, ALIGN_LEVEL, EPIPOLAR, FLOW, BA_EVALUATE, BA_LINEARIZE,
        BA_SOLVE, BA_LM, BA_STATUS, BA_SOLVE_LOOP, SELECT_CANDIDATES, ACTIVATION, REFINE,
        ACTIVATION_SCATTER, DEPTH_MAPS, MARG_POLICY, MARG_FOLD, ROW_GATHER, PHOTOMETRIC)

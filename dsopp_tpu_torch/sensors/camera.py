@@ -2,12 +2,16 @@
 upload → undistortion → resize → crop → photometric correction (K18).
 
 ``Camera.next_frame`` returns the corrected image as an f32 tensor on the
-camera's device.  The frame crosses to the device once, as the provider
-gives it (one byte a pixel for a u8 frame); the undistortion and the crop
-run there, and K18 absorbs the u8 → f32 conversion.  A resize ratio other
-than 1 resizes on the host with cv2 (``cv2.INTER_AREA``, f32 in), as the JAX
-package does: before the upload when there is nothing to undistort, else
-between the device's undistortion and a second upload.
+camera's device.  On a card, the frame crosses once, as the provider gives
+it (one byte a pixel for a u8 frame), from one of a few pinned host buffers
+(``sensors/pinned.py``), and K18 takes it from there in one C call: the
+upload, the undistortion, the crop (the output is the crop; nothing is
+copied for it) and the correction (``photometric.intake_cuda``); the host
+waits for nothing.  On the CPU the same chain runs as plain torch
+(``photometric.intake_plain``).  A resize ratio other than 1 resizes on the
+host with cv2 (``cv2.INTER_AREA``, f32 in), as the JAX package does: before
+the intake when there is nothing to undistort, else between the device's
+undistortion and the intake (that route reads the remapped frame back).
 """
 
 from __future__ import annotations
@@ -23,9 +27,10 @@ from dsopp_tpu_torch import default_device
 from dsopp_tpu_torch.sensors.calibration import (CameraCalibration, load_calibration,
                                                  load_photometric_calibration, load_vignetting)
 from dsopp_tpu_torch.sensors.masks import load_mask
-from dsopp_tpu_torch.sensors.photometric import correct_image
+from dsopp_tpu_torch.sensors.photometric import intake_cuda, intake_plain
+from dsopp_tpu_torch.sensors.pinned import PinnedRing, to_device
 from dsopp_tpu_torch.sensors.providers import CameraDataFrame, create_provider
-from dsopp_tpu_torch.sensors.undistorter import Undistorter, build_remaps
+from dsopp_tpu_torch.sensors.undistorter import Undistorter, build_remaps, remap_bilinear
 
 
 @dataclass
@@ -88,6 +93,7 @@ class Camera:
 
     _lut: object = field(default=None, repr=False)
     _vignetting: object = field(default=None, repr=False)
+    _ring: PinnedRing = field(default_factory=PinnedRing, repr=False)
 
     def __post_init__(self):
         self.device = default_device(self.device)
@@ -149,32 +155,36 @@ class Camera:
             return None
         img = frame.image
         und = self.settings.undistorter
-        if und is not None and not und.identity:
-            img = und.undistort(self._upload(img))
+        maps = None if und is None or und.identity else und.maps32()
         if self.resize_ratio != 1.0:
-            host = img.cpu().numpy() if torch.is_tensor(img) else img.astype(np.float32)
-            img = _resize_host(host, ratio=self.resize_ratio)
-        img = self._upload(img)
+            if maps is not None:
+                raw = torch.as_tensor(np.ascontiguousarray(img)).to(self.device)
+                img, maps = remap_bilinear(raw.to(torch.float32), *maps).cpu().numpy(), None
+            img = _resize_host(np.asarray(img, np.float32), ratio=self.resize_ratio)
+        h, w = img.shape if maps is None else maps[0].shape
         if self.crop_levels:
-            cw, ch = crop_size_power_of_2(img.shape[1], img.shape[0], self.crop_levels)
-            if (cw, ch) != (img.shape[1], img.shape[0]):
-                img = img[:ch, :cw].contiguous()
-        corrected = correct_image(img, *self._photometric(img.shape))
+            w, h = crop_size_power_of_2(w, h, self.crop_levels)
+        lut, vignetting = self._photometric((h, w))
+        if self.device.type == "cuda":
+            corrected = intake_cuda(*self._ring.stage(img), lut, vignetting, maps, (h, w))
+        else:
+            corrected = intake_plain(np.ascontiguousarray(img), lut, vignetting, maps, (h, w))
         semantics = self._load_semantics(frame.frame_id, tuple(corrected.shape))
         return CameraDataFrame(frame.frame_id, frame.timestamp, corrected, frame.exposure,
                                semantics=semantics)
 
-    def _upload(self, image):
-        if torch.is_tensor(image):
-            return image
-        return torch.as_tensor(np.ascontiguousarray(image)).to(self.device)
+    @property
+    def ring_waits(self) -> int:
+        """Frames whose pinned buffer was still being copied when the next
+        frame came (the host polled until it was free)."""
+        return self._ring.waits
 
     def _photometric(self, shape):
         """(G⁻¹, vignette) on the device for an image of ``shape``; a
         vignette of another size is resized once with cv2."""
         if self._lut is None:
-            self._lut = torch.as_tensor(np.asarray(self.settings.inverse_response, np.float32),
-                                        device=self.device)
+            self._lut = to_device(np.asarray(self.settings.inverse_response, np.float32),
+                                  self.device)
         vignetting = self.settings.vignetting
         if vignetting is None:
             return self._lut, None
@@ -183,8 +193,7 @@ class Camera:
             self.settings.vignetting = vignetting
             self._vignetting = None
         if self._vignetting is None:
-            self._vignetting = torch.as_tensor(np.asarray(vignetting, np.float32),
-                                               device=self.device).contiguous()
+            self._vignetting = to_device(np.asarray(vignetting, np.float32), self.device)
         return self._lut, self._vignetting
 
     def _load_semantics(self, frame_id, image_shape):

@@ -51,13 +51,17 @@ class Undistorter:
     def identity(self) -> bool:
         return self.map_x is None
 
+    def maps32(self):
+        """The tables in f32 (map_x, map_y), made once: what the remap reads."""
+        if self._maps32 is None:
+            self._maps32 = (self.map_x.to(torch.float32), self.map_y.to(torch.float32))
+        return self._maps32
+
     def undistort(self, image):
         """[H, W] image (any dtype, on the tables' device) → f32 remapped image."""
         if self.identity:
             return image
-        if self._maps32 is None:
-            self._maps32 = (self.map_x.to(torch.float32), self.map_y.to(torch.float32))
-        return remap_bilinear(image.to(torch.float32), *self._maps32)
+        return remap_bilinear(image.to(torch.float32), *self.maps32())
 
 
 def build_remaps(source_model, device=None) -> Undistorter:

@@ -1,14 +1,14 @@
 """The calls of K5 (the flow statistic with the keyframe decision) and of
 K14's pairing (with the refinement's glue) on the inputs of
 ``testing/bits.py``'s ``frame`` case, of K11 (the point status) and K15
-(the ledger fold) on the windows of its ``solve`` case, and of K12 (the
+(the ledger fold) on the windows of its ``solve`` case, of K12 (the
 candidates) and K16 (the frontend's state) on the inputs of its ``kf`` case,
-timed on the card, in this tree or in a tree before their redesigns (copy
-this file, ``bits.py`` and ``parity.py`` into that tree's
-``dsopp_tpu_torch/testing`` and run it there), so that the two can be
-compared inside one card call.
+and K18 (the camera's frame intake) with the sensor path around it, timed on
+the card, in this tree or in a tree before their redesigns (copy this file,
+``bits.py`` and ``parity.py`` into that tree's ``dsopp_tpu_torch/testing``
+and run it there), so that the two can be compared inside one card call.
 
-    python -m dsopp_tpu_torch.testing.entry_times [out.json] [--cases frame,status,marg,kf]
+    python -m dsopp_tpu_torch.testing.entry_times [out.json] [--cases frame,status,marg,kf,sensor]
 
 Per tracker of ``bits.FRAME_TRACKERS`` (the pairing on the three with a
 pushed keyframe, with and without the refinement), each the mean of
@@ -39,7 +39,19 @@ one call (``profiling.profiled``):
 * ``kf`` (per tracker of ``bits.KF_TRACKERS``): K12's wrapper on the new
   keyframe's map without and with the masked path's mask, and K16's wrapper
   on the window as it is (this tree: checks, the scratch buffer and one C
-  call; before: the poses and the mask composed in torch around the call).
+  call; before: the poses and the mask composed in torch around the call);
+* ``sensor`` (the standart corridor written as a camera stores it,
+  ``paths.write_sensor_folder``): K18 on a VGA u8 frame on the card with the
+  path's vignette (``correct_image_cuda``), the same frame undistorted
+  through SimpleRadial VGA tables by ``Undistorter.undistort`` and then
+  corrected (the chain the intake replaced), and, where the tree has it, the
+  intake (``intake_cuda`` from a pinned buffer) without and with those
+  tables; then the sensor path (bootstrap, ``PipelinedTracker`` over frames
+  6..119) once under sync debug "warn", counting the host syncs a frame,
+  those inside ``next_frame``, and their lines, and ``SENSOR_RUNS`` times
+  timed: frames/s, the pinned ring's waits, and ``next_frame``'s host ms a
+  frame split into its parts (:func:`next_frame_parts`), over all frames and
+  over those at which the stream was still busy.
 
 Prints one JSON object with the card's name and power limit.  Needs a CUDA
 card.
@@ -47,9 +59,16 @@ card.
 
 from __future__ import annotations
 
+import collections
 import json
+import os
 import sys
+import time
+import warnings
+from contextlib import ExitStack
+from unittest import mock
 
+import numpy as np
 import torch
 
 from dsopp_tpu_torch.testing import bits
@@ -204,7 +223,159 @@ def kf_rows() -> dict:
     return out
 
 
-CASES = {"frame": frame_rows, "status": status_rows, "marg": marg_rows, "kf": kf_rows}
+SENSOR_RUNS = 3
+
+
+def _is_sync(warning) -> bool:
+    """A host synchronisation reported by sync debug mode (not the mode's
+    own notice that it is a prototype)."""
+    text = str(warning.message)
+    return "synchroniz" in text and "debug mode" not in text
+
+
+def next_frame_parts(camera, stack: ExitStack) -> dict:
+    """Wrap, for the life of ``stack``, each part of ``camera.next_frame``
+    that the tree has with a host timer → {part: seconds in the current
+    frame}: ``read`` (the provider's file read), ``semantics`` (the class-id
+    image's), and the upload with K18, this tree's ``stage`` (the copy into
+    a pinned buffer) and ``intake`` (the one C call), before them ``upload``
+    (the pageable copy, which waits for the stream) and ``correct`` (K18)."""
+    from dsopp_tpu_torch.sensors import camera as camera_module
+    spent = {}
+
+    def timer(label, fn):
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                spent[label] = spent.get(label, 0.0) + time.perf_counter() - t0
+        return timed
+
+    for owner, name, label in ((camera.provider, "next_frame", "read"),
+                               (camera, "_load_semantics", "semantics"),
+                               (getattr(camera, "_ring", None), "stage", "stage"),
+                               (camera_module, "intake_cuda", "intake"),
+                               (camera, "_upload", "upload"),
+                               (camera_module, "correct_image", "correct")):
+        if owner is not None and hasattr(owner, name):
+            stack.enter_context(mock.patch.object(owner, name, timer(label, getattr(owner, name))))
+    return spent
+
+
+def sensor_run(seq, folder, params, count_syncs: bool) -> dict:
+    """The sensor path once: bootstrap, then the pipelined tracker over the
+    camera's frames; counting the host syncs, or timing ``next_frame``'s
+    parts."""
+    from dsopp_tpu_torch.testing import paths
+    from dsopp_tpu_torch.tracker.device_loop import PipelinedTracker
+
+    camera = paths.sensor_camera(folder, params)
+    tracker = paths.sensor_bootstrap(camera, seq, paths.path_config("sensor"))
+    pipe = PipelinedTracker(tracker, flush_every=16)
+    frames = paths.path_frames("sensor") - paths.INIT_FRAMES
+    per_frame, in_frame = [], 0
+    stream = torch.cuda.current_stream()
+    torch.cuda.synchronize()
+    with ExitStack() as stack, warnings.catch_warnings(record=True) as syncs:
+        warnings.simplefilter("always")
+        spent = {} if count_syncs else next_frame_parts(camera, stack)
+        if count_syncs:
+            torch.cuda.set_sync_debug_mode("warn")
+        try:
+            t0 = time.perf_counter()
+            for i in range(paths.INIT_FRAMES, paths.INIT_FRAMES + frames):
+                before = len(syncs)
+                spent.clear()
+                busy = not count_syncs and not stream.query()
+                t1 = time.perf_counter()
+                frame = camera.next_frame()
+                spent["next_frame"] = time.perf_counter() - t1
+                per_frame.append(dict(spent, busy=busy))
+                in_frame += sum(map(_is_sync, syncs[before:]))
+                pipe.tick(i, frame.timestamp, frame.image, semantics=frame.semantics,
+                          exposure=frame.exposure)
+            pipe.drain()
+            torch.cuda.synchronize()
+            elapsed = time.perf_counter() - t0
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    out = dict(fps=frames / elapsed, ring_waits=getattr(camera, "ring_waits", None))
+    if count_syncs:
+        sites = collections.Counter(f"{os.path.relpath(w.filename)}:{w.lineno}" for w in syncs
+                                    if _is_sync(w))
+        out.update(host_syncs_per_frame=sum(sites.values()) / frames,
+                   next_frame_syncs_per_frame=in_frame / frames,
+                   host_sync_sites=dict(sites.most_common(8)))
+        return out
+    busy = [f for f in per_frame if f["busy"]]
+    for label in per_frame[0]:
+        if label != "busy":
+            out[f"{label}_ms"] = 1e3 * float(np.mean([f.get(label, 0.0) for f in per_frame]))
+            out[f"{label}_median_ms"] = 1e3 * float(np.median([f.get(label, 0.0)
+                                                               for f in per_frame]))
+            if busy:
+                out[f"{label}_busy_ms"] = 1e3 * float(np.mean([f.get(label, 0.0) for f in busy]))
+    out["busy_frames"] = len(busy)
+    return out
+
+
+def sensor_rows() -> dict:
+    """K18, the remap chain it replaced and the intake on a VGA u8 frame of
+    the standart corridor; the sensor path's syncs, frames/s and
+    ``next_frame``'s parts."""
+    import tempfile
+
+    from dsopp_tpu_torch.core.camera import SimpleRadial
+    from dsopp_tpu_torch.sensors import photometric as ph
+    from dsopp_tpu_torch.sensors.undistorter import build_remaps
+    from dsopp_tpu_torch.testing import paths
+
+    seq = paths.render_path("standart")
+    h, w = seq.images.shape[1:]
+    raw = seq.images[10].clamp(0.0, 255.0).round().to(torch.uint8)
+    lut = torch.as_tensor(paths.inverse_response(), device="cuda")
+    vignette = torch.as_tensor(paths.sensor_vignette(h, w), device="cuda")
+    source = SimpleRadial.create((float(w), float(h)), 500.0, ((w - 1) / 2.0, (h - 1) / 2.0),
+                                 -0.12, 0.02)
+    und = build_remaps(source, "cuda")
+
+    def k18():
+        return ph.correct_image_cuda(raw, lut, vignette)
+
+    def chain():
+        return ph.correct_image_cuda(und.undistort(raw), lut, vignette)
+
+    out = dict(intake_tree=hasattr(ph, "intake_cuda"), k18_ms=cuda_ms(k18, REPS),
+               k18=device_work(k18), remap_chain_ms=cuda_ms(chain, REPS),
+               remap_chain=device_work(chain))
+    if out["intake_tree"]:
+        pinned = torch.empty((h, w), dtype=torch.uint8, pin_memory=True)
+        pinned.copy_(raw.cpu())
+        copied = torch.cuda.Event()
+        copied.record()
+        maps = und.maps32()
+
+        def intake():
+            return ph.intake_cuda(pinned, copied, lut, vignette)
+
+        def intake_tables():
+            return ph.intake_cuda(pinned, copied, lut, vignette, maps)
+
+        out.update(intake_ms=cuda_ms(intake, REPS), intake=device_work(intake),
+                   intake_tables_ms=cuda_ms(intake_tables, REPS),
+                   intake_tables=device_work(intake_tables),
+                   intake_tables_equal_chain=bool(torch.equal(intake_tables(), chain())))
+    with tempfile.TemporaryDirectory(prefix="dsopp_entry_times_") as folder:
+        params, _ = paths.write_sensor_folder(seq, folder)
+        out["counted"] = sensor_run(seq, folder, params, count_syncs=True)
+        out["timed"] = [sensor_run(seq, folder, params, count_syncs=False)
+                        for _ in range(SENSOR_RUNS)]
+    return out
+
+
+CASES = {"frame": frame_rows, "status": status_rows, "marg": marg_rows, "kf": kf_rows,
+         "sensor": sensor_rows}
 
 
 def main(argv) -> int:

@@ -11,9 +11,11 @@ advanced indexing) and by ``torch.index_select`` (the library's gather), each
 timed with CUDA events (the wrapper's host work included) and by the
 profiler's device time, with the L2 warm (back to back: the 14.7 MB f32
 table stays in the 50 MB L2) and cold (a 256 MB write before each call);
-the bound counts the distinct rows the draw names.  The kernel's output must
-equal the plain version's to the bit.  Prints one JSON object with the card's name and power limit.
-Needs a CUDA card.
+the bound counts the distinct rows the draw names, and beside it the 32-byte
+sectors of the table those rows touch.  The wrapper's host time is split
+into its parts (:func:`host_split`).  The kernel's output must equal the
+plain version's to the bit.  Prints one JSON object with the card's name
+and power limit.  Needs a CUDA card.
 
 :func:`row_gather` dispatches as every wrapper of the port does: CPU tensors
 take the plain version, CUDA tensors the kernel (after a range check of the
@@ -53,20 +55,35 @@ def row_gather_plain(table, idx):
     return table[idx]
 
 
-def row_gather_cuda(table, idx):
-    """The kernel: same output as :func:`row_gather_plain`; reads nothing on
-    the host (an index outside the table gives a zero row)."""
-    if table.dim() != 2 or table.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"row_gather: a 2-D f32 or bf16 table, got {table.dtype} "
-                         f"{tuple(table.shape)}")
+_GATHER_TYPES = (torch.float32, torch.bfloat16)
+
+
+def _gather_shape(table, idx):
+    """Check the row gather's arguments (one test on the common path) →
+    (rows, columns, bytes a row)."""
+    if not (table.is_cuda and table.dtype in _GATHER_TYPES and table.dim() == 2
+            and table.is_contiguous() and idx.dtype == torch.int32 and idx.dim() == 1
+            and idx.is_contiguous() and idx.device == table.device):
+        if table.dim() != 2 or table.dtype not in _GATHER_TYPES:
+            raise ValueError(f"row_gather: a 2-D f32 or bf16 table, got {table.dtype} "
+                             f"{tuple(table.shape)}")
+        kernels.check(table, "table", tuple(table.shape), table.dtype)
+        kernels.check(idx, "idx", (idx.shape[0],), torch.int32)
+        raise ValueError(f"row_gather: idx on {idx.device}, the table on {table.device}")
     rows, cols = table.shape
     row_bytes = cols * table.element_size()
     if row_bytes % 8:
         raise ValueError(f"row_gather: rows of {row_bytes} bytes, not a multiple of 8")
-    kernels.check(table, "table", (rows, cols), table.dtype)
-    kernels.check(idx, "idx", (idx.shape[0],), torch.int32)
-    out = torch.empty((idx.shape[0], cols), dtype=table.dtype, device=table.device)
-    kernels.ROW_GATHER(table, idx, rows, idx.shape[0], row_bytes, out)
+    return rows, cols, row_bytes
+
+
+def row_gather_cuda(table, idx):
+    """The kernel: same output as :func:`row_gather_plain`; reads nothing on
+    the host (an index outside the table gives a zero row)."""
+    rows, cols, row_bytes = _gather_shape(table, idx)
+    m = idx.shape[0]
+    out = table.new_empty((m, cols))
+    kernels.ROW_GATHER(table, idx, rows, m, row_bytes, out)
     return out
 
 
@@ -116,6 +133,60 @@ def device_us(fn, reps: int = 20, cold: bool = False) -> float:
                for e in prof.key_averages() if e.key not in skip) / reps
 
 
+def host_split(table, idx, reps: int = 200, rounds: int = 15) -> dict:
+    """Host µs a call of each part of :func:`row_gather_cuda`, the median over
+    ``rounds`` runs of ``reps`` calls on the host's clock (each run ends in a
+    synchronise that is not counted; 200 launches stay inside the card's
+    launch queue): the checks, ``new_empty``, ``Kernel.__call__``'s stream
+    lookup (and the lookup it replaced, through ``torch.cuda.current_device``)
+    and its argument conversion, the ctypes call with its launch, the whole
+    wrapper, and ``torch.index_select`` beside it."""
+    import time
+
+    rows, cols, row_bytes = _gather_shape(table, idx)
+    m = idx.shape[0]
+    out = table.new_empty((m, cols))
+    long_idx = idx.long()
+    fn = getattr(kernels.library(), kernels.ROW_GATHER.symbol)   # with its argtypes
+    args = (table, idx, rows, m, row_bytes, out)
+    stream = torch._C._cuda_getCurrentRawStream(torch._C._cuda_getDevice())
+    conv = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    parts = {
+        "checks": lambda: _gather_shape(table, idx),
+        "new_empty": lambda: table.new_empty((m, cols)),
+        "torch_empty": lambda: torch.empty((m, cols), dtype=table.dtype, device=table.device),
+        "stream_lookup": lambda: torch._C._cuda_getCurrentRawStream(torch._C._cuda_getDevice()),
+        "stream_lookup_before": lambda: torch._C._cuda_getCurrentRawStream(
+            torch.cuda.current_device()),
+        "argument_conversion": lambda: [a.data_ptr() if isinstance(a, torch.Tensor) else a
+                                        for a in args],
+        "ctypes_call_and_launch": lambda: fn(*conv, stream),
+        "wrapper": lambda: row_gather_cuda(table, idx),
+        "index_select": lambda: torch.index_select(table, 0, long_idx),
+    }
+    result = {}
+    for name, part in parts.items():
+        part()
+        torch.cuda.synchronize()
+        runs = []
+        for _ in range(rounds):
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                part()
+            runs.append((time.perf_counter() - t0) / reps)
+            torch.cuda.synchronize()
+        result[name] = 1e6 * float(np.median(runs))
+    return result
+
+
+def sectors(table, idx) -> int:
+    """The 32-byte sectors of the table that this draw's distinct rows touch
+    (what the card reads, beside the bound's bytes)."""
+    row = table.shape[1] * table.element_size()
+    start = torch.unique(idx).long() * row
+    return int((((start + row - 1) // 32) - start // 32 + 1).sum())
+
+
 def main(argv):
     if not torch.cuda.is_available():
         print("gather_probe: no CUDA device", file=sys.stderr)
@@ -142,7 +213,8 @@ def main(argv):
             cold_plain_device_us=device_us(lambda: row_gather_plain(tab, idx), cold=True),
             cold_index_select_device_us=device_us(lambda: torch.index_select(tab, 0, long_idx),
                                                   cold=True),
-            bound_ms=bound_ms(tab, idx), equal=True)
+            bound_ms=bound_ms(tab, idx), table_sectors=sectors(tab, idx),
+            host_split_us=host_split(tab, idx), equal=True)
     print(json.dumps(result))
     if len(argv) > 1:
         with open(argv[1], "w") as fh:

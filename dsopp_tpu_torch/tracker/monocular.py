@@ -30,6 +30,7 @@ from dsopp_tpu_torch.core.lie import SE3
 from dsopp_tpu_torch.features.embedder import make_embedder
 from dsopp_tpu_torch.features.pyramid import build_channel_map, build_pyramid_maps
 from dsopp_tpu_torch.sensors.masks import filter_semantic_objects
+from dsopp_tpu_torch.sensors.pinned import PinnedRing
 from dsopp_tpu_torch.solvers.pba import PBAOptions, empty_window, frame_count, push_frame_slot
 from dsopp_tpu_torch.solvers.pose_alignment import AlignmentOptions
 from dsopp_tpu_torch.track.state import AttachedFrame, OdometryTrack
@@ -86,6 +87,7 @@ class MonocularTracker:
         self.semantic_filter: tuple = ()   # class ids masked out per frame
         self._last_semantics = None        # newest frame's class-id image
         self._kf_semantics = {}            # keyframe id → class-id image
+        self._semantic_ring = PinnedRing()  # class-id images to the card, no host wait
         self.models = [camera.scaled(float(2 ** l)) for l in range(config.pyramid_levels)]
         self.embedder = make_embedder(config.embedder)
         c = self.embedder.channels
@@ -157,7 +159,11 @@ class MonocularTracker:
         base = self.base_mask
         if base is None:
             base = torch.ones(self.image_shape, dtype=torch.bool, device=self.device)
-        sem = torch.as_tensor(np.asarray(semantics), device=self.device)
+        semantics = np.asarray(semantics)
+        if self.device.type == "cuda":
+            sem = self._semantic_ring.upload(semantics, self.device)
+        else:
+            sem = torch.as_tensor(semantics)
         return filter_semantic_objects(base, sem, self.semantic_filter)
 
     def tick(self, frame_id: int, timestamp: float, image, known_pose: SE3,

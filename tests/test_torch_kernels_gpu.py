@@ -76,10 +76,17 @@ the two best eq (20) scores tie within their bounds
 frame flags that differ on those two slots only and the plain triage of the
 kernel's frame flags, two runs equal to the bit, its wrapper running no torch
 operator but allocations and one kernel a call; the row
-gather equal to ``table[idx]`` to the bit in f32 and bf16; K18 (the
-photometric correction) equal to the bit on u8 and f32 frames, with and
-without a vignette, at VGA and at 479x637. K12-K16 and K18 run with host
-synchronisation an error.
+gather equal to ``table[idx]`` to the bit in f32 and bf16, also at a tile's
+ragged end (m of 1, 31, an odd count, 204801), at rows of 8 to 256 bytes and
+from an unaligned index view, an index outside the table a zero row; K18
+(the photometric correction) equal to the bit on u8 and f32 frames, with and
+without a vignette, at VGA and at 479x637, and as the camera's one-call
+intake from a pinned buffer (without and with SimpleRadial tables, cropped
+to a multiple of 16) to the plain chain on the CPU, and on a crop's view;
+``Camera.next_frame`` and the class-id image's upload with no host sync,
+one K18 launch a frame; the pinned ring under a long kernel (the fourth
+frame waits for its buffer, every frame right). K12-K16 and K18 run with
+host synchronisation an error.
 
 At C = 2 and 3 frame-embedder channels (a tracker with the filter-bank
 embedder, and its window's first two channels): K1's channel map 1e-3 abs;
@@ -1019,6 +1026,193 @@ def test_photometric_kernel_matches_plain(size, raw_dtype, with_vignette):
         assert torch.equal(ph.correct_image_cuda(shifted, lut, vig), out_k)
     with pytest.raises(ValueError):
         ph.correct_image_cuda(raw.double() if raw_dtype == "f32" else raw.t(), lut, vig)
+
+
+@pytest.mark.parametrize("dtype,cols,m", [
+    ("f32", 12, 1), ("f32", 12, 31), ("bf16", 12, 1001), ("bf16", 12, 204801),
+    ("f32", 2, 4097), ("f32", 4, 4097), ("f32", 64, 4097), ("bf16", 4, 4097),
+    ("bf16", 12, 4097)])
+def test_row_gather_ragged_and_row_widths(dtype, cols, m):
+    """The row gather equal to ``table[idx]`` to the bit at a tile's ragged
+    end (m of 1, 31, an odd count, 204801) and at rows of 8, 16, 24, 48 and
+    256 bytes (the last a warp a row), an index outside the table giving a
+    zero row; from an index view that starts 4 bytes past a 16-byte boundary
+    too; a bf16 row of 4 bytes refused."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(cols * 7 + m)
+    torch_dtype = torch.float32 if dtype == "f32" else torch.bfloat16
+    rows = 5000 if m < 204801 else gather_probe.HW
+    table = torch.as_tensor(rng.standard_normal((rows, cols)).astype(np.float32),
+                            device="cuda").to(torch_dtype)
+    idx = torch.as_tensor(rng.integers(0, rows, m + 1).astype(np.int32), device="cuda")
+    before = kernels.ROW_GATHER.launches
+    for ids in (idx[:m], idx[1:]):
+        out = _no_host_reads(gather_probe.row_gather_cuda, table, ids)
+        assert out.dtype == torch_dtype and tuple(out.shape) == (m, cols)
+        assert torch.equal(out, gather_probe.row_gather_plain(table, ids))
+    assert kernels.ROW_GATHER.launches == before + 2
+    bad = idx[:m].clone()
+    bad[m // 2] = rows if m % 2 else -5
+    out_bad = gather_probe.row_gather_cuda(table, bad)
+    keep = torch.ones(m, dtype=torch.bool, device="cuda")
+    keep[m // 2] = False
+    assert not bool(out_bad[m // 2].any())
+    assert torch.equal(out_bad[keep], table[bad[keep]])
+    if dtype == "bf16":
+        with pytest.raises(ValueError, match="multiple of 8"):
+            gather_probe.row_gather_cuda(table[:, :2].contiguous(), idx[:m])
+
+
+def _distorted_remaps(h, w):
+    from dsopp_tpu_torch.core.camera import SimpleRadial
+    from dsopp_tpu_torch.sensors.undistorter import build_remaps
+
+    source = SimpleRadial.create((float(w), float(h)), 500.0, ((w - 1) / 2.0, (h - 1) / 2.0),
+                                 -0.12, 0.02)
+    return build_remaps(source, "cuda")
+
+
+def _pinned(tensor):
+    """``tensor`` in pinned host memory, and the event its intake records."""
+    out = torch.empty(tensor.shape, dtype=tensor.dtype, pin_memory=True)
+    out.copy_(tensor.cpu())
+    copied = torch.cuda.Event()
+    copied.record()
+    return out, copied
+
+
+@pytest.mark.parametrize("size", [(480, 640), (479, 637)])
+@pytest.mark.parametrize("raw_dtype", ["u8", "f32"])
+@pytest.mark.parametrize("tables", [False, True])
+@pytest.mark.parametrize("with_vignette", [False, True])
+def test_photometric_intake_matches_plain_chain(size, raw_dtype, tables, with_vignette):
+    """K18 as the camera's intake (the upload from a pinned buffer, the remap
+    through SimpleRadial tables or none, the crop to a multiple of 16) equal
+    to the bit to the plain chain on the CPU (``intake_plain``: the remap,
+    the crop and the correction), one launch a call with no host read; and
+    K18 on a crop's view of a frame on the card equal to the plain
+    correction of that crop."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from dsopp_tpu_torch.sensors import photometric as ph
+    from dsopp_tpu_torch.testing import paths
+
+    h, w = size
+    ch, cw = h // 16 * 16, w // 16 * 16
+    gen = torch.Generator(device="cuda").manual_seed(h + w + 3)
+    lut = torch.as_tensor(paths.inverse_response(), device="cuda")
+    if raw_dtype == "u8":
+        raw = torch.randint(0, 256, (h, w), generator=gen, device="cuda", dtype=torch.uint8)
+    else:
+        raw = torch.rand((h, w), generator=gen, device="cuda") * 275.0 - 10.0
+    vig = torch.as_tensor(paths.sensor_vignette(ch, cw), device="cuda") if with_vignette else None
+    maps = _distorted_remaps(h, w).maps32() if tables else None
+    pinned, copied = _pinned(raw)
+    before = kernels.PHOTOMETRIC.launches
+    out = _no_host_reads(ph.intake_cuda, pinned, copied, lut, vig, maps, (ch, cw))
+    assert kernels.PHOTOMETRIC.launches == before + 1
+    assert out.dtype == torch.float32 and tuple(out.shape) == (ch, cw)
+    plain = ph.intake_plain(pinned, lut.cpu(), None if vig is None else vig.cpu(),
+                            None if maps is None else tuple(m.cpu() for m in maps), (ch, cw))
+    assert torch.equal(out.cpu(), plain)
+    view = _no_host_reads(ph.correct_image_cuda, raw[:ch, :cw], lut, vig)
+    assert torch.equal(view.cpu(), ph.correct_image_plain(raw.cpu()[:ch, :cw], lut.cpu(),
+                                                          None if vig is None else vig.cpu()))
+    if not tables:
+        assert torch.equal(out, view)
+    with pytest.raises(ValueError, match="pinned"):
+        ph.intake_cuda(raw, copied, lut, vig, maps, (ch, cw))
+    with pytest.raises(ValueError, match="copied"):
+        ph.intake_cuda(pinned, None, lut, vig, maps, (ch, cw))
+
+
+def _camera_folder(folder, h, w, frames, model="pinhole"):
+    """A camera's files: ``frames`` raw u8 frames with class-id images, times,
+    G⁻¹ and a calibration; → the camera's config section."""
+    from dsopp_tpu_torch.testing import paths
+
+    rng = np.random.default_rng(h + frames)
+    (folder / "images").mkdir()
+    (folder / "semantics").mkdir()
+    for i in range(frames):
+        np.save(folder / "images" / f"{i}.npy", rng.integers(0, 256, (h, w)).astype(np.uint8))
+        np.save(folder / "semantics" / f"{i}.npy", paths.semantic_classes(h, w))
+    (folder / "times.txt").write_text("".join(f"{i} {0.1 * i} 1.0\n" for i in range(frames)))
+    (folder / "pcalib.txt").write_text(" ".join(repr(float(v)) for v in paths.inverse_response()))
+    intr = {"pinhole": "150 150 79.5 59.5", "simple_radial": "150 79.5 59.5 -0.12 0.02"}[model]
+    (folder / "calib.txt").write_text(f"{model}\n{w} {h}\n{intr}\n")
+    return {"provider": {"type": "npy_folder", "folder": "images", "timestamps": "times.txt"},
+            "model": {"calibration": "calib.txt", "photometric_calibration": "pcalib.txt"},
+            "semantics": {"folder": "semantics", "filter": [paths.SEMANTIC_FILTERED]}}
+
+
+@pytest.mark.parametrize("model", ["pinhole", "simple_radial"])
+def test_next_frame_makes_no_host_sync(tmp_path, model):
+    """``Camera.next_frame`` on the card with every host synchronisation an
+    error (the first frame too: G⁻¹ and the vignette go up from pinned
+    memory), one K18 launch a frame, each frame equal to the plain chain of
+    its raw file (a 136 x 100 frame cropped to 128 x 96); the class-id
+    image's upload for the candidate mask (``MonocularTracker.semantic_mask``)
+    with no host sync either, equal to the plain filter."""
+    from dsopp_tpu_torch.sensors import photometric as ph
+    from dsopp_tpu_torch.sensors.camera import Camera
+    from dsopp_tpu_torch.sensors.masks import filter_semantic_objects
+    from dsopp_tpu_torch.testing import paths
+    from dsopp_tpu_torch.tracker.monocular import MonocularTracker, TrackerConfig
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    h, w, frames = 100, 136, 4
+    params = _camera_folder(tmp_path, h, w, frames, model)
+    camera = Camera.from_config("camera_1", params, base_dir=str(tmp_path), device="cuda")
+    camera.settings.vignetting = paths.sensor_vignette(96, 128)
+    tracker = MonocularTracker(camera.camera_model(), TrackerConfig(), device="cuda")
+    tracker.semantic_filter = (paths.SEMANTIC_FILTERED,)
+    und = camera.settings.undistorter
+    maps = None if und is None else tuple(m.cpu() for m in und.maps32())
+    assert (maps is None) == (model == "pinhole")
+    lut = torch.as_tensor(paths.inverse_response())
+    vig = torch.as_tensor(paths.sensor_vignette(96, 128))
+    for i in range(frames):
+        before = kernels.PHOTOMETRIC.launches
+        frame = _no_host_reads(camera.next_frame)
+        assert kernels.PHOTOMETRIC.launches == before + 1
+        assert frame.frame_id == i and frame.image.is_cuda
+        raw = np.load(tmp_path / "images" / f"{i}.npy")
+        assert torch.equal(frame.image.cpu(), ph.intake_plain(raw, lut, vig, maps, (96, 128)))
+        mask = _no_host_reads(tracker.semantic_mask, frame.semantics)
+        expected = filter_semantic_objects(torch.ones((96, 128), dtype=torch.bool),
+                                           torch.as_tensor(frame.semantics), (7,))
+        assert torch.equal(mask.cpu(), expected)
+    assert camera.next_frame() is None
+    assert camera.ring_waits == 0
+
+
+def test_intake_ring_under_load(tmp_path):
+    """The pinned ring while the card is busy: a long kernel queued first,
+    then 4 frames pushed through ``next_frame`` (3 buffers): the fourth
+    waits, by polling its buffer's event, for the first frame's copy, and
+    every frame comes out equal to the plain chain of its file."""
+    from dsopp_tpu_torch.sensors import photometric as ph
+    from dsopp_tpu_torch.sensors.camera import Camera
+    from dsopp_tpu_torch.testing import paths
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    h, w, frames = 96, 128, 4
+    params = _camera_folder(tmp_path, h, w, frames)
+    camera = Camera.from_config("camera_1", params, base_dir=str(tmp_path), device="cuda")
+    camera.next_frame()                  # the constants go up before the load
+    camera.provider.pos = 0
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(3e8))          # ~0.15 s of one block spinning
+    outs = [camera.next_frame().image for _ in range(frames)]
+    assert camera.ring_waits == 1
+    lut = torch.as_tensor(paths.inverse_response())
+    for i, out in enumerate(outs):
+        raw = np.load(tmp_path / "images" / f"{i}.npy")
+        assert torch.equal(out.cpu(), ph.intake_plain(raw, lut, None, None, (h, w)))
 
 
 # ---------------------------------------------------------------------------

@@ -9,7 +9,11 @@ timestamps, exposures and pixels; the camera's frames within 2 ulp of JAX's
 ``Camera.next_frame``; ``build_remaps`` in f64 within 1e-6 px of the JAX
 models' projection of the same rays, and equal to JAX's f32 tables once
 rounded to f32; the remap within the frame's largest gradient × 1/64 px +
-1e-4 of ``cv2.remap``, which quantises its weights to 1/32 px; masks exact.
+1e-4 of ``cv2.remap``, which quantises its weights to 1/32 px, also for a
+SimpleRadial and a TumFov camera's frames through ``Camera.next_frame``
+(identity G⁻¹, no vignette); masks exact.  The camera's intake (K18's plain
+version: remap, crop and correction) equal to the bit to the chain it
+replaced.
 """
 
 import sys
@@ -31,7 +35,7 @@ from dsopp_tpu_torch import convert
 from dsopp_tpu_torch.sensors import calibration, masks, providers, undistorter
 from dsopp_tpu_torch.sensors.camera import Camera, CameraSettings, crop_size_power_of_2
 from dsopp_tpu_torch.sensors.photometric import (correct_image, correct_image_cuda,
-                                                 correct_image_plain)
+                                                 correct_image_plain, intake_plain)
 
 import tests._torch_port  # noqa: F401  (one torch thread per worker)
 
@@ -234,6 +238,137 @@ def test_npy_camera_matches_for_each_stored_dtype(dataset, stored, resize):
         assert a.image.dtype == torch.float32
         assert tuple(a.image.shape) == np.asarray(b.image).shape
         _ulp_close(a.image.numpy(), np.asarray(b.image))
+    assert cam.next_frame() is None
+
+
+def _replaced_chain(image, maps, resize, lut, vignette):
+    """The camera's chain before K18 took it in: upload, remap, resize on the
+    host, crop with a copy, correction."""
+    img = torch.as_tensor(image)
+    if maps is not None:
+        img = undistorter.remap_bilinear(img.to(torch.float32), *maps)
+    if resize != 1.0:
+        host = img.numpy() if maps is not None else image.astype(np.float32)
+        img = torch.as_tensor(cv2.resize(host, None, fx=resize, fy=resize,
+                                         interpolation=cv2.INTER_AREA))
+    cw, ch = crop_size_power_of_2(img.shape[1], img.shape[0], 4)
+    img = img[:ch, :cw].contiguous()
+    if vignette.shape != img.shape:
+        vignette = cv2.resize(vignette, (cw, ch), interpolation=cv2.INTER_AREA)
+    return correct_image_plain(img, lut, torch.as_tensor(vignette))
+
+
+@pytest.mark.parametrize("model", ["pinhole", "simple_radial"])
+@pytest.mark.parametrize("width", [64, 68])
+@pytest.mark.parametrize("resize", [1.0, 0.5])
+def test_camera_intake_equals_the_replaced_chain(dataset, model, width, resize):
+    """``Camera.next_frame`` on the CPU (the intake's plain version) equals to
+    the bit the chain it replaced, without and with undistortion tables, for
+    a crop that keeps the size (64 columns) and one that changes it (68), at
+    resize 1 and 0.5."""
+    rng = np.random.default_rng(17)
+    folder = dataset / f"intake_{model}_{width}"
+    folder.mkdir()
+    frames = [rng.integers(0, 256, (H, width)).astype(np.uint8) for _ in range(3)]
+    for i, frame in enumerate(frames):
+        np.save(folder / f"{i}.npy", frame)
+    intr = {"pinhole": "40 41 33.5 23.5", "simple_radial": "40 33.5 23.5 -0.15 0.01"}[model]
+    (folder / "calib.txt").write_text(f"{model}\n{width} {H}\n{intr}\n")
+    vignette = rng.uniform(0.5, 1.0, (H, width)).astype(np.float32)
+    params = {"provider": {"type": "npy_folder", "folder": folder.name,
+                           "timestamps": "times.txt"},
+              "model": {"calibration": f"{folder.name}/calib.txt",
+                        "photometric_calibration": "pcalib.txt"}}
+    if resize != 1.0:
+        params["transformations"] = {"resize_transformer": {"resize_ratio": resize}}
+    cam = Camera.from_config("camera_1", params, base_dir=str(dataset), device="cpu")
+    cam.settings.vignetting = vignette
+    und = cam.settings.undistorter
+    maps = None if und is None else und.maps32()
+    assert (maps is None) == (model == "pinhole")
+    lut = torch.as_tensor(calibration.load_photometric_calibration(str(dataset / "pcalib.txt")))
+    for frame in frames:
+        out = cam.next_frame().image
+        expected = _replaced_chain(frame, maps, resize, lut, vignette)
+        assert out.dtype == torch.float32 and out.shape == expected.shape
+        assert torch.equal(out, expected)
+    assert cam.next_frame() is None
+    if resize == 1.0:       # the intake's own arguments: the crop is a view, not a copy
+        h, w = expected.shape
+        vig = torch.as_tensor(vignette[:h, :w].copy())
+        np.testing.assert_array_equal(
+            intake_plain(frames[0], lut, vig, maps, (h, w)).numpy(),
+            _replaced_chain(frames[0], maps, 1.0, lut, vig.numpy()).numpy())
+
+
+def test_pinned_ring_waits_for_its_buffers(monkeypatch):
+    """The ring's bookkeeping on the CPU (pinned memory and events faked): a
+    buffer is written again only once its event reports the copy done, each
+    time it was not counts one wait, and a new shape makes new buffers."""
+    from dsopp_tpu_torch.sensors import pinned
+
+    class Event:
+        def __init__(self):
+            self.polls = 0
+
+        def record(self):
+            self.polls = 2          # done at the second poll after the copy is queued
+
+        def query(self):
+            self.polls -= 1
+            return self.polls <= 0
+
+    empty = torch.empty
+    monkeypatch.setattr(torch, "empty", lambda *a, pin_memory=False, **k: empty(*a, **k))
+    monkeypatch.setattr(torch.cuda, "Event", Event)
+    ring = pinned.PinnedRing(slots=3)
+    staged = []
+    for i in range(5):
+        buf, copied = ring.stage(np.full((4, 6), i, np.uint8))
+        assert buf.dtype == torch.uint8 and bool((buf == i).all())
+        copied.record()                          # the copy is queued
+        staged.append((buf.data_ptr(), copied))
+    assert staged[3] == staged[0] and staged[4] == staged[1] and len(set(staged[:3])) == 3
+    assert ring.waits == 2                       # the 4th and 5th frames found copies in flight
+    wide, _ = ring.stage(np.ones((2, 3), np.float32))
+    assert wide.dtype == torch.float32 and wide.shape == (2, 3)
+
+
+DISTORTED_CALIBS = {"simple_radial": "80 64 48 -0.15 0.01",
+                    "tum_fov": "0.52 0.72 0.47 0.48 0.9"}
+
+
+@pytest.mark.parametrize("tag", sorted(DISTORTED_CALIBS))
+def test_distorted_camera_matches_jax(dataset, tag):
+    """A SimpleRadial and a TumFov camera (136 x 100, cropped to 128 x 96)
+    through ``Camera.next_frame`` against the JAX package's camera (tables
+    built through its models, ``cv2.remap``): identity G⁻¹ and no vignette,
+    smooth f32 frames, within the remap's tolerance (the frame's largest
+    gradient / 64 + 1e-4)."""
+    rng = np.random.default_rng(23)
+    h, w = 100, 136
+    folder = dataset / f"distorted_{tag}"
+    folder.mkdir()
+    frames = [cv2.GaussianBlur(rng.uniform(0, 255, (h, w)).astype(np.float32), (5, 5), 1.5)
+              for _ in range(3)]
+    for i, frame in enumerate(frames):
+        np.save(folder / f"{i}.npy", frame)
+    (folder / "calib.txt").write_text(f"{tag}\n{w} {h}\n{DISTORTED_CALIBS[tag]}\n")
+    params = {"provider": {"type": "npy_folder", "folder": folder.name,
+                           "timestamps": "times.txt"},
+              "model": {"calibration": f"{folder.name}/calib.txt"}}
+    cam = Camera.from_config("camera_1", params, base_dir=str(dataset), device="cpu")
+    jc = jcam.Camera.from_config("camera_1", params, base_dir=str(dataset))
+    assert cam.settings.undistorter is not None and not cam.settings.undistorter.identity
+    model, jmodel = cam.camera_model(), jc.camera_model(0, jnp.float64)
+    assert (model.width, model.height) == tuple(np.asarray(jmodel.image_size)) == (128.0, 96.0)
+    for frame in frames:
+        a, b = cam.next_frame(), jc.next_frame()
+        assert a.image.dtype == torch.float32
+        assert tuple(a.image.shape) == np.asarray(b.image).shape == (96, 128)
+        grad = max(np.abs(np.diff(frame, axis=0)).max(), np.abs(np.diff(frame, axis=1)).max())
+        np.testing.assert_allclose(a.image.numpy(), np.asarray(b.image), atol=grad / 64 + 1e-4,
+                                   rtol=0)
     assert cam.next_frame() is None
 
 
