@@ -145,6 +145,24 @@ Phases, one line each with its time:
    1e-4 of the CPU's remap; K18's intake through those tables equal to the
    bit to the chain it replaced (the remap's torch ops, then K18 on the
    remapped frame) and to the plain chain on the CPU, with both times;
+11b. app — the application's entry point, ``dsopp_tpu_torch.app.main.main``,
+   called in-process on the corridor of phase 3 written into a temporary
+   folder as an application's input (``testing/paths.py::write_app_folder``:
+   u8 ``.npy`` frames, ``times.txt``, a pinhole ``calib.txt`` and a JSON
+   ``mono.json`` at the standart point, 2000 points, window 5..8, factor
+   1.25, with no poses file: the feature-based bootstrap runs, with
+   ``fbs/klt.py``'s corners and LK on the card), with no ``--device``, so on
+   the card: ``main`` returns 0, track.npz and est.tum are written and
+   ``track2trajectory`` gives est.tum's rows; the bootstrap finishes within
+   ±2 frames of the frame the JAX package's app finishes on with the same
+   files (4), its poses' similarity-aligned ATE < 0.02 m; ≥ 3 keyframes and
+   ≥ 1 marginalization; the trajectory's similarity-aligned ATE RMSE below
+   max(1.5 × JAX's, JAX's + 0.01 m), JAX's being 0.005592584 m (the JAX app
+   on the CPU in f32, ``python -m tests.torch_app_reference``); every kernel
+   of the path launched, K18 once a camera frame; the tracked phase's host
+   syncs only at lines where the standart path syncs, a frame's count
+   printed beside the standart path's; the bootstrap's ms a frame (corners,
+   LK, the host geometry) and the tracked frames/s;
 12. e2e, e2e-exposure — ``tests/tracker/test_monocular_e2e.py``'s two runs
    (240×320, 40 frames, 8-frame bootstrap) in f32 with that test's gates;
    each tick of the exposure run is also replayed from the card's state
@@ -319,6 +337,16 @@ E2E_EXPOSURE_RMSE_GATE = 3.0e-2
 E2E_REPLAY_POSE_TOL = 1e-3
 # [undistort]: the card's f64 remap tables against the CPU's, px; the remap, intensity
 REMAP_TABLE_TOL, REMAP_TOL = 1e-9, 1e-4
+# [app]: the JAX package's app on the phase's files, on the CPU in f32
+# (``python -m tests.torch_app_reference``, which writes the same files from
+# the port's f32 render of the corridor): the feature-based bootstrap
+# finishes on frame 4 and the trajectory's similarity-aligned ATE RMSE is
+# 0.005592584 m.  The port's run must finish within APP_FBS_FRAMES of that
+# frame, its bootstrap's poses under the JAX FBS test's 0.02 m, and its
+# trajectory under max(1.5 x JAX's RMSE, JAX's + 0.01 m)
+APP_JAX_FBS_FRAME, APP_JAX_RMSE = 4, 0.005592584
+APP_FBS_FRAMES, APP_FBS_GATE = 2, 0.02
+APP_RMSE_GATE = max(1.5 * APP_JAX_RMSE, APP_JAX_RMSE + 0.01)
 
 
 class SmokeError(RuntimeError):
@@ -462,16 +490,12 @@ def log_bound(name, label, b):
 
 def sim3_aligned_errors(est, gt):
     """Per-frame errors after the least-squares similarity alignment of
-    ``est`` onto ``gt`` (Horn/Umeyama, as dsopp_tpu/output/ate.py) and the
-    alignment's scale."""
-    mu_e, mu_g = est.mean(0), gt.mean(0)
-    u, d, vt = np.linalg.svd((est - mu_e).T @ (gt - mu_g))
-    s_mat = np.eye(3)
-    if np.linalg.det(u) * np.linalg.det(vt) < 0:
-        s_mat[2, 2] = -1
-    rot = vt.T @ s_mat @ u.T
-    scale = np.trace(np.diag(d) @ s_mat) / ((est - mu_e) ** 2).sum()
-    aligned = (scale * (rot @ (est - mu_e).T)).T + mu_g
+    ``est`` onto ``gt`` (the port's ``output/ate.py``) and the alignment's
+    scale."""
+    from dsopp_tpu_torch.output.ate import align_trajectories
+
+    rot, trans, scale = align_trajectories(est, gt, with_scale=True)
+    aligned = (scale * (rot @ est.T)).T + trans
     return np.linalg.norm(aligned - gt, axis=-1), float(scale)
 
 
@@ -2307,6 +2331,195 @@ def undistort(seq, torch, card):
         f" {chain_kernels:.1f} kernels) | {card}")
 
 
+def app(seq, torch, kernels, card, standart):
+    """``python -m dsopp_tpu_torch.app.main`` in-process on the corridor written
+    as an application's input (``.npy`` frames, ``times.txt``, a pinhole
+    ``calib.txt``, a JSON ``mono.json`` at the standart point with no poses
+    file, so the feature-based bootstrap runs), on the card, with the
+    launch counts set to 0 just before and read just after; the host syncs a
+    frame of its tracked phase beside the standart path's (``standart``)."""
+    import contextlib
+    import io
+    import tempfile
+
+    from dsopp_tpu_torch.app import main as app_main
+    from dsopp_tpu_torch.app import track2trajectory
+    from dsopp_tpu_torch.config import loader
+    from dsopp_tpu_torch.fbs import initializer as fbs_init
+    from dsopp_tpu_torch.fbs import klt
+    from dsopp_tpu_torch.fbs.initializer import MonocularInitializer
+    from dsopp_tpu_torch.output.ate import absolute_trajectory_error
+    from dsopp_tpu_torch.output.tum import load_tum
+    from dsopp_tpu_torch.testing import paths
+    from dsopp_tpu_torch.tracker.device_loop import PipelinedTracker
+
+    def timed(fn, sink):
+        def run(*args, **kwargs):
+            t = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            sink.append(time.perf_counter() - t)
+            return out
+        return run
+
+    built, fbs_s, corners_s, lk_s, refine_s, refine_calls, done_at = [], [], [], [], [], [], []
+    marks = {}
+    originals = (loader.build_application, MonocularInitializer.process, klt.good_features,
+                 klt.pyr_lk, fbs_init.so3xs2_refine, PipelinedTracker.tick,
+                 PipelinedTracker.finalize)
+    build, process, good_features, pyr_lk, so3xs2_refine, tick, finalize = originals
+
+    def process_frame(self, frame_id, timestamp, image):
+        t = time.perf_counter()
+        done = process(self, frame_id, timestamp, image)
+        torch.cuda.synchronize()
+        fbs_s.append(time.perf_counter() - t)
+        if done:
+            done_at.append(frame_id)
+        return done
+
+    with tempfile.TemporaryDirectory(prefix="dsopp_app_") as folder, \
+            warnings.catch_warnings(record=True) as syncs:
+        t0 = time.perf_counter()
+        path = paths.write_app_folder(seq, folder, paths.app_config())
+        log(f"[app] {seq.images.shape[0]} u8 .npy frames, times.txt, a pinhole calib.txt and"
+            f" {os.path.basename(path)} {json.dumps(paths.app_config()['tracker'])} written"
+            f" ({time.perf_counter() - t0:.2f} s)")
+
+        def tracked_tick(self, *args, **kwargs):
+            marks.setdefault("first", (len(syncs), time.perf_counter()))
+            return tick(self, *args, **kwargs)
+
+        def tracked_finalize(self):
+            # the tracked phase ends with the last frames' bookkeeping, as
+            # the standart path's count does; writing the state back into
+            # the tracker after it reads three scalars
+            self.drain()
+            torch.cuda.synchronize()
+            marks["end"] = (len(syncs), time.perf_counter())
+            return finalize(self)
+
+        loader.build_application = lambda *a, **k: built.append(build(*a, **k)) or built[-1]
+        MonocularInitializer.process = process_frame
+        klt.good_features = timed(good_features, corners_s)
+        klt.pyr_lk = timed(pyr_lk, lk_s)
+        fbs_init.so3xs2_refine = timed(
+            lambda *a, **k: refine_calls.append((a, k)) or so3xs2_refine(*a, **k), refine_s)
+        PipelinedTracker.tick, PipelinedTracker.finalize = tracked_tick, tracked_finalize
+        out = io.StringIO()
+        warnings.simplefilter("always")
+        torch.cuda.synchronize()
+        kernels.reset_counts()
+        torch.cuda.set_sync_debug_mode("warn")
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(out):
+                rc = app_main.main(["--config_file_path", path,
+                                    "--output_file_path", os.path.join(folder, "track.npz"),
+                                    "--trajectory_file_path", os.path.join(folder, "est.tum")])
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+            (loader.build_application, MonocularInitializer.process, klt.good_features,
+             klt.pyr_lk, fbs_init.so3xs2_refine, PipelinedTracker.tick,
+             PipelinedTracker.finalize) = originals
+        counts = kernels.counts()
+        tail = out.getvalue().strip().splitlines()
+        require(rc == 0, f"[app] main returned {rc}: {tail[-3:]}")
+        for name in ("track.npz", "est.tum"):
+            require(os.path.exists(os.path.join(folder, name)), f"[app] no {name}")
+        with contextlib.redirect_stdout(io.StringIO()):
+            require(track2trajectory.main([os.path.join(folder, "track.npz"),
+                                           os.path.join(folder, "t2t.tum")]) == 0,
+                    "[app] track2trajectory failed")
+        with open(os.path.join(folder, "est.tum")) as f, \
+                open(os.path.join(folder, "t2t.tum")) as g:
+            rows, rows_t2t = f.read().splitlines(), g.read().splitlines()
+        est = load_tum(os.path.join(folder, "est.tum"))
+    application = built[0]
+    tracker = application.tracker
+    gt = [(float(seq.timestamps[i]), seq.pose(i).matrix().double().cpu().numpy())
+          for i in range(seq.images.shape[0])]
+    fbs = [(ts, mat) for _, ts, mat in application.fbs_initializer.poses]
+    fbs_ate = absolute_trajectory_error(fbs, gt, align=True, with_scale=True)
+    ate = absolute_trajectory_error(est, gt, align=True, with_scale=True)
+    first_sync, first_t = marks["first"]
+    end_sync, end_t = marks["end"]
+    tracked = seq.images.shape[0] - (done_at[0] + 1) if done_at else 0
+    require(tracked > 0, f"[app] the bootstrap finished on frames {done_at}")
+    sites = collections.Counter(
+        f"{os.path.relpath(w.filename, os.path.dirname(os.path.abspath(__file__)))}:{w.lineno}"
+        for w in syncs[first_sync:end_sync] if "synchroniz" in str(w.message))
+    st = dict(counts=counts, frames=tracked, seconds=seconds, fps=tracked / (end_t - first_t),
+              fbs_frames=len(fbs_s), fbs_ms=1e3 * float(np.mean(fbs_s)),
+              corners_ms=1e3 * float(np.mean(corners_s)), lk_ms=1e3 * float(np.mean(lk_s)),
+              fbs_done=done_at, fbs_ate=fbs_ate["rmse"], ate_rmse=ate["rmse"],
+              ate_max=ate["max"], keyframes=tracker.num_keyframes,
+              marginalized=len(tracker.track.marginalized),
+              host_syncs_per_frame=sum(sites.values()) / tracked, host_sync_sites=dict(sites))
+    # corners, LK and the SO3xS2 refinement are timed inside process; the
+    # host geometry is the rest
+    st["refine_ms"] = 1e3 * sum(refine_s)
+    geometry_ms = st["fbs_ms"] - (1e3 * sum(corners_s) + 1e3 * sum(lk_s)
+                                  + st["refine_ms"]) / len(fbs_s)
+    st["geometry_ms"] = geometry_ms
+    # the SO3xS2 refinement once more on its inputs, the card's solver now
+    # warm, its host syncs counted by line (the results' reads at its end
+    # among them)
+    with warnings.catch_warnings(record=True) as refine_syncs:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        t = time.perf_counter()
+        try:
+            so3xs2_refine(*refine_calls[-1][0], **refine_calls[-1][1])
+            torch.cuda.synchronize()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        st["refine_warm_ms"] = 1e3 * (time.perf_counter() - t)
+    st["refine_sync_sites"] = dict(collections.Counter(
+        f"{os.path.relpath(w.filename, os.path.dirname(os.path.abspath(__file__)))}:{w.lineno}"
+        for w in refine_syncs if "synchroniz" in str(w.message)))
+    log(f"[app] main returned {rc}: {tail[-1] if tail else ''}; track.npz and est.tum written,"
+        f" track2trajectory's {len(rows_t2t)} rows equal to est.tum's: {rows == rows_t2t}")
+    log(f"[app] FBS: {st['fbs_frames']} bootstrap frames, done on frame {done_at} (the JAX"
+        f" app's {APP_JAX_FBS_FRAME} +- {APP_FBS_FRAMES}), {1e3 * sum(fbs_s):.2f} ms in all,"
+        f" {st['fbs_ms']:.3f} ms a bootstrap frame (by frame"
+        f" {[round(1e3 * x, 1) for x in fbs_s]}): corners {st['corners_ms']:.3f} ms a call"
+        f" ({len(corners_s)} calls), LK {st['lk_ms']:.3f} ms a call ({len(lk_s)} calls), the"
+        f" SO3xS2 refinement on the card {st['refine_ms']:.3f} ms ({len(refine_s)} calls; once"
+        f" more, warm, {st['refine_warm_ms']:.3f} ms with"
+        f" {sum(st['refine_sync_sites'].values())} host syncs, by line"
+        f" {st['refine_sync_sites']}), the host geometry and the rest"
+        f" {geometry_ms:.3f} ms a frame; the bootstrap's similarity-aligned ATE"
+        f" {st['fbs_ate']:.6f} m (gate {APP_FBS_GATE}) | {card}")
+    log(f"[app] tracked: {tracked} frames at {st['fps']:.3f} frames/s (main in all"
+        f" {seconds:.2f} s), {st['keyframes']} keyframes, {st['marginalized']} marginalized,"
+        f" the trajectory's {len(est)} entries similarity-aligned ATE RMSE"
+        f" {st['ate_rmse']:.6f} m max {st['ate_max']:.6f} m (gate {APP_RMSE_GATE:.6f}: the JAX"
+        f" app's {APP_JAX_RMSE}); {st['host_syncs_per_frame']:.3f} host syncs a tracked frame"
+        f" (the standart path's {standart['host_syncs_per_frame']:.3f}), by line"
+        f" {st['host_sync_sites']}; launches {counts} | {card}")
+    require(rows == rows_t2t and len(rows) == seq.images.shape[0],
+            f"[app] est.tum ({len(rows)} rows) and track2trajectory's ({len(rows_t2t)}) differ")
+    require(len(done_at) == 1 and abs(done_at[0] - APP_JAX_FBS_FRAME) <= APP_FBS_FRAMES,
+            f"[app] the bootstrap finished on frames {done_at}")
+    require(st["fbs_ate"] < APP_FBS_GATE, f"[app] bootstrap ATE {st['fbs_ate']:.6f} m")
+    require(st["keyframes"] >= 3 and st["marginalized"] >= 1,
+            f"[app] {st['keyframes']} keyframes, {st['marginalized']} marginalized")
+    require(st["ate_rmse"] < APP_RMSE_GATE,
+            f"[app] ATE RMSE {st['ate_rmse']:.6f} m >= {APP_RMSE_GATE:.6f}")
+    missing = [name for name in PATH_KERNELS + ("photometric_correct",) if counts[name] == 0]
+    require(not missing, f"[app] kernels of the path never launched: {missing}")
+    require(counts["photometric_correct"] == seq.images.shape[0],
+            f"[app] K18 launched {counts['photometric_correct']} times for"
+            f" {seq.images.shape[0]} camera frames")
+    new_sites = sorted(set(sites) - set(standart["host_sync_sites"]))
+    require(not new_sites, f"[app] host syncs in the tracked phase at lines the standart path"
+                           f" does not sync at: {new_sites}")
+    return st
+
+
 def parent_bits(card):
     """Each case of ``testing/bits.py``, digest by digest, against the tree
     before its redesign; pose ties (``k4`` only: equal to the parent's chain
@@ -2526,6 +2739,9 @@ def main():
         require(ss["ate_max"] < MAX_GATE, f"sensor ATE max {ss['ate_max']:.5f} m >= {MAX_GATE}")
         require(abs(ss["scale"] - 1.0) < SCALE_GATE, f"sensor alignment scale {ss['scale']:.4f}")
         undistort(seq, torch, card)
+        t0 = time.perf_counter()
+        sa = app(seq, torch, kernels, card, st)
+        log(f"[app] phase {time.perf_counter() - t0:.2f} s")
         e2e(torch, card, exposure=False)
         e2e(torch, card, exposure=True)
         parent_bits(card)
@@ -2535,7 +2751,7 @@ def main():
 
     # a kernel folded into another (COMPUTED_IN) has no launch of its own
     runs = dict(track=st, track_embedder=se, track_fast=sf, track_dense=sd, track_masked=sm,
-                track_ledger=sl, track_sensor=ss)
+                track_ledger=sl, track_sensor=ss, app=sa)
     result = {"kernels": [
         dict(name=name, route="cuda", source=SOURCES[name][0], replaces=SOURCES[name][1],
              launches=sum(run["counts"].get(name, 0) for run in runs.values()),

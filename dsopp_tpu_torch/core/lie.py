@@ -71,6 +71,25 @@ def quat_to_matrix(q):
     return m.reshape(m.shape[:-1] + (3, 3))
 
 
+def matrix_to_quat(m):
+    """Rotation matrix [..., 3, 3] → quaternion [..., 4] (Shepperd): of the
+    four candidates the best-conditioned one, normalized."""
+    m00, m01, m02 = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
+    m10, m11, m12 = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
+    m20, m21, m22 = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]
+    tr = m00 + m11 + m22
+    qw = torch.stack([1.0 + tr, m21 - m12, m02 - m20, m10 - m01], dim=-1)
+    qx = torch.stack([m21 - m12, 1.0 + m00 - m11 - m22, m01 + m10, m02 + m20], dim=-1)
+    qy = torch.stack([m02 - m20, m01 + m10, 1.0 - m00 + m11 - m22, m12 + m21], dim=-1)
+    qz = torch.stack([m10 - m01, m02 + m20, m12 + m21, 1.0 - m00 - m11 + m22], dim=-1)
+    cands = torch.stack([qw, qx, qy, qz], dim=-2)
+    scores = torch.stack([1.0 + tr, 1.0 + m00 - m11 - m22, 1.0 - m00 + m11 - m22,
+                          1.0 - m00 - m11 + m22], dim=-1)
+    best = torch.argmax(scores, dim=-1)
+    q = torch.take_along_dim(cands, best[..., None, None].expand(best.shape + (1, 4)), dim=-2)
+    return quat_normalize(q[..., 0, :])
+
+
 def so3_exp_quat(omega):
     """so3 tangent [..., 3] → unit quaternion."""
     theta_sq = torch.sum(omega * omega, dim=-1, keepdim=True)
@@ -140,6 +159,11 @@ class SE3(NamedTuple):
         q = torch.zeros(tuple(batch) + (4,), dtype=dtype, device=device)
         q[..., 0] = 1.0
         return SE3(q, torch.zeros(tuple(batch) + (3,), dtype=dtype, device=device))
+
+    @staticmethod
+    def from_matrix(m) -> "SE3":
+        """4x4 (or [..., 3, 4]) T → SE3."""
+        return SE3(matrix_to_quat(m[..., :3, :3]), m[..., :3, 3].contiguous())
 
     @staticmethod
     def exp(xi) -> "SE3":

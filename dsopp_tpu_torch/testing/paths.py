@@ -232,6 +232,55 @@ def write_sensor_folder(seq, folder: str) -> dict:
             "semantics": {"folder": "semantics", "filter": [SEMANTIC_FILTERED]}}, clipped
 
 
+def app_config(frames_folder: str = "images", desired_points: int = 2000,
+               window=(5, 8), factor: float = 1.25) -> dict:
+    """The config tree of ``write_app_folder``'s files: one camera reading
+    the ``.npy`` frames, no poses file (the feature-based bootstrap runs),
+    the tracker at standart.yaml's point (2000 points, window 5..8, factor
+    1.25) unless asked otherwise."""
+    return {
+        "sensors": [{"id": "camera_1", "type": "camera",
+                     "provider": {"type": "npy_folder", "folder": frames_folder,
+                                  "timestamps": "times.txt"},
+                     "model": {"calibration": "calib.txt"}}],
+        "time": {"type": "no_synchronization"},
+        "tracker": {"type": "monocular", "sensor_id": "camera_1",
+                    "number_of_desired_points": desired_points,
+                    "keyframe_strategy": {"strategy": "mean_square_optical_flow",
+                                          "factor": factor},
+                    "marginalization_strategy": {"strategy": "sparse",
+                                                 "minimum_size": window[0],
+                                                 "maximum_size": window[1]}},
+    }
+
+
+def write_app_folder(seq, folder: str, config: dict, frames: int = None) -> str:
+    """Write the first ``frames`` frames of ``seq`` (all by default) into
+    ``folder`` as an application's input: ``images/<i>.npy`` u8 frames
+    (the rendered intensities rounded and clipped to 0..255), ``times.txt``
+    (id timestamp), a pinhole ``calib.txt`` and ``config`` as the JSON file
+    ``mono.json``; numpy, torch and json only → the config file's path."""
+    import json
+
+    frames = seq.images.shape[0] if frames is None else frames
+    h, w = seq.images.shape[1:]
+    os.makedirs(os.path.join(folder, "images"), exist_ok=True)
+    lines = []
+    for i in range(frames):
+        raw = torch.round(torch.clamp(seq.images[i], 0.0, 255.0)).to(torch.uint8)
+        np.save(os.path.join(folder, "images", f"{i}.npy"), raw.cpu().numpy())
+        lines.append(f"{i} {float(seq.timestamps[i])!r}\n")
+    with open(os.path.join(folder, "times.txt"), "w") as f:
+        f.writelines(lines)
+    cam = seq.camera
+    with open(os.path.join(folder, "calib.txt"), "w") as f:
+        f.write(f"pinhole\n{w} {h}\n{cam.fx!r} {cam.fy!r} {cam.cx!r} {cam.cy!r}\n")
+    path = os.path.join(folder, "mono.json")
+    with open(path, "w") as f:
+        json.dump(config, f, indent=1)
+    return path
+
+
 def sensor_camera(folder: str, params: dict, device="cuda"):
     """The camera of a folder written by :func:`write_sensor_folder`, with
     the path's vignette."""

@@ -1,6 +1,7 @@
 """Odometry-track bookkeeping (counterpart of ``dsopp_tpu/track/state.py``):
-marginalized keyframes with their final landmark snapshots, and attached
-(non-key) frames for the full-rate trajectory.  Host numpy."""
+marginalized keyframes with their final landmark snapshots, attached
+(non-key) frames for the full-rate trajectory, and the output observers the
+track's events reach.  Host numpy."""
 
 from __future__ import annotations
 
@@ -59,16 +60,23 @@ class OdometryTrack:
     marginalized: List[MarginalizedKeyframe] = field(default_factory=list)
     attached: dict = field(default_factory=dict)
     keyframe_timestamps: dict = field(default_factory=dict)
+    # output observers (output/observers.py): keyframe and marginalization
+    # events, fired from the bootstrap and from PipelinedTracker's bookkeeping
+    observers: List = field(default_factory=list)
 
     def attach_frame(self, frame: AttachedFrame):
         self.attached.setdefault(frame.keyframe_id, []).append(frame)
 
     def on_keyframe(self, frame_id: int, timestamp: float):
         self.keyframe_timestamps[frame_id] = timestamp
+        for obs in self.observers:
+            obs.on_keyframe(frame_id, timestamp)
 
     def on_marginalize(self, kf: MarginalizedKeyframe):
         kf.attached = self.attached.pop(kf.frame_id, [])
         self.marginalized.append(kf)
+        for obs in self.observers:
+            obs.on_marginalize(kf)
 
     def trajectory(self, window=None):
         """Full-rate (timestamp, T_wc 4x4) list: marginalized + active

@@ -115,6 +115,9 @@ class MonocularTracker:
         self.kf_rmse = -1.0          # keyframe-strategy rmse memory
         self.min_distance = 3.0      # activation spacing (P-controller state)
 
+    def is_initialized(self) -> bool:
+        return self.num_keyframes >= 2
+
     def loop_config(self) -> DeviceLoopConfig:
         c = self.config
         return DeviceLoopConfig(

@@ -88,6 +88,11 @@ one K18 launch a frame; the pinned ring under a long kernel (the fourth
 frame waits for its buffer, every frame right). K12-K16 and K18 run with
 host synchronisation an error.
 
+The feature-based bootstrap (``fbs/``): the corners on the card equal to the
+plain version's, ``pyr_lk`` within 1e-3 px of it with its status equal and no
+host read, the SO3×S2 refinement within 1e-9 of the CPU's with no host sync in
+its loop; the app's tracked phase syncing no more than the standart path's.
+
 At C = 2 and 3 frame-embedder channels (a tracker with the filter-bank
 embedder, and its window's first two channels): K1's channel map 1e-3 abs;
 K7, K8 (both passes, two runs equal), K10 and K11 (C = 3), K2 and K3 with
@@ -1611,3 +1616,175 @@ def test_status_and_fold_on_two_streams(tracked, marg_windows):
     assert {stream.cuda_stream for stream in streams} <= owners
     for run in runs:
         assert all(torch.equal(a, b) for a, b in zip(run, want))
+
+
+def test_good_features_on_card_equal_plain(scene):
+    """``fbs/klt.py``'s corners on the card (the response, its maxima and
+    their order there, the spacing pass on the host) equal the plain
+    version's, order included, on three corridor frames."""
+    from dsopp_tpu_torch.fbs import klt
+
+    for i in range(3):
+        img = scene.images[i]
+        card = klt.good_features(img)
+        plain = klt.good_features_plain(img.cpu().numpy())
+        assert len(plain) > 300
+        np.testing.assert_array_equal(card, plain)
+        assert torch.equal(klt.min_eigenvalues(klt.as_u8(img)).cpu(),
+                           torch.as_tensor(klt.min_eigenvalues_plain(klt.as_u8(
+                               img.cpu().numpy()))))
+
+
+def test_pyr_lk_on_card_within_plain(scene):
+    """``pyr_lk`` on the card against its plain version (the corners of frame
+    0 and 200 points over and around the image, tracked into frames 1 and
+    3): the status equal, positions within 1e-3 px; no host read inside."""
+    from dsopp_tpu_torch.fbs import klt
+
+    h, w = scene.images.shape[1:]
+    prev = scene.images[0].cpu().numpy()
+    rng = np.random.default_rng(3)
+    pts = np.concatenate([klt.good_features_plain(prev),
+                          rng.uniform([-30, -30], [w + 30, h + 30], (200, 2))]).astype(np.float32)
+    points = torch.as_tensor(pts, device="cuda")
+    for j in (1, 3):
+        u8 = [klt.as_u8(scene.images[i]) for i in (0, j)]
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out, status = klt.pyr_lk(*u8, points)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        plain, plain_status = klt.pyr_lk_plain(prev, scene.images[j].cpu().numpy(), pts)
+        assert np.array_equal(status.cpu().numpy(), plain_status)
+        assert plain_status.sum() > 300
+        err = np.abs(out.cpu().numpy() - plain)[plain_status].max()
+        assert err <= 1e-3, err
+
+
+def test_so3xs2_refine_on_card_syncs_outside_its_loop():
+    """The SO3×S2 refinement of the bootstrap on the card (f64, the two-view
+    scene of ``tests/fbs/test_initializer.py`` with noise) equals the CPU's
+    within 1e-9, and 40 iterations sync the host at the lines, and as often,
+    as 1 does: its inputs' uploads and its results' reads, none in the loop."""
+    import collections
+    import warnings
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from dsopp_tpu_torch.fbs.geometric_ba import _so3_exp
+    from dsopp_tpu_torch.fbs.geometry import so3xs2_refine
+
+    rng = np.random.default_rng(3)
+    pts = rng.uniform([-2, -2, 3], [2, 2, 8], (150, 3))
+    r_gt = _so3_exp(np.array([0.05, -0.1, 0.02]))
+    t_gt = np.array([0.5, 0.1, -0.05]) / np.linalg.norm([0.5, 0.1, -0.05])
+    cam2 = pts @ r_gt.T + t_gt
+    m1 = pts[:, :2] / pts[:, 2:3] + rng.normal(0, 5e-4, (150, 2))
+    m2 = cam2[:, :2] / cam2[:, 2:3] + rng.normal(0, 5e-4, (150, 2))
+    args = (m1 * 400.0, m2 * 400.0, _so3_exp(np.array([0.01, -0.008, 0.012])) @ r_gt,
+            t_gt + np.array([0.05, -0.04, 0.03]), 300.0, 2.0)
+
+    def sites(iterations):
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                out = so3xs2_refine(*args, optimize_focal=True, iterations=iterations,
+                                    device="cuda")
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        return out, collections.Counter(f"{w.filename}:{w.lineno}" for w in caught
+                                        if "synchroniz" in str(w.message))
+
+    sites(1)                                   # the solver's handles made
+    _, once = sites(1)
+    card, looped = sites(40)
+    assert looped == once and sum(once.values()) > 0, (looped, once)
+    cpu = so3xs2_refine(*args, optimize_focal=True, iterations=40, device="cpu")
+    for a, b in zip(card, cpu):
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-9)
+    assert abs(card[2] - 400.0) < 100.0
+
+
+def test_app_tracked_phase_adds_no_host_sync(tmp_path):
+    """A short app run on the card (240×320, 30 ``.npy`` frames, the
+    precalculated-poses route) with sync debug "warn": its tracked phase, from
+    the first ``PipelinedTracker`` tick through the last frames'
+    bookkeeping, syncs no more a frame, and at no other line, than the same
+    frames driven straight through ``PipelinedTracker`` from the same
+    bootstrap, the standart path's loop."""
+    import collections
+    import warnings
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from dsopp_tpu_torch.config import loader
+    from dsopp_tpu_torch.output.tum import export_tum
+    from dsopp_tpu_torch.sensors.camera import Camera
+    from dsopp_tpu_torch.testing import paths
+    from dsopp_tpu_torch.tracker.device_loop import PipelinedTracker
+
+    seq = render_sequence(num_frames=30, height=240, width=320, dtype=torch.float32,
+                          device="cuda")
+    config = paths.app_config(desired_points=1200, window=(3, 5), factor=3.0)
+    config["initializer"] = {"type": "precalculated", "poses_file": "gt.tum",
+                             "num_frames": paths.INIT_FRAMES}
+    path = paths.write_app_folder(seq, str(tmp_path), config)
+    export_tum(str(tmp_path / "gt.tum"),
+               [(float(seq.timestamps[i]), seq.pose(i).matrix().double().cpu().numpy())
+                for i in range(30)])
+
+    def sites(records):
+        return collections.Counter(f"{r.filename}:{r.lineno}" for r in records
+                                   if "synchroniz" in str(r.message))
+
+    # first the same frames from the same bootstrap straight through
+    # PipelinedTracker (it pays the process's one read of the re-track's
+    # perturbation table)
+    ref = loader.build_application(loader.load_config(path), str(tmp_path))
+    ref.run(max_frames=paths.INIT_FRAMES)
+    assert ref.tracker.is_initialized()
+    # run() read one frame past its last: a fresh camera from the first tracked frame
+    camera = Camera.from_config("camera_1", config["sensors"][0], str(tmp_path))
+    for _ in range(paths.INIT_FRAMES):
+        camera.next_frame()
+    pipe = PipelinedTracker(ref.tracker, flush_every=16)
+    with warnings.catch_warnings(record=True) as syncs:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            while (frame := camera.next_frame()) is not None:
+                pipe.tick(frame.frame_id, frame.timestamp, frame.image, exposure=frame.exposure)
+            pipe.drain()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        ref_sites = sites(syncs)
+    # then the app: count from the first tracked tick to the end of the run
+    app = loader.build_application(loader.load_config(path), str(tmp_path))
+    tick, mark = PipelinedTracker.tick, {}
+    with warnings.catch_warnings(record=True) as syncs:
+        warnings.simplefilter("always")
+
+        def first_tick(self, frame_id, *args, **kwargs):
+            mark.setdefault("first", (len(syncs), frame_id))
+            return tick(self, frame_id, *args, **kwargs)
+
+        PipelinedTracker.tick = first_tick
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            n = app.run()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+            PipelinedTracker.tick = tick
+        app_sites = sites(syncs[mark["first"][0]:])
+    assert n == 30 and mark["first"][1] == paths.INIT_FRAMES
+
+    # the app's count also holds finalize's three reads of the state
+    # written back into the tracker
+    finalize = {k: v for k, v in app_sites.items() if k not in ref_sites}
+    assert sum(finalize.values()) <= 3 and all("device_loop.py" in k for k in finalize), finalize
+    assert sum(app_sites.values()) - sum(finalize.values()) <= sum(ref_sites.values()), (
+        app_sites, ref_sites)
+    assert app.tracker.num_keyframes == pipe.num_keyframes
