@@ -163,6 +163,21 @@ Phases, one line each with its time:
    syncs only at lines where the standart path syncs, a frame's count
    printed beside the standart path's; the bootstrap's ms a frame (corners,
    LK, the host geometry) and the tracked frames/s;
+11c. outputs — the track's outputs and resume: ``app.main`` on the first
+   80 frames of the ``[app]`` files with ``--track_bin_path`` and
+   ``--visualization --visualization_port 0`` (``/state.json`` fetched once
+   from the viewer's ``finish``; the track.bin read back with track.npz's
+   keyframes, poses within 1e-12 after the same quaternion round trip and
+   1e-6 as they are; its marginalized cloud non-empty; every kernel of the
+   path launched; frames/s
+   with the viewer on, the track.bin's writing time); the standart path
+   tracked straight and saved after frame 60, loaded and resumed (every
+   resumed position within 1e-6 m of the straight run's, whether they are
+   equal to the bit printed, every kernel of the path launched after the
+   resume); ``pose_covariances`` on the straight run's last window against
+   its plain version in f32 (``parity.POSE_COV_F32_TOL``, the system's
+   condition printed, K7 and K8 once); ``solve_window`` and ``marginalize``
+   with every host synchronisation an error;
 12. e2e, e2e-exposure — ``tests/tracker/test_monocular_e2e.py``'s two runs
    (240×320, 40 frames, 8-frame bootstrap) in f32 with that test's gates;
    each tick of the exposure run is also replayed from the card's state
@@ -347,6 +362,16 @@ REMAP_TABLE_TOL, REMAP_TOL = 1e-9, 1e-4
 APP_JAX_FBS_FRAME, APP_JAX_RMSE = 4, 0.005592584
 APP_FBS_FRAMES, APP_FBS_GATE = 2, 0.02
 APP_RMSE_GATE = max(1.5 * APP_JAX_RMSE, APP_JAX_RMSE + 0.01)
+
+
+# [outputs]: the short app run with --track_bin_path and the live viewer (its
+# frames), the frame after which the standart path is saved and resumed, the
+# largest gap of a resumed position from the straight run's (m), and the
+# track.bin's poses against track.npz's after the same quaternion round trip
+# (Sophus's parameters), and as they are: the f32 poses' rotation matrices are
+# orthonormal to f32's rounding only, which the round trip takes out
+OUTPUT_APP_FRAMES, RESUME_AT, RESUME_POSE_TOL = 80, 60, 1e-6
+TRACK_BIN_POSE_TOL, TRACK_BIN_F32_TOL = 1e-12, 1e-6
 
 
 class SmokeError(RuntimeError):
@@ -2520,6 +2545,234 @@ def app(seq, torch, kernels, card, standart):
     return st
 
 
+def outputs(seq, torch, kernels, card):
+    """The track's outputs and resume on the card, each run with the launch
+    counts set to 0 just before it and read just after:
+
+    * ``app.main`` on the first ``OUTPUT_APP_FRAMES`` frames of the corridor
+      (the ``[app]`` phase's files) with ``--track_bin_path`` and
+      ``--visualization --visualization_port 0``: ``/state.json`` fetched once
+      (from the viewer's ``finish``), the track.bin read back with
+      track.npz's keyframes and poses, the tracked frames/s with the viewer on
+      and the track.bin's writing time;
+    * the standart path tracked straight, and saved after frame
+      ``RESUME_AT`` (``save_checkpoint``), loaded (``load_checkpoint``) and
+      resumed: every resumed position within ``RESUME_POSE_TOL`` of the
+      straight run's, whether they are equal to the bit, every kernel of the
+      path launched after the resume;
+    * ``pose_covariances`` on the straight run's last window against its
+      plain version in f32 on the same window, within
+      ``parity.POSE_COV_F32_TOL`` of the largest live entry, with the
+      system's condition, K7 and K8 launched once;
+    * ``solve_window`` (no readback) and ``marginalize`` (its flags given)
+      on that window with every host synchronisation an error."""
+    import contextlib
+    import io
+    import tempfile
+    import urllib.request
+
+    from dsopp_tpu_torch.app import main as app_main
+    from dsopp_tpu_torch.output import live_viewer, protobuf_track, storage
+    from dsopp_tpu_torch.output.checkpoint import load_checkpoint, save_checkpoint
+    from dsopp_tpu_torch.solvers import pba
+    from dsopp_tpu_torch.testing import parity, paths
+    from dsopp_tpu_torch.tracker.device_loop import PipelinedTracker
+
+    st = {}
+    states, written, marks, ticks = [], [], {}, [0]
+    originals = (live_viewer.LiveViewer.finish, protobuf_track.save_track_bin,
+                 PipelinedTracker.tick, PipelinedTracker.finalize)
+    finish, save_bin, tick, finalize = originals
+
+    def finish_and_fetch(self, tracker):
+        finish(self, tracker)
+        with urllib.request.urlopen(f"http://127.0.0.1:{self.port}/state.json",
+                                    timeout=10) as r:
+            states.append(json.loads(r.read()))
+
+    def timed_save(*args, **kwargs):
+        t = time.perf_counter()
+        save_bin(*args, **kwargs)
+        written.append(time.perf_counter() - t)
+
+    def counted_tick(self, *args, **kwargs):
+        marks.setdefault("first", time.perf_counter())
+        ticks[0] += 1
+        return tick(self, *args, **kwargs)
+
+    def timed_finalize(self):
+        self.drain()
+        torch.cuda.synchronize()
+        marks["end"] = time.perf_counter()
+        return finalize(self)
+
+    with tempfile.TemporaryDirectory(prefix="dsopp_outputs_") as folder:
+        path = paths.write_app_folder(seq, folder, paths.app_config(), frames=OUTPUT_APP_FRAMES)
+        npz, tbin = os.path.join(folder, "track.npz"), os.path.join(folder, "track.bin")
+        (live_viewer.LiveViewer.finish, protobuf_track.save_track_bin, PipelinedTracker.tick,
+         PipelinedTracker.finalize) = finish_and_fetch, timed_save, counted_tick, timed_finalize
+        out = io.StringIO()
+        torch.cuda.synchronize()
+        kernels.reset_counts()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(out):
+                rc = app_main.main(["--config_file_path", path, "--output_file_path", npz,
+                                    "--track_bin_path", tbin, "--visualization",
+                                    "--visualization_port", "0"])
+            torch.cuda.synchronize()
+        finally:
+            (live_viewer.LiveViewer.finish, protobuf_track.save_track_bin,
+             PipelinedTracker.tick, PipelinedTracker.finalize) = originals
+        seconds = time.perf_counter() - t0
+        counts = kernels.counts()
+        lines = out.getvalue().splitlines()
+        require(rc == 0, f"[outputs] main returned {rc}: {lines[-3:]}")
+        saved = storage.load_track(npz)["keyframes"]
+        data = protobuf_track.load_track_bin(tbin)["keyframes"]
+        raw_gap = max(float(np.abs(kf["t_world_agent"] - ref["t_wc"]).max())
+                      for kf, ref in zip(data, saved))
+        gap = max(float(np.abs(kf["t_world_agent"] - protobuf_track._sophus7_to_mat(
+            protobuf_track._mat_to_sophus7(ref["t_wc"]))).max()) for kf, ref in zip(data, saved))
+        bin_bytes = os.path.getsize(tbin)
+    st["app"] = dict(counts=counts, frames=ticks[0], fps=ticks[0] / (marks["end"] - marks["first"]),
+                     write_ms=1e3 * written[0], keyframes=len(saved))
+    viewer_line = [x for x in lines if x.startswith("live viewer: http://localhost:")]
+    log(f"[outputs] app.main with --track_bin_path and --visualization --visualization_port 0:"
+        f" returned {rc} in {seconds:.2f} s; {viewer_line}; /state.json fetched once: frame"
+        f" {states[0]['frame_id'] if states else None}, {states[0]['num_keyframes'] if states else None}"
+        f" keyframes, {len(states[0]['points']) // 4 if states else 0} cloud points,"
+        f" {len(states[0]['frusta']) if states else 0} frusta; track.bin {bin_bytes} bytes"
+        f" written in {1e3 * written[0]:.3f} ms, {len(data)} keyframes (track.npz's"
+        f" {len(saved)}), largest pose gap {raw_gap:.3g} ({gap:.3g} after the same quaternion"
+        f" round trip); {ticks[0]} tracked frames at"
+        f" {st['app']['fps']:.3f} frames/s with the viewer on; launches {counts} | {card}")
+    require(len(viewer_line) == 1, "[outputs] the live viewer's address was not printed")
+    require(len(states) == 1 and states[0]["frame_id"] == OUTPUT_APP_FRAMES - 1
+            and states[0]["num_keyframes"] == len(saved) and len(states[0]["points"]) > 0,
+            f"[outputs] /state.json: frame {states[0]['frame_id'] if states else None},"
+            f" {states[0]['num_keyframes'] if states else None} keyframes,"
+            f" {len(states[0]['points']) if states else None} cloud values")
+    require(len(data) == len(saved) >= 3 and gap <= TRACK_BIN_POSE_TOL
+            and raw_gap <= TRACK_BIN_F32_TOL,
+            f"[outputs] track.bin: {len(data)} keyframes, track.npz {len(saved)}, gaps {raw_gap},"
+            f" {gap}")
+    missing = [name for name in PATH_KERNELS + ("photometric_correct",) if counts[name] == 0]
+    require(not missing, f"[outputs] kernels of the path never launched: {missing}")
+
+    # the standart path straight, and saved after RESUME_AT, loaded and resumed
+    cfg, last = paths.path_config("standart"), paths.path_frames("standart")
+
+    def run(tracker, frames):
+        pipe = PipelinedTracker(tracker, flush_every=16)
+        poses = [pipe.tick(i, float(seq.timestamps[i]), seq.images[i]).pose_t for i in frames]
+        pipe.finalize()
+        return poses
+
+    straight = paths.bootstrap(seq, cfg)
+    poses_a = run(straight, range(paths.INIT_FRAMES, last))
+    stopped = paths.bootstrap(seq, cfg)
+    poses_b = run(stopped, range(paths.INIT_FRAMES, RESUME_AT))
+    with tempfile.TemporaryDirectory(prefix="dsopp_checkpoint_") as folder:
+        ckpt = os.path.join(folder, "state.npz")
+        t0 = time.perf_counter()
+        save_checkpoint(ckpt, stopped)
+        save_s = time.perf_counter() - t0
+        ckpt_bytes = os.path.getsize(ckpt)
+        t0 = time.perf_counter()
+        resumed = load_checkpoint(ckpt, seq.camera, cfg)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    same_points = all(torch.equal(a, b) for sa, sb in zip(
+        resumed.level_points + [resumed.flow_points], stopped.level_points + [stopped.flow_points])
+        for a, b in zip(sa, sb))
+    kernels.reset_counts()
+    poses_b += run(resumed, range(RESUME_AT, last))
+    counts = kernels.counts()
+    a, b = torch.stack(poses_a), torch.stack(poses_b)
+    resume_gap = float((a - b).norm(dim=-1).max())
+    bits = bool(torch.equal(a, b))
+    st["resume"] = dict(counts=counts, gap=resume_gap, equal=bits, save_s=save_s, load_s=load_s,
+                        bytes=ckpt_bytes)
+    log(f"[outputs] resume: the standart path saved after frame {RESUME_AT} ({ckpt_bytes}"
+        f" bytes, saved in {save_s:.3f} s, loaded in {load_s:.3f} s; the rebuilt level and flow"
+        f" points equal to the bit to the live ones: {same_points}), resumed over frames"
+        f" {RESUME_AT}..{last - 1}: largest gap from the straight run {resume_gap:.3g} m (gate"
+        f" {RESUME_POSE_TOL}), equal to the bit: {bits}; {resumed.num_keyframes} keyframes"
+        f" (straight {straight.num_keyframes}); launches after the resume {counts} | {card}")
+    require(a.shape == b.shape and resume_gap <= RESUME_POSE_TOL,
+            f"[outputs] the resumed run parts from the straight one by {resume_gap} m")
+    require(resumed.num_keyframes == straight.num_keyframes,
+            f"[outputs] {resumed.num_keyframes} keyframes resumed, {straight.num_keyframes} straight")
+    missing = [name for name in PATH_KERNELS if counts[name] == 0]
+    require(not missing, f"[outputs] kernels of the path never launched after the resume:"
+                         f" {missing}")
+
+    # pose_covariances on the card against the plain version in f32
+    win, model, opts = straight.window, straight.models[0], straight.pba_opts
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    out_k = pba.pose_covariances(win, model, opts)
+    torch.cuda.synchronize()
+    counts = kernels.counts()
+    cov_ms = cuda_ms(lambda: pba.pose_covariances(win, model, opts), reps=5)
+    cpu = parity.moved(win, "cpu")
+    t0 = time.perf_counter()
+    out_p = pba.pose_covariances(cpu, model, opts)
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    errs = parity.covariance_errors(out_k, out_p, win.frame_valid)
+    cond = parity.pose_system_condition(pba.pose_information(cpu, model, opts), cpu.frame_valid)
+    st["covariances"] = dict(errors=errs, condition=cond, ms=cov_ms, plain_ms=plain_ms)
+    log(f"[outputs] pose_covariances on the standart window ({int(win.frame_valid.sum())} of"
+        f" {win.num_slots} slots): the card against the plain version in f32 cov"
+        f" {errs['cov']:.3g}, cov_rel {errs['cov_rel']:.3g} of the largest live entry (tolerance"
+        f" parity.POSE_COV_F32_TOL = {parity.POSE_COV_F32_TOL}), the system's condition"
+        f" {cond:.4g}; {cov_ms:.3f} ms a call on the card, the plain version {plain_ms:.3f} ms"
+        f" on the CPU; K7 {counts['ba_evaluate']} and K8 {counts['ba_linearize_schur']}"
+        f" launches | {card}")
+    require(counts["ba_evaluate"] == 1 and counts["ba_linearize_schur"] == 1,
+            f"[outputs] pose_covariances launched K7 {counts['ba_evaluate']} and K8"
+            f" {counts['ba_linearize_schur']} times")
+    require(max(errs.values()) <= parity.POSE_COV_F32_TOL,
+            f"[outputs] pose_covariances: {errs} > {parity.POSE_COV_F32_TOL}")
+
+    # solve_window and marginalize with every host synchronisation an error
+    frames = torch.zeros_like(win.frame_valid)
+    frames[1] = True
+    frames &= win.frame_valid
+    gen = torch.Generator(device=win.lm_valid.device).manual_seed(5)
+    flagged = win.replace(frame_marg=frames, lm_marg_flag=win.lm_valid & (
+        torch.rand(win.lm_valid.shape, generator=gen, device=win.lm_valid.device) < 0.2))
+    frame_flags = frames.cpu().numpy()
+    before = int(win.frame_valid.sum())
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        solved, (energy, count) = pba.solve_window(win, model, opts, readback=False)
+        solve_counts = kernels.counts()
+        folded = pba.marginalize(flagged, model, opts, frame_flags=frame_flags, lm_any=True)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    counts = kernels.counts()
+    marg_counts = {name: counts[name] - solve_counts[name] for name in counts}
+    expected = pba.solve_loop_launches(opts.max_iterations)
+    after = int(folded.frame_valid.sum())
+    log(f"[outputs] solve_window (readback=False) and marginalize (flags given) with host"
+        f" syncs an error: energy {float(energy):.6g}, {int(count)} valid residuals, launches"
+        f" {({k: v for k, v in solve_counts.items() if v})}; marginalize {before} -> {after}"
+        f" frames, launches {({k: v for k, v in marg_counts.items() if v})} | {card}")
+    require(all(solve_counts[name] == n for name, n in expected.items()),
+            f"[outputs] solve_window launches {solve_counts}, expected {expected}")
+    require(bool(torch.isfinite(energy)) and int(count) > 0 and bool(
+        torch.isfinite(solved.eps).all()), "[outputs] solve_window's result is not finite")
+    require(after == before - 1 and marg_counts["marg_fold"] == 1
+            and marg_counts["ba_evaluate"] == 1 and marg_counts["ba_linearize_schur"] == 1,
+            f"[outputs] marginalize: {before} -> {after} frames, launches {marg_counts}")
+    require(bool(torch.isfinite(folded.h_marg).all()), "[outputs] the folded ledger is not finite")
+    return st
+
+
 def parent_bits(card):
     """Each case of ``testing/bits.py``, digest by digest, against the tree
     before its redesign; pose ties (``k4`` only: equal to the parent's chain
@@ -2742,6 +2995,9 @@ def main():
         t0 = time.perf_counter()
         sa = app(seq, torch, kernels, card, st)
         log(f"[app] phase {time.perf_counter() - t0:.2f} s")
+        t0 = time.perf_counter()
+        so = outputs(seq, torch, kernels, card)
+        log(f"[outputs] phase {time.perf_counter() - t0:.2f} s")
         e2e(torch, card, exposure=False)
         e2e(torch, card, exposure=True)
         parent_bits(card)
@@ -2751,7 +3007,8 @@ def main():
 
     # a kernel folded into another (COMPUTED_IN) has no launch of its own
     runs = dict(track=st, track_embedder=se, track_fast=sf, track_dense=sd, track_masked=sm,
-                track_ledger=sl, track_sensor=ss, app=sa)
+                track_ledger=sl, track_sensor=ss, app=sa, outputs_app=so["app"],
+                outputs_resume=so["resume"])
     result = {"kernels": [
         dict(name=name, route="cuda", source=SOURCES[name][0], replaces=SOURCES[name][1],
              launches=sum(run["counts"].get(name, 0) for run in runs.values()),

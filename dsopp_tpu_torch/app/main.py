@@ -1,19 +1,21 @@
 """The odometry application (counterpart of ``dsopp_tpu/app/main.py``):
 a config file with ``--config.*`` dot-path overrides → the pipeline, a
 frames/s line a frame, then the saved track and, if asked, a TUM
-trajectory.  It runs on the CUDA card, in f32, unless ``--device cpu`` or
-``--float64`` asks otherwise.
+trajectory and the reference-format ``track.bin``.  It runs on the CUDA
+card, in f32, unless ``--device cpu`` or ``--float64`` asks otherwise.
 
 Usage::
 
     python -m dsopp_tpu_torch.app.main --config_file_path mono.json \\
         --output_file_path track.npz [--trajectory_file_path est.tum] \\
+        [--track_bin_path track.bin] [--visualization [--visualization_port 8642]] \\
         [--config.tracker.keyframe_strategy.factor=2]
 
-A YAML config needs ``yaml``; a JSON one is read without it.  Not ported:
-``--host-loop`` (the tracked phase always runs ``PipelinedTracker``),
-``--visualization`` (the live viewer) and ``--track_bin_path`` (the
-protobuf track): the parser refuses them with a message that says so.
+A YAML config needs ``yaml``; a JSON one is read without it.
+``--visualization`` serves the live viewer (``output/live_viewer.py``) on
+127.0.0.1 while tracking; port 0 picks a free one.  Not ported:
+``--host-loop`` (the tracked phase always runs ``PipelinedTracker``), which
+the parser refuses with a message that says so.
 """
 
 from __future__ import annotations
@@ -27,10 +29,6 @@ import time
 NOT_PORTED = {
     "--host-loop": "the host-driven tracker loop is not ported; the tracked phase always"
                    " runs PipelinedTracker",
-    "--visualization": "the live 3D viewer is not ported yet",
-    "--visualization_port": "the live 3D viewer is not ported yet",
-    "--track_bin_path": "the protobuf track.bin writer is not ported yet; the track is"
-                        " written as --output_file_path (.npz)",
 }
 
 
@@ -38,12 +36,18 @@ def _parser():
     parser = argparse.ArgumentParser(description="dsopp_tpu_torch direct odometry")
     parser.add_argument("--config_file_path", required=True)
     parser.add_argument("--output_file_path", default="track.npz")
+    parser.add_argument("--track_bin_path", default=None,
+                        help="optional reference-format track.bin output")
     parser.add_argument("--trajectory_file_path", default=None,
                         help="optional TUM trajectory output")
     parser.add_argument("--max_frames", type=int, default=None)
     parser.add_argument("--deterministic", action="store_true",
                         help="accepted as the JAX package's app accepts it; the port runs"
                              " on one device")
+    parser.add_argument("--visualization", action="store_true",
+                        help="serve the live 3D viewer over HTTP on 127.0.0.1 while tracking")
+    parser.add_argument("--visualization_port", type=int, default=8642,
+                        help="the live viewer's port (0: a free one)")
     parser.add_argument("--refine_calibration", action="store_true",
                         help="optimize the camera calibration over a frame segment and print"
                              " the refined model instead of tracking")
@@ -88,6 +92,13 @@ def main(argv=None):
     if args.refine_calibration:
         return _refine_calibration(app, args)
 
+    viewer = None
+    if args.visualization:
+        from dsopp_tpu_torch.output.live_viewer import LiveViewer
+
+        viewer = LiveViewer(app.camera.camera_model(), port=args.visualization_port)
+        print(f"live viewer: http://localhost:{viewer.port}/", flush=True)
+
     t0 = time.time()
     frame_times = []
 
@@ -98,7 +109,12 @@ def main(argv=None):
         kind = "KF" if result.get("keyframe") else "  "
         print(f"frame {frame.frame_id} {kind} fps(50)={fps:5.1f}", flush=True)
 
-    n = app.run(max_frames=args.max_frames, on_frame=on_frame)
+    try:
+        n = app.run(max_frames=args.max_frames, on_frame=on_frame,
+                    observers=[viewer] if viewer else None)
+    finally:
+        if viewer is not None:
+            viewer.close()
     app.finish()
     total = time.time() - t0
     print(f"processed {n} frames in {total:.1f}s ({n / max(total, 1e-9):.2f} fps total)")
@@ -110,6 +126,14 @@ def main(argv=None):
                    "cx": float(model.cx), "cy": float(model.cy)}
     save_track(args.output_file_path, app.tracker.track, app.tracker.window, camera_info)
     print(f"track written to {args.output_file_path}")
+    if args.track_bin_path:
+        from dsopp_tpu_torch.output.protobuf_track import save_track_bin
+
+        save_track_bin(args.track_bin_path, app.tracker.track, app.tracker.window,
+                       camera=model, model=app.camera.settings.calibration,
+                       sanity_results=(app.sanity_checker.results
+                                       if app.sanity_checker else None))
+        print(f"reference-format track written to {args.track_bin_path}")
     if args.trajectory_file_path:
         export_tum(args.trajectory_file_path, app.tracker.track.trajectory(app.tracker.window))
         print(f"trajectory written to {args.trajectory_file_path}")

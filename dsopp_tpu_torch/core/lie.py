@@ -148,6 +148,14 @@ def _apply_V_inv(omega, t):
     return t - 0.5 * c1 + c[..., None] * c2
 
 
+def so3_hat(w):
+    """[..., 3] → skew matrices [..., 3, 3]."""
+    z = torch.zeros_like(w[..., 0])
+    wx, wy, wz = w[..., 0], w[..., 1], w[..., 2]
+    m = torch.stack([z, -wz, wy, wz, z, -wx, -wy, wx, z], dim=-1)
+    return m.reshape(m.shape[:-1] + (3, 3))
+
+
 class SE3(NamedTuple):
     """Batched rigid transform: quaternion [..., 4] + translation [..., 3]."""
 
@@ -189,6 +197,13 @@ class SE3(NamedTuple):
         if isinstance(other, SE3):
             return self.compose(other)
         return self.apply(other)
+
+    def adjoint(self):
+        """Adj(T) [..., 6, 6] for the tangent order [υ, ω]: [[R, t̂ R], [0, R]]."""
+        r = quat_to_matrix(self.q)
+        top = torch.cat([r, so3_hat(self.t) @ r], dim=-1)
+        bot = torch.cat([torch.zeros_like(r), r], dim=-1)
+        return torch.cat([top, bot], dim=-2)
 
     def matrix(self):
         r = quat_to_matrix(self.q)

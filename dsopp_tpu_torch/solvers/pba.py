@@ -51,6 +51,7 @@ import ctypes
 import dataclasses
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from dsopp_tpu_torch import default_device, kernels
@@ -935,6 +936,70 @@ def _solve_loop_device(window: Window, model, opts: PBAOptions):
     return fn(window, model, opts)
 
 
+def solve_window(window: Window, model, opts: PBAOptions = PBAOptions(),
+                 readback: bool = True):
+    """The full backend solve (EigenPBA::solve): FEJ → LM loop → relinearize
+    → outlier rejection, :func:`_solve_loop_device` (on the card one C call
+    of kernels K7–K11), then one host read of (energy, num_valid).
+
+    ``readback=False`` reads nothing and returns the two device scalars, so
+    that a caller can fold them into a transfer of its own."""
+    out, e, n = _solve_loop_device(window, model, opts)
+    if not readback:
+        return out, (e, n)
+    energy, n_valid = torch.stack([e.to(torch.float64), n.to(torch.float64)]).tolist()
+    return out, {"energy": energy, "num_valid": int(n_valid)}
+
+
+# the diagonal of a dead slot's rows in :func:`pose_covariances`: its block reads
+# as ~0 covariance and never as the scale nullspace
+DEAD_SLOT_INFORMATION = 1e18
+
+
+def pose_information(window: Window, model, opts: PBAOptions = PBAOptions()):
+    """The reduced pose system that :func:`pose_covariances` inverts
+    ([K·8, K·8], float64): H_pose + priors − H_schur + H_m at the window's
+    state, from K7's evaluation and K8's system on CUDA tensors (the plain
+    versions on CPU ones), with the ledger; dead slots' rows and columns
+    zeroed and their diagonal set to ``DEAD_SLOT_INFORMATION``."""
+    ev = _evaluate(window, model, window.eps, window.lm_idepth, active_lm_mask(window), opts)
+    sys = _linearize_from_ev(window, model, ev, window.eps, opts)
+    h = (sys.h_pose - sys.h_schur).to(LEDGER_DTYPE) + window.h_marg
+    live = torch.repeat_interleave(window.frame_valid, BLOCK)
+    h = torch.where(live[:, None] & live[None, :], h, torch.zeros_like(h))
+    h = h + torch.diag(torch.where(live, 0.0, DEAD_SLOT_INFORMATION).to(h.dtype))
+    return 0.5 * (h + h.T)
+
+
+def pose_covariances(window: Window, model, opts: PBAOptions = PBAOptions()):
+    """Pose-pose covariance of the window (the estimate_uncertainty path)
+    → (cov [K·8, K·8] in the window's dtype, cov_rel [K, K, 6, 6]).
+
+    The pseudo-inverse of :func:`pose_information` that drops the one
+    eigenvalue of least magnitude (the monocular scale nullspace) and
+    inverts the others with their sign, as the reference's
+    ``svd(hermitian=True)`` does (it orders by |λ|); then the relative 6×6
+    covariances by the adjoint sandwich
+        Σ_rel[i,j] = Adj Σ_ii Adjᵀ − Σ_ijᵀ Adjᵀ − Adj Σ_ij + Σ_jj,
+    Adj = Adj(T_wj⁻¹ T_wi).  The decomposition is ``torch.linalg.eigh`` in
+    float64, which reads the device: this is no part of the tracker's device
+    loop."""
+    k = window.num_slots
+    lam, vec = torch.linalg.eigh(pose_information(window, model, opts))
+    keep = torch.arange(lam.shape[0], device=lam.device) != torch.argmin(torch.abs(lam))
+    inv = torch.where(keep, 1.0 / lam, torch.zeros_like(lam))
+    cov = ((vec * inv[None, :]) @ vec.T).to(window.eps.dtype)
+
+    c = cov.reshape(k, BLOCK, k, BLOCK).permute(0, 2, 1, 3)[:, :, :6, :6]
+    idx = torch.arange(k, device=c.device)
+    sigma_d = c[idx, idx]                                              # [K, 6, 6]
+    adj = _relative_poses(window.t_lin_q, window.t_lin_t, window.eps[:, :6]).adjoint()
+    adj_t = adj.transpose(-1, -2)
+    sig_rel = (adj @ sigma_d[:, None] @ adj_t - c.transpose(-1, -2) @ adj_t - adj @ c
+               + sigma_d[None, :])
+    return cov, sig_rel
+
+
 def _relinearize_last(window: Window) -> Window:
     """Fold the newest frame's increment into its linearization point."""
     newest = newest_slot(window)
@@ -1213,6 +1278,31 @@ def _marginalize_with(fold, window: Window, model, perm, opts: PBAOptions) -> Wi
                             lm_marg_flag=torch.zeros_like(window.lm_marg_flag))
     window = _permute_window(window, perm, window.frame_marg & window.frame_valid)
     return window.replace(h_marg=h_m, b_marg=b_m, energy_marg=e_m)
+
+
+def marginalize(window: Window, model, opts: PBAOptions = PBAOptions(),
+                frame_flags=None, lm_any=None) -> Window:
+    """Fold the flagged landmarks and frames into the ledger, then compact
+    the frame slots (updateMarginalizedLinearSystem): the window unchanged
+    when nothing is flagged, else :func:`_marginalize_device` (on the card
+    the marginalization pass's K7 and K8, then K15) with the kept-first slot
+    permutation.
+
+    ``frame_flags`` ([K] bool, numpy) and ``lm_any`` (bool): host copies of
+    ``frame_marg & frame_valid`` and of whether a live landmark is flagged,
+    when the caller has them; each one not given is read from the device.
+    With both given nothing is read: the permutation is formed on the
+    device from the window's own flags."""
+    from dsopp_tpu_torch.tracker.marginalization import kept_first_perm
+
+    if lm_any is None:
+        lm_any = bool((window.lm_marg_flag & window.lm_valid).any())
+    if frame_flags is None:
+        frame_flags = (window.frame_marg & window.frame_valid).cpu().numpy()
+    if not (lm_any or bool(np.asarray(frame_flags).any())):
+        return window
+    perm = kept_first_perm(window.frame_valid, window.frame_marg & window.frame_valid)
+    return _marginalize_device(window, model, perm, opts)
 
 
 def slot_mask(num_slots: int, slot, device):

@@ -738,6 +738,47 @@ def policy_errors(out_k, out_p, window, minimum_size: int, maximum_size: int,
     return out
 
 
+# pose_covariances: an f64 decomposition of the reduced pose system rounds its
+# weakest kept directions by up to ~ε·λ_max, so the covariance may move by
+# COV_F64_ULPS · ε · condition of its largest live entry (the fixed frame's
+# 1e16 prior makes the condition ~2.5e10 on a known-pose window: the JAX
+# package's eigh and torch's part there by ~3e-6)
+COV_F64_ULPS = 8
+# pose_covariances on the card (K7, K8 in f32, the decomposition in f64) against
+# its plain version in f32 on the same window: the largest difference of cov
+# and cov_rel relative to the largest live entry.  Measured 5.4e-5 on the
+# standart path's last window (condition 3.9e9; chip_smoke [outputs]); an f32
+# window against its own f64 copy on the CPU parts by 2.2e-5
+POSE_COV_F32_TOL = 5e-4
+
+
+def pose_system_condition(h, frame_valid) -> float:
+    """The condition of the pseudo-inverse :func:`pose_covariances` takes of
+    the reduced pose system ``h`` (``pba.pose_information``): the largest
+    |λ| of the live slots' block over the least |λ| it keeps (the least one
+    is dropped)."""
+    live = torch.repeat_interleave(frame_valid, BLOCK).cpu()
+    h = h.double().cpu()[live][:, live]
+    lam = torch.linalg.eigvalsh(h).abs().sort().values
+    return float(lam[-1] / lam[1])
+
+
+def covariance_errors(out_k, out_p, frame_valid) -> dict:
+    """``pose_covariances``' (cov, cov_rel) against another's: the largest
+    difference over the live slots' blocks (cov) and the live ordered pairs
+    (cov_rel), each relative to the other's largest live entry."""
+    live = frame_valid.cpu()
+    k = live.shape[0]
+    rows = torch.repeat_interleave(live, BLOCK)
+    pairs = live[:, None] & live[None, :] & ~torch.eye(k, dtype=torch.bool)
+    out = {}
+    for name, a, b, mask in (("cov", out_k[0], out_p[0], rows[:, None] & rows[None, :]),
+                             ("cov_rel", out_k[1], out_p[1], pairs)):
+        a, b = a.double().cpu()[mask], b.double().cpu()[mask]
+        out[name] = float((a - b).abs().max() / b.abs().max().clamp(min=1e-300))
+    return out
+
+
 def cuda_ms(fn, reps: int = 50) -> float:
     """Mean time of ``fn`` per call over ``reps`` calls after 3 warm ones,
     between two CUDA events (the host work of ``fn`` included)."""

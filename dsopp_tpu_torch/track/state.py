@@ -60,6 +60,10 @@ class OdometryTrack:
     marginalized: List[MarginalizedKeyframe] = field(default_factory=list)
     attached: dict = field(default_factory=dict)
     keyframe_timestamps: dict = field(default_factory=dict)
+    # relative-pose covariances keyed by (reference_id, target_id) → 6×6
+    # (the reference's FrameConnection covariance, track.bin's connection
+    # field 5), filled by the known-pose ticks with estimate_uncertainty
+    connections: dict = field(default_factory=dict)
     # output observers (output/observers.py): keyframe and marginalization
     # events, fired from the bootstrap and from PipelinedTracker's bookkeeping
     observers: List = field(default_factory=list)

@@ -25,7 +25,8 @@ import torch
 
 from dsopp_tpu_torch.core.lie import SE3
 from dsopp_tpu_torch.features.embedder import make_embedder
-from dsopp_tpu_torch.solvers.pba import PBAOptions, Window, _marginalize_device, newest_slot
+from dsopp_tpu_torch.solvers.pba import (PBAOptions, Window, _marginalize_device, newest_slot,
+                                         pose_covariances)
 from dsopp_tpu_torch.solvers.pose_alignment import AlignmentOptions
 from dsopp_tpu_torch.track.state import AttachedFrame, MarginalizedKeyframe, sample_semantics
 from dsopp_tpu_torch.tracker.activation import MAX_DISTANCE, MIN_DISTANCE, P_GAIN
@@ -128,11 +129,16 @@ class KeyframeUpdate(NamedTuple):
 
 def keyframe_update(window: Window, immature: ImmaturePoints, maps, pose_q, pose_t,
                     affine, frame_id: int, min_distance, models,
-                    cfg: DeviceLoopConfig, exposure, mask=None) -> KeyframeUpdate:
+                    cfg: DeviceLoopConfig, exposure, mask=None,
+                    covariances: bool = False) -> KeyframeUpdate:
     """The keyframe backend shared by ``device_tick`` and the bootstrap.
     ``mask``: [H, W] bool candidate-selection mask or None.  A frame embedder
     other than the identity embeds the keyframe's intensity for the window's
-    channel bank; the frontend and the epipolar tracer stay C = 1."""
+    channel bank; the frontend and the epipolar tracer stay C = 1.
+    ``covariances``: the batch also carries the solved window's relative
+    pose covariances (``cov_rel`` [K, K, 6, 6], :func:`pose_covariances`)
+    and its frame ids (``cov_ids`` [K], -1 at a dead slot), before the
+    marginalization."""
     dtype = window.eps.dtype
     embed = None if cfg.embedder == "identity" else _embedder(cfg.embedder)(maps[0][0])
     kf = fused_keyframe_push(window, models[0], immature, maps[0], pose_q, pose_t,
@@ -140,6 +146,9 @@ def keyframe_update(window: Window, immature: ImmaturePoints, maps, pose_q, pose
                              cfg.huber_sigma, cfg.immature_per_frame, exposure, mask=mask,
                              embed=embed)
     win, immature, batch = kf.window, kf.immature, kf.batch
+    if covariances:
+        batch = dict(batch, cov_rel=pose_covariances(win, models[0], cfg.pba_opts)[1],
+                     cov_ids=torch.where(win.frame_valid, win.frame_id, -1))
     min_distance = torch.clamp(
         min_distance + (batch["n_active"].to(dtype) - cfg.desired_points) * P_GAIN,
         MIN_DISTANCE, MAX_DISTANCE)

@@ -57,6 +57,9 @@ class TrackerConfig:
     max_marginalized_fraction: float = 0.95
     huber_sigma: float = 20.0
     use_rotation_perturbations: bool = True
+    # relative pose covariances of the window after each keyframe's solve
+    # (track.connections); the known-pose ticks only, as in the JAX package
+    estimate_uncertainty: bool = False
     refine_activation: bool = True
     embedder: str = "identity"       # frame embedder: "identity" (C = 1) or "filter_bank"
     pba_max_iterations: int = 7
@@ -230,7 +233,10 @@ class MonocularTracker:
         self.kf_id = frame_id
         ku = keyframe_update(self.window, self.immature, maps, pose.q, pose.t,
                              self.last_affine, frame_id, torch.tensor(self.min_distance, **d),
-                             self.models, self.loop_config(), exp_t, mask=self.mask)
+                             self.models, self.loop_config(), exp_t, mask=self.mask,
+                             covariances=cfg.estimate_uncertainty)
+        if cfg.estimate_uncertainty:
+            self._record_connections(ku.batch["cov_ids"], ku.batch["cov_rel"])
         self.window, self.immature = ku.window, ku.immature
         self.depth_maps = (ku.depth_idepth, ku.depth_weight)
         self.level_points = list(ku.level_points)
@@ -239,6 +245,19 @@ class MonocularTracker:
         self.min_distance = float(ku.min_distance)
         record_marginalized(self.track, ku.snap, timestamp, self._kf_semantics)
         return {"keyframe": True, "pose": pose, "energy": float(ku.batch["energy"])}
+
+    def _record_connections(self, ids, cov_rel):
+        """``track.connections`` for every ordered pair of live slots (ids ≥
+        0) from ``cov_rel`` [K, K, 6, 6], in one host copy."""
+        k = ids.shape[0]
+        host = torch.cat([ids.to(torch.float64), cov_rel.to(torch.float64).reshape(-1)])
+        host = host.cpu().numpy()
+        ids, cov_rel = host[:k].astype(np.int64), host[k:].reshape(k, k, 6, 6)
+        live = np.where(ids >= 0)[0]
+        for i in live:
+            for j in live:
+                if i != j:
+                    self.track.connections[(int(ids[i]), int(ids[j]))] = cov_rel[i, j]
 
     def _on_keyframe(self, frame_id):
         if self._last_semantics is not None:

@@ -18,16 +18,22 @@ saved track and the TUM trajectory.
   ``testing/paths.py::bootstrap``'s known-pose run on the same frames at the
   file's poses (window poses within 1e-12, idepths within 1e-9).
 * ``main`` with a JSON config and ``--config.*`` overrides; the track and
-  TUM files, ``track2trajectory`` giving the same rows; the flags not
-  ported refused; ``load_config`` / ``apply_overrides`` without ``yaml``.
+  TUM files, ``track2trajectory`` giving the same rows; ``main`` with
+  ``--track_bin_path`` (a track.bin both packages read with track.npz's
+  keyframes, poses within 1e-12) and with ``--visualization`` (the live
+  viewer's ``/state.json`` during the run); the flags not ported refused;
+  ``load_config`` / ``apply_overrides`` without ``yaml``.
+* The JAX package's checkpoint of its app's tracker loaded by the port's
+  ``load_checkpoint``: the state within 1e-12 of ``convert``'s.
 * The save / load / TUM round trip and the ATE, the sanity checker on
   ``tests/test_sanity_checker.py``'s cases, the observers, the agent and the
   synchronizers, each against the JAX package's (exact).
 
-The file runs in ~106 s on one worker, most of it the module fixture's two
+The file runs in ~2 min on one worker, most of it the module fixture's two
 app runs, and of those the JAX app's compiles (~57 s).
 """
 
+import dataclasses
 import json
 import math
 
@@ -180,6 +186,66 @@ def test_saved_track_round_trip(fbs_runs, tmp_path):
         np.testing.assert_array_equal(ma, mb)
 
 
+def test_jax_checkpoint_loads_into_the_port(fbs_runs, tmp_path):
+    """The JAX package's ``save_checkpoint`` of its app's tracker, read by the
+    port's ``load_checkpoint``: the window (the ledger's double-float pairs
+    summed), the banks, the depth maps, the frontend's points, the scalars
+    and the track history within 1e-12 of ``convert``'s of that tracker.  The
+    flow points are held to the JAX package's rebuild from its depth maps
+    (the loader's), since its ``PipelinedTracker.finalize`` writes no flow
+    points back into the tracker."""
+    from dsopp_tpu.features.pyramid import build_pyramid_maps as jpyramid
+    from dsopp_tpu.output.checkpoint import save_checkpoint as jsave
+    from dsopp_tpu.tracker import depth_map as jdm
+    from dsopp_tpu_torch import convert
+    from dsopp_tpu_torch.output.checkpoint import load_checkpoint
+
+    ref, port = fbs_runs["ref"].tracker, fbs_runs["port"]
+    path = str(tmp_path / "jax.npz")
+    jsave(path, ref)
+    got = load_checkpoint(path, port.camera.camera_model(), port.tracker.config,
+                          dtype=torch.float64, device="cpu")
+    fields = {f.name: np.asarray(getattr(ref.window, f.name))
+              for f in dataclasses.fields(ref.window)}
+    want = convert.window(fields)
+    for name in want.__dataclass_fields__:
+        a, b = getattr(got.window, name), getattr(want, name)
+        if b is None:
+            assert a is None, name
+        else:
+            torch.testing.assert_close(a, b, rtol=0, atol=1e-12, msg=name)
+    torch.testing.assert_close(tuple(got.immature),
+                               tuple(convert.immature_points(
+                                   {k: np.asarray(v) for k, v in ref.immature._asdict().items()})),
+                               rtol=0, atol=1e-12, equal_nan=True)
+    for mine, theirs in zip(got.depth_maps, ref.depth_maps):
+        torch.testing.assert_close(mine, tuple(convert.tensor(x) for x in theirs), rtol=0,
+                                   atol=1e-12)
+    for mine, theirs in zip(got.level_points, ref.level_points):
+        torch.testing.assert_close(tuple(mine), tuple(convert.level_points(*theirs)), rtol=0,
+                                   atol=1e-12)
+    newest = int(np.asarray(ref.window.frame_valid).sum()) - 1
+    maps0 = jpyramid(ref.window.maps[newest][0], len(ref.depth_maps[0]))[0]
+    flow = jdm.depth_map_level_points(ref.depth_maps[0][0], ref.depth_maps[1][0], maps0,
+                                      jdm.FLOW_CAP)
+    torch.testing.assert_close(tuple(got.flow_points), tuple(convert.level_points(*flow)),
+                               rtol=0, atol=1e-12)
+    for mine, theirs in ((got.t_w_last, ref.t_w_last), (got.t_prev_rel, ref.t_prev_rel)):
+        torch.testing.assert_close(tuple(mine), tuple(convert.se3(theirs.q, theirs.t)), rtol=0,
+                                   atol=1e-12)
+    torch.testing.assert_close(got.last_affine, convert.tensor(ref.last_affine), rtol=0,
+                               atol=1e-12)
+    assert got.rmse_last == [float(v) for v in ref.rmse_last]
+    assert got.kf_rmse == ref.keyframe_strategy._rmse
+    assert got.min_distance == ref.activator.min_distance_to_neighbor
+    assert (got.num_keyframes, got.kf_id) == (ref.num_keyframes, ref._kf_id())
+    traj, traj_ref = got.track.trajectory(got.window), ref.track.trajectory(ref.window)
+    assert len(got.track.marginalized) == len(ref.track.marginalized) >= 1
+    assert [t for t, _ in traj] == [t for t, _ in traj_ref] and len(traj) == FBS_FRAMES
+    for (_, a), (_, b) in zip(traj, traj_ref):
+        np.testing.assert_allclose(a, np.asarray(b), rtol=0, atol=1e-12)
+
+
 @pytest.fixture(scope="module")
 def poses_folder(tmp_path_factory):
     """A 128×160 corridor as ``.npy`` frames with its ground truth as a TUM
@@ -244,8 +310,7 @@ def test_main_with_json_config_and_overrides(poses_folder, tmp_path, monkeypatch
     assert len(jstorage.load_track(str(out))["keyframes"]) == built[0].tracker.num_keyframes
 
 
-@pytest.mark.parametrize("flag", [["--host-loop"], ["--visualization"],
-                                  ["--track_bin_path", "t.bin"], ["--platform", "cpu"]])
+@pytest.mark.parametrize("flag", [["--host-loop"], ["--platform", "cpu"]])
 def test_main_refuses_flags_not_ported(flag, capsys):
     from dsopp_tpu_torch.app import main as app_main
 
@@ -254,6 +319,59 @@ def test_main_refuses_flags_not_ported(flag, capsys):
     assert exc.value.code == 2
     err = capsys.readouterr().err
     assert ("not supported by the port" in err) == (flag[0] != "--platform")
+
+
+@pytest.mark.parametrize("flag", ["--track_bin_path", "--visualization"])
+def test_main_with_output_flag(poses_folder, tmp_path, monkeypatch, capsys, flag):
+    """``main`` with ``--track_bin_path``: a track.bin that both packages'
+    ``load_track_bin`` read with track.npz's keyframes, their poses within
+    1e-12; with ``--visualization --visualization_port 0``: the live viewer
+    serves ``/state.json`` while the run finishes (fetched from its
+    ``finish``), with every frame and keyframe, and is closed after the run."""
+    import urllib.request
+
+    from dsopp_tpu.output import protobuf_track as jpb
+    from dsopp_tpu_torch.app import main as app_main
+    from dsopp_tpu_torch.output import live_viewer
+    from dsopp_tpu_torch.output import protobuf_track as ppb
+
+    folder, path, _, _ = poses_folder
+    out, tbin = tmp_path / "track.npz", tmp_path / "track.bin"
+    extra = (["--track_bin_path", str(tbin)] if flag == "--track_bin_path"
+             else ["--visualization", "--visualization_port", "0"])
+    states, viewers = [], []
+    finish = live_viewer.LiveViewer.finish
+
+    def finish_and_fetch(self, tracker):
+        finish(self, tracker)
+        viewers.append(self)
+        with urllib.request.urlopen(f"http://127.0.0.1:{self.port}/state.json",
+                                    timeout=10) as r:
+            states.append(json.loads(r.read()))
+
+    monkeypatch.setattr(live_viewer.LiveViewer, "finish", finish_and_fetch)
+    assert app_main.main(["--config_file_path", path, "--output_file_path", str(out),
+                          "--device", "cpu", "--float64"] + extra) == 0
+    saved = jstorage.load_track(str(out))["keyframes"]
+    assert len(saved) >= 3
+    if flag == "--track_bin_path":
+        assert not states
+        for data in (ppb.load_track_bin(str(tbin)), jpb.load_track_bin(str(tbin))):
+            kfs = data["keyframes"]
+            assert [kf["frame_id"] for kf in kfs] == [kf["frame_id"] for kf in saved]
+            assert [kf["keyframe_id"] for kf in kfs] == list(range(len(saved)))
+            for kf, ref in zip(kfs, saved):
+                np.testing.assert_allclose(kf["t_world_agent"], ref["t_wc"], rtol=0, atol=1e-12)
+                assert len(kf["landmarks"][0]["points"]) == int(ref["lm_valid"].sum())
+    else:
+        assert not tbin.exists() and len(states) == 1
+        assert f"live viewer: http://localhost:{viewers[0].port}/" in capsys.readouterr().out
+        assert states[0]["frame_id"] == POSE_FRAMES - 1
+        assert states[0]["num_keyframes"] == len(saved)
+        assert len(states[0]["frusta"]) == len(saved)
+        with pytest.raises(OSError):     # closed after the run
+            urllib.request.urlopen(f"http://127.0.0.1:{viewers[0].port}/state.json",
+                                   timeout=2)
 
 
 def test_config_without_yaml(tmp_path, monkeypatch):

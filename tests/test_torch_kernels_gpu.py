@@ -101,6 +101,13 @@ C-channel patches, equal entry by entry.  At C = 1 the outputs of K1, K3,
 K7, K8, K10 and K11 on the inputs of ``testing/bits.py``'s ``c1`` case equal the tree's
 before the channel axis, digest by digest.
 
+The track's outputs (no kernel of their own): ``pose_covariances`` with K7
+and K8 once each, within ``parity.POSE_COV_F32_TOL`` of the plain version in
+f32; ``solve_window`` without its readback and ``marginalize`` with its flags
+given reading nothing on the host, equal to the bit to the one-call solve
+and the fold; a run saved, loaded and resumed within 1e-6 m of the straight
+run, every kernel of the path launched after the resume.
+
 Run on a machine with a card:
 ``python -m pytest --noconftest tests/test_torch_kernels_gpu.py -q``.
 """
@@ -1788,3 +1795,92 @@ def test_app_tracked_phase_adds_no_host_sync(tmp_path):
     assert sum(app_sites.values()) - sum(finalize.values()) <= sum(ref_sites.values()), (
         app_sites, ref_sites)
     assert app.tracker.num_keyframes == pipe.num_keyframes
+
+
+def test_pose_covariances_on_the_card_match_plain(tracked):
+    """``pose_covariances``: K7 and K8 once each, cov and cov_rel within
+    ``parity.POSE_COV_F32_TOL`` of the largest live entry of the plain
+    version's in f32 on the same window."""
+    tracker, _ = tracked
+    win, model, opts = tracker.window, tracker.models[0], tracker.pba_opts
+    before = kernels.counts()
+    out = pba.pose_covariances(win, model, opts)
+    after = kernels.counts()
+    launched = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    assert launched == {"ba_evaluate": 1, "ba_linearize_schur": 1}, launched
+    ref = pba.pose_covariances(parity.moved(win, "cpu"), model, opts)
+    errs = parity.covariance_errors(out, ref, win.frame_valid)
+    assert max(errs.values()) <= parity.POSE_COV_F32_TOL, errs
+
+
+def test_solve_window_and_marginalize_read_nothing_on_the_host(tracked):
+    """``solve_window`` without its readback and ``marginalize`` with its flags
+    given, with every host synchronisation an error: the same bits as the
+    one-call solve and the fold with the kept-first permutation; nothing
+    flagged gives the window back."""
+    tracker, _ = tracked
+    win, model, opts = tracker.window, tracker.models[0], tracker.pba_opts
+    solved, (energy, count) = _no_host_reads(pba.solve_window, win, model, opts,
+                                             readback=False)
+    ref, e_ref, n_ref = pba._solve_loop_cuda(win, model, opts)
+    assert torch.equal(solved.eps, ref.eps) and torch.equal(solved.lm_idepth, ref.lm_idepth)
+    assert torch.equal(energy, e_ref) and int(count) == int(n_ref) > 0
+    frames = torch.zeros_like(win.frame_valid)
+    frames[1] = True
+    frames &= win.frame_valid
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    flagged = win.replace(frame_marg=frames, lm_marg_flag=win.lm_valid & (
+        torch.rand(win.lm_valid.shape, generator=gen, device="cuda") < 0.2))
+    out = _no_host_reads(pba.marginalize, flagged, model, opts,
+                         frame_flags=frames.cpu().numpy(), lm_any=True)
+    perm = marg.kept_first_perm(flagged.frame_valid, flagged.frame_marg & flagged.frame_valid)
+    ref = pba._marginalize_device(flagged, model, perm, opts)
+    for name in ("h_marg", "b_marg", "energy_marg", "frame_valid", "frame_id", "lm_valid"):
+        assert torch.equal(getattr(out, name), getattr(ref, name)), name
+    assert int(out.frame_valid.sum()) == int(win.frame_valid.sum()) - 1
+    k = win.num_slots
+    assert pba.marginalize(win, model, opts, frame_flags=np.zeros(k, bool), lm_any=False) is win
+
+
+def test_checkpoint_resume_on_the_card(tmp_path):
+    """A run at 240×320 tracked straight and a run saved after frame 20,
+    loaded and resumed on the card: every resumed position within 1e-6 m of
+    the straight run's, and every kernel of the tracked path launched after
+    the resume."""
+    from dsopp_tpu_torch.output.checkpoint import load_checkpoint, save_checkpoint
+    from dsopp_tpu_torch.testing import paths
+    from dsopp_tpu_torch.tracker.device_loop import PipelinedTracker
+    from dsopp_tpu_torch.tracker.monocular import TrackerConfig
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    seq = render_sequence(num_frames=40, height=240, width=320, dtype=torch.float32,
+                          device="cuda")
+    cfg = TrackerConfig(num_frame_slots=6, landmarks_per_frame=120, immature_per_frame=300,
+                        desired_points=600, frontend_points=800, keyframe_factor=3.0,
+                        window_min=2, window_max=4)
+
+    def run(tracker, frames):
+        pipe = PipelinedTracker(tracker, flush_every=16)
+        poses = [pipe.tick(i, float(seq.timestamps[i]), seq.images[i]).pose_t
+                 for i in frames]
+        pipe.finalize()
+        return poses
+
+    straight = paths.bootstrap(seq, cfg)
+    poses_a = run(straight, range(paths.INIT_FRAMES, 40))
+    stopped = paths.bootstrap(seq, cfg)
+    poses_b = run(stopped, range(paths.INIT_FRAMES, 20))
+    save_checkpoint(str(tmp_path / "state.npz"), stopped)
+    resumed = load_checkpoint(str(tmp_path / "state.npz"), seq.camera, cfg)
+    kernels.reset_counts()
+    poses_b += run(resumed, range(20, 40))
+    counts = kernels.counts()
+    gap = float((torch.stack(poses_a) - torch.stack(poses_b)).norm(dim=-1).max())
+    assert gap <= 1e-6, gap
+    assert resumed.num_keyframes == straight.num_keyframes > stopped.num_keyframes
+    path = ("pyramid_maps", "align_level", "epipolar_update", "flow_statistic", "ba_evaluate",
+            "ba_linearize_schur", "ba_solve_step", "ba_lm", "ba_point_status",
+            "select_candidates", "activation", "refine_idepth", "activation_scatter",
+            "depth_maps", "marg_policy", "marg_fold")
+    assert all(counts[name] > 0 for name in path), counts
