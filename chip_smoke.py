@@ -87,7 +87,14 @@ Phases, one line each with its time:
    K7, K8 (both passes, two runs equal), K10, K11, K15p and K15 and, with the
    next frame pushed, K12–K14 (the pairing sampling the C-channel patches,
    equal entry by entry) and K16, each with its C = 3 time, device µs and
-   bound under ``"c3"`` in its row of the JSON line;
+   bound under ``"c3"`` in its row of the JSON line.  Last, K1, K3 (level
+   1's 5 hypotheses a sequence, level 0's one, the re-track's 105 for two of
+   the sequences), K4 and K5 over B = 4 sequences (trackers bootstrapped on
+   offset copies of the corridor) in one launch each, every sequence equal
+   to the bit to its own launch on the same inputs, with host reads an
+   error, two runs equal; each timed beside its four solo calls and its
+   plain version with the leading axis, with its device µs and its bound
+   for B = 4, under ``"b4"`` in its row;
 5. track — the main path: a 6-frame known-pose bootstrap, then
    ``PipelinedTracker`` over frames 6..119 at the bench's standart.yaml
    operating point; every kernel of the path must have launched (K1 and K4
@@ -178,6 +185,29 @@ Phases, one line each with its time:
    its plain version in f32 (``parity.POSE_COV_F32_TOL``, the system's
    condition printed, K7 and K8 once); ``solve_window`` and ``marginalize``
    with every host synchronisation an error;
+11d. batched — ``tracker/batched_loop.py``: four streams at the standart
+   point (re-track armed) on offset copies of the corridor (stream k
+   bootstrapped on frames k..k+5, then fed 100 frames), run as one batched
+   tick a frame and each held to its solo ``PipelinedTracker`` run: poses
+   equal to the bit, or else the same keyframes but at the last tick and
+   the aligned ATE within 5e-2 m of the solo run's
+   (``tests/tracker/test_batched_loop.py``'s gates); the regular tick at
+   B = 1 and B = 4 from the same states making the same hand-written
+   launches, the same number of launch calls (kernels, copies, sets: the
+   host's calls the profiler records, the most of 3 sessions; a session can
+   lose device records, so these are not counted) and of aten operators; the
+   first stage at which a batched tick would part from the solo ticks; K1,
+   K3, K4 and K5 a regular tick; host syncs a tick beside the standart
+   path's a frame; the keyframe backend's launches a keyframe; aggregate
+   frames/s at B = 1, 2 and 4 (8 warm, 40 timed ticks) with the device's
+   busy share (15 profiled ticks), each of those runs' sequences held to its
+   solo run too;
+11e. parallel — ``parallel/``: the landmark-sharded BA step on two gloo
+   ranks sharing the card (``lm`` = 2, CUDA tensors, which gloo reduces) on
+   the dense parity window, each rank's eps and energy within the JAX DCN
+   test's 1e-3 of the single-process step (its measure: the largest
+   difference over max(1, the largest entry)), each rank's K7, K8 and K9
+   launched, the step timed on each rank;
 12. e2e, e2e-exposure — ``tests/tracker/test_monocular_e2e.py``'s two runs
    (240×320, 40 frames, 8-frame bootstrap) in f32 with that test's gates;
    each tick of the exposure run is also replayed from the card's state
@@ -245,6 +275,17 @@ import warnings
 import numpy as np
 
 BA_FRAMES = 14   # known-pose frames after the bootstrap, before the BA parity window
+# [batched]: sequences (offset copies of the corridor), tracked frames each;
+# the timed runs' warm, timed and profiled ticks at B = 1, 2, 4; the gate of
+# tests/tracker/test_batched_loop.py on a run that is not the solo one to the
+# bit (ATE against the solo run's, m)
+BATCH, BATCHED_FRAMES = 4, 100
+BATCH_WARM_TICKS, BATCH_TIMED_TICKS, BATCH_PROFILED_TICKS = 8, 40, 15
+BATCHED_ATE_MARGIN = 5e-2
+# profiler sessions of one regular tick (its launches: the most launch calls)
+REGULAR_SESSIONS = 3
+# [parallel]: tests/parallel/test_dcn_two_process.py's gate, eps and energy
+PARALLEL_RTOL = 1e-3
 RMSE_GATE, MAX_GATE, SCALE_GATE, FAST_RMSE_GATE = 2.2e-2, 3.5e-2, 0.1, 3.0e-2
 # published peaks of one H100 SXM: HBM bytes/s, f32 FLOP/s outside the tensor cores
 PEAK_BYTES, PEAK_FLOPS = 3.35e12, 67e12
@@ -425,8 +466,10 @@ def device_us(torch, fn, reps=20):
 
 def wrapper_work(torch, fn):
     """One call of ``fn`` under the profiler → (the aten operators it runs on
-    the host, by name; the kernels it runs on the device)."""
-    from dsopp_tpu_torch.testing.profiling import profiled
+    the host, by name; the kernels, copies and sets it puts on the device,
+    counted by the host's launch calls: a session can lose device records,
+    ``testing/profiling.py``)."""
+    from dsopp_tpu_torch.testing.profiling import launch_records, profiled
 
     fn()
     torch.cuda.synchronize()
@@ -435,8 +478,7 @@ def wrapper_work(torch, fn):
         fn()
         torch.cuda.synchronize()
     ops = sorted(e.name for e in prof.events() if e.name.startswith("aten::"))
-    device = sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
-    return ops, device
+    return ops, launch_records(prof)["host"]
 
 
 def kernel_split(torch, fn, reps=20):
@@ -581,6 +623,8 @@ def parity(seq, cfg, torch, card):
     tracker = bootstrap(seq, path_config("dense"))
     parity_ba(seq, tracker, torch, rows, "dense", every=1,
               min_frames=12, timed=("ba_solve_step", "ba_lm", "ba_point_status"))
+    # the [parallel] phase's window: the dense parity window
+    dense = (tracker.window, tracker.models[0], tracker.pba_opts)
     parity_epipolar(seq, tracker, INIT_FRAMES + BA_FRAMES, torch, rows, "dense")
     parity_flow(seq, tracker, INIT_FRAMES + BA_FRAMES, torch, rows, "dense")
     parity_keyframe(seq, tracker, INIT_FRAMES + BA_FRAMES, torch, rows, "dense")
@@ -591,10 +635,11 @@ def parity(seq, cfg, torch, card):
         rows[name]["c3"] = row
     parity_gather(torch, rows)
     parity_photometric(torch, rows, card)
+    parity_batched(seq, cfg, torch, rows)
     for name, row in rows.items():
         log(f"  {name}: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, bound "
             f"{row['bound_ms']:.5f} ms ({row['bound_by']}) | {card}")
-    return rows
+    return rows, dense
 
 
 def parity_channels(seq, torch):
@@ -2773,6 +2818,443 @@ def outputs(seq, torch, kernels, card):
     return st
 
 
+def parity_batched(seq, cfg, torch, rows):
+    """K1, K3, K4 and K5 over B = ``BATCH`` sequences in one call (the batched
+    tick's), on trackers bootstrapped on offset copies of the corridor: each
+    case's one launch equal to the bit to B solo launches on the same inputs,
+    with host reads an error, two runs equal; its time beside the B solo
+    launches', the plain version's with the leading axis, its device µs and
+    its bound recomputed for B, under ``"b4"`` in the kernel's row."""
+    from dsopp_tpu_torch import kernels
+    from dsopp_tpu_torch.features import pyramid
+    from dsopp_tpu_torch.testing import batched as tb
+    from dsopp_tpu_torch.testing.paths import INIT_FRAMES
+    from dsopp_tpu_torch.tracker import depth_estimation as de
+    from dsopp_tpu_torch.tracker import depth_map as dm
+
+    trackers = [tb.offset_bootstrap(seq, cfg, k) for k in range(BATCH)]
+    images = seq.images[INIT_FRAMES:INIT_FRAMES + BATCH]     # frame k + 6 of stream k
+    cases = tb.kernel_cases(trackers, images)
+    for name, (fn, solos, plain, rows_per) in cases.items():
+        kernel = name.split()[0]
+        before = kernels.counts()[kernel]
+        out = no_host_reads(torch, fn)
+        launches = kernels.counts()[kernel] - before
+        equal = tb.case_equal(name, out, [f() for f in solos], rows_per)
+        again = tb.case_equal(name, fn(), [f() for f in solos], rows_per)
+        seqs, per = rows_per
+        log(f"  {kernel} at B = {BATCH} ({name}, sequences {list(seqs)}"
+            f"{f', {per} hypotheses each' if per else ''}): {launches} launch,"
+            f" {'equal' if equal else 'NOT equal'} to the bit to {len(solos)} solo launches,"
+            f" two runs {'equal' if again else 'differ'}")
+        require(launches == 1, f"{name} at B = {BATCH}: {launches} launches")
+        require(equal and again, f"{name} at B = {BATCH} differs from its solo launches")
+        if name in ("align_level level 0", "align_level re-track"):
+            continue
+        lp, maps = trackers[0].level_points, None
+        if kernel == "pyramid_maps":
+            maps = out
+            b = bound(nbytes(images, *maps), 12 * sum(m[:, 0].numel() for m in maps))
+        elif kernel == "align_level":
+            iters, nv = out.iterations.double(), out.num_valid.double()
+            ops = (float(((iters + 1) * nv).sum()) * OPS_ALIGN_POINT
+                   + float(iters.sum()) * OPS_ALIGN_SOLVE)
+            map1 = pyramid.build_pyramid_maps(images, 2)[1]
+            nvs = nv.reshape(BATCH, -1).max(dim=1).values
+            sampled = sum(min(nbytes(map1[i]), 48 * int(nvs[i])) for i in range(BATCH))
+            b = bound(BATCH * (nbytes(*lp[1]) + 5 * 13 * 4) + sampled, ops)
+        elif kernel == "epipolar_update":
+            st = [t.immature for t in trackers]
+            n_act = sum(int((imm.valid & (imm.status != de.STATUS_OOB)
+                             & (imm.status != de.STATUS_OUTLIER)).sum()) for imm in st)
+            sampled = min(BATCH * nbytes(images[0]), n_act * 32 * 8 * 16)
+            frame = BATCH * sum(nbytes(x) for x in (trackers[0].window.t_lin_q,
+                                                    trackers[0].window.t_lin_t,
+                                                    trackers[0].window.affine0,
+                                                    trackers[0].window.exposure))
+            b = bound(sum(nbytes(*imm) for imm in st) + frame + sampled
+                      + nbytes(*(getattr(out, f) for f in ("idepth_min", "idepth_max", "status",
+                                                          "traced", "uniqueness",
+                                                          "search_interval"))),
+                      OPS_EPIPOLAR_POINT * n_act)
+        else:
+            pts = [t.flow_points for t in trackers]
+            n_valid = sum(int((p.valid & (p.idepth > 1e-6)).sum()) for p in pts)
+            b = bound(sum(nbytes(p.uv, p.idepth, p.valid) for p in pts)
+                      + BATCH * (28 + 20 + 64 + 4 * dm.STATS), OPS_FLOW_POINT * n_valid)
+        plain_out = plain()
+        err = max((float((x.float() - y.float()).abs().max()) for x, y in
+                   zip(tb.flat(out), tb.flat(plain_out)) if x.is_floating_point()), default=0.0)
+        row = dict(ms=cuda_ms(fn), solo_ms=cuda_ms(lambda: [f() for f in solos]),
+                   plain_ms=cuda_ms(plain, reps=3 if kernel == "align_level" else 20),
+                   device_us=device_us(torch, fn), launches_a_call=launches,
+                   equal_to_solo_launches=equal, max_abs_err=err, batch=BATCH, **b,
+                   library_ms=None)
+        rows[kernel]["b4"] = row
+        log(f"  {kernel} at B = {BATCH}: one call {row['ms']:.4f} ms, {BATCH} solo calls"
+            f" {row['solo_ms']:.4f} ms, plain with the leading axis {row['plain_ms']:.4f} ms"
+            f" (max abs diff {err:.3g}), {fmt_us(row['device_us'])}, bound"
+            f" {row['bound_ms']:.5f} ms ({row['bound_by']})")
+
+
+def batched_run(seq, cfg, offsets, ticks, torch, kernels, label=None, warm=0, profiled_ticks=0):
+    """``BatchedPipelinedTracker`` over len(offsets) offset copies of the
+    corridor (stream k bootstrapped on frames k..k+5, then fed frames
+    k+6 ...): ``warm`` untimed ticks, ``ticks`` timed ones with the launch
+    counts set to 0 just before and read just after, the K1, K3, K4 and K5
+    launches of each tick, the keyframe backend's launches of each keyframe,
+    every sequence's poses and keyframes; with ``label`` the host syncs
+    counted (sync debug "warn" outside the BA solve and the policy-to-fold
+    span, which run with it "error"); then ``profiled_ticks`` under the
+    profiler (the device's busy time a tick)."""
+    from dsopp_tpu_torch.testing import batched as tb
+    from dsopp_tpu_torch.testing.paths import INIT_FRAMES
+    from dsopp_tpu_torch.testing.profiling import profiled
+    from dsopp_tpu_torch.tracker import batched_loop as bl
+    from dsopp_tpu_torch.tracker import device_loop, fused_keyframe
+
+    b = len(offsets)
+    trackers = [tb.offset_bootstrap(seq, cfg, k) for k in offsets]
+    pipe = bl.BatchedPipelinedTracker(trackers, flush_every=16)
+    names = ("pyramid_maps", "align_level", "epipolar_update", "flow_statistic")
+    per_tick, per_keyframe, poses, keyframes, escalated = [], [], [], [], []
+    kf_update = bl.keyframe_update
+    solve_loop = fused_keyframe._solve_loop_device
+    flags, marginalize = device_loop.flags_device, device_loop._marginalize_device
+
+    def counted_update(*args, **kwargs):
+        before = kernels.counts()
+        out = kf_update(*args, **kwargs)
+        per_keyframe.append({k: v - before[k] for k, v in kernels.counts().items()
+                             if v != before[k]})
+        return out
+
+    def solve_without_host_reads(window, model, opts):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return solve_loop(window, model, opts)
+        finally:
+            torch.cuda.set_sync_debug_mode("warn" if label else "default")
+
+    def flags_without_host_reads(*args):
+        torch.cuda.set_sync_debug_mode("error")
+        return flags(*args)
+
+    def marginalize_without_host_reads(*args):
+        try:
+            return marginalize(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode("warn" if label else "default")
+
+    def tick(j):
+        i = INIT_FRAMES + j
+        fids = [k + i for k in offsets]
+        before = kernels.counts()
+        diag = pipe.tick(fids, [float(seq.timestamps[f]) for f in fids],
+                         seq.images[fids[0]:fids[0] + b] if list(offsets) == list(range(b))
+                         else seq.images[fids])
+        per_tick.append((any(diag.is_keyframe), any(diag.escalated),
+                         tuple(kernels.counts()[n] - before[n] for n in names)))
+        poses.append(diag.pose_t)
+        keyframes.append(diag.is_keyframe)
+        escalated.append(diag.escalated)
+
+    for j in range(warm):
+        tick(j)
+    pipe.drain()
+    per_tick.clear()
+    bl.keyframe_update = counted_update
+    fused_keyframe._solve_loop_device = solve_without_host_reads
+    device_loop.flags_device = flags_without_host_reads
+    device_loop._marginalize_device = marginalize_without_host_reads
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    with warnings.catch_warnings(record=True) as syncs:
+        warnings.simplefilter("always")
+        if label:
+            torch.cuda.set_sync_debug_mode("warn")
+        try:
+            t0 = time.perf_counter()
+            for j in range(warm, warm + ticks):
+                tick(j)
+            pipe.drain()
+            torch.cuda.synchronize()
+            elapsed = time.perf_counter() - t0
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+            bl.keyframe_update = kf_update
+            fused_keyframe._solve_loop_device = solve_loop
+            device_loop.flags_device, device_loop._marginalize_device = flags, marginalize
+    counts = kernels.counts()
+    sites = collections.Counter(
+        f"{os.path.relpath(w.filename, os.path.dirname(os.path.abspath(__file__)))}:{w.lineno}"
+        for w in syncs if "synchroniz" in str(w.message))
+    busy_ms = None
+    if profiled_ticks:
+        with profiled([torch.profiler.ProfilerActivity.CPU,
+                       torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for j in range(warm + ticks, warm + ticks + profiled_ticks):
+                tick(j)
+            torch.cuda.synchronize()
+        device = sum(getattr(e, "self_device_time_total", 0) for e in prof.key_averages())
+        busy_ms = device / 1e3 / profiled_ticks if device > 0 else None
+    pipe.finalize()
+    return dict(batch=b, ticks=ticks, seconds=elapsed, fps=b * ticks / elapsed,
+                ms_per_tick=1e3 * elapsed / ticks, counts=counts, per_tick=per_tick,
+                per_keyframe=per_keyframe, host_syncs=sum(sites.values()),
+                host_sync_sites=dict(sites.most_common(8)), busy_ms_per_tick=busy_ms,
+                poses=poses, keyframes=keyframes, escalated=escalated, trackers=trackers)
+
+
+def regular_launches(run):
+    """{escalation outcome: the distinct (K1, K3, K4, K5) launches of the
+    run's ticks on which no sequence took a keyframe}."""
+    out = {}
+    for kf, esc, counts in run["per_tick"]:
+        if not kf:
+            out.setdefault("escalated" if esc else "no escalation", set()).add(counts)
+    return {k: sorted(v) for k, v in out.items()}
+
+
+def hold_to_solo(seq, run, k, solo, torch, label):
+    """Sequence ``k`` of a batched run against its solo run over the frames
+    both tracked: its poses equal to the bit, or (the JAX batched test's gate)
+    the same keyframes but at the last tick and the aligned ATE within
+    ``BATCHED_ATE_MARGIN`` of the solo run's."""
+    from dsopp_tpu_torch.testing.paths import INIT_FRAMES
+
+    frames = len(run["poses"])
+    got = torch.stack([p[k] for p in run["poses"]])
+    want = solo["poses"][:frames]
+    kf_b = [kf[k] for kf in run["keyframes"]]
+    kf_s = solo["keyframes"][:frames]
+    equal = torch.equal(got, want)
+    differ = (got != want).any(dim=-1).nonzero()
+    truth = seq.poses_t[k + INIT_FRAMES:k + INIT_FRAMES + frames]
+    ate_b, ate_s = (float(np.sqrt(np.mean(sim3_aligned_errors(x.double().cpu().numpy(),
+                                                               truth)[0] ** 2)))
+                    for x in (got, want))
+    same_kf = kf_b[:-1] == kf_s[:-1]
+    gap = float((got - want).norm(dim=-1).max())
+    parted = ("" if equal else f" from frame {k + INIT_FRAMES + int(differ[0])} (largest gap"
+                               f" {gap:.3g} m)")
+    same = "at every tick" if kf_b == kf_s else "but at the last tick" if same_kf else "NOT"
+    log(f"[batched] {label}, sequence {k} (frames {k + INIT_FRAMES}.."
+        f"{k + INIT_FRAMES + frames - 1}): poses {'equal to the bit to' if equal else 'differ from'}"
+        f" its solo run{parted}, keyframes {sum(kf_b)} (solo {sum(kf_s)}, the same {same}),"
+        f" escalations {sum(e[k] for e in run['escalated'])} (solo"
+        f" {sum(solo['escalated'][:frames])}), aligned ATE RMSE {ate_b:.5f} m (solo"
+        f" {ate_s:.5f} m)")
+    if not equal:
+        require(same_kf, f"[batched] {label}, sequence {k}: keyframes differ from its solo run")
+        require(abs(ate_b - ate_s) < BATCHED_ATE_MARGIN,
+                f"[batched] {label}, sequence {k}: ATE {ate_b:.5f} m against solo {ate_s:.5f} m")
+    return dict(equal=equal, ate=ate_b, solo_ate=ate_s, keyframes=sum(kf_b),
+                solo_keyframes=sum(kf_s), same_keyframes=same_kf, max_gap=gap)
+
+
+def regular_tick_launches(args, torch, kernels):
+    """``REGULAR_SESSIONS`` profiler sessions of one regular tick
+    ``fused_regular_tick(*args)`` → its hand-written launches and escalation,
+    and of the session with the most host launch calls
+    (``testing/profiling.py``'s ``launch_records``: a session can lose
+    device records, never a call it makes): its launch calls, device
+    records, aten operators (those the tick calls, not those an operator
+    calls inside), and the operators of its calls that have no device
+    record; every session's (launch calls, device records)."""
+    from dsopp_tpu_torch.testing.profiling import launch_records, profiled
+    from dsopp_tpu_torch.tracker.fused_tick import fused_regular_tick
+
+    best, sessions = None, []
+    for _ in range(REGULAR_SESSIONS):
+        kernels.reset_counts()
+        with profiled([torch.profiler.ProfilerActivity.CPU,
+                       torch.profiler.ProfilerActivity.CUDA]) as prof:
+            out = fused_regular_tick(*args)
+            torch.cuda.synchronize()
+        rec = launch_records(prof)
+        rec["aten"] = [e.name for e in prof.events() if e.name.startswith("aten::") and not (
+            e.cpu_parent is not None and e.cpu_parent.name.startswith("aten::"))]
+        rec["kernels"] = {k: v for k, v in kernels.counts().items() if v}
+        sessions.append((rec["host"], rec["device"]))
+        if best is None or rec["host"] > best["host"]:
+            best = rec
+    return {"kernels": best["kernels"], "launch calls": best["host"],
+            "device records": best["device"], "aten": len(best["aten"]),
+            "escalated": any(out.escalated), "no device record": dict(best["unmatched_ops"]),
+            "sessions": sessions, "names": best["names"],
+            "ops": collections.Counter(best["aten"])}
+
+
+def batched(seq, torch, kernels, card, standart_syncs):
+    """The batched tick: ``BATCH`` offset copies of the corridor at the
+    standart point (2000 points, the re-track armed), each against its solo
+    run; the regular tick's launches at B = 1 and B = 4; host syncs a tick;
+    the keyframe backend's launches a keyframe; aggregate frames/s at B = 1,
+    2 and 4 with the device's busy share."""
+    from dsopp_tpu_torch.testing import batched as tb
+    from dsopp_tpu_torch.testing.paths import INIT_FRAMES, standart_config
+    from dsopp_tpu_torch.tracker import batched_loop as bl
+    from dsopp_tpu_torch.tracker.device_loop import PipelinedTracker
+
+    cfg = standart_config()
+    require(cfg.use_rotation_perturbations, "[batched] the re-track is not armed")
+    frames = BATCHED_FRAMES
+    require(INIT_FRAMES + BATCH - 1 + frames <= seq.images.shape[0], "[batched] too few frames")
+    require(BATCH_WARM_TICKS + BATCH_TIMED_TICKS + BATCH_PROFILED_TICKS <= frames,
+            "[batched] the timed runs outrun the solo runs")
+    t0 = time.perf_counter()
+    solo = []
+    for k in range(BATCH):
+        tracker = tb.offset_bootstrap(seq, cfg, k)
+        pipe = PipelinedTracker(tracker, flush_every=16)
+        diags = [pipe.tick(i, float(seq.timestamps[i]), seq.images[i])
+                 for i in range(k + INIT_FRAMES, k + INIT_FRAMES + frames)]
+        pipe.finalize()
+        solo.append(dict(poses=torch.stack([d.pose_t for d in diags]),
+                         keyframes=[d.is_keyframe for d in diags],
+                         escalated=[d.escalated for d in diags]))
+    solo_s = time.perf_counter() - t0
+
+    # the first tick's stages, batched against solo on the same states
+    trackers = [tb.offset_bootstrap(seq, cfg, k) for k in range(BATCH)]
+    first = tb.stage_diff([PipelinedTracker(t).state for t in trackers],
+                          seq.images[INIT_FRAMES:INIT_FRAMES + BATCH], trackers[0].models,
+                          trackers[0].loop_config())
+    # the regular tick at B = 1 and B = 4 from the same states: hand-written
+    # launches, launch calls and aten operators under the profiler
+    loop, models = trackers[0].loop_config(), trackers[0].models
+    states = [PipelinedTracker(t).state for t in trackers]
+    regular = {}
+    for b in (1, BATCH):
+        args = tb.regular_tick_args(states[:b], seq.images[INIT_FRAMES:INIT_FRAMES + b],
+                                    models, loop)
+        bl.fused_regular_tick(*args)
+        torch.cuda.synchronize()
+        regular[b] = regular_tick_launches(args, torch, kernels)
+    shown = {b: {k: v for k, v in r.items() if k not in ("names", "ops")}
+             for b, r in regular.items()}
+    # torch picks an elementwise kernel's variant (vectorized, unrolled) by its
+    # sizes: the names may differ where the counts agree
+    variants = sum((regular[1]["names"] - regular[BATCH]["names"]).values())
+    log(f"[batched] the regular tick from the bootstrap states: B = 1 {shown[1]}, B ="
+        f" {BATCH} {shown[BATCH]}; {variants} of its device kernels are another variant of"
+        f" the same torch kernel at B = {BATCH}; operators only at B = 1"
+        f" {dict(regular[1]['ops'] - regular[BATCH]['ops'])}, only at B = {BATCH}"
+        f" {dict(regular[BATCH]['ops'] - regular[1]['ops'])}; the first tick's stages part"
+        f" from the solo ticks at: {first} | {card}")
+    if regular[1]["escalated"] == regular[BATCH]["escalated"]:
+        for key in ("kernels", "launch calls", "aten"):
+            require(regular[1][key] == regular[BATCH][key],
+                    f"[batched] the regular tick's {key} differ: B = 1 {regular[1][key]},"
+                    f" B = {BATCH} {regular[BATCH][key]}")
+
+    t0 = time.perf_counter()
+    run = batched_run(seq, cfg, range(BATCH), frames, torch, kernels, label="batched")
+    log(f"[batched] {BATCH} sequences x {frames} frames in {run['seconds']:.2f} s"
+        f" ({run['fps']:.3f} frames/s aggregate), the {BATCH} solo runs {solo_s:.2f} s with"
+        f" their bootstraps ({time.perf_counter() - t0:.2f} s with the batched bootstraps)")
+    missing = [name for name in PATH_KERNELS if run["counts"][name] == 0]
+    require(not missing, f"[batched] kernels of the path never launched: {missing}")
+    results = [hold_to_solo(seq, run, k, solo[k], torch, f"B = {BATCH}") for k in range(BATCH)]
+    kf_ticks = sum(1 for kf in run["keyframes"] if any(kf))
+    desync = sum(1 for kf in run["keyframes"] if any(kf) and not all(kf))
+    log(f"[batched] keyframes on {kf_ticks} of {frames} ticks, {desync} of them not on every"
+        f" sequence; regular ticks' (K1, K3, K4, K5) launches at B = {BATCH}:"
+        f" {regular_launches(run)}")
+    kf_mean = collections.defaultdict(float)
+    for launched in run["per_keyframe"]:
+        for name, n in launched.items():
+            kf_mean[name] += n / max(len(run["per_keyframe"]), 1)
+    log(f"[batched] the keyframe backend's launches a keyframe (mean over"
+        f" {len(run['per_keyframe'])} keyframes): {dict(sorted(kf_mean.items()))}")
+    syncs_tick = run["host_syncs"] / frames
+    log(f"[batched] {syncs_tick:.3f} host syncs a tick of {BATCH} frames"
+        f" ({syncs_tick / BATCH:.3f} a frame; the standart path's {standart_syncs:.3f} a frame),"
+        f" by line: {run['host_sync_sites']} | {card}")
+
+    rates = {}
+    for b in (1, 2, BATCH):
+        r = batched_run(seq, cfg, range(b), BATCH_TIMED_TICKS, torch, kernels,
+                        warm=BATCH_WARM_TICKS, profiled_ticks=BATCH_PROFILED_TICKS)
+        busy = None if r["busy_ms_per_tick"] is None else r["busy_ms_per_tick"] / r["ms_per_tick"]
+        rates[b] = dict(fps=r["fps"], ms_per_tick=r["ms_per_tick"],
+                        busy_ms_per_tick=r["busy_ms_per_tick"], busy_share=busy,
+                        regular=regular_launches(r),
+                        equal=[hold_to_solo(seq, r, k, solo[k], torch, f"B = {b} timed")["equal"]
+                               for k in range(b)])
+        shown = ("not measured" if busy is None else
+                 f"{r['busy_ms_per_tick']:.3f} ms a tick = {100 * busy:.1f} %")
+        log(f"[batched] B = {b}: {r['fps']:.3f} frames/s aggregate ({r['ms_per_tick']:.3f} ms a"
+            f" tick over {BATCH_TIMED_TICKS} ticks after {BATCH_WARM_TICKS}), device busy {shown}"
+            f" over {BATCH_PROFILED_TICKS} profiled ticks; regular ticks' (K1, K3, K4, K5)"
+            f" launches {rates[b]['regular']} | {card}")
+    run.update(results=results, rates=rates, regular=regular, first_stage=first)
+    return run
+
+
+def parallel(window, model, opts, torch, kernels, card, device="cuda"):
+    """The landmark-sharded BA step on two gloo ranks sharing the card
+    (``lm`` = 2, CUDA tensors: gloo reduces them; a build that refuses them
+    fails the phase) on the dense parity window, against the single-process
+    step: eps and energy within the JAX DCN test's 1e-3 relative, each rank's
+    K7, K8 and K9 launches, the step's time."""
+    import tempfile
+
+    from dsopp_tpu_torch.parallel.sharded import _single_step
+    from dsopp_tpu_torch.testing import parallel_check as pc
+
+    single = _single_step(window, model, pc.REG, opts)
+    with tempfile.TemporaryDirectory(prefix="dsopp_gloo_") as folder:
+        payload = os.path.join(folder, "window.pt")
+        cpu = window.__class__(**{k: (None if v is None else v.cpu())
+                                  for k, v in vars(window).items()})
+        torch.save(dict(window=cpu, model=model, opts=opts), payload)
+        t0 = time.perf_counter()
+        pc.spawn(2, "card", payload, folder, device=device)
+        ranks = [torch.load(os.path.join(folder, f"rank{r}.pt"), weights_only=False)
+                 for r in range(2)]
+        seconds = time.perf_counter() - t0
+    n = window.num_landmark_slots // 2
+    gaps = {}
+
+    def rel(a, b):
+        return float((a.double() - b.double().cpu()).abs().max()
+                     / max(float(b.double().abs().max()), 1e-30))
+
+    def dcn(a, b):
+        """tests/parallel/test_dcn_two_process.py:73-74's measure: the largest
+        difference over max(1, the largest entry)."""
+        return float((a.double() - b.double().cpu()).abs().max()
+                     / max(1.0, float(b.double().abs().max())))
+
+    for r, out in enumerate(ranks):
+        eps, idepth, step_sq, energy, n_valid = out["step"]
+        _, lm = out["coords"]
+        gaps[r] = dict(eps=dcn(eps, single[0]), energy=dcn(energy, single[2]),
+                       eps_rel=rel(eps, single[0]),
+                       idepth_rel=rel(idepth, single[1][:, lm * n:(lm + 1) * n]),
+                       energy_rel=rel(energy, single[2]), step_sq_rel=rel(step_sq, single[4]),
+                       n_valid=(int(n_valid), int(single[3])))
+        log(f"[parallel] rank {r} (lm shard {lm}, {n} landmark slots): gap to the"
+            f" single-process step by the DCN test's measure: eps {gaps[r]['eps']:.3g}, energy"
+            f" {gaps[r]['energy']:.3g} (gate {PARALLEL_RTOL}); relative to the largest entry:"
+            f" eps {gaps[r]['eps_rel']:.3g}, idepth {gaps[r]['idepth_rel']:.3g}, energy"
+            f" {gaps[r]['energy_rel']:.3g}, step^2 {gaps[r]['step_sq_rel']:.3g}; valid"
+            f" {gaps[r]['n_valid'][0]} (single {gaps[r]['n_valid'][1]}); launches"
+            f" {out['launches']} (all: {out['all_launches']}) | {card}")
+        require(gaps[r]["eps"] < PARALLEL_RTOL and gaps[r]["energy"] < PARALLEL_RTOL,
+                f"[parallel] rank {r}: eps {gaps[r]['eps']:.3g}, energy {gaps[r]['energy']:.3g}")
+        require(all(v >= 1 for v in out["launches"].values()),
+                f"[parallel] rank {r} launched {out['launches']}")
+    log(f"[parallel] two ranks' step in {seconds:.2f} s with the processes' start; the step"
+        f" again, ms from the ranks' barrier to its end: {[out['step_ms'] for out in ranks]}"
+        f" | {card}")
+    return dict(gaps=gaps, step_ms=[out["step_ms"] for out in ranks],
+                counts={k: sum(out["all_launches"].get(k, 0) for out in ranks)
+                        for k in kernels.counts()})
+
+
 def parent_bits(card):
     """Each case of ``testing/bits.py``, digest by digest, against the tree
     before its redesign; pose ties (``k4`` only: equal to the parent's chain
@@ -2864,7 +3346,7 @@ def main():
 
         cfg = paths.standart_config()
         t0 = time.perf_counter()
-        rows = parity(seq, cfg, torch, card)
+        rows, dense = parity(seq, cfg, torch, card)
         require(set(rows) == set(SOURCES), f"parity rows {sorted(rows)}")
         log(f"[parity] {len(rows)} kernels within tolerance ({time.perf_counter() - t0:.2f} s)")
 
@@ -2998,6 +3480,13 @@ def main():
         t0 = time.perf_counter()
         so = outputs(seq, torch, kernels, card)
         log(f"[outputs] phase {time.perf_counter() - t0:.2f} s")
+        t0 = time.perf_counter()
+        sb = batched(seq, torch, kernels, card, st["host_syncs_per_frame"])
+        log(f"[batched] phase {time.perf_counter() - t0:.2f} s")
+        t0 = time.perf_counter()
+        sp = parallel(*dense, torch, kernels, card)
+        del dense
+        log(f"[parallel] phase {time.perf_counter() - t0:.2f} s")
         e2e(torch, card, exposure=False)
         e2e(torch, card, exposure=True)
         parent_bits(card)
@@ -3008,7 +3497,7 @@ def main():
     # a kernel folded into another (COMPUTED_IN) has no launch of its own
     runs = dict(track=st, track_embedder=se, track_fast=sf, track_dense=sd, track_masked=sm,
                 track_ledger=sl, track_sensor=ss, app=sa, outputs_app=so["app"],
-                outputs_resume=so["resume"])
+                outputs_resume=so["resume"], batched=sb, parallel=sp)
     result = {"kernels": [
         dict(name=name, route="cuda", source=SOURCES[name][0], replaces=SOURCES[name][1],
              launches=sum(run["counts"].get(name, 0) for run in runs.values()),

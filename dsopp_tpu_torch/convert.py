@@ -21,6 +21,10 @@ arrays stay bool, integer arrays become int32.
   ``energy_marg + energy_marg_lo``).
 
 ``fej_cache`` and ``evaluation`` keep the channel axis, [K, K, N, C, P].
+``window`` also takes the windows the JAX package builds outside a tracker
+(``__graft_entry__._tiny_problem``'s, the parallel tests'), and
+``stacked_device_tracker_state`` a JAX state stacked over B sequences
+(``dsopp_tpu/tracker/batched_loop.py::stack_states``).
 """
 
 from __future__ import annotations
@@ -157,3 +161,25 @@ def device_tracker_state(fields: dict, dtype=torch.float64, device=None) -> Devi
         **{k: tensor(fields[k], **kw) for k in (
             "last_q", "last_t", "prev_q", "prev_t", "last_affine", "rmse_last0",
             "kf_rmse", "min_distance")})
+
+
+def _sequence_fields(fields, b: int):
+    """Sequence ``b``'s slice of stacked state fields (dicts, lists, tuples of
+    arrays)."""
+    if isinstance(fields, dict):
+        return {k: _sequence_fields(v, b) for k, v in fields.items()}
+    if isinstance(fields, (list, tuple)):
+        return type(fields)(_sequence_fields(v, b) for v in fields)
+    return np.asarray(fields)[b]
+
+
+def stacked_device_tracker_state(fields: dict, dtype=torch.float64,
+                                 device=None) -> DeviceTrackerState:
+    """A JAX ``DeviceTrackerState`` stacked over B sequences (its fields as
+    :func:`device_tracker_state` takes them, each with a leading [B] axis) →
+    the port's stacked state (``tracker/batched_loop.py::stack_states``)."""
+    from dsopp_tpu_torch.tracker.batched_loop import stack_states
+
+    batch = np.asarray(fields["last_q"]).shape[0]
+    return stack_states([device_tracker_state(_sequence_fields(fields, b), dtype, device)
+                         for b in range(batch)])

@@ -37,6 +37,15 @@
 // Deterministic: fixed partition, fixed reduction order, no atomics (the
 // caller takes an argmin over energies).  A refused cluster launch returns
 // its error, which the wrapper raises.
+//
+// B sequences in one launch (the batched tick): each hypothesis carries its
+// sequence's index (seq, or sequence 0 when null) and reads that sequence's
+// level points, level map and reference brightness (a_r, b_r, the exposure
+// ratio) at the sequence's offset in [B, ...] stacks; the camera is shared.
+// The cluster size is a function of the hypotheses a sequence has in the
+// launch (per_seq), not of the launch's total, so a sequence's partition,
+// arithmetic and reduction order are those of its own launch, and its
+// results are that launch's to the bit.
 
 #include <cooperative_groups.h>
 
@@ -201,7 +210,8 @@ template <bool kMulti>
 __global__ void __launch_bounds__(kThreads, 2)
 align_level_kernel(Problem prob, LmOptions o, const float* __restrict__ pose_q,
                    const float* __restrict__ pose_t, const float* __restrict__ affine,
-                   const float* __restrict__ ref, float* __restrict__ out_q,
+                   const float* __restrict__ ref, const int* __restrict__ seq,
+                   float* __restrict__ out_q,
                    float* __restrict__ out_t, float* __restrict__ out_affine,
                    float* __restrict__ out_e, int* __restrict__ out_n,
                    float* __restrict__ out_rmse, int* __restrict__ out_iters,
@@ -220,9 +230,16 @@ align_level_kernel(Problem prob, LmOptions o, const float* __restrict__ pose_q,
   const int rank = (int)cluster.block_rank();
   const int hyp = blockIdx.x / csize;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  prob.a_r = ref[0];
-  prob.b_r = ref[1];
-  prob.ratio = ref[2];
+  // this hypothesis's sequence: its points, its map and its reference
+  const int sq = seq != nullptr ? seq[hyp] : 0;
+  prob.uv += (size_t)sq * 2 * prob.n;
+  prob.idepth += (size_t)sq * prob.n;
+  prob.intensity += (size_t)sq * prob.n * prob.channels;
+  prob.valid += (size_t)sq * prob.n;
+  prob.map += (size_t)sq * 3 * prob.channels * prob.h * prob.w;
+  prob.a_r = ref[3 * sq + 0];
+  prob.b_r = ref[3 * sq + 1];
+  prob.ratio = ref[3 * sq + 2];
 
   // stage the slice; an invalid point's ray x is NaN (a NaN coordinate
   // fails the projection tests, so the pass skips both alike)
@@ -390,7 +407,10 @@ align_level_kernel(Problem prob, LmOptions o, const float* __restrict__ pose_q,
 }  // namespace
 
 // Inputs as align_residual_system (the hypotheses are the initial poses and
-// affines).  Outputs per hypothesis: pose q [.,4], t [.,3], affine [.,2],
+// affines), for B sequences: the points [B, n, ...], the map [B, 3 channels,
+// h, w], ref [B, 3], seq [num_hyp] int32 each hypothesis's sequence (null:
+// B = 1), per_seq the hypotheses a sequence has in the launch (the cluster
+// size's argument; num_hyp at B = 1).  Outputs per hypothesis: pose q [.,4], t [.,3], affine [.,2],
 // energy (with the affine priors), num_valid int32, rmse, LM iterations
 // int32.  trace: nullptr, or [num_hyp, max_iterations + 1, 5] for the
 // decision of every pass a hypothesis runs (diagnostics; rows of passes that
@@ -401,21 +421,23 @@ extern "C" int align_level(
     const float* uv, const float* idepth, const float* intensity,
     const unsigned char* valid, int n, const float* map, int h, int w, int channels,
     const float* pose_q, const float* pose_t, const float* affine,
-    const float* ref, int num_hyp, float fx, float fy, float cx, float cy,
+    const float* ref, const int* seq, int num_hyp, int per_seq, float fx, float fy,
+    float cx, float cy,
     float width, float height, float sigma, int max_iterations,
     float initial_regularizer, float function_tolerance,
     float parameter_tolerance, float affine_reg_a, float affine_reg_b,
     float reg_decrease, float reg_increase, float* out_q, float* out_t,
     float* out_affine, float* out_e, int* out_n, float* out_rmse,
     int* out_iters, float* trace, void* stream) {
-  if (num_hyp < 1 || n < 0 || channels < 1) return (int)cudaErrorInvalidValue;
+  if (num_hyp < 1 || per_seq < 1 || per_seq > num_hyp || n < 0 || channels < 1)
+    return (int)cudaErrorInvalidValue;
   const align::Problem prob = {uv, idepth, intensity, valid, n,  map,   h,
                              w,  channels, fx,     fy,        cx,    cy, width, height,
                              0.0f, 0.0f, 0.0f, sigma};
   const LmOptions o = {max_iterations,      initial_regularizer, function_tolerance,
                        parameter_tolerance, affine_reg_a,        affine_reg_b,
                        reg_decrease,        reg_increase};
-  const int csize = cluster_blocks(num_hyp);
+  const int csize = cluster_blocks(per_seq);
   const size_t bytes = (size_t)((n + csize - 1) / csize) * sizeof(float4);
   // the single-channel instance, or the one for a map of several channels;
   // each opts in to the shared memory once per device
@@ -437,7 +459,7 @@ extern "C" int align_level(
   attribute[0].val.clusterDim.z = 1;
   config.attrs = attribute;
   config.numAttrs = 1;
-  err = cudaLaunchKernelEx(&config, kernel, prob, o, pose_q, pose_t, affine, ref,
+  err = cudaLaunchKernelEx(&config, kernel, prob, o, pose_q, pose_t, affine, ref, seq,
                            out_q, out_t, out_affine, out_e, out_n, out_rmse, out_iters, trace);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();

@@ -35,6 +35,12 @@
 // of the kernel that ran them alone before (its rays divide by fx).  linspace
 // is the two-sided formula of torch.linspace.  Everything is f32.
 //
+// B sequences (the batched tick) are one launch: grid z runs over them, and
+// every [K, N] bank field, window field and frame input is read at its
+// sequence's offset in a [B, ...] stack, the target image at img_stride
+// floats a sequence.  A sequence's blocks run the code of its own launch, so
+// its outputs are that launch's to the bit.
+//
 // Validity rules kept from the TPU path exactly: samples 4s..4s+3 share one
 // 10x10 window based at floor(group-mean center) - 4; a pattern point whose
 // bilinear corners leave that window is invalid; GN reads one window at the
@@ -225,11 +231,15 @@ struct Debug {  // all null, or all set: the sweep's intermediates
 };
 
 __global__ void __launch_bounds__(32 * kWarpsPerBlock)
-epipolar_update_kernel(Banks in, int n, Frame fr, const float* __restrict__ img, int h,
-                       int w, Cam cam, float sigma, float max_search, Out out, Debug dbg) {
+epipolar_update_kernel(Banks in, int n, Frame fr, const float* __restrict__ img,
+                       size_t img_stride, int h, int w, Cam cam, float sigma,
+                       float max_search, Out out, Debug dbg) {
   __shared__ float s_pose[7];
   __shared__ float s_scale, s_b_ref;
-  const int k = blockIdx.y;
+  // the bank's index among every sequence's banks; the sequence's frame
+  const int seq = blockIdx.z;
+  const int k = seq * gridDim.y + blockIdx.y;
+  img += seq * img_stride;
   const int lane = threadIdx.x & 31;
   const int i = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
   const bool in_range = i < n;
@@ -244,8 +254,10 @@ epipolar_update_kernel(Banks in, int n, Frame fr, const float* __restrict__ img,
   const float v0 = in_range ? in.uv[2 * lm + 1] : 0.0f;
   if (threadIdx.x == 0) {
     // T_t_k = inverse(T_w_t) * T_w_k, as SE3.inverse and SE3.compose
-    const Q4 qw = {fr.pose_q[0], fr.pose_q[1], fr.pose_q[2], fr.pose_q[3]};
-    const V3 tw = {fr.pose_t[0], fr.pose_t[1], fr.pose_t[2]};
+    const float* pq = fr.pose_q + 4 * seq;
+    const float* pt = fr.pose_t + 3 * seq;
+    const Q4 qw = {pq[0], pq[1], pq[2], pq[3]};
+    const V3 tw = {pt[0], pt[1], pt[2]};
     const Q4 qi = {qw.w, -qw.x, -qw.y, -qw.z};
     const V3 rt = quat_rotate(qi, tw);
     const V3 ti = {-rt.x, -rt.y, -rt.z};
@@ -255,8 +267,8 @@ epipolar_update_kernel(Banks in, int n, Frame fr, const float* __restrict__ img,
     const V3 r2 = quat_rotate(qi, tk);
     const float pose[7] = {q.w, q.x, q.y, q.z, r2.x + ti.x, r2.y + ti.y, r2.z + ti.z};
     for (int c = 0; c < 7; ++c) s_pose[c] = pose[c];
-    const float ratio = fr.exposure[0] / fmaxf(fr.win_exposure[k], 1e-12f);
-    s_scale = ratio * expf(fr.affine_tgt[0] - fr.win_affine[2 * k]);
+    const float ratio = fr.exposure[seq] / fmaxf(fr.win_exposure[k], 1e-12f);
+    s_scale = ratio * expf(fr.affine_tgt[2 * seq] - fr.win_affine[2 * k]);
     s_b_ref = fr.win_affine[2 * k + 1];
     if (dbg.rel_pose != nullptr && blockIdx.x == 0)
       for (int c = 0; c < 7; ++c) dbg.rel_pose[7 * k + c] = pose[c];
@@ -307,7 +319,7 @@ epipolar_update_kernel(Banks in, int n, Frame fr, const float* __restrict__ img,
   const float seg_div = seg_len < 1e-12f ? 1e-12f : seg_len;
   const float dx = sgx / seg_div, dy = sgy / seg_div;
   const float slen = traced ? seg_len : fminf(seg_len, max_search);
-  const float bt = fr.affine_tgt[1];
+  const float bt = fr.affine_tgt[2 * seq + 1];
   // lanes 0..7: the pattern points' rotated rays and corrected reference
   V3 my_prp = {0.0f, 0.0f, 0.0f};
   float my_ref = 0.0f;
@@ -483,11 +495,14 @@ epipolar_update_kernel(Banks in, int n, Frame fr, const float* __restrict__ img,
 // debug outputs (all null, or all set): best sample (int32), its sweep
 // energy, second best outside the uniqueness radius, any valid sample (u8),
 // refined energy, GN shift, each [k,n], and the relative poses [k,7].
+// batch > 1: B sequences, every array above a [B, ...] stack of them, the
+// images img_stride floats apart.
 extern "C" int epipolar_update(
     const float* uv, const float* patch, const float* gradient, const float* idepth_min,
     const float* idepth_max, const int* status, const unsigned char* traced,
     const float* uniqueness, const float* search_interval, const unsigned char* valid,
-    int k, int n, const float* img, int h, int w, const float* pose_q, const float* pose_t,
+    int k, int n, int batch, const float* img, int img_stride, int h, int w,
+    const float* pose_q, const float* pose_t,
     const float* win_q, const float* win_t, const float* win_affine, const float* affine_tgt,
     const float* exposure, const float* win_exposure, float fx, float fy, float cx, float cy,
     float inv_fx, float inv_fy, float width, float height, float sigma, float max_search,
@@ -504,10 +519,11 @@ extern "C" int epipolar_update(
                    out_search_interval};
   const Debug dbg = {dbg_best, dbg_best_e, dbg_second, dbg_any, dbg_ref_e, dbg_delta,
                      dbg_pose};
+  if (batch < 1 || batch > 65535 || img_stride < 0) return (int)cudaErrorInvalidValue;
   if (k > 0 && n > 0) {
-    const dim3 grid((n + kWarpsPerBlock - 1) / kWarpsPerBlock, k);
+    const dim3 grid((n + kWarpsPerBlock - 1) / kWarpsPerBlock, k, batch);
     epipolar_update_kernel<<<grid, 32 * kWarpsPerBlock, 0, (cudaStream_t)stream>>>(
-        in, n, fr, img, h, w, cam, sigma, max_search, out, dbg);
+        in, n, fr, img, (size_t)img_stride, h, w, cam, sigma, max_search, out, dbg);
   }
   return (int)cudaGetLastError();
 }

@@ -38,6 +38,13 @@
 // stream, zero when made, left zero by every launch), so launches in stream
 // order share it and launches on two streams never do.  The projection is Pinhole.project's
 // division form (fx * x / z + cx), as the plain version rounds.
+//
+// B sequences (the batched tick) are one launch: grid y runs over them, each
+// reads its points, pose and decision inputs at its offset in [B, ...]
+// stacks and writes its row of a [B, 23] output.  Each sequence has its own
+// partials and ticket (workspace[b]), so its blocks sum in block order and
+// its last block finishes it alone: a sequence's statistics are those of its
+// own launch to the bit.
 
 #include "ba_body.cuh"
 
@@ -59,7 +66,9 @@ enum Stat {
   kStatNeed = 5, kStatRmse = 6, kStatMatrix = 7,
 };
 
-// the blocks' partials and the ticket; the ticket is zero between launches
+constexpr int kMaxBatch = 256;  // sequences of one launch (the forced flags' bits)
+
+// a sequence's blocks' partials and ticket; the ticket is zero between launches
 struct FlowWorkspace {
   double sum[kMaxBlocks][2];
   int count[kMaxBlocks][2];
@@ -67,39 +76,50 @@ struct FlowWorkspace {
 };
 
 struct Decision {
-  const float* t_kf_frame_mat;   // [4,4]
-  const float* rmse;
-  const int* num_valid;
-  const float* rmse_last0;
-  const float* kf_rmse;
+  const float* t_kf_frame_mat;   // [B,4,4]
+  const float* rmse;             // [B]
+  const int* num_valid;          // [B]
+  const float* rmse_last0;       // [B] at rmse_last0_stride floats a sequence
+  const float* kf_rmse;          // [B] at kf_rmse_stride
+  int rmse_last0_stride, kf_rmse_stride;
   float factor;
-  int force;
+  unsigned int force[kMaxBatch / 32];  // sequence b's keyframe is forced: bit b
 };
 
 __global__ void __launch_bounds__(kFlowThreads)
 flow_kernel(const float* __restrict__ uv, const float* __restrict__ idepth,
             const unsigned char* __restrict__ valid, int n, const float* __restrict__ pose_q,
             const float* __restrict__ pose_t, Camera cam, float border, Decision dec,
-            FlowWorkspace* __restrict__ ws, float* __restrict__ out) {
+            FlowWorkspace* __restrict__ workspace, float* __restrict__ out) {
   __shared__ double sum_s[2][kFlowWarps];
   __shared__ int cnt_s[2][kFlowWarps];
   __shared__ double part_sum[2][kMaxBlocks];
   __shared__ int part_cnt[2][kMaxBlocks];
   __shared__ float flow_s[2];
   __shared__ bool last;
+  // this block's sequence: its points, pose, decision inputs, output row and
+  // workspace
+  const int seq = blockIdx.y;
+  const bool decide = dec.rmse != nullptr;
+  uv += (size_t)seq * 2 * n;
+  idepth += (size_t)seq * n;
+  valid += (size_t)seq * n;
+  pose_q += 4 * seq;
+  pose_t += 3 * seq;
+  out += seq * (decide ? kStatMatrix + 16 : 2);
+  FlowWorkspace* __restrict__ ws = workspace + seq;
   const Rigid pose[2] = {
       {{pose_q[0], pose_q[1], pose_q[2], pose_q[3]}, {pose_t[0], pose_t[1], pose_t[2]}},
       {{1.0f, 0.0f, 0.0f, 0.0f}, {pose_t[0], pose_t[1], pose_t[2]}}};
-  const bool decide = dec.rmse != nullptr;
   // the decision's inputs, loaded while the points are summed (used by the
   // last block's thread 0 only)
   float rmse = 0.0f, rmse_last0 = 0.0f, kf_rmse = 0.0f;
   int num_valid = 0;
   if (decide && threadIdx.x == 0) {
-    rmse = *dec.rmse;
-    rmse_last0 = *dec.rmse_last0;
-    kf_rmse = *dec.kf_rmse;
-    num_valid = *dec.num_valid;
+    rmse = dec.rmse[seq];
+    rmse_last0 = dec.rmse_last0[seq * dec.rmse_last0_stride];
+    kf_rmse = dec.kf_rmse[seq * dec.kf_rmse_stride];
+    num_valid = dec.num_valid[seq];
   }
   double sum[2] = {0.0, 0.0};
   int cnt[2] = {0, 0};
@@ -126,8 +146,9 @@ flow_kernel(const float* __restrict__ uv, const float* __restrict__ idepth,
 
   // the frame's matrix and rmse go into the packed output unchanged
   if (decide && blockIdx.x == 0) {
-    if (threadIdx.x < 16) out[kStatMatrix + threadIdx.x] = dec.t_kf_frame_mat[threadIdx.x];
-    if (threadIdx.x == 16) out[kStatRmse] = *dec.rmse;
+    if (threadIdx.x < 16)
+      out[kStatMatrix + threadIdx.x] = dec.t_kf_frame_mat[16 * seq + threadIdx.x];
+    if (threadIdx.x == 16) out[kStatRmse] = dec.rmse[seq];
   }
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -195,7 +216,8 @@ flow_kernel(const float* __restrict__ uv, const float* __restrict__ idepth,
   const bool need = (shift > kThreshold || rmse / clamped > kMaxExcessEnergy) && reliable;
   out[kStatReliable] = reliable ? 1.0f : 0.0f;
   out[kStatRmseLast0] = reliable ? rmse : rmse_last0 * kEnergyRatio;
-  out[kStatKfRmse] = dec.force ? kf_rmse : (need ? -1.0f : kf_rmse_eff);
+  const bool force = (dec.force[seq >> 5] >> (seq & 31)) & 1u;
+  out[kStatKfRmse] = force ? kf_rmse : (need ? -1.0f : kf_rmse_eff);
   out[kStatNeed] = need ? 1.0f : 0.0f;
 }
 
@@ -204,31 +226,41 @@ flow_kernel(const float* __restrict__ uv, const float* __restrict__ idepth,
 // Points: uv [n,2], idepth [n], valid [n] u8; pose_q [4], pose_t [3] (target
 // <- reference).  The decision's inputs, all null for the flows alone:
 // t_kf_frame_mat [4,4] f32, rmse f32, num_valid int32, rmse_last0 f32,
-// kf_rmse f32 (each one value), factor = keyframe_factor, force = force_kf.
-// Output: out [2] = (flow, flow without rotation), or with the decision out
-// [23] in depth_map.py's STAT_* order: flow, flow without rotation,
-// reliable, rmse_last0', kf_rmse', need (booleans as 0 / 1), rmse and the 16
-// entries of t_kf_frame_mat.  workspace: workspace_bytes >=
-// sizeof(FlowWorkspace) of device memory, zero before the first launch on the
-// stream that owns it; every launch leaves it zero again.
+// kf_rmse f32 (each one value), factor = keyframe_factor; force: a host
+// array of the batch's force_kf flags (u8), or null for none.  Output: out
+// [2] = (flow, flow without rotation), or with the decision out [23] in
+// depth_map.py's STAT_* order: flow, flow without rotation, reliable,
+// rmse_last0', kf_rmse', need (booleans as 0 / 1), rmse and the 16 entries of
+// t_kf_frame_mat.  batch > 1 sequences: every array a [B, ...] stack of the
+// above (rmse_last0 and kf_rmse at their strides, in floats), out [B, 23]
+// ([B, 2] for the flows alone).  workspace: workspace_bytes >= batch x
+// sizeof(FlowWorkspace) of device memory, zero before the first launch on
+// the stream that owns it; every launch leaves it zero again.
 extern "C" int flow_statistic(const float* uv, const float* idepth,
-                              const unsigned char* valid, int n, const float* pose_q,
-                              const float* pose_t, float fx, float fy, float cx, float cy,
-                              float width, float height, float border,
+                              const unsigned char* valid, int n, int batch,
+                              const float* pose_q, const float* pose_t, float fx, float fy,
+                              float cx, float cy, float width, float height, float border,
                               const float* t_kf_frame_mat, const float* rmse,
                               const int* num_valid, const float* rmse_last0,
-                              const float* kf_rmse, float factor, int force,
+                              int rmse_last0_stride, const float* kf_rmse,
+                              int kf_rmse_stride, float factor, const unsigned char* force,
                               void* workspace, int workspace_bytes, float* out,
                               void* stream) {
   const bool decide = rmse != nullptr;
-  if (n < 1 || workspace == nullptr || workspace_bytes < (int)sizeof(FlowWorkspace) ||
+  if (n < 1 || batch < 1 || batch > kMaxBatch || workspace == nullptr ||
+      workspace_bytes < batch * (int)sizeof(FlowWorkspace) ||
       decide != (t_kf_frame_mat != nullptr && num_valid != nullptr &&
                  rmse_last0 != nullptr && kf_rmse != nullptr))
     return (int)cudaErrorInvalidValue;
   const ba::Camera cam = {fx, fy, cx, cy, width, height};
-  const Decision dec = {t_kf_frame_mat, rmse, num_valid, rmse_last0, kf_rmse, factor, force};
+  Decision dec = {t_kf_frame_mat, rmse, num_valid, rmse_last0, kf_rmse,
+                  rmse_last0_stride, kf_rmse_stride, factor, {}};
+  if (force != nullptr)
+    for (int b = 0; b < batch; ++b)
+      if (force[b]) dec.force[b >> 5] |= 1u << (b & 31);
   const int blocks = min((n + kFlowThreads - 1) / kFlowThreads, kMaxBlocks);
-  flow_kernel<<<blocks, kFlowThreads, 0, (cudaStream_t)stream>>>(uv, idepth, valid, n, pose_q,
+  const dim3 grid(blocks, batch);
+  flow_kernel<<<grid, kFlowThreads, 0, (cudaStream_t)stream>>>(uv, idepth, valid, n, pose_q,
                                                                 pose_t, cam, border, dec,
                                                                 (FlowWorkspace*)workspace, out);
   return (int)cudaGetLastError();

@@ -24,6 +24,15 @@
 // from its [C, h, w] channels (core/interpolate.py::build_pixel_map at C,
 // the group layout [values C | dx C | dy C]): grid z runs over the channels,
 // channel c's value, dx and dy go to planes c, C + c and 2C + c.
+//
+// B frames of B sequences (the batched tick) are B pyramids in one launch:
+// grid z runs over the frames, which a [B, h, w] source holds one after
+// another.  Level l's maps are [B, 3, h_l, w_l], the levels one after
+// another in the flat buffer, so a frame's map at a level is a contiguous
+// [3, h_l, w_l] block.  A frame's blocks run the code and the order of a
+// single frame's launch, so its maps are those of the single launch to the
+// bit.  (The channel axis cannot carry the frames: its planes interleave as
+// [values C | dx C | dy C], and its launch has one level.)
 
 #include <cuda_runtime.h>
 
@@ -45,14 +54,16 @@ __host__ __device__ constexpr int shared_floats(int levels) {
 // trip count: the level-0 loads of a thread are all issued before any lands
 template <int kLevels>
 __global__ void __launch_bounds__(kThreads)
-pyramid_kernel(const float* __restrict__ src, int h, int w, int channels,
+pyramid_kernel(const float* __restrict__ src, int h, int w, int channels, int batch,
                float* __restrict__ out) {
   constexpr int levels = kLevels;
   constexpr int halo0 = 1 << (levels - 1);
   constexpr int side0 = kTile + 2 * halo0;
   __shared__ float buf[shared_floats(kLevels)];
-  const int c = blockIdx.z;
-  src += (size_t)c * h * w;
+  // grid z: a channel of one frame (channels > 1), or a frame of the batch
+  const int c = channels > 1 ? (int)blockIdx.z : 0;
+  const int frame = channels > 1 ? 0 : (int)blockIdx.z;
+  src += (size_t)blockIdx.z * h * w;
   const int oy = blockIdx.y * kTile - halo0, ox = blockIdx.x * kTile - halo0;
 #pragma unroll
   for (int j = 0; j < (side0 * side0 + kThreads - 1) / kThreads; ++j) {
@@ -85,7 +96,7 @@ pyramid_kernel(const float* __restrict__ src, int h, int w, int channels,
     const int tile = kTile >> l, halo = halo0 >> l;
     const int y0 = blockIdx.y * tile, x0 = blockIdx.x * tile;
     const size_t plane = (size_t)hl * wl;
-    float* o = out + offset;
+    float* o = out + (size_t)batch * offset + (size_t)frame * 3 * plane;
     for (int e = threadIdx.x; e < tile * tile; e += kThreads) {
       const int ty = e / tile, tx = e - ty * tile;
       const int y = y0 + ty, x = x0 + tx;
@@ -110,22 +121,24 @@ pyramid_kernel(const float* __restrict__ src, int h, int w, int channels,
 
 }  // namespace
 
-// src: [channels, h, w] f32; out: the levels' [3 channels, h_l, w_l] maps one
-// after another, h_0 = h, h_l = h_{l-1} / 2 (likewise w), each at least 2.
-// A pyramid has one channel; a channel map has one level.
+// src: [batch, channels, h, w] f32; out: the levels' [batch, 3 channels, h_l,
+// w_l] maps one after another, h_0 = h, h_l = h_{l-1} / 2 (likewise w), each
+// at least 2.  A pyramid has one channel; a channel map has one level and
+// one frame.
 extern "C" int pyramid_maps(const float* src, int h, int w, int channels, int levels,
-                            float* out, void* stream) {
-  if (channels < 1 || levels < 1 || levels > kMaxLevels || (levels > 1 && channels != 1))
+                            int batch, float* out, void* stream) {
+  if (channels < 1 || levels < 1 || levels > kMaxLevels || batch < 1 ||
+      (channels > 1 && (levels > 1 || batch > 1)) || batch > 65535)
     return (int)cudaErrorInvalidValue;
-  const dim3 grid((w + kTile - 1) / kTile, (h + kTile - 1) / kTile, channels);
+  const dim3 grid((w + kTile - 1) / kTile, (h + kTile - 1) / kTile, channels * batch);
   const cudaStream_t s = (cudaStream_t)stream;
   switch (levels) {  // shared memory <= 48 KB at 6 levels
-    case 1: pyramid_kernel<1><<<grid, kThreads, 0, s>>>(src, h, w, channels, out); break;
-    case 2: pyramid_kernel<2><<<grid, kThreads, 0, s>>>(src, h, w, channels, out); break;
-    case 3: pyramid_kernel<3><<<grid, kThreads, 0, s>>>(src, h, w, channels, out); break;
-    case 4: pyramid_kernel<4><<<grid, kThreads, 0, s>>>(src, h, w, channels, out); break;
-    case 5: pyramid_kernel<5><<<grid, kThreads, 0, s>>>(src, h, w, channels, out); break;
-    default: pyramid_kernel<6><<<grid, kThreads, 0, s>>>(src, h, w, channels, out); break;
+    case 1: pyramid_kernel<1><<<grid, kThreads, 0, s>>>(src, h, w, channels, batch, out); break;
+    case 2: pyramid_kernel<2><<<grid, kThreads, 0, s>>>(src, h, w, channels, batch, out); break;
+    case 3: pyramid_kernel<3><<<grid, kThreads, 0, s>>>(src, h, w, channels, batch, out); break;
+    case 4: pyramid_kernel<4><<<grid, kThreads, 0, s>>>(src, h, w, channels, batch, out); break;
+    case 5: pyramid_kernel<5><<<grid, kThreads, 0, s>>>(src, h, w, channels, batch, out); break;
+    default: pyramid_kernel<6><<<grid, kThreads, 0, s>>>(src, h, w, channels, batch, out); break;
   }
   return (int)cudaGetLastError();
 }

@@ -7,7 +7,9 @@ each level's map carries the gradients of :func:`image_gradients`.
 CUDA image (every level in one launch, the maps views of one buffer) and
 :func:`build_pyramid_maps_plain` on a CPU one; :func:`build_channel_map`
 builds a frame embedder's ``[3C, H, W]`` map with K1's level-0 arithmetic,
-one launch over the C planes.
+one launch over the C planes.  A ``[B, H, W]`` stack of B sequences' frames
+(the batched tick) gives ``[B, 3, H_l, W_l]`` maps, every frame's every
+level in the same one launch.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ import functools
 import torch
 
 from dsopp_tpu_torch import kernels
-from dsopp_tpu_torch.core.interpolate import build_pixel_map
+from dsopp_tpu_torch.core.interpolate import build_pixel_map, image_gradients
 
 NUM_PYRAMID_LEVELS = 5
 MAX_CUDA_LEVELS = 6    # csrc/pyramid.cu: the coarsest level's tile is one pixel
@@ -33,11 +35,14 @@ def downscale(image):
 
 
 def build_pyramid_maps_plain(image, num_levels: int = NUM_PYRAMID_LEVELS):
-    """[H, W] → tuple of [3, H_l, W_l] maps (plain PyTorch)."""
+    """[H, W] → tuple of [3, H_l, W_l] maps, or [B, H, W] → tuple of [B, 3,
+    H_l, W_l] (plain PyTorch)."""
     levels = [image]
     for _ in range(num_levels - 1):
         levels.append(downscale(levels[-1]))
-    return tuple(build_pixel_map(lvl) for lvl in levels)
+    if image.dim() == 2:
+        return tuple(build_pixel_map(lvl) for lvl in levels)
+    return tuple(torch.stack([lvl, *image_gradients(lvl)], dim=-3) for lvl in levels)
 
 
 def level_shapes(h: int, w: int, num_levels: int):
@@ -54,32 +59,42 @@ def level_shapes(h: int, w: int, num_levels: int):
 
 
 @functools.lru_cache(maxsize=None)
-def _flat_layout(h: int, w: int, num_levels: int):
+def _flat_layout(h: int, w: int, num_levels: int, batch: int = 0):
     """(floats of all the levels' maps, each map's (size, stride, offset) in
-    that buffer), level after level as ``csrc/pyramid.cu`` writes them."""
+    that buffer), level after level as ``csrc/pyramid.cu`` writes them;
+    ``batch`` > 0: B frames' [B, 3, H_l, W_l] maps a level."""
     views, offset = [], 0
+    b = max(batch, 1)
     for hl, wl in level_shapes(h, w, num_levels):
-        views.append(((3, hl, wl), (hl * wl, wl, 1), offset))
-        offset += 3 * hl * wl
+        if batch:
+            views.append(((b, 3, hl, wl), (3 * hl * wl, hl * wl, wl, 1), offset))
+        else:
+            views.append(((3, hl, wl), (hl * wl, wl, 1), offset))
+        offset += 3 * hl * wl * b
     return offset, tuple(views)
 
 
 def build_pyramid_maps_cuda(image, num_levels: int = NUM_PYRAMID_LEVELS):
-    """[H, W] f32 CUDA image → tuple of [3, H_l, W_l] maps (kernel K1, one
-    launch): contiguous views of one buffer, level after level."""
-    h, w = image.shape
-    kernels.check(image, "image", (h, w))
+    """[H, W] f32 CUDA image → tuple of [3, H_l, W_l] maps, or [B, H, W] →
+    tuple of [B, 3, H_l, W_l] (kernel K1, one launch): contiguous views of
+    one buffer, level after level."""
+    batch = image.shape[0] if image.dim() == 3 else 0
+    h, w = image.shape[-2:]
+    kernels.check(image, "image", tuple(image.shape[:-2]) + (h, w))
+    if image.dim() not in (2, 3):
+        raise ValueError(f"image: expected [H, W] or [B, H, W], got {tuple(image.shape)}")
     if num_levels > MAX_CUDA_LEVELS:
         raise ValueError(f"the pyramid kernel builds at most {MAX_CUDA_LEVELS} levels,"
                          f" not {num_levels}")
-    total, views = _flat_layout(h, w, num_levels)
+    total, views = _flat_layout(h, w, num_levels, batch)
     flat = torch.empty((total,), dtype=image.dtype, device=image.device)
-    kernels.PYRAMID(image, h, w, 1, num_levels, flat)
+    kernels.PYRAMID(image, h, w, 1, num_levels, max(batch, 1), flat)
     return tuple(flat.as_strided(*view) for view in views)
 
 
 def build_pyramid_maps(image, num_levels: int = NUM_PYRAMID_LEVELS):
-    """[H, W] → tuple of ``num_levels`` maps; kernel on CUDA, plain on CPU."""
+    """[H, W] → tuple of ``num_levels`` [3, H_l, W_l] maps, [B, H, W] → of [B,
+    3, H_l, W_l]; kernel on CUDA, plain on CPU."""
     if image.is_cuda:
         return build_pyramid_maps_cuda(image, num_levels)
     return build_pyramid_maps_plain(image, num_levels)
@@ -93,7 +108,7 @@ def build_channel_map_cuda(channels):
     if h < 2 or w < 2:
         raise ValueError(f"a channel map of {h}x{w}: too small")
     out = torch.empty((3 * c, h, w), dtype=channels.dtype, device=channels.device)
-    kernels.PYRAMID(channels, h, w, c, 1, out)
+    kernels.PYRAMID(channels, h, w, c, 1, 1, out)
     return out
 
 

@@ -183,24 +183,30 @@ class Kernel:
         self.launches += 1
 
 
-# K1 builds every pyramid level in one launch and, at C > 1, a frame
-# embedder's channel map
-PYRAMID = Kernel("pyramid_maps", "pyramid_maps", [_P, _I, _I, _I, _I, _P])
+# K1 builds every pyramid level of one frame, or of B sequences' frames, in
+# one launch and, at C > 1, a frame embedder's channel map
+PYRAMID = Kernel("pyramid_maps", "pyramid_maps", [_P, _I, _I, _I, _I, _I, _P])
 ALIGN = Kernel("align_residual_system", "align_residual_system",
                [_P, _P, _P, _P, _I, _P, _I, _I, _I, _P, _P, _P, _P, _I,
                 _F, _F, _F, _F, _F, _F, _F, _P, _P, _P, _P])
-# K4: the whole epipolar update, its sweep's intermediates optional (null)
+# K4: the whole epipolar update of one sequence's banks or of B sequences'
+# (a grid axis), its sweep's intermediates optional (null)
 EPIPOLAR = Kernel("epipolar_update", "epipolar_update",
-                  [_P] * 10 + [_I, _I, _P, _I, _I] + [_P] * 8 + [_F] * 10 + [_P] * 13)
+                  [_P] * 10 + [_I, _I, _I, _P, _I, _I, _I] + [_P] * 8 + [_F] * 10 + [_P] * 13)
+# K3: each hypothesis's sequence index (null: one sequence) and the
+# hypotheses a sequence has in the launch (its cluster size's argument)
 ALIGN_LEVEL = Kernel("align_level", "align_level",
-                     [_P, _P, _P, _P, _I, _P, _I, _I, _I, _P, _P, _P, _P, _I,
+                     [_P, _P, _P, _P, _I, _P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I,
                       _F, _F, _F, _F, _F, _F, _F, _I, _F, _F, _F, _F, _F, _F, _F,
                       _P, _P, _P, _P, _P, _P, _P, _P])
 # K5: the flows and, unless its decision inputs are null, the reliability
-# gate and the keyframe decision; its workspace before its output
+# gate and the keyframe decision, of one sequence or of B; the forced
+# keyframes as a host array; its workspace (one FlowWorkspace a sequence)
+# before its output
 FLOW = Kernel("flow_statistic", "flow_statistic",
-              [_P, _P, _P, _I, _P, _P] + [_F] * 7 + [_P] * 5 + [_F, _I, _P, _I, _P])
-FLOW_WORKSPACE_BYTES = 2048      # >= sizeof(FlowWorkspace) in csrc/flow.cu
+              [_P, _P, _P, _I, _I, _P, _P] + [_F] * 7 + [_P] * 4
+              + [_I, _P, _I, _F, _P, _P, _I, _P])
+FLOW_WORKSPACE_BYTES = 2048      # >= sizeof(FlowWorkspace) in csrc/flow.cu, a sequence
 # K7-K9 take the LM loop's state (or None) before their outputs; K7 writes and
 # K8 reads one of the loop's two evaluation buffers (buffer 0 without a
 # state); K8 forms the first-estimate Jacobians itself (once kernel K6's cache)

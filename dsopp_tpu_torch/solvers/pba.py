@@ -154,11 +154,12 @@ class Window:
         return SE3(self.t_lin_q, self.t_lin_t)
 
     def poses(self) -> SE3:
-        """Current poses T_w_c = T_lin · exp(ε_pose)."""
-        return self.t_lin() @ SE3.exp(self.eps[:, :6])
+        """Current poses T_w_c = T_lin · exp(ε_pose) (of every sequence, on a
+        window stacked with a leading [B] axis)."""
+        return self.t_lin() @ SE3.exp(self.eps[..., :6])
 
     def affine(self):
-        return self.affine0 + self.eps[:, 6:]
+        return self.affine0 + self.eps[..., 6:]
 
     def replace(self, **changes) -> "Window":
         return dataclasses.replace(self, **changes)
@@ -206,8 +207,9 @@ def frame_count(window: Window) -> int:
 
 
 def newest_slot(window: Window):
-    """[1] long tensor: the newest valid slot (no host read)."""
-    return window.frame_valid.sum().view(1) - 1
+    """[1] long tensor: the newest valid slot (no host read); [B, 1] on a
+    window stacked with a leading [B] axis."""
+    return window.frame_valid.sum(-1, keepdim=True) - 1
 
 
 def active_lm_mask(window: Window):
@@ -664,6 +666,41 @@ def _solve_step(window: Window, sys: LinearSystem, eps, idepth, lam, opts: PBAOp
     plain version on CPU ones."""
     fn = _solve_step_cuda if window.maps.is_cuda else _solve_step_plain
     return fn(window, sys, eps, idepth, lam, opts)
+
+
+def _without_prior(opts: PBAOptions) -> PBAOptions:
+    """``opts`` with the diagonal priors' weights at zero: K8 and the plain
+    linearization then add exact zeros where they add the priors."""
+    return opts._replace(fixed_reg=0.0, affine_reg_a=0.0, affine_reg_b=0.0)
+
+
+def _linearize(window: Window, model, eps, idepth, lm_mask, opts: PBAOptions,
+               marg_pass: bool = False, with_prior: bool = True) -> LinearSystem:
+    """The GN system at (eps, idepth): K7's evaluation, then K8 on it with the
+    FEJ of the window's linearization point (the JAX package's ``_linearize``,
+    whose FEJ cache argument K8 forms itself).  ``with_prior=False``: the
+    photometric system alone (a landmark shard's, before the all-reduce)."""
+    ev = _evaluate(window, model, eps, idepth, lm_mask, opts)
+    return _linearize_from_ev(window, model, ev, eps,
+                              opts if with_prior else _without_prior(opts), marg_pass)
+
+
+def _energy(window: Window, model, eps, idepth, lm_mask, opts: PBAOptions):
+    """Total energy at (eps, idepth) → (energy, num_valid, the residuals'
+    candidate statuses): K7, then :func:`_energy_from_ev`."""
+    ev = _evaluate(window, model, eps, idepth, lm_mask, opts)
+    e, n_valid = _energy_from_ev(window, ev, eps, opts)
+    return e, n_valid, ev.status_candidate
+
+
+def _pba_iteration(window: Window, model, eps, idepth, lm_mask, regularizer,
+                   opts: PBAOptions):
+    """One LM iteration: linearize at (eps, idepth) (K7, K8), solve (K9) →
+    (eps', idepth', |step|²).  ``regularizer``: λ, a host float."""
+    sys = _linearize(window, model, eps, idepth, lm_mask, opts)
+    eps_new, idepth_new, pose_sq, d_sq = _solve_step(window, sys, eps, idepth,
+                                                     regularizer, opts)
+    return eps_new, idepth_new, pose_sq + d_sq
 
 
 def _lm_decide_plain(window: Window, ev_new: Evaluation, eps_new, pose_sq, d_sq, e, it: int,

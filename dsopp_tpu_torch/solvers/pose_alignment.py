@@ -14,6 +14,15 @@ solves the damped systems batched.  :func:`residual_system` in turn is the
 CUDA kernel ``csrc/align.cu`` (K2, the body K3 runs per iteration) on a
 CUDA map and :func:`residual_system_plain` on a CPU one.
 
+:func:`align_level` also takes B sequences' hypotheses in one call (the
+batched tick): ``seq`` [M] gives each hypothesis's sequence, whose points
+(``[B, N, ...]``), map (``[B, 3C, H, W]``), reference affine (``[B, 2]``)
+and exposure ratio (``[B]``) it reads.  On the card that is the same one
+launch of K3, a sequence's result that of its own launch to the bit; the
+plain version runs each sequence's hypotheses through
+:func:`align_level_plain` in turn, so a sequence's result is that of its
+own call there too.
+
 Every function takes a map of C channels, ``[3C, H, W]`` (values C | dx C |
 dy C), with reference intensities ``[N]`` at C = 1 or ``[N, C]``: a point
 has C residuals, the whole-point Huber runs on their summed squares at
@@ -76,8 +85,9 @@ class AlignmentResult(NamedTuple):
 
 
 def huber_sigma(pixel_map, opts: "AlignmentOptions") -> float:
-    """The whole-point Huber sigma against a map of C channels: σ·√C."""
-    return opts.huber_sigma * float(pixel_map.shape[0] // 3) ** 0.5
+    """The whole-point Huber sigma against a map of C channels ([3C, H, W],
+    or B sequences' [B, 3C, H, W]): σ·√C."""
+    return opts.huber_sigma * float(pixel_map.shape[-3] // 3) ** 0.5
 
 
 def residual_system_plain(pts: LevelPoints, pixel_map, model, t_t_r: SE3,
@@ -136,26 +146,27 @@ def _residual_system_channels(pts: LevelPoints, patch, inside, rj, scale, affine
 
 
 def _check_problem(pts: LevelPoints, pixel_map, t_t_r: SE3, affine, affine_ref,
-                   exposure_ratio):
+                   exposure_ratio, batch: int = 0):
     """Validate the tensors K2 and K3 share → (n, nb, h_px, w_px, c, ref)
-    with ``ref`` = [a_ref, b_ref, exposure ratio] on the device."""
-    n = pts.uv.shape[0]
+    with ``ref`` = [a_ref, b_ref, exposure ratio] on the device; ``batch`` >
+    0: B sequences' points, maps and references ([B, 3] ``ref``)."""
+    lead = (batch,) if batch else ()
+    n = pts.uv.shape[-2]
     nb = t_t_r.q.shape[0]
     check = kernels.check
-    c = pixel_map.shape[0] // 3
-    check(pixel_map, "pixel_map", (3 * c,) + tuple(pixel_map.shape[-2:]))
-    _, h_px, w_px = pixel_map.shape
-    check(pts.uv, "uv", (n, 2))
-    check(pts.idepth, "idepth", (n,))
-    check(pts.intensity, "intensity", (n,) if c == 1 else (n, c))
-    check(pts.valid, "valid", (n,), torch.bool)
+    c = pixel_map.shape[-3] // 3
+    check(pixel_map, "pixel_map", lead + (3 * c,) + tuple(pixel_map.shape[-2:]))
+    h_px, w_px = pixel_map.shape[-2:]
+    check(pts.uv, "uv", lead + (n, 2))
+    check(pts.idepth, "idepth", lead + (n,))
+    check(pts.intensity, "intensity", lead + ((n,) if c == 1 else (n, c)))
+    check(pts.valid, "valid", lead + (n,), torch.bool)
     check(t_t_r.q, "pose_q", (nb, 4))
     check(t_t_r.t, "pose_t", (nb, 3))
     check(affine, "affine", (nb, 2))
-    ref = torch.stack([affine_ref[0], affine_ref[1],
-                       torch.as_tensor(exposure_ratio, dtype=affine.dtype,
-                                       device=affine.device)]).contiguous()
-    check(ref, "ref", (3,))
+    ratio = torch.as_tensor(exposure_ratio, dtype=affine.dtype, device=affine.device)
+    ref = torch.stack([affine_ref[..., 0], affine_ref[..., 1], ratio], dim=-1).contiguous()
+    check(ref, "ref", lead + (3,))
     return n, nb, h_px, w_px, c, ref
 
 
@@ -263,12 +274,21 @@ def align_level_plain(pts: LevelPoints, pixel_map, model, t_init: SE3, affine_in
 
 def align_level_cuda(pts: LevelPoints, pixel_map, model, t_init: SE3, affine_init,
                      affine_ref, exposure_ratio,
-                     opts: AlignmentOptions = AlignmentOptions(), trace: list = None):
+                     opts: AlignmentOptions = AlignmentOptions(), trace: list = None,
+                     seq=None, per_seq: int = None):
     """Kernel K3: same result as :func:`align_level_plain`, in one launch
     (a cluster of blocks per hypothesis) and without a host read.  ``trace``
-    as there, with ``opts.max_iterations + 1`` passes."""
+    as there, with ``opts.max_iterations + 1`` passes.  ``seq``: [M] int32
+    sequence of each hypothesis, with B sequences' points, maps and
+    references (:func:`align_level`); ``per_seq``: the hypotheses each
+    sequence has in the call, which sizes the clusters as its own launch
+    would."""
+    batch = 0 if seq is None else pts.uv.shape[0]
     n, nb, h_px, w_px, c, ref = _check_problem(pts, pixel_map, t_init, affine_init,
-                                               affine_ref, exposure_ratio)
+                                               affine_ref, exposure_ratio, batch)
+    if seq is not None:
+        kernels.check(seq, "seq", (nb,), torch.int32)
+    per_seq = nb if seq is None else int(per_seq)
     dev, dt = affine_init.device, affine_init.dtype
     q = torch.empty((nb, 4), dtype=dt, device=dev)
     t = torch.empty((nb, 3), dtype=dt, device=dev)
@@ -284,8 +304,8 @@ def align_level_cuda(pts: LevelPoints, pixel_map, model, t_init: SE3, affine_ini
         trace.append(rows)
     kernels.ALIGN_LEVEL(
         pts.uv, pts.idepth, pts.intensity, pts.valid, n, pixel_map, h_px, w_px, c,
-        t_init.q, t_init.t, affine_init, ref, nb, model.fx, model.fy, model.cx,
-        model.cy, model.width, model.height, float(huber_sigma(pixel_map, opts)),
+        t_init.q, t_init.t, affine_init, ref, seq, nb, per_seq, model.fx, model.fy,
+        model.cx, model.cy, model.width, model.height, float(huber_sigma(pixel_map, opts)),
         int(opts.max_iterations), float(opts.initial_regularizer),
         float(opts.function_tolerance), float(opts.parameter_tolerance),
         float(opts.affine_reg_a), float(opts.affine_reg_b), float(opts.reg_decrease),
@@ -294,11 +314,41 @@ def align_level_cuda(pts: LevelPoints, pixel_map, model, t_init: SE3, affine_ini
     return AlignmentResult(SE3(q, t), affine, energy, num_valid, rmse, iterations)
 
 
+def align_level_sequences_plain(pts: LevelPoints, pixel_map, model, t_init: SE3,
+                                affine_init, affine_ref, exposure_ratio, seq,
+                                opts: AlignmentOptions = AlignmentOptions()):
+    """:func:`align_level` over B sequences on the CPU: each sequence's
+    hypotheses (``seq`` [M], CPU) through :func:`align_level_plain` on its own
+    points, map and reference, the results in the hypotheses' order."""
+    order = seq.tolist()
+    parts, where = [], []
+    for b in sorted(set(order)):
+        idx = torch.tensor([i for i, s in enumerate(order) if s == b], dtype=torch.long)
+        parts.append(align_level_plain(
+            LevelPoints(*(x[b] for x in pts)), pixel_map[b], model,
+            SE3(t_init.q[idx], t_init.t[idx]), affine_init[idx], affine_ref[b],
+            exposure_ratio[b], opts))
+        where.append(idx)
+    back = torch.argsort(torch.cat(where))
+    q, t = (torch.cat([getattr(r.t_t_r, f) for r in parts])[back] for f in ("q", "t"))
+    return AlignmentResult(SE3(q, t), *(torch.cat([getattr(r, f) for r in parts])[back]
+                                        for f in AlignmentResult._fields[1:]))
+
+
 def align_level(pts: LevelPoints, pixel_map, model, t_init: SE3, affine_init,
                 affine_ref, exposure_ratio,
-                opts: AlignmentOptions = AlignmentOptions()):
+                opts: AlignmentOptions = AlignmentOptions(), seq=None,
+                per_seq: int = None):
     """LM solve of one level for a batch of hypotheses: the kernel K3 on
-    CUDA tensors, the plain loop on CPU ones."""
-    fn = align_level_cuda if pixel_map.is_cuda else align_level_plain
-    return fn(pts, pixel_map, model, t_init, affine_init, affine_ref,
-              exposure_ratio, opts)
+    CUDA tensors, the plain loop on CPU ones.  ``seq`` (with ``per_seq``, the
+    hypotheses a sequence has in the call): B sequences' hypotheses in one
+    call, each reading its sequence's ``[B, ...]`` points, map, reference
+    affine and exposure ratio."""
+    if pixel_map.is_cuda:
+        return align_level_cuda(pts, pixel_map, model, t_init, affine_init, affine_ref,
+                                exposure_ratio, opts, seq=seq, per_seq=per_seq)
+    if seq is None:
+        return align_level_plain(pts, pixel_map, model, t_init, affine_init, affine_ref,
+                                 exposure_ratio, opts)
+    return align_level_sequences_plain(pts, pixel_map, model, t_init, affine_init,
+                                       affine_ref, exposure_ratio, seq, opts)

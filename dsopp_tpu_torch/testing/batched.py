@@ -1,0 +1,203 @@
+"""Checks of the batched tick (``tracker/batched_loop.py``) that the card's
+tests and ``chip_smoke.py``'s ``[batched]`` phase share.
+
+* :func:`offset_bootstrap`: a tracker bootstrapped on frames ``offset ..
+  offset + INIT_FRAMES - 1`` of a sequence (``scripts/bench_batched.py``'s
+  offset copies of the corridor: each stream starts at another frame, so
+  the keyframes of B streams fall on different ticks);
+* :func:`kernel_cases`: K1, K3, K4 and K5 on B trackers' stacked state, each
+  as one batched call and as B solo calls on the same inputs, with their
+  plain versions (the leading axis) — the batched call must equal the solo
+  calls to the bit;
+* :func:`stage_diff`: the first stage of the regular tick at which a batched
+  tick parts from the solo ticks on the same states;
+* :func:`regular_tick_args`: ``fused_regular_tick``'s arguments for B
+  states stacked.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from dsopp_tpu_torch.core.lie import SE3
+from dsopp_tpu_torch.features.pyramid import build_pyramid_maps, build_pyramid_maps_plain
+from dsopp_tpu_torch.solvers.pba import newest_slot
+from dsopp_tpu_torch.solvers.pose_alignment import (LevelPoints, align_level,
+                                                    align_level_sequences_plain)
+from dsopp_tpu_torch.testing.paths import INIT_FRAMES
+from dsopp_tpu_torch.tracker.batched_loop import stack_states
+from dsopp_tpu_torch.tracker.depth_estimation import (estimate_depths,
+                                                      estimate_depths_sequences_plain)
+from dsopp_tpu_torch.tracker.depth_map import frame_statistics, frame_statistics_plain
+from dsopp_tpu_torch.tracker.device_loop import PipelinedTracker
+from dsopp_tpu_torch.tracker.fused_tick import (CHUNK, _at_slot, _initialization_hypotheses,
+                                                _sequence_index)
+from dsopp_tpu_torch.tracker.monocular import MonocularTracker
+
+def offset_bootstrap(seq, cfg, offset: int, dtype=torch.float32, device="cuda"):
+    """A tracker initialized on frames ``offset .. offset + INIT_FRAMES - 1``
+    of ``seq`` at their ground-truth poses."""
+    tracker = MonocularTracker(seq.camera, cfg, dtype=dtype, device=device)
+    tracker.initialize([(i, float(seq.timestamps[i]), seq.images[i].to(device, dtype),
+                         seq.pose(i, dtype, device))
+                        for i in range(offset, offset + INIT_FRAMES)])
+    return tracker
+
+
+def flat(out):
+    """The tensors of a kernel's output (tuples, named tuples, SE3), in order."""
+    if isinstance(out, torch.Tensor):
+        return [out]
+    if isinstance(out, SE3):
+        return [out.q, out.t]
+    return [t for x in out for t in flat(x)]
+
+
+def equal_outputs(batched, solos) -> bool:
+    """Whether sequence b's entries of every batched output equal the b-th
+    solo call's, to the bit."""
+    return all(torch.equal(x[b], y) for b, solo in enumerate(solos)
+               for x, y in zip(flat(batched), flat(solo)))
+
+
+def kernel_cases(trackers, images):
+    """{case: (batched call, [solo calls], plain call, sequences)} of K1, K3
+    (level 1's chunk 0, 5 hypotheses a sequence; level 0, one a
+    sequence; the re-track's 105 at level 1 for every second sequence), K4
+    and K5 on the trackers' stacked state and ``images`` [B, H, W].  K3's
+    batched outputs are [B·per, ...]; :func:`case_equal` splits them."""
+    states = [PipelinedTracker(t).state for t in trackers]
+    st = stack_states(states)
+    models, cfg = trackers[0].models, trackers[0].loop_config()
+    opts, levels = cfg.align_opts, cfg.num_levels
+    batch = images.shape[0]
+    dev = images.device
+    maps = build_pyramid_maps(images, levels)
+    poses = st.window.poses()
+    slot = newest_slot(st.window)
+    kf = SE3(_at_slot(poses.q, slot), _at_slot(poses.t, slot))
+    ratio = 1.0 / torch.clamp(_at_slot(st.window.exposure, slot), min=1e-12)
+    hyps = _initialization_hypotheses(SE3(st.last_q, st.last_t), SE3(st.prev_q, st.prev_t),
+                                      kf, True)
+    total = hyps.q.shape[-2]
+    pad = torch.cat([torch.arange(total, device=dev),
+                     torch.zeros((-total) % CHUNK, dtype=torch.long, device=dev)])
+    t_all = SE3(hyps.q[:, pad], hyps.t[:, pad]).inverse().compose(
+        SE3(kf.q[:, None].expand(batch, pad.shape[0], 4),
+            kf.t[:, None].expand(batch, pad.shape[0], 3)))
+    lp = st.level_points
+    cases = {}
+    rows_all = tuple(range(batch))
+    for name, level, rows, first, per in (
+            ("align_level chunk 0", min(1, levels - 1), rows_all, 0, CHUNK),
+            ("align_level level 0", 0, rows_all, 0, 1),
+            ("align_level re-track", min(1, levels - 1), rows_all[1::2] or rows_all, CHUNK,
+             21 * CHUNK)):
+        idx = list(rows)
+        q = t_all.q[idx, first:first + per].reshape(-1, 4).contiguous()
+        t = t_all.t[idx, first:first + per].reshape(-1, 3).contiguous()
+        aff = st.last_affine[idx][:, None].expand(len(rows), per, 2).reshape(-1, 2).contiguous()
+        seq = _sequence_index(rows, per, dev)
+        args = (lp[level], maps[level], models[level], SE3(q, t), aff, st.last_affine, ratio,
+                opts)
+        solo_args = [(LevelPoints(*(x[b] for x in lp[level])), maps[level][b], models[level],
+                      SE3(q[j * per:(j + 1) * per], t[j * per:(j + 1) * per]),
+                      aff[j * per:(j + 1) * per], st.last_affine[b], ratio[b], opts)
+                     for j, b in enumerate(rows)]
+        cases[name] = (lambda a=args, s=seq, p=per: align_level(*a, seq=s, per_seq=p),
+                       [lambda a=a: align_level(*a) for a in solo_args],
+                       lambda a=args, s=seq: align_level_sequences_plain(*a[:7], s, a[7]),
+                       (rows, per))
+    cases["pyramid_maps"] = (
+        lambda: build_pyramid_maps(images, levels),
+        [lambda b=b: build_pyramid_maps(images[b], levels) for b in range(batch)],
+        lambda: build_pyramid_maps_plain(images, levels), (rows_all, 0))
+    pose = SE3(st.last_q, st.last_t)
+    exposure = torch.ones((batch,), dtype=images.dtype, device=dev)
+    k4 = (st.immature, maps[0], models[0], pose.q, pose.t, poses.q, poses.t, st.window.affine(),
+          st.last_affine, exposure, st.window.exposure)
+
+    solo4 = [(s.immature, maps[0][b], models[0], pose.q[b], pose.t[b], poses.q[b], poses.t[b],
+              k4[7][b], s.last_affine, exposure[b], s.window.exposure)
+             for b, s in enumerate(states)]
+    cases["epipolar_update"] = (lambda: estimate_depths(*k4),
+                                [lambda a=a: estimate_depths(*a) for a in solo4],
+                                lambda: estimate_depths_sequences_plain(*k4), (rows_all, 0))
+    t_t_kf = kf.inverse() @ pose
+    t_t_kf = SE3(t_t_kf.q.contiguous(), t_t_kf.t.contiguous())
+    mat = t_t_kf.inverse().matrix().contiguous()
+    rmse = torch.linspace(1.0, 4.0, batch, dtype=images.dtype, device=dev)
+    num_valid = torch.full((batch,), 500, dtype=torch.int32, device=dev)
+    force = tuple(b == batch - 1 for b in range(batch))
+    k5 = (st.flow_points, models[0], t_t_kf, mat, rmse, num_valid, st.rmse_last0, st.kf_rmse,
+          cfg.keyframe_factor, force)
+    cases["flow_statistic"] = (
+        lambda: frame_statistics(*k5),
+        [lambda b=b: frame_statistics(states[b].flow_points, models[0],
+                                      SE3(t_t_kf.q[b], t_t_kf.t[b]), mat[b], rmse[b],
+                                      num_valid[b], states[b].rmse_last0, states[b].kf_rmse,
+                                      cfg.keyframe_factor, force[b])
+         for b in range(batch)],
+        lambda: frame_statistics_plain(*k5), (rows_all, 0))
+    return cases
+
+
+def case_equal(name: str, batched, solos, rows_per) -> bool:
+    """Whether a case's batched output equals its solo calls', to the bit."""
+    rows, per = rows_per
+    if name.startswith("align_level"):
+        split = [[x.reshape((len(rows), per) + tuple(x.shape[1:]))[j] for x in flat(batched)]
+                 for j in range(len(rows))]
+        return all(torch.equal(a, b) for j, solo in enumerate(solos)
+                   for a, b in zip(split[j], flat(solo)))
+    return equal_outputs(batched, solos)
+
+
+def regular_tick_args(states, images, models, cfg):
+    """``fused_regular_tick``'s arguments for the solo ``states`` stacked, on
+    ``images`` [B, H, W] at exposure 1, no keyframe forced."""
+    st = stack_states(states)
+    poses = st.window.poses()
+    exposure = torch.ones(images.shape[:1], dtype=images.dtype, device=images.device)
+    return (images, st.level_points, st.flow_points, poses.q, poses.t, st.window.affine(),
+            st.window.exposure, exposure, newest_slot(st.window), st.immature,
+            st.last_q, st.last_t, st.prev_q, st.prev_t, st.last_affine, models,
+            cfg.align_opts, cfg.with_perturbations, cfg.num_levels, cfg.huber_sigma,
+            st.rmse_last0, st.kf_rmse, cfg.keyframe_factor, (False,) * images.shape[0])
+
+
+def stage_diff(states, images, models, cfg) -> str:
+    """Run the regular tick's stages on B solo states and on their stack, and
+    name the first stage whose outputs part (or "none"): the window's poses
+    and the keyframe's, the hypotheses, the pyramid, the tracked poses
+    (through the align chain), the epipolar update, the statistics."""
+    from dsopp_tpu_torch.tracker.fused_tick import fused_regular_tick
+
+    st = stack_states(states)
+
+    def stages(state, image, force):
+        poses = state.window.poses()
+        slot = newest_slot(state.window)
+        kf = SE3(_at_slot(poses.q, slot), _at_slot(poses.t, slot))
+        hyps = _initialization_hypotheses(SE3(state.last_q, state.last_t),
+                                          SE3(state.prev_q, state.prev_t), kf,
+                                          cfg.with_perturbations)
+        exposure = torch.ones(image.shape[:-2], dtype=image.dtype, device=image.device)
+        out = fused_regular_tick(
+            image, state.level_points, state.flow_points, poses.q, poses.t,
+            state.window.affine(), state.window.exposure, exposure, slot, state.immature,
+            state.last_q, state.last_t, state.prev_q, state.prev_t, state.last_affine,
+            models, cfg.align_opts, cfg.with_perturbations, cfg.num_levels, cfg.huber_sigma,
+            state.rmse_last0, state.kf_rmse, cfg.keyframe_factor, force)
+        return [("window poses", [poses.q, poses.t, kf.q, kf.t]),
+                ("hypotheses", [hyps.q, hyps.t]), ("pyramid", list(out.maps)),
+                ("align chain", [out.pose_q, out.pose_t, out.affine, out.rmse]),
+                ("epipolar update", list(out.immature)), ("statistics", [out.stats])]
+
+    batched = stages(st, images, (False,) * images.shape[0])
+    solos = [stages(s, images[b], False) for b, s in enumerate(states)]
+    for i, (name, outs) in enumerate(batched):
+        for b, solo in enumerate(solos):
+            if not all(torch.equal(x[b], y) for x, y in zip(outs, solo[i][1])):
+                return f"{name} (sequence {b})"
+    return "none"

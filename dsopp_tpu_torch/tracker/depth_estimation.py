@@ -17,6 +17,13 @@ model, the interval shrink and the status machine; on CPU tensors
 :func:`sweep_inputs` (the geometry), :func:`epipolar_sweep_plain` (sweep,
 uniqueness, refine) and :func:`update_from_sweep` (error model, shrink,
 status).
+
+B sequences' banks in one call (the batched tick): every argument gains a
+leading ``[B]`` axis (banks ``[B, K, N]``, the target maps ``[B, 3, H, W]``,
+the poses, affines and exposures per sequence).  On the card that is the
+same one launch with a grid axis over the sequences, each sequence's
+outputs those of its own launch to the bit; on the CPU each sequence runs
+through :func:`estimate_depths_plain` in turn.
 """
 
 from __future__ import annotations
@@ -290,38 +297,46 @@ def estimate_depths_cuda(points: ImmaturePoints, target_map, model, pose_q, pose
                          window_poses_q, window_poses_t, window_affines, affine_tgt,
                          exposure, window_exposures, huber_sigma: float = 20.0,
                          debug: EpipolarDebug | None = None) -> ImmaturePoints:
-    """Kernel K4: :func:`estimate_depths` in one launch.  ``debug``: optional
-    :func:`debug_buffers` the kernel fills too."""
-    k, n = points.uv.shape[:2]
-    _, h, w = target_map.shape
+    """Kernel K4: :func:`estimate_depths` in one launch, of one sequence or of
+    B (a leading ``[B]`` axis on every argument).  ``debug``: optional
+    :func:`debug_buffers` the kernel fills too (one sequence)."""
+    batched = target_map.dim() == 4
+    lead = tuple(target_map.shape[:1]) if batched else ()
+    k, n = points.uv.shape[len(lead):len(lead) + 2]
+    h, w = target_map.shape[-2:]
     check = kernels.check
     for name in ("uv", "gradient"):
-        check(getattr(points, name), name, (k, n, 2))
-    check(points.patch, "patch", (k, n, PATTERN_SIZE))
+        check(getattr(points, name), name, lead + (k, n, 2))
+    check(points.patch, "patch", lead + (k, n, PATTERN_SIZE))
     for name in ("idepth_min", "idepth_max", "uniqueness", "search_interval"):
-        check(getattr(points, name), name, (k, n))
-    check(points.status, "status", (k, n), torch.int32)
-    check(points.traced, "traced", (k, n), torch.bool)
-    check(points.valid, "valid", (k, n), torch.bool)
-    check(target_map, "target_map", (target_map.shape[0], h, w))
-    check(pose_q, "pose_q", (4,))
-    check(pose_t, "pose_t", (3,))
-    check(window_poses_q, "window_poses_q", (k, 4))
-    check(window_poses_t, "window_poses_t", (k, 3))
-    check(window_affines, "window_affines", (k, 2))
-    check(affine_tgt, "affine_tgt", (2,))
-    if exposure.numel() != 1:
-        raise ValueError(f"exposure: expected one value, got shape {tuple(exposure.shape)}")
-    check(exposure, "exposure", tuple(exposure.shape))
-    check(window_exposures, "window_exposures", (k,))
+        check(getattr(points, name), name, lead + (k, n))
+    check(points.status, "status", lead + (k, n), torch.int32)
+    check(points.traced, "traced", lead + (k, n), torch.bool)
+    check(points.valid, "valid", lead + (k, n), torch.bool)
+    check(target_map, "target_map", lead + (target_map.shape[-3], h, w))
+    check(pose_q, "pose_q", lead + (4,))
+    check(pose_t, "pose_t", lead + (3,))
+    check(window_poses_q, "window_poses_q", lead + (k, 4))
+    check(window_poses_t, "window_poses_t", lead + (k, 3))
+    check(window_affines, "window_affines", lead + (k, 2))
+    check(affine_tgt, "affine_tgt", lead + (2,))
+    if batched:
+        check(exposure, "exposure", lead)
+    else:
+        if exposure.numel() != 1:
+            raise ValueError(f"exposure: expected one value, got shape {tuple(exposure.shape)}")
+        check(exposure, "exposure", tuple(exposure.shape))
+    check(window_exposures, "window_exposures", lead + (k,))
     if debug is not None:
+        if batched:
+            raise ValueError("debug: one sequence's launch only")
         for name, x in debug._asdict().items():
             check(x, f"debug.{name}", (k, 7) if name == "rel_pose" else (k, n),
                   _DEBUG_DTYPES.get(name, torch.float32))
     dev, dt = target_map.device, target_map.dtype
 
     def empty(dtype=dt):
-        return torch.empty((k, n), dtype=dtype, device=dev)
+        return torch.empty(lead + (k, n), dtype=dtype, device=dev)
 
     out = points._replace(idepth_min=empty(), idepth_max=empty(),
                           status=empty(torch.int32), traced=empty(torch.bool),
@@ -330,7 +345,8 @@ def estimate_depths_cuda(points: ImmaturePoints, target_map, model, pose_q, pose
     f32 = np.float32
     kernels.EPIPOLAR(points.uv, points.patch, points.gradient, points.idepth_min,
                      points.idepth_max, points.status, points.traced, points.uniqueness,
-                     points.search_interval, points.valid, k, n, target_map, h, w,
+                     points.search_interval, points.valid, k, n, lead[0] if batched else 1,
+                     target_map, target_map[0].numel() if batched else 0, h, w,
                      pose_q, pose_t, window_poses_q, window_poses_t, window_affines,
                      affine_tgt, exposure, window_exposures, model.fx, model.fy,
                      model.cx, model.cy, float(f32(1.0) / f32(model.fx)),
@@ -352,11 +368,35 @@ def estimate_depths(points: ImmaturePoints, target_map, model, pose_q, pose_t,
     [K, 3]: the host keyframes' poses T_w_k; ``window_affines`` [K, 2];
     ``affine_tgt`` [2]; ``exposure``: the frame's exposure (one value);
     ``window_exposures`` [K].  The kernel on CUDA tensors, the plain version
-    on CPU ones.
+    on CPU ones.  With a leading ``[B]`` axis on every argument (``target_map``
+    [B, 3, H, W]): B sequences in one call.
     """
-    fn = estimate_depths_cuda if target_map.is_cuda else estimate_depths_plain
-    return fn(points, target_map, model, pose_q, pose_t, window_poses_q, window_poses_t,
-              window_affines, affine_tgt, exposure, window_exposures, huber_sigma)
+    if target_map.is_cuda:
+        return estimate_depths_cuda(points, target_map, model, pose_q, pose_t, window_poses_q,
+                                    window_poses_t, window_affines, affine_tgt, exposure,
+                                    window_exposures, huber_sigma)
+    if target_map.dim() == 4:
+        return estimate_depths_sequences_plain(points, target_map, model, pose_q, pose_t,
+                                               window_poses_q, window_poses_t, window_affines,
+                                               affine_tgt, exposure, window_exposures,
+                                               huber_sigma)
+    return estimate_depths_plain(points, target_map, model, pose_q, pose_t, window_poses_q,
+                                 window_poses_t, window_affines, affine_tgt, exposure,
+                                 window_exposures, huber_sigma)
+
+
+def estimate_depths_sequences_plain(points: ImmaturePoints, target_map, model, pose_q,
+                                    pose_t, window_poses_q, window_poses_t, window_affines,
+                                    affine_tgt, exposure, window_exposures,
+                                    huber_sigma: float = 20.0) -> ImmaturePoints:
+    """:func:`estimate_depths` of B sequences on the CPU: each sequence's banks
+    through :func:`estimate_depths_plain`, the results stacked."""
+    outs = [estimate_depths_plain(ImmaturePoints(*(x[b] for x in points)), target_map[b],
+                                  model, pose_q[b], pose_t[b], window_poses_q[b],
+                                  window_poses_t[b], window_affines[b], affine_tgt[b],
+                                  exposure[b], window_exposures[b], huber_sigma)
+            for b in range(target_map.shape[0])]
+    return ImmaturePoints(*(torch.stack(xs) for xs in zip(*outs)))
 
 
 def update_from_sweep(points: ImmaturePoints, geo: dict, res: SweepResult,

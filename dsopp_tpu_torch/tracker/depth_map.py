@@ -17,7 +17,10 @@ the frontend's reliability gate and the keyframe decision of a frame in one
 launch, packed into one buffer that the tracker copies to the host once a
 frame; :func:`mean_square_flows`, the flows alone, is the same kernel), each
 beside its plain version; all dispatch on their tensors' device: CUDA
-tensors go to the kernel or raise.
+tensors go to the kernel or raise.  :func:`frame_statistics` also takes B
+sequences' frames (a leading ``[B]`` axis, the batched tick): the same one
+launch, each sequence with its own ticket and partials, into a ``[B,
+STATS]`` buffer that the batched tracker copies to the host once a tick.
 """
 
 from __future__ import annotations
@@ -273,7 +276,8 @@ def build_frontend_state(window: Window, model, maps, height: int, width: int,
 
 
 def mean_square_flows_plain(pts: LevelPoints, model, t_t_r: SE3, border: int = 4):
-    """(flow, flow_without_rotation): RMS ray-space flow of the flow set."""
+    """(flow, flow_without_rotation): RMS ray-space flow of the flow set;
+    points [..., N] against poses [...] (a leading axis of B sequences)."""
     uv = pts.uv
     valid = (pts.valid & (pts.idepth > 1e-6)
              & (uv[..., 0] >= border) & (uv[..., 0] < model.width - border)
@@ -281,27 +285,40 @@ def mean_square_flows_plain(pts: LevelPoints, model, t_t_r: SE3, border: int = 4
     ray0 = model.unproject(uv)
 
     def one(t):
-        rp = reproject(model, model, uv, pts.idepth, t)
+        rp = reproject(model, model, uv, pts.idepth, SE3(t.q[..., None, :], t.t[..., None, :]))
         d2 = torch.sum((ray0 - model.unproject(rp.uv)) ** 2, dim=-1)
         ok = valid & rp.valid
-        n = torch.clamp(torch.sum(ok), min=1)
-        return torch.sqrt(torch.sum(torch.where(ok, d2, torch.zeros_like(d2))) / n.to(d2.dtype))
+        n = torch.clamp(torch.sum(ok, dim=-1), min=1)
+        return torch.sqrt(torch.sum(torch.where(ok, d2, torch.zeros_like(d2)), dim=-1)
+                          / n.to(d2.dtype))
 
-    q_id = torch.zeros(4, dtype=uv.dtype, device=uv.device)
-    q_id[0] = 1.0
+    q_id = torch.zeros_like(t_t_r.q)
+    q_id[..., 0] = 1.0
     return one(t_t_r), one(SE3(q_id, t_t_r.t))
 
 
-def _flow_args(pts: LevelPoints, t_t_r: SE3):
-    """Check K5's point and pose tensors → the point count."""
-    n = pts.uv.shape[0]
+def _flow_args(pts: LevelPoints, t_t_r: SE3, lead=()):
+    """Check K5's point and pose tensors (``lead``: (B,) for B sequences) →
+    the point count."""
+    n = pts.uv.shape[-2]
     check = kernels.check
-    check(pts.uv, "uv", (n, 2))
-    check(pts.idepth, "idepth", (n,))
-    check(pts.valid, "valid", (n,), torch.bool)
-    check(t_t_r.q, "pose q", (4,))
-    check(t_t_r.t, "pose t", (3,))
+    check(pts.uv, "uv", lead + (n, 2))
+    check(pts.idepth, "idepth", lead + (n,))
+    check(pts.valid, "valid", lead + (n,), torch.bool)
+    check(t_t_r.q, "pose q", lead + (4,))
+    check(t_t_r.t, "pose t", lead + (3,))
     return n
+
+
+def _strided_check(x, name: str, batch: int) -> int:
+    """Check one f32 value per sequence on the card, at any stride (a
+    column of the [B, STATS] buffer) → its stride in floats."""
+    if not x.is_cuda or x.dtype != torch.float32:
+        raise ValueError(f"{name}: expected an f32 CUDA tensor, got {x.dtype} on {x.device}")
+    if tuple(x.shape) != ((batch,) if batch else ()):
+        raise ValueError(f"{name}: expected shape {(batch,) if batch else ()},"
+                         f" got {tuple(x.shape)}")
+    return x.stride(0) if batch else 0
 
 
 def mean_square_flows_cuda(pts: LevelPoints, model, t_t_r: SE3, border: int = 4):
@@ -310,9 +327,9 @@ def mean_square_flows_cuda(pts: LevelPoints, model, t_t_r: SE3, border: int = 4)
     n = _flow_args(pts, t_t_r)
     out = torch.empty((2,), dtype=pts.uv.dtype, device=pts.uv.device)
     ws = kernels.workspace(kernels.FLOW, kernels.FLOW_WORKSPACE_BYTES, out.device)
-    kernels.FLOW(pts.uv, pts.idepth, pts.valid, n, t_t_r.q, t_t_r.t, model.fx, model.fy,
+    kernels.FLOW(pts.uv, pts.idepth, pts.valid, n, 1, t_t_r.q, t_t_r.t, model.fx, model.fy,
                  model.cx, model.cy, model.width, model.height, float(border), None, None,
-                 None, None, None, 0.0, 0, ws, ws.numel(), out)
+                 None, None, 0, None, 0, 0.0, None, ws, ws.numel(), out)
     return out[0], out[1]
 
 
@@ -324,10 +341,12 @@ def mean_square_flows(pts: LevelPoints, model, t_t_r: SE3, border: int = 4):
 
 
 def keyframe_decision_plain(flow, flow_no_rot, rmse, num_valid, rmse_last0, kf_rmse,
-                            keyframe_factor: float, force_kf: bool):
+                            keyframe_factor: float, force_kf):
     """The frontend's reliability gate and the keyframe strategy's decision
     (``dsopp_tpu/tracker/device_loop.py::_frontend_core``) → (reliable, the
-    state's next rmse_last0, its next kf_rmse, the strategy's decision)."""
+    state's next rmse_last0, its next kf_rmse, the strategy's decision).
+    With a leading axis of B sequences ``force_kf`` is a sequence of B
+    flags."""
     reliable = (rmse < ENERGY_RATIO_THRESHOLD * rmse_last0) & (num_valid > 0)
     rmse_last0_new = torch.where(reliable, rmse, rmse_last0 * ENERGY_RATIO_THRESHOLD)
     kf_rmse_eff = torch.where(kf_rmse < 0, rmse, kf_rmse)
@@ -336,10 +355,12 @@ def keyframe_decision_plain(flow, flow_no_rot, rmse, num_valid, rmse_last0, kf_r
          > KEYFRAME_THRESHOLD)
         | (rmse / torch.clamp(kf_rmse_eff, min=1e-12) > MAX_EXCESS_ENERGY)
     ) & reliable
-    if force_kf:
-        kf_rmse_new = kf_rmse
+    kf_rmse_new = torch.where(need, torch.full_like(kf_rmse_eff, -1.0), kf_rmse_eff)
+    if rmse.dim() == 0:
+        kf_rmse_new = kf_rmse if force_kf else kf_rmse_new
     else:
-        kf_rmse_new = torch.where(need, torch.full_like(kf_rmse_eff, -1.0), kf_rmse_eff)
+        forced = torch.tensor([bool(f) for f in force_kf], device=kf_rmse.device)
+        kf_rmse_new = torch.where(forced, kf_rmse, kf_rmse_new)
     return reliable, rmse_last0_new, kf_rmse_new, need
 
 
@@ -348,14 +369,15 @@ def frame_statistics_plain(pts: LevelPoints, model, t_t_kf: SE3, t_kf_frame_mat,
                            force_kf: bool, border: int = 4):
     """The flow statistic, the frontend's reliability gate and the keyframe
     decision of one frame → the packed [STATS] statistics (``STAT_*``;
-    booleans as 0 / 1)."""
+    booleans as 0 / 1); of B sequences' frames (a leading axis, ``force_kf``
+    B flags) → [B, STATS]."""
     flow, flow_no_rot = mean_square_flows_plain(pts, model, t_t_kf, border)
     reliable, rmse_last0_new, kf_rmse_new, need = keyframe_decision_plain(
         flow, flow_no_rot, rmse, num_valid, rmse_last0, kf_rmse, keyframe_factor, force_kf)
     dtype = rmse.dtype
     head = torch.stack([flow, flow_no_rot, reliable.to(dtype), rmse_last0_new, kf_rmse_new,
-                        need.to(dtype), rmse])
-    return torch.cat([head, t_kf_frame_mat.reshape(16)])
+                        need.to(dtype), rmse], dim=-1)
+    return torch.cat([head, t_kf_frame_mat.reshape(tuple(rmse.shape) + (16,))], dim=-1)
 
 
 def frame_statistics_cuda(pts: LevelPoints, model, t_t_kf: SE3, t_kf_frame_mat, rmse,
@@ -363,20 +385,28 @@ def frame_statistics_cuda(pts: LevelPoints, model, t_t_kf: SE3, t_kf_frame_mat, 
                           force_kf: bool, border: int = 4):
     """Kernel K5 with the decision: same outputs as
     :func:`frame_statistics_plain`, one launch into a new buffer, no host
-    read, the caller's tensors untouched."""
-    n = _flow_args(pts, t_t_kf)
+    read, the caller's tensors untouched.  B sequences (a leading axis on
+    every tensor, ``force_kf`` B flags): one launch into [B, STATS];
+    ``rmse_last0`` and ``kf_rmse`` may then be columns of the last tick's
+    buffer (any stride)."""
+    batched = rmse.dim() == 1
+    batch = rmse.shape[0] if batched else 0
+    lead = (batch,) if batched else ()
+    n = _flow_args(pts, t_t_kf, lead)
     check = kernels.check
-    check(t_kf_frame_mat, "t_kf_frame_mat", (4, 4))
-    check(rmse, "rmse", ())
-    check(num_valid, "num_valid", (), torch.int32)
-    check(rmse_last0, "rmse_last0", ())
-    check(kf_rmse, "kf_rmse", ())
-    out = torch.empty((STATS,), dtype=torch.float32, device=pts.uv.device)
-    ws = kernels.workspace(kernels.FLOW, kernels.FLOW_WORKSPACE_BYTES, out.device)
-    kernels.FLOW(pts.uv, pts.idepth, pts.valid, n, t_t_kf.q, t_t_kf.t, model.fx, model.fy,
-                 model.cx, model.cy, model.width, model.height, float(border), t_kf_frame_mat,
-                 rmse, num_valid, rmse_last0, kf_rmse, float(keyframe_factor), int(force_kf),
-                 ws, ws.numel(), out)
+    check(t_kf_frame_mat, "t_kf_frame_mat", lead + (4, 4))
+    check(rmse, "rmse", lead)
+    check(num_valid, "num_valid", lead, torch.int32)
+    stride0 = _strided_check(rmse_last0, "rmse_last0", batch)
+    stride1 = _strided_check(kf_rmse, "kf_rmse", batch)
+    force = bytes(int(bool(f)) for f in force_kf) if batched else bytes([int(force_kf)])
+    out = torch.empty(lead + (STATS,), dtype=torch.float32, device=pts.uv.device)
+    ws = kernels.workspace(kernels.FLOW, max(batch, 1) * kernels.FLOW_WORKSPACE_BYTES,
+                           out.device)
+    kernels.FLOW(pts.uv, pts.idepth, pts.valid, n, max(batch, 1), t_t_kf.q, t_t_kf.t,
+                 model.fx, model.fy, model.cx, model.cy, model.width, model.height,
+                 float(border), t_kf_frame_mat, rmse, num_valid, rmse_last0, stride0, kf_rmse,
+                 stride1, float(keyframe_factor), force, ws, ws.numel(), out)
     return out
 
 
@@ -384,7 +414,9 @@ def frame_statistics(pts: LevelPoints, model, t_t_kf: SE3, t_kf_frame_mat, rmse,
                      rmse_last0, kf_rmse, keyframe_factor: float, force_kf: bool,
                      border: int = 4):
     """A frame's flows, gate and keyframe decision, packed for one host copy:
-    the kernel K5 on CUDA tensors, the plain version on CPU ones."""
+    the kernel K5 on CUDA tensors, the plain version on CPU ones.  B
+    sequences' frames (a leading axis, ``force_kf`` a sequence of B flags):
+    [B, STATS] in one call."""
     fn = frame_statistics_cuda if pts.uv.is_cuda else frame_statistics_plain
     return fn(pts, model, t_t_kf, t_kf_frame_mat, rmse, num_valid, rmse_last0, kf_rmse,
               keyframe_factor, force_kf, border)

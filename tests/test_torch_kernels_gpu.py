@@ -108,6 +108,14 @@ given reading nothing on the host, equal to the bit to the one-call solve
 and the fold; a run saved, loaded and resumed within 1e-6 m of the straight
 run, every kernel of the path launched after the resume.
 
+The batched tick (``tracker/batched_loop.py``), four sequences bootstrapped on
+offset copies of a 240×320 corridor: K1, K3 (level 1's 5 hypotheses a
+sequence, level 0's one, the re-track's 105 for every second sequence), K4
+and K5 over B = 1, 2 and 4 of them in one launch, each sequence equal to the
+bit to its own launch, with no host read; one batched tick equal to the four ``device_tick``
+calls (the first stage that parts named otherwise), and the regular tick's
+launches at B = 4 those at B = 1 when the escalation outcome is the same.
+
 Run on a machine with a card:
 ``python -m pytest --noconftest tests/test_torch_kernels_gpu.py -q``.
 """
@@ -122,7 +130,7 @@ from dsopp_tpu_torch.features import extractor, pyramid
 from dsopp_tpu_torch.solvers import pba
 from dsopp_tpu_torch.solvers import pose_alignment as pa
 from dsopp_tpu_torch.testing import align_trace, gather_probe, parity, render_sequence
-from dsopp_tpu_torch.testing.profiling import profiled
+from dsopp_tpu_torch.testing.profiling import launch_records, profiled
 from dsopp_tpu_torch.tracker import activation as act
 from dsopp_tpu_torch.tracker import depth_estimation as de
 from dsopp_tpu_torch.tracker import depth_map as dm
@@ -1884,3 +1892,93 @@ def test_checkpoint_resume_on_the_card(tmp_path):
             "select_candidates", "activation", "refine_idepth", "activation_scatter",
             "depth_maps", "marg_policy", "marg_fold")
     assert all(counts[name] > 0 for name in path), counts
+
+
+# the batched tick (tracker/batched_loop.py): K1, K3, K4 and K5 over B = 4
+# sequences in one call, each sequence equal to its own launch to the bit
+BATCH_CASES = ("pyramid_maps", "align_level chunk 0", "align_level level 0",
+               "align_level re-track", "epipolar_update", "flow_statistic")
+BATCH_KERNEL = {"pyramid_maps": "PYRAMID", "epipolar_update": "EPIPOLAR",
+                "flow_statistic": "FLOW"}
+
+
+@pytest.fixture(scope="module")
+def batch4():
+    """Four trackers bootstrapped on offset copies of a 240×320 corridor
+    (frames k..k+5), at the standart point's window and the re-track armed."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from dsopp_tpu_torch.testing import batched, paths
+    from dsopp_tpu_torch.tracker.monocular import TrackerConfig
+
+    seq = render_sequence(num_frames=30, height=240, width=320, dtype=torch.float32,
+                          device="cuda")
+    cfg = TrackerConfig(num_frame_slots=6, landmarks_per_frame=120, immature_per_frame=300,
+                        desired_points=600, frontend_points=800, keyframe_factor=3.0,
+                        window_min=2, window_max=4, use_rotation_perturbations=True)
+    trackers = [batched.offset_bootstrap(seq, cfg, k) for k in range(4)]
+    images = torch.stack([seq.images[k + paths.INIT_FRAMES] for k in range(4)]).contiguous()
+    return seq, cfg, trackers, images
+
+
+@pytest.mark.parametrize("batch", [1, 2, 4])
+@pytest.mark.parametrize("case", BATCH_CASES)
+def test_batched_kernels_equal_solo_launches(batch4, case, batch):
+    """One launch of the kernel for the B sequences (K3: one for all the
+    case's sequences), each sequence's outputs equal to the bit to its own
+    launch on the same inputs, with no host read; at B = 1, 2 and 4."""
+    from dsopp_tpu_torch.testing import batched
+
+    _, _, trackers, images = batch4
+    fn, solos, _, rows_per = batched.kernel_cases(trackers[:batch],
+                                                  images[:batch].contiguous())[case]
+    kernel = getattr(kernels, BATCH_KERNEL.get(case, "ALIGN_LEVEL"))
+    before = kernel.launches
+    out = _no_host_reads(fn)
+    assert kernel.launches == before + 1
+    assert batched.case_equal(case, out, [f() for f in solos], rows_per)
+    assert batched.case_equal(case, fn(), [f() for f in solos], rows_per)
+
+
+def test_batched_tick_equals_solo_ticks_and_launches_do_not_grow(batch4):
+    """One batched tick of the four sequences equals each sequence's
+    ``device_tick`` to the bit (else the first stage that parts is named),
+    and the regular tick launches the same kernels at B = 4 as at B = 1."""
+    from dsopp_tpu_torch.testing import batched
+    from dsopp_tpu_torch.tracker import batched_loop as bl
+    from dsopp_tpu_torch.tracker.device_loop import PipelinedTracker, device_tick
+
+    _, cfg, trackers, images = batch4
+    pipes = [PipelinedTracker(t) for t in trackers]
+    states = [p.state for p in pipes]
+    models, loop = pipes[0].models, pipes[0].cfg
+    assert batched.stage_diff(states, images, models, loop) == "none"
+    counted = {}
+
+    def regular(b):
+        args = batched.regular_tick_args(states[:b], images[:b].contiguous(), models, loop)
+        bl.fused_regular_tick(*args)       # the constants' one-time uploads
+        torch.cuda.synchronize()
+        # a profiler session can lose device records, not the host's launch
+        # calls: those are counted, the most of three sessions
+        calls = []
+        for _ in range(3):
+            kernels.reset_counts()
+            with profiled([torch.profiler.ProfilerActivity.CPU,
+                           torch.profiler.ProfilerActivity.CUDA]) as prof:
+                out = bl.fused_regular_tick(*args)
+                torch.cuda.synchronize()
+            calls.append(launch_records(prof)["host"])
+        # (torch picks each elementwise kernel's variant by its sizes: the
+        # count is held, not the names)
+        return {k: v for k, v in kernels.counts().items() if v}, max(calls), any(out.escalated)
+    for b in (1, 4):
+        counted[b] = regular(b)
+    if counted[1][2] == counted[4][2]:      # the same escalation outcome
+        assert counted[1][:2] == counted[4][:2], counted
+    new, diag = bl.batched_device_tick(bl.stack_states(states), images, [6] * 4, [False] * 4,
+                                       models, pipes[0].mask, loop)
+    for b in range(4):
+        state, sdiag = device_tick(states[b], images[b], 6, False, models, loop)
+        assert torch.equal(diag.pose_t[b], sdiag.pose_t)
+        assert diag.is_keyframe[b] == sdiag.is_keyframe

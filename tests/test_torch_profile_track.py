@@ -2,8 +2,10 @@
 names a function this tree has (a renamed or removed function would drop its
 stage's metric), a missing one is an error unless a parent tree is profiled,
 where it is left untimed and listed, and leaving the timers puts every
-function back; and ``testing/profiling.py``'s session, which waits before
-the work it records.  No card is needed: no kernel is called.
+function back; ``testing/profiling.py``'s session, which waits before the
+work it records, and its launch count, which matches the host's launch calls
+to the device records by correlation id.  No card is needed: no kernel is
+called.
 """
 
 import time
@@ -13,7 +15,7 @@ import pytest
 import torch
 
 from dsopp_tpu_torch.testing import profile_track as pt
-from dsopp_tpu_torch.testing.profiling import profiled
+from dsopp_tpu_torch.testing.profiling import launch_records, profiled
 
 
 @pytest.mark.parametrize("stage", list(pt.STAGES.items()), ids=lambda item: item[1])
@@ -76,3 +78,52 @@ def test_earlier_name_is_timed_in_a_parent_tree(monkeypatch):
     with pytest.raises(AttributeError, match="flow"):
         with pt.StageTimers():
             pass
+
+
+class _Event:
+    """One raw profiler record, as ``kineto_results.events()`` gives it."""
+
+    def __init__(self, name, corr, device=False, linked=0, thread=1):
+        self._name, self._corr, self._linked, self._thread = name, corr, linked, thread
+        self._device = torch.autograd.DeviceType.CUDA if device else torch.autograd.DeviceType.CPU
+
+    def name(self):
+        return self._name
+
+    def correlation_id(self):
+        return self._corr
+
+    def linked_correlation_id(self):
+        return self._linked
+
+    def device_type(self):
+        return self._device
+
+    def start_thread_id(self):
+        return self._thread
+
+
+def test_launch_records_count_host_calls_and_match_device_records():
+    """Launches are the host's launch, copy and set calls; a call without its
+    device record is named by the operator that made it, and a device record
+    without its call is counted apart."""
+    events = [_Event("aten::mul", 1), _Event("cudaLaunchKernel", 10, linked=1),
+              _Event("mul_kernel", 10, device=True),
+              _Event("aten::gather", 2), _Event("cudaLaunchKernel", 11, linked=2),
+              _Event("cudaLaunchKernelExC", 12),
+              _Event("align_level_kernel", 12, device=True),
+              _Event("cudaMemcpyAsync", 13, linked=1), _Event("Memcpy DtoH", 13, device=True),
+              _Event("cudaStreamSynchronize", 14),
+              _Event("stray_kernel", 99, device=True)]
+    prof = types.SimpleNamespace(profiler=types.SimpleNamespace(
+        kineto_results=types.SimpleNamespace(events=lambda: events)))
+    rec = launch_records(prof)
+    assert (rec["host"], rec["device"]) == (4, 4)
+    assert (rec["unmatched_host"], rec["unmatched_device"]) == (1, 1)
+    assert not rec["complete"]
+    assert rec["unmatched_ops"] == {"aten::gather": 1}
+    assert rec["host_names"] == {"cudaLaunchKernel": 2, "cudaLaunchKernelExC": 1,
+                                 "cudaMemcpyAsync": 1}
+    events[:] = events[:4] + events[5:-1]
+    rec = launch_records(prof)
+    assert rec["complete"] and rec["host"] == rec["device"] == 3
