@@ -207,7 +207,34 @@ Phases, one line each with its time:
    the dense parity window, each rank's eps and energy within the JAX DCN
    test's 1e-3 of the single-process step (its measure: the largest
    difference over max(1, the largest entry)), each rank's K7, K8 and K9
-   launched, the step timed on each rank;
+   launched, the step timed on each rank; then the full LM solve and the
+   ledger fold of slot 1 (``sharded.solve_and_marginalize``: the one C
+   call's sequence issued from Python with the all-reduces between its
+   kernels) on that window moved off its state (``bits.solve_starts``),
+   with an empty and a filled ledger, against the single-process one-call
+   solve and fold: each rank's launches those of ``solve_loop_launches``
+   and the fold's K7, K8 and K15; the two ranks' eps, ledger, energy and LM
+   log equal to the bit; the LM log the single-process one iteration by
+   iteration, or a named tie (the step one run accepted changing the energy
+   by less than ``parity.TIE``), the parting iteration and the energies'
+   gap printed; eps, the live idepths, H_m and b_m within the DCN test's
+   1e-3 (after a tie the final energy alone, 1e-3 relative); the fold
+   alone, on the single-process solve's state, within 1e-3 too, and each
+   ledger's b_m and H_m against the float64 fold of that state; the solve's
+   and the fold's ms on each rank from a barrier of the two, and the host
+   syncs of a solve; K10 given the trial's sums as an f64 pair (here the
+   unsharded ones) deciding as K10 summing them itself; and K11 on the two
+   ranks' shards of one evaluation, gathered, equal to the bit to K11 on the
+   whole (the threshold and every rank's statuses);
+11f. parallel-seq — ``sharded.SeqRankTracker``: two gloo ranks on the
+   card, each tracking two of ``[batched]``'s four offset streams in one
+   batched tick (the standart point, 100 frames), every sequence's poses
+   (rotation and translation) and keyframes equal to the bit to its solo
+   run from ``[batched]``, every kernel of the path launched on each rank,
+   each rank's frames/s (85 timed ticks) and the device's busy share (15
+   profiled ticks), both ranks' frames/s together (every timed frame over
+   the span from the first rank's start to the last one's end), and the
+   four gathered trajectories on each rank;
 12. e2e, e2e-exposure — ``tests/tracker/test_monocular_e2e.py``'s two runs
    (240×320, 40 frames, 8-frame bootstrap) in f32 with that test's gates;
    each tick of the exposure run is also replayed from the card's state
@@ -3112,6 +3139,7 @@ def batched(seq, torch, kernels, card, standart_syncs):
                  for i in range(k + INIT_FRAMES, k + INIT_FRAMES + frames)]
         pipe.finalize()
         solo.append(dict(poses=torch.stack([d.pose_t for d in diags]),
+                         rotations=torch.stack([d.pose_q for d in diags]),
                          keyframes=[d.is_keyframe for d in diags],
                          escalated=[d.escalated for d in diags]))
     solo_s = time.perf_counter() - t0
@@ -3189,27 +3217,59 @@ def batched(seq, torch, kernels, card, standart_syncs):
             f" tick over {BATCH_TIMED_TICKS} ticks after {BATCH_WARM_TICKS}), device busy {shown}"
             f" over {BATCH_PROFILED_TICKS} profiled ticks; regular ticks' (K1, K3, K4, K5)"
             f" launches {rates[b]['regular']} | {card}")
-    run.update(results=results, rates=rates, regular=regular, first_stage=first)
+    run.update(results=results, rates=rates, regular=regular, first_stage=first, solo=solo)
     return run
 
 
+def dcn_gap(a, b):
+    """tests/parallel/test_dcn_two_process.py:73-74's measure: the largest
+    difference over max(1, the largest entry)."""
+    return float((a.double() - b.double().cpu()).abs().max()
+                 / max(1.0, float(b.double().abs().max())))
+
+
 def parallel(window, model, opts, torch, kernels, card, device="cuda"):
-    """The landmark-sharded BA step on two gloo ranks sharing the card
-    (``lm`` = 2, CUDA tensors: gloo reduces them; a build that refuses them
-    fails the phase) on the dense parity window, against the single-process
-    step: eps and energy within the JAX DCN test's 1e-3 relative, each rank's
-    K7, K8 and K9 launches, the step's time."""
+    """The landmark-sharded BA on two gloo ranks sharing the card (``lm`` = 2,
+    CUDA tensors: gloo reduces them; a build that refuses them fails the
+    phase) on the dense parity window: one step against the single-process
+    step (eps and energy within the JAX DCN test's 1e-3, each rank's K7, K8
+    and K9 launches, the step's time); the full solve and the fold against
+    the single-process ones (:func:`parallel_solves`); K10 given the
+    reduced sums (:func:`reduced_decision`); K11 across the two shards."""
     import tempfile
 
-    from dsopp_tpu_torch.parallel.sharded import _single_step
+    from dsopp_tpu_torch.parallel.sharded import _single_step, marginalize_slot
+    from dsopp_tpu_torch.solvers import pba
+    from dsopp_tpu_torch.testing import bits
     from dsopp_tpu_torch.testing import parallel_check as pc
 
     single = _single_step(window, model, pc.REG, opts)
+    starts = bits.solve_starts(window, model, opts)
+    singles = {}
+    for ledger, start in starts.items():
+        lm_log = []
+        solved = pba._solve_loop_cuda(start, model, opts, log=lm_log)
+        singles[ledger] = dict(solved=solved, log=lm_log,
+                               folded=marginalize_slot(solved[0], model, opts),
+                               f64=fold_f64(solved[0], model, opts))
+    whole = starts["empty"]
+    lm_mask = pba.active_lm_mask(whole)
+    ev = pba._evaluate_cuda(whole, model, whole.eps, whole.lm_idepth, lm_mask, opts)
+    status = pba._point_status_from_ev_cuda(whole, ev, lm_mask, opts)
+    decision = reduced_decision(pba, torch, whole, model, opts)
+
+    def cpu(w):
+        return w.__class__(**{k: (None if v is None else v.cpu()) for k, v in vars(w).items()})
+
     with tempfile.TemporaryDirectory(prefix="dsopp_gloo_") as folder:
         payload = os.path.join(folder, "window.pt")
-        cpu = window.__class__(**{k: (None if v is None else v.cpu())
-                                  for k, v in vars(window).items()})
-        torch.save(dict(window=cpu, model=model, opts=opts), payload)
+        torch.save(dict(window=cpu(window), model=model, opts=opts,
+                        starts={k: cpu(v) for k, v in starts.items()},
+                        solved={k: cpu(v["solved"][0]) for k, v in singles.items()},
+                        status=dict(window=cpu(whole), mask=lm_mask.cpu(),
+                                    ev={k: getattr(ev, k).cpu() for k in (
+                                        "energy_patch", "ok", "status_candidate")})),
+                   payload)
         t0 = time.perf_counter()
         pc.spawn(2, "card", payload, folder, device=device)
         ranks = [torch.load(os.path.join(folder, f"rank{r}.pt"), weights_only=False)
@@ -3222,16 +3282,10 @@ def parallel(window, model, opts, torch, kernels, card, device="cuda"):
         return float((a.double() - b.double().cpu()).abs().max()
                      / max(float(b.double().abs().max()), 1e-30))
 
-    def dcn(a, b):
-        """tests/parallel/test_dcn_two_process.py:73-74's measure: the largest
-        difference over max(1, the largest entry)."""
-        return float((a.double() - b.double().cpu()).abs().max()
-                     / max(1.0, float(b.double().abs().max())))
-
     for r, out in enumerate(ranks):
         eps, idepth, step_sq, energy, n_valid = out["step"]
         _, lm = out["coords"]
-        gaps[r] = dict(eps=dcn(eps, single[0]), energy=dcn(energy, single[2]),
+        gaps[r] = dict(eps=dcn_gap(eps, single[0]), energy=dcn_gap(energy, single[2]),
                        eps_rel=rel(eps, single[0]),
                        idepth_rel=rel(idepth, single[1][:, lm * n:(lm + 1) * n]),
                        energy_rel=rel(energy, single[2]), step_sq_rel=rel(step_sq, single[4]),
@@ -3247,12 +3301,260 @@ def parallel(window, model, opts, torch, kernels, card, device="cuda"):
                 f"[parallel] rank {r}: eps {gaps[r]['eps']:.3g}, energy {gaps[r]['energy']:.3g}")
         require(all(v >= 1 for v in out["launches"].values()),
                 f"[parallel] rank {r} launched {out['launches']}")
-    log(f"[parallel] two ranks' step in {seconds:.2f} s with the processes' start; the step"
-        f" again, ms from the ranks' barrier to its end: {[out['step_ms'] for out in ranks]}"
-        f" | {card}")
-    return dict(gaps=gaps, step_ms=[out["step_ms"] for out in ranks],
-                counts={k: sum(out["all_launches"].get(k, 0) for out in ranks)
-                        for k in kernels.counts()})
+    log(f"[parallel] two ranks' step and solves in {seconds:.2f} s with the processes' start;"
+        f" the step again, ms from the ranks' barrier to its end:"
+        f" {[out['step_ms'] for out in ranks]} | {card}")
+    solves = parallel_solves(ranks, singles, opts, n, torch, card)
+    # K11 across the shards: the threshold of each rank's gathered call, and
+    # the ranks' statuses side by side, against K11 on the whole evaluation
+    shards = [out["status"] for out in ranks]
+    same = {name: torch.equal(torch.cat([sh[name] for sh in shards], dim=-1),
+                              getattr(status, name).cpu())
+            for name in pba.PointStatus._fields if name != "threshold"}
+    thresholds = [float(sh["threshold"]) for sh in shards]
+    log(f"[parallel] K11 across two shards of the dense evaluation: thresholds {thresholds}"
+        f" (whole {float(status.threshold)}), outputs equal to the bit to the whole's: {same}")
+    require(all(torch.equal(sh["threshold"], status.threshold.cpu()) for sh in shards)
+            and all(same.values()), "[parallel] K11 across two shards differs from K11 on"
+            " the whole evaluation")
+    counts = collections.Counter()
+    for out in ranks:
+        counts.update(out["all_launches"])
+        for res in out["solves"].values():
+            counts.update(res["launches"])
+    return dict(gaps=gaps, step_ms=[out["step_ms"] for out in ranks], solves=solves,
+                reduced_decision=decision, k11_thresholds=thresholds, counts=dict(counts))
+
+
+def fold_f64(window, model, opts):
+    """The ledger (H_m, b_m) of ``sharded.marginalize_slot``'s fold of
+    ``window``, computed in float64 on the CPU by the plain pass and fold
+    (the pseudo-inverse's cutoff at float32's, as K15's on an f32 window):
+    the f32 paths' common reference on the same state."""
+    from dsopp_tpu_torch.parallel.sharded import MARGINALIZED_SLOT
+    from dsopp_tpu_torch.solvers import pba
+    from dsopp_tpu_torch.solvers.linear import pinv_hermitian
+    from dsopp_tpu_torch.testing import parity
+    from dsopp_tpu_torch.tracker.marginalization import kept_first_perm
+
+    w = parity.to_f64(parity.moved(window, "cpu"))
+    flags = pba.slot_mask(w.num_slots, MARGINALIZED_SLOT, "cpu")
+    w = w.replace(frame_marg=flags, lm_marg_flag=w.lm_valid & flags[:, None])
+    sys, e_land = pba._marg_pass(w, model, opts)
+    h_pts, b_pts = pba._points_system(w, sys.h_pose, sys.b_pose, sys.h_schur, sys.b_schur, opts)
+    h_m, b_m, _ = pba._marginalize_plain(
+        w, h_pts, b_pts, e_land, kept_first_perm(w.frame_valid, flags), opts,
+        pinv=lambda h: pinv_hermitian(h, window.eps.dtype))
+    return h_m, b_m
+
+
+def parallel_solves(ranks, singles, opts, n, torch, card):
+    """Each start's full solve and fold on the two ranks against the
+    single-process one: launches, the ranks equal to each other to the bit,
+    the LM log (or a named tie), the DCN gaps, the times and host syncs."""
+    from dsopp_tpu_torch.solvers import pba
+    from dsopp_tpu_torch.testing import parity
+
+    want_launches = dict(pba.solve_loop_launches(opts.max_iterations))
+    want_launches["ba_evaluate"] += 1          # the fold's pass
+    want_launches["ba_linearize_schur"] += 1
+    want_launches["marg_fold"] = 1
+    out = {}
+    for ledger, ref in singles.items():
+        res = [rank["solves"][ledger] for rank in ranks]
+        for r, got in enumerate(res):
+            require(got["launches"] == want_launches,
+                    f"[parallel] {ledger} ledger, rank {r} launched {got['launches']}, not"
+                    f" {want_launches}")
+        a, b = res
+        twins = {f: torch.equal(a["folded"][f], b["folded"][f])
+                 for f in ("eps", "h_marg", "b_marg", "energy_marg", "frame_valid")}
+        twins.update(energy=torch.equal(a["energy"], b["energy"]),
+                     count=torch.equal(a["count"], b["count"]), log=a["log"] == b["log"],
+                     solved_eps=torch.equal(a["solved"]["eps"], b["solved"]["eps"]))
+        same, tie_at = parity.same_decisions(a["log"], ref["log"])
+        parted = next((i for i, (x, y) in enumerate(zip(a["log"], ref["log"]))
+                       if (x["accept"], x["done"], x["relin"]) != (y["accept"], y["done"],
+                                                                   y["relin"])), None)
+        log_gaps = [abs(x["energy"] - y["energy"]) / max(abs(y["energy"]), 1e-30)
+                    for x, y in zip(a["log"], ref["log"])]
+        folded, solved = ref["folded"], ref["solved"]
+        e_gap = abs(float(a["energy"]) - float(solved[1])) / abs(float(solved[1]))
+        live = folded.lm_valid.cpu()
+        gaps = dict(eps=dcn_gap(a["folded"]["eps"], folded.eps),
+                    h_marg=dcn_gap(a["folded"]["h_marg"], folded.h_marg),
+                    b_marg=dcn_gap(a["folded"]["b_marg"], folded.b_marg),
+                    idepth=max(dcn_gap(torch.where(live[:, lm * n:(lm + 1) * n],
+                                                   got["folded"]["lm_idepth"], 0.0),
+                                       torch.where(live[:, lm * n:(lm + 1) * n],
+                                                   folded.lm_idepth.cpu()[:, lm * n:(lm + 1) * n],
+                                                   0.0))
+                               for lm, got in enumerate(res)),
+                    energy=e_gap)
+        # where b_m's gap comes from: the fold alone on the single-process
+        # state, and each f32 ledger against the f64 fold of that state
+        h64, b64 = ref["f64"]
+        b_diff = (a["folded"]["b_marg"].double() - folded.b_marg.double().cpu()).abs()
+        at = int(b_diff.argmax())
+        cause = dict(fold_only_h=dcn_gap(a["fold_only"]["h_marg"], folded.h_marg),
+                     fold_only_b=dcn_gap(a["fold_only"]["b_marg"], folded.b_marg),
+                     single_b_f64=dcn_gap(folded.b_marg.cpu(), b64),
+                     sharded_b_f64=dcn_gap(a["folded"]["b_marg"], b64),
+                     fold_only_b_f64=dcn_gap(a["fold_only"]["b_marg"], b64),
+                     single_h_f64=dcn_gap(folded.h_marg.cpu(), h64),
+                     sharded_h_f64=dcn_gap(a["folded"]["h_marg"], h64),
+                     b_abs=float(b_diff.max()), b_at=(at // 8, at % 8),
+                     b_largest=float(folded.b_marg.abs().max()))
+        verdict = ("the single-process one" if same and tie_at is None else
+                   f"a tie at row {tie_at}" if same else "DIFFERS")
+        parting = "" if parted is None else f", decisions part at row {parted}"
+        log(f"[parallel] {ledger} ledger, full solve + fold on two ranks: launches a rank"
+            f" {a['launches']}; the ranks equal to the bit: {twins}; LM log {verdict}"
+            f" ({len(a['log'])} rows, accepts {sum(x['accept'] for x in a['log'])}, single"
+            f" {sum(x['accept'] for x in ref['log'])}{parting}), energies' relative gap a row:"
+            f" {[f'{g:.3g}' for g in log_gaps]}; DCN gaps"
+            f" {({k: f'{v:.3g}' for k, v in gaps.items()})} (gate {PARALLEL_RTOL}); solve ms"
+            f" {[[round(x, 3) for x in got['solve_ms']] for got in res]}, fold ms"
+            f" {[[round(x, 3) for x in got['fold_ms']] for got in res]} from the ranks' barrier;"
+            f" a solve's all-reduces {[got['collectives'] for got in res]}, each a host sync (gloo"
+            f" stages CUDA tensors through the host, waiting in its worker thread, where the sync"
+            f" debug mode prints to stderr), the host's ms inside them"
+            f" {[round(got['collective_ms'], 3) for got in res]}; other host syncs in a solve"
+            f" {[got['host_syncs'] for got in res]} | {card}")
+        log(f"[parallel] {ledger} ledger, b_m's gap: largest {cause['b_abs']:.3g} at the compacted"
+            f" slot {cause['b_at'][0]}, entry {cause['b_at'][1]} (6 = a, 7 = b), against the"
+            f" largest |b_m| {cause['b_largest']:.3g}; the fold alone on the single-process"
+            f" solve's state: H_m {cause['fold_only_h']:.3g}, b_m {cause['fold_only_b']:.3g};"
+            f" against the f64 fold of that state (DCN measure): b_m single"
+            f" {cause['single_b_f64']:.3g}, sharded {cause['sharded_b_f64']:.3g}, fold alone"
+            f" {cause['fold_only_b_f64']:.3g}; H_m single {cause['single_h_f64']:.3g}, sharded"
+            f" {cause['sharded_h_f64']:.3g} | {card}")
+        require(all(twins.values()), f"[parallel] {ledger} ledger: the ranks differ: {twins}")
+        require(cause["fold_only_h"] < PARALLEL_RTOL and cause["fold_only_b"] < PARALLEL_RTOL,
+                f"[parallel] {ledger} ledger: the fold alone {cause}")
+        require(same, f"[parallel] {ledger} ledger: the LM log parts from the single-process one"
+                      f" at row {parted} beyond a tie")
+        if tie_at is None:
+            require(all(gaps[k] < PARALLEL_RTOL for k in ("eps", "h_marg", "b_marg", "idepth")),
+                    f"[parallel] {ledger} ledger: DCN gaps {gaps}")
+        require(e_gap < PARALLEL_RTOL, f"[parallel] {ledger} ledger: energy gap {e_gap:.3g}")
+        require(float(folded.h_marg.abs().max()) > 0, f"[parallel] {ledger}: empty ledger")
+        out[ledger] = dict(gaps=gaps, cause=cause, tie_at=tie_at, log_gaps=log_gaps,
+                           twins=twins,
+                           solve_ms=[got["solve_ms"] for got in res],
+                           fold_ms=[got["fold_ms"] for got in res],
+                           host_syncs=[got["host_syncs"] for got in res],
+                           collectives=[got["collectives"] for got in res],
+                           collective_ms=[got["collective_ms"] for got in res])
+    return out
+
+
+def reduced_decision(pba, torch, window, model, opts):
+    """K10's init and first step on the dense window, once summing the
+    patch energies itself and once given them as the f64 pair a sharded
+    solve all-reduces (here the unsharded sums): the same decisions and
+    committed state, the energies equal to the bit or one f32 ulp apart."""
+    lm_mask = pba.active_lm_mask(window)
+    eps, idepth = window.eps, window.lm_idepth
+    ev = pba._evaluate_cuda(window, model, eps, idepth, lm_mask, opts)
+    sys = pba._linearize_from_ev_cuda(window, model, ev, eps, opts)
+    eps_new, idepth_new, step_sq = pba._solve_step_launch(window, sys, eps, idepth,
+                                                          opts.initial_regularizer, None)
+    ev_new = pba._evaluate_cuda(window, model, eps_new, idepth_new, lm_mask, opts)
+
+    def sums(e):
+        return torch.stack([e.sum(dtype=torch.float64), (e > 0).sum(dtype=torch.float64)])
+
+    runs = []
+    for pairs in ((None, None), (sums(ev.energy_patch), sums(ev_new.energy_patch))):
+        carried = pba._carried_state(window)
+        state = torch.empty(pba.LM_FIELDS, dtype=torch.int32, device="cuda")
+        lm_log = torch.empty((2, pba.LM_FIELDS), dtype=torch.int32, device="cuda")
+        pba._lm_phase(0, 0, window, opts, eps, idepth, None, ev, ev_new, carried, state, lm_log,
+                      reduced=pairs[0])
+        pba._lm_phase(1, 1, window, opts, eps_new, idepth_new, step_sq, ev, ev_new, carried,
+                      state, lm_log, reduced=pairs[1])
+        runs.append((carried, pba.lm_log_rows(lm_log)))
+    (c_own, log_own), (c_red, log_red) = runs
+    flags = [{k: v for k, v in row.items() if k != "energy"} for row in log_own]
+    same = flags == [{k: v for k, v in row.items() if k != "energy"} for row in log_red]
+    energies = [(a["energy"], b["energy"]) for a, b in zip(log_own, log_red)]
+    committed = all(torch.equal(x, y) for x, y in zip(c_own, c_red))
+    log(f"  K10 with the reduced pair: decisions {'equal' if same else 'DIFFER'} ({flags}),"
+        f" energies (own, pair) {energies}, committed state equal: {committed}")
+    require(same and committed, "K10 with the reduced pair decides otherwise")
+    require(all(abs(a - b) <= 1.2e-7 * abs(a) for a, b in energies),
+            f"K10 with the reduced pair: energies {energies}")
+    return dict(same=same, energies=energies)
+
+
+def parallel_seq(seq, solo, torch, card):
+    """``sharded.SeqRankTracker`` on two gloo ranks sharing the card, each
+    tracking two of ``[batched]``'s offset streams (``solo``: their solo
+    runs): every sequence equal to its solo run to the bit, every kernel of
+    the path launched on each rank, each rank's frames/s and busy share, the
+    frames/s of both ranks together (every timed frame over the span from the
+    earliest rank's start to the latest one's end), the four trajectories
+    gathered on each rank."""
+    import tempfile
+
+    from dsopp_tpu_torch.testing import parallel_check as pc
+    from dsopp_tpu_torch.testing.paths import INIT_FRAMES
+
+    frames = BATCHED_FRAMES
+    last = BATCH - 1 + INIT_FRAMES + frames
+    with tempfile.TemporaryDirectory(prefix="dsopp_gloo_") as folder:
+        payload = os.path.join(folder, "sequence.pt")
+        torch.save(dict(seq=dataclasses.replace(seq, images=seq.images[:last].cpu(),
+                                                depths=seq.depths[:0].cpu()),
+                        batch=BATCH, ticks=frames, profiled_ticks=BATCH_PROFILED_TICKS),
+                   payload)
+        t0 = time.perf_counter()
+        pc.spawn(2, "card_seq", payload, folder)
+        ranks = [torch.load(os.path.join(folder, f"rank{r}.pt"), weights_only=False)
+                 for r in range(2)]
+        seconds = time.perf_counter() - t0
+    results = []
+    for r, out in enumerate(ranks):
+        missing = [name for name in PATH_KERNELS if out["counts"].get(name, 0) == 0]
+        busy = "not measured" if out["busy_share"] is None else f"{100 * out['busy_share']:.1f} %"
+        log(f"[parallel-seq] rank {r}: sequences {out['sequences']}, {out['fps']:.3f} frames/s"
+            f" aggregate ({out['ms_per_tick']:.3f} ms a tick over {frames - out['profiled_ticks']}"
+            f" ticks), device busy {busy} over {out['profiled_ticks']} profiled ticks, bootstrap"
+            f" {out['bootstrap_s']:.2f} s; launches {out['counts']} | {card}")
+        require(not missing, f"[parallel-seq] rank {r}: kernels of the path never launched:"
+                             f" {missing}")
+        gathered = out["trajectories"]
+        require([t["sequence"] for t in gathered] == list(range(BATCH)),
+                f"[parallel-seq] rank {r} gathered {[t['sequence'] for t in gathered]}")
+        for k, t in enumerate(gathered):
+            want = torch.cat([solo[k]["rotations"], solo[k]["poses"]], dim=-1).cpu().numpy()
+            equal = np.array_equal(t["poses"], want)
+            same_kf = list(t["keyframes"]) == [bool(x) for x in solo[k]["keyframes"]]
+            results.append(equal and same_kf)
+            if r == 0:
+                log(f"[parallel-seq] sequence {k}: {len(t['poses'])} frames, poses"
+                    f" {'equal to the bit to' if equal else 'DIFFER from'} its solo run,"
+                    f" keyframes {int(t['keyframes'].sum())} ({'the same' if same_kf else 'NOT the same'}"
+                    f" as solo), trajectory {len(t['trajectory'][0])} entries")
+            require(equal and same_kf, f"[parallel-seq] rank {r}, sequence {k} differs from"
+                                       " its solo run")
+    require(all(np.array_equal(a["poses"], b["poses"])
+                and all(np.array_equal(x, y) for x, y in zip(a["trajectory"], b["trajectory"]))
+                for a, b in zip(ranks[0]["trajectories"], ranks[1]["trajectories"])),
+            "[parallel-seq] the ranks gathered different trajectories")
+    timed = frames - ranks[0]["profiled_ticks"]
+    span = max(out["end"] for out in ranks) - min(out["start"] for out in ranks)
+    together = sum(len(out["sequences"]) for out in ranks) * timed / span
+    log(f"[parallel-seq] two ranks x {BATCH // 2} sequences x {frames} frames in {seconds:.2f} s"
+        f" with the processes' start; both ranks together {together:.3f} frames/s (every timed"
+        f" frame over {span:.4f} s from the first rank's start to the last one's end; the ranks'"
+        f" own rates sum to {sum(out['fps'] for out in ranks):.3f}) | {card}")
+    counts = collections.Counter()
+    for out in ranks:
+        counts.update(out["counts"])
+    return dict(fps=[out["fps"] for out in ranks], fps_together=together,
+                busy=[out["busy_share"] for out in ranks], seconds=seconds, counts=dict(counts))
 
 
 def parent_bits(card):
@@ -3487,6 +3789,9 @@ def main():
         sp = parallel(*dense, torch, kernels, card)
         del dense
         log(f"[parallel] phase {time.perf_counter() - t0:.2f} s")
+        t0 = time.perf_counter()
+        sq = parallel_seq(seq, sb["solo"], torch, card)
+        log(f"[parallel-seq] phase {time.perf_counter() - t0:.2f} s")
         e2e(torch, card, exposure=False)
         e2e(torch, card, exposure=True)
         parent_bits(card)
@@ -3497,7 +3802,7 @@ def main():
     # a kernel folded into another (COMPUTED_IN) has no launch of its own
     runs = dict(track=st, track_embedder=se, track_fast=sf, track_dense=sd, track_masked=sm,
                 track_ledger=sl, track_sensor=ss, app=sa, outputs_app=so["app"],
-                outputs_resume=so["resume"], batched=sb, parallel=sp)
+                outputs_resume=so["resume"], batched=sb, parallel=sp, parallel_seq=sq)
     result = {"kernels": [
         dict(name=name, route="cuda", source=SOURCES[name][0], replaces=SOURCES[name][1],
              launches=sum(run["counts"].get(name, 0) for run in runs.values()),

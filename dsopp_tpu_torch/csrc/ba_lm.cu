@@ -29,6 +29,17 @@
 // idepth, lin_idepth and the residual statuses (the accepted trial's
 // candidates).
 //
+// A landmark-sharded solve (parallel/shard_map_ba.py) issues the same
+// sequence from Python with all-reduces between the kernels: its ranks hold a
+// slice of the landmark slots each, so the trial's landmark energy and count
+// are sums over the ranks.  There ba_lm takes them as an f64 pair (`reduced`:
+// sum of the patch energies, count of the positive ones), all-reduced across
+// the shards, in place of its own sums, and rounds the energy to f32 once as
+// it rounds its own sum; every other input of the decision (the ledger, eps,
+// the step's norm) is the same on every rank, so every rank decides alike.
+// With a null `reduced` the kernel sums the trial itself, as ba_solve_loop
+// has it.
+//
 // Bound: latency (one block reduces K*K*N patch energies, 98 260 at K = 17,
 // N = 340, then the commit of the small state, 0.4 MB at that point).  Design,
 // one entry (ba_lm) with three phases:
@@ -123,7 +134,8 @@ decide_kernel(int phase, int iter, int k, int n, LmOptions o,
               const double* __restrict__ h_marg, const double* __restrict__ b_marg,
               const double* __restrict__ energy_marg, const float* __restrict__ trial_eps,
               const float* __restrict__ energy0, const float* __restrict__ energy1,
-              const float* __restrict__ step_sq, float* t_lin_q, float* t_lin_t,
+              const double* __restrict__ reduced, const float* __restrict__ step_sq,
+              float* t_lin_q, float* t_lin_t,
               float* affine0, int* __restrict__ state, int* __restrict__ log) {
   __shared__ double scratch[kDecideWarps];
   __shared__ double hs[kMaxKb];
@@ -147,16 +159,24 @@ decide_kernel(int phase, int iter, int k, int n, LmOptions o,
   const int carried = phase == 0 ? 1 : state[kLmCarried];
   const float* __restrict__ trial_energy = carried ? energy0 : energy1;
 
-  // landmark energy and the count of positive patch energies
-  const int groups = k * k * n;
-  double e_part = 0.0, n_part = 0.0;
-  for (int g = tid; g < groups; g += kDecideThreads) {
-    const float e = trial_energy[g];
-    e_part += (double)e;
-    n_part += e > 0.0f ? 1.0 : 0.0;
+  // landmark energy and the count of positive patch energies: the trial's
+  // own, or the pair summed over the landmark shards
+  float e_land;
+  int n_new;
+  if (reduced != nullptr) {
+    e_land = (float)reduced[0];
+    n_new = (int)reduced[1];
+  } else {
+    const int groups = k * k * n;
+    double e_part = 0.0, n_part = 0.0;
+    for (int g = tid; g < groups; g += kDecideThreads) {
+      const float e = trial_energy[g];
+      e_part += (double)e;
+      n_part += e > 0.0f ? 1.0 : 0.0;
+    }
+    e_land = (float)block_sum(e_part, scratch);
+    n_new = (int)block_sum(n_part, scratch);
   }
-  const float e_land = (float)block_sum(e_part, scratch);
-  const int n_new = (int)block_sum(n_part, scratch);
 
   // ledger quadratic (e_m + b_m s) + 0.5 s (H_m s) in f64, s = eps; and
   // whether the ledger is empty
@@ -305,7 +325,9 @@ inline int copy_blocks(int k, int n) { return min((max(k * k * n, 8 * k) + 255) 
 // [8k,8k], b_marg [8k], energy_marg [1] f64.  Trial: eps [k,8], idepth [k,n],
 // step_sq [2] (ba_solve_step).  The two evaluation buffers' energy_patch
 // [k,k,n] and status_candidate [k,k,n] int32 (phase 0 decides on buffer 0).
-// Start (phase 0 only, else may be null): the window's t_lin_q [k,4], t_lin_t
+// reduced: null, or the trial's (sum of patch energies, count of positive
+// ones) [2] f64, summed over the landmark shards, taken in place of the
+// kernel's own sums (phases 0 and 1).  Start (phase 0 only, else may be null): the window's t_lin_q [k,4], t_lin_t
 // [k,3], affine0 [k,2], eps [k,8], lm_idepth [k,n] and res_status [k,k,n]
 // int32.  Carried, updated in place (phase 0 writes them from the start):
 // t_lin_q, t_lin_t, affine0, eps, idepth and lin_idepth [k,n], res_status.
@@ -321,7 +343,7 @@ extern "C" int ba_lm(int phase, int iter, int k, int n, int min_iterations, int 
                      const double* b_marg, const double* energy_marg,
                      const float* trial_eps, const float* trial_idepth, const float* step_sq,
                      const float* energy0, const int* candidate0, const float* energy1,
-                     const int* candidate1, const float* start_t_lin_q,
+                     const int* candidate1, const double* reduced, const float* start_t_lin_q,
                      const float* start_t_lin_t, const float* start_affine0,
                      const float* start_eps, const float* start_idepth,
                      const int* start_res_status, float* t_lin_q, float* t_lin_t,
@@ -346,8 +368,8 @@ extern "C" int ba_lm(int phase, int iter, int k, int n, int min_iterations, int 
                        function_tolerance,  parameter_tolerance, reg_decrease,
                        reg_increase,        affine_reg_a,        affine_reg_b};
   decide_kernel<<<1, kDecideThreads, 0, s>>>(phase, iter, k, n, o, frame_valid, h_marg, b_marg,
-                                             energy_marg, trial_eps, energy0, energy1, step_sq,
-                                             t_lin_q, t_lin_t, affine0, state, log);
+                                             energy_marg, trial_eps, energy0, energy1, reduced,
+                                             step_sq, t_lin_q, t_lin_t, affine0, state, log);
   if (phase == 1)
     commit_kernel<<<copy_blocks(k, n), 256, 0, s>>>(k, n, state, trial_eps, trial_idepth,
                                                     candidate0, candidate1, c);
@@ -445,9 +467,9 @@ extern "C" int ba_solve_loop(
   ++launched[kCountEvaluate];
   // 2. the carried state from the window, and the loop state from buffer 0
   err = ba_lm(0, 0, k, n, LM_OPTS, frame_valid, h_marg, b_marg, energy_marg, eps, lm_idepth,
-              nullptr, ev0_energy, ev0_candidate, ev1_energy, ev1_candidate, t_lin_q, t_lin_t,
-              affine0, eps, lm_idepth, res_status, CARRIED, state, log, nullptr, nullptr,
-              stream);
+              nullptr, ev0_energy, ev0_candidate, ev1_energy, ev1_candidate, nullptr, t_lin_q,
+              t_lin_t, affine0, eps, lm_idepth, res_status, CARRIED, state, log, nullptr,
+              nullptr, stream);
   if (err) return failed(kStepLmInit, err);
   ++launched[kCountLm];
   // 3. the iterations, each returning at once when the loop is done
@@ -473,16 +495,16 @@ extern "C" int ba_solve_loop(
     ++launched[kCountEvaluate];
     err = ba_lm(1, it, k, n, LM_OPTS, frame_valid, h_marg, b_marg, energy_marg, eps_new,
                 idepth_new, step_sq, ev0_energy, ev0_candidate, ev1_energy, ev1_candidate,
-                nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, CARRIED, state, log,
-                nullptr, nullptr, stream);
+                nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, CARRIED, state,
+                log, nullptr, nullptr, stream);
     if (err) return failed(kStepLmStep, err);
     ++launched[kCountLm];
   }
   // 4. the newest frame's increment folded into its linearization point
   err = ba_lm(2, max_iterations + 1, k, n, LM_OPTS, frame_valid, h_marg, b_marg, energy_marg,
               c_eps, c_idepth, nullptr, ev0_energy, ev0_candidate, ev1_energy, ev1_candidate,
-              nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, CARRIED, state, log, energy,
-              count, stream);
+              nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, CARRIED, state, log,
+              energy, count, stream);
   if (err) return failed(kStepLmFinish, err);
   ++launched[kCountLm];
   // 5. the point statuses from an evaluation at the solved state (buffer 0)

@@ -217,7 +217,9 @@ BA_LINEARIZE = Kernel("ba_linearize_schur", "ba_linearize_schur",
                       + [_P] * 11)
 BA_SOLVE = Kernel("ba_solve_step", "ba_solve_step",
                   [_P] * 12 + [_I, _I, _F, _I] + [_P] * 7)
-BA_LM = Kernel("ba_lm", "ba_lm", [_I] * 6 + [_F] * 7 + [_P] * 28)
+# K10 takes the trial's landmark sums, reduced over the landmark shards, or a
+# null pointer (it sums the trial itself)
+BA_LM = Kernel("ba_lm", "ba_lm", [_I] * 6 + [_F] * 7 + [_P] * 29)
 # K11: its workspace (ticket, counts, histogram, selection, then the
 # candidates) before its outputs
 BA_STATUS = Kernel("ba_point_status", "ba_point_status",

@@ -26,9 +26,13 @@ function here picks or switches it.
 from __future__ import annotations
 
 import dataclasses
+import datetime
 import os
 
+import torch
 import torch.distributed as dist
+
+from dsopp_tpu_torch import default_device
 
 SEQ_AXIS = "seq"
 LM_AXIS = "lm"
@@ -87,20 +91,38 @@ def make_mesh(num_seq: int = 1, num_lm: int = 0) -> Mesh:
 
 
 def initialize_distributed(coordinator: str = None, num_processes: int = None,
-                           process_id: int = None, backend: str = None):
+                           process_id: int = None, backend: str = None,
+                           timeout: float = None):
     """Join the default process group: ``coordinator`` its address
     (``tcp://host:port``), ``num_processes`` the world size, ``process_id``
     this rank, ``backend`` "nccl" or "gloo" (the caller's choice, required
-    with a world of more than one).  A no-op when the group is already
-    initialized, or for a single process without a coordinator."""
+    with a world of more than one), ``timeout`` the seconds a collective
+    waits for the other ranks before it raises (``None``: torch's default,
+    30 minutes).  A no-op when the group is already initialized, or for a
+    single process without a coordinator."""
     if dist.is_initialized():
         return
     if coordinator is None and (num_processes or 1) == 1:
         return
     if backend not in ("nccl", "gloo"):
         raise ValueError(f"backend: 'nccl' or 'gloo', not {backend!r}")
+    extra = {} if timeout is None else {"timeout": datetime.timedelta(seconds=timeout)}
     dist.init_process_group(backend, init_method=coordinator, world_size=num_processes,
-                            rank=process_id)
+                            rank=process_id, **extra)
+
+
+def rank_device(device=None) -> torch.device:
+    """The device this rank runs on: ``device`` where given; else, under
+    nccl, the card ``LOCAL_RANK`` names (made the current one), and
+    otherwise the card of :func:`dsopp_tpu_torch.default_device` (the one
+    card the ranks of a gloo world share)."""
+    if device is not None:
+        return torch.device(device)
+    if dist.is_initialized() and dist.get_backend() == "nccl":
+        index = int(os.environ.get("LOCAL_RANK", 0))
+        torch.cuda.set_device(index)
+        return torch.device("cuda", index)
+    return default_device(None)
 
 
 def make_hybrid_mesh(num_seq: int = 0, num_lm: int = 0) -> Mesh:

@@ -366,14 +366,25 @@ def _evaluate_cuda(window: Window, model, eps, idepth, lm_mask,
     check(window.frame_valid, "frame_valid", (k,), torch.bool)
     check(window.res_status, "res_status", (k, k, n), torch.int32)
     out = _evaluation_buffers(k, n, c, eps.dtype, eps.device)
+    _evaluate_launch(window, model, eps, idepth, lm_mask, opts, None, out)
+    return out
+
+
+def _evaluate_launch(window: Window, model, eps, idepth, lm_mask, opts: PBAOptions, state,
+                     ev0: Evaluation, ev1: Evaluation = None, mask=None):
+    """One launch of kernel K7 on checked tensors: into ``ev0`` without the
+    LM loop's ``state``; with it, into the one of ``ev0`` and ``ev1`` that
+    the state does not name carried (nothing when the loop is done).
+    ``mask``, where given, receives ``lm_mask & frame_valid``."""
+    k, n, c = window.num_slots, window.num_landmark_slots, window.num_channels
+    h, w = window.maps.shape[-2:]
     # channel plane ch of frame f is plane ch of channel_bank[f]
     kernels.BA_EVALUATE(window.t_lin_q, window.t_lin_t, eps, window.affine0,
                         window.exposure, window.lm_uv, idepth, window.lm_patch, lm_mask,
                         window.frame_valid, window.res_status, window.channel_bank,
                         3 * c * h * w, k, n, h, w, c, model.fx, model.fy, model.cx, model.cy,
-                        model.width, model.height, _huber_sigma(c, opts), None, *out,
-                        *(None,) * len(out), None)
-    return out
+                        model.width, model.height, _huber_sigma(c, opts), state, *ev0,
+                        *(ev1 or (None,) * len(ev0)), mask)
 
 
 def _evaluate(window: Window, model, eps, idepth, lm_mask, opts: PBAOptions) -> Evaluation:
@@ -524,16 +535,27 @@ def _linearize_from_ev_cuda(window: Window, model, ev: Evaluation, eps,
     check(window.frame_fixed, "frame_fixed", (k,), torch.bool)
     check(window.frame_marg, "frame_marg", (k,), torch.bool)
     scratch, out = _linearize_buffers(k, n, eps.dtype, eps.device)
+    _linearize_launch(window, model, ev, None, eps, opts, marg_pass, None, scratch, out)
+    return out
+
+
+def _linearize_launch(window: Window, model, ev0: Evaluation, ev1: Evaluation, eps,
+                      opts: PBAOptions, marg_pass: bool, state, scratch, out: LinearSystem):
+    """One launch of kernel K8 on checked tensors, into ``out`` (of
+    :func:`_linearize_buffers`): from ``ev0`` without the LM loop's
+    ``state``; with it, from the one of ``ev0`` and ``ev1`` that the state
+    names carried (nothing when the loop is done)."""
+    k, n, c = window.num_slots, window.num_landmark_slots, window.num_channels
+    second = (None,) * 5 if ev1 is None else (ev1.residuals, ev1.weight, ev1.gx, ev1.gy, ev1.ok)
     kernels.BA_LINEARIZE(window.t_lin_q, window.t_lin_t, window.affine0, window.exposure,
                          window.lm_uv, window.lm_idepth, window.lm_patch,
                          model.fx, model.fy, model.cx, model.cy, model.width, model.height,
-                         ev.residuals, ev.weight, ev.gx, ev.gy, ev.ok, *(None,) * 5, eps,
+                         ev0.residuals, ev0.weight, ev0.gx, ev0.gy, ev0.ok, *second, eps,
                          window.frame_valid, window.frame_fixed, window.frame_marg, k, n, c,
                          int(bool(marg_pass)), float(opts.idepth_nullspace_threshold),
                          float(opts.scale_nullspace_reg), float(opts.fixed_reg),
                          float(opts.affine_reg_a), float(opts.affine_reg_b),
-                         scratch[0].shape[0] // (k * k), None, *scratch, *out)
-    return out
+                         scratch[0].shape[0] // (k * k), state, *scratch, *out)
 
 
 def _linearize_from_ev(window: Window, model, ev: Evaluation, eps,
@@ -547,13 +569,24 @@ def _linearize_from_ev(window: Window, model, ev: Evaluation, eps,
                                     marg_pass)
 
 
-def _energy_from_ev(window: Window, ev: Evaluation, eps, opts: PBAOptions):
+def _landmark_sums(ev: Evaluation):
+    """(Σ patch energies, the count of positive ones) of an evaluation: the
+    part of the energy that lies in the landmark slots."""
+    return torch.sum(ev.energy_patch), torch.sum(ev.energy_patch > 0)
+
+
+def _total_energy(window: Window, e_land, eps, opts: PBAOptions):
     """Landmark + prior + ledger energy (ledger quadratic in float64)."""
-    e_land = torch.sum(ev.energy_patch)
-    n_valid = torch.sum(ev.energy_patch > 0)
     s = eps.reshape(-1).to(LEDGER_DTYPE)
     e_marg = (window.energy_marg + window.b_marg @ s) + 0.5 * (s @ (window.h_marg @ s))
-    return e_land + _prior_energy(window, eps, opts) + e_marg.to(e_land.dtype), n_valid
+    return e_land + _prior_energy(window, eps, opts) + e_marg.to(e_land.dtype)
+
+
+def _energy_from_ev(window: Window, ev: Evaluation, eps, opts: PBAOptions):
+    """Landmark + prior + ledger energy (ledger quadratic in float64) and the
+    count of positive patch energies."""
+    e_land, n_valid = _landmark_sums(ev)
+    return _total_energy(window, e_land, eps, opts), n_valid
 
 
 def _assemble_step_system(window: Window, sys: LinearSystem, eps, lam):
@@ -675,14 +708,12 @@ def _without_prior(opts: PBAOptions) -> PBAOptions:
 
 
 def _linearize(window: Window, model, eps, idepth, lm_mask, opts: PBAOptions,
-               marg_pass: bool = False, with_prior: bool = True) -> LinearSystem:
+               marg_pass: bool = False) -> LinearSystem:
     """The GN system at (eps, idepth): K7's evaluation, then K8 on it with the
     FEJ of the window's linearization point (the JAX package's ``_linearize``,
-    whose FEJ cache argument K8 forms itself).  ``with_prior=False``: the
-    photometric system alone (a landmark shard's, before the all-reduce)."""
+    whose FEJ cache argument K8 forms itself)."""
     ev = _evaluate(window, model, eps, idepth, lm_mask, opts)
-    return _linearize_from_ev(window, model, ev, eps,
-                              opts if with_prior else _without_prior(opts), marg_pass)
+    return _linearize_from_ev(window, model, ev, eps, opts, marg_pass)
 
 
 def _energy(window: Window, model, eps, idepth, lm_mask, opts: PBAOptions):
@@ -704,10 +735,13 @@ def _pba_iteration(window: Window, model, eps, idepth, lm_mask, regularizer,
 
 
 def _lm_decide_plain(window: Window, ev_new: Evaluation, eps_new, pose_sq, d_sq, e, it: int,
-                     opts: PBAOptions):
+                     opts: PBAOptions, sums=None):
     """The decision of LM iteration ``it`` on a trial → (accept, done, energy,
-    num_valid of the trial).  Reads the two flags on the host."""
-    e_new, n_new = _energy_from_ev(window, ev_new, eps_new, opts)
+    num_valid of the trial).  ``sums``: the trial's :func:`_landmark_sums`
+    where the caller has them (summed over the landmark shards).  Reads the
+    two flags on the host."""
+    e_land, n_new = _landmark_sums(ev_new) if sums is None else sums
+    e_new = _total_energy(window, e_land, eps_new, opts)
     ftol = torch.abs(e - e_new) / torch.clamp(e, min=1e-30) < opts.function_tolerance
     ok = (n_new > 0) & torch.isfinite(e_new)
     forced = opts.force_accept and it < opts.min_iterations
@@ -721,7 +755,28 @@ def _lm_decide_plain(window: Window, ev_new: Evaluation, eps_new, pose_sq, d_sq,
     return accept, done, e_new, n_new
 
 
-def _solve_loop_plain(window: Window, model, opts: PBAOptions, log: list = None):
+class OneShard:
+    """The whole window in one process: the landmark sums are the window's
+    own.  :func:`_solve_loop_plain` takes its three landmark reductions from
+    such an object; ``parallel/shard_map_ba.py``'s sums them over the ranks
+    that hold the window's landmark shards."""
+
+    def sum(self, *xs):
+        """The sums of ``xs`` over the landmark shards."""
+        return xs
+
+    def linearize(self, window: Window, model, ev: Evaluation, eps,
+                  opts: PBAOptions) -> LinearSystem:
+        """The whole window's GN system from the evaluation ``ev``."""
+        return _linearize_from_ev(window, model, ev, eps, opts)
+
+    def point_status(self, window: Window, model, opts: PBAOptions) -> PointStatus:
+        """The statuses after a solve, the threshold over every landmark."""
+        return _point_status_kernel(window, model, opts)
+
+
+def _solve_loop_plain(window: Window, model, opts: PBAOptions, log: list = None,
+                      shards: OneShard = OneShard()):
     """The windowed LM solve → (window', energy, num_valid), driven from the
     host.
 
@@ -731,11 +786,13 @@ def _solve_loop_plain(window: Window, model, opts: PBAOptions, log: list = None)
     accept/done flags on the host; its parts are the dispatchers (kernels on
     CUDA tensors).  ``log`` receives the loop state after the initial
     evaluation and after every iteration, as :func:`lm_log_rows` gives it
-    for the device loop."""
+    for the device loop.  ``shards``: where the landmark sums come from
+    (:class:`OneShard`: this window's own)."""
     lm_mask = active_lm_mask(window)
     ledger_empty = bool(torch.max(torch.abs(window.h_marg)) == 0.0)
     ev = _evaluate(window, model, window.eps, window.lm_idepth, lm_mask, opts)
-    e, n = _energy_from_ev(window, ev, window.eps, opts)
+    e_land, n = shards.sum(*_landmark_sums(ev))
+    e = _total_energy(window, e_land, window.eps, opts)
     tq, tt, ab0 = window.t_lin_q, window.t_lin_t, window.affine0
     eps, idepth, lin_idepth = window.eps, window.lm_idepth, window.lm_idepth
     status = window.res_status
@@ -753,11 +810,12 @@ def _solve_loop_plain(window: Window, model, opts: PBAOptions, log: list = None)
     while it < opts.max_iterations and not done:
         win = window.replace(t_lin_q=tq, t_lin_t=tt, affine0=ab0,
                              lm_idepth=lin_idepth, res_status=status)
-        sys = _linearize_from_ev(win, model, ev, eps, opts)
+        sys = shards.linearize(win, model, ev, eps, opts)
         eps_new, idepth_new, pose_sq, d_sq = _solve_step(win, sys, eps, idepth, lam, opts)
         ev_new = _evaluate(win, model, eps_new, idepth_new, lm_mask, opts)
+        d_sq, *sums = shards.sum(d_sq, *_landmark_sums(ev_new))
         accept, done, e_new, n_new = _lm_decide_plain(win, ev_new, eps_new, pose_sq, d_sq, e,
-                                                      it, opts)
+                                                      it, opts, sums)
         if accept:
             eps, idepth, status = eps_new, idepth_new, ev_new.status_candidate
             e, n, ev = e_new, n_new, ev_new
@@ -776,19 +834,24 @@ def _solve_loop_plain(window: Window, model, opts: PBAOptions, log: list = None)
     out = window.replace(t_lin_q=tq, t_lin_t=tt, affine0=ab0, eps=eps,
                          lm_idepth=idepth, res_status=status)
     out = _relinearize_last(out)
-    return _with_point_status(out, _point_status_kernel(out, model, opts)), e, n
+    return _with_point_status(out, shards.point_status(out, model, opts)), e, n
 
 
 def _lm_phase(phase: int, row: int, window: Window, opts: PBAOptions, trial_eps,
-              trial_idepth, step_sq, ev0: Evaluation, ev1: Evaluation, carried, state, lm_log):
+              trial_idepth, step_sq, ev0: Evaluation, ev1: Evaluation, carried, state, lm_log,
+              reduced=None, out=(None, None)):
     """One launch of kernel K10 (``csrc/ba_lm.cu::ba_lm``), outside the one-call
-    solve (chip_smoke times K10's control with it, the GPU tests hold it):
-    phase 0 copies the window's fields into ``carried`` (of
-    :func:`_carried_state`) and initialises the loop state from ``ev0``, the
-    initial evaluation; 1 decides on the trial (the buffer of ``ev0`` and
-    ``ev1`` that the state does not name carried) and commits it; 2 folds the
-    newest frame's increment.  ``carried`` = (t_lin_q, t_lin_t, affine0, eps,
-    idepth, lin_idepth, res_status), updated in place."""
+    solve (the landmark-sharded solve issues it, chip_smoke times K10's
+    control with it, the GPU tests hold it): phase 0 copies the window's
+    fields into ``carried`` (of :func:`_carried_state`) and initialises the
+    loop state from ``ev0``, the initial evaluation; 1 decides on the trial
+    (the buffer of ``ev0`` and ``ev1`` that the state does not name carried)
+    and commits it; 2 folds the newest frame's increment and writes the
+    loop's energy and count into ``out`` where given.  ``carried`` =
+    (t_lin_q, t_lin_t, affine0, eps, idepth, lin_idepth, res_status),
+    updated in place.  ``reduced``: None, or the trial's (Σ patch energies,
+    their positive count), float64 [2] summed over the landmark shards, which
+    the kernel then takes in place of its own sums."""
     k, n = window.num_slots, window.num_landmark_slots
     start = (window.t_lin_q, window.t_lin_t, window.affine0, window.eps, window.lm_idepth,
              window.res_status) if phase == 0 else (None,) * 6
@@ -798,8 +861,8 @@ def _lm_phase(phase: int, row: int, window: Window, opts: PBAOptions, trial_eps,
                   float(opts.reg_increase), float(opts.affine_reg_a), float(opts.affine_reg_b),
                   window.frame_valid, window.h_marg, window.b_marg, window.energy_marg,
                   trial_eps, trial_idepth, step_sq, ev0.energy_patch, ev0.status_candidate,
-                  ev1.energy_patch, ev1.status_candidate, *start, *carried, state, lm_log,
-                  None, None)
+                  ev1.energy_patch, ev1.status_candidate, reduced, *start, *carried, state,
+                  lm_log, *out)
 
 
 def _carried_state(window: Window):
@@ -866,18 +929,9 @@ def _solve_loop_layout(k: int, n: int, c: int, iterations: int, dtype):
     return _SOLVE_LOOP_LAYOUT[key]
 
 
-def _solve_loop_cuda(window: Window, model, opts: PBAOptions, log: list = None):
-    """Kernels K7–K11 under K10's control in one C call
-    (``csrc/ba_lm.cu::ba_solve_loop``): the same solve as
-    :func:`_solve_loop_plain` without a host read.  ``opts.max_iterations``
-    iterations are issued whatever happens; the loop's state lives on the
-    device and the kernels return at once when it says done.  The wrapper
-    checks the window, allocates the outputs and one workspace for every
-    internal buffer (:func:`_solve_loop_layout`) with ``torch.empty`` and
-    makes the one call; ``log`` (diagnostics only: it reads the device)
-    receives the decoded state log."""
+def _check_solve_window(window: Window):
+    """Validate the window tensors a solve on the card reads → (k, n, h, w)."""
     k, n, h, w = _check_window(window)
-    c = window.num_channels
     if k > _SOLVE_MAX_FRAMES:
         raise ValueError(f"ba_solve_loop: {k} frame slots exceed the limit of its solve step, "
                          f"{_SOLVE_MAX_FRAMES} (the 8k x 8k system in the 227 KB of shared "
@@ -896,6 +950,21 @@ def _solve_loop_cuda(window: Window, model, opts: PBAOptions, log: list = None):
     check(window.lm_baseline, "lm_baseline", (k, n))
     check(window.lm_outlier, "lm_outlier", (k, n), torch.bool)
     check(window.lm_opt_count, "lm_opt_count", (k, n), torch.int32)
+    return k, n, h, w
+
+
+def _solve_loop_cuda(window: Window, model, opts: PBAOptions, log: list = None):
+    """Kernels K7–K11 under K10's control in one C call
+    (``csrc/ba_lm.cu::ba_solve_loop``): the same solve as
+    :func:`_solve_loop_plain` without a host read.  ``opts.max_iterations``
+    iterations are issued whatever happens; the loop's state lives on the
+    device and the kernels return at once when it says done.  The wrapper
+    checks the window, allocates the outputs and one workspace for every
+    internal buffer (:func:`_solve_loop_layout`) with ``torch.empty`` and
+    makes the one call; ``log`` (diagnostics only: it reads the device)
+    receives the decoded state log."""
+    k, n, h, w = _check_solve_window(window)
+    c = window.num_channels
     dtype, dev = window.eps.dtype, window.eps.device
     offsets, total, tiles, blocks = _solve_loop_layout(k, n, c, opts.max_iterations, dtype)
     workspace = torch.empty((total,), dtype=torch.uint8, device=dev)
@@ -1104,13 +1173,19 @@ def _status_workspace(k: int, n: int, device):
 
 def _point_status_from_ev_cuda(window: Window, ev: Evaluation, lm_mask,
                                opts: PBAOptions) -> PointStatus:
-    """Kernel K11: same outputs as :func:`_point_status_from_ev_plain`."""
-    k, n, _, _ = _check_window(window)
+    """Kernel K11: same outputs as :func:`_point_status_from_ev_plain`.  It
+    reads the window's poses and its ``lm_idepth``, ``lm_baseline``,
+    ``lm_outlier`` and ``lm_opt_count``, whose landmark axis is that of
+    ``lm_mask`` and the evaluation."""
+    k, n = lm_mask.shape
     if k > _LINEARIZE_MAX_FRAMES:
         raise ValueError(f"ba_point_status: {k} frame slots exceed the kernel's limit of "
                          f"{_LINEARIZE_MAX_FRAMES}")
     check = kernels.check
+    check(window.t_lin_q, "t_lin_q", (k, 4))
+    check(window.t_lin_t, "t_lin_t", (k, 3))
     check(window.eps, "eps", (k, BLOCK))
+    check(window.lm_idepth, "lm_idepth", (k, n))
     check(window.lm_baseline, "lm_baseline", (k, n))
     check(window.lm_outlier, "lm_outlier", (k, n), torch.bool)
     check(window.lm_opt_count, "lm_opt_count", (k, n), torch.int32)
@@ -1309,8 +1384,16 @@ def _marginalize_with(fold, window: Window, model, perm, opts: PBAOptions) -> Wi
     (:func:`_marginalize_cuda` or :func:`_marginalize_system_plain`), which
     takes the marginalization pass's system."""
     sys, e_land = _marg_pass(window, model, opts)
-    h_m, b_m, e_m = fold(window, sys.h_pose, sys.b_pose, sys.h_schur, sys.b_schur, e_land,
-                         perm, opts)
+    return _fold_and_permute(fold, window, sys.h_pose, sys.b_pose, sys.h_schur, sys.b_schur,
+                             e_land, perm, opts)
+
+
+def _fold_and_permute(fold, window: Window, h_pose, b_pose, h_schur, b_schur, e_land, perm,
+                      opts: PBAOptions) -> Window:
+    """The ledger fold ``fold`` of the marginalization pass's system (the
+    flagged frames' priors in its pose part), then the flagged landmarks
+    dropped and the frame slots compacted by ``perm``."""
+    h_m, b_m, e_m = fold(window, h_pose, b_pose, h_schur, b_schur, e_land, perm, opts)
     window = window.replace(lm_valid=window.lm_valid & ~window.lm_marg_flag,
                             lm_marg_flag=torch.zeros_like(window.lm_marg_flag))
     window = _permute_window(window, perm, window.frame_marg & window.frame_valid)

@@ -283,33 +283,43 @@ LOG_FIELDS = ("energy", "lam", "count", "it", "accept", "done", "relin")
 
 def solve_inputs() -> dict:
     """{window/ledger: (the window to solve, the camera, the options)}."""
-    from dsopp_tpu_torch.solvers import pba
-    from dsopp_tpu_torch.testing import parity
     from dsopp_tpu_torch.testing.paths import render_path
     seq = render_path("standart")
     out = {}
     for name, (path, every) in SOLVE_WINDOWS.items():
         tracker, _ = _tracker(seq, path, every)
-        win, model, opts = tracker.window, tracker.models[0], tracker.pba_opts
-        k, n = win.num_slots, win.num_landmark_slots
-        gen = torch.Generator(device="cuda").manual_seed(0)
-        step = torch.tensor([1e-3] * 6 + [5e-3, 0.3], device="cuda")
-        eps = torch.randn((k, 8), generator=gen, device="cuda") * step
-        eps = torch.where((win.frame_valid & ~win.frame_fixed)[:, None], eps,
-                          torch.zeros_like(eps)).contiguous()
-        idepth = (win.lm_idepth
-                  * (1.0 + 0.01 * torch.randn((k, n), generator=gen, device="cuda"))).contiguous()
-        moved = win.replace(eps=eps, lm_idepth=idepth)
-        out[f"{name}/empty"] = (moved.replace(h_marg=torch.zeros_like(win.h_marg),
-                                              b_marg=torch.zeros_like(win.b_marg),
-                                              energy_marg=torch.zeros_like(win.energy_marg)),
-                                model, opts)
-        if float(win.h_marg.abs().max()) > 0:
-            out[f"{name}/own"] = (moved, model, opts)
-        else:
-            ev = pba._evaluate_cuda(moved, model, eps, idepth, pba.active_lm_mask(moved), opts)
-            sys_k = pba._linearize_from_ev_cuda(moved, model, ev, eps, opts)
-            out[f"{name}/scaled"] = (parity.scaled_ledger(moved, sys_k), model, opts)
+        model, opts = tracker.models[0], tracker.pba_opts
+        for ledger, start in solve_starts(tracker.window, model, opts).items():
+            out[f"{name}/{ledger}"] = (start, model, opts)
+    return out
+
+
+def solve_starts(win, model, opts) -> dict:
+    """{ledger: the window to solve}: ``win`` on the card with its eps and
+    idepths moved by a seeded draw, once with an empty ledger ("empty") and
+    once with a filled one: its own ("own"), or where it has none, a share of
+    its Schur-reduced pose system ("scaled")."""
+    from dsopp_tpu_torch.solvers import pba
+    from dsopp_tpu_torch.testing import parity
+
+    k, n = win.num_slots, win.num_landmark_slots
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    step = torch.tensor([1e-3] * 6 + [5e-3, 0.3], device="cuda")
+    eps = torch.randn((k, 8), generator=gen, device="cuda") * step
+    eps = torch.where((win.frame_valid & ~win.frame_fixed)[:, None], eps,
+                      torch.zeros_like(eps)).contiguous()
+    idepth = (win.lm_idepth
+              * (1.0 + 0.01 * torch.randn((k, n), generator=gen, device="cuda"))).contiguous()
+    moved = win.replace(eps=eps, lm_idepth=idepth)
+    out = {"empty": moved.replace(h_marg=torch.zeros_like(win.h_marg),
+                                  b_marg=torch.zeros_like(win.b_marg),
+                                  energy_marg=torch.zeros_like(win.energy_marg))}
+    if float(win.h_marg.abs().max()) > 0:
+        out["own"] = moved
+    else:
+        ev = pba._evaluate_cuda(moved, model, eps, idepth, pba.active_lm_mask(moved), opts)
+        sys_k = pba._linearize_from_ev_cuda(moved, model, ev, eps, opts)
+        out["scaled"] = parity.scaled_ledger(moved, sys_k)
     return out
 
 

@@ -18,6 +18,7 @@ CPU.
 """
 
 import ctypes
+import inspect
 import re
 
 import pytest
@@ -92,6 +93,29 @@ def test_solve_loop_counts_follow_the_calls_they_count():
         assert counts[count] == order.index(symbol), (symbol, count)
     assert {count for _, count in pairs} == set(counts)
     assert sorted(counts.values()) == list(range(len(pba._SOLVE_LOOP_COUNTED)))
+
+
+def test_solve_loop_calls_k10_without_reduced_sums():
+    """``ba_solve_loop``'s three K10 calls pass a null ``reduced`` pair (the
+    trial's landmark sums that a sharded solve all-reduces), so the one-call
+    solve's K10 sums the trial itself, as before the pair existed; the
+    sharded solve's ``pba._lm_phase`` passes it where K10 expects it."""
+    src = (kernels.CSRC / "ba_lm.cu").read_text()
+    body = src[src.index('extern "C" int ba_solve_loop('):]
+    macros = {name: [a.strip() for a in text.replace("\\\n", " ").split(",")]
+              for name, text in re.findall(r"#define (\w+) ((?:[^\n]*\\\n)*[^\n]*)", body)}
+    at = _params("ba_lm").index("reduced")
+    calls = re.findall(r"ba_lm\(([^;]*)\);", body)
+    assert len(calls) == 3
+    for call in calls:
+        args = [x for a in call.split(",") for x in macros.get(a.strip(), [a.strip()])]
+        assert len(args) == len(kernels.BA_LM.argtypes)   # the stream is the last
+        assert args[at] == "nullptr", args[at]
+    phase = inspect.getsource(pba._lm_phase)
+    passed = phase[phase.index("kernels.BA_LM("):].split("(", 1)[1]
+    names = [a.strip() for a in passed.replace("\n", " ").split(",")]
+    # the Python call's ``*start`` spreads six pointers before the carried state
+    assert names.index("reduced") == at
 
 
 SIZES = {"double": 8, "float": 4, "int": 4, "unsigned int": 4}

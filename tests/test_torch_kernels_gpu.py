@@ -43,7 +43,12 @@ one C call (``ba_solve_loop``) under those gates on the small and the dense
 window with an empty and a filled ledger, its launches added to K7-K11's
 counts, two calls equal to the bit, its wrapper allocations and one C call,
 and its outputs on the inputs of ``testing/bits.py``'s ``solve`` case equal to the tree's
-whose loop was launched from Python, digest by digest; K11 threshold 1e-6
+whose loop was launched from Python, digest by digest; the landmark-sharded
+solve's Python-issued sequence on one ``lm`` rank equal to the one C call to
+the bit, launches and LM log included; K10 given the trial's landmark sums
+(the f64 pair a sharded solve all-reduces) deciding and committing as K10
+summing them itself; K11 on two shards' gathered evaluation equal to the bit
+to K11 on the whole; K11 threshold 1e-6
 relative, statuses, counts and flags equal outside the 1e-6 band around the
 threshold; K12 positions, validity and slot order equal and grad2 equal to the
 bit, with and without a mask, also at VGA where every score ties; K13 n_active equal, masks equal on ≥ 99.9 % of
@@ -649,6 +654,107 @@ def test_one_call_solve_matches_plain_loop(request, window, ledger):
                  "lm_baseline", "lm_inliers", "lm_outlier", "lm_opt_count"):
         assert torch.equal(getattr(res_k[0], name), getattr(again[0], name)), name
     assert torch.equal(res_k[1], again[1]) and torch.equal(res_k[2], again[2])
+
+
+@pytest.mark.parametrize("ledger", ["empty", "filled"])
+@pytest.mark.parametrize("window", list(WINDOWS))
+def test_sharded_solve_on_one_lm_rank_is_the_one_call_solve(request, window, ledger):
+    """The landmark-sharded solve's Python-issued sequence on a mesh of one
+    ``lm`` rank (no collective): the one C call's launches, its LM log and
+    its outputs to the bit, with no host read."""
+    from dsopp_tpu_torch.parallel.mesh import make_mesh
+    from dsopp_tpu_torch.parallel.shard_map_ba import _solve_loop_issued
+
+    tracker, _ = request.getfixturevalue(WINDOWS[window])
+    win, eps, idepth, lm_mask = _ba_problem(tracker)
+    opts, model = tracker.pba_opts, tracker.models[0]
+    win = _ledger_case(win.replace(eps=eps, lm_idepth=idepth), model, opts, eps, idepth,
+                       lm_mask, ledger)
+    log_c, log_s = [], []
+    want = pba._solve_loop_cuda(win, model, opts, log=log_c)
+    before = kernels.counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = _solve_loop_issued(win, model, opts, make_mesh(1, 1))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    launched = {name: n - before[name] for name, n in kernels.counts().items()
+                if n != before[name]}
+    assert launched == pba.solve_loop_launches(opts.max_iterations)
+    _solve_loop_issued(win, model, opts, make_mesh(1, 1), log=log_s)
+    assert log_s == log_c
+    for f in ("t_lin_q", "t_lin_t", "affine0", "eps", "lm_idepth", "res_status",
+              "lm_baseline", "lm_inliers", "lm_outlier", "lm_opt_count"):
+        assert torch.equal(getattr(got[0], f), getattr(want[0], f)), f
+    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+
+
+@pytest.mark.parametrize("ledger", ["empty", "filled"])
+def test_ba_lm_reduced_sums_decide_alike(tracked, ledger):
+    """K10 given the trial's landmark sums (as a sharded solve all-reduces
+    them, here the unsharded sums in f64) against K10 summing the trial
+    itself: the same decisions and committed state; the energy the same f32
+    value but for the association of an f64 sum (one ulp at most)."""
+    tracker, _ = tracked
+    win, eps, idepth, lm_mask = _ba_problem(tracker)
+    opts, model = tracker.pba_opts, tracker.models[0]
+    win = _ledger_case(win.replace(eps=eps, lm_idepth=idepth), model, opts, eps, idepth,
+                       lm_mask, ledger)
+    ev = pba._evaluate_cuda(win, model, eps, idepth, lm_mask, opts)
+    sys = pba._linearize_from_ev_cuda(win, model, ev, eps, opts)
+    eps_new, idepth_new, step_sq = pba._solve_step_launch(win, sys, eps, idepth,
+                                                          opts.initial_regularizer, None)
+    ev_new = pba._evaluate_cuda(win, model, eps_new, idepth_new, lm_mask, opts)
+
+    def sums(e):
+        return torch.stack([e.sum(dtype=torch.float64), (e > 0).sum(dtype=torch.float64)])
+
+    runs = []
+    for reduced in (None, (sums(ev.energy_patch), sums(ev_new.energy_patch))):
+        carried = pba._carried_state(win)
+        state = torch.empty(pba.LM_FIELDS, dtype=torch.int32, device="cuda")
+        lm_log = torch.empty((2, pba.LM_FIELDS), dtype=torch.int32, device="cuda")
+        pba._lm_phase(0, 0, win, opts, eps, idepth, None, ev, ev_new, carried, state, lm_log,
+                      reduced=None if reduced is None else reduced[0])
+        pba._lm_phase(1, 1, win, opts, eps_new, idepth_new, step_sq, ev, ev_new, carried,
+                      state, lm_log, reduced=None if reduced is None else reduced[1])
+        runs.append((carried, pba.lm_log_rows(lm_log)))
+    (c_own, log_own), (c_red, log_red) = runs
+    assert log_own[-1]["accept"]
+    for a, b in zip(log_own, log_red):
+        assert {k: v for k, v in a.items() if k != "energy"} == \
+            {k: v for k, v in b.items() if k != "energy"}
+        assert abs(a["energy"] - b["energy"]) <= 1.2e-7 * abs(a["energy"]), (a, b)
+    assert all(torch.equal(x, y) for x, y in zip(c_own, c_red))
+
+
+@pytest.mark.parametrize("window", list(WINDOWS))
+def test_ba_point_status_threshold_across_two_shards(request, window):
+    """K11 on the evaluation and the landmark fields of two shards gathered
+    as a sharded solve gathers them (each shard packed as bits into its
+    slice, the buffers summed) equals K11 on the whole evaluation to the
+    bit: the threshold and every output."""
+    from dsopp_tpu_torch.parallel.shard_map_ba import pack_shards, unpack_shards
+
+    tracker, _ = request.getfixturevalue(WINDOWS[window])
+    win, eps, idepth, lm_mask = _ba_problem(tracker)
+    opts, model = tracker.pba_opts, tracker.models[0]
+    win = win.replace(eps=eps, lm_idepth=idepth)
+    ev = pba._evaluate_cuda(win, model, eps, idepth, lm_mask, opts)
+    whole = pba._point_status_from_ev_cuda(win, ev, lm_mask, opts)
+    fields = (ev.energy_patch, ev.ok, ev.status_candidate, lm_mask, win.lm_idepth,
+              win.lm_baseline, win.lm_outlier, win.lm_opt_count)
+    n = win.num_landmark_slots // 2
+    shards = [[x[..., i * n:(i + 1) * n].contiguous() for x in fields] for i in range(2)]
+    flat = pack_shards(shards[0], 0, 2) + pack_shards(shards[1], 1, 2)
+    energy, ok, cand, mask, idep, baseline, outlier, opt_count = unpack_shards(flat, shards[0], 2)
+    got = pba._point_status_from_ev_cuda(
+        win.replace(lm_idepth=idep, lm_baseline=baseline, lm_outlier=outlier,
+                    lm_opt_count=opt_count),
+        ev._replace(energy_patch=energy, ok=ok, status_candidate=cand), mask, opts)
+    assert int((whole.res_status == pba.RES_OUTLIER).sum()) > 0
+    for name, a, b in zip(pba.PointStatus._fields, got, whole):
+        assert torch.equal(a, b), name
 
 
 def test_one_call_solve_wrapper_allocates_and_calls_once(tracked, monkeypatch):
