@@ -201,7 +201,27 @@ Phases, one line each with its time:
    path's a frame; the keyframe backend's launches a keyframe; aggregate
    frames/s at B = 1, 2 and 4 (8 warm, 40 timed ticks) with the device's
    busy share (15 profiled ticks), each of those runs' sequences held to its
-   solo run too;
+   solo run too.  The keyframe backend's solver half (the BA solve through
+   the ledger fold) runs once a tick for the S sequences that keyframe on
+   it, with every host synchronisation an error; its runs by S and their
+   launches are printed.  Then a replicated run: four copies of stream 0,
+   so that every keyframe falls on the same tick (S = 4 in every half),
+   each sequence's [T, 7] poses, keyframe flags and final ledger equal to
+   the bit to stream 0's solo run, and its frames/s;
+11d'. batched-kf — the solver half over a sequence axis on the dense parity
+   window moved off its state four ways (two draws, each with an empty and a
+   filled ledger): the BA solve (one C call), the policy K15p, the
+   marginalization pass (K7, K8) and the fold K15 of S = 1, 2 and 4 of them
+   in one call a step, every step equal to the bit to S solo calls (the
+   state, the LM logs, energy, count, statuses, flags, the pass's systems,
+   the ledger, the compacted window), with host reads an error; the half's
+   hand-written launches (the wrappers' counts and the host's launch calls
+   outside torch operators) one solo half's; its time beside S solo halves';
+   the one C call at S = 4 under ``"ba_solve_loop_s4"`` in ``ba_lm``'s row,
+   K15p and K15 at S = 4 under ``"s4"`` in theirs, each with its equality to
+   the 4 solo calls and their max abs difference (ms,
+   device µs, 4 solo calls, the plain versions, launches, the bound: each
+   sequence's solo bound summed, the solve's over the iterations it ran);
 11e. parallel — ``parallel/``: the landmark-sharded BA step on two gloo
    ranks sharing the card (``lm`` = 2, CUDA tensors, which gloo reduces) on
    the dense parity window, each rank's eps and energy within the JAX DCN
@@ -491,6 +511,53 @@ def device_us(torch, fn, reps=20):
     return total / reps if total > 0 else None
 
 
+def device_us_whole(torch, fn, reps=10, tries=3):
+    """:func:`device_us` from a profiler session that kept a device record
+    for every launch call of the host (``testing/profiling.py``: late in a
+    long process a session can lose device records), the first of
+    ``tries`` sessions that did; None (not measured) if none did."""
+    from dsopp_tpu_torch.testing.profiling import launch_records, profiled
+
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for _ in range(tries):
+        with profiled(acts) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        rec = launch_records(prof)
+        if rec["complete"] and rec["device"] > 0:
+            total = sum(e.time_range.elapsed_us() for e in prof.events()
+                        if e.device_type == torch.autograd.DeviceType.CUDA)
+            return total / reps
+    return None
+
+
+def device_us_by_kernel(torch, fn, reps=10, tries=3):
+    """{device kernel's name: µs a call of ``fn``} from a profiler session
+    that kept a device record for every launch call of the host (as
+    :func:`device_us_whole`); None (not measured) if none of ``tries`` did."""
+    from dsopp_tpu_torch.testing.profiling import launch_records, profiled
+
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for _ in range(tries):
+        with profiled(acts) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        rec = launch_records(prof)
+        if rec["complete"] and rec["device"] > 0:
+            split = collections.Counter()
+            for e in prof.events():
+                if e.device_type == torch.autograd.DeviceType.CUDA:
+                    split[kernel_name(e.name)] += e.time_range.elapsed_us() / reps
+            return dict(sorted(split.items(), key=lambda item: -item[1]))
+    return None
+
+
 def wrapper_work(torch, fn):
     """One call of ``fn`` under the profiler → (the aten operators it runs on
     the host, by name; the kernels, copies and sets it puts on the device,
@@ -577,9 +644,23 @@ def bound(num_bytes, num_ops, peak_flops=PEAK_FLOPS):
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
+# (kernel, window label) -> its bound a launch at that window's shapes, as
+# log_bound printed it
+BOUNDS = {}
+
+
 def log_bound(name, label, b):
     """One kernel's bound at one window's shapes (PERF.md's bound columns)."""
+    BOUNDS[(name, label)] = dict(bound_ms=b["bound_ms"], bound_by=b["bound_by"])
     log(f"  bound {name} ({label}): {b['bound_ms']:.5f} ms ({b['bound_by']})")
+
+
+def fold_ops(kb, m_rows):
+    """K15's f64 operations on a ledger of ``kb`` rows with ``m_rows`` of
+    them flagged: the fold, the eigen-decomposition, X0, the Newton step,
+    the correction and the permuted output."""
+    return (6 * kb * kb + OPS_EIGEN * m_rows ** 3 + 6 * m_rows ** 3 + 2 * kb * m_rows ** 2
+            + 4 * kb * kb * m_rows + 2 * kb * m_rows)
 
 
 def sim3_aligned_errors(est, gt):
@@ -1803,8 +1884,7 @@ def parity_marg(tracker, windows, torch, rows, label):
     lib = cuda_ms(lambda: pinv_hermitian(h_ee, w.eps.dtype), reps=10)
     log(f"  K15 yardstick ({label}): torch.linalg.pinv(hermitian=True) of the padded {kb}x{kb}"
         f" block {lib:.4f} ms (the pseudo-inverse only)")
-    ops = (6 * kb * kb + OPS_EIGEN * m_rows ** 3 + 6 * m_rows ** 3 + 2 * kb * m_rows ** 2
-           + 4 * kb * kb * m_rows + 2 * kb * m_rows)
+    ops = fold_ops(kb, m_rows)
     row("marg_fold", **dict(
         max_abs_err=max(float((a - b).abs().max()) for a, b in zip(out_k, pba._marginalize_plain(*fold))),
         ms=cuda_ms(lambda: pba._marginalize_cuda(*raw)),
@@ -2052,7 +2132,7 @@ def track(seq, name, torch, kernels, camera=None):
     from dsopp_tpu_torch.testing.paths import (INIT_FRAMES, MASK_FIRST_INVALID_ROW, bootstrap,
                                                closed_gate, path_config, path_frames,
                                                path_mask, sensor_bootstrap)
-    from dsopp_tpu_torch.tracker import device_loop, fused_keyframe
+    from dsopp_tpu_torch.tracker import device_loop
     from dsopp_tpu_torch.tracker.device_loop import PipelinedTracker, device_tick
 
     last = path_frames(name)
@@ -2068,14 +2148,14 @@ def track(seq, name, torch, kernels, camera=None):
     pipe = PipelinedTracker(tracker, flush_every=16)
     poses, gate_ratios, escalations, solves, keyframes = [], [], 0, [0], []
     folds = [0]
-    solve_loop = fused_keyframe._solve_loop_device
-    flags, marginalize = device_loop.flags_device, device_loop._marginalize_device
+    solve_loop = device_loop.solve_loop_sequences
+    flags, marginalize = device_loop.flags_sequences, device_loop.marginalize_sequences
 
-    def solve_without_host_reads(window, model, opts):
+    def solve_without_host_reads(*args):
         """The keyframe's BA solve with every host synchronisation an error."""
         torch.cuda.set_sync_debug_mode("error")
         try:
-            out = solve_loop(window, model, opts)
+            out = solve_loop(*args)
         finally:
             torch.cuda.set_sync_debug_mode("warn")
         solves[0] += 1
@@ -2097,9 +2177,9 @@ def track(seq, name, torch, kernels, camera=None):
 
     torch.cuda.synchronize()
     kernels.reset_counts()
-    fused_keyframe._solve_loop_device = solve_without_host_reads
-    device_loop.flags_device = flags_without_host_reads
-    device_loop._marginalize_device = marginalize_without_host_reads
+    device_loop.solve_loop_sequences = solve_without_host_reads
+    device_loop.flags_sequences = flags_without_host_reads
+    device_loop.marginalize_sequences = marginalize_without_host_reads
     # outside those spans every host synchronisation is counted (sync debug
     # "warn"): the path's host syncs a frame
     with warnings.catch_warnings(record=True) as syncs:
@@ -2133,8 +2213,8 @@ def track(seq, name, torch, kernels, camera=None):
             elapsed = time.perf_counter() - t0
         finally:
             torch.cuda.set_sync_debug_mode("default")
-            fused_keyframe._solve_loop_device = solve_loop
-            device_loop.flags_device, device_loop._marginalize_device = flags, marginalize
+            device_loop.solve_loop_sequences = solve_loop
+            device_loop.flags_sequences, device_loop.marginalize_sequences = flags, marginalize
     pipe.finalize()
     counts = kernels.counts()
     win = tracker.window
@@ -2927,62 +3007,52 @@ def parity_batched(seq, cfg, torch, rows):
 def batched_run(seq, cfg, offsets, ticks, torch, kernels, label=None, warm=0, profiled_ticks=0):
     """``BatchedPipelinedTracker`` over len(offsets) offset copies of the
     corridor (stream k bootstrapped on frames k..k+5, then fed frames
-    k+6 ...): ``warm`` untimed ticks, ``ticks`` timed ones with the launch
-    counts set to 0 just before and read just after, the K1, K3, K4 and K5
-    launches of each tick, the keyframe backend's launches of each keyframe,
-    every sequence's poses and keyframes; with ``label`` the host syncs
-    counted (sync debug "warn" outside the BA solve and the policy-to-fold
-    span, which run with it "error"); then ``profiled_ticks`` under the
+    k+6 ...; an offset given twice makes replicated streams): ``warm``
+    untimed ticks, ``ticks`` timed ones with the launch counts set to 0 just
+    before and read just after, the K1, K3, K4 and K5 launches of each tick,
+    the keyframe backend's solver half's launches and sequences (S) each time
+    it runs, every sequence's poses and keyframes; with ``label`` the host
+    syncs counted (sync debug "warn" outside the solver half, which runs with
+    it "error": the BA solve through the ledger fold, once for the S
+    keyframing sequences of a tick); then ``profiled_ticks`` under the
     profiler (the device's busy time a tick)."""
     from dsopp_tpu_torch.testing import batched as tb
     from dsopp_tpu_torch.testing.paths import INIT_FRAMES
     from dsopp_tpu_torch.testing.profiling import profiled
     from dsopp_tpu_torch.tracker import batched_loop as bl
-    from dsopp_tpu_torch.tracker import device_loop, fused_keyframe
 
     b = len(offsets)
     trackers = [tb.offset_bootstrap(seq, cfg, k) for k in offsets]
     pipe = bl.BatchedPipelinedTracker(trackers, flush_every=16)
     names = ("pyramid_maps", "align_level", "epipolar_update", "flow_statistic")
-    per_tick, per_keyframe, poses, keyframes, escalated = [], [], [], [], []
-    kf_update = bl.keyframe_update
-    solve_loop = fused_keyframe._solve_loop_device
-    flags, marginalize = device_loop.flags_device, device_loop._marginalize_device
+    per_tick, per_keyframe, poses, rotations, keyframes, escalated = [], [], [], [], [], []
+    solver_half = bl.keyframe_solver_sequences
 
-    def counted_update(*args, **kwargs):
+    def counted_solver_half(*args):
+        seqs = args[3]
         before = kernels.counts()
-        out = kf_update(*args, **kwargs)
-        per_keyframe.append({k: v - before[k] for k, v in kernels.counts().items()
-                             if v != before[k]})
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = solver_half(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode("warn" if label else "default")
+        per_keyframe.append((len(seqs), {k: v - before[k] for k, v in kernels.counts().items()
+                                         if v != before[k]}))
         return out
-
-    def solve_without_host_reads(window, model, opts):
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            return solve_loop(window, model, opts)
-        finally:
-            torch.cuda.set_sync_debug_mode("warn" if label else "default")
-
-    def flags_without_host_reads(*args):
-        torch.cuda.set_sync_debug_mode("error")
-        return flags(*args)
-
-    def marginalize_without_host_reads(*args):
-        try:
-            return marginalize(*args)
-        finally:
-            torch.cuda.set_sync_debug_mode("warn" if label else "default")
 
     def tick(j):
         i = INIT_FRAMES + j
         fids = [k + i for k in offsets]
         before = kernels.counts()
+        # (stacked frame by frame: an index list would copy it to the card,
+        # a host sync)
         diag = pipe.tick(fids, [float(seq.timestamps[f]) for f in fids],
                          seq.images[fids[0]:fids[0] + b] if list(offsets) == list(range(b))
-                         else seq.images[fids])
+                         else torch.stack([seq.images[f] for f in fids]))
         per_tick.append((any(diag.is_keyframe), any(diag.escalated),
                          tuple(kernels.counts()[n] - before[n] for n in names)))
         poses.append(diag.pose_t)
+        rotations.append(diag.pose_q)
         keyframes.append(diag.is_keyframe)
         escalated.append(diag.escalated)
 
@@ -2990,10 +3060,7 @@ def batched_run(seq, cfg, offsets, ticks, torch, kernels, label=None, warm=0, pr
         tick(j)
     pipe.drain()
     per_tick.clear()
-    bl.keyframe_update = counted_update
-    fused_keyframe._solve_loop_device = solve_without_host_reads
-    device_loop.flags_device = flags_without_host_reads
-    device_loop._marginalize_device = marginalize_without_host_reads
+    bl.keyframe_solver_sequences = counted_solver_half
     torch.cuda.synchronize()
     kernels.reset_counts()
     with warnings.catch_warnings(record=True) as syncs:
@@ -3009,9 +3076,7 @@ def batched_run(seq, cfg, offsets, ticks, torch, kernels, label=None, warm=0, pr
             elapsed = time.perf_counter() - t0
         finally:
             torch.cuda.set_sync_debug_mode("default")
-            bl.keyframe_update = kf_update
-            fused_keyframe._solve_loop_device = solve_loop
-            device_loop.flags_device, device_loop._marginalize_device = flags, marginalize
+            bl.keyframe_solver_sequences = solver_half
     counts = kernels.counts()
     sites = collections.Counter(
         f"{os.path.relpath(w.filename, os.path.dirname(os.path.abspath(__file__)))}:{w.lineno}"
@@ -3030,7 +3095,8 @@ def batched_run(seq, cfg, offsets, ticks, torch, kernels, label=None, warm=0, pr
                 ms_per_tick=1e3 * elapsed / ticks, counts=counts, per_tick=per_tick,
                 per_keyframe=per_keyframe, host_syncs=sum(sites.values()),
                 host_sync_sites=dict(sites.most_common(8)), busy_ms_per_tick=busy_ms,
-                poses=poses, keyframes=keyframes, escalated=escalated, trackers=trackers)
+                poses=poses, rotations=rotations, keyframes=keyframes, escalated=escalated,
+                trackers=trackers)
 
 
 def regular_launches(run):
@@ -3141,7 +3207,9 @@ def batched(seq, torch, kernels, card, standart_syncs):
         solo.append(dict(poses=torch.stack([d.pose_t for d in diags]),
                          rotations=torch.stack([d.pose_q for d in diags]),
                          keyframes=[d.is_keyframe for d in diags],
-                         escalated=[d.escalated for d in diags]))
+                         escalated=[d.escalated for d in diags],
+                         ledger=tuple(getattr(tracker.window, f)
+                                      for f in ("h_marg", "b_marg", "energy_marg"))))
     solo_s = time.perf_counter() - t0
 
     # the first tick's stages, batched against solo on the same states
@@ -3190,12 +3258,8 @@ def batched(seq, torch, kernels, card, standart_syncs):
     log(f"[batched] keyframes on {kf_ticks} of {frames} ticks, {desync} of them not on every"
         f" sequence; regular ticks' (K1, K3, K4, K5) launches at B = {BATCH}:"
         f" {regular_launches(run)}")
-    kf_mean = collections.defaultdict(float)
-    for launched in run["per_keyframe"]:
-        for name, n in launched.items():
-            kf_mean[name] += n / max(len(run["per_keyframe"]), 1)
-    log(f"[batched] the keyframe backend's launches a keyframe (mean over"
-        f" {len(run['per_keyframe'])} keyframes): {dict(sorted(kf_mean.items()))}")
+    log(f"[batched] the solver half (the BA solve through the ledger fold, once for the S"
+        f" sequences that keyframe on a tick): {solver_half_runs(run)}")
     syncs_tick = run["host_syncs"] / frames
     log(f"[batched] {syncs_tick:.3f} host syncs a tick of {BATCH} frames"
         f" ({syncs_tick / BATCH:.3f} a frame; the standart path's {standart_syncs:.3f} a frame),"
@@ -3217,8 +3281,250 @@ def batched(seq, torch, kernels, card, standart_syncs):
             f" tick over {BATCH_TIMED_TICKS} ticks after {BATCH_WARM_TICKS}), device busy {shown}"
             f" over {BATCH_PROFILED_TICKS} profiled ticks; regular ticks' (K1, K3, K4, K5)"
             f" launches {rates[b]['regular']} | {card}")
-    run.update(results=results, rates=rates, regular=regular, first_stage=first, solo=solo)
+    run.update(results=results, rates=rates, regular=regular, first_stage=first, solo=solo,
+               replicated=replicated_run(seq, cfg, solo[0], frames, torch, kernels, card))
     return run
+
+
+def solver_half_runs(run) -> dict:
+    """{S: (the solver half's runs at S sequences, their launches each, or
+    the distinct launch sets)} of a batched run."""
+    out = collections.defaultdict(list)
+    for size, launched in run["per_keyframe"]:
+        out[size].append(tuple(sorted(launched.items())))
+    return {size: (len(sets), dict(sets[0]) if len(set(sets)) == 1 else sorted(set(sets)))
+            for size, sets in sorted(out.items())}
+
+
+def replicated_run(seq, cfg, solo, frames, torch, kernels, card):
+    """``BATCH`` replicas of stream 0 in one batched tracker, so that every
+    keyframe falls on the same tick for all of them (S = ``BATCH`` in each
+    solver half): every sequence's [T, 7] poses, keyframe flags and final
+    ledger equal to the bit to stream 0's solo run; the run's frames/s."""
+    run = batched_run(seq, cfg, [0] * BATCH, frames, torch, kernels, label="batched-replicated")
+    poses = [torch.cat([torch.stack([r[k] for r in run["rotations"]]),
+                        torch.stack([p[k] for p in run["poses"]])], dim=-1) for k in range(BATCH)]
+    want = torch.cat([solo["rotations"], solo["poses"]], dim=-1)[:frames]
+    kf_want = solo["keyframes"][:frames]
+    equal = []
+    for k in range(BATCH):
+        ledger = tuple(getattr(run["trackers"][k].window, f)
+                       for f in ("h_marg", "b_marg", "energy_marg"))
+        equal.append(dict(poses=torch.equal(poses[k], want),
+                          keyframes=[kf[k] for kf in run["keyframes"]] == kf_want,
+                          ledger=all(torch.equal(a, b) for a, b in zip(ledger, solo["ledger"]))))
+    halves = solver_half_runs(run)
+    log(f"[batched] replicated: {BATCH} replicas of stream 0 x {frames} frames in"
+        f" {run['seconds']:.2f} s = {run['fps']:.3f} frames/s aggregate; keyframes on"
+        f" {sum(1 for kf in run['keyframes'] if any(kf))} ticks, the solver half {halves};"
+        f" each sequence against the solo run: {equal}; {run['host_syncs'] / frames:.3f} host"
+        f" syncs a tick, by line {run['host_sync_sites']} | {card}")
+    require(all(all(e.values()) for e in equal),
+            f"[batched] replicated: a sequence parts from its solo run: {equal}")
+    require(set(halves) == {BATCH}, f"[batched] replicated: solver halves at S = {set(halves)}")
+    missing = [name for name in PATH_KERNELS if run["counts"][name] == 0]
+    require(not missing, f"[batched] replicated: kernels of the path never launched: {missing}")
+    return dict(fps=run["fps"], ms_per_tick=run["ms_per_tick"], equal=equal, halves=halves,
+                counts=run["counts"], keyframes=sum(1 for kf in run["keyframes"] if any(kf)))
+
+
+def batched_kf(window, model, opts, torch, kernels, card, rows):
+    """The keyframe backend's solver half over a sequence axis: the BA
+    solve, the policy K15p, the marginalization pass and the fold K15 of S =
+    1, 2 and 4 sequences of a [4] stack of the dense parity window moved off
+    its state (``testing/batched.py::solver_starts``: two draws, each with an
+    empty and a filled ledger), one call a step, each held to the bit to S
+    solo calls step by step (the solved state, the LM logs, energy, count,
+    statuses, flags, the pass's systems, the ledger and the compacted
+    window), with host reads an error; its hand-written launches (the
+    wrappers' counts, and the profiler's host launch calls made outside any
+    torch operator) equal to one solo half's; its time against the S solo
+    halves'.  At S = 4 the one C call of the solve gets a row under
+    ``"ba_solve_loop_s4"`` in ``ba_lm``'s, K15p and K15 under ``"s4"`` in
+    theirs: ms, solo ms, the plain versions' ms, device µs, launches, the
+    bound (the solo bound of each sequence, summed; the solve's counts the
+    iterations each sequence ran) and the call's equality to its 4 solo
+    calls with their max abs difference."""
+    from dsopp_tpu_torch.solvers import pba
+    from dsopp_tpu_torch.testing import batched as tb
+    from dsopp_tpu_torch.testing.paths import path_config
+    from dsopp_tpu_torch.testing.profiling import launch_records, profiled
+    from dsopp_tpu_torch.tracker import marginalization as marg
+
+    cfg = path_config("dense")
+    windows = tb.solver_starts(window, model, opts)
+    imm = tb.immature_valid(windows, cfg.immature_per_frame)
+    frames = int(window.frame_valid.sum())
+    # the window one frame too large, so that eq (20) flags a frame too
+    sizes = (min(cfg.window_min, frames - 2), frames - 1, cfg.max_marginalized_fraction)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+
+    def launches(fn):
+        """fn's hand-written launches: the wrappers' counts, and the host's
+        launch calls outside torch operators and inside them."""
+        fn()
+        torch.cuda.synchronize()
+        before = kernels.counts()
+        with profiled(acts) as prof:
+            fn()
+            torch.cuda.synchronize()
+        counts = {k: v - before[k] for k, v in kernels.counts().items() if v != before[k]}
+        rec = launch_records(prof)
+        return counts, rec["outside_ops"], rec["host"] - rec["outside_ops"]
+
+    out = {}
+    for size, seqs in ((1, (2,)), (2, (3, 1)), (4, (1, 3, 0, 2))):
+        batched = no_host_reads(torch, tb.solver_half, windows, imm, seqs, model, opts, sizes)
+        logs, solo_logs = [], []
+        again = tb.solver_half(windows, imm, seqs, model, opts, sizes, log=logs)
+        solos = []
+        for b in seqs:
+            solo_logs.append([])
+            solos.append(tb.solver_half_solo(windows, imm, b, model, opts, sizes,
+                                             log=solo_logs[-1]))
+        equal = tb.solver_half_equal(batched, solos)
+        twice = tb.solver_half_equal(again, solos)
+        same_logs = logs == solo_logs
+        flagged = [int(x.sum()) for x in batched["policy"][0]]
+        its = [len(rows_) - 1 for rows_ in logs]
+        b_counts, b_out, b_in = launches(
+            lambda: tb.solver_half(windows, imm, seqs, model, opts, sizes))
+        s_counts, s_out, s_in = launches(
+            lambda: tb.solver_half_solo(windows, imm, seqs[0], model, opts, sizes))
+        ms = cuda_ms(lambda: tb.solver_half(windows, imm, seqs, model, opts, sizes), reps=10)
+        solo_ms = cuda_ms(lambda: [tb.solver_half_solo(windows, imm, b, model, opts, sizes)
+                                   for b in seqs], reps=10)
+        log(f"[batched-kf] S = {size} (sequences {list(seqs)} of 4): every step equal to the bit"
+            f" to {size} solo calls {equal}, a second call {twice}, the LM logs"
+            f" {'equal' if same_logs else 'DIFFER'} ({its} iterations), frames flagged"
+            f" {flagged}; hand-written launches: the half {b_counts} ({b_out} launch calls"
+            f" outside torch operators, {b_in} inside), one solo half {s_counts} ({s_out},"
+            f" {s_in}); the half {ms:.3f} ms, {size} solo halves {solo_ms:.3f} ms | {card}")
+        require(all(equal.values()) and all(twice.values()) and same_logs,
+                f"[batched-kf] S = {size}: parts from its solo calls: {equal}, {twice}, logs"
+                f" {same_logs}")
+        require(b_counts == s_counts and b_out == s_out,
+                f"[batched-kf] S = {size}: launches {b_counts} ({b_out}) against a solo half's"
+                f" {s_counts} ({s_out})")
+        require(sum(flagged) > 0, f"[batched-kf] S = {size}: no frame flagged")
+        out[size] = dict(equal=equal, logs=same_logs, launches=b_counts, launch_calls=b_out,
+                         torch_launch_calls=b_in, solo_torch_launch_calls=s_in, ms=ms,
+                         solo_ms=solo_ms, iterations=its, flagged=flagged)
+
+    # the rows at S = 4: the one C call, K15p and K15, each against 4 solo calls
+    seqs = (1, 3, 0, 2)
+    half = tb.solver_half(windows, imm, seqs, model, opts, sizes)
+    w1, w2 = half["stacks"]
+    sys, e_land = half["pass_"]
+    perm = half["policy"][3]
+    ledger = half["fold"][0]
+    singles = [pba.window_at(windows, b) for b in seqs]
+    solved1 = [pba.window_at(w1, b) for b in seqs]
+    flagged2 = [pba.window_at(w2, b) for b in seqs]
+    raws = [(w, *(x[z] for x in sys[:4]), e_land[z], perm[z], opts)
+            for z, w in enumerate(flagged2)]
+    its = out[4]["iterations"]
+    dense = {name: BOUNDS[(name, "dense")]["bound_ms"] for name in (
+        "ba_evaluate", "ba_linearize_schur", "ba_solve_step", "ba_lm", "ba_point_status",
+        "marg_policy", "marg_fold")}
+    solve_bound = sum((i + 2) * dense["ba_evaluate"]
+                      + i * (dense["ba_linearize_schur"] + dense["ba_solve_step"])
+                      + (i + 1) * dense["ba_lm"] / 2 + dense["ba_point_status"] for i in its)
+    kb = 8 * window.num_slots
+    fold_bytes = nbytes(*raws[0][1:6], perm[0], *(getattr(flagged2[0], f) for f in (
+        "eps", "affine0", "frame_valid", "frame_fixed", "frame_marg", "h_marg", "b_marg",
+        "energy_marg"))) + nbytes(*(x[0] for x in ledger))
+    fold_bound = sum(bound(fold_bytes, fold_ops(kb, 8 * f), PEAK_FLOPS_F64)["bound_ms"]
+                     for f in out[4]["flagged"])
+    def solved_leaves(solved, energy, count):
+        return [solved[f] for f in pba.SOLVED_FIELDS] + [energy, count]
+
+    def solo_solved_leaves(w, energy, count):
+        return [getattr(w, f) for f in pba.SOLVED_FIELDS] + [energy, count]
+
+    def as_list(*outputs):
+        return list(outputs)
+
+    # name -> (its row's key under that name, the batched call, the S solo
+    # calls, the plain versions, the bound, what bounds it, the batched
+    # call's leaves, a solo call's leaves)
+    cases = {
+        "ba_lm": ("ba_solve_loop_s4",
+                  lambda: pba.solve_loop_sequences(windows, model, opts, seqs),
+                  lambda: [pba._solve_loop_cuda(w, model, opts) for w in singles],
+                  lambda: [pba._solve_loop_plain(w, model, opts) for w in singles],
+                  solve_bound, "bytes", solved_leaves, solo_solved_leaves),
+        "marg_policy": ("s4", lambda: marg.flags_sequences(w1, imm, *sizes, seqs),
+                        lambda: [marg.flags_device_cuda(w, imm[b], *sizes)
+                                 for w, b in zip(solved1, seqs)],
+                        lambda: [marg.flags_device_plain(w, imm[b], *sizes)
+                                 for w, b in zip(solved1, seqs)],
+                        4 * dense["marg_policy"], BOUNDS[("marg_policy", "dense")]["bound_by"],
+                        as_list, as_list),
+        "marg_fold": ("s4", lambda: pba._marginalize_sequences_cuda(w2, seqs, *sys[:4], e_land,
+                                                                    perm, opts),
+                      lambda: [pba._marginalize_cuda(*raw) for raw in raws],
+                      lambda: [pba._marginalize_system_plain(*raw) for raw in raws],
+                      fold_bound, "operations" if any(out[4]["flagged"]) else "bytes", as_list,
+                      as_list),
+    }
+    for name, (key, fn, solo, plain, b_ms, b_by, leaves, solo_leaves) in cases.items():
+        before = kernels.counts()
+        got = fn()
+        launched = {k: v - before[k] for k, v in kernels.counts().items() if v != before[k]}
+        equal, err = sequence_diff(leaves(*got), [solo_leaves(*x) for x in solo()])
+        require(equal, f"[batched-kf] {name} at S = 4: differs from 4 solo calls by {err:.3g}")
+        row = dict(ms=cuda_ms(fn, reps=10), solo_ms=cuda_ms(solo, reps=10),
+                   plain_ms=cuda_ms(plain, reps=3), device_us=device_us_whole(torch, fn),
+                   solo_device_us=device_us_whole(torch, solo), launches_a_call=launched,
+                   equal_to_solo_calls=equal, max_abs_err=err, batch=4, bound_ms=b_ms,
+                   bound_by=b_by, library_ms=None)
+        if name == "ba_lm":
+            # where the one C call's device time goes: each kernel's µs at S =
+            # 4 against 4 solo calls (S = 1 each)
+            row.update(device_us_split=device_us_by_kernel(torch, fn),
+                       solo_device_us_split=device_us_by_kernel(torch, solo))
+            log(f"[batched-kf] the one C call's device µs by kernel: S = 4"
+                f" {fmt_kernel_us(row['device_us_split'])}; 4 solo calls"
+                f" {fmt_kernel_us(row['solo_device_us_split'])} | {card}")
+        rows[name][key] = row
+        log(f"[batched-kf] {name} at S = 4 ({key}): one call {row['ms']:.4f} ms"
+            f" ({fmt_us(row['device_us'])}), 4 solo calls {row['solo_ms']:.4f} ms"
+            f" ({fmt_us(row['solo_device_us'])}), the plain versions {row['plain_ms']:.4f} ms,"
+            f" bound {b_ms:.5f} ms ({b_by}), launches {launched}, equal to the solo calls"
+            f" {equal}, max abs err {err:.3g} | {card}")
+    return out
+
+
+def kernel_name(name: str) -> str:
+    """A device record's kernel name without its return type, namespaces,
+    template and parameters ("void (anonymous namespace)::k<8>(float*)" →
+    "k")."""
+    name = name.replace("(anonymous namespace)::", "")
+    if name.startswith("void "):
+        name = name[len("void "):]
+    return name.split("(")[0].split("<")[0].split("::")[-1] or name
+
+
+def fmt_kernel_us(split) -> str:
+    """A kernel split of :func:`device_us_by_kernel`, or "not measured"."""
+    if split is None:
+        return "not measured"
+    return ", ".join(f"{name} {us:.2f}" for name, us in split.items())
+
+
+def sequence_diff(batched, solos):
+    """(every leaf equal, the largest |difference|) between a batched call's
+    [S, ...] leaves and its S solo calls' leaves, sequence z against solo
+    call z (bools count a difference as 1)."""
+    equal, err = True, 0.0
+    for z, solo in enumerate(solos):
+        for a, b in zip(batched, solo):
+            a = a[z]
+            equal = equal and a.shape == b.shape and bool(a.equal(b))
+            if a.numel():
+                err = max(err, float((a.double() - b.double()).abs().max()))
+    return equal, err
 
 
 def dcn_gap(a, b):
@@ -3785,6 +4091,9 @@ def main():
         t0 = time.perf_counter()
         sb = batched(seq, torch, kernels, card, st["host_syncs_per_frame"])
         log(f"[batched] phase {time.perf_counter() - t0:.2f} s")
+        t0 = time.perf_counter()
+        batched_kf(*dense, torch, kernels, card, rows)
+        log(f"[batched-kf] phase {time.perf_counter() - t0:.2f} s")
         t0 = time.perf_counter()
         sp = parallel(*dense, torch, kernels, card)
         del dense

@@ -35,10 +35,18 @@
 // the window's lm_valid: a landmark of an invalid anchor frame is dead anyway
 // (its pairs are), so lm_valid gives the outputs of lm_valid & frame_valid;
 // where `mask_out` is given the kernel writes that AND for K11.
+//
+// Sequence axis (seq_axis.cuh): grid z is a sequence; the window's fields
+// (exposure, lm_uv, lm_patch, lm_mask, frame_valid, the channel planes) are
+// read at `bank_seq[z]`, the state (t_lin_q, t_lin_t, eps, affine0, idepth,
+// res_status) at `state_seq[z]` (the window's sequence, or null inside the LM
+// loop, whose carried state is the launch's own), the loop state and the
+// outputs at z.
 
 #include "ba_body.cuh"
 #include "ba_entries.cuh"
 #include "ba_lm_state.cuh"
+#include "seq_axis.cuh"
 
 namespace {
 
@@ -62,6 +70,15 @@ struct EvalOut {
   float* gx;
   float* gy;
   unsigned char* ok;
+
+  // sequence z's buffer, of `groups` (anchor, target, landmark) groups
+  __device__ EvalOut at(int z, size_t groups, int channels) const {
+    const size_t res = groups * channels * kPattern;
+    return {seq::at(residuals, z, res), seq::at(energy_patch, z, groups),
+            seq::at(weight, z, groups),  seq::at(status_candidate, z, groups),
+            seq::at(gx, z, res),         seq::at(gy, z, res),
+            seq::at(ok, z, groups)};
+  }
 };
 
 template <bool kMulti>
@@ -75,8 +92,30 @@ ba_evaluate_kernel(const float* __restrict__ t_lin_q, const float* __restrict__ 
                    const int* __restrict__ res_status, const float* __restrict__ images,
                    size_t image_stride, int k, int n, int h, int w, int channels_in, Camera cam,
                    float sigma, const int* __restrict__ lm_state, EvalOut out0, EvalOut out1,
-                   unsigned char* __restrict__ mask_out) {
+                   unsigned char* __restrict__ mask_out, const int* __restrict__ bank_seq,
+                   const int* __restrict__ state_seq) {
+  const int z = blockIdx.z;
+  lm_state = seq::at(lm_state, z, kLmFields);
   if (lm_done(lm_state)) return;
+  {
+    const int sb = seq::of(bank_seq), ss = seq::of(state_seq);
+    const size_t kn = (size_t)k * n, groups = kn * k;
+    t_lin_q = seq::at(t_lin_q, ss, 4 * k);
+    t_lin_t = seq::at(t_lin_t, ss, 3 * k);
+    eps = seq::at(eps, ss, 8 * k);
+    affine0 = seq::at(affine0, ss, 2 * k);
+    idepth = seq::at(idepth, ss, kn);
+    res_status = seq::at(res_status, ss, groups);
+    exposure = seq::at(exposure, sb, k);
+    lm_uv = seq::at(lm_uv, sb, 2 * kn);
+    lm_patch = seq::at(lm_patch, sb, kn * channels_in * kPattern);
+    lm_mask = seq::at(lm_mask, sb, kn);
+    frame_valid = seq::at(frame_valid, sb, k);
+    images = seq::at(images, sb, k * image_stride);
+    out0 = out0.at(z, groups, channels_in);
+    out1 = out1.at(z, groups, channels_in);
+    mask_out = seq::at(mask_out, z, kn);
+  }
   __shared__ Rigid pose_s[2];  // frame poses of the target (0) and the anchor (1)
   __shared__ PairTerms terms;
   const int channels = kMulti ? channels_in : 1;
@@ -183,7 +222,11 @@ ba_evaluate_kernel(const float* __restrict__ t_lin_q, const float* __restrict__ 
 // status_candidate [k,k,n] int32; ok [k,k,n] u8 — buffer 0 is written when
 // lm_state is nullptr (buffer 1 may then be null), else the one that
 // ba_lm_state.cuh::trial_buffer names; mask_out [k,n] u8 or nullptr:
-// lm_mask & frame_valid of the anchor frame.
+// lm_mask & frame_valid of the anchor frame.  Sequence axis (seq_axis.cuh):
+// `seqs` sequences, grid z; the window's fields of every argument above are
+// [B, ...] stacks read at bank_seq[z], the state (t_lin_q, t_lin_t, eps,
+// affine0, idepth, res_status) at state_seq[z] (null lists: z), lm_state
+// [seqs, 9] and the outputs [seqs, ...] at z.
 extern "C" int ba_evaluate(const float* t_lin_q, const float* t_lin_t, const float* eps,
                            const float* affine0, const float* exposure,
                            const float* lm_uv, const float* idepth, const float* lm_patch,
@@ -195,16 +238,18 @@ extern "C" int ba_evaluate(const float* t_lin_q, const float* t_lin_t, const flo
                            float* weight, int* status_candidate, float* gx, float* gy,
                            unsigned char* ok, float* residuals1, float* energy_patch1,
                            float* weight1, int* status_candidate1, float* gx1, float* gy1,
-                           unsigned char* ok1, unsigned char* mask_out, void* stream) {
-  if (channels < 1 || k < 1 || n < 1) return (int)cudaErrorInvalidValue;
+                           unsigned char* ok1, unsigned char* mask_out, int seqs,
+                           const int* bank_seq, const int* state_seq, void* stream) {
+  if (channels < 1 || k < 1 || n < 1 || !seq::valid_count(seqs))
+    return (int)cudaErrorInvalidValue;
   const ba::Camera cam = {fx, fy, cx, cy, width, height};
   const EvalOut out0 = {residuals, energy_patch, weight, status_candidate, gx, gy, ok};
   const EvalOut out1 = {residuals1, energy_patch1, weight1, status_candidate1, gx1, gy1, ok1};
-  const dim3 grid((n * ba::kPattern + ba::kThreads - 1) / ba::kThreads, k * k);
+  const dim3 grid((n * ba::kPattern + ba::kThreads - 1) / ba::kThreads, k * k, seqs);
   auto kernel = channels == 1 ? ba_evaluate_kernel<false> : ba_evaluate_kernel<true>;
   kernel<<<grid, ba::kThreads, 0, (cudaStream_t)stream>>>(
       t_lin_q, t_lin_t, eps, affine0, exposure, lm_uv, idepth, lm_patch, lm_mask,
       frame_valid, res_status, images, (size_t)image_stride, k, n, h, w, channels, cam, sigma,
-      lm_state, out0, out1, mask_out);
+      lm_state, out0, out1, mask_out, bank_seq, state_seq);
   return (int)cudaGetLastError();
 }

@@ -71,12 +71,20 @@
 // is the one of the loop's two evaluation buffers that the state names
 // carried (pair_kernel picks the pointers at its top; buffer 0 outside the
 // loop).
+//
+// Sequence axis (seq_axis.cuh): every kernel has grid z a sequence; the
+// window's fields (exposure, lm_uv, lm_patch, the frame flags) are read at
+// `bank_seq[z]`, the linearization point and eps at `state_seq[z]` (the
+// window's sequence, or null inside the LM loop, whose carried state is the
+// launch's own), the evaluation, the loop state, the scratch and the outputs
+// at z.  The band grouping of schur_kernel depends on k alone.
 
 #include <cuda_runtime.h>
 
 #include "ba_body.cuh"
 #include "ba_entries.cuh"
 #include "ba_lm_state.cuh"
+#include "seq_axis.cuh"
 
 namespace {
 
@@ -118,6 +126,13 @@ struct EvalIn {
   const float* gx;
   const float* gy;
   const unsigned char* ok;
+
+  // sequence z's buffer, of `groups` (anchor, target, landmark) groups
+  __device__ EvalIn at(int z, size_t groups, int channels) const {
+    const size_t res = groups * channels * kPattern;
+    return {seq::at(residuals, z, res), seq::at(weight, z, groups), seq::at(gx, z, res),
+            seq::at(gy, z, res), seq::at(ok, z, groups)};
+  }
 };
 
 // a landmark's sums over its rows: the target term straight into hpd[i, l, j],
@@ -145,8 +160,27 @@ pair_kernel(const float* __restrict__ t_lin_q, const float* __restrict__ t_lin_t
             const float* __restrict__ lm_patch, ba::Camera cam,
             EvalIn ev0, EvalIn ev1, int k, int n, int channels_in, int tiles,
             const int* __restrict__ lm_state, double* __restrict__ pair_part,
-            float* __restrict__ lm_part, float* __restrict__ hpd) {
+            float* __restrict__ lm_part, float* __restrict__ hpd,
+            const int* __restrict__ bank_seq, const int* __restrict__ state_seq) {
+  const int z = blockIdx.z;
+  lm_state = seq::at(lm_state, z, ba::kLmFields);
   if (ba::lm_done(lm_state)) return;
+  {
+    const int sb = seq::of(bank_seq), ss = seq::of(state_seq);
+    const size_t kn = (size_t)k * n;
+    t_lin_q = seq::at(t_lin_q, ss, 4 * k);
+    t_lin_t = seq::at(t_lin_t, ss, 3 * k);
+    affine0 = seq::at(affine0, ss, 2 * k);
+    lin_idepth = seq::at(lin_idepth, ss, kn);
+    exposure = seq::at(exposure, sb, k);
+    lm_uv = seq::at(lm_uv, sb, 2 * kn);
+    lm_patch = seq::at(lm_patch, sb, kn * channels_in * kPattern);
+    ev0 = ev0.at(z, kn * k, channels_in);
+    ev1 = ev1.at(z, kn * k, channels_in);
+    pair_part = seq::at(pair_part, z, (size_t)k * k * tiles * kPairOut);
+    lm_part = seq::at(lm_part, z, kn * k * kLmOut);
+    hpd = seq::at(hpd, z, kn * k * 8);
+  }
   // the carried evaluation of the loop (buffer 0 outside it)
   const EvalIn ev = ba::carried_buffer(lm_state) ? ev1 : ev0;
   const float* __restrict__ residuals = ev.residuals;
@@ -322,8 +356,19 @@ __global__ void __launch_bounds__(kThreads)
 landmark_kernel(const float* __restrict__ lm_part, const unsigned char* __restrict__ frame_fixed,
                 int k, int n, int marg_pass, float threshold, float scale_reg,
                 const int* __restrict__ lm_state, float* __restrict__ hpd,
-                float* __restrict__ inv_hdd, float* __restrict__ b_d) {
+                float* __restrict__ inv_hdd, float* __restrict__ b_d,
+                const int* __restrict__ bank_seq) {
+  const int z = blockIdx.z;
+  lm_state = seq::at(lm_state, z, ba::kLmFields);
   if (ba::lm_done(lm_state)) return;
+  {
+    const size_t kn = (size_t)k * n;
+    frame_fixed = seq::at(frame_fixed, seq::of(bank_seq), k);
+    lm_part = seq::at(lm_part, z, kn * k * kLmOut);
+    hpd = seq::at(hpd, z, kn * k * 8);
+    inv_hdd = seq::at(inv_hdd, z, kn);
+    b_d = seq::at(b_d, z, kn);
+  }
   const int e = blockIdx.x * kThreads + threadIdx.x;
   if (e >= k * n * kLmOut) return;
   const int g = e / kLmOut, q = e % kLmOut;
@@ -364,6 +409,15 @@ __global__ void __launch_bounds__(kSchurMaxWarps * 32)
 schur_kernel(const float* __restrict__ hpd, const float* __restrict__ inv_hdd,
              const float* __restrict__ b_d, int k, int n, const int* __restrict__ lm_state,
              double* __restrict__ schur_part) {
+  {
+    const int z = blockIdx.z;
+    const size_t kn = (size_t)k * n, kb = 8 * (size_t)k;
+    lm_state = seq::at(lm_state, z, ba::kLmFields);
+    hpd = seq::at(hpd, z, kn * kb);
+    inv_hdd = seq::at(inv_hdd, z, kn);
+    b_d = seq::at(b_d, z, kn);
+    schur_part = seq::at(schur_part, z, k * (kb * kb + kb));
+  }
   if (ba::lm_done(lm_state)) return;
   extern __shared__ float stage_s[];          // [kChunkLm][stride], then inv [kChunkLm]
   const int kb = 8 * k, first_band = blockIdx.x * kBands, i = blockIdx.y;
@@ -457,6 +511,17 @@ struct Priors {
   const unsigned char* frame_marg;   // [k]
   int marg_pass;
   float fixed_reg, affine_reg_a, affine_reg_b;
+
+  // the priors of the sequences the bank and the state lists name (sb, ss)
+  __device__ Priors at(int sb, int ss, int k) const {
+    Priors p = *this;
+    p.eps = seq::at(eps, ss, 8 * k);
+    p.affine0 = seq::at(affine0, ss, 2 * k);
+    p.frame_valid = seq::at(frame_valid, sb, k);
+    p.frame_fixed = seq::at(frame_fixed, sb, k);
+    p.frame_marg = seq::at(frame_marg, sb, k);
+    return p;
+  }
 };
 
 // entry a of frame f's diagonal prior -> its weight and its gradient
@@ -491,7 +556,20 @@ __global__ void __launch_bounds__(kThreads)
 reduce_kernel(const double* __restrict__ pair_part, const double* __restrict__ schur_part,
               int k, int tiles, Priors pr, const int* __restrict__ lm_state,
               float* __restrict__ h_out, float* __restrict__ b_out,
-              float* __restrict__ h_schur, float* __restrict__ b_schur) {
+              float* __restrict__ h_schur, float* __restrict__ b_schur,
+              const int* __restrict__ bank_seq, const int* __restrict__ state_seq) {
+  {
+    const int z = blockIdx.z;
+    const size_t kb = 8 * (size_t)k;
+    lm_state = seq::at(lm_state, z, ba::kLmFields);
+    pair_part = seq::at(pair_part, z, (size_t)k * k * tiles * kPairOut);
+    schur_part = seq::at(schur_part, z, k * (kb * kb + kb));
+    pr = pr.at(seq::of(bank_seq), seq::of(state_seq), k);
+    h_out = seq::at(h_out, z, kb * kb);
+    b_out = seq::at(b_out, z, kb);
+    h_schur = seq::at(h_schur, z, kb * kb);
+    b_schur = seq::at(b_schur, z, kb);
+  }
   if (ba::lm_done(lm_state)) return;
   __shared__ double slices[2][kReduceLanes][kThreads / kReduceLanes];
   const int kb = k * 8;
@@ -572,7 +650,11 @@ reduce_kernel(const double* __restrict__ pair_part, const double* __restrict__ s
 // from the second buffer (residuals1 ... ok1) when the state names it
 // carried, else from the first (the second may then be null).  Returns
 // cudaErrorInvalidValue (1) for k above kMaxFrames (40) or a tile count that
-// is not the kernels'.
+// is not the kernels'.  Sequence axis (seq_axis.cuh): `seqs` sequences, grid
+// z; the window's fields above are [B, ...] stacks read at bank_seq[z], the
+// linearization point (t_lin_q, t_lin_t, affine0, lin_idepth) and eps at
+// state_seq[z] (null lists: z); the evaluation, lm_state, the scratch and the
+// outputs are [seqs, ...] at z.
 extern "C" int ba_linearize_schur(
     const float* t_lin_q, const float* t_lin_t, const float* affine0, const float* exposure,
     const float* lm_uv, const float* lin_idepth, const float* lm_patch, float fx, float fy,
@@ -585,9 +667,10 @@ extern "C" int ba_linearize_schur(
     float scale_reg, float fixed_reg, float affine_reg_a, float affine_reg_b, int tiles,
     const int* lm_state, double* pair_part, float* lm_part, double* schur_part,
     float* h_out, float* b_out, float* h_schur, float* b_schur, float* hpd,
-    float* inv_hdd, float* b_d, void* stream) {
+    float* inv_hdd, float* b_d, int seqs, const int* bank_seq, const int* state_seq,
+    void* stream) {
   if (k < 1 || k > kMaxFrames || n < 1 || channels < 1 ||
-      tiles != (n + kTileLm - 1) / kTileLm)
+      tiles != (n + kTileLm - 1) / kTileLm || !seq::valid_count(seqs))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const int kb = k * 8;
@@ -595,22 +678,25 @@ extern "C" int ba_linearize_schur(
   const EvalIn ev0 = {residuals, weight, gx, gy, ok};
   const EvalIn ev1 = {residuals1, weight1, gx1, gy1, ok1};
   auto pair = channels == 1 ? pair_kernel<false> : pair_kernel<true>;
-  pair<<<dim3(tiles, k * k), kThreads, 0, s>>>(
+  pair<<<dim3(tiles, k * k, seqs), kThreads, 0, s>>>(
       t_lin_q, t_lin_t, affine0, exposure, lm_uv, lin_idepth, lm_patch, cam, ev0, ev1, k, n,
-      channels, tiles, lm_state, pair_part, lm_part, hpd);
-  landmark_kernel<<<(k * n * kLmOut + kThreads - 1) / kThreads, kThreads, 0, s>>>(
-      lm_part, frame_fixed, k, n, marg_pass, threshold, scale_reg, lm_state, hpd, inv_hdd, b_d);
+      channels, tiles, lm_state, pair_part, lm_part, hpd, bank_seq, state_seq);
+  landmark_kernel<<<dim3((k * n * kLmOut + kThreads - 1) / kThreads, 1, seqs), kThreads, 0,
+                    s>>>(lm_part, frame_fixed, k, n, marg_pass, threshold, scale_reg, lm_state,
+                         hpd, inv_hdd, b_d, bank_seq);
   // bands a Schur block takes: two where that still gives k ceil(k / 2) >= 132
   // blocks (the card's SMs; dense, K = 17), else one (standart, K = 10); each
   // band's sum has the same order whatever the grouping
   const int bands = k * ((k + 1) / 2) >= 132 ? 2 : 1;
   auto schur = bands == 2 ? schur_kernel<2> : schur_kernel<1>;
-  schur<<<dim3((k + bands - 1) / bands, k), 32 * schur_warps(k), schur_shared_bytes(k), s>>>(
+  schur<<<dim3((k + bands - 1) / bands, k, seqs), 32 * schur_warps(k), schur_shared_bytes(k),
+          s>>>(
       hpd, inv_hdd, b_d, k, n, lm_state, schur_part);
   const Priors pr = {eps,       affine0,   frame_valid,  frame_fixed, frame_marg,
                      marg_pass, fixed_reg, affine_reg_a, affine_reg_b};
   const int entries_per_block = kThreads / kReduceLanes;
-  reduce_kernel<<<(kb * kb + kb + entries_per_block - 1) / entries_per_block, kThreads, 0, s>>>(
-      pair_part, schur_part, k, tiles, pr, lm_state, h_out, b_out, h_schur, b_schur);
+  reduce_kernel<<<dim3((kb * kb + kb + entries_per_block - 1) / entries_per_block, 1, seqs),
+                  kThreads, 0, s>>>(pair_part, schur_part, k, tiles, pr, lm_state, h_out, b_out,
+                                    h_schur, b_schur, bank_seq, state_seq);
   return (int)cudaGetLastError();
 }

@@ -60,10 +60,21 @@
 //                    linearization point.
 // Every phase writes the state it leaves into row `iter` of a small log, so
 // that a run can be compared with the host-driven loop after the fact.
+//
+// Sequence axis (seq_axis.cuh): every kernel has grid z a sequence, and
+// ba_solve_loop issues the fixed sequence once for S sequences of one shape,
+// each on its own grid index.  The window's fields (frame_valid, the ledger,
+// the start of the carried state) are read at `seq[z]` of the stacked
+// window; the carried state, the loop state [S, 9], its log [S, rows, 9],
+// the evaluations and every buffer of the loop at z.  Each sequence's
+// kernels read its own state word and return at once when it says done, so
+// a sequence that converges early stops while the others iterate; the
+// launches stay those of one sequence's call.
 
 #include "ba_body.cuh"
 #include "ba_entries.cuh"
 #include "ba_lm_state.cuh"
+#include "seq_axis.cuh"
 
 namespace {
 
@@ -88,6 +99,15 @@ struct Carried {
   float* idepth;
   float* lin_idepth;
   int* res_status;
+
+  // sequence z's carried state
+  __device__ Carried at(int z, int k, int n) const {
+    const size_t kn = (size_t)k * n;
+    return {seq::at(t_lin_q, z, 4 * k), seq::at(t_lin_t, z, 3 * k),
+            seq::at(affine0, z, 2 * k), seq::at(eps, z, 8 * k),
+            seq::at(idepth, z, kn),     seq::at(lin_idepth, z, kn),
+            seq::at(res_status, z, kn * k)};
+  }
 };
 
 // the window's fields the carried state starts from
@@ -98,6 +118,13 @@ struct Start {
   const float* eps;
   const float* idepth;
   const int* res_status;
+
+  // the window of sequence s
+  __device__ Start at(int s, int k, int n) const {
+    const size_t kn = (size_t)k * n;
+    return {seq::at(t_lin_q, s, 4 * k), seq::at(t_lin_t, s, 3 * k), seq::at(affine0, s, 2 * k),
+            seq::at(eps, s, 8 * k),     seq::at(idepth, s, kn),     seq::at(res_status, s, kn * k)};
+  }
 };
 
 // sum over the block in a fixed order: butterfly in a warp, warps in index order
@@ -136,7 +163,26 @@ decide_kernel(int phase, int iter, int k, int n, LmOptions o,
               const float* __restrict__ energy0, const float* __restrict__ energy1,
               const double* __restrict__ reduced, const float* __restrict__ step_sq,
               float* t_lin_q, float* t_lin_t,
-              float* affine0, int* __restrict__ state, int* __restrict__ log) {
+              float* affine0, int* __restrict__ state, int* __restrict__ log, int log_rows,
+              const int* __restrict__ bank_seq) {
+  {
+    const int z = blockIdx.z, sb = seq::of(bank_seq);
+    const size_t kb = 8 * (size_t)k, groups = (size_t)k * k * n;
+    frame_valid = seq::at(frame_valid, sb, k);
+    h_marg = seq::at(h_marg, sb, kb * kb);
+    b_marg = seq::at(b_marg, sb, kb);
+    energy_marg = seq::at(energy_marg, sb, 1);
+    trial_eps = seq::at(trial_eps, z, kb);
+    energy0 = seq::at(energy0, z, groups);
+    energy1 = seq::at(energy1, z, groups);
+    reduced = seq::at(reduced, z, 2);
+    step_sq = seq::at(step_sq, z, 2);
+    t_lin_q = seq::at(t_lin_q, z, 4 * k);
+    t_lin_t = seq::at(t_lin_t, z, 3 * k);
+    affine0 = seq::at(affine0, z, 2 * k);
+    state = seq::at(state, z, kLmFields);
+    log = seq::at(log, z, (size_t)log_rows * kLmFields);
+  }
   __shared__ double scratch[kDecideWarps];
   __shared__ double hs[kMaxKb];
   __shared__ int relin_s;
@@ -264,7 +310,10 @@ decide_kernel(int phase, int iter, int k, int n, LmOptions o,
   if (relin_s && tid < k) fold_frame(t_lin_q, t_lin_t, affine0, trial_eps, tid);
 }
 
-__global__ void carry_kernel(int k, int n, Start src, Carried dst) {
+__global__ void carry_kernel(int k, int n, Start src, Carried dst,
+                             const int* __restrict__ bank_seq) {
+  src = src.at(seq::of(bank_seq), k, n);
+  dst = dst.at(blockIdx.z, k, n);
   const int total = max(k * k * n, 8 * k);
   const int stride = gridDim.x * blockDim.x;
   for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < total; i += stride) {
@@ -282,6 +331,16 @@ __global__ void commit_kernel(int k, int n, const int* __restrict__ state,
                               const float* __restrict__ trial_idepth,
                               const int* __restrict__ candidate0,
                               const int* __restrict__ candidate1, Carried c) {
+  {
+    const int z = blockIdx.z;
+    const size_t kn = (size_t)k * n;
+    state = seq::at(state, z, kLmFields);
+    trial_eps = seq::at(trial_eps, z, 8 * k);
+    trial_idepth = seq::at(trial_idepth, z, kn);
+    candidate0 = seq::at(candidate0, z, kn * k);
+    candidate1 = seq::at(candidate1, z, kn * k);
+    c = c.at(z, k, n);
+  }
   if (!state[kLmAccept]) return;
   const bool relin = state[kLmRelin] != 0;
   // the committed statuses are the accepted trial's candidates, in the buffer
@@ -302,7 +361,20 @@ __global__ void commit_kernel(int k, int n, const int* __restrict__ state,
 __global__ void finish_kernel(int iter, int k, const unsigned char* __restrict__ frame_valid,
                               float* t_lin_q, float* t_lin_t, float* affine0, float* eps,
                               const int* __restrict__ state, int* __restrict__ log,
-                              float* __restrict__ energy_out, int* __restrict__ count_out) {
+                              float* __restrict__ energy_out, int* __restrict__ count_out,
+                              int log_rows, const int* __restrict__ bank_seq) {
+  {
+    const int z = blockIdx.z;
+    frame_valid = seq::at(frame_valid, seq::of(bank_seq), k);
+    t_lin_q = seq::at(t_lin_q, z, 4 * k);
+    t_lin_t = seq::at(t_lin_t, z, 3 * k);
+    affine0 = seq::at(affine0, z, 2 * k);
+    eps = seq::at(eps, z, 8 * k);
+    state = seq::at(state, z, kLmFields);
+    log = seq::at(log, z, (size_t)log_rows * kLmFields);
+    energy_out = seq::at(energy_out, z, 1);
+    count_out = seq::at(count_out, z, 1);
+  }
   if (threadIdx.x < kLmFields) log[iter * kLmFields + threadIdx.x] = state[threadIdx.x];
   if (threadIdx.x != 0) return;
   if (energy_out != nullptr) {
@@ -333,8 +405,12 @@ inline int copy_blocks(int k, int n) { return min((max(k * k * n, 8 * k) + 255) 
 // t_lin_q, t_lin_t, affine0, eps, idepth and lin_idepth [k,n], res_status.
 // state: int32 [9] (ba_lm_state.cuh); log: int32 [rows, 9], row `iter` is
 // written.  Phase 2 also writes the loop's energy [1] f32 and count [1]
-// int32 where energy_out and count_out are given.  Returns
-// cudaErrorInvalidValue (1) for k above 40.
+// int32 where energy_out and count_out are given.  log_rows: the rows of a
+// sequence's log.  Sequence axis (seq_axis.cuh): `seqs` sequences, grid z;
+// frame_valid, the ledger and the start are [B, ...] stacks read at
+// bank_seq[z] (null: z); reduced, the trial, the evaluations, the carried
+// state, state, log and the two outputs are [seqs, ...] at z.  Returns
+// cudaErrorInvalidValue (1) for k above 40 or a row outside the log.
 extern "C" int ba_lm(int phase, int iter, int k, int n, int min_iterations, int force_accept,
                      float initial_regularizer, float function_tolerance,
                      float parameter_tolerance, float reg_decrease, float reg_increase,
@@ -349,30 +425,35 @@ extern "C" int ba_lm(int phase, int iter, int k, int n, int min_iterations, int 
                      const int* start_res_status, float* t_lin_q, float* t_lin_t,
                      float* affine0, float* eps, float* idepth, float* lin_idepth,
                      int* res_status, int* state, int* log, float* energy_out, int* count_out,
-                     void* stream) {
-  if (k < 1 || k * 8 > kMaxKb || n < 1 || phase < 0 || phase > 2)
+                     int log_rows, int seqs, const int* bank_seq, void* stream) {
+  if (k < 1 || k * 8 > kMaxKb || n < 1 || phase < 0 || phase > 2 || iter < 0 ||
+      iter >= log_rows || !seq::valid_count(seqs))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const Carried c = {t_lin_q, t_lin_t, affine0, eps, idepth, lin_idepth, res_status};
   if (phase == 2) {
-    finish_kernel<<<1, 32, 0, s>>>(iter, k, frame_valid, t_lin_q, t_lin_t, affine0, eps, state,
-                                   log, energy_out, count_out);
+    finish_kernel<<<dim3(1, 1, seqs), 32, 0, s>>>(iter, k, frame_valid, t_lin_q, t_lin_t,
+                                                  affine0, eps, state, log, energy_out,
+                                                  count_out, log_rows, bank_seq);
     return (int)cudaGetLastError();
   }
   if (phase == 0) {
     const Start src = {start_t_lin_q, start_t_lin_t, start_affine0,
                        start_eps,     start_idepth,  start_res_status};
-    carry_kernel<<<copy_blocks(k, n), 256, 0, s>>>(k, n, src, c);
+    carry_kernel<<<dim3(copy_blocks(k, n), 1, seqs), 256, 0, s>>>(k, n, src, c, bank_seq);
+    // the initial decision's state: the carried copy of the window's, which
+    // lies at z as every trial does
+    trial_eps = eps;
   }
   const LmOptions o = {min_iterations,      force_accept,        initial_regularizer,
                        function_tolerance,  parameter_tolerance, reg_decrease,
                        reg_increase,        affine_reg_a,        affine_reg_b};
-  decide_kernel<<<1, kDecideThreads, 0, s>>>(phase, iter, k, n, o, frame_valid, h_marg, b_marg,
-                                             energy_marg, trial_eps, energy0, energy1, reduced,
-                                             step_sq, t_lin_q, t_lin_t, affine0, state, log);
+  decide_kernel<<<dim3(1, 1, seqs), kDecideThreads, 0, s>>>(
+      phase, iter, k, n, o, frame_valid, h_marg, b_marg, energy_marg, trial_eps, energy0,
+      energy1, reduced, step_sq, t_lin_q, t_lin_t, affine0, state, log, log_rows, bank_seq);
   if (phase == 1)
-    commit_kernel<<<copy_blocks(k, n), 256, 0, s>>>(k, n, state, trial_eps, trial_idepth,
-                                                    candidate0, candidate1, c);
+    commit_kernel<<<dim3(copy_blocks(k, n), 1, seqs), 256, 0, s>>>(
+        k, n, state, trial_eps, trial_idepth, candidate0, candidate1, c);
   return (int)cudaGetLastError();
 }
 
@@ -416,11 +497,16 @@ constexpr int kSolveCounts = 5;
 // [k,n] u8 (lm_valid & frame_valid), K8's scratch and outputs, K9's scratch
 // and outputs, the loop state [9] and log [max_iterations + 2, 9] int32, the
 // loop's energy [1] f32 and count [1] int32 (the state's words), K11's
-// workspace (as ba_point_status takes it), and K11's outputs (the solved window's statuses, baselines, inlier counts,
-// outlier flags and optimization counts).  Every output is written before it
+// workspace and candidates (as ba_point_status takes them), and K11's outputs
+// (the solved window's statuses, baselines, inlier counts, outlier flags and
+// optimization counts).  Every output is written before it
 // is read: the caller passes torch.empty buffers.  launched [5] int32, host
 // memory: set to 0, then each entry's successful calls (SolveCount's order),
-// also when a later step fails.
+// also when a later step fails.  Sequence axis (seq_axis.cuh): `seqs`
+// sequences of one shape in one call, one launch per kernel for all of them;
+// every window argument above is a [B, ...] stack read at seq_list[z] (null:
+// z), every output and buffer is [seqs, ...] (K11's workspace a header a
+// sequence, its candidates k k n words a sequence), and the log is [seqs, max_iterations + 2, 9].
 extern "C" int ba_solve_loop(
     const float* t_lin_q, const float* t_lin_t, const float* affine0, const float* eps,
     const float* exposure, const float* lm_uv, const float* lm_idepth, const float* lm_patch,
@@ -442,14 +528,17 @@ extern "C" int ba_solve_loop(
     double* schur_part, float* h_pose, float* b_pose, float* h_schur, float* b_schur,
     float* hpd, float* inv_hdd, float* b_d, int blocks, float* step, float* d_part, double* system,
     float* eps_new, float* idepth_new, float* step_sq, int* state, int* log, float* energy,
-    int* count, void* status_workspace, int status_workspace_bytes, float* thresh,
+    int* count, void* status_workspace, int status_workspace_bytes,
+    unsigned int* status_candidates, float* thresh,
     int* new_status, float* baseline, int* inliers, unsigned char* outlier, int* opt_count,
-    int* launched, void* stream) {
+    int seqs, const int* seq_list, int* launched, void* stream) {
   auto failed = [](int step, int err) { return (step << 16) | err; };
   if (launched == nullptr) return failed(kStepArguments, (int)cudaErrorInvalidValue);
   for (int i = 0; i < kSolveCounts; ++i) launched[i] = 0;
-  if (k < 1 || k * 8 > kMaxKb || n < 1 || channels < 1 || max_iterations < 0)
+  if (k < 1 || k * 8 > kMaxKb || n < 1 || channels < 1 || max_iterations < 0 ||
+      !seq::valid_count(seqs))
     return failed(kStepArguments, (int)cudaErrorInvalidValue);
+  const int rows = max_iterations + 2;  // a sequence's log
   int err;
   // the state K7 evaluates into both buffers' pointers; K8 reads the carried
 #define EV0 ev0_residuals, ev0_energy, ev0_weight, ev0_candidate, ev0_gx, ev0_gy, ev0_ok
@@ -462,14 +551,15 @@ extern "C" int ba_solve_loop(
   // 1. the initial evaluation, into buffer 0, and the active landmark mask
   err = ba_evaluate(t_lin_q, t_lin_t, eps, affine0, exposure, lm_uv, lm_idepth, lm_patch,
                     lm_valid, frame_valid, res_status, images, image_stride, k, n, h, w,
-                    channels, CAM, sigma, nullptr, EV0, EV1, mask, stream);
+                    channels, CAM, sigma, nullptr, EV0, EV1, mask, seqs, seq_list, seq_list,
+                    stream);
   if (err) return failed(kStepEvaluateInitial, err);
   ++launched[kCountEvaluate];
   // 2. the carried state from the window, and the loop state from buffer 0
   err = ba_lm(0, 0, k, n, LM_OPTS, frame_valid, h_marg, b_marg, energy_marg, eps, lm_idepth,
               nullptr, ev0_energy, ev0_candidate, ev1_energy, ev1_candidate, nullptr, t_lin_q,
               t_lin_t, affine0, eps, lm_idepth, res_status, CARRIED, state, log, nullptr,
-              nullptr, stream);
+              nullptr, rows, seqs, seq_list, stream);
   if (err) return failed(kStepLmInit, err);
   ++launched[kCountLm];
   // 3. the iterations, each returning at once when the loop is done
@@ -480,23 +570,25 @@ extern "C" int ba_solve_loop(
                              frame_valid, frame_fixed, frame_marg, k, n, channels, 0,
                              idepth_threshold, scale_reg, fixed_reg, affine_reg_a, affine_reg_b,
                              tiles, state, pair_part, lm_part, schur_part, h_pose, b_pose,
-                             h_schur, b_schur, hpd, inv_hdd, b_d, stream);
+                             h_schur, b_schur, hpd, inv_hdd, b_d, seqs, seq_list, nullptr,
+                             stream);
     if (err) return failed(kStepLinearize, err);
     ++launched[kCountLinearize];
     err = ba_solve_step(h_pose, b_pose, h_schur, b_schur, h_marg, b_marg, c_eps, c_idepth,
                         frame_valid, hpd, inv_hdd, b_d, k, n, 0.0f, blocks, state, step, d_part,
-                        system, eps_new, idepth_new, step_sq, stream);
+                        system, eps_new, idepth_new, step_sq, seqs, seq_list, nullptr, stream);
     if (err) return failed(kStepSolve, err);
     ++launched[kCountSolve];
     err = ba_evaluate(c_t_lin_q, c_t_lin_t, eps_new, c_affine0, exposure, lm_uv, idepth_new,
                       lm_patch, lm_valid, frame_valid, c_res_status, images, image_stride, k, n,
-                      h, w, channels, CAM, sigma, state, EV0, EV1, nullptr, stream);
+                      h, w, channels, CAM, sigma, state, EV0, EV1, nullptr, seqs, seq_list,
+                      nullptr, stream);
     if (err) return failed(kStepEvaluateTrial, err);
     ++launched[kCountEvaluate];
     err = ba_lm(1, it, k, n, LM_OPTS, frame_valid, h_marg, b_marg, energy_marg, eps_new,
                 idepth_new, step_sq, ev0_energy, ev0_candidate, ev1_energy, ev1_candidate,
                 nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, CARRIED, state,
-                log, nullptr, nullptr, stream);
+                log, nullptr, nullptr, rows, seqs, seq_list, stream);
     if (err) return failed(kStepLmStep, err);
     ++launched[kCountLm];
   }
@@ -504,19 +596,22 @@ extern "C" int ba_solve_loop(
   err = ba_lm(2, max_iterations + 1, k, n, LM_OPTS, frame_valid, h_marg, b_marg, energy_marg,
               c_eps, c_idepth, nullptr, ev0_energy, ev0_candidate, ev1_energy, ev1_candidate,
               nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, CARRIED, state, log,
-              energy, count, stream);
+              energy, count, rows, seqs, seq_list, stream);
   if (err) return failed(kStepLmFinish, err);
   ++launched[kCountLm];
   // 5. the point statuses from an evaluation at the solved state (buffer 0)
   err = ba_evaluate(c_t_lin_q, c_t_lin_t, c_eps, c_affine0, exposure, lm_uv, c_idepth,
                     lm_patch, lm_valid, frame_valid, c_res_status, images, image_stride, k, n,
-                    h, w, channels, CAM, sigma, nullptr, EV0, EV1, nullptr, stream);
+                    h, w, channels, CAM, sigma, nullptr, EV0, EV1, nullptr, seqs, seq_list,
+                    nullptr, stream);
   if (err) return failed(kStepEvaluateFinal, err);
   ++launched[kCountEvaluate];
   err = ba_point_status(ev0_energy, ev0_ok, ev0_candidate, c_t_lin_q, c_t_lin_t, c_eps,
                         c_idepth, mask, lm_baseline, lm_outlier, lm_opt_count, k, n, quantile,
-                        status_sigma, min_valid, status_workspace, status_workspace_bytes, thresh,
-                        new_status, baseline, inliers, outlier, opt_count, stream);
+                        status_sigma, min_valid, status_workspace, status_workspace_bytes,
+                        status_candidates, thresh,
+                        new_status, baseline, inliers, outlier, opt_count, seqs, seq_list,
+                        nullptr, stream);
   if (err) return failed(kStepPointStatus, err);
   ++launched[kCountStatus];
 #undef EV0

@@ -38,12 +38,23 @@
 //     t_j| in shared memory; warp 0 then takes the max in target order with
 //     fmaxf from 0, as the one-thread walk did (the same bits for NaN, -0
 //     and negative idepths), and the count.
-// The workspace (StatusWorkspace, then the candidates) is zero between
-// launches but for the selection it hands from kernel to kernel and the
-// candidates, which each call writes before it reads (kernels.py::workspace).
+// The workspace (a StatusWorkspace a sequence) is zero between launches but
+// for the selection it hands from kernel to kernel, which each call writes
+// before it reads (kernels.py::workspace); the candidates lie in a buffer of
+// their own, written before they are read (kernels.py::scratch).
+//
+// Sequence axis (seq_axis.cuh): every kernel has grid z a sequence, with a
+// header of its own at z kWorkspaceHeader (its tickets and counts: the last
+// block is found among sequence z's blocks) and its candidates at z k k n,
+// so the headers lie where they lie whatever the shape and the count of the
+// sequences of a call; the window's old baselines, outlier
+// flags and optimization counts are read at `bank_seq[z]`, the solved state
+// (poses, idepth, the landmark mask) at `state_seq[z]` (null inside the LM
+// loop: its carried state), the evaluation and the outputs at z.
 
 #include "ba_body.cuh"
 #include "ba_entries.cuh"
+#include "seq_axis.cuh"
 
 namespace {
 
@@ -58,7 +69,8 @@ constexpr int kStatusWarps = 8;
 constexpr int kMaxFrames = 40;  // as ba_linearize.cu
 constexpr int kResOutlier = 2;  // solvers/pba.py::RES_OUTLIER
 constexpr int kTopShift = 21;   // the top digit: bits 21..31
-// the workspace's header before the candidates (kernels.py STATUS_WORKSPACE_BYTES)
+// the bytes of a sequence's header in the workspace (kernels.py
+// STATUS_WORKSPACE_BYTES)
 constexpr int kWorkspaceHeader = 32768;
 
 struct StatusWorkspace {
@@ -74,8 +86,10 @@ struct StatusWorkspace {
 };
 static_assert(sizeof(StatusWorkspace) <= kWorkspaceHeader, "the header outgrew its bytes");
 
-__device__ __forceinline__ unsigned int* candidates_of(StatusWorkspace* ws) {
-  return (unsigned int*)((char*)ws + kWorkspaceHeader);
+// sequence z's header
+template <class W>
+__device__ __forceinline__ W* workspace_of(W* ws) {
+  return (W*)((char*)ws + (size_t)blockIdx.z * kWorkspaceHeader);
 }
 
 // lanes of a warp that share a bin add once
@@ -144,6 +158,9 @@ __device__ __forceinline__ bool last_block(StatusWorkspace* ws, bool* last) {
 __global__ void __launch_bounds__(kSelectThreads)
 count_kernel(const float* __restrict__ energy, const unsigned char* __restrict__ ok,
              int groups, float quantile, StatusWorkspace* __restrict__ ws) {
+  energy = seq::at(energy, blockIdx.z, groups);
+  ok = seq::at(ok, blockIdx.z, groups);
+  ws = workspace_of(ws);
   __shared__ unsigned int hist[kBins];
   __shared__ uint2 warp_sums[kSelectThreads / 32];
   __shared__ int picked[2][2];
@@ -216,7 +233,19 @@ __global__ void __launch_bounds__(kSelectThreads)
 collect_kernel(const float* __restrict__ energy, const unsigned char* __restrict__ ok,
                int groups, float quantile, float sigma, const float* __restrict__ t_lin_q,
                const float* __restrict__ t_lin_t, const float* __restrict__ eps, int k,
-               StatusWorkspace* __restrict__ ws, float* __restrict__ thresh) {
+               StatusWorkspace* __restrict__ ws, unsigned int* __restrict__ cand,
+               float* __restrict__ thresh, const int* __restrict__ state_seq) {
+  {
+    const int z = blockIdx.z, ss = seq::of(state_seq);
+    energy = seq::at(energy, z, groups);
+    ok = seq::at(ok, z, groups);
+    t_lin_q = seq::at(t_lin_q, ss, 4 * k);
+    t_lin_t = seq::at(t_lin_t, ss, 3 * k);
+    eps = seq::at(eps, ss, 8 * k);
+    ws = workspace_of(ws);
+    cand = seq::at(cand, z, (size_t)groups);
+    thresh = seq::at(thresh, z, 1);
+  }
   constexpr int kLowBins = 1024;  // the bottom digit: bits 0..9
   constexpr int kChunk = 8;       // candidates a thread loads at once
   __shared__ unsigned int low[2][kLowBins];
@@ -228,7 +257,6 @@ collect_kernel(const float* __restrict__ energy, const unsigned char* __restrict
   __shared__ bool last;
   __shared__ Vec3 pos[kMaxFrames];
   const int tid = threadIdx.x;
-  unsigned int* cand = candidates_of(ws);
   const unsigned int top0 = __ldcg(&ws->prefix[0]), top1 = __ldcg(&ws->prefix[1]);
   const bool parted_top = top0 != top1;
   const unsigned int known = ~0u << kTopShift;
@@ -369,7 +397,27 @@ status_kernel(const float* __restrict__ energy, const unsigned char* __restrict_
               const int* __restrict__ old_opt_count, int k, int n, int min_valid,
               int* __restrict__ new_status, float* __restrict__ baseline,
               int* __restrict__ inliers, unsigned char* __restrict__ outlier,
-              int* __restrict__ opt_count) {
+              int* __restrict__ opt_count, const int* __restrict__ bank_seq,
+              const int* __restrict__ state_seq) {
+  {
+    const int z = blockIdx.z, sb = seq::of(bank_seq), ss = seq::of(state_seq);
+    const size_t kn = (size_t)k * n, groups = kn * k;
+    energy = seq::at(energy, z, groups);
+    ok = seq::at(ok, z, groups);
+    candidate = seq::at(candidate, z, groups);
+    thresh = seq::at(thresh, z, 1);
+    ws = workspace_of(ws);
+    lm_idepth = seq::at(lm_idepth, ss, kn);
+    lm_mask = seq::at(lm_mask, ss, kn);
+    old_baseline = seq::at(old_baseline, sb, kn);
+    old_outlier = seq::at(old_outlier, sb, kn);
+    old_opt_count = seq::at(old_opt_count, sb, kn);
+    new_status = seq::at(new_status, z, groups);
+    baseline = seq::at(baseline, z, kn);
+    inliers = seq::at(inliers, z, kn);
+    outlier = seq::at(outlier, z, kn);
+    opt_count = seq::at(opt_count, z, kn);
+  }
   constexpr int kTargets = (kMaxFrames + kStatusWarps - 1) / kStatusWarps;
   __shared__ float rel[kMaxFrames][32];
   __shared__ unsigned char inl[kMaxFrames][32];
@@ -425,12 +473,16 @@ status_kernel(const float* __restrict__ energy, const unsigned char* __restrict_
 // status_candidate [k,k,n] int32.  Window: t_lin_q [k,4], t_lin_t [k,3], eps
 // [k,8], lm_idepth [k,n], lm_mask [k,n] u8 (valid landmark of a valid
 // frame), lm_baseline [k,n], lm_outlier [k,n] u8, lm_opt_count [k,n] int32.
-// workspace: workspace_bytes >= 32768 + 4 k k n bytes of device memory (the
-// header, then the candidates), zero before the first launch on its stream
-// (each launch leaves it so).  Outputs: thresh [1], res_status [k,k,n] int32,
+// workspace: workspace_bytes >= 32768 bytes of device memory a sequence (its
+// header), zero before the first launch on its stream (each launch leaves it
+// so); candidates: k k n words a sequence, any contents.  Outputs: thresh [1], res_status [k,k,n] int32,
 // baseline [k,n], inliers [k,n] int32, outlier [k,n] u8, opt_count [k,n]
-// int32.  Returns cudaErrorInvalidValue (1) for k above 40 or a smaller
-// workspace.
+// int32.  Sequence axis (seq_axis.cuh): `seqs` sequences, grid z, each with
+// its header and its candidates; lm_baseline,
+// lm_outlier and lm_opt_count are [B, ...] stacks read at bank_seq[z], the
+// poses, eps, lm_idepth and lm_mask at state_seq[z] (null lists: z); the
+// evaluation and the outputs are [seqs, ...] at z.  Returns
+// cudaErrorInvalidValue (1) for k above 40 or a smaller workspace.
 extern "C" int ba_point_status(const float* energy, const unsigned char* ok,
                                const int* candidate, const float* t_lin_q,
                                const float* t_lin_t, const float* eps,
@@ -438,21 +490,26 @@ extern "C" int ba_point_status(const float* energy, const unsigned char* ok,
                                const float* old_baseline, const unsigned char* old_outlier,
                                const int* old_opt_count, int k, int n, float quantile,
                                float sigma, int min_valid, void* workspace,
-                               int workspace_bytes, float* thresh, int* new_status,
+                               int workspace_bytes, unsigned int* candidates, float* thresh,
+                               int* new_status,
                                float* baseline, int* inliers, unsigned char* outlier,
-                               int* opt_count, void* stream) {
-  if (k < 1 || k > kMaxFrames || n < 1 || workspace == nullptr ||
-      (size_t)workspace_bytes < (size_t)kWorkspaceHeader + 4 * (size_t)k * k * n)
+                               int* opt_count, int seqs, const int* bank_seq,
+                               const int* state_seq, void* stream) {
+  if (k < 1 || k > kMaxFrames || n < 1 || workspace == nullptr || candidates == nullptr ||
+      !seq::valid_count(seqs) || (size_t)workspace_bytes < (size_t)kWorkspaceHeader * seqs)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   StatusWorkspace* ws = (StatusWorkspace*)workspace;
   const int groups = k * k * n;
   const int blocks = (groups + kSelectGroups - 1) / kSelectGroups;
-  count_kernel<<<blocks, kSelectThreads, 0, s>>>(energy, ok, groups, quantile, ws);
-  collect_kernel<<<blocks + 1, kSelectThreads, 0, s>>>(energy, ok, groups, quantile, sigma,
-                                                       t_lin_q, t_lin_t, eps, k, ws, thresh);
-  status_kernel<<<k * ((n + 31) / 32), kStatusWarps * 32, 0, s>>>(
+  count_kernel<<<dim3(blocks, 1, seqs), kSelectThreads, 0, s>>>(energy, ok, groups, quantile,
+                                                                ws);
+  collect_kernel<<<dim3(blocks + 1, 1, seqs), kSelectThreads, 0, s>>>(
+      energy, ok, groups, quantile, sigma, t_lin_q, t_lin_t, eps, k, ws, candidates, thresh,
+      state_seq);
+  status_kernel<<<dim3(k * ((n + 31) / 32), 1, seqs), kStatusWarps * 32, 0, s>>>(
       energy, ok, candidate, thresh, ws, lm_idepth, lm_mask, old_baseline, old_outlier,
-      old_opt_count, k, n, min_valid, new_status, baseline, inliers, outlier, opt_count);
+      old_opt_count, k, n, min_valid, new_status, baseline, inliers, outlier, opt_count,
+      bank_seq, state_seq);
   return (int)cudaGetLastError();
 }

@@ -51,10 +51,16 @@
 //  3. fold_out_kernel, one thread per entry of the new ledger: its source
 //     entry and the transposed one, each less its correction, their mean,
 //     and b.
+// Sequence axis (seq_axis.cuh): every kernel has grid z a sequence (one
+// solve block each); the window's eps, affine0, frame flags and ledger are
+// [B, ...] stacks read at `seq[z]`, the system, the energy, perm, the scratch
+// and the outputs [S, ...] at z.
 
 #include <cuda_runtime.h>
 #include <float.h>
 #include <math.h>
+
+#include "seq_axis.cuh"
 
 namespace {
 
@@ -189,6 +195,12 @@ struct Scratch {
   }
 };
 
+// a sequence's scratch words: solvers/pba.py::_marg_scratch_words
+__device__ __forceinline__ size_t scratch_words(int k) {
+  const size_t kb = (size_t)k * kBlock, n = (size_t)(k - 1) * kBlock;
+  return kb * kb + 3 * kb + 5 * n * n + kb * n;
+}
+
 // steps 0-2 for the 8 rows of one frame slot
 __global__ void __launch_bounds__(kFoldThreads)
 fold_kernel(const float* __restrict__ h_pose, const float* __restrict__ b_pose,
@@ -197,7 +209,23 @@ fold_kernel(const float* __restrict__ h_pose, const float* __restrict__ b_pose,
             const unsigned char* __restrict__ valid, const unsigned char* __restrict__ fixed,
             const unsigned char* __restrict__ marg, const double* __restrict__ h_marg,
             const double* __restrict__ b_marg, int k, float fixed_reg, float reg_a,
-            float reg_b, double* __restrict__ scratch) {
+            float reg_b, double* __restrict__ scratch, const int* __restrict__ bank_seq) {
+  {
+    const int z = blockIdx.z, sb = seq::of(bank_seq);
+    const size_t kb = (size_t)k * kBlock;
+    h_pose = seq::at(h_pose, z, kb * kb);
+    b_pose = seq::at(b_pose, z, kb);
+    h_schur = seq::at(h_schur, z, kb * kb);
+    b_schur = seq::at(b_schur, z, kb);
+    eps = seq::at(eps, sb, kb);
+    affine0 = seq::at(affine0, sb, 2 * (size_t)k);
+    valid = seq::at(valid, sb, k);
+    fixed = seq::at(fixed, sb, k);
+    marg = seq::at(marg, sb, k);
+    h_marg = seq::at(h_marg, sb, kb * kb);
+    b_marg = seq::at(b_marg, sb, kb);
+    scratch = seq::at(scratch, z, scratch_words(k));
+  }
   __shared__ float row_pts[kBlock][kMaxRows];   // H_pts[i, j], i of the slot
   __shared__ float col_pts[kBlock][kMaxRows];   // H_pts[j, i]
   __shared__ float s[kMaxRows];
@@ -398,7 +426,18 @@ marg_solve_kernel(const float* __restrict__ e_land, const float* __restrict__ ep
                   const unsigned char* __restrict__ valid, const unsigned char* __restrict__ marg,
                   const double* __restrict__ e_marg, int k, double rtol, int a_shared,
                   int v_shared, double* __restrict__ scratch, double* __restrict__ e_out,
-                  int* __restrict__ sweeps_out) {
+                  int* __restrict__ sweeps_out, const int* __restrict__ bank_seq) {
+  {
+    const int z = blockIdx.z, sb = seq::of(bank_seq);
+    e_land = seq::at(e_land, z, 1);
+    eps = seq::at(eps, sb, (size_t)k * kBlock);
+    valid = seq::at(valid, sb, k);
+    marg = seq::at(marg, sb, k);
+    e_marg = seq::at(e_marg, sb, 1);
+    scratch = seq::at(scratch, z, scratch_words(k));
+    e_out = seq::at(e_out, z, 1);
+    sweeps_out = seq::at(sweeps_out, z, 1);
+  }
   extern __shared__ double smem[];
   __shared__ Frames fr;
   __shared__ double cs[kMaxRows / 2], sn[kMaxRows / 2], tn[kMaxRows / 2];
@@ -538,7 +577,18 @@ marg_solve_kernel(const float* __restrict__ e_land, const float* __restrict__ ep
 __global__ void __launch_bounds__(kOutThreads)
 fold_out_kernel(const unsigned char* __restrict__ valid, const unsigned char* __restrict__ marg,
                 const long long* __restrict__ perm, int k, const double* __restrict__ scratch,
-                double* __restrict__ h_out, double* __restrict__ b_out) {
+                double* __restrict__ h_out, double* __restrict__ b_out,
+                const int* __restrict__ bank_seq) {
+  {
+    const int z = blockIdx.z, sb = seq::of(bank_seq);
+    const size_t kb = (size_t)k * kBlock;
+    valid = seq::at(valid, sb, k);
+    marg = seq::at(marg, sb, k);
+    perm = seq::at(perm, z, k);
+    scratch = seq::at(scratch, z, scratch_words(k));
+    h_out = seq::at(h_out, z, kb * kb);
+    b_out = seq::at(b_out, z, kb);
+  }
   __shared__ Frames fr;
   const int rows = k * kBlock, nmax = (k - 1) * kBlock;
   const double* hm = scratch;
@@ -657,8 +707,12 @@ extern "C" int marg_fold_op_latency(long long* out) {
 // 5·n² + 8k·n with n = 8(k − 1).  Outputs: the new ledger h_out [8k,8k],
 // b_out [8k], e_out [1] (f64), all NaN when all k slots are flagged; and,
 // unless sweeps is null, sweeps [1] int32: the Jacobi sweeps that rotated
-// (40, the limit, when the decomposition did not converge).
-// Returns cudaErrorInvalidValue (1) for k outside 2..40.
+// (40, the limit, when the decomposition did not converge).  Sequence axis
+// (seq_axis.cuh): `seqs` sequences, grid z; eps, affine0, the frame flags
+// and the ledger are [B, ...] stacks read at seq_list[z] (null: z); the
+// system, e_land, perm, the scratch (seqs times its words) and the outputs
+// are [seqs, ...] at z.  Returns cudaErrorInvalidValue (1) for k outside
+// 2..40.
 extern "C" int marg_fold(const float* h_pose, const float* b_pose, const float* h_schur,
                          const float* b_schur, const float* e_land, const float* eps,
                          const float* affine0, const unsigned char* frame_valid,
@@ -666,8 +720,9 @@ extern "C" int marg_fold(const float* h_pose, const float* b_pose, const float* 
                          const long long* perm, const double* h_marg, const double* b_marg,
                          const double* e_marg, int k, double rtol, float fixed_reg,
                          float reg_a, float reg_b, double* scratch, double* h_out,
-                         double* b_out, double* e_out, int* sweeps, void* stream) {
-  if (k < 2 || k > kMaxFrames) return (int)cudaErrorInvalidValue;
+                         double* b_out, double* e_out, int* sweeps, int seqs,
+                         const int* seq_list, void* stream) {
+  if (k < 2 || k > kMaxFrames || !seq::valid_count(seqs)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const int rows = k * kBlock, nmax = (k - 1) * kBlock;
   const size_t mat = (size_t)nmax * nmax * sizeof(double);
@@ -679,17 +734,17 @@ extern "C" int marg_fold(const float* h_pose, const float* b_pose, const float* 
   const cudaError_t err = cudaFuncSetAttribute(
       marg_solve_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
-  fold_kernel<<<k, kFoldThreads, 0, s>>>(h_pose, b_pose, h_schur, b_schur, eps, affine0,
-                                         frame_valid, frame_fixed, frame_marg, h_marg, b_marg,
-                                         k, fixed_reg, reg_a, reg_b, scratch);
+  fold_kernel<<<dim3(k, 1, seqs), kFoldThreads, 0, s>>>(
+      h_pose, b_pose, h_schur, b_schur, eps, affine0, frame_valid, frame_fixed, frame_marg,
+      h_marg, b_marg, k, fixed_reg, reg_a, reg_b, scratch, seq_list);
   cudaError_t launched = cudaGetLastError();
   if (launched != cudaSuccess) return (int)launched;
-  marg_solve_kernel<<<1, kSolveThreads, bytes, s>>>(e_land, eps, frame_valid, frame_marg,
-                                                    e_marg, k, rtol, a_shared, v_shared,
-                                                    scratch, e_out, sweeps);
+  marg_solve_kernel<<<dim3(1, 1, seqs), kSolveThreads, bytes, s>>>(
+      e_land, eps, frame_valid, frame_marg, e_marg, k, rtol, a_shared, v_shared, scratch, e_out,
+      sweeps, seq_list);
   launched = cudaGetLastError();
   if (launched != cudaSuccess) return (int)launched;
-  fold_out_kernel<<<(rows * rows + kOutThreads - 1) / kOutThreads, kOutThreads, 0, s>>>(
-      frame_valid, frame_marg, perm, k, scratch, h_out, b_out);
+  fold_out_kernel<<<dim3((rows * rows + kOutThreads - 1) / kOutThreads, 1, seqs), kOutThreads,
+                    0, s>>>(frame_valid, frame_marg, perm, k, scratch, h_out, b_out, seq_list);
   return (int)cudaGetLastError();
 }

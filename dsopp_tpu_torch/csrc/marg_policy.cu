@@ -35,11 +35,14 @@
 // order (the exclusive count of candidates and the kept-first order by
 // ballots, the first argmax by one lane) and writes perm; then every thread
 // combines its held terms with the flags and writes its entries.  Nothing
-// is read on the host.
+// is read on the host.  Sequence axis (seq_axis.cuh): grid z is a sequence,
+// one block each; the window's fields and the immature mask are [B, ...]
+// stacks read at `seq[z]`, the outputs [S, ...] at z.
 
 #include <stdint.h>
 
 #include "ba_body.cuh"
+#include "seq_axis.cuh"
 
 namespace {
 
@@ -107,7 +110,27 @@ policy_kernel(const unsigned char* __restrict__ frame_valid,
               const float* __restrict__ eps, const unsigned char* __restrict__ imm_valid,
               int k, int n, int m, int minimum_size, int maximum_size, float keep_fraction,
               unsigned char* __restrict__ frame_flags, unsigned char* __restrict__ lm_flags,
-              unsigned char* __restrict__ new_outliers, long long* __restrict__ perm) {
+              unsigned char* __restrict__ new_outliers, long long* __restrict__ perm,
+              const int* __restrict__ bank_seq) {
+  {
+    const int z = blockIdx.z, sb = seq::of(bank_seq);
+    const size_t kn = (size_t)k * n;
+    frame_valid = seq::at(frame_valid, sb, k);
+    lm_valid = seq::at(lm_valid, sb, kn);
+    lm_outlier = seq::at(lm_outlier, sb, kn);
+    lm_inliers = seq::at(lm_inliers, sb, kn);
+    lm_opt_count = seq::at(lm_opt_count, sb, kn);
+    frame_id = seq::at(frame_id, sb, k);
+    res_status = seq::at(res_status, sb, kn * k);
+    t_lin_q = seq::at(t_lin_q, sb, 4 * k);
+    t_lin_t = seq::at(t_lin_t, sb, 3 * k);
+    eps = seq::at(eps, sb, 8 * k);
+    imm_valid = seq::at(imm_valid, sb, (size_t)k * m);
+    frame_flags = seq::at(frame_flags, z, k);
+    lm_flags = seq::at(lm_flags, z, kn);
+    new_outliers = seq::at(new_outliers, z, kn);
+    perm = seq::at(perm, z, k);
+  }
   __shared__ float pos[kMaxFrames][3];
   __shared__ int ids[kMaxFrames];
   __shared__ unsigned char valid[kMaxFrames];
@@ -259,7 +282,9 @@ policy_kernel(const unsigned char* __restrict__ frame_valid,
 // lm_inliers, lm_opt_count [k,n] int32, frame_id [k] int32, res_status
 // [k,k,n] int32, t_lin_q [k,4], t_lin_t [k,3], eps [k,8]; imm_valid [k,m] u8
 // (the immature banks' valid mask).  Outputs: frame_flags [k] u8, lm_flags,
-// new_outliers [k,n] u8, perm [k] int64.  Returns cudaErrorInvalidValue (1)
+// new_outliers [k,n] u8, perm [k] int64.  Sequence axis (seq_axis.cuh):
+// `seqs` sequences, grid z; the inputs are [B, ...] stacks read at seq[z]
+// (null: z), the outputs [seqs, ...] at z.  Returns cudaErrorInvalidValue (1)
 // for k above 40.
 extern "C" int marg_policy(const unsigned char* frame_valid, const unsigned char* lm_valid,
                            const unsigned char* lm_outlier, const int* lm_inliers,
@@ -268,11 +293,13 @@ extern "C" int marg_policy(const unsigned char* frame_valid, const unsigned char
                            const float* eps, const unsigned char* imm_valid, int k, int n,
                            int m, int minimum_size, int maximum_size, float keep_fraction,
                            unsigned char* frame_flags, unsigned char* lm_flags,
-                           unsigned char* new_outliers, long long* perm, void* stream) {
-  if (k < 1 || k > kMaxFrames || n < 0 || m < 0) return (int)cudaErrorInvalidValue;
-  policy_kernel<<<1, kThreads, 0, (cudaStream_t)stream>>>(
+                           unsigned char* new_outliers, long long* perm, int seqs,
+                           const int* seq_list, void* stream) {
+  if (k < 1 || k > kMaxFrames || n < 0 || m < 0 || !seq::valid_count(seqs))
+    return (int)cudaErrorInvalidValue;
+  policy_kernel<<<dim3(1, 1, seqs), kThreads, 0, (cudaStream_t)stream>>>(
       frame_valid, lm_valid, lm_outlier, lm_inliers, lm_opt_count, frame_id, res_status,
       t_lin_q, t_lin_t, eps, imm_valid, k, n, m, minimum_size, maximum_size, keep_fraction,
-      frame_flags, lm_flags, new_outliers, perm);
+      frame_flags, lm_flags, new_outliers, perm, seq_list);
   return (int)cudaGetLastError();
 }

@@ -207,34 +207,42 @@ FLOW = Kernel("flow_statistic", "flow_statistic",
               [_P, _P, _P, _I, _I, _P, _P] + [_F] * 7 + [_P] * 4
               + [_I, _P, _I, _F, _P, _P, _I, _P])
 FLOW_WORKSPACE_BYTES = 2048      # >= sizeof(FlowWorkspace) in csrc/flow.cu, a sequence
+# K7-K11, K15p and K15 take a sequence axis (csrc/seq_axis.cuh): after their
+# outputs, the number of sequences S and the [S] int32 list of the stacked
+# window's sequences (null: one sequence, or every sequence in order); K7,
+# K8, K9 and K11 also take the list their state is read at (null: the
+# launch's own state, at each sequence's position)
+_SEQ = [_I, _P]
+_SEQ_STATE = [_I, _P, _P]
 # K7-K9 take the LM loop's state (or None) before their outputs; K7 writes and
 # K8 reads one of the loop's two evaluation buffers (buffer 0 without a
 # state); K8 forms the first-estimate Jacobians itself (once kernel K6's cache)
 BA_EVALUATE = Kernel("ba_evaluate", "ba_evaluate",
-                     [_P] * 12 + [_I] * 6 + [_F] * 7 + [_P] * 16)
+                     [_P] * 12 + [_I] * 6 + [_F] * 7 + [_P] * 16 + _SEQ_STATE)
 BA_LINEARIZE = Kernel("ba_linearize_schur", "ba_linearize_schur",
                       [_P] * 7 + [_F] * 6 + [_P] * 14 + [_I] * 4 + [_F] * 5 + [_I]
-                      + [_P] * 11)
+                      + [_P] * 11 + _SEQ_STATE)
 BA_SOLVE = Kernel("ba_solve_step", "ba_solve_step",
-                  [_P] * 12 + [_I, _I, _F, _I] + [_P] * 7)
+                  [_P] * 12 + [_I, _I, _F, _I] + [_P] * 7 + _SEQ_STATE)
 # K10 takes the trial's landmark sums, reduced over the landmark shards, or a
-# null pointer (it sums the trial itself)
-BA_LM = Kernel("ba_lm", "ba_lm", [_I] * 6 + [_F] * 7 + [_P] * 29)
-# K11: its workspace (ticket, counts, histogram, selection, then the
-# candidates) before its outputs
+# null pointer (it sums the trial itself), and the rows of a sequence's log
+BA_LM = Kernel("ba_lm", "ba_lm", [_I] * 6 + [_F] * 7 + [_P] * 29 + [_I] + _SEQ)
+# K11: its workspace (ticket, counts, histogram, selection: a header a
+# sequence) and its candidates before its outputs
 BA_STATUS = Kernel("ba_point_status", "ba_point_status",
-                   [_P] * 11 + [_I, _I, _F, _F, _I] + [_P, _I] + [_P] * 6)
-# the header of K11's workspace: csrc/ba_status.cu kWorkspaceHeader (>= its
-# StatusWorkspace); 4 bytes a (anchor, target, landmark) group follow it
+                   [_P] * 11 + [_I, _I, _F, _F, _I] + [_P, _I, _P] + [_P] * 6 + _SEQ_STATE)
+# a sequence's header in K11's workspace: csrc/ba_status.cu kWorkspaceHeader
+# (>= its StatusWorkspace); its candidates, 4 bytes a (anchor, target,
+# landmark) group, lie in a scratch buffer
 STATUS_WORKSPACE_BYTES = 32768
 # the whole windowed-BA solve in one C call (csrc/ba_lm.cu): K7, K10's init,
 # the iterations' K8, K9, K7 and K10, K10's finish, K7 and K11, in the order of
-# csrc/ba_lm.cu::SolveStep; its last argument is a host array of the calls it
-# made to each entry (csrc/ba_lm.cu::SolveCount)
+# csrc/ba_lm.cu::SolveStep, for S sequences; its last argument is a host array
+# of the calls it made to each entry (csrc/ba_lm.cu::SolveCount)
 BA_SOLVE_LOOP = Kernel("ba_solve_loop", "ba_solve_loop",
                        [_P] * 17 + [_I] + [_P] * 3 + [_I] * 5 + [_F] * 6 + [_I] * 3
                        + [_F] * 13 + [_I] + [_P] * 22 + [_I] + [_P] * 10 + [_I] + [_P] * 11
-                       + [_I] + [_P] * 7,
+                       + [_I] + [_P] * 7 + _SEQ + [_P],
                        steps=("its arguments", "ba_evaluate (initial)", "ba_lm (init)",
                               "ba_linearize_schur", "ba_solve_step", "ba_evaluate (trial)",
                               "ba_lm (step)", "ba_lm (finish)", "ba_evaluate (final)",
@@ -258,10 +266,10 @@ DEPTH_MAPS = Kernel("depth_maps", "depth_maps",
                     [_P] * 8 + [_I, _I] + [_F] * 6 + [_I] * 5 + [_P] * 20)
 # K15: the marginalization policy and the ledger fold, once per keyframe each
 MARG_POLICY = Kernel("marg_policy", "marg_policy",
-                     [_P] * 11 + [_I] * 5 + [_F] + [_P] * 4)
+                     [_P] * 11 + [_I] * 5 + [_F] + [_P] * 4 + _SEQ)
 # K15 takes K8's marginalization-pass system raw (the priors subtracted inside)
 MARG_FOLD = Kernel("marg_fold", "marg_fold",
-                   [_P] * 14 + [_I, _D, _F, _F, _F] + [_P] * 5)
+                   [_P] * 14 + [_I, _D, _F, _F, _F] + [_P] * 5 + _SEQ)
 # the row gather of the Pallas design probe (off the tracker's paths)
 ROW_GATHER = Kernel("row_gather", "row_gather", [_P, _P, _I, _I, _I, _P])
 # K18: the camera's frame intake (the upload from pinned memory, the remap,

@@ -40,7 +40,9 @@ from dsopp_tpu_torch.parallel.shard_map_ba import (LM_FIELDS, RES_FIELDS,
                                                    solve_loop_shard_map)
 from dsopp_tpu_torch.solvers.pba import (PBAOptions, Window, _energy, _marginalize_device,
                                          _pba_iteration, _solve_loop_device, active_lm_mask,
-                                         slot_mask)
+                                         marginalize_sequences, sequence_list, slot_mask,
+                                         solve_loop_sequences, stack_size, stack_windows,
+                                         window_at)
 
 
 def window_pspec(batched: bool = True) -> dict:
@@ -60,19 +62,6 @@ def window_pspec(batched: bool = True) -> dict:
     return spec
 
 
-def stack_windows(windows) -> Window:
-    """Stack same-shape Windows on a new leading axis."""
-    return Window(**{f.name: (None if getattr(windows[0], f.name) is None else
-                              torch.stack([getattr(w, f.name) for w in windows]))
-                     for f in dataclasses.fields(Window)})
-
-
-def _window_at(windows: Window, b: int) -> Window:
-    return Window(**{f.name: (None if getattr(windows, f.name) is None else
-                              getattr(windows, f.name)[b])
-                     for f in dataclasses.fields(Window)})
-
-
 def _local_sequences(batch: int, mesh: Mesh) -> range:
     """This rank's share of B sequences: its ``seq`` coordinate's block."""
     if batch % mesh.num_seq:
@@ -84,7 +73,7 @@ def _local_sequences(batch: int, mesh: Mesh) -> range:
 def shard_windows(windows: Window, mesh: Mesh) -> Window:
     """This rank's part of a stacked Window (leading B axis): its ``seq``
     coordinate's sequences, each as its ``lm`` coordinate's landmark shard."""
-    return stack_windows([place_window(_window_at(windows, b), mesh)
+    return stack_windows([place_window(window_at(windows, b), mesh)
                           for b in _local_sequences(windows.t_lin_q.shape[0], mesh)])
 
 
@@ -111,7 +100,7 @@ def batched_train_step(windows: Window, model, regularizer, opts: PBAOptions = P
     batch = windows.t_lin_q.shape[0]
     outs = []
     for b in range(batch):
-        window = _window_at(windows, b)
+        window = window_at(windows, b)
         if mesh is None:
             outs.append(_single_step(window, model, regularizer, opts))
         else:
@@ -158,14 +147,42 @@ def marginalize_slot(window: Window, model, opts: PBAOptions = PBAOptions(),
     return marginalize_shard_map(window, model, perm, opts, mesh)
 
 
+def solve_and_marginalize_sequences(windows: Window, model, opts: PBAOptions = PBAOptions(),
+                                    seqs=None):
+    """:func:`solve_and_marginalize` of the sequences ``seqs`` (a host list;
+    None: all) of a stacked window, one process, in one solve call and one
+    fold call for all of them (on the card each kernel one launch for the S
+    sequences) → (the S windows', a [S] stack of new tensors, energy [S],
+    num_valid [S])."""
+    from dsopp_tpu_torch.tracker.marginalization import kept_first_perm
+
+    batch = stack_size(windows)
+    seqs = sequence_list(seqs, batch)
+    solved, energy, n_valid = solve_loop_sequences(windows, model, opts, seqs)
+    if seqs != tuple(range(batch)):
+        windows = stack_windows([window_at(windows, b) for b in seqs])
+    k = windows.t_lin_q.shape[1]
+    frame_flags = slot_mask(k, MARGINALIZED_SLOT, windows.frame_valid.device).expand(
+        len(seqs), k).contiguous()
+    windows = windows.replace(**solved, frame_marg=frame_flags,
+                              lm_marg_flag=windows.lm_valid & frame_flags[..., None])
+    perm = kept_first_perm(windows.frame_valid, frame_flags)
+    return marginalize_sequences(windows, model, perm, opts), energy, n_valid
+
+
 def batched_solve_and_marginalize(windows: Window, model, opts: PBAOptions = PBAOptions(),
                                   mesh: Mesh = None):
     """:func:`solve_and_marginalize` over a batch of sequences, the JAX tests'
     ``jax.vmap`` of it → (stacked windows', energy [B], num_valid [B]).
-    Without ``mesh``: ``windows`` holds all B sequences.  With one:
-    ``windows`` is this rank's part (:func:`shard_windows`), and so are the
-    results (the landmark fields: its shard)."""
-    outs = [solve_and_marginalize(_window_at(windows, b), model, opts, mesh)
+    Without ``mesh``, or on a mesh without landmark shards: ``windows`` holds
+    this process's sequences, solved in one call and folded in one call
+    (:func:`solve_and_marginalize_sequences`).  With ``lm`` ranks:
+    ``windows`` is this rank's part (:func:`shard_windows`), each sequence
+    solved and folded across the rank's ``lm`` group, and the results are
+    its part too (the landmark fields: its shard)."""
+    if mesh is None or mesh.num_lm == 1:
+        return solve_and_marginalize_sequences(windows, model, opts)
+    outs = [solve_and_marginalize(window_at(windows, b), model, opts, mesh)
             for b in range(windows.t_lin_q.shape[0])]
     return (stack_windows([w for w, _, _ in outs]), torch.stack([e for _, e, _ in outs]),
             torch.stack([n for _, _, n in outs]))

@@ -49,6 +49,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -258,21 +259,22 @@ def _patch_ref(window: Window):
     return window.lm_patch.reshape(k, n, window.num_channels, PATTERN_SIZE)
 
 
-def _check_window(window: Window):
-    """Validate the window tensors the BA kernels read → (k, n, h, w)."""
-    k, n = window.num_slots, window.num_landmark_slots
-    c = window.num_channels
-    check = kernels.check
-    check(window.maps, "maps", (k, 3) + tuple(window.maps.shape[-2:]))
-    check(window.channel_bank, "channel bank", (k, 3 * c) + tuple(window.maps.shape[-2:]))
-    check(window.t_lin_q, "t_lin_q", (k, 4))
-    check(window.t_lin_t, "t_lin_t", (k, 3))
-    check(window.affine0, "affine0", (k, 2))
-    check(window.exposure, "exposure", (k,))
-    check(window.lm_uv, "lm_uv", (k, n, 2))
-    check(window.lm_idepth, "lm_idepth", (k, n))
-    check(window.lm_patch, "lm_patch", (k, n, 8 * c))
+def _check_window(window: Window, lead: tuple = ()):
+    """Validate the window tensors the BA kernels read → (k, n, h, w).
+    ``lead``: the leading axes of a stacked window ((B,)), none for one."""
+    k, n = window.t_lin_q.shape[-2], window.lm_uv.shape[-2]
+    c = window.channel_bank.shape[-3] // 3
     h, w = window.maps.shape[-2:]
+    check = kernels.check
+    check(window.maps, "maps", lead + (k, 3, h, w))
+    check(window.channel_bank, "channel bank", lead + (k, 3 * c, h, w))
+    check(window.t_lin_q, "t_lin_q", lead + (k, 4))
+    check(window.t_lin_t, "t_lin_t", lead + (k, 3))
+    check(window.affine0, "affine0", lead + (k, 2))
+    check(window.exposure, "exposure", lead + (k,))
+    check(window.lm_uv, "lm_uv", lead + (k, n, 2))
+    check(window.lm_idepth, "lm_idepth", lead + (k, n))
+    check(window.lm_patch, "lm_patch", lead + (k, n, 8 * c))
     return k, n, h, w
 
 
@@ -343,13 +345,14 @@ def _huber_sigma(channels: int, opts: PBAOptions) -> float:
     return opts.huber_sigma * float(channels) ** 0.5
 
 
-def _evaluation_buffers(k: int, n: int, c: int, dtype, device) -> Evaluation:
+def _evaluation_buffers(k: int, n: int, c: int, dtype, device, lead: tuple = ()) -> Evaluation:
+    """K7's outputs (``lead``: the sequence axis of a launch of several)."""
     kw = dict(dtype=dtype, device=device)
-    return Evaluation(torch.empty((k, k, n, c, 8), **kw), torch.empty((k, k, n), **kw),
-                      torch.empty((k, k, n), **kw),
-                      torch.empty((k, k, n), dtype=torch.int32, device=device),
-                      torch.empty((k, k, n, c, 8), **kw), torch.empty((k, k, n, c, 8), **kw),
-                      torch.empty((k, k, n), dtype=torch.bool, device=device))
+    g = lead + (k, k, n)
+    return Evaluation(torch.empty(g + (c, 8), **kw), torch.empty(g, **kw),
+                      torch.empty(g, **kw), torch.empty(g, dtype=torch.int32, device=device),
+                      torch.empty(g + (c, 8), **kw), torch.empty(g + (c, 8), **kw),
+                      torch.empty(g, dtype=torch.bool, device=device))
 
 
 def _evaluate_cuda(window: Window, model, eps, idepth, lm_mask,
@@ -371,12 +374,18 @@ def _evaluate_cuda(window: Window, model, eps, idepth, lm_mask,
 
 
 def _evaluate_launch(window: Window, model, eps, idepth, lm_mask, opts: PBAOptions, state,
-                     ev0: Evaluation, ev1: Evaluation = None, mask=None):
+                     ev0: Evaluation, ev1: Evaluation = None, mask=None, seqs: int = 1,
+                     seq=None, state_seq=None):
     """One launch of kernel K7 on checked tensors: into ``ev0`` without the
     LM loop's ``state``; with it, into the one of ``ev0`` and ``ev1`` that
     the state does not name carried (nothing when the loop is done).
-    ``mask``, where given, receives ``lm_mask & frame_valid``."""
-    k, n, c = window.num_slots, window.num_landmark_slots, window.num_channels
+    ``mask``, where given, receives ``lm_mask & frame_valid``.  ``seqs``
+    sequences (the kernel's grid z): the window's fields and ``lm_mask``
+    are stacks read at ``seq``, ``eps`` and ``idepth`` at ``state_seq``
+    (int32 device lists; None: each sequence's position), the outputs
+    ``[seqs, ...]``."""
+    k, n = window.t_lin_q.shape[-2], window.lm_uv.shape[-2]
+    c = window.channel_bank.shape[-3] // 3
     h, w = window.maps.shape[-2:]
     # channel plane ch of frame f is plane ch of channel_bank[f]
     kernels.BA_EVALUATE(window.t_lin_q, window.t_lin_t, eps, window.affine0,
@@ -384,7 +393,7 @@ def _evaluate_launch(window: Window, model, eps, idepth, lm_mask, opts: PBAOptio
                         window.frame_valid, window.res_status, window.channel_bank,
                         3 * c * h * w, k, n, h, w, c, model.fx, model.fy, model.cx, model.cy,
                         model.width, model.height, _huber_sigma(c, opts), state, *ev0,
-                        *(ev1 or (None,) * len(ev0)), mask)
+                        *(ev1 or (None,) * len(ev0)), mask, seqs, seq, state_seq)
 
 
 def _evaluate(window: Window, model, eps, idepth, lm_mask, opts: PBAOptions) -> Evaluation:
@@ -494,19 +503,21 @@ _LINEARIZE_TILE_LM = 128
 _LINEARIZE_LM_OUT = 10     # kLmOut: a (pair, landmark)'s anchor term, h_dd and b_d
 
 
-def _linearize_buffers(k: int, n: int, dtype, device):
+def _linearize_buffers(k: int, n: int, dtype, device, lead: tuple = ()):
     """What kernel K8 writes → (its scratch (pair_part, lm_part, schur_part),
-    its outputs).  The scratch is 8.4 MB at K = 17, N = 340."""
+    its outputs); ``lead``: the sequence axis of a launch of several.  The
+    scratch is 8.4 MB a sequence at K = 17, N = 340."""
     kb = k * BLOCK
     kw = dict(dtype=dtype, device=device)
     tiles = -(-n // _LINEARIZE_TILE_LM)
-    scratch = (torch.empty((k * k * tiles, 16 * 16 + 16), dtype=torch.float64, device=device),
-               torch.empty((k * k * n, _LINEARIZE_LM_OUT), **kw),
-               torch.empty((k, kb * kb + kb), dtype=torch.float64, device=device))
-    out = LinearSystem(torch.empty((kb, kb), **kw), torch.empty((kb,), **kw),
-                       torch.empty((kb, kb), **kw), torch.empty((kb,), **kw),
-                       torch.empty((k, n, k, BLOCK), **kw), torch.empty((k, n), **kw),
-                       torch.empty((k, n), **kw))
+    f64 = dict(dtype=torch.float64, device=device)
+    scratch = (torch.empty(lead + (k * k * tiles, 16 * 16 + 16), **f64),
+               torch.empty(lead + (k * k * n, _LINEARIZE_LM_OUT), **kw),
+               torch.empty(lead + (k, kb * kb + kb), **f64))
+    out = LinearSystem(torch.empty(lead + (kb, kb), **kw), torch.empty(lead + (kb,), **kw),
+                       torch.empty(lead + (kb, kb), **kw), torch.empty(lead + (kb,), **kw),
+                       torch.empty(lead + (k, n, k, BLOCK), **kw),
+                       torch.empty(lead + (k, n), **kw), torch.empty(lead + (k, n), **kw))
     return scratch, out
 
 
@@ -540,12 +551,16 @@ def _linearize_from_ev_cuda(window: Window, model, ev: Evaluation, eps,
 
 
 def _linearize_launch(window: Window, model, ev0: Evaluation, ev1: Evaluation, eps,
-                      opts: PBAOptions, marg_pass: bool, state, scratch, out: LinearSystem):
+                      opts: PBAOptions, marg_pass: bool, state, scratch, out: LinearSystem,
+                      seqs: int = 1, seq=None, state_seq=None):
     """One launch of kernel K8 on checked tensors, into ``out`` (of
     :func:`_linearize_buffers`): from ``ev0`` without the LM loop's
     ``state``; with it, from the one of ``ev0`` and ``ev1`` that the state
-    names carried (nothing when the loop is done)."""
-    k, n, c = window.num_slots, window.num_landmark_slots, window.num_channels
+    names carried (nothing when the loop is done).  ``seqs``, ``seq`` and
+    ``state_seq`` as :func:`_evaluate_launch` takes them: the evaluation,
+    the scratch and ``out`` are ``[seqs, ...]``."""
+    k, n = window.t_lin_q.shape[-2], window.lm_uv.shape[-2]
+    c = window.channel_bank.shape[-3] // 3
     second = (None,) * 5 if ev1 is None else (ev1.residuals, ev1.weight, ev1.gx, ev1.gy, ev1.ok)
     kernels.BA_LINEARIZE(window.t_lin_q, window.t_lin_t, window.affine0, window.exposure,
                          window.lm_uv, window.lm_idepth, window.lm_patch,
@@ -555,7 +570,8 @@ def _linearize_launch(window: Window, model, ev0: Evaluation, ev1: Evaluation, e
                          int(bool(marg_pass)), float(opts.idepth_nullspace_threshold),
                          float(opts.scale_nullspace_reg), float(opts.fixed_reg),
                          float(opts.affine_reg_a), float(opts.affine_reg_b),
-                         scratch[0].shape[0] // (k * k), state, *scratch, *out)
+                         -(-n // _LINEARIZE_TILE_LM), state, *scratch, *out, seqs, seq,
+                         state_seq)
 
 
 def _linearize_from_ev(window: Window, model, ev: Evaluation, eps,
@@ -678,7 +694,8 @@ def _solve_step_launch(window: Window, sys: LinearSystem, eps, idepth, lam, lm_s
     kernels.BA_SOLVE(sys.h_pose, sys.b_pose, sys.h_schur, sys.b_schur, window.h_marg,
                      window.b_marg, eps, idepth, window.frame_valid, sys.hpd, sys.inv_hdd,
                      sys.b_d, k, n, 0.0 if lam is None else float(lam), d_part.shape[0],
-                     lm_state, step, d_part, system, eps_new, idepth_new, step_sq)
+                     lm_state, step, d_part, system, eps_new, idepth_new, step_sq, 1, None,
+                     None)
     return eps_new, idepth_new, step_sq
 
 
@@ -862,7 +879,7 @@ def _lm_phase(phase: int, row: int, window: Window, opts: PBAOptions, trial_eps,
                   window.frame_valid, window.h_marg, window.b_marg, window.energy_marg,
                   trial_eps, trial_idepth, step_sq, ev0.energy_patch, ev0.status_candidate,
                   ev1.energy_patch, ev1.status_candidate, reduced, *start, *carried, state,
-                  lm_log, *out)
+                  lm_log, *out, lm_log.shape[0], 1, None)
 
 
 def _carried_state(window: Window):
@@ -890,18 +907,19 @@ def solve_loop_launches(max_iterations: int) -> dict:
 
 
 # the one-call solve's internal buffers, carved from one workspace a call (256-byte
-# aligned): (k, n, C, iterations, dtype) -> their byte offsets
+# aligned): (k, n, C, iterations, dtype, sequences) -> their byte offsets
 _SOLVE_LOOP_LAYOUT = {}
 _WORKSPACE_ALIGN = 256
 
 
-def _solve_loop_layout(k: int, n: int, c: int, iterations: int, dtype):
+def _solve_loop_layout(k: int, n: int, c: int, iterations: int, dtype, seqs: int = 1):
     """Where :func:`_solve_loop_cuda`'s internal buffers lie in its workspace
     → ({group: byte offsets of its buffers, in ``ba_solve_loop``'s order},
     workspace bytes, K8's tiles, K9's back-substitution blocks).  The shapes
     are those of :func:`_evaluation_buffers`, :func:`_linearize_buffers` and
-    :func:`_solve_step_buffers`; worked out once a shape."""
-    key = (k, n, c, iterations, dtype)
+    :func:`_solve_step_buffers`, each ``seqs`` times (one a sequence, in
+    sequence order); worked out once a shape."""
+    key = (k, n, c, iterations, dtype, seqs)
     if key not in _SOLVE_LOOP_LAYOUT:
         meta = "meta"
         scratch, system = _linearize_buffers(k, n, dtype, meta)
@@ -922,85 +940,216 @@ def _solve_loop_layout(k: int, n: int, c: int, iterations: int, dtype):
             offsets[name] = []
             for t in tensors:
                 offsets[name].append(total)
-                size = t.numel() * t.element_size()
+                size = t.numel() * t.element_size() * seqs
                 total += -(-size // _WORKSPACE_ALIGN) * _WORKSPACE_ALIGN
         _SOLVE_LOOP_LAYOUT[key] = (offsets, total, scratch[0].shape[0] // (k * k),
                                    step[1].shape[0])
     return _SOLVE_LOOP_LAYOUT[key]
 
 
-def _check_solve_window(window: Window):
-    """Validate the window tensors a solve on the card reads → (k, n, h, w)."""
-    k, n, h, w = _check_window(window)
+def _check_solve_window(window: Window, lead: tuple = ()):
+    """Validate the window tensors a solve on the card reads → (k, n, h, w).
+    ``lead``: the leading axes of a stacked window ((B,)), none for one."""
+    k, n, h, w = _check_window(window, lead)
     if k > _SOLVE_MAX_FRAMES:
         raise ValueError(f"ba_solve_loop: {k} frame slots exceed the limit of its solve step, "
                          f"{_SOLVE_MAX_FRAMES} (the 8k x 8k system in the 227 KB of shared "
                          "memory of one block); K8, K10 and K11 take "
                          f"{_LINEARIZE_MAX_FRAMES}")
     check = kernels.check
-    check(window.eps, "eps", (k, BLOCK))
-    check(window.lm_valid, "lm_valid", (k, n), torch.bool)
-    check(window.frame_valid, "frame_valid", (k,), torch.bool)
-    check(window.frame_fixed, "frame_fixed", (k,), torch.bool)
-    check(window.frame_marg, "frame_marg", (k,), torch.bool)
-    check(window.res_status, "res_status", (k, k, n), torch.int32)
-    check(window.h_marg, "h_marg", (k * BLOCK, k * BLOCK), LEDGER_DTYPE)
-    check(window.b_marg, "b_marg", (k * BLOCK,), LEDGER_DTYPE)
-    check(window.energy_marg, "energy_marg", (), LEDGER_DTYPE)
-    check(window.lm_baseline, "lm_baseline", (k, n))
-    check(window.lm_outlier, "lm_outlier", (k, n), torch.bool)
-    check(window.lm_opt_count, "lm_opt_count", (k, n), torch.int32)
+    check(window.eps, "eps", lead + (k, BLOCK))
+    check(window.lm_valid, "lm_valid", lead + (k, n), torch.bool)
+    check(window.frame_valid, "frame_valid", lead + (k,), torch.bool)
+    check(window.frame_fixed, "frame_fixed", lead + (k,), torch.bool)
+    check(window.frame_marg, "frame_marg", lead + (k,), torch.bool)
+    check(window.res_status, "res_status", lead + (k, k, n), torch.int32)
+    check(window.h_marg, "h_marg", lead + (k * BLOCK, k * BLOCK), LEDGER_DTYPE)
+    check(window.b_marg, "b_marg", lead + (k * BLOCK,), LEDGER_DTYPE)
+    check(window.energy_marg, "energy_marg", lead, LEDGER_DTYPE)
+    check(window.lm_baseline, "lm_baseline", lead + (k, n))
+    check(window.lm_outlier, "lm_outlier", lead + (k, n), torch.bool)
+    check(window.lm_opt_count, "lm_opt_count", lead + (k, n), torch.int32)
     return k, n, h, w
 
 
-def _solve_loop_cuda(window: Window, model, opts: PBAOptions, log: list = None):
+# ---------------------------------------------------------------------------
+# The sequence axis: S sequences of a stacked window in one call
+# ---------------------------------------------------------------------------
+
+# what a solve writes into a window (the rest of the window it leaves)
+SOLVED_FIELDS = ("t_lin_q", "t_lin_t", "affine0", "eps", "lm_idepth", "res_status",
+                 "lm_baseline", "lm_inliers", "lm_outlier", "lm_opt_count")
+
+
+def stack_windows(windows) -> Window:
+    """Same-shape Windows stacked on a new leading axis (contiguous); mixed
+    shapes raise."""
+    first = windows[0]
+    for b, w in enumerate(windows[1:], 1):
+        for f in dataclasses.fields(Window):
+            a, x = getattr(first, f.name), getattr(w, f.name)
+            if (a is None) != (x is None) or (a is not None and a.shape != x.shape):
+                raise ValueError(f"window {b}'s {f.name} has another shape than window 0's")
+    return Window(**{f.name: (None if getattr(first, f.name) is None else
+                              torch.stack([getattr(w, f.name) for w in windows]))
+                     for f in dataclasses.fields(Window)})
+
+
+def window_at(windows: Window, b: int) -> Window:
+    """Sequence ``b`` of a stacked window: views, not copies."""
+    return Window(**{f.name: (None if getattr(windows, f.name) is None else
+                              getattr(windows, f.name)[b])
+                     for f in dataclasses.fields(Window)})
+
+
+def _as_stack(window: Window) -> Window:
+    """One window as a stack of one (views)."""
+    return Window(**{f.name: (None if getattr(window, f.name) is None else
+                              getattr(window, f.name).unsqueeze(0))
+                     for f in dataclasses.fields(Window)})
+
+
+def stack_size(windows: Window) -> int:
+    """The number of sequences B of a stacked window; raises unless every
+    field has the leading axis and one sequence's shape."""
+    batch = windows.t_lin_q.shape[0]
+    if windows.t_lin_q.dim() != 3:
+        raise ValueError(f"t_lin_q {tuple(windows.t_lin_q.shape)}: not a stack [B, K, 4]")
+    k, n = windows.t_lin_q.shape[1], windows.lm_uv.shape[2]
+    want = dict(t_lin_q=(k, 4), t_lin_t=(k, 3), affine0=(k, 2), eps=(k, BLOCK), exposure=(k,),
+                frame_valid=(k,), frame_fixed=(k,), frame_marg=(k,), frame_id=(k,),
+                lm_uv=(k, n, 2), lm_idepth=(k, n), lm_valid=(k, n), lm_marg_flag=(k, n),
+                lm_outlier=(k, n), lm_inliers=(k, n), lm_opt_count=(k, n),
+                lm_baseline=(k, n), res_status=(k, k, n), h_marg=(k * BLOCK, k * BLOCK),
+                b_marg=(k * BLOCK,), energy_marg=())
+    for name, shape in want.items():
+        got = tuple(getattr(windows, name).shape)
+        if got != (batch,) + shape:
+            raise ValueError(f"{name} {got}: the stack's sequences have mixed shapes "
+                             f"(want {(batch,) + shape})")
+    for name in ("lm_patch", "maps", "channel_maps"):
+        x = getattr(windows, name)
+        if x is not None and tuple(x.shape[:2]) != (batch, k):
+            raise ValueError(f"{name} {tuple(x.shape)}: not a stack of [B, K, ...]")
+    return batch
+
+
+def sequence_list(seqs, batch: int) -> tuple:
+    """The host list of S sequences of a stack of ``batch`` (None: every
+    sequence in order) → a tuple of ints; raises on an empty list, a
+    sequence out of range or a duplicate."""
+    seqs = tuple(range(batch)) if seqs is None else tuple(int(b) for b in seqs)
+    if not seqs:
+        raise ValueError("an empty sequence list: a call takes at least one sequence")
+    if any(b < 0 or b >= batch for b in seqs):
+        raise ValueError(f"sequence list {seqs}: out of range for a stack of {batch}")
+    if len(set(seqs)) != len(seqs):
+        raise ValueError(f"sequence list {seqs}: a sequence appears twice")
+    return seqs
+
+
+@functools.lru_cache(maxsize=256)
+def _device_sequences(seqs: tuple, device, dtype=torch.int32) -> torch.Tensor:
+    """The [S] device list of ``seqs`` (int32: the kernels'; int64: torch's
+    indexing), made once per (list, device, dtype); on the card from pinned
+    memory, without a host synchronisation."""
+    host = torch.tensor(seqs, dtype=dtype)
+    if torch.device(device).type != "cuda":
+        return host
+    return host.pin_memory().to(device, non_blocking=True)
+
+
+def _kernel_sequences(seqs: tuple, batch: int, device):
+    """The kernels' list argument: None where the list is every sequence of
+    the stack in order (each sequence then lies at its position), else the
+    device list."""
+    return None if seqs == tuple(range(batch)) else _device_sequences(seqs, device)
+
+
+def solve_loop_sequences(windows: Window, model, opts: PBAOptions = PBAOptions(), seqs=None,
+                         log: list = None):
+    """The windowed LM solve of the sequences ``seqs`` (a host list; None:
+    all) of a stacked window in one call → ({field of :data:`SOLVED_FIELDS`:
+    [S, ...]}, energy [S], num_valid [S]).
+
+    On CUDA tensors the one C call of kernels K7–K11 for all S sequences
+    (:func:`_solve_loop_sequences_cuda`); on CPU tensors
+    :func:`_solve_loop_plain` once per sequence.  ``log`` (diagnostics; it
+    reads the device) receives each sequence's state log."""
+    batch = stack_size(windows)
+    seqs = sequence_list(seqs, batch)
+    if windows.maps.is_cuda:
+        return _solve_loop_sequences_cuda(windows, model, opts, seqs, log)
+    outs = []
+    for b in seqs:
+        rows = None if log is None else []
+        outs.append(_solve_loop_plain(window_at(windows, b), model, opts, log=rows))
+        if log is not None:
+            log.append(rows)
+    solved = {name: torch.stack([getattr(w, name) for w, _, _ in outs])
+              for name in SOLVED_FIELDS}
+    return (solved, torch.stack([e for _, e, _ in outs]),
+            torch.stack([torch.as_tensor(n) for _, _, n in outs]))
+
+
+def _solve_loop_sequences_cuda(windows: Window, model, opts: PBAOptions, seqs: tuple,
+                               log: list = None, stacked: bool = True):
     """Kernels K7–K11 under K10's control in one C call
-    (``csrc/ba_lm.cu::ba_solve_loop``): the same solve as
-    :func:`_solve_loop_plain` without a host read.  ``opts.max_iterations``
-    iterations are issued whatever happens; the loop's state lives on the
-    device and the kernels return at once when it says done.  The wrapper
-    checks the window, allocates the outputs and one workspace for every
-    internal buffer (:func:`_solve_loop_layout`) with ``torch.empty`` and
-    makes the one call; ``log`` (diagnostics only: it reads the device)
-    receives the decoded state log."""
-    k, n, h, w = _check_solve_window(window)
-    c = window.num_channels
-    dtype, dev = window.eps.dtype, window.eps.device
-    offsets, total, tiles, blocks = _solve_loop_layout(k, n, c, opts.max_iterations, dtype)
+    (``csrc/ba_lm.cu::ba_solve_loop``) for the S sequences ``seqs`` (a
+    checked host list) of a stacked window: each sequence the solve of
+    :func:`_solve_loop_plain` without a host read, one launch per kernel for
+    all of them.  ``opts.max_iterations`` iterations are issued whatever
+    happens; each sequence's loop state lives on the device and its kernels
+    return at once when it says done.  The wrapper checks the stack,
+    allocates the ``[S, ...]`` outputs and one workspace for every internal
+    buffer (:func:`_solve_loop_layout`) with ``torch.empty`` and makes the
+    one call; ``log`` (diagnostics only: it reads the device) receives each
+    sequence's decoded state log.  ``stacked=False``: ``windows`` is one
+    window and ``seqs`` (0,), the outputs without the sequence axis (the
+    kernels see the same memory: a list of one, null)."""
+    lead = windows.t_lin_q.shape[:1] if stacked else ()
+    batch = lead[0] if stacked else 1
+    k, n, h, w = _check_solve_window(windows, tuple(lead))
+    c = windows.channel_bank.shape[-3] // 3
+    dtype, dev = windows.eps.dtype, windows.eps.device
+    size = len(seqs)
+    seq = _kernel_sequences(seqs, batch, dev)
+    out = (size,) if stacked else ()
+    offsets, total, tiles, blocks = _solve_loop_layout(k, n, c, opts.max_iterations, dtype,
+                                                       size)
     workspace = torch.empty((total,), dtype=torch.uint8, device=dev)
     base = workspace.data_ptr()
     at = {name: [base + offset for offset in group] for name, group in offsets.items()}
-    # what the solved window keeps: the carried state and K11's outputs (its
+    # what the solved windows keep: the carried state and K11's outputs (its
     # threshold stays in the workspace)
-    tq, tt, ab0, eps, idepth = (torch.empty(x.shape, dtype=x.dtype, device=dev) for x in (
-        window.t_lin_q, window.t_lin_t, window.affine0, window.eps, window.lm_idepth))
-    res_status = torch.empty((k, k, n), dtype=torch.int32, device=dev)
-    baseline = torch.empty((k, n), dtype=dtype, device=dev)
-    inliers = torch.empty((k, n), dtype=torch.int32, device=dev)
-    outlier = torch.empty((k, n), dtype=torch.bool, device=dev)
-    opt_count = torch.empty((k, n), dtype=torch.int32, device=dev)
-    energy = torch.empty((), dtype=torch.float32, device=dev)
-    count = torch.empty((), dtype=torch.int32, device=dev)
+    solved = {name: torch.empty(out + tuple(getattr(windows, name).shape[len(lead):]),
+                                dtype=getattr(windows, name).dtype, device=dev)
+              for name in SOLVED_FIELDS}
+    energy = torch.empty(out, dtype=torch.float32, device=dev)
+    count = torch.empty(out, dtype=torch.int32, device=dev)
     state, lm_log, thresh = at["loop"]
     launched = (ctypes.c_int * len(_SOLVE_LOOP_COUNTED))()
+    win = windows
     try:
         kernels.BA_SOLVE_LOOP(
-            window.t_lin_q, window.t_lin_t, window.affine0, window.eps, window.exposure,
-            window.lm_uv, window.lm_idepth, window.lm_patch, window.lm_valid, window.frame_valid,
-            window.frame_fixed, window.frame_marg, window.res_status, window.h_marg, window.b_marg,
-            window.energy_marg, window.channel_bank, 3 * c * h * w, window.lm_baseline,
-            window.lm_outlier, window.lm_opt_count, k, n, h, w, c, model.fx, model.fy, model.cx,
-            model.cy, model.width, model.height, int(opts.max_iterations),
-            int(opts.min_iterations), int(bool(opts.force_accept)),
+            win.t_lin_q, win.t_lin_t, win.affine0, win.eps, win.exposure, win.lm_uv,
+            win.lm_idepth, win.lm_patch, win.lm_valid, win.frame_valid, win.frame_fixed,
+            win.frame_marg, win.res_status, win.h_marg, win.b_marg, win.energy_marg,
+            win.channel_bank, 3 * c * h * w, win.lm_baseline, win.lm_outlier, win.lm_opt_count,
+            k, n, h, w, c, model.fx, model.fy, model.cx, model.cy, model.width, model.height,
+            int(opts.max_iterations), int(opts.min_iterations), int(bool(opts.force_accept)),
             float(opts.initial_regularizer), float(opts.function_tolerance),
             float(opts.parameter_tolerance), float(opts.reg_decrease), float(opts.reg_increase),
             float(opts.affine_reg_a), float(opts.affine_reg_b), float(opts.fixed_reg),
             float(opts.idepth_nullspace_threshold), float(opts.scale_nullspace_reg),
             _huber_sigma(c, opts), float(opts.huber_sigma), OUTLIER_QUANTILE,
-            int(opts.min_valid_reprojections), tq, tt, ab0, eps, idepth, *at["carried"],
+            int(opts.min_valid_reprojections), solved["t_lin_q"], solved["t_lin_t"],
+            solved["affine0"], solved["eps"], solved["lm_idepth"], *at["carried"],
             *at["ev0"], *at["ev1"], *at["mask"], tiles, *at["linearize"], blocks, *at["step"],
-            state, lm_log, energy, count, *_status_workspace(k, n, dev), thresh, res_status,
-            baseline, inliers, outlier, opt_count, ctypes.addressof(launched))
+            state, lm_log, energy, count, *_status_workspace(k, n, dev, size), thresh,
+            solved["res_status"], solved["lm_baseline"], solved["lm_inliers"],
+            solved["lm_outlier"], solved["lm_opt_count"], size, seq,
+            ctypes.addressof(launched))
     finally:
         # the calls the C loop made to each entry, counted there, also up to a
         # step that failed
@@ -1009,12 +1158,24 @@ def _solve_loop_cuda(window: Window, model, opts: PBAOptions, log: list = None):
     if log is not None:
         start = offsets["loop"][1]
         rows = opts.max_iterations + 2
-        log.extend(lm_log_rows(workspace[start:start + rows * LM_FIELDS * 4]
-                               .view(torch.int32).view(rows, LM_FIELDS)))
-    out = window.replace(t_lin_q=tq, t_lin_t=tt, affine0=ab0, eps=eps, lm_idepth=idepth,
-                         res_status=res_status, lm_baseline=baseline, lm_inliers=inliers,
-                         lm_outlier=outlier, lm_opt_count=opt_count)
-    return out, energy, count
+        logs = (workspace[start:start + size * rows * LM_FIELDS * 4]
+                .view(torch.int32).view(size, rows, LM_FIELDS))
+        log.extend(lm_log_rows(x) for x in logs)
+    return solved, energy, count
+
+
+def _solve_loop_cuda(window: Window, model, opts: PBAOptions, log: list = None):
+    """Kernels K7–K11 under K10's control in one C call
+    (``csrc/ba_lm.cu::ba_solve_loop``): the same solve as
+    :func:`_solve_loop_plain` without a host read, the one-sequence case of
+    :func:`_solve_loop_sequences_cuda`; ``log`` (diagnostics only: it reads
+    the device) receives the decoded state log."""
+    logs = None if log is None else []
+    solved, energy, count = _solve_loop_sequences_cuda(window, model, opts, (0,), logs,
+                                                       stacked=False)
+    if log is not None:
+        log.extend(logs[0])
+    return window.replace(**solved), energy, count
 
 
 def lm_log_rows(lm_log) -> list:
@@ -1163,12 +1324,14 @@ def _point_status_plain(window: Window, model, opts: PBAOptions) -> PointStatus:
     return _point_status_from_ev_plain(window, ev, lm_mask, opts)
 
 
-def _status_workspace(k: int, n: int, device):
-    """Kernel K11's workspace on the current stream (``kernels.workspace``):
-    its header, then room for the candidates of k·k·n groups → (the buffer,
-    its bytes)."""
-    nbytes = kernels.STATUS_WORKSPACE_BYTES + 4 * k * k * n
-    return kernels.workspace(kernels.BA_STATUS, nbytes, device), nbytes
+def _status_workspace(k: int, n: int, device, seqs: int = 1):
+    """Kernel K11's buffers on the current stream for ``seqs`` sequences → (its
+    workspace, a header a sequence (``kernels.workspace``: zero between
+    launches), its bytes, and the candidates, k·k·n words a sequence
+    (``kernels.scratch``))."""
+    nbytes = kernels.STATUS_WORKSPACE_BYTES * seqs
+    return (kernels.workspace(kernels.BA_STATUS, nbytes, device), nbytes,
+            kernels.scratch(kernels.BA_STATUS, 4 * k * k * n * seqs, device))
 
 
 def _point_status_from_ev_cuda(window: Window, ev: Evaluation, lm_mask,
@@ -1205,7 +1368,7 @@ def _point_status_from_ev_cuda(window: Window, ev: Evaluation, lm_mask,
                       window.lm_baseline, window.lm_outlier, window.lm_opt_count, k, n,
                       OUTLIER_QUANTILE, float(opts.huber_sigma),
                       int(opts.min_valid_reprojections), *_status_workspace(k, n, dev), thresh,
-                      new_status, baseline, inliers, outlier, opt_count)
+                      new_status, baseline, inliers, outlier, opt_count, 1, None, None)
     return PointStatus(new_status, baseline, inliers, outlier, opt_count, thresh[0])
 
 
@@ -1225,11 +1388,10 @@ def _point_status_kernel(window: Window, model, opts: PBAOptions) -> PointStatus
 def _marg_pass(window: Window, model, opts: PBAOptions):
     """The marginalization pass at the current state (FEJ Jacobians): K7's
     evaluation and K8's system of the flagged landmarks, with the flagged
-    frames' priors in its pose part → (the system, their energy)."""
-    lm_mask = window.lm_marg_flag & window.lm_valid & window.frame_valid[:, None]
-    ev = _evaluate(window, model, window.eps, window.lm_idepth, lm_mask, opts)
-    sys = _linearize_from_ev(window, model, ev, window.eps, opts, marg_pass=True)
-    return sys, torch.sum(ev.energy_patch)
+    frames' priors in its pose part → (the system, their energy); the
+    one-sequence case of :func:`_marg_pass_sequences`."""
+    sys, e_land = _marg_pass_sequences(_as_stack(window), model, opts, (0,))
+    return LinearSystem(*(x[0] for x in sys)), e_land[0]
 
 
 def _points_system(window: Window, h_pose, b_pose, h_schur, b_schur, opts: PBAOptions):
@@ -1245,27 +1407,6 @@ def _marg_system_kernel(window: Window, model, opts: PBAOptions):
     sys, e_land = _marg_pass(window, model, opts)
     return (*_points_system(window, sys.h_pose, sys.b_pose, sys.h_schur, sys.b_schur, opts),
             e_land)
-
-
-def _permute_window(window: Window, perm, drop_marg) -> Window:
-    """Compact frame slots by ``perm`` (kept frames first)."""
-    keep = ~drop_marg[perm]
-    valid = window.frame_valid[perm] & keep
-    return window.replace(
-        t_lin_q=window.t_lin_q[perm], t_lin_t=window.t_lin_t[perm],
-        affine0=window.affine0[perm], eps=window.eps[perm],
-        exposure=window.exposure[perm], frame_valid=valid,
-        frame_fixed=window.frame_fixed[perm] & keep,
-        frame_marg=torch.zeros_like(window.frame_marg),
-        frame_id=torch.where(valid, window.frame_id[perm], -1).to(torch.int32),
-        lm_uv=window.lm_uv[perm], lm_patch=window.lm_patch[perm],
-        lm_idepth=window.lm_idepth[perm],
-        lm_valid=window.lm_valid[perm] & keep[:, None],
-        lm_marg_flag=torch.zeros_like(window.lm_marg_flag),
-        lm_outlier=window.lm_outlier[perm], lm_inliers=window.lm_inliers[perm],
-        lm_opt_count=window.lm_opt_count[perm], lm_baseline=window.lm_baseline[perm],
-        res_status=window.res_status[perm][:, perm], maps=window.maps[perm],
-        channel_maps=None if window.channel_maps is None else window.channel_maps[perm])
 
 
 def _marginalize_plain(window: Window, h_pts, b_pts, e_land, perm, opts: PBAOptions,
@@ -1327,35 +1468,54 @@ def _marginalize_cuda(window: Window, h_pose, b_pose, h_schur, b_schur, e_land, 
     in the kernel; reads nothing on the host (the number of flagged frames
     stays on the device).  ``sweeps``, an int32 [1] CUDA tensor or None,
     receives the number of Jacobi sweeps that rotated: ``MARG_MAX_SWEEPS``
-    when the decomposition did not converge."""
-    k = window.num_slots
-    kb = k * BLOCK
+    when the decomposition did not converge.  The one-sequence case of
+    :func:`_marginalize_sequences_cuda`."""
+    return _marginalize_sequences_cuda(window, (0,), h_pose, b_pose, h_schur, b_schur, e_land,
+                                       perm, opts, sweeps, stacked=False)
+
+
+def _marginalize_sequences_cuda(windows: Window, seqs: tuple, h_pose, b_pose, h_schur, b_schur,
+                                e_land, perm, opts: PBAOptions, sweeps=None,
+                                stacked: bool = True):
+    """Kernel K15 for the S sequences ``seqs`` (a checked host list) of a
+    stacked window in one launch a kernel: the marginalization pass's
+    systems ``h_pose`` ... ``b_schur`` [S, ...], their energies ``e_land``
+    [S] and the kept-first permutations ``perm`` [S, K] → the new ledgers
+    (h [S, 8K, 8K], b [S, 8K], e [S], float64).  ``sweeps``: None or int32
+    [S] (at one sequence [1]).  ``stacked=False``: one window, ``seqs``
+    (0,), every argument and output without the sequence axis."""
+    lead = windows.t_lin_q.shape[:1] if stacked else ()
+    batch = lead[0] if stacked else 1
+    k = windows.t_lin_q.shape[-2]
+    kb, size = k * BLOCK, len(seqs)
+    own = (size,) if stacked else ()
     check = kernels.check
-    check(h_pose, "h_pose", (kb, kb))
-    check(b_pose, "b_pose", (kb,))
-    check(h_schur, "h_schur", (kb, kb))
-    check(b_schur, "b_schur", (kb,))
-    check(e_land, "e_land", ())
-    check(window.eps, "eps", (k, BLOCK))
-    check(window.affine0, "affine0", (k, 2))
+    check(h_pose, "h_pose", own + (kb, kb))
+    check(b_pose, "b_pose", own + (kb,))
+    check(h_schur, "h_schur", own + (kb, kb))
+    check(b_schur, "b_schur", own + (kb,))
+    check(e_land, "e_land", own)
+    check(windows.eps, "eps", lead + (k, BLOCK))
+    check(windows.affine0, "affine0", lead + (k, 2))
     for name in ("frame_valid", "frame_fixed", "frame_marg"):
-        check(getattr(window, name), name, (k,), torch.bool)
-    check(perm, "perm", (k,), torch.int64)
-    check(window.h_marg, "h_marg", (kb, kb), LEDGER_DTYPE)
-    check(window.b_marg, "b_marg", (kb,), LEDGER_DTYPE)
-    check(window.energy_marg, "energy_marg", (), LEDGER_DTYPE)
-    kw = dict(dtype=LEDGER_DTYPE, device=window.eps.device)
-    h_out, b_out, e_out = (torch.empty((kb, kb), **kw), torch.empty((kb,), **kw),
-                           torch.empty((), **kw))
-    scratch = torch.empty((_marg_scratch_words(k),), **kw)
+        check(getattr(windows, name), name, lead + (k,), torch.bool)
+    check(perm, "perm", own + (k,), torch.int64)
+    check(windows.h_marg, "h_marg", lead + (kb, kb), LEDGER_DTYPE)
+    check(windows.b_marg, "b_marg", lead + (kb,), LEDGER_DTYPE)
+    check(windows.energy_marg, "energy_marg", lead, LEDGER_DTYPE)
+    dev = windows.eps.device
+    kw = dict(dtype=LEDGER_DTYPE, device=dev)
+    h_out, b_out, e_out = (torch.empty(own + (kb, kb), **kw), torch.empty(own + (kb,), **kw),
+                           torch.empty(own, **kw))
+    scratch = torch.empty((size * _marg_scratch_words(k),), **kw)
     if sweeps is not None:
-        check(sweeps, "sweeps", (1,), torch.int32)
-    kernels.MARG_FOLD(h_pose, b_pose, h_schur, b_schur, e_land, window.eps, window.affine0,
-                      window.frame_valid,
-                      window.frame_fixed, window.frame_marg, perm, window.h_marg,
-                      window.b_marg, window.energy_marg, k, pinv_rtol(kb, window.eps.dtype),
-                      float(opts.fixed_reg), float(opts.affine_reg_a),
-                      float(opts.affine_reg_b), scratch, h_out, b_out, e_out, sweeps)
+        check(sweeps, "sweeps", (size,), torch.int32)
+    kernels.MARG_FOLD(h_pose, b_pose, h_schur, b_schur, e_land, windows.eps, windows.affine0,
+                      windows.frame_valid, windows.frame_fixed, windows.frame_marg, perm,
+                      windows.h_marg, windows.b_marg, windows.energy_marg, k,
+                      pinv_rtol(kb, windows.eps.dtype), float(opts.fixed_reg),
+                      float(opts.affine_reg_a), float(opts.affine_reg_b), scratch, h_out, b_out,
+                      e_out, sweeps, size, _kernel_sequences(seqs, batch, dev))
     return h_out, b_out, e_out
 
 
@@ -1373,10 +1533,10 @@ def _marg_scratch_words(k: int) -> int:
 
 def _marginalize_device(window: Window, model, perm, opts: PBAOptions) -> Window:
     """Fold flagged landmarks and frames into the float64 ledger, then
-    compact the frame slots by ``perm``: the fold is kernel K15 on CUDA
-    tensors, the plain version on CPU ones.  Nothing is read on the host."""
-    fold = _marginalize_cuda if window.maps.is_cuda else _marginalize_system_plain
-    return _marginalize_with(fold, window, model, perm, opts)
+    compact the frame slots by ``perm``: the one-sequence case of
+    :func:`marginalize_sequences` (the fold kernel K15 on CUDA tensors, the
+    plain version on CPU ones).  Nothing is read on the host."""
+    return window_at(marginalize_sequences(_as_stack(window), model, perm[None], opts, (0,)), 0)
 
 
 def _marginalize_with(fold, window: Window, model, perm, opts: PBAOptions) -> Window:
@@ -1394,10 +1554,9 @@ def _fold_and_permute(fold, window: Window, h_pose, b_pose, h_schur, b_schur, e_
     flagged frames' priors in its pose part), then the flagged landmarks
     dropped and the frame slots compacted by ``perm``."""
     h_m, b_m, e_m = fold(window, h_pose, b_pose, h_schur, b_schur, e_land, perm, opts)
-    window = window.replace(lm_valid=window.lm_valid & ~window.lm_marg_flag,
-                            lm_marg_flag=torch.zeros_like(window.lm_marg_flag))
-    window = _permute_window(window, perm, window.frame_marg & window.frame_valid)
-    return window.replace(h_marg=h_m, b_marg=b_m, energy_marg=e_m)
+    compact = _compact_sequences(_as_stack(window), (0,), perm[None],
+                                 (h_m[None], b_m[None], e_m.reshape(1)))
+    return window_at(compact, 0)
 
 
 def marginalize(window: Window, model, opts: PBAOptions = PBAOptions(),
@@ -1423,6 +1582,149 @@ def marginalize(window: Window, model, opts: PBAOptions = PBAOptions(),
         return window
     perm = kept_first_perm(window.frame_valid, window.frame_marg & window.frame_valid)
     return _marginalize_device(window, model, perm, opts)
+
+
+def _sequence_energies(energy_patch):
+    """[S] the Σ of each sequence's patch energies of an evaluation [S, K, K,
+    N]: each ``torch.sum`` of a tensor of its own, as a pass of one sequence
+    sums its own evaluation (at S > 1 a sequence's slice is copied first, so
+    that no sum depends on where its slice lies in the stack)."""
+    if energy_patch.shape[0] == 1:
+        return torch.sum(energy_patch).reshape(1)
+    return torch.stack([torch.sum(x.clone()) for x in energy_patch])
+
+
+def _marg_pass_sequences(windows: Window, model, opts: PBAOptions, seqs: tuple):
+    """:func:`_marg_pass` of the S sequences ``seqs`` (a checked host list) of
+    a stacked window → (the systems [S, ...], their energies [S]): on CUDA
+    tensors one launch of K7 and one of K8 for all S, on CPU tensors the
+    plain version once per sequence."""
+    if not windows.maps.is_cuda:
+        passes = []
+        for b in seqs:
+            w = window_at(windows, b)
+            lm_mask = w.lm_marg_flag & w.lm_valid & w.frame_valid[:, None]
+            ev = _evaluate_plain(w, model, w.eps, w.lm_idepth, lm_mask, opts)
+            sys = _linearize_from_ev_plain(w, _fej_cache_plain(w, model), ev, w.eps, opts,
+                                           marg_pass=True)
+            passes.append((sys, torch.sum(ev.energy_patch)))
+        return (LinearSystem(*(torch.stack(xs) for xs in zip(*(p[0] for p in passes)))),
+                torch.stack([p[1] for p in passes]))
+    batch = windows.t_lin_q.shape[0]
+    k, n, _, _ = _check_window(windows, (batch,))
+    c = windows.channel_bank.shape[-3] // 3
+    if k > _LINEARIZE_MAX_FRAMES:
+        raise ValueError(f"ba_linearize_schur: {k} frame slots exceed the kernel's limit of "
+                         f"{_LINEARIZE_MAX_FRAMES} (its Schur kernel's warps)")
+    check = kernels.check
+    check(windows.eps, "eps", (batch, k, BLOCK))
+    check(windows.res_status, "res_status", (batch, k, k, n), torch.int32)
+    for name in ("frame_valid", "frame_fixed", "frame_marg"):
+        check(getattr(windows, name), name, (batch, k), torch.bool)
+    dtype, dev = windows.eps.dtype, windows.eps.device
+    size = len(seqs)
+    seq = _kernel_sequences(seqs, batch, dev)
+    lm_mask = windows.lm_marg_flag & windows.lm_valid & windows.frame_valid[..., None]
+    ev = _evaluation_buffers(k, n, c, dtype, dev, (size,))
+    _evaluate_launch(windows, model, windows.eps, windows.lm_idepth, lm_mask, opts, None, ev,
+                     seqs=size, seq=seq, state_seq=seq)
+    scratch, sys = _linearize_buffers(k, n, dtype, dev, (size,))
+    _linearize_launch(windows, model, ev, None, windows.eps, opts, True, None, scratch, sys,
+                      size, seq, seq)
+    return sys, _sequence_energies(ev.energy_patch)
+
+
+def _compact_sequences(windows: Window, seqs: tuple, perm, ledger) -> Window:
+    """The window after the fold of the S sequences ``seqs`` of a stacked
+    window, each compacted by its own ``perm`` [S, K] → a [S] stack of new
+    tensors: the flagged landmarks dropped, the frame slots compacted
+    kept-first (one gather a field; a flagged frame's slot invalid), and
+    ``ledger`` = (h [S, 8K, 8K], b [S, 8K], e [S]) as its ledger."""
+    dev = perm.device
+    slots = slot_rows(seqs, perm)
+
+    def take(x):
+        return take_slots(x, slots)
+
+    drop = take(windows.frame_marg & windows.frame_valid)
+    valid = take(windows.frame_valid) & ~drop
+    res = take(windows.res_status)                                   # [S, K(i), K(j), N]
+    k, n = res.shape[1], res.shape[3]
+    h_m, b_m, e_m = ledger
+    return windows.replace(
+        t_lin_q=take(windows.t_lin_q), t_lin_t=take(windows.t_lin_t),
+        affine0=take(windows.affine0), eps=take(windows.eps), exposure=take(windows.exposure),
+        frame_valid=valid, frame_fixed=take(windows.frame_fixed) & ~drop,
+        frame_marg=torch.zeros_like(drop),
+        frame_id=torch.where(valid, take(windows.frame_id), -1).to(torch.int32),
+        lm_uv=take(windows.lm_uv), lm_patch=take(windows.lm_patch),
+        lm_idepth=take(windows.lm_idepth),
+        lm_valid=take(windows.lm_valid & ~windows.lm_marg_flag) & ~drop[..., None],
+        lm_marg_flag=torch.zeros((len(seqs), k, n), dtype=torch.bool, device=dev),
+        lm_outlier=take(windows.lm_outlier), lm_inliers=take(windows.lm_inliers),
+        lm_opt_count=take(windows.lm_opt_count), lm_baseline=take(windows.lm_baseline),
+        res_status=torch.gather(res, 2, perm[:, None, :, None].expand(-1, k, -1, n)),
+        maps=take(windows.maps),
+        channel_maps=None if windows.channel_maps is None else take(windows.channel_maps),
+        h_marg=h_m, b_marg=b_m, energy_marg=e_m)
+
+
+def slot_rows(seqs, perm):
+    """[S·K] long: the rows of a stack's slots flattened to [B·K] that
+    sequence ``seqs[z]``'s slots ``perm[z]`` [S, K] lie in."""
+    rows = _device_sequences(tuple(seqs), perm.device, torch.int64)
+    return (rows[:, None] * perm.shape[1] + perm).reshape(-1)
+
+
+def take_slots(x, rows):
+    """``x`` [B, K, ...] at the slot rows ``rows`` of :func:`slot_rows` →
+    [S, K, ...], one ``index_select``."""
+    k, tail = x.shape[1], x.shape[2:]
+    return x.reshape((-1,) + tail).index_select(0, rows).view((-1, k) + tail)
+
+
+def marginalize_sequences(windows: Window, model, perm, opts: PBAOptions = PBAOptions(),
+                          seqs=None) -> Window:
+    """:func:`_marginalize_device` of the sequences ``seqs`` (a host list;
+    None: all) of a stacked window, each by its own kept-first permutation
+    ``perm`` [S, K] → the S folded and compacted windows, a [S] stack of new
+    tensors.  On CUDA tensors the marginalization pass's K7 and K8 and the
+    fold K15 run one launch each for all S sequences; on CPU tensors the
+    plain versions run once per sequence.  Nothing is read on the host."""
+    batch = stack_size(windows)
+    seqs = sequence_list(seqs, batch)
+    sys, e_land = _marg_pass_sequences(windows, model, opts, seqs)
+    if windows.maps.is_cuda:
+        ledger = _marginalize_sequences_cuda(windows, seqs, *sys[:4], e_land, perm, opts)
+    else:
+        folds = [_marginalize_system_plain(window_at(windows, b), *(x[z] for x in sys[:4]),
+                                           e_land[z], perm[z], opts)
+                 for z, b in enumerate(seqs)]
+        ledger = tuple(torch.stack(xs) for xs in zip(*folds))
+    return _compact_sequences(windows, seqs, perm, ledger)
+
+
+def put_sequences(windows: Window, seqs, part):
+    """Write ``part`` into the sequences ``seqs`` (a host list) of the stacked
+    window ``windows``, in place, one ``index_copy_`` a field: ``part`` is a
+    [S] stack (every field) or a dict of some fields' [S] tensors."""
+    index = _device_sequences(tuple(seqs), windows.t_lin_q.device, torch.int64)
+    items = part.items() if isinstance(part, dict) else (
+        (f.name, getattr(part, f.name)) for f in dataclasses.fields(Window))
+    for name, x in items:
+        if x is not None:
+            getattr(windows, name).index_copy_(0, index, x)
+
+
+def with_sequences(windows: Window, seqs: tuple, part) -> Window:
+    """``windows`` with ``part`` (as :func:`put_sequences` takes it) at the
+    sequences ``seqs``: where ``seqs`` is every sequence of the stack in
+    order, a window of ``part``'s tensors and the stack's others, no tensor
+    written; else :func:`put_sequences` in place → ``windows``."""
+    if tuple(seqs) == tuple(range(windows.t_lin_q.shape[0])):
+        return windows.replace(**part) if isinstance(part, dict) else part
+    put_sequences(windows, seqs, part)
+    return windows
 
 
 def slot_mask(num_slots: int, slot, device):

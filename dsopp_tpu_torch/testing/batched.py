@@ -12,15 +12,23 @@ tests and ``chip_smoke.py``'s ``[batched]`` phase share.
 * :func:`stage_diff`: the first stage of the regular tick at which a batched
   tick parts from the solo ticks on the same states;
 * :func:`regular_tick_args`: ``fused_regular_tick``'s arguments for B
-  states stacked.
+  states stacked;
+* :func:`solver_starts`, :func:`solver_half` and :func:`solver_half_solo`:
+  the keyframe backend's solver half (the BA solve, the policy K15p, the
+  marginalization pass and the fold K15) over S sequences of a stack of
+  moved BA windows in one call a step, and as S solo calls;
+  :func:`solver_half_equal` holds one to the other, step by step.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
 from dsopp_tpu_torch.core.lie import SE3
 from dsopp_tpu_torch.features.pyramid import build_pyramid_maps, build_pyramid_maps_plain
+from dsopp_tpu_torch.solvers import pba
 from dsopp_tpu_torch.solvers.pba import newest_slot
 from dsopp_tpu_torch.solvers.pose_alignment import (LevelPoints, align_level,
                                                     align_level_sequences_plain)
@@ -201,3 +209,97 @@ def stage_diff(states, images, models, cfg) -> str:
             if not all(torch.equal(x[b], y) for x, y in zip(outs, solo[i][1])):
                 return f"{name} (sequence {b})"
     return "none"
+
+
+# the solver half's steps, in the order they run
+SOLVER_STEPS = ("solve", "policy", "pass", "fold")
+
+
+def solver_starts(window, model, opts):
+    """A [4] stack of a BA window on the card moved off its state
+    (``bits.solve_starts`` with seeds 0 and 1): for each seed the moved
+    window with an empty and with a filled ledger."""
+    from dsopp_tpu_torch.testing import bits
+
+    starts = []
+    for seed in (0, 1):
+        starts.extend(bits.solve_starts(window, model, opts, seed).values())
+    return pba.stack_windows(starts)
+
+
+def immature_valid(windows, points: int, seed: int = 2):
+    """A seeded [B, K, ``points``] mask of valid immature points for the
+    policy's counts."""
+    gen = torch.Generator(device=windows.eps.device).manual_seed(seed)
+    shape = tuple(windows.frame_valid.shape) + (points,)
+    return torch.rand(shape, generator=gen, device=windows.eps.device) < 0.6
+
+
+def solver_half(windows, imm_valid, seqs, model, opts, sizes, log=None) -> dict:
+    """The solver half of the sequences ``seqs`` of the stack ``windows``,
+    one call a step (each kernel one launch for the S sequences): the solve;
+    the policy on the stack with the solved fields written (a copy); the
+    marginalization pass and the fold on that stack with the policy's flags
+    written; the compaction → {step: its [S] outputs, and "stacks": those
+    two stacks}.  ``sizes``: the
+    policy's (window_min, window_max, max_marg_fraction); ``log`` receives
+    each sequence's LM log (it reads the device)."""
+    from dsopp_tpu_torch.tracker import marginalization as marg
+
+    solved, energy, count = pba.solve_loop_sequences(windows, model, opts, seqs, log=log)
+    w1 = windows.replace(**{f: getattr(windows, f).clone() for f in pba.SOLVED_FIELDS})
+    pba.put_sequences(w1, seqs, solved)
+    flags = marg.flags_sequences(w1, imm_valid, *sizes, seqs)
+    frame_flags, lm_flags, new_outliers, perm = flags
+    w2 = w1.replace(**{f: getattr(w1, f).clone()
+                       for f in ("lm_outlier", "frame_marg", "lm_marg_flag")})
+    pba.put_sequences(w2, seqs, dict(lm_outlier=solved["lm_outlier"] | new_outliers,
+                                     frame_marg=frame_flags, lm_marg_flag=lm_flags))
+    sys, e_land = pba._marg_pass_sequences(w2, model, opts, tuple(seqs))
+    ledger = pba._marginalize_sequences_cuda(w2, tuple(seqs), *sys[:4], e_land, perm, opts)
+    return dict(solve=(solved, energy, count), policy=flags, pass_=(sys, e_land),
+                fold=(ledger, pba._compact_sequences(w2, tuple(seqs), perm, ledger)),
+                stacks=(w1, w2))
+
+
+def solver_half_solo(windows, imm_valid, b: int, model, opts, sizes, log=None) -> dict:
+    """:func:`solver_half`'s steps for sequence ``b`` alone, by the solo calls
+    (``_solve_loop_cuda``, ``flags_device_cuda``, ``_marg_pass``,
+    ``_marginalize_cuda`` and ``_fold_and_permute``'s compaction, as
+    ``_marginalize_device`` runs them)."""
+    from dsopp_tpu_torch.tracker import marginalization as marg
+
+    w, energy, count = pba._solve_loop_cuda(pba.window_at(windows, b), model, opts, log=log)
+    flags = marg.flags_device_cuda(w, imm_valid[b], *sizes)
+    frame_flags, lm_flags, new_outliers, perm = flags
+    w2 = w.replace(lm_outlier=w.lm_outlier | new_outliers, frame_marg=frame_flags,
+                   lm_marg_flag=lm_flags)
+    sys, e_land = pba._marg_pass(w2, model, opts)
+    ledger = pba._marginalize_cuda(w2, *sys[:4], e_land, perm, opts)
+    compact = pba._fold_and_permute(lambda *_: ledger, w2, *sys[:4], e_land, perm, opts)
+    return dict(solve=({f: getattr(w, f) for f in pba.SOLVED_FIELDS}, energy, count),
+                policy=flags, pass_=(sys, e_land), fold=(ledger, compact))
+
+
+def _leaves(x):
+    if isinstance(x, torch.Tensor):
+        return [x]
+    if isinstance(x, dict):
+        return [t for v in x.values() for t in _leaves(v)]
+    if isinstance(x, pba.Window):
+        return [getattr(x, f.name) for f in dataclasses.fields(pba.Window)
+                if getattr(x, f.name) is not None]
+    return [t for v in x for t in _leaves(v)]
+
+
+def solver_half_equal(batched: dict, solos: list) -> dict:
+    """{step: whether sequence z of each batched output equals the z-th solo
+    call's, to the bit, for every z}."""
+    out = {}
+    for step, key in zip(SOLVER_STEPS, ("solve", "policy", "pass_", "fold")):
+        got = _leaves(batched[key])
+        out[step] = all(
+            len(got) == len(want) and all(x[z].shape == y.shape and torch.equal(x[z], y)
+                                          for x, y in zip(got, want))
+            for z, want in enumerate(_leaves(solo[key]) for solo in solos))
+    return out

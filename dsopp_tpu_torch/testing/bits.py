@@ -294,16 +294,16 @@ def solve_inputs() -> dict:
     return out
 
 
-def solve_starts(win, model, opts) -> dict:
+def solve_starts(win, model, opts, seed: int = 0) -> dict:
     """{ledger: the window to solve}: ``win`` on the card with its eps and
-    idepths moved by a seeded draw, once with an empty ledger ("empty") and
-    once with a filled one: its own ("own"), or where it has none, a share of
-    its Schur-reduced pose system ("scaled")."""
+    idepths moved by a draw of ``seed``, once with an empty ledger ("empty")
+    and once with a filled one: its own ("own"), or where it has none, a
+    share of its Schur-reduced pose system ("scaled")."""
     from dsopp_tpu_torch.solvers import pba
     from dsopp_tpu_torch.testing import parity
 
     k, n = win.num_slots, win.num_landmark_slots
-    gen = torch.Generator(device="cuda").manual_seed(0)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     step = torch.tensor([1e-3] * 6 + [5e-3, 0.3], device="cuda")
     eps = torch.randn((k, 8), generator=gen, device="cuda") * step
     eps = torch.where((win.frame_valid & ~win.frame_fixed)[:, None], eps,

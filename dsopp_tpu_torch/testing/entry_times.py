@@ -3,12 +3,13 @@ K14's pairing (with the refinement's glue) on the inputs of
 ``testing/bits.py``'s ``frame`` case, of K11 (the point status) and K15
 (the ledger fold) on the windows of its ``solve`` case, of K12 (the
 candidates) and K16 (the frontend's state) on the inputs of its ``kf`` case,
-and K18 (the camera's frame intake) with the sensor path around it, timed on
+K18 (the camera's frame intake) with the sensor path around it, and the BA
+solve's one C call over a sequence axis (K7–K11 at S = 1 and 4), timed on
 the card, in this tree or in a tree before their redesigns (copy this file,
 ``bits.py`` and ``parity.py`` into that tree's ``dsopp_tpu_torch/testing``
 and run it there), so that the two can be compared inside one card call.
 
-    python -m dsopp_tpu_torch.testing.entry_times [out.json] [--cases frame,status,marg,kf,sensor]
+    python -m dsopp_tpu_torch.testing.entry_times [out.json] [--cases frame,status,marg,kf,sensor,seq]
 
 Per tracker of ``bits.FRAME_TRACKERS`` (the pairing on the three with a
 pushed keyframe, with and without the refinement), each the mean of
@@ -51,7 +52,14 @@ one call (``profiling.profiled``):
   those inside ``next_frame``, and their lines, and ``SENSOR_RUNS`` times
   timed: frames/s, the pinned ring's waits, and ``next_frame``'s host ms a
   frame split into its parts (:func:`next_frame_parts`), over all frames and
-  over those at which the stream was still busy.
+  over those at which the stream was still busy;
+* ``seq`` (per window of ``bits.SOLVE_WINDOWS``, where the tree has the
+  sequence axis): a [4] stack of the window moved four ways
+  (``bits.solve_starts`` with seeds 0 and 1, each with an empty and a filled
+  ledger), the one C call of the solve (``pba.solve_loop_sequences``) for
+  its first sequence (S = 1) and for all four (S = 4), beside one solo call
+  (``pba._solve_loop_cuda``) and four: each call's device µs by kernel, from
+  a session that kept every launch's device record.
 
 Prints one JSON object with the card's name and power limit.  Needs a CUDA
 card.
@@ -74,7 +82,7 @@ import torch
 from dsopp_tpu_torch.testing import bits
 from dsopp_tpu_torch.testing.parity import cuda_ms
 from dsopp_tpu_torch.testing.paths import card_line
-from dsopp_tpu_torch.testing.profiling import profiled
+from dsopp_tpu_torch.testing.profiling import launch_records, profiled
 
 REPS = 200
 
@@ -94,7 +102,8 @@ def device_work(fn, reps: int = 20) -> dict:
     for e in events:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / reps
     return dict(device_us=sum(by_name.values()), device_events_per_call=len(events) / reps,
-                device_names=sorted(by_name), device_us_by_name=by_name)
+                device_names=sorted(by_name), device_us_by_name=by_name,
+                complete=launch_records(prof)["complete"])
 
 
 STATUS_WINDOWS = ("standart", "dense")
@@ -374,8 +383,35 @@ def sensor_rows() -> dict:
     return out
 
 
+def sequence_rows() -> dict:
+    """{window: {call: ms and device work}} of the solve's one C call over a
+    sequence axis at S = 1 and S = 4 beside one and four solo calls."""
+    from dsopp_tpu_torch.solvers import pba
+    from dsopp_tpu_torch.testing.paths import render_path
+    if not hasattr(pba, "solve_loop_sequences"):
+        return {}
+    seq = render_path("standart")
+    out = {}
+    for name, (path, every) in bits.SOLVE_WINDOWS.items():
+        tracker, _ = bits._tracker(seq, path, every)
+        model, opts = tracker.models[0], tracker.pba_opts
+        starts = []
+        for seed in (0, 1):
+            starts.extend(bits.solve_starts(tracker.window, model, opts, seed).values())
+        stack = pba.stack_windows(starts)
+        singles = [pba.window_at(stack, b) for b in range(len(starts))]
+        calls = dict(
+            s1=lambda: pba.solve_loop_sequences(stack, model, opts, (0,)),
+            s4=lambda: pba.solve_loop_sequences(stack, model, opts),
+            solo=lambda: pba._solve_loop_cuda(singles[0], model, opts),
+            solo4=lambda: [pba._solve_loop_cuda(w, model, opts) for w in singles])
+        out[name] = {key: dict(ms=cuda_ms(fn, REPS), **device_work(fn))
+                     for key, fn in calls.items()}
+    return out
+
+
 CASES = {"frame": frame_rows, "status": status_rows, "marg": marg_rows, "kf": kf_rows,
-         "sensor": sensor_rows}
+         "sensor": sensor_rows, "seq": sequence_rows}
 
 
 def main(argv) -> int:

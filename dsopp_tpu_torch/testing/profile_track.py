@@ -105,8 +105,12 @@ KERNEL_GROUPS = {
                    "heavy_rank_kernel"),
 }
 # a stage's function -> its name in an earlier design, timed in its place in a
-# parent tree that lacks it (K5 was the flows alone, the decision in torch)
-EARLIER_NAMES = {"frame_statistics": "mean_square_flows"}
+# parent tree that lacks it (K5 was the flows alone, the decision in torch; the
+# keyframe backend's policy and fold were one-sequence calls)
+EARLIER_NAMES = {"frame_statistics": "mean_square_flows", "flags_sequences": "flags_device",
+                 "marginalize_sequences": "_marginalize_device",
+                 "_flags_sequences_cuda": "flags_device_cuda",
+                 "_marginalize_sequences_cuda": "_marginalize_cuda"}
 # (module, function) -> stage name
 STAGES = {
     (device_loop, "_frontend_core"): "frontend",
@@ -121,11 +125,11 @@ STAGES = {
     (fused_keyframe, "_activation_kernel"): "kf_activation",
     (fused_keyframe, "_refine_idepth_kernel"): "kf_refine",
     (fused_keyframe, "_activation_scatter"): "kf_scatter",
-    (fused_keyframe, "_solve_loop_device"): "kf_ba_solve",
-    (device_loop, "flags_device"): "kf_flags",
-    (device_loop, "_marginalize_device"): "kf_marginalize",
-    (marginalization, "flags_device_cuda"): "kf_policy_kernel",   # K15p's call
-    (pba, "_marginalize_cuda"): "kf_fold_kernel",                 # K15's call
+    (device_loop, "solve_loop_sequences"): "kf_ba_solve",
+    (device_loop, "flags_sequences"): "kf_flags",
+    (device_loop, "marginalize_sequences"): "kf_marginalize",
+    (marginalization, "_flags_sequences_cuda"): "kf_policy_kernel",   # K15p's call
+    (pba, "_marginalize_sequences_cuda"): "kf_fold_kernel",           # K15's call
     (device_loop, "build_frontend_state"): "kf_depth_maps",
     # the BA solve's one C call (K7-K11 issued from C)
     (kernels, "BA_SOLVE_LOOP"): "ba_solve_loop",
@@ -207,8 +211,8 @@ class SyncCounts:
     marginalization policy through the ledger fold."""
 
     SPANS = ((device_loop, "keyframe_update", "keyframe_backend"),
-             (device_loop, "flags_device", "marginalization"),
-             (device_loop, "_marginalize_device", "marginalization"))
+             (device_loop, "flags_sequences", "marginalization"),
+             (device_loop, "marginalize_sequences", "marginalization"))
 
     def __init__(self, caught):
         self.caught = caught
@@ -218,6 +222,8 @@ class SyncCounts:
 
     def __enter__(self):
         for module, name, span in self.SPANS:
+            if not hasattr(module, name) and name in EARLIER_NAMES:
+                name = EARLIER_NAMES[name]      # a parent tree's
             fn = getattr(module, name)
             self.saved.append((module, name, fn))
             setattr(module, name, self.wrap(fn, span, name == "keyframe_update"))

@@ -53,7 +53,9 @@ def launch_records(prof) -> dict:
       for a call made outside an operator: a hand-written kernel's);
       ``unmatched_device``: device records whose correlation id no host call
       of the session carries;
-    * ``complete``: both are 0.
+    * ``complete``: both are 0;
+    * ``outside_ops``: the host calls made outside any operator (the
+      hand-written kernels' launches).
 
     A session can lose device records, in runs of them, while the host
     calls are all kept: the host calls count the launches.
@@ -79,4 +81,5 @@ def launch_records(prof) -> dict:
                 threads=collections.Counter(h[3] for h in host),
                 unmatched_ops=collections.Counter(ops.get(h[2], "none") if h[2] else "none"
                                                   for h in unmatched),
+                outside_ops=sum(1 for h in host if not h[2] or h[2] not in ops),
                 names=collections.Counter(n for _, n in device))

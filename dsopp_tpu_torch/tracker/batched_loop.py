@@ -14,11 +14,25 @@ re-track's chunks 1..21 run in one chain for the sequences that escalated
 only (the JAX package runs them for every sequence and selects, as
 ``lax.cond`` under ``vmap`` is a select).
 
-The keyframe backend runs, for each sequence whose keyframe decision (or
-forced keyframe) is set, :func:`device_loop.keyframe_update` unchanged on
-that sequence's views of the stacked state (its kernels K7–K16 at one
-sequence, as on every path), and its result is copied back into the
-sequence's slot.
+The keyframe backend runs :func:`device_loop.keyframe_update`'s phases for
+the S sequences whose keyframe decision (or forced keyframe) is set:
+
+1. for each of them, on its views of the stacked state, the push, its
+   immature bank (K12), the activation (K13) and the refinement and pairing
+   (K14) (``fused_keyframe.fused_keyframe_front``), copied back into its
+   slot;
+2. once for all S: the windowed BA
+   solve (K7–K11 in one C call, each kernel one launch for the S
+   sequences), the batch's new affine and poses, the min-distance
+   controller, the marginalization policy (K15p, one launch), the snapshot,
+   the marginalization pass (K7, K8) and the ledger fold (K15, one launch),
+   the compaction and the immature banks' permutation
+   (``device_loop.keyframe_solver_sequences``, which the solo
+   ``keyframe_update`` runs on a stack of one): written into the stacked
+   window in place where only some of the B sequences keyframe, new tensors
+   where all of them do;
+3. for each of them, on its views, the frontend depth maps (K16), copied
+   back.
 
 Semantics: there is no interaction between sequences.  Each kernel runs a
 sequence's work with the arithmetic and reduction order of its own launch,
@@ -38,8 +52,12 @@ import torch
 from dsopp_tpu_torch.core.lie import SE3
 from dsopp_tpu_torch.solvers.pba import Window, newest_slot
 from dsopp_tpu_torch.tracker.device_loop import (DeviceLoopConfig, DeviceTrackerState,
-                                                 PipelinedTracker, TickDiag, keyframe_update)
-from dsopp_tpu_torch.tracker.depth_map import STAT_KF_RMSE, STAT_NEED, STAT_RMSE_LAST0
+                                                 PipelinedTracker, TickDiag,
+                                                 keyframe_embedding, keyframe_solver_sequences,
+                                                 with_rows)
+from dsopp_tpu_torch.tracker.depth_map import (STAT_KF_RMSE, STAT_NEED, STAT_RMSE_LAST0,
+                                               build_frontend_state)
+from dsopp_tpu_torch.tracker.fused_keyframe import fused_keyframe_front
 from dsopp_tpu_torch.tracker.fused_tick import fused_regular_tick
 
 # TickDiag's fields that only a keyframe fills (None in a regular frame's
@@ -159,30 +177,41 @@ def batched_device_tick(states: DeviceTrackerState, images, frame_ids, force_kfs
                            rmse_last0=out.stats[:, STAT_RMSE_LAST0],
                            kf_rmse=out.stats[:, STAT_KF_RMSE])
     keyframes = [None] * batch
-    if any(need):
-        # a keyframe writes its slot in place: these two must not be the
-        # tick's affine (the diagnostics' one) nor the state an earlier
-        # tick's diagnostics hold
-        base = base._replace(last_affine=out.affine.clone(),
-                             min_distance=base.min_distance.clone())
-    for b in (b for b in range(batch) if need[b]):
-        seq = unstack_state(base, b)
-        ku = keyframe_update(seq.window, seq.immature, tuple(m[b] for m in out.maps),
-                             out.pose_q[b], out.pose_t[b], out.affine[b], int(frame_ids[b]),
-                             seq.min_distance, models, cfg, exposure[b], mask=mask)
-        _copy_into((seq.window, seq.immature, seq.depth_idepth, seq.depth_weight,
-                    seq.level_points, seq.flow_points, seq.min_distance, seq.last_affine),
-                   (ku.window, ku.immature, ku.depth_idepth, ku.depth_weight,
-                    ku.level_points, ku.flow_points, ku.min_distance, ku.batch["new_affine"]))
-        kb = ku.batch
-        keyframes[b] = TickDiag(
-            is_keyframe=True, escalated=out.escalated[b], rmse_chunk0=out.rmse_chunk0[b],
-            pose_q=out.pose_q[b], pose_t=out.pose_t[b], affine=out.affine[b],
-            rmse=out.rmse[b], flow=out.flow[b], flow_no_rot=out.flow_no_rot[b],
-            num_valid_align=out.num_valid[b], t_kf_frame_mat=out.t_kf_frame_mat[b],
-            energy=kb["energy"], num_valid_solve=kb["num_valid"], n_active=kb["n_active"],
-            n_activated=kb["n_activated"], min_distance=ku.min_distance, **ku.snap,
-            host_stats=None if host is None else host[b])
+    seqs = tuple(b for b in range(batch) if need[b])
+    if seqs:
+        maps = {b: tuple(m[b] for m in out.maps) for b in seqs}
+        fronts = []
+        for b in seqs:
+            seq = unstack_state(base, b)
+            front = fused_keyframe_front(
+                seq.window, models[0], seq.immature, maps[b][0], out.pose_q[b], out.pose_t[b],
+                out.affine[b], int(frame_ids[b]), seq.min_distance, cfg.refine, cfg.huber_sigma,
+                cfg.immature_per_frame, exposure[b], mask=mask,
+                embed=keyframe_embedding(maps[b], cfg))
+            _copy_into((seq.window, seq.immature), (front.window, front.immature))
+            fronts.append(front)
+        half = keyframe_solver_sequences(
+            base.window, base.immature, base.min_distance, seqs,
+            torch.cat([f.slot for f in fronts]), torch.stack([f.n_active for f in fronts]),
+            models[0], cfg)
+        base = base._replace(window=half.window, immature=half.immature,
+                             min_distance=with_rows(base.min_distance, seqs, half.min_distance),
+                             last_affine=with_rows(base.last_affine, seqs, half.new_affine))
+        for z, b in enumerate(seqs):
+            seq = unstack_state(base, b)
+            _copy_into((seq.depth_idepth, seq.depth_weight, seq.level_points, seq.flow_points),
+                       build_frontend_state(seq.window, models[0], maps[b], cfg.height,
+                                            cfg.width, cfg.num_levels, cfg.frontend_points))
+            keyframes[b] = TickDiag(
+                is_keyframe=True, escalated=out.escalated[b], rmse_chunk0=out.rmse_chunk0[b],
+                pose_q=out.pose_q[b], pose_t=out.pose_t[b], affine=out.affine[b],
+                rmse=out.rmse[b], flow=out.flow[b], flow_no_rot=out.flow_no_rot[b],
+                num_valid_align=out.num_valid[b], t_kf_frame_mat=out.t_kf_frame_mat[b],
+                energy=half.energy[z], num_valid_solve=half.num_valid[z],
+                n_active=fronts[z].n_active, n_activated=fronts[z].n_activated,
+                min_distance=half.min_distance[z],
+                **{name: x[z] for name, x in half.snap.items()},
+                host_stats=None if host is None else host[b])
     diag = BatchedTickDiag(
         is_keyframe=need, escalated=out.escalated, rmse_chunk0=out.rmse_chunk0,
         pose_q=out.pose_q, pose_t=out.pose_t, affine=out.affine, rmse=out.rmse,

@@ -25,8 +25,10 @@ import torch
 
 from dsopp_tpu_torch.core.lie import SE3
 from dsopp_tpu_torch.features.embedder import make_embedder
-from dsopp_tpu_torch.solvers.pba import (PBAOptions, Window, _marginalize_device, newest_slot,
-                                         pose_covariances)
+from dsopp_tpu_torch.solvers.pba import (PBAOptions, Window, _as_stack, _device_sequences,
+                                         marginalize_sequences, newest_slot, pose_covariances,
+                                         slot_rows, solve_loop_sequences, take_slots,
+                                         window_at, with_sequences)
 from dsopp_tpu_torch.solvers.pose_alignment import AlignmentOptions
 from dsopp_tpu_torch.track.state import AttachedFrame, MarginalizedKeyframe, sample_semantics
 from dsopp_tpu_torch.tracker.activation import MAX_DISTANCE, MIN_DISTANCE, P_GAIN
@@ -34,9 +36,9 @@ from dsopp_tpu_torch.tracker.depth_estimation import ImmaturePoints
 from dsopp_tpu_torch.tracker.depth_map import (STAT_FLOW, STAT_FLOW_NO_ROT, STAT_KF_RMSE,
                                                STAT_MATRIX, STAT_NEED, STAT_RMSE,
                                                STAT_RMSE_LAST0, build_frontend_state)
-from dsopp_tpu_torch.tracker.fused_keyframe import fused_keyframe_push
+from dsopp_tpu_torch.tracker.fused_keyframe import fused_keyframe_front
 from dsopp_tpu_torch.tracker.fused_tick import fused_regular_tick
-from dsopp_tpu_torch.tracker.marginalization import flags_device
+from dsopp_tpu_torch.tracker.marginalization import flags_sequences
 
 
 class DeviceLoopConfig(NamedTuple):
@@ -127,47 +129,124 @@ class KeyframeUpdate(NamedTuple):
     snap: dict
 
 
+def keyframe_embedding(maps, cfg: DeviceLoopConfig):
+    """The keyframe's frame-embedder channels for the window's channel bank
+    (None with the identity embedder: C = 1)."""
+    return None if cfg.embedder == "identity" else _embedder(cfg.embedder)(maps[0][0])
+
+
 def keyframe_update(window: Window, immature: ImmaturePoints, maps, pose_q, pose_t,
                     affine, frame_id: int, min_distance, models,
                     cfg: DeviceLoopConfig, exposure, mask=None,
                     covariances: bool = False) -> KeyframeUpdate:
-    """The keyframe backend shared by ``device_tick`` and the bootstrap.
-    ``mask``: [H, W] bool candidate-selection mask or None.  A frame embedder
-    other than the identity embeds the keyframe's intensity for the window's
-    channel bank; the frontend and the epipolar tracer stay C = 1.
-    ``covariances``: the batch also carries the solved window's relative
-    pose covariances (``cov_rel`` [K, K, 6, 6], :func:`pose_covariances`)
-    and its frame ids (``cov_ids`` [K], -1 at a dead slot), before the
-    marginalization."""
-    dtype = window.eps.dtype
-    embed = None if cfg.embedder == "identity" else _embedder(cfg.embedder)(maps[0][0])
-    kf = fused_keyframe_push(window, models[0], immature, maps[0], pose_q, pose_t,
-                             affine, frame_id, min_distance, cfg.pba_opts, cfg.refine,
-                             cfg.huber_sigma, cfg.immature_per_frame, exposure, mask=mask,
-                             embed=embed)
-    win, immature, batch = kf.window, kf.immature, kf.batch
+    """The keyframe backend shared by ``device_tick`` and the bootstrap, in
+    three phases: the push, its immature bank and the activation
+    (``fused_keyframe.fused_keyframe_front``); the solver half
+    (:func:`keyframe_solver_sequences` on a stack of this one sequence); the
+    frontend depth maps.  ``mask``: [H, W] bool candidate-selection mask or
+    None.  A frame embedder other than the identity embeds the keyframe's
+    intensity for the window's channel bank; the frontend and the epipolar
+    tracer stay C = 1.  ``covariances``: the batch also carries the solved
+    window's relative pose covariances (``cov_rel`` [K, K, 6, 6],
+    :func:`pose_covariances`) and its frame ids (``cov_ids`` [K], -1 at a
+    dead slot), before the marginalization."""
+    front = fused_keyframe_front(window, models[0], immature, maps[0], pose_q, pose_t, affine,
+                                 frame_id, min_distance, cfg.refine, cfg.huber_sigma,
+                                 cfg.immature_per_frame, exposure, mask,
+                                 keyframe_embedding(maps, cfg))
+    half = keyframe_solver_sequences(
+        _as_stack(front.window), ImmaturePoints(*(x[None] for x in front.immature)),
+        min_distance.reshape(1), (0,), front.slot, front.n_active.reshape(1), models[0], cfg,
+        covariances)
+    win = window_at(half.window, 0)
+    batch = dict(energy=half.energy[0], num_valid=half.num_valid[0], n_active=front.n_active,
+                 n_activated=front.n_activated, new_affine=half.new_affine[0],
+                 poses_mat=half.poses_mat[0])
     if covariances:
-        batch = dict(batch, cov_rel=pose_covariances(win, models[0], cfg.pba_opts)[1],
-                     cov_ids=torch.where(win.frame_valid, win.frame_id, -1))
-    min_distance = torch.clamp(
-        min_distance + (batch["n_active"].to(dtype) - cfg.desired_points) * P_GAIN,
-        MIN_DISTANCE, MAX_DISTANCE)
-    frame_flags, lm_flags, new_outliers, perm = flags_device(
-        win, immature.valid, cfg.window_min, cfg.window_max, cfg.max_marg_fraction)
-    snap = dict(frame_flags=frame_flags, kf_frame_id=win.frame_id,
-                kf_poses_mat=batch["poses_mat"], kf_affine=win.affine(),
-                kf_exposure=win.exposure, lm_uv=win.lm_uv, lm_idepth=win.lm_idepth,
-                lm_valid=win.lm_valid, lm_outlier=win.lm_outlier,
-                lm_baseline=win.lm_baseline)
-    win = win.replace(lm_outlier=win.lm_outlier | new_outliers,
-                      frame_marg=frame_flags, lm_marg_flag=lm_flags)
-    win = _marginalize_device(win, models[0], perm, cfg.pba_opts)
-    immature = ImmaturePoints(*(x[perm] for x in immature))
-    immature = immature._replace(valid=immature.valid & win.frame_valid[:, None])
+        batch.update({name: x[0] for name, x in half.covariances.items()})
     idep, wei, points, flow_pts = build_frontend_state(
         win, models[0], maps, cfg.height, cfg.width, cfg.num_levels, cfg.frontend_points)
-    return KeyframeUpdate(win, immature, idep, wei, points, flow_pts, min_distance,
-                          batch, snap)
+    return KeyframeUpdate(win, ImmaturePoints(*(x[0] for x in half.immature)), idep, wei,
+                          points, flow_pts, half.min_distance[0], batch,
+                          {name: x[0] for name, x in half.snap.items()})
+
+
+class SolverHalf(NamedTuple):
+    """What :func:`keyframe_solver_sequences` returns of its S sequences."""
+    window: Window              # the stack after the fold
+    immature: ImmaturePoints    # the stacked banks after the permutation
+    energy: torch.Tensor        # [S] the solve's energy
+    num_valid: torch.Tensor     # [S] its count
+    new_affine: torch.Tensor    # [S, 2] the keyframe's solved affine
+    poses_mat: torch.Tensor     # [S, K, 4, 4] the solved poses
+    min_distance: torch.Tensor  # [S] the controller's next value
+    snap: dict                  # TickDiag's snapshot fields, [S, ...] each
+    covariances: dict           # cov_rel [S, K, K, 6, 6] and cov_ids [S, K], or None
+
+
+def keyframe_solver_sequences(window: Window, immature: ImmaturePoints, min_distance, seqs: tuple,
+                              slots, n_active, model, cfg: DeviceLoopConfig,
+                              covariances: bool = False) -> SolverHalf:
+    """The solver half of :func:`keyframe_update` for the keyframing
+    sequences ``seqs`` (a host tuple) of a stacked window, its stacked
+    immature banks and ``min_distance`` [B], once for all of them: the
+    windowed BA solve (K7–K11 in one C call), the new affine and poses, with
+    ``covariances`` each solved window's pose covariances, the min-distance
+    controller, the policy (K15p), the snapshot, the flags into the window,
+    the fold (the marginalization pass's K7 and K8, then K15) with the
+    compaction, and the banks' permutation; each kernel one launch for the S
+    sequences.  ``slots`` [S] long: each keyframe's slot; ``n_active`` [S]:
+    its activation's count.  Where ``seqs`` is every sequence of the stack
+    in order, no tensor of the inputs is written; else the window is
+    written in place at those sequences (:func:`pba.with_sequences`).
+    Reads nothing on the host."""
+    opts = cfg.pba_opts
+    dtype, dev = window.eps.dtype, window.eps.device
+    rows = _device_sequences(tuple(seqs), dev, torch.int64)
+    whole = tuple(seqs) == tuple(range(window.t_lin_q.shape[0]))
+
+    def take(x):
+        return x if whole else x.index_select(0, rows)
+
+    solved, energy, num_valid = solve_loop_sequences(window, model, opts, seqs)
+    window = with_sequences(window, seqs, solved)
+    affine = solved["affine0"] + solved["eps"][..., 6:]                  # [S, K, 2]
+    new_affine = torch.gather(affine, 1, slots.view(-1, 1, 1).expand(-1, 1, 2))[:, 0]
+    poses_mat = (SE3(solved["t_lin_q"], solved["t_lin_t"])
+                 @ SE3.exp(solved["eps"][..., :6])).matrix()
+    cov = None
+    if covariances:
+        cov = dict(cov_rel=torch.stack([pose_covariances(window_at(window, b), model, opts)[1]
+                                        for b in seqs]),
+                   cov_ids=take(torch.where(window.frame_valid, window.frame_id, -1)))
+    min_distance = torch.clamp(
+        take(min_distance) + (n_active.to(dtype) - cfg.desired_points) * P_GAIN,
+        MIN_DISTANCE, MAX_DISTANCE)
+    frame_flags, lm_flags, new_outliers, perm = flags_sequences(
+        window, immature.valid, cfg.window_min, cfg.window_max, cfg.max_marg_fraction, seqs)
+    snap = dict(frame_flags=frame_flags, kf_frame_id=take(window.frame_id),
+                kf_poses_mat=poses_mat, kf_affine=affine, kf_exposure=take(window.exposure),
+                lm_uv=take(window.lm_uv), lm_idepth=solved["lm_idepth"],
+                lm_valid=take(window.lm_valid), lm_outlier=solved["lm_outlier"],
+                lm_baseline=solved["lm_baseline"])
+    window = with_sequences(window, seqs, dict(lm_outlier=solved["lm_outlier"] | new_outliers,
+                                               frame_marg=frame_flags, lm_marg_flag=lm_flags))
+    compact = marginalize_sequences(window, model, perm, opts, seqs)
+    slots = slot_rows(seqs, perm)
+    banks = ImmaturePoints(*(take_slots(x, slots) for x in immature))
+    banks = banks._replace(valid=banks.valid & compact.frame_valid[..., None])
+    return SolverHalf(with_sequences(window, seqs, compact),
+                      ImmaturePoints(*(with_rows(x, seqs, v) for x, v in zip(immature, banks))),
+                      energy, num_valid, new_affine, poses_mat, min_distance, snap, cov)
+
+
+def with_rows(x, seqs: tuple, value):
+    """``x`` [B, ...] with ``value`` [S, ...] at the sequences ``seqs``:
+    ``value`` itself where ``seqs`` is every sequence in order, else a new
+    tensor (``x`` is not written)."""
+    if tuple(seqs) == tuple(range(x.shape[0])):
+        return value
+    return x.index_copy(0, _device_sequences(tuple(seqs), x.device, torch.int64), value)
 
 
 _SNAP_KEYS = ("kf_frame_id", "kf_poses_mat", "kf_affine", "kf_exposure", "lm_uv",

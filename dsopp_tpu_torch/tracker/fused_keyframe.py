@@ -1,29 +1,35 @@
 """Keyframe push (counterpart of
-``dsopp_tpu/tracker/fused_keyframe.py::fused_keyframe_push``): push the
-frame, build its immature bank from fresh candidates, activate, and run the
-windowed LM solve.  ``embed``: the keyframe's [C, H, W] frame-embedder
-channels for a window of C > 1 channels, whose map (kernel K1) goes into the
-window's channel bank."""
+``dsopp_tpu/tracker/fused_keyframe.py::fused_keyframe_push`` up to its
+solve): push the frame, build its immature bank from fresh candidates and
+activate (:func:`fused_keyframe_front`).  ``embed``: the keyframe's [C, H, W]
+frame-embedder channels for a window of C > 1 channels, whose map (kernel
+K1) goes into the window's channel bank.  The windowed LM solve that the
+JAX function ends with runs in ``device_loop.keyframe_solver_sequences``,
+once for every sequence that keyframes (one for the solo tracker)."""
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import torch
+
 from dsopp_tpu_torch.core.interpolate import sample
 from dsopp_tpu_torch.core.pattern import shift_pattern
 from dsopp_tpu_torch.features.extractor import select_candidates
 from dsopp_tpu_torch.features.pyramid import build_channel_map
-from dsopp_tpu_torch.solvers.pba import (PBAOptions, Window, _solve_loop_device, push_frame_slot,
-                                         put_slot, slot_mask)
+from dsopp_tpu_torch.solvers.pba import Window, push_frame_slot, put_slot, slot_mask
 from dsopp_tpu_torch.tracker.activation import (_activation_kernel, _activation_scatter,
                                                 _refine_idepth_kernel)
 from dsopp_tpu_torch.tracker.depth_estimation import ImmaturePoints, make_immature_points
 
 
-class FusedKeyframeResult(NamedTuple):
-    window: Window
+class KeyframeFront(NamedTuple):
+    """The keyframe push before the solve."""
+    window: Window              # the frame pushed, its points activated
     immature: ImmaturePoints
-    batch: dict
+    slot: torch.Tensor          # [1] long: the pushed frame's slot
+    n_active: torch.Tensor
+    n_activated: torch.Tensor
 
 
 def immature_bank(pixel_map0, num_points: int, mask=None) -> ImmaturePoints:
@@ -42,11 +48,12 @@ def set_bank(immature: ImmaturePoints, slot, bank: ImmaturePoints) -> ImmaturePo
     return ImmaturePoints(*(put_slot(x, at, v) for x, v in zip(immature, bank)))
 
 
-def fused_keyframe_push(window: Window, model, immature: ImmaturePoints, pixel_map0,
-                        pose_q, pose_t, affine, frame_id: int, min_distance,
-                        opts: PBAOptions, refine: bool, huber_sigma: float,
-                        immature_per_frame: int, exposure, mask=None,
-                        embed=None) -> FusedKeyframeResult:
+def fused_keyframe_front(window: Window, model, immature: ImmaturePoints, pixel_map0, pose_q,
+                         pose_t, affine, frame_id: int, min_distance, refine: bool,
+                         huber_sigma: float, immature_per_frame: int, exposure, mask=None,
+                         embed=None) -> KeyframeFront:
+    """The push, the frame's immature bank (K12), the activation (K13) and,
+    with ``refine``, the refinement and pairing (K14)."""
     channels = 1 if embed is None else embed.shape[0]
     if channels != window.num_channels:
         raise ValueError(f"embedder produced {channels} channels for a "
@@ -67,8 +74,4 @@ def fused_keyframe_push(window: Window, model, immature: ImmaturePoints, pixel_m
                                                            activate, huber_sigma)
     window, immature, n_activated = _activation_scatter(window, immature, activate, delete,
                                                         idepth, selected)
-    window, energy, num_valid = _solve_loop_device(window, model, opts)
-    batch = dict(energy=energy, num_valid=num_valid, n_active=n_active,
-                 n_activated=n_activated, new_affine=window.affine().index_select(0, slot)[0],
-                 poses_mat=window.poses().matrix())
-    return FusedKeyframeResult(window, immature, batch)
+    return KeyframeFront(window, immature, slot, n_active, n_activated)

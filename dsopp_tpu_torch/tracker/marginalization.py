@@ -15,7 +15,9 @@ tensors take the plain version, CUDA tensors kernel K15p
 (``csrc/marg_policy.cu``), which counts the valid immature points and
 composes the frames' positions itself and reads nothing on the host.
 :func:`kept_first_perm` is plain torch: the kernel writes the permutation with
-the flags.
+the flags.  :func:`flags_sequences` takes S sequences of a stacked window in
+one launch (the kernel's grid z), :func:`flags_device_cuda` is its case of
+one.
 """
 
 from __future__ import annotations
@@ -23,7 +25,8 @@ from __future__ import annotations
 import torch
 
 from dsopp_tpu_torch import kernels
-from dsopp_tpu_torch.solvers.pba import RES_OK, Window, newest_slot
+from dsopp_tpu_torch.solvers.pba import (RES_OK, Window, _kernel_sequences, newest_slot,
+                                         sequence_list, stack_size, window_at)
 
 KEEP_FRAMES_FROM_END = 2
 MIN_FRAME_AGE = 1
@@ -113,36 +116,67 @@ def flags_device_cuda(window: Window, immature_valid, minimum_size: int, maximum
     window's raw tensors and ``immature_valid`` in one C call (checks, the
     outputs' ``torch.empty`` and the launch: no other torch operator).  The
     kernel composes the frames' positions T_lin·exp(ε) itself, within
-    ``testing/parity.py::KERNEL_POSE_ULPS`` of ``window.poses()``."""
-    k, n = window.num_slots, window.num_landmark_slots
+    ``testing/parity.py::KERNEL_POSE_ULPS`` of ``window.poses()``.  The
+    one-sequence case of :func:`_flags_sequences_cuda`."""
+    return _flags_sequences_cuda(window, immature_valid, (0,), minimum_size, maximum_size,
+                                 maximum_marginalized_fraction, stacked=False)
+
+
+def _flags_sequences_cuda(windows: Window, immature_valid, seqs: tuple, minimum_size: int,
+                          maximum_size: int, maximum_marginalized_fraction: float,
+                          stacked: bool = True):
+    """Kernel K15p for the S sequences ``seqs`` (a checked host list) of a
+    stacked window and its stacked ``immature_valid`` [B, K, M], one block a
+    sequence in one launch → the outputs of :func:`flags_device_plain`, each
+    with a leading [S] axis.  ``stacked=False``: one window, ``seqs`` (0,),
+    the inputs and outputs without the sequence axis."""
+    lead = windows.t_lin_q.shape[:1] if stacked else ()
+    batch = lead[0] if stacked else 1
+    k, n = windows.t_lin_q.shape[-2], windows.lm_uv.shape[-2]
     if k > _POLICY_MAX_FRAMES:
         raise ValueError(f"marg_policy: {k} frame slots exceed the kernel's limit of "
                          f"{_POLICY_MAX_FRAMES}")
     check = kernels.check
-    check(window.frame_valid, "frame_valid", (k,), torch.bool)
+    check(windows.frame_valid, "frame_valid", lead + (k,), torch.bool)
     for name in ("lm_valid", "lm_outlier"):
-        check(getattr(window, name), name, (k, n), torch.bool)
+        check(getattr(windows, name), name, lead + (k, n), torch.bool)
     for name in ("lm_inliers", "lm_opt_count"):
-        check(getattr(window, name), name, (k, n), torch.int32)
-    check(window.frame_id, "frame_id", (k,), torch.int32)
-    check(window.res_status, "res_status", (k, k, n), torch.int32)
-    check(window.t_lin_q, "t_lin_q", (k, 4))
-    check(window.t_lin_t, "t_lin_t", (k, 3))
-    check(window.eps, "eps", (k, 8))
+        check(getattr(windows, name), name, lead + (k, n), torch.int32)
+    check(windows.frame_id, "frame_id", lead + (k,), torch.int32)
+    check(windows.res_status, "res_status", lead + (k, k, n), torch.int32)
+    check(windows.t_lin_q, "t_lin_q", lead + (k, 4))
+    check(windows.t_lin_t, "t_lin_t", lead + (k, 3))
+    check(windows.eps, "eps", lead + (k, 8))
     m = immature_valid.shape[-1]
-    check(immature_valid, "immature_valid", (k, m), torch.bool)
-    dev = window.eps.device
-    frame_flags = torch.empty((k,), dtype=torch.bool, device=dev)
-    lm_flags = torch.empty((k, n), dtype=torch.bool, device=dev)
-    new_outliers = torch.empty((k, n), dtype=torch.bool, device=dev)
-    perm = torch.empty((k,), dtype=torch.int64, device=dev)
-    kernels.MARG_POLICY(window.frame_valid, window.lm_valid, window.lm_outlier,
-                        window.lm_inliers, window.lm_opt_count, window.frame_id,
-                        window.res_status, window.t_lin_q, window.t_lin_t, window.eps,
+    check(immature_valid, "immature_valid", lead + (k, m), torch.bool)
+    dev = windows.eps.device
+    own = (len(seqs),) if stacked else ()
+    frame_flags = torch.empty(own + (k,), dtype=torch.bool, device=dev)
+    lm_flags = torch.empty(own + (k, n), dtype=torch.bool, device=dev)
+    new_outliers = torch.empty(own + (k, n), dtype=torch.bool, device=dev)
+    perm = torch.empty(own + (k,), dtype=torch.int64, device=dev)
+    kernels.MARG_POLICY(windows.frame_valid, windows.lm_valid, windows.lm_outlier,
+                        windows.lm_inliers, windows.lm_opt_count, windows.frame_id,
+                        windows.res_status, windows.t_lin_q, windows.t_lin_t, windows.eps,
                         immature_valid, k, n, m, minimum_size, maximum_size,
                         1.0 - maximum_marginalized_fraction, frame_flags, lm_flags,
-                        new_outliers, perm)
+                        new_outliers, perm, len(seqs), _kernel_sequences(seqs, batch, dev))
     return frame_flags, lm_flags, new_outliers, perm
+
+
+def flags_sequences(windows: Window, immature_valid, minimum_size: int, maximum_size: int,
+                    maximum_marginalized_fraction: float, seqs=None):
+    """:func:`flags_device` of the sequences ``seqs`` (a host list; None: all)
+    of a stacked window and its stacked ``immature_valid`` [B, K, M] → its
+    four outputs, each with a leading [S] axis.  Kernel K15p in one launch
+    on CUDA tensors; the plain version once per sequence on CPU ones."""
+    seqs = sequence_list(seqs, stack_size(windows))
+    if windows.frame_valid.is_cuda:
+        return _flags_sequences_cuda(windows, immature_valid, seqs, minimum_size,
+                                     maximum_size, maximum_marginalized_fraction)
+    outs = [flags_device_plain(window_at(windows, b), immature_valid[b], minimum_size,
+                               maximum_size, maximum_marginalized_fraction) for b in seqs]
+    return tuple(torch.stack(xs) for xs in zip(*outs))
 
 
 def flags_device(window: Window, immature_valid, minimum_size: int, maximum_size: int,

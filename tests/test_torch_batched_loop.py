@@ -19,13 +19,19 @@ keyframes, poses and trajectories.  Beside them:
   perturbed chunks run for that sequence only, every sequence's state equal
   to the bit to its solo tick;
 * K1, K3, K4 and K5's plain versions with the leading axis against B solo
-  calls (K3 on hypotheses of interleaved sequences).
+  calls (K3 on hypotheses of interleaved sequences);
+* one tick with every sequence forced to take a keyframe (the keyframe
+  backend's solver half once for the three sequences): against JAX's
+  ``batched_device_tick`` from the same converted states (the JAX tick's
+  compiled program reused: its forced flags are an argument), and each
+  sequence equal to the bit to its solo ``device_tick``.
 """
 
 import copy
 import dataclasses
 import functools
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -40,7 +46,7 @@ from dsopp_tpu_torch.testing import render_sequence
 from dsopp_tpu_torch.tracker import batched_loop as bl
 from dsopp_tpu_torch.tracker.depth_estimation import estimate_depths
 from dsopp_tpu_torch.tracker.depth_map import frame_statistics
-from dsopp_tpu_torch.tracker.device_loop import PipelinedTracker, device_tick
+from dsopp_tpu_torch.tracker.device_loop import PipelinedTracker, TickDiag, device_tick
 from dsopp_tpu_torch.tracker.fused_tick import CHUNK, _initialization_hypotheses
 from dsopp_tpu_torch.tracker.monocular import MonocularTracker, TrackerConfig
 
@@ -54,6 +60,7 @@ SEQUENCES = ((7, 0.08), (11, 0.06), (13, 0.10))    # (seed, advance) of each seq
 F64 = torch.float64
 POSE_TOL = 1e-7      # m, tests/test_torch_e2e_replay.py's REPLAY_TOL
 RTOL = 1e-9          # tests/test_torch_tracker.py's RTOL (no BA solve between)
+RTOL_SOLVE = 1e-7    # tests/test_torch_tracker.py's RTOL_SOLVE (across a windowed BA solve)
 
 CFG = TrackerConfig(
     num_frame_slots=7,
@@ -154,19 +161,20 @@ def test_replicated_batch_bitwise(seqs):
             np.testing.assert_array_equal(ma, mb)
 
 
-def _tick_both(seqs, cfg_change=None, state_change=None):
+def _tick_both(seqs, cfg_change=None, state_change=None, force=False):
     """One batched tick from the initialized trackers' states (each changed
     by ``state_change(b, state)``) and each sequence's solo ``device_tick``
-    from the same state → (batched state, diag, [(solo state, diag)])."""
+    from the same state, every sequence forced to take a keyframe with
+    ``force`` → (batched state, diag, [(solo state, diag)])."""
     pipes = [PipelinedTracker(_make_tracker(b)) for b in range(len(seqs))]
     cfg = pipes[0].cfg if cfg_change is None else cfg_change(pipes[0].cfg)
     states = [p.state if state_change is None else state_change(b, p.state)
               for b, p in enumerate(pipes)]
     images = torch.stack([s.images[INIT_FRAMES] for s in seqs])
-    solo = [device_tick(states[b], images[b], INIT_FRAMES, False, pipes[0].models, cfg)
+    solo = [device_tick(states[b], images[b], INIT_FRAMES, force, pipes[0].models, cfg)
             for b in range(len(seqs))]
     new, diag = bl.batched_device_tick(bl.stack_states(states), images, [INIT_FRAMES] * B,
-                                       [False] * B, pipes[0].models, pipes[0].mask, cfg)
+                                       [force] * B, pipes[0].models, pipes[0].mask, cfg)
     return new, diag, solo
 
 
@@ -186,6 +194,22 @@ def test_single_tick_parity(seqs):
         for name in ("pose_q", "pose_t", "affine", "rmse", "flow", "flow_no_rot",
                      "num_valid_align", "t_kf_frame_mat", "min_distance"):
             assert torch.equal(getattr(got, name), getattr(sdiag, name)), name
+
+
+def test_forced_keyframe_tick_parity(seqs):
+    """Every sequence forced to take a keyframe: the batched backend's
+    solver half runs once for the three sequences, and each sequence's
+    state and keyframe diagnostics equal its solo tick's to the bit."""
+    new, diag, solo = _tick_both(seqs, force=True)
+    assert diag.is_keyframe == (True,) * B
+    for b, (state, sdiag) in enumerate(solo):
+        _assert_state_equal(bl.unstack_state(new, b), state)
+        got = diag.sequence(b)
+        assert got.is_keyframe and sdiag.is_keyframe
+        for name in TickDiag._fields[TickDiag._fields.index("energy"):-1]:
+            a, w = getattr(got, name), getattr(sdiag, name)
+            assert a.shape == w.shape and torch.equal(a, w), name
+    assert bool((new.window.h_marg != 0).any())
 
 
 def test_retrack_runs_for_the_escalated_sequence_only(seqs):
@@ -246,6 +270,7 @@ def jax_tick():
     from dsopp_tpu.core.lie import SE3 as JSE3
     from dsopp_tpu.testing import render_sequence as jax_render
     from dsopp_tpu.tracker import batched_loop as jbl
+    from dsopp_tpu.tracker import device_loop as jdl
     from dsopp_tpu.tracker.device_loop import PipelinedTracker as JPipe
     from dsopp_tpu.tracker.monocular import MonocularTracker as JTracker
     from dsopp_tpu.tracker.monocular import TrackerConfig as JConfig
@@ -262,19 +287,45 @@ def jax_tick():
                       for i in range(INIT_FRAMES)])
         pipes.append(JPipe(t))
     states = jbl.stack_states([p.state for p in pipes])
-    # converted (copied) before the JAX tick, which donates the states
-    port_states = convert.stacked_device_tracker_state(state_fields(states))
+    # converted (copied) before the JAX tick, which donates the states; the
+    # forced tick starts from a copy of the same states
+    fields = state_fields(states)
+    port_states = convert.stacked_device_tracker_state(fields)
+    forced_states = jax.tree_util.tree_map(jnp.copy, states)
     images = np.stack([np.asarray(s.images[INIT_FRAMES], np.float64) for s in seqs])
-    j_states, j_diag = jbl.batched_device_tick(
-        states, jnp.asarray(images), jnp.full(B, INIT_FRAMES, jnp.int32), jnp.zeros(B, bool),
-        pipes[0].models, pipes[0].mask, pipes[0].cfg)
+    args = (jnp.asarray(images), jnp.full(B, INIT_FRAMES, jnp.int32))
+    # JAX's frontend of the forced tick: its immature banks are what the
+    # port's keyframe backend starts from, as tests/test_torch_tracker.py's
+    # keyframe test runs the backend from the JAX frontend's state (the
+    # zero-parallax points' sign noise of the epipolar update would change
+    # which points the activation takes)
+    front = jax.jit(jax.vmap(jdl._frontend_core, in_axes=(0, 0, 0, None, None, 0)),
+                    static_argnums=(4,))
+    j_front = front(forced_states, args[0], jnp.ones(B, bool), pipes[0].models, pipes[0].cfg,
+                    jnp.ones(B, jnp.float64))[0]
+    front_banks = convert.stacked_device_tracker_state(state_fields(j_front)).immature
+    j_states, j_diag = jbl.batched_device_tick(states, *args, jnp.zeros(B, bool),
+                                               pipes[0].models, pipes[0].mask, pipes[0].cfg)
+    j_forced, j_forced_diag = jbl.batched_device_tick(forced_states, *args, jnp.ones(B, bool),
+                                                      pipes[0].models, pipes[0].mask,
+                                                      pipes[0].cfg)
     cam = seqs[0].camera
     port = MonocularTracker(convert.pinhole(cam.fx, cam.fy, cam.cx, cam.cy, cam.image_size),
                             CFG, dtype=F64, device="cpu")
+    models, cfg = tuple(port.models), port.loop_config()
     new, diag = bl.batched_device_tick(port_states, torch.as_tensor(images), [INIT_FRAMES] * B,
-                                       [False] * B, tuple(port.models), None,
-                                       port.loop_config())
-    return dict(j_states=state_fields(j_states), j_diag=j_diag, new=new, diag=diag)
+                                       [False] * B, models, None, cfg)
+    regular_tick = bl.fused_regular_tick
+    bl.fused_regular_tick = lambda *a: regular_tick(*a)._replace(immature=front_banks)
+    try:
+        forced, forced_diag = bl.batched_device_tick(
+            convert.stacked_device_tracker_state(fields), torch.as_tensor(images),
+            [INIT_FRAMES] * B, [True] * B, models, None, cfg)
+    finally:
+        bl.fused_regular_tick = regular_tick
+    return dict(j_states=state_fields(j_states), j_diag=j_diag, new=new, diag=diag,
+                j_forced=state_fields(j_forced), j_forced_diag=j_forced_diag, forced=forced,
+                forced_diag=forced_diag)
 
 
 def test_batched_tick_matches_jax(jax_tick):
@@ -303,6 +354,35 @@ def test_batched_tick_matches_jax(jax_tick):
         w = np.asarray(want[name])[rows]
         assert_close(to_np(getattr(jax_tick["new"], name))[rows], w, rtol=RTOL,
                      atol=RTOL * max(float(np.abs(w).max()), 1e-12), err_msg=name)
+
+
+def test_forced_keyframe_tick_matches_jax(jax_tick):
+    """Every sequence forced to take a keyframe, the port's batched tick
+    against JAX's from the same converted states (the port's backend from
+    the JAX frontend's immature banks, as ``tests/test_torch_tracker.py``'s
+    keyframe test runs it), within that file's keyframe tolerances:
+    RTOL_SOLVE (1e-7 relative, of the largest entry absolute) on the solve's
+    energy, the min distance, the window's eps and idepths and the ledger;
+    n_active, n_activated, the count and frame_id equal."""
+    j_diag, diag = jax_tick["j_forced_diag"], jax_tick["forced_diag"]
+    assert diag.is_keyframe == (True,) * B
+    assert [bool(x) for x in np.asarray(j_diag.is_keyframe)] == [True] * B
+    for b in range(B):
+        got = diag.sequence(b)
+        for name in ("energy", "min_distance"):
+            want = np.asarray(getattr(j_diag, name))[b]
+            assert_close(getattr(got, name), want, rtol=RTOL_SOLVE,
+                         atol=RTOL_SOLVE * max(abs(float(want)), 1e-12), err_msg=f"{b} {name}")
+        for name in ("n_active", "n_activated", "num_valid_solve"):
+            assert int(getattr(got, name)) == int(np.asarray(getattr(j_diag, name))[b]), name
+    want = convert.stacked_device_tracker_state(jax_tick["j_forced"]).window
+    got = jax_tick["forced"].window
+    for name in ("eps", "lm_idepth", "h_marg", "b_marg", "energy_marg"):
+        w = to_np(getattr(want, name))
+        assert_close(getattr(got, name), w, rtol=RTOL_SOLVE,
+                     atol=RTOL_SOLVE * max(float(np.abs(w).max()), 1e-12), err_msg=name)
+    np.testing.assert_array_equal(to_np(got.frame_id), to_np(want.frame_id))
+    assert float(np.abs(to_np(got.h_marg)).max()) > 0
 
 
 @pytest.fixture(scope="module")

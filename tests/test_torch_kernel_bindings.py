@@ -140,7 +140,8 @@ def _struct_bytes(src, name):
 
 
 def test_status_workspace_header_is_the_kernels():
-    """K11's candidates start where the C source says its header ends."""
+    """K11's workspace holds a header a sequence at the stride the C source
+    gives it (its candidates lie in a buffer of their own)."""
     src = (kernels.CSRC / "ba_status.cu").read_text()
     found = re.search(r"constexpr int kWorkspaceHeader = (\d+);", src)
     assert found and int(found.group(1)) == kernels.STATUS_WORKSPACE_BYTES

@@ -120,6 +120,16 @@ and K5 over B = 1, 2 and 4 of them in one launch, each sequence equal to the
 bit to its own launch, with no host read; one batched tick equal to the four ``device_tick``
 calls (the first stage that parts named otherwise), and the regular tick's
 launches at B = 4 those at B = 1 when the escalation outcome is the same.
+The keyframe backend's solver half over a sequence axis: the BA solve, the
+policy K15p, the marginalization pass and the fold K15 of S = 1, 2 and 4 of
+four starts of the dense window (``testing/batched.py::solver_starts``) in
+one call a step, every step equal to the bit to S solo calls (the LM logs
+too; also at C = 3 on the embedder's window), with no host read, and the
+half's hand-written launches (the
+wrappers' counts and the launch calls outside torch operators) one solo
+half's; ``batched_solve_and_marginalize`` equal to the bit to the per-window
+loop; a batched tick with every sequence forced to keyframe equal to the
+four forced ``device_tick`` calls to the bit, ledger included.
 
 Run on a machine with a card:
 ``python -m pytest --noconftest tests/test_torch_kernels_gpu.py -q``.
@@ -2088,3 +2098,143 @@ def test_batched_tick_equals_solo_ticks_and_launches_do_not_grow(batch4):
         state, sdiag = device_tick(states[b], images[b], 6, False, models, loop)
         assert torch.equal(diag.pose_t[b], sdiag.pose_t)
         assert diag.is_keyframe[b] == sdiag.is_keyframe
+
+
+@pytest.fixture(scope="module")
+def solver_starts(dense_tracked):
+    """Four starts of the dense window moved off its state (two draws, each
+    with an empty and a filled ledger), stacked, with a mask of valid
+    immature points and the policy's sizes (the window one frame too large)."""
+    from dsopp_tpu_torch.testing import batched
+
+    tracker, _ = dense_tracked
+    win, model, opts = tracker.window, tracker.models[0], tracker.pba_opts
+    windows = batched.solver_starts(win, model, opts)
+    frames = int(win.frame_valid.sum())
+    cfg = tracker.config
+    sizes = (min(cfg.window_min, frames - 2), frames - 1, cfg.max_marginalized_fraction)
+    return windows, batched.immature_valid(windows, cfg.immature_per_frame), sizes, model, opts
+
+
+SOLVER_SEQS = {1: (2,), 2: (3, 1), 4: (1, 3, 0, 2)}
+
+
+@pytest.mark.parametrize("size", [1, 2, 4])
+def test_batched_solver_half_equals_solo_calls(solver_starts, size):
+    """The solve, the policy, the pass and the fold of S sequences, one
+    call each, equal to the bit to S solo calls step by step, the LM logs
+    too; with no host read."""
+    from dsopp_tpu_torch.testing import batched
+
+    windows, imm, sizes, model, opts = solver_starts
+    seqs = SOLVER_SEQS[size]
+    half = _no_host_reads(batched.solver_half, windows, imm, seqs, model, opts, sizes)
+    logs, solo_logs = [], [[] for _ in seqs]
+    again = batched.solver_half(windows, imm, seqs, model, opts, sizes, log=logs)
+    solos = [batched.solver_half_solo(windows, imm, b, model, opts, sizes, log=log)
+             for b, log in zip(seqs, solo_logs)]
+    assert batched.solver_half_equal(half, solos) == dict.fromkeys(batched.SOLVER_STEPS, True)
+    assert batched.solver_half_equal(again, solos) == dict.fromkeys(batched.SOLVER_STEPS, True)
+    assert logs == solo_logs
+    assert int(half["policy"][0].sum()) > 0
+
+
+@pytest.mark.parametrize("size", [1, 2, 4])
+def test_batched_solver_half_launches_equal_a_solo_half(solver_starts, size):
+    """The half's hand-written launches at S sequences are one solo half's:
+    the wrappers' counts and the host's launch calls outside torch
+    operators."""
+    from dsopp_tpu_torch.testing import batched
+
+    windows, imm, sizes, model, opts = solver_starts
+    seqs = SOLVER_SEQS[size]
+
+    def launched(fn):
+        fn()
+        torch.cuda.synchronize()
+        before = kernels.counts()
+        with profiled([torch.profiler.ProfilerActivity.CPU,
+                       torch.profiler.ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        return ({k: v - before[k] for k, v in kernels.counts().items() if v != before[k]},
+                launch_records(prof)["outside_ops"])
+
+    got = launched(lambda: batched.solver_half(windows, imm, seqs, model, opts, sizes))
+    want = launched(lambda: batched.solver_half_solo(windows, imm, seqs[0], model, opts, sizes))
+    assert got == want
+    assert got[0]["ba_solve_loop"] == 1 and got[0]["marg_fold"] == 1
+
+
+def test_batched_solver_half_at_c3(embedded):
+    """The solver half of two of four starts of the embedder's window (C =
+    3 channels: K7's and K8's channel planes read through the stacked channel
+    bank's per-sequence stride) equal to the bit to the solo calls, the LM
+    logs too."""
+    from dsopp_tpu_torch.testing import batched
+
+    tracker, _ = embedded
+    win, model, opts = tracker.window, tracker.models[0], tracker.pba_opts
+    assert win.num_channels == 3
+    windows = batched.solver_starts(win, model, opts)
+    imm = batched.immature_valid(windows, tracker.config.immature_per_frame)
+    frames = int(win.frame_valid.sum())
+    sizes = (min(tracker.config.window_min, frames - 2), frames - 1,
+             tracker.config.max_marginalized_fraction)
+    seqs = (3, 0)
+    logs, solo_logs = [], [[] for _ in seqs]
+    half = _no_host_reads(batched.solver_half, windows, imm, seqs, model, opts, sizes)
+    batched.solver_half(windows, imm, seqs, model, opts, sizes, log=logs)
+    solos = [batched.solver_half_solo(windows, imm, b, model, opts, sizes, log=log)
+             for b, log in zip(seqs, solo_logs)]
+    assert batched.solver_half_equal(half, solos) == dict.fromkeys(batched.SOLVER_STEPS, True)
+    assert logs == solo_logs
+
+
+def test_batched_solve_and_marginalize_equals_the_loop(solver_starts):
+    """``batched_solve_and_marginalize`` without a mesh (one solve call and
+    one fold call for the four windows) equals the per-window loop of
+    ``solve_and_marginalize`` to the bit."""
+    from dataclasses import fields
+
+    from dsopp_tpu_torch.parallel.sharded import (batched_solve_and_marginalize,
+                                                  solve_and_marginalize)
+
+    windows, _, _, model, opts = solver_starts
+    before = kernels.BA_SOLVE_LOOP.launches
+    out, energy, count = batched_solve_and_marginalize(windows, model, opts)
+    assert kernels.BA_SOLVE_LOOP.launches == before + 1
+    for b in range(4):
+        w, e, n = solve_and_marginalize(pba.window_at(windows, b), model, opts)
+        got = pba.window_at(out, b)
+        for f in fields(pba.Window):
+            x, y = getattr(got, f.name), getattr(w, f.name)
+            assert (x is None) == (y is None), f.name
+            assert x is None or torch.equal(x, y), (b, f.name)
+        assert torch.equal(energy[b], e) and torch.equal(count[b], n)
+
+
+def test_batched_tick_with_keyframes_equals_solo_ticks(batch4):
+    """One batched tick with every sequence forced to keyframe (the solver
+    half once for the four) equals the four forced ``device_tick`` calls to
+    the bit: the whole state, the ledger included, and the keyframe
+    diagnostics."""
+    from dsopp_tpu_torch.tracker import batched_loop as bl
+    from dsopp_tpu_torch.tracker.device_loop import PipelinedTracker, TickDiag, device_tick
+
+    _, _, trackers, images = batch4
+    pipes = [PipelinedTracker(t) for t in trackers]
+    states = [p.state for p in pipes]
+    models, loop = pipes[0].models, pipes[0].cfg
+    new, diag = bl.batched_device_tick(bl.stack_states(states), images, [6] * 4, [True] * 4,
+                                       models, pipes[0].mask, loop)
+    leaves = []
+    bl._tree_map(lambda x: leaves.append(x) or x, new)
+    for b in range(4):
+        state, sdiag = device_tick(states[b], images[b], 6, True, models, loop)
+        solo = []
+        bl._tree_map(lambda x: solo.append(x) or x, state)
+        assert all(torch.equal(x[b], y) for x, y in zip(leaves, solo)), b
+        got = diag.sequence(b)
+        for name in TickDiag._fields[TickDiag._fields.index("energy"):-1]:
+            assert torch.equal(getattr(got, name), getattr(sdiag, name)), (b, name)

@@ -47,7 +47,7 @@ from dsopp_tpu_torch import convert
 from dsopp_tpu_torch.parallel import mesh as tmesh
 from dsopp_tpu_torch.parallel.shard_map_ba import (LM_FIELDS, RES_FIELDS, pack_shards,
                                                    unpack_shards)
-from dsopp_tpu_torch.parallel.sharded import (SeqRankTracker, _window_at,
+from dsopp_tpu_torch.parallel.sharded import (SeqRankTracker,
                                               batched_solve_and_marginalize,
                                               batched_train_step, stack_windows,
                                               window_pspec)
@@ -292,7 +292,7 @@ def test_single_process_solve_and_fold_matches_jax(world):
     assert_close(e_t, np.asarray(e_j), rtol=SOLVE_RTOL)
     for b in range(2):
         want = _jax_window(w_j, b)
-        got = _window_at(w_t, b)
+        got = tpba.window_at(w_t, b)
         for name in ("eps", "affine0", "t_lin_q", "t_lin_t", "lm_idepth", "lm_baseline",
                      "h_marg", "b_marg", "energy_marg"):
             assert_close(getattr(got, name), getattr(want, name), rtol=SOLVE_RTOL,
@@ -331,7 +331,7 @@ def test_sharded_solve_and_fold_matches_single_process(world, key, num_lm):
             assert torch.equal(row[lm][1], row[0][1]) and torch.equal(row[lm][2], row[0][2])
         per = first.eps.shape[0]
         for j in range(per):
-            want = _window_at(w_s, s * per + j)
+            want = tpba.window_at(w_s, s * per + j)
             for f in dataclasses.fields(tpba.Window):
                 got = getattr(first, f.name)
                 if got is None:
