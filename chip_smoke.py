@@ -3026,19 +3026,32 @@ def batched_run(seq, cfg, offsets, ticks, torch, kernels, label=None, warm=0, pr
     pipe = bl.BatchedPipelinedTracker(trackers, flush_every=16)
     names = ("pyramid_maps", "align_level", "epipolar_update", "flow_statistic")
     per_tick, per_keyframe, poses, rotations, keyframes, escalated = [], [], [], [], [], []
-    solver_half = bl.keyframe_solver_sequences
+    # a keyframing tick's backend, its three phases (where the list of the
+    # keyframing sequences is in their arguments) each under sync debug "error"
+    phases = {"front": ("keyframe_front_sequences", 4), "half": ("keyframe_solver_sequences", 3),
+              "depth": ("build_frontend_state_sequences", 3)}
+    saved = {phase: getattr(bl, name) for phase, (name, _) in phases.items()}
+    per_backend = []     # [S, {kernel: launches}] of each keyframing tick's three phases
 
-    def counted_solver_half(*args):
-        seqs = args[3]
-        before = kernels.counts()
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            out = solver_half(*args)
-        finally:
-            torch.cuda.set_sync_debug_mode("warn" if label else "default")
-        per_keyframe.append((len(seqs), {k: v - before[k] for k, v in kernels.counts().items()
-                                         if v != before[k]}))
-        return out
+    def counted(phase):
+        fn, at = saved[phase], phases[phase][1]
+
+        def run(*args, **kwargs):
+            seqs = args[at]
+            before = kernels.counts()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                out = fn(*args, **kwargs)
+            finally:
+                torch.cuda.set_sync_debug_mode("warn" if label else "default")
+            launched = {k: v - before[k] for k, v in kernels.counts().items() if v != before[k]}
+            if phase == "front":
+                per_backend.append([len(seqs), collections.Counter()])
+            if phase == "half":
+                per_keyframe.append((len(seqs), launched))
+            per_backend[-1][1].update(launched)
+            return out
+        return run
 
     def tick(j):
         i = INIT_FRAMES + j
@@ -3060,7 +3073,8 @@ def batched_run(seq, cfg, offsets, ticks, torch, kernels, label=None, warm=0, pr
         tick(j)
     pipe.drain()
     per_tick.clear()
-    bl.keyframe_solver_sequences = counted_solver_half
+    for phase, (name, _) in phases.items():
+        setattr(bl, name, counted(phase))
     torch.cuda.synchronize()
     kernels.reset_counts()
     with warnings.catch_warnings(record=True) as syncs:
@@ -3076,7 +3090,8 @@ def batched_run(seq, cfg, offsets, ticks, torch, kernels, label=None, warm=0, pr
             elapsed = time.perf_counter() - t0
         finally:
             torch.cuda.set_sync_debug_mode("default")
-            bl.keyframe_solver_sequences = solver_half
+            for phase, (name, _) in phases.items():
+                setattr(bl, name, saved[phase])
     counts = kernels.counts()
     sites = collections.Counter(
         f"{os.path.relpath(w.filename, os.path.dirname(os.path.abspath(__file__)))}:{w.lineno}"
@@ -3093,7 +3108,8 @@ def batched_run(seq, cfg, offsets, ticks, torch, kernels, label=None, warm=0, pr
     pipe.finalize()
     return dict(batch=b, ticks=ticks, seconds=elapsed, fps=b * ticks / elapsed,
                 ms_per_tick=1e3 * elapsed / ticks, counts=counts, per_tick=per_tick,
-                per_keyframe=per_keyframe, host_syncs=sum(sites.values()),
+                per_keyframe=per_keyframe, per_backend=[(size, dict(c)) for size, c in per_backend],
+                host_syncs=sum(sites.values()),
                 host_sync_sites=dict(sites.most_common(8)), busy_ms_per_tick=busy_ms,
                 poses=poses, rotations=rotations, keyframes=keyframes, escalated=escalated,
                 trackers=trackers)
@@ -3260,6 +3276,13 @@ def batched(seq, torch, kernels, card, standart_syncs):
         f" {regular_launches(run)}")
     log(f"[batched] the solver half (the BA solve through the ledger fold, once for the S"
         f" sequences that keyframe on a tick): {solver_half_runs(run)}")
+    backend = backend_runs(run)
+    run["backend_launches"] = require_backend_launches(backend, f"B = {BATCH}")
+    log(f"[batched] a keyframing tick's backend (the front half, the solver half, the depth"
+        f" maps; each kernel once for the S sequences): runs by S"
+        f" {({size: n for size, (n, _) in backend.items()})}, hand-written launches at every S"
+        f" {dict(run['backend_launches'])} | {card}")
+    require(1 in backend, f"[batched] B = {BATCH}: no keyframing tick at S = 1: {sorted(backend)}")
     syncs_tick = run["host_syncs"] / frames
     log(f"[batched] {syncs_tick:.3f} host syncs a tick of {BATCH} frames"
         f" ({syncs_tick / BATCH:.3f} a frame; the standart path's {standart_syncs:.3f} a frame),"
@@ -3282,8 +3305,30 @@ def batched(seq, torch, kernels, card, standart_syncs):
             f" over {BATCH_PROFILED_TICKS} profiled ticks; regular ticks' (K1, K3, K4, K5)"
             f" launches {rates[b]['regular']} | {card}")
     run.update(results=results, rates=rates, regular=regular, first_stage=first, solo=solo,
-               replicated=replicated_run(seq, cfg, solo[0], frames, torch, kernels, card))
+               replicated=replicated_run(seq, cfg, solo[0], frames, torch, kernels, card,
+                                         run["backend_launches"]))
     return run
+
+
+def backend_runs(run) -> dict:
+    """{S: (a keyframing tick's backend runs at S sequences — its three
+    phases —, the distinct hand-written launch sets of those runs)} of a
+    batched run."""
+    out = collections.defaultdict(list)
+    for size, launched in run["per_backend"]:
+        out[size].append(tuple(sorted(launched.items())))
+    return {size: (len(sets), sorted(set(sets))) for size, sets in sorted(out.items())}
+
+
+def require_backend_launches(runs, label, want=None):
+    """Every keyframing tick's backend launches the same hand-written kernels
+    the same times, whatever S (and, given, ``want``'s) → that set."""
+    sets = {launched for _, distinct in runs.values() for launched in distinct}
+    if want is not None:
+        sets.add(want)
+    require(len(sets) == 1, f"[batched] {label}: a keyframing tick's launches depend on S:"
+                            f" {runs}")
+    return sets.pop()
 
 
 def solver_half_runs(run) -> dict:
@@ -3296,11 +3341,13 @@ def solver_half_runs(run) -> dict:
             for size, sets in sorted(out.items())}
 
 
-def replicated_run(seq, cfg, solo, frames, torch, kernels, card):
+def replicated_run(seq, cfg, solo, frames, torch, kernels, card, offset_launches):
     """``BATCH`` replicas of stream 0 in one batched tracker, so that every
     keyframe falls on the same tick for all of them (S = ``BATCH`` in each
     solver half): every sequence's [T, 7] poses, keyframe flags and final
-    ledger equal to the bit to stream 0's solo run; the run's frames/s."""
+    ledger equal to the bit to stream 0's solo run; a keyframing tick's
+    hand-written launches ``offset_launches`` (the offset run's at every S); the run's
+    frames/s."""
     run = batched_run(seq, cfg, [0] * BATCH, frames, torch, kernels, label="batched-replicated")
     poses = [torch.cat([torch.stack([r[k] for r in run["rotations"]]),
                         torch.stack([p[k] for p in run["poses"]])], dim=-1) for k in range(BATCH)]
@@ -3314,6 +3361,10 @@ def replicated_run(seq, cfg, solo, frames, torch, kernels, card):
                           keyframes=[kf[k] for kf in run["keyframes"]] == kf_want,
                           ledger=all(torch.equal(a, b) for a, b in zip(ledger, solo["ledger"]))))
     halves = solver_half_runs(run)
+    backend = backend_runs(run)
+    launches = require_backend_launches(backend, "replicated", offset_launches)
+    log(f"[batched] replicated: a keyframing tick's backend at S = {sorted(backend)}:"
+        f" {dict(launches)}, those of the offset run's ticks at every S | {card}")
     log(f"[batched] replicated: {BATCH} replicas of stream 0 x {frames} frames in"
         f" {run['seconds']:.2f} s = {run['fps']:.3f} frames/s aggregate; keyframes on"
         f" {sum(1 for kf in run['keyframes'] if any(kf))} ticks, the solver half {halves};"
@@ -3493,6 +3544,194 @@ def batched_kf(window, model, opts, torch, kernels, card, rows):
             f" ({fmt_us(row['solo_device_us'])}), the plain versions {row['plain_ms']:.4f} ms,"
             f" bound {b_ms:.5f} ms ({b_by}), launches {launched}, equal to the solo calls"
             f" {equal}, max abs err {err:.3g} | {card}")
+    return out
+
+
+# [batched-front]: the sequence lists of each S (out of order: the kernels
+# read the stack through the list), and the S = 4 list in order (the
+# functional path, which the timings call: it writes nothing)
+FRONT_SEQS = ((2,), (3, 1), (1, 3, 0, 2))
+FRONT_KERNELS = ("select_candidates", "activation", "refine_idepth", "activation_scatter",
+                 "depth_maps")
+
+
+def batched_front(seq, torch, kernels, card, rows):
+    """The keyframe backend's front half (the push, K12 and the banks, K13,
+    K14's refinement and pairing) and depth maps (K16) over a sequence axis:
+    ``[batched]``'s four standart streams at a forced keyframe (their frame
+    k + 6), and the same at C = 3 with the filter-bank embedder (the
+    keyframes' channels in one convolution, their maps in one K1 launch);
+    phases 1 and 3 of S = 1, 2 and 4 of them in one call each (S = 4 also
+    in the stack's order, the path that writes nothing), each held to the bit
+    to S solo calls (window, banks, slots, n_active, n_activated, depth maps,
+    point sets), with host reads an error, a second call equal too; their
+    hand-written launches (the wrappers' counts, and the profiler's host
+    launch calls outside torch operators) one solo call's; their time against
+    S solo calls'.  A whole keyframing backend (phases 1, 2 and 3) at S = 4
+    against S = 1, launches and launch calls.  At S = 4 the rows of K12, K13,
+    K14's two entries and K16 under ``"s4"`` in theirs: ms, 4 solo calls'
+    ms, the plain versions' ms (4 calls), device µs, launches, the bound (4 ×
+    the solo bound at the standart window), equality to the 4 solo calls."""
+    from dsopp_tpu_torch.features import extractor
+    from dsopp_tpu_torch.solvers import pba
+    from dsopp_tpu_torch.testing import batched as tb
+    from dsopp_tpu_torch.testing.paths import INIT_FRAMES, path_config, standart_config
+    from dsopp_tpu_torch.testing.profiling import launch_records, profiled
+    from dsopp_tpu_torch.tracker import activation as act
+    from dsopp_tpu_torch.tracker import depth_map as dm
+    from dsopp_tpu_torch.tracker.depth_estimation import ImmaturePoints
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+
+    def launches(fn):
+        """fn's hand-written launches: the wrappers' counts, and the host's
+        launch calls outside torch operators and inside them."""
+        fn()
+        torch.cuda.synchronize()
+        before = kernels.counts()
+        with profiled(acts) as prof:
+            fn()
+            torch.cuda.synchronize()
+        counts = {k: v - before[k] for k, v in kernels.counts().items() if v != before[k]}
+        rec = launch_records(prof)
+        return counts, rec["outside_ops"], rec["host"] - rec["outside_ops"]
+
+    images = seq.images[INIT_FRAMES:INIT_FRAMES + BATCH]     # frame k + 6 of stream k
+    out = {}
+    for label, cfg in (("standart", standart_config()),
+                       ("embedder", path_config("embedder"))):
+        trackers = [tb.offset_bootstrap(seq, cfg, k) for k in range(BATCH)]
+        inputs = tb.front_inputs(trackers, images)
+        torch.cuda.synchronize()
+        for seqs in FRONT_SEQS + (tuple(range(BATCH)),):
+            size = len(seqs)
+            half = no_host_reads(torch, tb.front_half, inputs, seqs)
+            again = tb.front_half(inputs, seqs)
+            solos = [tb.front_half_solo(inputs, b) for b in seqs]
+            equal = tb.front_half_equal(half, solos, seqs)
+            twice = tb.front_half_equal(again, solos, seqs)
+            activated = [int(x) for x in half["front"].n_activated]
+            b_counts, b_out, b_in = launches(lambda: tb.front_half(inputs, seqs))
+            s_counts, s_out, s_in = launches(lambda: tb.front_half_solo(inputs, seqs[0]))
+            ms = solo_ms = None
+            if seqs == tuple(range(BATCH)):
+                # timed where the call writes nothing (the whole stack in
+                # order), so that no copy of the stack is timed with it
+                ms = cuda_ms(lambda: tb.front_half(inputs, seqs, copy=False), reps=10)
+                solo_ms = cuda_ms(lambda: [tb.front_half_solo(inputs, b, copy=False)
+                                           for b in seqs], reps=10)
+            log(f"[batched-front] {label}, S = {size} (sequences {list(seqs)} of {BATCH}):"
+                f" equal to the bit to {size} solo calls {equal}, a second call {twice};"
+                f" n_activated {activated}; hand-written launches: the call {b_counts} ({b_out}"
+                f" launch calls outside torch operators, {b_in} inside), one solo call"
+                f" {s_counts} ({s_out}, {s_in})"
+                + ("" if ms is None else f"; phases 1 and 3 {ms:.3f} ms, {size} solo calls"
+                   f" {solo_ms:.3f} ms")
+                + f" | {card}")
+            require(all(equal.values()) and all(twice.values()),
+                    f"[batched-front] {label}, S = {size}: parts from its solo calls: {equal},"
+                    f" {twice}")
+            require(b_counts == s_counts and b_out == s_out,
+                    f"[batched-front] {label}, S = {size}: launches {b_counts} ({b_out}) against"
+                    f" a solo call's {s_counts} ({s_out})")
+            require(all(b_counts.get(name) == 1 for name in FRONT_KERNELS),
+                    f"[batched-front] {label}, S = {size}: {b_counts}")
+            require(min(activated) > 0, f"[batched-front] {label}, S = {size}: none activated")
+            if label == "embedder":
+                require(b_counts.get("pyramid_maps") == 1,
+                        f"[batched-front] embedder, S = {size}: K1 {b_counts}")
+            out[(label, size, seqs)] = dict(equal=equal, launches=b_counts, launch_calls=b_out,
+                                            torch_launch_calls=b_in, solo_torch_launch_calls=s_in,
+                                            ms=ms, solo_ms=solo_ms, n_activated=activated)
+        if label != "standart":
+            continue
+
+        # a whole keyframing backend (phases 1, 2, 3) at S = 4 against S = 1
+        whole = tuple(range(BATCH))
+        backend = {size: launches(lambda s=seqs: tb.front_half(inputs, s, copy=False,
+                                                              solve=True))
+                   for size, seqs in ((BATCH, whole),)}
+        backend[1] = launches(lambda: tb.front_half_solo(inputs, 0, copy=False, solve=True))
+        ms4 = cuda_ms(lambda: tb.front_half(inputs, whole, copy=False, solve=True), reps=5)
+        ms1 = cuda_ms(lambda: [tb.front_half_solo(inputs, b, copy=False, solve=True)
+                               for b in whole], reps=5)
+        log(f"[batched-front] a keyframing backend (phases 1, 2, 3) at S = {BATCH}: launches"
+            f" {backend[BATCH][0]} ({backend[BATCH][1]} launch calls outside torch operators,"
+            f" {backend[BATCH][2]} inside), {ms4:.3f} ms; at S = 1 {backend[1][0]}"
+            f" ({backend[1][1]}, {backend[1][2]}), {BATCH} solo backends {ms1:.3f} ms | {card}")
+        require(backend[BATCH][:2] == backend[1][:2],
+                f"[batched-front] a keyframing backend at S = {BATCH} launches {backend[BATCH]}"
+                f" against S = 1's {backend[1]}")
+        out["backend"] = dict(launches=backend[BATCH][0], launch_calls=backend[BATCH][1],
+                              ms=ms4, solo_ms=ms1)
+
+        # the rows at S = 4: each kernel's sequence call against 4 solo calls
+        seqs = FRONT_SEQS[-1]
+        half = tb.front_half(inputs, seqs)
+        windows, banks = half["front"].window, half["front"].immature
+        maps, model, cfg = inputs["out"].maps, inputs["models"][0], inputs["cfg"]
+        md, mask = inputs["state"].min_distance, inputs["mask"]
+        bank = lambda b: ImmaturePoints(*(x[b] for x in banks))            # noqa: E731
+        one = lambda b: pba.window_at(windows, b)                          # noqa: E731
+        a_s = act.activation_sequences(windows, model, banks, md, seqs)
+        r_s = act.refine_idepth_sequences(windows, model, banks, a_s[0], cfg.huber_sigma, seqs)
+        levels = lambda b: tuple(m[b] for m in maps)                       # noqa: E731
+        k16 = (cfg.height, cfg.width, cfg.num_levels, cfg.frontend_points)
+        cases = {
+            "select_candidates": (
+                lambda: extractor.select_candidates_sequences(maps[0], seqs,
+                                                              cfg.immature_per_frame, mask),
+                lambda b, z: extractor.select_candidates_cuda(maps[0][b], cfg.immature_per_frame,
+                                                              mask),
+                lambda b, z: extractor.select_candidates_plain(maps[0][b],
+                                                               cfg.immature_per_frame, mask)),
+            "activation": (
+                lambda: act.activation_sequences(windows, model, banks, md, seqs),
+                lambda b, z: act._activation_cuda(one(b), model, bank(b), md[b:b + 1]),
+                lambda b, z: act._activation_plain(one(b), model, bank(b), md[b])),
+            "refine_idepth": (
+                lambda: act.refine_idepth_sequences(windows, model, banks, a_s[0],
+                                                    cfg.huber_sigma, seqs),
+                lambda b, z: act._refine_idepth_cuda(one(b), model, bank(b), a_s[0][z],
+                                                     cfg.huber_sigma),
+                lambda b, z: act._refine_idepth_plain(one(b), model, bank(b), a_s[0][z],
+                                                      cfg.huber_sigma)),
+            "activation_scatter": (
+                lambda: act.activation_scatter_sequences(windows, banks, r_s[1], a_s[1], r_s[0],
+                                                         r_s[2], seqs),
+                lambda b, z: act._activation_scatter_sequences_cuda(
+                    one(b), bank(b), r_s[1][z], a_s[1][z], r_s[0][z], r_s[2][z], (0,),
+                    stacked=False),
+                lambda b, z: act._activation_scatter_plain(one(b), bank(b), r_s[1][z],
+                                                           a_s[1][z], r_s[0][z], r_s[2][z])),
+            "depth_maps": (
+                lambda: dm.build_frontend_state_sequences(windows, model, maps, seqs, *k16),
+                lambda b, z: dm.build_frontend_state_cuda(one(b), model, levels(b), *k16),
+                lambda b, z: dm.build_frontend_state_plain(one(b), model, levels(b), *k16)),
+        }
+        for name, (fn, solo, plain) in cases.items():
+            before = kernels.counts()
+            got = no_host_reads(torch, fn)
+            launched = {k: v - before[k] for k, v in kernels.counts().items() if v != before[k]}
+            solos = lambda: [solo(b, z) for z, b in enumerate(seqs)]       # noqa: E731
+            equal, err = sequence_diff(tb.flat(got), [tb.flat(x) for x in solos()])
+            require(equal and launched == {name: 1},
+                    f"[batched-front] {name} at S = 4: equal {equal} (max diff {err:.3g}),"
+                    f" launches {launched}")
+            plains = lambda: [plain(b, z) for z, b in enumerate(seqs)]     # noqa: E731
+            solo_bound = BOUNDS[(name, "standart")]
+            row = dict(ms=cuda_ms(fn, reps=20), solo_ms=cuda_ms(solos, reps=20),
+                       plain_ms=cuda_ms(plains, reps=3), device_us=device_us_whole(torch, fn),
+                       solo_device_us=device_us_whole(torch, solos), launches_a_call=launched,
+                       equal_to_solo_calls=equal, max_abs_err=err, batch=BATCH,
+                       bound_ms=BATCH * solo_bound["bound_ms"], bound_by=solo_bound["bound_by"],
+                       library_ms=None)
+            rows[name]["s4"] = row
+            log(f"[batched-front] {name} at S = 4: one call {row['ms']:.4f} ms"
+                f" ({fmt_us(row['device_us'])}), 4 solo calls {row['solo_ms']:.4f} ms"
+                f" ({fmt_us(row['solo_device_us'])}), the plain versions {row['plain_ms']:.4f}"
+                f" ms, bound {row['bound_ms']:.5f} ms ({row['bound_by']}), launches {launched},"
+                f" equal to the solo calls {equal} | {card}")
     return out
 
 
@@ -4094,6 +4333,9 @@ def main():
         t0 = time.perf_counter()
         batched_kf(*dense, torch, kernels, card, rows)
         log(f"[batched-kf] phase {time.perf_counter() - t0:.2f} s")
+        t0 = time.perf_counter()
+        batched_front(seq, torch, kernels, card, rows)
+        log(f"[batched-front] phase {time.perf_counter() - t0:.2f} s")
         t0 = time.perf_counter()
         sp = parallel(*dense, torch, kernels, card)
         del dense

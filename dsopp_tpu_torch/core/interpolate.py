@@ -10,7 +10,8 @@ group layout ``[values C | d/dx C | d/dy C]``.
 Two samplers:
 
 * :func:`sample` — plain bilinear interpolation of every map channel
-  (the reference's ``PixelMap::Evaluate``);
+  (the reference's ``PixelMap::Evaluate``); :func:`sample_stack` the same on
+  S maps of a stack, each at its own points;
 * :func:`sample_window` / :func:`sample_window_values` — the semantics of
   the JAX package's 10×10 patch windows, sampled directly from the
   intensity image: a group of points reads one window based at
@@ -44,11 +45,11 @@ def image_gradients(image):
 
 def build_pixel_map(image):
     """[H, W] intensity → [3, H, W] (intensity, dx, dy); [C, H, W] channels →
-    [3C, H, W] (values C | dx C | dy C)."""
+    [3C, H, W] (values C | dx C | dy C); [S, C, H, W] → [S, 3C, H, W]."""
     if image.dim() == 2:
         image = image[None]
     dx, dy = image_gradients(image)
-    return torch.cat([image, dx, dy], dim=0)
+    return torch.cat([image, dx, dy], dim=-3)
 
 
 def bilinear_weights(uv, height, width):
@@ -78,6 +79,24 @@ def sample(pixel_map, uv):
     g = flat[:, idx.reshape(-1)].reshape((c,) + idx.shape)      # [C, ..., 4]
     out = torch.sum(g * weights.to(pixel_map.dtype), dim=-1)    # [C, ...]
     return torch.movedim(out, 0, -1), inside
+
+
+def sample_stack(maps, rows, uv):
+    """Sample S maps of a stack ``maps`` [B, C, H, W], map ``rows[z]`` at
+    ``uv[z]`` (``uv`` [S, ..., 2]; ``rows`` an [S] long device list, None: map
+    z) → ([S, ..., C], inside).  Sequence z's values are those of
+    :func:`sample` of its map at its points: the same gathers, products and
+    4-term sums."""
+    b, c, h, w = maps.shape
+    s = uv.shape[0]
+    base, weights, inside = bilinear_weights(uv, h, w)
+    idx = torch.stack([base, base + 1, base + w, base + w + 1], dim=-1)   # [S, ..., 4]
+    if rows is None:
+        rows = torch.arange(s, device=maps.device)
+    g = maps.reshape(b, c, h * w)[rows.view(s, 1), :, idx.reshape(s, -1)]  # [S, X, C]
+    g = g.movedim(-1, 1).reshape((s, c) + tuple(idx.shape[1:]))          # [S, C, ..., 4]
+    out = torch.sum(g * weights.unsqueeze(1).to(maps.dtype), dim=-1)     # [S, C, ...]
+    return torch.movedim(out, 1, -1), inside
 
 
 def pad_images(images):

@@ -44,10 +44,16 @@
 // NaN rule (torch.min keeps a NaN) is never met; a NaN min_distance decides
 // "not spaced" where there is an active landmark, as the plain comparison
 // does.  testing/activation_models.py mirrors the walk on the host.
+// Sequence axis (seq_axis.cuh): grid z is a sequence of the call, both
+// launches serve all S.  The window, the immature banks and the density
+// controller's min_distance are [B, ...] stacks read at seq[z]; the scratch
+// and the outputs are [S, ...] at z, so a sequence's blocks do what a launch
+// of it alone does.
 
 #include <float.h>
 
 #include "ba_body.cuh"
+#include "seq_axis.cuh"
 #include "shared_opt_in.cuh"
 
 namespace {
@@ -110,6 +116,12 @@ __device__ __forceinline__ void copy_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
+// a sequence's scratch, floats: [2*k*n + 8*k + 1] rounded up to 64 (256
+// bytes), so that every sequence's projections are float2-aligned
+__host__ __device__ __forceinline__ size_t scratch_floats(int k, int n) {
+  return ((size_t)2 * k * n + 8 * (size_t)k + 1 + 63) / 64 * 64;
+}
+
 // Scratch of the two kernels, floats: the active projections [k*n, 2]
 // (+inf off the active set), then the poses newest <- each frame [k, 8] (q,
 // t, unused) and the newest slot (an int's bits), written by block 0 of the
@@ -121,8 +133,22 @@ activation_landmarks_kernel(const float* __restrict__ t_lin_q, const float* __re
                             const float* __restrict__ lm_uv, const float* __restrict__ lm_idepth,
                             const unsigned char* __restrict__ lm_valid,
                             const unsigned char* __restrict__ lm_outlier, int k, int n,
-                            Camera cam, float* __restrict__ scratch) {
+                            Camera cam, float* __restrict__ scratch,
+                            const int* __restrict__ seq_list) {
   __shared__ Rigid pose[kMaxFrames], rel[kMaxFrames];
+  {
+    const int sb = seq::of(seq_list);
+    const size_t kn = (size_t)k * n;
+    t_lin_q = seq::at(t_lin_q, sb, 4 * (size_t)k);
+    t_lin_t = seq::at(t_lin_t, sb, 3 * (size_t)k);
+    eps = seq::at(eps, sb, 8 * (size_t)k);
+    frame_valid = seq::at(frame_valid, sb, k);
+    lm_uv = seq::at(lm_uv, sb, 2 * kn);
+    lm_idepth = seq::at(lm_idepth, sb, kn);
+    lm_valid = seq::at(lm_valid, sb, kn);
+    lm_outlier = seq::at(lm_outlier, sb, kn);
+    scratch = seq::at(scratch, blockIdx.z, scratch_floats(k, n));
+  }
   const int tid = threadIdx.x;
   const int p = blockIdx.x * kThreads + tid;
   const bool in_range = p < k * n;
@@ -179,8 +205,26 @@ activation_walk_kernel(int k, int n, int m, int chunk, Camera cam, const float* 
                        const unsigned char* __restrict__ valid, float max_interval,
                        float min_uniqueness, const float* __restrict__ min_distance,
                        const float* __restrict__ scratch, unsigned char* __restrict__ activate,
-                       unsigned char* __restrict__ drop, long long* __restrict__ n_active) {
+                       unsigned char* __restrict__ drop, long long* __restrict__ n_active,
+                       const int* __restrict__ seq_list) {
   __shared__ WalkShared sh;
+  {
+    const int sb = seq::of(seq_list), z = blockIdx.z;
+    const size_t km = (size_t)k * m;
+    uv = seq::at(uv, sb, 2 * km);
+    idepth_min = seq::at(idepth_min, sb, km);
+    idepth_max = seq::at(idepth_max, sb, km);
+    status = seq::at(status, sb, km);
+    traced = seq::at(traced, sb, km);
+    uniqueness = seq::at(uniqueness, sb, km);
+    search_interval = seq::at(search_interval, sb, km);
+    valid = seq::at(valid, sb, km);
+    min_distance = seq::at(min_distance, sb, 1);
+    scratch = seq::at(scratch, z, scratch_floats(k, n));
+    activate = seq::at(activate, z, km);
+    drop = seq::at(drop, z, km);
+    n_active = seq::at(n_active, z, 1);
+  }
   extern __shared__ float2 dyn[];
   float2* raw = dyn;
   float2* staged = dyn + chunk;
@@ -313,8 +357,12 @@ size_t walk_opted[smem::kMaxDevices];
 // lm_uv [k,n,2], lm_idepth [k,n] f32, lm_valid, lm_outlier [k,n] u8.  Banks
 // [k,m]: uv [.,2], idepth_min, idepth_max, uniqueness, search_interval f32,
 // status int32, traced, valid u8.  min_distance [1] f32 on the device.
-// Scratch: [2*k*n + 8*k + 1] f32 (above).  Outputs, every entry written:
-// activate, drop [k,m] u8; n_active [] int64.  k <= 64.
+// Scratch: [2*k*n + 8*k + 1] f32 a sequence (above), at a stride of that
+// rounded up to 64 floats (scratch_floats).  Outputs, every entry written:
+// activate, drop [k,m] u8; n_active [] int64.  k <= 64.  Sequence axis
+// (seq_axis.cuh): `seqs` sequences, grid z; the window, the banks and
+// min_distance are [B, ...] stacks read at seq_list[z] (null: z), the scratch
+// and the outputs [seqs, ...] at z.
 extern "C" int activation(const float* t_lin_q, const float* t_lin_t, const float* eps,
                           const unsigned char* frame_valid, const float* lm_uv,
                           const float* lm_idepth, const unsigned char* lm_valid,
@@ -325,20 +373,21 @@ extern "C" int activation(const float* t_lin_q, const float* t_lin_t, const floa
                           const float* uniqueness, const float* search_interval,
                           const unsigned char* valid, float max_interval, float min_uniqueness,
                           const float* min_distance, float* scratch, unsigned char* activate,
-                          unsigned char* drop, long long* n_active, void* stream) {
-  if (k > kMaxFrames) return (int)cudaErrorInvalidValue;
+                          unsigned char* drop, long long* n_active, int seqs,
+                          const int* seq_list, void* stream) {
+  if (k > kMaxFrames || !seq::valid_count(seqs)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const ba::Camera cam = {fx, fy, cx, cy, width, height};
   const int chunk = k * n < kChunk ? k * n : kChunk;
   const size_t bytes = 2 * sizeof(float2) * (size_t)chunk;
   cudaError_t err = smem::fit(activation_walk_kernel, bytes, walk_opted);
   if (err != cudaSuccess) return (int)err;
-  activation_landmarks_kernel<<<(k * n + kThreads - 1) / kThreads, kThreads, 0, s>>>(
-      t_lin_q, t_lin_t, eps, frame_valid, lm_uv, lm_idepth, lm_valid, lm_outlier, k, n, cam,
-      scratch);
-  activation_walk_kernel<<<(k * m + kThreads - 1) / kThreads, kThreads, bytes, s>>>(
-      k, n, m, chunk, cam, uv, idepth_min, idepth_max, status, traced, uniqueness,
-      search_interval, valid, max_interval, min_uniqueness, min_distance, scratch, activate,
-      drop, n_active);
+  activation_landmarks_kernel<<<dim3((k * n + kThreads - 1) / kThreads, 1, seqs), kThreads, 0,
+                                s>>>(t_lin_q, t_lin_t, eps, frame_valid, lm_uv, lm_idepth,
+                                     lm_valid, lm_outlier, k, n, cam, scratch, seq_list);
+  activation_walk_kernel<<<dim3((k * m + kThreads - 1) / kThreads, 1, seqs), kThreads, bytes,
+                           s>>>(k, n, m, chunk, cam, uv, idepth_min, idepth_max, status, traced,
+                                uniqueness, search_interval, valid, max_interval, min_uniqueness,
+                                min_distance, scratch, activate, drop, n_active, seq_list);
   return (int)cudaGetLastError();
 }

@@ -23,9 +23,16 @@
 // descending sort, with no sort and no limit on the number of tiles.  sqrtf
 // is the IEEE square root (no fast-math), as torch.sqrt: a value on an
 // integer decides a median.
+// Sequence axis (seq_axis.cuh): grid z is a sequence of the call, and each
+// of the three launches serves all S of them.  The maps are the tick's [B, 3,
+// h, w] stack, read at seq[z] and never copied; the mask is the batch's one;
+// the scratch (thresholds, tile scores and positions) and the outputs are
+// [S, ...] at z, so a sequence's blocks do what a launch of it alone does.
 
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "seq_axis.cuh"
 
 namespace {
 
@@ -43,8 +50,10 @@ __device__ __forceinline__ float grad2(const float* __restrict__ map, int hw, in
 
 __global__ void __launch_bounds__(kThreads)
 region_threshold_kernel(const float* __restrict__ map, int h, int w, int rw, float factor,
-                        float* __restrict__ thr) {
+                        float* __restrict__ thr, const int* __restrict__ seq_list) {
   __shared__ int hist[kBins];
+  map = seq::at(map, seq::of(seq_list), (size_t)3 * h * w);
+  thr = seq::at(thr, blockIdx.z, (size_t)(h / kRegion) * rw);
   const int region = blockIdx.x;
   const int ry = region / rw, rx = region % rw;
   if (threadIdx.x < kBins) hist[threadIdx.x] = 0;
@@ -76,7 +85,11 @@ __global__ void __launch_bounds__(kThreads)
 tile_argmax_kernel(const float* __restrict__ map, const unsigned char* __restrict__ mask,
                    const float* __restrict__ thr, int h, int w, int rh, int rw, int block,
                    int bw, int tiles, int border, float* __restrict__ tile_score,
-                   int* __restrict__ tile_pos) {
+                   int* __restrict__ tile_pos, const int* __restrict__ seq_list) {
+  map = seq::at(map, seq::of(seq_list), (size_t)3 * h * w);
+  thr = seq::at(thr, blockIdx.z, (size_t)rh * rw);
+  tile_score = seq::at(tile_score, blockIdx.z, tiles);
+  tile_pos = seq::at(tile_pos, blockIdx.z, 2 * (size_t)tiles);
   const int tile = blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);
   if (tile >= tiles) return;
   const int lane = threadIdx.x & 31;
@@ -120,6 +133,12 @@ rank_tiles_kernel(const float* __restrict__ tile_score, const int* __restrict__ 
                   int tiles, int num_points, float* __restrict__ uv,
                   float* __restrict__ grad2_out, unsigned char* __restrict__ valid) {
   __shared__ float stage[kStage];
+  const int z = blockIdx.z;
+  tile_score = seq::at(tile_score, z, tiles);
+  tile_pos = seq::at(tile_pos, z, 2 * (size_t)tiles);
+  uv = seq::at(uv, z, 2 * (size_t)num_points);
+  grad2_out = seq::at(grad2_out, z, num_points);
+  valid = seq::at(valid, z, num_points);
   const int lane = threadIdx.x & 31;
   const int t = blockIdx.x * kWarps + (threadIdx.x >> 5);
   const float mine = t < tiles ? tile_score[t] : 0.0f;
@@ -155,23 +174,28 @@ rank_tiles_kernel(const float* __restrict__ tile_score, const int* __restrict__ 
 
 }  // namespace
 
-// map [3,h,w] f32 (intensity, dx, dy); mask [h,w] u8 or nullptr (all valid).
-// Scratch, no contents expected and none left: thr [(h/32)*(w/32)] f32,
-// tile_score [tiles] f32, tile_pos [tiles,2] int32 with tiles =
-// (h/block)*(w/block).  Outputs: uv [num_points,2] f32,
-// grad2 [num_points] f32, valid [num_points] u8.
+// map [B,3,h,w] f32 (intensity, dx, dy; sequence seq[z] read); mask [h,w] u8
+// or nullptr (all valid), the same for every sequence.  Scratch, no contents
+// expected and none left: thr [S,(h/32)*(w/32)] f32, tile_score [S,tiles] f32,
+// tile_pos [S,tiles,2] int32 with tiles = (h/block)*(w/block).  Outputs: uv
+// [S,num_points,2] f32, grad2 [S,num_points] f32, valid [S,num_points] u8.
+// Sequence axis (seq_axis.cuh): `seqs` sequences S, grid z; seq_list null:
+// sequence z.
 extern "C" int select_candidates(const float* map, const unsigned char* mask, int h, int w,
                                  int num_points, int block, int border, float factor,
                                  float* thr, float* tile_score, int* tile_pos, float* uv,
-                                 float* grad2_out, unsigned char* valid, void* stream) {
+                                 float* grad2_out, unsigned char* valid, int seqs,
+                                 const int* seq_list, void* stream) {
+  if (!seq::valid_count(seqs)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const int rh = h / kRegion, rw = w / kRegion;
   const int bh = h / block, bw = w / block, tiles = bh * bw;
-  region_threshold_kernel<<<rh * rw, kThreads, 0, s>>>(map, h, w, rw, factor, thr);
-  tile_argmax_kernel<<<(tiles + kWarps - 1) / kWarps, kThreads, 0, s>>>(
-      map, mask, thr, h, w, rh, rw, block, bw, tiles, border, tile_score, tile_pos);
+  region_threshold_kernel<<<dim3(rh * rw, 1, seqs), kThreads, 0, s>>>(map, h, w, rw, factor,
+                                                                      thr, seq_list);
+  tile_argmax_kernel<<<dim3((tiles + kWarps - 1) / kWarps, 1, seqs), kThreads, 0, s>>>(
+      map, mask, thr, h, w, rh, rw, block, bw, tiles, border, tile_score, tile_pos, seq_list);
   const int slots = tiles > num_points ? tiles : num_points;
-  rank_tiles_kernel<<<(slots + kWarps - 1) / kWarps, kThreads, 0, s>>>(
+  rank_tiles_kernel<<<dim3((slots + kWarps - 1) / kWarps, 1, seqs), kThreads, 0, s>>>(
       tile_score, tile_pos, tiles, num_points, uv, grad2_out, valid);
   return (int)cudaGetLastError();
 }

@@ -47,8 +47,17 @@
 // When fewer pixels are positive than there are slots, c* is 0 and the same
 // compaction fills the rest with the lowest-index empty pixels, invalid, as
 // the stable sort of the plain version leaves them.
+// Sequence axis (seq_axis.cuh): each of the 10 launches serves the S
+// sequences of the call, a sequence's blocks doing what a launch of it alone
+// does.  Grid z is the sequence, but class_rank_kernel's z is sequence x
+// rounds + round (so S <= 65535 / 6).  The window and the tick's [B, 3,
+// h_l, w_l] pyramid levels are stacks read at seq[z]; every scratch array
+// is [S, its one-sequence size] at z; the outputs of a level (each grid) and
+// of a round (each selection) are [S, ...] blocks one after another, so that
+// each is a dense [S, h_l, w_l] or [S, slots] tensor.
 
 #include "ba_body.cuh"
+#include "seq_axis.cuh"
 #include "shared_opt_in.cuh"
 #include "torch_lie.cuh"
 
@@ -70,12 +79,24 @@ constexpr int kNone = 0x7fffffff;      // no later point on the pixel
 // where each one's cells, tiles and slots lie
 struct Plan {
   int levels, rounds, classes, heavy_stride;
+  int seqs, cells, tiles;              // sequences, one sequence's cells and tiles
+  const int* seq_list;                 // the stacked inputs' sequences (null: z)
   int h[kMaxLevels], w[kMaxLevels], cell_off[kMaxLevels];
   int block_off[kMaxLevels + 1];       // dilate_hist_kernel's blocks per level, summed
   int level[kMaxRounds], slots[kMaxRounds], sel_off[kMaxRounds];
   int tile_off[kMaxRounds + 1];        // compaction tiles per round, summed
-  const float* intensity[kMaxLevels];  // [h_l, w_l] intensity image of level l
+  const float* intensity[kMaxLevels];  // [B, 3, h_l, w_l] maps of level l (channel 0 read)
 };
+
+// sequence z's first cell of level l in the outputs out_i / out_w
+__device__ __forceinline__ size_t out_cells(const Plan& plan, int l, int z) {
+  return (size_t)plan.cell_off[l] * plan.seqs + (size_t)z * plan.h[l] * plan.w[l];
+}
+
+// sequence z's first slot of round r in the selections
+__device__ __forceinline__ size_t sel_at(const Plan& plan, int r, int z) {
+  return (size_t)plan.sel_off[r] * plan.seqs + (size_t)z * plan.slots[r];
+}
 
 __host__ __device__ inline int blocks_for(int items, int per_block) {
   return (items + per_block - 1) / per_block;
@@ -102,6 +123,25 @@ prepare_kernel(const float* __restrict__ lm_uv, const float* __restrict__ lm_ide
                float* __restrict__ raw_i, float* __restrict__ raw_w, int* __restrict__ hist,
                float* __restrict__ rel_out) {
   __shared__ torch_lie::Pose abs_s[kMaxFrames], rel_s[kMaxFrames];
+  {
+    const int sb = seq::of(plan.seq_list), z = blockIdx.z;
+    lm_uv = seq::at(lm_uv, sb, 2 * (size_t)total);
+    lm_idepth = seq::at(lm_idepth, sb, total);
+    lm_valid = seq::at(lm_valid, sb, total);
+    lm_outlier = seq::at(lm_outlier, sb, total);
+    frame_valid = seq::at(frame_valid, sb, k);
+    t_lin_q = seq::at(t_lin_q, sb, 4 * (size_t)k);
+    t_lin_t = seq::at(t_lin_t, sb, 3 * (size_t)k);
+    eps = seq::at(eps, sb, 8 * (size_t)k);
+    pix = seq::at(pix, z, total);
+    pidep = seq::at(pidep, z, total);
+    next = seq::at(next, z, total);
+    has_prev = seq::at(has_prev, z, total);
+    raw_i = seq::at(raw_i, z, plan.cells);
+    raw_w = seq::at(raw_w, z, plan.cells);
+    hist = seq::at(hist, z, (size_t)plan.levels * plan.classes);
+    rel_out = seq::at(rel_out, z, 7 * (size_t)k);
+  }
   const int point_blocks = blocks_for(total, kThreads);
   const int cells = plan.h[0] * plan.w[0], cell_blocks = blocks_for(cells, kThreads);
   const int b = blockIdx.x;
@@ -162,6 +202,9 @@ __global__ void __launch_bounds__(kThreads)
 twins_kernel(const int* __restrict__ pix, int total, int* __restrict__ next,
              int* __restrict__ has_prev) {
   __shared__ int pix_s[kThreads];
+  pix = seq::at(pix, blockIdx.z, total);
+  next = seq::at(next, blockIdx.z, total);
+  has_prev = seq::at(has_prev, blockIdx.z, total);
   const int p = blockIdx.x * kThreads + threadIdx.x;
   const int base = blockIdx.y * kThreads;
   pix_s[threadIdx.x] = base + threadIdx.x < total ? pix[base + threadIdx.x] : -1;
@@ -190,7 +233,13 @@ twins_kernel(const int* __restrict__ pix, int total, int* __restrict__ next,
 __global__ void __launch_bounds__(kThreads)
 chain_kernel(const int* __restrict__ pix, const float* __restrict__ pidep,
              const int* __restrict__ next, const int* __restrict__ has_prev, int total,
-             float* __restrict__ raw_i, float* __restrict__ raw_w) {
+             int cells, float* __restrict__ raw_i, float* __restrict__ raw_w) {
+  pix = seq::at(pix, blockIdx.z, total);
+  pidep = seq::at(pidep, blockIdx.z, total);
+  next = seq::at(next, blockIdx.z, total);
+  has_prev = seq::at(has_prev, blockIdx.z, total);
+  raw_i = seq::at(raw_i, blockIdx.z, cells);
+  raw_w = seq::at(raw_w, blockIdx.z, cells);
   const int p = blockIdx.x * kThreads + threadIdx.x;
   if (p >= total || pix[p] < 0 || has_prev[p]) return;
   float sum = 0.0f, count = 0.0f;
@@ -208,6 +257,8 @@ __global__ void __launch_bounds__(kPoolTile * kPoolTile)
 pool_kernel(Plan plan, float* __restrict__ raw_i, float* __restrict__ raw_w) {
   __shared__ float buf_i[2][kPoolTile][kPoolTile + 1];
   __shared__ float buf_w[2][kPoolTile][kPoolTile + 1];
+  raw_i = seq::at(raw_i, blockIdx.z, plan.cells);
+  raw_w = seq::at(raw_w, blockIdx.z, plan.cells);
   const int tx = threadIdx.x % kPoolTile, ty = threadIdx.x / kPoolTile;
   const int x0 = blockIdx.x * kPoolTile, y0 = blockIdx.y * kPoolTile;
   const bool in = y0 + ty < plan.h[0] && x0 + tx < plan.w[0];
@@ -241,11 +292,12 @@ __global__ void __launch_bounds__(kThreads)
 dilate_hist_kernel(const float* __restrict__ raw_i, const float* __restrict__ raw_w, Plan plan,
                    float* __restrict__ out_i, float* __restrict__ out_w, int* __restrict__ hist) {
   __shared__ int low[kLowBins];
+  const int z = blockIdx.z;
   const int l = segment_of(plan.block_off, plan.levels, blockIdx.x);
   const int h = plan.h[l], w = plan.w[l];
-  const float* src_i = raw_i + plan.cell_off[l];
-  const float* src_w = raw_w + plan.cell_off[l];
-  int* level_hist = hist + (size_t)l * plan.classes;
+  const float* src_i = raw_i + (size_t)z * plan.cells + plan.cell_off[l];
+  const float* src_w = raw_w + (size_t)z * plan.cells + plan.cell_off[l];
+  int* level_hist = hist + ((size_t)z * plan.levels + l) * plan.classes;
   if (threadIdx.x < kLowBins) low[threadIdx.x] = 0;
   __syncthreads();
   const int idx = (blockIdx.x - plan.block_off[l]) * kThreads + threadIdx.x;
@@ -265,8 +317,8 @@ dilate_hist_kernel(const float* __restrict__ raw_i, const float* __restrict__ ra
       vi = sum_i;
       vw = sum_w;
     }
-    out_i[plan.cell_off[l] + idx] = vi;
-    out_w[plan.cell_off[l] + idx] = vw;
+    out_i[out_cells(plan, l, z) + idx] = vi;
+    out_w[out_cells(plan, l, z) + idx] = vw;
     if (vw > 0.0f) {
       const int c = min((int)vw, plan.classes - 1);
       atomicAdd(c < kLowBins ? &low[c] : &level_hist[c], 1);
@@ -288,12 +340,16 @@ struct Selection {
   unsigned char* valid;
 };
 
-__device__ Selection round_selection(const Plan& plan, int r, const float* out_i,
+// round r of sequence z (grid z), its intensity image read at seq[z]
+__device__ Selection round_selection(const Plan& plan, int r, int z, const float* out_i,
                                      const float* out_w, float* uv, float* idepth, float* value,
                                      unsigned char* valid) {
-  const int l = plan.level[r], at = plan.sel_off[r];
-  return {out_i + plan.cell_off[l], out_w + plan.cell_off[l], plan.intensity[l], plan.w[l],
-          uv + 2 * at, idepth + at, value + at, valid + at};
+  const int l = plan.level[r];
+  const size_t at = sel_at(plan, r, z), cells = out_cells(plan, l, z);
+  const size_t plane = (size_t)plan.h[l] * plan.w[l];
+  const float* intensity = plan.intensity[l] + (size_t)seq::of(plan.seq_list) * 3 * plane;
+  return {out_i + cells, out_w + cells, intensity, plan.w[l], uv + 2 * at, idepth + at,
+          value + at, valid + at};
 }
 
 __device__ __forceinline__ void write_slot(const Selection& sel, int slot, int idx) {
@@ -316,9 +372,11 @@ class_threshold_kernel(const int* __restrict__ hist, Plan plan, int* __restrict_
                        float* __restrict__ idepth, float* __restrict__ value,
                        unsigned char* __restrict__ valid) {
   __shared__ int sums[33];
-  const int r = blockIdx.x, l = plan.level[r], slots = plan.slots[r];
+  const int r = blockIdx.x, l = plan.level[r], slots = plan.slots[r], z = blockIdx.z;
   const int npix = plan.h[l] * plan.w[l], classes = plan.classes;
-  const int* level_hist = hist + (size_t)l * classes;
+  const int* level_hist = hist + ((size_t)z * plan.levels + l) * classes;
+  params = seq::at(params, z, 2 * plan.rounds);
+  rank = seq::at(rank, z, (size_t)plan.rounds * plan.heavy_stride);
   const int chunk = (classes + kBlockThreads - 1) / kBlockThreads;
   const int hi = classes - 1 - (int)threadIdx.x * chunk;
   const int lo = max(hi - chunk + 1, 1);
@@ -339,7 +397,7 @@ class_threshold_kernel(const int* __restrict__ hist, Plan plan, int* __restrict_
   }
   for (int i = threadIdx.x; i < plan.heavy_stride; i += kBlockThreads)
     rank[(size_t)r * plan.heavy_stride + i] = 0;
-  const int at = plan.sel_off[r];
+  const size_t at = sel_at(plan, r, z);
   for (int s = npix + threadIdx.x; s < slots; s += kBlockThreads) {
     uv[2 * (at + s)] = 0.0f;
     uv[2 * (at + s) + 1] = 0.0f;
@@ -365,11 +423,15 @@ __global__ void __launch_bounds__(kThreads)
 tile_count_kernel(const float* __restrict__ out_w, Plan plan, const int* __restrict__ params,
                   int* __restrict__ tile_counts) {
   __shared__ int sums[33];
+  const int z = blockIdx.z;
   const int r = segment_of(plan.tile_off, plan.rounds, blockIdx.x);
   const int l = plan.level[r], npix = plan.h[l] * plan.w[l];
   const int tile = blockIdx.x - plan.tile_off[r];
+  params = seq::at(params, z, 2 * plan.rounds);
+  tile_counts = seq::at(tile_counts, z, 2 * plan.tiles);
   float wv[kPerThread];
-  const int packed = tile_packed(out_w + plan.cell_off[l], tile * kTile + threadIdx.x * kPerThread,
+  const int packed = tile_packed(out_w + out_cells(plan, l, z),
+                                 tile * kTile + threadIdx.x * kPerThread,
                                  npix, (float)params[2 * r], wv);
   ba::block_exclusive_scan<kThreads>(packed, sums);
   if (threadIdx.x == 0) {
@@ -385,10 +447,14 @@ select_write_kernel(const float* __restrict__ out_i, const float* __restrict__ o
                     float* __restrict__ value, unsigned char* __restrict__ valid) {
   __shared__ int sums[33];
   __shared__ int before[2];
+  const int z = blockIdx.z;
   const int r = segment_of(plan.tile_off, plan.rounds, blockIdx.x);
   const int l = plan.level[r], npix = plan.h[l] * plan.w[l], slots = plan.slots[r];
   const int tile = blockIdx.x - plan.tile_off[r];
-  const Selection sel = round_selection(plan, r, out_i, out_w, uv, idepth, value, valid);
+  const Selection sel = round_selection(plan, r, z, out_i, out_w, uv, idepth, value, valid);
+  params = seq::at(params, z, 2 * plan.rounds);
+  tile_counts = seq::at(tile_counts, z, 2 * plan.tiles);
+  heavy = seq::at(heavy, z, (size_t)plan.rounds * 2 * plan.heavy_stride);
   const float cstar = (float)params[2 * r];
   const int above = params[2 * r + 1];
   int* list = heavy + (size_t)r * 2 * plan.heavy_stride;
@@ -429,7 +495,12 @@ __global__ void __launch_bounds__(kThreads)
 class_rank_kernel(const int* __restrict__ params, const int* __restrict__ heavy, Plan plan,
                   int* __restrict__ rank) {
   __shared__ int cls_s[kThreads];
-  const int r = blockIdx.z, count = params[2 * r + 1];
+  // grid z: sequence z / rounds, round z % rounds
+  const int z = blockIdx.z / plan.rounds, r = blockIdx.z % plan.rounds;
+  params = seq::at(params, z, 2 * plan.rounds);
+  heavy = seq::at(heavy, z, (size_t)plan.rounds * 2 * plan.heavy_stride);
+  rank = seq::at(rank, z, (size_t)plan.rounds * plan.heavy_stride);
+  const int count = params[2 * r + 1];
   if ((int)blockIdx.x * kThreads >= count || blockIdx.y > blockIdx.x) return;
   const int* list = heavy + (size_t)r * 2 * plan.heavy_stride;
   const int base = blockIdx.y * kThreads, i = blockIdx.x * kThreads + threadIdx.x;
@@ -454,9 +525,12 @@ heavy_write_kernel(const float* __restrict__ out_i, const float* __restrict__ ou
                    float* __restrict__ value, unsigned char* __restrict__ valid) {
   extern __shared__ int first_slot[];    // [classes]
   __shared__ int sums[33];
-  const int r = blockIdx.x, classes = plan.classes;
+  const int r = blockIdx.x, classes = plan.classes, z = blockIdx.z;
+  params = seq::at(params, z, 2 * plan.rounds);
+  heavy = seq::at(heavy, z, (size_t)plan.rounds * 2 * plan.heavy_stride);
+  rank = seq::at(rank, z, (size_t)plan.rounds * plan.heavy_stride);
   const int count = params[2 * r + 1];
-  const int* level_hist = hist + (size_t)plan.level[r] * classes;
+  const int* level_hist = hist + ((size_t)z * plan.levels + plan.level[r]) * classes;
   const int chunk = (classes + kBlockThreads - 1) / kBlockThreads;
   const int hi = classes - 1 - (int)threadIdx.x * chunk;
   const int lo = max(hi - chunk + 1, 1);
@@ -468,7 +542,7 @@ heavy_write_kernel(const float* __restrict__ out_i, const float* __restrict__ ou
     above += level_hist[c];
   }
   __syncthreads();
-  const Selection sel = round_selection(plan, r, out_i, out_w, uv, idepth, value, valid);
+  const Selection sel = round_selection(plan, r, z, out_i, out_w, uv, idepth, value, valid);
   const int* list = heavy + (size_t)r * 2 * plan.heavy_stride;
   const int* round_rank = rank + (size_t)r * plan.heavy_stride;
   for (int i = threadIdx.x; i < count; i += kBlockThreads)
@@ -490,8 +564,15 @@ heavy_write_kernel(const float* __restrict__ out_i, const float* __restrict__ ou
 // max_points slots then one of flow_points slots: uv [.,2], idepth, value
 // f32, valid u8; rel_out [k,7] f32 (q, t of T_newest^-1 * T_f) or null.
 // `launches` (host, 2 ints) receives the kernels launched and the memsets
-// issued.  Returns cudaErrorInvalidValue (1) for more than 5 levels, more than
-// 16384 points, more than 64 frames, or a level without pixels.
+// issued.  Sequence axis (seq_axis.cuh): `seqs` sequences; the window's
+// tensors are [B, ...] stacks and `intensity[l]` the [B, 3, h_l, w_l] maps of
+// level l (channel 0 read), each read at seq_list[z] (null: z); every scratch
+// array is [seqs, the size above]; out_i / out_w hold level after level a
+// [seqs, h_l, w_l] block, the selections round after round a [seqs, slots]
+// block (uv [seqs, slots, 2]); rel_out [seqs, k, 7].  Returns
+// cudaErrorInvalidValue (1) for more than 5 levels, more than 16384 points,
+// more than 64 frames, a level without pixels, or more than 65535 / (levels +
+// 1) sequences.
 extern "C" int depth_maps(const float* lm_uv, const float* lm_idepth,
                           const unsigned char* lm_valid, const unsigned char* lm_outlier,
                           const unsigned char* frame_valid, const float* t_lin_q,
@@ -502,17 +583,20 @@ extern "C" int depth_maps(const float* lm_uv, const float* lm_idepth,
                           int* has_prev, float* raw_i, float* raw_w, int* hist, int* params,
                           int* tile_counts, int* heavy, int* rank, float* out_i, float* out_w,
                           float* sel_uv, float* sel_idepth, float* sel_value,
-                          unsigned char* sel_valid, float* rel_out, int* launches,
-                          void* stream) {
+                          unsigned char* sel_valid, float* rel_out, int* launches, int seqs,
+                          const int* seq_list, void* stream) {
   const int total = k * n;
   if (levels < 1 || levels > kMaxLevels || total < 1 || total > kMaxPoints || k > kMaxFrames ||
-      (h >> (levels - 1)) < 1 || (w >> (levels - 1)) < 1)
+      (h >> (levels - 1)) < 1 || (w >> (levels - 1)) < 1 || !seq::valid_count(seqs) ||
+      seqs > seq::kMaxSequences / (levels + 1))
     return (int)cudaErrorInvalidValue;
   Plan plan = {};
   plan.levels = levels;
   plan.rounds = levels + 1;
   plan.classes = total + 1;
   plan.heavy_stride = max(max_points, flow_points);
+  plan.seqs = seqs;
+  plan.seq_list = seq_list;
   int cells = 0, blocks = 0;
   for (int l = 0; l < levels; ++l) {
     plan.h[l] = h >> l;
@@ -524,6 +608,7 @@ extern "C" int depth_maps(const float* lm_uv, const float* lm_idepth,
     blocks += blocks_for(plan.h[l] * plan.w[l], kThreads);
   }
   plan.block_off[levels] = blocks;
+  plan.cells = cells;
   int tiles = 0;
   for (int r = 0; r < plan.rounds; ++r) {
     const bool flow = r == levels;        // level 0 once more, for the flow set
@@ -534,6 +619,7 @@ extern "C" int depth_maps(const float* lm_uv, const float* lm_idepth,
     tiles += blocks_for(plan.h[plan.level[r]] * plan.w[plan.level[r]], kTile);
   }
   plan.tile_off[plan.rounds] = tiles;
+  plan.tiles = tiles;
 
   static size_t write_opted[smem::kMaxDevices] = {};
   const size_t write_bytes = sizeof(int) * plan.classes;
@@ -546,33 +632,36 @@ extern "C" int depth_maps(const float* lm_uv, const float* lm_idepth,
   const int prepare_blocks = point_blocks + blocks_for(plan.h[0] * plan.w[0], kThreads) +
                              blocks_for(levels * plan.classes, kThreads);
   int launched = 0;   // kernels; this entry issues no memset
-  prepare_kernel<<<prepare_blocks, kThreads, 0, s>>>(
+  prepare_kernel<<<dim3(prepare_blocks, 1, seqs), kThreads, 0, s>>>(
       lm_uv, lm_idepth, lm_valid, lm_outlier, frame_valid, t_lin_q, t_lin_t, eps, k, total, n,
       cam, plan, pix, pidep, next, has_prev, raw_i, raw_w, hist, rel_out);
   ++launched;
-  twins_kernel<<<dim3(point_blocks, point_blocks), kThreads, 0, s>>>(pix, total, next, has_prev);
+  twins_kernel<<<dim3(point_blocks, point_blocks, seqs), kThreads, 0, s>>>(pix, total, next,
+                                                                         has_prev);
   ++launched;
-  chain_kernel<<<point_blocks, kThreads, 0, s>>>(pix, pidep, next, has_prev, total, raw_i,
-                                                 raw_w);
+  chain_kernel<<<dim3(point_blocks, 1, seqs), kThreads, 0, s>>>(pix, pidep, next, has_prev,
+                                                                 total, cells, raw_i, raw_w);
   ++launched;
-  pool_kernel<<<dim3(blocks_for(w, kPoolTile), blocks_for(h, kPoolTile)), kPoolTile * kPoolTile,
-                0, s>>>(plan, raw_i, raw_w);
+  pool_kernel<<<dim3(blocks_for(w, kPoolTile), blocks_for(h, kPoolTile), seqs),
+                kPoolTile * kPoolTile, 0, s>>>(plan, raw_i, raw_w);
   ++launched;
-  dilate_hist_kernel<<<blocks, kThreads, 0, s>>>(raw_i, raw_w, plan, out_i, out_w, hist);
+  dilate_hist_kernel<<<dim3(blocks, 1, seqs), kThreads, 0, s>>>(raw_i, raw_w, plan, out_i,
+                                                                 out_w, hist);
   ++launched;
-  class_threshold_kernel<<<plan.rounds, kBlockThreads, 0, s>>>(
+  class_threshold_kernel<<<dim3(plan.rounds, 1, seqs), kBlockThreads, 0, s>>>(
       hist, plan, params, rank, sel_uv, sel_idepth, sel_value, sel_valid);
   ++launched;
-  tile_count_kernel<<<tiles, kThreads, 0, s>>>(out_w, plan, params, tile_counts);
+  tile_count_kernel<<<dim3(tiles, 1, seqs), kThreads, 0, s>>>(out_w, plan, params,
+                                                               tile_counts);
   ++launched;
-  select_write_kernel<<<tiles, kThreads, 0, s>>>(out_i, out_w, plan, params, tile_counts, heavy,
-                                                 sel_uv, sel_idepth, sel_value, sel_valid);
+  select_write_kernel<<<dim3(tiles, 1, seqs), kThreads, 0, s>>>(
+      out_i, out_w, plan, params, tile_counts, heavy, sel_uv, sel_idepth, sel_value, sel_valid);
   ++launched;
   const int list_tiles = blocks_for(plan.heavy_stride, kThreads);
-  class_rank_kernel<<<dim3(list_tiles, list_tiles, plan.rounds), kThreads, 0, s>>>(params, heavy,
-                                                                                  plan, rank);
+  class_rank_kernel<<<dim3(list_tiles, list_tiles, plan.rounds * seqs), kThreads, 0, s>>>(
+      params, heavy, plan, rank);
   ++launched;
-  heavy_write_kernel<<<plan.rounds, kBlockThreads, write_bytes, s>>>(
+  heavy_write_kernel<<<dim3(plan.rounds, 1, seqs), kBlockThreads, write_bytes, s>>>(
       out_i, out_w, hist, plan, params, heavy, rank, sel_uv, sel_idepth, sel_value, sel_valid);
   ++launched;
   launches[0] = launched;

@@ -31,8 +31,10 @@
 // another in the flat buffer, so a frame's map at a level is a contiguous
 // [3, h_l, w_l] block.  A frame's blocks run the code and the order of a
 // single frame's launch, so its maps are those of the single launch to the
-// bit.  (The channel axis cannot carry the frames: its planes interleave as
-// [values C | dx C | dy C], and its launch has one level.)
+// bit.  B frames' channel maps (the keyframes of the sequences that keyframe
+// on a tick) are one launch too: grid z runs over frame x C + channel, and
+// frame f's [3C, h, w] map is the f-th of the output's; a channel map has one
+// level.
 
 #include <cuda_runtime.h>
 
@@ -60,9 +62,9 @@ pyramid_kernel(const float* __restrict__ src, int h, int w, int channels, int ba
   constexpr int halo0 = 1 << (levels - 1);
   constexpr int side0 = kTile + 2 * halo0;
   __shared__ float buf[shared_floats(kLevels)];
-  // grid z: a channel of one frame (channels > 1), or a frame of the batch
-  const int c = channels > 1 ? (int)blockIdx.z : 0;
-  const int frame = channels > 1 ? 0 : (int)blockIdx.z;
+  // grid z: frame x channels + channel (one channel: the frame)
+  const int c = (int)blockIdx.z % channels;
+  const int frame = (int)blockIdx.z / channels;
   src += (size_t)blockIdx.z * h * w;
   const int oy = blockIdx.y * kTile - halo0, ox = blockIdx.x * kTile - halo0;
 #pragma unroll
@@ -96,7 +98,7 @@ pyramid_kernel(const float* __restrict__ src, int h, int w, int channels, int ba
     const int tile = kTile >> l, halo = halo0 >> l;
     const int y0 = blockIdx.y * tile, x0 = blockIdx.x * tile;
     const size_t plane = (size_t)hl * wl;
-    float* o = out + (size_t)batch * offset + (size_t)frame * 3 * plane;
+    float* o = out + (size_t)batch * offset + (size_t)frame * 3 * channels * plane;
     for (int e = threadIdx.x; e < tile * tile; e += kThreads) {
       const int ty = e / tile, tx = e - ty * tile;
       const int y = y0 + ty, x = x0 + tx;
@@ -123,12 +125,11 @@ pyramid_kernel(const float* __restrict__ src, int h, int w, int channels, int ba
 
 // src: [batch, channels, h, w] f32; out: the levels' [batch, 3 channels, h_l,
 // w_l] maps one after another, h_0 = h, h_l = h_{l-1} / 2 (likewise w), each
-// at least 2.  A pyramid has one channel; a channel map has one level and
-// one frame.
+// at least 2.  A pyramid has one channel; a channel map has one level.
 extern "C" int pyramid_maps(const float* src, int h, int w, int channels, int levels,
                             int batch, float* out, void* stream) {
   if (channels < 1 || levels < 1 || levels > kMaxLevels || batch < 1 ||
-      (channels > 1 && (levels > 1 || batch > 1)) || batch > 65535)
+      (channels > 1 && levels > 1) || (long long)batch * channels > 65535)
     return (int)cudaErrorInvalidValue;
   const dim3 grid((w + kTile - 1) / kTile, (h + kTile - 1) / kTile, channels * batch);
   const cudaStream_t s = (cudaStream_t)stream;

@@ -64,8 +64,18 @@
 // the host slot's C channel planes at one of the 8 pattern points under the
 // 10x10-window rule (ba_body.cuh::sample_window, shared with K7; the window
 // based at floor(uv) - 4, values only).
+//
+// Sequence axis (seq_axis.cuh), both entries: grid z is a sequence of the
+// call, every launch serves all S.  The window (its poses, affine, exposure,
+// landmarks and channel bank) and the immature banks are [B, ...] stacks read
+// at seq[z] and never copied; the per-candidate flags that an earlier kernel
+// of the call wrote (K13's activate and drop, the refinement's outputs), the
+// scratch (order, pair table, the pairing's workspace) and the outputs are
+// [S, ...] at z, so a sequence's blocks do what a launch of it alone does:
+// each sequence has its own cap and its own newest-bank-first order.
 
 #include "ba_body.cuh"
+#include "seq_axis.cuh"
 
 namespace {
 
@@ -86,12 +96,14 @@ struct RefineState {
 };
 
 // activating candidates among the flags [begin, end) (bytes 0 or 1): 16 bytes
-// a load where aligned, the edges byte by byte; summed over the block
+// a load where the address is aligned (a sequence's flags need not start on
+// 16 bytes), the edges byte by byte; summed over the block
 __device__ int block_count(const unsigned char* __restrict__ flags, int begin, int end,
                            int* sums) {
   int count = 0;
-  const int body = min(max((begin + 15) & ~15, begin), end);
-  const int tail = max(end & ~15, body);
+  const int lead = (int)((16 - ((size_t)(flags + begin) & 15)) & 15);
+  const int body = min(begin + lead, end);
+  const int tail = body + ((end - body) & ~15);
   for (int i = begin + (int)threadIdx.x; i < body; i += kThreads) count += flags[i];
   for (int i = tail + (int)threadIdx.x; i < end; i += kThreads) count += flags[i];
   const uint4* words = reinterpret_cast<const uint4*>(flags + body);
@@ -124,7 +136,24 @@ compact_kernel(const unsigned char* __restrict__ activate,
                const float* __restrict__ exposure, int k, int m, int cap,
                int* __restrict__ order, unsigned char* __restrict__ selected,
                float* __restrict__ table, float* __restrict__ idepth_out,
-               unsigned char* __restrict__ keep) {
+               unsigned char* __restrict__ keep, const int* __restrict__ seq_list) {
+  {
+    const int sb = seq::of(seq_list), z = blockIdx.z;
+    const size_t km = (size_t)k * m;
+    activate = seq::at(activate, z, km);
+    idepth_min = seq::at(idepth_min, sb, km);
+    idepth_max = seq::at(idepth_max, sb, km);
+    t_lin_q = seq::at(t_lin_q, sb, 4 * (size_t)k);
+    t_lin_t = seq::at(t_lin_t, sb, 3 * (size_t)k);
+    eps = seq::at(eps, sb, 8 * (size_t)k);
+    affine0 = seq::at(affine0, sb, 2 * (size_t)k);
+    exposure = seq::at(exposure, sb, k);
+    order = seq::at(order, z, cap);
+    selected = seq::at(selected, z, km);
+    table = seq::at(table, z, 8 * (size_t)k * k + k);
+    idepth_out = seq::at(idepth_out, z, km);
+    keep = seq::at(keep, z, km);
+  }
   const int total = k * m;
   const int tid = threadIdx.x;
   const int table_blocks = (k * k + kThreads - 1) / kThreads;
@@ -215,11 +244,26 @@ refine_kernel(const int* __restrict__ order, const float* __restrict__ uv,
               const float* __restrict__ patch, const float* __restrict__ idepth_min,
               const float* __restrict__ idepth_max, const float* __restrict__ table,
               const unsigned char* __restrict__ frame_valid, const float* __restrict__ images,
-              size_t image_stride, int k, int m, int h, int w, Camera cam, float sigma,
+              size_t image_stride, int k, int m, int h, int w, int cap, Camera cam, float sigma,
               float* __restrict__ idepth_out, unsigned char* __restrict__ keep,
-              float* __restrict__ trace) {
+              float* __restrict__ trace, const int* __restrict__ seq_list) {
   __shared__ float e_s[2][kMaxTargets], h_s[2][kMaxTargets], b_s[2][kMaxTargets];
   __shared__ int inl_s[2][kMaxTargets];
+  {
+    const int sb = seq::of(seq_list), z = blockIdx.z;
+    const size_t km = (size_t)k * m;
+    order = seq::at(order, z, cap);
+    uv = seq::at(uv, sb, 2 * km);
+    patch = seq::at(patch, sb, km * kPattern);
+    idepth_min = seq::at(idepth_min, sb, km);
+    idepth_max = seq::at(idepth_max, sb, km);
+    table = seq::at(table, z, 8 * (size_t)k * k + k);
+    frame_valid = seq::at(frame_valid, sb, k);
+    images = seq::at(images, sb, (size_t)k * image_stride);
+    idepth_out = seq::at(idepth_out, z, km);
+    keep = seq::at(keep, z, km);
+    trace = seq::at(trace, z, (size_t)cap * (kEvaluations - 1) * 4);
+  }
   const int idx = threadIdx.x;
   const int flat = order[blockIdx.x];
   if (flat < 0) {
@@ -415,9 +459,39 @@ static __device__ __forceinline__ float pair_bound(const PairBank& in, const flo
 __global__ void __launch_bounds__(kThreads)
 pair_slots_kernel(PairBank in, PairWindow win, PairOut out, const float* __restrict__ bank,
                   int channels, int h, int w, int k, int n, int m,
-                  PairWorkspace* __restrict__ ws) {
+                  PairWorkspace* __restrict__ ws, const int* __restrict__ seq_list) {
   extern __shared__ int pair_lists[];
   __shared__ int sums[33];
+  {
+    const int sb = seq::of(seq_list), z = blockIdx.z;
+    const size_t km = (size_t)k * m, kn = (size_t)k * n;
+    const size_t values = (size_t)channels * kPattern;
+    in.act = seq::at(in.act, z, km);
+    in.drop = seq::at(in.drop, z, km);
+    in.selected = seq::at(in.selected, z, km);
+    in.refined = seq::at(in.refined, z, km);
+    in.uv = seq::at(in.uv, sb, 2 * km);
+    in.patch = seq::at(in.patch, sb, km * kPattern);
+    in.idepth_min = seq::at(in.idepth_min, sb, km);
+    in.idepth_max = seq::at(in.idepth_max, sb, km);
+    in.valid = seq::at(in.valid, sb, km);
+    bank = seq::at(bank, sb, (size_t)k * 3 * channels * h * w);
+    win.lm_uv = seq::at(win.lm_uv, sb, 2 * kn);
+    win.lm_patch = seq::at(win.lm_patch, sb, kn * values);
+    win.lm_idepth = seq::at(win.lm_idepth, sb, kn);
+    win.lm_valid = seq::at(win.lm_valid, sb, kn);
+    win.res_status = seq::at(win.res_status, sb, kn * k);
+    out.lm_uv = seq::at(out.lm_uv, z, 2 * kn);
+    out.lm_patch = seq::at(out.lm_patch, z, kn * values);
+    out.lm_idepth = seq::at(out.lm_idepth, z, kn);
+    out.lm_valid = seq::at(out.lm_valid, z, kn);
+    out.res_status = seq::at(out.res_status, z, kn * k);
+    out.valid = seq::at(out.valid, z, km);
+    out.idepth_min = seq::at(out.idepth_min, z, km);
+    out.idepth_max = seq::at(out.idepth_max, z, km);
+    out.n_activated = seq::at(out.n_activated, z, 1);
+    ws = seq::at(ws, z, 1);
+  }
   int* act_list = pair_lists;       // [m]
   int* free_rank = pair_lists + m;  // [n], -1 where the slot is live
   const int t = blockIdx.x, a = blockIdx.y, tid = threadIdx.x;
@@ -524,7 +598,10 @@ pair_slots_kernel(PairBank in, PairWindow win, PairOut out, const float* __restr
 // written: selected, keep [k,m] u8; idepth_out [k,m] f32 (the refined idepth
 // where a candidate is kept, the bank's elsewhere); trace [cap,3,4] f32 or
 // nullptr (energy, trial energy, lambda, accept per trial; zero rows past the
-// refined count).  k <= kMaxTargets.
+// refined count).  k <= kMaxTargets.  Sequence axis (seq_axis.cuh): `seqs`
+// sequences, grid z; the window, images and banks are [B, ...] stacks read at
+// seq_list[z] (null: z), activate, the scratch and the outputs [seqs, ...] at
+// z (order [seqs,cap], table [seqs,8*k*k+k]).
 extern "C" int refine_idepth(const unsigned char* activate, const float* uv,
                              const float* patch, const float* idepth_min,
                              const float* idepth_max, const float* t_lin_q,
@@ -534,19 +611,20 @@ extern "C" int refine_idepth(const unsigned char* activate, const float* uv,
                              int cap, float fx, float fy, float cx, float cy, float width,
                              float height, float sigma, int* order, float* table,
                              unsigned char* selected, float* idepth_out, unsigned char* keep,
-                             float* trace, void* stream) {
-  if (k > kMaxTargets) return (int)cudaErrorInvalidValue;
+                             float* trace, int seqs, const int* seq_list, void* stream) {
+  if (k > kMaxTargets || !seq::valid_count(seqs)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const ba::Camera cam = {fx, fy, cx, cy, width, height};
   const int fill = kThreads * kFillPerThread;
   const int table_blocks = (k * k + kThreads - 1) / kThreads;
-  compact_kernel<<<k + table_blocks + (k * m + fill - 1) / fill, kThreads, 0, s>>>(
-      activate, idepth_min, idepth_max, t_lin_q, t_lin_t, eps, affine0, exposure, k, m, cap,
-      order, selected, table, idepth_out, keep);
+  compact_kernel<<<dim3(k + table_blocks + (k * m + fill - 1) / fill, 1, seqs), kThreads, 0,
+                   s>>>(activate, idepth_min, idepth_max, t_lin_q, t_lin_t, eps, affine0,
+                        exposure, k, m, cap, order, selected, table, idepth_out, keep,
+                        seq_list);
   const int threads = (k * ba::kPattern + 31) / 32 * 32;
-  refine_kernel<<<cap, threads, 0, s>>>(order, uv, patch, idepth_min, idepth_max, table,
-                                        frame_valid, images, (size_t)image_stride, k, m, h, w,
-                                        cam, sigma, idepth_out, keep, trace);
+  refine_kernel<<<dim3(cap, 1, seqs), threads, 0, s>>>(
+      order, uv, patch, idepth_min, idepth_max, table, frame_valid, images,
+      (size_t)image_stride, k, m, h, w, cap, cam, sigma, idepth_out, keep, trace, seq_list);
   return (int)cudaGetLastError();
 }
 
@@ -559,9 +637,13 @@ extern "C" int refine_idepth(const unsigned char* activate, const float* uv,
 // entry written once: the window's five tensors after the pairing (*_out),
 // imm_valid_out [k,m] u8, idepth_min_out and idepth_max_out [k,m] f32 (null
 // without a refinement: the bounds are unchanged), n_activated one int64.
-// workspace: workspace_bytes >= sizeof(PairWorkspace) of device memory, zero
-// before the first launch on the stream that owns it; every launch leaves it
-// zero again.
+// workspace: workspace_bytes >= seqs * sizeof(PairWorkspace) of device
+// memory (a PairWorkspace a sequence, at z), zero before the first launch on
+// the stream that owns it; every launch leaves it zero again.  Sequence axis
+// (seq_axis.cuh): `seqs` sequences, grid z; the banks, the channel bank and
+// the window's five tensors are [B, ...] stacks read at seq_list[z] (null:
+// z), the flags (activate, drop, selected, refined) and the outputs [seqs,
+// ...] at z.
 extern "C" int activation_scatter(const unsigned char* activate, const unsigned char* drop,
                                   const unsigned char* selected, const float* refined,
                                   const float* uv, const float* patch,
@@ -575,21 +657,23 @@ extern "C" int activation_scatter(const unsigned char* activate, const unsigned 
                                   unsigned char* lm_valid_out, int* res_status_out,
                                   unsigned char* imm_valid_out, float* idepth_min_out,
                                   float* idepth_max_out, long long* n_activated,
-                                  void* workspace, int workspace_bytes, void* stream) {
+                                  void* workspace, int workspace_bytes, int seqs,
+                                  const int* seq_list, void* stream) {
   const bool refine = refined != nullptr;
   const size_t shared = (size_t)(n + m) * sizeof(int);
   if (channels < 1 || k < 1 || k > kMaxPairSlots || n < 1 || m < 1 || n >= 32768 ||
       m >= 32768 || shared > 48 * 1024 || (selected != nullptr) != refine ||
       (idepth_min_out != nullptr) != refine || (idepth_max_out != nullptr) != refine ||
-      workspace == nullptr || workspace_bytes < (int)sizeof(PairWorkspace))
+      !seq::valid_count(seqs) || workspace == nullptr ||
+      (long long)workspace_bytes < (long long)seqs * (long long)sizeof(PairWorkspace))
     return (int)cudaErrorInvalidValue;
   const PairBank in = {activate, drop, selected, refined, uv, patch, idepth_min, idepth_max,
                        imm_valid};
   const PairWindow win = {lm_uv, lm_patch, lm_idepth, lm_valid, res_status};
   const PairOut out = {lm_uv_out, lm_patch_out, lm_idepth_out, lm_valid_out, res_status_out,
                        imm_valid_out, idepth_min_out, idepth_max_out, n_activated};
-  const dim3 grid((n + kPairTile - 1) / kPairTile, k);
+  const dim3 grid((n + kPairTile - 1) / kPairTile, k, seqs);
   pair_slots_kernel<<<grid, kThreads, shared, (cudaStream_t)stream>>>(
-      in, win, out, bank, channels, h, w, k, n, m, (PairWorkspace*)workspace);
+      in, win, out, bank, channels, h, w, k, n, m, (PairWorkspace*)workspace, seq_list);
   return (int)cudaGetLastError();
 }

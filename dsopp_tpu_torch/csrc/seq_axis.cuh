@@ -1,4 +1,4 @@
-// The sequence axis of the keyframe backend's kernels (K7-K11, K15p, K15).
+// The sequence axis of the keyframe backend's kernels (K7-K16, K15p).
 //
 // One launch serves S sequences of one shape (the same k, n, h, w and C):
 // grid z is a sequence's position in the caller's list, and every block of
@@ -12,7 +12,9 @@
 //   - the launch's own buffers and outputs [S, ...] (the LM loop's carried
 //     state and evaluations, the systems, the workspaces), at position z.
 // A null list is the identity (z itself): a call of one sequence passes a
-// null list and S = 1, so its slices are the tensors themselves.
+// null list and S = 1, so its slices are the tensors themselves.  A kernel
+// whose grid z also carries another index (K16's selection rounds) reads its
+// sequence with `of_index`.
 
 #pragma once
 
@@ -26,6 +28,11 @@ constexpr int kMaxSequences = 65535;
 // the sequence of this block's grid z in `list` (null: z itself)
 static __device__ __forceinline__ int of(const int* list) {
   return list == nullptr ? (int)blockIdx.z : __ldg(list + blockIdx.z);
+}
+
+// the sequence at position z of `list` (null: z itself)
+static __device__ __forceinline__ int of_index(const int* list, int z) {
+  return list == nullptr ? z : __ldg(list + z);
 }
 
 // `p` advanced by `s` slices of `per` elements (null stays null)

@@ -48,12 +48,15 @@ class FilterBankEmbedder:
         self._kernels = {}                  # device -> the f32 [C, 1, 3, 3] bank there
 
     def __call__(self, image):
+        """[H, W] → [C, H, W]; [S, H, W] (S frames) → [S, C, H, W] in one
+        convolution."""
         k = self._kernels.get(image.device)
         if k is None:
             k = self.filters[:, None].to(device=image.device, dtype=torch.float32)
             self._kernels[image.device] = k
-        x = image[None, None].to(torch.float32)                          # [1, 1, H, W]
-        return F.conv2d(x, k, padding=1)[0].to(image.dtype)            # [C, H, W]
+        x = image.reshape((-1, 1) + tuple(image.shape[-2:])).to(torch.float32)  # [S, 1, H, W]
+        out = F.conv2d(x, k, padding=1).to(image.dtype)                       # [S, C, H, W]
+        return out[0] if image.dim() == 2 else out
 
 
 def make_embedder(name: str = "identity", **kw):

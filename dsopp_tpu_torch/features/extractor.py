@@ -9,6 +9,10 @@ the ``num_points`` best blocks, ties broken toward the lower block index.
 :func:`select_candidates` has a hand-written CUDA kernel (K12,
 ``csrc/candidates.cu``) beside its plain version and dispatches on the map's
 device: a CUDA map goes to the kernel or raises.
+:func:`select_candidates_sequences` selects the candidates of S sequences of
+a stack of B maps (the keyframes of a batched tick) in one call: on the card
+one launch a kernel for all S, on the CPU the plain version once a sequence;
+the solo call is its S = 1 case.
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ from typing import NamedTuple
 import torch
 
 from dsopp_tpu_torch import kernels
+from dsopp_tpu_torch.solvers.pba import _kernel_sequences, sequence_list
 
 REGION = 32
 MAX_GRADIENT_BIN = 50
@@ -100,13 +105,14 @@ def select_candidates_plain(pixel_map, num_points: int, mask=None, block: int = 
 
 
 @functools.lru_cache(maxsize=None)
-def candidates_layout(h: int, w: int, tiles: int):
-    """K12's scratch for an h×w map of ``tiles`` tiles → (byte offsets of the
-    regions' thresholds (f32), the tiles' scores (f32) and the tiles' best
-    positions (2 int32 a tile), the scratch's bytes); each array starts on a
-    256-byte boundary."""
+def candidates_layout(h: int, w: int, tiles: int, seqs: int = 1):
+    """K12's scratch for ``seqs`` h×w maps of ``tiles`` tiles → (byte offsets
+    of the regions' thresholds (f32), the tiles' scores (f32) and the tiles'
+    best positions (2 int32 a tile), each array [seqs, one map's], the
+    scratch's bytes); each array starts on a 256-byte boundary."""
     offsets, at = [], 0
-    for nbytes in (4 * (h // REGION) * (w // REGION), 4 * tiles, 8 * tiles):
+    for nbytes in (4 * seqs * (h // REGION) * (w // REGION), 4 * seqs * tiles,
+                   8 * seqs * tiles):
         offsets.append(at)
         at += -(-nbytes // 256) * 256
     return offsets, at
@@ -117,9 +123,25 @@ def select_candidates_cuda(pixel_map, num_points: int, mask=None, block: int = 0
     """Kernel K12: same outputs as :func:`select_candidates_plain`, slot by
     slot: checks, the stream's scratch buffer (:func:`candidates_layout`),
     three output allocations and one C call of three launches; no host read.
-    ``mask`` None passes no mask image to the kernel."""
-    _, h, w = pixel_map.shape
-    kernels.check(pixel_map, "pixel_map", (3, h, w))
+    ``mask`` None passes no mask image to the kernel.  The one-sequence case
+    of :func:`_select_candidates_sequences_cuda`."""
+    return _select_candidates_sequences_cuda(pixel_map, (0,), num_points, mask, block, border,
+                                             threshold_factor, stacked=False)
+
+
+def _select_candidates_sequences_cuda(maps, seqs: tuple, num_points: int, mask=None,
+                                      block: int = 0, border: int = 4,
+                                      threshold_factor: float = 2.0,
+                                      stacked: bool = True) -> Candidates:
+    """Kernel K12 for the S sequences ``seqs`` (a checked host list) of a
+    stack of maps [B, 3, H, W], read through the list (never copied), one
+    launch a kernel for all S → :class:`Candidates` with a leading [S] axis.
+    ``mask``: the batch's one [H, W] mask or None.  ``stacked=False``: one
+    map, ``seqs`` (0,), the outputs without the sequence axis."""
+    lead = tuple(maps.shape[:1]) if stacked else ()
+    batch = lead[0] if stacked else 1
+    h, w = maps.shape[-2:]
+    kernels.check(maps, "pixel_map", lead + (3, h, w))
     if mask is not None:
         kernels.check(mask, "mask", (h, w), torch.bool)
     block = _tile_size(h, w, num_points, block)
@@ -127,15 +149,34 @@ def select_candidates_cuda(pixel_map, num_points: int, mask=None, block: int = 0
     if h < REGION or w < REGION or tiles == 0:
         raise ValueError(f"select_candidates: a {h}x{w} map holds no {REGION}x{REGION} region"
                          f" or no {block}x{block} tile")
-    dev = pixel_map.device
+    dev = maps.device
     f32 = dict(dtype=torch.float32, device=dev)
-    scratch, nbytes = candidates_layout(h, w, tiles)
+    size = len(seqs)
+    own = (size,) if stacked else ()
+    scratch, nbytes = candidates_layout(h, w, tiles, size)
     base = kernels.scratch(kernels.SELECT_CANDIDATES, nbytes, dev).data_ptr()
-    out = Candidates(torch.empty((num_points, 2), **f32), torch.empty((num_points,), **f32),
-                     torch.empty((num_points,), dtype=torch.bool, device=dev))
-    kernels.SELECT_CANDIDATES(pixel_map, mask, h, w, num_points, block, border,
-                              float(threshold_factor), *(base + at for at in scratch), *out)
+    out = Candidates(torch.empty(own + (num_points, 2), **f32),
+                     torch.empty(own + (num_points,), **f32),
+                     torch.empty(own + (num_points,), dtype=torch.bool, device=dev))
+    kernels.SELECT_CANDIDATES(maps, mask, h, w, num_points, block, border,
+                              float(threshold_factor), *(base + at for at in scratch), *out,
+                              size, _kernel_sequences(seqs, batch, dev))
     return out
+
+
+def select_candidates_sequences(maps, seqs, num_points: int, mask=None, block: int = 0,
+                                border: int = 4, threshold_factor: float = 2.0) -> Candidates:
+    """The candidates of the sequences ``seqs`` (a host list; None: all) of
+    a stack of level-0 maps [B, 3, H, W] → :class:`Candidates` [S, N]: the
+    kernel K12 in one launch a kernel on CUDA maps, the plain version once a
+    sequence on CPU ones.  ``mask``: the batch's one [H, W] mask or None."""
+    seqs = sequence_list(seqs, maps.shape[0])
+    if maps.is_cuda:
+        return _select_candidates_sequences_cuda(maps, seqs, num_points, mask, block, border,
+                                                 threshold_factor)
+    outs = [select_candidates_plain(maps[b], num_points, mask, block, border, threshold_factor)
+            for b in seqs]
+    return Candidates(*(torch.stack(xs) for xs in zip(*outs)))
 
 
 def select_candidates(pixel_map, num_points: int, mask=None, block: int = 0,

@@ -102,19 +102,26 @@ def build_pyramid_maps(image, num_levels: int = NUM_PYRAMID_LEVELS):
 
 def build_channel_map_cuda(channels):
     """[C, H, W] f32 CUDA channels → [3C, H, W] map (values C | dx C | dy C),
-    kernel K1 at level 0, one launch."""
-    c, h, w = channels.shape
-    kernels.check(channels, "channels", (c, h, w))
+    or S frames' [S, C, H, W] → [S, 3C, H, W]: kernel K1 at level 0, one
+    launch over the S × C planes."""
+    if channels.dim() not in (3, 4):
+        raise ValueError(f"channels: expected [C, H, W] or [S, C, H, W], got"
+                         f" {tuple(channels.shape)}")
+    c, h, w = channels.shape[-3:]
+    frames = channels.shape[0] if channels.dim() == 4 else 1
+    kernels.check(channels, "channels", tuple(channels.shape))
     if h < 2 or w < 2:
         raise ValueError(f"a channel map of {h}x{w}: too small")
-    out = torch.empty((3 * c, h, w), dtype=channels.dtype, device=channels.device)
-    kernels.PYRAMID(channels, h, w, c, 1, 1, out)
+    out = torch.empty(tuple(channels.shape[:-3]) + (3 * c, h, w), dtype=channels.dtype,
+                      device=channels.device)
+    kernels.PYRAMID(channels, h, w, c, 1, frames, out)
     return out
 
 
 def build_channel_map(channels):
-    """[C, H, W] → [3C, H, W] pixel map of a frame embedder's channels; kernel
-    on CUDA, :func:`build_pixel_map` on CPU."""
+    """[C, H, W] → [3C, H, W] pixel map of a frame embedder's channels, [S,
+    C, H, W] → [S, 3C, H, W]; kernel on CUDA, :func:`build_pixel_map` on
+    CPU."""
     if channels.is_cuda:
         return build_channel_map_cuda(channels)
     return build_pixel_map(channels)

@@ -207,7 +207,7 @@ FLOW = Kernel("flow_statistic", "flow_statistic",
               [_P, _P, _P, _I, _I, _P, _P] + [_F] * 7 + [_P] * 4
               + [_I, _P, _I, _F, _P, _P, _I, _P])
 FLOW_WORKSPACE_BYTES = 2048      # >= sizeof(FlowWorkspace) in csrc/flow.cu, a sequence
-# K7-K11, K15p and K15 take a sequence axis (csrc/seq_axis.cuh): after their
+# K7-K16 and K15p take a sequence axis (csrc/seq_axis.cuh): after their
 # outputs, the number of sequences S and the [S] int32 list of the stacked
 # window's sequences (null: one sequence, or every sequence in order); K7,
 # K8, K9 and K11 also take the list their state is read at (null: the
@@ -248,22 +248,24 @@ BA_SOLVE_LOOP = Kernel("ba_solve_loop", "ba_solve_loop",
                               "ba_lm (step)", "ba_lm (finish)", "ba_evaluate (final)",
                               "ba_point_status"))
 # K12-K14 and K16, the keyframe backend around the BA solve; K14 has two entry
-# points (the refinement, and the pairing with free landmark slots)
+# points (the refinement, and the pairing with free landmark slots).  Each
+# takes the sequence axis last (`_SEQ`): S sequences of the stacked window,
+# banks and maps, read through the list
 SELECT_CANDIDATES = Kernel("select_candidates", "select_candidates",
-                           [_P, _P] + [_I] * 5 + [_F] + [_P] * 6)
+                           [_P, _P] + [_I] * 5 + [_F] + [_P] * 6 + _SEQ)
 ACTIVATION = Kernel("activation", "activation",
-                    [_P] * 8 + [_I] * 3 + [_F] * 6 + [_P] * 8 + [_F, _F] + [_P] * 5)
+                    [_P] * 8 + [_I] * 3 + [_F] * 6 + [_P] * 8 + [_F, _F] + [_P] * 5 + _SEQ)
 REFINE = Kernel("refine_idepth", "refine_idepth",
-                [_P] * 12 + [_I] * 6 + [_F] * 7 + [_P] * 6)
+                [_P] * 12 + [_I] * 6 + [_F] * 7 + [_P] * 6 + _SEQ)
 # K14's pairing takes the refinement's outputs (or nulls) and writes new
 # window tensors and banks
 ACTIVATION_SCATTER = Kernel("activation_scatter", "activation_scatter",
-                            [_P] * 10 + [_I] * 6 + [_P] * 15 + [_I])
-PAIR_WORKSPACE_BYTES = 512       # >= sizeof(PairWorkspace) in csrc/refine.cu
+                            [_P] * 10 + [_I] * 6 + [_P] * 15 + [_I] + _SEQ)
+PAIR_WORKSPACE_BYTES = 512       # >= sizeof(PairWorkspace) in csrc/refine.cu, a sequence
 # K16 takes the window's raw tensors (the poses and the landmark mask formed
 # inside) and its internal buffers in its scratch
 DEPTH_MAPS = Kernel("depth_maps", "depth_maps",
-                    [_P] * 8 + [_I, _I] + [_F] * 6 + [_I] * 5 + [_P] * 20)
+                    [_P] * 8 + [_I, _I] + [_F] * 6 + [_I] * 5 + [_P] * 20 + _SEQ)
 # K15: the marginalization policy and the ledger fold, once per keyframe each
 MARG_POLICY = Kernel("marg_policy", "marg_policy",
                      [_P] * 11 + [_I] * 5 + [_F] + [_P] * 4 + _SEQ)

@@ -1669,11 +1669,12 @@ def _compact_sequences(windows: Window, seqs: tuple, perm, ledger) -> Window:
         h_marg=h_m, b_marg=b_m, energy_marg=e_m)
 
 
-def slot_rows(seqs, perm):
-    """[S·K] long: the rows of a stack's slots flattened to [B·K] that
-    sequence ``seqs[z]``'s slots ``perm[z]`` [S, K] lie in."""
+def slot_rows(seqs, perm, k: int = None):
+    """[S·J] long: the rows of a stack's slots flattened to [B·K] that
+    sequence ``seqs[z]``'s slots ``perm[z]`` [S, J] lie in (K: ``k``, or J
+    where ``perm`` names every slot)."""
     rows = _device_sequences(tuple(seqs), perm.device, torch.int64)
-    return (rows[:, None] * perm.shape[1] + perm).reshape(-1)
+    return (rows[:, None] * (perm.shape[1] if k is None else k) + perm).reshape(-1)
 
 
 def take_slots(x, rows):
@@ -1733,10 +1734,107 @@ def slot_mask(num_slots: int, slot, device):
     return torch.arange(num_slots, device=device) == slot
 
 
-def put_slot(x, onehot, value):
-    """``x`` [K, ...] with ``value`` (a scalar or a [...] tensor) at the slot
-    marked in ``onehot`` [K]; a new dense tensor."""
-    return torch.where(onehot.reshape((-1,) + (1,) * (x.dim() - 1)), value, x)
+def into_sequences(x, seqs: tuple, value):
+    """``x`` [B, ...] with ``value`` [S, ...] at the sequences ``seqs``:
+    ``value`` itself where ``seqs`` is every sequence of the stack in order
+    (``x`` is not written), else written into ``x`` in place, one
+    ``index_copy_`` → ``x``."""
+    if tuple(seqs) == tuple(range(x.shape[0])):
+        return value
+    return x.index_copy_(0, _device_sequences(tuple(seqs), x.device, torch.int64), value)
+
+
+def host_values(values, dtype, device):
+    """[S] device tensor of host ``values``; on the card from pinned memory,
+    without a host synchronisation."""
+    host = torch.tensor(values, dtype=dtype)
+    if torch.device(device).type != "cuda":
+        return host
+    return host.pin_memory().to(device, non_blocking=True)
+
+
+def slot_view(x):
+    """``x`` [B, K, ...] viewed as [B·K, ...], the rows :func:`slot_rows`
+    names (a view: an in-place write reaches ``x``; a stack that cannot be
+    viewed so raises)."""
+    return x.view((-1,) + tuple(x.shape[2:]))
+
+
+def push_frame_sequences(windows: Window, seqs, slots, pose_q, pose_t, affine, exposure,
+                         fixed: bool, frame_ids, pixel_maps, channel_maps=None) -> Window:
+    """Insert a keyframe with no landmarks into each of the sequences ``seqs``
+    (a host list; None: all) of a stacked window (pushFrame over a sequence
+    axis): sequence ``seqs[z]``'s at its slot ``slots[z]`` ([S] long, on the
+    device, never read on the host), with pose ``pose_q`` [S, 4], ``pose_t``
+    [S, 3], ``affine`` [S, 2], ``exposure`` [S] and frame id
+    ``frame_ids[z]`` (host ints); its landmark rows cleared, its residual
+    statuses reset, and its level-0 map, ``pixel_maps`` [B, 3, H, W] (the
+    tick's, read at the sequence), into ``maps``.  ``channel_maps``: the S
+    keyframes' [S, 3C, H, W] maps of the embedded channels, which a window of
+    C > 1 channels needs and a window of one refuses.  Where ``seqs`` is every
+    sequence of the stack in order, a window of new tensors (nothing
+    written); else the S slots are written in place (one write a field, the
+    maps of the S keyframes only) → ``windows``."""
+    if (channel_maps is None) != (windows.channel_maps is None):
+        c = windows.channel_bank.shape[-3] // 3
+        raise ValueError(f"a {c}-channel window takes "
+                         + ("no channel map" if channel_maps is not None
+                            else "the keyframe's channel map"))
+    batch = stack_size(windows)
+    seqs = sequence_list(seqs, batch)
+    k = windows.t_lin_q.shape[1]
+    dev = windows.frame_valid.device
+    frame_ids = tuple(int(f) for f in frame_ids)
+    # one keyframe: its id a scalar; more: a device list
+    frame_id = frame_ids[0] if len(frame_ids) == 1 else host_values(frame_ids, torch.int32, dev)
+    if seqs == tuple(range(batch)):
+        at = torch.arange(k, device=dev) == slots.view(-1, 1)                # [B, K]
+
+        def put(x, v):
+            if isinstance(v, torch.Tensor) and v.dim() > 0:
+                v = v.unsqueeze(1)
+            return torch.where(at.reshape(at.shape + (1,) * (x.dim() - 2)), v, x)
+
+        status = torch.where(at[:, :, None, None] | at[:, None, :, None], RES_OK,
+                             windows.res_status)
+        fid = frame_id if isinstance(frame_id, int) else frame_id.view(-1, 1)
+        return windows.replace(
+            t_lin_q=put(windows.t_lin_q, pose_q), t_lin_t=put(windows.t_lin_t, pose_t),
+            affine0=put(windows.affine0, affine), eps=put(windows.eps, 0.0),
+            exposure=put(windows.exposure, exposure),
+            frame_valid=put(windows.frame_valid, True),
+            frame_fixed=put(windows.frame_fixed, fixed),
+            frame_id=torch.where(at, fid, windows.frame_id),
+            lm_uv=put(windows.lm_uv, 0.0), lm_patch=put(windows.lm_patch, 0.0),
+            lm_idepth=put(windows.lm_idepth, 0.0), lm_valid=put(windows.lm_valid, False),
+            lm_outlier=put(windows.lm_outlier, False), lm_inliers=put(windows.lm_inliers, 0),
+            lm_opt_count=put(windows.lm_opt_count, 0),
+            lm_baseline=put(windows.lm_baseline, 0.0), res_status=status,
+            maps=put(windows.maps, pixel_maps),
+            channel_maps=(None if channel_maps is None
+                          else put(windows.channel_maps, channel_maps)))
+    seq_rows = _device_sequences(seqs, dev, torch.int64)
+    rows = slot_rows(seqs, slots.view(-1, 1), k)                           # [S] of [B·K]
+    for name, value in (("t_lin_q", pose_q), ("t_lin_t", pose_t), ("affine0", affine),
+                        ("exposure", exposure)):
+        slot_view(getattr(windows, name)).index_copy_(0, rows, value)
+    for name, value in (("eps", 0.0), ("frame_valid", True), ("frame_fixed", fixed),
+                        ("lm_uv", 0.0), ("lm_patch", 0.0), ("lm_idepth", 0.0),
+                        ("lm_valid", False), ("lm_outlier", False), ("lm_inliers", 0),
+                        ("lm_opt_count", 0), ("lm_baseline", 0.0), ("res_status", RES_OK)):
+        slot_view(getattr(windows, name)).index_fill_(0, rows, value)
+    if isinstance(frame_id, int):
+        slot_view(windows.frame_id).index_fill_(0, rows, frame_id)
+    else:
+        slot_view(windows.frame_id).index_copy_(0, rows, frame_id)
+    # the residual statuses of every anchor against the new frames as targets
+    windows.res_status.index_put_(
+        (seq_rows.view(-1, 1), torch.arange(k, device=dev).view(1, -1), slots.view(-1, 1)),
+        torch.zeros((), dtype=windows.res_status.dtype, device=dev))
+    slot_view(windows.maps).index_copy_(0, rows, pixel_maps.index_select(0, seq_rows))
+    if channel_maps is not None:
+        slot_view(windows.channel_maps).index_copy_(0, rows, channel_maps)
+    return windows
 
 
 def push_frame_slot(window: Window, slot, pose_q, pose_t, affine, exposure,
@@ -1744,28 +1842,14 @@ def push_frame_slot(window: Window, slot, pose_q, pose_t, affine, exposure,
     """Insert a keyframe with no landmarks into ``slot`` (pushFrame); ``slot``
     as :func:`slot_mask` takes it.  ``channel_map``: the [3C, H, W] map of the
     keyframe's embedded channels, which a window of C > 1 channels needs and
-    a window of one refuses."""
-    if (channel_map is None) != (window.channel_maps is None):
-        raise ValueError(f"a {window.num_channels}-channel window takes "
-                         + ("no channel map" if channel_map is not None
-                            else "the keyframe's channel map"))
-    at = slot_mask(window.num_slots, slot, window.frame_valid.device)
-
-    def put(x, v):
-        return put_slot(x, at, v)
-
-    status = torch.where(at[:, None, None] | at[None, :, None], RES_OK, window.res_status)
-    return window.replace(
-        t_lin_q=put(window.t_lin_q, pose_q), t_lin_t=put(window.t_lin_t, pose_t),
-        affine0=put(window.affine0, affine), eps=put(window.eps, 0.0),
-        exposure=put(window.exposure, exposure),
-        frame_valid=put(window.frame_valid, True),
-        frame_fixed=put(window.frame_fixed, fixed),
-        frame_id=put(window.frame_id, frame_id),
-        lm_uv=put(window.lm_uv, 0.0), lm_patch=put(window.lm_patch, 0.0),
-        lm_idepth=put(window.lm_idepth, 0.0), lm_valid=put(window.lm_valid, False),
-        lm_outlier=put(window.lm_outlier, False), lm_inliers=put(window.lm_inliers, 0),
-        lm_opt_count=put(window.lm_opt_count, 0),
-        lm_baseline=put(window.lm_baseline, 0.0), res_status=status,
-        maps=put(window.maps, pixel_map),
-        channel_maps=None if channel_map is None else put(window.channel_maps, channel_map))
+    a window of one refuses.  :func:`push_frame_sequences` on a stack of this
+    one window → new tensors."""
+    dev = window.frame_valid.device
+    slots = (slot.reshape(1) if isinstance(slot, torch.Tensor)
+             else torch.full((1,), int(slot), dtype=torch.int64, device=dev))
+    exposure = torch.as_tensor(exposure, dtype=window.exposure.dtype, device=dev).reshape(1)
+    return window_at(push_frame_sequences(
+        _as_stack(window), (0,), slots, pose_q.reshape(1, 4), pose_t.reshape(1, 3),
+        torch.as_tensor(affine, dtype=window.affine0.dtype, device=dev).reshape(1, 2), exposure,
+        fixed, (frame_id,), pixel_map.unsqueeze(0),
+        None if channel_map is None else channel_map.unsqueeze(0)), 0)

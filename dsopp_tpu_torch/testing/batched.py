@@ -17,7 +17,13 @@ tests and ``chip_smoke.py``'s ``[batched]`` phase share.
   the keyframe backend's solver half (the BA solve, the policy K15p, the
   marginalization pass and the fold K15) over S sequences of a stack of
   moved BA windows in one call a step, and as S solo calls;
-  :func:`solver_half_equal` holds one to the other, step by step.
+  :func:`solver_half_equal` holds one to the other, step by step;
+* :func:`front_inputs`, :func:`front_half` and :func:`front_half_solo`: the
+  keyframe backend's phases 1 (the push, K12 and the banks, K13, K14) and 3
+  (K16) of S sequences of B trackers' stacked state at a forced keyframe in
+  one call each, and as S solo calls (a stack of one, as the solo
+  ``keyframe_update`` runs them); :func:`front_half_equal` holds one to the
+  other.
 """
 
 from __future__ import annotations
@@ -53,11 +59,14 @@ def offset_bootstrap(seq, cfg, offset: int, dtype=torch.float32, device="cuda"):
 
 
 def flat(out):
-    """The tensors of a kernel's output (tuples, named tuples, SE3), in order."""
+    """The tensors of a kernel's output (tuples, named tuples, dicts, SE3), in
+    order."""
     if isinstance(out, torch.Tensor):
         return [out]
     if isinstance(out, SE3):
         return [out.q, out.t]
+    if isinstance(out, dict):
+        return [t for x in out.values() for t in flat(x)]
     return [t for x in out for t in flat(x)]
 
 
@@ -302,4 +311,115 @@ def solver_half_equal(batched: dict, solos: list) -> dict:
             len(got) == len(want) and all(x[z].shape == y.shape and torch.equal(x[z], y)
                                           for x, y in zip(got, want))
             for z, want in enumerate(_leaves(solo[key]) for solo in solos))
+    return out
+
+
+# the front half's outputs :func:`front_half_equal` compares
+FRONT_PARTS = ("window", "banks", "counts", "depth maps", "point sets")
+
+
+def front_inputs(trackers, images):
+    """The keyframe backend's inputs of the trackers' stacked state on
+    ``images`` [B, H, W] with every sequence forced to keyframe: the state
+    after the regular tick (its banks K4's) and the tick's result (the [B]
+    pyramid, the poses and affines), the models and the loop's config."""
+    from dsopp_tpu_torch.tracker.fused_tick import fused_regular_tick
+
+    states = [PipelinedTracker(t).state for t in trackers]
+    models, cfg = trackers[0].models, trackers[0].loop_config()
+    args = list(regular_tick_args(states, images, models, cfg))
+    args[-1] = (True,) * images.shape[0]
+    out = fused_regular_tick(*args)
+    st = stack_states(states)._replace(immature=out.immature)
+    exposure = torch.ones(images.shape[:1], dtype=images.dtype, device=images.device)
+    return dict(state=st, out=out, models=models, cfg=cfg, exposure=exposure,
+                mask=trackers[0].mask, frame_ids=tuple(INIT_FRAMES + b
+                                                      for b in range(images.shape[0])))
+
+
+def _copied(tree):
+    if isinstance(tree, pba.Window):
+        return tree.replace(**{f.name: getattr(tree, f.name).clone()
+                               for f in dataclasses.fields(pba.Window)
+                               if getattr(tree, f.name) is not None})
+    return type(tree)(*(x.clone() for x in tree))
+
+
+def front_half(inputs, seqs, copy: bool = True, solve: bool = False) -> dict:
+    """Phases 1 and 3 of the keyframe backend for the sequences ``seqs`` of
+    :func:`front_inputs`' stack, one call each (every kernel one launch for
+    the S sequences): ``keyframe_front_sequences`` (on a copy of the stack
+    with ``copy``: it writes the S sequences' rows in place unless ``seqs``
+    is the whole stack in order), then ``build_frontend_state_sequences`` on
+    its window → {"front": KeyframeFront, "depth": (idepth, weight, level
+    points, flow points), each [S, ...]}.  ``solve``: phase 2 too
+    (``keyframe_solver_sequences``) between them, as a keyframing tick runs
+    the three, and K16 on its window."""
+    from dsopp_tpu_torch.tracker.depth_map import build_frontend_state_sequences
+    from dsopp_tpu_torch.tracker.device_loop import (keyframe_embeddings,
+                                                     keyframe_solver_sequences)
+    from dsopp_tpu_torch.tracker.fused_keyframe import keyframe_front_sequences
+
+    st, out, cfg = inputs["state"], inputs["out"], inputs["cfg"]
+    window, banks = (_copied(st.window), _copied(st.immature)) if copy else (st.window,
+                                                                            st.immature)
+    rows = pba._device_sequences(tuple(seqs), out.pose_q.device, torch.int64)
+    pick = lambda x: x.index_select(0, rows)                              # noqa: E731
+    front = keyframe_front_sequences(
+        window, inputs["models"][0], banks, out.maps[0], seqs, pick(out.pose_q),
+        pick(out.pose_t), pick(out.affine), tuple(inputs["frame_ids"][b] for b in seqs),
+        st.min_distance, pick(inputs["exposure"]), cfg.refine, cfg.huber_sigma,
+        cfg.immature_per_frame, mask=inputs["mask"],
+        embed=keyframe_embeddings(pick(out.maps[0])[:, 0], cfg))
+    window = front.window
+    if solve:
+        window = keyframe_solver_sequences(window, front.immature, st.min_distance, seqs,
+                                           front.slot, front.n_active, inputs["models"][0],
+                                           cfg).window
+    depth = build_frontend_state_sequences(window, inputs["models"][0], out.maps, seqs,
+                                           cfg.height, cfg.width, cfg.num_levels,
+                                           cfg.frontend_points)
+    return dict(front=front, depth=depth)
+
+
+def front_half_solo(inputs, b: int, copy: bool = True, solve: bool = False) -> dict:
+    """:func:`front_half` of sequence ``b`` alone: the same calls on a stack
+    of one (a copy of its rows; ``copy=False``: views, which the calls on a
+    whole stack do not write), as the solo ``keyframe_update`` runs them."""
+    st, out = inputs["state"], inputs["out"]
+    one = (lambda x: x[b:b + 1].clone()) if copy else (lambda x: x[b:b + 1])  # noqa: E731
+    window = pba.window_at(st.window, b)
+    solo_state = st._replace(window=pba._as_stack(_copied(window) if copy else window),
+                             immature=type(st.immature)(*(one(x) for x in st.immature)),
+                             min_distance=one(st.min_distance))
+    solo_out = out._replace(maps=tuple(one(m) for m in out.maps), pose_q=one(out.pose_q),
+                            pose_t=one(out.pose_t), affine=one(out.affine))
+    return front_half(dict(inputs, state=solo_state, out=solo_out,
+                           exposure=one(inputs["exposure"]),
+                           frame_ids=(inputs["frame_ids"][b],)), (0,), copy=False,
+                      solve=solve)
+
+
+def _front_parts(half, z: int, b: int) -> dict:
+    """{part of :data:`FRONT_PARTS`: sequence ``b``'s tensors (at ``z`` of the
+    call's own [S] outputs)}."""
+    front, depth = half["front"], half["depth"]
+    idep, wei, points, flow = depth
+    return {"window": _leaves(pba.window_at(front.window, b)),
+            "banks": [x[b] for x in front.immature],
+            "counts": [front.slot[z], front.n_active[z], front.n_activated[z]],
+            "depth maps": [x[z] for x in idep + wei],
+            "point sets": [x[z] for p in points + (flow,) for x in p]}
+
+
+def front_half_equal(batched: dict, solos: list, seqs) -> dict:
+    """{part of :data:`FRONT_PARTS`: whether every sequence's tensors of the
+    batched call equal its solo call's, to the bit}."""
+    out = {}
+    for part in FRONT_PARTS:
+        out[part] = all(
+            len(got) == len(want) and all(x.shape == y.shape and torch.equal(x, y)
+                                          for x, y in zip(got, want))
+            for got, want in ((_front_parts(batched, z, b)[part], _front_parts(solo, 0, 0)[part])
+                              for z, (b, solo) in enumerate(zip(seqs, solos))))
     return out

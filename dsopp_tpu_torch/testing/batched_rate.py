@@ -5,9 +5,14 @@ after them, or with ``--replicated`` B copies of stream 0 (every keyframe on
 the same tick), ticked in one ``BatchedPipelinedTracker``: ``--warm``
 untimed ticks, then ``--ticks`` timed ones, synchronised at both ends, the
 whole ``--repeats`` times in one process (each repeat a tracker bootstrapped
-anew, so that the later ones run with the process's caches warm) → one JSON
-line: frames/s and ms a tick of each repeat, the ticks that keyframed and
-how many sequences keyframed on each, the card's name and power limit.
+anew, so that the later ones run with the process's caches warm); then one
+more tracker, ``--warm`` ticks and ``--ticks`` ticks each synchronised at its
+end, with the allocator's peak reset before them → one JSON line: frames/s
+and ms a tick of each repeat, the ticks that keyframed and how many sequences
+keyframed on each, the synchronised ticks' mean ms by the number of
+sequences that keyframed on them (0: a regular tick) and their device
+memory peak (``torch.cuda.max_memory_allocated``, MB), the card's name and
+power limit.
 
     python dsopp_tpu_torch/testing/batched_rate.py [--tree DIR] [--batch 4]
         [--warm 10] [--ticks 100] [--repeats 3] [--replicated]
@@ -95,11 +100,31 @@ def main(argv=None) -> int:
         fps.append(args.batch * args.ticks / seconds)
         ms_per_tick.append(1e3 * seconds / args.ticks)
     per_tick = collections.Counter(sum(kf) for kf in keyframes if any(kf))
+
+    # each tick timed alone (synchronised), and the memory peak over them
+    pipe = BatchedPipelinedTracker([tb.offset_bootstrap(seq, cfg, k) for k in offsets],
+                                   flush_every=16)
+    for j in range(args.warm):
+        tick(j)
+    pipe.drain()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    by_size = collections.defaultdict(list)
+    for j in range(args.warm, args.warm + args.ticks):
+        t0 = time.perf_counter()
+        size = sum(tick(j).is_keyframe)
+        torch.cuda.synchronize()
+        by_size[size].append(1e3 * (time.perf_counter() - t0))
+    pipe.drain()
+    peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+    tick_ms = {size: dict(ticks=len(ms), mean_ms=sum(ms) / len(ms))
+               for size, ms in sorted(by_size.items())}
     print(json.dumps(dict(
         tree=os.path.relpath(tree, here), batch=args.batch, replicated=args.replicated,
         warm=args.warm, ticks=args.ticks, fps=fps, ms_per_tick=ms_per_tick,
         keyframe_ticks=sum(per_tick.values()), keyframes=sum(sum(kf) for kf in keyframes),
-        sequences_a_keyframe_tick=dict(sorted(per_tick.items())), card=card_line())))
+        sequences_a_keyframe_tick=dict(sorted(per_tick.items())), synced_tick_ms=tick_ms,
+        peak_mb=peak_mb, card=card_line())))
     return 0
 
 

@@ -329,7 +329,7 @@ def solve_loop_errors(res_k, res_p, log_k, log_p) -> dict:
 
 def keyframe_case(tracker, image, pose, frame_id: int):
     """The inputs of the keyframe backend's kernels (K12-K14, K16) as
-    ``fused_keyframe_front`` builds them: ``image`` at the known ``pose`` becomes
+    ``keyframe_front_sequences`` builds them: ``image`` at the known ``pose`` becomes
     the newest keyframe of the tracker's window (no landmarks yet), after the
     epipolar update of the immature banks against it, and brings its own bank
     of fresh candidates → (window, immature banks, the frame's pyramid); a

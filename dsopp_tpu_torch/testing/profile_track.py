@@ -106,11 +106,18 @@ KERNEL_GROUPS = {
 }
 # a stage's function -> its name in an earlier design, timed in its place in a
 # parent tree that lacks it (K5 was the flows alone, the decision in torch; the
-# keyframe backend's policy and fold were one-sequence calls)
+# keyframe backend's steps were one-sequence calls)
 EARLIER_NAMES = {"frame_statistics": "mean_square_flows", "flags_sequences": "flags_device",
                  "marginalize_sequences": "_marginalize_device",
                  "_flags_sequences_cuda": "flags_device_cuda",
-                 "_marginalize_sequences_cuda": "_marginalize_cuda"}
+                 "_marginalize_sequences_cuda": "_marginalize_cuda",
+                 "push_frame_sequences": "push_frame_slot",
+                 "immature_bank_sequences": "immature_bank",
+                 "select_candidates_sequences": "select_candidates",
+                 "activation_sequences": "_activation_kernel",
+                 "refine_idepth_sequences": "_refine_idepth_kernel",
+                 "activation_scatter_sequences": "_activation_scatter",
+                 "build_frontend_state_sequences": "build_frontend_state"}
 # (module, function) -> stage name
 STAGES = {
     (device_loop, "_frontend_core"): "frontend",
@@ -119,18 +126,18 @@ STAGES = {
     (fused_tick, "estimate_depths"): "epipolar",
     (fused_tick, "frame_statistics"): "flow",     # K5 with the keyframe decision
     (device_loop, "keyframe_update"): "keyframe_backend",
-    (fused_keyframe, "push_frame_slot"): "kf_push",
-    (fused_keyframe, "immature_bank"): "kf_bank",
-    (fused_keyframe, "select_candidates"): "kf_candidates",
-    (fused_keyframe, "_activation_kernel"): "kf_activation",
-    (fused_keyframe, "_refine_idepth_kernel"): "kf_refine",
-    (fused_keyframe, "_activation_scatter"): "kf_scatter",
+    (fused_keyframe, "push_frame_sequences"): "kf_push",
+    (fused_keyframe, "immature_bank_sequences"): "kf_bank",
+    (fused_keyframe, "select_candidates_sequences"): "kf_candidates",
+    (fused_keyframe, "activation_sequences"): "kf_activation",
+    (fused_keyframe, "refine_idepth_sequences"): "kf_refine",
+    (fused_keyframe, "activation_scatter_sequences"): "kf_scatter",
     (device_loop, "solve_loop_sequences"): "kf_ba_solve",
     (device_loop, "flags_sequences"): "kf_flags",
     (device_loop, "marginalize_sequences"): "kf_marginalize",
     (marginalization, "_flags_sequences_cuda"): "kf_policy_kernel",   # K15p's call
     (pba, "_marginalize_sequences_cuda"): "kf_fold_kernel",           # K15's call
-    (device_loop, "build_frontend_state"): "kf_depth_maps",
+    (device_loop, "build_frontend_state_sequences"): "kf_depth_maps",
     # the BA solve's one C call (K7-K11 issued from C)
     (kernels, "BA_SOLVE_LOOP"): "ba_solve_loop",
 }

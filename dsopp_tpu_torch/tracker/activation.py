@@ -20,7 +20,12 @@ The three steps have hand-written CUDA kernels beside their plain versions:
 K13 (``csrc/activation.cu``) for :func:`_activation_kernel`, K14
 (``csrc/refine.cu``) for :func:`_refine_idepth_kernel` and
 :func:`_activation_scatter`.  Each dispatches on the window's device: CUDA
-tensors go to the kernel or raise.
+tensors go to the kernel or raise.  Each also runs over a sequence axis
+(:func:`activation_sequences`, :func:`refine_idepth_sequences`,
+:func:`activation_scatter_sequences`): S sequences of a stacked window and
+its stacked banks, named by a host list, in one call (on the card one launch
+a kernel, each sequence's blocks its solo launch's; on the CPU the plain
+version once a sequence); the solo CUDA wrappers are its S = 1 case.
 """
 
 from __future__ import annotations
@@ -32,7 +37,8 @@ from dsopp_tpu_torch.core.interpolate import pad_images, sample_window, window_b
 from dsopp_tpu_torch.core.lie import SE3
 from dsopp_tpu_torch.core.pattern import PATTERN_CENTER, PATTERN_SIZE, shift_pattern
 from dsopp_tpu_torch.core.reproject import reproject, reproject_jacobian
-from dsopp_tpu_torch.solvers.pba import RES_OK, Window, active_lm_mask, newest_slot
+from dsopp_tpu_torch.solvers.pba import (RES_OK, Window, _kernel_sequences, active_lm_mask,
+                                         newest_slot, sequence_list, stack_size, window_at)
 from dsopp_tpu_torch.tracker.depth_estimation import (
     STATUS_GOOD, STATUS_ILL_CONDITIONED, STATUS_OOB, STATUS_OUTLIER,
     STATUS_SKIPPED, ImmaturePoints)
@@ -70,14 +76,31 @@ def _to_newest(window: Window):
     return SE3(t_n.q.expand(k, 4), t_n.t.expand(k, 3)).compose(poses), newest
 
 
-def _check_poses(window: Window):
-    """Validate the window's pose tensors the K13 and K14 kernels read."""
-    k = window.num_slots
+def _check_poses(window: Window, lead: tuple = ()):
+    """Validate the window's pose tensors the K13 and K14 kernels read (with
+    the leading ``lead`` axes of a stack)."""
+    k = window.t_lin_q.shape[-2]
     check = kernels.check
-    check(window.t_lin_q, "t_lin_q", (k, 4))
-    check(window.t_lin_t, "t_lin_t", (k, 3))
-    check(window.eps, "eps", (k, 8))
-    check(window.frame_valid, "frame_valid", (k,), torch.bool)
+    check(window.t_lin_q, "t_lin_q", lead + (k, 4))
+    check(window.t_lin_t, "t_lin_t", lead + (k, 3))
+    check(window.eps, "eps", lead + (k, 8))
+    check(window.frame_valid, "frame_valid", lead + (k,), torch.bool)
+
+
+def _bank(imm: ImmaturePoints, b: int) -> ImmaturePoints:
+    """Sequence ``b``'s banks of stacked banks (views)."""
+    return ImmaturePoints(*(x[b] for x in imm))
+
+
+def _stacked(outs):
+    """The per-sequence outputs of a plain loop, stacked field by field."""
+    return tuple(torch.stack(xs) for xs in zip(*outs))
+
+
+def _lead(windows: Window, stacked: bool):
+    """(the stack's leading axes, its sequences B) of a sequence wrapper's
+    window: ((B,), B) for a stack, ((), 1) for one window."""
+    return ((windows.t_lin_q.shape[0],), windows.t_lin_q.shape[0]) if stacked else ((), 1)
 
 
 def _activation_terms_plain(window: Window, model, imm: ImmaturePoints):
@@ -112,17 +135,18 @@ def _activation_plain(window: Window, model, imm: ImmaturePoints, min_distance):
     return activate, delete, n_active
 
 
-def _check_banks(imm: ImmaturePoints):
-    """Validate the bank tensors the kernels read → (k, m)."""
-    k, m = imm.uv.shape[:2]
+def _check_banks(imm: ImmaturePoints, lead: tuple = ()):
+    """Validate the bank tensors the kernels read (with the leading ``lead``
+    axes of a stack) → (k, m)."""
+    k, m = imm.uv.shape[-3:-1]
     check = kernels.check
-    check(imm.uv, "immature uv", (k, m, 2))
-    check(imm.patch, "immature patch", (k, m, PATTERN_SIZE))
+    check(imm.uv, "immature uv", lead + (k, m, 2))
+    check(imm.patch, "immature patch", lead + (k, m, PATTERN_SIZE))
     for name in ("idepth_min", "idepth_max", "uniqueness", "search_interval"):
-        check(getattr(imm, name), f"immature {name}", (k, m))
-    check(imm.status, "immature status", (k, m), torch.int32)
-    check(imm.traced, "immature traced", (k, m), torch.bool)
-    check(imm.valid, "immature valid", (k, m), torch.bool)
+        check(getattr(imm, name), f"immature {name}", lead + (k, m))
+    check(imm.status, "immature status", lead + (k, m), torch.int32)
+    check(imm.traced, "immature traced", lead + (k, m), torch.bool)
+    check(imm.valid, "immature valid", lead + (k, m), torch.bool)
     return k, m
 
 
@@ -130,39 +154,75 @@ def _activation_cuda(window: Window, model, imm: ImmaturePoints, min_distance):
     """Kernel K13: same outputs as :func:`_activation_plain`, with no
     [K·M, K·N] distance matrix and no host read.  ``min_distance`` may be a
     device scalar (the density controller's state) or a float.  The kernels
-    take the window's raw tensors (poses, masks) and write every output."""
-    k, n = window.num_slots, window.num_landmark_slots
-    km, m = _check_banks(imm)
+    take the window's raw tensors (poses, masks) and write every output.  The
+    one-sequence case of :func:`_activation_sequences_cuda`."""
+    if isinstance(min_distance, torch.Tensor):
+        kernels.check(min_distance, "min_distance", tuple(min_distance.shape))
+        if min_distance.numel() != 1:
+            raise ValueError(f"min_distance: expected one value, got {min_distance.numel()}")
+    else:
+        min_distance = torch.full((1,), float(min_distance), dtype=torch.float32,
+                                  device=window.lm_uv.device)
+    return _activation_sequences_cuda(window, model, imm, min_distance, (0,), stacked=False)
+
+
+def _activation_scratch_floats(k: int, n: int) -> int:
+    """K13's scratch of one sequence, floats: csrc/activation.cu::scratch_floats."""
+    return -(-(2 * k * n + 8 * k + 1) // 64) * 64
+
+
+def _activation_sequences_cuda(windows: Window, model, imm: ImmaturePoints, min_distance,
+                               seqs: tuple, stacked: bool = True):
+    """Kernel K13 for the S sequences ``seqs`` (a checked host list) of a
+    stacked window, its stacked banks and ``min_distance`` [B] (each
+    sequence's controller state), read through the list, two launches for
+    all S → (activate [S, K, M], delete [S, K, M], n_active [S]).
+    ``stacked=False``: one window, ``seqs`` (0,), ``min_distance`` one value,
+    the outputs without the sequence axis."""
+    lead, batch = _lead(windows, stacked)
+    k, n = windows.t_lin_q.shape[-2], windows.lm_uv.shape[-2]
+    km, m = _check_banks(imm, lead)
     check = kernels.check
     if km != k:
         raise ValueError(f"{km} immature banks for {k} frame slots")
     if k > _ACTIVATION_MAX_FRAMES:
         raise ValueError(f"the activation kernels take at most {_ACTIVATION_MAX_FRAMES} frame"
                          f" slots, got {k}")
-    _check_poses(window)
-    check(window.lm_uv, "lm_uv", (k, n, 2))
-    check(window.lm_idepth, "lm_idepth", (k, n))
-    check(window.lm_valid, "lm_valid", (k, n), torch.bool)
-    check(window.lm_outlier, "lm_outlier", (k, n), torch.bool)
-    dev = window.lm_uv.device
-    if isinstance(min_distance, torch.Tensor):
-        check(min_distance, "min_distance", tuple(min_distance.shape))
-        if min_distance.numel() != 1:
-            raise ValueError(f"min_distance: expected one value, got {min_distance.numel()}")
-    else:
-        min_distance = torch.full((1,), float(min_distance), dtype=torch.float32, device=dev)
-    activate = torch.empty((k, m), dtype=torch.bool, device=dev)
-    delete = torch.empty((k, m), dtype=torch.bool, device=dev)
-    n_active = torch.empty((), dtype=torch.int64, device=dev)
+    _check_poses(windows, lead)
+    check(windows.lm_uv, "lm_uv", lead + (k, n, 2))
+    check(windows.lm_idepth, "lm_idepth", lead + (k, n))
+    check(windows.lm_valid, "lm_valid", lead + (k, n), torch.bool)
+    check(windows.lm_outlier, "lm_outlier", lead + (k, n), torch.bool)
+    if stacked:
+        check(min_distance, "min_distance", lead)
+    dev = windows.lm_uv.device
+    size = len(seqs)
+    own = (size,) if stacked else ()
+    activate = torch.empty(own + (k, m), dtype=torch.bool, device=dev)
+    delete = torch.empty(own + (k, m), dtype=torch.bool, device=dev)
+    n_active = torch.empty(own, dtype=torch.int64, device=dev)
     kernels.ACTIVATION(
-        window.t_lin_q, window.t_lin_t, window.eps, window.frame_valid, window.lm_uv,
-        window.lm_idepth, window.lm_valid, window.lm_outlier, k, n, m, model.fx, model.fy,
+        windows.t_lin_q, windows.t_lin_t, windows.eps, windows.frame_valid, windows.lm_uv,
+        windows.lm_idepth, windows.lm_valid, windows.lm_outlier, k, n, m, model.fx, model.fy,
         model.cx, model.cy, model.width, model.height, imm.uv, imm.idepth_min, imm.idepth_max,
         imm.status, imm.traced, imm.uniqueness, imm.search_interval, imm.valid,
         MAX_SEARCH_INTERVAL, MIN_UNIQUENESS, min_distance,
-        torch.empty((2 * k * n + 8 * k + 1,), dtype=torch.float32, device=dev), activate, delete,
-        n_active)
+        torch.empty((size * _activation_scratch_floats(k, n),), dtype=torch.float32, device=dev),
+        activate, delete, n_active, size, _kernel_sequences(seqs, batch, dev))
     return activate, delete, n_active
+
+
+def activation_sequences(windows: Window, model, imm: ImmaturePoints, min_distance, seqs=None):
+    """Which immature points activate and which are deleted, for the
+    sequences ``seqs`` (a host list; None: all) of a stacked window with its
+    stacked banks and ``min_distance`` [B] → (activate [S, K, M], delete [S,
+    K, M], n_active [S]): the kernel K13 in one call (two launches for all S)
+    on CUDA tensors, :func:`_activation_plain` once a sequence on CPU ones."""
+    seqs = sequence_list(seqs, stack_size(windows))
+    if windows.lm_uv.is_cuda:
+        return _activation_sequences_cuda(windows, model, imm, min_distance, seqs)
+    return _stacked(_activation_plain(window_at(windows, b), model, _bank(imm, b),
+                                      min_distance[b]) for b in seqs)
 
 
 def _activation_kernel(window: Window, model, imm: ImmaturePoints, min_distance):
@@ -260,37 +320,68 @@ def _refine_idepth_cuda(window: Window, model, imm: ImmaturePoints, activate,
     """Kernel K14 (refine): same outputs as :func:`_refine_idepth_plain`; the
     maps are read in place, the kernels take the window's raw tensors (poses,
     affine, exposure) and write every output, and nothing is read on the
-    host."""
-    k, m = _check_banks(imm)
+    host.  The one-sequence case of :func:`_refine_idepth_sequences_cuda`."""
+    return _refine_idepth_sequences_cuda(window, model, imm, activate, huber_sigma, (0,), cap,
+                                         trace, stacked=False)
+
+
+def _refine_idepth_sequences_cuda(windows: Window, model, imm: ImmaturePoints, activate,
+                                  huber_sigma: float, seqs: tuple, cap: int = REFINE_CAP,
+                                  trace: list = None, stacked: bool = True):
+    """Kernel K14 (refine) for the S sequences ``seqs`` (a checked host list)
+    of a stacked window and its stacked banks, read through the list, with
+    ``activate`` [S, K, M] (K13's): two launches for all S, each sequence its
+    own cap, order and pair table → (idepth, keep, selected), each [S, K, M];
+    ``trace`` receives [S, cap, 3, 4].  ``stacked=False``: one window,
+    ``seqs`` (0,), no sequence axis."""
+    lead, batch = _lead(windows, stacked)
+    k, m = _check_banks(imm, lead)
     check = kernels.check
-    h_px, w_px = window.maps.shape[-2:]
-    c = window.num_channels
-    check(window.channel_bank, "channel bank", (k, 3 * c, h_px, w_px))
-    check(activate, "activate", (k, m), torch.bool)
+    h_px, w_px = windows.maps.shape[-2:]
+    c = windows.channel_bank.shape[-3] // 3
+    size = len(seqs)
+    own = (size,) if stacked else ()
+    check(windows.channel_bank, "channel bank", lead + (k, 3 * c, h_px, w_px))
+    check(activate, "activate", own + (k, m), torch.bool)
     if k > _REFINE_MAX_FRAMES:
         raise ValueError(f"the refine kernel takes at most {_REFINE_MAX_FRAMES} frame slots,"
                          f" got {k}")
-    _check_poses(window)
-    check(window.affine0, "affine0", (k, 2))
-    check(window.exposure, "exposure", (k,))
+    _check_poses(windows, lead)
+    check(windows.affine0, "affine0", lead + (k, 2))
+    check(windows.exposure, "exposure", lead + (k,))
     dev = imm.uv.device
-    idepth = torch.empty((k, m), dtype=torch.float32, device=dev)
-    keep = torch.empty((k, m), dtype=torch.bool, device=dev)
-    selected = torch.empty((k, m), dtype=torch.bool, device=dev)
+    idepth = torch.empty(own + (k, m), dtype=torch.float32, device=dev)
+    keep = torch.empty(own + (k, m), dtype=torch.bool, device=dev)
+    selected = torch.empty(own + (k, m), dtype=torch.bool, device=dev)
     rows = None
     if trace is not None:
-        rows = torch.empty((cap, REFINE_ITERATIONS, 4), dtype=torch.float32, device=dev)
+        rows = torch.empty(own + (cap, REFINE_ITERATIONS, 4), dtype=torch.float32, device=dev)
         trace.append(rows)
     # the refinement samples plane 0 of channel_bank[f] (at C = 1, the intensity)
     kernels.REFINE(activate, imm.uv, imm.patch, imm.idepth_min, imm.idepth_max,
-                   window.t_lin_q, window.t_lin_t, window.eps, window.affine0, window.exposure,
-                   window.frame_valid, window.channel_bank, 3 * c * h_px * w_px, k, m, h_px,
-                   w_px, cap,
+                   windows.t_lin_q, windows.t_lin_t, windows.eps, windows.affine0,
+                   windows.exposure, windows.frame_valid, windows.channel_bank,
+                   3 * c * h_px * w_px, k, m, h_px, w_px, cap,
                    model.fx, model.fy, model.cx, model.cy, model.width, model.height,
-                   float(huber_sigma), torch.empty((cap,), dtype=torch.int32, device=dev),
-                   torch.empty((8 * k * k + k,), dtype=torch.float32, device=dev), selected,
-                   idepth, keep, rows)
+                   float(huber_sigma), torch.empty((size * cap,), dtype=torch.int32, device=dev),
+                   torch.empty((size * (8 * k * k + k),), dtype=torch.float32, device=dev),
+                   selected, idepth, keep, rows, size, _kernel_sequences(seqs, batch, dev))
     return idepth, keep, selected
+
+
+def refine_idepth_sequences(windows: Window, model, imm: ImmaturePoints, activate,
+                            huber_sigma: float, seqs=None, cap: int = REFINE_CAP):
+    """The refinement of the sequences ``seqs`` (a host list; None: all) of a
+    stacked window with its stacked banks and ``activate`` [S, K, M] →
+    (idepth, keep, selected), each [S, K, M]: the kernel K14 in one call on
+    CUDA tensors, :func:`_refine_idepth_plain` once a sequence on CPU ones."""
+    seqs = sequence_list(seqs, stack_size(windows))
+    if windows.maps.is_cuda:
+        return _refine_idepth_sequences_cuda(windows, model, imm, activate, huber_sigma, seqs,
+                                             cap)
+    return _stacked(_refine_idepth_plain(window_at(windows, b), model, _bank(imm, b),
+                                         activate[z], huber_sigma, cap)
+                    for z, b in enumerate(seqs))
 
 
 def _refine_idepth_kernel(window: Window, model, imm: ImmaturePoints, activate,
@@ -381,49 +472,93 @@ def _activation_scatter_cuda(window: Window, imm: ImmaturePoints, activate, dele
     kernel writes every entry of new window tensors and banks once (the
     untouched ones copied), so the caller's window and banks stay as they
     were; every output is dense.  At C > 1 it samples the moved points'
-    C-channel patches from their host slots' channel bank."""
-    k, n = window.num_slots, window.num_landmark_slots
-    c = window.num_channels
-    km, m = _check_banks(imm)
+    C-channel patches from their host slots' channel bank.  The one-sequence
+    case of :func:`_activation_scatter_sequences_cuda`."""
+    part, bank, n_activated = _activation_scatter_sequences_cuda(
+        window, imm, activate, delete, idepth, selected, (0,), stacked=False)
+    return window.replace(**part), imm._replace(**bank), n_activated
+
+
+# the window fields and the bank fields the pairing writes
+PAIRED_FIELDS = ("lm_uv", "lm_patch", "lm_idepth", "lm_valid", "res_status")
+PAIRED_BANK_FIELDS = ("valid", "idepth_min", "idepth_max")
+
+
+def _activation_scatter_sequences_cuda(windows: Window, imm: ImmaturePoints, activate, delete,
+                                       idepth, selected, seqs: tuple, stacked: bool = True):
+    """Kernel K14 (pairing) for the S sequences ``seqs`` (a checked host
+    list) of a stacked window and its stacked banks, read through the list,
+    with the [S, K, M] flags of K13 and the refinement: one launch for all S
+    → ({field of :data:`PAIRED_FIELDS`: [S, ...]}, {the banks' valid and,
+    after a refinement, idepth bounds: [S, K, M]}, n_activated [S]), new
+    dense tensors.  ``stacked=False``: one window, ``seqs`` (0,), no sequence
+    axis."""
+    lead, batch = _lead(windows, stacked)
+    k, n = windows.t_lin_q.shape[-2], windows.lm_uv.shape[-2]
+    c = windows.channel_bank.shape[-3] // 3
+    km, m = _check_banks(imm, lead)
     check = kernels.check
     if km != k:
         raise ValueError(f"{km} immature banks for {k} frame slots")
-    check(activate, "activate", (k, m), torch.bool)
-    check(delete, "delete", (k, m), torch.bool)
+    size = len(seqs)
+    own = (size,) if stacked else ()
+    check(activate, "activate", own + (k, m), torch.bool)
+    check(delete, "delete", own + (k, m), torch.bool)
     if (idepth is None) != (selected is None):
         raise ValueError("the refinement's idepth and selected come together")
     if idepth is not None:
-        check(idepth, "refined idepth", (k, m))
-        check(selected, "selected", (k, m), torch.bool)
-    check(window.lm_uv, "lm_uv", (k, n, 2))
-    check(window.lm_patch, "lm_patch", (k, n, c * PATTERN_SIZE))
-    h_px, w_px = window.maps.shape[-2:]
-    check(window.channel_bank, "channel bank", (k, 3 * c, h_px, w_px))
-    check(window.lm_idepth, "lm_idepth", (k, n))
-    check(window.lm_valid, "lm_valid", (k, n), torch.bool)
-    check(window.res_status, "res_status", (k, k, n), torch.int32)
+        check(idepth, "refined idepth", own + (k, m))
+        check(selected, "selected", own + (k, m), torch.bool)
+    check(windows.lm_uv, "lm_uv", lead + (k, n, 2))
+    check(windows.lm_patch, "lm_patch", lead + (k, n, c * PATTERN_SIZE))
+    h_px, w_px = windows.maps.shape[-2:]
+    check(windows.channel_bank, "channel bank", lead + (k, 3 * c, h_px, w_px))
+    check(windows.lm_idepth, "lm_idepth", lead + (k, n))
+    check(windows.lm_valid, "lm_valid", lead + (k, n), torch.bool)
+    check(windows.res_status, "res_status", lead + (k, k, n), torch.int32)
     dev = imm.uv.device
     f32, u8 = dict(dtype=torch.float32, device=dev), dict(dtype=torch.bool, device=dev)
-    lm_uv, lm_patch = torch.empty((k, n, 2), **f32), torch.empty((k, n, c * PATTERN_SIZE), **f32)
-    lm_idepth, lm_valid = torch.empty((k, n), **f32), torch.empty((k, n), **u8)
-    status = torch.empty((k, k, n), dtype=torch.int32, device=dev)
-    imm_valid = torch.empty((k, m), **u8)
-    idepth_min = idepth_max = None
+    part = dict(lm_uv=torch.empty(own + (k, n, 2), **f32),
+                lm_patch=torch.empty(own + (k, n, c * PATTERN_SIZE), **f32),
+                lm_idepth=torch.empty(own + (k, n), **f32),
+                lm_valid=torch.empty(own + (k, n), **u8),
+                res_status=torch.empty(own + (k, k, n), dtype=torch.int32, device=dev))
+    bank = dict(valid=torch.empty(own + (k, m), **u8))
     if idepth is not None:
-        idepth_min, idepth_max = torch.empty((k, m), **f32), torch.empty((k, m), **f32)
-    n_activated = torch.empty((), dtype=torch.int64, device=dev)
-    ws = kernels.workspace(kernels.ACTIVATION_SCATTER, kernels.PAIR_WORKSPACE_BYTES, dev)
+        bank.update(idepth_min=torch.empty(own + (k, m), **f32),
+                    idepth_max=torch.empty(own + (k, m), **f32))
+    n_activated = torch.empty(own, dtype=torch.int64, device=dev)
+    ws = kernels.workspace(kernels.ACTIVATION_SCATTER, size * kernels.PAIR_WORKSPACE_BYTES, dev)
     kernels.ACTIVATION_SCATTER(
         activate, delete, selected, idepth, imm.uv, imm.patch, imm.idepth_min, imm.idepth_max,
-        imm.valid, window.channel_bank, c, h_px, w_px, k, n, m, window.lm_uv, window.lm_patch,
-        window.lm_idepth, window.lm_valid, window.res_status, lm_uv, lm_patch, lm_idepth,
-        lm_valid, status, imm_valid, idepth_min, idepth_max, n_activated, ws, ws.numel())
-    window = window.replace(lm_uv=lm_uv, lm_patch=lm_patch, lm_idepth=lm_idepth,
-                            lm_valid=lm_valid, res_status=status)
-    if idepth is None:
-        return window, imm._replace(valid=imm_valid), n_activated
-    return (window, imm._replace(valid=imm_valid, idepth_min=idepth_min, idepth_max=idepth_max),
-            n_activated)
+        imm.valid, windows.channel_bank, c, h_px, w_px, k, n, m, windows.lm_uv,
+        windows.lm_patch, windows.lm_idepth, windows.lm_valid, windows.res_status,
+        *part.values(), bank["valid"], bank.get("idepth_min"), bank.get("idepth_max"),
+        n_activated, ws, ws.numel(), size, _kernel_sequences(seqs, batch, dev))
+    return part, bank, n_activated
+
+
+def activation_scatter_sequences(windows: Window, imm: ImmaturePoints, activate, delete,
+                                 idepth=None, selected=None, seqs=None):
+    """The move into landmark slots of the sequences ``seqs`` (a host list;
+    None: all) of a stacked window and its stacked banks, with the [S, K, M]
+    flags of K13 and (or None) the refinement → ({field of
+    :data:`PAIRED_FIELDS`: [S, ...]}, {the banks' valid and, after a
+    refinement, idepth bounds: [S, K, M]}, n_activated [S]): the kernel K14
+    in one launch on CUDA tensors, :func:`_activation_scatter_plain` once a
+    sequence on CPU ones."""
+    seqs = sequence_list(seqs, stack_size(windows))
+    if windows.lm_uv.is_cuda:
+        return _activation_scatter_sequences_cuda(windows, imm, activate, delete, idepth,
+                                                  selected, seqs)
+    outs = [_activation_scatter_plain(window_at(windows, b), _bank(imm, b), activate[z],
+                                      delete[z], None if idepth is None else idepth[z],
+                                      None if selected is None else selected[z])
+            for z, b in enumerate(seqs)]
+    names = PAIRED_BANK_FIELDS if idepth is not None else PAIRED_BANK_FIELDS[:1]
+    return ({name: torch.stack([getattr(w, name) for w, _, _ in outs]) for name in PAIRED_FIELDS},
+            {name: torch.stack([getattr(b, name) for _, b, _ in outs]) for name in names},
+            torch.stack([x for _, _, x in outs]))
 
 
 def _activation_scatter(window: Window, imm: ImmaturePoints, activate, delete, idepth=None,

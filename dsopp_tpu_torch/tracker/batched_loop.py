@@ -14,25 +14,29 @@ re-track's chunks 1..21 run in one chain for the sequences that escalated
 only (the JAX package runs them for every sequence and selects, as
 ``lax.cond`` under ``vmap`` is a select).
 
-The keyframe backend runs :func:`device_loop.keyframe_update`'s phases for
-the S sequences whose keyframe decision (or forced keyframe) is set:
+The keyframe backend runs :func:`device_loop.keyframe_update`'s three
+phases once each for the S sequences whose keyframe decision (or forced
+keyframe) is set, every kernel one launch for all S (the solo
+``keyframe_update`` runs the same three functions on a stack of one):
 
-1. for each of them, on its views of the stacked state, the push, its
-   immature bank (K12), the activation (K13) and the refinement and pairing
-   (K14) (``fused_keyframe.fused_keyframe_front``), copied back into its
-   slot;
-2. once for all S: the windowed BA
-   solve (K7–K11 in one C call, each kernel one launch for the S
-   sequences), the batch's new affine and poses, the min-distance
-   controller, the marginalization policy (K15p, one launch), the snapshot,
-   the marginalization pass (K7, K8) and the ledger fold (K15, one launch),
-   the compaction and the immature banks' permutation
-   (``device_loop.keyframe_solver_sequences``, which the solo
-   ``keyframe_update`` runs on a stack of one): written into the stacked
-   window in place where only some of the B sequences keyframe, new tensors
-   where all of them do;
-3. for each of them, on its views, the frontend depth maps (K16), copied
-   back.
+1. the push, the immature banks (K12), the activation (K13) and the
+   refinement and pairing (K14), with at C > 1 the S keyframes' embedder
+   channels in one convolution and their maps in one K1 launch
+   (``fused_keyframe.keyframe_front_sequences``);
+2. the windowed BA solve (K7–K11 in one C call), the batch's new affine and
+   poses, the min-distance controller, the marginalization policy (K15p),
+   the snapshot, the marginalization pass (K7, K8) and the ledger fold
+   (K15), the compaction and the immature banks' permutation
+   (``device_loop.keyframe_solver_sequences``);
+3. the frontend depth maps and point sets (K16,
+   ``depth_map.build_frontend_state_sequences``).
+
+Each reads the stacked state and the tick's [B, ...] pyramid through the
+list of the S sequences; where only some of the B sequences keyframe, their
+rows of the stack are written in place (the push and the new banks at each
+sequence's slot, the other outputs one ``index_copy_`` a field; the stacked
+``maps`` keeps its storage), and where all of them do, the phases return
+new tensors.
 
 Semantics: there is no interaction between sequences.  Each kernel runs a
 sequence's work with the arithmetic and reduction order of its own launch,
@@ -50,14 +54,15 @@ from typing import List, NamedTuple
 import torch
 
 from dsopp_tpu_torch.core.lie import SE3
-from dsopp_tpu_torch.solvers.pba import Window, newest_slot
+from dsopp_tpu_torch.solvers.pba import Window, _device_sequences, into_sequences, newest_slot
+from dsopp_tpu_torch.solvers.pose_alignment import LevelPoints
 from dsopp_tpu_torch.tracker.device_loop import (DeviceLoopConfig, DeviceTrackerState,
                                                  PipelinedTracker, TickDiag,
-                                                 keyframe_embedding, keyframe_solver_sequences,
+                                                 keyframe_embeddings, keyframe_solver_sequences,
                                                  with_rows)
 from dsopp_tpu_torch.tracker.depth_map import (STAT_KF_RMSE, STAT_NEED, STAT_RMSE_LAST0,
-                                               build_frontend_state)
-from dsopp_tpu_torch.tracker.fused_keyframe import fused_keyframe_front
+                                               build_frontend_state_sequences)
+from dsopp_tpu_torch.tracker.fused_keyframe import keyframe_front_sequences
 from dsopp_tpu_torch.tracker.fused_tick import fused_regular_tick
 
 # TickDiag's fields that only a keyframe fills (None in a regular frame's
@@ -91,16 +96,6 @@ def stack_states(states: List[DeviceTrackerState]) -> DeviceTrackerState:
 def unstack_state(states: DeviceTrackerState, b: int) -> DeviceTrackerState:
     """Sequence ``b``'s state: views of the stacked tensors, not copies."""
     return _tree_map(lambda x: x[b], states)
-
-
-def _copy_into(dst, src):
-    """Copy ``src``'s tensors into the views ``dst`` (skipping a tensor that
-    is its own source)."""
-    def copy(d, s):
-        if d.data_ptr() != s.data_ptr():
-            d.copy_(s)
-        return d
-    _tree_map(copy, dst, src)
 
 
 class BatchedTickDiag(NamedTuple):
@@ -142,9 +137,9 @@ def batched_device_tick(states: DeviceTrackerState, images, frame_ids, force_kfs
                         mask, cfg: DeviceLoopConfig, exposures=None):
     """One tracked frame for B sequences → (states', :class:`BatchedTickDiag`).
 
-    ``states``: a stacked state (:func:`stack_states`); it is consumed (a
-    keyframe writes its sequence's slot in place), as the JAX entry point
-    donates it.  ``images``: [B, H, W] on the state's device; ``frame_ids``,
+    ``states``: a stacked state (:func:`stack_states`); it is consumed (where
+    only some sequences keyframe, their rows are written in place), as the
+    JAX entry point donates it.  ``images``: [B, H, W] on the state's device; ``frame_ids``,
     ``force_kfs``: B host ints and bools; ``exposures``: B host floats
     (default 1.0); ``models``, ``mask`` (a [H, W] CameraMask or None) and
     ``cfg`` are shared."""
@@ -179,36 +174,43 @@ def batched_device_tick(states: DeviceTrackerState, images, frame_ids, force_kfs
     keyframes = [None] * batch
     seqs = tuple(b for b in range(batch) if need[b])
     if seqs:
-        maps = {b: tuple(m[b] for m in out.maps) for b in seqs}
-        fronts = []
-        for b in seqs:
-            seq = unstack_state(base, b)
-            front = fused_keyframe_front(
-                seq.window, models[0], seq.immature, maps[b][0], out.pose_q[b], out.pose_t[b],
-                out.affine[b], int(frame_ids[b]), seq.min_distance, cfg.refine, cfg.huber_sigma,
-                cfg.immature_per_frame, exposure[b], mask=mask,
-                embed=keyframe_embedding(maps[b], cfg))
-            _copy_into((seq.window, seq.immature), (front.window, front.immature))
-            fronts.append(front)
-        half = keyframe_solver_sequences(
-            base.window, base.immature, base.min_distance, seqs,
-            torch.cat([f.slot for f in fronts]), torch.stack([f.n_active for f in fronts]),
-            models[0], cfg)
-        base = base._replace(window=half.window, immature=half.immature,
-                             min_distance=with_rows(base.min_distance, seqs, half.min_distance),
-                             last_affine=with_rows(base.last_affine, seqs, half.new_affine))
+        if seqs == tuple(range(batch)):
+            pick = lambda x: x                                           # noqa: E731
+        else:
+            rows = _device_sequences(seqs, dev, torch.int64)
+            pick = lambda x: x.index_select(0, rows)                     # noqa: E731
+        front = keyframe_front_sequences(
+            base.window, models[0], base.immature, out.maps[0], seqs, pick(out.pose_q),
+            pick(out.pose_t), pick(out.affine), tuple(int(frame_ids[b]) for b in seqs),
+            base.min_distance, pick(exposure), cfg.refine, cfg.huber_sigma,
+            cfg.immature_per_frame, mask=mask,
+            embed=keyframe_embeddings(pick(out.maps[0])[:, 0], cfg))
+        half = keyframe_solver_sequences(front.window, front.immature, base.min_distance, seqs,
+                                         front.slot, front.n_active, models[0], cfg)
+        idep, wei, points, flow_pts = build_frontend_state_sequences(
+            half.window, models[0], out.maps, seqs, cfg.height, cfg.width, cfg.num_levels,
+            cfg.frontend_points)
+
+        def put(x, value):
+            return into_sequences(x, seqs, value)
+
+        base = base._replace(
+            window=half.window, immature=half.immature,
+            depth_idepth=tuple(map(put, base.depth_idepth, idep)),
+            depth_weight=tuple(map(put, base.depth_weight, wei)),
+            level_points=tuple(LevelPoints(*map(put, x, v))
+                               for x, v in zip(base.level_points, points)),
+            flow_points=LevelPoints(*map(put, base.flow_points, flow_pts)),
+            min_distance=with_rows(base.min_distance, seqs, half.min_distance),
+            last_affine=with_rows(base.last_affine, seqs, half.new_affine))
         for z, b in enumerate(seqs):
-            seq = unstack_state(base, b)
-            _copy_into((seq.depth_idepth, seq.depth_weight, seq.level_points, seq.flow_points),
-                       build_frontend_state(seq.window, models[0], maps[b], cfg.height,
-                                            cfg.width, cfg.num_levels, cfg.frontend_points))
             keyframes[b] = TickDiag(
                 is_keyframe=True, escalated=out.escalated[b], rmse_chunk0=out.rmse_chunk0[b],
                 pose_q=out.pose_q[b], pose_t=out.pose_t[b], affine=out.affine[b],
                 rmse=out.rmse[b], flow=out.flow[b], flow_no_rot=out.flow_no_rot[b],
                 num_valid_align=out.num_valid[b], t_kf_frame_mat=out.t_kf_frame_mat[b],
                 energy=half.energy[z], num_valid_solve=half.num_valid[z],
-                n_active=fronts[z].n_active, n_activated=fronts[z].n_activated,
+                n_active=front.n_active[z], n_activated=front.n_activated[z],
                 min_distance=half.min_distance[z],
                 **{name: x[z] for name, x in half.snap.items()},
                 host_stats=None if host is None else host[b])

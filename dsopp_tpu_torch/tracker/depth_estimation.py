@@ -474,17 +474,18 @@ def update_from_sweep(points: ImmaturePoints, geo: dict, res: SweepResult,
 
 
 def make_immature_points(uv, patch, gradient) -> ImmaturePoints:
-    """Fresh immature bank ``[N]`` from extracted candidates (dense, so that
-    the banks written from it stay dense for kernel K4)."""
+    """Fresh immature bank ``[N]`` from extracted candidates, or ``[S, N]``
+    banks of S sequences' (dense, so that the banks written from it stay
+    dense for kernel K4)."""
     dtype, dev = uv.dtype, uv.device
-    n = uv.shape[0]
+    lead = tuple(uv.shape[:-1])
     return ImmaturePoints(
         uv=uv.contiguous(), patch=patch.contiguous(), gradient=gradient.contiguous(),
-        idepth_min=torch.zeros(n, dtype=dtype, device=dev),
-        idepth_max=torch.full((n,), INITIAL_IDEPTH_MAX, dtype=dtype, device=dev),
-        status=torch.full((n,), STATUS_UNINITIALIZED, dtype=torch.int32, device=dev),
-        traced=torch.zeros(n, dtype=torch.bool, device=dev),
-        uniqueness=torch.full((n,), float("inf"), dtype=dtype, device=dev),
-        search_interval=torch.zeros(n, dtype=dtype, device=dev),
-        valid=torch.ones(n, dtype=torch.bool, device=dev),
+        idepth_min=torch.zeros(lead, dtype=dtype, device=dev),
+        idepth_max=torch.full(lead, INITIAL_IDEPTH_MAX, dtype=dtype, device=dev),
+        status=torch.full(lead, STATUS_UNINITIALIZED, dtype=torch.int32, device=dev),
+        traced=torch.zeros(lead, dtype=torch.bool, device=dev),
+        uniqueness=torch.full(lead, float("inf"), dtype=dtype, device=dev),
+        search_interval=torch.zeros(lead, dtype=dtype, device=dev),
+        valid=torch.ones(lead, dtype=torch.bool, device=dev),
     )

@@ -36,7 +36,8 @@ from dsopp_tpu_torch import kernels
 from dsopp_tpu_torch.core.lie import SE3
 from dsopp_tpu_torch.core.reproject import reproject
 from dsopp_tpu_torch.features.extractor import top_k_stable
-from dsopp_tpu_torch.solvers.pba import BLOCK, Window, active_lm_mask, newest_slot
+from dsopp_tpu_torch.solvers.pba import (BLOCK, Window, _kernel_sequences, active_lm_mask,
+                                         newest_slot, sequence_list, stack_size, window_at)
 from dsopp_tpu_torch.solvers.pose_alignment import LevelPoints
 
 # OpticalFlowKeyframeStrategy (mean_square_optical_flow_and_rmse strategy)
@@ -167,7 +168,7 @@ class FrontendLayout(NamedTuple):
     scratch_bytes: int
     pointers: tuple       # the scratch arrays' byte offsets, in that order
     words: int            # f32 outputs: the dilated grids, then the selections
-    slots: int            # selection slots: the levels', then the flow set's
+    slots: int            # selection slots of a sequence: the levels', then the flow set's
     out_split: tuple      # the f32 outputs' pieces: each level of out_i, of out_w, uv, each
                           # round of idepth, of value
     slot_split: tuple     # the selections' rounds
@@ -175,9 +176,11 @@ class FrontendLayout(NamedTuple):
 
 @functools.lru_cache(maxsize=None)
 def frontend_layout(points: int, height: int, width: int, levels: int,
-                    max_points: int) -> FrontendLayout:
-    """K16's scratch and outputs for ``points`` = K × N landmark slots and a
-    ``levels``-level pyramid of a height × width frame.  Every scratch array
+                    max_points: int, seqs: int = 1) -> FrontendLayout:
+    """K16's scratch and outputs for ``seqs`` sequences of ``points`` = K × N
+    landmark slots and a ``levels``-level pyramid of a height × width frame
+    (every array, piece and count below × ``seqs``: a scratch array is [S,
+    one sequence's], an output piece a dense [S, ...] block).  Every scratch array
     holds 4-byte words: the points' pixel, idepth, next twin and has-earlier
     flag (K × N each), the raw grids of all levels (twice the cells), the
     weight-class histograms (levels × (K × N + 1)), the rounds' thresholds (2
@@ -199,15 +202,18 @@ def frontend_layout(points: int, height: int, width: int, levels: int,
              "raw_i": cells, "raw_w": cells, "hist": levels * (points + 1),
              "params": 2 * rounds, "tile_counts": 2 * tiles, "heavy": rounds * 2 * m,
              "rank": rounds * m}
+    words = {name: seqs * count for name, count in words.items()}
     scratch, at = {}, 0
     for name, count in words.items():
         scratch[name] = (at, count)
         at += -(-count // SCRATCH_ALIGN) * SCRATCH_ALIGN
     slots = levels * max_points + FLOW_CAP
-    cut = (max_points,) * levels + (FLOW_CAP,)
+    cut = tuple(seqs * c for c in (max_points,) * levels + (FLOW_CAP,))
+    sizes = tuple(seqs * size for size in sizes)
     return FrontendLayout(tuple(shapes), scratch, 4 * at,
-                          tuple(4 * off for off, _ in scratch.values()), 2 * cells + 4 * slots,
-                          slots, sizes + sizes + (2 * slots,) + cut + cut, cut)
+                          tuple(4 * off for off, _ in scratch.values()),
+                          seqs * (2 * cells + 4 * slots), slots,
+                          sizes + sizes + (2 * seqs * slots,) + cut + cut, cut)
 
 
 def build_frontend_state_cuda(window: Window, model, maps, height: int, width: int,
@@ -220,30 +226,48 @@ def build_frontend_state_cuda(window: Window, model, maps, height: int, width: i
     window's raw tensors.  The idepth sums are taken in landmark order, so two
     runs on the same window give the same bits.  ``poses_out``, a [K, 7] f32
     CUDA tensor, receives the poses T_newest⁻¹ · T_f the kernel composed (q,
-    t)."""
-    k, n = window.num_slots, window.num_landmark_slots
+    t).  The one-sequence case of :func:`_frontend_sequences_cuda`."""
+    return _frontend_sequences_cuda(window, model, maps, (0,), height, width, num_levels,
+                                    max_points, poses_out, stacked=False)
+
+
+def _frontend_sequences_cuda(windows: Window, model, maps, seqs: tuple, height: int, width: int,
+                             num_levels: int, max_points: int, poses_out=None,
+                             stacked: bool = True):
+    """Kernel K16 for the S sequences ``seqs`` (a checked host list) of a
+    stacked window and the tick's maps (``maps[l]`` [B, 3, H_l, W_l]), read
+    through the list: one C call of 10 launches for all S → the outputs of
+    :func:`build_frontend_state_plain`, each with a leading [S] axis (dense
+    views of two allocations); ``poses_out`` [S, K, 7].  ``stacked=False``:
+    one window and its [3, H_l, W_l] maps, ``seqs`` (0,), no sequence
+    axis."""
+    lead = tuple(windows.t_lin_q.shape[:1]) if stacked else ()
+    batch = lead[0] if stacked else 1
+    k, n = windows.t_lin_q.shape[-2], windows.lm_uv.shape[-2]
     if num_levels > MAX_LEVELS or k * n > MAX_POINTS or k > MAX_FRAMES:
         raise ValueError(f"depth_maps: {num_levels} levels, {k} frames and {k * n} points; the"
                          f" kernel takes up to {MAX_LEVELS} levels, {MAX_FRAMES} frames and"
                          f" {MAX_POINTS} points")
-    lay = frontend_layout(k * n, height, width, num_levels, max_points)
+    size = len(seqs)
+    own = (size,) if stacked else ()
+    lay = frontend_layout(k * n, height, width, num_levels, max_points, size)
     check = kernels.check
-    check(window.lm_uv, "lm_uv", (k, n, 2))
-    check(window.lm_idepth, "lm_idepth", (k, n))
-    check(window.lm_valid, "lm_valid", (k, n), torch.bool)
-    check(window.lm_outlier, "lm_outlier", (k, n), torch.bool)
-    check(window.frame_valid, "frame_valid", (k,), torch.bool)
-    check(window.t_lin_q, "t_lin_q", (k, 4))
-    check(window.t_lin_t, "t_lin_t", (k, 3))
-    check(window.eps, "eps", (k, BLOCK))
+    check(windows.lm_uv, "lm_uv", lead + (k, n, 2))
+    check(windows.lm_idepth, "lm_idepth", lead + (k, n))
+    check(windows.lm_valid, "lm_valid", lead + (k, n), torch.bool)
+    check(windows.lm_outlier, "lm_outlier", lead + (k, n), torch.bool)
+    check(windows.frame_valid, "frame_valid", lead + (k,), torch.bool)
+    check(windows.t_lin_q, "t_lin_q", lead + (k, 4))
+    check(windows.t_lin_t, "t_lin_t", lead + (k, 3))
+    check(windows.eps, "eps", lead + (k, BLOCK))
     if poses_out is not None:
-        check(poses_out, "poses_out", (k, POSE_WIDTH))
+        check(poses_out, "poses_out", own + (k, POSE_WIDTH))
     for level, (h, w) in enumerate(lay.shapes):
-        check(maps[level], f"maps[{level}]", (3, h, w))
-    dev = window.lm_uv.device
+        check(maps[level], f"maps[{level}]", lead + (3, h, w))
+    dev = windows.lm_uv.device
     base = kernels.scratch(kernels.DEPTH_MAPS, lay.scratch_bytes, dev).data_ptr()
     out = torch.empty((lay.words,), dtype=torch.float32, device=dev)
-    sel_valid = torch.empty((lay.slots,), dtype=torch.bool, device=dev)
+    sel_valid = torch.empty((size * lay.slots,), dtype=torch.bool, device=dev)
     # the outputs are views of the two allocations, made in one split each
     # (a view costs the host about as much as a kernel launch)
     pieces = out.split_with_sizes(lay.out_split)
@@ -254,16 +278,20 @@ def build_frontend_state_cuda(window: Window, model, maps, height: int, width: i
     intensity = (ctypes.c_void_p * num_levels)(*(m.data_ptr() for m in maps[:num_levels]))
     launches = (ctypes.c_int * 2)()
     kernels.DEPTH_MAPS(
-        window.lm_uv, window.lm_idepth, window.lm_valid, window.lm_outlier, window.frame_valid,
-        window.t_lin_q, window.t_lin_t, window.eps, k, n, model.fx, model.fy, model.cx,
-        model.cy, model.width, model.height, height, width, num_levels, max_points, FLOW_CAP,
-        intensity, *(base + at for at in lay.pointers), grids[0], grids[levels], sel_uv,
-        sel_idepth[0], sel_value[0], sel_valid, poses_out, launches)
+        windows.lm_uv, windows.lm_idepth, windows.lm_valid, windows.lm_outlier,
+        windows.frame_valid, windows.t_lin_q, windows.t_lin_t, windows.eps, k, n, model.fx,
+        model.fy, model.cx, model.cy, model.width, model.height, height, width, num_levels,
+        max_points, FLOW_CAP, intensity, *(base + at for at in lay.pointers), grids[0],
+        grids[levels], sel_uv, sel_idepth[0], sel_value[0], sel_valid, poses_out, launches,
+        size, _kernel_sequences(seqs, batch, dev))
     last_call.update(kernels=launches[0], memsets=launches[1])
-    maps2d = [x.view(shape) for x, shape in zip(grids, lay.shapes + lay.shapes)]
-    sets = [LevelPoints(*fields) for fields in zip(
-        sel_uv.view(lay.slots, 2).split_with_sizes(lay.slot_split), sel_idepth, sel_value,
-        sel_valid.split_with_sizes(lay.slot_split))]
+    maps2d = [x.view(own + shape) for x, shape in zip(grids, lay.shapes + lay.shapes)]
+    slots = [c // size for c in lay.slot_split]
+    sets = [LevelPoints(uv.view(own + (c, 2)), idepth.view(own + (c,)),
+                        value.view(own + (c,)), valid.view(own + (c,)))
+            for c, uv, idepth, value, valid in zip(
+                slots, sel_uv.split_with_sizes(tuple(2 * x for x in lay.slot_split)),
+                sel_idepth, sel_value, sel_valid.split_with_sizes(lay.slot_split))]
     return tuple(maps2d[:levels]), tuple(maps2d[levels:]), tuple(sets[:-1]), sets[-1]
 
 
@@ -273,6 +301,28 @@ def build_frontend_state(window: Window, model, maps, height: int, width: int,
     the plain version on CPU ones."""
     fn = build_frontend_state_cuda if window.lm_uv.is_cuda else build_frontend_state_plain
     return fn(window, model, maps, height, width, num_levels, max_points)
+
+
+def build_frontend_state_sequences(windows: Window, model, maps, seqs, height: int, width: int,
+                                   num_levels: int, max_points: int):
+    """The frontend's state after a keyframe of the sequences ``seqs`` (a
+    host list; None: all) of a stacked window, with the tick's maps
+    (``maps[l]`` [B, 3, H_l, W_l]) → (idepth, weight: per level [S, H_l,
+    W_l]; the level points and the flow set: LevelPoints of [S, ...] fields):
+    the kernel K16 in one call (10 launches for all S) on CUDA tensors,
+    :func:`build_frontend_state_plain` once a sequence on CPU ones."""
+    seqs = sequence_list(seqs, stack_size(windows))
+    if windows.lm_uv.is_cuda:
+        return _frontend_sequences_cuda(windows, model, maps, seqs, height, width, num_levels,
+                                        max_points)
+    outs = [build_frontend_state_plain(window_at(windows, b), model,
+                                       tuple(m[b] for m in maps), height, width, num_levels,
+                                       max_points) for b in seqs]
+    idep, wei, points, flow = zip(*outs)
+    stack = lambda xs: tuple(torch.stack(x) for x in zip(*xs))          # noqa: E731
+    return (stack(idep), stack(wei),
+            tuple(LevelPoints(*stack(level)) for level in zip(*points)),
+            LevelPoints(*stack(flow)))
 
 
 def mean_square_flows_plain(pts: LevelPoints, model, t_t_r: SE3, border: int = 4):

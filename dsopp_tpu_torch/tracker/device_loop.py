@@ -35,8 +35,8 @@ from dsopp_tpu_torch.tracker.activation import MAX_DISTANCE, MIN_DISTANCE, P_GAI
 from dsopp_tpu_torch.tracker.depth_estimation import ImmaturePoints
 from dsopp_tpu_torch.tracker.depth_map import (STAT_FLOW, STAT_FLOW_NO_ROT, STAT_KF_RMSE,
                                                STAT_MATRIX, STAT_NEED, STAT_RMSE,
-                                               STAT_RMSE_LAST0, build_frontend_state)
-from dsopp_tpu_torch.tracker.fused_keyframe import fused_keyframe_front
+                                               STAT_RMSE_LAST0, build_frontend_state_sequences)
+from dsopp_tpu_torch.tracker.fused_keyframe import keyframe_front_sequences
 from dsopp_tpu_torch.tracker.fused_tick import fused_regular_tick
 from dsopp_tpu_torch.tracker.marginalization import flags_sequences
 
@@ -129,45 +129,52 @@ class KeyframeUpdate(NamedTuple):
     snap: dict
 
 
-def keyframe_embedding(maps, cfg: DeviceLoopConfig):
-    """The keyframe's frame-embedder channels for the window's channel bank
-    (None with the identity embedder: C = 1)."""
-    return None if cfg.embedder == "identity" else _embedder(cfg.embedder)(maps[0][0])
+def keyframe_embeddings(images, cfg: DeviceLoopConfig):
+    """The frame-embedder channels [S, C, H, W] of S keyframes' intensity
+    images [S, H, W] for the window's channel bank, one convolution (None
+    with the identity embedder: C = 1)."""
+    return None if cfg.embedder == "identity" else _embedder(cfg.embedder)(images)
 
 
 def keyframe_update(window: Window, immature: ImmaturePoints, maps, pose_q, pose_t,
                     affine, frame_id: int, min_distance, models,
                     cfg: DeviceLoopConfig, exposure, mask=None,
                     covariances: bool = False) -> KeyframeUpdate:
-    """The keyframe backend shared by ``device_tick`` and the bootstrap, in
-    three phases: the push, its immature bank and the activation
-    (``fused_keyframe.fused_keyframe_front``); the solver half
-    (:func:`keyframe_solver_sequences` on a stack of this one sequence); the
-    frontend depth maps.  ``mask``: [H, W] bool candidate-selection mask or
-    None.  A frame embedder other than the identity embeds the keyframe's
-    intensity for the window's channel bank; the frontend and the epipolar
-    tracer stay C = 1.  ``covariances``: the batch also carries the solved
-    window's relative pose covariances (``cov_rel`` [K, K, 6, 6],
-    :func:`pose_covariances`) and its frame ids (``cov_ids`` [K], -1 at a
-    dead slot), before the marginalization."""
-    front = fused_keyframe_front(window, models[0], immature, maps[0], pose_q, pose_t, affine,
-                                 frame_id, min_distance, cfg.refine, cfg.huber_sigma,
-                                 cfg.immature_per_frame, exposure, mask,
-                                 keyframe_embedding(maps, cfg))
-    half = keyframe_solver_sequences(
-        _as_stack(front.window), ImmaturePoints(*(x[None] for x in front.immature)),
-        min_distance.reshape(1), (0,), front.slot, front.n_active.reshape(1), models[0], cfg,
-        covariances)
+    """The keyframe backend shared by ``device_tick`` and the bootstrap: the
+    batched tick's three phases on a stack of this one sequence — the push,
+    its immature bank and the activation
+    (``fused_keyframe.keyframe_front_sequences``), the solver half
+    (:func:`keyframe_solver_sequences`), the frontend depth maps
+    (``depth_map.build_frontend_state_sequences``).  ``mask``: [H, W] bool
+    candidate-selection mask or None.  A frame embedder other than the
+    identity embeds the keyframe's intensity for the window's channel bank;
+    the frontend and the epipolar tracer stay C = 1.  ``covariances``: the
+    batch also carries the solved window's relative pose covariances
+    (``cov_rel`` [K, K, 6, 6], :func:`pose_covariances`) and its frame ids
+    (``cov_ids`` [K], -1 at a dead slot), before the marginalization."""
+    stack = tuple(m[None] for m in maps)
+    exposure = torch.as_tensor(exposure, dtype=pose_q.dtype, device=pose_q.device).reshape(1)
+    min_distance = min_distance.reshape(1)
+    front = keyframe_front_sequences(
+        _as_stack(window), models[0], ImmaturePoints(*(x[None] for x in immature)), stack[0],
+        (0,), pose_q[None], pose_t[None], affine[None], (frame_id,), min_distance, exposure,
+        cfg.refine, cfg.huber_sigma, cfg.immature_per_frame, mask,
+        keyframe_embeddings(stack[0][:, 0], cfg))
+    half = keyframe_solver_sequences(front.window, front.immature, min_distance, (0,),
+                                     front.slot, front.n_active, models[0], cfg, covariances)
     win = window_at(half.window, 0)
-    batch = dict(energy=half.energy[0], num_valid=half.num_valid[0], n_active=front.n_active,
-                 n_activated=front.n_activated, new_affine=half.new_affine[0],
+    batch = dict(energy=half.energy[0], num_valid=half.num_valid[0], n_active=front.n_active[0],
+                 n_activated=front.n_activated[0], new_affine=half.new_affine[0],
                  poses_mat=half.poses_mat[0])
     if covariances:
         batch.update({name: x[0] for name, x in half.covariances.items()})
-    idep, wei, points, flow_pts = build_frontend_state(
-        win, models[0], maps, cfg.height, cfg.width, cfg.num_levels, cfg.frontend_points)
-    return KeyframeUpdate(win, ImmaturePoints(*(x[0] for x in half.immature)), idep, wei,
-                          points, flow_pts, half.min_distance[0], batch,
+    idep, wei, points, flow_pts = build_frontend_state_sequences(
+        half.window, models[0], stack, (0,), cfg.height, cfg.width, cfg.num_levels,
+        cfg.frontend_points)
+    first = lambda xs: tuple(x[0] for x in xs)                          # noqa: E731
+    return KeyframeUpdate(win, ImmaturePoints(*first(half.immature)), first(idep), first(wei),
+                          tuple(type(p)(*first(p)) for p in points),
+                          type(flow_pts)(*first(flow_pts)), half.min_distance[0], batch,
                           {name: x[0] for name, x in half.snap.items()})
 
 

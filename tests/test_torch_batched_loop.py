@@ -21,10 +21,15 @@ keyframes, poses and trajectories.  Beside them:
 * K1, K3, K4 and K5's plain versions with the leading axis against B solo
   calls (K3 on hypotheses of interleaved sequences);
 * one tick with every sequence forced to take a keyframe (the keyframe
-  backend's solver half once for the three sequences): against JAX's
+  backend's three phases once for the three sequences): against JAX's
   ``batched_device_tick`` from the same converted states (the JAX tick's
   compiled program reused: its forced flags are an argument), and each
-  sequence equal to the bit to its solo ``device_tick``.
+  sequence equal to the bit to its solo ``device_tick``;
+* one tick with the forced flags (True, False, True): the keyframe backend
+  once for sequences 0 and 2, written into their rows of the stack in
+  place; every sequence equal to the bit to its solo tick, sequence 1's
+  window and frontend state untouched, and the stacked ``maps`` keeping its
+  storage.
 """
 
 import copy
@@ -161,20 +166,26 @@ def test_replicated_batch_bitwise(seqs):
             np.testing.assert_array_equal(ma, mb)
 
 
-def _tick_both(seqs, cfg_change=None, state_change=None, force=False):
+def _tick_both(seqs, cfg_change=None, state_change=None, force=False, stacked=None):
     """One batched tick from the initialized trackers' states (each changed
     by ``state_change(b, state)``) and each sequence's solo ``device_tick``
-    from the same state, every sequence forced to take a keyframe with
-    ``force`` → (batched state, diag, [(solo state, diag)])."""
+    from the same state; ``force``: every sequence forced to take a keyframe
+    (a bool) or each sequence's flag (B bools) → (batched state, diag,
+    [(solo state, diag)]).  ``stacked`` (a list) receives the stacked state
+    the batched tick was given."""
     pipes = [PipelinedTracker(_make_tracker(b)) for b in range(len(seqs))]
     cfg = pipes[0].cfg if cfg_change is None else cfg_change(pipes[0].cfg)
     states = [p.state if state_change is None else state_change(b, p.state)
               for b, p in enumerate(pipes)]
+    forces = [force] * B if isinstance(force, bool) else list(force)
     images = torch.stack([s.images[INIT_FRAMES] for s in seqs])
-    solo = [device_tick(states[b], images[b], INIT_FRAMES, force, pipes[0].models, cfg)
+    solo = [device_tick(states[b], images[b], INIT_FRAMES, forces[b], pipes[0].models, cfg)
             for b in range(len(seqs))]
-    new, diag = bl.batched_device_tick(bl.stack_states(states), images, [INIT_FRAMES] * B,
-                                       [force] * B, pipes[0].models, pipes[0].mask, cfg)
+    given = bl.stack_states(states)
+    if stacked is not None:
+        stacked.append(given)
+    new, diag = bl.batched_device_tick(given, images, [INIT_FRAMES] * B, forces,
+                                       pipes[0].models, pipes[0].mask, cfg)
     return new, diag, solo
 
 
@@ -210,6 +221,36 @@ def test_forced_keyframe_tick_parity(seqs):
             a, w = getattr(got, name), getattr(sdiag, name)
             assert a.shape == w.shape and torch.equal(a, w), name
     assert bool((new.window.h_marg != 0).any())
+
+
+def test_mixed_keyframe_tick_writes_the_keyframing_rows_in_place(seqs):
+    """Forced flags (True, False, True), and the keyframe strategy's factor 0
+    and sequence 1's rmse memory far above its rmse, so that it does not
+    decide one itself: the keyframe backend runs
+    once for sequences 0 and 2 and writes their rows of the stack in place.
+    Every sequence's state and diagnostics equal its solo tick's to the bit;
+    sequence 1's window, depth maps, point sets and min distance are the
+    stack's as given; the stacked ``maps`` keeps its storage."""
+    def no_decision(b, state):
+        return state._replace(kf_rmse=torch.full_like(state.kf_rmse, 1e9)) if b == 1 else state
+
+    given = []
+    new, diag, solo = _tick_both(seqs, lambda cfg: cfg._replace(keyframe_factor=0.0),
+                                 no_decision, force=(True, False, True), stacked=given)
+    assert diag.is_keyframe == (True, False, True)
+    for b, (state, sdiag) in enumerate(solo):
+        assert sdiag.is_keyframe == diag.is_keyframe[b]
+        _assert_state_equal(bl.unstack_state(new, b), state)
+        if b != 1:
+            got = diag.sequence(b)
+            for name in TickDiag._fields[TickDiag._fields.index("energy"):-1]:
+                a, w = getattr(got, name), getattr(sdiag, name)
+                assert a.shape == w.shape and torch.equal(a, w), name
+    assert new.window.maps.data_ptr() == given[0].window.maps.data_ptr()
+    untouched = no_decision(1, PipelinedTracker(_make_tracker(1)).state)
+    for name in ("window", "depth_idepth", "depth_weight", "level_points", "flow_points",
+                 "min_distance"):
+        _assert_state_equal(getattr(bl.unstack_state(new, 1), name), getattr(untouched, name))
 
 
 def test_retrack_runs_for_the_escalated_sequence_only(seqs):

@@ -130,6 +130,14 @@ wrappers' counts and the launch calls outside torch operators) one solo
 half's; ``batched_solve_and_marginalize`` equal to the bit to the per-window
 loop; a batched tick with every sequence forced to keyframe equal to the
 four forced ``device_tick`` calls to the bit, ledger included.
+The keyframe backend's front half and depth maps over a sequence axis: the
+push, K12 and the banks, K13, K14 (both entries) and K16 of S = 1, 2 and 4 of
+the four sequences at a forced keyframe in one call each, equal to the bit to
+S solo calls (window, banks, slots, counts, depth maps, point sets; also at C =
+3 with one K1 launch for the channel maps), with no host read, the same
+hand-written launches as one solo call; each of those kernels at S = 4 equal
+to its solo wrapper's launches; a batched tick where three of four sequences
+keyframe equal to the solo ticks, the stacked maps keeping their storage.
 
 Run on a machine with a card:
 ``python -m pytest --noconftest tests/test_torch_kernels_gpu.py -q``.
@@ -2238,3 +2246,172 @@ def test_batched_tick_with_keyframes_equals_solo_ticks(batch4):
         got = diag.sequence(b)
         for name in TickDiag._fields[TickDiag._fields.index("energy"):-1]:
             assert torch.equal(getattr(got, name), getattr(sdiag, name)), (b, name)
+
+
+FRONT_KERNELS = ("select_candidates", "activation", "refine_idepth", "activation_scatter",
+                 "depth_maps")
+
+
+@pytest.fixture(scope="module")
+def front4(batch4):
+    """``batch4``'s four trackers at a forced keyframe: the keyframe
+    backend's inputs (``testing/batched.py::front_inputs``)."""
+    from dsopp_tpu_torch.testing import batched
+
+    _, _, trackers, images = batch4
+    return batched.front_inputs(trackers, images)
+
+
+@pytest.mark.parametrize("size", [1, 2, 4])
+def test_batched_front_half_equals_solo_calls(front4, size):
+    """The keyframe backend's phases 1 (the push, K12 and the banks, K13,
+    K14) and 3 (K16) of S of the four sequences, one call each, equal to the
+    bit to S solo calls: window, banks, slots, n_active, n_activated, depth
+    maps and point sets; with no host read, a second call equal too."""
+    from dsopp_tpu_torch.testing import batched
+
+    seqs = SOLVER_SEQS[size]
+    half = _no_host_reads(batched.front_half, front4, seqs)
+    solos = [batched.front_half_solo(front4, b) for b in seqs]
+    assert batched.front_half_equal(half, solos, seqs) == dict.fromkeys(batched.FRONT_PARTS,
+                                                                        True)
+    again = batched.front_half(front4, seqs)
+    assert batched.front_half_equal(again, solos, seqs) == dict.fromkeys(batched.FRONT_PARTS,
+                                                                         True)
+    assert int(half["front"].n_activated.min()) > 0
+
+
+@pytest.mark.parametrize("size", [1, 2, 4])
+def test_batched_front_half_launches_equal_a_solo_call(front4, size):
+    """Phases 1 and 3 at S sequences launch what one sequence's do: the
+    wrappers' counts (each of K12, K13, K14's two entries and K16 once) and
+    the host's launch calls outside torch operators."""
+    from dsopp_tpu_torch.testing import batched
+
+    seqs = SOLVER_SEQS[size]
+
+    def launched(fn):
+        fn()
+        torch.cuda.synchronize()
+        before = kernels.counts()
+        with profiled([torch.profiler.ProfilerActivity.CPU,
+                       torch.profiler.ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        return ({k: v - before[k] for k, v in kernels.counts().items() if v != before[k]},
+                launch_records(prof)["outside_ops"])
+
+    got = launched(lambda: batched.front_half(front4, seqs))
+    want = launched(lambda: batched.front_half_solo(front4, seqs[0]))
+    assert got == want
+    assert all(got[0][name] == 1 for name in FRONT_KERNELS), got
+
+
+def test_batched_front_kernels_equal_solo_launches(front4):
+    """K12, K13, K14 (the refinement and the pairing) and K16 over S = 4 of
+    the stack in the order (1, 3, 0, 2), each one launch, every sequence
+    equal to the bit to the solo wrapper's launch on the same inputs."""
+    from dsopp_tpu_torch.testing import batched
+
+    seqs = SOLVER_SEQS[4]
+    half = batched.front_half(front4, seqs)
+    windows, banks = half["front"].window, half["front"].immature
+    maps, model, cfg = front4["out"].maps, front4["models"][0], front4["cfg"]
+    md = front4["state"].min_distance
+    one = lambda x, b: x[b]                                               # noqa: E731
+    bank = lambda b: de.ImmaturePoints(*(x[b] for x in banks))             # noqa: E731
+    act_s = act.activation_sequences(windows, model, banks, md, seqs)
+    ref_s = act.refine_idepth_sequences(windows, model, banks, act_s[0], cfg.huber_sigma, seqs)
+    cases = {
+        "select_candidates": (
+            lambda: extractor.select_candidates_sequences(maps[0], seqs, cfg.immature_per_frame,
+                                                          front4["mask"]),
+            lambda b, z: extractor.select_candidates_cuda(maps[0][b], cfg.immature_per_frame,
+                                                          front4["mask"])),
+        "activation": (lambda: act.activation_sequences(windows, model, banks, md, seqs),
+                       lambda b, z: act._activation_cuda(pba.window_at(windows, b), model,
+                                                         bank(b), md[b:b + 1])),
+        "refine_idepth": (
+            lambda: act.refine_idepth_sequences(windows, model, banks, act_s[0],
+                                                cfg.huber_sigma, seqs),
+            lambda b, z: act._refine_idepth_cuda(pba.window_at(windows, b), model, bank(b),
+                                                 act_s[0][z], cfg.huber_sigma)),
+        "activation_scatter": (
+            lambda: act.activation_scatter_sequences(windows, banks, ref_s[1], act_s[1],
+                                                     ref_s[0], ref_s[2], seqs),
+            lambda b, z: act._activation_scatter_sequences_cuda(
+                pba.window_at(windows, b), bank(b), ref_s[1][z], act_s[1][z], ref_s[0][z],
+                ref_s[2][z], (0,), stacked=False)),
+        "depth_maps": (
+            lambda: dm.build_frontend_state_sequences(windows, model, maps, seqs, cfg.height,
+                                                      cfg.width, cfg.num_levels,
+                                                      cfg.frontend_points),
+            lambda b, z: dm.build_frontend_state_cuda(pba.window_at(windows, b), model,
+                                                      tuple(one(m, b) for m in maps),
+                                                      cfg.height, cfg.width, cfg.num_levels,
+                                                      cfg.frontend_points)),
+    }
+    for name, (fn, solo) in cases.items():
+        before = kernels.counts()[name]
+        out = _no_host_reads(fn)
+        assert kernels.counts()[name] == before + 1, name
+        got = batched.flat(out)
+        for z, b in enumerate(seqs):
+            want = batched.flat(solo(b, z))
+            assert len(want) == len(got), name
+            for x, y in zip(got, want):
+                assert torch.equal(x[z], y), (name, b)
+
+
+def test_batched_front_half_at_c3(batch4):
+    """Phases 1 and 3 of two and four of four trackers with the filter-bank
+    embedder (C = 3: the keyframes' channels in one convolution, their maps
+    in one K1 launch, K14's pairing sampling the stacked channel bank) equal
+    to the bit to the solo calls, K1 once a call."""
+    from dataclasses import replace
+
+    from dsopp_tpu_torch.testing import batched
+
+    seq, cfg, _, images = batch4
+    cfg3 = replace(cfg, embedder="filter_bank")
+    trackers = [batched.offset_bootstrap(seq, cfg3, k) for k in range(4)]
+    inputs = batched.front_inputs(trackers, images)
+    assert inputs["state"].window.channel_maps.shape[2] == 9
+    for seqs in ((3, 0), (1, 3, 0, 2)):
+        before = kernels.PYRAMID.launches
+        half = _no_host_reads(batched.front_half, inputs, seqs)
+        assert kernels.PYRAMID.launches == before + 1
+        solos = [batched.front_half_solo(inputs, b) for b in seqs]
+        assert batched.front_half_equal(half, solos, seqs) == dict.fromkeys(
+            batched.FRONT_PARTS, True), seqs
+
+
+def test_batched_tick_with_some_keyframes_equals_solo_ticks(batch4):
+    """One batched tick with the forced flags (True, False, True, True), the
+    strategy's factor 0 and sequence 1's rmse memory far above its rmse (no
+    keyframe decided otherwise): the keyframe
+    backend once for three sequences, written into their rows in place;
+    every sequence equal to the bit to its solo tick, the stacked maps
+    keeping their storage."""
+    from dsopp_tpu_torch.tracker import batched_loop as bl
+    from dsopp_tpu_torch.tracker.device_loop import PipelinedTracker, device_tick
+
+    _, _, trackers, images = batch4
+    pipes = [PipelinedTracker(t) for t in trackers]
+    states = [p.state for p in pipes]
+    states[1] = states[1]._replace(kf_rmse=torch.full_like(states[1].kf_rmse, 1e9))
+    models, loop = pipes[0].models, pipes[0].cfg._replace(keyframe_factor=0.0)
+    forced = (True, False, True, True)
+    stack = bl.stack_states(states)
+    ptr = stack.window.maps.data_ptr()
+    new, diag = bl.batched_device_tick(stack, images, [6] * 4, list(forced), models,
+                                       pipes[0].mask, loop)
+    assert diag.is_keyframe == forced
+    assert new.window.maps.data_ptr() == ptr
+    leaves = []
+    bl._tree_map(lambda x: leaves.append(x) or x, new)
+    for b in range(4):
+        state, _ = device_tick(states[b], images[b], 6, forced[b], models, loop)
+        solo = []
+        bl._tree_map(lambda x: solo.append(x) or x, state)
+        assert all(torch.equal(x[b], y) for x, y in zip(leaves, solo)), b

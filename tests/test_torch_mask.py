@@ -138,13 +138,13 @@ def test_masked_device_tick_matches(seq):
 
 def test_no_mask_hands_none_to_the_candidate_selection(seq, monkeypatch):
     seen = []
-    real = fused_keyframe.select_candidates
+    real = fused_keyframe.select_candidates_sequences
 
-    def spy(pixel_map, num_points, mask=None, **kwargs):
+    def spy(maps, seqs, num_points, mask=None, **kwargs):
         seen.append(mask)
-        return real(pixel_map, num_points, mask=mask, **kwargs)
+        return real(maps, seqs, num_points, mask=mask, **kwargs)
 
-    monkeypatch.setattr(fused_keyframe, "select_candidates", spy)
+    monkeypatch.setattr(fused_keyframe, "select_candidates_sequences", spy)
     tracker = MonocularTracker(_camera(seq), TrackerConfig(**CFG), dtype=torch.float64,
                                device="cpu")
     poses = _jposes(seq, 3)
